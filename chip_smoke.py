@@ -1,0 +1,359 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card and check it.
+
+    python3 chip_smoke.py
+
+What it does, in order (any failed phase exits non-zero):
+  1. prints the card's name and power limit (nvidia-smi);
+  2. builds every CUDA kernel of the path from ``recommendation_tpu_torch/csrc``;
+  3. kernel phase: holds each kernel against its plain PyTorch version on
+     the card, at the serving shape and at an unaligned one, and times the
+     kernel, the plain version and the nearest library calls;
+  4. serve phase (the main path): synthetic ML-100K (the ``bench.py``
+     configuration), LightGCN d=64 L=3 with seeded random weights, saved and
+     reloaded through ``weights``; ``cli.build_service`` on ``cuda``; 320
+     requests from 16 client threads through the MicroBatcher and one
+     ``GET /recommend`` over HTTP, each answer held against the plain path's
+     on the card. Launch counts are reset just before and read just after.
+     It runs in bf16 (``bench.py``'s default) and in f32 (the CLI's default);
+  5. prints the kernels line, the serving line and, last, the device line.
+
+Exits non-zero without printing a result where no CUDA device is present.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+import urllib.request
+
+import numpy as np
+import torch
+
+from recommendation_tpu_torch.cli import build_service
+from recommendation_tpu_torch.config import default_config
+from recommendation_tpu_torch.data.interaction import Interaction
+from recommendation_tpu_torch.data.synthetic import make_synthetic_dataset
+from recommendation_tpu_torch.evalx.ranking import evaluate_ranking
+from recommendation_tpu_torch.graph.device import DeviceGraph
+from recommendation_tpu_torch.models import build
+from recommendation_tpu_torch.ops import build as kernels
+from recommendation_tpu_torch.ops.prop import chain_mean, chain_mean_plain
+from recommendation_tpu_torch.ops.topk import topk_agree
+from recommendation_tpu_torch.serve.http import serve_http
+from recommendation_tpu_torch.serve.service import RecommenderService
+from recommendation_tpu_torch.weights import load_params, save_params
+
+# H100 SXM data sheet peaks (dense): the least time any kernel could take
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+SERVE_SHAPE = dict(n_users=943, n_items=1682, n_interactions=100_000, seed=7)
+EMB, LAYERS, K = 64, 3, 10
+# kernel vs plain: the JAX kernel's own test bounds (tests/test_pallas_prop.py)
+TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (2e-2, 2e-3)}  # (rtol, atol)
+N_CLIENTS, REQS_PER_CLIENT = 16, 20
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 30) -> float:
+    """Median device time of ``fn`` with a cold L2 (a 64 MB write between
+    runs): the chain runs once per model load, so R̂ is not cached."""
+    flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(reps)]
+    for start, end in ev:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+
+def chain_bound(r, d, n_layers):
+    """(bound_ms, bound_by): bytes = R̂ + the tables in + the means out,
+    each once; operations = 2L products of 2·U·I·d at R̂'s type's peak."""
+    n_users, n_items = r.shape
+    nbytes = r.numel() * r.element_size() + 2 * (n_users + n_items) * d * 4
+    flops = 2 * n_layers * 2 * n_users * n_items * d
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[r.dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def library_chain(r, u0, i0, n_layers):
+    """The same chain as 2L cuBLAS matmuls in R̂'s type: a yardstick only."""
+    u, i = u0.to(r.dtype), i0.to(r.dtype)
+    for _ in range(n_layers):
+        u, i = torch.matmul(r, i), torch.matmul(r.T, u)
+    return u, i
+
+
+def compare(name, got, want, dtype):
+    rtol, atol = TOL[dtype]
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    for g, w in zip(got, want):
+        if not (torch.isfinite(g).all() and torch.allclose(g, w, rtol=rtol, atol=atol)):
+            raise RuntimeError(f"{name}: kernel disagrees with plain (max abs err {err})")
+    return err
+
+
+def kernel_phase(graphs, params):
+    rows = {}
+    rng = np.random.default_rng(0)
+    for dtype, graph in graphs.items():
+        r = graph.propagation_matrix
+        u0, i0 = params["user_emb"], params["item_emb"]
+        err = compare(f"chain_mean {dtype} serve shape",
+                      chain_mean(r, u0, i0, LAYERS), chain_mean_plain(r, u0, i0, LAYERS), dtype)
+        # unaligned shape, O(1) values, as the JAX kernel's test
+        for n_layers in (1, 3):
+            ru = torch.from_numpy(rng.normal(size=(37, 53)).astype(np.float32) * 0.1)
+            ru = ru.to("cuda", dtype)
+            uu = torch.from_numpy(rng.normal(size=(37, 8)).astype(np.float32)).cuda()
+            iu = torch.from_numpy(rng.normal(size=(53, 8)).astype(np.float32)).cuda()
+            compare(f"chain_mean {dtype} 37x53x8 L={n_layers}", chain_mean(ru, uu, iu, n_layers),
+                    chain_mean_plain(ru, uu, iu, n_layers), dtype)
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: chain_mean(r, u0, i0, LAYERS))
+        plain_ms = time_ms(lambda: chain_mean_plain(r, u0, i0, LAYERS))
+        library_ms = time_ms(lambda: library_chain(r, u0, i0, LAYERS))
+        bound_ms, bound_by = chain_bound(r, EMB, LAYERS)
+        rows[dtype] = {
+            "name": "chain_mean",
+            "dtype": str(dtype).replace("torch.", ""),
+            "route": "cuda",
+            "source": "recommendation_tpu_torch/csrc/chain_mean.cu",
+            "replaces": "recommendation_tpu/ops/pallas_prop.py:66",
+            "shape": [r.shape[0], r.shape[1], EMB, LAYERS],
+            "launches": 0,
+            "max_abs_err": err,
+            "ms": ms,
+            "kernel_ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_us": bound_ms * 1e3,
+            "bound_by": bound_by,
+            "library_ms": library_ms,
+        }
+    return rows
+
+
+def score_tolerance(u_a, i_a, u_b, i_b):
+    """A bound on |s_a - s_b| for s = u·i implied by the two embeddings'
+    difference, plus f32 rounding of the dot products themselves."""
+    du = (u_a - u_b).abs().max().item()
+    di = (i_a - i_b).abs().max().item()
+    l1_u = u_b.abs().sum(1).max().item()
+    l1_i = i_b.abs().sum(1).max().item()
+    return du * l1_i + di * l1_u + 1e-6 * l1_u * l1_i + 1e-9
+
+
+def profile_waves(service, wave: int = 16, n_waves: int = 20):
+    """Where one request wave's time goes: torch.profiler over ``n_waves``
+    direct device queries of ``wave`` users (the MicroBatcher's typical wave
+    at 16 clients). Returns host wall per wave, device time per wave, the
+    device's idle share and the five kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    uids = list(range(wave))
+    service._recommend_ids_device(uids, K)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_waves):
+            service._recommend_ids_device(uids, K)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    if device_us <= 0:
+        return {"wave_users": wave, "host_us_per_wave": wall_us / n_waves,
+                "device_us_per_wave": "not measured"}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return {
+        "wave_users": wave,
+        "host_us_per_wave": wall_us / n_waves,
+        "device_us_per_wave": device_us / n_waves,
+        "device_idle_share": 1.0 - device_us / wall_us,
+        "top_kernels_us_per_wave": {e.key[:60]: e.self_device_time_total / n_waves for e in top},
+    }
+
+
+def serve_phase(compute_dtype, ckpt, train, test):
+    """The main path at one compute dtype; returns (launches, stats)."""
+    config = default_config(**{
+        "embedding.size": EMB, "LightGCN.n_layers": LAYERS, "graph.compute_dtype": compute_dtype,
+    })
+    chain_mean.launches = 0
+    t0 = time.perf_counter()
+    service = build_service("lightgcn", ckpt, config, train, test, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    data, graph = service.data, service.graph
+    users = list(data.user)
+    latencies, answers, errors = [], {}, []
+    lock = threading.Lock()
+    gate = threading.Barrier(N_CLIENTS)
+
+    def client(c):
+        try:
+            gate.wait(timeout=60)
+            for j in range(REQS_PER_CLIENT):
+                uid = data.get_user_id(users[(c * REQS_PER_CLIENT + j) * 7 % len(users)])
+                t = time.perf_counter()
+                s, i = service.recommend_ids([uid], K)
+                dt = time.perf_counter() - t
+                with lock:
+                    latencies.append(dt)
+                    answers[(c, j)] = (uid, s[0], i[0])
+        except Exception as e:  # noqa: BLE001 - reported and failed below
+            with lock:
+                errors.append(repr(e))
+
+    batcher = service.enable_batching()
+    server = serve_http(service, port=0, background=True)
+    try:
+        # one untimed request first: the dispatcher thread's first CUDA
+        # calls set up its cuBLAS handle, which is start-up, not serving
+        service.recommend_ids([0], K)
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(N_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads):
+            raise RuntimeError(f"serve clients failed: {errors[:3]}")
+        http_user = users[1]
+        url = f"http://127.0.0.1:{server.server_address[1]}/recommend?user={http_user}&k={K}"
+        with urllib.request.urlopen(url, timeout=60) as resp:
+            http_items = json.load(resp)["items"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.disable_batching()
+    launches = chain_mean.launches  # read just after the main path
+
+    # the plain path on the card: same graph, same weights, plain chain
+    params = load_params(ckpt, "lightgcn", device=graph.device)
+    plain_u, plain_i = chain_mean_plain(
+        graph.propagation_matrix, params["user_emb"], params["item_emb"], LAYERS
+    )
+    dtype = graph.propagation_matrix.dtype
+    compare(f"serve embeddings {compute_dtype}", (service.user_emb, service.item_emb),
+            (plain_u, plain_i), dtype)
+    plain = RecommenderService(plain_u, plain_i, data, graph)
+    tol = score_tolerance(service.user_emb, service.item_emb, plain_u, plain_i)
+    keys = sorted(answers)
+    uids = [answers[key][0] for key in keys]
+    s_plain, i_plain = plain.recommend_ids(uids, K)
+    s_got = np.stack([answers[key][1] for key in keys])
+    i_got = np.stack([answers[key][2] for key in keys])
+    if s_got.shape != (len(keys), K) or not np.isfinite(s_got).all():
+        raise RuntimeError(f"serve answers malformed: shape {s_got.shape}")
+    if not topk_agree(s_got, i_got, s_plain, i_plain, tol):
+        raise RuntimeError(f"served answers differ from the plain path's (tol {tol})")
+    s_h, i_h = plain.recommend_ids([data.get_user_id(http_user)], K)
+    s_http = np.array([[x["score"] for x in http_items]], np.float32)
+    i_http = np.array([[data.get_item_id(x["item"]) for x in http_items]])
+    if not topk_agree(s_http, i_http, s_h, i_h, tol):
+        raise RuntimeError("HTTP answer differs from the plain path's")
+    if not (service.user_emb.is_cuda and service.item_emb.is_cuda
+            and graph.propagation_matrix.is_cuda and graph.user_positives.is_cuda):
+        raise RuntimeError("serving tables are not on the card")
+    metrics = evaluate_ranking(service.user_emb, service.item_emb, data, graph, Ns=(20,)).metrics
+    plain_metrics = evaluate_ranking(plain_u, plain_i, data, graph, Ns=(20,)).metrics
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"metrics not finite: {metrics}")
+    lat_ms = sorted(x * 1e3 for x in latencies)
+    stats = {
+        "profile": profile_waves(service),
+        "compute_dtype": compute_dtype,
+        "requests": len(latencies) + 1,
+        "clients": N_CLIENTS,
+        "k": K,
+        "device_calls": batcher.stats["device_calls"],
+        "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)),
+        "qps": len(latencies) / wall,
+        "service_build_s": build_s,
+        "score_tol": tol,
+        "recall@20": metrics["Recall@20"],
+        "plain_recall@20": plain_metrics["Recall@20"],
+        "ndcg@20": metrics["NDCG@20"],
+    }
+    return launches, stats
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; this script runs on the card",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(card)
+
+    t0 = time.perf_counter()
+    kernels.build_all()
+    print(f"built {list(kernels.SOURCES)} in {time.perf_counter() - t0:.1f} s")
+    for name, log in kernels.build_logs.items():
+        for line in log.splitlines():
+            if "registers" in line:
+                print(f"  {name}: {line.strip()}")
+
+    train, test = make_synthetic_dataset(**SERVE_SHAPE)
+    data = Interaction(train, test)
+    graphs = {
+        torch.bfloat16: DeviceGraph(data, compute_dtype="bfloat16", device="cuda"),
+        torch.float32: DeviceGraph(data, compute_dtype="float32", device="cuda"),
+    }
+    model = build("lightgcn", default_config(**{"embedding.size": EMB, "LightGCN.n_layers": LAYERS}))
+    params, _ = model.init(torch.Generator().manual_seed(0), graphs[torch.float32])
+    print(f"graph U={data.user_num} I={data.item_num} edges={len(data.edge_users)} d={EMB} L={LAYERS}")
+
+    rows = kernel_phase(graphs, params)
+
+    serve = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = f"{tmp}/lightgcn.npz"
+        save_params(ckpt, params)
+        for dtype, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+            launches, stats = serve_phase(name, ckpt, train, test)
+            if launches <= 0:
+                raise RuntimeError(f"chain_mean was not launched on the {name} serving path")
+            rows[dtype]["launches"] = launches
+            stats["card"] = card
+            serve.append(stats)
+            if stats["requests"] < 256:
+                raise RuntimeError(f"only {stats['requests']} requests answered")
+
+    print(json.dumps({"serve": serve}))
+    print(json.dumps({"kernels": list(rows.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,3 @@
+from recommendation_tpu_torch.cli import main
+
+raise SystemExit(main())

@@ -1,0 +1,184 @@
+// One layer of the dense bipartite LightGCN chain, on Hopper (sm_90a).
+//
+// Replaces the forward of the Pallas kernel
+// recommendation_tpu/ops/pallas_prop.py::_chain_kernel (forward=True), which
+// computes, with R̂ resident in VMEM for the whole chain,
+//
+//     u_{k+1} = R̂ · i_k ;  i_{k+1} = R̂ᵀ · u_k          (k = 0 .. L-1)
+//     out     = mean(layers 0 .. L)
+//
+// with f32 accumulation and, when R̂ is bf16, the running table rounded to
+// bf16 right before each product.
+//
+// What bounds it on an H100: at the serving shape (943 x 1676, d = 64, L = 3)
+// the chain is 1.21 GFLOP. In bf16 it reads R̂ (3.16 MB) and the tables
+// (about 1.3 MB) once: about 1.3 us at 3.35 TB/s, so the bytes bound it. In
+// f32 it is about 18 us of FFMA at 67 TFLOP/s, so the operations bound it.
+//
+// What this design does about it: R̂ (at most a few MB on the dense backend)
+// does not fit one SM's shared memory, but it does fit the 50 MB L2, so each
+// layer is one launch that reads R̂ through L2 instead of keeping it on chip.
+// One launch computes both halves of a layer: blocks [0, nbu) tile the U
+// rows of u_new = R̂·i, blocks [nbu, nbu + nbi) tile the I rows of
+// i_new = R̂ᵀ·u. Both halves read the OLD tables and write new buffers, so
+// the order of updates does not matter. A block stages a 32-deep slice of R̂
+// and of the source table in shared memory per step; R̂ is always loaded
+// along its rows (coalesced), and the R̂ᵀ side reads the staged tile across.
+// Products are FFMA in f32 (a bf16 x bf16 product is exact in f32, so this
+// equals preferred_element_type=f32; no TF32). The epilogue folds the
+// layer-mean readout: acc_out = (acc_in + new) * scale, where scale is 1 on
+// all but the last layer and 1/(L+1) on the last, the same operations in the
+// same order as the plain chain. Ragged edges are masked; nothing is padded.
+// wgmma, TMA and a persistent chain are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int TM = 16;       // output rows per block
+constexpr int TK = 32;       // reduction depth staged per step
+constexpr int TD = 64;       // output columns per block (gridDim.y covers d)
+constexpr int THREADS = 128; // 16 column groups of 4 x 8 row pairs
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// The running table as the product sees it: rounded to R̂'s type
+// (round to nearest even, as jnp.astype) and widened back for the FFMA.
+__device__ __forceinline__ float as_operand(float x, float) { return x; }
+__device__ __forceinline__ float as_operand(float x, __nv_bfloat16) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+chain_layer_kernel(const T* __restrict__ r, const float* __restrict__ src_u,
+                   const float* __restrict__ src_i, float* __restrict__ dst_u,
+                   float* __restrict__ dst_i, const float* acc_in_u,
+                   const float* acc_in_i, float* acc_out_u, float* acc_out_i,
+                   int n_users, int n_items, int d, float scale, int write_next) {
+    // As[kk][row]: R̂ slice, always indexed (reduction step, output row).
+    __shared__ float As[TK][TM + 1];
+    __shared__ __align__(16) float Bs[TK][TD];
+
+    const int nbu = (n_users + TM - 1) / TM;
+    const bool user_side = blockIdx.x < nbu;
+    // user side: out = R̂ · src_i over U rows, reduction over I
+    // item side: out = R̂ᵀ · src_u over I rows, reduction over U
+    const int row0 = (user_side ? blockIdx.x : blockIdx.x - nbu) * TM;
+    const int n_out = user_side ? n_users : n_items;
+    const int n_red = user_side ? n_items : n_users;
+    const float* src = user_side ? src_i : src_u;
+    float* dst = user_side ? dst_u : dst_i;
+    const float* acc_in = user_side ? acc_in_u : acc_in_i;
+    float* acc_out = user_side ? acc_out_u : acc_out_i;
+
+    const int col0 = blockIdx.y * TD;
+    const int tid = threadIdx.x;
+    const int tx = tid % 16;  // columns col0 + 4*tx .. +3
+    const int ty = tid / 16;  // rows row0 + ty and row0 + ty + 8
+
+    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+
+    for (int k0 = 0; k0 < n_red; k0 += TK) {
+        if (user_side) {
+            // R̂[row0 + a][k0 + b]: 32 consecutive k per warp
+            const int b = tid % TK;
+            for (int a = tid / TK; a < TM; a += THREADS / TK) {
+                const int m = row0 + a, k = k0 + b;
+                As[b][a] = (m < n_users && k < n_items)
+                    ? to_float(r[(size_t)m * n_items + k]) : 0.f;
+            }
+        } else {
+            // R̂[k0 + a][row0 + b]: 16 consecutive item columns per half warp
+            const int b = tid % TM;
+            for (int a = tid / TM; a < TK; a += THREADS / TM) {
+                const int m = k0 + a, n = row0 + b;
+                As[a][b] = (m < n_users && n < n_items)
+                    ? to_float(r[(size_t)m * n_items + n]) : 0.f;
+            }
+        }
+        {
+            const int c = tid % TD;
+            for (int a = tid / TD; a < TK; a += THREADS / TD) {
+                const int k = k0 + a, col = col0 + c;
+                Bs[a][c] = (k < n_red && col < d)
+                    ? as_operand(src[(size_t)k * d + col], T()) : 0.f;
+            }
+        }
+        __syncthreads();
+#pragma unroll 8
+        for (int kk = 0; kk < TK; ++kk) {
+            const float a0 = As[kk][ty];
+            const float a1 = As[kk][ty + 8];
+            const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][4 * tx]);
+            acc[0][0] = fmaf(a0, b.x, acc[0][0]);
+            acc[0][1] = fmaf(a0, b.y, acc[0][1]);
+            acc[0][2] = fmaf(a0, b.z, acc[0][2]);
+            acc[0][3] = fmaf(a0, b.w, acc[0][3]);
+            acc[1][0] = fmaf(a1, b.x, acc[1][0]);
+            acc[1][1] = fmaf(a1, b.y, acc[1][1]);
+            acc[1][2] = fmaf(a1, b.z, acc[1][2]);
+            acc[1][3] = fmaf(a1, b.w, acc[1][3]);
+        }
+        __syncthreads();
+    }
+
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+        const int row = row0 + ty + 8 * p;
+        if (row >= n_out) continue;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const int col = col0 + 4 * tx + q;
+            if (col >= d) continue;
+            const size_t off = (size_t)row * d + col;
+            const float v = acc[p][q];
+            if (write_next) dst[off] = v;
+            acc_out[off] = (acc_in[off] + v) * scale;
+        }
+    }
+}
+
+template <typename T>
+int launch(const void* r, const float* src_u, const float* src_i, float* dst_u,
+           float* dst_i, const float* acc_in_u, const float* acc_in_i,
+           float* acc_out_u, float* acc_out_i, int n_users, int n_items, int d,
+           float scale, int write_next, void* stream) {
+    const int nbu = (n_users + TM - 1) / TM;
+    const int nbi = (n_items + TM - 1) / TM;
+    const dim3 grid(nbu + nbi, (d + TD - 1) / TD);
+    chain_layer_kernel<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(r), src_u, src_i, dst_u, dst_i, acc_in_u, acc_in_i,
+        acc_out_u, acc_out_i, n_users, n_items, d, scale, write_next);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C interface for ctypes. Each call is one launch of one layer on the
+// given stream; it returns cudaGetLastError() (0 on success).
+extern "C" int chain_layer_f32(const void* r, const float* src_u, const float* src_i,
+                               float* dst_u, float* dst_i, const float* acc_in_u,
+                               const float* acc_in_i, float* acc_out_u,
+                               float* acc_out_i, int n_users, int n_items, int d,
+                               float scale, int write_next, void* stream) {
+    return launch<float>(r, src_u, src_i, dst_u, dst_i, acc_in_u, acc_in_i, acc_out_u,
+                         acc_out_i, n_users, n_items, d, scale, write_next, stream);
+}
+
+extern "C" int chain_layer_bf16(const void* r, const float* src_u, const float* src_i,
+                                float* dst_u, float* dst_i, const float* acc_in_u,
+                                const float* acc_in_i, float* acc_out_u,
+                                float* acc_out_i, int n_users, int n_items, int d,
+                                float scale, int write_next, void* stream) {
+    return launch<__nv_bfloat16>(r, src_u, src_i, dst_u, dst_i, acc_in_u, acc_in_i,
+                                 acc_out_u, acc_out_i, n_users, n_items, d, scale,
+                                 write_next, stream);
+}
+
+extern "C" const char* chain_error_string(int code) {
+    return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

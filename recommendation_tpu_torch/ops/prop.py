@@ -1,0 +1,135 @@
+"""Dense bipartite LightGCN layer chain: kernel K1 and its plain version.
+
+Counterpart of ``recommendation_tpu/ops/pallas_prop.py::dense_chain_mean``
+(forward, ``_chain_kernel(forward=True)``). Both functions compute
+
+    u_{k+1} = R̂ · i_k ;  i_{k+1} = R̂ᵀ · u_k          (k = 0 .. L-1)
+    (mean of u_0..u_L, mean of i_0..i_L)
+
+with f32 accumulation. When R̂ is bf16 the running table is rounded to bf16
+right before each product, as the JAX chain's ``astype`` does.
+
+``chain_mean`` launches the hand-written CUDA kernel
+(``csrc/chain_mean.cu``, one launch per layer) for CUDA tensors and takes
+``chain_mean_plain`` only for CPU tensors. There is no fallback from the
+kernel to the plain version on the card: a CUDA input goes through the
+kernel or raises. ``chain_mean.launches`` counts the kernel's launches.
+
+The backward (the JAX kernel's Horner chain, ``forward=False``) belongs to
+training and is not here yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def chain_mean_plain(r: torch.Tensor, u0: torch.Tensor, i0: torch.Tensor, n_layers: int):
+    """The chain in plain torch, on any device.
+
+    Reproduces ``preferred_element_type=f32``: ``torch.matmul`` of two bf16
+    tensors returns bf16, so the bf16 regime widens R̂ and the rounded table
+    to f32 before the product (every bf16 x bf16 product is exact in f32)."""
+    rf = r.float()
+    if r.dtype == torch.bfloat16:
+        def cast(x):
+            return x.to(torch.bfloat16).float()
+    else:
+        def cast(x):
+            return x
+    u, i = u0.float(), i0.float()
+    acc_u, acc_i = u, i
+    for _ in range(n_layers):
+        u, i = rf @ cast(i), rf.T @ cast(u)
+        acc_u, acc_i = acc_u + u, acc_i + i
+    inv = 1.0 / (n_layers + 1.0)
+    return acc_u * inv, acc_i * inv
+
+
+def _check(r, u0, i0, n_layers):
+    if r.dim() != 2 or u0.dim() != 2 or i0.dim() != 2:
+        raise ValueError(f"chain_mean wants 2-D tensors, got {r.dim()}, {u0.dim()}, {i0.dim()}")
+    n_users, n_items = r.shape
+    if u0.shape[0] != n_users or i0.shape[0] != n_items or u0.shape[1] != i0.shape[1]:
+        raise ValueError(
+            f"chain_mean shapes disagree: r {tuple(r.shape)}, u0 {tuple(u0.shape)}, "
+            f"i0 {tuple(i0.shape)}"
+        )
+    if r.dtype not in _DTYPES:
+        raise TypeError(f"chain_mean takes r in float32 or bfloat16, got {r.dtype}")
+    if u0.dtype != torch.float32 or i0.dtype != torch.float32:
+        raise TypeError(f"chain_mean takes float32 tables, got {u0.dtype}, {i0.dtype}")
+    if not (r.device == u0.device == i0.device):
+        raise ValueError(f"chain_mean inputs on different devices: {r.device}, {u0.device}, {i0.device}")
+    if not isinstance(n_layers, int) or n_layers < 0:
+        raise ValueError(f"n_layers must be an int >= 0, got {n_layers!r}")
+
+
+def _kernel_lib():
+    from recommendation_tpu_torch.ops.build import load
+
+    lib = load("chain_mean")
+    if not getattr(lib, "_typed", False):
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        for fn in (lib.chain_layer_f32, lib.chain_layer_bf16):
+            fn.argtypes = [ptr] * 9 + [i32, i32, i32, f32, i32, ptr]
+            fn.restype = i32
+        lib.chain_error_string.argtypes = [i32]
+        lib.chain_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def chain_mean(r: torch.Tensor, u0: torch.Tensor, i0: torch.Tensor, n_layers: int):
+    """(mean_u f32[U, d], mean_i f32[I, d]) of the layer chain over R̂ [U, I].
+
+    ``r`` is float32 or bfloat16; ``u0`` and ``i0`` are float32. All three are
+    contiguous and on one device. CUDA tensors run the kernel; CPU tensors
+    run ``chain_mean_plain``."""
+    _check(r, u0, i0, n_layers)
+    if r.device.type == "cpu":
+        return chain_mean_plain(r, u0, i0, n_layers)
+    if r.device.type != "cuda":
+        raise ValueError(f"chain_mean runs on cuda or cpu, not {r.device}")
+    if not (r.is_contiguous() and u0.is_contiguous() and i0.is_contiguous()):
+        raise ValueError("chain_mean's kernel takes contiguous tensors")
+    n_users, n_items = r.shape
+    d = u0.shape[1]
+    out_u = torch.empty_like(u0)
+    out_i = torch.empty_like(i0)
+    if n_layers == 0:  # no product to run: the mean of layer 0 alone
+        return out_u.copy_(u0), out_i.copy_(i0)
+    lib = _kernel_lib()
+    fn = lib.chain_layer_bf16 if r.dtype == torch.bfloat16 else lib.chain_layer_f32
+    # ping-pong buffers for the running layer tables; the readout
+    # accumulates into the outputs in place
+    bufs = [(torch.empty_like(u0), torch.empty_like(i0)) for _ in range(min(n_layers - 1, 2))]
+    inv = 1.0 / (n_layers + 1.0)
+    src_u, src_i = u0, i0
+    acc_u, acc_i = u0, i0
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        for layer in range(n_layers):
+            last = layer == n_layers - 1
+            dst_u, dst_i = (src_u, src_i) if last else bufs[layer % 2]
+            code = fn(
+                r.data_ptr(), src_u.data_ptr(), src_i.data_ptr(),
+                dst_u.data_ptr(), dst_i.data_ptr(),
+                acc_u.data_ptr(), acc_i.data_ptr(), out_u.data_ptr(), out_i.data_ptr(),
+                n_users, n_items, d, inv if last else 1.0, 0 if last else 1, stream,
+            )
+            if code != 0:
+                raise RuntimeError(
+                    f"chain_mean kernel launch failed: {lib.chain_error_string(code).decode()}"
+                )
+            chain_mean.launches += 1
+            src_u, src_i = dst_u, dst_i
+            acc_u, acc_i = out_u, out_i
+    return out_u, out_i
+
+
+chain_mean.launches = 0

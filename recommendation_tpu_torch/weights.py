@@ -1,0 +1,46 @@
+"""Model parameters: import from the JAX package, and the port's checkpoint.
+
+``params_from_jax`` takes a JAX parameter pytree given as numpy arrays
+(``jax.device_get(params)``) and returns the port's tensors, name for name.
+``save_params``/``load_params`` keep the same names in one ``.npz`` file:
+the port's checkpoint for ``serve`` (the JAX package's orbax checkpoints
+cannot be read without JAX).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from recommendation_tpu_torch.device import resolve_device
+
+# parameter names of each ported model, as its JAX counterpart's init returns them
+PARAM_NAMES = {"lightgcn": ("user_emb", "item_emb")}
+
+
+def _to_tensors(model_name: str, arrays, device) -> Dict[str, torch.Tensor]:
+    names = PARAM_NAMES.get(model_name.lower())
+    if names is None:
+        raise KeyError(f"no parameter layout for model {model_name!r}; have {sorted(PARAM_NAMES)}")
+    if set(arrays) != set(names):
+        raise ValueError(f"{model_name} parameters are {sorted(names)}, got {sorted(arrays)}")
+    dev = resolve_device(device)
+    # torch.tensor copies: JAX hands out read-only views of its buffers
+    return {n: torch.tensor(np.asarray(arrays[n], dtype=np.float32)).to(dev) for n in names}
+
+
+def params_from_jax(model_name: str, params_np, device="cuda") -> Dict[str, torch.Tensor]:
+    """The port's parameters from the JAX package's pytree of numpy arrays."""
+    return _to_tensors(model_name, dict(params_np), device)
+
+
+def save_params(path: str, params: Dict[str, torch.Tensor]) -> None:
+    np.savez(path, **{n: t.detach().cpu().numpy() for n, t in params.items()})
+
+
+def load_params(path: str, model_name: str, device="cuda") -> Dict[str, torch.Tensor]:
+    with np.load(path) as f:
+        arrays = {n: f[n] for n in f.files}
+    return _to_tensors(model_name, arrays, device)

@@ -1,0 +1,148 @@
+"""Kernel K1's plain version (``ops/prop.py::chain_mean_plain``, and
+``chain_mean`` on CPU tensors) against the JAX package's layer chain: the
+Pallas kernel in interpret mode (``dense_chain_mean(..., interpret=True)``)
+and the XLA chain of ``lightgcn_propagate``.
+
+Tolerances: where both sides multiply the same real graph, rtol 1e-5 /
+atol 1e-6 in both regimes (the two sum in another order; the bf16 regime
+rounds the same f32 tables to bf16). On random O(1) inputs the bf16 regime
+uses the JAX kernel's own test bounds, rtol 2e-2 / atol 2e-3: a different
+summation order can move a table across a bf16 rounding boundary.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from recommendation_tpu.data.interaction import Interaction as JaxInteraction
+from recommendation_tpu.graph.device import DeviceGraph as JaxDeviceGraph
+from recommendation_tpu.models.lightgcn import lightgcn_propagate as jax_propagate
+from recommendation_tpu.ops.pallas_prop import dense_chain_mean
+from recommendation_tpu_torch.data.synthetic import make_synthetic_dataset
+from recommendation_tpu_torch.ops.prop import chain_mean, chain_mean_plain
+
+TIGHT = dict(rtol=1e-5, atol=1e-6)
+BF16_RANDOM = dict(rtol=2e-2, atol=2e-3)
+SERVE = dict(n_users=943, n_items=1682, n_interactions=100_000, seed=7)
+
+
+class _Adj:
+    """The one attribute of ``DeviceAdj`` the bipartite branch reads."""
+
+    def __init__(self, compute_dtype):
+        self.compute_dtype = compute_dtype
+
+
+def _tables(rng, n_u, n_i, d, scale=None):
+    if scale is None:  # xavier-uniform, as LightGCN's init
+        lim_u, lim_i = np.sqrt(6.0 / (n_u + d)), np.sqrt(6.0 / (n_i + d))
+        return (rng.uniform(-lim_u, lim_u, (n_u, d)).astype(np.float32),
+                rng.uniform(-lim_i, lim_i, (n_i, d)).astype(np.float32))
+    return (rng.normal(size=(n_u, d)).astype(np.float32) * scale,
+            rng.normal(size=(n_i, d)).astype(np.float32) * scale)
+
+
+def _ours(r_np, u0, i0, n_layers, dtype):
+    r = torch.tensor(r_np).to(dtype)  # a copy: JAX's numpy views are read-only
+    u, i = chain_mean_plain(r, torch.from_numpy(u0), torch.from_numpy(i0), n_layers)
+    return u.numpy(), i.numpy()
+
+
+def _jax_xla(r_np, u0, i0, n_layers, compute_dtype):
+    u, i = jax_propagate(jnp.asarray(u0), jnp.asarray(i0), _Adj(compute_dtype), n_layers,
+                         bipartite_dense=jnp.asarray(r_np))
+    return np.asarray(u), np.asarray(i)
+
+
+def _jax_pallas(r_np, u0, i0, n_layers, compute_dtype):
+    r = jnp.asarray(r_np)
+    if compute_dtype == "bfloat16":
+        r = r.astype(jnp.bfloat16)
+    u, i = dense_chain_mean(r, jnp.asarray(u0), jnp.asarray(i0), n_layers, True)
+    return np.asarray(u), np.asarray(i)
+
+
+def _close(got, want, tol):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == np.float32
+        np.testing.assert_allclose(g, w, **tol)
+
+
+DTYPES = [("float32", torch.float32), ("bfloat16", torch.bfloat16)]
+
+
+@pytest.mark.parametrize("n_layers", [1, 3])
+@pytest.mark.parametrize("compute_dtype,dtype", DTYPES, ids=["f32", "bf16"])
+def test_unaligned_random_matches_pallas_interpret(n_layers, compute_dtype, dtype):
+    rng = np.random.default_rng(0)
+    n_u, n_i, d = 37, 53, 8  # deliberately unaligned, as tests/test_pallas_prop.py
+    r = rng.normal(size=(n_u, n_i)).astype(np.float32) * 0.1
+    u0, i0 = _tables(rng, n_u, n_i, d, scale=1.0)
+    tol = TIGHT if dtype == torch.float32 else BF16_RANDOM
+    want = _jax_pallas(r, u0, i0, n_layers, compute_dtype)
+    _close(_ours(r, u0, i0, n_layers, dtype), want, tol)
+    _close(_jax_xla(r, u0, i0, n_layers, compute_dtype), want, tol)
+
+
+@pytest.mark.parametrize("n_layers", [1, 3])
+@pytest.mark.parametrize("compute_dtype,dtype", DTYPES, ids=["f32", "bf16"])
+def test_tiny_graph_matches_pallas_and_xla(tiny_graph, n_layers, compute_dtype, dtype):
+    rng = np.random.default_rng(1)
+    r = np.asarray(tiny_graph.interaction_norm_dense)
+    u0, i0 = _tables(rng, r.shape[0], r.shape[1], 16)
+    got = _ours(r, u0, i0, n_layers, dtype)
+    _close(got, _jax_pallas(r, u0, i0, n_layers, compute_dtype), TIGHT)
+    _close(got, _jax_xla(r, u0, i0, n_layers, compute_dtype), TIGHT)
+
+
+@pytest.fixture(scope="module")
+def serve_r_hat():
+    """R̂ of the serving shape: synthetic ML-100K as bench.py builds it."""
+    train, test = make_synthetic_dataset(**SERVE)
+    graph = JaxDeviceGraph(JaxInteraction(train, test), backend="dense")
+    return np.asarray(graph.interaction_norm_dense)
+
+
+@pytest.mark.parametrize("compute_dtype,dtype", DTYPES, ids=["f32", "bf16"])
+def test_serve_shape_matches_xla_chain(serve_r_hat, compute_dtype, dtype):
+    assert serve_r_hat.shape == (943, 1676)
+    rng = np.random.default_rng(2)
+    u0, i0 = _tables(rng, 943, 1676, 64)
+    got = _ours(serve_r_hat, u0, i0, 3, dtype)
+    _close(got, _jax_xla(serve_r_hat, u0, i0, 3, compute_dtype), TIGHT)
+    _close(got, _jax_pallas(serve_r_hat, u0, i0, 3, compute_dtype), TIGHT)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chain_mean_on_cpu_is_the_plain_version(dtype):
+    rng = np.random.default_rng(3)
+    r = torch.from_numpy(rng.normal(size=(11, 7)).astype(np.float32)).to(dtype)
+    u0 = torch.from_numpy(rng.normal(size=(11, 5)).astype(np.float32))
+    i0 = torch.from_numpy(rng.normal(size=(7, 5)).astype(np.float32))
+    before = chain_mean.launches
+    for n_layers in (0, 1, 2, 3, 4):
+        got = chain_mean(r, u0, i0, n_layers)
+        want = chain_mean_plain(r, u0, i0, n_layers)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(chain_mean(r, u0, i0, 0)[0], u0)
+    assert chain_mean.launches == before  # the kernel never ran on the CPU
+
+
+def test_chain_mean_checks_its_inputs():
+    r = torch.zeros(4, 3)
+    u0, i0 = torch.zeros(4, 2), torch.zeros(3, 2)
+    with pytest.raises(TypeError):
+        chain_mean(r.half(), u0, i0, 1)
+    with pytest.raises(TypeError):
+        chain_mean(r, u0.double(), i0, 1)
+    with pytest.raises(ValueError):
+        chain_mean(r, torch.zeros(5, 2), i0, 1)
+    with pytest.raises(ValueError):
+        chain_mean(r, u0, torch.zeros(3, 4), 1)
+    with pytest.raises(ValueError):
+        chain_mean(r[None], u0, i0, 1)
+    with pytest.raises(ValueError):
+        chain_mean(r, u0, i0, -1)
+    with pytest.raises(ValueError):
+        chain_mean(r.to("meta"), u0.to("meta"), i0.to("meta"), 1)
