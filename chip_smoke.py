@@ -1,23 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+card and check them.
 
     python3 chip_smoke.py
 
 What it does, in order (any failed phase exits non-zero):
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds every CUDA kernel of the path from ``recommendation_tpu_torch/csrc``;
-  3. kernel phase: holds each kernel against its plain PyTorch version on
-     the card, at the serving shape and at an unaligned one, and times the
-     kernel, the plain version and the nearest library calls;
-  4. serve phase (the main path): synthetic ML-100K (the ``bench.py``
-     configuration), LightGCN d=64 L=3 with seeded random weights, saved and
-     reloaded through ``weights``; ``cli.build_service`` on ``cuda``; 320
-     requests from 16 client threads through the MicroBatcher and one
-     ``GET /recommend`` over HTTP, each answer held against the plain path's
-     on the card. Launch counts are reset just before and read just after.
-     It runs in bf16 (``bench.py``'s default) and in f32 (the CLI's default);
-  5. prints the kernels line, the serving line and, last, the device line.
+  2. builds every CUDA kernel of the paths from ``recommendation_tpu_torch/csrc``;
+  3. kernel phase: holds each kernel (K1 ``chain_mean``, K2
+     ``chain_mean_bwd``) against its plain PyTorch version on the card, at
+     the serving shape and at an unaligned one, and times the kernel, the
+     plain version and the nearest library calls;
+  4. one-step check: one training step's loss and gradients through
+     ``ChainMean`` (K1 + K2) against autograd through the plain chain on the
+     same batch, at the bench shape;
+  5. serve phase: synthetic ML-100K (the ``bench.py`` configuration),
+     LightGCN d=64 L=3 with seeded random weights, saved and reloaded
+     through ``weights``; ``cli.build_service`` on ``cuda``; 320 requests
+     from 16 client threads through the MicroBatcher and one ``GET
+     /recommend`` over HTTP, each answer held against the plain path's on
+     the card. It runs in bf16 (``bench.py``'s default) and in f32 (the
+     CLI's default);
+  6. train phase: ``GraphRecommender`` on ``cuda`` at the bench shape
+     (B=2048, Adam 1e-3) for TRAIN_EPOCHS epochs with an evaluation after
+     each, then a few requests from ``RecommenderService.from_recommender``.
+     The mean loss must fall, Recall@20 must beat the most-popular list
+     (and come within 0.005 of it with train positives masked),
+     K1 and K2 must launch 3 times a step (plus K1 for each evaluation),
+     and a ``torch.profiler`` window of 20 steps says where the step's time
+     goes. In bf16 and in f32;
+  7. prints the serving line, the training line, the kernels line and,
+     last, the device line.
 
+Launch counts are reset just before each main path and read just after it.
 Exits non-zero without printing a result where no CUDA device is present.
 """
 
@@ -40,14 +55,31 @@ from recommendation_tpu_torch.cli import build_service
 from recommendation_tpu_torch.config import default_config
 from recommendation_tpu_torch.data.interaction import Interaction
 from recommendation_tpu_torch.data.synthetic import make_synthetic_dataset
+from recommendation_tpu_torch.evalx.metrics import ranking_metrics
 from recommendation_tpu_torch.evalx.ranking import evaluate_ranking
 from recommendation_tpu_torch.graph.device import DeviceGraph
 from recommendation_tpu_torch.models import build
+from recommendation_tpu_torch.models.lightgcn import LightGCN
 from recommendation_tpu_torch.ops import build as kernels
-from recommendation_tpu_torch.ops.prop import chain_mean, chain_mean_plain
+from recommendation_tpu_torch.ops.prop import (
+    ChainMean,
+    chain_mean,
+    chain_mean_bwd,
+    chain_mean_bwd_plain,
+    chain_mean_plain,
+)
 from recommendation_tpu_torch.ops.topk import topk_agree
+from recommendation_tpu_torch.sampling import (
+    PairwiseBatch,
+    epoch_batches,
+    epoch_words,
+    popularity_baseline_topk,
+)
 from recommendation_tpu_torch.serve.http import serve_http
 from recommendation_tpu_torch.serve.service import RecommenderService
+from recommendation_tpu_torch.train.loop import run_steps
+from recommendation_tpu_torch.train.recommender import GraphRecommender
+from recommendation_tpu_torch.utils.logging import Log
 from recommendation_tpu_torch.weights import load_params, save_params
 
 # H100 SXM data sheet peaks (dense): the least time any kernel could take
@@ -56,9 +88,14 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 SERVE_SHAPE = dict(n_users=943, n_items=1682, n_interactions=100_000, seed=7)
 EMB, LAYERS, K = 64, 3, 10
-# kernel vs plain: the JAX kernel's own test bounds (tests/test_pallas_prop.py)
+# kernel vs plain: the JAX kernel's own test bounds (tests/test_pallas_prop.py),
+# on values and on gradients
 TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (2e-2, 2e-3)}  # (rtol, atol)
+GRAD_TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (3e-2, 3e-3)}
 N_CLIENTS, REQS_PER_CLIENT = 16, 20
+# training: bench.py's batch and rate; epochs enough for the loss to fall
+# and Recall@20 to pass the popularity baseline, few enough to stay short
+BATCH, LR, TRAIN_EPOCHS, PROFILE_STEPS = 2048, 1e-3, 5, 20
 
 
 def card_line() -> str:
@@ -104,8 +141,18 @@ def library_chain(r, u0, i0, n_layers):
     return u, i
 
 
-def compare(name, got, want, dtype):
-    rtol, atol = TOL[dtype]
+def library_chain_bwd(r, gu, gi, n_layers):
+    """K2's Horner chain as 2L cuBLAS matmuls in R̂'s type: a yardstick only."""
+    inv = 1.0 / (n_layers + 1.0)
+    su, si = (gu * inv).to(r.dtype), (gi * inv).to(r.dtype)
+    au, ai = su, si
+    for _ in range(n_layers):
+        au, ai = su + torch.matmul(r, ai), si + torch.matmul(r.T, au)
+    return au, ai
+
+
+def compare(name, got, want, dtype, tol=TOL):
+    rtol, atol = tol[dtype]
     err = max((g - w).abs().max().item() for g, w in zip(got, want))
     for g, w in zip(got, want):
         if not (torch.isfinite(g).all() and torch.allclose(g, w, rtol=rtol, atol=atol)):
@@ -152,6 +199,94 @@ def kernel_phase(graphs, params):
             "library_ms": library_ms,
         }
     return rows
+
+
+def kernel_phase_bwd(graphs, params):
+    """K2 against chain_mean_bwd_plain: at the serve shape on the graph's R̂
+    with O(1) cotangents, and at 37x53x8 on random O(1) inputs, L in {1, 3}."""
+    rows = {}
+    rng = np.random.default_rng(1)
+    n_users, n_items = graphs[torch.float32].propagation_matrix.shape
+    gu = torch.from_numpy(rng.normal(size=(n_users, EMB)).astype(np.float32)).cuda()
+    gi = torch.from_numpy(rng.normal(size=(n_items, EMB)).astype(np.float32)).cuda()
+    for dtype, graph in graphs.items():
+        r = graph.propagation_matrix
+        err = compare(f"chain_mean_bwd {dtype} serve shape", chain_mean_bwd(r, gu, gi, LAYERS),
+                      chain_mean_bwd_plain(r, gu, gi, LAYERS), dtype, GRAD_TOL)
+        for n_layers in (1, 3):
+            ru = torch.from_numpy(rng.normal(size=(37, 53)).astype(np.float32) * 0.1)
+            ru = ru.to("cuda", dtype)
+            gu_s = torch.from_numpy(rng.normal(size=(37, 8)).astype(np.float32)).cuda()
+            gi_s = torch.from_numpy(rng.normal(size=(53, 8)).astype(np.float32)).cuda()
+            compare(f"chain_mean_bwd {dtype} 37x53x8 L={n_layers}",
+                    chain_mean_bwd(ru, gu_s, gi_s, n_layers),
+                    chain_mean_bwd_plain(ru, gu_s, gi_s, n_layers), dtype, GRAD_TOL)
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: chain_mean_bwd(r, gu, gi, LAYERS))
+        plain_ms = time_ms(lambda: chain_mean_bwd_plain(r, gu, gi, LAYERS))
+        library_ms = time_ms(lambda: library_chain_bwd(r, gu, gi, LAYERS))
+        bound_ms, bound_by = chain_bound(r, EMB, LAYERS)  # the same work as K1
+        rows[dtype] = {
+            "name": "chain_mean_bwd",
+            "dtype": str(dtype).replace("torch.", ""),
+            "route": "cuda",
+            "source": "recommendation_tpu_torch/csrc/chain_mean.cu",
+            "replaces": "recommendation_tpu/ops/pallas_prop.py:66",
+            "shape": [r.shape[0], r.shape[1], EMB, LAYERS],
+            "launches": 0,
+            "max_abs_err": err,
+            "ms": ms,
+            "kernel_ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_us": bound_ms * 1e3,
+            "bound_by": bound_by,
+            "library_ms": library_ms,
+        }
+    return rows
+
+
+class PlainLightGCN(LightGCN):
+    """LightGCN with the plain chain (autograd through torch ops) in place
+    of ChainMean: the reference a training step is held against."""
+
+    def propagate(self, params, graph):
+        return chain_mean_plain(graph.propagation_matrix, params["user_emb"],
+                                params["item_emb"], self.n_layers)
+
+
+def one_step_check(graphs, params):
+    """One step's loss and grads through ChainMean (K1 + K2, the model's
+    path) against autograd through chain_mean_plain, on the same batch."""
+    config = default_config(**{"embedding.size": EMB, "LightGCN.n_layers": LAYERS})
+    model, plain = build("lightgcn", config), PlainLightGCN(config)
+    out = {}
+    for dtype, graph in graphs.items():
+        users, items, negs, weights, _ = epoch_batches(
+            epoch_words(torch.Generator().manual_seed(3), graph, BATCH), graph, BATCH)
+        batch = PairwiseBatch(users[0], items[0], negs[0], weights[0])
+        p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+        k1, k2 = chain_mean.launches, chain_mean_bwd.launches
+        u_all, i_all = ChainMean.apply(graph.propagation_matrix, p["user_emb"], p["item_emb"],
+                                       LAYERS)
+        if u_all.grad_fn is None or i_all.grad_fn is None:
+            raise RuntimeError("ChainMean's outputs carry no gradient on the card")
+        loss, _ = model.loss(p, {}, batch, graph)
+        grads = torch.autograd.grad(loss, [p["user_emb"], p["item_emb"]])
+        torch.cuda.synchronize()
+        if chain_mean.launches - k1 != 2 * LAYERS or chain_mean_bwd.launches - k2 != LAYERS:
+            raise RuntimeError("the step did not run through K1 and K2")
+        q = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+        plain_loss, _ = plain.loss(q, {}, batch, graph)
+        plain_grads = torch.autograd.grad(plain_loss, [q["user_emb"], q["item_emb"]])
+        err = compare(f"one-step grads {dtype}", grads, plain_grads, dtype, GRAD_TOL)
+        loss_err = abs(loss.item() - plain_loss.item())
+        rtol, atol = TOL[dtype]
+        if not (math.isfinite(loss.item()) and loss_err <= atol + rtol * abs(plain_loss.item())):
+            raise RuntimeError(f"one-step loss {loss.item()} != plain {plain_loss.item()}")
+        out[str(dtype).replace("torch.", "")] = {"loss": loss.item(), "loss_abs_err": loss_err,
+                                                 "grad_max_abs_err": err}
+    return out
 
 
 def score_tolerance(u_a, i_a, u_b, i_b):
@@ -302,6 +437,136 @@ def serve_phase(compute_dtype, ckpt, train, test):
     return launches, stats
 
 
+def popularity_recall(data, graph, n=20, masked=True):
+    """Recall@n of the most-popular ranking (``popularity_baseline_topk``):
+    the same top-n list for every user, or, ``masked``, with each user's
+    train positives taken out first, as tests/test_lightgcn.py scores it."""
+    uids = torch.from_numpy(data.test_user_ids().astype(np.int64)).to(graph.device)
+    if not masked:
+        top = popularity_baseline_topk(graph, n)
+        ids = np.broadcast_to(top, (len(uids), n))
+    else:
+        order = torch.from_numpy(popularity_baseline_topk(graph, graph.n_items)).to(graph.device)
+        score = torch.empty(graph.n_items, device=graph.device)
+        score[order] = torch.arange(graph.n_items, 0, -1, dtype=torch.float32,
+                                    device=graph.device)
+        scores = score.expand(len(uids), -1).masked_fill(graph.user_pos_mask[uids] > 0, -math.inf)
+        ids = torch.topk(scores, n, dim=1).indices.cpu().numpy()
+    return ranking_metrics(ids, data.test_items_by_user(), [n])[f"Recall@{n}"]
+
+
+def profile_steps(rec):
+    """Where one training step's time goes: torch.profiler over
+    PROFILE_STEPS steps of the trainer's loop (``train.loop.run_steps``) on the trained
+    recommender. Host wall per step, device time per step, the device's idle
+    share and the five kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    users, items, negs, weights, n_batches = epoch_batches(
+        epoch_words(torch.Generator().manual_seed(11), rec.graph, BATCH), rec.graph, BATCH)
+    n_steps = min(PROFILE_STEPS, n_batches)
+    window = (users[:n_steps], items[:n_steps], negs[:n_steps], weights[:n_steps], n_steps)
+    run_steps(rec.model, rec.optimizer, rec.graph, rec.params, rec.state,
+              (users[:1], items[:1], negs[:1], weights[:1], 1))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, loss = run_steps(rec.model, rec.optimizer, rec.graph, rec.params, rec.state, window)
+        float(loss)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device events only; the optimizer's ``Optimizer.step#...`` range is a
+    # user annotation that spans its kernels and would count them twice
+    kernels_ = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+                and not getattr(e, "is_user_annotation", False)]
+    device_us = sum(e.self_device_time_total for e in kernels_)
+    if device_us <= 0:
+        return {"steps": n_steps, "host_us_per_step": wall_us / n_steps,
+                "device_us_per_step": "not measured"}
+    top = sorted(kernels_, key=lambda e: -e.self_device_time_total)[:5]
+    return {
+        "steps": n_steps,
+        "host_us_per_step": wall_us / n_steps,
+        "device_us_per_step": device_us / n_steps,
+        "device_idle_share": 1.0 - device_us / wall_us,
+        "top_kernels_us_per_step": {e.key[:100]: e.self_device_time_total / n_steps
+                                    for e in top},
+    }
+
+
+def train_phase(compute_dtype, data):
+    """The training main path at one compute dtype; returns (launches, stats)."""
+    config = default_config(**{
+        "embedding.size": EMB, "LightGCN.n_layers": LAYERS, "batch.size": BATCH,
+        "learning.rate": LR, "optimizer": "adam", "max.epoch": TRAIN_EPOCHS,
+        "eval.interval": 1, "item.ranking.topN": [20], "graph.compute_dtype": compute_dtype,
+    })
+    chain_mean.launches, chain_mean_bwd.launches = 0, 0
+    t0 = time.perf_counter()
+    rec = GraphRecommender(build("lightgcn", config), data, config, log=Log(echo=False),
+                           device="cuda")
+    metrics = rec.execute()
+    service = RecommenderService.from_recommender(rec)
+    uids = list(range(0, data.user_num, 97))
+    s_got, i_got = service.recommend_ids(uids, K)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"chain_mean": chain_mean.launches, "chain_mean_bwd": chain_mean_bwd.launches}
+
+    graph = rec.graph
+    n_batches = -(-graph.n_edges // BATCH)
+    n_evals = len(rec.history) + 2  # the per-epoch evaluations, the final test, the service
+    want = {"chain_mean": LAYERS * (n_batches * TRAIN_EPOCHS + n_evals),
+            "chain_mean_bwd": LAYERS * n_batches * TRAIN_EPOCHS}
+    if launches != want:
+        raise RuntimeError(f"{compute_dtype} train launches {launches}, expected {want}")
+    losses = [e["loss"] for e in rec.epoch_stats]
+    if len(losses) != TRAIN_EPOCHS or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{compute_dtype} epoch losses malformed: {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"{compute_dtype} loss did not fall: {losses}")
+    # the model must beat the popularity list outright, and come within the
+    # JAX package's own 0.005 of the masked one (tests/test_lightgcn.py): on
+    # this popularity-shaped synthetic set the masked list is near-optimal
+    pop_top = popularity_recall(data, graph, 20, masked=False)
+    pop = popularity_recall(data, graph, 20)
+    if not (metrics["Recall@20"] > pop_top and metrics["Recall@20"] >= pop - 0.005):
+        raise RuntimeError(f"{compute_dtype} Recall@20 {metrics['Recall@20']} against "
+                           f"popularity {pop_top} (masked {pop})")
+    if service.user_emb.requires_grad or service.item_emb.grad_fn is not None:
+        raise RuntimeError("the served tables carry an autograd graph")
+    # the served answers against the plain chain's, on the card
+    plain_u, plain_i = chain_mean_plain(graph.propagation_matrix, rec.params["user_emb"].detach(),
+                                        rec.params["item_emb"].detach(), LAYERS)
+    s_plain, i_plain = RecommenderService(plain_u, plain_i, data, graph).recommend_ids(uids, K)
+    tol = score_tolerance(service.user_emb, service.item_emb, plain_u, plain_i)
+    if not (np.isfinite(s_got).all() and s_got.shape == (len(uids), K)
+            and topk_agree(s_got, i_got, s_plain, i_plain, tol)):
+        raise RuntimeError(f"{compute_dtype} served answers after training differ from plain")
+    mat = data.interaction_mat
+    if any(mat[u, int(i)] != 0 for u, row in zip(uids, i_got) for i in row):
+        raise RuntimeError("a train positive was recommended")
+    timed = rec.epoch_stats[1:]  # epoch 0 carries the first calls' set-up
+    stats = {
+        "compute_dtype": compute_dtype,
+        "shape": {"users": graph.n_users, "items": graph.n_items, "edges": graph.n_edges,
+                  "d": EMB, "layers": LAYERS, "batch": BATCH, "steps_per_epoch": n_batches},
+        "epochs": TRAIN_EPOCHS,
+        "epoch_losses": losses,
+        "epoch_seconds": [e["seconds"] for e in rec.epoch_stats],
+        "examples_per_s": n_batches * BATCH * len(timed) / sum(e["seconds"] for e in timed),
+        "examples_per_s_by_epoch": [e["examples_per_s"] for e in rec.epoch_stats],
+        "recall@20": metrics["Recall@20"],
+        "ndcg@20": metrics["NDCG@20"],
+        "popularity_recall@20": pop_top,
+        "masked_popularity_recall@20": pop,
+        "launches": launches,
+        "served_users": len(uids),
+        "wall_s": wall_s,
+        "profile": profile_steps(rec),
+    }
+    return launches, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs on the card",
@@ -316,8 +581,8 @@ def main() -> int:
     kernels.build_all()
     print(f"built {list(kernels.SOURCES)} in {time.perf_counter() - t0:.1f} s")
     for name, log in kernels.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line:
+        for line in log.splitlines():  # per entry function: name, spills, registers
+            if any(key in line for key in ("entry function", "spill", "registers")):
                 print(f"  {name}: {line.strip()}")
 
     train, test = make_synthetic_dataset(**SERVE_SHAPE)
@@ -331,23 +596,39 @@ def main() -> int:
     print(f"graph U={data.user_num} I={data.item_num} edges={len(data.edge_users)} d={EMB} L={LAYERS}")
 
     rows = kernel_phase(graphs, params)
+    bwd_rows = kernel_phase_bwd(graphs, params)
+    one_step = one_step_check(graphs, params)
 
     serve = []
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = f"{tmp}/lightgcn.npz"
         save_params(ckpt, params)
         for dtype, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+            chain_mean_bwd.launches = 0
             launches, stats = serve_phase(name, ckpt, train, test)
             if launches <= 0:
                 raise RuntimeError(f"chain_mean was not launched on the {name} serving path")
-            rows[dtype]["launches"] = launches
+            if chain_mean_bwd.launches != 0:
+                raise RuntimeError("serving launched the backward kernel")
+            rows[dtype]["launches_serve"] = launches
             stats["card"] = card
             serve.append(stats)
             if stats["requests"] < 256:
                 raise RuntimeError(f"only {stats['requests']} requests answered")
 
+    training = []
+    for dtype, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        launches, stats = train_phase(name, data)
+        rows[dtype]["launches"] = launches["chain_mean"]
+        rows[dtype]["launches_train"] = launches["chain_mean"]
+        bwd_rows[dtype]["launches"] = launches["chain_mean_bwd"]
+        bwd_rows[dtype]["launches_train"] = launches["chain_mean_bwd"]
+        stats["card"] = card
+        training.append(stats)
+
     print(json.dumps({"serve": serve}))
-    print(json.dumps({"kernels": list(rows.values())}))
+    print(json.dumps({"one_step": one_step, "train": training}))
+    print(json.dumps({"kernels": list(rows.values()) + list(bwd_rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

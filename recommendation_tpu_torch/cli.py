@@ -1,20 +1,27 @@
 """Command-line entry of the port.
 
   python -m recommendation_tpu_torch models
+  python -m recommendation_tpu_torch train --model lightgcn [--train T --test T] \\
+      [--set key=value ...] [--out RESULT.json] [--device cuda|cpu]
   python -m recommendation_tpu_torch serve --model lightgcn \\
-      --checkpoint PARAMS.npz [--device cuda|cpu] [--train T --test T] \\
-      [--set graph.compute_dtype=bfloat16] [--host H --port P]
+      [--checkpoint PARAMS.npz | CHECKPOINT_DIR] [--device cuda|cpu] \\
+      [--train T --test T] [--set graph.compute_dtype=bfloat16] [--host H --port P]
 
-``serve`` restores parameters saved by ``weights.save_params`` and serves
-top-k over HTTP. Training is not ported yet, so ``serve`` needs a
-checkpoint. Missing dataset paths fall back to the cached synthetic
-ML-100K-shaped set, as in the JAX package's CLI.
+``train`` runs ``GraphRecommender.execute`` and prints the test metrics as
+one JSON line (last on stdout), as the JAX package's CLI does. ``serve``
+serves top-k over HTTP from parameters saved by ``weights.save_params``
+(``.npz``), from the newest checkpoint in a directory written by
+``train.checkpoint.CheckpointManager`` (``--set checkpoint.dir=DIR``
+while training), or, without ``--checkpoint``, after training first.
+Missing dataset paths fall back to the cached synthetic ML-100K-shaped
+set, as in the JAX package's CLI.
 """
 
 from __future__ import annotations
 
 import argparse
 import ast
+import json
 import os
 import sys
 
@@ -45,15 +52,48 @@ def _load_sets(args):
     return load_or_make_dataset()
 
 
-def build_service(model_name: str, checkpoint: str, config, train, test, device="cuda"):
-    """Interaction → DeviceGraph → restored parameters → eval embeddings
-    (the layer chain) → RecommenderService: the serving path."""
+def train_recommender(model_name: str, config, train, test, device="cuda"):
+    """Interaction → DeviceGraph → GraphRecommender, built and trained:
+    the training path."""
+    from recommendation_tpu_torch.data.interaction import Interaction
+    from recommendation_tpu_torch.models import registry
+    from recommendation_tpu_torch.train.recommender import GraphRecommender
+
+    rec = GraphRecommender(registry.build(model_name, config), Interaction(train, test), config,
+                           device=device)
+    rec.print_model_info()
+    rec.build()
+    rec.train()
+    return rec
+
+
+def build_service(model_name: str, checkpoint, config, train, test, device="cuda"):
+    """Interaction → DeviceGraph → parameters → eval embeddings (the layer
+    chain) → RecommenderService: the serving path. The parameters come from
+    ``checkpoint``: an ``.npz`` of ``weights.save_params``, a directory of
+    ``CheckpointManager`` checkpoints (its newest), or, when it is None,
+    training first."""
     from recommendation_tpu_torch.data.interaction import Interaction
     from recommendation_tpu_torch.graph.device import DeviceGraph
     from recommendation_tpu_torch.models import registry
     from recommendation_tpu_torch.serve.service import RecommenderService
     from recommendation_tpu_torch.weights import load_params
 
+    if checkpoint is None:
+        return RecommenderService.from_recommender(
+            train_recommender(model_name, config, train, test, device=device))
+    if os.path.isdir(checkpoint):
+        from recommendation_tpu_torch.train.recommender import GraphRecommender
+
+        # restore-only start-up: no training pass
+        config = config.with_overrides(**{"checkpoint.dir": checkpoint,
+                                          "checkpoint.resume": True, "max.epoch": 0})
+        rec = GraphRecommender(registry.build(model_name, config), Interaction(train, test),
+                               config, device=device)
+        rec.build()
+        if rec.start_epoch == 0:
+            raise FileNotFoundError(f"no checkpoint found in {checkpoint}")
+        return RecommenderService.from_recommender(rec)
     data = Interaction(train, test)
     graph = DeviceGraph(
         data,
@@ -71,15 +111,19 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="recommendation_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     sub.add_parser("models")
-    p = sub.add_parser("serve", help="serve top-k over HTTP from saved parameters")
-    p.add_argument("--model", required=True)
-    p.add_argument("--train")
-    p.add_argument("--test")
-    p.add_argument("--set", action="append", help="config override key=value")
-    p.add_argument("--checkpoint", help="parameters saved by weights.save_params (.npz)")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    p.add_argument("--host", default="127.0.0.1")
-    p.add_argument("--port", type=int, default=8080)
+    t = sub.add_parser("train", help="train a model and print its test metrics")
+    s = sub.add_parser("serve", help="serve top-k over HTTP (trains first without --checkpoint)")
+    for p in (t, s):
+        p.add_argument("--model", required=True)
+        p.add_argument("--train")
+        p.add_argument("--test")
+        p.add_argument("--set", action="append", help="config override key=value")
+        p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    t.add_argument("--out", help="write the config and metrics as JSON here")
+    s.add_argument("--checkpoint",
+                   help="parameters saved by weights.save_params (.npz) or a checkpoint directory")
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=8080)
     args = ap.parse_args(argv)
 
     if args.cmd == "models":
@@ -88,19 +132,32 @@ def main(argv=None):
         print("\n".join(registry.available()))
         return 0
 
-    if not args.checkpoint:
-        print("error: serve needs --checkpoint PARAMS.npz: training is not ported yet "
-              "(it comes in the next slice of the port)", file=sys.stderr)
-        return 2
-    if not os.path.exists(args.checkpoint):
-        print(f"error: checkpoint not found: {args.checkpoint}", file=sys.stderr)
-        return 2
     from recommendation_tpu_torch.config import default_config
-    from recommendation_tpu_torch.serve.http import serve_http
 
     config = default_config(**_parse_sets(args.set))
     train, test = _load_sets(args)
-    service = build_service(args.model, args.checkpoint, config, train, test, device=args.device)
+
+    if args.cmd == "train":
+        rec = train_recommender(args.model, config, train, test, device=args.device)
+        metrics = rec.evaluate()
+        print(json.dumps(metrics))
+        if args.out:
+            from recommendation_tpu_torch.utils.logging import save_json
+
+            save_json(args.out, {"config": config.as_dict(), "metrics": metrics})
+        return 0
+
+    if args.checkpoint and not os.path.exists(args.checkpoint):
+        print(f"error: checkpoint not found: {args.checkpoint}", file=sys.stderr)
+        return 2
+    from recommendation_tpu_torch.serve.http import serve_http
+
+    try:
+        service = build_service(args.model, args.checkpoint, config, train, test,
+                                device=args.device)
+    except FileNotFoundError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     print(f"serving on http://{args.host}:{args.port}  (GET /recommend?user=<id>&k=10)")
     serve_http(service, host=args.host, port=args.port)
     return 0

@@ -117,3 +117,77 @@ DEFAULTS = {
 
 def default_config(**overrides: Any) -> Config:
     return Config(DEFAULTS).with_overrides(**overrides)
+
+
+class OptionConf:
+    """Parser for the reference's string-encoded flag lines.
+
+    ``OptionConf('on -topN 10,20')['-topN'] == '10,20'``; leading bare token
+    (``'on'``/``'off'``) toggles ``is_main_on``. Mirrors the behavior of
+    ``univariate/diffnet.py:505-542`` (used there for `item.ranking` and
+    cross-validation option strings).
+    """
+
+    def __init__(self, content: str):
+        self.line = content.strip().split()
+        self.options: dict[str, str] = {}
+        self.main_option = False
+        if self.line and self.line[0] in ("on", "off"):
+            self.main_option = self.line[0] == "on"
+            rest = self.line[1:]
+        else:
+            rest = self.line
+        i = 0
+        while i < len(rest):
+            if rest[i].startswith("-"):
+                key = rest[i]
+                vals = []
+                i += 1
+                while i < len(rest) and not rest[i].startswith("-"):
+                    vals.append(rest[i])
+                    i += 1
+                self.options[key] = " ".join(vals)
+            else:
+                i += 1
+
+    def is_main_on(self) -> bool:
+        return self.main_option
+
+    def contains(self, key: str) -> bool:
+        return key in self.options
+
+    def __contains__(self, key: str) -> bool:
+        return key in self.options
+
+    def __getitem__(self, key: str) -> str:
+        if key not in self.options:
+            raise KeyError(f"parameter {key!r} is invalid")
+        return self.options[key]
+
+    def keys(self):
+        return self.options.keys()
+
+
+def apply_legacy_options(conf: Config) -> Config:
+    """Translate the legacy string-flag config keys into canonical ones.
+
+    Handles the two OptionConf-encoded keys the legacy stack uses
+    (`univariate/diffnet.py:505-542`, usage 1220):
+      * ``item.ranking``: ``'on -topN 10,20'`` → ``item.ranking.topN``
+      * ``evaluation.setup``: ``'cv -k 1 -p on -rand-seed 1'`` →
+        ``eval.cv_k`` / ``eval.rand_seed`` (k=1 == the single hold-out split
+        every reference run actually uses)
+    No-ops when the keys are absent or already canonical."""
+    ranking = conf.get("item.ranking")
+    if isinstance(ranking, str):
+        opt = OptionConf(ranking)
+        if opt.is_main_on() and "-topN" in opt:
+            conf["item.ranking.topN"] = [int(x) for x in opt["-topN"].split(",")]
+    setup = conf.get("evaluation.setup")
+    if isinstance(setup, str):
+        opt = OptionConf(setup)
+        if "-k" in opt:
+            conf["eval.cv_k"] = int(opt["-k"])
+        if "-rand-seed" in opt:
+            conf["eval.rand_seed"] = int(opt["-rand-seed"])
+    return conf

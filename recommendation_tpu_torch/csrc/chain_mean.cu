@@ -1,6 +1,7 @@
-// One layer of the dense bipartite LightGCN chain, on Hopper (sm_90a).
+// One layer of the dense bipartite LightGCN chain, forward (K1) and
+// backward (K2), on Hopper (sm_90a).
 //
-// Replaces the forward of the Pallas kernel
+// K1 replaces the forward of the Pallas kernel
 // recommendation_tpu/ops/pallas_prop.py::_chain_kernel (forward=True), which
 // computes, with R̂ resident in VMEM for the whole chain,
 //
@@ -10,10 +11,23 @@
 // with f32 accumulation and, when R̂ is bf16, the running table rounded to
 // bf16 right before each product.
 //
-// What bounds it on an H100: at the serving shape (943 x 1676, d = 64, L = 3)
-// the chain is 1.21 GFLOP. In bf16 it reads R̂ (3.16 MB) and the tables
-// (about 1.3 MB) once: about 1.3 us at 3.35 TB/s, so the bytes bound it. In
-// f32 it is about 18 us of FFMA at 67 TFLOP/s, so the operations bound it.
+// K2 replaces the same Pallas kernel's backward (forward=False, reached
+// through _chain_bwd, pallas_prop.py:178-189): with the cotangents
+// prescaled by the wrapper to su = gu/(L+1), si = gi/(L+1), L rounds of the
+// Horner chain
+//
+//     au' = su + R̂ · cast(ai) ;  ai' = si + R̂ᵀ · cast(au)   (au = su, ai = si)
+//
+// both from the OLD au, ai. It is the same two products per round as K1,
+// so it shares K1's templated body and differs in the epilogue only:
+// dst = seed + acc, written to a fresh buffer (never in place: au' needs
+// the old ai and ai' the old au).
+//
+// What bounds them on an H100: at the serving shape (943 x 1676, d = 64,
+// L = 3) the chain is 1.21 GFLOP. In bf16 it reads R̂ (3.16 MB) and the
+// tables (about 1.3 MB) once: about 1.3 us at 3.35 TB/s, so the bytes
+// bound it. In f32 it is about 18 us of FFMA at 67 TFLOP/s, so the
+// operations bound it. K2 does the same work as K1.
 //
 // What this design does about it: R̂ (at most a few MB on the dense backend)
 // does not fit one SM's shared memory, but it does fit the 50 MB L2, so each
@@ -25,11 +39,11 @@
 // and of the source table in shared memory per step; R̂ is always loaded
 // along its rows (coalesced), and the R̂ᵀ side reads the staged tile across.
 // Products are FFMA in f32 (a bf16 x bf16 product is exact in f32, so this
-// equals preferred_element_type=f32; no TF32). The epilogue folds the
+// equals preferred_element_type=f32; no TF32). K1's epilogue folds the
 // layer-mean readout: acc_out = (acc_in + new) * scale, where scale is 1 on
 // all but the last layer and 1/(L+1) on the last, the same operations in the
 // same order as the plain chain. Ragged edges are masked; nothing is padded.
-// wgmma, TMA and a persistent chain are later work.
+// wgmma, TMA and a persistent chain are later work, for K1 and K2 together.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,7 +66,9 @@ __device__ __forceinline__ float as_operand(float x, __nv_bfloat16) {
     return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <typename T>
+// BWD selects the epilogue: false is K1's readout, true is K2's
+// dst = seed + acc (seed passed as acc_in; acc_out, scale, write_next unused).
+template <typename T, bool BWD>
 __global__ void __launch_bounds__(THREADS)
 chain_layer_kernel(const T* __restrict__ r, const float* __restrict__ src_u,
                    const float* __restrict__ src_i, float* __restrict__ dst_u,
@@ -136,13 +152,17 @@ chain_layer_kernel(const T* __restrict__ r, const float* __restrict__ src_u,
             if (col >= d) continue;
             const size_t off = (size_t)row * d + col;
             const float v = acc[p][q];
-            if (write_next) dst[off] = v;
-            acc_out[off] = (acc_in[off] + v) * scale;
+            if constexpr (BWD) {
+                dst[off] = acc_in[off] + v;
+            } else {
+                if (write_next) dst[off] = v;
+                acc_out[off] = (acc_in[off] + v) * scale;
+            }
         }
     }
 }
 
-template <typename T>
+template <typename T, bool BWD>
 int launch(const void* r, const float* src_u, const float* src_i, float* dst_u,
            float* dst_i, const float* acc_in_u, const float* acc_in_i,
            float* acc_out_u, float* acc_out_i, int n_users, int n_items, int d,
@@ -150,7 +170,7 @@ int launch(const void* r, const float* src_u, const float* src_i, float* dst_u,
     const int nbu = (n_users + TM - 1) / TM;
     const int nbi = (n_items + TM - 1) / TM;
     const dim3 grid(nbu + nbi, (d + TD - 1) / TD);
-    chain_layer_kernel<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+    chain_layer_kernel<T, BWD><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(r), src_u, src_i, dst_u, dst_i, acc_in_u, acc_in_i,
         acc_out_u, acc_out_i, n_users, n_items, d, scale, write_next);
     return static_cast<int>(cudaGetLastError());
@@ -165,7 +185,7 @@ extern "C" int chain_layer_f32(const void* r, const float* src_u, const float* s
                                const float* acc_in_i, float* acc_out_u,
                                float* acc_out_i, int n_users, int n_items, int d,
                                float scale, int write_next, void* stream) {
-    return launch<float>(r, src_u, src_i, dst_u, dst_i, acc_in_u, acc_in_i, acc_out_u,
+    return launch<float, false>(r, src_u, src_i, dst_u, dst_i, acc_in_u, acc_in_i, acc_out_u,
                          acc_out_i, n_users, n_items, d, scale, write_next, stream);
 }
 
@@ -174,9 +194,28 @@ extern "C" int chain_layer_bf16(const void* r, const float* src_u, const float* 
                                 const float* acc_in_i, float* acc_out_u,
                                 float* acc_out_i, int n_users, int n_items, int d,
                                 float scale, int write_next, void* stream) {
-    return launch<__nv_bfloat16>(r, src_u, src_i, dst_u, dst_i, acc_in_u, acc_in_i,
+    return launch<__nv_bfloat16, false>(r, src_u, src_i, dst_u, dst_i, acc_in_u, acc_in_i,
                                  acc_out_u, acc_out_i, n_users, n_items, d, scale,
                                  write_next, stream);
+}
+
+// K2: one round of the backward Horner chain, dst = seed + R̂-product of
+// the old (src) tables, both halves in one launch.
+extern "C" int chain_layer_bwd_f32(const void* r, const float* src_u, const float* src_i,
+                                   const float* seed_u, const float* seed_i, float* dst_u,
+                                   float* dst_i, int n_users, int n_items, int d,
+                                   void* stream) {
+    return launch<float, true>(r, src_u, src_i, dst_u, dst_i, seed_u, seed_i, nullptr,
+                               nullptr, n_users, n_items, d, 1.f, 1, stream);
+}
+
+extern "C" int chain_layer_bwd_bf16(const void* r, const float* src_u, const float* src_i,
+                                    const float* seed_u, const float* seed_i, float* dst_u,
+                                    float* dst_i, int n_users, int n_items, int d,
+                                    void* stream) {
+    return launch<__nv_bfloat16, true>(r, src_u, src_i, dst_u, dst_i, seed_u, seed_i,
+                                       nullptr, nullptr, n_users, n_items, d, 1.f, 1,
+                                       stream);
 }
 
 extern "C" const char* chain_error_string(int code) {

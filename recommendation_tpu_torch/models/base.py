@@ -16,13 +16,17 @@ import torch
 
 
 class Model:
-    """Base model: subclasses override init and eval_embeddings."""
+    """Base model: subclasses override init, loss and eval_embeddings, and
+    optionally epoch_begin and post_step."""
 
     name: str = "model"
 
     def __init__(self, config):
         self.config = config
         self.emb_size = int(config.get("embedding.size", 64))
+        self.reg = float(config.get("reg.lambda", 1e-4))
+
+    # -- parameters -----------------------------------------------------------
 
     def init(self, generator: torch.Generator, graph) -> tuple[Any, Any]:
         raise NotImplementedError
@@ -35,6 +39,30 @@ class Model:
         limit = math.sqrt(6.0 / (n + d))
         table = torch.empty(n, d, dtype=torch.float32).uniform_(-limit, limit, generator=generator)
         return table.to(device)
+
+    # -- training -------------------------------------------------------------
+
+    def make_optimizer(self, config, params):
+        """Optional model-specific optimizer over ``params``. None -> the
+        trainer's default (``train.loop.make_optimizer``)."""
+        return None
+
+    def loss(self, params: Any, state: Any, batch, graph,
+             generator: torch.Generator | None = None) -> tuple[torch.Tensor, Any]:
+        """Returns (scalar loss, new_state). ``generator`` feeds any draw the
+        loss makes (extra negatives); losses that draw nothing ignore it."""
+        raise NotImplementedError
+
+    def post_step(self, params: Any, state: Any, batch) -> Any:
+        """Non-gradient update after the optimizer step (EMA targets etc.)."""
+        return state
+
+    def epoch_begin(self, params: Any, state: Any, graph, generator: torch.Generator,
+                    epoch: int) -> Any:
+        """Per-epoch state refresh (clustering E-steps, augmented views)."""
+        return state
+
+    # -- evaluation -----------------------------------------------------------
 
     def eval_embeddings(self, params: Any, state: Any, graph) -> tuple[torch.Tensor, torch.Tensor]:
         """(user_emb, item_emb) used for ranking."""

@@ -1,7 +1,9 @@
-"""Dense bipartite LightGCN layer chain: kernel K1 and its plain version.
+"""Dense bipartite LightGCN layer chain: kernels K1 (forward) and K2
+(backward), their plain versions, and the autograd Function over both.
 
 Counterpart of ``recommendation_tpu/ops/pallas_prop.py::dense_chain_mean``
-(forward, ``_chain_kernel(forward=True)``). Both functions compute
+(``_chain_kernel(forward=True)`` and, through ``_chain_bwd``,
+``forward=False``). The forward functions compute
 
     u_{k+1} = R̂ · i_k ;  i_{k+1} = R̂ᵀ · u_k          (k = 0 .. L-1)
     (mean of u_0..u_L, mean of i_0..i_L)
@@ -15,8 +17,21 @@ right before each product, as the JAX chain's ``astype`` does.
 kernel to the plain version on the card: a CUDA input goes through the
 kernel or raises. ``chain_mean.launches`` counts the kernel's launches.
 
-The backward (the JAX kernel's Horner chain, ``forward=False``) belongs to
-training and is not here yet.
+The backward functions compute the JAX kernel's Horner chain: with the
+cotangents prescaled to su = gu/(L+1), si = gi/(L+1),
+
+    au' = su + R̂ · ai ;  ai' = si + R̂ᵀ · au          (L rounds from au=su, ai=si)
+
+from the old au, ai, with the same rounding of the operand as the forward.
+``chain_mean_bwd`` launches K2 (the same CUDA source, one launch per round)
+for CUDA tensors and runs ``chain_mean_bwd_plain`` for CPU tensors;
+``chain_mean_bwd.launches`` counts K2's launches.
+
+``ChainMean`` is the ``torch.autograd.Function`` that training goes
+through, on both devices: its forward is ``chain_mean`` and its backward
+``chain_mean_bwd``. ``chain_mean`` alone writes its outputs through
+ctypes, so on the card it carries no gradient; ``ChainMean`` is what
+gives it one. R̂ is never a parameter: its cotangent is None.
 """
 
 from __future__ import annotations
@@ -50,23 +65,51 @@ def chain_mean_plain(r: torch.Tensor, u0: torch.Tensor, i0: torch.Tensor, n_laye
     return acc_u * inv, acc_i * inv
 
 
-def _check(r, u0, i0, n_layers):
+def chain_mean_bwd_plain(r: torch.Tensor, gu: torch.Tensor, gi: torch.Tensor, n_layers: int):
+    """The backward Horner chain in plain torch, on any device: the
+    cotangents of (u0, i0) given those of the two means, in f32."""
+    rf = r.float()
+    if r.dtype == torch.bfloat16:
+        def cast(x):
+            return x.to(torch.bfloat16).float()
+    else:
+        def cast(x):
+            return x
+    inv = 1.0 / (n_layers + 1.0)
+    su, si = gu.float() * inv, gi.float() * inv
+    au, ai = su, si
+    for _ in range(n_layers):
+        au, ai = su + rf @ cast(ai), si + rf.T @ cast(au)
+    return au, ai
+
+
+def _check(name, r, u0, i0, n_layers):
     if r.dim() != 2 or u0.dim() != 2 or i0.dim() != 2:
-        raise ValueError(f"chain_mean wants 2-D tensors, got {r.dim()}, {u0.dim()}, {i0.dim()}")
+        raise ValueError(f"{name} wants 2-D tensors, got {r.dim()}, {u0.dim()}, {i0.dim()}")
     n_users, n_items = r.shape
     if u0.shape[0] != n_users or i0.shape[0] != n_items or u0.shape[1] != i0.shape[1]:
         raise ValueError(
-            f"chain_mean shapes disagree: r {tuple(r.shape)}, u0 {tuple(u0.shape)}, "
-            f"i0 {tuple(i0.shape)}"
+            f"{name} shapes disagree: r {tuple(r.shape)}, {tuple(u0.shape)}, {tuple(i0.shape)}"
         )
     if r.dtype not in _DTYPES:
-        raise TypeError(f"chain_mean takes r in float32 or bfloat16, got {r.dtype}")
+        raise TypeError(f"{name} takes r in float32 or bfloat16, got {r.dtype}")
     if u0.dtype != torch.float32 or i0.dtype != torch.float32:
-        raise TypeError(f"chain_mean takes float32 tables, got {u0.dtype}, {i0.dtype}")
+        raise TypeError(f"{name} takes float32 tables, got {u0.dtype}, {i0.dtype}")
     if not (r.device == u0.device == i0.device):
-        raise ValueError(f"chain_mean inputs on different devices: {r.device}, {u0.device}, {i0.device}")
+        raise ValueError(f"{name} inputs on different devices: {r.device}, {u0.device}, {i0.device}")
     if not isinstance(n_layers, int) or n_layers < 0:
         raise ValueError(f"n_layers must be an int >= 0, got {n_layers!r}")
+    if r.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {r.device}")
+    if r.device.type == "cuda" and not (
+        r.is_contiguous() and u0.is_contiguous() and i0.is_contiguous()
+    ):
+        raise ValueError(f"{name}'s kernel takes contiguous tensors")
+
+
+def _raise_on(lib, code, name):
+    if code != 0:
+        raise RuntimeError(f"{name} kernel launch failed: {lib.chain_error_string(code).decode()}")
 
 
 def _kernel_lib():
@@ -77,6 +120,9 @@ def _kernel_lib():
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for fn in (lib.chain_layer_f32, lib.chain_layer_bf16):
             fn.argtypes = [ptr] * 9 + [i32, i32, i32, f32, i32, ptr]
+            fn.restype = i32
+        for fn in (lib.chain_layer_bwd_f32, lib.chain_layer_bwd_bf16):
+            fn.argtypes = [ptr] * 7 + [i32, i32, i32, ptr]
             fn.restype = i32
         lib.chain_error_string.argtypes = [i32]
         lib.chain_error_string.restype = ctypes.c_char_p
@@ -90,13 +136,9 @@ def chain_mean(r: torch.Tensor, u0: torch.Tensor, i0: torch.Tensor, n_layers: in
     ``r`` is float32 or bfloat16; ``u0`` and ``i0`` are float32. All three are
     contiguous and on one device. CUDA tensors run the kernel; CPU tensors
     run ``chain_mean_plain``."""
-    _check(r, u0, i0, n_layers)
+    _check("chain_mean", r, u0, i0, n_layers)
     if r.device.type == "cpu":
         return chain_mean_plain(r, u0, i0, n_layers)
-    if r.device.type != "cuda":
-        raise ValueError(f"chain_mean runs on cuda or cpu, not {r.device}")
-    if not (r.is_contiguous() and u0.is_contiguous() and i0.is_contiguous()):
-        raise ValueError("chain_mean's kernel takes contiguous tensors")
     n_users, n_items = r.shape
     d = u0.shape[1]
     out_u = torch.empty_like(u0)
@@ -122,10 +164,7 @@ def chain_mean(r: torch.Tensor, u0: torch.Tensor, i0: torch.Tensor, n_layers: in
                 acc_u.data_ptr(), acc_i.data_ptr(), out_u.data_ptr(), out_i.data_ptr(),
                 n_users, n_items, d, inv if last else 1.0, 0 if last else 1, stream,
             )
-            if code != 0:
-                raise RuntimeError(
-                    f"chain_mean kernel launch failed: {lib.chain_error_string(code).decode()}"
-                )
+            _raise_on(lib, code, "chain_mean")
             chain_mean.launches += 1
             src_u, src_i = dst_u, dst_i
             acc_u, acc_i = out_u, out_i
@@ -133,3 +172,63 @@ def chain_mean(r: torch.Tensor, u0: torch.Tensor, i0: torch.Tensor, n_layers: in
 
 
 chain_mean.launches = 0
+
+
+def chain_mean_bwd(r: torch.Tensor, gu: torch.Tensor, gi: torch.Tensor, n_layers: int):
+    """(du0 f32[U, d], di0 f32[I, d]): the cotangents of ``chain_mean``'s
+    inputs given ``gu``, ``gi``, those of its two outputs.
+
+    CUDA tensors run kernel K2, one launch per round; CPU tensors run
+    ``chain_mean_bwd_plain``. The prescale by 1/(L+1) happens here, before
+    the first round, as in ``_chain_bwd``: the bf16 rounding of the first
+    round's operand then matches the JAX kernel's."""
+    _check("chain_mean_bwd", r, gu, gi, n_layers)
+    if r.device.type == "cpu":
+        return chain_mean_bwd_plain(r, gu, gi, n_layers)
+    inv = 1.0 / (n_layers + 1.0)
+    seed_u, seed_i = gu * inv, gi * inv
+    if n_layers == 0:
+        return seed_u, seed_i
+    n_users, n_items = r.shape
+    d = gu.shape[1]
+    lib = _kernel_lib()
+    fn = lib.chain_layer_bwd_bf16 if r.dtype == torch.bfloat16 else lib.chain_layer_bwd_f32
+    # round k writes ``out`` when L-1-k is even, else ``tmp``, so the last
+    # round lands in ``out`` and no round writes the tables it reads
+    out = (torch.empty_like(seed_u), torch.empty_like(seed_i))
+    tmp = (torch.empty_like(seed_u), torch.empty_like(seed_i)) if n_layers > 1 else None
+    src_u, src_i = seed_u, seed_i
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        for layer in range(n_layers):
+            dst_u, dst_i = out if (n_layers - 1 - layer) % 2 == 0 else tmp
+            code = fn(
+                r.data_ptr(), src_u.data_ptr(), src_i.data_ptr(),
+                seed_u.data_ptr(), seed_i.data_ptr(), dst_u.data_ptr(), dst_i.data_ptr(),
+                n_users, n_items, d, stream,
+            )
+            _raise_on(lib, code, "chain_mean_bwd")
+            chain_mean_bwd.launches += 1
+            src_u, src_i = dst_u, dst_i
+    return out
+
+
+chain_mean_bwd.launches = 0
+
+
+class ChainMean(torch.autograd.Function):
+    """``chain_mean`` with a gradient: K1 forward, K2 backward on the card,
+    the two plain versions on the CPU. Gradients flow to ``u0`` and ``i0``;
+    R̂ and ``n_layers`` get None."""
+
+    @staticmethod
+    def forward(ctx, r, u0, i0, n_layers):
+        ctx.save_for_backward(r)
+        ctx.n_layers = n_layers
+        return chain_mean(r, u0, i0, n_layers)
+
+    @staticmethod
+    def backward(ctx, gu, gi):
+        (r,) = ctx.saved_tensors
+        du, di = chain_mean_bwd(r, gu.contiguous(), gi.contiguous(), ctx.n_layers)
+        return None, du, di, None

@@ -6,8 +6,10 @@ positives excluded exactly as in evaluation. This is the single-device
 service; the JAX package's mesh branch (a row-sharded item table) waits for
 the port of ``parallel/``.
 
-Construction: ``RecommenderService(user_emb, item_emb, data, graph)`` with
-the tables from the model's ``eval_embeddings``.
+Construction paths:
+  * ``RecommenderService.from_recommender(rec)`` — after training;
+  * ``RecommenderService(user_emb, item_emb, data, graph)`` — with the
+    tables from the model's ``eval_embeddings`` (e.g. restored parameters).
 """
 
 from __future__ import annotations
@@ -33,6 +35,11 @@ class RecommenderService:
         self.item_emb = item_emb.float().contiguous()
         self.data = data
         self.graph = graph
+
+    @classmethod
+    def from_recommender(cls, rec) -> "RecommenderService":
+        user_emb, item_emb = rec.model.eval_embeddings(rec.params, rec.state, rec.graph)
+        return cls(user_emb, item_emb, rec.data, rec.graph)
 
     # -- request batching ------------------------------------------------------
 

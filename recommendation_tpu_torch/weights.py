@@ -4,7 +4,8 @@
 (``jax.device_get(params)``) and returns the port's tensors, name for name.
 ``save_params``/``load_params`` keep the same names in one ``.npz`` file:
 the port's checkpoint for ``serve`` (the JAX package's orbax checkpoints
-cannot be read without JAX).
+cannot be read without JAX). ``opt_state_from_jax`` carries an optax Adam
+state over into a ``torch.optim.Adam`` ``state_dict``.
 """
 
 from __future__ import annotations
@@ -44,3 +45,26 @@ def load_params(path: str, model_name: str, device="cuda") -> Dict[str, torch.Te
     with np.load(path) as f:
         arrays = {n: f[n] for n in f.files}
     return _to_tensors(model_name, arrays, device)
+
+
+def opt_state_from_jax(optax_adam_state, params: Dict[str, torch.Tensor], lr: float = 1e-3) -> dict:
+    """A ``torch.optim.Adam`` ``state_dict`` from optax's
+    ``ScaleByAdamState(count, mu, nu)`` given as numpy arrays (or the
+    ``optax.adam`` chain's state tuple that starts with it), for an Adam
+    built over ``list(params.values())`` at rate ``lr``, as
+    ``train.loop.make_optimizer`` builds it. Each parameter's moments land on
+    its device; ``step`` is optax's count, so the bias correction carries on
+    mid-trajectory."""
+    adam = optax_adam_state
+    if not hasattr(adam, "mu"):
+        adam = next(s for s in optax_adam_state if hasattr(s, "mu"))
+    template = torch.optim.Adam(list(params.values()), lr=lr, eps=1e-8).state_dict()
+    step = float(np.asarray(adam.count))
+    state = {}
+    for index, (name, p) in enumerate(params.items()):
+        state[index] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": torch.tensor(np.asarray(adam.mu[name], dtype=np.float32)).to(p.device),
+            "exp_avg_sq": torch.tensor(np.asarray(adam.nu[name], dtype=np.float32)).to(p.device),
+        }
+    return {"state": state, "param_groups": template["param_groups"]}

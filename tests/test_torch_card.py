@@ -1,4 +1,6 @@
-"""Kernel K1 (``csrc/chain_mean.cu``) against its plain version, on the card.
+"""Kernels K1 and K2 (``csrc/chain_mean.cu``) against their plain versions,
+on the card; ``ChainMean``'s gradient on the card; one training step
+through the kernels against the same step through the plain chain.
 
 These tests need a CUDA device and ``nvcc``; elsewhere they skip. This file
 imports neither JAX nor the JAX package, so it runs where only the port is
@@ -16,12 +18,23 @@ from recommendation_tpu_torch.data.interaction import Interaction
 from recommendation_tpu_torch.data.synthetic import make_synthetic_dataset
 from recommendation_tpu_torch.graph.device import DeviceGraph
 from recommendation_tpu_torch.models import build
-from recommendation_tpu_torch.ops.prop import chain_mean, chain_mean_plain
+from recommendation_tpu_torch.models.lightgcn import LightGCN
+from recommendation_tpu_torch.ops.prop import (
+    ChainMean,
+    chain_mean,
+    chain_mean_bwd,
+    chain_mean_bwd_plain,
+    chain_mean_plain,
+)
+from recommendation_tpu_torch.sampling import PairwiseBatch, epoch_batches, epoch_words
+from recommendation_tpu_torch.train.loop import make_optimizer, run_steps
 
 pytestmark = pytest.mark.cuda
 
-# the JAX kernel's own test bounds (tests/test_pallas_prop.py)
+# the JAX kernel's own test bounds (tests/test_pallas_prop.py), values and grads
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6), torch.bfloat16: dict(rtol=2e-2, atol=2e-3)}
+GRAD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6),
+            torch.bfloat16: dict(rtol=3e-2, atol=3e-3)}
 
 
 @pytest.fixture
@@ -78,3 +91,95 @@ def test_kernel_refuses_what_it_does_not_take(card):
         chain_mean(r, u0.cpu(), i0, 1)
     with pytest.raises(TypeError):
         chain_mean(r.half(), u0, i0, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(37, 53, 8), (5, 3, 130)])
+@pytest.mark.parametrize("n_layers", [1, 2, 3])
+def test_backward_kernel_matches_plain(card, dtype, shape, n_layers):
+    """K2 on random O(1) inputs at ragged shapes."""
+    n_u, n_i, d = shape
+    rng = np.random.default_rng(n_u * n_i + d + n_layers)
+    r = torch.from_numpy(rng.normal(size=(n_u, n_i)).astype(np.float32) * 0.1).to(card, dtype)
+    gu = torch.from_numpy(rng.normal(size=(n_u, d)).astype(np.float32)).to(card)
+    gi = torch.from_numpy(rng.normal(size=(n_i, d)).astype(np.float32)).to(card)
+    before = chain_mean_bwd.launches
+    got = chain_mean_bwd(r, gu, gi, n_layers)
+    torch.cuda.synchronize()
+    assert chain_mean_bwd.launches == before + n_layers
+    for g, w in zip(got, chain_mean_bwd_plain(r, gu, gi, n_layers)):
+        assert g.is_cuda and g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, **GRAD_TOL[dtype])
+
+
+def _graph(card, compute_dtype):
+    train, test = make_synthetic_dataset(n_users=200, n_items=333, n_interactions=8000, seed=5)
+    return DeviceGraph(Interaction(train, test), compute_dtype=compute_dtype, device=card)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_chain_mean_has_a_gradient_on_the_card(card, compute_dtype):
+    """The regression test for the port's first fault: ``chain_mean`` writes
+    its outputs through ctypes, so alone it carries no gradient on the
+    card; ``ChainMean`` gives it one, through K2."""
+    graph = _graph(card, compute_dtype)
+    params, _ = build("lightgcn", default_config()).init(torch.Generator().manual_seed(2), graph)
+    u0 = params["user_emb"].requires_grad_()
+    i0 = params["item_emb"].requires_grad_()
+    r = graph.propagation_matrix
+    assert not chain_mean(r, u0, i0, 3)[0].requires_grad
+    before = chain_mean_bwd.launches
+    a, b = ChainMean.apply(r, u0, i0, 3)
+    assert a.grad_fn is not None and b.grad_fn is not None
+    (a.square().sum() + b.sin().sum()).backward()
+    torch.cuda.synchronize()
+    assert chain_mean_bwd.launches == before + 3
+    u1 = u0.detach().clone().requires_grad_()
+    i1 = i0.detach().clone().requires_grad_()
+    pa, pb = chain_mean_plain(r, u1, i1, 3)
+    (pa.square().sum() + pb.sin().sum()).backward()
+    tol = GRAD_TOL[r.dtype]
+    torch.testing.assert_close(u0.grad, u1.grad, **tol)
+    torch.testing.assert_close(i0.grad, i1.grad, **tol)
+
+
+class _PlainLightGCN(LightGCN):
+    """LightGCN with the plain chain (autograd through torch ops) in place
+    of ChainMean."""
+
+    def propagate(self, params, graph):
+        return chain_mean_plain(graph.propagation_matrix, params["user_emb"],
+                                params["item_emb"], self.n_layers)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_training_step_kernel_vs_plain(card, compute_dtype):
+    """One step's loss and gradients through K1 + K2 against the plain
+    chain's, then two SGD steps of the trainer's loop on each, from the same
+    parameters and batches (SGD: an update proportional to the gradient, so
+    the parameters stay as close as the gradients are)."""
+    graph = _graph(card, compute_dtype)
+    config = default_config(**{"batch.size": 512, "optimizer": "sgd", "learning.rate": 0.1})
+    models = (build("lightgcn", config), _PlainLightGCN(config))
+    init, _ = models[0].init(torch.Generator().manual_seed(3), graph)
+    users, items, negs, weights, _ = epoch_batches(
+        epoch_words(torch.Generator().manual_seed(4), graph, 512), graph, 512)
+    batch = PairwiseBatch(users[0], items[0], negs[0], weights[0])
+    window = (users[:2], items[:2], negs[:2], weights[:2], 2)
+    out = []
+    for m in models:
+        p = {k: v.detach().clone().requires_grad_() for k, v in init.items()}
+        k1, k2 = chain_mean.launches, chain_mean_bwd.launches
+        loss, _ = m.loss(p, {}, batch, graph)
+        grads = torch.autograd.grad(loss, list(p.values()))
+        run_steps(m, make_optimizer(config, p), graph, p, {}, window)
+        torch.cuda.synchronize()
+        out.append((loss.item(), grads, p, chain_mean.launches - k1, chain_mean_bwd.launches - k2))
+    (loss_k, g_k, p_k, n1, n2), (loss_p, g_p, p_p, m1, m2) = out
+    assert (n1, n2, m1, m2) == (9, 9, 0, 0)  # 3 steps x L=3 through the kernels
+    assert np.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-6 + 1e-5 * abs(loss_p)
+    tol = GRAD_TOL[graph.propagation_matrix.dtype]
+    for a, b in zip(g_k, g_p):
+        torch.testing.assert_close(a, b, **tol)
+    for k in p_k:
+        torch.testing.assert_close(p_k[k], p_p[k], rtol=0, atol=1e-5)

@@ -1,5 +1,7 @@
-"""The port's DeviceGraph (serving subset) against the JAX DeviceGraph:
-tables equal bit for bit, the same backend choice."""
+"""The port's DeviceGraph against the JAX DeviceGraph: serving and sampler
+tables equal bit for bit, the same backend choice. ``user_bitmap_fb`` and
+``edge_bitmap_fb`` are compared on their first W + 8 columns: the JAX rows
+are padded to 64 words (a TPU form the port drops)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,11 +25,17 @@ def _bf16_as_f32(x_np):
     return np.asarray(jnp.asarray(x_np).astype(jnp.bfloat16).astype(jnp.float32))
 
 
-@pytest.mark.parametrize("shape", [TINY, MID, SERVE], ids=["tiny", "mid", "serve"])
-def test_graph_tables_bit_identical(shape):
-    train, test = make_synthetic_dataset(**shape)
+@pytest.fixture(scope="module", params=[TINY, MID, SERVE], ids=["tiny", "mid", "serve"])
+def graph_pair(request):
+    """(port graph, JAX graph) from the same triples; SERVE is bench.py's shape."""
+    train, test = make_synthetic_dataset(**request.param)
     ours = DeviceGraph(Interaction(train, test), compute_dtype="bfloat16", device="cpu")
     ref = JaxDeviceGraph(JaxInteraction(train, test), backend="dense")
+    return ours, ref
+
+
+def test_graph_tables_bit_identical(graph_pair):
+    ours, ref = graph_pair
     assert (ours.n_users, ours.n_items, ours.n_nodes) == (ref.n_users, ref.n_items, ref.n_nodes)
     assert ours.backend == ref.backend == "dense"
     assert ours.max_degree == ref.max_degree and ours.has_pos_table == ref.has_pos_table
@@ -39,6 +47,40 @@ def test_graph_tables_bit_identical(shape):
     assert r_ours.dtype == np.float32 and np.array_equal(r_ours, r_ref)
     assert ours.propagation_matrix.dtype == torch.bfloat16
     assert np.array_equal(ours.propagation_matrix.float().numpy(), _bf16_as_f32(r_ref))
+
+
+TRAINING_TABLES = ("edge_users", "edge_items", "edge_valid", "edge_ui", "csr_indptr",
+                   "csr_items", "user_fallback_neg", "user_pos_bitmap", "user_pos_mask")
+FLAGS = ("n_edges", "has_pos_bitmap", "has_edge_bitmap_fb", "has_pos_mask")
+
+
+def test_training_tables_bit_identical(graph_pair):
+    ours, ref = graph_pair
+    for name in FLAGS:
+        assert getattr(ours, name) == getattr(ref, name), name
+    assert ours.has_pos_bitmap and ours.has_edge_bitmap_fb and ours.has_pos_mask
+    for name in TRAINING_TABLES:
+        got, want = getattr(ours, name).numpy(), np.asarray(getattr(ref, name))
+        assert got.dtype == want.dtype and np.array_equal(got, want), name
+    width = ours.user_pos_bitmap.shape[1] + ours.user_fallback_neg.shape[1]
+    for name in ("user_bitmap_fb", "edge_bitmap_fb"):
+        got, want = getattr(ours, name).numpy(), np.asarray(getattr(ref, name))
+        assert got.shape == (want.shape[0], width), name
+        assert got.dtype == want.dtype and np.array_equal(got, want[:, :width]), name
+
+
+def test_sampler_tables_without_bitmap():
+    """Where the padded positives table is narrower than the bitmap, the
+    bitmap and its fused rows are not built, as in the JAX package."""
+    rng = np.random.default_rng(2)  # 40 users x 3 items over ~300 items: W = 10 > 3
+    train = [[f"u{u}", f"i{i}", 1.0] for u in range(40)
+             for i in rng.choice(300, size=3, replace=False)]
+    ours = DeviceGraph(Interaction(train, []), device="cpu")
+    ref = JaxDeviceGraph(JaxInteraction(train, []), backend="dense")
+    assert ours.has_pos_bitmap == ref.has_pos_bitmap is False
+    assert ours.has_edge_bitmap_fb == ref.has_edge_bitmap_fb is False
+    assert tuple(ours.user_pos_bitmap.shape) == tuple(ours.edge_bitmap_fb.shape) == (1, 1)
+    assert np.array_equal(ours.user_fallback_neg.numpy(), np.asarray(ref.user_fallback_neg))
 
 
 def test_f32_regime_propagates_in_f32():

@@ -1,15 +1,21 @@
-"""Kernel K1's plain version (``ops/prop.py::chain_mean_plain``, and
-``chain_mean`` on CPU tensors) against the JAX package's layer chain: the
-Pallas kernel in interpret mode (``dense_chain_mean(..., interpret=True)``)
-and the XLA chain of ``lightgcn_propagate``.
+"""Kernels K1 and K2 through their plain versions (``ops/prop.py``:
+``chain_mean_plain``, ``chain_mean_bwd_plain``, and ``chain_mean``,
+``chain_mean_bwd`` and ``ChainMean`` on CPU tensors) against the JAX
+package's layer chain: the Pallas kernel in interpret mode
+(``dense_chain_mean(..., interpret=True)``, whose custom VJP runs the
+kernel's backward) and the XLA chain of ``lightgcn_propagate``, values and
+gradients.
 
 Tolerances: where both sides multiply the same real graph, rtol 1e-5 /
 atol 1e-6 in both regimes (the two sum in another order; the bf16 regime
 rounds the same f32 tables to bf16). On random O(1) inputs the bf16 regime
-uses the JAX kernel's own test bounds, rtol 2e-2 / atol 2e-3: a different
-summation order can move a table across a bf16 rounding boundary.
+uses the JAX kernel's own test bounds, rtol 2e-2 / atol 2e-3 on values and
+3e-2 / 3e-3 on gradients: a different summation order can move a table
+across a bf16 rounding boundary, and the XLA chain's autodiff rounds the
+backward products' outputs where the kernels round their operands.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,10 +26,17 @@ from recommendation_tpu.graph.device import DeviceGraph as JaxDeviceGraph
 from recommendation_tpu.models.lightgcn import lightgcn_propagate as jax_propagate
 from recommendation_tpu.ops.pallas_prop import dense_chain_mean
 from recommendation_tpu_torch.data.synthetic import make_synthetic_dataset
-from recommendation_tpu_torch.ops.prop import chain_mean, chain_mean_plain
+from recommendation_tpu_torch.ops.prop import (
+    ChainMean,
+    chain_mean,
+    chain_mean_bwd,
+    chain_mean_bwd_plain,
+    chain_mean_plain,
+)
 
 TIGHT = dict(rtol=1e-5, atol=1e-6)
 BF16_RANDOM = dict(rtol=2e-2, atol=2e-3)
+BF16_RANDOM_GRAD = dict(rtol=3e-2, atol=3e-3)
 SERVE = dict(n_users=943, n_items=1682, n_interactions=100_000, seed=7)
 
 
@@ -146,3 +159,98 @@ def test_chain_mean_checks_its_inputs():
         chain_mean(r, u0, i0, -1)
     with pytest.raises(ValueError):
         chain_mean(r.to("meta"), u0.to("meta"), i0.to("meta"), 1)
+
+
+# -- gradients: ChainMean (K1 forward + K2 backward) --------------------------
+
+
+def _scalarize(a, b, lib):
+    """The JAX kernel test's loss: sum(a*a) + sum(sin(b))."""
+    return lib.sum(a * a) + lib.sum(lib.sin(b))
+
+
+def _grads_ours(r_np, u0, i0, n_layers, dtype):
+    r = torch.tensor(r_np).to(dtype)
+    u = torch.tensor(u0, requires_grad=True)
+    i = torch.tensor(i0, requires_grad=True)
+    a, b = ChainMean.apply(r, u, i, n_layers)
+    _scalarize(a, b, torch).backward()
+    return u.grad.numpy(), i.grad.numpy()
+
+
+def _grads_jax(r_np, u0, i0, n_layers, compute_dtype, pallas):
+    if pallas:
+        r = jnp.asarray(r_np)
+        r = r.astype(jnp.bfloat16) if compute_dtype == "bfloat16" else r
+
+        def chain(u, i):
+            return dense_chain_mean(r, u, i, n_layers, True)
+    else:
+        def chain(u, i):
+            return jax_propagate(u, i, _Adj(compute_dtype), n_layers,
+                                 bipartite_dense=jnp.asarray(r_np))
+
+    g = jax.grad(lambda u, i: _scalarize(*chain(u, i), jnp), argnums=(0, 1))(
+        jnp.asarray(u0), jnp.asarray(i0))
+    return tuple(np.asarray(x) for x in g)
+
+
+@pytest.mark.parametrize("n_layers", [1, 3])
+@pytest.mark.parametrize("compute_dtype,dtype", DTYPES, ids=["f32", "bf16"])
+def test_grads_unaligned_random_match_jax(n_layers, compute_dtype, dtype):
+    rng = np.random.default_rng(4)
+    n_u, n_i, d = 37, 53, 8
+    r = rng.normal(size=(n_u, n_i)).astype(np.float32) * 0.1
+    u0, i0 = _tables(rng, n_u, n_i, d, scale=1.0)
+    tol = TIGHT if dtype == torch.float32 else BF16_RANDOM_GRAD
+    got = _grads_ours(r, u0, i0, n_layers, dtype)
+    _close(got, _grads_jax(r, u0, i0, n_layers, compute_dtype, pallas=True), tol)
+    _close(got, _grads_jax(r, u0, i0, n_layers, compute_dtype, pallas=False), tol)
+
+
+@pytest.mark.parametrize("n_layers", [1, 3])
+@pytest.mark.parametrize("compute_dtype,dtype", DTYPES, ids=["f32", "bf16"])
+def test_grads_tiny_graph_match_jax(tiny_graph, n_layers, compute_dtype, dtype):
+    """On a real normalized R̂ the f32 bounds hold in both regimes for the
+    Pallas kernel's backward, which rounds the same operands as K2."""
+    rng = np.random.default_rng(5)
+    r = np.asarray(tiny_graph.interaction_norm_dense)
+    u0, i0 = _tables(rng, r.shape[0], r.shape[1], 16)
+    got = _grads_ours(r, u0, i0, n_layers, dtype)
+    _close(got, _grads_jax(r, u0, i0, n_layers, compute_dtype, pallas=True), TIGHT)
+    xla_tol = TIGHT if dtype == torch.float32 else BF16_RANDOM_GRAD
+    _close(got, _grads_jax(r, u0, i0, n_layers, compute_dtype, pallas=False), xla_tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chain_mean_bwd_on_cpu_is_the_plain_version(dtype):
+    rng = np.random.default_rng(6)
+    r = torch.from_numpy(rng.normal(size=(11, 7)).astype(np.float32)).to(dtype)
+    gu = torch.from_numpy(rng.normal(size=(11, 5)).astype(np.float32))
+    gi = torch.from_numpy(rng.normal(size=(7, 5)).astype(np.float32))
+    before = chain_mean_bwd.launches
+    for n_layers in (0, 1, 2, 3, 4):
+        got = chain_mean_bwd(r, gu, gi, n_layers)
+        want = chain_mean_bwd_plain(r, gu, gi, n_layers)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(chain_mean_bwd(r, gu, gi, 0)[0], gu)
+    u = torch.zeros(11, 5, requires_grad=True)
+    a, b = ChainMean.apply(r, u, torch.zeros(7, 5), 3)
+    (a.sum() + b.sum()).backward()
+    assert u.grad is not None
+    assert chain_mean_bwd.launches == before  # the kernel never ran on the CPU
+
+
+def test_chain_mean_bwd_checks_its_inputs():
+    r = torch.zeros(4, 3)
+    gu, gi = torch.zeros(4, 2), torch.zeros(3, 2)
+    with pytest.raises(TypeError):
+        chain_mean_bwd(r.half(), gu, gi, 1)
+    with pytest.raises(TypeError):
+        chain_mean_bwd(r, gu.double(), gi, 1)
+    with pytest.raises(ValueError):
+        chain_mean_bwd(r, torch.zeros(5, 2), gi, 1)
+    with pytest.raises(ValueError):
+        chain_mean_bwd(r, gu, gi, -1)
+    with pytest.raises(ValueError):
+        chain_mean_bwd(r.to("meta"), gu.to("meta"), gi.to("meta"), 1)

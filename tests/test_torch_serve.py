@@ -185,8 +185,76 @@ def _cli(*args):
                           capture_output=True, text=True, timeout=120)
 
 
-def test_cli_models_and_serve_without_checkpoint():
+def _write_tiny_set(data, root):
+    from recommendation_tpu_torch.data.synthetic import write_dataset
+
+    write_dataset(str(root), data.training_data, data.test_data)
+    return str(root / "train.txt"), str(root / "test.txt")
+
+
+TRAIN_SETS = ["--set", "max.epoch=2", "--set", "batch.size=512", "--set", "embedding.size=16"]
+
+
+@pytest.fixture(scope="module")
+def port_data(tiny_data):
+    return Interaction(tiny_data.training_data, tiny_data.test_data)
+
+
+def test_cli_models_and_serve_without_checkpoint(port_data, tmp_path, monkeypatch):
+    """``serve`` without ``--checkpoint`` trains first; driven through
+    ``cli.main`` with the HTTP server replaced, so no port is opened."""
+    from recommendation_tpu_torch import cli
+    from recommendation_tpu_torch.serve import http
+
     out = _cli("models")
     assert out.returncode == 0 and "lightgcn" in out.stdout.split()
-    out = _cli("serve", "--model", "lightgcn", "--device", "cpu")
-    assert out.returncode == 2 and "next slice" in out.stderr
+    out = _cli("serve", "--model", "lightgcn", "--device", "cpu", "--checkpoint", "missing.npz")
+    assert out.returncode == 2 and "not found" in out.stderr
+    data = port_data
+    tr, te = _write_tiny_set(data, tmp_path)
+    served = []
+    monkeypatch.setattr(http, "serve_http", lambda service, **kw: served.append(service))
+    assert cli.main(["serve", "--model", "lightgcn", "--device", "cpu", "--train", tr,
+                     "--test", te, *TRAIN_SETS]) == 0
+    (service,) = served
+    assert service.user_emb.shape == (data.user_num, 16) and not service.user_emb.requires_grad
+    s, i = service.recommend_ids([0, 1], K)
+    assert np.isfinite(s).all() and i.shape == (2, K)
+
+
+def test_cli_train_prints_finite_metrics(port_data, tmp_path):
+    tr, te = _write_tiny_set(port_data, tmp_path)
+    out_json = tmp_path / "result.json"
+    out = _cli("train", "--model", "lightgcn", "--device", "cpu", "--train", tr, "--test", te,
+               *TRAIN_SETS, "--out", str(out_json))
+    assert out.returncode == 0, out.stderr
+    metrics = json.loads(out.stdout.strip().splitlines()[-1])
+    assert {"Recall@20", "NDCG@20"} <= set(metrics)
+    assert all(np.isfinite(v) and 0 <= v <= 1 for v in metrics.values())
+    assert json.loads(out_json.read_text())["metrics"] == metrics
+
+
+def test_serve_from_checkpoint_dir_and_recommender(port_data, tmp_path):
+    """Train with checkpoints, then serve from the directory: the service's
+    tables are the eval embeddings of the newest checkpoint's parameters;
+    ``from_recommender`` serves the trainer's (best) parameters."""
+    from recommendation_tpu_torch.cli import train_recommender
+    from recommendation_tpu_torch.train.checkpoint import CheckpointManager
+
+    data = port_data
+    config = default_config(**{"max.epoch": 2, "batch.size": 512, "embedding.size": 16,
+                               "checkpoint.dir": str(tmp_path / "ckpt")})
+    rec = train_recommender("lightgcn", config, data.training_data, data.test_data, device="cpu")
+    live = RecommenderService.from_recommender(rec)
+    want = rec.model.eval_embeddings(rec.params, rec.state, rec.graph)
+    assert torch.equal(live.user_emb, want[0]) and torch.equal(live.item_emb, want[1])
+    restored = build_service("lightgcn", str(tmp_path / "ckpt"), default_config(
+        **{"embedding.size": 16}), data.training_data, data.test_data, device="cpu")
+    payload = CheckpointManager(str(tmp_path / "ckpt")).restore_latest()
+    assert payload["epoch"] == 1
+    want = rec.model.eval_embeddings(payload["params"], {}, rec.graph)
+    assert torch.equal(restored.user_emb, want[0]) and torch.equal(restored.item_emb, want[1])
+    assert live.user_emb.grad_fn is None and restored.user_emb.grad_fn is None
+    with pytest.raises(FileNotFoundError):
+        build_service("lightgcn", str(tmp_path), default_config(), data.training_data,
+                      data.test_data, device="cpu")
