@@ -89,7 +89,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SERVE_SHAPE = dict(n_users=943, n_items=1682, n_interactions=100_000, seed=7)
 EMB, LAYERS, K = 64, 3, 10
 # kernel vs plain: the JAX kernel's own test bounds (tests/test_pallas_prop.py),
-# on values and on gradients
+# on values and on gradients (a training step's gradients: see grads_agree)
 TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (2e-2, 2e-3)}  # (rtol, atol)
 GRAD_TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (3e-2, 3e-3)}
 N_CLIENTS, REQS_PER_CLIENT = 16, 20
@@ -158,6 +158,19 @@ def compare(name, got, want, dtype, tol=TOL):
         if not (torch.isfinite(g).all() and torch.allclose(g, w, rtol=rtol, atol=atol)):
             raise RuntimeError(f"{name}: kernel disagrees with plain (max abs err {err})")
     return err
+
+
+def grads_agree(got, want, dtype) -> bool:
+    """Gradients against the plain ones at GRAD_TOL, its atol taken relative
+    to the reference's largest entry: the JAX bounds are for O(1)
+    cotangents, and a batch-mean loss has gradients of order 1/B."""
+    rtol, atol = GRAD_TOL[dtype]
+    for g, w in zip(got, want):
+        scale = w.abs().max().item()
+        if not (scale > 0 and torch.isfinite(g).all()
+                and torch.allclose(g, w, rtol=rtol, atol=atol * scale)):
+            return False
+    return True
 
 
 def kernel_phase(graphs, params):
@@ -255,11 +268,22 @@ class PlainLightGCN(LightGCN):
                                 params["item_emb"], self.n_layers)
 
 
+def plain_step(model, params, batch, graph):
+    """Loss and (user, item) grads by autograd through the plain chain."""
+    q = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    loss, _ = model.loss(q, {}, batch, graph)
+    return loss, torch.autograd.grad(loss, [q["user_emb"], q["item_emb"]])
+
+
 def one_step_check(graphs, params):
     """One step's loss and grads through ChainMean (K1 + K2, the model's
-    path) against autograd through chain_mean_plain, on the same batch."""
+    path) against autograd through chain_mean_plain, on the same batch. The
+    bound must also reject zero gradients and those of a shorter chain."""
     config = default_config(**{"embedding.size": EMB, "LightGCN.n_layers": LAYERS})
     model, plain = build("lightgcn", config), PlainLightGCN(config)
+    # a chain one layer short: its gradient must fail the bound, as must zeros
+    short = PlainLightGCN(default_config(**{"embedding.size": EMB,
+                                            "LightGCN.n_layers": LAYERS - 1}))
     out = {}
     for dtype, graph in graphs.items():
         users, items, negs, weights, _ = epoch_batches(
@@ -276,16 +300,23 @@ def one_step_check(graphs, params):
         torch.cuda.synchronize()
         if chain_mean.launches - k1 != 2 * LAYERS or chain_mean_bwd.launches - k2 != LAYERS:
             raise RuntimeError("the step did not run through K1 and K2")
-        q = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
-        plain_loss, _ = plain.loss(q, {}, batch, graph)
-        plain_grads = torch.autograd.grad(plain_loss, [q["user_emb"], q["item_emb"]])
-        err = compare(f"one-step grads {dtype}", grads, plain_grads, dtype, GRAD_TOL)
+        plain_loss, plain_grads = plain_step(plain, params, batch, graph)
+        if not grads_agree(grads, plain_grads, dtype):
+            raise RuntimeError(f"one-step grads {dtype}: kernel disagrees with plain")
+        wrong = {"zero": [torch.zeros_like(g) for g in plain_grads],
+                 "one layer short": plain_step(short, params, batch, graph)[1]}
+        for what, g in wrong.items():
+            if grads_agree(g, plain_grads, dtype):
+                raise RuntimeError(f"one-step bound {dtype} passes the {what} gradient")
+        err = max((g - w).abs().max().item() for g, w in zip(grads, plain_grads))
         loss_err = abs(loss.item() - plain_loss.item())
         rtol, atol = TOL[dtype]
         if not (math.isfinite(loss.item()) and loss_err <= atol + rtol * abs(plain_loss.item())):
             raise RuntimeError(f"one-step loss {loss.item()} != plain {plain_loss.item()}")
-        out[str(dtype).replace("torch.", "")] = {"loss": loss.item(), "loss_abs_err": loss_err,
-                                                 "grad_max_abs_err": err}
+        out[str(dtype).replace("torch.", "")] = {
+            "loss": loss.item(), "loss_abs_err": loss_err, "grad_max_abs_err": err,
+            "grad_max_abs": [w.abs().max().item() for w in plain_grads],
+        }
     return out
 
 

@@ -30,6 +30,11 @@ DENSE_MAX_ELEMENTS = 128 * 1024 * 1024
 # Guaranteed-negative candidates kept per user for the sampler's fallback.
 FALLBACK_NEGATIVES = 8
 
+# The edge list is padded to a multiple of this many edges, the JAX
+# package's default (recommendation_tpu/graph/device.py:240), so the epoch
+# sampler's draws over [E_pad] edges have the same shape in both packages.
+EDGE_PAD = 8
+
 # Padded per-user positives table cap (i32 elements): 64M = 256 MB.
 POS_TABLE_MAX_ELEMENTS = 64 * 1024 * 1024
 
@@ -95,7 +100,7 @@ class DeviceGraph:
     ``propagation_matrix`` is the one the layer chain multiplies by.
 
     Sampler tables (i32 unless noted): ``edge_users``/``edge_items`` and
-    ``edge_ui`` [E_pad, 2] (padded to a multiple of ``pad_to``; f32
+    ``edge_ui`` [E_pad, 2] (padded to a multiple of ``EDGE_PAD``; f32
     ``edge_valid`` marks real edges); ``csr_indptr``/``csr_items`` (items
     sorted in each row); ``user_fallback_neg`` [U, 8]; the packed bitmap
     ``user_pos_bitmap`` [U, W] (W = ceil(I/32), an i32 view of the bits);
@@ -105,7 +110,7 @@ class DeviceGraph:
     was built (a [1, 1] placeholder stands in otherwise)."""
 
     def __init__(self, data, backend: str = "auto", compute_dtype: str = "float32",
-                 device="cuda", pad_to: int = 8):
+                 device="cuda"):
         self.device = resolve_device(device)
         self.n_users = data.user_num
         self.n_items = data.item_num
@@ -126,7 +131,7 @@ class DeviceGraph:
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
         e = len(data.edge_users)
-        e_pad = max(pad_to, _round_up(e, pad_to))
+        e_pad = max(EDGE_PAD, _round_up(e, EDGE_PAD))
         users = np.pad(data.edge_users, (0, e_pad - e))
         items = np.pad(data.edge_items, (0, e_pad - e))
         valid = np.zeros(e_pad, dtype=np.float32)

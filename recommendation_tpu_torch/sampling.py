@@ -72,11 +72,7 @@ def draw_words(generator: torch.Generator, shape, device) -> torch.Tensor:
 
 
 def uniform_ints(generator: torch.Generator, shape, n: int, device) -> torch.Tensor:
-    """Uniform i32 in [0, n) through ``bits_to_ints``; n >= 2^24 (no current
-    regime) draws with ``torch.randint``, as the JAX package's randint."""
-    if n >= (1 << 24):
-        return torch.randint(0, n, tuple(shape), generator=generator,
-                             dtype=torch.int64).to(device=device, dtype=torch.int32)
+    """Uniform i32 in [0, n) through ``bits_to_ints``."""
     return bits_to_ints(draw_words(generator, shape, device), n)
 
 
@@ -119,6 +115,8 @@ def bits_to_ints(bits: torch.Tensor, n: int) -> torch.Tensor:
     """Map words to uniform i32 in [0, n) through the top 24 bits in f32,
     as the JAX package does (no integer modulo). Requires n < 2^24, which
     every catalog the dense backend holds meets."""
+    if n >= (1 << 24):
+        raise ValueError(f"bits_to_ints needs n < 2^24, got {n}")
     scale = float(np.float32(n * 2.0**-24))  # rounded to f32 once, as jnp.float32
     f = (bits >> 8).to(torch.float32) * scale
     return torch.clamp(f.to(torch.int32), max=n - 1)

@@ -218,6 +218,11 @@ def test_uniform_ints_range():
     assert (counts / counts.mean() - 1).abs().max() < 0.1
 
 
+def test_bits_to_ints_rejects_wide_catalogs():
+    with pytest.raises(ValueError, match="2\\^24"):
+        ts.bits_to_ints(torch.zeros(4, dtype=torch.int64), 1 << 24)
+
+
 def test_words_are_checked(graphs):
     ours, _ = graphs
     with pytest.raises(ValueError, match="shape"):
