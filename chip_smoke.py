@@ -6,14 +6,20 @@ card and check them.
 
 What it does, in order (any failed phase exits non-zero):
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds every CUDA kernel of the paths from ``recommendation_tpu_torch/csrc``;
-  3. kernel phase: holds each kernel (K1 ``chain_mean``, K2
-     ``chain_mean_bwd``) against its plain PyTorch version on the card, at
-     the serving shape and at an unaligned one, and times the kernel, the
-     plain version and the nearest library calls;
-  4. one-step check: one training step's loss and gradients through
-     ``ChainMean`` (K1 + K2) against autograd through the plain chain on the
-     same batch, at the bench shape;
+  2. builds every CUDA kernel of the paths from ``recommendation_tpu_torch/csrc``,
+     one ``nvcc`` per source, all at once;
+  3. kernel phase: holds each kernel against its plain PyTorch version on
+     the card and times the kernel, the plain version and the nearest
+     library calls: K1 ``chain_mean`` and K2 ``chain_mean_bwd`` at the
+     serving shape and at an unaligned one; K3 ``chain_mean_layer`` and K4
+     ``chain_mean_layer_bwd`` at the bench shape and at 37x53x8 for (L, k)
+     in (3,1), (3,2), (3,3), (1,1); K5 ``catalog_lse`` and K6
+     ``catalog_lse_bwd`` at NCL's two step shapes and a ragged one;
+  4. one-step checks: one LightGCN step's loss and gradients through
+     ``ChainMean`` (K1 + K2) against autograd through the plain chain; one
+     NCL step through K3-K6 against the plain path, for the full loss, the
+     layer contrast alone at unit weight and ProtoNCE alone, each bound
+     also rejecting zero gradients; at the bench shape;
   5. serve phase: synthetic ML-100K (the ``bench.py`` configuration),
      LightGCN d=64 L=3 with seeded random weights, saved and reloaded
      through ``weights``; ``cli.build_service`` on ``cuda``; 320 requests
@@ -29,8 +35,14 @@ What it does, in order (any failed phase exits non-zero):
      K1 and K2 must launch 3 times a step (plus K1 for each evaluation),
      and a ``torch.profiler`` window of 20 steps says where the step's time
      goes. In bf16 and in f32;
-  7. prints the serving line, the training line, the kernels line and,
-     last, the device line.
+  7. NCL train phase: the same for NCL at its defaults (d=64, L=3, context
+     layer 2, tau 0.1, 24 user and 42 item clusters, an E-step per epoch):
+     K3 and K4 launch 3 times a step, K5 twice, K6 four times (two
+     launches a call), K1 3 times per E-step and per evaluation, K2 never;
+     after each E-step every assignment lies in [0, k) and the k-means
+     inertia is no higher than at the initial centroids;
+  8. prints the serving line, the training line, the NCL line, the kernels
+     line and, last, the device line.
 
 Launch counts are reset just before each main path and read just after it.
 Exits non-zero without printing a result where no CUDA device is present.
@@ -60,12 +72,23 @@ from recommendation_tpu_torch.evalx.ranking import evaluate_ranking
 from recommendation_tpu_torch.graph.device import DeviceGraph
 from recommendation_tpu_torch.models import build
 from recommendation_tpu_torch.models.lightgcn import LightGCN
+from recommendation_tpu_torch.models.ncl import NCL
 from recommendation_tpu_torch.ops import build as kernels
+from recommendation_tpu_torch.ops.lse import (
+    catalog_lse,
+    catalog_lse_bwd,
+    catalog_lse_bwd_plain,
+    catalog_lse_plain,
+)
 from recommendation_tpu_torch.ops.prop import (
     ChainMean,
     chain_mean,
     chain_mean_bwd,
     chain_mean_bwd_plain,
+    chain_mean_layer,
+    chain_mean_layer_bwd,
+    chain_mean_layer_bwd_plain,
+    chain_mean_layer_plain,
     chain_mean_plain,
 )
 from recommendation_tpu_torch.ops.topk import topk_agree
@@ -96,6 +119,17 @@ N_CLIENTS, REQS_PER_CLIENT = 16, 20
 # training: bench.py's batch and rate; epochs enough for the loss to fall
 # and Recall@20 to pass the popularity baseline, few enough to stay short
 BATCH, LR, TRAIN_EPOCHS, PROFILE_STEPS = 2048, 1e-3, 5, 20
+# NCL: its defaults; the context layer of hyper_layers 1 is k = 2
+NCL_K, TAU = 2, 0.1
+LAYER_CASES = ((3, 1), (3, 2), (3, 3), (1, 1))
+# K5/K6 against plain on l2-normalized rows (what NCL feeds them), tau 0.1:
+# scores within +-10. The two sum each score's d products in another order,
+# which moves a score by about 1e-6 and exp(s - lse) by as much relatively;
+# dq and dx sum N or B such terms and keep that relative size.
+LSE_TOL = (1e-5, 1e-5)  # (rtol, atol) on lse
+LSE_GRAD_TOL = (1e-4, 1e-5)  # on dq, dx
+COUNTERS = (chain_mean, chain_mean_bwd, chain_mean_layer, chain_mean_layer_bwd, catalog_lse,
+            catalog_lse_bwd)
 
 
 def card_line() -> str:
@@ -123,11 +157,13 @@ def time_ms(fn, reps: int = 30) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
-def chain_bound(r, d, n_layers):
-    """(bound_ms, bound_by): bytes = R̂ + the tables in + the means out,
-    each once; operations = 2L products of 2·U·I·d at R̂'s type's peak."""
+def chain_bound(r, d, n_layers, tables=2):
+    """(bound_ms, bound_by): bytes = R̂ + ``tables`` f32 [U+I, d] tables
+    moved, each once (K1, K2: the tables in, the means out; K3 adds the
+    snapshot written, K4 the layer cotangent read); operations = 2L products
+    of 2·U·I·d at R̂'s type's peak."""
     n_users, n_items = r.shape
-    nbytes = r.numel() * r.element_size() + 2 * (n_users + n_items) * d * 4
+    nbytes = r.numel() * r.element_size() + tables * (n_users + n_items) * d * 4
     flops = 2 * n_layers * 2 * n_users * n_items * d
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[r.dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -149,6 +185,53 @@ def library_chain_bwd(r, gu, gi, n_layers):
     for _ in range(n_layers):
         au, ai = su + torch.matmul(r, ai), si + torch.matmul(r.T, au)
     return au, ai
+
+
+def lse_bound(shapes, products):
+    """(bound_ms, bound_by) of ``products`` f32 products of 2·B·N·d over the
+    (B, N, d) shapes, at the f32 FFMA peak, against the bytes of q, x and
+    the [B] vectors read and the outputs written once. K5: 1 product,
+    reads q, x, writes lse; K6: 3 products (the scores, dq, dx), reads q, x,
+    lse, g, writes dq, dx."""
+    flops = sum(products * 2 * b * n * d for b, n, d in shapes)
+    if products == 1:
+        nbytes = sum((b * d + n * d + b) * 4 for b, n, d in shapes)
+    else:
+        nbytes = sum((2 * (b * d + n * d) + 2 * b) * 4 for b, n, d in shapes)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def library_chain_layer(r, u0, i0, n_layers, k):
+    """K3's chain as 2L cuBLAS matmuls in R̂'s type, keeping layer k: a
+    yardstick only."""
+    u, i = u0.to(r.dtype), i0.to(r.dtype)
+    uk = ik = None
+    for layer in range(1, n_layers + 1):
+        u, i = torch.matmul(r, i), torch.matmul(r.T, u)
+        if layer == k:
+            uk, ik = u, i
+    return u, i, uk, ik
+
+
+def library_chain_layer_bwd(r, gu, gi, gku, gki, n_layers, k):
+    """K4's chain as 2L cuBLAS matmuls in R̂'s type, with layer k's
+    cotangent injected: a yardstick only."""
+    inv = 1.0 / (n_layers + 1.0)
+    su, si = (gu * inv).to(r.dtype), (gi * inv).to(r.dtype)
+    gku, gki = gku.to(r.dtype), gki.to(r.dtype)
+    au, ai = (su + gku, si + gki) if k == n_layers else (su, si)
+    for j in range(n_layers - 1, -1, -1):
+        au, ai = su + torch.matmul(r, ai), si + torch.matmul(r.T, au)
+        if j == k:
+            au, ai = au + gku, ai + gki
+    return au, ai
+
+
+def library_lse_bwd(q, x, tau, g):
+    """K6's gradient from a softmax and two cuBLAS matmuls: a yardstick only."""
+    p = torch.softmax(q @ x.T / tau, dim=1) * g[:, None]
+    return torch.matmul(p, x) / tau, torch.matmul(p.T, q) / tau
 
 
 def compare(name, got, want, dtype, tol=TOL):
@@ -259,6 +342,140 @@ def kernel_phase_bwd(graphs, params):
     return rows
 
 
+def kernel_phase_layer(graphs, params):
+    """K3 and K4 against their plain versions: at the bench shape on the
+    graph's R̂ (xavier tables, O(1) cotangents) and at 37x53x8 on random
+    O(1) inputs, for each (L, k) of LAYER_CASES; timed at NCL's (3, 2)."""
+    rows, bwd_rows = {}, {}
+    rng = np.random.default_rng(2)
+    n_users, n_items = graphs[torch.float32].propagation_matrix.shape
+    gu, gi, gku, gki = (torch.from_numpy(rng.normal(size=(n, EMB)).astype(np.float32)).cuda()
+                        for n in (n_users, n_items, n_users, n_items))
+    u0, i0 = params["user_emb"], params["item_emb"]
+    for dtype, graph in graphs.items():
+        r = graph.propagation_matrix
+        err = err_b = 0.0
+        for n_layers, k in LAYER_CASES:
+            e = compare(f"chain_mean_layer {dtype} bench shape L={n_layers} k={k}",
+                        chain_mean_layer(r, u0, i0, n_layers, k),
+                        chain_mean_layer_plain(r, u0, i0, n_layers, k), dtype)
+            e_b = compare(f"chain_mean_layer_bwd {dtype} bench shape L={n_layers} k={k}",
+                          chain_mean_layer_bwd(r, gu, gi, gku, gki, n_layers, k),
+                          chain_mean_layer_bwd_plain(r, gu, gi, gku, gki, n_layers, k),
+                          dtype, GRAD_TOL)
+            if (n_layers, k) == (LAYERS, NCL_K):
+                err, err_b = e, e_b
+            ru = torch.from_numpy(rng.normal(size=(37, 53)).astype(np.float32) * 0.1)
+            ru = ru.to("cuda", dtype)
+            uu, gus, gkus = (torch.from_numpy(rng.normal(size=(37, 8)).astype(np.float32)).cuda()
+                             for _ in range(3))
+            iu, gis, gkis = (torch.from_numpy(rng.normal(size=(53, 8)).astype(np.float32)).cuda()
+                             for _ in range(3))
+            compare(f"chain_mean_layer {dtype} 37x53x8 L={n_layers} k={k}",
+                    chain_mean_layer(ru, uu, iu, n_layers, k),
+                    chain_mean_layer_plain(ru, uu, iu, n_layers, k), dtype)
+            compare(f"chain_mean_layer_bwd {dtype} 37x53x8 L={n_layers} k={k}",
+                    chain_mean_layer_bwd(ru, gus, gis, gkus, gkis, n_layers, k),
+                    chain_mean_layer_bwd_plain(ru, gus, gis, gkus, gkis, n_layers, k),
+                    dtype, GRAD_TOL)
+        torch.cuda.synchronize()
+        bound_ms, bound_by = chain_bound(r, EMB, LAYERS, tables=3)
+        for out, name, err_, fns in (
+            (rows, "chain_mean_layer", err, (
+                lambda: chain_mean_layer(r, u0, i0, LAYERS, NCL_K),
+                lambda: chain_mean_layer_plain(r, u0, i0, LAYERS, NCL_K),
+                lambda: library_chain_layer(r, u0, i0, LAYERS, NCL_K))),
+            (bwd_rows, "chain_mean_layer_bwd", err_b, (
+                lambda: chain_mean_layer_bwd(r, gu, gi, gku, gki, LAYERS, NCL_K),
+                lambda: chain_mean_layer_bwd_plain(r, gu, gi, gku, gki, LAYERS, NCL_K),
+                lambda: library_chain_layer_bwd(r, gu, gi, gku, gki, LAYERS, NCL_K))),
+        ):
+            ms, plain_ms, library_ms = (time_ms(f) for f in fns)
+            out[dtype] = {
+                "name": name,
+                "dtype": str(dtype).replace("torch.", ""),
+                "route": "cuda",
+                "source": "recommendation_tpu_torch/csrc/chain_mean.cu",
+                "replaces": ("recommendation_tpu/ops/pallas_prop.py:203" if out is rows
+                             else "recommendation_tpu/ops/pallas_prop.py:240"),
+                "shape": [r.shape[0], r.shape[1], EMB, LAYERS, NCL_K],
+                "launches": 0,
+                "max_abs_err": err_,
+                "ms": ms,
+                "kernel_ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_us": bound_ms * 1e3,
+                "bound_by": bound_by,
+                "library_ms": library_ms,
+            }
+    return rows, bwd_rows
+
+
+def unit_rows(rng, n, d):
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    return torch.from_numpy(x / np.linalg.norm(x, axis=1, keepdims=True)).cuda()
+
+
+def kernel_phase_lse(n_users, n_items):
+    """K5 and K6 against their plain versions on l2-normalized rows at NCL's
+    two step shapes (B against the user and the item catalog) and at a
+    ragged one. Timed as one step uses them: a call on each catalog."""
+    rng = np.random.default_rng(3)
+    step_shapes = [(BATCH, n_users, EMB), (BATCH, n_items, EMB)]
+    inputs = []
+    err = err_b = 0.0
+    for b, n, d in step_shapes + [(37, 700, 24)]:
+        q, x = unit_rows(rng, b, d), unit_rows(rng, n, d)
+        g = torch.from_numpy(rng.normal(size=b).astype(np.float32)).cuda()
+        lse = catalog_lse(q, x, TAU)
+        want = catalog_lse_plain(q, x, TAU)
+        err = max(err, compare(f"catalog_lse {b}x{n}x{d}", [lse], [want], torch.float32,
+                               {torch.float32: LSE_TOL}))
+        err_b = max(err_b, compare(f"catalog_lse_bwd {b}x{n}x{d}",
+                                   catalog_lse_bwd(q, x, TAU, lse, g),
+                                   catalog_lse_bwd_plain(q, x, TAU, want, g), torch.float32,
+                                   {torch.float32: LSE_GRAD_TOL}))
+        if (b, n, d) in step_shapes:
+            inputs.append((q, x, g, want))
+    torch.cuda.synchronize()
+
+    def both(fn):
+        return lambda: [fn(*args) for args in inputs]
+
+    rows = []
+    for name, err_, products, fns, source_line in (
+        ("catalog_lse", err, 1, (lambda q, x, g, l: catalog_lse(q, x, TAU),
+                                 lambda q, x, g, l: catalog_lse_plain(q, x, TAU),
+                                 lambda q, x, g, l: torch.logsumexp(q @ x.T / TAU, 1)), 45),
+        ("catalog_lse_bwd", err_b, 3, (lambda q, x, g, l: catalog_lse_bwd(q, x, TAU, l, g),
+                                       lambda q, x, g, l: catalog_lse_bwd_plain(q, x, TAU, l, g),
+                                       lambda q, x, g, l: library_lse_bwd(q, x, TAU, g)), 102),
+    ):
+        ms, plain_ms, library_ms = (time_ms(both(f)) for f in fns)
+        bound_ms, bound_by = lse_bound(step_shapes, products)
+        rows.append({
+            "name": name,
+            "dtype": "float32",
+            "route": "cuda",
+            "source": "recommendation_tpu_torch/csrc/catalog_lse.cu",
+            "replaces": f"recommendation_tpu/ops/pallas_losses.py:{source_line}",
+            "shape": [list(s) for s in step_shapes],
+            "timed": "one call on each catalog (a step's pair)",
+            "launches_per_call": 1 if products == 1 else 2,
+            "launches": 0,
+            "max_abs_err": err_,
+            "ms": ms,
+            "kernel_ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_us": bound_ms * 1e3,
+            "bound_by": bound_by,
+            "library_ms": library_ms,
+        })
+    return rows
+
+
 class PlainLightGCN(LightGCN):
     """LightGCN with the plain chain (autograd through torch ops) in place
     of ChainMean: the reference a training step is held against."""
@@ -318,6 +535,186 @@ def one_step_check(graphs, params):
             "grad_max_abs": [w.abs().max().item() for w in plain_grads],
         }
     return out
+
+
+class PlainNCL(NCL):
+    """NCL with the plain chain and the plain logsumexp (autograd through
+    torch ops) in place of ChainMeanLayer (K3/K4) and CatalogLSE (K5/K6)."""
+
+    def _chain_layer(self, r, u0, i0, k):
+        return chain_mean_layer_plain(r, u0, i0, self.n_layers, k)
+
+    def _catalog_lse(self, q, x):
+        return catalog_lse_plain(q, x, self.ssl_temp)
+
+
+def ncl_term(term, model, p, state, batch, graph):
+    """NCL's full loss, its layer contrast alone or its ProtoNCE alone.
+    ProtoNCE reads layer 0, the parameters themselves, and no kernel."""
+    if term == "loss":
+        return model.loss(p, state, batch, graph)[0]
+    initial = (p["user_emb"], p["item_emb"])
+    if term == "ssl":
+        _, _, initial, context = model._forward_ctx(p, graph)
+        return model._ssl_layer_loss(context, initial, batch.users, batch.pos_items)
+    return model._proto_nce(state, initial, batch.users, batch.pos_items, batch.users.shape[0])
+
+
+def read_counts():
+    return {f.__name__: f.launches for f in COUNTERS}
+
+
+def ncl_one_step_check(graphs, params):
+    """One NCL step's gradients through K3-K6 against the plain path's, on
+    the same batch and cluster state: the full loss at NCL's default weights
+    (the BPR term dominates it: ssl_reg 1e-8, proto_reg 1e-7), then the
+    layer contrast alone at unit weight (K3, K4, K5 and K6 on its path), then
+    ProtoNCE alone at unit weight. Each bound must also reject zeros."""
+    out = {}
+    for dtype, graph in graphs.items():
+        default = default_config(**{"embedding.size": EMB})
+        unit = default_config(**{"embedding.size": EMB, "NCL.ssl_reg": 1.0,
+                                 "NCL.proto_reg": 1.0})
+        kernel_model = build("ncl", default)
+        state = kernel_model.epoch_begin(params, None, graph, torch.Generator().manual_seed(7), 0)
+        users, items, negs, weights, _ = epoch_batches(
+            epoch_words(torch.Generator().manual_seed(3), graph, BATCH), graph, BATCH)
+        batch = PairwiseBatch(users[0], items[0], negs[0], weights[0])
+        res = {}
+        for term, config in (("loss", default), ("ssl", unit), ("proto", unit)):
+            got = {}
+            for which, model in (("kernel", build("ncl", config)), ("plain", PlainNCL(config))):
+                p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+                before = read_counts()
+                value = ncl_term(term, model, p, state, batch, graph)
+                grads = torch.autograd.grad(value, [p["user_emb"], p["item_emb"]])
+                torch.cuda.synchronize()
+                counts = {k: v - before[k] for k, v in read_counts().items()}
+                got[which] = (value.item(), grads, counts)
+            (v_k, g_k, n_k), (v_p, g_p, n_p) = got["kernel"], got["plain"]
+            want_k = {"loss": (3, 3, 2, 4), "ssl": (3, 3, 2, 4), "proto": (0, 0, 0, 0)}[term]
+            seen = tuple(n_k[f.__name__] for f in COUNTERS[2:])
+            if seen != want_k or any(n_p.values()) or n_k["chain_mean_bwd"]:
+                raise RuntimeError(f"NCL {term} {dtype} launches {n_k} (plain {n_p})")
+            if not (math.isfinite(v_k) and abs(v_k - v_p) <= 1e-5 * abs(v_p) + 1e-6):
+                raise RuntimeError(f"NCL {term} {dtype}: {v_k} against plain {v_p}")
+            if not grads_agree(g_k, g_p, dtype):
+                raise RuntimeError(f"NCL {term} grads {dtype}: kernel disagrees with plain")
+            if grads_agree([torch.zeros_like(g) for g in g_p], g_p, dtype):
+                raise RuntimeError(f"NCL {term} bound {dtype} passes zero gradients")
+            res[term] = {
+                "value": v_k, "value_abs_err": abs(v_k - v_p),
+                "grad_max_abs_err": max((a - b).abs().max().item() for a, b in zip(g_k, g_p)),
+                "grad_max_abs": [w.abs().max().item() for w in g_p],
+            }
+        out[str(dtype).replace("torch.", "")] = res
+    return out
+
+
+def check_e_steps(records, k_users, k_items):
+    """Every recorded E-step: assignments int32 in [0, k), and the inertia
+    of the returned (centroids, assignment) no higher than that of the
+    initial centroids."""
+    rows = []
+    for user_all, item_all, draws, state in records:
+        row = {}
+        for side, x, k in (("user", user_all, k_users), ("item", item_all, k_items)):
+            assign, cent = state[f"{side}_2cluster"], state[f"{side}_centroids"]
+            if assign.dtype != torch.int32 or cent.shape != (k, EMB):
+                raise RuntimeError(f"{side} clusters malformed: {assign.dtype} {tuple(cent.shape)}")
+            if not bool(((assign >= 0) & (assign < k)).all()):
+                raise RuntimeError(f"{side} assignment outside [0, {k})")
+            init = x[draws[side][0].to(x.device)]
+            start = torch.cdist(x, init).square().min(dim=1).values.sum().item()
+            end = (x - cent[assign.long()]).square().sum().item()
+            if not end <= start * (1 + 1e-5):
+                raise RuntimeError(f"{side} k-means inertia rose: {start} -> {end}")
+            row[side] = {"inertia_init": start, "inertia": end,
+                         "clusters_used": int(assign.unique().numel())}
+        rows.append(row)
+    return rows
+
+
+def ncl_train_phase(compute_dtype, data):
+    """NCL's training main path at one compute dtype; returns (launches, stats)."""
+    config = default_config(**{
+        "embedding.size": EMB, "batch.size": BATCH, "learning.rate": LR, "optimizer": "adam",
+        "max.epoch": TRAIN_EPOCHS, "eval.interval": 1, "item.ranking.topN": [20],
+        "graph.compute_dtype": compute_dtype,
+    })
+    model = build("ncl", config)
+    records = []
+    e_step = model.e_step
+
+    def recording_e_step(user_all, item_all, draws):
+        state = e_step(user_all, item_all, draws)
+        records.append((user_all.clone(), item_all.clone(), draws, state))
+        return state
+
+    model.e_step = recording_e_step
+    for f in COUNTERS:
+        f.launches = 0
+    t0 = time.perf_counter()
+    rec = GraphRecommender(model, data, config, log=Log(echo=False), device="cuda")
+    metrics = rec.execute()
+    service = RecommenderService.from_recommender(rec)
+    uids = list(range(0, data.user_num, 97))
+    s_got, i_got = service.recommend_ids(uids, K)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+
+    graph = rec.graph
+    n_batches = -(-graph.n_edges // BATCH)
+    steps = n_batches * TRAIN_EPOCHS
+    n_evals = len(rec.history) + 2  # the per-epoch evaluations, the final test, the service
+    want = {"chain_mean": LAYERS * (len(records) + n_evals), "chain_mean_bwd": 0,
+            "chain_mean_layer": LAYERS * steps, "chain_mean_layer_bwd": LAYERS * steps,
+            "catalog_lse": 2 * steps, "catalog_lse_bwd": 4 * steps}
+    if len(records) != TRAIN_EPOCHS or launches != want:
+        raise RuntimeError(f"NCL {compute_dtype} launches {launches} with {len(records)} "
+                           f"E-steps, expected {want}")
+    k_users, k_items = model._k_for(graph.n_users), model._k_for(graph.n_items)
+    e_steps = check_e_steps(records, k_users, k_items)
+    losses = [e["loss"] for e in rec.epoch_stats]
+    if len(losses) != TRAIN_EPOCHS or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"NCL {compute_dtype} epoch losses malformed: {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"NCL {compute_dtype} loss did not fall: {losses}")
+    pop_top = popularity_recall(data, graph, 20, masked=False)
+    pop = popularity_recall(data, graph, 20)
+    if not (metrics["Recall@20"] > pop_top and metrics["Recall@20"] >= pop - 0.005):
+        raise RuntimeError(f"NCL {compute_dtype} Recall@20 {metrics['Recall@20']} against "
+                           f"popularity {pop_top} (masked {pop})")
+    plain_u, plain_i = chain_mean_plain(graph.propagation_matrix, rec.params["user_emb"].detach(),
+                                        rec.params["item_emb"].detach(), LAYERS)
+    s_plain, i_plain = RecommenderService(plain_u, plain_i, data, graph).recommend_ids(uids, K)
+    tol = score_tolerance(service.user_emb, service.item_emb, plain_u, plain_i)
+    if not (np.isfinite(s_got).all() and s_got.shape == (len(uids), K)
+            and topk_agree(s_got, i_got, s_plain, i_plain, tol)):
+        raise RuntimeError(f"NCL {compute_dtype} served answers differ from plain")
+    timed = rec.epoch_stats[1:]  # epoch 0 carries the first calls' set-up
+    stats = {
+        "compute_dtype": compute_dtype,
+        "shape": {"users": graph.n_users, "items": graph.n_items, "edges": graph.n_edges,
+                  "d": EMB, "layers": LAYERS, "context_layer": NCL_K, "batch": BATCH,
+                  "steps_per_epoch": n_batches, "clusters": [k_users, k_items]},
+        "epochs": TRAIN_EPOCHS,
+        "epoch_losses": losses,
+        "epoch_seconds": [e["seconds"] for e in rec.epoch_stats],
+        "examples_per_s": n_batches * BATCH * len(timed) / sum(e["seconds"] for e in timed),
+        "examples_per_s_by_epoch": [e["examples_per_s"] for e in rec.epoch_stats],
+        "recall@20": metrics["Recall@20"],
+        "ndcg@20": metrics["NDCG@20"],
+        "popularity_recall@20": pop_top,
+        "masked_popularity_recall@20": pop,
+        "launches": launches,
+        "e_steps": e_steps,
+        "served_users": len(uids),
+        "wall_s": wall_s,
+        "profile": profile_steps(rec),
+    }
+    return launches, stats
 
 
 def score_tolerance(u_a, i_a, u_b, i_b):
@@ -628,7 +1025,10 @@ def main() -> int:
 
     rows = kernel_phase(graphs, params)
     bwd_rows = kernel_phase_bwd(graphs, params)
+    layer_rows, layer_bwd_rows = kernel_phase_layer(graphs, params)
+    lse_rows = kernel_phase_lse(data.user_num, data.item_num)
     one_step = one_step_check(graphs, params)
+    ncl_one_step = ncl_one_step_check(graphs, params)
 
     serve = []
     with tempfile.TemporaryDirectory() as tmp:
@@ -657,9 +1057,24 @@ def main() -> int:
         stats["card"] = card
         training.append(stats)
 
+    ncl = []
+    for dtype, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        launches, stats = ncl_train_phase(name, data)
+        rows[dtype]["launches_ncl"] = launches["chain_mean"]
+        bwd_rows[dtype]["launches_ncl"] = launches["chain_mean_bwd"]
+        layer_rows[dtype]["launches"] = launches["chain_mean_layer"]
+        layer_bwd_rows[dtype]["launches"] = launches["chain_mean_layer_bwd"]
+        for row in lse_rows:  # f32 kernels, launched in both regimes
+            row["launches"] += launches[row["name"]]
+            row[f"launches_ncl_{name}"] = launches[row["name"]]
+        stats["card"] = card
+        ncl.append(stats)
+
     print(json.dumps({"serve": serve}))
     print(json.dumps({"one_step": one_step, "train": training}))
-    print(json.dumps({"kernels": list(rows.values()) + list(bwd_rows.values())}))
+    print(json.dumps({"ncl": {"one_step": ncl_one_step, "train": ncl}}))
+    print(json.dumps({"kernels": list(rows.values()) + list(bwd_rows.values())
+                      + list(layer_rows.values()) + list(layer_bwd_rows.values()) + lse_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

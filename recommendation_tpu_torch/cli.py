@@ -1,20 +1,23 @@
 """Command-line entry of the port.
 
   python -m recommendation_tpu_torch models
-  python -m recommendation_tpu_torch train --model lightgcn [--train T --test T] \\
+  python -m recommendation_tpu_torch train --model lightgcn|ncl [--train T --test T] \\
       [--set key=value ...] [--out RESULT.json] [--device cuda|cpu]
-  python -m recommendation_tpu_torch serve --model lightgcn \\
+  python -m recommendation_tpu_torch serve --model lightgcn|ncl \\
       [--checkpoint PARAMS.npz | CHECKPOINT_DIR] [--device cuda|cpu] \\
       [--train T --test T] [--set graph.compute_dtype=bfloat16] [--host H --port P]
 
+``models`` lists the ported models (``lightgcn``, ``ncl``).
 ``train`` runs ``GraphRecommender.execute`` and prints the test metrics as
 one JSON line (last on stdout), as the JAX package's CLI does. ``serve``
 serves top-k over HTTP from parameters saved by ``weights.save_params``
 (``.npz``), from the newest checkpoint in a directory written by
 ``train.checkpoint.CheckpointManager`` (``--set checkpoint.dir=DIR``
 while training), or, without ``--checkpoint``, after training first.
-Missing dataset paths fall back to the cached synthetic ML-100K-shaped
-set, as in the JAX package's CLI.
+Serving needs the parameters only: the eval embeddings of both models
+read no model state (NCL's clusters serve training alone). Missing dataset
+paths fall back to the cached synthetic ML-100K-shaped set, as in the JAX
+package's CLI.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 // One layer of the dense bipartite LightGCN chain, forward (K1) and
-// backward (K2), on Hopper (sm_90a).
+// backward (K2), and the same with a layer snapshot (K3) and a layer-k
+// cotangent injection (K4), on Hopper (sm_90a).
 //
 // K1 replaces the forward of the Pallas kernel
 // recommendation_tpu/ops/pallas_prop.py::_chain_kernel (forward=True), which
@@ -44,6 +45,22 @@
 // all but the last layer and 1/(L+1) on the last, the same operations in the
 // same order as the plain chain. Ragged edges are masked; nothing is padded.
 // wgmma, TMA and a persistent chain are later work, for K1 and K2 together.
+//
+// K3 replaces pallas_prop.py::_chain_layer_fwd_kernel (:203-237, NCL's
+// forward): K1's chain that also returns layer k's tables (1 <= k <= L).
+// A layer is one launch here, so layer k writes its new tables straight into
+// the snapshot buffers uk/ik (which the next layer then reads); that includes
+// k = L, where K1 skips the write. K3 is K1's body under its own kernel name
+// (chain_layer_snap_kernel) and its own C entry points.
+//
+// K4 replaces pallas_prop.py::_chain_layer_bwd_kernel (:240-272, wrapper
+// _chain_layer_bwd :317-329): K2's rounds j = L-1 .. 0 with layer k's
+// cotangent added after round j == k. It is K2's body with one more
+// epilogue operand: dst = seed + acc + inj, summed in that order (as the JAX
+// kernel's (gu + mm) + gku), with inj null on every round but j == k. The
+// k = L injection and the 1/(L+1) prescale of the mean's cotangent happen in
+// the wrapper, before the first round. K3 and K4 do K1's and K2's work plus
+// one more [U+I, d] table written (K3) or read (K4).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,15 +83,17 @@ __device__ __forceinline__ float as_operand(float x, __nv_bfloat16) {
     return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// BWD selects the epilogue: false is K1's readout, true is K2's
+// BWD selects the epilogue: false is K1's (and K3's) readout, true is K2's
 // dst = seed + acc (seed passed as acc_in; acc_out, scale, write_next unused).
-template <typename T, bool BWD>
-__global__ void __launch_bounds__(THREADS)
-chain_layer_kernel(const T* __restrict__ r, const float* __restrict__ src_u,
-                   const float* __restrict__ src_i, float* __restrict__ dst_u,
-                   float* __restrict__ dst_i, const float* acc_in_u,
-                   const float* acc_in_i, float* acc_out_u, float* acc_out_i,
-                   int n_users, int n_items, int d, float scale, int write_next) {
+// INJ adds K4's operand: dst = seed + acc + inj wherever inj is not null.
+template <typename T, bool BWD, bool INJ>
+__device__ __forceinline__ void
+chain_layer_body(const T* __restrict__ r, const float* __restrict__ src_u,
+                 const float* __restrict__ src_i, float* __restrict__ dst_u,
+                 float* __restrict__ dst_i, const float* acc_in_u,
+                 const float* acc_in_i, float* acc_out_u, float* acc_out_i,
+                 const float* inj_u, const float* inj_i,
+                 int n_users, int n_items, int d, float scale, int write_next) {
     // As[kk][row]: R̂ slice, always indexed (reduction step, output row).
     __shared__ float As[TK][TM + 1];
     __shared__ __align__(16) float Bs[TK][TD];
@@ -90,6 +109,7 @@ chain_layer_kernel(const T* __restrict__ r, const float* __restrict__ src_u,
     float* dst = user_side ? dst_u : dst_i;
     const float* acc_in = user_side ? acc_in_u : acc_in_i;
     float* acc_out = user_side ? acc_out_u : acc_out_i;
+    const float* inj = user_side ? inj_u : inj_i;
 
     const int col0 = blockIdx.y * TD;
     const int tid = threadIdx.x;
@@ -152,7 +172,10 @@ chain_layer_kernel(const T* __restrict__ r, const float* __restrict__ src_u,
             if (col >= d) continue;
             const size_t off = (size_t)row * d + col;
             const float v = acc[p][q];
-            if constexpr (BWD) {
+            if constexpr (BWD && INJ) {
+                const float s = acc_in[off] + v;
+                dst[off] = inj != nullptr ? s + inj[off] : s;
+            } else if constexpr (BWD) {
                 dst[off] = acc_in[off] + v;
             } else {
                 if (write_next) dst[off] = v;
@@ -162,17 +185,83 @@ chain_layer_kernel(const T* __restrict__ r, const float* __restrict__ src_u,
     }
 }
 
+// K1 (BWD false) and K2 (BWD true).
+template <typename T, bool BWD>
+__global__ void __launch_bounds__(THREADS)
+chain_layer_kernel(const T* __restrict__ r, const float* __restrict__ src_u,
+                   const float* __restrict__ src_i, float* __restrict__ dst_u,
+                   float* __restrict__ dst_i, const float* acc_in_u,
+                   const float* acc_in_i, float* acc_out_u, float* acc_out_i,
+                   int n_users, int n_items, int d, float scale, int write_next) {
+    chain_layer_body<T, BWD, false>(r, src_u, src_i, dst_u, dst_i, acc_in_u, acc_in_i,
+                                    acc_out_u, acc_out_i, nullptr, nullptr, n_users,
+                                    n_items, d, scale, write_next);
+}
+
+// K3: one forward layer of the chain with a layer snapshot.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+chain_layer_snap_kernel(const T* __restrict__ r, const float* __restrict__ src_u,
+                        const float* __restrict__ src_i, float* __restrict__ dst_u,
+                        float* __restrict__ dst_i, const float* acc_in_u,
+                        const float* acc_in_i, float* acc_out_u, float* acc_out_i,
+                        int n_users, int n_items, int d, float scale, int write_next) {
+    chain_layer_body<T, false, false>(r, src_u, src_i, dst_u, dst_i, acc_in_u, acc_in_i,
+                                      acc_out_u, acc_out_i, nullptr, nullptr, n_users,
+                                      n_items, d, scale, write_next);
+}
+
+// K4: one backward round with the layer-k cotangent injected.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+chain_layer_inject_kernel(const T* __restrict__ r, const float* __restrict__ src_u,
+                          const float* __restrict__ src_i, const float* seed_u,
+                          const float* seed_i, const float* inj_u, const float* inj_i,
+                          float* __restrict__ dst_u, float* __restrict__ dst_i,
+                          int n_users, int n_items, int d) {
+    chain_layer_body<T, true, true>(r, src_u, src_i, dst_u, dst_i, seed_u, seed_i, nullptr,
+                                    nullptr, inj_u, inj_i, n_users, n_items, d, 1.f, 1);
+}
+
+dim3 layer_grid(int n_users, int n_items, int d) {
+    const int nbu = (n_users + TM - 1) / TM;
+    const int nbi = (n_items + TM - 1) / TM;
+    return dim3(nbu + nbi, (d + TD - 1) / TD);
+}
+
 template <typename T, bool BWD>
 int launch(const void* r, const float* src_u, const float* src_i, float* dst_u,
            float* dst_i, const float* acc_in_u, const float* acc_in_i,
            float* acc_out_u, float* acc_out_i, int n_users, int n_items, int d,
            float scale, int write_next, void* stream) {
-    const int nbu = (n_users + TM - 1) / TM;
-    const int nbi = (n_items + TM - 1) / TM;
-    const dim3 grid(nbu + nbi, (d + TD - 1) / TD);
-    chain_layer_kernel<T, BWD><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+    chain_layer_kernel<T, BWD><<<layer_grid(n_users, n_items, d), THREADS, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(r), src_u, src_i, dst_u, dst_i, acc_in_u, acc_in_i,
         acc_out_u, acc_out_i, n_users, n_items, d, scale, write_next);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_snap(const void* r, const float* src_u, const float* src_i, float* dst_u,
+                float* dst_i, const float* acc_in_u, const float* acc_in_i,
+                float* acc_out_u, float* acc_out_i, int n_users, int n_items, int d,
+                float scale, int write_next, void* stream) {
+    chain_layer_snap_kernel<T><<<layer_grid(n_users, n_items, d), THREADS, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(r), src_u, src_i, dst_u, dst_i, acc_in_u, acc_in_i,
+        acc_out_u, acc_out_i, n_users, n_items, d, scale, write_next);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_inject(const void* r, const float* src_u, const float* src_i,
+                  const float* seed_u, const float* seed_i, const float* inj_u,
+                  const float* inj_i, float* dst_u, float* dst_i, int n_users,
+                  int n_items, int d, void* stream) {
+    chain_layer_inject_kernel<T><<<layer_grid(n_users, n_items, d), THREADS, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(r), src_u, src_i, seed_u, seed_i, inj_u, inj_i, dst_u, dst_i,
+        n_users, n_items, d);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -216,6 +305,47 @@ extern "C" int chain_layer_bwd_bf16(const void* r, const float* src_u, const flo
     return launch<__nv_bfloat16, true>(r, src_u, src_i, dst_u, dst_i, seed_u, seed_i,
                                        nullptr, nullptr, n_users, n_items, d, 1.f, 1,
                                        stream);
+}
+
+// K3: one forward layer (K1's arguments); the wrapper points dst at the
+// snapshot buffers on layer k.
+extern "C" int chain_layer_snap_f32(const void* r, const float* src_u, const float* src_i,
+                                    float* dst_u, float* dst_i, const float* acc_in_u,
+                                    const float* acc_in_i, float* acc_out_u,
+                                    float* acc_out_i, int n_users, int n_items, int d,
+                                    float scale, int write_next, void* stream) {
+    return launch_snap<float>(r, src_u, src_i, dst_u, dst_i, acc_in_u, acc_in_i, acc_out_u,
+                              acc_out_i, n_users, n_items, d, scale, write_next, stream);
+}
+
+extern "C" int chain_layer_snap_bf16(const void* r, const float* src_u, const float* src_i,
+                                     float* dst_u, float* dst_i, const float* acc_in_u,
+                                     const float* acc_in_i, float* acc_out_u,
+                                     float* acc_out_i, int n_users, int n_items, int d,
+                                     float scale, int write_next, void* stream) {
+    return launch_snap<__nv_bfloat16>(r, src_u, src_i, dst_u, dst_i, acc_in_u, acc_in_i,
+                                      acc_out_u, acc_out_i, n_users, n_items, d, scale,
+                                      write_next, stream);
+}
+
+// K4: one backward round, dst = seed + R̂-product of the old (src) tables
+// + inj (inj_u/inj_i null on the rounds without an injection).
+extern "C" int chain_layer_inject_f32(const void* r, const float* src_u, const float* src_i,
+                                      const float* seed_u, const float* seed_i,
+                                      const float* inj_u, const float* inj_i, float* dst_u,
+                                      float* dst_i, int n_users, int n_items, int d,
+                                      void* stream) {
+    return launch_inject<float>(r, src_u, src_i, seed_u, seed_i, inj_u, inj_i, dst_u, dst_i,
+                                n_users, n_items, d, stream);
+}
+
+extern "C" int chain_layer_inject_bf16(const void* r, const float* src_u, const float* src_i,
+                                       const float* seed_u, const float* seed_i,
+                                       const float* inj_u, const float* inj_i, float* dst_u,
+                                       float* dst_i, int n_users, int n_items, int d,
+                                       void* stream) {
+    return launch_inject<__nv_bfloat16>(r, src_u, src_i, seed_u, seed_i, inj_u, inj_i, dst_u,
+                                        dst_i, n_users, n_items, d, stream);
 }
 
 extern "C" const char* chain_error_string(int code) {

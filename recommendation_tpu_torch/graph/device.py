@@ -12,7 +12,7 @@ JAX one bit for bit.
 Two forms of the JAX graph stay out: ``user_bitmap_fb`` rows are not padded
 to 64 words (a TPU gather-width workaround; the first W + 8 columns are the
 same), and ``norm_adj_selfloops`` comes with GRACE/G-BT (ROADMAP queue 1,
-item 8). Graphs that ``choose_backend`` sends to the bucketed or segment
+"The other dense-path models"). Graphs that ``choose_backend`` sends to the bucketed or segment
 backend are not ported yet (ROADMAP queue 1, "Large-graph backend").
 """
 

@@ -3,6 +3,8 @@
 The same formulas as the JAX package, differentiable under autograd:
 the BPR loss keeps the reference's ``1e-5`` inside the log, and the L2
 term is the un-squared Frobenius norm divided by the row count.
+``info_nce``'s [B, B] product is plain torch, as the JAX package leaves it
+to XLA; the full-catalog denominators go through ``ops/lse.py``.
 """
 
 from __future__ import annotations
@@ -59,3 +61,13 @@ def safe_frobenius_norm(x: torch.Tensor) -> torch.Tensor:
 def l2_reg_loss(reg: float, *embs: torch.Tensor) -> torch.Tensor:
     """reg * Σ ||x||_F / x.shape[0] — NOT squared (`ncl.py:122-123`)."""
     return reg * sum(safe_frobenius_norm(x) / x.shape[0] for x in embs)
+
+
+def info_nce(view1: torch.Tensor, view2: torch.Tensor, temperature: float,
+             b_cos: bool = True) -> torch.Tensor:
+    """Symmetric-view InfoNCE: -mean diag(log_softmax(v1·v2ᵀ/τ))
+    (`ncl.py:125-130`, `ssl4rec.py:19-23`)."""
+    if b_cos:
+        view1, view2 = _l2_normalize(view1), _l2_normalize(view2)
+    scores = view1 @ view2.T / temperature
+    return -torch.mean(torch.diagonal(torch.log_softmax(scores, dim=1)))

@@ -5,7 +5,8 @@
 ``save_params``/``load_params`` keep the same names in one ``.npz`` file:
 the port's checkpoint for ``serve`` (the JAX package's orbax checkpoints
 cannot be read without JAX). ``opt_state_from_jax`` carries an optax Adam
-state over into a ``torch.optim.Adam`` ``state_dict``.
+state over into a ``torch.optim.Adam`` ``state_dict``, and ``state_from_jax``
+a model's non-gradient state (NCL's clusters), integer tables as int32.
 """
 
 from __future__ import annotations
@@ -18,7 +19,13 @@ import torch
 from recommendation_tpu_torch.device import resolve_device
 
 # parameter names of each ported model, as its JAX counterpart's init returns them
-PARAM_NAMES = {"lightgcn": ("user_emb", "item_emb")}
+PARAM_NAMES = {"lightgcn": ("user_emb", "item_emb"), "ncl": ("user_emb", "item_emb")}
+# the model state each ported model carries, name -> dtype
+STATE_DTYPES = {
+    "lightgcn": {},
+    "ncl": {"user_centroids": np.float32, "user_2cluster": np.int32,
+            "item_centroids": np.float32, "item_2cluster": np.int32},
+}
 
 
 def _to_tensors(model_name: str, arrays, device) -> Dict[str, torch.Tensor]:
@@ -35,6 +42,20 @@ def _to_tensors(model_name: str, arrays, device) -> Dict[str, torch.Tensor]:
 def params_from_jax(model_name: str, params_np, device="cuda") -> Dict[str, torch.Tensor]:
     """The port's parameters from the JAX package's pytree of numpy arrays."""
     return _to_tensors(model_name, dict(params_np), device)
+
+
+def state_from_jax(model_name: str, state_np, device="cuda") -> Dict[str, torch.Tensor]:
+    """The port's model state from the JAX package's state pytree of numpy
+    arrays (``jax.device_get(state)``), name for name: float tables as
+    float32, cluster ids as int32."""
+    dtypes = STATE_DTYPES.get(model_name.lower())
+    if dtypes is None:
+        raise KeyError(f"no state layout for model {model_name!r}; have {sorted(STATE_DTYPES)}")
+    state_np = dict(state_np)
+    if set(state_np) != set(dtypes):
+        raise ValueError(f"{model_name} state is {sorted(dtypes)}, got {sorted(state_np)}")
+    dev = resolve_device(device)
+    return {n: torch.tensor(np.asarray(state_np[n], dtype=t)).to(dev) for n, t in dtypes.items()}
 
 
 def save_params(path: str, params: Dict[str, torch.Tensor]) -> None:

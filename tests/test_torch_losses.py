@@ -72,3 +72,13 @@ def test_l2_normalize():
     xs = _inputs(5, 1, zero_row=True)
     _check(lambda x: jnp.sum(jl._l2_normalize(x) * jnp.arange(16.0)),
            lambda x: torch.sum(tl._l2_normalize(x) * torch.arange(16.0)), xs)
+
+
+@pytest.mark.parametrize("b_cos", [True, False])
+@pytest.mark.parametrize("zero_row", [False, True])
+def test_info_nce(b_cos, zero_row):
+    """NCL's ProtoNCE term: a [B, B] score matrix against the assigned
+    centroids; a zero row is an empty centroid of the initial state."""
+    xs = _inputs(6, 2, shape=(48, 16), zero_row=zero_row)
+    _check(lambda a, b: jl.info_nce(b, a, 0.1, b_cos), lambda a, b: tl.info_nce(b, a, 0.1, b_cos),
+           xs)

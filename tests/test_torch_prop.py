@@ -4,7 +4,9 @@
 package's layer chain: the Pallas kernel in interpret mode
 (``dense_chain_mean(..., interpret=True)``, whose custom VJP runs the
 kernel's backward) and the XLA chain of ``lightgcn_propagate``, values and
-gradients.
+gradients. Kernels K3 and K4 likewise: ``ChainMeanLayer`` on CPU tensors
+against ``dense_chain_mean_layer(..., interpret=True)``, all four outputs
+and the gradients through all four.
 
 Tolerances: where both sides multiply the same real graph, rtol 1e-5 /
 atol 1e-6 in both regimes (the two sum in another order; the bf16 regime
@@ -24,13 +26,18 @@ import torch
 from recommendation_tpu.data.interaction import Interaction as JaxInteraction
 from recommendation_tpu.graph.device import DeviceGraph as JaxDeviceGraph
 from recommendation_tpu.models.lightgcn import lightgcn_propagate as jax_propagate
-from recommendation_tpu.ops.pallas_prop import dense_chain_mean
+from recommendation_tpu.ops.pallas_prop import dense_chain_mean, dense_chain_mean_layer
 from recommendation_tpu_torch.data.synthetic import make_synthetic_dataset
 from recommendation_tpu_torch.ops.prop import (
     ChainMean,
+    ChainMeanLayer,
     chain_mean,
     chain_mean_bwd,
     chain_mean_bwd_plain,
+    chain_mean_layer,
+    chain_mean_layer_bwd,
+    chain_mean_layer_bwd_plain,
+    chain_mean_layer_plain,
     chain_mean_plain,
 )
 
@@ -254,3 +261,112 @@ def test_chain_mean_bwd_checks_its_inputs():
         chain_mean_bwd(r, gu, gi, -1)
     with pytest.raises(ValueError):
         chain_mean_bwd(r.to("meta"), gu.to("meta"), gi.to("meta"), 1)
+
+
+# -- ChainMeanLayer: K3 forward + K4 backward, NCL's chain ---------------------
+
+LAYER_CASES = [(3, 1), (3, 2), (3, 3), (1, 1)]
+
+
+def _scalarize4(outs, lib):
+    """tests/test_pallas_prop.py's loss over the four outputs: a distinct
+    nonlinearity on each, so each cotangent is distinct."""
+    au, ai, uk, ik = outs
+    return lib.sum(au ** 2) + lib.sum(lib.sin(ai)) + lib.sum(lib.cos(uk)) + lib.sum(lib.tanh(ik))
+
+
+def _layer_ours(r_np, u0, i0, n_layers, k, dtype):
+    r = torch.tensor(r_np).to(dtype)
+    u = torch.tensor(u0, requires_grad=True)
+    i = torch.tensor(i0, requires_grad=True)
+    outs = ChainMeanLayer.apply(r, u, i, n_layers, k)
+    _scalarize4(outs, torch).backward()
+    return [o.detach().numpy() for o in outs], (u.grad.numpy(), i.grad.numpy())
+
+
+def _layer_jax(r_np, u0, i0, n_layers, k, compute_dtype):
+    r = jnp.asarray(r_np)
+    r = r.astype(jnp.bfloat16) if compute_dtype == "bfloat16" else r
+
+    def chain(u, i):
+        return dense_chain_mean_layer(r, u, i, n_layers, k, True)
+
+    outs = chain(jnp.asarray(u0), jnp.asarray(i0))
+    g = jax.grad(lambda u, i: _scalarize4(chain(u, i), jnp), argnums=(0, 1))(
+        jnp.asarray(u0), jnp.asarray(i0))
+    return [np.asarray(o) for o in outs], tuple(np.asarray(x) for x in g)
+
+
+@pytest.mark.parametrize("n_layers,k", LAYER_CASES)
+@pytest.mark.parametrize("compute_dtype,dtype", DTYPES, ids=["f32", "bf16"])
+def test_chain_layer_unaligned_random_matches_pallas_interpret(n_layers, k, compute_dtype, dtype):
+    rng = np.random.default_rng(7)
+    n_u, n_i, d = 37, 53, 8
+    r = rng.normal(size=(n_u, n_i)).astype(np.float32) * 0.1
+    u0, i0 = _tables(rng, n_u, n_i, d, scale=1.0)
+    got, got_g = _layer_ours(r, u0, i0, n_layers, k, dtype)
+    want, want_g = _layer_jax(r, u0, i0, n_layers, k, compute_dtype)
+    f32 = dtype == torch.float32
+    _close(got, want, TIGHT if f32 else BF16_RANDOM)
+    _close(got_g, want_g, TIGHT if f32 else BF16_RANDOM_GRAD)
+
+
+@pytest.mark.parametrize("n_layers,k", LAYER_CASES)
+@pytest.mark.parametrize("compute_dtype,dtype", DTYPES, ids=["f32", "bf16"])
+def test_chain_layer_tiny_graph_matches_pallas_interpret(tiny_graph, n_layers, k,
+                                                         compute_dtype, dtype):
+    """On a real normalized R̂ the f32 bounds hold in both regimes, as for
+    K1/K2: both sides round the same operands."""
+    rng = np.random.default_rng(8)
+    r = np.asarray(tiny_graph.interaction_norm_dense)
+    u0, i0 = _tables(rng, r.shape[0], r.shape[1], 16)
+    got, got_g = _layer_ours(r, u0, i0, n_layers, k, dtype)
+    want, want_g = _layer_jax(r, u0, i0, n_layers, k, compute_dtype)
+    _close(got, want, TIGHT)
+    _close(got_g, want_g, TIGHT)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chain_mean_layer_on_cpu_is_the_plain_version(dtype):
+    rng = np.random.default_rng(9)
+    r = torch.from_numpy(rng.normal(size=(11, 7)).astype(np.float32)).to(dtype)
+    u0 = torch.from_numpy(rng.normal(size=(11, 5)).astype(np.float32))
+    i0 = torch.from_numpy(rng.normal(size=(7, 5)).astype(np.float32))
+    g = [torch.from_numpy(rng.normal(size=t.shape).astype(np.float32)) for t in (u0, i0, u0, i0)]
+    before = chain_mean_layer.launches, chain_mean_layer_bwd.launches
+    for n_layers in (1, 2, 3, 4):
+        for k in range(1, n_layers + 1):
+            got = chain_mean_layer(r, u0, i0, n_layers, k)
+            want = chain_mean_layer_plain(r, u0, i0, n_layers, k)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+            # the mean is K1's
+            assert all(torch.equal(a, b) for a, b in zip(got[:2], chain_mean(r, u0, i0, n_layers)))
+            got = chain_mean_layer_bwd(r, *g, n_layers, k)
+            want = chain_mean_layer_bwd_plain(r, *g, n_layers, k)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # without a layer cotangent, K4 is K2
+    zeros = [torch.zeros_like(u0), torch.zeros_like(i0)]
+    got = chain_mean_layer_bwd(r, g[0], g[1], *zeros, 3, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, chain_mean_bwd(r, g[0], g[1], 3)))
+    # the snapshot of layer 1 is one product of layer 0
+    _, _, u1, i1 = chain_mean_layer(r, u0, i0, 3, 1)
+    rf = r.float()
+    cast = (lambda x: x.to(torch.bfloat16).float()) if dtype == torch.bfloat16 else (lambda x: x)
+    assert torch.equal(u1, rf @ cast(i0)) and torch.equal(i1, rf.T @ cast(u0))
+    assert (chain_mean_layer.launches, chain_mean_layer_bwd.launches) == before
+
+
+def test_chain_mean_layer_checks_its_inputs():
+    r = torch.zeros(4, 3)
+    u0, i0 = torch.zeros(4, 2), torch.zeros(3, 2)
+    for k in (0, 4, 1.0):
+        with pytest.raises(ValueError, match="layer k"):
+            chain_mean_layer(r, u0, i0, 3, k)
+    with pytest.raises(ValueError, match="layer k"):
+        chain_mean_layer_bwd(r, u0, i0, u0, i0, 3, 0)
+    with pytest.raises(TypeError):
+        chain_mean_layer(r.half(), u0, i0, 3, 1)
+    with pytest.raises(ValueError):
+        chain_mean_layer_bwd(r, u0, i0, torch.zeros(5, 2), i0, 3, 1)
+    with pytest.raises(ValueError):
+        chain_mean_layer(r.to("meta"), u0.to("meta"), i0.to("meta"), 3, 1)

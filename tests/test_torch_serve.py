@@ -176,8 +176,8 @@ def test_checkpoint_round_trip_serves_the_same(pair, tmp_path):
 def test_params_from_jax_rejects_wrong_layout():
     with pytest.raises(ValueError):
         params_from_jax("lightgcn", {"user_emb": np.zeros((2, 2))}, device="cpu")
-    with pytest.raises(KeyError):
-        params_from_jax("ncl", {}, device="cpu")
+    with pytest.raises(KeyError):  # a model the port does not have yet
+        params_from_jax("directau", {}, device="cpu")
 
 
 def _cli(*args):
