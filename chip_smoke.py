@@ -41,8 +41,24 @@ What it does, in order (any failed phase exits non-zero):
      launches a call), K1 3 times per E-step and per evaluation, K2 never;
      after each E-step every assignment lies in [0, k) and the k-means
      inertia is no higher than at the initial centroids;
-  8. prints the serving line, the training line, the NCL line, the kernels
-     line and, last, the device line.
+  8. large-graph phase, LightGCN on the bucketed backend at ``bench.py
+     --large``'s shape (``make_flat_interactions(50_000, 100_000, 1_000_000,
+     seed=3)``, 10% held out, d=64, L=3, B=8192, Adam 1e-3, f32): the host
+     build of ``DeviceGraph`` (seconds, buckets, padded slots, table bytes);
+     K7 ``gather_rows`` against ``x[idx]`` bit for bit at the chain's
+     shapes and at the TPU probe's (1.5M rows x d=128, 4096 and 2M rows
+     gathered, rows carrying their ids); every P1 ``gather_sum`` variant
+     against its plain version at the bench graph (the bf16 source at
+     d=128), each twice to show it repeats bit for bit; both timed against
+     their bytes at 3.35 TB/s, their plain versions and a library call
+     (``torch.index_select``, one layer of ``torch.sparse.mm``); one step's
+     gradients through ``BucketedChainMean`` against the plain chain's; 3
+     epochs of training with K7 4 and P1 6 launches a step and K7 2, P1 3 per
+     evaluation, a falling loss and a 20-step profile; waves of requests
+     through ``RecommenderService``, each answer equal to the plain path's
+     and no train positive served;
+  9. prints the serving line, the training line, the NCL line, the large
+     line, the kernels line and, last, the device line.
 
 Launch counts are reset just before each main path and read just after it.
 Exits non-zero without printing a result where no CUDA device is present.
@@ -66,14 +82,25 @@ import torch
 from recommendation_tpu_torch.cli import build_service
 from recommendation_tpu_torch.config import default_config
 from recommendation_tpu_torch.data.interaction import Interaction
-from recommendation_tpu_torch.data.synthetic import make_synthetic_dataset
+from recommendation_tpu_torch.data.synthetic import (
+    ArrayInteraction,
+    make_flat_interactions,
+    make_synthetic_dataset,
+)
 from recommendation_tpu_torch.evalx.metrics import ranking_metrics
 from recommendation_tpu_torch.evalx.ranking import evaluate_ranking
+from recommendation_tpu_torch.graph.bucketed import bucketed_chain_mean, bucketed_chain_mean_plain
 from recommendation_tpu_torch.graph.device import DeviceGraph
 from recommendation_tpu_torch.models import build
 from recommendation_tpu_torch.models.lightgcn import LightGCN
 from recommendation_tpu_torch.models.ncl import NCL
 from recommendation_tpu_torch.ops import build as kernels
+from recommendation_tpu_torch.ops.gather import (
+    gather_rows,
+    gather_rows_plain,
+    gather_sum,
+    gather_sum_plain,
+)
 from recommendation_tpu_torch.ops.lse import (
     catalog_lse,
     catalog_lse_bwd,
@@ -130,6 +157,15 @@ LSE_TOL = (1e-5, 1e-5)  # (rtol, atol) on lse
 LSE_GRAD_TOL = (1e-4, 1e-5)  # on dq, dx
 COUNTERS = (chain_mean, chain_mean_bwd, chain_mean_layer, chain_mean_layer_bwd, catalog_lse,
             catalog_lse_bwd)
+# the large-graph phase: bench.py --large's shape (bench.py:245-271), 10% held out
+LARGE_SHAPE = dict(n_users=50_000, n_items=100_000, n_interactions=1_000_000, seed=3)
+LARGE_BATCH, LARGE_EPOCHS = 8192, 3
+# the TPU probe's gather (tools/probe_gather_ceiling.py:130-191): 1.5M rows x d=128
+PROBE_ROWS, PROBE_D, PROBE_IDX = 1_500_000, 128, (4096, 2_000_000)
+# P1 against its plain version: the two sum a row's slots in another order,
+# which moves a result by a few ulps of the row's largest partial sum (hub
+# rows hold 10^4 slots here): rtol 1e-5, atol 1e-5 x the table's largest entry
+P1_TOL = (1e-5, 1e-5)
 
 
 def card_line() -> str:
@@ -883,7 +919,7 @@ def popularity_recall(data, graph, n=20, masked=True):
     return ranking_metrics(ids, data.test_items_by_user(), [n])[f"Recall@{n}"]
 
 
-def profile_steps(rec):
+def profile_steps(rec, batch=BATCH):
     """Where one training step's time goes: torch.profiler over
     PROFILE_STEPS steps of the trainer's loop (``train.loop.run_steps``) on the trained
     recommender. Host wall per step, device time per step, the device's idle
@@ -891,7 +927,7 @@ def profile_steps(rec):
     from torch.profiler import ProfilerActivity, profile
 
     users, items, negs, weights, n_batches = epoch_batches(
-        epoch_words(torch.Generator().manual_seed(11), rec.graph, BATCH), rec.graph, BATCH)
+        epoch_words(torch.Generator().manual_seed(11), rec.graph, batch), rec.graph, batch)
     n_steps = min(PROFILE_STEPS, n_batches)
     window = (users[:n_steps], items[:n_steps], negs[:n_steps], weights[:n_steps], n_steps)
     run_steps(rec.model, rec.optimizer, rec.graph, rec.params, rec.state,
@@ -911,6 +947,8 @@ def profile_steps(rec):
         return {"steps": n_steps, "host_us_per_step": wall_us / n_steps,
                 "device_us_per_step": "not measured"}
     top = sorted(kernels_, key=lambda e: -e.self_device_time_total)[:5]
+    host = sorted((e for e in prof.key_averages() if e.device_type.name == "CPU"),
+                  key=lambda e: -e.self_cpu_time_total)[:8]
     return {
         "steps": n_steps,
         "host_us_per_step": wall_us / n_steps,
@@ -918,6 +956,8 @@ def profile_steps(rec):
         "device_idle_share": 1.0 - device_us / wall_us,
         "top_kernels_us_per_step": {e.key[:100]: e.self_device_time_total / n_steps
                                     for e in top},
+        "top_host_ops_us_per_step": {e.key[:60]: [e.self_cpu_time_total / n_steps,
+                                                  e.count / n_steps] for e in host},
     }
 
 
@@ -995,6 +1035,359 @@ def train_phase(compute_dtype, data):
     return launches, stats
 
 
+# -- the large-graph phase: LightGCN on the bucketed backend -----------------------
+
+
+def table_bytes(adj):
+    """Bytes of the bucketed tables of both directions on the card."""
+    return sum(t.numel() * t.element_size() for csr in (adj.pull, adj.pull_t)
+               for t in (csr.idx, csr.val, csr.edge, csr.ridx, csr.row_ptr, csr.gather_pos,
+                         csr.node_of_row, csr.sep_dst, csr.sep_src_row) if t is not None)
+
+
+def large_build():
+    """The data and the DeviceGraph at bench.py --large's shape; the host
+    build's seconds and the tables' sizes."""
+    t0 = time.perf_counter()
+    n_users, n_items = LARGE_SHAPE["n_users"], LARGE_SHAPE["n_items"]
+    pairs = make_flat_interactions(**LARGE_SHAPE)
+    data = ArrayInteraction(pairs, n_users, n_items, test_fraction=0.1)
+    t1 = time.perf_counter()
+    graph = DeviceGraph(data, backend="auto", compute_dtype="float32", device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    adj = graph.norm_adj
+    if graph.backend != "bucketed" or not adj.sym_rowspace or adj.pull.sep_dst is None:
+        raise RuntimeError(f"large graph on {graph.backend}, sym_rowspace {adj.sym_rowspace}")
+    info = {
+        "users": n_users, "items": n_items, "train_edges": graph.n_edges,
+        "test_pairs": int(len(data.test_pairs)), "nodes": graph.n_nodes,
+        "data_s": t1 - t0, "graph_build_s": t2 - t1,
+        "buckets": len(adj.pull.caps), "caps": list(adj.pull.caps),
+        "rows_R": adj.pull.total_rows, "nnz_padded": int(adj.vals.shape[0]),
+        "slots": [adj.pull.n_slots, adj.pull_t.n_slots],
+        "live_slots": int((adj.pull.ridx != adj.pull.total_rows).sum()),
+        "table_bytes": table_bytes(adj),
+        "has_pos_table": graph.has_pos_table, "has_pos_bitmap": graph.has_pos_bitmap,
+        "has_pos_mask": graph.has_pos_mask, "max_degree": graph.max_degree,
+    }
+    print(f"large graph: {json.dumps(info)}")
+    return data, graph, info
+
+
+def bytes_bound(nbytes):
+    """(bound_ms, "bytes"): a gather does no arithmetic worth a bound."""
+    return nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+
+def gather_bound(idx, d, itemsize):
+    """K7: the indices, each distinct row they pick read once, every
+    gathered row written once."""
+    n = idx.numel()
+    rows = torch.unique(idx).numel()
+    return bytes_bound(n * 4 + (rows + n) * d * itemsize)
+
+
+def pull_bound(csr, d, itemsize, val=False, post=True):
+    """P1: the slot indices (and values) and row pointers, each distinct
+    source row the live slots pick read once, the row scales, the
+    [R + 1, d] f32 output written once."""
+    live = csr.ridx[csr.ridx != csr.total_rows]
+    n_out = csr.total_rows + 1
+    nbytes = (csr.n_slots * 4 * (1 + val) + csr.row_ptr.numel() * 8
+              + torch.unique(live).numel() * d * itemsize + n_out * 4 * post + n_out * d * 4)
+    return bytes_bound(nbytes)
+
+
+def per_slot_ms(csr, d, itemsize):
+    """The separable pull's bytes counted per slot, as bench.py:163-175 does
+    (a source row per live slot, an index per slot, the output), at 3.35
+    TB/s: what the pull would move without the L2 cache's reuse of rows."""
+    live = int((csr.ridx != csr.total_rows).sum())
+    n_out = csr.total_rows + 1
+    return (csr.n_slots * 4 + live * d * itemsize + n_out * d * 4) / PEAK_BYTES_PER_S * 1e3
+
+
+def check_gather(name, x, idx):
+    """K7 against x[idx] bit for bit, and a second call against the first."""
+    got = gather_rows(x, idx)
+    again = gather_rows(x, idx)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, gather_rows_plain(x, idx)) and torch.equal(got, again)):
+        raise RuntimeError(f"gather_rows {name}: differs from x[idx]")
+    return got
+
+
+def check_pull(name, src, idx, row_ptr, **kw):
+    """One P1 variant against its plain version at P1_TOL, and twice
+    bit for bit."""
+    got = gather_sum(src, idx, row_ptr, **kw)
+    again = gather_sum(src, idx, row_ptr, **kw)
+    want = gather_sum_plain(src, idx, row_ptr, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise RuntimeError(f"gather_sum {name}: two calls differ")
+    rtol, atol = P1_TOL
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    if not (scale > 0 and torch.isfinite(got).all()
+            and torch.allclose(got, want, rtol=rtol, atol=atol * scale)):
+        raise RuntimeError(f"gather_sum {name}: kernel disagrees with plain (max abs err {err})")
+    return {"max_abs_err": err, "max_abs": scale}
+
+
+def large_kernel_phase(data, graph, params):
+    """K7 and P1 against their plain versions on the chain's inputs at the
+    bench graph and at the TPU probe's shape; timed."""
+    adj = graph.norm_adj
+    fwd = adj.pull
+    r = fwd.total_rows
+    ego = torch.cat([params["user_emb"], params["item_emb"]]).contiguous()
+    rows = fwd.node_of_row[:r]
+    # K7 at the chain's two shapes: node -> row and row -> node
+    xp = torch.cat([check_gather("node->row", ego, rows), ego.new_zeros((1, EMB))])
+    check_gather("row->node", xp, fwd.gather_pos)
+    check_gather("node->row bf16", ego.bfloat16(), rows)
+    # K7 at the probe's shape, rows carrying their ids
+    x_probe = torch.arange(PROBE_ROWS, dtype=torch.float32, device="cuda")[:, None].repeat(
+        1, PROBE_D)
+    rng = np.random.default_rng(2)
+    probe_idx = {}
+    for n in PROBE_IDX:
+        idx = torch.from_numpy(rng.integers(0, PROBE_ROWS, n).astype(np.int32)).cuda()
+        got = check_gather(f"probe {n}", x_probe, idx)
+        if not torch.equal(got[:, 0], idx.float()):
+            raise RuntimeError("gather_rows misrouted a probe row")
+        probe_idx[n] = idx
+    # P1: every variant on the chain's inputs
+    ab = fwd.sep_dst * fwd.sep_src_row
+    y = xp * fwd.sep_src_row[:, None]
+    g_rng = np.random.default_rng(3)
+    gp = torch.from_numpy(g_rng.normal(size=(r + 1, EMB)).astype(np.float32) * 1e-3).cuda()
+    gp[r] = 0.0
+    z = torch.from_numpy(g_rng.normal(size=(r + 1, EMB)).astype(np.float32) * 1e-3).cuda()
+    z[r] = 0.0
+    x128 = torch.from_numpy(g_rng.normal(size=(r + 1, 128)).astype(np.float32) * 0.05).cuda()
+    x128[r] = 0.0
+    ridx, ptr, sched = fwd.ridx, fwd.row_ptr, fwd.schedule
+    variants = {
+        "separable (chain forward)": check_pull("separable", y, ridx, ptr, post=ab, skip=r,
+                                                schedule=sched),
+        "separable + add (Horner backward)": check_pull("add", z, ridx, ptr, post=ab, add=gp,
+                                                        skip=r, schedule=sched),
+        "value path": check_pull("value", xp, ridx, ptr, val=fwd.val, skip=r, schedule=sched),
+        "value path + add": check_pull("value add", z, ridx, ptr, val=fwd.val, add=gp, skip=r,
+                                       schedule=sched),
+        "node space (pull)": check_pull("node", ego, fwd.idx, ptr, val=fwd.val, schedule=sched),
+        "bf16 source d=128": check_pull("bf16", x128.bfloat16(), ridx, ptr, post=fwd.sep_dst,
+                                        skip=r, schedule=sched),
+        "bf16 source d=128, value path": check_pull("bf16 value", x128.bfloat16(), ridx, ptr,
+                                                    val=fwd.val, skip=r, schedule=sched),
+    }
+    # the library yardsticks: index_select; one layer of CSR SpMM in node space
+    a = data.norm_adj.tocsr()
+    a_csr = torch.sparse_csr_tensor(torch.from_numpy(a.indptr.astype(np.int64)),
+                                    torch.from_numpy(a.indices.astype(np.int64)),
+                                    torch.from_numpy(a.data.astype(np.float32)),
+                                    size=a.shape).cuda()
+    torch.cuda.synchronize()
+    k7_bound = gather_bound(rows, EMB, 4)
+    k7 = {
+        "name": "gather_rows", "route": "cuda",
+        "source": "recommendation_tpu_torch/csrc/gather.cu",
+        "replaces": "tools/probe_gather_ceiling.py:130",
+        "shape": [graph.n_nodes, r, EMB], "timed": "the chain's node->row gather (f32)",
+        "launches": 0, "max_abs_err": 0.0,
+        "ms": time_ms(lambda: gather_rows(ego, rows)),
+        "plain_ms": time_ms(lambda: gather_rows_plain(ego, rows)),
+        "bound_ms": k7_bound[0], "bound_by": k7_bound[1],
+        "library_ms": time_ms(lambda: torch.index_select(ego, 0, rows)),
+    }
+    for n, idx in probe_idx.items():
+        bound = gather_bound(idx, PROBE_D, 4)
+        k7[f"probe_{n}"] = {
+            "shape": [PROBE_ROWS, n, PROBE_D],
+            "ms": time_ms(lambda: gather_rows(x_probe, idx)),
+            "plain_ms": time_ms(lambda: gather_rows_plain(x_probe, idx)),
+            "library_ms": time_ms(lambda: torch.index_select(x_probe, 0, idx)),
+            "bound_ms": bound[0],
+        }
+    k7["kernel_ms"] = k7["ms"]
+    p1_bound = pull_bound(fwd, EMB, 4)
+    p1 = {
+        "name": "gather_sum", "route": "cuda",
+        "source": "recommendation_tpu_torch/csrc/gather.cu",
+        "replaces": "recommendation_tpu/graph/bucketed.py:610 (XLA, not a TPU kernel)",
+        "shape": [r, fwd.n_slots, EMB], "timed": "one separable layer of the chain (f32)",
+        "launches": 0, "variants": variants,
+        "max_abs_err": max(v["max_abs_err"] for v in variants.values()),
+        "ms": time_ms(lambda: gather_sum(y, ridx, ptr, post=ab, skip=r, schedule=sched)),
+        "plain_ms": time_ms(lambda: gather_sum_plain(y, ridx, ptr, post=ab, skip=r)),
+        "bound_ms": p1_bound[0], "bound_by": p1_bound[1],
+        "per_slot_ms": per_slot_ms(fwd, EMB, 4),
+        "library_ms": time_ms(lambda: torch.sparse.mm(a_csr, ego)),
+    }
+    p1["kernel_ms"] = p1["ms"]
+    bf16_bound = pull_bound(fwd, 128, 2)
+    xb = x128.bfloat16()
+    p1["bf16_d128"] = {
+        "ms": time_ms(lambda: gather_sum(xb, ridx, ptr, post=fwd.sep_dst, skip=r,
+                                         schedule=sched)),
+        "plain_ms": time_ms(lambda: gather_sum_plain(xb, ridx, ptr, post=fwd.sep_dst, skip=r)),
+        "bound_ms": bf16_bound[0], "per_slot_ms": per_slot_ms(fwd, 128, 2),
+    }
+    del x_probe, probe_idx
+    torch.cuda.empty_cache()
+    return k7, p1
+
+
+class PlainBucketedLightGCN(LightGCN):
+    """LightGCN with the plain bucketed chain (autograd through torch ops)
+    in place of BucketedChainMean: the reference a step is held against."""
+
+    def propagate(self, params, graph):
+        n_users = params["user_emb"].shape[0]
+        ego = torch.cat([params["user_emb"], params["item_emb"]])
+        adj = graph.norm_adj
+        mean = bucketed_chain_mean_plain(self.n_layers, adj.compute_dtype, adj.pull, ego)
+        return mean[:n_users], mean[n_users:]
+
+
+def large_one_step_check(graph, params):
+    """One step's loss and grads through BucketedChainMean (K7 + P1 both
+    ways) against autograd through the plain chain; the bound must reject
+    zero gradients and those of a chain one layer short."""
+    config = default_config(**{"embedding.size": EMB, "LightGCN.n_layers": LAYERS})
+    model, plain = build("lightgcn", config), PlainBucketedLightGCN(config)
+    short = PlainBucketedLightGCN(default_config(**{"embedding.size": EMB,
+                                                    "LightGCN.n_layers": LAYERS - 1}))
+    users, items, negs, weights, _ = epoch_batches(
+        epoch_words(torch.Generator().manual_seed(3), graph, LARGE_BATCH), graph, LARGE_BATCH)
+    batch = PairwiseBatch(users[0], items[0], negs[0], weights[0])
+    p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    adj = graph.norm_adj
+    ego = torch.cat([p["user_emb"], p["item_emb"]])
+    if bucketed_chain_mean(LAYERS, "float32", adj.pull, adj.pull_t, ego).grad_fn is None:
+        raise RuntimeError("BucketedChainMean's output carries no gradient on the card")
+    before = gather_rows.launches, gather_sum.launches
+    loss, _ = model.loss(p, {}, batch, graph)
+    grads = torch.autograd.grad(loss, [p["user_emb"], p["item_emb"]])
+    torch.cuda.synchronize()
+    counts = (gather_rows.launches - before[0], gather_sum.launches - before[1])
+    if counts != (4, 2 * LAYERS):
+        raise RuntimeError(f"the large step launched K7, P1 {counts} times, expected 4, 6")
+    plain_loss, plain_grads = plain_step(plain, params, batch, graph)
+    if not grads_agree(grads, plain_grads, torch.float32):
+        raise RuntimeError("large one-step grads: kernels disagree with plain")
+    wrong = {"zero": [torch.zeros_like(g) for g in plain_grads],
+             "one layer short": plain_step(short, params, batch, graph)[1]}
+    for what, g in wrong.items():
+        if grads_agree(g, plain_grads, torch.float32):
+            raise RuntimeError(f"large one-step bound passes the {what} gradient")
+    rtol, atol = TOL[torch.float32]
+    loss_err = abs(loss.item() - plain_loss.item())
+    if not (math.isfinite(loss.item()) and loss_err <= atol + rtol * abs(plain_loss.item())):
+        raise RuntimeError(f"large one-step loss {loss.item()} != plain {plain_loss.item()}")
+    return {"loss": loss.item(), "loss_abs_err": loss_err,
+            "grad_max_abs_err": max((g - w).abs().max().item() for g, w in zip(grads, plain_grads)),
+            "grad_max_abs": [w.abs().max().item() for w in plain_grads]}
+
+
+def large_train_phase(data, graph):
+    """LightGCN's training main path on the bucketed graph, then waves of
+    requests from the trained tables; returns (launches, stats)."""
+    config = default_config(**{
+        "embedding.size": EMB, "LightGCN.n_layers": LAYERS, "batch.size": LARGE_BATCH,
+        "learning.rate": LR, "optimizer": "adam", "max.epoch": LARGE_EPOCHS,
+        "eval.interval": 1, "item.ranking.topN": [20], "graph.compute_dtype": "float32",
+    })
+    for f in COUNTERS + (gather_rows, gather_sum):
+        f.launches = 0
+    t0 = time.perf_counter()
+    rec = GraphRecommender(build("lightgcn", config), data, config, graph=graph,
+                           log=Log(echo=False), device="cuda")
+    rec.build()
+    rec.train()
+    metrics = rec.test().metrics
+    service = RecommenderService.from_recommender(rec)
+    test_users = data.test_user_ids()
+    waves = [test_users[i * 16:(i + 1) * 16].tolist() for i in range(20)]
+    answers, wave_ms = [], []
+    for uids in waves:
+        t = time.perf_counter()
+        answers.append(service.recommend_ids(uids, K))
+        wave_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"gather_rows": gather_rows.launches, "gather_sum": gather_sum.launches}
+    others = {f.__name__: f.launches for f in COUNTERS if f.launches}
+
+    n_batches = -(-graph.n_edges // LARGE_BATCH)
+    steps = n_batches * LARGE_EPOCHS
+    n_evals = len(rec.history) + 2  # the per-epoch evaluations, the test, the service
+    want = {"gather_rows": 4 * steps + 2 * n_evals, "gather_sum": 2 * LAYERS * steps
+            + LAYERS * n_evals}
+    if launches != want or others:
+        raise RuntimeError(f"large train launches {launches} (others {others}), expected {want}")
+    losses = [e["loss"] for e in rec.epoch_stats]
+    if len(losses) != LARGE_EPOCHS or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"large epoch losses malformed: {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"large loss did not fall: {losses}")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"large metrics not finite: {metrics}")
+    # the served answers against the plain chain's, on the card
+    with torch.no_grad():
+        plain_u, plain_i = PlainBucketedLightGCN(config).propagate(
+            {k: v.detach() for k, v in rec.params.items()}, graph)
+    plain = RecommenderService(plain_u, plain_i, data, graph)
+    tol = score_tolerance(service.user_emb, service.item_emb, plain_u, plain_i)
+    mat = data.interaction_mat
+    for uids, (s_got, i_got) in zip(waves, answers):
+        s_plain, i_plain = plain.recommend_ids(uids, K)
+        if not (np.isfinite(s_got).all() and s_got.shape == (len(uids), K)
+                and topk_agree(s_got, i_got, s_plain, i_plain, tol)):
+            raise RuntimeError("large served answers differ from the plain path's")
+        if any(mat[u, int(i)] != 0 for u, row in zip(uids, i_got) for i in row):
+            raise RuntimeError("a train positive was recommended on the large graph")
+    timed = rec.epoch_stats[1:]  # epoch 0 carries the first calls' set-up
+    stats = {
+        "compute_dtype": "float32",
+        "shape": {"users": graph.n_users, "items": graph.n_items, "edges": graph.n_edges,
+                  "d": EMB, "layers": LAYERS, "batch": LARGE_BATCH, "steps_per_epoch": n_batches},
+        "epochs": LARGE_EPOCHS,
+        "epoch_losses": losses,
+        "epoch_seconds": [e["seconds"] for e in rec.epoch_stats],
+        "examples_per_s": n_batches * LARGE_BATCH * len(timed) / sum(e["seconds"] for e in timed),
+        "examples_per_s_by_epoch": [e["examples_per_s"] for e in rec.epoch_stats],
+        "recall@20": metrics["Recall@20"],
+        "ndcg@20": metrics["NDCG@20"],
+        "launches": launches,
+        "served_waves": len(waves), "wave_users": 16,
+        "wave_ms_p50": float(np.percentile(wave_ms, 50)),
+        "wave_ms_max": max(wave_ms),
+        "score_tol": tol,
+        "wall_s": wall_s,
+        "sampler_s_per_epoch": sampler_seconds(graph),
+        "profile": profile_steps(rec, LARGE_BATCH),
+    }
+    return launches, stats
+
+
+def sampler_seconds(graph, reps=3):
+    """Host-clock seconds of one epoch's draw and batches
+    (``epoch_words`` + ``epoch_batches``), ending in a synchronize."""
+    times = []
+    for seed in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        epoch_batches(epoch_words(torch.Generator().manual_seed(seed), graph, LARGE_BATCH),
+                      graph, LARGE_BATCH)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs on the card",
@@ -1070,11 +1463,22 @@ def main() -> int:
         stats["card"] = card
         ncl.append(stats)
 
+    large_data, large_graph, large_info = large_build()
+    large_params, _ = model.init(torch.Generator().manual_seed(0), large_graph)
+    k7_row, p1_row = large_kernel_phase(large_data, large_graph, large_params)
+    large_one_step = large_one_step_check(large_graph, large_params)
+    launches, large_stats = large_train_phase(large_data, large_graph)
+    k7_row["launches"], p1_row["launches"] = launches["gather_rows"], launches["gather_sum"]
+    large_stats["card"] = card
+
     print(json.dumps({"serve": serve}))
     print(json.dumps({"one_step": one_step, "train": training}))
     print(json.dumps({"ncl": {"one_step": ncl_one_step, "train": ncl}}))
+    print(json.dumps({"large": {"build": large_info, "one_step": large_one_step,
+                                "train": large_stats}}))
     print(json.dumps({"kernels": list(rows.values()) + list(bwd_rows.values())
-                      + list(layer_rows.values()) + list(layer_bwd_rows.values()) + lse_rows}))
+                      + list(layer_rows.values()) + list(layer_bwd_rows.values()) + lse_rows
+                      + [k7_row, p1_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,10 +1,12 @@
-"""Deterministic synthetic dataset generator (ML-100K-shaped).
+"""Deterministic synthetic datasets.
 
-A copy of ``recommendation_tpu/data/synthetic.py::make_synthetic_dataset``
-and ``load_or_make_dataset``: the same numpy RNG calls in the same order, so
-the same seed gives the same triples. Power-law item popularity +
-latent-factor user/item affinities, so that embedding models can beat a
-popularity baseline.
+A copy of ``recommendation_tpu/data/synthetic.py``'s
+``make_synthetic_dataset``, ``load_or_make_dataset`` (ML-100K-shaped:
+power-law item popularity + latent-factor user/item affinities, so that
+embedding models can beat a popularity baseline), ``make_flat_interactions``
+and ``ArrayInteraction`` (the large-graph benchmark's edges and their
+loop-free interaction view): the same numpy RNG calls in the same order, so
+the same seed gives the same data.
 """
 
 from __future__ import annotations
@@ -62,6 +64,79 @@ def make_synthetic_dataset(
         for i in items[:n_test]:
             test.append([f"u{u}", f"i{i}", 1.0])
     return train, test
+
+
+def make_flat_interactions(n_users: int, n_items: int, n_interactions: int,
+                           seed: int = 0) -> np.ndarray:
+    """Vectorized large-scale edge generator (no per-user loop): zipf item
+    popularity x lognormal user activity, deduplicated. Returns int64[E, 2]
+    (user, item): throughput benchmarks at Yelp/Gowalla scale, where the
+    ranking optimum is the popularity list."""
+    rng = np.random.default_rng(seed)
+    n_interactions = min(n_interactions, n_users * n_items)
+    user_w = rng.lognormal(0.0, 1.0, size=n_users)
+    user_p = user_w / user_w.sum()
+    item_w = 1.0 / np.arange(1, n_items + 1) ** 0.8
+    item_p = item_w / item_w.sum()
+    # oversample-and-dedupe, growing the factor until the target is met
+    # (skewed distributions collide heavily on dense grids)
+    factor = 1.3
+    pairs = np.empty((0, 2), dtype=np.int64)
+    while len(pairs) < n_interactions and factor < 64:
+        target = int(n_interactions * factor)
+        users = rng.choice(n_users, size=target, p=user_p)
+        items = rng.choice(n_items, size=target, p=item_p)
+        pairs = np.unique(np.stack([users, items], axis=1), axis=0)
+        factor *= 2
+    rng.shuffle(pairs)
+    return pairs[:n_interactions]
+
+
+class ArrayInteraction:
+    """Interaction-compatible view over integer edge arrays, without the
+    Python dicts of ``Interaction``: the first ``test_fraction`` of the
+    pairs are held out. It has what ``DeviceGraph``, the trainer and
+    ``evaluate_ranking`` read; the id maps and the string report do not
+    exist (as in the JAX package)."""
+
+    def __init__(self, pairs: np.ndarray, n_users: int, n_items: int, test_fraction: float = 0.0):
+        import scipy.sparse as sp
+
+        from recommendation_tpu_torch.data.interaction import normalize_graph_mat
+
+        n_test = int(len(pairs) * test_fraction)
+        test_pairs = pairs[:n_test]
+        train_pairs = pairs[n_test:]
+        self.user_num = n_users
+        self.item_num = n_items
+        self.edge_users = train_pairs[:, 0].astype(np.int32)
+        self.edge_items = train_pairs[:, 1].astype(np.int32)
+        self.edge_weights = np.ones(len(train_pairs), dtype=np.float32)
+        self.training_data = train_pairs  # array view; len() works
+        self.interaction_mat = sp.csr_matrix(
+            (self.edge_weights, (self.edge_users, self.edge_items)), shape=(n_users, n_items)
+        )
+        rows = np.concatenate([self.edge_users, self.edge_items + n_users])
+        cols = np.concatenate([self.edge_items + n_users, self.edge_users])
+        n = n_users + n_items
+        self.ui_adj = sp.csr_matrix((np.ones(len(rows), np.float32), (rows, cols)), shape=(n, n))
+        self.norm_adj = normalize_graph_mat(self.ui_adj)
+        self.test_pairs = test_pairs
+
+    def training_size(self):
+        return self.user_num, self.item_num, len(self.edge_users)
+
+    def test_user_ids(self) -> np.ndarray:
+        return np.unique(self.test_pairs[:, 0]).astype(np.int32)
+
+    def test_items_by_user(self):
+        """Per-user test-item arrays aligned with ``test_user_ids()``
+        (ascending user id), O(T log T) numpy."""
+        tp = self.test_pairs
+        order = np.lexsort((tp[:, 1], tp[:, 0]))
+        sorted_pairs = tp[order]
+        _, starts = np.unique(sorted_pairs[:, 0], return_index=True)
+        return np.split(sorted_pairs[:, 1].astype(np.int32), starts[1:])
 
 
 def write_dataset(path: str, train: List[list], test: List[list]) -> None:

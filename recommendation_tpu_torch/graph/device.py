@@ -1,27 +1,40 @@
-"""Device-resident graph state for serving and training on the dense backend.
+"""Device-resident graph state for serving and training, on the dense and
+the bucketed backends.
 
-Counterpart of ``recommendation_tpu/graph/device.py::DeviceGraph``: the
-backend choice, the padded edge list, the per-user positives table used to
-mask train items out of a top-k, the user degrees, the sampler's membership
-tables (CSR, guaranteed-negative fallbacks, packed bitmap, dense mask) and
-the dense normalized interaction block R̂ = D_u^-1/2 R D_i^-1/2 that the
-LightGCN layer chain multiplies by. Tables are built on the host with the
-same numpy code as the JAX package and uploaded once, so each equals the
-JAX one bit for bit.
+Counterpart of ``recommendation_tpu/graph/device.py``: ``DeviceAdj`` and
+``from_scipy``/``with_vals`` for the bucketed backend, and ``DeviceGraph``:
+the backend choice, the padded edge list, the per-user positives table used
+to mask train items out of a top-k, the user degrees, the sampler's
+membership tables (CSR, guaranteed-negative fallbacks, packed bitmap, dense
+mask) and the propagation operator: on the dense backend the normalized
+interaction block R̂ = D_u^-1/2 R D_i^-1/2 that the LightGCN layer chain
+multiplies by, on the bucketed backend (graphs whose (U+I)² passes
+``DENSE_MAX_ELEMENTS``) the gather-only pull tables of the normalized
+bipartite adjacency, ``norm_adj`` (``graph/bucketed.py``). Tables are built
+on the host with the same numpy code as the JAX package and uploaded once,
+so each equals the JAX one bit for bit.
 
-Two forms of the JAX graph stay out: ``user_bitmap_fb`` rows are not padded
-to 64 words (a TPU gather-width workaround; the first W + 8 columns are the
-same), and ``norm_adj_selfloops`` comes with GRACE/G-BT (ROADMAP queue 1,
-"The other dense-path models"). Graphs that ``choose_backend`` sends to the bucketed or segment
-backend are not ported yet (ROADMAP queue 1, "Large-graph backend").
+Forms of the JAX graph that stay out: ``user_bitmap_fb`` rows are not
+padded to 64 words (a TPU gather-width workaround; the first W + 8 columns
+are the same); ``norm_adj_selfloops`` comes with GRACE/G-BT and
+``normalized_bipartite`` with its bucketed augmentation templates
+(``_bipartite_pull_tpl``) with the augmenting models (ROADMAP queue 1,
+item 9); ``gat_aux`` with GAT (item 10). The dense backend keeps no
+``norm_adj`` (its chain reads R̂). The segment and pallas backends are not
+ported (item 10).
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from recommendation_tpu_torch.device import resolve_device
+from recommendation_tpu_torch.graph.bucketed import BucketedCSR, build_bucketed, refresh_vals
 
 # Graphs whose dense adjacency is at most this many f32 elements use the
 # dense backend (the JAX package's threshold, kept so both choose alike).
@@ -49,6 +62,97 @@ def choose_backend(n_rows: int, n_cols: int, requested: str = "auto") -> str:
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def _check_compute_dtype(compute_dtype: str) -> None:
+    if compute_dtype == "int8":
+        raise NotImplementedError("int8 propagation is not ported yet (ROADMAP queue 1, item 15)")
+    if compute_dtype not in _COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {sorted(_COMPUTE_DTYPES)}")
+
+
+@dataclasses.dataclass
+class DeviceAdj:
+    """A normalized sparse adjacency on the device, as its bucketed pull
+    tables. ``rows``/``cols``/``vals`` are the COO (row-sorted) padded to a
+    multiple of ``EDGE_PAD`` with zero-valued ``(n_rows-1, n_cols-1)``
+    entries; ``pull`` and ``pull_t`` are the bucketed tables of A and Aᵀ,
+    whose slot→edge maps point into ``vals`` positions (so ``with_vals``
+    refreshes both); ``sym_rowspace`` says that they share ``gather_pos``,
+    the precondition of the row-space chain (``bucketed_chain_mean``). The
+    JAX class's ``dense`` field belongs to its dense backend, which the port
+    runs on R̂ instead, and ``rows_sorted`` and ``transpose`` to its segment
+    path and its other models."""
+
+    rows: torch.Tensor  # i32[E_pad]
+    cols: torch.Tensor  # i32[E_pad]
+    vals: torch.Tensor  # f32[E_pad]
+    n_rows: int
+    n_cols: int
+    backend: str
+    compute_dtype: str = "float32"
+    pull: Optional[BucketedCSR] = None
+    pull_t: Optional[BucketedCSR] = None
+    sym_rowspace: bool = False
+
+
+def from_scipy(mat: sp.spmatrix, backend: str = "auto", compute_dtype: str = "float32",
+               device="cuda") -> DeviceAdj:
+    """Upload a scipy sparse matrix as a DeviceAdj on the bucketed backend
+    (the only one the port keeps a ``DeviceAdj`` for)."""
+    _check_compute_dtype(compute_dtype)
+    dev = resolve_device(device)
+    coo = sp.coo_matrix(mat, dtype=np.float32)
+    if len(coo.row) == 0 or np.all(coo.row[:-1] <= coo.row[1:]):
+        # CSR->COO is already row-major: skip the O(E log E) argsort
+        rows = coo.row.astype(np.int32)
+        cols = coo.col.astype(np.int32)
+        vals = coo.data.astype(np.float32)
+    else:
+        order = np.argsort(coo.row, kind="stable")
+        rows = coo.row[order].astype(np.int32)
+        cols = coo.col[order].astype(np.int32)
+        vals = coo.data[order].astype(np.float32)
+    n_rows, n_cols = coo.shape
+    backend = choose_backend(n_rows, n_cols, backend)
+    if backend != "bucketed":
+        raise NotImplementedError(
+            f"from_scipy builds the bucketed backend only, not {backend!r}: the port's dense "
+            "chain reads R̂ (DeviceGraph.propagation_matrix), and the segment backend is not "
+            "ported yet (ROADMAP queue 1, item 10)")
+
+    e_pad = max(EDGE_PAD, _round_up(len(vals), EDGE_PAD))
+    # pad with (n_rows-1, n_cols-1) zero edges: padding must be symmetric, or
+    # pull and pull_t get different degree layouts whenever nnz % EDGE_PAD != 0
+    rows = np.pad(rows, (0, e_pad - len(rows)), constant_values=n_rows - 1)
+    cols = np.pad(cols, (0, e_pad - len(cols)), constant_values=n_cols - 1)
+    vals = np.pad(vals, (0, e_pad - len(vals)))
+    # slot->edge maps index the padded COO positions, so one [E_pad] vector
+    # refreshes both directions
+    eids = np.arange(e_pad, dtype=np.int32)
+    pull = build_bucketed(rows, cols, vals, n_rows, n_cols, edge_ids=eids, device=dev)
+    pull_t = build_bucketed(cols, rows, vals, n_cols, n_rows, edge_ids=eids, device=dev)
+    # symmetric patterns (the normalized bipartite adjacency always is) put
+    # both directions in one row space: the precondition for the chain
+    sym_rowspace = n_rows == n_cols and bool(torch.equal(pull.gather_pos, pull_t.gather_pos))
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return DeviceAdj(rows=put(rows), cols=put(cols), vals=put(vals), n_rows=n_rows,
+                     n_cols=n_cols, backend=backend, compute_dtype=compute_dtype, pull=pull,
+                     pull_t=pull_t, sym_rowspace=sym_rowspace)
+
+
+def with_vals(adj: DeviceAdj, vals: torch.Tensor) -> DeviceAdj:
+    """The same pattern with new edge values (aligned to ``adj.vals``
+    positions): the hook every value-level augmentation goes through. The
+    bucketed tables are refreshed on the device."""
+    return dataclasses.replace(
+        adj, vals=vals,
+        pull=None if adj.pull is None else refresh_vals(adj.pull, vals),
+        pull_t=None if adj.pull_t is None else refresh_vals(adj.pull_t, vals),
+    )
 
 
 def _fallback_negatives(mat0, degs, n_users: int, n_items: int) -> np.ndarray:
@@ -94,10 +198,14 @@ def _fallback_negatives(mat0, degs, n_users: int, n_items: int) -> np.ndarray:
 class DeviceGraph:
     """Serving and training state derived from an ``Interaction``, on ``device``.
 
-    ``interaction_norm_dense`` is R̂ in f32 [n_users, n_items]; in the
-    bfloat16 regime ``interaction_norm_bf16`` holds it once more, cast to
-    bf16 (round to nearest even, as the JAX chain's ``astype``).
-    ``propagation_matrix`` is the one the layer chain multiplies by.
+    Dense backend: ``interaction_norm_dense`` is R̂ in f32 [n_users,
+    n_items]; in the bfloat16 regime ``interaction_norm_bf16`` holds it once
+    more, cast to bf16 (round to nearest even, as the JAX chain's
+    ``astype``). ``propagation_matrix`` is the one the layer chain
+    multiplies by. Bucketed backend: ``norm_adj`` is the normalized
+    bipartite adjacency D^-1/2 A D^-1/2 over the U + I nodes as a
+    ``DeviceAdj``; there is no R̂ and ``propagation_matrix`` raises. The
+    ``data`` may be an ``Interaction`` or a ``data.synthetic.ArrayInteraction``.
 
     Sampler tables (i32 unless noted): ``edge_users``/``edge_items`` and
     ``edge_ui`` [E_pad, 2] (padded to a multiple of ``EDGE_PAD``; f32
@@ -116,14 +224,13 @@ class DeviceGraph:
         self.n_items = data.item_num
         self.n_nodes = self.n_users + self.n_items
         self.backend = choose_backend(self.n_nodes, self.n_nodes, backend)
-        if self.backend != "dense":
+        if self.backend not in ("dense", "bucketed"):
             raise NotImplementedError(
-                f"graph backend {self.backend!r} is not ported yet: the port serves "
-                "the dense backend only (ROADMAP queue 1, 'Large-graph backend' / "
-                "'Segment backend and neighbor models')"
+                f"graph backend {self.backend!r} is not ported yet: the port runs the dense "
+                "and the bucketed backends (ROADMAP queue 1, item 10, 'Segment backend and "
+                "neighbor models')"
             )
-        if compute_dtype not in _COMPUTE_DTYPES:
-            raise ValueError(f"compute_dtype must be one of {sorted(_COMPUTE_DTYPES)}")
+        _check_compute_dtype(compute_dtype)
         self.compute_dtype = compute_dtype
         dev = self.device
 
@@ -208,6 +315,12 @@ class DeviceGraph:
         else:
             self.user_pos_mask = torch.zeros((1, 1), dtype=torch.int8, device=dev)
 
+        self.interaction_norm_dense = self.interaction_norm_bf16 = self.norm_adj = None
+        if self.backend == "bucketed":
+            # the normalized bipartite adjacency as gather-only pull tables
+            self.norm_adj = from_scipy(data.norm_adj, backend="bucketed",
+                                       compute_dtype=compute_dtype, device=dev)
+            return
         # Dense R̂: the bipartite adjacency is [[0, R̂], [R̂ᵀ, 0]], so one
         # propagation round is R̂ · I and R̂ᵀ · U.
         deg_u = np.asarray(mat.sum(axis=1)).flatten()
@@ -216,13 +329,18 @@ class DeviceGraph:
         di = np.where(deg_i > 0, deg_i ** -0.5, 0.0).astype(np.float32)
         r_hat = mat.multiply(du[:, None]).multiply(di[None, :])
         self.interaction_norm_dense = put(np.asarray(r_hat.todense(), dtype=np.float32))
-        self.interaction_norm_bf16 = None
         if compute_dtype == "bfloat16":
             self.interaction_norm_bf16 = self.interaction_norm_dense.to(torch.bfloat16)
 
     @property
     def propagation_matrix(self) -> torch.Tensor:
-        """R̂ in the compute dtype: what the layer chain multiplies by."""
+        """R̂ in the compute dtype: what the dense layer chain multiplies by.
+        The bucketed backend has no R̂ (its chain pulls through
+        ``norm_adj``)."""
+        if self.backend != "dense":
+            raise NotImplementedError(
+                f"the {self.backend} backend has no dense R̂: models that multiply by it "
+                "(NCL, ROADMAP queue 1, item 15) are not ported to this backend yet")
         if self.interaction_norm_bf16 is not None:
             return self.interaction_norm_bf16
         return self.interaction_norm_dense

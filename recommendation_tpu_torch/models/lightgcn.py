@@ -1,26 +1,31 @@
 """LightGCN: K-layer normalized propagation + layer-mean readout, BPR/BCE.
 
-Counterpart of ``recommendation_tpu/models/lightgcn.py`` on the dense
-backend: the bipartite dense branch of ``lightgcn_propagate``
-(``return_layers=False``) in the f32 and the bf16 regime, and
-``LightGCN.init/propagate/loss/eval_embeddings``. Config: ``LightGCN.n_layers``
-(default 3), ``loss`` in {'bpr', 'bce', 'pointwise'}, ``n_negs`` (extra
-negatives per edge, `lightgcn.py:93-104`), ``Pointwise.n_negs``,
-``reg.lambda``.
+Counterpart of ``recommendation_tpu/models/lightgcn.py`` on the dense and
+the bucketed backends: ``lightgcn_propagate``'s bipartite dense branch
+(``return_layers=False``) in the f32 and the bf16 regime,
+``lightgcn_propagate_bucketed`` for its bucketed branches, and
+``LightGCN.init/propagate/loss/eval_embeddings``. Config:
+``LightGCN.n_layers`` (default 3), ``loss`` in {'bpr', 'bce', 'pointwise'},
+``n_negs`` (extra negatives per edge, `lightgcn.py:93-104`),
+``Pointwise.n_negs``, ``reg.lambda``.
 
-The layer chain always goes through ``ops.prop.ChainMean``: kernels K1
-(forward) and K2 (backward) on the card, their plain versions on the CPU.
+On the dense backend the layer chain goes through ``ops.prop.ChainMean``
+(kernels K1 forward, K2 backward); on the bucketed backend through
+``graph.bucketed.BucketedChainMean`` (K7 and P1 both ways). The card runs
+the kernels, the CPU their plain versions.
 """
 
 from __future__ import annotations
 
 import torch
 
+from recommendation_tpu_torch.graph.bucketed import bucketed_chain_mean
 from recommendation_tpu_torch.losses import bce_loss, bpr_loss, l2_reg_loss, pointwise_bce_loss
 from recommendation_tpu_torch.models.base import Model
 from recommendation_tpu_torch.models.registry import register
 from recommendation_tpu_torch.ops.prop import ChainMean
 from recommendation_tpu_torch.ops.rows import take_rows
+from recommendation_tpu_torch.ops.spmm import adj_matmul
 from recommendation_tpu_torch.sampling import negative_words, sample_negatives, sample_pointwise
 
 
@@ -35,6 +40,34 @@ def lightgcn_propagate(
     bf16 rounds the running table to bf16 before each product, f32 keeps
     f32. Accumulation is f32 in both."""
     return ChainMean.apply(r_hat, user_emb.contiguous(), item_emb.contiguous(), n_layers)
+
+
+def lightgcn_propagate_bucketed(user_emb: torch.Tensor, item_emb: torch.Tensor, norm_adj,
+                                n_layers: int, return_layers: bool = False):
+    """The same readout over the square normalized adjacency ``norm_adj``
+    (a bucketed ``DeviceAdj``) on the stacked [users; items] table: the
+    fused row-space chain where both directions share a row space
+    (``sym_rowspace``), else, and for ``return_layers``, L ``adj_matmul``
+    rounds. ``return_layers`` adds the list of the L + 1 layer tables."""
+    n_users = user_emb.shape[0]
+    ego = torch.cat([user_emb, item_emb])
+    if not return_layers and norm_adj.sym_rowspace:
+        mean = bucketed_chain_mean(n_layers, norm_adj.compute_dtype, norm_adj.pull,
+                                   norm_adj.pull_t, ego)
+        return mean[:n_users], mean[n_users:]
+    if return_layers:
+        layers = [ego]
+        for _ in range(n_layers):
+            ego = adj_matmul(norm_adj, ego)
+            layers.append(ego)
+        mean = torch.mean(torch.stack(layers), dim=0)
+        return mean[:n_users], mean[n_users:], layers
+    acc = ego
+    for _ in range(n_layers):
+        ego = adj_matmul(norm_adj, ego)
+        acc = acc + ego
+    mean = acc / (n_layers + 1.0)
+    return mean[:n_users], mean[n_users:]
 
 
 @register("lightgcn")
@@ -55,6 +88,9 @@ class LightGCN(Model):
         return params, {}
 
     def propagate(self, params, graph):
+        if graph.backend == "bucketed":
+            return lightgcn_propagate_bucketed(params["user_emb"], params["item_emb"],
+                                               graph.norm_adj, self.n_layers)
         return lightgcn_propagate(
             params["user_emb"], params["item_emb"], graph.propagation_matrix, self.n_layers
         )

@@ -8,7 +8,8 @@ A LightGCN encoder whose loss adds to BPR on the layer mean (`ncl.py:282-422`):
   * ProtoNCE against k-means clusters of the mean embeddings
     (`ncl.py:369-375`), ``info_nce`` × B.
 
-On the dense backend the forward is ``ops.prop.ChainMeanLayer`` (kernels K3
+NCL runs on the dense backend; ``init`` raises on the bucketed one (ROADMAP
+queue 1, item 15). The forward is ``ops.prop.ChainMeanLayer`` (kernels K3
 forward, K4 backward on the card), which returns the mean and the context
 layer in one chain; with a context index of 0 the context is layer 0 and the
 chain is LightGCN's (``ChainMean``). Both denominators go through
@@ -74,6 +75,10 @@ class NCL(Model):
         return min(self.num_clusters, max(2, n // 39))
 
     def init(self, generator: torch.Generator, graph):
+        if graph.backend != "dense":
+            raise NotImplementedError(
+                f"NCL on the {graph.backend} backend is not ported yet (ROADMAP queue 1, "
+                "item 15): its chain and catalog denominators run on the dense backend")
         params = {
             "user_emb": self._init_table(generator, graph.n_users, self.emb_size, graph.device),
             "item_emb": self._init_table(generator, graph.n_items, self.emb_size, graph.device),

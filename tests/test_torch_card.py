@@ -3,7 +3,11 @@ on the card; ``ChainMean``'s gradient on the card; one training step
 through the kernels against the same step through the plain chain. The
 same for NCL's kernels: K3 and K4 (``csrc/chain_mean.cu``), K5 and K6
 (``csrc/catalog_lse.cu``), ``ChainMeanLayer``'s and ``CatalogLSE``'s
-gradients, and one NCL step with the layer contrast at unit weight.
+gradients, and one NCL step with the layer contrast at unit weight. And for
+the bucketed backend's kernels (``csrc/gather.cu``): K7, the row gather,
+bit for bit; each variant of P1, the bucket pull, against its plain
+version and against itself; ``BucketedChainMean``'s gradient on the card;
+one LightGCN step on a bucketed graph.
 
 These tests need a CUDA device and ``nvcc``; elsewhere they skip. This file
 imports neither JAX nor the JAX package, so it runs where only the port is
@@ -18,11 +22,21 @@ import torch
 
 from recommendation_tpu_torch.config import default_config
 from recommendation_tpu_torch.data.interaction import Interaction
-from recommendation_tpu_torch.data.synthetic import make_synthetic_dataset
+from recommendation_tpu_torch.data.synthetic import (
+    ArrayInteraction,
+    make_flat_interactions,
+    make_synthetic_dataset,
+)
+from recommendation_tpu_torch.graph.bucketed import (
+    bucketed_chain_mean,
+    bucketed_chain_mean_plain,
+    packs_bf16,
+)
 from recommendation_tpu_torch.graph.device import DeviceGraph
 from recommendation_tpu_torch.models import build
 from recommendation_tpu_torch.models.lightgcn import LightGCN
 from recommendation_tpu_torch.models.ncl import NCL
+from recommendation_tpu_torch.ops.gather import gather_rows, gather_sum, gather_sum_plain
 from recommendation_tpu_torch.ops.lse import (
     CatalogLSE,
     catalog_lse,
@@ -364,3 +378,158 @@ def test_ncl_step_kernel_vs_plain(card, compute_dtype):
     dtype = graph.propagation_matrix.dtype
     assert _grads_close(g_k, g_p, dtype)
     assert not _grads_close([torch.zeros_like(g) for g in g_p], g_p, dtype)
+
+
+# -- the bucketed backend's kernels: K7 (row gather), P1 (bucket pull) --------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,d,s", [(1000, 64, 5000), (999, 129, 3000), (50, 3, 700),
+                                   (1500, 128, 4096), (10, 1, 1)])
+def test_row_gather_is_exact(card, dtype, n, d, s):
+    """K7 equals x[idx] bit for bit, rows carrying their ids as the TPU
+    probe's do, from a table and from an offset view of one (which takes
+    the narrower copy units where the offset is not 16-byte aligned)."""
+    rng = np.random.default_rng(n + d + s)
+    x = torch.from_numpy(rng.normal(size=(n + 1, d)).astype(np.float32))
+    x[:, 0] = torch.arange(n + 1, dtype=torch.float32)
+    x = x.to(card, dtype)
+    idx = torch.from_numpy(rng.integers(0, n, s).astype(np.int32)).to(card)
+    before = gather_rows.launches
+    got = gather_rows(x, idx)
+    shifted = gather_rows(x[1:], idx)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + 2
+    assert torch.equal(got, x[idx.long()]) and torch.equal(shifted, x[1:][idx.long()])
+
+
+@pytest.fixture(scope="module")
+def bucket_adj():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    pairs = make_flat_interactions(2000, 4000, 40_000, seed=1)
+    return DeviceGraph(ArrayInteraction(pairs, 2000, 4000), backend="bucketed",
+                       device="cuda").norm_adj
+
+
+P1_VARIANTS = ["separable", "value", "add", "value_add", "bf16", "bf16_value", "node"]
+
+
+@pytest.mark.parametrize("variant", P1_VARIANTS)
+@pytest.mark.parametrize("d", [64, 128, 24, 5])
+def test_bucket_pull_matches_plain(card, bucket_adj, variant, d):
+    """Each P1 variant against its plain version on a normalized graph's
+    tables. The two sum each row's slots in another order, which moves a
+    result by a few ulps of the row's largest partial sum: rtol 1e-5 with
+    an atol of 1e-5 times the table's largest entry. Two calls agree bit
+    for bit (no atomics)."""
+    csr = bucket_adj.pull
+    r = csr.total_rows
+    rng = np.random.default_rng(d)
+    src, add = (torch.from_numpy(rng.normal(size=(r + 1, d)).astype(np.float32)).to(card)
+                for _ in range(2))
+    src[r] = add[r] = 0.0
+    kw = dict(idx=csr.ridx, skip=r)
+    if variant in ("separable", "add", "bf16"):
+        kw["post"] = csr.sep_dst
+    if variant in ("value", "value_add", "bf16_value", "node"):
+        kw["val"] = csr.val
+    if variant in ("add", "value_add"):
+        kw["add"] = add
+    if variant.startswith("bf16"):
+        src = src.to(torch.bfloat16)
+    if variant == "node":
+        src = torch.from_numpy(rng.normal(size=(csr.n_cols, d)).astype(np.float32)).to(card)
+        kw.update(idx=csr.idx, skip=-1)
+    before = gather_sum.launches
+    got = gather_sum(src, row_ptr=csr.row_ptr, **kw)
+    again = gather_sum(src, row_ptr=csr.row_ptr, **kw)
+    torch.cuda.synchronize()
+    assert gather_sum.launches == before + 2
+    want = gather_sum_plain(src, row_ptr=csr.row_ptr, **kw)
+    assert got.shape == (r + 1, d) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    assert torch.all(got[r] == 0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("compute_dtype,d", [("float32", 64), ("bfloat16", 128)])
+def test_bucketed_chain_has_a_gradient_on_the_card(card, bucket_adj, compute_dtype, d):
+    """``BucketedChainMean`` on the card: its output carries a gradient; the
+    forward launches K7 twice and P1 L times, the backward as many; values
+    and gradients against autograd through the plain chain. In bf16 the
+    plain chain's autograd rounds the cotangent where the kernels' backward
+    rounds the operand, so the gradient holds the bf16 bound."""
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.normal(size=(bucket_adj.n_rows, d)).astype(np.float32) * 0.1)
+    x = x.to(card).requires_grad_()
+    probe = torch.from_numpy(rng.normal(size=(bucket_adj.n_rows, d)).astype(np.float32)).to(card)
+    before = gather_rows.launches, gather_sum.launches
+    out = bucketed_chain_mean(3, compute_dtype, bucket_adj.pull, bucket_adj.pull_t, x)
+    assert out.grad_fn is not None
+    (out * probe).sum().backward()
+    torch.cuda.synchronize()
+    assert (gather_rows.launches, gather_sum.launches) == (before[0] + 4, before[1] + 6)
+    got_g = x.grad.clone()
+    x.grad = None
+    plain = bucketed_chain_mean_plain(3, compute_dtype, bucket_adj.pull, x)
+    (plain * probe).sum().backward()
+    torch.testing.assert_close(out, plain, rtol=1e-5, atol=1e-5 * plain.abs().max().item())
+    dtype = torch.bfloat16 if packs_bf16(compute_dtype, d) else torch.float32
+    assert _grads_close([got_g], [x.grad], dtype)
+    assert not _grads_close([torch.zeros_like(got_g)], [x.grad], dtype)
+
+
+class _PlainBucketedLightGCN(LightGCN):
+    """LightGCN with the plain bucketed chain (autograd through torch ops)."""
+
+    def propagate(self, params, graph):
+        n_users = params["user_emb"].shape[0]
+        ego = torch.cat([params["user_emb"], params["item_emb"]])
+        adj = graph.norm_adj
+        mean = bucketed_chain_mean_plain(self.n_layers, adj.compute_dtype, adj.pull, ego)
+        return mean[:n_users], mean[n_users:]
+
+
+def test_bucketed_training_step_kernel_vs_plain(card):
+    """One LightGCN step on a bucketed graph: K7 4 and P1 6 launches, the
+    loss and gradients against the plain chain's, the bound rejecting
+    zeros."""
+    pairs = make_flat_interactions(2000, 4000, 40_000, seed=1)
+    graph = DeviceGraph(ArrayInteraction(pairs, 2000, 4000), backend="bucketed", device=card)
+    config = default_config(**{"batch.size": 1024})
+    models = (build("lightgcn", config), _PlainBucketedLightGCN(config))
+    init, _ = models[0].init(torch.Generator().manual_seed(3), graph)
+    users, items, negs, weights, _ = epoch_batches(
+        epoch_words(torch.Generator().manual_seed(4), graph, 1024), graph, 1024)
+    batch = PairwiseBatch(users[0], items[0], negs[0], weights[0])
+    out = []
+    for m in models:
+        p = {k: v.detach().clone().requires_grad_() for k, v in init.items()}
+        before = gather_rows.launches, gather_sum.launches
+        loss, _ = m.loss(p, {}, batch, graph)
+        grads = torch.autograd.grad(loss, list(p.values()))
+        torch.cuda.synchronize()
+        out.append((loss.item(), grads, (gather_rows.launches - before[0],
+                                         gather_sum.launches - before[1])))
+    (loss_k, g_k, n_k), (loss_p, g_p, n_p) = out
+    assert n_k == (4, 6) and n_p == (0, 0)
+    assert np.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-6 + 1e-5 * abs(loss_p)
+    assert _grads_close(g_k, g_p, torch.float32)
+    assert not _grads_close([torch.zeros_like(g) for g in g_p], g_p, torch.float32)
+
+
+def test_gather_wrappers_refuse_what_the_kernels_do_not_take(card):
+    x = torch.zeros(6, 4, device=card)
+    idx = torch.zeros(3, dtype=torch.int32, device=card)
+    ptr = torch.tensor([0, 1, 3], device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_rows(x[:, ::2], idx)
+    with pytest.raises(ValueError, match="devices"):
+        gather_rows(x, idx.cpu())
+    with pytest.raises(TypeError):
+        gather_rows(x.half(), idx)
+    with pytest.raises(TypeError):
+        gather_sum(x, idx.long(), ptr)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_sum(x[:, ::2], idx, ptr)

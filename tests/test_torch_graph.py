@@ -100,11 +100,23 @@ def test_choose_backend_agrees(n_rows, n_cols, requested):
     assert choose_backend(n_rows, n_cols, requested) == jax_choose_backend(n_rows, n_cols, requested)
 
 
-@pytest.mark.parametrize("backend", ["bucketed", "segment", "pallas"])
+@pytest.mark.parametrize("backend", ["segment", "pallas"])
 def test_unported_backends_raise(backend):
     train, test = make_synthetic_dataset(**TINY)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DeviceGraph(Interaction(train, test), backend=backend, device="cpu")
+
+
+def test_bucketed_backend_builds():
+    """The bucketed backend builds its pull tables (their parity with the
+    JAX package is tests/test_torch_bucketed.py's) and has no R̂."""
+    train, test = make_synthetic_dataset(**TINY)
+    g = DeviceGraph(Interaction(train, test), backend="bucketed", device="cpu")
+    assert g.backend == "bucketed" and g.interaction_norm_dense is None
+    adj = g.norm_adj
+    assert (adj.n_rows, adj.n_cols) == (g.n_nodes, g.n_nodes) and adj.sym_rowspace
+    assert adj.pull.total_rows == adj.pull_t.total_rows == g.n_nodes  # no isolated node
+    assert g.has_pos_table and g.user_positives.shape[0] == g.n_users
 
 
 def test_cuda_without_card_raises():
