@@ -9,8 +9,10 @@ What it does, in order (any failed phase exits non-zero):
   2. builds every CUDA kernel of the paths from ``recommendation_tpu_torch/csrc``,
      one ``nvcc`` per source, all at once;
   3. kernel phase: holds each kernel against its plain PyTorch version on
-     the card and times the kernel, the plain version and the nearest
-     library calls: K1 ``chain_mean`` and K2 ``chain_mean_bwd`` at the
+     the card, and each against itself (two calls equal bit for bit), and
+     times the kernel, the plain version and the nearest library calls
+     (device time: a spin kernel ahead of each timed run hides the host's
+     launch calls): K1 ``chain_mean`` and K2 ``chain_mean_bwd`` at the
      serving shape and at an unaligned one; K3 ``chain_mean_layer`` and K4
      ``chain_mean_layer_bwd`` at the bench shape and at 37x53x8 for (L, k)
      in (3,1), (3,2), (3,3), (1,1); K5 ``catalog_lse`` and K6
@@ -37,8 +39,10 @@ What it does, in order (any failed phase exits non-zero):
      goes. In bf16 and in f32;
   7. NCL train phase: the same for NCL at its defaults (d=64, L=3, context
      layer 2, tau 0.1, 24 user and 42 item clusters, an E-step per epoch):
-     K3 and K4 launch 3 times a step, K5 twice, K6 four times (two
-     launches a call), K1 3 times per E-step and per evaluation, K2 never;
+     K3 and K4 launch 3 times a step (one launch a layer), K5 twice, K6
+     four times (two calls, each the tile launch and the combine launch:
+     ``catalog_lse_bwd.launches_per_call``), K1 3 times per E-step and per
+     evaluation, K2 never;
      after each E-step every assignment lies in [0, k) and the k-means
      inertia is no higher than at the initial centroids;
   8. large-graph phase, LightGCN on the bucketed backend at ``bench.py
@@ -134,6 +138,9 @@ from recommendation_tpu_torch.weights import load_params, save_params
 
 # H100 SXM data sheet peaks (dense): the least time any kernel could take
 PEAK_BYTES_PER_S = 3.35e12
+# time_ms's spin ahead of each timed run: about 3 ms at the H100's 1.98 GHz
+# boost clock, longer than the host takes to queue any function timed here
+SPIN_CYCLES = 6_000_000
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 SERVE_SHAPE = dict(n_users=943, n_items=1682, n_interactions=100_000, seed=7)
@@ -178,7 +185,10 @@ def card_line() -> str:
 
 def time_ms(fn, reps: int = 30) -> float:
     """Median device time of ``fn`` with a cold L2 (a 64 MB write between
-    runs): the chain runs once per model load, so R̂ is not cached."""
+    runs): the chain runs once per model load, so R̂ is not cached. A spin
+    kernel of about 3 ms runs before each start event, so the host has
+    queued all of ``fn``'s launches before the device reaches them: the
+    events time the device, not the host's Python and launch calls."""
     flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")
     fn()
     torch.cuda.synchronize()
@@ -186,6 +196,7 @@ def time_ms(fn, reps: int = 30) -> float:
           for _ in range(reps)]
     for start, end in ev:
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -270,6 +281,17 @@ def library_lse_bwd(q, x, tau, g):
     return torch.matmul(p, x) / tau, torch.matmul(p.T, q) / tau
 
 
+def same_bits(name, fn):
+    """Run ``fn`` twice; every output of the second call must equal the
+    first's bit for bit (the kernels add in a fixed order, no atomics).
+    Returns the first call's outputs."""
+    got, again = fn(), fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise RuntimeError(f"{name}: two calls differ")
+    return got
+
+
 def compare(name, got, want, dtype, tol=TOL):
     rtol, atol = tol[dtype]
     err = max((g - w).abs().max().item() for g, w in zip(got, want))
@@ -299,14 +321,16 @@ def kernel_phase(graphs, params):
         r = graph.propagation_matrix
         u0, i0 = params["user_emb"], params["item_emb"]
         err = compare(f"chain_mean {dtype} serve shape",
-                      chain_mean(r, u0, i0, LAYERS), chain_mean_plain(r, u0, i0, LAYERS), dtype)
+                      same_bits("chain_mean", lambda: chain_mean(r, u0, i0, LAYERS)),
+                      chain_mean_plain(r, u0, i0, LAYERS), dtype)
         # unaligned shape, O(1) values, as the JAX kernel's test
         for n_layers in (1, 3):
             ru = torch.from_numpy(rng.normal(size=(37, 53)).astype(np.float32) * 0.1)
             ru = ru.to("cuda", dtype)
             uu = torch.from_numpy(rng.normal(size=(37, 8)).astype(np.float32)).cuda()
             iu = torch.from_numpy(rng.normal(size=(53, 8)).astype(np.float32)).cuda()
-            compare(f"chain_mean {dtype} 37x53x8 L={n_layers}", chain_mean(ru, uu, iu, n_layers),
+            compare(f"chain_mean {dtype} 37x53x8 L={n_layers}",
+                    same_bits("chain_mean 37x53x8", lambda: chain_mean(ru, uu, iu, n_layers)),
                     chain_mean_plain(ru, uu, iu, n_layers), dtype)
         torch.cuda.synchronize()
         ms = time_ms(lambda: chain_mean(r, u0, i0, LAYERS))
@@ -343,7 +367,8 @@ def kernel_phase_bwd(graphs, params):
     gi = torch.from_numpy(rng.normal(size=(n_items, EMB)).astype(np.float32)).cuda()
     for dtype, graph in graphs.items():
         r = graph.propagation_matrix
-        err = compare(f"chain_mean_bwd {dtype} serve shape", chain_mean_bwd(r, gu, gi, LAYERS),
+        err = compare(f"chain_mean_bwd {dtype} serve shape",
+                      same_bits("chain_mean_bwd", lambda: chain_mean_bwd(r, gu, gi, LAYERS)),
                       chain_mean_bwd_plain(r, gu, gi, LAYERS), dtype, GRAD_TOL)
         for n_layers in (1, 3):
             ru = torch.from_numpy(rng.normal(size=(37, 53)).astype(np.float32) * 0.1)
@@ -351,7 +376,8 @@ def kernel_phase_bwd(graphs, params):
             gu_s = torch.from_numpy(rng.normal(size=(37, 8)).astype(np.float32)).cuda()
             gi_s = torch.from_numpy(rng.normal(size=(53, 8)).astype(np.float32)).cuda()
             compare(f"chain_mean_bwd {dtype} 37x53x8 L={n_layers}",
-                    chain_mean_bwd(ru, gu_s, gi_s, n_layers),
+                    same_bits("chain_mean_bwd 37x53x8",
+                              lambda: chain_mean_bwd(ru, gu_s, gi_s, n_layers)),
                     chain_mean_bwd_plain(ru, gu_s, gi_s, n_layers), dtype, GRAD_TOL)
         torch.cuda.synchronize()
         ms = time_ms(lambda: chain_mean_bwd(r, gu, gi, LAYERS))
@@ -393,10 +419,12 @@ def kernel_phase_layer(graphs, params):
         err = err_b = 0.0
         for n_layers, k in LAYER_CASES:
             e = compare(f"chain_mean_layer {dtype} bench shape L={n_layers} k={k}",
-                        chain_mean_layer(r, u0, i0, n_layers, k),
+                        same_bits("chain_mean_layer",
+                                  lambda: chain_mean_layer(r, u0, i0, n_layers, k)),
                         chain_mean_layer_plain(r, u0, i0, n_layers, k), dtype)
             e_b = compare(f"chain_mean_layer_bwd {dtype} bench shape L={n_layers} k={k}",
-                          chain_mean_layer_bwd(r, gu, gi, gku, gki, n_layers, k),
+                          same_bits("chain_mean_layer_bwd", lambda: chain_mean_layer_bwd(
+                              r, gu, gi, gku, gki, n_layers, k)),
                           chain_mean_layer_bwd_plain(r, gu, gi, gku, gki, n_layers, k),
                           dtype, GRAD_TOL)
             if (n_layers, k) == (LAYERS, NCL_K):
@@ -408,10 +436,12 @@ def kernel_phase_layer(graphs, params):
             iu, gis, gkis = (torch.from_numpy(rng.normal(size=(53, 8)).astype(np.float32)).cuda()
                              for _ in range(3))
             compare(f"chain_mean_layer {dtype} 37x53x8 L={n_layers} k={k}",
-                    chain_mean_layer(ru, uu, iu, n_layers, k),
+                    same_bits("chain_mean_layer 37x53x8",
+                              lambda: chain_mean_layer(ru, uu, iu, n_layers, k)),
                     chain_mean_layer_plain(ru, uu, iu, n_layers, k), dtype)
             compare(f"chain_mean_layer_bwd {dtype} 37x53x8 L={n_layers} k={k}",
-                    chain_mean_layer_bwd(ru, gus, gis, gkus, gkis, n_layers, k),
+                    same_bits("chain_mean_layer_bwd 37x53x8", lambda: chain_mean_layer_bwd(
+                        ru, gus, gis, gkus, gkis, n_layers, k)),
                     chain_mean_layer_bwd_plain(ru, gus, gis, gkus, gkis, n_layers, k),
                     dtype, GRAD_TOL)
         torch.cuda.synchronize()
@@ -464,12 +494,13 @@ def kernel_phase_lse(n_users, n_items):
     for b, n, d in step_shapes + [(37, 700, 24)]:
         q, x = unit_rows(rng, b, d), unit_rows(rng, n, d)
         g = torch.from_numpy(rng.normal(size=b).astype(np.float32)).cuda()
-        lse = catalog_lse(q, x, TAU)
+        (lse,) = same_bits("catalog_lse", lambda: [catalog_lse(q, x, TAU)])
         want = catalog_lse_plain(q, x, TAU)
         err = max(err, compare(f"catalog_lse {b}x{n}x{d}", [lse], [want], torch.float32,
                                {torch.float32: LSE_TOL}))
         err_b = max(err_b, compare(f"catalog_lse_bwd {b}x{n}x{d}",
-                                   catalog_lse_bwd(q, x, TAU, lse, g),
+                                   same_bits("catalog_lse_bwd",
+                                             lambda: catalog_lse_bwd(q, x, TAU, lse, g)),
                                    catalog_lse_bwd_plain(q, x, TAU, want, g), torch.float32,
                                    {torch.float32: LSE_GRAD_TOL}))
         if (b, n, d) in step_shapes:
@@ -498,7 +529,8 @@ def kernel_phase_lse(n_users, n_items):
             "replaces": f"recommendation_tpu/ops/pallas_losses.py:{source_line}",
             "shape": [list(s) for s in step_shapes],
             "timed": "one call on each catalog (a step's pair)",
-            "launches_per_call": 1 if products == 1 else 2,
+            "launches_per_call": (catalog_lse if products == 1
+                                  else catalog_lse_bwd).launches_per_call,
             "launches": 0,
             "max_abs_err": err_,
             "ms": ms,
@@ -628,7 +660,8 @@ def ncl_one_step_check(graphs, params):
                 counts = {k: v - before[k] for k, v in read_counts().items()}
                 got[which] = (value.item(), grads, counts)
             (v_k, g_k, n_k), (v_p, g_p, n_p) = got["kernel"], got["plain"]
-            want_k = {"loss": (3, 3, 2, 4), "ssl": (3, 3, 2, 4), "proto": (0, 0, 0, 0)}[term]
+            k6 = 2 * catalog_lse_bwd.launches_per_call  # two calls a step
+            want_k = {"loss": (3, 3, 2, k6), "ssl": (3, 3, 2, k6), "proto": (0, 0, 0, 0)}[term]
             seen = tuple(n_k[f.__name__] for f in COUNTERS[2:])
             if seen != want_k or any(n_p.values()) or n_k["chain_mean_bwd"]:
                 raise RuntimeError(f"NCL {term} {dtype} launches {n_k} (plain {n_p})")
@@ -706,7 +739,8 @@ def ncl_train_phase(compute_dtype, data):
     n_evals = len(rec.history) + 2  # the per-epoch evaluations, the final test, the service
     want = {"chain_mean": LAYERS * (len(records) + n_evals), "chain_mean_bwd": 0,
             "chain_mean_layer": LAYERS * steps, "chain_mean_layer_bwd": LAYERS * steps,
-            "catalog_lse": 2 * steps, "catalog_lse_bwd": 4 * steps}
+            "catalog_lse": 2 * steps,
+            "catalog_lse_bwd": 2 * catalog_lse_bwd.launches_per_call * steps}
     if len(records) != TRAIN_EPOCHS or launches != want:
         raise RuntimeError(f"NCL {compute_dtype} launches {launches} with {len(records)} "
                            f"E-steps, expected {want}")

@@ -13,68 +13,84 @@
 //
 // The TPU kernels walk the item blocks in order and carry (max, sum) and dq
 // in scratch from one grid step to the next. Blocks on the H100 run in no
-// order, so each block owns a tile of rows and loops over the other side
-// itself, and the [B, N] scores never reach device memory:
+// order, and the [B, N] scores never reach device memory:
 //   * K5 (lse_fwd_kernel): a block owns TO query rows, stages them in
 //     shared memory once, and loops over item tiles of TS rows staged
 //     through shared memory. Each thread keeps the running (max, sum) of its
 //     own 4 columns for its 2 rows in registers; warp shuffles combine the 16
-//     threads of a row at the end into m + log(s).
-//   * K6 is split as FlashAttention-2 splits its backward: one launch for dq
-//     (lse_bwd_dq_kernel: a block owns TO query rows and loops over item
-//     tiles) and one for dx (lse_bwd_dx_kernel: a block owns TO item rows
-//     and loops over query tiles). Both recompute the scores. No atomics, so
-//     every run gives the same result. A call of K6 is these two launches.
-// The scores are f32 FFMA products (no TF32) divided by tau, as the JAX
-// kernel divides. Ragged B, N and d are masked: a column past N adds
-// exp(-1e30 - m) = 0 to the sum, i.e. it is skipped.
+//     threads of a row at the end into m + log(s). Ragged B, N and d are
+//     masked: a column past N adds exp(-1e30 - m) = 0 to the sum.
+//   * K6 (lse_bwd_kernel): a block owns one BT x BT tile of (query rows,
+//     item rows), computes that tile's scores once, and takes both its
+//     partial dq (p . x over the tile's items) and its partial dx (p^T . q
+//     over the tile's queries) from them: three products a call, as on the
+//     TPU. A second launch (lse_bwd_combine_kernel) adds the tiles' partial
+//     sums in a fixed order.
+// The scores are f32 FFMA products (no TF32) divided by tau, then
+// exp(s - lse) * g; the sums are divided by tau at the end, as the JAX
+// kernel does.
 //
-// What bounds them on an H100: at NCL's step shape (B = 2048, N = 943 or
-// 1675, d = 64) K5 is 2BNd = 0.25 to 0.44 GFLOP of f32 FFMA, 4 to 7 us at
-// 67 TFLOP/s, against under 1 MB of inputs (0.3 us at 3.35 TB/s): the
-// operations bound it. K6 is three such products. This first version stages
-// with plain loads and computes from shared memory with scalar FFMA (about
-// six shared loads per eight FFMA in the score loop), so it is bound by
-// shared-memory traffic and latency, far from the FFMA bound; tensor-core
-// products (at TF32's precision cost) and double buffering are later work.
+// What bounds K6 on an H100: at NCL's step shape (B = 2048, N = 943 and
+// 1675, d = 64) a call is 3 x 2BNd = 0.74 and 1.32 GFLOP of f32 FFMA, 11
+// and 20 us at 67 TFLOP/s, against about 1.5 MB of inputs and outputs: the
+// operations bound it. What the design does about it:
+//   * Enough blocks: one block per (query tile, item tile), 32 x 15 = 480
+//     and 32 x 27 = 864 blocks of 256 threads at those shapes (2 resident
+//     an SM).
+//   * Register micro-tiles: each thread owns 4 x 4 scores (query rows
+//     ty + 16 i, item rows tx + 16 j) and then 4 x 4 of the partial dq and
+//     of the partial dx (rows ty + 16 i, columns 4 tx .. 4 tx + 3). Every
+//     shared load is a float4 that feeds 4 FFMA for each of 4 rows: 8
+//     loads per 64 FFMA, and a warp is 8 x 4 threads so that each load is
+//     one shared-memory wavefront. p goes through shared memory twice, as
+//     [q][x] for dq and as [x][q] for dx, so both products read it along
+//     rows.
+//   * Asynchronous staging: q and x tiles come in by cp.async (16 bytes a
+//     copy where d % 4 == 0, else 4). d is walked in BK = 64-column slices:
+//     at d <= 64 one slice is staged once and serves all three products;
+//     above, the slices stream through two stages, once for the scores and
+//     once more for dq and dx (the first reload overlaps forming p). Shared
+//     memory: (2 x stages + 2) x 64 x 68 floats, 69,632 bytes at d <= 64
+//     and 104,448 above, for any d <= lse_max_d() = 512.
+//   * A fixed-order combine: each block writes its partial dq to a
+//     [B-tiles][N-tiles][BT][d] workspace and its partial dx to a
+//     [N-tiles][B-tiles][BT][d] one (the wrapper's; ceil(B/64) x
+//     ceil(N/64) x 64 x d floats each, 7.9 and 14.2 MB at NCL's shapes,
+//     which stay in the 50 MB L2). A second launch gives each thread 4
+//     outputs of dq or dx and adds their partials in tile order (8 loads in
+//     flight), then divides by tau. Done by the tiles' last block instead,
+//     one SM would stream a whole tile's 0.4-0.5 MB of partials at the end
+//     of the launch, at one SM's share of the L2 bandwidth; spread over
+//     the card the combine runs at the L2's full rate. No float atomics: a
+//     call repeats bit for bit. Two launches a call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
+// K5
 constexpr int TO = 16;        // owned rows per block
 constexpr int TS = 64;        // streamed rows per tile
 constexpr int THREADS = 128;  // 16 column threads x 8 row pairs
 constexpr float NEG_INF = -1e30f;
 
-enum Mode { LSE = 0, DQ = 1, DX = 2 };
-
 // Row stride of a staged [rows][d] tile: a multiple of 32 plus one, so
 // that threads reading the same k of 16 consecutive rows hit 16 banks.
 __host__ __device__ inline int padded_ld(int d) { return ((d + 31) / 32) * 32 + 1; }
 
-size_t smem_bytes(int mode, int d) {
-    const int ld = padded_ld(d);
-    size_t n = (size_t)(TS + TO) * ld;  // streamed tile + owned tile
-    if (mode != LSE) n += (size_t)TO * (TS + 1) + (size_t)TO * d;  // weights + accumulator
-    return n * sizeof(float);
-}
+size_t fwd_smem_bytes(int d) { return static_cast<size_t>(TS + TO) * padded_ld(d) * sizeof(float); }
 
-// LSE: own = q [n_own = B], str = x [n_str = N]; out = lse [B].
-// DQ:  own = q, str = x; lse, g indexed by the owned row; out = dq [B, d].
-// DX:  own = x, str = q; lse, g indexed by the streamed row; out = dx [N, d].
-template <int MODE>
-__device__ __forceinline__ void lse_body(const float* __restrict__ own,
-                                         const float* __restrict__ str, int n_own, int n_str,
-                                         int d, float tau, const float* __restrict__ lse,
-                                         const float* __restrict__ g, float* __restrict__ out) {
+// lse[b] for the TO query rows of this block.
+__global__ void __launch_bounds__(THREADS)
+lse_fwd_kernel(const float* __restrict__ own, const float* __restrict__ str, int n_own,
+               int n_str, int d, float tau, float* __restrict__ out) {
     extern __shared__ float smem[];
     const int ld = padded_ld(d);
-    float* ss = smem;                       // [TS][ld] streamed tile
-    float* os = ss + TS * ld;               // [TO][ld] owned tile
-    float* ps = os + TO * ld;               // [TO][TS + 1] p of this tile (DQ, DX)
-    float* acc_s = ps + TO * (TS + 1);      // [TO][d] dq or dx of the owned rows (DQ, DX)
+    float* ss = smem;          // [TS][ld] streamed tile
+    float* os = ss + TS * ld;  // [TO][ld] owned tile
 
     const int tid = threadIdx.x;
     const int tx = tid % 16;  // streamed columns tx + 16 j, j = 0 .. 3
@@ -84,20 +100,8 @@ __device__ __forceinline__ void lse_body(const float* __restrict__ own,
     for (int e = tid; e < TO * d; e += THREADS) {
         const int r = e / d, c = e % d, row = own0 + r;
         os[r * ld + c] = row < n_own ? own[(size_t)row * d + c] : 0.f;
-        if (MODE != LSE) acc_s[e] = 0.f;
     }
     float m[2] = {NEG_INF, NEG_INF}, s[2] = {0.f, 0.f};
-    float own_lse[2] = {0.f, 0.f}, own_g[2] = {0.f, 0.f};
-    if (MODE == DQ) {
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-            const int row = own0 + ty + 8 * p;
-            if (row < n_own) {
-                own_lse[p] = lse[row];
-                own_g[p] = g[row];
-            }
-        }
-    }
 
     for (int s0 = 0; s0 < n_str; s0 += TS) {
         __syncthreads();  // the last tile's readers are done (and os is staged)
@@ -119,96 +123,268 @@ __device__ __forceinline__ void lse_body(const float* __restrict__ own,
             }
         }
 
-        if (MODE == LSE) {
-#pragma unroll
-            for (int p = 0; p < 2; ++p) {
-                float sc[4];
-                float tile_max = NEG_INF;
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    const bool valid = s0 + tx + 16 * j < n_str;
-                    sc[j] = valid ? acc[p][j] / tau : NEG_INF;
-                    tile_max = fmaxf(tile_max, sc[j]);
-                }
-                const float new_m = fmaxf(m[p], tile_max);
-                float add = 0.f;
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    if (s0 + tx + 16 * j < n_str) add += expf(sc[j] - new_m);
-                }
-                s[p] = s[p] * expf(m[p] - new_m) + add;
-                m[p] = new_m;
-            }
-        } else {
-#pragma unroll
-            for (int p = 0; p < 2; ++p) {
-                const int r_loc = ty + 8 * p;
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    const int c_loc = tx + 16 * j;
-                    const int col = s0 + c_loc;
-                    float w = 0.f;
-                    if (col < n_str && own0 + r_loc < n_own) {
-                        const float l = MODE == DQ ? own_lse[p] : lse[col];
-                        const float gg = MODE == DQ ? own_g[p] : g[col];
-                        w = expf(acc[p][j] / tau - l) * gg;
-                    }
-                    ps[r_loc * (TS + 1) + c_loc] = w;
-                }
-            }
-            __syncthreads();
-            // out[r][c] += sum_j p[r][j] * str[j][c]; each entry has one owner
-            for (int e = tid; e < TO * d; e += THREADS) {
-                const int r = e / d, c = e % d;
-                float a = 0.f;
-                for (int j = 0; j < TS; ++j) a = fmaf(ps[r * (TS + 1) + j], ss[j * ld + c], a);
-                acc_s[e] += a;
-            }
-        }
-    }
-
-    if (MODE == LSE) {
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
-            float mm = m[p], sum = s[p];
-            // the 16 threads of a row are one half warp
+            float sc[4];
+            float tile_max = NEG_INF;
 #pragma unroll
-            for (int off = 8; off > 0; off >>= 1) {
-                const float om = __shfl_xor_sync(0xffffffffu, mm, off);
-                const float os_ = __shfl_xor_sync(0xffffffffu, sum, off);
-                const float nm = fmaxf(mm, om);
-                sum = sum * expf(mm - nm) + os_ * expf(om - nm);
-                mm = nm;
+            for (int j = 0; j < 4; ++j) {
+                const bool valid = s0 + tx + 16 * j < n_str;
+                sc[j] = valid ? acc[p][j] / tau : NEG_INF;
+                tile_max = fmaxf(tile_max, sc[j]);
             }
-            const int row = own0 + ty + 8 * p;
-            if (tx == 0 && row < n_own) out[row] = mm + logf(sum);
+            const float new_m = fmaxf(m[p], tile_max);
+            float add = 0.f;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                if (s0 + tx + 16 * j < n_str) add += expf(sc[j] - new_m);
+            }
+            s[p] = s[p] * expf(m[p] - new_m) + add;
+            m[p] = new_m;
+        }
+    }
+
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+        float mm = m[p], sum = s[p];
+        // the 16 threads of a row are one half warp
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1) {
+            const float om = __shfl_xor_sync(0xffffffffu, mm, off);
+            const float os_ = __shfl_xor_sync(0xffffffffu, sum, off);
+            const float nm = fmaxf(mm, om);
+            sum = sum * expf(mm - nm) + os_ * expf(om - nm);
+            mm = nm;
+        }
+        const int row = own0 + ty + 8 * p;
+        if (tx == 0 && row < n_own) out[row] = mm + logf(sum);
+    }
+}
+
+// K6
+constexpr int BT = 64;          // query rows and item rows of a block's tile
+constexpr int BK = 64;          // columns of d per staged slice
+constexpr int BLD = BK + 4;     // padded row: rows tx .. tx + 7 start 4 banks apart
+constexpr int BTHREADS = 256;   // 16 x 16, a 4 x 4 micro-tile each
+
+size_t bwd_smem_bytes(int d) {
+    const int stages = d > BK ? 2 : 1;
+    return static_cast<size_t>(2 * stages + 2) * BT * BLD * sizeof(float);
+}
+
+struct Bwd {
+    const float* q;
+    const float* x;
+    const float* lse;
+    const float* g;
+    int b, n, d;
+    float tau;
+    float* dq;
+    float* dx;
+    float* dq_part;  // [B-tiles][N-tiles][BT][d]
+    float* dx_part;  // [N-tiles][B-tiles][BT][d]
+    int vec;         // d % 4 == 0 and every pointer 16-byte aligned
+};
+
+// Stage rows row0 .. row0 + BT, columns col0 .. col0 + BK of src [n_rows, d]
+// into dst [BT][BLD]; outside n_rows x d reads as 0.
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int n_rows, int row0,
+                                           int col0, int d, bool vec) {
+    if (vec) {
+        for (int e = threadIdx.x; e < BT * (BK / 4); e += BTHREADS) {
+            const int r = e / (BK / 4), c = (e % (BK / 4)) * 4;
+            const int row = row0 + r, col = col0 + c;
+            const bool ok = row < n_rows && col < d;  // d % 4 == 0: a copy is all in or out
+            cp_async16(dst + r * BLD + c, ok ? src + (size_t)row * d + col : src, ok ? 16 : 0);
         }
     } else {
-        for (int e = tid; e < TO * d; e += THREADS) {
-            const int row = own0 + e / d;
-            if (row < n_own) out[(size_t)row * d + e % d] = acc_s[e] / tau;
+        for (int e = threadIdx.x; e < BT * BK; e += BTHREADS) {
+            const int r = e / BK, c = e % BK;
+            const int row = row0 + r, col = col0 + c;
+            const bool ok = row < n_rows && col < d;
+            cp_async4(dst + r * BLD + c, ok ? src + (size_t)row * d + col : src, ok ? 4 : 0);
         }
     }
 }
 
-__global__ void __launch_bounds__(THREADS)
-lse_fwd_kernel(const float* __restrict__ q, const float* __restrict__ x, int b, int n, int d,
-               float tau, float* __restrict__ lse) {
-    lse_body<LSE>(q, x, b, n, d, tau, nullptr, nullptr, lse);
+// out[r][c] = sum_j p[r][j] * v[j][c] for the thread's rows ty + 16 i and
+// columns 4 tx .. + 3, j < jmax (p is 0 past the tile's valid columns).
+__device__ __forceinline__ void tile_product(const float* p, const float* v, int jmax, int tx,
+                                             int ty, float (&o)[4][4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) o[i][c] = 0.f;
+    for (int j = 0; j < jmax; j += 4) {
+        float4 pa[4], vb[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pa[i] = *reinterpret_cast<const float4*>(p + (ty + 16 * i) * BLD + j);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) vb[t] = *reinterpret_cast<const float4*>(v + (j + t) * BLD + 4 * tx);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float w[4] = {pa[i].x, pa[i].y, pa[i].z, pa[i].w};
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+                o[i][0] = fmaf(w[t], vb[t].x, o[i][0]);
+                o[i][1] = fmaf(w[t], vb[t].y, o[i][1]);
+                o[i][2] = fmaf(w[t], vb[t].z, o[i][2]);
+                o[i][3] = fmaf(w[t], vb[t].w, o[i][3]);
+            }
+        }
+    }
 }
 
-__global__ void __launch_bounds__(THREADS)
-lse_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ x,
-                  const float* __restrict__ lse, const float* __restrict__ g, int b, int n,
-                  int d, float tau, float* __restrict__ dq) {
-    lse_body<DQ>(q, x, b, n, d, tau, lse, g, dq);
+// The thread's 4 x 4 of a partial into its [BT][d] chunk, columns col0 + ...
+__device__ __forceinline__ void store_part(float* chunk, const float (&o)[4][4], int col0, int d,
+                                           int tx, int ty, bool vec) {
+    const int col = col0 + 4 * tx;
+    if (col >= d) return;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        float* dst = chunk + (size_t)(ty + 16 * i) * d + col;
+        if (vec) {
+            *reinterpret_cast<float4*>(dst) = make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
+        } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+                if (col + c < d) dst[c] = o[i][c];
+        }
+    }
 }
 
-__global__ void __launch_bounds__(THREADS)
-lse_bwd_dx_kernel(const float* __restrict__ q, const float* __restrict__ x,
-                  const float* __restrict__ lse, const float* __restrict__ g, int b, int n,
-                  int d, float tau, float* __restrict__ dx) {
-    lse_body<DX>(x, q, n, b, d, tau, lse, g, dx);
+__global__ void __launch_bounds__(BTHREADS, 2) lse_bwd_kernel(const Bwd a) {
+    extern __shared__ __align__(16) float bwd_smem[];
+    const int ns = (a.d + BK - 1) / BK;  // d slices
+    const int stages = ns > 1 ? 2 : 1;
+    // stage s holds the q slice at 2 s tiles and the x slice at 2 s + 1
+    auto qs = [&](int s) { return bwd_smem + 2 * s * BT * BLD; };
+    auto xs = [&](int s) { return bwd_smem + (2 * s + 1) * BT * BLD; };
+    float* ps = bwd_smem + 2 * stages * BT * BLD;        // p [q][x]
+    float* pts = ps + BT * BLD;                       // p [x][q]
+
+    const int xt = blockIdx.x, qt = blockIdx.y, nx = gridDim.x, nq = gridDim.y;
+    const int q0 = qt * BT, x0 = xt * BT;
+    // a warp is 8 x 4 threads, so that a float4 load of either operand is
+    // one shared-memory wavefront
+    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    const int tx = lane % 8 + 8 * (warp % 2), ty = lane / 8 + 4 * (warp / 2);
+    const bool vec = a.vec != 0;
+
+    auto issue = [&](int s, int buf) {
+        stage_rows(qs(buf), a.q, a.b, q0, s * BK, a.d, vec);
+        stage_rows(xs(buf), a.x, a.n, x0, s * BK, a.d, vec);
+        cp_async_commit();
+    };
+
+    // scores of the tile: query rows ty + 16 i, item rows tx + 16 j
+    float acc[4][4] = {};
+    issue(0, 0);
+    for (int s = 0; s < ns; ++s) {
+        if (s + 1 < ns) {
+            issue(s + 1, (s + 1) & 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+        const float* Q = qs(s & 1);
+        const float* X = xs(s & 1);
+        const int kmax = min(BK, a.d - s * BK);  // columns past d are staged as 0
+        for (int k = 0; k < kmax; k += 4) {
+            float4 qa[4], xb[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) qa[i] = *reinterpret_cast<const float4*>(Q + (ty + 16 * i) * BLD + k);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) xb[j] = *reinterpret_cast<const float4*>(X + (tx + 16 * j) * BLD + k);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    acc[i][j] = fmaf(qa[i].x, xb[j].x, acc[i][j]);
+                    acc[i][j] = fmaf(qa[i].y, xb[j].y, acc[i][j]);
+                    acc[i][j] = fmaf(qa[i].z, xb[j].z, acc[i][j]);
+                    acc[i][j] = fmaf(qa[i].w, xb[j].w, acc[i][j]);
+                }
+        }
+        __syncthreads();
+    }
+    if (ns > 1) issue(0, 0);  // dq and dx walk the slices again; the first comes in now
+
+    // p = exp(s / tau - lse) * g, 0 outside B x N
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int row = q0 + ty + 16 * i;
+        const float l = row < a.b ? a.lse[row] : 0.f;
+        const float gg = row < a.b ? a.g[row] : 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int col = x0 + tx + 16 * j;
+            const float w = (row < a.b && col < a.n) ? expf(acc[i][j] / a.tau - l) * gg : 0.f;
+            ps[(ty + 16 * i) * BLD + tx + 16 * j] = w;
+            pts[(tx + 16 * j) * BLD + ty + 16 * i] = w;
+        }
+    }
+
+    // partial dq = p . x and dx = p^T . q of this tile, slice by slice of d
+    const int jmax = min(BT, a.n - x0), rmax = min(BT, a.b - q0);
+    float* dq_chunk = a.dq_part + ((size_t)qt * nx + xt) * BT * a.d;
+    float* dx_chunk = a.dx_part + ((size_t)xt * nq + qt) * BT * a.d;
+    for (int s = 0; s < ns; ++s) {
+        if (ns > 1) {
+            if (s + 1 < ns) {
+                issue(s + 1, (s + 1) & 1);
+                cp_async_wait<1>();
+            } else {
+                cp_async_wait<0>();
+            }
+        }
+        __syncthreads();  // p is written and this slice is staged
+        const float* Q = qs(s & 1);
+        const float* X = xs(s & 1);
+        float o[4][4];
+        tile_product(ps, X, jmax, tx, ty, o);
+        store_part(dq_chunk, o, s * BK, a.d, tx, ty, vec);
+        tile_product(pts, Q, rmax, tx, ty, o);
+        store_part(dx_chunk, o, s * BK, a.d, tx, ty, vec);
+        __syncthreads();  // this stage's readers are done before it is refilled
+    }
+
+}
+
+// The fixed-order combine, K6's second launch: dq[row] = (sum of the row's
+// partials over the item tiles, in tile order) / tau, and dx likewise over
+// the query tiles. One thread per 4 outputs (per output where d % 4 != 0).
+__global__ void __launch_bounds__(BTHREADS) lse_bwd_combine_kernel(const Bwd a, int nq, int nx) {
+    const int w = a.vec ? 4 : 1;
+    const long long per_row = a.d / w;
+    const long long n_dq = (long long)a.b * per_row, n_all = n_dq + (long long)a.n * per_row;
+    const long long e = (long long)blockIdx.x * BTHREADS + threadIdx.x;
+    if (e >= n_all) return;
+    const bool is_dq = e < n_dq;
+    const long long e_side = is_dq ? e : e - n_dq;
+    const int row = static_cast<int>(e_side / per_row), col = static_cast<int>(e_side % per_row) * w;
+    const int n_parts = is_dq ? nx : nq;
+    // chunk (tile, t) of this side, row row % BT
+    const float* p = (is_dq ? a.dq_part : a.dx_part) +
+                     ((size_t)(row / BT) * n_parts * BT + row % BT) * a.d + col;
+    const size_t stride = (size_t)BT * a.d;
+    float* out = (is_dq ? a.dq : a.dx) + (size_t)row * a.d + col;
+    if (w == 4) {
+        float4 s = __ldcg(reinterpret_cast<const float4*>(p));
+#pragma unroll 8
+        for (int t = 1; t < n_parts; ++t) {
+            const float4 v = __ldcg(reinterpret_cast<const float4*>(p + t * stride));
+            s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+        }
+        *reinterpret_cast<float4*>(out) = make_float4(s.x / a.tau, s.y / a.tau, s.z / a.tau,
+                                                      s.w / a.tau);
+    } else {
+        float s = __ldcg(p);
+#pragma unroll 8
+        for (int t = 1; t < n_parts; ++t) s += __ldcg(p + t * stride);
+        *out = s / a.tau;
+    }
 }
 
 template <typename Kernel>
@@ -218,6 +394,8 @@ int prepare(Kernel kernel, size_t smem) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
 }  // namespace
 
 // Plain C interface for ctypes. Each call is one launch on the given stream;
@@ -225,32 +403,35 @@ int prepare(Kernel kernel, size_t smem) {
 // at most lse_max_d(); the wrapper checks both.
 extern "C" int lse_max_d() { return 512; }
 
+// K6's tile (BT rows of q and of x): the wrapper sizes the workspace with it.
+extern "C" int lse_bwd_tile() { return BT; }
+
 extern "C" int lse_fwd_f32(const float* q, const float* x, int b, int n, int d, float tau,
                            float* lse, void* stream) {
-    const size_t smem = smem_bytes(LSE, d);
+    const size_t smem = fwd_smem_bytes(d);
     if (int err = prepare(lse_fwd_kernel, smem)) return err;
     lse_fwd_kernel<<<(b + TO - 1) / TO, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         q, x, b, n, d, tau, lse);
     return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int lse_bwd_dq_f32(const float* q, const float* x, const float* lse,
-                              const float* g, int b, int n, int d, float tau, float* dq,
-                              void* stream) {
-    const size_t smem = smem_bytes(DQ, d);
-    if (int err = prepare(lse_bwd_dq_kernel, smem)) return err;
-    lse_bwd_dq_kernel<<<(b + TO - 1) / TO, THREADS, smem,
-                        static_cast<cudaStream_t>(stream)>>>(q, x, lse, g, b, n, d, tau, dq);
-    return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int lse_bwd_dx_f32(const float* q, const float* x, const float* lse,
-                              const float* g, int b, int n, int d, float tau, float* dx,
-                              void* stream) {
-    const size_t smem = smem_bytes(DX, d);
-    if (int err = prepare(lse_bwd_dx_kernel, smem)) return err;
-    lse_bwd_dx_kernel<<<(n + TO - 1) / TO, THREADS, smem,
-                        static_cast<cudaStream_t>(stream)>>>(q, x, lse, g, b, n, d, tau, dx);
+// K6: dq [B, d] and dx [N, d], two launches: the tiles, then the combine.
+// dq_part and dx_part hold ceil(B/BT) x ceil(N/BT) x BT x d floats each.
+extern "C" int lse_bwd_f32(const float* q, const float* x, const float* lse, const float* g,
+                           int b, int n, int d, float tau, float* dq, float* dx, float* dq_part,
+                           float* dx_part, void* stream) {
+    const size_t smem = bwd_smem_bytes(d);
+    if (int err = prepare(lse_bwd_kernel, smem)) return err;
+    const bool vec = d % 4 == 0 && aligned16(q) && aligned16(x) && aligned16(dq) &&
+                     aligned16(dx) && aligned16(dq_part) && aligned16(dx_part);
+    const Bwd a{q, x, lse, g, b, n, d, tau, dq, dx, dq_part, dx_part, vec ? 1 : 0};
+    const int nq = (b + BT - 1) / BT, nx = (n + BT - 1) / BT;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    lse_bwd_kernel<<<dim3(nx, nq), BTHREADS, smem, s>>>(a);
+    if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+    const long long outs = (long long)(b + n) * (vec ? d / 4 : d);
+    lse_bwd_combine_kernel<<<static_cast<unsigned>((outs + BTHREADS - 1) / BTHREADS), BTHREADS, 0,
+                             s>>>(a, nq, nx);
     return static_cast<int>(cudaGetLastError());
 }
 

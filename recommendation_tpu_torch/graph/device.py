@@ -47,6 +47,8 @@ FALLBACK_NEGATIVES = 8
 # package's default (recommendation_tpu/graph/device.py:240), so the epoch
 # sampler's draws over [E_pad] edges have the same shape in both packages.
 EDGE_PAD = 8
+# R̂'s row stride on the dense backend, in elements (16 bytes of bf16)
+R_ROW_ALIGN = 8
 
 # Padded per-user positives table cap (i32 elements): 64M = 256 MB.
 POS_TABLE_MAX_ELEMENTS = 64 * 1024 * 1024
@@ -58,6 +60,17 @@ def choose_backend(n_rows: int, n_cols: int, requested: str = "auto") -> str:
     if requested != "auto":
         return requested
     return "dense" if n_rows * n_cols <= DENSE_MAX_ELEMENTS else "bucketed"
+
+
+def _row_aligned(a: torch.Tensor, dtype: torch.dtype, device) -> torch.Tensor:
+    """``a`` [rows, cols] cast to ``dtype`` (round to nearest even) on
+    ``device``, as a view into a zeroed buffer whose row stride is a
+    multiple of ``R_ROW_ALIGN`` elements: every row of R̂ then starts on a
+    16-byte boundary, which the chain kernel's 16-byte loads need."""
+    rows, cols = a.shape
+    buf = torch.zeros((rows, _round_up(max(cols, 1), R_ROW_ALIGN)), dtype=dtype, device=device)
+    buf[:, :cols] = a.to(device)
+    return buf[:, :cols]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -201,7 +214,8 @@ class DeviceGraph:
     Dense backend: ``interaction_norm_dense`` is R̂ in f32 [n_users,
     n_items]; in the bfloat16 regime ``interaction_norm_bf16`` holds it once
     more, cast to bf16 (round to nearest even, as the JAX chain's
-    ``astype``). ``propagation_matrix`` is the one the layer chain
+    ``astype``). Both are views with a row stride padded to a multiple of
+    ``R_ROW_ALIGN`` elements (``_row_aligned``). ``propagation_matrix`` is the one the layer chain
     multiplies by. Bucketed backend: ``norm_adj`` is the normalized
     bipartite adjacency D^-1/2 A D^-1/2 over the U + I nodes as a
     ``DeviceAdj``; there is no R̂ and ``propagation_matrix`` raises. The
@@ -328,9 +342,11 @@ class DeviceGraph:
         du = np.where(deg_u > 0, deg_u ** -0.5, 0.0).astype(np.float32)
         di = np.where(deg_i > 0, deg_i ** -0.5, 0.0).astype(np.float32)
         r_hat = mat.multiply(du[:, None]).multiply(di[None, :])
-        self.interaction_norm_dense = put(np.asarray(r_hat.todense(), dtype=np.float32))
+        self.interaction_norm_dense = _row_aligned(
+            torch.from_numpy(np.asarray(r_hat.todense(), dtype=np.float32)), torch.float32, dev)
         if compute_dtype == "bfloat16":
-            self.interaction_norm_bf16 = self.interaction_norm_dense.to(torch.bfloat16)
+            self.interaction_norm_bf16 = _row_aligned(self.interaction_norm_dense,
+                                                      torch.bfloat16, dev)
 
     @property
     def propagation_matrix(self) -> torch.Tensor:

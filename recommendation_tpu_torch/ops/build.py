@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by ``nvcc``
 for ``sm_90a`` into ``recommendation_tpu_torch/_build/lib<name>-<hash>.so``
-at first use and loaded with ``ctypes``. The hash is taken over the source,
-so an edited kernel is rebuilt. Nothing is built when a module is imported:
+at first use and loaded with ``ctypes``. The hash is taken over the source
+and the shared headers (``csrc/*.cuh``), so an edited kernel is rebuilt. Nothing is built when a module is imported:
 ``load`` is called by the wrapper that launches the kernel.
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits for
@@ -45,9 +45,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library's path, named by a hash over the source and every shared
+    header (``csrc/*.cuh``), so that editing either rebuilds it."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build_all(names=SOURCES) -> dict[str, str]:

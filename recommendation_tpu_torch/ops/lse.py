@@ -11,13 +11,16 @@ layer-contrast loss takes its two denominators through it
 
 ``catalog_lse`` launches K5 (``csrc/catalog_lse.cu``) for CUDA tensors and
 runs ``catalog_lse_plain`` for CPU tensors; ``catalog_lse_bwd`` launches
-K6 as two kernels, one for dq and one for dx, and runs
+K6, which takes dq and dx from one pass over the scores (each block a 64 x
+64 tile writing partial sums; ``lse_bwd_workspace`` sizes them) and then
+adds the partials in tile order in a second, combining launch; it runs
 ``catalog_lse_bwd_plain`` for CPU tensors. There is no fallback on the card
 and no size threshold: a CUDA input goes through the kernel or the call
-raises. ``catalog_lse.launches`` counts K5's launches (one per call) and
-``catalog_lse_bwd.launches`` K6's (two per call). ``CatalogLSE`` saves
-``(q, x, lse)`` as ``_clse_fwd`` does and recomputes the scores in the
-backward.
+raises. ``catalog_lse.launches`` counts K5's launches and
+``catalog_lse_bwd.launches`` K6's; ``.launches_per_call`` says how many a
+call makes (1 and 2).
+``CatalogLSE`` saves ``(q, x, lse)`` as ``_clse_fwd`` does and recomputes
+the scores in the backward.
 
 Not ported, because each is a TPU form and not part of what the function
 computes: ``FUSED_MIN_ROWS`` (below 4096 rows the JAX package takes XLA's
@@ -36,6 +39,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+BWD_TILE = 64  # csrc/catalog_lse.cu's BT: K6's query and item rows per block
 
 
 def catalog_lse_plain(q: torch.Tensor, x: torch.Tensor, tau: float) -> torch.Tensor:
@@ -80,11 +85,13 @@ def _kernel_lib():
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.lse_fwd_f32.argtypes = [ptr, ptr, i32, i32, i32, f32, ptr, ptr]
         lib.lse_fwd_f32.restype = i32
-        for fn in (lib.lse_bwd_dq_f32, lib.lse_bwd_dx_f32):
-            fn.argtypes = [ptr] * 4 + [i32, i32, i32, f32, ptr, ptr]
+        lib.lse_bwd_f32.argtypes = [ptr] * 4 + [i32, i32, i32, f32] + [ptr] * 5
+        lib.lse_bwd_f32.restype = i32
+        for fn in (lib.lse_max_d, lib.lse_bwd_tile):
+            fn.argtypes = []
             fn.restype = i32
-        lib.lse_max_d.argtypes = []
-        lib.lse_max_d.restype = i32
+        if lib.lse_bwd_tile() != BWD_TILE:
+            raise RuntimeError(f"catalog_lse.cu's tile {lib.lse_bwd_tile()} is not {BWD_TILE}")
         lib.lse_error_string.argtypes = [i32]
         lib.lse_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -123,6 +130,7 @@ def catalog_lse(q: torch.Tensor, x: torch.Tensor, tau: float) -> torch.Tensor:
 
 
 catalog_lse.launches = 0
+catalog_lse.launches_per_call = 1
 
 
 def catalog_lse_bwd(q: torch.Tensor, x: torch.Tensor, tau: float, lse: torch.Tensor,
@@ -130,9 +138,9 @@ def catalog_lse_bwd(q: torch.Tensor, x: torch.Tensor, tau: float, lse: torch.Ten
     """(dq f32[B, d], dx f32[N, d]): the cotangents of ``catalog_lse``'s
     inputs given its output ``lse`` and that output's cotangent ``g``.
 
-    CUDA tensors run K6: one launch over query tiles for dq and one over
-    item tiles for dx, both recomputing the scores (two launches a call).
-    CPU tensors run ``catalog_lse_bwd_plain``."""
+    CUDA tensors run K6: one launch recomputes the scores once for both
+    and writes partial sums (``lse_bwd_workspace``), a second adds them in
+    tile order. CPU tensors run ``catalog_lse_bwd_plain``."""
     _check("catalog_lse_bwd", q, x, lse, g)
     if q.device.type == "cpu":
         return catalog_lse_bwd_plain(q, x, tau, lse, g)
@@ -140,17 +148,27 @@ def catalog_lse_bwd(q: torch.Tensor, x: torch.Tensor, tau: float, lse: torch.Ten
     _launchable("catalog_lse_bwd", lib, q)
     (b, d), n = q.shape, x.shape[0]
     dq, dx = torch.empty_like(q), torch.empty_like(x)
+    part_floats = lse_bwd_workspace(b, n, d)
+    parts = torch.empty(2 * part_floats, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        for fn, out in ((lib.lse_bwd_dq_f32, dq), (lib.lse_bwd_dx_f32, dx)):
-            code = fn(q.data_ptr(), x.data_ptr(), lse.data_ptr(), g.data_ptr(), b, n, d,
-                      float(tau), out.data_ptr(), stream)
-            _raise_on(lib, code, "catalog_lse_bwd")
-            catalog_lse_bwd.launches += 1
+        code = lib.lse_bwd_f32(q.data_ptr(), x.data_ptr(), lse.data_ptr(), g.data_ptr(), b, n, d,
+                               float(tau), dq.data_ptr(), dx.data_ptr(), parts.data_ptr(),
+                               parts[part_floats:].data_ptr(), stream)
+    _raise_on(lib, code, "catalog_lse_bwd")
+    catalog_lse_bwd.launches += catalog_lse_bwd.launches_per_call
     return dq, dx
 
 
+def lse_bwd_workspace(b: int, n: int, d: int) -> int:
+    """The floats of each of K6's two partial-sum buffers for q [b, d]
+    against x [n, d]: one [BWD_TILE, d] chunk for each pair of a query tile
+    and an item tile."""
+    return -(-b // BWD_TILE) * -(-n // BWD_TILE) * BWD_TILE * d
+
+
 catalog_lse_bwd.launches = 0
+catalog_lse_bwd.launches_per_call = 2  # the tiles, then the combine
 
 
 class CatalogLSE(torch.autograd.Function):

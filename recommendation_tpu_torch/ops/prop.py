@@ -42,15 +42,32 @@ runs K2's rounds with layer k's cotangent added after round ``j == k``;
 ``u0``/``i0`` from all four outputs. ``k == 0`` (the input itself) has no
 kernel: the model takes ``ChainMean`` then, as ``ncl.py:118-140`` does.
 Each has its plain version and its own launch counter.
+
+All four run one CUDA body (``chain_layer``), one launch per layer, with
+the reduction cut into slices across blocks: ``chain_plan`` picks the
+shortest slice whose blocks the card still holds at once (one wave),
+and a call allocates the slices' partial sums (``_Chain``) and uses one
+counter per output tile (``_counters``, zeroed once); the last slice of a
+tile to finish adds the partials in slice order and zeroes its counter, so
+a call repeats bit for bit. A call's layers after the first are launched
+so that each may overlap the previous one's tail (programmatic dependent
+launch; the kernel waits for the previous layer before it reads anything
+but R̂). R̂ on the card may have padded rows (the dense ``DeviceGraph``
+aligns them to 16 bytes); its row stride goes to the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# csrc/chain_mean.cu's tile: TM output rows, TK reduction depth, TN columns
+TILE_ROWS, TILE_DEPTH, TILE_COLS = 64, 32, 64
+K1, K2, K3, K4 = 1, 2, 3, 4  # chain_layer's kernel argument
 
 
 def _cast_like(r):
@@ -150,9 +167,15 @@ def _check(name, r, u0, i0, n_layers):
     if r.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu, not {r.device}")
     if r.device.type == "cuda" and not (
-        r.is_contiguous() and u0.is_contiguous() and i0.is_contiguous()
+        _rows_contiguous(r) and u0.is_contiguous() and i0.is_contiguous()
     ):
-        raise ValueError(f"{name}'s kernel takes contiguous tensors")
+        raise ValueError(f"{name}'s kernel takes contiguous tensors (R̂'s rows may be padded)")
+
+
+def _rows_contiguous(r):
+    """R̂ laid out row after row: unit column stride, a row stride of at
+    least a row (the dense DeviceGraph pads it to a multiple of 8)."""
+    return r.stride(1) == 1 and r.stride(0) >= max(r.shape[1], 1)
 
 
 def _raise_on(lib, code, name):
@@ -165,23 +188,120 @@ def _kernel_lib():
 
     lib = load("chain_mean")
     if not getattr(lib, "_typed", False):
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        for fn in (lib.chain_layer_f32, lib.chain_layer_bf16):
-            fn.argtypes = [ptr] * 9 + [i32, i32, i32, f32, i32, ptr]
-            fn.restype = i32
-        for fn in (lib.chain_layer_bwd_f32, lib.chain_layer_bwd_bf16):
-            fn.argtypes = [ptr] * 7 + [i32, i32, i32, ptr]
-            fn.restype = i32
-        for fn in (lib.chain_layer_snap_f32, lib.chain_layer_snap_bf16):
-            fn.argtypes = [ptr] * 9 + [i32, i32, i32, f32, i32, ptr]
-            fn.restype = i32
-        for fn in (lib.chain_layer_inject_f32, lib.chain_layer_inject_bf16):
-            fn.argtypes = [ptr] * 9 + [i32, i32, i32, ptr]
+        ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        lib.chain_layer.argtypes = ([i32, i32, ptr, i64] + [ptr] * 10
+                                    + [i32, i32, i32, f32, i32, i32, i32, ptr, ptr, ptr])
+        lib.chain_layer.restype = i32
+        for fn in (lib.chain_tile, lib.chain_blocks_per_sm):
+            fn.argtypes = [i32]
             fn.restype = i32
         lib.chain_error_string.argtypes = [i32]
         lib.chain_error_string.restype = ctypes.c_char_p
+        tiles = tuple(lib.chain_tile(w) for w in range(3))
+        if tiles != (TILE_ROWS, TILE_DEPTH, TILE_COLS):
+            raise RuntimeError(f"chain_mean.cu tiles {tiles} differ from the plan's "
+                               f"{(TILE_ROWS, TILE_DEPTH, TILE_COLS)}")
         lib._typed = True
     return lib
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+class ChainPlan(NamedTuple):
+    """How one layer launch is cut (``csrc/chain_mean.cu``): the reduction
+    slice in TK-deep tiles, the blocks, the output tiles (one counter each),
+    the slices on each side and the partial sums' workspace in floats (0
+    when every tile has one slice)."""
+
+    slice_tiles: int
+    blocks: int
+    tiles: int
+    slices_u: int
+    slices_i: int
+    partial_floats: int
+
+
+@functools.lru_cache(maxsize=256)
+def chain_plan(n_users: int, n_items: int, d: int, slots: int) -> ChainPlan:
+    """The shortest reduction slice (most blocks) whose layer still fits in
+    ``slots`` resident blocks, one wave; the whole reduction in one slice
+    when even that takes more than a wave."""
+    nbu, nbi, ndt = _cdiv(n_users, TILE_ROWS), _cdiv(n_items, TILE_ROWS), _cdiv(d, TILE_COLS)
+    ku, ki = _cdiv(n_items, TILE_DEPTH), _cdiv(n_users, TILE_DEPTH)
+
+    def blocks(q):
+        return ndt * (nbu * _cdiv(ku, q) + nbi * _cdiv(ki, q))
+
+    longest = max(ku, ki)
+    q = next((q for q in range(1, longest + 1) if blocks(q) <= slots), longest)
+    su, si = _cdiv(ku, q), _cdiv(ki, q)
+    partial = ndt * (nbu * su + nbi * si) * TILE_ROWS * TILE_COLS if max(su, si) > 1 else 0
+    return ChainPlan(q, blocks(q), ndt * (nbu + nbi), su, si, partial)
+
+
+_SLOTS: dict[tuple[torch.device, bool], int] = {}
+
+
+def _slots(lib, device: torch.device, bf16: bool) -> int:
+    """Blocks of a layer launch that the card holds at once: its SMs times
+    what one SM holds of the kernel (``chain_blocks_per_sm``)."""
+    key = (device, bf16)
+    if key not in _SLOTS:
+        with torch.cuda.device(device):
+            per_sm = lib.chain_blocks_per_sm(int(bf16))
+        if per_sm <= 0:
+            raise RuntimeError("chain_mean.cu: the runtime gave no occupancy for the layer kernel")
+        _SLOTS[key] = per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+    return _SLOTS[key]
+
+
+_COUNTS: dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """``n`` tile counters on ``device``, zero. Zeroed once and shared by
+    every call: each layer's last blocks set their counters back to zero,
+    so the next launch on the stream finds them so."""
+    count = _COUNTS.get(device)
+    if count is None or count.numel() < n:
+        count = _COUNTS[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return count
+
+
+class _Chain:
+    """One call's launches of ``chain_layer``: the plan, its workspace (the
+    slices' partial sums and the tile counters) and the stream."""
+
+    def __init__(self, lib, kernel, r, d, name):
+        self.lib, self.kernel, self.r, self.d, self.name = lib, kernel, r, d, name
+        n_users, n_items = r.shape
+        self.plan = chain_plan(n_users, n_items, d,
+                               _slots(lib, r.device, r.dtype == torch.bfloat16))
+        self.partial = self.count = None
+        if self.plan.partial_floats:
+            self.partial = torch.empty(self.plan.partial_floats, dtype=torch.float32,
+                                       device=r.device)
+            self.count = _counters(r.device, self.plan.tiles)
+        self.stream = torch.cuda.current_stream(r.device).cuda_stream
+        self.chained = 0  # the first layer follows some other launch
+
+    def layer(self, src, dst, acc_in, acc_out=(None, None), inj=(None, None), scale=1.0,
+              write_next=1):
+        r = self.r
+        code = self.lib.chain_layer(
+            self.kernel, int(r.dtype == torch.bfloat16), r.data_ptr(), r.stride(0),
+            *(_ptr(t) for t in (*src, *dst, *acc_in, *acc_out, *inj)),
+            r.shape[0], r.shape[1], self.d, scale, write_next, self.plan.slice_tiles,
+            self.chained, _ptr(self.partial), _ptr(self.count), self.stream,
+        )
+        _raise_on(self.lib, code, self.name)
+        self.chained = 1
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def chain_mean(r: torch.Tensor, u0: torch.Tensor, i0: torch.Tensor, n_layers: int):
@@ -193,35 +313,25 @@ def chain_mean(r: torch.Tensor, u0: torch.Tensor, i0: torch.Tensor, n_layers: in
     _check("chain_mean", r, u0, i0, n_layers)
     if r.device.type == "cpu":
         return chain_mean_plain(r, u0, i0, n_layers)
-    n_users, n_items = r.shape
     d = u0.shape[1]
     out_u = torch.empty_like(u0)
     out_i = torch.empty_like(i0)
     if n_layers == 0:  # no product to run: the mean of layer 0 alone
         return out_u.copy_(u0), out_i.copy_(i0)
-    lib = _kernel_lib()
-    fn = lib.chain_layer_bf16 if r.dtype == torch.bfloat16 else lib.chain_layer_f32
     # ping-pong buffers for the running layer tables; the readout
     # accumulates into the outputs in place
     bufs = [(torch.empty_like(u0), torch.empty_like(i0)) for _ in range(min(n_layers - 1, 2))]
     inv = 1.0 / (n_layers + 1.0)
-    src_u, src_i = u0, i0
-    acc_u, acc_i = u0, i0
+    src, acc = (u0, i0), (u0, i0)
     with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
+        chain = _Chain(_kernel_lib(), K1, r, d, "chain_mean")
         for layer in range(n_layers):
             last = layer == n_layers - 1
-            dst_u, dst_i = (src_u, src_i) if last else bufs[layer % 2]
-            code = fn(
-                r.data_ptr(), src_u.data_ptr(), src_i.data_ptr(),
-                dst_u.data_ptr(), dst_i.data_ptr(),
-                acc_u.data_ptr(), acc_i.data_ptr(), out_u.data_ptr(), out_i.data_ptr(),
-                n_users, n_items, d, inv if last else 1.0, 0 if last else 1, stream,
-            )
-            _raise_on(lib, code, "chain_mean")
+            dst = src if last else bufs[layer % 2]
+            chain.layer(src, dst, acc, (out_u, out_i), scale=inv if last else 1.0,
+                        write_next=0 if last else 1)
             chain_mean.launches += 1
-            src_u, src_i = dst_u, dst_i
-            acc_u, acc_i = out_u, out_i
+            src, acc = dst, (out_u, out_i)
     return out_u, out_i
 
 
@@ -243,27 +353,18 @@ def chain_mean_bwd(r: torch.Tensor, gu: torch.Tensor, gi: torch.Tensor, n_layers
     seed_u, seed_i = gu * inv, gi * inv
     if n_layers == 0:
         return seed_u, seed_i
-    n_users, n_items = r.shape
-    d = gu.shape[1]
-    lib = _kernel_lib()
-    fn = lib.chain_layer_bwd_bf16 if r.dtype == torch.bfloat16 else lib.chain_layer_bwd_f32
     # round k writes ``out`` when L-1-k is even, else ``tmp``, so the last
     # round lands in ``out`` and no round writes the tables it reads
     out = (torch.empty_like(seed_u), torch.empty_like(seed_i))
     tmp = (torch.empty_like(seed_u), torch.empty_like(seed_i)) if n_layers > 1 else None
-    src_u, src_i = seed_u, seed_i
+    src = (seed_u, seed_i)
     with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
+        chain = _Chain(_kernel_lib(), K2, r, gu.shape[1], "chain_mean_bwd")
         for layer in range(n_layers):
-            dst_u, dst_i = out if (n_layers - 1 - layer) % 2 == 0 else tmp
-            code = fn(
-                r.data_ptr(), src_u.data_ptr(), src_i.data_ptr(),
-                seed_u.data_ptr(), seed_i.data_ptr(), dst_u.data_ptr(), dst_i.data_ptr(),
-                n_users, n_items, d, stream,
-            )
-            _raise_on(lib, code, "chain_mean_bwd")
+            dst = out if (n_layers - 1 - layer) % 2 == 0 else tmp
+            chain.layer(src, dst, (seed_u, seed_i))
             chain_mean_bwd.launches += 1
-            src_u, src_i = dst_u, dst_i
+            src = dst
     return out
 
 
@@ -299,37 +400,23 @@ def chain_mean_layer(r: torch.Tensor, u0: torch.Tensor, i0: torch.Tensor, n_laye
     _check_k(n_layers, k)
     if r.device.type == "cpu":
         return chain_mean_layer_plain(r, u0, i0, n_layers, k)
-    n_users, n_items = r.shape
-    d = u0.shape[1]
     out_u, out_i = torch.empty_like(u0), torch.empty_like(i0)
     uk, ik = torch.empty_like(u0), torch.empty_like(i0)
-    lib = _kernel_lib()
-    fn = lib.chain_layer_snap_bf16 if r.dtype == torch.bfloat16 else lib.chain_layer_snap_f32
     # the running tables go through ping-pong buffers, except layer k's,
     # which land in the snapshot; no layer writes the tables it reads
     bufs = [(torch.empty_like(u0), torch.empty_like(i0)) for _ in range(2)]
     inv = 1.0 / (n_layers + 1.0)
-    src_u, src_i = u0, i0
-    acc_u, acc_i = u0, i0
+    src, acc = (u0, i0), (u0, i0)
     with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
+        chain = _Chain(_kernel_lib(), K3, r, u0.shape[1], "chain_mean_layer")
         for layer in range(1, n_layers + 1):
             last = layer == n_layers
-            if layer == k:
-                dst_u, dst_i = uk, ik
-            else:
-                dst_u, dst_i = bufs[layer % 2]
+            dst = (uk, ik) if layer == k else bufs[layer % 2]
             write = layer == k or not last
-            code = fn(
-                r.data_ptr(), src_u.data_ptr(), src_i.data_ptr(),
-                dst_u.data_ptr(), dst_i.data_ptr(),
-                acc_u.data_ptr(), acc_i.data_ptr(), out_u.data_ptr(), out_i.data_ptr(),
-                n_users, n_items, d, inv if last else 1.0, 1 if write else 0, stream,
-            )
-            _raise_on(lib, code, "chain_mean_layer")
+            chain.layer(src, dst, acc, (out_u, out_i), scale=inv if last else 1.0,
+                        write_next=1 if write else 0)
             chain_mean_layer.launches += 1
-            src_u, src_i = dst_u, dst_i
-            acc_u, acc_i = out_u, out_i
+            src, acc = dst, (out_u, out_i)
     return out_u, out_i, uk, ik
 
 
@@ -353,27 +440,17 @@ def chain_mean_layer_bwd(r: torch.Tensor, gau: torch.Tensor, gai: torch.Tensor,
         return chain_mean_layer_bwd_plain(r, gau, gai, gku, gki, n_layers, k)
     inv = 1.0 / (n_layers + 1.0)
     seed_u, seed_i = gau * inv, gai * inv
-    n_users, n_items = r.shape
-    d = gau.shape[1]
-    lib = _kernel_lib()
-    fn = lib.chain_layer_inject_bf16 if r.dtype == torch.bfloat16 else lib.chain_layer_inject_f32
     out = (torch.empty_like(seed_u), torch.empty_like(seed_i))
     tmp = (torch.empty_like(seed_u), torch.empty_like(seed_i)) if n_layers > 1 else None
-    src_u, src_i = (seed_u + gku, seed_i + gki) if k == n_layers else (seed_u, seed_i)
+    src = (seed_u + gku, seed_i + gki) if k == n_layers else (seed_u, seed_i)
     with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
+        chain = _Chain(_kernel_lib(), K4, r, gau.shape[1], "chain_mean_layer_bwd")
         for layer in range(n_layers):
             j = n_layers - 1 - layer
-            dst_u, dst_i = out if j % 2 == 0 else tmp
-            inj_u, inj_i = (gku.data_ptr(), gki.data_ptr()) if j == k else (None, None)
-            code = fn(
-                r.data_ptr(), src_u.data_ptr(), src_i.data_ptr(),
-                seed_u.data_ptr(), seed_i.data_ptr(), inj_u, inj_i,
-                dst_u.data_ptr(), dst_i.data_ptr(), n_users, n_items, d, stream,
-            )
-            _raise_on(lib, code, "chain_mean_layer_bwd")
+            dst = out if j % 2 == 0 else tmp
+            chain.layer(src, dst, (seed_u, seed_i), inj=(gku, gki) if j == k else (None, None))
             chain_mean_layer_bwd.launches += 1
-            src_u, src_i = dst_u, dst_i
+            src = dst
     return out
 
 

@@ -3,7 +3,8 @@ on the card; ``ChainMean``'s gradient on the card; one training step
 through the kernels against the same step through the plain chain. The
 same for NCL's kernels: K3 and K4 (``csrc/chain_mean.cu``), K5 and K6
 (``csrc/catalog_lse.cu``), ``ChainMeanLayer``'s and ``CatalogLSE``'s
-gradients, and one NCL step with the layer contrast at unit weight. And for
+gradients, and one NCL step with the layer contrast at unit weight; K1-K4
+and K6 repeat bit for bit, across their reduction slices and tiles. And for
 the bucketed backend's kernels (``csrc/gather.cu``): K7, the row gather,
 bit for bit; each variant of P1, the bucket pull, against its plain
 version and against itself; ``BucketedChainMean``'s gradient on the card;
@@ -294,7 +295,8 @@ def test_lse_kernels_match_plain(card, b, n, d):
     lse = catalog_lse(q, x, 0.1)
     dq, dx = catalog_lse_bwd(q, x, 0.1, lse, g)
     torch.cuda.synchronize()
-    assert (catalog_lse.launches, catalog_lse_bwd.launches) == (before[0] + 1, before[1] + 2)
+    assert (catalog_lse.launches, catalog_lse_bwd.launches) == (
+        before[0] + 1, before[1] + catalog_lse_bwd.launches_per_call)
     want = catalog_lse_plain(q, x, 0.1)
     assert lse.shape == (b,) and lse.is_cuda
     torch.testing.assert_close(lse, want, **LSE_TOL)
@@ -332,7 +334,7 @@ def test_layer_and_lse_functions_have_gradients_on_the_card(card, compute_dtype)
     (lse.sum() + outs[0].square().sum() + outs[3].sin().sum()).backward()
     torch.cuda.synchronize()
     assert (chain_mean_layer_bwd.launches, catalog_lse_bwd.launches) == (
-        before[0] + 3, before[1] + 2)
+        before[0] + 3, before[1] + catalog_lse_bwd.launches_per_call)
     assert torch.isfinite(u0.grad).all() and i0.grad.abs().max() > 0
 
 
@@ -373,11 +375,115 @@ def test_ncl_step_kernel_vs_plain(card, compute_dtype):
                                          catalog_lse.launches - counts[2],
                                          catalog_lse_bwd.launches - counts[3])))
     (loss_k, g_k, n_k), (loss_p, g_p, n_p) = out
-    assert n_k == (3, 3, 2, 4) and n_p == (0, 0, 0, 0)
+    assert n_k == (3, 3, 2, 2 * catalog_lse_bwd.launches_per_call) and n_p == (0, 0, 0, 0)
     assert np.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
     dtype = graph.propagation_matrix.dtype
     assert _grads_close(g_k, g_p, dtype)
     assert not _grads_close([torch.zeros_like(g) for g in g_p], g_p, dtype)
+
+
+# -- repeatability and the redesigned tiles: K1-K4 (reduction slices), K6 ----
+
+
+def _graph_like(rng, n_u, n_i, density=0.05):
+    """A normalized random bipartite R̂ (non-negative, as the graph's)."""
+    a = (rng.random((n_u, n_i)) < density).astype(np.float32)
+    a[np.arange(n_u), rng.integers(0, n_i, n_u)] = 1.0  # no empty row
+    du, di = a.sum(1), a.sum(0)
+    di[di == 0] = 1.0
+    return a / np.sqrt(du)[:, None] / np.sqrt(di)[None, :]
+
+
+def _plan(card, r, d):
+    from recommendation_tpu_torch.ops import prop
+
+    lib = prop._kernel_lib()
+    return prop.chain_plan(r.shape[0], r.shape[1], d,
+                           prop._slots(lib, card, r.dtype == torch.bfloat16))
+
+
+def _four_kernels(r, t, n_layers=3, k=2):
+    u0, i0, gu, gi, gku, gki = t
+    return {
+        "K1": lambda: chain_mean(r, u0, i0, n_layers),
+        "K2": lambda: chain_mean_bwd(r, gu, gi, n_layers),
+        "K3": lambda: chain_mean_layer(r, u0, i0, n_layers, k),
+        "K4": lambda: chain_mean_layer_bwd(r, gu, gi, gku, gki, n_layers, k),
+    }
+
+
+def _plain_four(r, t, n_layers=3, k=2):
+    u0, i0, gu, gi, gku, gki = t
+    return {
+        "K1": chain_mean_plain(r, u0, i0, n_layers),
+        "K2": chain_mean_bwd_plain(r, gu, gi, n_layers),
+        "K3": chain_mean_layer_plain(r, u0, i0, n_layers, k),
+        "K4": chain_mean_layer_bwd_plain(r, gu, gi, gku, gki, n_layers, k),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_chain_kernels_repeat_bit_for_bit(card, dtype):
+    """K1-K4 on a graph's R̂ with its padded rows: the slices' partial sums
+    are added in slice order by whichever block finishes last, so two calls
+    give the same bits."""
+    graph = _graph(card, "bfloat16" if dtype == torch.bfloat16 else "float32")
+    r = graph.propagation_matrix
+    rng = np.random.default_rng(21)
+    t = _random(card, rng, *[(n, 64) for n in (r.shape[0], r.shape[1]) * 3])
+    assert _plan(card, r, 64).slices_u > 1  # the combine runs
+    for name, fn in _four_kernels(r, t).items():
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,many", [((5, 3, 130), False), ((40, 3000, 8), True)],
+                         ids=["shorter-than-a-slice", "many-slices"])
+def test_chain_kernels_across_slices(card, dtype, shape, many):
+    """A reduction shorter than one slice (no partial sums) and one cut into
+    many slices (94 on the user side): K1-K4 against their plain versions,
+    and two calls equal bit for bit. Non-negative tables on a normalized R̂,
+    so the sums do not cancel and f32 holds TOL in any order."""
+    n_u, n_i, d = shape
+    rng = np.random.default_rng(n_u + n_i + d)
+    r = torch.from_numpy(_graph_like(rng, n_u, n_i)).to(card, dtype)
+    t = [torch.from_numpy(rng.random(s).astype(np.float32)).to(card)
+         for s in [(n_u, d), (n_i, d)] * 3]
+    plan = _plan(card, r, d)
+    assert (plan.slices_u > 8) if many else (plan.slices_u == plan.slices_i == 1)
+    want = _plain_four(r, t)
+    for name, fn in _four_kernels(r, t).items():
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), name
+        tol = GRAD_TOL[dtype] if name in ("K2", "K4") else TOL[dtype]
+        for g, w in zip(first, want[name]):
+            torch.testing.assert_close(g, w, **tol)
+
+
+@pytest.mark.parametrize("d", [1, 24, 64, 130, 512])
+@pytest.mark.parametrize("b,n", [(70, 130), (1, 700), (200, 40)],
+                         ids=["ragged", "one-query", "under-one-item-tile"])
+def test_lse_backward_across_tiles(card, b, n, d):
+    """K6 where B and N are not multiples of its 64-row tiles, N is below
+    one tile, B is 1, and d is cut into 64-column slices (130, 512) or
+    below one (1, 24): dq and dx against the plain version, and two calls
+    equal bit for bit."""
+    rng = np.random.default_rng(b + n + d)
+    q, x = _unit_rows(card, rng, b, d), _unit_rows(card, rng, n, d)
+    (g,) = _random(card, rng, (b,))
+    lse = catalog_lse_plain(q, x, 0.1)
+    before = catalog_lse_bwd.launches
+    first = catalog_lse_bwd(q, x, 0.1, lse, g)
+    second = catalog_lse_bwd(q, x, 0.1, lse, g)
+    torch.cuda.synchronize()
+    assert catalog_lse_bwd.launches == before + 2 * catalog_lse_bwd.launches_per_call
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+    for got, w in zip(first, catalog_lse_bwd_plain(q, x, 0.1, lse, g)):
+        assert got.shape == w.shape
+        torch.testing.assert_close(got, w, **LSE_GRAD_TOL)
 
 
 # -- the bucketed backend's kernels: K7 (row gather), P1 (bucket pull) --------

@@ -131,3 +131,20 @@ def test_bad_compute_dtype_raises():
     train, test = make_synthetic_dataset(**TINY)
     with pytest.raises(ValueError):
         DeviceGraph(Interaction(train, test), compute_dtype="float16", device="cpu")
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_r_hat_rows_are_16_byte_aligned(compute_dtype):
+    """The dense R̂ is a [U, I] view with a row stride padded to a multiple
+    of 8 elements (16 bytes of bf16), the padding zero, for the chain
+    kernel's 16-byte loads; its values are those of the unpadded R̂."""
+    train, test = make_synthetic_dataset(**SERVE)
+    g = DeviceGraph(Interaction(train, test), compute_dtype=compute_dtype, device="cpu")
+    for r in (g.interaction_norm_dense, g.propagation_matrix):
+        assert r.shape == (g.n_users, g.n_items) and r.stride(1) == 1
+        assert r.stride(0) % 8 == 0 and 0 <= r.stride(0) - g.n_items < 8
+        buf = torch.as_strided(r, (g.n_users, r.stride(0)), r.stride())
+        assert torch.all(buf[:, g.n_items:] == 0)
+    dense = g.interaction_norm_dense.contiguous()
+    assert torch.equal(g.propagation_matrix.float(),
+                       dense.to(g.propagation_matrix.dtype).float())

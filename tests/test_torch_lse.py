@@ -121,3 +121,15 @@ def test_catalog_lse_checks_its_inputs():
         catalog_lse_bwd(q, x, 0.1, torch.zeros(4), torch.zeros(4, dtype=torch.float64))
     with pytest.raises(ValueError):
         catalog_lse(q.to("meta"), x.to("meta"), 0.1)
+
+
+@pytest.mark.parametrize("b,n,d", [(2048, 943, 64), (2048, 1675, 64), (1, 1, 1), (70, 65, 130)])
+def test_backward_workspace_holds_a_chunk_per_tile_pair(b, n, d):
+    """K6 writes one [64, d] partial of dq and one of dx for each pair of a
+    64-row query tile and a 64-row item tile: 7.9 and 14.2 MB at NCL's step
+    shapes. A call is two launches, the tiles and the combine."""
+    from recommendation_tpu_torch.ops.lse import BWD_TILE, lse_bwd_workspace
+
+    tiles = -(-b // BWD_TILE) * -(-n // BWD_TILE)
+    assert lse_bwd_workspace(b, n, d) == tiles * BWD_TILE * d
+    assert (catalog_lse.launches_per_call, catalog_lse_bwd.launches_per_call) == (1, 2)

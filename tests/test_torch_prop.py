@@ -29,6 +29,9 @@ from recommendation_tpu.models.lightgcn import lightgcn_propagate as jax_propaga
 from recommendation_tpu.ops.pallas_prop import dense_chain_mean, dense_chain_mean_layer
 from recommendation_tpu_torch.data.synthetic import make_synthetic_dataset
 from recommendation_tpu_torch.ops.prop import (
+    TILE_COLS,
+    TILE_DEPTH,
+    TILE_ROWS,
     ChainMean,
     ChainMeanLayer,
     chain_mean,
@@ -39,6 +42,7 @@ from recommendation_tpu_torch.ops.prop import (
     chain_mean_layer_bwd_plain,
     chain_mean_layer_plain,
     chain_mean_plain,
+    chain_plan,
 )
 
 TIGHT = dict(rtol=1e-5, atol=1e-6)
@@ -370,3 +374,61 @@ def test_chain_mean_layer_checks_its_inputs():
         chain_mean_layer_bwd(r, u0, i0, torch.zeros(5, 2), i0, 3, 1)
     with pytest.raises(ValueError):
         chain_mean_layer(r.to("meta"), u0.to("meta"), i0.to("meta"), 3, 1)
+
+
+# -- the layer kernel's plan: reduction slices in one wave --------------------
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@pytest.mark.parametrize("shape", [(943, 1675, 64), (37, 53, 8), (5, 3, 130), (40, 3000, 8),
+                                   (200, 333, 64), (1, 1, 1)])
+@pytest.mark.parametrize("slots", [396, 528, 8])
+def test_chain_plan_fits_one_wave_and_covers_the_reduction(shape, slots):
+    """The slices tile each side's reduction with no gap or overlap, the
+    launch fits the card's resident blocks where any slicing can, and a
+    slice one tile shorter would not fit (the plan takes the most blocks)."""
+    n_users, n_items, d = shape
+    plan = chain_plan(n_users, n_items, d, slots)
+    nbu, nbi, ndt = _cdiv(n_users, TILE_ROWS), _cdiv(n_items, TILE_ROWS), _cdiv(d, TILE_COLS)
+
+    def blocks(q):
+        return ndt * (nbu * _cdiv(_cdiv(n_items, TILE_DEPTH), q)
+                      + nbi * _cdiv(_cdiv(n_users, TILE_DEPTH), q))
+
+    for n_red, slices in ((n_items, plan.slices_u), (n_users, plan.slices_i)):
+        depth = plan.slice_tiles * TILE_DEPTH
+        assert (slices - 1) * depth < n_red <= slices * depth
+    assert plan.blocks == blocks(plan.slice_tiles)
+    assert plan.tiles == ndt * (nbu + nbi)
+    if ndt * (nbu + nbi) <= slots:  # one slice a tile fits: some plan is one wave
+        assert plan.blocks <= slots
+        assert plan.slice_tiles == 1 or blocks(plan.slice_tiles - 1) > slots
+    else:
+        assert plan.slices_u == plan.slices_i == 1
+    one_slice = max(plan.slices_u, plan.slices_i) == 1
+    assert plan.partial_floats == (0 if one_slice else plan.blocks * TILE_ROWS * TILE_COLS)
+
+
+def test_chain_plan_at_the_bench_shape():
+    """On an H100 (132 SMs) with 4 resident blocks an SM: 128-deep slices,
+    14 on the user side and 8 on the item side, 426 blocks."""
+    plan = chain_plan(943, 1675, 64, 4 * 132)
+    assert (plan.slice_tiles, plan.slices_u, plan.slices_i, plan.blocks) == (4, 14, 8, 426)
+
+
+def test_chain_mean_takes_padded_rows():
+    """A row-aligned R̂ (a view with a padded row stride, as the dense
+    DeviceGraph keeps it) gives the chain of its contiguous copy."""
+    rng = np.random.default_rng(11)
+    r = torch.from_numpy(rng.random((7, 13)).astype(np.float32))
+    padded = torch.zeros(7, 16)
+    padded[:, :13] = r
+    view = padded[:, :13]
+    assert view.stride() == (16, 1) and not view.is_contiguous()
+    u0 = torch.from_numpy(rng.normal(size=(7, 4)).astype(np.float32))
+    i0 = torch.from_numpy(rng.normal(size=(13, 4)).astype(np.float32))
+    for got, want in zip(chain_mean(view, u0, i0, 2), chain_mean(r, u0, i0, 2)):
+        assert torch.equal(got, want)
