@@ -16,7 +16,8 @@ What it does, in order (any failed phase exits non-zero):
      serving shape and at an unaligned one; K3 ``chain_mean_layer`` and K4
      ``chain_mean_layer_bwd`` at the bench shape and at 37x53x8 for (L, k)
      in (3,1), (3,2), (3,3), (1,1); K5 ``catalog_lse`` and K6
-     ``catalog_lse_bwd`` at NCL's two step shapes and a ragged one;
+     ``catalog_lse_bwd`` at NCL's two step shapes and a ragged one, and K5
+     against a 100,000-item catalog;
   4. one-step checks: one LightGCN step's loss and gradients through
      ``ChainMean`` (K1 + K2) against autograd through the plain chain; one
      NCL step through K3-K6 against the plain path, for the full loss, the
@@ -39,9 +40,10 @@ What it does, in order (any failed phase exits non-zero):
      goes. In bf16 and in f32;
   7. NCL train phase: the same for NCL at its defaults (d=64, L=3, context
      layer 2, tau 0.1, 24 user and 42 item clusters, an E-step per epoch):
-     K3 and K4 launch 3 times a step (one launch a layer), K5 twice, K6
-     four times (two calls, each the tile launch and the combine launch:
-     ``catalog_lse_bwd.launches_per_call``), K1 3 times per E-step and per
+     K3 and K4 launch 3 times a step (one launch a layer), K5 and K6 four
+     times each (two calls, each two launches: K5's splits and their merge,
+     K6's tiles and their combine: ``launches_per_call``), K1 3 times per
+     E-step and per
      evaluation, K2 never;
      after each E-step every assignment lies in [0, k) and the k-means
      inertia is no higher than at the initial centroids;
@@ -53,14 +55,17 @@ What it does, in order (any failed phase exits non-zero):
      shapes and at the TPU probe's (1.5M rows x d=128, 4096 and 2M rows
      gathered, rows carrying their ids); every P1 ``gather_sum`` variant
      against its plain version at the bench graph (the bf16 source at
-     d=128), each twice to show it repeats bit for bit; both timed against
-     their bytes at 3.35 TB/s, their plain versions and a library call
-     (``torch.index_select``, one layer of ``torch.sparse.mm``); one step's
-     gradients through ``BucketedChainMean`` against the plain chain's; 3
-     epochs of training with K7 4 and P1 6 launches a step and K7 2, P1 3 per
-     evaluation, a falling loss and a 20-step profile; waves of requests
-     through ``RecommenderService``, each answer equal to the plain path's
-     and no train positive served;
+     d=128, and the epilogue's running sum and last scaling), each twice to
+     show it repeats bit for bit; both timed against their bytes at 3.35
+     TB/s, their plain versions and a library call (``torch.index_select``,
+     one layer of ``torch.sparse.mm``), P1 also with its indices taken
+     modulo 4096 (a source that stays in L2) and with every slot left out
+     (no gathers); one step's gradients through
+     ``BucketedChainMean`` against the plain chain's; 3 epochs of training
+     with K7 4 and P1 6 launches a step and K7 2, P1 3 per evaluation, a
+     falling loss, a 20-step profile and a 5-step one by operator and input
+     shape; waves of requests through ``RecommenderService``, each answer
+     equal to the plain path's and no train positive served;
   9. prints the serving line, the training line, the NCL line, the large
      line, the kernels line and, last, the device line.
 
@@ -162,6 +167,7 @@ LAYER_CASES = ((3, 1), (3, 2), (3, 3), (1, 1))
 # dq and dx sum N or B such terms and keep that relative size.
 LSE_TOL = (1e-5, 1e-5)  # (rtol, atol) on lse
 LSE_GRAD_TOL = (1e-4, 1e-5)  # on dq, dx
+LSE_LARGE_N = 100_000  # the large graph's item catalog, which NCL there would take
 COUNTERS = (chain_mean, chain_mean_bwd, chain_mean_layer, chain_mean_layer_bwd, catalog_lse,
             catalog_lse_bwd)
 # the large-graph phase: bench.py --large's shape (bench.py:245-271), 10% held out
@@ -173,6 +179,7 @@ PROBE_ROWS, PROBE_D, PROBE_IDX = 1_500_000, 128, (4096, 2_000_000)
 # which moves a result by a few ulps of the row's largest partial sum (hub
 # rows hold 10^4 slots here): rtol 1e-5, atol 1e-5 x the table's largest entry
 P1_TOL = (1e-5, 1e-5)
+L2_PROBE_ROWS = 4096  # P1's L2 probe: live indices modulo this, a 1 MB source
 
 
 def card_line() -> str:
@@ -486,7 +493,8 @@ def unit_rows(rng, n, d):
 def kernel_phase_lse(n_users, n_items):
     """K5 and K6 against their plain versions on l2-normalized rows at NCL's
     two step shapes (B against the user and the item catalog) and at a
-    ragged one. Timed as one step uses them: a call on each catalog."""
+    ragged one, and K5 against a 100,000-item catalog (the large graph's).
+    Timed as one step uses them: a call on each catalog."""
     rng = np.random.default_rng(3)
     step_shapes = [(BATCH, n_users, EMB), (BATCH, n_items, EMB)]
     inputs = []
@@ -505,6 +513,17 @@ def kernel_phase_lse(n_users, n_items):
                                    {torch.float32: LSE_GRAD_TOL}))
         if (b, n, d) in step_shapes:
             inputs.append((q, x, g, want))
+    # K5 at the large graph's item catalog
+    q, x = unit_rows(rng, BATCH, EMB), unit_rows(rng, LSE_LARGE_N, EMB)
+    (lse,) = same_bits("catalog_lse 100k", lambda: [catalog_lse(q, x, TAU)])
+    err_large = compare(f"catalog_lse {BATCH}x{LSE_LARGE_N}x{EMB}", [lse],
+                        [catalog_lse_plain(q, x, TAU)], torch.float32, {torch.float32: LSE_TOL})
+    large = {"shape": [BATCH, LSE_LARGE_N, EMB], "max_abs_err": err_large,
+             "ms": time_ms(lambda: catalog_lse(q, x, TAU)),
+             "plain_ms": time_ms(lambda: catalog_lse_plain(q, x, TAU)),
+             "library_ms": time_ms(lambda: torch.logsumexp(q @ x.T / TAU, 1)),
+             "bound_ms": lse_bound([(BATCH, LSE_LARGE_N, EMB)], 1)[0]}
+    del q, x
     torch.cuda.synchronize()
 
     def both(fn):
@@ -541,6 +560,7 @@ def kernel_phase_lse(n_users, n_items):
             "bound_by": bound_by,
             "library_ms": library_ms,
         })
+    rows[0]["n100k"] = large
     return rows
 
 
@@ -660,8 +680,9 @@ def ncl_one_step_check(graphs, params):
                 counts = {k: v - before[k] for k, v in read_counts().items()}
                 got[which] = (value.item(), grads, counts)
             (v_k, g_k, n_k), (v_p, g_p, n_p) = got["kernel"], got["plain"]
-            k6 = 2 * catalog_lse_bwd.launches_per_call  # two calls a step
-            want_k = {"loss": (3, 3, 2, k6), "ssl": (3, 3, 2, k6), "proto": (0, 0, 0, 0)}[term]
+            k5 = 2 * catalog_lse.launches_per_call  # two calls a step
+            k6 = 2 * catalog_lse_bwd.launches_per_call
+            want_k = {"loss": (3, 3, k5, k6), "ssl": (3, 3, k5, k6), "proto": (0, 0, 0, 0)}[term]
             seen = tuple(n_k[f.__name__] for f in COUNTERS[2:])
             if seen != want_k or any(n_p.values()) or n_k["chain_mean_bwd"]:
                 raise RuntimeError(f"NCL {term} {dtype} launches {n_k} (plain {n_p})")
@@ -739,7 +760,7 @@ def ncl_train_phase(compute_dtype, data):
     n_evals = len(rec.history) + 2  # the per-epoch evaluations, the final test, the service
     want = {"chain_mean": LAYERS * (len(records) + n_evals), "chain_mean_bwd": 0,
             "chain_mean_layer": LAYERS * steps, "chain_mean_layer_bwd": LAYERS * steps,
-            "catalog_lse": 2 * steps,
+            "catalog_lse": 2 * catalog_lse.launches_per_call * steps,
             "catalog_lse_bwd": 2 * catalog_lse_bwd.launches_per_call * steps}
     if len(records) != TRAIN_EPOCHS or launches != want:
         raise RuntimeError(f"NCL {compute_dtype} launches {launches} with {len(records)} "
@@ -981,13 +1002,16 @@ def profile_steps(rec, batch=BATCH):
         return {"steps": n_steps, "host_us_per_step": wall_us / n_steps,
                 "device_us_per_step": "not measured"}
     top = sorted(kernels_, key=lambda e: -e.self_device_time_total)[:5]
-    host = sorted((e for e in prof.key_averages() if e.device_type.name == "CPU"),
-                  key=lambda e: -e.self_cpu_time_total)[:8]
+    host_ops = [e for e in prof.key_averages() if e.device_type.name == "CPU"]
+    host = sorted(host_ops, key=lambda e: -e.self_cpu_time_total)[:8]
     return {
         "steps": n_steps,
         "host_us_per_step": wall_us / n_steps,
         "device_us_per_step": device_us / n_steps,
         "device_idle_share": 1.0 - device_us / wall_us,
+        "launches_per_step": sum(e.count for e in host_ops
+                                 if e.key.startswith("cudaLaunchKernel")) / n_steps,
+        "memsets_per_step": sum(e.count for e in host_ops if e.key == "cudaMemsetAsync") / n_steps,
         "top_kernels_us_per_step": {e.key[:100]: e.self_device_time_total / n_steps
                                     for e in top},
         "top_host_ops_us_per_step": {e.key[:60]: [e.self_cpu_time_total / n_steps,
@@ -1154,18 +1178,20 @@ def check_gather(name, x, idx):
 
 def check_pull(name, src, idx, row_ptr, **kw):
     """One P1 variant against its plain version at P1_TOL, and twice
-    bit for bit."""
+    bit for bit (each output, where the epilogue gives two)."""
     got = gather_sum(src, idx, row_ptr, **kw)
     again = gather_sum(src, idx, row_ptr, **kw)
     want = gather_sum_plain(src, idx, row_ptr, **kw)
     torch.cuda.synchronize()
-    if not torch.equal(got, again):
+    got, again, want = ((t,) if isinstance(t, torch.Tensor) else t for t in (got, again, want))
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise RuntimeError(f"gather_sum {name}: two calls differ")
     rtol, atol = P1_TOL
-    scale = want.abs().max().item()
-    err = (got - want).abs().max().item()
-    if not (scale > 0 and torch.isfinite(got).all()
-            and torch.allclose(got, want, rtol=rtol, atol=atol * scale)):
+    scale = max(w.abs().max().item() for w in want)
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    if not (scale > 0 and len(got) == len(want) and all(torch.isfinite(g).all() for g in got)
+            and all(torch.allclose(g, w, rtol=rtol, atol=atol * scale)
+                    for g, w in zip(got, want))):
         raise RuntimeError(f"gather_sum {name}: kernel disagrees with plain (max abs err {err})")
     return {"max_abs_err": err, "max_abs": scale}
 
@@ -1204,11 +1230,13 @@ def large_kernel_phase(data, graph, params):
     x128 = torch.from_numpy(g_rng.normal(size=(r + 1, 128)).astype(np.float32) * 0.05).cuda()
     x128[r] = 0.0
     ridx, ptr, sched = fwd.ridx, fwd.row_ptr, fwd.schedule
+    _, inv_b = fwd.fold_scales
+    acc = z.abs()  # a running sum: the chain's layers so far
     variants = {
         "separable (chain forward)": check_pull("separable", y, ridx, ptr, post=ab, skip=r,
                                                 schedule=sched),
-        "separable + add (Horner backward)": check_pull("add", z, ridx, ptr, post=ab, add=gp,
-                                                        skip=r, schedule=sched),
+        "separable + add": check_pull("add", z, ridx, ptr, post=ab, add=gp, skip=r,
+                                      schedule=sched),
         "value path": check_pull("value", xp, ridx, ptr, val=fwd.val, skip=r, schedule=sched),
         "value path + add": check_pull("value add", z, ridx, ptr, val=fwd.val, add=gp, skip=r,
                                        schedule=sched),
@@ -1217,6 +1245,14 @@ def large_kernel_phase(data, graph, params):
                                         skip=r, schedule=sched),
         "bf16 source d=128, value path": check_pull("bf16 value", x128.bfloat16(), ridx, ptr,
                                                     val=fwd.val, skip=r, schedule=sched),
+        "separable + running sum (chain forward, middle layer)": check_pull(
+            "running sum", y, ridx, ptr, post=ab, skip=r, schedule=sched, acc=acc, keep_y=True),
+        "separable + running sum, 1/b (chain forward, last layer)": check_pull(
+            "last layer", y, ridx, ptr, post=ab, skip=r, schedule=sched, acc=acc, final=inv_b),
+        "separable, next source gp_b + z (Horner backward)": check_pull(
+            "horner", z, ridx, ptr, post=ab, skip=r, schedule=sched, acc=gp),
+        "separable, 1/b (Horner backward, last layer)": check_pull(
+            "horner last layer", z, ridx, ptr, post=ab, skip=r, schedule=sched, final=inv_b),
     }
     # the library yardsticks: index_select; one layer of CSR SpMM in node space
     a = data.norm_adj.tocsr()
@@ -1248,6 +1284,11 @@ def large_kernel_phase(data, graph, params):
         }
     k7["kernel_ms"] = k7["ms"]
     p1_bound = pull_bound(fwd, EMB, 4)
+    # the L2 probe: the same call with every live index taken modulo 4096,
+    # a 1 MB source that stays in L2: how fast the L2 serves gathered rows;
+    # and with every slot left out: what the pull costs without its gathers
+    ridx_l2 = torch.where(ridx == r, ridx, ridx % L2_PROBE_ROWS).to(torch.int32).contiguous()
+    ridx_none = torch.full_like(ridx, r)
     p1 = {
         "name": "gather_sum", "route": "cuda",
         "source": "recommendation_tpu_torch/csrc/gather.cu",
@@ -1259,6 +1300,16 @@ def large_kernel_phase(data, graph, params):
         "plain_ms": time_ms(lambda: gather_sum_plain(y, ridx, ptr, post=ab, skip=r)),
         "bound_ms": p1_bound[0], "bound_by": p1_bound[1],
         "per_slot_ms": per_slot_ms(fwd, EMB, 4),
+        "l2_probe_ms": time_ms(lambda: gather_sum(y, ridx_l2, ptr, post=ab, skip=r,
+                                                  schedule=sched)),
+        "no_gather_ms": time_ms(lambda: gather_sum(y, ridx_none, ptr, post=ab, skip=r,
+                                                   schedule=sched)),
+        "running_sum_ms": time_ms(lambda: gather_sum(y, ridx, ptr, post=ab, skip=r,
+                                                     schedule=sched, acc=acc, keep_y=True)),
+        "horner_ms": time_ms(lambda: gather_sum(z, ridx, ptr, post=ab, skip=r, schedule=sched,
+                                                acc=gp)),
+        "last_layer_ms": time_ms(lambda: gather_sum(y, ridx, ptr, post=ab, skip=r,
+                                                    schedule=sched, acc=acc, final=inv_b)),
         "library_ms": time_ms(lambda: torch.sparse.mm(a_csr, ego)),
     }
     p1["kernel_ms"] = p1["ms"]
@@ -1325,6 +1376,29 @@ def large_one_step_check(graph, params):
     return {"loss": loss.item(), "loss_abs_err": loss_err,
             "grad_max_abs_err": max((g - w).abs().max().item() for g, w in zip(grads, plain_grads)),
             "grad_max_abs": [w.abs().max().item() for w in plain_grads]}
+
+
+def profile_ops(rec, batch, n_steps=5, top=12):
+    """The device time of a training step by the operator that launched it
+    and its input shapes (``record_shapes``, a separate window from
+    ``profile_steps``: recording shapes costs host time): which call site
+    each elementwise kernel belongs to."""
+    from torch.profiler import ProfilerActivity, profile
+
+    users, items, negs, weights, _ = epoch_batches(
+        epoch_words(torch.Generator().manual_seed(12), rec.graph, batch), rec.graph, batch)
+    window = (users[:n_steps], items[:n_steps], negs[:n_steps], weights[:n_steps], n_steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        _, loss = run_steps(rec.model, rec.optimizer, rec.graph, rec.params, rec.state, window)
+        float(loss)
+    ops = [e for e in prof.key_averages(group_by_input_shape=True)
+           if e.device_type.name == "CPU" and e.self_device_time_total > 0]
+    ops.sort(key=lambda e: -e.self_device_time_total)
+    return [{"op": e.key, "shapes": str(e.input_shapes)[:120],
+             "device_us_per_step": e.self_device_time_total / n_steps,
+             "calls_per_step": e.count / n_steps} for e in ops[:top]]
 
 
 def large_train_phase(data, graph):
@@ -1404,6 +1478,7 @@ def large_train_phase(data, graph):
         "wall_s": wall_s,
         "sampler_s_per_epoch": sampler_seconds(graph),
         "profile": profile_steps(rec, LARGE_BATCH),
+        "ops_by_shape": profile_ops(rec, LARGE_BATCH),
     }
     return launches, stats
 

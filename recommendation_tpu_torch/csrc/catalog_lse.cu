@@ -13,13 +13,21 @@
 //
 // The TPU kernels walk the item blocks in order and carry (max, sum) and dq
 // in scratch from one grid step to the next. Blocks on the H100 run in no
-// order, and the [B, N] scores never reach device memory:
-//   * K5 (lse_fwd_kernel): a block owns TO query rows, stages them in
-//     shared memory once, and loops over item tiles of TS rows staged
-//     through shared memory. Each thread keeps the running (max, sum) of its
-//     own 4 columns for its 2 rows in registers; warp shuffles combine the 16
-//     threads of a row at the end into m + log(s). Ragged B, N and d are
-//     masked: a column past N adds exp(-1e30 - m) = 0 to the sum.
+// order, and the [B, N] scores never reach device memory. Both kernels take
+// their scores from one piece of arithmetic: a block's 64 x 64 tile of
+// (query rows, item rows), staged into shared memory by cp.async
+// (stage_rows) and multiplied in 4 x 4 register micro-tiles (tile_scores).
+//   * K5 (lse_fwd_kernel): a block owns one 64-row query tile and one split
+//     of w consecutive item tiles. It keeps its query tile in shared memory
+//     (d <= 64; above, the d-slices of both operands stream), copies the
+//     next item tile in while it computes the current one, and keeps each
+//     query row's running (max, sum) in registers. A thread folds its 4
+//     columns of each tile into its 4 rows' (max, sum); the 16 threads of a
+//     row merge theirs by a fixed butterfly and a fixed pair at the end, and
+//     the block writes one (max, sum) per row and split. A second launch
+//     (lse_fwd_combine_kernel) merges the splits in split order into
+//     m + log(s). Ragged B, N and d are masked: a column past N adds nothing,
+//     as exp(-1e30 - m) = 0 would.
 //   * K6 (lse_bwd_kernel): a block owns one BT x BT tile of (query rows,
 //     item rows), computes that tile's scores once, and takes both its
 //     partial dq (p . x over the tile's items) and its partial dx (p^T . q
@@ -30,10 +38,31 @@
 // exp(s - lse) * g; the sums are divided by tau at the end, as the JAX
 // kernel does.
 //
-// What bounds K6 on an H100: at NCL's step shape (B = 2048, N = 943 and
-// 1675, d = 64) a call is 3 x 2BNd = 0.74 and 1.32 GFLOP of f32 FFMA, 11
-// and 20 us at 67 TFLOP/s, against about 1.5 MB of inputs and outputs: the
-// operations bound it. What the design does about it:
+// What bounds K5 on an H100: at NCL's step shape (B = 2048, N = 943 and
+// 1675, d = 64) a call is 2BNd = 0.25 and 0.44 GFLOP of f32 FFMA, 3.7 and
+// 6.5 us at 67 TFLOP/s, against under 1 MB of inputs: the operations bound
+// it. What the design does about it:
+//   * One wave of busy blocks: the split size w is the fewest item tiles
+//     that keep ceil(B/64) x ceil(N/(64 w)) blocks within what the card
+//     holds at once (the wrapper's plan, from the occupancy the runtime
+//     reports: lse_fwd_blocks_per_sm). At NCL's shapes that is 32 x 8 and
+//     32 x 7 blocks of 256 threads (w = 2 and 4); at a 100,000-item
+//     catalog 32 x 8 (w = 196), and the partials stay S x B x 2 floats.
+//   * Register micro-tiles: 8 float4 shared loads feed 64 FFMA, a warp is
+//     8 x 4 threads so that each load is one shared-memory wavefront (K6's
+//     tile, see below).
+//   * Asynchronous staging: the next item tile is in flight while the
+//     current one is multiplied, so only a split's first tile waits on
+//     memory.
+//   * A fixed-order merge: the butterfly, the pair of warps and the splits
+//     merge in one order whichever block finishes first, so a call repeats
+//     bit for bit. No atomics, no counters kept between calls. Two launches
+//     a call.
+//
+// What bounds K6 on an H100: at NCL's step shape a call is 3 x 2BNd = 0.74
+// and 1.32 GFLOP of f32 FFMA, 11 and 20 us at 67 TFLOP/s, against about
+// 1.5 MB of inputs and outputs: the operations bound it. What the design
+// does about it:
 //   * Enough blocks: one block per (query tile, item tile), 32 x 15 = 480
 //     and 32 x 27 = 864 blocks of 256 threads at those shapes (2 resident
 //     an SM).
@@ -71,120 +100,12 @@
 
 namespace {
 
-// K5
-constexpr int TO = 16;        // owned rows per block
-constexpr int TS = 64;        // streamed rows per tile
-constexpr int THREADS = 128;  // 16 column threads x 8 row pairs
-constexpr float NEG_INF = -1e30f;
-
-// Row stride of a staged [rows][d] tile: a multiple of 32 plus one, so
-// that threads reading the same k of 16 consecutive rows hit 16 banks.
-__host__ __device__ inline int padded_ld(int d) { return ((d + 31) / 32) * 32 + 1; }
-
-size_t fwd_smem_bytes(int d) { return static_cast<size_t>(TS + TO) * padded_ld(d) * sizeof(float); }
-
-// lse[b] for the TO query rows of this block.
-__global__ void __launch_bounds__(THREADS)
-lse_fwd_kernel(const float* __restrict__ own, const float* __restrict__ str, int n_own,
-               int n_str, int d, float tau, float* __restrict__ out) {
-    extern __shared__ float smem[];
-    const int ld = padded_ld(d);
-    float* ss = smem;          // [TS][ld] streamed tile
-    float* os = ss + TS * ld;  // [TO][ld] owned tile
-
-    const int tid = threadIdx.x;
-    const int tx = tid % 16;  // streamed columns tx + 16 j, j = 0 .. 3
-    const int ty = tid / 16;  // owned rows ty and ty + 8
-    const int own0 = blockIdx.x * TO;
-
-    for (int e = tid; e < TO * d; e += THREADS) {
-        const int r = e / d, c = e % d, row = own0 + r;
-        os[r * ld + c] = row < n_own ? own[(size_t)row * d + c] : 0.f;
-    }
-    float m[2] = {NEG_INF, NEG_INF}, s[2] = {0.f, 0.f};
-
-    for (int s0 = 0; s0 < n_str; s0 += TS) {
-        __syncthreads();  // the last tile's readers are done (and os is staged)
-        for (int e = tid; e < TS * d; e += THREADS) {
-            const int r = e / d, c = e % d, row = s0 + r;
-            ss[r * ld + c] = row < n_str ? str[(size_t)row * d + c] : 0.f;
-        }
-        __syncthreads();
-
-        float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-        for (int k = 0; k < d; ++k) {
-            const float a0 = os[ty * ld + k];
-            const float a1 = os[(ty + 8) * ld + k];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const float b = ss[(tx + 16 * j) * ld + k];
-                acc[0][j] = fmaf(a0, b, acc[0][j]);
-                acc[1][j] = fmaf(a1, b, acc[1][j]);
-            }
-        }
-
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-            float sc[4];
-            float tile_max = NEG_INF;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const bool valid = s0 + tx + 16 * j < n_str;
-                sc[j] = valid ? acc[p][j] / tau : NEG_INF;
-                tile_max = fmaxf(tile_max, sc[j]);
-            }
-            const float new_m = fmaxf(m[p], tile_max);
-            float add = 0.f;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                if (s0 + tx + 16 * j < n_str) add += expf(sc[j] - new_m);
-            }
-            s[p] = s[p] * expf(m[p] - new_m) + add;
-            m[p] = new_m;
-        }
-    }
-
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-        float mm = m[p], sum = s[p];
-        // the 16 threads of a row are one half warp
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1) {
-            const float om = __shfl_xor_sync(0xffffffffu, mm, off);
-            const float os_ = __shfl_xor_sync(0xffffffffu, sum, off);
-            const float nm = fmaxf(mm, om);
-            sum = sum * expf(mm - nm) + os_ * expf(om - nm);
-            mm = nm;
-        }
-        const int row = own0 + ty + 8 * p;
-        if (tx == 0 && row < n_own) out[row] = mm + logf(sum);
-    }
-}
-
-// K6
+// The score tile K5 and K6 share
 constexpr int BT = 64;          // query rows and item rows of a block's tile
 constexpr int BK = 64;          // columns of d per staged slice
 constexpr int BLD = BK + 4;     // padded row: rows tx .. tx + 7 start 4 banks apart
 constexpr int BTHREADS = 256;   // 16 x 16, a 4 x 4 micro-tile each
-
-size_t bwd_smem_bytes(int d) {
-    const int stages = d > BK ? 2 : 1;
-    return static_cast<size_t>(2 * stages + 2) * BT * BLD * sizeof(float);
-}
-
-struct Bwd {
-    const float* q;
-    const float* x;
-    const float* lse;
-    const float* g;
-    int b, n, d;
-    float tau;
-    float* dq;
-    float* dx;
-    float* dq_part;  // [B-tiles][N-tiles][BT][d]
-    float* dx_part;  // [N-tiles][B-tiles][BT][d]
-    int vec;         // d % 4 == 0 and every pointer 16-byte aligned
-};
+constexpr float NEG_INF = -1e30f;
 
 // Stage rows row0 .. row0 + BT, columns col0 .. col0 + BK of src [n_rows, d]
 // into dst [BT][BLD]; outside n_rows x d reads as 0.
@@ -206,6 +127,201 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, int n_r
         }
     }
 }
+
+// acc[i][j] += q[ty + 16 i] . x[tx + 16 j] over the slice's kmax columns
+// (columns past d are staged as 0): the scores' one piece of arithmetic,
+// k in order, one FFMA each.
+__device__ __forceinline__ void tile_scores(const float* Q, const float* X, int kmax, int tx,
+                                            int ty, float (&acc)[4][4]) {
+    for (int k = 0; k < kmax; k += 4) {
+        float4 qa[4], xb[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[i] = *reinterpret_cast<const float4*>(Q + (ty + 16 * i) * BLD + k);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) xb[j] = *reinterpret_cast<const float4*>(X + (tx + 16 * j) * BLD + k);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                acc[i][j] = fmaf(qa[i].x, xb[j].x, acc[i][j]);
+                acc[i][j] = fmaf(qa[i].y, xb[j].y, acc[i][j]);
+                acc[i][j] = fmaf(qa[i].z, xb[j].z, acc[i][j]);
+                acc[i][j] = fmaf(qa[i].w, xb[j].w, acc[i][j]);
+            }
+    }
+}
+
+// A thread's place in a 64 x 64 tile: a warp is 8 x 4 threads, so that a
+// float4 load of either operand is one shared-memory wavefront; the 16
+// threads of a row (one ty) are lanes ty % 4 * 8 .. + 7 of warps 2 (ty / 4)
+// and 2 (ty / 4) + 1.
+__device__ __forceinline__ void tile_place(int& tx, int& ty) {
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    tx = lane % 8 + 8 * (warp % 2);
+    ty = lane / 8 + 4 * (warp / 2);
+}
+
+// -- K5 -----------------------------------------------------------------------
+
+struct Fwd {
+    const float* q;
+    const float* x;
+    int b, n, d;
+    float tau;
+    int w;        // item tiles per split
+    int splits;   // ceil(ceil(N / BT) / w)
+    float* part;  // [splits][B] (max, sum) pairs
+    float* lse;
+    int vec;      // d % 4 == 0 and q, x 16-byte aligned
+};
+
+// shared memory: d <= BK keeps the query tile and two item stages; above,
+// two stages of (query slice, item slice)
+size_t fwd_smem_bytes(int d) { return static_cast<size_t>(d > BK ? 4 : 3) * BT * BLD * sizeof(float); }
+
+// (m, s) <- the logsumexp pair of (m, s) and (om, os): max, then the sums
+// rescaled to it (a column that was never seen has m = -1e30 and s = 0)
+__device__ __forceinline__ void merge(float& m, float& s, float om, float os) {
+    const float nm = fmaxf(m, om);
+    s = s * expf(m - nm) + os * expf(om - nm);
+    m = nm;
+}
+
+__global__ void __launch_bounds__(BTHREADS, 2) lse_fwd_kernel(const Fwd a) {
+    extern __shared__ __align__(16) float fwd_smem[];
+    const int ns = (a.d + BK - 1) / BK;  // d slices
+    const int split = blockIdx.x, qt = blockIdx.y;
+    const int nx = (a.n + BT - 1) / BT;
+    const int t0 = split * a.w, t1 = min(t0 + a.w, nx);
+    const int q0 = qt * BT;
+    int tx, ty;
+    tile_place(tx, ty);
+    const bool vec = a.vec != 0;
+    // d <= BK: the query tile at 0, item stages at 1, 2; above: stage buf
+    // holds its query slice at 2 buf and its item slice at 2 buf + 1
+    auto qs = [&](int buf) { return fwd_smem + (ns == 1 ? 0 : 2 * buf * BT * BLD); };
+    auto xs = [&](int buf) { return fwd_smem + (ns == 1 ? 1 + buf : 2 * buf + 1) * BT * BLD; };
+    const int stages = (t1 - t0) * ns;  // (item tile, d slice) in order
+    auto issue = [&](int k) {
+        const int t = t0 + k / ns, s = k % ns, buf = k & 1;
+        if (ns > 1 || k == 0) stage_rows(qs(buf), a.q, a.b, q0, s * BK, a.d, vec);
+        stage_rows(xs(buf), a.x, a.n, t * BT, s * BK, a.d, vec);
+        cp_async_commit();
+    };
+
+    float m[4], sum[4];  // rows ty + 16 i over this thread's columns so far
+#pragma unroll
+    for (int i = 0; i < 4; ++i) m[i] = NEG_INF, sum[i] = 0.f;
+    float acc[4][4];
+    issue(0);
+    for (int k = 0; k < stages; ++k) {
+        if (k + 1 < stages) {
+            issue(k + 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();  // stage k is in
+        const int t = t0 + k / ns, s = k % ns;
+        if (s == 0) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+        }
+        tile_scores(qs(k & 1), xs(k & 1), min(BK, a.d - s * BK), tx, ty, acc);
+        __syncthreads();  // stage k's readers are done before it is refilled
+        if (s != ns - 1) continue;
+        // fold the tile's columns tx + 16 j into the running pairs
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            float sc[4];
+            float tile_max = NEG_INF;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const bool valid = t * BT + tx + 16 * j < a.n;
+                sc[j] = valid ? acc[i][j] / a.tau : NEG_INF;
+                tile_max = fmaxf(tile_max, sc[j]);
+            }
+            const float new_m = fmaxf(m[i], tile_max);
+            float add = 0.f;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                if (t * BT + tx + 16 * j < a.n) add += expf(sc[j] - new_m);
+            }
+            sum[i] = sum[i] * expf(m[i] - new_m) + add;
+            m[i] = new_m;
+        }
+    }
+
+    // the 16 threads of a row: a butterfly over the 8 lanes of each warp
+    // (both partners compute the same merge, so every lane agrees), then
+    // the odd warp's pair into the even warp's, through shared memory
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int off = 1; off < 8; off <<= 1) {
+            const float om = __shfl_xor_sync(0xffffffffu, m[i], off);
+            const float os = __shfl_xor_sync(0xffffffffu, sum[i], off);
+            merge(m[i], sum[i], om, os);
+        }
+    }
+    float* pair = fwd_smem;  // [BT][2]: the odd warps' pairs (every stage is read)
+    const int warp = threadIdx.x / 32;
+    const bool lead = threadIdx.x % 8 == 0;
+    if (lead && warp % 2 == 1) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            pair[2 * (ty + 16 * i)] = m[i];
+            pair[2 * (ty + 16 * i) + 1] = sum[i];
+        }
+    }
+    __syncthreads();
+    if (!lead || warp % 2 == 1) return;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int row = q0 + ty + 16 * i;
+        merge(m[i], sum[i], pair[2 * (ty + 16 * i)], pair[2 * (ty + 16 * i) + 1]);
+        if (row < a.b)
+            reinterpret_cast<float2*>(a.part)[(size_t)split * a.b + row] = make_float2(m[i], sum[i]);
+    }
+}
+
+// K5's second launch: lse[row] = m + log(s) of the row's split pairs merged
+// in split order. One thread per query row.
+__global__ void __launch_bounds__(BTHREADS) lse_fwd_combine_kernel(const Fwd a) {
+    const int row = blockIdx.x * BTHREADS + threadIdx.x;
+    if (row >= a.b) return;
+    const float2* p = reinterpret_cast<const float2*>(a.part) + row;
+    float2 first = __ldcg(p);
+    float m = first.x, s = first.y;
+    for (int t = 1; t < a.splits; ++t) {
+        const float2 v = __ldcg(p + (size_t)t * a.b);
+        merge(m, s, v.x, v.y);
+    }
+    a.lse[row] = m + logf(s);
+}
+
+// -- K6 -----------------------------------------------------------------------
+
+size_t bwd_smem_bytes(int d) {
+    const int stages = d > BK ? 2 : 1;
+    return static_cast<size_t>(2 * stages + 2) * BT * BLD * sizeof(float);
+}
+
+struct Bwd {
+    const float* q;
+    const float* x;
+    const float* lse;
+    const float* g;
+    int b, n, d;
+    float tau;
+    float* dq;
+    float* dx;
+    float* dq_part;  // [B-tiles][N-tiles][BT][d]
+    float* dx_part;  // [N-tiles][B-tiles][BT][d]
+    int vec;         // d % 4 == 0 and every pointer 16-byte aligned
+};
 
 // out[r][c] = sum_j p[r][j] * v[j][c] for the thread's rows ty + 16 i and
 // columns 4 tx .. + 3, j < jmax (p is 0 past the tile's valid columns).
@@ -265,10 +381,8 @@ __global__ void __launch_bounds__(BTHREADS, 2) lse_bwd_kernel(const Bwd a) {
 
     const int xt = blockIdx.x, qt = blockIdx.y, nx = gridDim.x, nq = gridDim.y;
     const int q0 = qt * BT, x0 = xt * BT;
-    // a warp is 8 x 4 threads, so that a float4 load of either operand is
-    // one shared-memory wavefront
-    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-    const int tx = lane % 8 + 8 * (warp % 2), ty = lane / 8 + 4 * (warp / 2);
+    int tx, ty;
+    tile_place(tx, ty);
     const bool vec = a.vec != 0;
 
     auto issue = [&](int s, int buf) {
@@ -290,23 +404,7 @@ __global__ void __launch_bounds__(BTHREADS, 2) lse_bwd_kernel(const Bwd a) {
         __syncthreads();
         const float* Q = qs(s & 1);
         const float* X = xs(s & 1);
-        const int kmax = min(BK, a.d - s * BK);  // columns past d are staged as 0
-        for (int k = 0; k < kmax; k += 4) {
-            float4 qa[4], xb[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) qa[i] = *reinterpret_cast<const float4*>(Q + (ty + 16 * i) * BLD + k);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) xb[j] = *reinterpret_cast<const float4*>(X + (tx + 16 * j) * BLD + k);
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    acc[i][j] = fmaf(qa[i].x, xb[j].x, acc[i][j]);
-                    acc[i][j] = fmaf(qa[i].y, xb[j].y, acc[i][j]);
-                    acc[i][j] = fmaf(qa[i].z, xb[j].z, acc[i][j]);
-                    acc[i][j] = fmaf(qa[i].w, xb[j].w, acc[i][j]);
-                }
-        }
+        tile_scores(Q, X, min(BK, a.d - s * BK), tx, ty, acc);
         __syncthreads();
     }
     if (ns > 1) issue(0, 0);  // dq and dx walk the slices again; the first comes in now
@@ -403,15 +501,34 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 // at most lse_max_d(); the wrapper checks both.
 extern "C" int lse_max_d() { return 512; }
 
-// K6's tile (BT rows of q and of x): the wrapper sizes the workspace with it.
-extern "C" int lse_bwd_tile() { return BT; }
+// The tile (BT rows of q and of x): the wrappers size K5's splits and K6's
+// workspace with it.
+extern "C" int lse_tile() { return BT; }
 
-extern "C" int lse_fwd_f32(const float* q, const float* x, int b, int n, int d, float tau,
-                           float* lse, void* stream) {
+// K5's blocks that one SM holds at once (0 if the runtime cannot say): the
+// wrapper's plan fits one wave of lse_fwd_kernel from it.
+extern "C" int lse_fwd_blocks_per_sm(int d) {
+    const size_t smem = fwd_smem_bytes(d);
+    int blocks = 0;
+    if (prepare(lse_fwd_kernel, smem) != 0 ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, lse_fwd_kernel, BTHREADS, smem) !=
+            cudaSuccess)
+        return 0;
+    return blocks;
+}
+
+// K5: lse [B], two launches: the (query tile, split) blocks, then the
+// combine. part holds splits x B x 2 floats; splits = ceil(ceil(N / BT) / w).
+extern "C" int lse_fwd_f32(const float* q, const float* x, int b, int n, int d, float tau, int w,
+                           int splits, float* part, float* lse, void* stream) {
     const size_t smem = fwd_smem_bytes(d);
     if (int err = prepare(lse_fwd_kernel, smem)) return err;
-    lse_fwd_kernel<<<(b + TO - 1) / TO, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        q, x, b, n, d, tau, lse);
+    const bool vec = d % 4 == 0 && aligned16(q) && aligned16(x);
+    const Fwd a{q, x, b, n, d, tau, w, splits, part, lse, vec ? 1 : 0};
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    lse_fwd_kernel<<<dim3(splits, (b + BT - 1) / BT), BTHREADS, smem, s>>>(a);
+    if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+    lse_fwd_combine_kernel<<<(b + BTHREADS - 1) / BTHREADS, BTHREADS, 0, s>>>(a);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,5 @@
 // Asynchronous global -> shared copies (cp.async, sm_80 and later) for the
-// port's tiled kernels. Each copy moves `size` bytes (4 or 16) and reads
+// port's tiled kernels. Each copy moves `size` bytes (4, 8 or 16) and reads
 // only `bytes` of them from global memory, filling the rest of the
 // destination with zeros: `bytes` 0 zero-fills the whole copy and reads
 // nothing, which is how a tile's ragged edge is masked. A thread sees its
@@ -12,6 +12,12 @@
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int bytes) {
     const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+                 "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem, int bytes) {
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(gmem),
                  "r"(bytes));
 }
 

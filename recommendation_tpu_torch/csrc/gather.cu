@@ -23,46 +23,67 @@
 // P1 replaces no TPU kernel. It is the bucket pull that the JAX package
 // leaves to XLA (`pull` :461-486, `pull_rowspace` :563-607,
 // `_gather_sum_rowspace` :610-616): per bucket a [rows, cap, d] gather and a
-// sum over cap. Here every bucket is one flat table of slot indices with a
-// row pointer, and one launch computes
+// sum over cap. Here every bucket is one flat table of slot indices, and one
+// launch computes, for every row r < n_out,
 //
-//     out[r, :] = post[r] * sum_{s in [row_ptr[r], row_ptr[r+1])} val[s] * (src[idx[s], :] + add[idx[s], :])
+//     y[r, :] = post[r] * sum_{s in row r's slots} val[s] * (src[idx[s], :] + add[idx[s], :])
+//     total[r, :] = (acc[r, :] + y[r, :]) * final[r]
 //
-// for every row r < n_out, in f32, with `val`, `post` and `add` optional and
-// `src` f32 or bf16 (widened exactly). Slots whose index equals `skip` are
-// left out: the caller passes the row that is zero in `src` and `add` (the
-// row-space zero row), so leaving them out changes no sum. What bounds it:
-// bytes again, per slot its index (and value) and its source row, plus the
-// [n_out, d] output. Design: a warp per work item, and a work item is a row
-// or, for a row of more than CHUNK slots, a CHUNK-slot piece of it (a
-// power-law graph's hub rows hold 10^4 slots, and a warp per row left the
-// launch waiting on them: 1.2 ms for a layer whose bytes take 0.15 ms on an
-// H100). The warp reads 32 slot indices (and values) at once, coalesced, and
-// broadcasts them with shuffles; lanes run across d with 16-byte loads, and
-// where a row needs fewer than 32 lanes (d = 64 in f32 needs 16) the warp
-// splits into groups that take alternate slots, four slots a group in
-// flight; partial sums stay in registers and the groups combine by shuffles.
-// A split row's pieces write their partial sums to scratch; the warp that
-// finishes the row's last piece (a counter per row, after a memory fence)
-// adds them in piece order. Every float sum has a fixed order whichever warp
-// finishes last, so a call repeats bit for bit; the only atomic is the
-// integer counter. The products and sums are rounded separately (no FMA),
-// as the plain version's gather, multiply and sum are.
+// in f32, with `val`, `post`, `add`, `acc` and `final` optional (y alone
+// when neither acc nor final is given, else total, and y beside it where
+// the caller asks) and `src` f32 or bf16 (widened exactly). The epilogue is the separable
+// chain's running sum and last scaling (recommendation_tpu/graph/
+// bucketed.py:654-655, :687-688), each product and sum rounded once (no
+// FMA), as the plain version's elementwise operations are. Slots whose index
+// equals `skip` are left out: the caller passes the row that is zero in
+// `src` and `add` (the row-space zero row), so leaving them out changes no
+// sum.
+//
+// What bounds it: bytes. A layer of the bench's large graph (144,871 rows,
+// 2.55M slots, 1.8M live, d = 64 f32) reads 10 MB of slot indices and writes
+// 37 MB, and gathers 1.8M source rows of 256 bytes, 461 MB, from a 37 MB
+// table: from device memory at 3.35 TB/s that is 0.15 ms, but the table
+// fits the 50 MB L2, which serves a row's later gathers. The design:
+//   * A work list (ops/gather.py::pull_schedule) of items with their slot
+//     ranges: a row, or a CHUNK-slot piece of a longer row (a power-law
+//     graph's hub rows hold 10^4 slots). Consecutive items cover consecutive
+//     slots, so a run of them is one contiguous range of indices.
+//   * Tiles: a block sums a tile of items, two per group of lanes, after
+//     copying the tile's descriptors and slot indices (and values) into
+//     shared memory with cp.async. Blocks are persistent and walk the tiles
+//     with the grid's stride, the next STAGES - 1 tiles' copies in flight
+//     while one sums, so no item waits a round trip to memory for its
+//     indices before its gathers start.
+//   * A group of lanes per item: as many lanes as a row needs for 16-byte
+//     loads, 16 at d = 64 in f32, so a warp carries two items (neighbours
+//     in a bucket, so of one length) and walks them in step. A group keeps
+//     UNROLL source rows in flight.
+//   * The running sum is read and written as streaming data (evict-first
+//     loads and stores): each of its rows is touched once a layer.
+//   * A split row's pieces write their partial sums to scratch; the group
+//     that finishes the row's last piece (a counter per row, zeroed on the
+//     stream ahead of each call, after a memory fence) adds them in piece
+//     order and runs the epilogue. Every float sum has a fixed order
+//     whichever group finishes last, so a call repeats bit for bit; the
+//     only atomic is the integer counter.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 8;   // warps per block
-constexpr int UNROLL = 4;  // slots in flight per group of lanes
+constexpr int UNROLL = 8;  // source rows in flight per item
+constexpr int STAGES = 3;  // tiles in shared memory: the one summed, two in flight
 constexpr int CHUNK = 128; // slots per work item of a split row (ops/gather.py::CHUNK)
 
-// VEC consecutive elements of a row, widened to f32: 16-byte loads where
-// VEC fills them, else one element at a time
+// VEC consecutive elements of a gathered row, widened to f32: 16-byte loads
+// where VEC fills them, else one element at a time
 template <int VEC>
 __device__ __forceinline__ void load_row(const float* p, float (&v)[VEC]) {
     if constexpr (VEC % 4 == 0) {
@@ -97,6 +118,21 @@ __device__ __forceinline__ void load_row(const uint16_t* p, float (&v)[VEC]) {
     }
 }
 
+// VEC f32 of a row read once (the running sum): marked to be evicted first
+template <int VEC>
+__device__ __forceinline__ void load_stream(const float* p, float (&v)[VEC]) {
+    if constexpr (VEC % 4 == 0) {
+#pragma unroll
+        for (int k = 0; k < VEC; k += 4) {
+            const float4 t = __ldcs(reinterpret_cast<const float4*>(p + k));
+            v[k] = t.x; v[k + 1] = t.y; v[k + 2] = t.z; v[k + 3] = t.w;
+        }
+    } else {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) v[k] = __ldcs(p + k);
+    }
+}
+
 // VEC f32 partial sums written by other warps: through L2, past L1
 template <int VEC>
 __device__ __forceinline__ void load_partial(const float* p, float (&v)[VEC]) {
@@ -113,165 +149,312 @@ __device__ __forceinline__ void load_partial(const float* p, float (&v)[VEC]) {
 }
 
 template <int VEC>
-__device__ __forceinline__ void store_row(float* o, const float (&acc)[VEC], float scale) {
+__device__ __forceinline__ void store_row(float* o, const float (&v)[VEC]) {
     if constexpr (VEC % 4 == 0) {
 #pragma unroll
         for (int k = 0; k < VEC; k += 4)
-            *reinterpret_cast<float4*>(o + k) =
-                make_float4(__fmul_rn(acc[k], scale), __fmul_rn(acc[k + 1], scale),
-                            __fmul_rn(acc[k + 2], scale), __fmul_rn(acc[k + 3], scale));
+            *reinterpret_cast<float4*>(o + k) = make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
     } else {
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) o[k] = __fmul_rn(acc[k], scale);
+        for (int k = 0; k < VEC; ++k) o[k] = v[k];
     }
 }
 
-template <typename T, int VEC, bool HAS_VAL, bool HAS_ADD>
-__global__ void __launch_bounds__(WARPS * 32)
-gather_sum_kernel(const T* __restrict__ src, const float* __restrict__ add,
-                  const int* __restrict__ idx, const long long* __restrict__ row_ptr,
-                  const int4* __restrict__ work, int n_work, const float* __restrict__ val,
-                  const float* __restrict__ post, int d, int lanes, int skip,
-                  float* __restrict__ partial, int* __restrict__ count, float* __restrict__ out) {
-    const int lane = threadIdx.x & 31;
-    const int w = blockIdx.x * WARPS + (threadIdx.x >> 5);
-    if (w >= n_work) return;  // the whole warp
-    // row, piece, the row's first partial (split rows), the row's pieces
-    const int4 wk = work[w];
-    const int r = wk.x, piece = wk.y, part = wk.z, pieces = wk.w;
-    const int groups = 32 / lanes;
-    const int g = lane / lanes, l = lane % lanes;
-    const long long start = row_ptr[r] + static_cast<long long>(piece) * CHUNK;
-    const long long end = pieces == 1 ? row_ptr[r + 1]
-                                      : min(start + CHUNK, static_cast<long long>(row_ptr[r + 1]));
-    const int nvec = d / VEC;
-    const float scale = post != nullptr ? post[r] : 1.f;
-
-    for (int c0 = 0; c0 < nvec; c0 += lanes) {
-        const int cv = c0 + l;
-        const bool col_ok = cv < nvec;
-        const size_t col = static_cast<size_t>(cv) * VEC;
-        float acc[VEC];
+template <int VEC>
+__device__ __forceinline__ void store_stream(float* o, const float (&v)[VEC]) {
+    if constexpr (VEC % 4 == 0) {
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
-
-        for (long long base = start; base < end; base += 32) {
-            const int n = static_cast<int>(end - base < 32 ? end - base : 32);
-            const int my_idx = lane < n ? idx[base + lane] : skip;
-            const float my_val = HAS_VAL && lane < n ? val[base + lane] : 0.f;
-            for (int j = 0; j < n; j += groups * UNROLL) {
-                float v[UNROLL][VEC];
-                float wt[UNROLL];
-                bool ok[UNROLL];
+        for (int k = 0; k < VEC; k += 4)
+            __stcs(reinterpret_cast<float4*>(o + k), make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]));
+    } else {
 #pragma unroll
-                for (int u = 0; u < UNROLL; ++u) {
-                    const int jj = j + u * groups + g;
-                    const int s = __shfl_sync(FULL, my_idx, jj & 31);
-                    wt[u] = HAS_VAL ? __shfl_sync(FULL, my_val, jj & 31) : 1.f;
-                    ok[u] = jj < n && s != skip && col_ok;
-                    if (ok[u]) {
-                        const size_t off = static_cast<size_t>(s) * d + col;
-                        load_row<VEC>(src + off, v[u]);
-                        if constexpr (HAS_ADD) {
-                            float a[VEC];
-                            load_row<VEC>(add + off, a);
-#pragma unroll
-                            for (int k = 0; k < VEC; ++k) v[u][k] = __fadd_rn(v[u][k], a[k]);
-                        }
-                    }
-                }
-#pragma unroll
-                for (int u = 0; u < UNROLL; ++u) {
-                    if (!ok[u]) continue;
-#pragma unroll
-                    for (int k = 0; k < VEC; ++k)
-                        acc[k] = __fadd_rn(acc[k], HAS_VAL ? __fmul_rn(wt[u], v[u][k]) : v[u][k]);
-                }
-            }
-        }
-        // combine the groups: a fixed butterfly, so the order is the same every call
-        for (int off = lanes; off < 32; off <<= 1) {
-#pragma unroll
-            for (int k = 0; k < VEC; ++k) acc[k] = __fadd_rn(acc[k], __shfl_xor_sync(FULL, acc[k], off));
-        }
-        if (g == 0 && col_ok) {
-            if (pieces == 1)
-                store_row<VEC>(out + static_cast<size_t>(r) * d + col, acc, scale);
-            else
-                store_row<VEC>(partial + static_cast<size_t>(part + piece) * d + col, acc, 1.f);
-        }
-    }
-    if (pieces == 1) return;
-
-    // a split row: the warp that finishes its last piece adds the pieces'
-    // partial sums in piece order; every lane's partial is fenced before the
-    // count moves
-    __threadfence();
-    __syncwarp();
-    int done = 0;
-    if (lane == 0) done = atomicAdd(count + part, 1);
-    done = __shfl_sync(FULL, done, 0);
-    if (done != pieces - 1) return;
-    __threadfence();
-    if (g != 0) return;
-    for (int c0 = 0; c0 < nvec; c0 += lanes) {
-        const int cv = c0 + l;
-        if (cv >= nvec) break;
-        const size_t col = static_cast<size_t>(cv) * VEC;
-        float acc[VEC], p[VEC];
-        load_partial<VEC>(partial + static_cast<size_t>(part) * d + col, acc);
-        for (int c = 1; c < pieces; ++c) {
-            load_partial<VEC>(partial + static_cast<size_t>(part + c) * d + col, p);
-#pragma unroll
-            for (int k = 0; k < VEC; ++k) acc[k] = __fadd_rn(acc[k], p[k]);
-        }
-        store_row<VEC>(out + static_cast<size_t>(r) * d + col, acc, scale);
+        for (int k = 0; k < VEC; ++k) __stcs(o + k, v[k]);
     }
 }
 
-// lanes across d: the smallest power of two that covers d / VEC, at most 32
-int lanes_for(int nvec) {
-    int lanes = 1;
-    while (lanes < nvec && lanes < 32) lanes <<= 1;
-    return lanes;
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
-
-struct Sum {  // one P1 call's operands (add, val, post, partial, count may be null)
+struct Sum {  // one P1 call's operands (add, val, post, acc, final, partial, count, out, total may be null)
+    const void* src;
     const float* add;
     const int* idx;
-    const long long* row_ptr;
-    const int4* work;
+    const int4* work;              // [n_work] (row, piece, the row's first partial, the row's pieces)
+    const long long* work_start;   // [n_work + 1] each item's first slot
     int n_work;
     const float* val;
     const float* post;
+    const float* acc;
+    const float* final_;
     int d;
     int skip;
     float* partial;
     int* count;
-    float* out;
+    float* out;    // y
+    float* total;  // (acc + y) * final
 };
 
-template <typename T, int VEC, bool HAS_VAL, bool HAS_ADD>
-int launch_sum(const T* src, const Sum& a, cudaStream_t stream) {
-    const int blocks = (a.n_work + WARPS - 1) / WARPS;
-    gather_sum_kernel<T, VEC, HAS_VAL, HAS_ADD><<<blocks, WARPS * 32, 0, stream>>>(
-        src, a.add, a.idx, a.row_ptr, a.work, a.n_work, a.val, a.post, a.d, lanes_for(a.d / VEC),
-        a.skip, a.partial, a.count, a.out);
+// The epilogue of row r at columns col .. col + VEC: y = post * sum, then
+// total = (acc + y) * final, each rounded once
+template <int VEC>
+__device__ __forceinline__ void finish(const Sum& a, int r, size_t col, const float (&sum)[VEC],
+                                       float post, float fin) {
+    const size_t off = static_cast<size_t>(r) * a.d + col;
+    float y[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) y[k] = __fmul_rn(sum[k], post);
+    if (a.out != nullptr) store_row<VEC>(a.out + off, y);
+    if (a.total == nullptr) return;
+    if (a.acc != nullptr) {
+        float in[VEC];
+        load_stream<VEC>(a.acc + off, in);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) y[k] = __fadd_rn(in[k], y[k]);
+    }
+    if (a.final_ != nullptr) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) y[k] = __fmul_rn(y[k], fin);
+    }
+    store_stream<VEC>(a.total + off, y);
+}
+
+// A tile: the work items that one block sums between two barriers, two per
+// group of lanes, with its slot indices (and values) and its rows' scales
+// staged in shared memory
+template <int LANES, bool HAS_VAL>
+struct Tile {
+    static constexpr int GROUPS = WARPS * 32 / LANES;
+    static constexpr int ITEMS = 2 * GROUPS;
+    static constexpr int SLOTS = ITEMS * CHUNK;  // an item holds at most CHUNK slots
+    int4 work[ITEMS];
+    long long start[ITEMS + 1];
+    float post[ITEMS];  // the rows of a tile are consecutive, at most one an item
+    float final_[ITEMS];
+    int idx[SLOTS];
+    float val[HAS_VAL ? SLOTS : 1];
+};
+
+// Where tile t's copies come from: its slot range [lo, hi) and its rows
+// [r0, r1], read a stage ahead of the copy
+struct TileRange {
+    long long lo = 0, hi = 0;
+    int r0 = 0, r1 = 0;
+};
+
+// Stage a tile into shared memory: its descriptors, its rows' scales and
+// its slots, one 4-byte copy a slot
+template <int LANES, bool HAS_VAL>
+__device__ __forceinline__ void stage_tile(const Sum& a, int t, const TileRange& rg,
+                                           Tile<LANES, HAS_VAL>& buf) {
+    using T = Tile<LANES, HAS_VAL>;
+    const int first = t * T::ITEMS, count = min(T::ITEMS, a.n_work - first);
+    const int rows = rg.r1 - rg.r0 + 1;
+    for (int e = threadIdx.x; e <= count; e += WARPS * 32) {
+        if (e < count) cp_async16(&buf.work[e], a.work + first + e, 16);
+        cp_async8(&buf.start[e], a.work_start + first + e, 8);
+        if (e < rows && a.post != nullptr) cp_async4(&buf.post[e], a.post + rg.r0 + e, 4);
+        if (e < rows && a.final_ != nullptr) cp_async4(&buf.final_[e], a.final_ + rg.r0 + e, 4);
+    }
+    const int n = static_cast<int>(rg.hi - rg.lo);
+    for (int e = threadIdx.x; e < n; e += WARPS * 32) {
+        cp_async4(&buf.idx[e], a.idx + rg.lo + e, 4);
+        if constexpr (HAS_VAL) cp_async4(&buf.val[e], a.val + rg.lo + e, 4);
+    }
+}
+
+// LANES lanes per item (16 or 32). Persistent blocks walk the tiles with
+// the grid's stride; the next STAGES - 1 tiles' copies are in flight while
+// one sums.
+template <typename T, int VEC, int LANES, bool HAS_VAL, bool HAS_ADD>
+__global__ void __launch_bounds__(WARPS * 32)
+gather_sum_kernel(const Sum a) {
+    using TileT = Tile<LANES, HAS_VAL>;
+    extern __shared__ __align__(16) unsigned char tile_smem[];
+    TileT* bufs = reinterpret_cast<TileT*>(tile_smem);  // STAGES of them
+    const int lane = threadIdx.x & 31, l = lane % LANES;
+    const int g = threadIdx.x / LANES;  // group of the block
+    const unsigned gmask = LANES == 32 ? FULL : ((1u << LANES) - 1) << (lane / LANES * LANES);
+    const int nvec = a.d / VEC;
+    const T* src = static_cast<const T*>(a.src);
+    const int n_tiles = (a.n_work + TileT::ITEMS - 1) / TileT::ITEMS;
+    auto range = [&](int t) {
+        TileRange rg;
+        if (t < n_tiles) {
+            const int first = t * TileT::ITEMS, last = min(first + TileT::ITEMS, a.n_work) - 1;
+            rg.lo = a.work_start[first];
+            rg.hi = a.work_start[last + 1];
+            rg.r0 = a.work[first].x;
+            rg.r1 = a.work[last].x;
+        }
+        return rg;
+    };
+
+    int t = blockIdx.x;
+    if (t >= n_tiles) return;
+    const int step = gridDim.x;
+#pragma unroll
+    for (int k = 0; k < STAGES - 1; ++k) {
+        const int tk = t + k * step;
+        if (tk < n_tiles) stage_tile(a, tk, range(tk), bufs[k]);
+        cp_async_commit();
+    }
+    TileRange next = range(t + (STAGES - 1) * step);
+    for (int it = 0; t < n_tiles; t += step, ++it) {
+        const int tn = t + (STAGES - 1) * step;
+        if (tn < n_tiles) stage_tile(a, tn, next, bufs[(it + STAGES - 1) % STAGES]);
+        cp_async_commit();
+        next = range(tn + step);  // read now, staged next round
+        cp_async_wait<STAGES - 1>();
+        __syncthreads();  // tile t is in
+
+        const TileT& buf = bufs[it % STAGES];
+        const int count = min(TileT::ITEMS, a.n_work - t * TileT::ITEMS);
+        for (int k = 0; k < 2; ++k) {
+            const int i = g + k * TileT::GROUPS;
+            const bool valid = i < count;
+            const int4 wk = valid ? buf.work[i] : make_int4(0, 0, 0, 1);
+            const int r = wk.x, piece = wk.y, part = wk.z, pieces = wk.w;
+            const int off = valid ? static_cast<int>(buf.start[i] - buf.start[0]) : 0;
+            const int n = valid ? static_cast<int>(buf.start[i + 1] - buf.start[i]) : 0;
+            const int row = r - buf.work[0].x;  // the tile's rows are staged from its first
+            const float post = valid && a.post != nullptr ? buf.post[row] : 1.f;
+            const float fin = valid && a.final_ != nullptr ? buf.final_[row] : 1.f;
+            int n_max = n;  // the warp's longest item: its groups walk in step
+#pragma unroll
+            for (int o = LANES; o < 32; o <<= 1) n_max = max(n_max, __shfl_xor_sync(FULL, n_max, o));
+
+            for (int c0 = 0; c0 < nvec; c0 += LANES) {
+                const int cv = c0 + l;
+                const bool col_ok = cv < nvec;
+                const size_t col = static_cast<size_t>(cv) * VEC;
+                float acc[VEC];
+#pragma unroll
+                for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
+                for (int j = 0; j < n_max; j += UNROLL) {
+                    float v[UNROLL][VEC];
+                    float wt[UNROLL];
+                    bool ok[UNROLL];
+#pragma unroll
+                    for (int u = 0; u < UNROLL; ++u) {
+                        const int jj = j + u;
+                        const bool in = jj < n;
+                        const int s = in ? buf.idx[off + jj] : a.skip;
+                        wt[u] = HAS_VAL && in ? buf.val[off + jj] : 1.f;
+                        ok[u] = in && s != a.skip && col_ok;
+                        if (ok[u]) {
+                            const size_t offs = static_cast<size_t>(s) * a.d + col;
+                            load_row<VEC>(src + offs, v[u]);
+                            if constexpr (HAS_ADD) {
+                                float ad[VEC];
+                                load_row<VEC>(a.add + offs, ad);
+#pragma unroll
+                                for (int q = 0; q < VEC; ++q) v[u][q] = __fadd_rn(v[u][q], ad[q]);
+                            }
+                        }
+                    }
+#pragma unroll
+                    for (int u = 0; u < UNROLL; ++u) {
+                        if (!ok[u]) continue;
+#pragma unroll
+                        for (int q = 0; q < VEC; ++q)
+                            acc[q] = __fadd_rn(acc[q], HAS_VAL ? __fmul_rn(wt[u], v[u][q]) : v[u][q]);
+                    }
+                }
+                if (valid && col_ok) {
+                    if (pieces == 1)
+                        finish<VEC>(a, r, col, acc, post, fin);
+                    else
+                        store_row<VEC>(a.partial + static_cast<size_t>(part + piece) * a.d + col, acc);
+                }
+            }
+
+            if (valid && pieces > 1) {
+                // a split row: the group that finishes its last piece adds
+                // the pieces' partial sums in piece order; every lane's
+                // partial is fenced before the count moves
+                __threadfence();
+                __syncwarp(gmask);
+                int done = 0;
+                if (l == 0) done = atomicAdd(a.count + part, 1);
+                done = __shfl_sync(gmask, done, lane / LANES * LANES);
+                if (done == pieces - 1) {
+                    __threadfence();
+                    for (int c0 = 0; c0 < nvec; c0 += LANES) {
+                        const int cv = c0 + l;
+                        if (cv >= nvec) break;
+                        const size_t col = static_cast<size_t>(cv) * VEC;
+                        float acc[VEC], p[VEC];
+                        load_partial<VEC>(a.partial + static_cast<size_t>(part) * a.d + col, acc);
+                        for (int c = 1; c < pieces; ++c) {
+                            load_partial<VEC>(a.partial + static_cast<size_t>(part + c) * a.d + col, p);
+#pragma unroll
+                            for (int q = 0; q < VEC; ++q) acc[q] = __fadd_rn(acc[q], p[q]);
+                        }
+                        finish<VEC>(a, r, col, acc, post, fin);
+                    }
+                }
+            }
+            __syncwarp();  // the groups meet again before the next item's shuffle
+        }
+        __syncthreads();  // tile t's stage is read before it is refilled
+    }
+}
+
+bool aligned16(const void* p) { return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+// Blocks of one instantiation that the card holds at once
+template <typename Kernel>
+int resident_blocks(Kernel kernel, size_t smem) {
+    int dev = 0, per_sm = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WARPS * 32, smem) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+        return 0;
+    return per_sm * sms;
+}
+
+template <typename T, int VEC, int LANES, bool HAS_VAL, bool HAS_ADD>
+int launch_sum(const Sum& a, cudaStream_t stream) {
+    auto kernel = gather_sum_kernel<T, VEC, LANES, HAS_VAL, HAS_ADD>;
+    constexpr size_t smem = STAGES * sizeof(Tile<LANES, HAS_VAL>);
+    static int resident[64] = {};  // per device ordinal, 0 until asked
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+    if (resident[dev] == 0) {
+        if (cudaError_t err = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)))
+            return static_cast<int>(err);
+        resident[dev] = resident_blocks(kernel, smem);
+    }
+    if (resident[dev] <= 0) return static_cast<int>(cudaErrorLaunchOutOfResources);
+    const int tiles = (a.n_work + Tile<LANES, HAS_VAL>::ITEMS - 1) / Tile<LANES, HAS_VAL>::ITEMS;
+    kernel<<<tiles < resident[dev] ? tiles : resident[dev], WARPS * 32, smem, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int VEC>
-int dispatch_sum(const T* src, const Sum& a, cudaStream_t stream) {
+template <typename T, int VEC, int LANES>
+int dispatch_flags(const Sum& a, cudaStream_t stream) {
     if constexpr (std::is_same<T, float>::value) {  // a second source is f32-only
         if (a.add != nullptr) {
-            return a.val != nullptr ? launch_sum<T, VEC, true, true>(src, a, stream)
-                                    : launch_sum<T, VEC, false, true>(src, a, stream);
+            return a.val != nullptr ? launch_sum<T, VEC, LANES, true, true>(a, stream)
+                                    : launch_sum<T, VEC, LANES, false, true>(a, stream);
         }
     }
-    return a.val != nullptr ? launch_sum<T, VEC, true, false>(src, a, stream)
-                            : launch_sum<T, VEC, false, false>(src, a, stream);
+    return a.val != nullptr ? launch_sum<T, VEC, LANES, true, false>(a, stream)
+                            : launch_sum<T, VEC, LANES, false, false>(a, stream);
+}
+
+// lanes per item: 16 where a row is at most 16 loads wide (d = 64 in f32,
+// 128 in bf16, and every narrower row), else a warp
+template <typename T, int VEC>
+int dispatch_sum(const Sum& a, cudaStream_t stream) {
+    return a.d / VEC <= 16 ? dispatch_flags<T, VEC, 16>(a, stream)
+                           : dispatch_flags<T, VEC, 32>(a, stream);
+}
+
+// lanes across a row for K7: the smallest power of two that covers its
+// units, at most 32
+int lanes_for(int units) {
+    int lanes = 1;
+    while (lanes < units && lanes < 32) lanes <<= 1;
+    return lanes;
 }
 
 template <typename U>
@@ -320,32 +503,30 @@ extern "C" int gather_rows(const void* x, const int* idx, long long n_idx, long 
     return launch_rows<unsigned short>(x, idx, n_idx, row_bytes, out, s);
 }
 
-// P1 with an f32 source. work is i32 [n_work, 4] (ops/gather.py::pull_schedule);
-// partial is f32 [n_partials, d] scratch and count i32 [n_partials] zeros,
-// both null when no row is split; add, val and post may be null.
-extern "C" int gather_sum_f32(const float* src, const float* add, const int* idx,
-                              const long long* row_ptr, const int* work, int n_work,
-                              const float* val, const float* post, int d, int skip,
-                              float* partial, int* count, float* out, void* stream) {
-    const Sum a{add, idx, row_ptr, reinterpret_cast<const int4*>(work), n_work, val, post, d,
-                skip, partial, count, out};
+// P1: a memset of the row counters, then one launch. work is i32
+// [n_work, 4] and work_start i64 [n_work + 1] (ops/gather.py::pull_schedule);
+// partial is f32 [n_partials, d] scratch and count i32 [n_partials], both
+// null when no row is split (n_partials 0); add (f32 source only), val,
+// post, acc, final, out and total may be null (out or total is not).
+// src_bf16 says the source holds bf16 bits.
+extern "C" int gather_sum(const void* src, int src_bf16, const float* add, const int* idx,
+                          const int* work, const long long* work_start, int n_work,
+                          const float* val, const float* post, const float* acc,
+                          const float* final_, int d, int skip, float* partial, int* count,
+                          int n_partials, float* out, float* total, void* stream) {
+    const Sum a{src, add, idx, reinterpret_cast<const int4*>(work), work_start, n_work, val, post,
+                acc, final_, d, skip, partial, count, out, total};
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const bool vec = d % 4 == 0 && aligned16(src) && aligned16(out) &&
-                     (add == nullptr || aligned16(add)) && (partial == nullptr || aligned16(partial));
-    return vec ? dispatch_sum<float, 4>(src, a, s) : dispatch_sum<float, 1>(src, a, s);
-}
-
-// P1 with a bf16 source (its bits as uint16); the rest as gather_sum_f32, no add.
-extern "C" int gather_sum_bf16(const uint16_t* src, const int* idx, const long long* row_ptr,
-                               const int* work, int n_work, const float* val, const float* post,
-                               int d, int skip, float* partial, int* count, float* out,
-                               void* stream) {
-    const Sum a{nullptr, idx, row_ptr, reinterpret_cast<const int4*>(work), n_work, val, post, d,
-                skip, partial, count, out};
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const bool vec = d % 8 == 0 && aligned16(src) && aligned16(out) &&
-                     (partial == nullptr || aligned16(partial));
-    return vec ? dispatch_sum<uint16_t, 8>(src, a, s) : dispatch_sum<uint16_t, 1>(src, a, s);
+    if (n_partials > 0) {
+        if (cudaError_t err = cudaMemsetAsync(count, 0, sizeof(int) * n_partials, s))
+            return static_cast<int>(err);
+    }
+    const bool rows16 = aligned16(src) && aligned16(add) && aligned16(acc) && aligned16(partial) &&
+                        aligned16(out) && aligned16(total);
+    if (src_bf16) {
+        return d % 8 == 0 && rows16 ? dispatch_sum<uint16_t, 8>(a, s) : dispatch_sum<uint16_t, 1>(a, s);
+    }
+    return d % 4 == 0 && rows16 ? dispatch_sum<float, 4>(a, s) : dispatch_sum<float, 1>(a, s);
 }
 
 extern "C" const char* gather_error_string(int code) {

@@ -45,6 +45,7 @@ forward's dtype only for int8, so the backward here pulls in the forward's.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import NamedTuple, Optional, Tuple
 
@@ -90,8 +91,8 @@ class BucketedCSR:
     translated to concat rows, structurally dead slots (padding and
     build-time zero edges) pointing at the zero row. ``sep_dst`` and
     ``sep_src_row`` f32[R + 1] (zero-row entry 0) are the separable scales
-    a[dst], b[src] in concat-row order, when the values factor so. ``work``
-    and ``n_partials`` are P1's schedule over the rows
+    a[dst], b[src] in concat-row order, when the values factor so. ``work``,
+    ``work_start`` and ``n_partials`` are P1's schedule over the rows
     (``ops/gather.py::pull_schedule``)."""
 
     caps: Tuple[int, ...]
@@ -102,6 +103,7 @@ class BucketedCSR:
     ridx: Optional[torch.Tensor]
     row_ptr: torch.Tensor
     work: torch.Tensor
+    work_start: torch.Tensor
     n_partials: int
     gather_pos: torch.Tensor
     node_of_row: torch.Tensor
@@ -111,8 +113,18 @@ class BucketedCSR:
     sep_src_row: Optional[torch.Tensor] = None
 
     @property
-    def schedule(self) -> Tuple[torch.Tensor, int]:
-        return self.work, self.n_partials
+    def schedule(self) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        return self.work, self.work_start, self.n_partials
+
+    @functools.cached_property
+    def fold_scales(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(a⊙b, 1/b) per concat row for the separable fold, the zero row's
+        inverse kept at 0: every concat row has degree >= 1, so its source
+        scale is > 0. Computed once per table (a new table, as
+        ``refresh_vals`` makes, computes its own)."""
+        b = self.sep_src_row
+        inv_b = torch.where(b > 0, 1.0 / b, torch.zeros((), device=b.device))
+        return self.sep_dst * b, inv_b
 
     @property
     def total_rows(self) -> int:
@@ -289,7 +301,7 @@ def build_bucketed(rows: np.ndarray, cols: np.ndarray, vals: Optional[np.ndarray
     def put(a):
         return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    work, n_partials = pull_schedule(torch.from_numpy(row_ptr))
+    work, work_start, n_partials = pull_schedule(torch.from_numpy(row_ptr))
     return BucketedCSR(
         caps=caps,
         counts=counts,
@@ -299,6 +311,7 @@ def build_bucketed(rows: np.ndarray, cols: np.ndarray, vals: Optional[np.ndarray
         ridx=None if n_rows != n_cols else put(_flat(ridx, np.int32)),
         row_ptr=put(row_ptr),
         work=work.to(dev),
+        work_start=work_start.to(dev),
         n_partials=n_partials,
         gather_pos=put(gather_pos.astype(np.int32)),
         node_of_row=put(node_of_row.astype(np.int32)),
@@ -411,23 +424,16 @@ def pull_rowspace(csr: BucketedCSR, xp: torch.Tensor, compute_dtype: str = "floa
 
 
 def _gather_sum_rowspace(csr: BucketedCSR, y: torch.Tensor, post: Optional[torch.Tensor] = None,
-                         add: Optional[torch.Tensor] = None, ops: Ops = KERNELS) -> torch.Tensor:
-    """``post ⊙ G(y + add)``: the plain row-space gather + sum (no values)
-    that the separable chain folds its scalings around."""
-    return ops.gsum(y, csr.ridx, csr.row_ptr, post=post, add=add, skip=csr.total_rows,
-                    schedule=csr.schedule)
+                         ops: Ops = KERNELS, **epilogue):
+    """``post ⊙ G(y)``: the plain row-space gather + sum (no values) that
+    the separable chain folds its scalings around, with P1's epilogue
+    (``acc``, ``final``, ``keep_y``: ``ops/gather.py::gather_sum``)."""
+    return ops.gsum(y, csr.ridx, csr.row_ptr, post=post, skip=csr.total_rows,
+                    schedule=csr.schedule, **epilogue)
 
 
 def _folds(csr: BucketedCSR, compute_dtype: str, d: int) -> bool:
     return csr.sep_dst is not None and not packs_bf16(compute_dtype, d)
-
-
-def _fold_scales(csr: BucketedCSR):
-    """(a⊙b, 1/b) per concat row, the zero row's inverse kept at 0: every
-    concat row has degree >= 1, so its source scale is > 0."""
-    b = csr.sep_src_row
-    inv_b = torch.where(b > 0, 1.0 / b, torch.zeros((), device=b.device))
-    return csr.sep_dst * b, inv_b
 
 
 def _to_rowspace(csr: BucketedCSR, x: torch.Tensor, ops: Ops) -> torch.Tensor:
@@ -441,14 +447,19 @@ def _chain_forward(n_layers: int, compute_dtype: str, fwd: BucketedCSR, x: torch
     xp = _to_rowspace(fwd, x, ops)
     if _folds(fwd, compute_dtype, x.shape[1]):
         # y_l = b ⊙ x_l: both scalings fold into one a⊙b per layer,
-        # y_l = (a⊙b) ⊙ G(y_{l-1}), unscaled once at the end
-        ab, inv_b = _fold_scales(fwd)
+        # y_l = (a⊙b) ⊙ G(y_{l-1}), unscaled once at the end. The running
+        # sum acc_y + y_l and the last scaling by 1/b are P1's epilogue.
+        ab, inv_b = fwd.fold_scales
         y = xp * fwd.sep_src_row[:, None]
-        acc_y = torch.zeros_like(y)
-        for _ in range(n_layers):
-            y = _gather_sum_rowspace(fwd, y, post=ab, ops=ops)
-            acc_y = acc_y + y
-        acc = acc_y * inv_b[:, None]
+        acc_y = None  # the first layer's 0 + y_1 is y_1
+        for _ in range(n_layers - 1):
+            if acc_y is None:
+                y = acc_y = _gather_sum_rowspace(fwd, y, post=ab, ops=ops)
+            else:
+                y, acc_y = _gather_sum_rowspace(fwd, y, post=ab, ops=ops, acc=acc_y,
+                                                keep_y=True)
+        acc = (torch.zeros_like(xp) if n_layers == 0 else
+               _gather_sum_rowspace(fwd, y, post=ab, ops=ops, acc=acc_y, final=inv_b))
     else:
         acc = torch.zeros_like(xp)
         cur = xp
@@ -466,12 +477,16 @@ def _chain_backward(n_layers: int, compute_dtype: str, fwd: BucketedCSR, bwd: Bu
     Σ_{l=1..L} (Aᵀ)^l gp = Aᵀ(gp + Aᵀ(gp + ...))."""
     gp = _to_rowspace(fwd, g, KERNELS)
     if _folds(bwd, compute_dtype, g.shape[1]):
-        ab, inv_b = _fold_scales(bwd)
+        # Horner in the fold: z_l = ab ⊙ G(z_{l-1} + gp_b), z_0 = 0. Each
+        # pull's epilogue writes the next one's source w = gp_b + z (the
+        # first is gp_b itself) and the last pull's the scaling by 1/b.
+        ab, inv_b = bwd.fold_scales
         gp_b = gp * bwd.sep_src_row[:, None]
-        z = torch.zeros_like(gp)
-        for _ in range(n_layers):
-            z = _gather_sum_rowspace(bwd, z, post=ab, add=gp_b)
-        s = z * inv_b[:, None]
+        w = gp_b
+        for _ in range(n_layers - 1):
+            w = _gather_sum_rowspace(bwd, w, post=ab, acc=gp_b)
+        s = (torch.zeros_like(gp) if n_layers == 0 else
+             _gather_sum_rowspace(bwd, w, post=ab, final=inv_b))
     else:
         s = torch.zeros_like(gp)
         for _ in range(n_layers):

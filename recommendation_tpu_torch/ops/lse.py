@@ -10,15 +10,20 @@ layer-contrast loss takes its two denominators through it
     p = exp(q·xᵀ/τ − lse) · g ;  dq = p·x/τ ;  dx = pᵀ·q/τ
 
 ``catalog_lse`` launches K5 (``csrc/catalog_lse.cu``) for CUDA tensors and
-runs ``catalog_lse_plain`` for CPU tensors; ``catalog_lse_bwd`` launches
-K6, which takes dq and dx from one pass over the scores (each block a 64 x
-64 tile writing partial sums; ``lse_bwd_workspace`` sizes them) and then
-adds the partials in tile order in a second, combining launch; it runs
+runs ``catalog_lse_plain`` for CPU tensors. K5 cuts the catalog into
+splits of ``w`` 64-row item tiles (``lse_fwd_plan``: the fewest tiles that
+keep the grid within one wave of the card), each block writing one (max,
+sum) pair per query row and split, and a second launch merges the splits
+in split order; ``catalog_lse_split_plain`` is that split arithmetic in
+plain torch, for the tests. ``catalog_lse_bwd`` launches K6, which takes dq
+and dx from one pass over the scores (each block a 64 x 64 tile writing
+partial sums; ``lse_bwd_workspace`` sizes them) and then adds the partials
+in tile order in a second, combining launch; it runs
 ``catalog_lse_bwd_plain`` for CPU tensors. There is no fallback on the card
 and no size threshold: a CUDA input goes through the kernel or the call
 raises. ``catalog_lse.launches`` counts K5's launches and
 ``catalog_lse_bwd.launches`` K6's; ``.launches_per_call`` says how many a
-call makes (1 and 2).
+call makes (2 and 2).
 ``CatalogLSE`` saves ``(q, x, lse)`` as ``_clse_fwd`` does and recomputes
 the scores in the backward.
 
@@ -40,12 +45,44 @@ import ctypes
 
 import torch
 
-BWD_TILE = 64  # csrc/catalog_lse.cu's BT: K6's query and item rows per block
+TILE = 64  # csrc/catalog_lse.cu's BT: K5's and K6's query and item rows per block
 
 
 def catalog_lse_plain(q: torch.Tensor, x: torch.Tensor, tau: float) -> torch.Tensor:
     """logsumexp(q·xᵀ/τ, dim=1) in plain torch, materializing [B, N]."""
     return torch.logsumexp(q @ x.T / tau, dim=1)
+
+
+def catalog_lse_split_plain(q: torch.Tensor, x: torch.Tensor, tau: float,
+                            tiles_per_split: int) -> torch.Tensor:
+    """K5's arithmetic in plain torch: the catalog cut into splits of
+    ``tiles_per_split`` 64-row item tiles, one (max, sum of exp(s − max))
+    pair per query row and split, the pairs merged in split order, then
+    max + log(sum). Used by the tests."""
+    cols = tiles_per_split * TILE
+    m = s = None
+    for c0 in range(0, x.shape[0], cols):
+        scores = q @ x[c0:c0 + cols].T / tau
+        mi = scores.max(dim=1).values
+        si = torch.exp(scores - mi[:, None]).sum(dim=1)
+        if m is None:
+            m, s = mi, si
+            continue
+        nm = torch.maximum(m, mi)
+        s = s * torch.exp(m - nm) + si * torch.exp(mi - nm)
+        m = nm
+    return m + torch.log(s)
+
+
+def lse_fwd_plan(b: int, n: int, slots: int) -> tuple[int, int]:
+    """(w, splits) of K5 for q [b, d] against x [n, d] on a card that holds
+    ``slots`` of its blocks at once: the fewest item tiles per split that
+    keep ceil(b/64) x splits blocks within one wave (one split per query
+    tile when even that takes more). No split is empty."""
+    nq, nx = -(-b // TILE), -(-n // TILE)
+    per_tile = max(1, slots // nq)
+    w = -(-nx // min(nx, per_tile))
+    return w, -(-nx // w)
 
 
 def catalog_lse_bwd_plain(q: torch.Tensor, x: torch.Tensor, tau: float, lse: torch.Tensor,
@@ -83,15 +120,17 @@ def _kernel_lib():
     lib = load("catalog_lse")
     if not getattr(lib, "_typed", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.lse_fwd_f32.argtypes = [ptr, ptr, i32, i32, i32, f32, ptr, ptr]
+        lib.lse_fwd_f32.argtypes = [ptr, ptr, i32, i32, i32, f32, i32, i32, ptr, ptr, ptr]
         lib.lse_fwd_f32.restype = i32
+        lib.lse_fwd_blocks_per_sm.argtypes = [i32]
+        lib.lse_fwd_blocks_per_sm.restype = i32
         lib.lse_bwd_f32.argtypes = [ptr] * 4 + [i32, i32, i32, f32] + [ptr] * 5
         lib.lse_bwd_f32.restype = i32
-        for fn in (lib.lse_max_d, lib.lse_bwd_tile):
+        for fn in (lib.lse_max_d, lib.lse_tile):
             fn.argtypes = []
             fn.restype = i32
-        if lib.lse_bwd_tile() != BWD_TILE:
-            raise RuntimeError(f"catalog_lse.cu's tile {lib.lse_bwd_tile()} is not {BWD_TILE}")
+        if lib.lse_tile() != TILE:
+            raise RuntimeError(f"catalog_lse.cu's tile {lib.lse_tile()} is not {TILE}")
         lib.lse_error_string.argtypes = [i32]
         lib.lse_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -103,6 +142,22 @@ def _launchable(name, lib, q):
         raise ValueError(f"{name}'s kernel takes d <= {lib.lse_max_d()}, got {q.shape[1]}")
 
 
+_SLOTS: dict[tuple[torch.device, bool], int] = {}
+
+
+def _fwd_slots(lib, device: torch.device, d: int) -> int:
+    """K5's blocks that the card holds at once: its SMs times what one SM
+    holds (``lse_fwd_blocks_per_sm``; the shared memory grows past d = 64)."""
+    key = (device, d > TILE)
+    if key not in _SLOTS:
+        with torch.cuda.device(device):
+            per_sm = lib.lse_fwd_blocks_per_sm(d)
+        if per_sm <= 0:
+            raise RuntimeError("catalog_lse.cu: the runtime gave no occupancy for K5")
+        _SLOTS[key] = per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+    return _SLOTS[key]
+
+
 def _raise_on(lib, code, name):
     if code != 0:
         raise RuntimeError(f"{name} kernel launch failed: {lib.lse_error_string(code).decode()}")
@@ -112,25 +167,28 @@ def catalog_lse(q: torch.Tensor, x: torch.Tensor, tau: float) -> torch.Tensor:
     """lse f32[B] = logsumexp(q·xᵀ/τ, dim=1) without materializing [B, N].
 
     ``q`` [B, d] and ``x`` [N, d] are float32, contiguous and on one device.
-    CUDA tensors run K5 (one launch); CPU tensors run ``catalog_lse_plain``."""
+    CUDA tensors run K5 (two launches: the splits' (max, sum) pairs, then
+    their merge in split order); CPU tensors run ``catalog_lse_plain``."""
     _check("catalog_lse", q, x)
     if q.device.type == "cpu":
         return catalog_lse_plain(q, x, tau)
     lib = _kernel_lib()
     _launchable("catalog_lse", lib, q)
     (b, d), n = q.shape, x.shape[0]
+    w, splits = lse_fwd_plan(b, n, _fwd_slots(lib, q.device, d))
     lse = torch.empty(b, dtype=torch.float32, device=q.device)
+    part = torch.empty(splits * b * 2, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.lse_fwd_f32(q.data_ptr(), x.data_ptr(), b, n, d, float(tau), lse.data_ptr(),
-                               stream)
+        code = lib.lse_fwd_f32(q.data_ptr(), x.data_ptr(), b, n, d, float(tau), w, splits,
+                               part.data_ptr(), lse.data_ptr(), stream)
     _raise_on(lib, code, "catalog_lse")
-    catalog_lse.launches += 1
+    catalog_lse.launches += catalog_lse.launches_per_call
     return lse
 
 
 catalog_lse.launches = 0
-catalog_lse.launches_per_call = 1
+catalog_lse.launches_per_call = 2  # the splits, then their merge
 
 
 def catalog_lse_bwd(q: torch.Tensor, x: torch.Tensor, tau: float, lse: torch.Tensor,
@@ -162,9 +220,9 @@ def catalog_lse_bwd(q: torch.Tensor, x: torch.Tensor, tau: float, lse: torch.Ten
 
 def lse_bwd_workspace(b: int, n: int, d: int) -> int:
     """The floats of each of K6's two partial-sum buffers for q [b, d]
-    against x [n, d]: one [BWD_TILE, d] chunk for each pair of a query tile
+    against x [n, d]: one [TILE, d] chunk for each pair of a query tile
     and an item tile."""
-    return -(-b // BWD_TILE) * -(-n // BWD_TILE) * BWD_TILE * d
+    return -(-b // TILE) * -(-n // TILE) * TILE * d
 
 
 catalog_lse_bwd.launches = 0

@@ -239,6 +239,7 @@ def test_pull_rowspace_matches_jax(tiny_data, which, compute_dtype, d):
 
 
 CHAIN_CASES = [("tiny_norm_adj", "float32", 16, 3), ("tiny_norm_adj", "float32", 8, 1),
+               ("tiny_norm_adj", "float32", 8, 0), ("tiny_norm_adj", "float32", 8, 2),
                ("tiny_norm_adj", "bfloat16", 128, 3), ("symmetric", "float32", 8, 2),
                ("symmetric", "bfloat16", 128, 2)]
 
@@ -393,6 +394,50 @@ def test_wrappers_on_cpu_are_the_plain_versions():
         assert torch.equal(gather_sum(x, csr.idx, csr.row_ptr, **kw),
                            gather_sum_plain(x, csr.idx, csr.row_ptr, **kw))
     assert (gather_rows.launches, gather_sum.launches) == before  # the CPU launches nothing
+
+
+@pytest.mark.parametrize("with_acc,with_final,keep_y", [
+    (True, False, True), (True, False, False), (False, True, False), (True, True, False),
+    (True, True, True)], ids=["acc-keep-y", "acc", "final", "acc-final", "acc-final-keep-y"])
+def test_pull_epilogue_equals_the_unfused_composition(with_acc, with_final, keep_y):
+    """``gather_sum_plain``'s epilogue, and the wrapper's on the CPU, is the
+    chain's elementwise operations after the pull, bit for bit: ``acc + y``,
+    ``y · final``, ``(acc + y) · final``, with ``y`` beside it on request."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(50, 7)).astype(np.float32))
+    csr = tb.build_bucketed(*_pattern(rng), 50, 50, device="cpu")
+    n_out = csr.total_rows + 1
+    post = torch.from_numpy(rng.random(n_out).astype(np.float32))
+    acc = torch.from_numpy(rng.normal(size=(n_out, 7)).astype(np.float32)) if with_acc else None
+    final = torch.from_numpy(rng.random(n_out).astype(np.float32)) if with_final else None
+    kw = dict(val=csr.val, post=post, add=x * 2)
+    y = gather_sum_plain(x, csr.idx, csr.row_ptr, **kw)
+    total = y if acc is None else acc + y
+    total = total * final[:, None] if with_final else total
+    want = (y, total) if keep_y else (total,)
+    for fn in (gather_sum_plain, gather_sum):
+        got = fn(x, csr.idx, csr.row_ptr, **kw, acc=acc, final=final, keep_y=keep_y)
+        got = got if keep_y else (got,)
+        assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_pull_schedule_covers_the_slots_in_order():
+    """P1's work list: one item per row and one per 128-slot piece of a
+    longer row, the items' slot ranges back to back from 0 to S, and the
+    split rows' partial sums numbered in row order."""
+    from recommendation_tpu_torch.ops.gather import CHUNK, pull_schedule
+
+    lens = np.array([0, 5, 128, 129, 300, 1, 0])
+    ptr = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)]).astype(np.int64))
+    work, start, n_partials = pull_schedule(ptr)
+    assert work.dtype == torch.int32 and start.dtype == torch.int64
+    assert start.shape == (work.shape[0] + 1,) and start[0] == 0 and start[-1] == lens.sum()
+    rows, piece, first, pieces = work.numpy().T
+    assert rows.tolist() == [0, 1, 2, 3, 3, 4, 4, 4, 5, 6]
+    assert np.array_equal(start[:-1].numpy(), ptr.numpy()[rows] + piece * CHUNK)
+    assert np.all(np.diff(start.numpy()) <= CHUNK) and np.all(np.diff(start.numpy()) >= 0)
+    assert n_partials == 5 and first.tolist() == [-1, -1, -1, 0, 0, 2, 2, 2, -1, -1]
+    assert pieces.tolist() == [1, 1, 1, 2, 2, 3, 3, 3, 1, 1]
 
 
 def _pattern(rng):

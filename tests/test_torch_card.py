@@ -3,12 +3,14 @@ on the card; ``ChainMean``'s gradient on the card; one training step
 through the kernels against the same step through the plain chain. The
 same for NCL's kernels: K3 and K4 (``csrc/chain_mean.cu``), K5 and K6
 (``csrc/catalog_lse.cu``), ``ChainMeanLayer``'s and ``CatalogLSE``'s
-gradients, and one NCL step with the layer contrast at unit weight; K1-K4
-and K6 repeat bit for bit, across their reduction slices and tiles. And for
-the bucketed backend's kernels (``csrc/gather.cu``): K7, the row gather,
-bit for bit; each variant of P1, the bucket pull, against its plain
-version and against itself; ``BucketedChainMean``'s gradient on the card;
-one LightGCN step on a bucketed graph.
+gradients, and one NCL step with the layer contrast at unit weight; K1-K6
+repeat bit for bit, across their reduction slices, tiles and splits (K5 up
+to a 100,000-item catalog). And for the bucketed backend's kernels
+(``csrc/gather.cu``): K7, the row gather, bit for bit; each variant of P1,
+the bucket pull, its epilogue's too, against its plain version and against
+itself; ``BucketedChainMean``'s gradient on the card; one LightGCN step on
+a bucketed graph. Calls on two streams at once equal the same calls in
+turn (the chain's tile counters, P1's piece counters, K5's partials).
 
 These tests need a CUDA device and ``nvcc``; elsewhere they skip. This file
 imports neither JAX nor the JAX package, so it runs where only the port is
@@ -44,6 +46,8 @@ from recommendation_tpu_torch.ops.lse import (
     catalog_lse_bwd,
     catalog_lse_bwd_plain,
     catalog_lse_plain,
+    catalog_lse_split_plain,
+    lse_fwd_plan,
 )
 from recommendation_tpu_torch.ops.prop import (
     ChainMean,
@@ -296,7 +300,7 @@ def test_lse_kernels_match_plain(card, b, n, d):
     dq, dx = catalog_lse_bwd(q, x, 0.1, lse, g)
     torch.cuda.synchronize()
     assert (catalog_lse.launches, catalog_lse_bwd.launches) == (
-        before[0] + 1, before[1] + catalog_lse_bwd.launches_per_call)
+        before[0] + catalog_lse.launches_per_call, before[1] + catalog_lse_bwd.launches_per_call)
     want = catalog_lse_plain(q, x, 0.1)
     assert lse.shape == (b,) and lse.is_cuda
     torch.testing.assert_close(lse, want, **LSE_TOL)
@@ -375,7 +379,8 @@ def test_ncl_step_kernel_vs_plain(card, compute_dtype):
                                          catalog_lse.launches - counts[2],
                                          catalog_lse_bwd.launches - counts[3])))
     (loss_k, g_k, n_k), (loss_p, g_p, n_p) = out
-    assert n_k == (3, 3, 2, 2 * catalog_lse_bwd.launches_per_call) and n_p == (0, 0, 0, 0)
+    assert n_k == (3, 3, 2 * catalog_lse.launches_per_call,
+                   2 * catalog_lse_bwd.launches_per_call) and n_p == (0, 0, 0, 0)
     assert np.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
     dtype = graph.propagation_matrix.dtype
     assert _grads_close(g_k, g_p, dtype)
@@ -486,6 +491,71 @@ def test_lse_backward_across_tiles(card, b, n, d):
         torch.testing.assert_close(got, w, **LSE_GRAD_TOL)
 
 
+@pytest.mark.parametrize("b,n,d", [(2048, 943, 64), (2048, 1675, 64), (37, 700, 24),
+                                   (2048, 100_000, 64), (70, 130, 130)])
+def test_lse_forward_across_splits(card, b, n, d):
+    """K5 at NCL's two step shapes, a ragged one, a 100,000-item catalog (a
+    split of 196 item tiles) and d past one 64-column slice: against the
+    plain version and against its own split arithmetic in plain torch, two
+    calls equal bit for bit, and launches_per_call launches a call."""
+    from recommendation_tpu_torch.ops import lse as lse_mod
+
+    rng = np.random.default_rng(b + n + d)
+    q, x = _unit_rows(card, rng, b, d), _unit_rows(card, rng, n, d)
+    w, splits = lse_fwd_plan(b, n, lse_mod._fwd_slots(lse_mod._kernel_lib(), card, d))
+    before = catalog_lse.launches
+    first, second = catalog_lse(q, x, 0.1), catalog_lse(q, x, 0.1)
+    torch.cuda.synchronize()
+    assert catalog_lse.launches == before + 2 * catalog_lse.launches_per_call
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first, catalog_lse_plain(q, x, 0.1), **LSE_TOL)
+    torch.testing.assert_close(first, catalog_lse_split_plain(q, x, 0.1, w), **LSE_TOL)
+    if n == 100_000:
+        assert w > 1 and splits * b * 2 * 4 <= 1 << 20  # the partials stay small
+
+
+def _two_calls(card, kernel):
+    """Two calls of one kernel on different inputs, as functions."""
+    rng = np.random.default_rng(31)
+    if kernel == "chain":
+        r = _graph(card, "float32").propagation_matrix
+        assert _plan(card, r, 64).slices_u > 1  # the tile counters are used
+        a = _random(card, rng, (r.shape[0], 64), (r.shape[1], 64))
+        b = _random(card, rng, (r.shape[0], 64), (r.shape[1], 64))
+        return [lambda t=t: chain_mean(r, *t, 3) for t in (a, b)]
+    if kernel == "lse":
+        q = [_unit_rows(card, rng, 2048, 64) for _ in range(2)]
+        x = _unit_rows(card, rng, 1675, 64)
+        return [lambda q=q_: [catalog_lse(q, x, 0.1)] for q_ in q]
+    pairs = make_flat_interactions(2000, 4000, 40_000, seed=1)
+    csr = DeviceGraph(ArrayInteraction(pairs, 2000, 4000), backend="bucketed",
+                      device=card).norm_adj.pull
+    assert csr.n_partials > 0  # split rows: the pieces' counters are used
+    srcs = _random(card, rng, *[(csr.total_rows + 1, 64)] * 2)
+    return [lambda y=y: [gather_sum(y, csr.ridx, csr.row_ptr, post=csr.sep_dst,
+                                    skip=csr.total_rows, schedule=csr.schedule)] for y in srcs]
+
+
+@pytest.mark.parametrize("kernel", ["chain", "lse", "pull"])
+def test_calls_on_two_streams_equal_calls_in_turn(card, kernel):
+    """Two calls launched on two streams at once give what the same calls
+    give one after the other on one stream, bit for bit, ten times over:
+    the chain's tile counters, P1's piece counters and K5's partials are
+    not mixed between streams."""
+    fns = _two_calls(card, kernel)
+    want = [fn() for fn in fns]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(card) for _ in fns]
+    for _ in range(10):
+        got = []
+        for fn, stream in zip(fns, streams):
+            with torch.cuda.stream(stream):
+                got.append(fn())
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert all(torch.equal(a, b) for a, b in zip(g, w)), kernel
+
+
 # -- the bucketed backend's kernels: K7 (row gather), P1 (bucket pull) --------
 
 
@@ -518,45 +588,58 @@ def bucket_adj():
                        device="cuda").norm_adj
 
 
-P1_VARIANTS = ["separable", "value", "add", "value_add", "bf16", "bf16_value", "node"]
+P1_VARIANTS = ["separable", "value", "add", "value_add", "bf16", "bf16_value", "node",
+               "acc", "acc_keep_y", "final", "acc_final", "add_final"]
 
 
 @pytest.mark.parametrize("variant", P1_VARIANTS)
 @pytest.mark.parametrize("d", [64, 128, 24, 5])
 def test_bucket_pull_matches_plain(card, bucket_adj, variant, d):
     """Each P1 variant against its plain version on a normalized graph's
-    tables. The two sum each row's slots in another order, which moves a
-    result by a few ulps of the row's largest partial sum: rtol 1e-5 with
-    an atol of 1e-5 times the table's largest entry. Two calls agree bit
-    for bit (no atomics)."""
+    tables, the epilogue's too (the chain's running sum ``acc + y`` and its
+    last scaling ``final``). The two sum each row's slots in another order,
+    which moves a result by a few ulps of the row's largest partial sum:
+    rtol 1e-5 with an atol of 1e-5 times the table's largest entry. Two
+    calls agree bit for bit (no atomics)."""
     csr = bucket_adj.pull
     r = csr.total_rows
     rng = np.random.default_rng(d)
-    src, add = (torch.from_numpy(rng.normal(size=(r + 1, d)).astype(np.float32)).to(card)
-                for _ in range(2))
+    src, add, acc = (torch.from_numpy(rng.normal(size=(r + 1, d)).astype(np.float32)).to(card)
+                     for _ in range(3))
     src[r] = add[r] = 0.0
     kw = dict(idx=csr.ridx, skip=r)
-    if variant in ("separable", "add", "bf16"):
+    if variant in ("separable", "add", "bf16", "acc", "acc_keep_y", "final", "acc_final",
+                   "add_final"):
         kw["post"] = csr.sep_dst
     if variant in ("value", "value_add", "bf16_value", "node"):
         kw["val"] = csr.val
-    if variant in ("add", "value_add"):
+    if variant in ("add", "value_add", "add_final"):
         kw["add"] = add
+    if variant in ("acc", "acc_keep_y", "acc_final"):
+        kw["acc"] = acc
+    if variant == "acc_keep_y":
+        kw["keep_y"] = True
+    if variant in ("final", "acc_final", "add_final"):
+        kw["final"] = torch.from_numpy(rng.random(r + 1).astype(np.float32)).to(card)
     if variant.startswith("bf16"):
         src = src.to(torch.bfloat16)
     if variant == "node":
         src = torch.from_numpy(rng.normal(size=(csr.n_cols, d)).astype(np.float32)).to(card)
         kw.update(idx=csr.idx, skip=-1)
     before = gather_sum.launches
-    got = gather_sum(src, row_ptr=csr.row_ptr, **kw)
-    again = gather_sum(src, row_ptr=csr.row_ptr, **kw)
+    got = gather_sum(src, row_ptr=csr.row_ptr, schedule=csr.schedule, **kw)
+    again = gather_sum(src, row_ptr=csr.row_ptr, schedule=csr.schedule, **kw)
     torch.cuda.synchronize()
     assert gather_sum.launches == before + 2
     want = gather_sum_plain(src, row_ptr=csr.row_ptr, **kw)
-    assert got.shape == (r + 1, d) and got.dtype == torch.float32
-    assert torch.equal(got, again)
-    assert torch.all(got[r] == 0)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+    got, again, want = ((t,) if isinstance(t, torch.Tensor) else t for t in (got, again, want))
+    assert len(got) == len(want) == (2 if variant == "acc_keep_y" else 1)
+    for g, a, w in zip(got, again, want):
+        assert g.shape == (r + 1, d) and g.dtype == torch.float32
+        assert torch.equal(g, a)
+        if "acc" not in variant:
+            assert torch.all(g[r] == 0)
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * w.abs().max().item())
 
 
 @pytest.mark.parametrize("compute_dtype,d", [("float32", 64), ("bfloat16", 128)])

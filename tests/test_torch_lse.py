@@ -20,11 +20,14 @@ import torch
 
 from recommendation_tpu.ops.pallas_losses import catalog_logsumexp, catalog_logsumexp_reference
 from recommendation_tpu_torch.ops.lse import (
+    TILE,
     CatalogLSE,
     catalog_lse,
     catalog_lse_bwd,
     catalog_lse_bwd_plain,
     catalog_lse_plain,
+    catalog_lse_split_plain,
+    lse_fwd_plan,
 )
 
 
@@ -46,6 +49,62 @@ def test_values_match_pallas_interpret_and_reference(b, n, d, block_n):
     np.testing.assert_allclose(
         got, np.asarray(catalog_logsumexp_reference(jnp.asarray(q), jnp.asarray(x), 0.2)),
         rtol=0, atol=1e-4)
+
+
+def _unit(rng, n, d):
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+SPLIT_CASES = {
+    # (q, x, tau, tiles per split, JAX block_n)
+    "ragged-N": lambda rng: (rng.normal(size=(37, 24)), rng.normal(size=(700, 24)), 0.2, 2, 256),
+    "one-column-split": lambda rng: (rng.normal(size=(16, 32)), rng.normal(size=(129, 32)), 0.2,
+                                     1, 128),
+    "B=1": lambda rng: (rng.normal(size=(1, 16)), rng.normal(size=(300, 16)), 0.2, 1, 128),
+    "tau0.05-unit-rows": lambda rng: (_unit(rng, 64, 64), _unit(rng, 500, 64), 0.05, 3, 256),
+    "scores-past-88": lambda rng: (15 * _unit(rng, 40, 16), _unit(rng, 300, 16), 0.1, 2, 128),
+}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_form_matches_pallas_interpret(case):
+    """K5's split arithmetic (per-split (max, sum) pairs merged in split
+    order) against the JAX kernel in interpret mode, at the value bound of
+    the JAX kernel's tests: a ragged catalog, a last split of one column,
+    one query row, tau 0.05 on unit rows, and scores above 88, where a
+    plain exp of a score overflows f32."""
+    q, x, tau, w, block_n = SPLIT_CASES[case](np.random.default_rng(len(case)))
+    q, x = q.astype(np.float32), x.astype(np.float32)
+    if case == "one-column-split":
+        assert x.shape[0] % (w * TILE) == 1
+    if case == "scores-past-88":
+        with np.errstate(over="ignore"):
+            assert (q @ x.T / tau).max() > 88 and not np.isfinite(np.exp(q @ x.T / tau)).all()
+    got = catalog_lse_split_plain(torch.from_numpy(q), torch.from_numpy(x), tau, w).numpy()
+    want = np.asarray(catalog_logsumexp(jnp.asarray(q), jnp.asarray(x), tau, block_n, True))
+    assert got.shape == (q.shape[0],) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got, catalog_lse_plain(torch.from_numpy(q), torch.from_numpy(x),
+                                                      tau).numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,n,slots,want", [
+    (2048, 943, 264, (2, 8)), (2048, 1675, 264, (4, 7)), (2048, 100_000, 264, (196, 8)),
+    (37, 700, 264, (1, 11)), (20_000, 5000, 264, (79, 1)), (64, 64, 132, (1, 1)),
+])
+def test_forward_plan_fills_one_wave_with_no_empty_split(b, n, slots, want):
+    """K5's splits: the fewest 64-row item tiles per split that keep the grid
+    within the card's resident blocks (264 = 132 SMs x 2 on an H100), so NCL's
+    step shapes get 32 x 8 and 32 x 7 blocks, and a 100,000-item catalog keeps
+    its (max, sum) partials at 8 x B x 2 floats. Every split holds a tile."""
+    w, splits = lse_fwd_plan(b, n, slots)
+    assert (w, splits) == want
+    nq, nx = -(-b // TILE), -(-n // TILE)
+    assert (splits - 1) * w < nx <= splits * w
+    assert nq * splits <= slots or splits == 1
+    if n == 100_000:
+        assert splits * b * 2 * 4 == 131_072  # bytes of (max, sum) partials
 
 
 def _grads_ours(q, x, tau):
@@ -127,9 +186,10 @@ def test_catalog_lse_checks_its_inputs():
 def test_backward_workspace_holds_a_chunk_per_tile_pair(b, n, d):
     """K6 writes one [64, d] partial of dq and one of dx for each pair of a
     64-row query tile and a 64-row item tile: 7.9 and 14.2 MB at NCL's step
-    shapes. A call is two launches, the tiles and the combine."""
-    from recommendation_tpu_torch.ops.lse import BWD_TILE, lse_bwd_workspace
+    shapes. A call of either kernel is two launches: K6's tiles and combine,
+    K5's splits and their merge."""
+    from recommendation_tpu_torch.ops.lse import TILE, lse_bwd_workspace
 
-    tiles = -(-b // BWD_TILE) * -(-n // BWD_TILE)
-    assert lse_bwd_workspace(b, n, d) == tiles * BWD_TILE * d
-    assert (catalog_lse.launches_per_call, catalog_lse_bwd.launches_per_call) == (1, 2)
+    tiles = -(-b // TILE) * -(-n // TILE)
+    assert lse_bwd_workspace(b, n, d) == tiles * TILE * d
+    assert (catalog_lse.launches_per_call, catalog_lse_bwd.launches_per_call) == (2, 2)
