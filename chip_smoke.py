@@ -16,8 +16,10 @@ What it does, in order (any failed phase exits non-zero):
      serving shape and at an unaligned one; K3 ``chain_mean_layer`` and K4
      ``chain_mean_layer_bwd`` at the bench shape and at 37x53x8 for (L, k)
      in (3,1), (3,2), (3,3), (1,1); K5 ``catalog_lse`` and K6
-     ``catalog_lse_bwd`` at NCL's two step shapes and a ragged one, and K5
-     against a 100,000-item catalog;
+     ``catalog_lse_bwd`` at NCL's two step shapes and a ragged one, K5
+     against a 100,000-item catalog, and K6 at B = 8192 against it (its
+     workspace, read from the caching allocator around one call, held under
+     256 MB; timed against its bound and the library call);
   4. one-step checks: one LightGCN step's loss and gradients through
      ``ChainMean`` (K1 + K2) against autograd through the plain chain; one
      NCL step through K3-K6 against the plain path, for the full loss, the
@@ -66,8 +68,24 @@ What it does, in order (any failed phase exits non-zero):
      falling loss, a 20-step profile and a 5-step one by operator and input
      shape; waves of requests through ``RecommenderService``, each answer
      equal to the plain path's and no train positive served;
-  9. prints the serving line, the training line, the NCL line, the large
-     line, the kernels line and, last, the device line.
+  9. clustered phase, the sets a quality gate can fail:
+     ``make_clustered_interactions(50_000, 100_000, 1_000_000, seed=3)``
+     (bench.py --large's shape with genre structure), 10% held out, on the
+     bucketed backend (f32, d=64, B=8192), one graph for: one NCL step
+     through K5, K6, K7 and P1 against the plain path (the full loss, the
+     layer contrast and ProtoNCE alone), one DirectAU step through K7 and
+     P1's value path against the plain chain, then LightGCN-BPR, NCL and
+     DirectAU at their defaults trained CLUSTERED_EPOCHS epochs each, every
+     run's launches counted and its Recall@20 held above the masked
+     popularity list's, with the untrained tables below it;
+ 10. hard phase: DirectAU on the dense backend on ``make_hard_dataset()``
+     in bf16 and f32: one step against the plain bucketed chain (no kernel
+     of the port on this path: its products are ``torch.matmul``), then
+     HARD_EPOCHS epochs held to the dense sets' gate (above the popularity
+     list, within 0.005 of it masked), the untrained tables below it;
+ 11. prints the serving line, the training line, the NCL line, the large
+     line, the clustered line, the hard line, the kernels line and, last,
+     the device line.
 
 Launch counts are reset just before each main path and read just after it.
 Exits non-zero without printing a result where no CUDA device is present.
@@ -93,14 +111,22 @@ from recommendation_tpu_torch.config import default_config
 from recommendation_tpu_torch.data.interaction import Interaction
 from recommendation_tpu_torch.data.synthetic import (
     ArrayInteraction,
+    make_clustered_interactions,
     make_flat_interactions,
+    make_hard_dataset,
     make_synthetic_dataset,
 )
 from recommendation_tpu_torch.evalx.metrics import ranking_metrics
 from recommendation_tpu_torch.evalx.ranking import evaluate_ranking
-from recommendation_tpu_torch.graph.bucketed import bucketed_chain_mean, bucketed_chain_mean_plain
+from recommendation_tpu_torch.graph.bucketed import (
+    PLAIN,
+    bucketed_chain_mean,
+    bucketed_chain_mean_plain,
+    pull,
+)
 from recommendation_tpu_torch.graph.device import DeviceGraph
 from recommendation_tpu_torch.models import build
+from recommendation_tpu_torch.models.directau import PlainBucketedDirectAU
 from recommendation_tpu_torch.models.lightgcn import LightGCN
 from recommendation_tpu_torch.models.ncl import NCL
 from recommendation_tpu_torch.ops import build as kernels
@@ -110,11 +136,13 @@ from recommendation_tpu_torch.ops.gather import (
     gather_sum,
     gather_sum_plain,
 )
+from recommendation_tpu_torch.ops import lse as lse_ops
 from recommendation_tpu_torch.ops.lse import (
     catalog_lse,
     catalog_lse_bwd,
     catalog_lse_bwd_plain,
     catalog_lse_plain,
+    lse_bwd_workspace,
 )
 from recommendation_tpu_torch.ops.prop import (
     ChainMean,
@@ -180,6 +208,20 @@ PROBE_ROWS, PROBE_D, PROBE_IDX = 1_500_000, 128, (4096, 2_000_000)
 # rows hold 10^4 slots here): rtol 1e-5, atol 1e-5 x the table's largest entry
 P1_TOL = (1e-5, 1e-5)
 L2_PROBE_ROWS = 4096  # P1's L2 probe: live indices modulo this, a 1 MB source
+# K6's workspace at B = 8192 against 100,000 items must stay under this
+LSE_WORKSPACE_LIMIT = 256 * 2**20
+# the sets a quality gate can fail: bench.py --large's shape with genre
+# structure (make_clustered_interactions), and the hard ML-100K-shaped set
+CLUSTERED_SHAPE = dict(n_users=50_000, n_items=100_000, n_interactions=1_000_000, seed=3)
+GATE_MODELS = ("lightgcn", "ncl", "directau")
+# epochs of each run, from a measured run on the H100 (PERF.md §4): enough
+# to clear the masked popularity list by a third or more on the clustered
+# set (LightGCN sits at it for 8 epochs, NCL below it for 4)
+CLUSTERED_EPOCHS = {"lightgcn": 14, "ncl": 7, "directau": 3}
+HARD_EPOCHS = 3
+# the dense sets' gate (the train phases'): above the popularity list and
+# within this much of it with train positives masked
+MASKED_SLACK = 0.005
 
 
 def card_line() -> str:
@@ -286,6 +328,36 @@ def library_lse_bwd(q, x, tau, g):
     """K6's gradient from a softmax and two cuBLAS matmuls: a yardstick only."""
     p = torch.softmax(q @ x.T / tau, dim=1) * g[:, None]
     return torch.matmul(p, x) / tau, torch.matmul(p.T, q) / tau
+
+
+def lse_bwd_workspace_bytes(q, x, lse, g):
+    """The card memory one ``catalog_lse_bwd`` call takes besides its
+    outputs, read from the caching allocator: the peak of allocated bytes
+    during the call less the bytes allocated after it, when dq and dx are
+    still held and the partials freed. The allocator rounds a block up (to
+    512 B, and a large one to the rest of its segment when that is under
+    1 MB), so this can pass the partials' floats x 4 by that much."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dq, dx = catalog_lse_bwd(q, x, TAU, lse, g)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    del dq, dx
+    return torch.cuda.max_memory_allocated() - held
+
+
+def check_lse_workspace(q, x, lse, g):
+    """K6's measured workspace (``lse_bwd_workspace_bytes``): at least the
+    partials its plan needs (``lse_bwd_workspace`` floats), and at most
+    ``LSE_WORKSPACE_LIMIT``."""
+    (b, d), n = q.shape, x.shape[0]
+    plan_bytes = lse_bwd_workspace(b, n, d, lse_ops._slots(lse_ops._kernel_lib(), "bwd",
+                                                           q.device, d)) * 4
+    got = lse_bwd_workspace_bytes(q, x, lse, g)
+    if not plan_bytes <= got <= LSE_WORKSPACE_LIMIT:
+        raise RuntimeError(f"K6 at {b}x{n}x{d} took {got} bytes of workspace: its plan needs "
+                           f"{plan_bytes}, the limit is {LSE_WORKSPACE_LIMIT}")
+    return got
 
 
 def same_bits(name, fn):
@@ -523,8 +595,30 @@ def kernel_phase_lse(n_users, n_items):
              "plain_ms": time_ms(lambda: catalog_lse_plain(q, x, TAU)),
              "library_ms": time_ms(lambda: torch.logsumexp(q @ x.T / TAU, 1)),
              "bound_ms": lse_bound([(BATCH, LSE_LARGE_N, EMB)], 1)[0]}
-    del q, x
+    # K6 at NCL's large step (B = 8192 against the 100,000-item catalog):
+    # its workspace, against plain, twice bit for bit, timed
+    q, x = unit_rows(rng, LARGE_BATCH, EMB), unit_rows(rng, LSE_LARGE_N, EMB)
+    g = torch.from_numpy(rng.normal(size=LARGE_BATCH).astype(np.float32)).cuda()
+    lse = catalog_lse_plain(q, x, TAU)
+    err_bwd_large = compare(f"catalog_lse_bwd {LARGE_BATCH}x{LSE_LARGE_N}x{EMB}",
+                            same_bits("catalog_lse_bwd 100k",
+                                      lambda: catalog_lse_bwd(q, x, TAU, lse, g)),
+                            catalog_lse_bwd_plain(q, x, TAU, lse, g), torch.float32,
+                            {torch.float32: LSE_GRAD_TOL})
+    slots = lse_ops._slots(lse_ops._kernel_lib(), "bwd", q.device, EMB)
+    large_bwd = {
+        "shape": [LARGE_BATCH, LSE_LARGE_N, EMB], "max_abs_err": err_bwd_large,
+        "same_bits": True,
+        "plan_wq_sq_wx_sx": lse_ops.lse_bwd_plan(LARGE_BATCH, LSE_LARGE_N, slots),
+        "workspace_bytes": check_lse_workspace(q, x, lse, g),
+        "ms": time_ms(lambda: catalog_lse_bwd(q, x, TAU, lse, g), reps=10),
+        "plain_ms": time_ms(lambda: catalog_lse_bwd_plain(q, x, TAU, lse, g), reps=5),
+        "library_ms": time_ms(lambda: library_lse_bwd(q, x, TAU, g), reps=5),
+        "bound_ms": lse_bound([(LARGE_BATCH, LSE_LARGE_N, EMB)], 3)[0]}
+    print(f"K6 at {LARGE_BATCH}x{LSE_LARGE_N}x{EMB}: {json.dumps(large_bwd)}")
+    del q, x, lse
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
     def both(fn):
         return lambda: [fn(*args) for args in inputs]
@@ -561,6 +655,8 @@ def kernel_phase_lse(n_users, n_items):
             "library_ms": library_ms,
         })
     rows[0]["n100k"] = large
+    rows[1]["n100k"] = large_bwd
+    rows[1]["workspace_bytes"] = [check_lse_workspace(q, x, lse, g) for q, x, g, lse in inputs]
     return rows
 
 
@@ -958,19 +1054,18 @@ def serve_phase(compute_dtype, ckpt, train, test):
 
 def popularity_recall(data, graph, n=20, masked=True):
     """Recall@n of the most-popular ranking (``popularity_baseline_topk``):
-    the same top-n list for every user, or, ``masked``, with each user's
-    train positives taken out first, as tests/test_lightgcn.py scores it."""
-    uids = torch.from_numpy(data.test_user_ids().astype(np.int64)).to(graph.device)
+    the same top-n list for every user, or, ``masked``, each test user's
+    first n items of that order that are not train positives, as
+    tests/test_lightgcn.py scores it (the order's first n + max_degree
+    items always hold n of them)."""
+    uids = data.test_user_ids()
     if not masked:
-        top = popularity_baseline_topk(graph, n)
-        ids = np.broadcast_to(top, (len(uids), n))
+        ids = np.broadcast_to(popularity_baseline_topk(graph, n), (len(uids), n))
     else:
-        order = torch.from_numpy(popularity_baseline_topk(graph, graph.n_items)).to(graph.device)
-        score = torch.empty(graph.n_items, device=graph.device)
-        score[order] = torch.arange(graph.n_items, 0, -1, dtype=torch.float32,
-                                    device=graph.device)
-        scores = score.expand(len(uids), -1).masked_fill(graph.user_pos_mask[uids] > 0, -math.inf)
-        ids = torch.topk(scores, n, dim=1).indices.cpu().numpy()
+        order = popularity_baseline_topk(graph, min(graph.n_items, n + graph.max_degree))
+        keep = data.interaction_mat[uids][:, order].toarray() == 0
+        first = keep & (np.cumsum(keep, axis=1) <= n)
+        ids = order[np.nonzero(first)[1]].reshape(len(uids), n)
     return ranking_metrics(ids, data.test_items_by_user(), [n])[f"Recall@{n}"]
 
 
@@ -1409,8 +1504,7 @@ def large_train_phase(data, graph):
         "learning.rate": LR, "optimizer": "adam", "max.epoch": LARGE_EPOCHS,
         "eval.interval": 1, "item.ranking.topN": [20], "graph.compute_dtype": "float32",
     })
-    for f in COUNTERS + (gather_rows, gather_sum):
-        f.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     rec = GraphRecommender(build("lightgcn", config), data, config, graph=graph,
                            log=Log(echo=False), device="cuda")
@@ -1427,16 +1521,13 @@ def large_train_phase(data, graph):
         wave_ms.append((time.perf_counter() - t) * 1e3)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"gather_rows": gather_rows.launches, "gather_sum": gather_sum.launches}
-    others = {f.__name__: f.launches for f in COUNTERS if f.launches}
+    launches = all_counts()
 
     n_batches = -(-graph.n_edges // LARGE_BATCH)
-    steps = n_batches * LARGE_EPOCHS
     n_evals = len(rec.history) + 2  # the per-epoch evaluations, the test, the service
-    want = {"gather_rows": 4 * steps + 2 * n_evals, "gather_sum": 2 * LAYERS * steps
-            + LAYERS * n_evals}
-    if launches != want or others:
-        raise RuntimeError(f"large train launches {launches} (others {others}), expected {want}")
+    want = expected_launches("lightgcn", graph, LAYERS, n_batches * LARGE_EPOCHS, n_evals)
+    if launches != want:
+        raise RuntimeError(f"large train launches {launches}, expected {want}")
     losses = [e["loss"] for e in rec.epoch_stats]
     if len(losses) != LARGE_EPOCHS or not all(math.isfinite(x) for x in losses):
         raise RuntimeError(f"large epoch losses malformed: {losses}")
@@ -1495,6 +1586,309 @@ def sampler_seconds(graph, reps=3):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return times
+
+
+# -- the sets a quality gate can fail: the clustered large set, the hard set ------
+
+ALL_COUNTERS = COUNTERS + (gather_rows, gather_sum)
+
+
+def reset_counts():
+    for f in ALL_COUNTERS:
+        f.launches = 0
+
+
+def all_counts():
+    return {f.__name__: f.launches for f in ALL_COUNTERS}
+
+
+def clustered_build():
+    """The clustered large set at bench.py --large's shape, 10% held out, on
+    the bucketed backend (f32), and its masked popularity Recall@20."""
+    t0 = time.perf_counter()
+    n_users, n_items = CLUSTERED_SHAPE["n_users"], CLUSTERED_SHAPE["n_items"]
+    pairs = make_clustered_interactions(**CLUSTERED_SHAPE)
+    data = ArrayInteraction(pairs, n_users, n_items, test_fraction=0.1)
+    t1 = time.perf_counter()
+    graph = DeviceGraph(data, backend="auto", compute_dtype="float32", device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    adj = graph.norm_adj
+    if graph.backend != "bucketed" or not adj.sym_rowspace or len(pairs) != 1_000_000:
+        raise RuntimeError(f"clustered graph on {graph.backend}, {len(pairs)} pairs")
+    info = {"users": n_users, "items": n_items, "pairs": len(pairs),
+            "train_edges": graph.n_edges, "test_pairs": int(len(data.test_pairs)),
+            "test_users": int(len(data.test_user_ids())), "data_s": t1 - t0,
+            "graph_build_s": t2 - t1, "buckets": len(adj.pull.caps),
+            "slots": [adj.pull.n_slots, adj.pull_t.n_slots], "max_degree": graph.max_degree,
+            "masked_popularity_recall@20": popularity_recall(data, graph),
+            "popularity_recall@20": popularity_recall(data, graph, 20, masked=False)}
+    print(f"clustered graph: {json.dumps(info)}")
+    return data, graph, info
+
+
+def expected_launches(model_name, graph, n_layers, steps, n_evals, e_steps=0):
+    """What one run's steps, E-steps and evaluations launch. On the bucketed
+    backend: LightGCN's and DirectAU's row-space chain K7 twice and P1 L
+    times each way; NCL's L ``adj_matmul`` rounds P1 and K7 once each way
+    a round, K5 and K6 two calls a step, the chain for each E-step and
+    evaluation. DirectAU on the dense backend reaches no kernel of the port
+    (its square products are ``torch.matmul``, as the JAX package's are
+    XLA's)."""
+    want = {f.__name__: 0 for f in ALL_COUNTERS}
+    if graph.backend != "bucketed":
+        if model_name != "directau":
+            raise ValueError(f"no launch model for {model_name} on {graph.backend}")
+        return want
+    chains = n_evals + e_steps  # the no-grad chain: K7 2, P1 L
+    if model_name == "ncl":
+        want.update(gather_rows=2 * n_layers * steps + 2 * chains,
+                    gather_sum=2 * n_layers * steps + n_layers * chains,
+                    catalog_lse=2 * catalog_lse.launches_per_call * steps,
+                    catalog_lse_bwd=2 * catalog_lse_bwd.launches_per_call * steps)
+    else:
+        want.update(gather_rows=4 * steps + 2 * chains,
+                    gather_sum=2 * n_layers * steps + n_layers * chains)
+    return want
+
+
+def gate_phase(model_name, data, graph, epochs, batch, pop, gate):
+    """One model's training main path on a set whose ranking optimum is not
+    the popularity list: the untrained tables' Recall@20, then ``epochs``
+    epochs with an evaluation after each, the best epoch's tables kept (the
+    trainer's model selection), the final test, and a wave of 16 test users
+    served by ``RecommenderService`` (finite, no train positive). Launches
+    are counted over the whole run. ``pop`` holds the masked and the plain popularity
+    list's Recall@20; ``check_gate`` holds the result to ``gate``."""
+    config = default_config(**{
+        "embedding.size": EMB, "batch.size": batch, "learning.rate": LR, "optimizer": "adam",
+        "max.epoch": epochs, "eval.interval": 1, "item.ranking.topN": [20],
+        "graph.compute_dtype": graph.compute_dtype,
+    })
+    model = build(model_name, config)
+    reset_counts()
+    t0 = time.perf_counter()
+    rec = GraphRecommender(model, data, config, graph=graph, log=Log(echo=False), device="cuda")
+    rec.build()
+    init_recall = rec.test().metrics["Recall@20"]
+    rec.train()
+    metrics = rec.test().metrics
+    uids = data.test_user_ids()[:16].tolist()
+    scores, ids = RecommenderService.from_recommender(rec).recommend_ids(uids, K)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = all_counts()
+    n_batches = -(-graph.n_edges // batch)
+    # the untrained tables, each epoch, the final test, the service
+    n_evals = len(rec.history) + 3
+    e_steps = epochs if model_name == "ncl" else 0
+    want = expected_launches(model_name, graph, model.n_layers, n_batches * epochs, n_evals,
+                             e_steps)
+    if launches != want:
+        raise RuntimeError(f"{model_name} on {graph.backend} launches {launches}, expected {want}")
+    losses = [e["loss"] for e in rec.epoch_stats]
+    if len(losses) != epochs or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{model_name} epoch losses malformed: {losses}")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"{model_name} metrics not finite: {metrics}")
+    mat = data.interaction_mat
+    if not (np.isfinite(scores).all() and scores.shape == (len(uids), K)) or any(
+            mat[u, int(i)] != 0 for u, row in zip(uids, ids) for i in row):
+        raise RuntimeError(f"{model_name} on {graph.backend}: served answers malformed")
+    timed = rec.epoch_stats[1:] or rec.epoch_stats
+    return {
+        "model": model_name, "backend": graph.backend, "compute_dtype": graph.compute_dtype,
+        "batch": batch, "layers": model.n_layers, "epochs": epochs,
+        "steps_per_epoch": n_batches, "epoch_losses": losses,
+        "epoch_seconds": [e["seconds"] for e in rec.epoch_stats],
+        "examples_per_s": n_batches * batch * len(timed) / sum(e["seconds"] for e in timed),
+        "recall@20_untrained": init_recall,
+        "recall@20_by_epoch": [h["Recall@20"] for h in rec.history],
+        "best_epoch": rec.best_epoch, "recall@20": metrics["Recall@20"],
+        "ndcg@20": metrics["NDCG@20"], "gate": gate,
+        "masked_popularity_recall@20": pop["masked"], "popularity_recall@20": pop["plain"],
+        "launches": launches, "wall_s": wall_s, "profile": profile_steps(rec, batch),
+    }
+
+
+def check_gate(stats):
+    """Recall@20 above the bar, with the untrained tables below it (the gate
+    can fail), and a falling loss. The bar: the masked popularity list's
+    Recall@20 (gate "masked", the clustered set), or the popularity list's
+    with Recall@20 also within MASKED_SLACK of the masked list's (gate
+    "dense", the train phases' gate, for the hard set)."""
+    name = f"{stats['model']} {stats['backend']} {stats['compute_dtype']}"
+    masked = stats["masked_popularity_recall@20"]
+    bar = masked if stats["gate"] == "masked" else stats["popularity_recall@20"]
+    if not stats["recall@20"] > bar:
+        raise RuntimeError(f"{name}: Recall@20 {stats['recall@20']} not above {bar}")
+    if stats["gate"] == "dense" and not stats["recall@20"] >= masked - MASKED_SLACK:
+        raise RuntimeError(f"{name}: Recall@20 {stats['recall@20']} more than {MASKED_SLACK} "
+                           f"below the masked popularity list's {masked}")
+    if not stats["recall@20_untrained"] < bar:
+        raise RuntimeError(f"{name}: the untrained tables pass the gate "
+                           f"({stats['recall@20_untrained']} against {bar})")
+    losses = stats["epoch_losses"]
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"{name}: loss did not fall: {losses}")
+
+
+class PlainBucketedNCL(NCL):
+    """NCL on the bucketed backend with the plain rounds (``pull`` through
+    the plain versions of P1 and K7) and the plain logsumexp in place of
+    BucketedMatmul and CatalogLSE (K5, K6): the reference a step is held
+    against."""
+
+    def _forward_ctx(self, params, graph):
+        u0, i0 = params["user_emb"], params["item_emb"]
+        ego = torch.cat([u0, i0])
+        layers = [ego]
+        for _ in range(self.n_layers):
+            ego = pull(graph.norm_adj.pull, ego, ops=PLAIN)
+            layers.append(ego)
+        mean = torch.mean(torch.stack(layers), dim=0)
+        ctx = layers[min(self.hyper_layers * 2, self.n_layers)]
+        n = graph.n_users
+        return mean[:n], mean[n:], (u0, i0), (ctx[:n], ctx[n:])
+
+    def _catalog_lse(self, q, x):
+        return catalog_lse_plain(q, x, self.ssl_temp)
+
+
+def first_batch(graph, batch):
+    users, items, negs, weights, _ = epoch_batches(
+        epoch_words(torch.Generator().manual_seed(3), graph, batch), graph, batch)
+    return PairwiseBatch(users[0], items[0], negs[0], weights[0])
+
+
+def step_against_plain(name, kernel_fn, plain_fn, params, dtype, want_counts):
+    """A step's value and gradients to both tables through the kernels
+    (``kernel_fn``) against the plain path's (``plain_fn``), on the same
+    parameters and batch; the kernels' launches must be ``want_counts``
+    and the plain path's none; the bound must reject zero gradients."""
+    got = {}
+    for which, fn in (("kernel", kernel_fn), ("plain", plain_fn)):
+        p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+        reset_counts()
+        value = fn(p)
+        grads = torch.autograd.grad(value, [p["user_emb"], p["item_emb"]])
+        torch.cuda.synchronize()
+        got[which] = (value.item(), grads, all_counts())
+    (v_k, g_k, n_k), (v_p, g_p, n_p) = got["kernel"], got["plain"]
+    want = {f.__name__: 0 for f in ALL_COUNTERS}
+    want.update(want_counts)
+    if n_k != want or any(n_p.values()):
+        raise RuntimeError(f"{name}: launches {n_k} (plain {n_p}), expected {want}")
+    rtol, atol = TOL[dtype]
+    if not (math.isfinite(v_k) and abs(v_k - v_p) <= atol + rtol * abs(v_p)):
+        raise RuntimeError(f"{name}: {v_k} against plain {v_p}")
+    if not grads_agree(g_k, g_p, dtype):
+        raise RuntimeError(f"{name}: gradients disagree with plain")
+    if grads_agree([torch.zeros_like(g) for g in g_p], g_p, dtype):
+        raise RuntimeError(f"{name}: the bound passes zero gradients")
+    return {"value": v_k, "value_abs_err": abs(v_k - v_p),
+            "grad_max_abs_err": max((a - b).abs().max().item() for a, b in zip(g_k, g_p)),
+            "grad_max_abs": [w.abs().max().item() for w in g_p], "launches": n_k}
+
+
+def large_ncl_one_step_check(graph, params):
+    """One NCL step on the clustered bucketed graph through K5, K6, K7 and
+    P1 against the plain path: the full loss at NCL's defaults, the layer
+    contrast alone and ProtoNCE alone at unit weight, on the same batch and
+    cluster state."""
+    default = default_config(**{"embedding.size": EMB})
+    unit = default_config(**{"embedding.size": EMB, "NCL.ssl_reg": 1.0, "NCL.proto_reg": 1.0})
+    state = build("ncl", default).epoch_begin(params, None, graph,
+                                              torch.Generator().manual_seed(7), 0)
+    batch = first_batch(graph, LARGE_BATCH)
+    # each round's P1 and K7 forward; backward, the rounds up to the last
+    # layer the term reads: L for the loss (the mean), the context's k for
+    # the layer contrast alone
+    rounds, ssl_rounds = 2 * LAYERS, LAYERS + NCL_K
+    lse = {"catalog_lse": 2 * catalog_lse.launches_per_call,
+           "catalog_lse_bwd": 2 * catalog_lse_bwd.launches_per_call}
+    out = {}
+    for term, config, want in (
+        ("loss", default, {"gather_rows": rounds, "gather_sum": rounds, **lse}),
+        ("ssl", unit, {"gather_rows": ssl_rounds, "gather_sum": ssl_rounds, **lse}),
+        ("proto", unit, {}),
+    ):
+        kernel_model, plain_model = build("ncl", config), PlainBucketedNCL(config)
+        out[term] = step_against_plain(
+            f"large NCL {term}",
+            lambda p, m=kernel_model: ncl_term(term, m, p, state, batch, graph),
+            lambda p, m=plain_model: ncl_term(term, m, p, state, batch, graph),
+            params, torch.float32, want)
+    return out
+
+
+def directau_one_step_check(graph, params, batch_size, ref_graph=None):
+    """One DirectAU step at its defaults. On a bucketed graph: through K7
+    and P1 (the value path: the binarized adjacency has no separable
+    scales) against the plain chain on the same graph. On a dense graph no
+    kernel of the port is on the path: the step against the plain bucketed
+    chain on ``ref_graph``, a bucketed graph of the same data."""
+    config = default_config(**{"embedding.size": EMB})
+    kernel_model, plain_model = build("directau", config), PlainBucketedDirectAU(config)
+    batch = first_batch(graph, batch_size)
+    dense = graph.backend == "dense"
+    want = {} if dense else {"gather_rows": 4, "gather_sum": 2 * kernel_model.n_layers}
+    if not dense and kernel_model._adj(graph).pull.sep_dst is not None:
+        raise RuntimeError("the binarized adjacency kept separable scales")
+    dtype = torch.bfloat16 if graph.compute_dtype == "bfloat16" else torch.float32
+    return step_against_plain(
+        f"DirectAU step {graph.backend} {graph.compute_dtype}",
+        lambda p: kernel_model.loss(p, {}, batch, graph)[0],
+        lambda p: plain_model.loss(p, {}, batch, ref_graph if dense else graph)[0],
+        params, dtype, want)
+
+
+def clustered_phase():
+    """The clustered large set: the build, one-step checks of NCL and
+    DirectAU against their plain paths, then LightGCN-BPR, NCL and DirectAU
+    trained on the one graph, each held to the gate."""
+    data, graph, info = clustered_build()
+    pop = {"masked": info["masked_popularity_recall@20"],
+           "plain": info["popularity_recall@20"]}
+    params, _ = build("lightgcn", default_config(**{"embedding.size": EMB})).init(
+        torch.Generator().manual_seed(0), graph)
+    one_step = {"ncl": large_ncl_one_step_check(graph, params),
+                "directau": directau_one_step_check(graph, params, LARGE_BATCH)}
+    del params
+    torch.cuda.empty_cache()
+    runs = []
+    for name in GATE_MODELS:
+        stats = gate_phase(name, data, graph, CLUSTERED_EPOCHS[name], LARGE_BATCH, pop,
+                           "masked")
+        check_gate(stats)
+        runs.append(stats)
+    return info, one_step, runs
+
+
+def hard_phase():
+    """DirectAU on the dense backend on the hard set (make_hard_dataset(),
+    ML-100K-shaped), in bf16 and f32: a one-step check against the plain
+    bucketed chain, then training held to the dense sets' gate. (The masked
+    popularity list is the stronger ranker there: the JAX package's own
+    30-epoch DirectAU, 0.4144 in BASELINE.md, stays under its 0.41561, the
+    bar that tests/test_torch_popularity.py holds equal to the JAX
+    package's reading; PERF.md §6.)"""
+    train, test = make_hard_dataset()
+    data = Interaction(train, test)
+    ref = DeviceGraph(data, backend="bucketed", device="cuda")
+    out = {"users": data.user_num, "items": data.item_num, "train_edges": len(data.edge_users),
+           "numpy": np.__version__, "one_step": {}, "train": []}
+    for dtype in ("bfloat16", "float32"):
+        graph = DeviceGraph(data, compute_dtype=dtype, device="cuda")
+        pop = {"masked": popularity_recall(data, graph, 20),
+               "plain": popularity_recall(data, graph, 20, masked=False)}
+        params, _ = build("directau", default_config(**{"embedding.size": EMB})).init(
+            torch.Generator().manual_seed(0), graph)
+        out["one_step"][dtype] = directau_one_step_check(graph, params, BATCH, ref)
+        stats = gate_phase("directau", data, graph, HARD_EPOCHS, BATCH, pop, "dense")
+        check_gate(stats)
+        out["train"].append(stats)
+    return out
 
 
 def main() -> int:
@@ -1578,13 +1972,30 @@ def main() -> int:
     large_one_step = large_one_step_check(large_graph, large_params)
     launches, large_stats = large_train_phase(large_data, large_graph)
     k7_row["launches"], p1_row["launches"] = launches["gather_rows"], launches["gather_sum"]
+    for row, name in ((k7_row, "gather_rows"), (p1_row, "gather_sum")):
+        row["launches_large_lightgcn"] = launches[name]
     large_stats["card"] = card
+    del large_data, large_graph, large_params
+    torch.cuda.empty_cache()
+
+    clustered_info, clustered_one_step, clustered_runs = clustered_phase()
+    for run in clustered_runs:
+        for row in lse_rows + [k7_row, p1_row]:
+            row["launches"] += run["launches"][row["name"]]
+            row[f"launches_clustered_{run['model']}"] = run["launches"][row["name"]]
+        run["card"] = card
+    hard = hard_phase()
+    for run in hard["train"]:
+        run["card"] = card
 
     print(json.dumps({"serve": serve}))
     print(json.dumps({"one_step": one_step, "train": training}))
     print(json.dumps({"ncl": {"one_step": ncl_one_step, "train": ncl}}))
     print(json.dumps({"large": {"build": large_info, "one_step": large_one_step,
                                 "train": large_stats}}))
+    print(json.dumps({"clustered": {"build": clustered_info, "one_step": clustered_one_step,
+                                    "train": clustered_runs}}))
+    print(json.dumps({"hard": hard}))
     print(json.dumps({"kernels": list(rows.values()) + list(bwd_rows.values())
                       + list(layer_rows.values()) + list(layer_bwd_rows.values()) + lse_rows
                       + [k7_row, p1_row]}))

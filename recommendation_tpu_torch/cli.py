@@ -1,21 +1,23 @@
 """Command-line entry of the port.
 
   python -m recommendation_tpu_torch models
-  python -m recommendation_tpu_torch train --model lightgcn|ncl [--train T --test T] \\
+  python -m recommendation_tpu_torch train --model lightgcn|ncl|directau [--train T --test T] \\
       [--set key=value ...] [--out RESULT.json] [--device cuda|cpu]
-  python -m recommendation_tpu_torch serve --model lightgcn|ncl \\
+  python -m recommendation_tpu_torch serve --model lightgcn|ncl|directau \\
       [--checkpoint PARAMS.npz | CHECKPOINT_DIR] [--device cuda|cpu] \\
       [--train T --test T] [--set graph.compute_dtype=bfloat16] [--host H --port P]
 
-``models`` lists the ported models (``lightgcn``, ``ncl``).
+``models`` lists the ported models (``directau``, ``lightgcn``, ``ncl``);
+each trains and serves on the dense and the bucketed backend
+(``--set graph.backend=bucketed``, or ``auto`` past the dense threshold).
 ``train`` runs ``GraphRecommender.execute`` and prints the test metrics as
 one JSON line (last on stdout), as the JAX package's CLI does. ``serve``
 serves top-k over HTTP from parameters saved by ``weights.save_params``
 (``.npz``), from the newest checkpoint in a directory written by
 ``train.checkpoint.CheckpointManager`` (``--set checkpoint.dir=DIR``
 while training), or, without ``--checkpoint``, after training first.
-Serving needs the parameters only: the eval embeddings of both models
-read no model state (NCL's clusters serve training alone). Missing dataset
+Serving needs the parameters only: no model's eval embeddings read model
+state (NCL's clusters serve training alone). Missing dataset
 paths fall back to the cached synthetic ML-100K-shaped set, as in the JAX
 package's CLI.
 """
@@ -117,7 +119,7 @@ def main(argv=None):
     t = sub.add_parser("train", help="train a model and print its test metrics")
     s = sub.add_parser("serve", help="serve top-k over HTTP (trains first without --checkpoint)")
     for p in (t, s):
-        p.add_argument("--model", required=True)
+        p.add_argument("--model", required=True, help="lightgcn, ncl or directau")
         p.add_argument("--train")
         p.add_argument("--test")
         p.add_argument("--set", action="append", help="config override key=value")

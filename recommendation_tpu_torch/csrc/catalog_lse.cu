@@ -28,12 +28,14 @@
 //     (lse_fwd_combine_kernel) merges the splits in split order into
 //     m + log(s). Ragged B, N and d are masked: a column past N adds nothing,
 //     as exp(-1e30 - m) = 0 would.
-//   * K6 (lse_bwd_kernel): a block owns one BT x BT tile of (query rows,
-//     item rows), computes that tile's scores once, and takes both its
-//     partial dq (p . x over the tile's items) and its partial dx (p^T . q
-//     over the tile's queries) from them: three products a call, as on the
-//     TPU. A second launch (lse_bwd_combine_kernel) adds the tiles' partial
-//     sums in a fixed order.
+//   * K6 (lse_bwd_kernel): two sides in one launch. A query-side block
+//     owns one 64-row query tile and walks one split of item tiles,
+//     adding p . x into its partial dq; an item-side block owns one item
+//     tile and walks one split of query tiles, adding p^T . q into its
+//     partial dx. Each side recomputes the tile's scores (the same bits:
+//     an FFMA's product does not depend on its operands' order), so a call
+//     is four products where the TPU's is three. A second launch
+//     (lse_bwd_combine_kernel) adds the splits' partials in split order.
 // The scores are f32 FFMA products (no TF32) divided by tau, then
 // exp(s - lse) * g; the sums are divided by tau at the end, as the JAX
 // kernel does.
@@ -59,39 +61,39 @@
 //     bit for bit. No atomics, no counters kept between calls. Two launches
 //     a call.
 //
-// What bounds K6 on an H100: at NCL's step shape a call is 3 x 2BNd = 0.74
-// and 1.32 GFLOP of f32 FFMA, 11 and 20 us at 67 TFLOP/s, against about
-// 1.5 MB of inputs and outputs: the operations bound it. What the design
-// does about it:
-//   * Enough blocks: one block per (query tile, item tile), 32 x 15 = 480
-//     and 32 x 27 = 864 blocks of 256 threads at those shapes (2 resident
-//     an SM).
-//   * Register micro-tiles: each thread owns 4 x 4 scores (query rows
-//     ty + 16 i, item rows tx + 16 j) and then 4 x 4 of the partial dq and
-//     of the partial dx (rows ty + 16 i, columns 4 tx .. 4 tx + 3). Every
-//     shared load is a float4 that feeds 4 FFMA for each of 4 rows: 8
-//     loads per 64 FFMA, and a warp is 8 x 4 threads so that each load is
-//     one shared-memory wavefront. p goes through shared memory twice, as
-//     [q][x] for dq and as [x][q] for dx, so both products read it along
-//     rows.
-//   * Asynchronous staging: q and x tiles come in by cp.async (16 bytes a
-//     copy where d % 4 == 0, else 4). d is walked in BK = 64-column slices:
-//     at d <= 64 one slice is staged once and serves all three products;
-//     above, the slices stream through two stages, once for the scores and
-//     once more for dq and dx (the first reload overlaps forming p). Shared
-//     memory: (2 x stages + 2) x 64 x 68 floats, 69,632 bytes at d <= 64
-//     and 104,448 above, for any d <= lse_max_d() = 512.
-//   * A fixed-order combine: each block writes its partial dq to a
-//     [B-tiles][N-tiles][BT][d] workspace and its partial dx to a
-//     [N-tiles][B-tiles][BT][d] one (the wrapper's; ceil(B/64) x
-//     ceil(N/64) x 64 x d floats each, 7.9 and 14.2 MB at NCL's shapes,
-//     which stay in the 50 MB L2). A second launch gives each thread 4
-//     outputs of dq or dx and adds their partials in tile order (8 loads in
-//     flight), then divides by tau. Done by the tiles' last block instead,
-//     one SM would stream a whole tile's 0.4-0.5 MB of partials at the end
-//     of the launch, at one SM's share of the L2 bandwidth; spread over
-//     the card the combine runs at the L2's full rate. No float atomics: a
-//     call repeats bit for bit. Two launches a call.
+// What bounds K6 on an H100: at NCL's step shape (B = 2048 against N = 943
+// and 1675, d = 64) a call is 4 x 2BNd = 1.0 and 1.8 GFLOP of f32 FFMA
+// (the function's own work is three of those products), 15 and 26 us at
+// 67 TFLOP/s, against about 1.5 MB of inputs and outputs: the operations
+// bound it. At B = 8192 against 100,000 items it is 420 GFLOP. What the
+// design does about it:
+//   * A workspace that does not grow with B x N. The TPU kernel keeps dq in
+//     VMEM across its sequential item blocks; here each side keeps its
+//     output tile in shared memory across the tiles it walks, and only a
+//     split's partial reaches device memory: sq x B x d floats for dq and
+//     sx x N x d for dx. The wrapper's plan (lse_bwd_plan) sizes the
+//     splits so that both sides together fill one wave of the card
+//     (lse_bwd_blocks_per_sm): at NCL's shapes 4 x 32 + 8 x 15 = 248 and
+//     4 x 32 + 5 x 27 = 263 blocks, 4.0 and 4.2 MB of partials; at 8192 x
+//     100,000 the item side's 1563 tiles already pass a wave (sx = 1) and
+//     the query side takes sq = 2: 29.8 MB, where one partial per tile
+//     pair took 6.55 GB.
+//   * Register micro-tiles: each thread owns 4 x 4 scores (owned rows
+//     ty + 16 i, walked rows tx + 16 j) and then 4 x 4 of the product
+//     (rows ty + 16 i, columns 4 tx .. 4 tx + 3 of each 64-column slice),
+//     which it loads from and stores back to its own entries of the
+//     shared accumulator. Every shared load is a float4 that feeds 4 FFMA
+//     for each of 4 rows: 8 loads per 64 FFMA, and a warp is 8 x 4
+//     threads so that each load is one shared-memory wavefront.
+//   * Asynchronous staging: the owned tile is staged once (d <= 64) and
+//     the next walked tile is in flight while the current one is
+//     multiplied. Above d = 64, slices of both stream through two stages
+//     for the scores, and the walked slices once more for the product.
+//     Shared memory: 5 x 64 x 68 floats and the accumulator, 87,040 bytes
+//     at d <= 64 (two blocks an SM) and up to 219,136 at d = 512.
+//   * A fixed-order combine: the splits' partials are added in split
+//     order by a second launch spread over the card, then divided by tau.
+//     No float atomics: a call repeats bit for bit. Two launches a call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -304,9 +306,14 @@ __global__ void __launch_bounds__(BTHREADS) lse_fwd_combine_kernel(const Fwd a) 
 
 // -- K6 -----------------------------------------------------------------------
 
+// Shared memory: d <= BK keeps the owned tile, two walked stages, p and the
+// output accumulator ([BT][BLD] each); above, two stages of (owned slice,
+// walked slice), p, and the accumulator [BT][ns BK + 4].
 size_t bwd_smem_bytes(int d) {
-    const int stages = d > BK ? 2 : 1;
-    return static_cast<size_t>(2 * stages + 2) * BT * BLD * sizeof(float);
+    const int ns = (d + BK - 1) / BK;
+    const size_t tiles = ns == 1 ? 4 : 5;
+    return (tiles * BT * BLD + static_cast<size_t>(BT) * (ns == 1 ? BLD : ns * BK + 4)) *
+           sizeof(float);
 }
 
 struct Bwd {
@@ -316,21 +323,19 @@ struct Bwd {
     const float* g;
     int b, n, d;
     float tau;
+    int wq, sq;      // query side: item tiles a block walks, and the splits of them
+    int wx, sx;      // item side: query tiles a block walks, and the splits of them
     float* dq;
     float* dx;
-    float* dq_part;  // [B-tiles][N-tiles][BT][d]
-    float* dx_part;  // [N-tiles][B-tiles][BT][d]
+    float* dq_part;  // [sq][B][d]
+    float* dx_part;  // [sx][N][d]
     int vec;         // d % 4 == 0 and every pointer 16-byte aligned
 };
 
-// out[r][c] = sum_j p[r][j] * v[j][c] for the thread's rows ty + 16 i and
-// columns 4 tx .. + 3, j < jmax (p is 0 past the tile's valid columns).
+// o[i][c] += sum_j p[ty + 16 i][j] * v[j][4 tx + c] for j < jmax (p is 0
+// past the tile's valid columns), j in order, one FFMA each.
 __device__ __forceinline__ void tile_product(const float* p, const float* v, int jmax, int tx,
                                              int ty, float (&o)[4][4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) o[i][c] = 0.f;
     for (int j = 0; j < jmax; j += 4) {
         float4 pa[4], vb[4];
 #pragma unroll
@@ -351,126 +356,167 @@ __device__ __forceinline__ void tile_product(const float* p, const float* v, int
     }
 }
 
-// The thread's 4 x 4 of a partial into its [BT][d] chunk, columns col0 + ...
-__device__ __forceinline__ void store_part(float* chunk, const float (&o)[4][4], int col0, int d,
-                                           int tx, int ty, bool vec) {
-    const int col = col0 + 4 * tx;
-    if (col >= d) return;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        float* dst = chunk + (size_t)(ty + 16 * i) * d + col;
-        if (vec) {
-            *reinterpret_cast<float4*>(dst) = make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
-        } else {
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-                if (col + c < d) dst[c] = o[i][c];
-        }
-    }
-}
-
+// A block owns one 64-row tile of one side and walks one split of the other
+// side's tiles: on the query side it owns query rows and walks item tiles
+// (its partial dq), on the item side the reverse (its partial dx). For each
+// walked tile it forms the 64 x 64 scores, p = exp(s / tau - lse) * g, and
+// adds p . walked into its [64][d] accumulator, which it writes once at the
+// end as its split's partial.
 __global__ void __launch_bounds__(BTHREADS, 2) lse_bwd_kernel(const Bwd a) {
     extern __shared__ __align__(16) float bwd_smem[];
     const int ns = (a.d + BK - 1) / BK;  // d slices
-    const int stages = ns > 1 ? 2 : 1;
-    // stage s holds the q slice at 2 s tiles and the x slice at 2 s + 1
-    auto qs = [&](int s) { return bwd_smem + 2 * s * BT * BLD; };
-    auto xs = [&](int s) { return bwd_smem + (2 * s + 1) * BT * BLD; };
-    float* ps = bwd_smem + 2 * stages * BT * BLD;        // p [q][x]
-    float* pts = ps + BT * BLD;                       // p [x][q]
-
-    const int xt = blockIdx.x, qt = blockIdx.y, nx = gridDim.x, nq = gridDim.y;
-    const int q0 = qt * BT, x0 = xt * BT;
+    const int nq = (a.b + BT - 1) / BT, nx = (a.n + BT - 1) / BT;
+    int bid = blockIdx.x;
+    const bool qside = bid < nq * a.sq;
+    if (!qside) bid -= nq * a.sq;
+    const int n_own_tiles = qside ? nq : nx;
+    const int own0 = (bid % n_own_tiles) * BT, split = bid / n_own_tiles;
+    const float* own = qside ? a.q : a.x;
+    const float* walk = qside ? a.x : a.q;
+    const int n_own = qside ? a.b : a.n, n_walk = qside ? a.n : a.b;
+    const int w = qside ? a.wq : a.wx;
+    const int t0 = split * w, t1 = min(t0 + w, qside ? nx : nq);
     int tx, ty;
     tile_place(tx, ty);
     const bool vec = a.vec != 0;
 
-    auto issue = [&](int s, int buf) {
-        stage_rows(qs(buf), a.q, a.b, q0, s * BK, a.d, vec);
-        stage_rows(xs(buf), a.x, a.n, x0, s * BK, a.d, vec);
+    // d <= BK: the owned tile at 0, walked stages at 1, 2; above: stage buf
+    // holds its owned slice at 2 buf and its walked slice at 2 buf + 1
+    auto owns = [&](int buf) { return bwd_smem + (ns == 1 ? 0 : 2 * buf * BT * BLD); };
+    auto walks = [&](int buf) { return bwd_smem + (ns == 1 ? 1 + buf : 2 * buf + 1) * BT * BLD; };
+    float* ps = bwd_smem + (ns == 1 ? 3 : 4) * BT * BLD;  // p [owned][walked]
+    float* out = ps + BT * BLD;                          // the accumulator
+    const int old = ns == 1 ? BLD : ns * BK + 4;
+
+    // a walked tile is one stage at d <= BK (scores and product share it);
+    // above, ns scoring stages (both slices) then ns product stages (the
+    // walked slice again)
+    const int per_tile = ns == 1 ? 1 : 2 * ns;
+    const int stages = (t1 - t0) * per_tile;
+    auto issue = [&](int k) {
+        const int t = t0 + k / per_tile, j = k % per_tile, buf = k & 1;
+        const int s = j < ns ? j : j - ns;
+        if (ns > 1 ? j < ns : k == 0) stage_rows(owns(buf), own, n_own, own0, s * BK, a.d, vec);
+        stage_rows(walks(buf), walk, n_walk, t * BT, s * BK, a.d, vec);
         cp_async_commit();
     };
 
-    // scores of the tile: query rows ty + 16 i, item rows tx + 16 j
-    float acc[4][4] = {};
-    issue(0, 0);
-    for (int s = 0; s < ns; ++s) {
-        if (s + 1 < ns) {
-            issue(s + 1, (s + 1) & 1);
+    // this thread's accumulator entries: rows ty + 16 i, columns
+    // s BK + 4 tx .. + 3 of each slice; no other thread touches them
+    for (int s = 0; s < ns; ++s)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+            *reinterpret_cast<float4*>(out + (ty + 16 * i) * old + s * BK + 4 * tx) =
+                make_float4(0.f, 0.f, 0.f, 0.f);
+    float own_l[4], own_g[4];  // the query side's rows' lse and g
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int row = own0 + ty + 16 * i;
+        own_l[i] = qside && row < a.b ? a.lse[row] : 0.f;
+        own_g[i] = qside && row < a.b ? a.g[row] : 0.f;
+    }
+
+    float acc[4][4];
+    issue(0);
+    for (int k = 0; k < stages; ++k) {
+        if (k + 1 < stages) {
+            issue(k + 1);
             cp_async_wait<1>();
         } else {
             cp_async_wait<0>();
         }
-        __syncthreads();
-        const float* Q = qs(s & 1);
-        const float* X = xs(s & 1);
-        tile_scores(Q, X, min(BK, a.d - s * BK), tx, ty, acc);
-        __syncthreads();
-    }
-    if (ns > 1) issue(0, 0);  // dq and dx walk the slices again; the first comes in now
-
-    // p = exp(s / tau - lse) * g, 0 outside B x N
+        __syncthreads();  // stage k is in
+        const int t = t0 + k / per_tile, j = k % per_tile, buf = k & 1;
+        const int walk0 = t * BT;
+        if (j < ns) {
+            if (j == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int row = q0 + ty + 16 * i;
-        const float l = row < a.b ? a.lse[row] : 0.f;
-        const float gg = row < a.b ? a.g[row] : 0.f;
+                for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int col = x0 + tx + 16 * j;
-            const float w = (row < a.b && col < a.n) ? expf(acc[i][j] / a.tau - l) * gg : 0.f;
-            ps[(ty + 16 * i) * BLD + tx + 16 * j] = w;
-            pts[(tx + 16 * j) * BLD + ty + 16 * i] = w;
-        }
-    }
-
-    // partial dq = p . x and dx = p^T . q of this tile, slice by slice of d
-    const int jmax = min(BT, a.n - x0), rmax = min(BT, a.b - q0);
-    float* dq_chunk = a.dq_part + ((size_t)qt * nx + xt) * BT * a.d;
-    float* dx_chunk = a.dx_part + ((size_t)xt * nq + qt) * BT * a.d;
-    for (int s = 0; s < ns; ++s) {
-        if (ns > 1) {
-            if (s + 1 < ns) {
-                issue(s + 1, (s + 1) & 1);
-                cp_async_wait<1>();
-            } else {
-                cp_async_wait<0>();
+                    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+            }
+            tile_scores(owns(buf), walks(buf), min(BK, a.d - j * BK), tx, ty, acc);
+            if (j == ns - 1) {
+                // p = exp(s / tau - lse) * g of the query row, 0 outside B x N
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const bool row_ok = own0 + ty + 16 * i < n_own;
+#pragma unroll
+                    for (int c = 0; c < 4; ++c) {
+                        const int col = walk0 + tx + 16 * c;
+                        float v = 0.f;
+                        if (row_ok && col < n_walk) {
+                            const float l = qside ? own_l[i] : a.lse[col];
+                            const float gg = qside ? own_g[i] : a.g[col];
+                            v = expf(acc[i][c] / a.tau - l) * gg;
+                        }
+                        ps[(ty + 16 * i) * BLD + tx + 16 * c] = v;
+                    }
+                }
+                __syncthreads();  // p is whole
             }
         }
-        __syncthreads();  // p is written and this slice is staged
-        const float* Q = qs(s & 1);
-        const float* X = xs(s & 1);
-        float o[4][4];
-        tile_product(ps, X, jmax, tx, ty, o);
-        store_part(dq_chunk, o, s * BK, a.d, tx, ty, vec);
-        tile_product(pts, Q, rmax, tx, ty, o);
-        store_part(dx_chunk, o, s * BK, a.d, tx, ty, vec);
-        __syncthreads();  // this stage's readers are done before it is refilled
+        if (ns == 1 || j >= ns) {
+            const int s = ns == 1 ? 0 : j - ns;
+            float o[4][4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const float4 v =
+                    *reinterpret_cast<const float4*>(out + (ty + 16 * i) * old + s * BK + 4 * tx);
+                o[i][0] = v.x, o[i][1] = v.y, o[i][2] = v.z, o[i][3] = v.w;
+            }
+            tile_product(ps, walks(buf), min(BT, n_walk - walk0), tx, ty, o);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                *reinterpret_cast<float4*>(out + (ty + 16 * i) * old + s * BK + 4 * tx) =
+                    make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
+        }
+        __syncthreads();  // stage k's readers (and p's) are done before either is refilled
     }
 
+    // the split's partial: this thread's entries, rows below n_own, columns below d
+    float* part = (qside ? a.dq_part : a.dx_part) + (size_t)split * n_own * a.d;
+    for (int s = 0; s < ns; ++s) {
+        const int col = s * BK + 4 * tx;
+        if (col >= a.d) continue;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int row = own0 + ty + 16 * i;
+            if (row >= n_own) continue;
+            const float4 v =
+                *reinterpret_cast<const float4*>(out + (ty + 16 * i) * old + s * BK + 4 * tx);
+            float* dst = part + (size_t)row * a.d + col;
+            if (vec) {
+                *reinterpret_cast<float4*>(dst) = v;
+            } else {
+                const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                    if (col + c < a.d) dst[c] = e[c];
+            }
+        }
+    }
 }
 
 // The fixed-order combine, K6's second launch: dq[row] = (sum of the row's
-// partials over the item tiles, in tile order) / tau, and dx likewise over
-// the query tiles. One thread per 4 outputs (per output where d % 4 != 0).
-__global__ void __launch_bounds__(BTHREADS) lse_bwd_combine_kernel(const Bwd a, int nq, int nx) {
+// partials over the query side's splits, in split order) / tau, and dx
+// likewise over the item side's. One thread per 4 outputs (per output
+// where d % 4 != 0).
+__global__ void __launch_bounds__(BTHREADS) lse_bwd_combine_kernel(const Bwd a) {
     const int w = a.vec ? 4 : 1;
     const long long per_row = a.d / w;
     const long long n_dq = (long long)a.b * per_row, n_all = n_dq + (long long)a.n * per_row;
     const long long e = (long long)blockIdx.x * BTHREADS + threadIdx.x;
     if (e >= n_all) return;
     const bool is_dq = e < n_dq;
-    const long long e_side = is_dq ? e : e - n_dq;
-    const int row = static_cast<int>(e_side / per_row), col = static_cast<int>(e_side % per_row) * w;
-    const int n_parts = is_dq ? nx : nq;
-    // chunk (tile, t) of this side, row row % BT
-    const float* p = (is_dq ? a.dq_part : a.dx_part) +
-                     ((size_t)(row / BT) * n_parts * BT + row % BT) * a.d + col;
-    const size_t stride = (size_t)BT * a.d;
-    float* out = (is_dq ? a.dq : a.dx) + (size_t)row * a.d + col;
+    const long long off = (is_dq ? e : e - n_dq) * w;  // row * d + col
+    const int n_parts = is_dq ? a.sq : a.sx;
+    const float* p = (is_dq ? a.dq_part : a.dx_part) + off;
+    const size_t stride = (size_t)(is_dq ? a.b : a.n) * a.d;
+    float* out = (is_dq ? a.dq : a.dx) + off;
     if (w == 4) {
         float4 s = __ldcg(reinterpret_cast<const float4*>(p));
-#pragma unroll 8
+#pragma unroll 4
         for (int t = 1; t < n_parts; ++t) {
             const float4 v = __ldcg(reinterpret_cast<const float4*>(p + t * stride));
             s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
@@ -479,7 +525,7 @@ __global__ void __launch_bounds__(BTHREADS) lse_bwd_combine_kernel(const Bwd a, 
                                                       s.w / a.tau);
     } else {
         float s = __ldcg(p);
-#pragma unroll 8
+#pragma unroll 4
         for (int t = 1; t < n_parts; ++t) s += __ldcg(p + t * stride);
         *out = s / a.tau;
     }
@@ -501,8 +547,8 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 // at most lse_max_d(); the wrapper checks both.
 extern "C" int lse_max_d() { return 512; }
 
-// The tile (BT rows of q and of x): the wrappers size K5's splits and K6's
-// workspace with it.
+// The tile (BT rows of q and of x): the wrappers size K5's and K6's splits
+// with it.
 extern "C" int lse_tile() { return BT; }
 
 // K5's blocks that one SM holds at once (0 if the runtime cannot say): the
@@ -532,23 +578,38 @@ extern "C" int lse_fwd_f32(const float* q, const float* x, int b, int n, int d, 
     return static_cast<int>(cudaGetLastError());
 }
 
-// K6: dq [B, d] and dx [N, d], two launches: the tiles, then the combine.
-// dq_part and dx_part hold ceil(B/BT) x ceil(N/BT) x BT x d floats each.
+// K6's blocks that one SM holds at once (0 if the runtime cannot say): the
+// wrapper's plan sizes the splits to one wave from it.
+extern "C" int lse_bwd_blocks_per_sm(int d) {
+    const size_t smem = bwd_smem_bytes(d);
+    int blocks = 0;
+    if (prepare(lse_bwd_kernel, smem) != 0 ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, lse_bwd_kernel, BTHREADS, smem) !=
+            cudaSuccess)
+        return 0;
+    return blocks;
+}
+
+// K6: dq [B, d] and dx [N, d], two launches: the two sides' split blocks,
+// then the combine. The query side's blocks walk wq item tiles in each of
+// sq splits, the item side's wx query tiles in each of sx splits; dq_part
+// holds sq x B x d floats and dx_part sx x N x d.
 extern "C" int lse_bwd_f32(const float* q, const float* x, const float* lse, const float* g,
-                           int b, int n, int d, float tau, float* dq, float* dx, float* dq_part,
-                           float* dx_part, void* stream) {
+                           int b, int n, int d, float tau, int wq, int sq, int wx, int sx,
+                           float* dq, float* dx, float* dq_part, float* dx_part, void* stream) {
     const size_t smem = bwd_smem_bytes(d);
     if (int err = prepare(lse_bwd_kernel, smem)) return err;
     const bool vec = d % 4 == 0 && aligned16(q) && aligned16(x) && aligned16(dq) &&
                      aligned16(dx) && aligned16(dq_part) && aligned16(dx_part);
-    const Bwd a{q, x, lse, g, b, n, d, tau, dq, dx, dq_part, dx_part, vec ? 1 : 0};
+    const Bwd a{q, x, lse, g, b, n, d, tau, wq, sq, wx, sx, dq, dx, dq_part, dx_part,
+                vec ? 1 : 0};
     const int nq = (b + BT - 1) / BT, nx = (n + BT - 1) / BT;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    lse_bwd_kernel<<<dim3(nx, nq), BTHREADS, smem, s>>>(a);
+    lse_bwd_kernel<<<nq * sq + nx * sx, BTHREADS, smem, s>>>(a);
     if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
     const long long outs = (long long)(b + n) * (vec ? d / 4 : d);
     lse_bwd_combine_kernel<<<static_cast<unsigned>((outs + BTHREADS - 1) / BTHREADS), BTHREADS, 0,
-                             s>>>(a, nq, nx);
+                             s>>>(a);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -394,12 +394,14 @@ def _source(x: torch.Tensor, compute_dtype: str) -> torch.Tensor:
     return x.to(torch.bfloat16) if packs_bf16(compute_dtype, x.shape[1]) else x.float()
 
 
-def pull(csr: BucketedCSR, x: torch.Tensor, compute_dtype: str = "float32") -> torch.Tensor:
+def pull(csr: BucketedCSR, x: torch.Tensor, compute_dtype: str = "float32",
+         ops: Ops = KERNELS) -> torch.Tensor:
     """Node-space ``A @ x`` (f32 [n_rows, d]): P1 over the buckets into
-    concat rows plus the zero row, then K7 by ``gather_pos``."""
-    concat = gather_sum(_source(x, compute_dtype).contiguous(), csr.idx, csr.row_ptr,
-                        val=csr.val, schedule=csr.schedule)
-    return gather_rows(concat, csr.gather_pos)
+    concat rows plus the zero row, then K7 by ``gather_pos`` (``PLAIN``: their
+    plain versions, which autograd can differentiate)."""
+    concat = ops.gsum(_source(x, compute_dtype).contiguous(), csr.idx, csr.row_ptr,
+                      val=csr.val, schedule=csr.schedule)
+    return ops.rows(concat, csr.gather_pos)
 
 
 def pull_rowspace(csr: BucketedCSR, xp: torch.Tensor, compute_dtype: str = "float32",

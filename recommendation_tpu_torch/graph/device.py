@@ -1,16 +1,20 @@
 """Device-resident graph state for serving and training, on the dense and
 the bucketed backends.
 
-Counterpart of ``recommendation_tpu/graph/device.py``: ``DeviceAdj`` and
-``from_scipy``/``with_vals`` for the bucketed backend, and ``DeviceGraph``:
+Counterpart of ``recommendation_tpu/graph/device.py``: ``DeviceAdj`` with
+``from_scipy``, ``with_vals``, ``binarized``, ``densify`` and ``transpose``
+on the dense and the bucketed backends, and ``DeviceGraph``:
 the backend choice, the padded edge list, the per-user positives table used
 to mask train items out of a top-k, the user degrees, the sampler's
 membership tables (CSR, guaranteed-negative fallbacks, packed bitmap, dense
 mask) and the propagation operator: on the dense backend the normalized
 interaction block R̂ = D_u^-1/2 R D_i^-1/2 that the LightGCN layer chain
-multiplies by, on the bucketed backend (graphs whose (U+I)² passes
-``DENSE_MAX_ELEMENTS``) the gather-only pull tables of the normalized
-bipartite adjacency, ``norm_adj`` (``graph/bucketed.py``). Tables are built
+multiplies by, and the normalized bipartite adjacency ``norm_adj`` as a
+``DeviceAdj``: on the dense backend its COO, uploaded at first access, and
+its (U+I)² matrix, built from the COO at the first product (R̂-only models
+never touch either), on the bucketed backend
+(graphs whose (U+I)² passes ``DENSE_MAX_ELEMENTS``) its gather-only pull
+tables (``graph/bucketed.py``). Tables are built
 on the host with the same numpy code as the JAX package and uploaded once,
 so each equals the JAX one bit for bit.
 
@@ -19,9 +23,9 @@ padded to 64 words (a TPU gather-width workaround; the first W + 8 columns
 are the same); ``norm_adj_selfloops`` comes with GRACE/G-BT and
 ``normalized_bipartite`` with its bucketed augmentation templates
 (``_bipartite_pull_tpl``) with the augmenting models (ROADMAP queue 1,
-item 9); ``gat_aux`` with GAT (item 10). The dense backend keeps no
-``norm_adj`` (its chain reads R̂). The segment and pallas backends are not
-ported (item 10).
+item 9); ``gat_aux`` with GAT (item 10). The segment and pallas backends
+are not ported (item 10), nor ``DeviceAdj.rows_sorted``, which only the
+segment path reads.
 """
 
 from __future__ import annotations
@@ -86,16 +90,17 @@ def _check_compute_dtype(compute_dtype: str) -> None:
 
 @dataclasses.dataclass
 class DeviceAdj:
-    """A normalized sparse adjacency on the device, as its bucketed pull
-    tables. ``rows``/``cols``/``vals`` are the COO (row-sorted) padded to a
-    multiple of ``EDGE_PAD`` with zero-valued ``(n_rows-1, n_cols-1)``
-    entries; ``pull`` and ``pull_t`` are the bucketed tables of A and Aᵀ,
-    whose slot→edge maps point into ``vals`` positions (so ``with_vals``
-    refreshes both); ``sym_rowspace`` says that they share ``gather_pos``,
-    the precondition of the row-space chain (``bucketed_chain_mean``). The
-    JAX class's ``dense`` field belongs to its dense backend, which the port
-    runs on R̂ instead, and ``rows_sorted`` and ``transpose`` to its segment
-    path and its other models."""
+    """A normalized sparse adjacency on the device. ``rows``/``cols``/``vals``
+    are the COO (row-sorted as built) padded to a multiple of ``EDGE_PAD``
+    with zero-valued ``(n_rows-1, n_cols-1)`` entries. On the dense backend
+    ``dense`` is the materialized f32 [n_rows, n_cols] matrix, built from
+    the COO at first access and kept, and ``dense_operand`` the matrix that
+    ``adj_matmul`` multiplies by (in the bf16 regime ``dense`` rounded to
+    bf16 once, kept in f32). On the bucketed backend ``pull`` and
+    ``pull_t`` are the bucketed tables of A and Aᵀ, whose slot→edge maps
+    point into ``vals`` positions (so ``with_vals`` refreshes both);
+    ``sym_rowspace`` says that they share ``gather_pos``, the precondition
+    of the row-space chain (``bucketed_chain_mean``)."""
 
     rows: torch.Tensor  # i32[E_pad]
     cols: torch.Tensor  # i32[E_pad]
@@ -107,12 +112,67 @@ class DeviceAdj:
     pull: Optional[BucketedCSR] = None
     pull_t: Optional[BucketedCSR] = None
     sym_rowspace: bool = False
+    _dense: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
+    _dense_operand: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
+
+    @property
+    def shape(self):
+        return (self.n_rows, self.n_cols)
+
+    @property
+    def dense(self) -> Optional[torch.Tensor]:
+        """The f32 [n_rows, n_cols] matrix on the dense backend (None on the
+        others): the COO's values added at their coordinates."""
+        if self.backend != "dense":
+            return None
+        if self._dense is None:
+            self._dense = _coo_to_dense(self)
+        return self._dense
+
+    @property
+    def dense_operand(self) -> Optional[torch.Tensor]:
+        """``dense`` as the dense product reads it: in the bf16 regime each
+        entry rounded to bf16 (to nearest even) and kept as f32, so a plain
+        f32 product sums the exact bf16 products in f32, as the JAX
+        package's bf16 dot with f32 accumulation does; else ``dense``
+        itself. Rounded at first access and kept."""
+        if self.backend != "dense" or self.compute_dtype != "bfloat16":
+            return self.dense
+        if self._dense_operand is None:
+            self._dense_operand = self.dense.to(torch.bfloat16).float()
+        return self._dense_operand
+
+    def transpose(self) -> "DeviceAdj":
+        """Aᵀ. Without bucketed tables the COO is re-sorted by its new rows
+        (a stable sort, as the JAX package's); with them it keeps its
+        positions, which their slot→edge maps index."""
+        if self.pull is not None or self.pull_t is not None:
+            order = torch.arange(self.vals.shape[0], device=self.vals.device)
+        else:
+            order = torch.argsort(self.cols, stable=True)
+        return DeviceAdj(rows=self.cols[order], cols=self.rows[order], vals=self.vals[order],
+                         n_rows=self.n_cols, n_cols=self.n_rows, backend=self.backend,
+                         compute_dtype=self.compute_dtype, pull=self.pull_t, pull_t=self.pull,
+                         sym_rowspace=self.sym_rowspace,
+                         _dense=None if self._dense is None else self._dense.T,
+                         _dense_operand=None if self._dense_operand is None
+                         else self._dense_operand.T)
+
+
+def _coo_to_dense(adj: DeviceAdj) -> torch.Tensor:
+    """The COO as an f32 [n_rows, n_cols] matrix. A coordinate appears once,
+    apart from the zero-valued padding at the corner, so the sum is exact
+    in any order."""
+    out = torch.zeros((adj.n_rows, adj.n_cols), dtype=torch.float32, device=adj.vals.device)
+    out.index_put_((adj.rows.long(), adj.cols.long()), adj.vals.float(), accumulate=True)
+    return out
 
 
 def from_scipy(mat: sp.spmatrix, backend: str = "auto", compute_dtype: str = "float32",
                device="cuda") -> DeviceAdj:
-    """Upload a scipy sparse matrix as a DeviceAdj on the bucketed backend
-    (the only one the port keeps a ``DeviceAdj`` for)."""
+    """Upload a scipy sparse matrix as a DeviceAdj on the dense or the
+    bucketed backend (one host-to-device copy; the dense matrix is built
+    on the device at first access)."""
     _check_compute_dtype(compute_dtype)
     dev = resolve_device(device)
     coo = sp.coo_matrix(mat, dtype=np.float32)
@@ -128,11 +188,10 @@ def from_scipy(mat: sp.spmatrix, backend: str = "auto", compute_dtype: str = "fl
         vals = coo.data[order].astype(np.float32)
     n_rows, n_cols = coo.shape
     backend = choose_backend(n_rows, n_cols, backend)
-    if backend != "bucketed":
+    if backend not in ("dense", "bucketed"):
         raise NotImplementedError(
-            f"from_scipy builds the bucketed backend only, not {backend!r}: the port's dense "
-            "chain reads R̂ (DeviceGraph.propagation_matrix), and the segment backend is not "
-            "ported yet (ROADMAP queue 1, item 10)")
+            f"from_scipy builds the dense and the bucketed backends, not {backend!r}: the "
+            "segment backend is not ported yet (ROADMAP queue 1, item 10)")
 
     e_pad = max(EDGE_PAD, _round_up(len(vals), EDGE_PAD))
     # pad with (n_rows-1, n_cols-1) zero edges: padding must be symmetric, or
@@ -140,18 +199,21 @@ def from_scipy(mat: sp.spmatrix, backend: str = "auto", compute_dtype: str = "fl
     rows = np.pad(rows, (0, e_pad - len(rows)), constant_values=n_rows - 1)
     cols = np.pad(cols, (0, e_pad - len(cols)), constant_values=n_cols - 1)
     vals = np.pad(vals, (0, e_pad - len(vals)))
-    # slot->edge maps index the padded COO positions, so one [E_pad] vector
-    # refreshes both directions
-    eids = np.arange(e_pad, dtype=np.int32)
-    pull = build_bucketed(rows, cols, vals, n_rows, n_cols, edge_ids=eids, device=dev)
-    pull_t = build_bucketed(cols, rows, vals, n_cols, n_rows, edge_ids=eids, device=dev)
-    # symmetric patterns (the normalized bipartite adjacency always is) put
-    # both directions in one row space: the precondition for the chain
-    sym_rowspace = n_rows == n_cols and bool(torch.equal(pull.gather_pos, pull_t.gather_pos))
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+    pull = pull_t = None
+    sym_rowspace = False
+    if backend == "bucketed":
+        # slot->edge maps index the padded COO positions, so one [E_pad]
+        # vector refreshes both directions
+        eids = np.arange(e_pad, dtype=np.int32)
+        pull = build_bucketed(rows, cols, vals, n_rows, n_cols, edge_ids=eids, device=dev)
+        pull_t = build_bucketed(cols, rows, vals, n_cols, n_rows, edge_ids=eids, device=dev)
+        # symmetric patterns (the normalized bipartite adjacency always is)
+        # put both directions in one row space: the precondition for the chain
+        sym_rowspace = n_rows == n_cols and bool(torch.equal(pull.gather_pos, pull_t.gather_pos))
     return DeviceAdj(rows=put(rows), cols=put(cols), vals=put(vals), n_rows=n_rows,
                      n_cols=n_cols, backend=backend, compute_dtype=compute_dtype, pull=pull,
                      pull_t=pull_t, sym_rowspace=sym_rowspace)
@@ -160,12 +222,27 @@ def from_scipy(mat: sp.spmatrix, backend: str = "auto", compute_dtype: str = "fl
 def with_vals(adj: DeviceAdj, vals: torch.Tensor) -> DeviceAdj:
     """The same pattern with new edge values (aligned to ``adj.vals``
     positions): the hook every value-level augmentation goes through. The
-    bucketed tables are refreshed on the device."""
+    dense matrix is rebuilt from them (at its first access) and the
+    bucketed tables are refreshed on the device, which keeps
+    ``sym_rowspace``."""
     return dataclasses.replace(
-        adj, vals=vals,
+        adj, vals=vals, _dense=None, _dense_operand=None,
         pull=None if adj.pull is None else refresh_vals(adj.pull, vals),
         pull_t=None if adj.pull_t is None else refresh_vals(adj.pull_t, vals),
     )
+
+
+def binarized(adj: DeviceAdj) -> DeviceAdj:
+    """The same pattern with every stored value 1: the raw adjacency (DirectAU's
+    reference script propagates over it, `directau.py:132-141`)."""
+    return with_vals(adj, (adj.vals > 0).to(torch.float32))
+
+
+def densify(adj: DeviceAdj) -> torch.Tensor:
+    """The dense matrix of ``adj`` on its device, on any backend."""
+    if adj.backend == "dense":
+        return adj.dense
+    return _coo_to_dense(adj)
 
 
 def _fallback_negatives(mat0, degs, n_users: int, n_items: int) -> np.ndarray:
@@ -215,10 +292,12 @@ class DeviceGraph:
     n_items]; in the bfloat16 regime ``interaction_norm_bf16`` holds it once
     more, cast to bf16 (round to nearest even, as the JAX chain's
     ``astype``). Both are views with a row stride padded to a multiple of
-    ``R_ROW_ALIGN`` elements (``_row_aligned``). ``propagation_matrix`` is the one the layer chain
-    multiplies by. Bucketed backend: ``norm_adj`` is the normalized
-    bipartite adjacency D^-1/2 A D^-1/2 over the U + I nodes as a
-    ``DeviceAdj``; there is no R̂ and ``propagation_matrix`` raises. The
+    ``R_ROW_ALIGN`` elements (``_row_aligned``). ``propagation_matrix`` is
+    the one the layer chain multiplies by. On both backends ``norm_adj`` is
+    the normalized bipartite adjacency D^-1/2 A D^-1/2 over the U + I nodes
+    as a ``DeviceAdj`` (dense: uploaded at first access, its matrix built at
+    the first product; bucketed: its pull tables, built with the graph); the
+    bucketed backend has no R̂ and ``propagation_matrix`` raises there. The
     ``data`` may be an ``Interaction`` or a ``data.synthetic.ArrayInteraction``.
 
     Sampler tables (i32 unless noted): ``edge_users``/``edge_items`` and
@@ -329,11 +408,12 @@ class DeviceGraph:
         else:
             self.user_pos_mask = torch.zeros((1, 1), dtype=torch.int8, device=dev)
 
-        self.interaction_norm_dense = self.interaction_norm_bf16 = self.norm_adj = None
+        self.interaction_norm_dense = self.interaction_norm_bf16 = None
+        # the normalized bipartite adjacency (``norm_adj``): the bucketed
+        # backend's pull tables now, the dense backend's COO at first access
+        self._norm_adj_host = data.norm_adj
+        self._norm_adj = None if self.backend == "dense" else self._upload_norm_adj()
         if self.backend == "bucketed":
-            # the normalized bipartite adjacency as gather-only pull tables
-            self.norm_adj = from_scipy(data.norm_adj, backend="bucketed",
-                                       compute_dtype=compute_dtype, device=dev)
             return
         # Dense R̂: the bipartite adjacency is [[0, R̂], [R̂ᵀ, 0]], so one
         # propagation round is R̂ · I and R̂ᵀ · U.
@@ -349,14 +429,33 @@ class DeviceGraph:
                                                       torch.bfloat16, dev)
 
     @property
+    def norm_adj(self) -> DeviceAdj:
+        """The normalized bipartite adjacency D^-1/2 A D^-1/2 over the U + I
+        nodes as a ``DeviceAdj``: built with the graph on the bucketed
+        backend, whose chain every model runs through it, and uploaded at
+        first access on the dense one, where only the square-adjacency
+        models (DirectAU) read it."""
+        if self._norm_adj is None:
+            self._norm_adj = self._upload_norm_adj()
+        return self._norm_adj
+
+    def _upload_norm_adj(self) -> DeviceAdj:
+        adj = from_scipy(self._norm_adj_host, backend=self.backend,
+                         compute_dtype=self.compute_dtype, device=self.device)
+        self._norm_adj_host = None
+        return adj
+
+    @property
     def propagation_matrix(self) -> torch.Tensor:
         """R̂ in the compute dtype: what the dense layer chain multiplies by.
         The bucketed backend has no R̂ (its chain pulls through
         ``norm_adj``)."""
         if self.backend != "dense":
             raise NotImplementedError(
-                f"the {self.backend} backend has no dense R̂: models that multiply by it "
-                "(NCL, ROADMAP queue 1, item 15) are not ported to this backend yet")
+                f"the {self.backend} backend has no dense R̂: the dense layer chain (kernels "
+                "K1-K4) reads it; LightGCN, NCL and DirectAU propagate through norm_adj on "
+                "this backend, and the models still to come to it are ROADMAP queue 1, "
+                "item 15")
         if self.interaction_norm_bf16 is not None:
             return self.interaction_norm_bf16
         return self.interaction_norm_dense

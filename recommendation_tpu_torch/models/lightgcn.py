@@ -3,7 +3,8 @@
 Counterpart of ``recommendation_tpu/models/lightgcn.py`` on the dense and
 the bucketed backends: ``lightgcn_propagate``'s bipartite dense branch
 (``return_layers=False``) in the f32 and the bf16 regime,
-``lightgcn_propagate_bucketed`` for its bucketed branches, and
+``lightgcn_propagate_square`` for its branches over the square adjacency
+(``norm_adj``, dense or bucketed, with ``return_layers``), and
 ``LightGCN.init/propagate/loss/eval_embeddings``. Config:
 ``LightGCN.n_layers`` (default 3), ``loss`` in {'bpr', 'bce', 'pointwise'},
 ``n_negs`` (extra negatives per edge, `lightgcn.py:93-104`),
@@ -42,13 +43,14 @@ def lightgcn_propagate(
     return ChainMean.apply(r_hat, user_emb.contiguous(), item_emb.contiguous(), n_layers)
 
 
-def lightgcn_propagate_bucketed(user_emb: torch.Tensor, item_emb: torch.Tensor, norm_adj,
-                                n_layers: int, return_layers: bool = False):
+def lightgcn_propagate_square(user_emb: torch.Tensor, item_emb: torch.Tensor, norm_adj,
+                              n_layers: int, return_layers: bool = False):
     """The same readout over the square normalized adjacency ``norm_adj``
-    (a bucketed ``DeviceAdj``) on the stacked [users; items] table: the
-    fused row-space chain where both directions share a row space
-    (``sym_rowspace``), else, and for ``return_layers``, L ``adj_matmul``
-    rounds. ``return_layers`` adds the list of the L + 1 layer tables."""
+    (a dense or bucketed ``DeviceAdj``) on the stacked [users; items]
+    table: the fused row-space chain where both bucketed directions share
+    a row space (``sym_rowspace``), else, and for ``return_layers``, L
+    ``adj_matmul`` rounds (on the dense backend, products with the (U+I)²
+    matrix). ``return_layers`` adds the list of the L + 1 layer tables."""
     n_users = user_emb.shape[0]
     ego = torch.cat([user_emb, item_emb])
     if not return_layers and norm_adj.sym_rowspace:
@@ -89,8 +91,8 @@ class LightGCN(Model):
 
     def propagate(self, params, graph):
         if graph.backend == "bucketed":
-            return lightgcn_propagate_bucketed(params["user_emb"], params["item_emb"],
-                                               graph.norm_adj, self.n_layers)
+            return lightgcn_propagate_square(params["user_emb"], params["item_emb"],
+                                             graph.norm_adj, self.n_layers)
         return lightgcn_propagate(
             params["user_emb"], params["item_emb"], graph.propagation_matrix, self.n_layers
         )

@@ -8,13 +8,18 @@ A LightGCN encoder whose loss adds to BPR on the layer mean (`ncl.py:282-422`):
   * ProtoNCE against k-means clusters of the mean embeddings
     (`ncl.py:369-375`), ``info_nce`` × B.
 
-NCL runs on the dense backend; ``init`` raises on the bucketed one (ROADMAP
-queue 1, item 15). The forward is ``ops.prop.ChainMeanLayer`` (kernels K3
+On the dense backend the forward is ``ops.prop.ChainMeanLayer`` (kernels K3
 forward, K4 backward on the card), which returns the mean and the context
 layer in one chain; with a context index of 0 the context is layer 0 and the
-chain is LightGCN's (``ChainMean``). Both denominators go through
-``ops.lse.CatalogLSE`` (K5 forward, K6 backward). The E-step runs the mean through ``chain_mean``
-(K1) under ``no_grad`` and clusters it with ``ops/kmeans.py``: once every
+chain is LightGCN's (``ChainMean``). On the bucketed backend it is the JAX
+package's fallback: L ``adj_matmul`` rounds over ``norm_adj``
+(``lightgcn_propagate_square(return_layers=True)``: each a P1 pull and a K7
+reorder, and the same through the transpose in the backward), the mean of
+the L + 1 layers, and the context layer from the list. Both denominators go
+through ``ops.lse.CatalogLSE`` (K5 forward, K6 backward). The E-step runs the
+mean under ``no_grad`` through ``chain_mean`` (K1) on the dense backend, the
+bucketed chain (K7 and P1) on the other, and clusters it with
+``ops/kmeans.py``: once every
 ``NCL.e_step_cadence`` epochs (always at epoch 0), or inside every loss with
 ``NCL.e_step_cadence='batch'``, on detached embeddings. Every random draw of
 an E-step comes from ``cluster_draws`` (the init rows, and the mini-batch
@@ -33,7 +38,10 @@ import torch
 from recommendation_tpu_torch.losses import _l2_normalize as _l2n
 from recommendation_tpu_torch.losses import bpr_loss, info_nce, l2_reg_loss
 from recommendation_tpu_torch.models.base import Model
-from recommendation_tpu_torch.models.lightgcn import lightgcn_propagate
+from recommendation_tpu_torch.models.lightgcn import (
+    lightgcn_propagate,
+    lightgcn_propagate_square,
+)
 from recommendation_tpu_torch.models.registry import register
 from recommendation_tpu_torch.ops.kmeans import (
     kmeans,
@@ -75,10 +83,6 @@ class NCL(Model):
         return min(self.num_clusters, max(2, n // 39))
 
     def init(self, generator: torch.Generator, graph):
-        if graph.backend != "dense":
-            raise NotImplementedError(
-                f"NCL on the {graph.backend} backend is not ported yet (ROADMAP queue 1, "
-                "item 15): its chain and catalog denominators run on the dense backend")
         params = {
             "user_emb": self._init_table(generator, graph.n_users, self.emb_size, graph.device),
             "item_emb": self._init_table(generator, graph.n_items, self.emb_size, graph.device),
@@ -106,8 +110,13 @@ class NCL(Model):
         """(user_all, item_all, (u0, i0), (u_k, i_k)) with k = the context
         index min(2·hyper_layers, L): what ``loss`` consumes."""
         u0, i0 = params["user_emb"], params["item_emb"]
-        r = graph.propagation_matrix
         ctx_idx = min(self.hyper_layers * 2, self.n_layers)
+        if graph.backend == "bucketed":
+            au, ai, layers = lightgcn_propagate_square(u0, i0, graph.norm_adj, self.n_layers,
+                                                       return_layers=True)
+            ctx = layers[ctx_idx]
+            return au, ai, (u0, i0), (ctx[:graph.n_users], ctx[graph.n_users:])
+        r = graph.propagation_matrix
         if ctx_idx >= 1:
             au, ai, uk, ik = self._chain_layer(r, u0, i0, ctx_idx)
             return au, ai, (u0, i0), (uk, ik)
@@ -151,10 +160,13 @@ class NCL(Model):
         if epoch % max(1, self.e_step_cadence) != 0 and epoch > 0:
             return state
         with torch.no_grad():
-            user_all, item_all = chain_mean(graph.propagation_matrix,
-                                            params["user_emb"].detach().contiguous(),
-                                            params["item_emb"].detach().contiguous(),
-                                            self.n_layers)
+            if graph.backend == "bucketed":
+                user_all, item_all = self.eval_embeddings(params, state, graph)
+            else:
+                user_all, item_all = chain_mean(graph.propagation_matrix,
+                                                params["user_emb"].detach().contiguous(),
+                                                params["item_emb"].detach().contiguous(),
+                                                self.n_layers)
         return self.e_step(user_all, item_all, self.cluster_draws(generator, graph))
 
     # -- loss -------------------------------------------------------------------
@@ -202,5 +214,8 @@ class NCL(Model):
 
     def eval_embeddings(self, params, state, graph):
         with torch.no_grad():
+            if graph.backend == "bucketed":
+                return lightgcn_propagate_square(params["user_emb"], params["item_emb"],
+                                                 graph.norm_adj, self.n_layers)
             return lightgcn_propagate(params["user_emb"], params["item_emb"],
                                       graph.propagation_matrix, self.n_layers)

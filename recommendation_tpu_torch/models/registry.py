@@ -5,7 +5,7 @@ from __future__ import annotations
 _REGISTRY: dict[str, type] = {}
 
 # modules of the port that register models; more join as slices land
-_MODEL_MODULES = ("lightgcn", "ncl")
+_MODEL_MODULES = ("lightgcn", "ncl", "directau")
 
 
 def register(name: str):

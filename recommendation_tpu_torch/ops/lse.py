@@ -15,13 +15,17 @@ splits of ``w`` 64-row item tiles (``lse_fwd_plan``: the fewest tiles that
 keep the grid within one wave of the card), each block writing one (max,
 sum) pair per query row and split, and a second launch merges the splits
 in split order; ``catalog_lse_split_plain`` is that split arithmetic in
-plain torch, for the tests. ``catalog_lse_bwd`` launches K6, which takes dq
-and dx from one pass over the scores (each block a 64 x 64 tile writing
-partial sums; ``lse_bwd_workspace`` sizes them) and then adds the partials
-in tile order in a second, combining launch; it runs
-``catalog_lse_bwd_plain`` for CPU tensors. There is no fallback on the card
-and no size threshold: a CUDA input goes through the kernel or the call
-raises. ``catalog_lse.launches`` counts K5's launches and
+plain torch, for the tests. ``catalog_lse_bwd`` launches K6 in two sides:
+blocks that own a query tile and walk a split of item tiles (dq), and
+blocks that own an item tile and walk a split of query tiles (dx), each
+keeping its output tile on chip across the walk and writing one partial a
+split (``lse_bwd_plan`` sizes the splits to one wave,
+``lse_bwd_workspace`` counts the partials: splits x (B or N) x d floats, not
+B x N x d / 64); a second launch adds the partials in split order. It runs
+``catalog_lse_bwd_plain`` for CPU tensors; ``catalog_lse_bwd_split_plain``
+is K6's split arithmetic in plain torch, for the tests. There is no
+fallback on the card and no size threshold: a CUDA input goes through the
+kernel or the call raises. ``catalog_lse.launches`` counts K5's launches and
 ``catalog_lse_bwd.launches`` K6's; ``.launches_per_call`` says how many a
 call makes (2 and 2).
 ``CatalogLSE`` saves ``(q, x, lse)`` as ``_clse_fwd`` does and recomputes
@@ -35,8 +39,8 @@ the kernel's [B, block_n] score tile inside the TPU's scoped VMEM),
 ``_auto_block_n`` (the item-block size from that VMEM budget) and
 ``interpret`` (Pallas's CPU mode; here the CPU runs the plain version). The
 H100 kernels stream fixed tiles through shared memory at any B and N.
-``uniformity_streaming`` is not a kernel (a ``lax.scan``); it comes with
-DirectAU.
+``uniformity_streaming`` is not a kernel (a ``lax.scan``): it is a loop of
+plain products in ``losses.py``.
 """
 
 from __future__ import annotations
@@ -93,6 +97,54 @@ def catalog_lse_bwd_plain(q: torch.Tensor, x: torch.Tensor, tau: float, lse: tor
     return p @ x / tau, p.T @ q / tau
 
 
+def lse_bwd_plan(b: int, n: int, slots: int) -> tuple[int, int, int, int]:
+    """(wq, sq, wx, sx) of K6 for q [b, d] against x [n, d] on a card that
+    holds ``slots`` of its blocks at once. Each of the 2·nq·nx (query tile,
+    item tile) visits belongs to one block; a block walks about
+    2·nq·nx / slots of them, so both sides together make about one wave:
+    the query side's blocks walk ``wq`` item tiles in each of ``sq``
+    splits, the item side's ``wx`` query tiles in each of ``sx`` splits.
+    A side whose own tiles already pass the wave takes one split. The
+    splits are balanced and none is empty."""
+    nq, nx = -(-b // TILE), -(-n // TILE)
+    walk = max(1, -(-2 * nq * nx // slots))
+
+    def side(tiles):
+        w = -(-tiles // -(-tiles // min(tiles, walk)))
+        return w, -(-tiles // w)
+
+    return (*side(nx), *side(nq))
+
+
+def lse_bwd_workspace(b: int, n: int, d: int, slots: int) -> int:
+    """The floats of K6's partials for q [b, d] against x [n, d]: sq x b x d
+    of dq and sx x n x d of dx (``lse_bwd_plan``), at most
+    max(sq, sx) x (b + n) x d."""
+    _, sq, _, sx = lse_bwd_plan(b, n, slots)
+    return (sq * b + sx * n) * d
+
+
+def catalog_lse_bwd_split_plain(q: torch.Tensor, x: torch.Tensor, tau: float, lse: torch.Tensor,
+                                g: torch.Tensor, plan: tuple[int, int, int, int]):
+    """K6's arithmetic in plain torch: each side's split adds its walked
+    64-row tiles' products in tile order into one partial, the partials
+    are added in split order, then divided by τ. ``plan`` is
+    ``lse_bwd_plan``'s (wq, sq, wx, sx). Used by the tests."""
+    wq, _, wx, _ = plan
+    p = torch.exp(q @ x.T / tau - lse[:, None]) * g[:, None]
+
+    def side(pt, walked, w):  # pt [own, walked]: sum over walked tiles, split by split
+        total = None
+        for c0 in range(0, walked.shape[0], w * TILE):
+            part = torch.zeros(pt.shape[0], walked.shape[1], dtype=pt.dtype, device=pt.device)
+            for t0 in range(c0, min(c0 + w * TILE, walked.shape[0]), TILE):
+                part = part + pt[:, t0:t0 + TILE] @ walked[t0:t0 + TILE]
+            total = part if total is None else total + part
+        return total / tau
+
+    return side(p, x, wq), side(p.T, q, wx)
+
+
 def _check(name, q, x, *rows):
     if q.dim() != 2 or x.dim() != 2 or q.shape[1] != x.shape[1]:
         raise ValueError(f"{name} wants q [B, d] and x [N, d], got {tuple(q.shape)}, "
@@ -124,8 +176,10 @@ def _kernel_lib():
         lib.lse_fwd_f32.restype = i32
         lib.lse_fwd_blocks_per_sm.argtypes = [i32]
         lib.lse_fwd_blocks_per_sm.restype = i32
-        lib.lse_bwd_f32.argtypes = [ptr] * 4 + [i32, i32, i32, f32] + [ptr] * 5
+        lib.lse_bwd_f32.argtypes = [ptr] * 4 + [i32, i32, i32, f32] + [i32] * 4 + [ptr] * 5
         lib.lse_bwd_f32.restype = i32
+        lib.lse_bwd_blocks_per_sm.argtypes = [i32]
+        lib.lse_bwd_blocks_per_sm.restype = i32
         for fn in (lib.lse_max_d, lib.lse_tile):
             fn.argtypes = []
             fn.restype = i32
@@ -142,18 +196,19 @@ def _launchable(name, lib, q):
         raise ValueError(f"{name}'s kernel takes d <= {lib.lse_max_d()}, got {q.shape[1]}")
 
 
-_SLOTS: dict[tuple[torch.device, bool], int] = {}
+_SLOTS: dict[tuple[str, torch.device, int], int] = {}
 
 
-def _fwd_slots(lib, device: torch.device, d: int) -> int:
-    """K5's blocks that the card holds at once: its SMs times what one SM
-    holds (``lse_fwd_blocks_per_sm``; the shared memory grows past d = 64)."""
-    key = (device, d > TILE)
+def _slots(lib, kernel: str, device: torch.device, d: int) -> int:
+    """The blocks of K5 (``kernel`` "fwd") or K6 ("bwd") that the card holds
+    at once: its SMs times what one SM holds (``lse_<kernel>_blocks_per_sm``;
+    the shared memory grows with d's 64-column slices)."""
+    key = (kernel, device, -(-d // TILE))
     if key not in _SLOTS:
         with torch.cuda.device(device):
-            per_sm = lib.lse_fwd_blocks_per_sm(d)
+            per_sm = getattr(lib, f"lse_{kernel}_blocks_per_sm")(d)
         if per_sm <= 0:
-            raise RuntimeError("catalog_lse.cu: the runtime gave no occupancy for K5")
+            raise RuntimeError(f"catalog_lse.cu: the runtime gave no occupancy for lse_{kernel}")
         _SLOTS[key] = per_sm * torch.cuda.get_device_properties(device).multi_processor_count
     return _SLOTS[key]
 
@@ -175,7 +230,7 @@ def catalog_lse(q: torch.Tensor, x: torch.Tensor, tau: float) -> torch.Tensor:
     lib = _kernel_lib()
     _launchable("catalog_lse", lib, q)
     (b, d), n = q.shape, x.shape[0]
-    w, splits = lse_fwd_plan(b, n, _fwd_slots(lib, q.device, d))
+    w, splits = lse_fwd_plan(b, n, _slots(lib, "fwd", q.device, d))
     lse = torch.empty(b, dtype=torch.float32, device=q.device)
     part = torch.empty(splits * b * 2, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -196,37 +251,33 @@ def catalog_lse_bwd(q: torch.Tensor, x: torch.Tensor, tau: float, lse: torch.Ten
     """(dq f32[B, d], dx f32[N, d]): the cotangents of ``catalog_lse``'s
     inputs given its output ``lse`` and that output's cotangent ``g``.
 
-    CUDA tensors run K6: one launch recomputes the scores once for both
-    and writes partial sums (``lse_bwd_workspace``), a second adds them in
-    tile order. CPU tensors run ``catalog_lse_bwd_plain``."""
+    CUDA tensors run K6: one launch of both sides' split blocks, each
+    recomputing its tiles' scores and writing one partial a split
+    (``lse_bwd_plan``), and a second that adds the partials in split
+    order. CPU tensors run ``catalog_lse_bwd_plain``."""
     _check("catalog_lse_bwd", q, x, lse, g)
     if q.device.type == "cpu":
         return catalog_lse_bwd_plain(q, x, tau, lse, g)
     lib = _kernel_lib()
     _launchable("catalog_lse_bwd", lib, q)
     (b, d), n = q.shape, x.shape[0]
+    slots = _slots(lib, "bwd", q.device, d)
+    wq, sq, wx, sx = lse_bwd_plan(b, n, slots)
     dq, dx = torch.empty_like(q), torch.empty_like(x)
-    part_floats = lse_bwd_workspace(b, n, d)
-    parts = torch.empty(2 * part_floats, dtype=torch.float32, device=q.device)
+    # dq's sq partials of [b, d] first, then dx's sx of [n, d]
+    parts = torch.empty(lse_bwd_workspace(b, n, d, slots), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.lse_bwd_f32(q.data_ptr(), x.data_ptr(), lse.data_ptr(), g.data_ptr(), b, n, d,
-                               float(tau), dq.data_ptr(), dx.data_ptr(), parts.data_ptr(),
-                               parts[part_floats:].data_ptr(), stream)
+                               float(tau), wq, sq, wx, sx, dq.data_ptr(), dx.data_ptr(),
+                               parts.data_ptr(), parts[sq * b * d:].data_ptr(), stream)
     _raise_on(lib, code, "catalog_lse_bwd")
     catalog_lse_bwd.launches += catalog_lse_bwd.launches_per_call
     return dq, dx
 
 
-def lse_bwd_workspace(b: int, n: int, d: int) -> int:
-    """The floats of each of K6's two partial-sum buffers for q [b, d]
-    against x [n, d]: one [TILE, d] chunk for each pair of a query tile
-    and an item tile."""
-    return -(-b // TILE) * -(-n // TILE) * TILE * d
-
-
 catalog_lse_bwd.launches = 0
-catalog_lse_bwd.launches_per_call = 2  # the tiles, then the combine
+catalog_lse_bwd.launches_per_call = 2  # both sides' split blocks, then the combine
 
 
 class CatalogLSE(torch.autograd.Function):

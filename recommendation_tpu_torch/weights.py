@@ -19,10 +19,12 @@ import torch
 from recommendation_tpu_torch.device import resolve_device
 
 # parameter names of each ported model, as its JAX counterpart's init returns them
-PARAM_NAMES = {"lightgcn": ("user_emb", "item_emb"), "ncl": ("user_emb", "item_emb")}
+PARAM_NAMES = {"lightgcn": ("user_emb", "item_emb"), "ncl": ("user_emb", "item_emb"),
+               "directau": ("user_emb", "item_emb")}
 # the model state each ported model carries, name -> dtype
 STATE_DTYPES = {
     "lightgcn": {},
+    "directau": {},
     "ncl": {"user_centroids": np.float32, "user_2cluster": np.int32,
             "item_centroids": np.float32, "item_2cluster": np.int32},
 }

@@ -41,7 +41,7 @@ from recommendation_tpu_torch.graph.device import (
     with_vals,
 )
 from recommendation_tpu_torch.models import build
-from recommendation_tpu_torch.models.lightgcn import lightgcn_propagate_bucketed
+from recommendation_tpu_torch.models.lightgcn import lightgcn_propagate_square
 from recommendation_tpu_torch.ops.gather import (
     gather_rows,
     gather_rows_plain,
@@ -515,14 +515,14 @@ def test_propagate_return_layers_matches_jax(graphs):
     rng = np.random.default_rng(5)
     ue = rng.normal(size=(ours_g.n_users, 8)).astype(np.float32)
     ie = rng.normal(size=(ours_g.n_items, 8)).astype(np.float32)
-    got = lightgcn_propagate_bucketed(torch.from_numpy(ue), torch.from_numpy(ie),
+    got = lightgcn_propagate_square(torch.from_numpy(ue), torch.from_numpy(ie),
                                       ours_g.norm_adj, 2, return_layers=True)
     want = jax_propagate(jnp.asarray(ue), jnp.asarray(ie), ref_g.norm_adj, 2, return_layers=True)
     for a, b in zip(got[:2], want[:2]):
         np.testing.assert_allclose(a.numpy(), _np(b), **TIGHT)
     for a, b in zip(got[2], want[2], strict=True):
         np.testing.assert_allclose(a.numpy(), _np(b), **TIGHT)
-    fused = lightgcn_propagate_bucketed(torch.from_numpy(ue), torch.from_numpy(ie),
+    fused = lightgcn_propagate_square(torch.from_numpy(ue), torch.from_numpy(ie),
                                         ours_g.norm_adj, 2)
     for a, b in zip(fused, got[:2]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), **TIGHT)
@@ -554,13 +554,17 @@ def test_one_cpu_epoch_on_bucketed_is_finite(graphs):
 
 
 def test_ncl_and_unported_forms_raise_on_bucketed(graphs, port_data):
+    """NCL now builds on the bucketed backend (its parity with the JAX NCL
+    there is tests/test_torch_ncl_bucketed.py's); int8 propagation and the
+    segment backend still raise."""
     ours_g = graphs[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build("ncl", default_config()).init(torch.Generator().manual_seed(0), ours_g)
+    params, state = build("ncl", default_config()).init(torch.Generator().manual_seed(0), ours_g)
+    assert params["user_emb"].shape[0] == ours_g.n_users
+    assert state["item_2cluster"].shape == (ours_g.n_items,)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DeviceGraph(port_data, backend="bucketed", compute_dtype="int8", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from_scipy(port_data.norm_adj, backend="dense", device="cpu")
+        from_scipy(port_data.norm_adj, backend="segment", device="cpu")
 
 
 def test_cli_trains_on_the_bucketed_backend(port_data, tmp_path):

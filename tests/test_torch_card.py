@@ -5,12 +5,14 @@ same for NCL's kernels: K3 and K4 (``csrc/chain_mean.cu``), K5 and K6
 (``csrc/catalog_lse.cu``), ``ChainMeanLayer``'s and ``CatalogLSE``'s
 gradients, and one NCL step with the layer contrast at unit weight; K1-K6
 repeat bit for bit, across their reduction slices, tiles and splits (K5 up
-to a 100,000-item catalog). And for the bucketed backend's kernels
-(``csrc/gather.cu``): K7, the row gather, bit for bit; each variant of P1,
-the bucket pull, its epilogue's too, against its plain version and against
-itself; ``BucketedChainMean``'s gradient on the card; one LightGCN step on
-a bucketed graph. Calls on two streams at once equal the same calls in
-turn (the chain's tile counters, P1's piece counters, K5's partials).
+to a 100,000-item catalog; K6's two sides against their split arithmetic,
+up to B = 8192 against 100,000 items with its workspace bounded). And for
+the bucketed backend's kernels (``csrc/gather.cu``): K7, the row gather,
+bit for bit; each variant of P1, the bucket pull, its epilogue's too,
+against its plain version and against itself; ``BucketedChainMean``'s gradient on the card; one LightGCN step on
+a bucketed graph; one DirectAU step on a bucketed graph (P1's value path).
+Calls on two streams at once equal the same calls in turn (the chain's tile
+counters, P1's piece counters, K5's and K6's partials).
 
 These tests need a CUDA device and ``nvcc``; elsewhere they skip. This file
 imports neither JAX nor the JAX package, so it runs where only the port is
@@ -37,6 +39,7 @@ from recommendation_tpu_torch.graph.bucketed import (
 )
 from recommendation_tpu_torch.graph.device import DeviceGraph
 from recommendation_tpu_torch.models import build
+from recommendation_tpu_torch.models.directau import PlainBucketedDirectAU
 from recommendation_tpu_torch.models.lightgcn import LightGCN
 from recommendation_tpu_torch.models.ncl import NCL
 from recommendation_tpu_torch.ops.gather import gather_rows, gather_sum, gather_sum_plain
@@ -45,8 +48,11 @@ from recommendation_tpu_torch.ops.lse import (
     catalog_lse,
     catalog_lse_bwd,
     catalog_lse_bwd_plain,
+    catalog_lse_bwd_split_plain,
     catalog_lse_plain,
     catalog_lse_split_plain,
+    lse_bwd_plan,
+    lse_bwd_workspace,
     lse_fwd_plan,
 )
 from recommendation_tpu_torch.ops.prop import (
@@ -502,7 +508,7 @@ def test_lse_forward_across_splits(card, b, n, d):
 
     rng = np.random.default_rng(b + n + d)
     q, x = _unit_rows(card, rng, b, d), _unit_rows(card, rng, n, d)
-    w, splits = lse_fwd_plan(b, n, lse_mod._fwd_slots(lse_mod._kernel_lib(), card, d))
+    w, splits = lse_fwd_plan(b, n, lse_mod._slots(lse_mod._kernel_lib(), "fwd", card, d))
     before = catalog_lse.launches
     first, second = catalog_lse(q, x, 0.1), catalog_lse(q, x, 0.1)
     torch.cuda.synchronize()
@@ -512,6 +518,78 @@ def test_lse_forward_across_splits(card, b, n, d):
     torch.testing.assert_close(first, catalog_lse_split_plain(q, x, 0.1, w), **LSE_TOL)
     if n == 100_000:
         assert w > 1 and splits * b * 2 * 4 <= 1 << 20  # the partials stay small
+
+
+@pytest.mark.parametrize("b,n,d", [(2048, 943, 64), (2048, 1675, 64), (8192, 100_000, 64),
+                                   (37, 700, 24), (70, 130, 130)])
+def test_lse_backward_sides_match_their_split_arithmetic(card, b, n, d):
+    """K6's two sides (query tiles walking split item tiles for dq, item
+    tiles walking split query tiles for dx) at NCL's dense pair, at B = 8192
+    against 100,000 items, and at ragged shapes: against the plain backward
+    and the plain split arithmetic of the same plan, two calls equal bit for
+    bit, and the workspace that a call takes on the card (the caching
+    allocator's peak during the call less what it holds after): the plan's
+    ``lse_bwd_workspace`` floats up to the allocator's rounding, at most
+    max(sq, sx) x (B + N) x d floats, and at most 256 MB at the large shape
+    (it was 6.55 GB with a partial per tile pair)."""
+    from recommendation_tpu_torch.ops import lse as lse_mod
+
+    rng = np.random.default_rng(b + n + d)
+    q, x = _unit_rows(card, rng, b, d), _unit_rows(card, rng, n, d)
+    (g,) = _random(card, rng, (b,))
+    lse = catalog_lse_plain(q, x, 0.1)
+    slots = lse_mod._slots(lse_mod._kernel_lib(), "bwd", card, d)
+    plan = lse_bwd_plan(b, n, slots)
+    before = catalog_lse_bwd.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = catalog_lse_bwd(q, x, 0.1, lse, g)
+    torch.cuda.synchronize()
+    taken = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
+    second = catalog_lse_bwd(q, x, 0.1, lse, g)
+    torch.cuda.synchronize()
+    assert catalog_lse_bwd.launches == before + 2 * catalog_lse_bwd.launches_per_call
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+    for got, w, sp in zip(first, catalog_lse_bwd_plain(q, x, 0.1, lse, g),
+                          catalog_lse_bwd_split_plain(q, x, 0.1, lse, g, plan)):
+        torch.testing.assert_close(got, w, **LSE_GRAD_TOL)
+        torch.testing.assert_close(got, sp, **LSE_GRAD_TOL)
+    floats = lse_bwd_workspace(b, n, d, slots)
+    # the allocator rounds to 512 B and leaves a segment's tail of up to 1 MB in the block
+    assert floats * 4 <= taken <= floats * 4 + 511 + (1 << 20)
+    assert floats <= max(plan[1], plan[3]) * (b + n) * d
+    if n == 100_000:
+        assert taken <= 256 * 2**20
+
+
+def test_directau_bucketed_step_kernel_vs_plain(card):
+    """One DirectAU step on a bucketed graph: the binarized adjacency has no
+    separable scales, so the chain's P1 pulls take the value path; K7 4 and
+    P1 4 launches (L = 2), no plain propagation; the loss and gradients
+    against the plain chain's, the bound rejecting zeros."""
+    pairs = make_flat_interactions(2000, 4000, 40_000, seed=2)
+    graph = DeviceGraph(ArrayInteraction(pairs, 2000, 4000), backend="bucketed", device=card)
+    config = default_config(**{"batch.size": 1024})
+    models = (build("directau", config), PlainBucketedDirectAU(config))
+    assert models[0]._adj(graph).pull.sep_dst is None
+    init, _ = models[0].init(torch.Generator().manual_seed(3), graph)
+    users, items, negs, weights, _ = epoch_batches(
+        epoch_words(torch.Generator().manual_seed(4), graph, 1024), graph, 1024)
+    batch = PairwiseBatch(users[0], items[0], negs[0], weights[0])
+    out = []
+    for m in models:
+        p = {k: v.detach().clone().requires_grad_() for k, v in init.items()}
+        before = gather_rows.launches, gather_sum.launches
+        loss, _ = m.loss(p, {}, batch, graph)
+        grads = torch.autograd.grad(loss, list(p.values()))
+        torch.cuda.synchronize()
+        out.append((loss.item(), grads, (gather_rows.launches - before[0],
+                                         gather_sum.launches - before[1])))
+    (loss_k, g_k, n_k), (loss_p, g_p, n_p) = out
+    assert n_k == (4, 4) and n_p == (0, 0)
+    assert np.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-6 + 1e-5 * abs(loss_p)
+    assert _grads_close(g_k, g_p, torch.float32)
+    assert not _grads_close([torch.zeros_like(g) for g in g_p], g_p, torch.float32)
 
 
 def _two_calls(card, kernel):
@@ -527,6 +605,13 @@ def _two_calls(card, kernel):
         q = [_unit_rows(card, rng, 2048, 64) for _ in range(2)]
         x = _unit_rows(card, rng, 1675, 64)
         return [lambda q=q_: [catalog_lse(q, x, 0.1)] for q_ in q]
+    if kernel == "lse_bwd":
+        q = [_unit_rows(card, rng, 2048, 64) for _ in range(2)]
+        x = _unit_rows(card, rng, 1675, 64)
+        lse = [catalog_lse_plain(q_, x, 0.1) for q_ in q]
+        g = _random(card, rng, (2048,))[0]
+        return [lambda q=q_, lse=l_: list(catalog_lse_bwd(q, x, 0.1, lse, g))
+                for q_, l_ in zip(q, lse)]
     pairs = make_flat_interactions(2000, 4000, 40_000, seed=1)
     csr = DeviceGraph(ArrayInteraction(pairs, 2000, 4000), backend="bucketed",
                       device=card).norm_adj.pull
@@ -536,12 +621,12 @@ def _two_calls(card, kernel):
                                     skip=csr.total_rows, schedule=csr.schedule)] for y in srcs]
 
 
-@pytest.mark.parametrize("kernel", ["chain", "lse", "pull"])
+@pytest.mark.parametrize("kernel", ["chain", "lse", "lse_bwd", "pull"])
 def test_calls_on_two_streams_equal_calls_in_turn(card, kernel):
     """Two calls launched on two streams at once give what the same calls
     give one after the other on one stream, bit for bit, ten times over:
-    the chain's tile counters, P1's piece counters and K5's partials are
-    not mixed between streams."""
+    the chain's tile counters, P1's piece counters and K5's and K6's
+    partials are not mixed between streams."""
     fns = _two_calls(card, kernel)
     want = [fn() for fn in fns]
     torch.cuda.synchronize()

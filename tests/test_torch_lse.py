@@ -18,15 +18,22 @@ import numpy as np
 import pytest
 import torch
 
-from recommendation_tpu.ops.pallas_losses import catalog_logsumexp, catalog_logsumexp_reference
+from recommendation_tpu.ops.pallas_losses import (
+    _lse_backward,
+    catalog_logsumexp,
+    catalog_logsumexp_reference,
+)
 from recommendation_tpu_torch.ops.lse import (
     TILE,
     CatalogLSE,
     catalog_lse,
     catalog_lse_bwd,
     catalog_lse_bwd_plain,
+    catalog_lse_bwd_split_plain,
     catalog_lse_plain,
     catalog_lse_split_plain,
+    lse_bwd_plan,
+    lse_bwd_workspace,
     lse_fwd_plan,
 )
 
@@ -182,14 +189,93 @@ def test_catalog_lse_checks_its_inputs():
         catalog_lse(q.to("meta"), x.to("meta"), 0.1)
 
 
-@pytest.mark.parametrize("b,n,d", [(2048, 943, 64), (2048, 1675, 64), (1, 1, 1), (70, 65, 130)])
-def test_backward_workspace_holds_a_chunk_per_tile_pair(b, n, d):
-    """K6 writes one [64, d] partial of dq and one of dx for each pair of a
-    64-row query tile and a 64-row item tile: 7.9 and 14.2 MB at NCL's step
-    shapes. A call of either kernel is two launches: K6's tiles and combine,
-    K5's splits and their merge."""
-    from recommendation_tpu_torch.ops.lse import TILE, lse_bwd_workspace
+# K6's workspace bytes on a card of 264 resident blocks, worked by hand from
+# the plans of test_backward_plan_fills_one_wave_with_no_empty_split: at
+# (2048, 943) 4 dq partials of 2048 x 64 floats and 8 dx partials of 943 x 64;
+# at (8192, 100000) 2 of 8192 x 64 and 1 of 100000 x 64. The card test
+# test_lse_backward_sides_match_their_split_arithmetic holds what a call
+# allocates on the card to the same count.
+BWD_WORKSPACE_BYTES = {(2048, 943): 4_028_416, (2048, 1675): 4_241_152, (1, 1): 8,
+                       (70, 65): 140_400, (8192, 100_000): 29_794_304}
 
-    tiles = -(-b // TILE) * -(-n // TILE)
-    assert lse_bwd_workspace(b, n, d) == tiles * TILE * d
+
+@pytest.mark.parametrize("b,n,d", [(2048, 943, 64), (2048, 1675, 64), (1, 1, 1), (70, 65, 130),
+                                   (8192, 100_000, 64)])
+def test_backward_workspace_holds_a_chunk_per_tile_pair(b, n, d):
+    """K6's partials: at most one [64, d] chunk per (query tile, item tile)
+    pair, the form they had before, and in fact far less: one [B, d] per
+    query-side split and one [N, d] per item-side split. At NCL's step
+    shapes that is 4.0 and 4.2 MB (the per-pair form took 7.9 and 14.2 MB a
+    buffer), and at B = 8192 against 100,000 items 29.8 MB (6.55 GB per
+    pair): under S x (B + N) x d floats with S the larger split count,
+    whatever B x N. A call of either kernel is two launches: K6's two sides
+    and their combine, K5's splits and their merge."""
+    slots = 264  # an H100's 132 SMs x 2 resident K6 blocks at d <= 64
+    _, sq, _, sx = lse_bwd_plan(b, n, slots)
+    floats = lse_bwd_workspace(b, n, d, slots)
+    assert floats * 4 == BWD_WORKSPACE_BYTES[b, n]
+    assert floats <= max(sq, sx) * (b + n) * d
+    nq, nx = -(-b // TILE), -(-n // TILE)
+    per_pair = 2 * nq * nx * TILE * d
+    assert floats <= per_pair
+    if n == 100_000:
+        assert floats * 4 <= 256 * 2**20 and per_pair * 4 > 6.5e9
     assert (catalog_lse.launches_per_call, catalog_lse_bwd.launches_per_call) == (2, 2)
+
+
+@pytest.mark.parametrize("b,n,slots,want", [
+    (2048, 943, 264, (4, 4, 4, 8)), (2048, 1675, 264, (7, 4, 7, 5)),
+    (8192, 100_000, 264, (782, 2, 128, 1)), (8192, 50_000, 264, (391, 2, 128, 1)),
+    (37, 700, 264, (1, 11, 1, 1)), (1, 1, 264, (1, 1, 1, 1)), (64, 6400, 132, (2, 50, 1, 1)),
+])
+def test_backward_plan_fills_one_wave_with_no_empty_split(b, n, slots, want):
+    """K6's plan: both sides' blocks together make about one wave of the
+    card's resident blocks, each walking about 2·nq·nx / slots tile pairs;
+    a side whose own tiles pass a wave takes one split; the splits are
+    balanced and none is empty."""
+    wq, sq, wx, sx = plan = lse_bwd_plan(b, n, slots)
+    assert plan == want
+    nq, nx = -(-b // TILE), -(-n // TILE)
+    assert (sq - 1) * wq < nx <= sq * wq and (sx - 1) * wx < nq <= sx * wx
+    assert nq * sq + nx * sx <= slots or sq == 1 or sx == 1
+    assert max(wq, wx) <= max(1, -(-2 * nq * nx // slots))
+
+
+BWD_SPLIT_CASES = {
+    # (b, n, d, tau, plan's slots, JAX block_n): B < 64, N not a multiple of 64
+    "ragged": (37, 700, 24, 0.2, 12, 256),
+    "B=1": (1, 300, 16, 0.2, 4, 128),
+    "one-item-tile": (20, 50, 8, 0.5, 2, 128),
+    "many-splits": (50, 1000, 32, 0.3, 64, 512),
+    "unit-rows-tau0.1": (60, 333, 64, 0.1, 8, 128),
+}
+
+
+@pytest.mark.parametrize("case", list(BWD_SPLIT_CASES))
+def test_backward_split_form_matches_pallas_interpret(case):
+    """K6's split arithmetic (each side's split adds its walked tiles' products
+    in order, the splits are added in split order) against the JAX kernel's
+    backward in interpret mode and against the plain backward, at the
+    gradient bound of the JAX kernel's tests (τ = 0.5's atol 1e-3 scaled to
+    the gradients' size). Each case's plan cuts both sides into several
+    splits."""
+    b, n, d, tau, slots, block_n = BWD_SPLIT_CASES[case]
+    rng = np.random.default_rng(b + n + d)
+    q, x = ((_unit(rng, b, d), _unit(rng, n, d)) if case == "unit-rows-tau0.1"
+            else _inputs(b + n, b, n, d))
+    g = rng.normal(size=b).astype(np.float32)
+    lse = np.array(catalog_logsumexp_reference(jnp.asarray(q), jnp.asarray(x), tau))
+    plan = lse_bwd_plan(b, n, slots)
+    assert plan[1] > 1 or n <= 64
+    got = catalog_lse_bwd_split_plain(*(torch.from_numpy(a) for a in (q, x)), tau,
+                                      torch.from_numpy(lse), torch.from_numpy(g), plan)
+    want = _lse_backward(jnp.asarray(q), jnp.asarray(x), tau, block_n, True, jnp.asarray(lse),
+                         jnp.asarray(g))
+    plain = catalog_lse_bwd_plain(*(torch.from_numpy(a) for a in (q, x)), tau,
+                                  torch.from_numpy(lse), torch.from_numpy(g))
+    for a, w, p in zip(got, want, plain):
+        a, w = a.numpy(), np.asarray(w)
+        assert a.shape == w.shape and np.isfinite(a).all()
+        scale = np.abs(w).max()
+        np.testing.assert_allclose(a, w, rtol=1e-4, atol=1e-5 * scale)
+        np.testing.assert_allclose(a, p.numpy(), rtol=1e-5, atol=1e-6 * scale)
