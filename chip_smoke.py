@@ -78,14 +78,30 @@ What it does, in order (any failed phase exits non-zero):
      DirectAU at their defaults trained CLUSTERED_EPOCHS epochs each, every
      run's launches counted and its Recall@20 held above the masked
      popularity list's, with the untrained tables below it;
+     Then the bucketed zoo on the same graph: one step of SelfCF (K7, P1
+     on the separable fold), BUIR and BGRL (K7, P1's value path) against
+     the plain bucketed path, each followed by PROFILE_STEPS profiled
+     steps (examples/s, host and device time a step, idle share, launches,
+     top kernels; no quality gate: the JAX package has no record there);
  10. hard phase: DirectAU on the dense backend on ``make_hard_dataset()``
      in bf16 and f32: one step against the plain bucketed chain (no kernel
      of the port on this path: its products are ``torch.matmul``), then
      HARD_EPOCHS epochs held to the dense sets' gate (above the popularity
      list, within 0.005 of it masked), the untrained tables below it;
- 11. prints the serving line, the training line, the NCL line, the large
-     line, the clustered line, the hard line, the kernels line and, last,
-     the device line.
+ 11. the dense-path zoo on the hard set's graphs (d=64, B=2048): SelfCF's
+     step through K1/K2 against the plain chain in bf16 and f32; the
+     steps of BUIR, SSL4Rec, GCL, GRACE, G-BT and BGRL on the card against
+     the port's on the CPU on the same masks (``host_draws``); the dense
+     re-normalized bipartite adjacency built twice (bit for bit) and
+     against the CPU's; GCL's step
+     on the bucketed graph against its plain bucketed path and its loss
+     against the dense backend's, and its profiled steps there; then each
+     of the seven trained at its defaults (f32) for ZOO_EPOCHS epochs and
+     held to its ZOO_GATES gate, launches counted, the served answers
+     (width 2d for SelfCF and BUIR) against the plain path's;
+ 12. prints the serving line, the training line, the NCL line, the large
+     line, the clustered line, the hard line, the hard_zoo line, the
+     bucketed_zoo line, the kernels line and, last, the device line.
 
 Launch counts are reset just before each main path and read just after it.
 Exits non-zero without printing a result where no CUDA device is present.
@@ -93,6 +109,7 @@ Exits non-zero without printing a result where no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -118,6 +135,7 @@ from recommendation_tpu_torch.data.synthetic import (
 )
 from recommendation_tpu_torch.evalx.metrics import ranking_metrics
 from recommendation_tpu_torch.evalx.ranking import evaluate_ranking
+from recommendation_tpu_torch.graph import augment
 from recommendation_tpu_torch.graph.bucketed import (
     PLAIN,
     bucketed_chain_mean,
@@ -126,9 +144,13 @@ from recommendation_tpu_torch.graph.bucketed import (
 )
 from recommendation_tpu_torch.graph.device import DeviceGraph
 from recommendation_tpu_torch.models import build
+from recommendation_tpu_torch.models.bgrl import PlainBucketedBGRL
+from recommendation_tpu_torch.models.buir import PlainBucketedBUIR
 from recommendation_tpu_torch.models.directau import PlainBucketedDirectAU
+from recommendation_tpu_torch.models.gcl import PlainBucketedGCL
 from recommendation_tpu_torch.models.lightgcn import LightGCN
 from recommendation_tpu_torch.models.ncl import NCL
+from recommendation_tpu_torch.models.selfcf import PlainSelfCF
 from recommendation_tpu_torch.ops import build as kernels
 from recommendation_tpu_torch.ops.gather import (
     gather_rows,
@@ -222,6 +244,41 @@ HARD_EPOCHS = 3
 # the dense sets' gate (the train phases'): above the popularity list and
 # within this much of it with train positives masked
 MASKED_SLACK = 0.005
+# the dense-path zoo on the hard set, f32, each at its defaults, and its
+# gate (``check_gate``): "dense" for SelfCF and BUIR (the JAX package
+# records 0.4162 and 0.4161 at 30 epochs, BASELINE.md round 2);
+# "dense_kept" for GRACE, whose untrained tables already meet the dense
+# bars (an untrained GCN over identity features ranks by degree), so the
+# run must keep them; "untrained" for SSL4Rec (Recall@20 above the
+# untrained tables'); "loss" for G-BT and BGRL, whose untrained tables rank
+# above their trained ones in both packages, and for GCL (raw encodings
+# rank near random by design). The readings behind each choice:
+# tools/zoo_gate_calibration.py, PERF.md §4
+ZOO_MODELS = ("selfcf", "buir", "ssl4rec", "gcl", "grace", "gbt", "bgrl")
+ZOO_GATES = {"selfcf": "dense", "buir": "dense", "grace": "dense_kept", "ssl4rec": "untrained",
+             "gbt": "loss", "bgrl": "loss", "gcl": "loss"}
+# epochs of each run, cut from the JAX package's 30 to the fewest that clear
+# the gate with a margin in the port's CPU runs of the same set
+# (tools/zoo_gate_calibration.py; PERF.md §4)
+ZOO_EPOCHS = {"selfcf": 3, "buir": 4, "ssl4rec": 4, "gcl": 3, "grace": 3, "gbt": 3, "bgrl": 3}
+# a zoo step on the card against the same step of the port on the CPU
+# (same parameters, batch and masks), each gradient by its relative
+# Frobenius error: the two sum the products in another order. G-BT's and
+# BGRL's gradients are ill-conditioned in f32 (batch norms over the whole
+# graph; pre-activations within an f32 rounding of a ReLU's kink, whose
+# unit the order of a sum can switch): tests/test_torch_grace_gbt.py and
+# test_torch_bgrl.py bound them by the JAX package's own f32 error against
+# float64
+ZOO_CPU_TOL = {"gbt": 1e-2, "bgrl": 1e-2}
+ZOO_CPU_TOL_DEFAULT = 1e-4
+# parameters whose exact gradient is 0 (a batch norm or a standardization
+# takes their constant shift out): both sides must hold only f32 noise,
+# under this share of the step's largest gradient entry
+ZERO_GRADS = {"gbt": ("conv1.b", "conv2.b"), "bgrl": ("online.proj.b",)}
+ZERO_GRAD_SHARE = 1e-3
+# the bucketed zoo: SelfCF, BUIR and BGRL on the clustered graph, GCL on the
+# hard set with the backend forced to bucketed
+BUCKETED_ZOO = ("selfcf", "buir", "bgrl")
 
 
 def card_line() -> str:
@@ -1080,12 +1137,14 @@ def profile_steps(rec, batch=BATCH):
         epoch_words(torch.Generator().manual_seed(11), rec.graph, batch), rec.graph, batch)
     n_steps = min(PROFILE_STEPS, n_batches)
     window = (users[:n_steps], items[:n_steps], negs[:n_steps], weights[:n_steps], n_steps)
+    draws = torch.Generator().manual_seed(12)  # the augmenting models' masks
     run_steps(rec.model, rec.optimizer, rec.graph, rec.params, rec.state,
-              (users[:1], items[:1], negs[:1], weights[:1], 1))
+              (users[:1], items[:1], negs[:1], weights[:1], 1), draws)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, loss = run_steps(rec.model, rec.optimizer, rec.graph, rec.params, rec.state, window)
+        _, loss = run_steps(rec.model, rec.optimizer, rec.graph, rec.params, rec.state, window,
+                            draws)
         float(loss)
         wall_us = (time.perf_counter() - t0) * 1e6
     # device events only; the optimizer's ``Optimizer.step#...`` range is a
@@ -1627,17 +1686,38 @@ def clustered_build():
     return data, graph, info
 
 
+# the models whose dense-backend products are torch.matmul with the (U+I)²
+# matrix, or that propagate nothing: no kernel of the port on that path
+DENSE_MATMUL_MODELS = ("directau", "buir", "ssl4rec", "gcl", "grace", "gbt", "bgrl")
+
+
+def bucketed_step_launches(model_name, n_layers):
+    """K7 and P1 launches of one training step on the bucketed backend: the
+    row-space chain K7 twice and P1 L times each way (LightGCN, DirectAU,
+    SelfCF; BUIR adds its target encoder's chain, forward only); an
+    ``adj_matmul`` round P1 and K7 once each way (GCL: two views of L
+    rounds; BGRL: two views of L rounds online, and the target's forward)."""
+    counts = {"buir": (6, 3 * n_layers), "gcl": (4 * n_layers, 4 * n_layers),
+              "bgrl": (6 * n_layers, 6 * n_layers)}
+    k7, p1 = counts.get(model_name, (4, 2 * n_layers))
+    return {"gather_rows": k7, "gather_sum": p1}
+
+
 def expected_launches(model_name, graph, n_layers, steps, n_evals, e_steps=0):
     """What one run's steps, E-steps and evaluations launch. On the bucketed
-    backend: LightGCN's and DirectAU's row-space chain K7 twice and P1 L
-    times each way; NCL's L ``adj_matmul`` rounds P1 and K7 once each way
-    a round, K5 and K6 two calls a step, the chain for each E-step and
-    evaluation. DirectAU on the dense backend reaches no kernel of the port
-    (its square products are ``torch.matmul``, as the JAX package's are
-    XLA's)."""
+    backend: a step as ``bucketed_step_launches`` says, NCL's L
+    ``adj_matmul`` rounds P1 and K7 once each way a round with K5 and K6 two
+    calls a step, and the no-grad chain (K7 2, P1 L) for each E-step and
+    evaluation, L rounds (K7 and P1 L each) for GCL's and BGRL's. On the
+    dense backend SelfCF's chain over R̂ is K1 L times a forward, K2 L times
+    a backward; the other zoo models and DirectAU reach no kernel of the
+    port (their square products are ``torch.matmul``, as the JAX package's
+    are XLA's)."""
     want = {f.__name__: 0 for f in ALL_COUNTERS}
     if graph.backend != "bucketed":
-        if model_name != "directau":
+        if model_name == "selfcf":
+            want.update(chain_mean=n_layers * (steps + n_evals), chain_mean_bwd=n_layers * steps)
+        elif model_name not in DENSE_MATMUL_MODELS:
             raise ValueError(f"no launch model for {model_name} on {graph.backend}")
         return want
     chains = n_evals + e_steps  # the no-grad chain: K7 2, P1 L
@@ -1647,19 +1727,24 @@ def expected_launches(model_name, graph, n_layers, steps, n_evals, e_steps=0):
                     catalog_lse=2 * catalog_lse.launches_per_call * steps,
                     catalog_lse_bwd=2 * catalog_lse_bwd.launches_per_call * steps)
     else:
-        want.update(gather_rows=4 * steps + 2 * chains,
-                    gather_sum=2 * n_layers * steps + n_layers * chains)
+        step = bucketed_step_launches(model_name, n_layers)
+        evals = ((n_layers, n_layers) if model_name in ("gcl", "bgrl")
+                 else (2, n_layers))
+        want.update(gather_rows=step["gather_rows"] * steps + evals[0] * chains,
+                    gather_sum=step["gather_sum"] * steps + evals[1] * chains)
     return want
 
 
-def gate_phase(model_name, data, graph, epochs, batch, pop, gate):
+def gate_phase(model_name, data, graph, epochs, batch, pop, gate, plain=None):
     """One model's training main path on a set whose ranking optimum is not
     the popularity list: the untrained tables' Recall@20, then ``epochs``
     epochs with an evaluation after each, the best epoch's tables kept (the
     trainer's model selection), the final test, and a wave of 16 test users
     served by ``RecommenderService`` (finite, no train positive). Launches
     are counted over the whole run. ``pop`` holds the masked and the plain popularity
-    list's Recall@20; ``check_gate`` holds the result to ``gate``."""
+    list's Recall@20; ``check_gate`` holds the result to ``gate``. With
+    ``plain`` (the trained recommender -> the plain path's eval tables on
+    the card), the served answers must equal the plain path's."""
     config = default_config(**{
         "embedding.size": EMB, "batch.size": batch, "learning.rate": LR, "optimizer": "adam",
         "max.epoch": epochs, "eval.interval": 1, "item.ranking.topN": [20],
@@ -1682,8 +1767,8 @@ def gate_phase(model_name, data, graph, epochs, batch, pop, gate):
     # the untrained tables, each epoch, the final test, the service
     n_evals = len(rec.history) + 3
     e_steps = epochs if model_name == "ncl" else 0
-    want = expected_launches(model_name, graph, model.n_layers, n_batches * epochs, n_evals,
-                             e_steps)
+    n_layers = getattr(model, "n_layers", None)
+    want = expected_launches(model_name, graph, n_layers, n_batches * epochs, n_evals, e_steps)
     if launches != want:
         raise RuntimeError(f"{model_name} on {graph.backend} launches {launches}, expected {want}")
     losses = [e["loss"] for e in rec.epoch_stats]
@@ -1695,10 +1780,19 @@ def gate_phase(model_name, data, graph, epochs, batch, pop, gate):
     if not (np.isfinite(scores).all() and scores.shape == (len(uids), K)) or any(
             mat[u, int(i)] != 0 for u, row in zip(uids, ids) for i in row):
         raise RuntimeError(f"{model_name} on {graph.backend}: served answers malformed")
+    served = {}
+    if plain is not None:
+        service = RecommenderService.from_recommender(rec)
+        plain_u, plain_i = plain(rec)
+        tol = score_tolerance(service.user_emb, service.item_emb, plain_u, plain_i)
+        s_plain, i_plain = RecommenderService(plain_u, plain_i, data, graph).recommend_ids(uids, K)
+        if not topk_agree(scores, ids, s_plain, i_plain, tol):
+            raise RuntimeError(f"{model_name}: served answers differ from the plain path's")
+        served = {"served_width": int(service.user_emb.shape[1]), "score_tol": tol}
     timed = rec.epoch_stats[1:] or rec.epoch_stats
     return {
         "model": model_name, "backend": graph.backend, "compute_dtype": graph.compute_dtype,
-        "batch": batch, "layers": model.n_layers, "epochs": epochs,
+        "batch": batch, "layers": n_layers, "epochs": epochs, **served,
         "steps_per_epoch": n_batches, "epoch_losses": losses,
         "epoch_seconds": [e["seconds"] for e in rec.epoch_stats],
         "examples_per_s": n_batches * batch * len(timed) / sum(e["seconds"] for e in timed),
@@ -1716,21 +1810,31 @@ def check_gate(stats):
     can fail), and a falling loss. The bar: the masked popularity list's
     Recall@20 (gate "masked", the clustered set), or the popularity list's
     with Recall@20 also within MASKED_SLACK of the masked list's (gate
-    "dense", the train phases' gate, for the hard set)."""
+    "dense", the train phases' gate, for the hard set); gate "dense_kept"
+    holds the dense bars without the untrained check (GRACE's untrained
+    tables meet them). Gate "untrained" holds Recall@20 above the
+    untrained tables' reading, gate "loss" the falling loss alone."""
     name = f"{stats['model']} {stats['backend']} {stats['compute_dtype']}"
+    losses = stats["epoch_losses"]
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"{name}: loss did not fall: {losses}")
+    if stats["gate"] == "loss":
+        return
+    if stats["gate"] == "untrained":
+        if not stats["recall@20"] > stats["recall@20_untrained"]:
+            raise RuntimeError(f"{name}: Recall@20 {stats['recall@20']} not above the "
+                               f"untrained tables' {stats['recall@20_untrained']}")
+        return
     masked = stats["masked_popularity_recall@20"]
     bar = masked if stats["gate"] == "masked" else stats["popularity_recall@20"]
     if not stats["recall@20"] > bar:
         raise RuntimeError(f"{name}: Recall@20 {stats['recall@20']} not above {bar}")
-    if stats["gate"] == "dense" and not stats["recall@20"] >= masked - MASKED_SLACK:
+    if stats["gate"] in ("dense", "dense_kept") and not stats["recall@20"] >= masked - MASKED_SLACK:
         raise RuntimeError(f"{name}: Recall@20 {stats['recall@20']} more than {MASKED_SLACK} "
                            f"below the masked popularity list's {masked}")
-    if not stats["recall@20_untrained"] < bar:
+    if stats["gate"] != "dense_kept" and not stats["recall@20_untrained"] < bar:
         raise RuntimeError(f"{name}: the untrained tables pass the gate "
                            f"({stats['recall@20_untrained']} against {bar})")
-    losses = stats["epoch_losses"]
-    if not losses[-1] < losses[0]:
-        raise RuntimeError(f"{name}: loss did not fall: {losses}")
 
 
 class PlainBucketedNCL(NCL):
@@ -1761,34 +1865,66 @@ def first_batch(graph, batch):
     return PairwiseBatch(users[0], items[0], negs[0], weights[0])
 
 
-def step_against_plain(name, kernel_fn, plain_fn, params, dtype, want_counts):
-    """A step's value and gradients to both tables through the kernels
-    (``kernel_fn``) against the plain path's (``plain_fn``), on the same
-    parameters and batch; the kernels' launches must be ``want_counts``
-    and the plain path's none; the bound must reject zero gradients."""
+def step_against_plain(name, kernel, ref, dtype, want_counts, fro_tol=None, zero_grads=()):
+    """A step's value and gradients to every parameter through ``kernel`` =
+    (fn, params), on the card, against ``ref`` = (fn, params), the plain
+    path or the port on the CPU, on the same batch and draws (a model that
+    draws masks takes them from ``host_draws``). The kernels'
+    launches must be ``want_counts`` and the reference's none; the value is
+    held at TOL; each gradient at GRAD_TOL (its atol relative to the
+    reference's largest entry) or, with ``fro_tol``, by its relative
+    Frobenius error, and that bound must reject zeros; ``zero_grads``
+    (exact gradient 0) must stay under ZERO_GRAD_SHARE of the largest
+    entry."""
     got = {}
-    for which, fn in (("kernel", kernel_fn), ("plain", plain_fn)):
+    for which, (fn, params) in (("kernel", kernel), ("ref", ref)):
         p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
         reset_counts()
         value = fn(p)
-        grads = torch.autograd.grad(value, [p["user_emb"], p["item_emb"]])
+        grads = torch.autograd.grad(value, list(p.values()))
         torch.cuda.synchronize()
-        got[which] = (value.item(), grads, all_counts())
-    (v_k, g_k, n_k), (v_p, g_p, n_p) = got["kernel"], got["plain"]
+        got[which] = (value.item(), dict(zip(p, (g.float().cuda() for g in grads))),
+                      all_counts())
+    (v_k, g_k, n_k), (v_r, g_r, n_r) = got["kernel"], got["ref"]
     want = {f.__name__: 0 for f in ALL_COUNTERS}
     want.update(want_counts)
-    if n_k != want or any(n_p.values()):
-        raise RuntimeError(f"{name}: launches {n_k} (plain {n_p}), expected {want}")
+    if n_k != want or any(n_r.values()):
+        raise RuntimeError(f"{name}: launches {n_k} (reference {n_r}), expected {want}")
     rtol, atol = TOL[dtype]
-    if not (math.isfinite(v_k) and abs(v_k - v_p) <= atol + rtol * abs(v_p)):
-        raise RuntimeError(f"{name}: {v_k} against plain {v_p}")
-    if not grads_agree(g_k, g_p, dtype):
-        raise RuntimeError(f"{name}: gradients disagree with plain")
-    if grads_agree([torch.zeros_like(g) for g in g_p], g_p, dtype):
+    if not (math.isfinite(v_k) and abs(v_k - v_r) <= atol + rtol * abs(v_r)):
+        raise RuntimeError(f"{name}: {v_k} against the reference's {v_r}")
+    largest = max(w.abs().max().item() for w in g_r.values())
+    for k in zero_grads:
+        share = max(g_k[k].abs().max().item(), g_r[k].abs().max().item()) / largest
+        if not share < ZERO_GRAD_SHARE:
+            raise RuntimeError(f"{name}: {k}'s gradient, exactly 0, is {share} of the largest")
+    checked = [k for k in g_r if k not in zero_grads]
+
+    def errors(gs):
+        if fro_tol is not None:
+            return {k: (torch.linalg.norm(gs[k] - g_r[k]) / torch.linalg.norm(g_r[k])).item()
+                    for k in checked}
+        return {k: ((gs[k] - g_r[k]).abs().max() / g_r[k].abs().max()).item() for k in checked}
+
+    def agree(gs):
+        if fro_tol is not None:
+            return all(torch.isfinite(gs[k]).all() and e <= fro_tol
+                       for k, e in errors(gs).items())
+        rtol, atol = GRAD_TOL[dtype]
+        return all(g_r[k].abs().max().item() > 0 and torch.isfinite(gs[k]).all()
+                   and torch.allclose(gs[k], g_r[k], rtol=rtol,
+                                      atol=atol * g_r[k].abs().max().item()) for k in checked)
+
+    err = errors(g_k)
+    if not agree(g_k):
+        raise RuntimeError(f"{name}: gradients disagree with the reference ({err})")
+    if agree({k: torch.zeros_like(g) for k, g in g_r.items()}):
         raise RuntimeError(f"{name}: the bound passes zero gradients")
-    return {"value": v_k, "value_abs_err": abs(v_k - v_p),
-            "grad_max_abs_err": max((a - b).abs().max().item() for a, b in zip(g_k, g_p)),
-            "grad_max_abs": [w.abs().max().item() for w in g_p], "launches": n_k}
+    return {"value": v_k, "value_abs_err": abs(v_k - v_r),
+            "grad_max_abs_err": max((g_k[k] - g_r[k]).abs().max().item() for k in checked),
+            "grad_max_abs": [g_r[k].abs().max().item() for k in checked],
+            "grad_rel_err": max(err.values()), "grad_err_by": "frobenius" if fro_tol else "max",
+            "launches": {k: v for k, v in n_k.items() if v}}
 
 
 def large_ncl_one_step_check(graph, params):
@@ -1816,9 +1952,9 @@ def large_ncl_one_step_check(graph, params):
         kernel_model, plain_model = build("ncl", config), PlainBucketedNCL(config)
         out[term] = step_against_plain(
             f"large NCL {term}",
-            lambda p, m=kernel_model: ncl_term(term, m, p, state, batch, graph),
-            lambda p, m=plain_model: ncl_term(term, m, p, state, batch, graph),
-            params, torch.float32, want)
+            (lambda p, m=kernel_model: ncl_term(term, m, p, state, batch, graph), params),
+            (lambda p, m=plain_model: ncl_term(term, m, p, state, batch, graph), params),
+            torch.float32, want)
     return out
 
 
@@ -1838,15 +1974,16 @@ def directau_one_step_check(graph, params, batch_size, ref_graph=None):
     dtype = torch.bfloat16 if graph.compute_dtype == "bfloat16" else torch.float32
     return step_against_plain(
         f"DirectAU step {graph.backend} {graph.compute_dtype}",
-        lambda p: kernel_model.loss(p, {}, batch, graph)[0],
-        lambda p: plain_model.loss(p, {}, batch, ref_graph if dense else graph)[0],
-        params, dtype, want)
+        (lambda p: kernel_model.loss(p, {}, batch, graph)[0], params),
+        (lambda p: plain_model.loss(p, {}, batch, ref_graph if dense else graph)[0], params),
+        dtype, want)
 
 
 def clustered_phase():
     """The clustered large set: the build, one-step checks of NCL and
     DirectAU against their plain paths, then LightGCN-BPR, NCL and DirectAU
-    trained on the one graph, each held to the gate."""
+    trained on the one graph, each held to the gate, then the bucketed zoo
+    on the same graph (``bucketed_zoo_phase``)."""
     data, graph, info = clustered_build()
     pop = {"masked": info["masked_popularity_recall@20"],
            "plain": info["popularity_recall@20"]}
@@ -1862,13 +1999,14 @@ def clustered_phase():
                            "masked")
         check_gate(stats)
         runs.append(stats)
-    return info, one_step, runs
+    return info, one_step, runs, bucketed_zoo_phase(data, graph)
 
 
 def hard_phase():
     """DirectAU on the dense backend on the hard set (make_hard_dataset(),
     ML-100K-shaped), in bf16 and f32: a one-step check against the plain
-    bucketed chain, then training held to the dense sets' gate. (The masked
+    bucketed chain, then training held to the dense sets' gate; then the
+    zoo on the same graphs (``hard_zoo_phase``). (The masked
     popularity list is the stronger ranker there: the JAX package's own
     30-epoch DirectAU, 0.4144 in BASELINE.md, stays under its 0.41561, the
     bar that tests/test_torch_popularity.py holds equal to the JAX
@@ -1878,8 +2016,9 @@ def hard_phase():
     ref = DeviceGraph(data, backend="bucketed", device="cuda")
     out = {"users": data.user_num, "items": data.item_num, "train_edges": len(data.edge_users),
            "numpy": np.__version__, "one_step": {}, "train": []}
+    graphs = {}
     for dtype in ("bfloat16", "float32"):
-        graph = DeviceGraph(data, compute_dtype=dtype, device="cuda")
+        graph = graphs[dtype] = DeviceGraph(data, compute_dtype=dtype, device="cuda")
         pop = {"masked": popularity_recall(data, graph, 20),
                "plain": popularity_recall(data, graph, 20, masked=False)}
         params, _ = build("directau", default_config(**{"embedding.size": EMB})).init(
@@ -1888,7 +2027,211 @@ def hard_phase():
         stats = gate_phase("directau", data, graph, HARD_EPOCHS, BATCH, pop, "dense")
         check_gate(stats)
         out["train"].append(stats)
+    return out, hard_zoo_phase(data, graphs, ref)
+
+
+# -- the dense-path zoo: SelfCF, BUIR, SSL4Rec, GCL, GRACE, G-BT, BGRL -----------
+
+
+@contextlib.contextmanager
+def host_draws(seed):
+    """Every augmentation draw (``graph.augment.uniform``) taken from one
+    seeded host generator and moved to the tensors' device: a step on the
+    card and its reference (the plain path, or the port on the CPU) see the
+    same masks."""
+    gen = torch.Generator().manual_seed(seed)
+    on_device = augment.uniform
+    augment.uniform = lambda generator, shape, device: torch.rand(
+        tuple(shape), generator=gen).to(device)
+    try:
+        yield
+    finally:
+        augment.uniform = on_device
+
+
+def zoo_loss(model, params, state, batch, graph, seed=5):
+    """One loss of ``model`` on the draws of ``host_draws(seed)``."""
+    with host_draws(seed):
+        return model.loss(params, state, batch, graph, torch.Generator().manual_seed(0))[0]
+
+
+def to_cpu(tree):
+    return {k: v.detach().cpu() for k, v in tree.items()}
+
+
+def zoo_plain(model_name, config, cpu_graph):
+    """The plain path of a zoo model's eval tables on the card: SelfCF's
+    plain chain there; the others (no kernel of the port on the dense
+    backend) the port on the CPU, moved to the card."""
+    if model_name == "selfcf":
+        plain = PlainSelfCF(config)
+        return lambda rec: plain.eval_embeddings(rec.params, rec.state, rec.graph)
+    model = build(model_name, config)
+
+    def tables(rec):
+        u, i = model.eval_embeddings(to_cpu(rec.params), to_cpu(rec.state), cpu_graph)
+        return u.cuda(), i.cuda()
+
+    return tables
+
+
+def hard_zoo_phase(data, graphs, bucketed):
+    """The zoo on the hard set (d=64, B=2048), on the graphs the hard phase
+    built: SelfCF's step through K1/K2 against the plain chain in bf16 and
+    f32; each other model's step on the card against the port's on the CPU;
+    GCL's step on the bucketed graph against its plain bucketed path (P1's
+    value path, K7) and its loss against the dense backend's; then each
+    model trained at its defaults (f32) for ZOO_EPOCHS and held to its
+    ZOO_GATES gate, its served answers against the plain path's."""
+    f32 = graphs["float32"]
+    cpu = DeviceGraph(data, device="cpu")
+    config = default_config(**{"embedding.size": EMB})
+    batch = first_batch(f32, BATCH)
+    cpu_batch = PairwiseBatch(*(t.cpu() for t in batch))
+    out = {"one_step": {}, "train": [],
+           "normalized_bipartite": check_normalized_bipartite(f32, cpu)}
+    for dtype_name, graph in graphs.items():
+        model, plain = build("selfcf", config), PlainSelfCF(config)
+        params, state = model.init(torch.Generator().manual_seed(0), graph)
+        dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
+        out["one_step"][f"selfcf_{dtype_name}"] = step_against_plain(
+            f"SelfCF step dense {dtype_name}",
+            (lambda p: zoo_loss(model, p, state, batch, graph), params),
+            (lambda p: zoo_loss(plain, p, state, batch, graph), params),
+            dtype, {"chain_mean": model.n_layers, "chain_mean_bwd": model.n_layers})
+    for name in ZOO_MODELS[1:]:
+        model = build(name, config)
+        params, state = model.init(torch.Generator().manual_seed(0), f32)
+        cpu_state = to_cpu(state)
+        out["one_step"][name] = step_against_plain(
+            f"{name} step dense, card against CPU",
+            (lambda p: zoo_loss(model, p, state, batch, f32), params),
+            (lambda p: zoo_loss(model, p, cpu_state, cpu_batch, cpu), to_cpu(params)),
+            torch.float32, {}, fro_tol=ZOO_CPU_TOL.get(name, ZOO_CPU_TOL_DEFAULT),
+            zero_grads=ZERO_GRADS.get(name, ()))
+    model, plain = build("gcl", config), PlainBucketedGCL(config)
+    params, _ = model.init(torch.Generator().manual_seed(0), bucketed)
+    gcl = step_against_plain(
+        "GCL step bucketed", (lambda p: zoo_loss(model, p, {}, batch, bucketed), params),
+        (lambda p: zoo_loss(plain, p, {}, batch, bucketed), params), torch.float32,
+        bucketed_step_launches("gcl", model.n_layers))
+    with torch.no_grad():
+        dense_loss = zoo_loss(model, params, {}, batch, f32).item()
+    rtol, atol = TOL[torch.float32]
+    if not abs(gcl["value"] - dense_loss) <= atol + rtol * abs(dense_loss):
+        raise RuntimeError(f"GCL bucketed loss {gcl['value']} against dense {dense_loss}")
+    gcl["dense_value"] = dense_loss
+    out["one_step"]["gcl_bucketed"] = gcl
+    out["gcl_bucketed_profile"] = zoo_profile("gcl", data, bucketed, BATCH)
+    pop = {"masked": popularity_recall(data, f32, 20),
+           "plain": popularity_recall(data, f32, 20, masked=False)}
+    for name in ZOO_MODELS:
+        stats = gate_phase(name, data, f32, ZOO_EPOCHS[name], BATCH, pop, ZOO_GATES[name],
+                           plain=zoo_plain(name, config, cpu))
+        check_gate(stats)
+        if name in ("selfcf", "buir") and stats["served_width"] != 2 * EMB:
+            raise RuntimeError(f"{name} served tables of width {stats['served_width']}")
+        out["train"].append(stats)
     return out
+
+
+def check_normalized_bipartite(graph, cpu):
+    """The dense re-normalized bipartite adjacency under one keep mask,
+    built by scatter on the card twice: each coordinate holds one real
+    value (the padding adds exact zeros) and the degrees are sums of 0/1,
+    so the two builds must be equal bit for bit, and equal the CPU's build
+    at TOL."""
+    keep = (torch.rand(graph.edge_valid.shape[0], generator=torch.Generator().manual_seed(9))
+            >= 0.2).float()
+    a, b = (graph.normalized_bipartite(keep.cuda()).dense for _ in range(2))
+    want = cpu.normalized_bipartite(keep).dense
+    rtol, atol = TOL[torch.float32]
+    if not (torch.equal(a, b) and torch.allclose(a.cpu(), want, rtol=rtol, atol=atol)):
+        raise RuntimeError("the dense normalized_bipartite does not repeat, or differs from "
+                           "the CPU's")
+    return {"repeats": True, "max_abs_err_cpu": (a.cpu() - want).abs().max().item()}
+
+
+def zoo_recommender(model_name, data, graph, batch):
+    """A built (untrained) recommender of a zoo model at its defaults."""
+    config = default_config(**{"embedding.size": EMB, "batch.size": batch, "learning.rate": LR,
+                               "optimizer": "adam", "graph.compute_dtype": graph.compute_dtype})
+    rec = GraphRecommender(build(model_name, config), data, config, graph=graph,
+                           log=Log(echo=False), device="cuda")
+    rec.build()
+    return rec
+
+
+def check_profile_launches(model_name, rec, batch):
+    """K7's and P1's launches over ``profile_steps``' warm-up step and
+    window (counted since the last ``reset_counts``): each step's as
+    ``bucketed_step_launches`` says."""
+    n_steps = 1 + min(PROFILE_STEPS, -(-rec.graph.n_edges // batch))
+    per_step = bucketed_step_launches(model_name, rec.model.n_layers)
+    want = {k: v * n_steps for k, v in per_step.items()}
+    got = {k: v for k, v in all_counts().items() if k in want}
+    if got != want or any(v for k, v in all_counts().items() if k not in want):
+        raise RuntimeError(f"{model_name} profile launches {all_counts()}, expected {want}")
+    return got
+
+
+def bucketed_zoo_phase(data, graph):
+    """SelfCF, BUIR and BGRL on the clustered bucketed graph (f32, d=64,
+    B=8192): one step through K7 and P1 (SelfCF on the separable fold, BUIR
+    and BGRL on the value path) against the plain bucketed path, then
+    PROFILE_STEPS profiled steps (no quality gate: the JAX package has no
+    record on this set)."""
+    config = default_config(**{"embedding.size": EMB})
+    batch = first_batch(graph, LARGE_BATCH)
+    plains = {"selfcf": PlainSelfCF, "buir": PlainBucketedBUIR, "bgrl": PlainBucketedBGRL}
+    out = {}
+    for name in BUCKETED_ZOO:
+        model, plain = build(name, config), plains[name](config)
+        params, state = model.init(torch.Generator().manual_seed(0), graph)
+        # BGRL's ReLU units and batch norms: by Frobenius error, as against the CPU
+        tol = ({"fro_tol": ZOO_CPU_TOL[name], "zero_grads": ZERO_GRADS[name]} if name == "bgrl"
+               else {})
+        one_step = step_against_plain(
+            f"{name} step bucketed",
+            (lambda p: zoo_loss(model, p, state, batch, graph), params),
+            (lambda p: zoo_loss(plain, p, state, batch, graph), params), torch.float32,
+            bucketed_step_launches(name, model.n_layers), **tol)
+        del params, state
+        out[name] = {"one_step": one_step,
+                     "profile": zoo_profile(name, data, graph, LARGE_BATCH)}
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_profile(model_name, data, graph, batch):
+    """``profile_steps`` of a zoo model's untrained recommender on a bucketed
+    graph, with examples/s and K7's and P1's launches over the steps."""
+    rec = zoo_recommender(model_name, data, graph, batch)
+    reset_counts()
+    profile = profile_steps(rec, batch)
+    profile["kernel_launches"] = check_profile_launches(model_name, rec, batch)
+    profile["examples_per_s"] = batch * 1e6 / profile["host_us_per_step"]
+    return profile
+
+
+def add_zoo_launches(chain_rows, gather_rows_, zoo, bucketed_zoo):
+    """The zoo's launches into the kernels line: K1's and K2's (f32 rows)
+    from the hard-set runs (SelfCF's chain over R̂), K7's and P1's from the
+    bucketed zoo's profiled steps, each as ``launches_<phase>_<model>`` and
+    added to the row's ``launches``."""
+    for run in zoo["train"]:
+        for row in chain_rows:
+            n = run["launches"][row["name"]]
+            if n:
+                row["launches"] += n
+                row[f"launches_hard_zoo_{run['model']}"] = n
+    profiles = {name: run["profile"] for name, run in bucketed_zoo.items()}
+    profiles["gcl"] = zoo["gcl_bucketed_profile"]
+    for name, profile in profiles.items():
+        for row in gather_rows_:
+            n = profile["kernel_launches"][row["name"]]
+            row["launches"] += n
+            row[f"launches_bucketed_zoo_{name}"] = n
 
 
 def main() -> int:
@@ -1978,15 +2321,17 @@ def main() -> int:
     del large_data, large_graph, large_params
     torch.cuda.empty_cache()
 
-    clustered_info, clustered_one_step, clustered_runs = clustered_phase()
+    clustered_info, clustered_one_step, clustered_runs, bucketed_zoo = clustered_phase()
     for run in clustered_runs:
         for row in lse_rows + [k7_row, p1_row]:
             row["launches"] += run["launches"][row["name"]]
             row[f"launches_clustered_{run['model']}"] = run["launches"][row["name"]]
         run["card"] = card
-    hard = hard_phase()
-    for run in hard["train"]:
+    hard, zoo = hard_phase()
+    for run in hard["train"] + zoo["train"] + list(bucketed_zoo.values()):
         run["card"] = card
+    add_zoo_launches((rows[torch.float32], bwd_rows[torch.float32]), (k7_row, p1_row), zoo,
+                     bucketed_zoo)
 
     print(json.dumps({"serve": serve}))
     print(json.dumps({"one_step": one_step, "train": training}))
@@ -1996,6 +2341,8 @@ def main() -> int:
     print(json.dumps({"clustered": {"build": clustered_info, "one_step": clustered_one_step,
                                     "train": clustered_runs}}))
     print(json.dumps({"hard": hard}))
+    print(json.dumps({"hard_zoo": zoo}))
+    print(json.dumps({"bucketed_zoo": bucketed_zoo}))
     print(json.dumps({"kernels": list(rows.values()) + list(bwd_rows.values())
                       + list(layer_rows.values()) + list(layer_bwd_rows.values()) + lse_rows
                       + [k7_row, p1_row]}))

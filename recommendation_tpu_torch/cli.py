@@ -1,15 +1,19 @@
 """Command-line entry of the port.
 
   python -m recommendation_tpu_torch models
-  python -m recommendation_tpu_torch train --model lightgcn|ncl|directau [--train T --test T] \\
+  python -m recommendation_tpu_torch train --model MODEL [--train T --test T] \\
       [--set key=value ...] [--out RESULT.json] [--device cuda|cpu]
-  python -m recommendation_tpu_torch serve --model lightgcn|ncl|directau \\
+  python -m recommendation_tpu_torch serve --model MODEL \\
       [--checkpoint PARAMS.npz | CHECKPOINT_DIR] [--device cuda|cpu] \\
       [--train T --test T] [--set graph.compute_dtype=bfloat16] [--host H --port P]
 
-``models`` lists the ported models (``directau``, ``lightgcn``, ``ncl``);
-each trains and serves on the dense and the bucketed backend
-(``--set graph.backend=bucketed``, or ``auto`` past the dense threshold).
+``models`` lists the ported models: ``lightgcn``, ``ncl``, ``directau``,
+``selfcf``, ``buir``, ``ssl4rec``, ``gcl`` (alias ``grace_rec``),
+``grace``, ``gbt`` and ``bgrl`` (alias ``bgrl_g2l``). Each trains and
+serves on the dense and the bucketed backend (``--set
+graph.backend=bucketed``, or ``auto`` past the dense threshold), except
+GRACE and G-BT, whose self-loop adjacency waits for the segment backend
+there (ROADMAP item 10).
 ``train`` runs ``GraphRecommender.execute`` and prints the test metrics as
 one JSON line (last on stdout), as the JAX package's CLI does. ``serve``
 serves top-k over HTTP from parameters saved by ``weights.save_params``
@@ -119,7 +123,7 @@ def main(argv=None):
     t = sub.add_parser("train", help="train a model and print its test metrics")
     s = sub.add_parser("serve", help="serve top-k over HTTP (trains first without --checkpoint)")
     for p in (t, s):
-        p.add_argument("--model", required=True, help="lightgcn, ncl or directau")
+        p.add_argument("--model", required=True, help="a name that `models` lists")
         p.add_argument("--train")
         p.add_argument("--test")
         p.add_argument("--set", action="append", help="config override key=value")

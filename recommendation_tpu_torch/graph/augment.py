@@ -1,0 +1,69 @@
+"""Graph augmentation on the device (counterpart of
+``recommendation_tpu/graph/augment.py``).
+
+Mask-based transforms of fixed shape: edge dropout with re-normalization
+(`univariate/sept.py:53-61`), value-level edge dropout (PyG ``dropout_adj``,
+`univariate/grace.py:270-289`; BUIR's sparse dropout,
+`univariate/buir.py:300-309`) and column-wise feature masking. Every draw
+comes from an explicit ``torch.Generator`` on the tensors' device
+(``device_generator`` seeds one from the trainer's host generator), so
+the masks are made where they are used and nothing crosses to the host.
+The draws differ from ``jax.random``'s; a Bernoulli keep is
+``uniform < 1 - p``, as there.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from recommendation_tpu_torch.graph.device import DeviceAdj, DeviceGraph, with_vals
+
+
+def device_generator(generator: torch.Generator, device) -> torch.Generator:
+    """A generator on ``device`` seeded by one draw of ``generator`` (a host
+    generator: the draw stays on the host)."""
+    if generator is None:
+        raise ValueError("this loss draws random masks: pass the trainer's generator")
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def uniform(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """f32[shape] uniform in [0, 1) on ``device``: the one draw every mask
+    of the port's augmenting models is made from."""
+    return torch.rand(tuple(shape), generator=generator, device=device)
+
+
+def keep_draw(generator: torch.Generator, shape, keep_prob, device) -> torch.Tensor:
+    """bool[shape]: each entry kept with probability ``keep_prob`` (a float
+    or a 0-d tensor on ``device``)."""
+    return uniform(generator, shape, device) < keep_prob
+
+
+def edge_keep_mask(generator: torch.Generator, graph: DeviceGraph,
+                   drop_rate: float) -> torch.Tensor:
+    """Bernoulli keep-mask over the interaction edges (f32[E_pad])."""
+    return keep_draw(generator, graph.edge_valid.shape, 1.0 - drop_rate,
+                     graph.edge_valid.device).to(torch.float32)
+
+
+def dropped_norm_adj(generator: torch.Generator, graph: DeviceGraph, drop_rate: float) -> DeviceAdj:
+    """The edge-dropped, re-normalized bipartite adjacency, on the device."""
+    return graph.normalized_bipartite(edge_keep_mask(generator, graph, drop_rate))
+
+
+def drop_edges(generator: torch.Generator, adj: DeviceAdj, drop_rate: float,
+               renormalize: bool = False) -> DeviceAdj:
+    """Edge dropout on any ``DeviceAdj`` by zeroing values. With
+    ``renormalize=False`` (BUIR's semantics) the kept values are scaled by
+    1 / max(1 - p, 1e-8), as inverted dropout does."""
+    keep = keep_draw(generator, adj.vals.shape, 1.0 - drop_rate, adj.vals.device)
+    scale = 1.0 if renormalize else 1.0 / max(1.0 - drop_rate, 1e-8)
+    return with_vals(adj, torch.where(keep, adj.vals * scale, torch.zeros_like(adj.vals)))
+
+
+def mask_features(generator: torch.Generator, x: torch.Tensor, mask_rate: float) -> torch.Tensor:
+    """Column-wise feature masking (`univariate/grace.py:281-289`): zero a
+    random subset of feature dimensions across all nodes."""
+    keep = keep_draw(generator, (x.shape[-1],), 1.0 - mask_rate, x.device)
+    return x * keep.to(x.dtype)[None, :]

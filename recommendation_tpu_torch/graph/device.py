@@ -18,14 +18,22 @@ tables (``graph/bucketed.py``). Tables are built
 on the host with the same numpy code as the JAX package and uploaded once,
 so each equals the JAX one bit for bit.
 
+Edge augmentation stays on the device: ``normalized_bipartite(keep_mask)``
+re-normalizes the bipartite adjacency under a keep-mask over the edges
+(the degrees from the kept edges, both directions of a kept edge kept).
+On the dense backend its (U+I)² matrix is built at first access; on the
+bucketed one its pull tables are refreshed from structure-only templates
+over the static bipartite pattern, built at the first call and kept.
+``norm_adj_selfloops`` (D̃^-1/2 (A + I) D̃^-1/2, GRACE's and G-BT's
+operator) is built at first access on the dense backend; the JAX package
+puts it on the segment backend where the graph is bucketed, so it raises
+there (ROADMAP queue 1, item 10).
+
 Forms of the JAX graph that stay out: ``user_bitmap_fb`` rows are not
 padded to 64 words (a TPU gather-width workaround; the first W + 8 columns
-are the same); ``norm_adj_selfloops`` comes with GRACE/G-BT and
-``normalized_bipartite`` with its bucketed augmentation templates
-(``_bipartite_pull_tpl``) with the augmenting models (ROADMAP queue 1,
-item 9); ``gat_aux`` with GAT (item 10). The segment and pallas backends
-are not ported (item 10), nor ``DeviceAdj.rows_sorted``, which only the
-segment path reads.
+are the same); ``gat_aux`` with GAT (item 10). The segment and pallas
+backends are not ported (item 10), nor ``DeviceAdj.rows_sorted``, which
+only the segment path reads.
 """
 
 from __future__ import annotations
@@ -37,8 +45,14 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from recommendation_tpu_torch.data.interaction import normalize_graph_mat
 from recommendation_tpu_torch.device import resolve_device
-from recommendation_tpu_torch.graph.bucketed import BucketedCSR, build_bucketed, refresh_vals
+from recommendation_tpu_torch.graph.bucketed import (
+    BucketedCSR,
+    build_bucketed,
+    mirrored_transpose,
+    refresh_vals,
+)
 
 # Graphs whose dense adjacency is at most this many f32 elements use the
 # dense backend (the JAX package's threshold, kept so both choose alike).
@@ -413,8 +427,11 @@ class DeviceGraph:
         # backend's pull tables now, the dense backend's COO at first access
         self._norm_adj_host = data.norm_adj
         self._norm_adj = None if self.backend == "dense" else self._upload_norm_adj()
+        self._bipartite_tpl = None  # normalized_bipartite's bucketed templates, at first use
+        self._ui_adj_host = self._norm_adj_selfloops = None
         if self.backend == "bucketed":
             return
+        self._ui_adj_host = data.ui_adj  # norm_adj_selfloops', at first access
         # Dense R̂: the bipartite adjacency is [[0, R̂], [R̂ᵀ, 0]], so one
         # propagation round is R̂ · I and R̂ᵀ · U.
         deg_u = np.asarray(mat.sum(axis=1)).flatten()
@@ -434,7 +451,7 @@ class DeviceGraph:
         nodes as a ``DeviceAdj``: built with the graph on the bucketed
         backend, whose chain every model runs through it, and uploaded at
         first access on the dense one, where only the square-adjacency
-        models (DirectAU) read it."""
+        models (DirectAU, BUIR, GCL's evaluation, BGRL) read it."""
         if self._norm_adj is None:
             self._norm_adj = self._upload_norm_adj()
         return self._norm_adj
@@ -453,9 +470,75 @@ class DeviceGraph:
         if self.backend != "dense":
             raise NotImplementedError(
                 f"the {self.backend} backend has no dense R̂: the dense layer chain (kernels "
-                "K1-K4) reads it; LightGCN, NCL and DirectAU propagate through norm_adj on "
-                "this backend, and the models still to come to it are ROADMAP queue 1, "
-                "item 15")
+                "K1-K4) reads it; the models that run on this backend propagate through "
+                "norm_adj, and the ones still to come to it are ROADMAP queue 1, item 15")
         if self.interaction_norm_bf16 is not None:
             return self.interaction_norm_bf16
         return self.interaction_norm_dense
+
+    @property
+    def norm_adj_selfloops(self) -> DeviceAdj:
+        """D̃^-1/2 (A + I) D̃^-1/2 over the U + I nodes (GCNConv's operator,
+        GRACE's and G-BT's), built at first access on the dense backend.
+        The JAX package puts it on the segment backend where the graph is
+        bucketed (`graph/device.py:263-270`), which the port lacks."""
+        if self.backend != "dense":
+            raise NotImplementedError(
+                f"norm_adj_selfloops on the {self.backend} backend is not ported yet: the JAX "
+                "package builds it on the segment backend there (ROADMAP queue 1, item 10, "
+                "'Segment backend and neighbor models')")
+        if self._norm_adj_selfloops is None:
+            mat = normalize_graph_mat(self._ui_adj_host + sp.eye(self.n_nodes, dtype=np.float32))
+            self._norm_adj_selfloops = from_scipy(mat, backend="dense",
+                                                  compute_dtype=self.compute_dtype,
+                                                  device=self.device)
+            self._ui_adj_host = None
+        return self._norm_adj_selfloops
+
+    def _bipartite_templates(self) -> tuple[BucketedCSR, BucketedCSR]:
+        """Structure-only bucketed tables over the static bipartite pattern
+        (rows [u; i + U], cols [i + U; u], slot→edge maps into the [2·E_pad]
+        values of ``normalized_bipartite``) and their mirrored transpose,
+        built on the host at the first call and kept."""
+        if self._bipartite_tpl is None:
+            users = self.edge_users.cpu().numpy()
+            items = self.edge_items.cpu().numpy() + self.n_users
+            e_pad = len(users)
+            tpl = build_bucketed(np.concatenate([users, items]), np.concatenate([items, users]),
+                                 None, self.n_nodes, self.n_nodes,
+                                 edge_ids=np.arange(2 * e_pad, dtype=np.int32),
+                                 device=self.device)
+            # the pattern is a mirror (its second half swaps the first), so
+            # the transpose's tables are the forward's, the edge map flipped
+            self._bipartite_tpl = (tpl, mirrored_transpose(tpl, e_pad))
+        return self._bipartite_tpl
+
+    def normalized_bipartite(self, keep_mask: Optional[torch.Tensor] = None) -> DeviceAdj:
+        """D^-1/2 (A∘mask) D^-1/2 over the U + I nodes, on the device.
+
+        ``keep_mask`` is f32[E_pad] in {0, 1} over the interaction edges;
+        both directions of a kept edge survive, and the degrees count the
+        kept edges. The values are [2·E_pad]: the edges user→item, then
+        item→user. Dense backend: the (U+I)² matrix is built from them at
+        first access (each coordinate holds one real value; the padding
+        adds exact zeros). Bucketed backend: the templates' pull tables
+        refreshed with them, sharing one row space (``sym_rowspace``)."""
+        mask = self.edge_valid if keep_mask is None else self.edge_valid * keep_mask
+        u_nodes = self.edge_users.long()
+        i_nodes = self.edge_items.long() + self.n_users
+        # sums of 0/1 values: exact in any order
+        deg = torch.zeros(self.n_nodes, dtype=torch.float32, device=mask.device)
+        deg = deg.index_add(0, u_nodes, mask).index_add(0, i_nodes, mask)
+        inv_sqrt = torch.where(deg > 0, torch.rsqrt(torch.clamp(deg, min=1e-12)),
+                               torch.zeros_like(deg))
+        vals = mask * inv_sqrt[u_nodes] * inv_sqrt[i_nodes]
+        both = torch.cat([vals, vals])
+        pull = pull_t = None
+        if self.backend == "bucketed":
+            tpl, tpl_t = self._bipartite_templates()
+            pull, pull_t = refresh_vals(tpl, both), refresh_vals(tpl_t, both)
+        return DeviceAdj(rows=torch.cat([u_nodes, i_nodes]).int(),
+                         cols=torch.cat([i_nodes, u_nodes]).int(), vals=both,
+                         n_rows=self.n_nodes, n_cols=self.n_nodes, backend=self.backend,
+                         compute_dtype=self.compute_dtype, pull=pull, pull_t=pull_t,
+                         sym_rowspace=pull is not None)

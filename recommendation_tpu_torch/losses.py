@@ -4,7 +4,12 @@ The same formulas as the JAX package, differentiable under autograd:
 the BPR loss keeps the reference's ``1e-5`` inside the log, and the L2
 term is the un-squared Frobenius norm divided by the row count.
 ``info_nce``'s [B, B] product is plain torch, as the JAX package leaves it
-to XLA; the full-catalog denominators go through ``ops/lse.py``. DirectAU's
+to XLA; the full-catalog denominators go through ``ops/lse.py``. The
+contrastive, bootstrap and decorrelation losses of the augmenting models
+(SelfCF, BUIR, SSL4Rec, GCL, GRACE, G-BT, BGRL) are plain torch too, as
+the JAX package's are plain jnp. Every normalization goes through the
+zero-safe ``_l2_normalize``: edge dropout isolates nodes, and their zero
+rows give a gradient of 0, not NaN. DirectAU's
 alignment and uniformity are here too, with ``uniformity_streaming``: the
 JAX package's ``lax.scan`` of [N, 1024] blocks (``ops/pallas_losses.py``,
 not a kernel) as a loop of plain torch products, which ``uniformity_loss``
@@ -77,6 +82,30 @@ def info_nce(view1: torch.Tensor, view2: torch.Tensor, temperature: float,
     return -torch.mean(torch.diagonal(torch.log_softmax(scores, dim=1)))
 
 
+def masked_info_nce(anchor: torch.Tensor, sample: torch.Tensor, pos_mask: torch.Tensor,
+                    neg_mask: torch.Tensor, tau: float) -> torch.Tensor:
+    """Matrix-mask InfoNCE (`univariate/grace.py:213-224`): the denominator
+    over the positive and negative entries, the numerator averaged over
+    each anchor's positives."""
+    anchor, sample = _l2_normalize(anchor), _l2_normalize(sample)
+    sim = anchor @ sample.T / tau
+    masked = torch.where(pos_mask + neg_mask > 0, sim, torch.full_like(sim, -torch.inf))
+    log_prob = sim - torch.logsumexp(masked, dim=1, keepdim=True)
+    per_anchor = torch.sum(log_prob * pos_mask, dim=1) / torch.clamp(
+        torch.sum(pos_mask, dim=1), min=1e-12)
+    return -torch.mean(per_anchor)
+
+
+def batch_softmax_loss(user_emb: torch.Tensor, item_emb: torch.Tensor,
+                       temperature: float) -> torch.Tensor:
+    """In-batch sampled-softmax retrieval loss (`ssl4rec.py:25-30`), with the
+    reference's +1e-6 inside the log."""
+    user_emb, item_emb = _l2_normalize(user_emb), _l2_normalize(item_emb)
+    pos_score = torch.exp(torch.sum(user_emb * item_emb, dim=-1) / temperature)
+    ttl_score = torch.sum(torch.exp(user_emb @ item_emb.T / temperature), dim=1)
+    return torch.mean(-torch.log(pos_score / ttl_score + 1e-6))
+
+
 # -- DirectAU -----------------------------------------------------------------
 
 
@@ -131,3 +160,86 @@ def direct_au_loss(user_emb: torch.Tensor, item_emb: torch.Tensor, gamma: float)
     align = alignment_loss(user_emb, item_emb)
     uniform = (uniformity_loss(user_emb) + uniformity_loss(item_emb)) / 2.0
     return align + gamma * uniform
+
+
+# -- bootstrap (negative-free) ------------------------------------------------
+
+
+def cosine_bootstrap_loss(p: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """1 - mean cos(p, z), no gradient to ``z``  (`selfcf.py:518-519`)."""
+    z = z.detach()
+    return 1.0 - torch.mean(torch.sum(_l2_normalize(p) * _l2_normalize(z), dim=-1))
+
+
+def selfcf_loss(u_online, u_target, i_online, i_target) -> torch.Tensor:
+    """The cosine bootstrap both ways, halved (`selfcf.py:520-525`)."""
+    return (cosine_bootstrap_loss(u_online, i_target) / 2.0
+            + cosine_bootstrap_loss(i_online, u_target) / 2.0)
+
+
+def buir_loss(u_online, u_target, i_online, i_target) -> torch.Tensor:
+    """mean[(2 - 2·cos(u_on, i_tg)) + (2 - 2·cos(i_on, u_tg))], the targets
+    detached (`univariate/buir.py:263-277`)."""
+    u_online, u_target = _l2_normalize(u_online), _l2_normalize(u_target)
+    i_online, i_target = _l2_normalize(i_online), _l2_normalize(i_target)
+    loss_ui = 2.0 - 2.0 * torch.sum(u_online * i_target.detach(), dim=-1)
+    loss_iu = 2.0 - 2.0 * torch.sum(i_online * u_target.detach(), dim=-1)
+    return torch.mean(loss_ui + loss_iu)
+
+
+# -- decorrelation and graph contrast -----------------------------------------
+
+
+def barlow_twins_loss(h1: torch.Tensor, h2: torch.Tensor, lambda_: float | None = None,
+                      batch_norm: bool = True, eps: float = 1e-15) -> torch.Tensor:
+    """Cross-correlation decorrelation loss (`univariate/gbt.py:203-217`):
+    each view standardized by the unbiased std (ddof 1), ``eps`` added
+    outside it."""
+    batch_size, feature_dim = h1.shape
+    if lambda_ is None:
+        lambda_ = 1.0 / feature_dim
+    if batch_norm:
+        z1 = (h1 - h1.mean(dim=0)) / (h1.std(dim=0, unbiased=True) + eps)
+        z2 = (h2 - h2.mean(dim=0)) / (h2.std(dim=0, unbiased=True) + eps)
+        c = z1.T @ z2 / batch_size
+    else:
+        c = h1.T @ h2 / batch_size
+    on_diag = torch.sum((1.0 - torch.diagonal(c)) ** 2)
+    eye = torch.eye(feature_dim, dtype=torch.bool, device=c.device)
+    off_diag = torch.sum(torch.where(eye, torch.zeros_like(c), c) ** 2)
+    return on_diag + lambda_ * off_diag
+
+
+def grace_dual_branch_loss(z1: torch.Tensor, z2: torch.Tensor, tau: float) -> torch.Tensor:
+    """GRACE's dual-branch InfoNCE with intra-view negatives
+    (`univariate/grace.py:213-224`, DualBranchContrast 469-502): for anchor
+    i of one view the positive is row i of the other; the negatives are
+    every row of the other view and every other row of its own (the
+    intra-view diagonal is -inf), one logsumexp over the [N, 2N]
+    concatenation. Symmetrized over the two views."""
+
+    def one_side(a, b):
+        a, b = _l2_normalize(a), _l2_normalize(b)
+        inter = a @ b.T / tau  # [N, N]; the diagonal holds the positives
+        intra = a @ a.T / tau
+        eye = torch.eye(a.shape[0], dtype=torch.bool, device=a.device)
+        intra = torch.where(eye, torch.full_like(intra, -torch.inf), intra)
+        denom = torch.logsumexp(torch.cat([inter, intra], dim=1), dim=1)
+        return -torch.mean(torch.diagonal(inter) - denom)
+
+    return (one_side(z1, z2) + one_side(z2, z1)) / 2.0
+
+
+def bootstrap_g2l_loss(h1_pred, h2_pred, g1_target, g2_target) -> torch.Tensor:
+    """BGRL's G2L bootstrap (`univariate/bgrl_g2l.py:277-308,436-446`): each
+    view's node predictions against the other view's graph-level target
+    readout, 2 - 2·cos, symmetrized; the readout is scaled by
+    1 / max(||g||_F, 1e-12) and detached."""
+    g1, g2 = g1_target.detach(), g2_target.detach()
+
+    def side(h, g):
+        h = _l2_normalize(h)
+        g = g / torch.clamp(safe_frobenius_norm(g), min=1e-12)
+        return torch.mean(2.0 - 2.0 * h @ g)
+
+    return (side(h1_pred, g2) + side(h2_pred, g1)) / 2.0

@@ -3,7 +3,9 @@
 A model is a bundle of plain functions over ``params``, a dict of tensors,
 and ``state``, explicitly carried non-gradient state. Keeping the JAX
 package's shape lets its parameter pytrees carry over name for name
-(``weights.params_from_jax``). Random numbers come from an explicit
+(``weights.params_from_jax``); nested trees (linear layers, layer lists,
+BGRL's online and target encoders) are flat dicts of dotted names
+(``weights.flatten_tree``). Random numbers come from an explicit
 ``torch.Generator``.
 """
 
@@ -13,6 +15,12 @@ import math
 from typing import Any
 
 import torch
+
+
+def linear(params: dict, name: str, x: torch.Tensor) -> torch.Tensor:
+    """``x @ W + b`` with the linear layer ``name`` of a flat parameter dict
+    (``name.w`` [d_in, d_out], ``name.b`` [d_out])."""
+    return x @ params[f"{name}.w"] + params[f"{name}.b"]
 
 
 class Model:
@@ -39,6 +47,16 @@ class Model:
         limit = math.sqrt(6.0 / (n + d))
         table = torch.empty(n, d, dtype=torch.float32).uniform_(-limit, limit, generator=generator)
         return table.to(device)
+
+    def _init_linear(self, generator: torch.Generator, d_in: int, d_out: int, device) -> dict:
+        """torch ``nn.Linear``'s default init as the JAX package draws it
+        (`models/base.py:60-67`): W [d_in, d_out] and b [d_out] from
+        U(-1/√d_in, 1/√d_in), on the CPU from ``generator``, then moved."""
+        bound = 1.0 / math.sqrt(d_in)
+        w = torch.empty(d_in, d_out, dtype=torch.float32).uniform_(-bound, bound,
+                                                                    generator=generator)
+        b = torch.empty(d_out, dtype=torch.float32).uniform_(-bound, bound, generator=generator)
+        return {"w": w.to(device), "b": b.to(device)}
 
     # -- training -------------------------------------------------------------
 

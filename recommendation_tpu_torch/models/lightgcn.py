@@ -72,6 +72,15 @@ def lightgcn_propagate_square(user_emb: torch.Tensor, item_emb: torch.Tensor, no
     return mean[:n_users], mean[n_users:]
 
 
+def lightgcn_encode(user_emb: torch.Tensor, item_emb: torch.Tensor, graph, n_layers: int):
+    """LightGCN's encoder on the graph's backend: the dense chain over R̂
+    (``ChainMean``: K1 forward, K2 backward) or, on the bucketed backend,
+    the row-space chain over ``norm_adj`` (K7 and P1 both ways)."""
+    if graph.backend == "bucketed":
+        return lightgcn_propagate_square(user_emb, item_emb, graph.norm_adj, n_layers)
+    return lightgcn_propagate(user_emb, item_emb, graph.propagation_matrix, n_layers)
+
+
 @register("lightgcn")
 class LightGCN(Model):
     name = "lightgcn"
@@ -90,12 +99,7 @@ class LightGCN(Model):
         return params, {}
 
     def propagate(self, params, graph):
-        if graph.backend == "bucketed":
-            return lightgcn_propagate_square(params["user_emb"], params["item_emb"],
-                                             graph.norm_adj, self.n_layers)
-        return lightgcn_propagate(
-            params["user_emb"], params["item_emb"], graph.propagation_matrix, self.n_layers
-        )
+        return lightgcn_encode(params["user_emb"], params["item_emb"], graph, self.n_layers)
 
     def loss(self, params, state, batch, graph, generator=None):
         user_all, item_all = self.propagate(params, graph)

@@ -5,7 +5,8 @@ from __future__ import annotations
 _REGISTRY: dict[str, type] = {}
 
 # modules of the port that register models; more join as slices land
-_MODEL_MODULES = ("lightgcn", "ncl", "directau")
+_MODEL_MODULES = ("lightgcn", "ncl", "directau", "selfcf", "buir", "ssl4rec", "gcl", "grace",
+                  "gbt", "bgrl")
 
 
 def register(name: str):

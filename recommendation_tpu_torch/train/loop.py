@@ -21,6 +21,7 @@ evaluate at different intervals train on the same batches by construction.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import torch
@@ -44,6 +45,35 @@ def make_optimizer(config, params: Dict[str, torch.Tensor]) -> torch.optim.Optim
     if name == "sgd":
         return torch.optim.SGD(tensors, lr=lr, momentum=float(config.get("momentum", 0.9)))
     raise ValueError(f"unknown optimizer {name!r}")
+
+
+def cosine_decay(lr: float, count: int, decay_steps: int) -> float:
+    """optax's ``cosine_decay_schedule(lr, decay_steps)`` (alpha 0, exponent
+    1) at update ``count``: lr·½(1 + cos(π·min(count, T)/T))."""
+    t = min(count, decay_steps) / decay_steps
+    return lr * 0.5 * (1.0 + math.cos(math.pi * t))
+
+
+class CosineDecayAdam(torch.optim.Adam):
+    """``optax.adam(optax.cosine_decay_schedule(lr, decay_steps))``: Adam
+    whose update ``t`` (counted from 0, the updates before it) takes the
+    rate ``cosine_decay(lr, t, decay_steps)``. Every ``step`` counts, the
+    NaN guard's zeroed ones too, as optax's count does. The count lives in
+    each param group (``schedule_count``), so the optimizer's
+    ``state_dict``, and with it a checkpoint, carries the schedule's
+    position."""
+
+    def __init__(self, params, lr: float, decay_steps: int):
+        super().__init__(params, lr=lr, eps=1e-8)
+        for group in self.param_groups:
+            group.update(base_lr=lr, decay_steps=int(decay_steps), schedule_count=0)
+
+    def step(self, closure=None):
+        for group in self.param_groups:
+            group["lr"] = cosine_decay(group["base_lr"], group["schedule_count"],
+                                       group["decay_steps"])
+            group["schedule_count"] += 1
+        return super().step(closure)
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:

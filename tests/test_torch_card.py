@@ -10,7 +10,10 @@ up to B = 8192 against 100,000 items with its workspace bounded). And for
 the bucketed backend's kernels (``csrc/gather.cu``): K7, the row gather,
 bit for bit; each variant of P1, the bucket pull, its epilogue's too,
 against its plain version and against itself; ``BucketedChainMean``'s gradient on the card; one LightGCN step on
-a bucketed graph; one DirectAU step on a bucketed graph (P1's value path).
+a bucketed graph; one DirectAU step on a bucketed graph (P1's value path);
+one step of each zoo model that reaches a kernel (SelfCF dense through
+K1/K2 and bucketed through K7/P1; BUIR, GCL and BGRL bucketed, P1's value
+path) against its plain path on the same masks.
 Calls on two streams at once equal the same calls in turn (the chain's tile
 counters, P1's piece counters, K5's and K6's partials).
 
@@ -38,8 +41,13 @@ from recommendation_tpu_torch.graph.bucketed import (
     packs_bf16,
 )
 from recommendation_tpu_torch.graph.device import DeviceGraph
+from recommendation_tpu_torch.graph import augment
 from recommendation_tpu_torch.models import build
+from recommendation_tpu_torch.models.bgrl import PlainBucketedBGRL
+from recommendation_tpu_torch.models.buir import PlainBucketedBUIR
 from recommendation_tpu_torch.models.directau import PlainBucketedDirectAU
+from recommendation_tpu_torch.models.gcl import PlainBucketedGCL
+from recommendation_tpu_torch.models.selfcf import PlainSelfCF
 from recommendation_tpu_torch.models.lightgcn import LightGCN
 from recommendation_tpu_torch.models.ncl import NCL
 from recommendation_tpu_torch.ops.gather import gather_rows, gather_sum, gather_sum_plain
@@ -590,6 +598,86 @@ def test_directau_bucketed_step_kernel_vs_plain(card):
     assert np.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-6 + 1e-5 * abs(loss_p)
     assert _grads_close(g_k, g_p, torch.float32)
     assert not _grads_close([torch.zeros_like(g) for g in g_p], g_p, torch.float32)
+
+
+def test_normalized_bipartite_repeats_on_the_card(card):
+    """The dense re-normalized bipartite adjacency is built by scatter on
+    the card: each coordinate holds one real value (the padding adds exact
+    zeros) and the degrees are sums of 0/1 values, so two builds are equal
+    bit for bit, and equal the CPU's build at the f32 bound."""
+    train, test = make_synthetic_dataset(n_users=200, n_items=333, n_interactions=8000, seed=5)
+    data = Interaction(train, test)
+    graph, cpu = DeviceGraph(data, device=card), DeviceGraph(data, device="cpu")
+    keep = (torch.rand(graph.edge_valid.shape[0], generator=torch.Generator().manual_seed(0))
+            >= 0.3).float()
+    a, b = (graph.normalized_bipartite(keep.to(card)).dense for _ in range(2))
+    assert a.is_cuda and torch.equal(a, b)
+    torch.testing.assert_close(a.cpu(), cpu.normalized_bipartite(keep).dense,
+                               **TOL[torch.float32])
+
+
+# a zoo step's K1/K2 (dense) or K7/P1 (bucketed) launches at L = 2
+ZOO_CASES = {
+    ("selfcf", "dense", "float32"): (PlainSelfCF, {"chain_mean": 2, "chain_mean_bwd": 2}),
+    ("selfcf", "dense", "bfloat16"): (PlainSelfCF, {"chain_mean": 2, "chain_mean_bwd": 2}),
+    ("selfcf", "bucketed", "float32"): (PlainSelfCF, {"gather_rows": 4, "gather_sum": 4}),
+    ("buir", "bucketed", "float32"): (PlainBucketedBUIR, {"gather_rows": 6, "gather_sum": 6}),
+    ("gcl", "bucketed", "float32"): (PlainBucketedGCL, {"gather_rows": 8, "gather_sum": 8}),
+    ("bgrl", "bucketed", "float32"): (PlainBucketedBGRL, {"gather_rows": 12, "gather_sum": 12}),
+}
+
+
+@pytest.mark.parametrize("name,backend,compute_dtype", list(ZOO_CASES),
+                         ids=["-".join(c) for c in ZOO_CASES])
+def test_zoo_step_kernel_vs_plain(card, monkeypatch, name, backend, compute_dtype):
+    """One step of a zoo model through its kernels against its plain path,
+    on the same parameters, batch and masks (every augmentation draw from
+    one seeded host generator): the launches, the loss and the gradients
+    to every parameter, the bound rejecting zeros."""
+    plain_cls, want = ZOO_CASES[name, backend, compute_dtype]
+    pairs = make_flat_interactions(2000, 4000, 40_000, seed=2)
+    graph = DeviceGraph(ArrayInteraction(pairs, 2000, 4000), backend=backend,
+                        compute_dtype=compute_dtype, device=card)
+    config = default_config(**{"batch.size": 1024})
+    models = (build(name, config), plain_cls(config))
+    init, state = models[0].init(torch.Generator().manual_seed(3), graph)
+    users, items, negs, weights, _ = epoch_batches(
+        epoch_words(torch.Generator().manual_seed(4), graph, 1024), graph, 1024)
+    batch = PairwiseBatch(users[0], items[0], negs[0], weights[0])
+    counters = {f.__name__: f for f in (chain_mean, chain_mean_bwd, gather_rows, gather_sum)}
+    out = []
+    for m in models:
+        draws = torch.Generator().manual_seed(5)
+        monkeypatch.setattr(augment, "uniform", lambda g, shape, device: torch.rand(
+            tuple(shape), generator=draws).to(device))
+        p = {k: v.detach().clone().requires_grad_() for k, v in init.items()}
+        before = {k: f.launches for k, f in counters.items()}
+        loss, _ = m.loss(p, state, batch, graph, torch.Generator().manual_seed(6))
+        grads = torch.autograd.grad(loss, list(p.values()))
+        torch.cuda.synchronize()
+        out.append((loss.item(), grads,
+                    {k: f.launches - before[k] for k, f in counters.items() if
+                     f.launches != before[k]}))
+    (loss_k, g_k, n_k), (loss_p, g_p, n_p) = out
+    dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+    assert n_k == want and n_p == {}, (n_k, n_p, want)
+    tol = TOL[dtype]
+    assert np.isfinite(loss_k) and abs(loss_k - loss_p) <= tol["atol"] + tol["rtol"] * abs(loss_p)
+    if name == "bgrl":
+        # ReLU units within an f32 rounding of their kink and whole-graph batch
+        # norms: each gradient by its relative Frobenius error; the projection's
+        # bias, whose exact gradient is 0 (the batch norm after it), by size
+        names = list(init)
+        largest = max(w.abs().max().item() for w in g_p)
+        for k, g, w in zip(names, g_k, g_p):
+            if k == "online.proj.b":
+                assert max(g.abs().max().item(), w.abs().max().item()) < 1e-3 * largest
+            else:
+                assert torch.isfinite(g).all(), k
+                assert torch.linalg.norm(g - w) <= 1e-2 * torch.linalg.norm(w), k
+        return
+    assert _grads_close(g_k, g_p, dtype)
+    assert not _grads_close([torch.zeros_like(g) for g in g_p], g_p, dtype)
 
 
 def _two_calls(card, kernel):

@@ -46,6 +46,10 @@ def test_the_scan_sees_imports():
     assert not _forbidden("recommendation_tpu_torch.ops.topk")
     mods = set(_imported_modules(ROOT / "recommendation_tpu_torch" / "models" / "registry.py"))
     assert "recommendation_tpu_torch.models.{mod}" in mods
+    port = ROOT / "recommendation_tpu_torch"
+    assert {port / "graph" / "augment.py"} | {
+        port / "models" / f"{m}.py"
+        for m in ("selfcf", "buir", "ssl4rec", "gcl", "grace", "gbt", "bgrl")} <= set(PORT_FILES)
 
 
 def _run_smoke(cwd):

@@ -406,7 +406,7 @@ def test_state_from_jax_keeps_the_types():
     with pytest.raises(ValueError):
         state_from_jax("ncl", {"user_centroids": np.ones(2)}, device="cpu")
     with pytest.raises(KeyError):
-        state_from_jax("selfcf", {}, device="cpu")
+        state_from_jax("graphsage", {}, device="cpu")
 
 
 def test_serve_from_params_reads_no_state(data, tmp_path):

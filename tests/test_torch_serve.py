@@ -177,7 +177,7 @@ def test_params_from_jax_rejects_wrong_layout():
     with pytest.raises(ValueError):
         params_from_jax("lightgcn", {"user_emb": np.zeros((2, 2))}, device="cpu")
     with pytest.raises(KeyError):  # a model the port does not have yet
-        params_from_jax("selfcf", {}, device="cpu")
+        params_from_jax("graphsage", {}, device="cpu")
 
 
 def _cli(*args):
