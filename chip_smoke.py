@@ -99,9 +99,32 @@ What it does, in order (any failed phase exits non-zero):
      of the seven trained at its defaults (f32) for ZOO_EPOCHS epochs and
      held to its ZOO_GATES gate, launches counted, the served answers
      (width 2d for SelfCF and BUIR) against the plain path's;
- 12. prints the serving line, the training line, the NCL line, the large
+ 12. the neighbour models and the segment backend: the segment kernels S1
+     ``weighted_pull``, S2 ``segment_softmax_rows`` and its backward and
+     S3 ``segment_dot`` against their plain versions, twice bit for bit,
+     timed beside their bounds and, where one PyTorch call computes the
+     same function, ``torch.sparse.mm``, ``torch.sparse.softmax`` and its
+     backward (H = 1) and ``torch.sparse.sampled_addmm`` (S3 where the
+     rows are the nodes): at the clustered graph's bucket tables and the
+     hard set's bidirectional edges, H = 4 and 1, d = 64. On the clustered
+     graph: GAT (bucketed attention) and GraphSAGE one step against their
+     plain paths (``PlainGAT``: the plain S1 and S2 under autograd, in
+     float64), then PROFILE_STEPS
+     profiled steps each; a segment graph of the same data, P1 over its
+     row-sorted view timed beside ``torch.sparse.mm``, one LightGCN step
+     against the plain segment matmul and PROFILE_STEPS profiled steps. On
+     the hard set: GraphSAGE and GAT (dense backend, whose sums run the
+     segment kernels) one step against their plain paths, then
+     NEIGHBOR_EPOCHS epochs held to NEIGHBOR_GATES; LightGCN on the segment
+     backend one step against the plain path, then TRAIN_EPOCHS epochs on
+     the same batches as the dense backend's run, Recall@20 within
+     BACKEND_RECALL_GAP of it; GRACE and G-BT on the bucketed graph (their
+     self-loop adjacency on the segment backend) one step against the plain
+     path, then PROFILE_STEPS profiled steps;
+ 13. prints the serving line, the training line, the NCL line, the large
      line, the clustered line, the hard line, the hard_zoo line, the
-     bucketed_zoo line, the kernels line and, last, the device line.
+     bucketed_zoo line, the neighbors line, the kernels line (every kernel
+     must have launched on a main path) and, last, the device line.
 
 Launch counts are reset just before each main path and read just after it.
 Exits non-zero without printing a result where no CUDA device is present.
@@ -147,6 +170,8 @@ from recommendation_tpu_torch.models import build
 from recommendation_tpu_torch.models.bgrl import PlainBucketedBGRL
 from recommendation_tpu_torch.models.buir import PlainBucketedBUIR
 from recommendation_tpu_torch.models.directau import PlainBucketedDirectAU
+from recommendation_tpu_torch.models.gat import PlainGAT
+from recommendation_tpu_torch.models.graphsage import PlainGraphSAGE, bidirectional_edges
 from recommendation_tpu_torch.models.gcl import PlainBucketedGCL
 from recommendation_tpu_torch.models.lightgcn import LightGCN
 from recommendation_tpu_torch.models.ncl import NCL
@@ -159,6 +184,7 @@ from recommendation_tpu_torch.ops.gather import (
     gather_sum_plain,
 )
 from recommendation_tpu_torch.ops import lse as lse_ops
+from recommendation_tpu_torch.ops import spmm
 from recommendation_tpu_torch.ops.lse import (
     catalog_lse,
     catalog_lse_bwd,
@@ -176,6 +202,17 @@ from recommendation_tpu_torch.ops.prop import (
     chain_mean_layer_bwd_plain,
     chain_mean_layer_plain,
     chain_mean_plain,
+)
+from recommendation_tpu_torch.ops.segment import (
+    segment_dot,
+    segment_dot_plain,
+    segment_softmax_rows,
+    segment_softmax_rows_bwd,
+    segment_softmax_rows_bwd_plain,
+    segment_softmax_rows_plain,
+    slot_rows,
+    weighted_pull,
+    weighted_pull_plain,
 )
 from recommendation_tpu_torch.ops.topk import topk_agree
 from recommendation_tpu_torch.sampling import (
@@ -279,6 +316,15 @@ ZERO_GRAD_SHARE = 1e-3
 # the bucketed zoo: SelfCF, BUIR and BGRL on the clustered graph, GCL on the
 # hard set with the backend forced to bucketed
 BUCKETED_ZOO = ("selfcf", "buir", "bgrl")
+# the neighbour models on the hard set (dense backend: their sums run the
+# segment kernels) and their gate: "popularity", Recall@20 above the
+# popularity list's with the untrained tables below it (the JAX package's
+# 30-epoch records, GAT 0.4071 and GraphSAGE 0.4033 in BASELINE.md round 2,
+# stay under the masked list's 0.41561); epochs from
+# tools/zoo_gate_calibration.py's CPU runs (PERF.md §4)
+NEIGHBOR_MODELS = ("graphsage", "gat")
+NEIGHBOR_GATES = {"graphsage": "popularity", "gat": "popularity"}
+NEIGHBOR_EPOCHS = {"graphsage": 3, "gat": 3}
 
 
 def card_line() -> str:
@@ -1649,7 +1695,8 @@ def sampler_seconds(graph, reps=3):
 
 # -- the sets a quality gate can fail: the clustered large set, the hard set ------
 
-ALL_COUNTERS = COUNTERS + (gather_rows, gather_sum)
+SEGMENT_COUNTERS = (weighted_pull, segment_softmax_rows, segment_softmax_rows_bwd, segment_dot)
+ALL_COUNTERS = COUNTERS + (gather_rows, gather_sum) + SEGMENT_COUNTERS
 
 
 def reset_counts():
@@ -1714,8 +1761,13 @@ def expected_launches(model_name, graph, n_layers, steps, n_evals, e_steps=0):
     port (their square products are ``torch.matmul``, as the JAX package's
     are XLA's)."""
     want = {f.__name__: 0 for f in ALL_COUNTERS}
+    if model_name in NEIGHBOR_MODELS or graph.backend == "segment":
+        step, per_eval = neighbor_launches(model_name, graph.backend, n_layers)
+        for k in set(step) | set(per_eval):
+            want[k] = step.get(k, 0) * steps + per_eval.get(k, 0) * n_evals
+        return want
     if graph.backend != "bucketed":
-        if model_name == "selfcf":
+        if model_name in ("selfcf", "lightgcn"):
             want.update(chain_mean=n_layers * (steps + n_evals), chain_mean_bwd=n_layers * steps)
         elif model_name not in DENSE_MATMUL_MODELS:
             raise ValueError(f"no launch model for {model_name} on {graph.backend}")
@@ -1865,7 +1917,8 @@ def first_batch(graph, batch):
     return PairwiseBatch(users[0], items[0], negs[0], weights[0])
 
 
-def step_against_plain(name, kernel, ref, dtype, want_counts, fro_tol=None, zero_grads=()):
+def step_against_plain(name, kernel, ref, dtype, want_counts, fro_tol=None, zero_grads=(),
+                       frozen=()):
     """A step's value and gradients to every parameter through ``kernel`` =
     (fn, params), on the card, against ``ref`` = (fn, params), the plain
     path or the port on the CPU, on the same batch and draws (a model that
@@ -1875,15 +1928,17 @@ def step_against_plain(name, kernel, ref, dtype, want_counts, fro_tol=None, zero
     reference's largest entry) or, with ``fro_tol``, by its relative
     Frobenius error, and that bound must reject zeros; ``zero_grads``
     (exact gradient 0) must stay under ZERO_GRAD_SHARE of the largest
-    entry."""
+    entry. ``frozen`` parameters take no gradient (GraphSAGE's fixed
+    features)."""
     got = {}
     for which, (fn, params) in (("kernel", kernel), ("ref", ref)):
-        p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+        p = {k: v.detach().clone().requires_grad_(k not in frozen) for k, v in params.items()}
+        live = [k for k in p if k not in frozen]
         reset_counts()
         value = fn(p)
-        grads = torch.autograd.grad(value, list(p.values()))
+        grads = torch.autograd.grad(value, [p[k] for k in live])
         torch.cuda.synchronize()
-        got[which] = (value.item(), dict(zip(p, (g.float().cuda() for g in grads))),
+        got[which] = (value.item(), dict(zip(live, (g.float().cuda() for g in grads))),
                       all_counts())
     (v_k, g_k, n_k), (v_r, g_r, n_r) = got["kernel"], got["ref"]
     want = {f.__name__: 0 for f in ALL_COUNTERS}
@@ -1983,7 +2038,8 @@ def clustered_phase():
     """The clustered large set: the build, one-step checks of NCL and
     DirectAU against their plain paths, then LightGCN-BPR, NCL and DirectAU
     trained on the one graph, each held to the gate, then the bucketed zoo
-    on the same graph (``bucketed_zoo_phase``)."""
+    on the same graph (``bucketed_zoo_phase``) and the neighbour models
+    (``clustered_neighbor_phase``)."""
     data, graph, info = clustered_build()
     pop = {"masked": info["masked_popularity_recall@20"],
            "plain": info["popularity_recall@20"]}
@@ -1999,14 +2055,16 @@ def clustered_phase():
                            "masked")
         check_gate(stats)
         runs.append(stats)
-    return info, one_step, runs, bucketed_zoo_phase(data, graph)
+    zoo = bucketed_zoo_phase(data, graph)
+    return info, one_step, runs, zoo, clustered_neighbor_phase(data, graph)
 
 
 def hard_phase():
     """DirectAU on the dense backend on the hard set (make_hard_dataset(),
     ML-100K-shaped), in bf16 and f32: a one-step check against the plain
     bucketed chain, then training held to the dense sets' gate; then the
-    zoo on the same graphs (``hard_zoo_phase``). (The masked
+    zoo on the same graphs (``hard_zoo_phase``) and the neighbour models
+    and the segment backend (``hard_neighbor_phase``). (The masked
     popularity list is the stronger ranker there: the JAX package's own
     30-epoch DirectAU, 0.4144 in BASELINE.md, stays under its 0.41561, the
     bar that tests/test_torch_popularity.py holds equal to the JAX
@@ -2027,7 +2085,8 @@ def hard_phase():
         stats = gate_phase("directau", data, graph, HARD_EPOCHS, BATCH, pop, "dense")
         check_gate(stats)
         out["train"].append(stats)
-    return out, hard_zoo_phase(data, graphs, ref)
+    return (out, hard_zoo_phase(data, graphs, ref),
+            hard_neighbor_phase(data, graphs["float32"], ref))
 
 
 # -- the dense-path zoo: SelfCF, BUIR, SSL4Rec, GCL, GRACE, G-BT, BGRL -----------
@@ -2163,11 +2222,14 @@ def zoo_recommender(model_name, data, graph, batch):
 
 
 def check_profile_launches(model_name, rec, batch):
-    """K7's and P1's launches over ``profile_steps``' warm-up step and
-    window (counted since the last ``reset_counts``): each step's as
-    ``bucketed_step_launches`` says."""
+    """The kernels' launches over ``profile_steps``' warm-up step and window
+    (counted since the last ``reset_counts``): each step's as
+    ``bucketed_step_launches`` or ``neighbor_launches`` says."""
     n_steps = 1 + min(PROFILE_STEPS, -(-rec.graph.n_edges // batch))
-    per_step = bucketed_step_launches(model_name, rec.model.n_layers)
+    n_layers = getattr(rec.model, "n_layers", None)
+    per_step = (neighbor_launches(model_name, rec.graph.backend, n_layers)[0]
+                if model_name in NEIGHBOR_PROFILED or rec.graph.backend == "segment"
+                else bucketed_step_launches(model_name, n_layers))
     want = {k: v * n_steps for k, v in per_step.items()}
     got = {k: v for k, v in all_counts().items() if k in want}
     if got != want or any(v for k, v in all_counts().items() if k not in want):
@@ -2232,6 +2294,441 @@ def add_zoo_launches(chain_rows, gather_rows_, zoo, bucketed_zoo):
             n = profile["kernel_launches"][row["name"]]
             row["launches"] += n
             row[f"launches_bucketed_zoo_{name}"] = n
+
+
+# -- the segment backend and the neighbour models: S1, S2, S3 -------------------------
+
+# models whose profiled steps are counted by ``neighbor_launches``
+NEIGHBOR_PROFILED = ("gat", "graphsage", "grace", "gbt")
+# S1-S3 against their plain versions: the kernels sum a row's slots (or a
+# head's columns) in slot order, the plain versions in their own; rtol, and
+# an atol of this share of the plain result's largest entry
+SEG_TOL = (1e-5, 1e-5)
+# GAT's gradients to a_src and a_dst sum the softmax's backward, whose sum
+# over a destination's edges is exactly 0: ill-conditioned in f32
+# (tests/test_torch_gat.py). The plain path in f32 sums them with float
+# atomics, 5.1e-5 from its own float64 run on the clustered graph. So a GAT
+# step on the card is held to the plain path run in float64 (whose sums, in
+# any order, are exact to f32's eye) by relative Frobenius error: 6.5e-7 on
+# the hard set, 1.1e-6 on the clustered graph, the same in every call, on an
+# NVIDIA H100 80GB HBM3 (PERF.md §6); the bound is about 10x the larger
+GAT_FRO_TOL = 1e-5
+# the hard set's LightGCN on the segment backend against the dense backend's,
+# on the same batches: the reference's own gate between backends (BASELINE.md)
+BACKEND_RECALL_GAP = 0.004
+
+
+def neighbor_launches(model_name, backend, n_layers):
+    """(per training step, per evaluation) launches of the segment kernels,
+    P1 and K7: GAT's two attention layers (forward S2 and S1; backward S3,
+    S2's backward, S1 over the transpose and two P1 per-row sums; on the
+    bucket rows K7 once forward and three times backward a layer);
+    GraphSAGE's L masked means (P1; the first takes no backward, its input
+    being the fixed features); LightGCN's, NCL's and the square models' L
+    segment matmuls both ways (their evaluation forward only); GRACE's and
+    G-BT's two views of two segment matmuls both ways, where the graph is
+    bucketed (their evaluation on the segment view once per layer)."""
+    if model_name == "gat":
+        step = {"weighted_pull": 4, "segment_softmax_rows": 2, "segment_softmax_rows_bwd": 2,
+                "segment_dot": 2, "gather_sum": 4}
+        per_eval = {"weighted_pull": 2, "segment_softmax_rows": 2}
+        if backend == "bucketed":
+            step["gather_rows"], per_eval["gather_rows"] = 8, 2
+        return step, per_eval
+    if model_name == "graphsage":
+        return {"gather_sum": 2 * n_layers - 1}, {"gather_sum": n_layers}
+    if model_name in ("grace", "gbt"):
+        return {"gather_sum": 8}, {"gather_sum": 2}
+    if model_name == "lightgcn" and backend == "segment":
+        return {"gather_sum": 2 * n_layers}, {"gather_sum": n_layers}
+    raise ValueError(f"no launch model for {model_name} on {backend}")
+
+
+@contextlib.contextmanager
+def plain_segment_matmul():
+    """The segment matmul's plain version (the [E, d] messages added into
+    their rows, under autograd) in place of P1 both ways: the reference of
+    the square models on the segment backend."""
+    kernel = spmm._segment_matmul
+    spmm._segment_matmul = spmm.segment_matmul_plain
+    try:
+        yield
+    finally:
+        spmm._segment_matmul = kernel
+
+
+def check_seg(name, fn, plain):
+    """A segment kernel twice (bit for bit) and against its plain version at
+    SEG_TOL. Returns the largest absolute difference."""
+    (got,) = same_bits(name, lambda: (fn(),))
+    want = plain()
+    torch.cuda.synchronize()
+    rtol, atol = SEG_TOL
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    if not (scale > 0 and torch.isfinite(got).all()
+            and torch.allclose(got, want, rtol=rtol, atol=atol * scale)):
+        raise RuntimeError(f"{name}: kernel disagrees with plain (max abs err {err})")
+    return err
+
+
+def segment_kernel_shape(label, row_ptr, idx, dst, live, n_src, schedule, heads):
+    """S1, S2 (forward, backward) and S3 at one structure (a destination
+    view or the bucket rows) and H heads of EMB, on the random logits,
+    weights and cotangents the attention would give them: each against its
+    plain version and itself, timed with its plain version, a library call
+    where one computes the same function (H = 1: ``torch.sparse.mm`` over
+    the weights as a CSR matrix for S1, ``torch.sparse.softmax`` over the
+    live slots for S2 and its backward
+    ``torch._sparse_softmax_backward_data``; where the rows are the
+    destination nodes, ``torch.sparse.sampled_addmm`` over the view's
+    pattern, batched over the heads, for S3), and its bound from the bytes it must move, each
+    input read once (the distinct source and destination rows, not one row
+    a slot)."""
+    n_slots, n_rows = idx.numel(), row_ptr.numel() - 1
+    rng = np.random.default_rng(heads)
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).cuda()
+
+    # gy: a cotangent in node space, gathered by each slot's destination node
+    x, gy = rand(n_src, heads * EMB), rand(n_src, heads * EMB)
+    e, g = rand(n_slots, heads, scale=2.0), rand(n_slots, heads)
+    att = segment_softmax_rows_plain(e, row_ptr, live)
+    live_idx = idx if live is None else idx[live]
+    src_rows = torch.unique(live_idx).numel()
+    dst_rows = torch.unique(dst).numel()
+    width = heads * EMB * 4
+    out = {}
+    lib = None
+    if heads == 1:
+        csr = torch.sparse_csr_tensor(row_ptr, idx.long(), att[:, 0].contiguous(),
+                                      size=(n_rows, n_src))
+        lib = time_ms(lambda: torch.sparse.mm(csr, x))
+    out["weighted_pull"] = {
+        "max_abs_err": check_seg(f"S1 {label}", lambda: weighted_pull(x, att, idx, row_ptr,
+                                                                      schedule),
+                                 lambda: weighted_pull_plain(x, att, idx, row_ptr)),
+        "ms": time_ms(lambda: weighted_pull(x, att, idx, row_ptr, schedule)),
+        "plain_ms": time_ms(lambda: weighted_pull_plain(x, att, idx, row_ptr)),
+        "library_ms": lib,
+        "bound": bytes_bound(n_slots * (4 + 4 * heads) + (n_rows + 1) * 8 + src_rows * width
+                             + n_rows * width)}
+    lib = lib_bwd = None
+    if heads == 1:
+        keep = torch.ones_like(idx, dtype=torch.bool) if live is None else live
+        rows_of = slot_rows(row_ptr)
+        slots = torch.arange(n_slots, device="cuda")
+
+        def coo(v):
+            return torch.sparse_coo_tensor(torch.stack([rows_of[keep], slots[keep]]), v[keep, 0],
+                                           size=(n_rows, n_slots)).coalesce()
+
+        e_coo, g_coo = coo(e), coo(g)
+        att_coo = torch.sparse.softmax(e_coo, 1)
+        lib = time_ms(lambda: torch.sparse.softmax(e_coo, 1))
+        lib_bwd = time_ms(lambda: torch._sparse_softmax_backward_data(g_coo, att_coo, 1, e_coo))
+    out["segment_softmax_rows"] = {
+        "max_abs_err": check_seg(f"S2 {label}", lambda: segment_softmax_rows(e, row_ptr, live),
+                                 lambda: segment_softmax_rows_plain(e, row_ptr, live)),
+        "ms": time_ms(lambda: segment_softmax_rows(e, row_ptr, live)),
+        "plain_ms": time_ms(lambda: segment_softmax_rows_plain(e, row_ptr, live)),
+        "library_ms": lib,
+        "bound": bytes_bound(n_slots * (8 * heads + (0 if live is None else 1))
+                             + (n_rows + 1) * 8)}
+    out["segment_softmax_rows_bwd"] = {
+        "max_abs_err": check_seg(f"S2 backward {label}",
+                                 lambda: segment_softmax_rows_bwd(att, g, row_ptr),
+                                 lambda: segment_softmax_rows_bwd_plain(att, g, row_ptr)),
+        "ms": time_ms(lambda: segment_softmax_rows_bwd(att, g, row_ptr)),
+        "plain_ms": time_ms(lambda: segment_softmax_rows_bwd_plain(att, g, row_ptr)),
+        "library_ms": lib_bwd,
+        "bound": bytes_bound(n_slots * 12 * heads + (n_rows + 1) * 8)}
+    lib = lib_err = None
+    if n_rows == n_src and torch.equal(dst.long(), slot_rows(row_ptr)):
+        # the rows are the destination nodes: a sampled product over the
+        # view's CSR pattern, batched over the heads (operands laid out for
+        # it beforehand; its values come head-major)
+        pattern = torch.sparse_csr_tensor(
+            row_ptr.expand(heads, -1).contiguous(), idx.long().expand(heads, -1).contiguous(),
+            torch.zeros(heads, n_slots, device="cuda"), size=(heads, n_rows, n_src))
+        gy_h = gy.view(n_src, heads, EMB).transpose(0, 1).contiguous()
+        x_h = x.view(n_src, heads, EMB).permute(1, 2, 0).contiguous()
+
+        def sddmm():
+            return torch.sparse.sampled_addmm(pattern, gy_h, x_h, beta=0.0)
+
+        lib = time_ms(sddmm)
+        lib_err = (sddmm().values().t() - segment_dot_plain(gy, dst, x, idx, heads)).abs().max()
+        lib_err = lib_err.item()
+    out["segment_dot"] = {
+        "max_abs_err": check_seg(f"S3 {label}", lambda: segment_dot(gy, dst, x, idx, heads),
+                                 lambda: segment_dot_plain(gy, dst, x, idx, heads)),
+        "ms": time_ms(lambda: segment_dot(gy, dst, x, idx, heads)),
+        "plain_ms": time_ms(lambda: segment_dot_plain(gy, dst, x, idx, heads)),
+        "library_ms": lib, "library_max_abs_err": lib_err,
+        "bound": bytes_bound(n_slots * (8 + 4 * heads) + (src_rows + dst_rows) * width)}
+    for row in out.values():
+        row["bound_ms"], row["bound_by"] = row.pop("bound")
+        row["shape"] = [n_rows, n_slots, heads, EMB]
+    return out
+
+
+def segment_kernel_shapes(label, graph):
+    """``segment_kernel_shape`` at H = 4 and 1 on the graph's GAT structure:
+    on the bucketed backend the bucket rows of ``norm_adj.pull`` (dead slots
+    masked), else the destination view of ``bidirectional_edges``."""
+    if graph.backend == "bucketed":
+        pull = graph.norm_adj.pull
+        aux = graph.ensure_gat_aux()
+        args = (pull.row_ptr, pull.idx, aux["slot_node"], (pull.edge >= 0) & (pull.val != 0),
+                graph.n_nodes, pull.schedule)
+    else:
+        _, by_dst = graph.bipartite_views()
+        mask = bidirectional_edges(graph)[2] > 0
+        args = (by_dst.row_ptr, by_dst.idx, by_dst.slot_row, mask[by_dst.perm], graph.n_nodes,
+                by_dst.schedule)
+    return {f"{label}_h{h}": segment_kernel_shape(f"{label} H={h}", *args, h) for h in (4, 1)}
+
+
+def segment_view_pull(graph):
+    """P1 over the segment backend's row-sorted view of ``norm_adj`` (one
+    LightGCN layer, d = EMB, the values in slot order) against its plain
+    version and itself, timed, beside one layer of ``torch.sparse.mm``."""
+    adj = graph.norm_adj
+    seg = adj.seg
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(adj.n_cols, EMB)).astype(
+        np.float32)).cuda()
+    val = adj.vals[seg.perm]
+    got = check_pull("segment view", x, seg.idx, seg.row_ptr, val=val, schedule=seg.schedule)
+    a_csr = torch.sparse_csr_tensor(seg.row_ptr, seg.idx.long(), val, size=adj.shape)
+    live = seg.idx[val != 0]
+    bound = bytes_bound(seg.n_slots * 8 + seg.row_ptr.numel() * 8
+                        + torch.unique(live).numel() * EMB * 4 + adj.n_rows * EMB * 4)
+    return {"shape": [adj.n_rows, seg.n_slots, EMB], **got,
+            "ms": time_ms(lambda: gather_sum(x, seg.idx, seg.row_ptr, val=val,
+                                             schedule=seg.schedule)),
+            "plain_ms": time_ms(lambda: gather_sum_plain(x, seg.idx, seg.row_ptr, val=val)),
+            "library_ms": time_ms(lambda: torch.sparse.mm(a_csr, x)),
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+class PlainSegmentLightGCN(LightGCN):
+    """LightGCN on the segment backend with the plain segment matmul
+    (autograd through torch ops): the reference a step is held against."""
+
+    def propagate(self, params, graph):
+        with plain_segment_matmul():
+            return super().propagate(params, graph)
+
+
+NEIGHBOR_PLAIN = {"gat": PlainGAT, "graphsage": PlainGraphSAGE}
+
+
+def plain_own_error(plain, params, batch, graph):
+    """The plain path's own f32 error: the largest relative Frobenius error
+    of its f32 gradients against its float64 ones, on the same draws."""
+    grads = []
+    for dtype in (torch.float32, torch.float64):
+        p = {k: v.detach().to(dtype).requires_grad_() for k, v in params.items()}
+        grads.append(torch.autograd.grad(zoo_loss(plain, p, {}, batch, graph), list(p.values())))
+    return max((torch.linalg.norm(a.double() - b) / torch.linalg.norm(b)).item()
+               for a, b in zip(*grads))
+
+
+def neighbor_one_step(name, graph, batch_size):
+    """One step of GAT or GraphSAGE at its defaults through the segment
+    kernels, P1 (and K7) against its plain path (``PlainGAT``,
+    ``PlainGraphSAGE``) on the same draws: GraphSAGE's in f32; GAT's in
+    float64, its gradients by relative Frobenius error (GAT_FRO_TOL), with
+    the plain path's own f32 error beside it."""
+    config = default_config(**{"embedding.size": EMB})
+    model, plain = build(name, config), NEIGHBOR_PLAIN[name](config)
+    params, _ = model.init(torch.Generator().manual_seed(0), graph)
+    batch = first_batch(graph, batch_size)
+    ref_params, extra, tol = params, {}, {}
+    if name == "gat":
+        ref_params = {k: v.double() for k, v in params.items()}
+        tol = {"fro_tol": GAT_FRO_TOL}
+        extra = {"reference": "plain float64",
+                 "plain_f32_rel_err": plain_own_error(plain, params, batch, graph)}
+    out = step_against_plain(
+        f"{name} step {graph.backend}",
+        (lambda p: zoo_loss(model, p, {}, batch, graph), params),
+        (lambda p: zoo_loss(plain, p, {}, batch, graph), ref_params), torch.float32,
+        neighbor_launches(name, graph.backend, getattr(model, "n_layers", None))[0],
+        frozen=model.frozen, **tol)
+    return {**out, **extra}
+
+
+def segment_lightgcn_one_step(graph, batch_size):
+    """One LightGCN step on the segment backend (L segment matmuls: P1 each
+    way) against the plain segment matmul."""
+    config = default_config(**{"embedding.size": EMB})
+    model, plain = build("lightgcn", config), PlainSegmentLightGCN(config)
+    params, _ = model.init(torch.Generator().manual_seed(0), graph)
+    batch = first_batch(graph, batch_size)
+    return step_against_plain(
+        "LightGCN step segment", (lambda p: model.loss(p, {}, batch, graph)[0], params),
+        (lambda p: plain.loss(p, {}, batch, graph)[0], params), torch.float32,
+        neighbor_launches("lightgcn", "segment", model.n_layers)[0])
+
+
+def selfloop_one_step(name, graph):
+    """One GRACE or G-BT step where the graph is bucketed (its
+    ``norm_adj_selfloops`` on the segment backend: P1 both ways) against
+    the plain segment matmul on the same masks; the gradients by relative
+    Frobenius error as the zoo's card-against-CPU steps (GRACE's InfoNCE
+    over [N, 2N] scores moves a bias's gradient by a few 1e-6 of its
+    largest entry between summation orders; G-BT's batch norm more, its
+    biases at zero)."""
+    config = default_config(**{"embedding.size": EMB})
+    model = build(name, config)
+    params, _ = model.init(torch.Generator().manual_seed(0), graph)
+    if graph.norm_adj_selfloops.backend != "segment":
+        raise RuntimeError(f"{name}: norm_adj_selfloops on {graph.norm_adj_selfloops.backend}")
+    batch = first_batch(graph, BATCH)
+
+    def plain_loss(p):
+        with plain_segment_matmul():
+            return zoo_loss(model, p, {}, batch, graph)
+
+    tol = {"fro_tol": ZOO_CPU_TOL.get(name, ZOO_CPU_TOL_DEFAULT),
+           "zero_grads": ZERO_GRADS.get(name, ())}
+    return step_against_plain(f"{name} step bucketed (segment self-loops)",
+                              (lambda p: zoo_loss(model, p, {}, batch, graph), params),
+                              (plain_loss, params), torch.float32,
+                              neighbor_launches(name, "bucketed", None)[0], **tol)
+
+
+def hard_neighbor_phase(data, f32, bucketed):
+    """The hard set (f32, d=64, B=2048): the segment kernels at its
+    bidirectional edges; GraphSAGE's and GAT's steps on the dense backend
+    against their plain paths, then each trained NEIGHBOR_EPOCHS and held to
+    its NEIGHBOR_GATES gate, the served answers against the plain path's;
+    LightGCN on the segment backend, one step against the plain segment
+    matmul, then trained TRAIN_EPOCHS epochs beside the dense backend's run
+    on the same batches (Recall@20 within BACKEND_RECALL_GAP); GRACE and
+    G-BT forced onto the bucketed backend (``bucketed``): one step against
+    the plain path, then PROFILE_STEPS profiled steps."""
+    out = {"kernels": segment_kernel_shapes("hard", f32), "one_step": {}, "train": []}
+    pop = {"masked": popularity_recall(data, f32, 20),
+           "plain": popularity_recall(data, f32, 20, masked=False)}
+    config = default_config(**{"embedding.size": EMB})
+    for name in NEIGHBOR_MODELS:
+        out["one_step"][name] = neighbor_one_step(name, f32, BATCH)
+        plain = NEIGHBOR_PLAIN[name](config)
+        stats = gate_phase(name, data, f32, NEIGHBOR_EPOCHS[name], BATCH, pop,
+                           NEIGHBOR_GATES[name],
+                           plain=lambda rec, m=plain: m.eval_embeddings(rec.params, rec.state,
+                                                                       rec.graph))
+        check_gate(stats)
+        out["train"].append(stats)
+    seg = DeviceGraph(data, backend="segment", device="cuda")
+    out["one_step"]["lightgcn_segment"] = segment_lightgcn_one_step(seg, BATCH)
+    runs = {}
+    for graph in (f32, seg):
+        runs[graph.backend] = gate_phase("lightgcn", data, graph, TRAIN_EPOCHS, BATCH, pop,
+                                         "loss")
+        check_gate(runs[graph.backend])
+    gap = abs(runs["segment"]["recall@20"] - runs["dense"]["recall@20"])
+    if not gap <= BACKEND_RECALL_GAP:
+        raise RuntimeError(f"LightGCN on the segment backend: Recall@20 "
+                           f"{runs['segment']['recall@20']} against the dense backend's "
+                           f"{runs['dense']['recall@20']}")
+    out["lightgcn_backends"] = {"runs": list(runs.values()), "recall@20_gap": gap}
+    for name in ("grace", "gbt"):
+        out["one_step"][f"{name}_bucketed"] = selfloop_one_step(name, bucketed)
+        out[f"{name}_bucketed_profile"] = zoo_profile(name, data, bucketed, BATCH)
+    return out
+
+
+def clustered_neighbor_phase(data, graph):
+    """The clustered graph (bucketed, f32, d=64, B=8192): the segment
+    kernels at its bucket tables; GAT (S1-S3 and P1 over the bucket rows, K7)
+    and GraphSAGE (P1 over the graph's cached views) one step against their
+    plain paths, then PROFILE_STEPS profiled steps each; then LightGCN on a
+    segment graph of the same data (P1 over a 2M-slot view): P1 over its
+    view timed, one step against the plain segment matmul, PROFILE_STEPS
+    profiled steps."""
+    out = {"kernels": segment_kernel_shapes("clustered", graph)}
+    for name in ("gat", "graphsage"):
+        one_step = neighbor_one_step(name, graph, LARGE_BATCH)
+        torch.cuda.empty_cache()
+        out[name] = {"one_step": one_step, "profile": zoo_profile(name, data, graph, LARGE_BATCH)}
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    seg = DeviceGraph(data, backend="segment", device="cuda")
+    torch.cuda.synchronize()
+    out["segment_graph_build_s"] = time.perf_counter() - t0
+    out["segment_view_pull"] = segment_view_pull(seg)
+    out["lightgcn_segment"] = {"one_step": segment_lightgcn_one_step(seg, LARGE_BATCH),
+                               "profile": zoo_profile("lightgcn", data, seg, LARGE_BATCH)}
+    del seg
+    torch.cuda.empty_cache()
+    return out
+
+
+SEGMENT_SOURCES = {
+    "weighted_pull": "recommendation_tpu/models/gat.py:59 (XLA's segment_sum, not a TPU kernel)",
+    "segment_softmax_rows": "recommendation_tpu/models/gat.py:47 (XLA's segment_max and "
+                            "segment_sum, not a TPU kernel)",
+    "segment_softmax_rows_bwd": "recommendation_tpu/models/gat.py:162 (the custom VJP's "
+                                "softmax backward, XLA; not a TPU kernel)",
+    "segment_dot": "recommendation_tpu/models/gat.py:158 (the custom VJP's gather-dot, XLA; "
+                   "not a TPU kernel)",
+}
+
+
+def segment_kernel_rows(hard, clustered, card):
+    """The kernels line's rows of S1, S2 (forward, backward) and S3: the
+    clustered bucket tables at H = 4 (GAT's first layer there) as the row's
+    figures, every other measured shape beside them; launches from the
+    neighbour models' runs (the hard set's trained GraphSAGE and GAT, the
+    clustered GAT's profiled steps)."""
+    shapes = {**clustered["kernels"], **hard["kernels"]}
+    rows = []
+    for name, src in SEGMENT_SOURCES.items():
+        main = shapes["clustered_h4"][name]
+        row = {"name": name, "route": "cuda", "source": "recommendation_tpu_torch/csrc/segment.cu",
+               "replaces": src, "timed": "clustered bucket rows, H=4, d=64", "launches": 0,
+               **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms", "shape")},
+               "shapes": {label: s[name] for label, s in shapes.items()
+                          if label != "clustered_h4"}, "card": card}
+        row["max_abs_err"] = max(s[name]["max_abs_err"] for s in shapes.values())
+        for run in hard["train"]:
+            n = run["launches"][name]
+            if n:
+                row["launches"] += n
+                row[f"launches_hard_{run['model']}"] = n
+        n = clustered["gat"]["profile"]["kernel_launches"][name]
+        row["launches"] += n
+        row["launches_clustered_gat_profile"] = n
+        rows.append(row)
+    return rows
+
+
+def add_neighbor_launches(k7_row, p1_row, hard, clustered):
+    """P1's and K7's launches on the neighbour phases' main paths into their
+    rows: the hard set's GraphSAGE, GAT and segment LightGCN runs, the
+    profiled GRACE and G-BT steps on the bucketed graph, the clustered GAT,
+    GraphSAGE and segment LightGCN profiles."""
+    runs = {f"hard_{r['model']}": r["launches"] for r in hard["train"]}
+    runs["hard_lightgcn_segment"] = hard["lightgcn_backends"]["runs"][1]["launches"]
+    for name in ("grace", "gbt"):
+        runs[f"hard_{name}_bucketed"] = hard[f"{name}_bucketed_profile"]["kernel_launches"]
+    for name in ("gat", "graphsage"):
+        runs[f"clustered_{name}"] = clustered[name]["profile"]["kernel_launches"]
+    runs["clustered_lightgcn_segment"] = clustered["lightgcn_segment"]["profile"][
+        "kernel_launches"]
+    for row in (k7_row, p1_row):
+        for label, launches in runs.items():
+            n = launches.get(row["name"], 0)
+            if n:
+                row["launches"] += n
+                row[f"launches_{label}"] = n
+    p1_row["segment_view"] = clustered["segment_view_pull"]
 
 
 def main() -> int:
@@ -2321,17 +2818,29 @@ def main() -> int:
     del large_data, large_graph, large_params
     torch.cuda.empty_cache()
 
-    clustered_info, clustered_one_step, clustered_runs, bucketed_zoo = clustered_phase()
+    (clustered_info, clustered_one_step, clustered_runs, bucketed_zoo,
+     clustered_nb) = clustered_phase()
     for run in clustered_runs:
         for row in lse_rows + [k7_row, p1_row]:
             row["launches"] += run["launches"][row["name"]]
             row[f"launches_clustered_{run['model']}"] = run["launches"][row["name"]]
         run["card"] = card
-    hard, zoo = hard_phase()
-    for run in hard["train"] + zoo["train"] + list(bucketed_zoo.values()):
+    hard, zoo, hard_nb = hard_phase()
+    for run in hard["train"] + zoo["train"] + list(bucketed_zoo.values()) + hard_nb["train"]:
         run["card"] = card
     add_zoo_launches((rows[torch.float32], bwd_rows[torch.float32]), (k7_row, p1_row), zoo,
                      bucketed_zoo)
+    add_neighbor_launches(k7_row, p1_row, hard_nb, clustered_nb)
+    dense_lightgcn = hard_nb["lightgcn_backends"]["runs"][0]["launches"]
+    for row in (rows[torch.float32], bwd_rows[torch.float32]):
+        row["launches"] += dense_lightgcn[row["name"]]
+        row["launches_hard_lightgcn_dense"] = dense_lightgcn[row["name"]]
+    seg_rows = segment_kernel_rows(hard_nb, clustered_nb, card)
+    kernel_rows = (list(rows.values()) + list(bwd_rows.values()) + list(layer_rows.values())
+                   + list(layer_bwd_rows.values()) + lse_rows + [k7_row, p1_row] + seg_rows)
+    idle = [r["name"] for r in kernel_rows if r["launches"] <= 0]
+    if idle:
+        raise RuntimeError(f"kernels never launched on the main paths: {idle}")
 
     print(json.dumps({"serve": serve}))
     print(json.dumps({"one_step": one_step, "train": training}))
@@ -2343,9 +2852,8 @@ def main() -> int:
     print(json.dumps({"hard": hard}))
     print(json.dumps({"hard_zoo": zoo}))
     print(json.dumps({"bucketed_zoo": bucketed_zoo}))
-    print(json.dumps({"kernels": list(rows.values()) + list(bwd_rows.values())
-                      + list(layer_rows.values()) + list(layer_bwd_rows.values()) + lse_rows
-                      + [k7_row, p1_row]}))
+    print(json.dumps({"neighbors": {"hard": hard_nb, "clustered": clustered_nb}}))
+    print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -8,14 +8,18 @@ modules it needs are copied here.
 Ported so far (ROADMAP.md lists what comes next):
   config.py, data/        config, triple I/O, Interaction, synthetic data
   graph/device.py         DeviceGraph: positives, R̂, sampler tables, the
-                          normalized adjacencies (dense and bucketed), the
-                          re-normalized bipartite adjacency under a keep-mask
+                          normalized adjacencies (dense, bucketed, segment),
+                          the re-normalized bipartite adjacency under a
+                          keep-mask, the bipartite segment views, GAT's slot
+                          maps
   graph/bucketed.py       the large-graph backend's pull tables and chain
   graph/augment.py        edge dropout and feature masking on the device
   models/                 Model, registry, LightGCN, NCL, DirectAU, SelfCF,
-                          BUIR, SSL4Rec, GCL, GRACE, G-BT, BGRL
+                          BUIR, SSL4Rec, GCL, GRACE, G-BT, BGRL, GraphSAGE,
+                          GAT
   ops/                    the kernels' wrappers (K1-K4 prop.py, K5/K6
-                          lse.py, K7/P1 gather.py), adj_matmul, k-means,
+                          lse.py, K7/P1 gather.py, S1-S3 segment.py),
+                          adj_matmul and the segment reductions, k-means,
                           row gathers, masked top-k
   losses.py               the models' losses
   sampling.py             epoch permutation and negative sampling

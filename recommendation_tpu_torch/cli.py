@@ -9,11 +9,14 @@
 
 ``models`` lists the ported models: ``lightgcn``, ``ncl``, ``directau``,
 ``selfcf``, ``buir``, ``ssl4rec``, ``gcl`` (alias ``grace_rec``),
-``grace``, ``gbt`` and ``bgrl`` (alias ``bgrl_g2l``). Each trains and
-serves on the dense and the bucketed backend (``--set
-graph.backend=bucketed``, or ``auto`` past the dense threshold), except
-GRACE and G-BT, whose self-loop adjacency waits for the segment backend
-there (ROADMAP item 10).
+``grace``, ``gbt``, ``bgrl`` (alias ``bgrl_g2l``), ``graphsage`` and
+``gat``. Each trains and serves on the dense, the bucketed (``--set
+graph.backend=bucketed``, or ``auto`` past the dense threshold) and the
+segment backend (``--set graph.backend=segment``; ``pallas`` runs the
+segment path, as in the JAX package). GRACE and G-BT propagate over their
+self-loop adjacency on the segment backend where the graph is bucketed;
+GraphSAGE and GAT sum over the edges with the segment kernels on every
+backend (GAT on the bucketed one over its bucket tables).
 ``train`` runs ``GraphRecommender.execute`` and prints the test metrics as
 one JSON line (last on stdout), as the JAX package's CLI does. ``serve``
 serves top-k over HTTP from parameters saved by ``weights.save_params``

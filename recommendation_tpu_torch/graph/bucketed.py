@@ -37,9 +37,10 @@ rows are rounded to bf16 exactly where the JAX package packs them
 neither dtype packs, so both run the identical f32 chain. Not ported: the
 packing into f32 words itself and the cap schedule's TPU timing rationale
 (TPU forms), ``int8`` propagation (ROADMAP queue 1, item 15), the native
-C++ builder (the numpy path builds the same tables), ``slot_maps`` (GAT,
-ROADMAP item 10). The JAX package's ``_bwd_dtype`` differs from the
-forward's dtype only for int8, so the backward here pulls in the forward's.
+C++ builder (the numpy path builds the same tables). The JAX package's
+``_bwd_dtype`` differs from the forward's dtype only for int8, so the
+backward here pulls in the forward's. ``slot_maps`` gives the bucketed
+GAT (``models/gat.py``) its static edge↔slot maps.
 """
 
 from __future__ import annotations
@@ -331,6 +332,30 @@ def mirrored_transpose(csr: BucketedCSR, e_half: int) -> BucketedCSR:
     flipped = torch.where(e >= 0, torch.where(e < e_half, e + e_half, e - e_half), -1)
     return dataclasses.replace(csr, edge=flipped.to(torch.int32), n_rows=csr.n_cols,
                                n_cols=csr.n_rows, sep_dst=None, sep_src_row=None)
+
+
+def slot_maps(csr: BucketedCSR):
+    """Static edge↔slot maps for the scatter-free backward over per-slot
+    data (the bucketed GAT's, ``models/gat.py``), built on the host once,
+    as the JAX package's, bit for bit. Returns i32 tensors on the tables'
+    device:
+
+      * ``pos_map[e]``: the flat slot of COO edge ``e`` in these tables;
+      * ``slot_node[s]``: the destination node of flat slot ``s``;
+      * ``node_of_row[r]``: the node of concat row ``r`` (``gather_pos``'s
+        inverse; degree-0 nodes share the trailing zero row)."""
+    flat_edge = csr.edge.cpu().numpy().astype(np.int64)
+    rowof = np.repeat(np.arange(csr.total_rows, dtype=np.int64),
+                      np.repeat(np.asarray(csr.caps, np.int64), csr.counts))
+    valid = flat_edge >= 0
+    n_coo = int(flat_edge[valid].max()) + 1 if valid.any() else 1
+    pos_map = np.zeros(n_coo, dtype=np.int64)
+    pos_map[flat_edge[valid]] = np.nonzero(valid)[0]
+    node_of_row = csr.node_of_row.cpu().numpy().astype(np.int64)
+    slot_node = node_of_row[rowof]
+    dev = csr.idx.device
+    return tuple(torch.from_numpy(a.astype(np.int32)).to(dev)
+                 for a in (pos_map, slot_node, node_of_row))
 
 
 def refresh_vals(csr: BucketedCSR, coo_vals: torch.Tensor) -> BucketedCSR:

@@ -1,9 +1,10 @@
-"""Device-resident graph state for serving and training, on the dense and
-the bucketed backends.
+"""Device-resident graph state for serving and training, on the dense, the
+bucketed and the segment backends.
 
 Counterpart of ``recommendation_tpu/graph/device.py``: ``DeviceAdj`` with
 ``from_scipy``, ``with_vals``, ``binarized``, ``densify`` and ``transpose``
-on the dense and the bucketed backends, and ``DeviceGraph``:
+on the dense, the bucketed and the segment (and ``pallas``, which runs the
+segment path) backends, and ``DeviceGraph``:
 the backend choice, the padded edge list, the per-user positives table used
 to mask train items out of a top-k, the user degrees, the sampler's
 membership tables (CSR, guaranteed-negative fallbacks, packed bitmap, dense
@@ -14,26 +15,31 @@ multiplies by, and the normalized bipartite adjacency ``norm_adj`` as a
 its (U+I)² matrix, built from the COO at the first product (R̂-only models
 never touch either), on the bucketed backend
 (graphs whose (U+I)² passes ``DENSE_MAX_ELEMENTS``) its gather-only pull
-tables (``graph/bucketed.py``). Tables are built
-on the host with the same numpy code as the JAX package and uploaded once,
-so each equals the JAX one bit for bit.
+tables (``graph/bucketed.py``), on the segment backend its padded
+row-sorted COO with its two row-sorted views (``ops/segment.py``: the
+rows', and the columns' for the transpose), built at upload. Tables are
+built on the host with the same numpy code as the JAX package and uploaded
+once, so each equals the JAX one bit for bit.
 
 Edge augmentation stays on the device: ``normalized_bipartite(keep_mask)``
 re-normalizes the bipartite adjacency under a keep-mask over the edges
 (the degrees from the kept edges, both directions of a kept edge kept).
 On the dense backend its (U+I)² matrix is built at first access; on the
 bucketed one its pull tables are refreshed from structure-only templates
-over the static bipartite pattern, built at the first call and kept.
-``norm_adj_selfloops`` (D̃^-1/2 (A + I) D̃^-1/2, GRACE's and G-BT's
-operator) is built at first access on the dense backend; the JAX package
-puts it on the segment backend where the graph is bucketed, so it raises
-there (ROADMAP queue 1, item 10).
+over the static bipartite pattern, built at the first call and kept; on
+the segment one the new values ride the two row-sorted views of that
+static pattern (``bipartite_views``, built at the first call and kept, so
+no step sorts). The same views serve GraphSAGE's and GAT's sums over
+``bidirectional_edges`` on every backend. ``norm_adj_selfloops``
+(D̃^-1/2 (A + I) D̃^-1/2, GRACE's and G-BT's operator) is built at first
+access: on the segment backend where the graph is bucketed, as the JAX
+package puts it, else on the graph's. ``ensure_gat_aux`` builds the
+bucketed GAT's slot maps (``graph/bucketed.py::slot_maps``) once and
+keeps them on the graph, never in a checkpoint.
 
 Forms of the JAX graph that stay out: ``user_bitmap_fb`` rows are not
 padded to 64 words (a TPU gather-width workaround; the first W + 8 columns
-are the same); ``gat_aux`` with GAT (item 10). The segment and pallas
-backends are not ported (item 10), nor ``DeviceAdj.rows_sorted``, which
-only the segment path reads.
+are the same).
 """
 
 from __future__ import annotations
@@ -52,7 +58,9 @@ from recommendation_tpu_torch.graph.bucketed import (
     build_bucketed,
     mirrored_transpose,
     refresh_vals,
+    slot_maps,
 )
+from recommendation_tpu_torch.ops.segment import SegmentCSR, segment_csr
 
 # Graphs whose dense adjacency is at most this many f32 elements use the
 # dense backend (the JAX package's threshold, kept so both choose alike).
@@ -72,6 +80,7 @@ R_ROW_ALIGN = 8
 POS_TABLE_MAX_ELEMENTS = 64 * 1024 * 1024
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+BACKENDS = ("dense", "bucketed", "segment", "pallas")
 
 
 def choose_backend(n_rows: int, n_cols: int, requested: str = "auto") -> str:
@@ -114,7 +123,11 @@ class DeviceAdj:
     ``pull_t`` are the bucketed tables of A and Aᵀ, whose slot→edge maps
     point into ``vals`` positions (so ``with_vals`` refreshes both);
     ``sym_rowspace`` says that they share ``gather_pos``, the precondition
-    of the row-space chain (``bucketed_chain_mean``)."""
+    of the row-space chain (``bucketed_chain_mean``). On the segment (and
+    pallas) backend ``seg`` and ``seg_t`` are the row-sorted views of the
+    COO by its rows and by its columns (``ops/segment.py``), which
+    ``with_vals`` keeps (the values are gathered into slot order per
+    product); ``rows_sorted`` says the COO itself is sorted by row."""
 
     rows: torch.Tensor  # i32[E_pad]
     cols: torch.Tensor  # i32[E_pad]
@@ -126,6 +139,9 @@ class DeviceAdj:
     pull: Optional[BucketedCSR] = None
     pull_t: Optional[BucketedCSR] = None
     sym_rowspace: bool = False
+    rows_sorted: bool = False
+    seg: Optional[SegmentCSR] = dataclasses.field(default=None, repr=False)
+    seg_t: Optional[SegmentCSR] = dataclasses.field(default=None, repr=False)
     _dense: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
     _dense_operand: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
 
@@ -156,10 +172,19 @@ class DeviceAdj:
             self._dense_operand = self.dense.to(torch.bfloat16).float()
         return self._dense_operand
 
+    def segment_views(self) -> tuple[SegmentCSR, SegmentCSR]:
+        """(seg, seg_t): the COO's views sorted by its rows and by its
+        columns, built at the first call where the adjacency has none."""
+        if self.seg is None:
+            self.seg = segment_csr(self.rows, self.cols, self.n_rows, self.n_cols)
+            self.seg_t = segment_csr(self.cols, self.rows, self.n_cols, self.n_rows)
+        return self.seg, self.seg_t
+
     def transpose(self) -> "DeviceAdj":
         """Aᵀ. Without bucketed tables the COO is re-sorted by its new rows
-        (a stable sort, as the JAX package's); with them it keeps its
-        positions, which their slot→edge maps index."""
+        (a stable sort, as the JAX package's; its segment views are built
+        anew at their first use); with them it keeps its positions, which
+        their slot→edge maps index."""
         if self.pull is not None or self.pull_t is not None:
             order = torch.arange(self.vals.shape[0], device=self.vals.device)
         else:
@@ -184,9 +209,10 @@ def _coo_to_dense(adj: DeviceAdj) -> torch.Tensor:
 
 def from_scipy(mat: sp.spmatrix, backend: str = "auto", compute_dtype: str = "float32",
                device="cuda") -> DeviceAdj:
-    """Upload a scipy sparse matrix as a DeviceAdj on the dense or the
-    bucketed backend (one host-to-device copy; the dense matrix is built
-    on the device at first access)."""
+    """Upload a scipy sparse matrix as a DeviceAdj (one host-to-device
+    copy): the row-sorted COO padded to a multiple of ``EDGE_PAD``; the
+    dense matrix built on the device at first access, the bucketed tables
+    or the segment views built at upload."""
     _check_compute_dtype(compute_dtype)
     dev = resolve_device(device)
     coo = sp.coo_matrix(mat, dtype=np.float32)
@@ -202,10 +228,8 @@ def from_scipy(mat: sp.spmatrix, backend: str = "auto", compute_dtype: str = "fl
         vals = coo.data[order].astype(np.float32)
     n_rows, n_cols = coo.shape
     backend = choose_backend(n_rows, n_cols, backend)
-    if backend not in ("dense", "bucketed"):
-        raise NotImplementedError(
-            f"from_scipy builds the dense and the bucketed backends, not {backend!r}: the "
-            "segment backend is not ported yet (ROADMAP queue 1, item 10)")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; the port has {BACKENDS}")
 
     e_pad = max(EDGE_PAD, _round_up(len(vals), EDGE_PAD))
     # pad with (n_rows-1, n_cols-1) zero edges: padding must be symmetric, or
@@ -228,9 +252,12 @@ def from_scipy(mat: sp.spmatrix, backend: str = "auto", compute_dtype: str = "fl
         # symmetric patterns (the normalized bipartite adjacency always is)
         # put both directions in one row space: the precondition for the chain
         sym_rowspace = n_rows == n_cols and bool(torch.equal(pull.gather_pos, pull_t.gather_pos))
-    return DeviceAdj(rows=put(rows), cols=put(cols), vals=put(vals), n_rows=n_rows,
-                     n_cols=n_cols, backend=backend, compute_dtype=compute_dtype, pull=pull,
-                     pull_t=pull_t, sym_rowspace=sym_rowspace)
+    adj = DeviceAdj(rows=put(rows), cols=put(cols), vals=put(vals), n_rows=n_rows,
+                    n_cols=n_cols, backend=backend, compute_dtype=compute_dtype, pull=pull,
+                    pull_t=pull_t, sym_rowspace=sym_rowspace, rows_sorted=True)
+    if backend in ("segment", "pallas"):
+        adj.segment_views()
+    return adj
 
 
 def with_vals(adj: DeviceAdj, vals: torch.Tensor) -> DeviceAdj:
@@ -307,11 +334,12 @@ class DeviceGraph:
     more, cast to bf16 (round to nearest even, as the JAX chain's
     ``astype``). Both are views with a row stride padded to a multiple of
     ``R_ROW_ALIGN`` elements (``_row_aligned``). ``propagation_matrix`` is
-    the one the layer chain multiplies by. On both backends ``norm_adj`` is
+    the one the layer chain multiplies by. On every backend ``norm_adj`` is
     the normalized bipartite adjacency D^-1/2 A D^-1/2 over the U + I nodes
     as a ``DeviceAdj`` (dense: uploaded at first access, its matrix built at
-    the first product; bucketed: its pull tables, built with the graph); the
-    bucketed backend has no R̂ and ``propagation_matrix`` raises there. The
+    the first product; bucketed: its pull tables, segment and pallas: its
+    row-sorted views, built with the graph); only the dense backend has R̂,
+    and ``propagation_matrix`` raises on the others. The
     ``data`` may be an ``Interaction`` or a ``data.synthetic.ArrayInteraction``.
 
     Sampler tables (i32 unless noted): ``edge_users``/``edge_items`` and
@@ -331,12 +359,8 @@ class DeviceGraph:
         self.n_items = data.item_num
         self.n_nodes = self.n_users + self.n_items
         self.backend = choose_backend(self.n_nodes, self.n_nodes, backend)
-        if self.backend not in ("dense", "bucketed"):
-            raise NotImplementedError(
-                f"graph backend {self.backend!r} is not ported yet: the port runs the dense "
-                "and the bucketed backends (ROADMAP queue 1, item 10, 'Segment backend and "
-                "neighbor models')"
-            )
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown graph backend {self.backend!r}; the port has {BACKENDS}")
         _check_compute_dtype(compute_dtype)
         self.compute_dtype = compute_dtype
         dev = self.device
@@ -428,10 +452,13 @@ class DeviceGraph:
         self._norm_adj_host = data.norm_adj
         self._norm_adj = None if self.backend == "dense" else self._upload_norm_adj()
         self._bipartite_tpl = None  # normalized_bipartite's bucketed templates, at first use
-        self._ui_adj_host = self._norm_adj_selfloops = None
-        if self.backend == "bucketed":
-            return
+        self._bipartite_views = None  # the bipartite pattern's segment views, at first use
+        self.gat_aux = None  # the bucketed GAT's slot maps (ensure_gat_aux)
+        self.gat_attention = None  # GAT's structure (models/gat.py::attention_structure)
+        self._norm_adj_selfloops = None
         self._ui_adj_host = data.ui_adj  # norm_adj_selfloops', at first access
+        if self.backend != "dense":
+            return
         # Dense R̂: the bipartite adjacency is [[0, R̂], [R̂ᵀ, 0]], so one
         # propagation round is R̂ · I and R̂ᵀ · U.
         deg_u = np.asarray(mat.sum(axis=1)).flatten()
@@ -465,13 +492,13 @@ class DeviceGraph:
     @property
     def propagation_matrix(self) -> torch.Tensor:
         """R̂ in the compute dtype: what the dense layer chain multiplies by.
-        The bucketed backend has no R̂ (its chain pulls through
+        Only the dense backend has R̂ (the others propagate through
         ``norm_adj``)."""
         if self.backend != "dense":
             raise NotImplementedError(
                 f"the {self.backend} backend has no dense R̂: the dense layer chain (kernels "
-                "K1-K4) reads it; the models that run on this backend propagate through "
-                "norm_adj, and the ones still to come to it are ROADMAP queue 1, item 15")
+                "K1-K4) reads it; the models on this backend propagate through norm_adj "
+                "(ROADMAP queue 1: the social models, item 11, are still to come to it)")
         if self.interaction_norm_bf16 is not None:
             return self.interaction_norm_bf16
         return self.interaction_norm_dense
@@ -479,21 +506,54 @@ class DeviceGraph:
     @property
     def norm_adj_selfloops(self) -> DeviceAdj:
         """D̃^-1/2 (A + I) D̃^-1/2 over the U + I nodes (GCNConv's operator,
-        GRACE's and G-BT's), built at first access on the dense backend.
-        The JAX package puts it on the segment backend where the graph is
-        bucketed (`graph/device.py:263-270`), which the port lacks."""
-        if self.backend != "dense":
-            raise NotImplementedError(
-                f"norm_adj_selfloops on the {self.backend} backend is not ported yet: the JAX "
-                "package builds it on the segment backend there (ROADMAP queue 1, item 10, "
-                "'Segment backend and neighbor models')")
+        GRACE's and G-BT's), built at first access: on the segment backend
+        where the graph is bucketed, as the JAX package puts it
+        (`graph/device.py:263-273`: those encoders do not target the
+        large-graph regime, so it skips the two bucketed table builds),
+        else on the graph's backend."""
         if self._norm_adj_selfloops is None:
             mat = normalize_graph_mat(self._ui_adj_host + sp.eye(self.n_nodes, dtype=np.float32))
-            self._norm_adj_selfloops = from_scipy(mat, backend="dense",
+            backend = "segment" if self.backend == "bucketed" else self.backend
+            self._norm_adj_selfloops = from_scipy(mat, backend=backend,
                                                   compute_dtype=self.compute_dtype,
                                                   device=self.device)
             self._ui_adj_host = None
         return self._norm_adj_selfloops
+
+    def bipartite_views(self) -> tuple[SegmentCSR, SegmentCSR]:
+        """The segment views of the static bipartite pattern over the
+        [2·E_pad] positions (rows ``[u; i + U]``, cols ``[i + U; u]``, the
+        order of ``normalized_bipartite``'s values and of
+        ``bidirectional_edges``): sorted by the rows (``normalized_bipartite``'s
+        ``seg``; each node's out-edges as a source) and by the columns (its
+        ``seg_t``; each node's in-edges as a destination). Built on the
+        device at the first call (two stable sorts) and kept."""
+        if self._bipartite_views is None:
+            u = self.edge_users.long()
+            i = self.edge_items.long() + self.n_users
+            rows, cols = torch.cat([u, i]), torch.cat([i, u])
+            self._bipartite_views = (segment_csr(rows, cols, self.n_nodes, self.n_nodes),
+                                     segment_csr(cols, rows, self.n_nodes, self.n_nodes))
+        return self._bipartite_views
+
+    def ensure_gat_aux(self):
+        """The bucketed GAT's static slot maps over ``norm_adj``'s tables
+        (``graph/bucketed.py::slot_maps``: ``pos_map``, ``slot_node``,
+        ``node_of_row``) and ``tpos``, the forward slot of each transpose
+        slot (dead slots 0), built once on the host and kept on the graph
+        (never in a checkpoint). None on the other backends, whose GAT runs
+        over ``bipartite_views``."""
+        if self.gat_aux is not None or self.backend != "bucketed":
+            return self.gat_aux
+        adj = self.norm_adj
+        if adj.pull_t is not None:
+            pos_map, slot_node, node_of_row = slot_maps(adj.pull)
+            pm = pos_map.cpu().numpy()
+            tpos = pm[np.maximum(adj.pull_t.edge.cpu().numpy(), 0)].astype(np.int32)
+            self.gat_aux = {"pos_map": pos_map, "slot_node": slot_node,
+                            "node_of_row": node_of_row,
+                            "tpos": torch.from_numpy(tpos).to(self.device)}
+        return self.gat_aux
 
     def _bipartite_templates(self) -> tuple[BucketedCSR, BucketedCSR]:
         """Structure-only bucketed tables over the static bipartite pattern
@@ -522,7 +582,11 @@ class DeviceGraph:
         item→user. Dense backend: the (U+I)² matrix is built from them at
         first access (each coordinate holds one real value; the padding
         adds exact zeros). Bucketed backend: the templates' pull tables
-        refreshed with them, sharing one row space (``sym_rowspace``)."""
+        refreshed with them, sharing one row space (``sym_rowspace``).
+        Segment and pallas backends: the COO (``rows_sorted`` False, as in
+        the JAX package) with the pattern's cached views
+        (``bipartite_views``), into whose slot order each product gathers
+        the values."""
         mask = self.edge_valid if keep_mask is None else self.edge_valid * keep_mask
         u_nodes = self.edge_users.long()
         i_nodes = self.edge_items.long() + self.n_users
@@ -533,12 +597,14 @@ class DeviceGraph:
                                torch.zeros_like(deg))
         vals = mask * inv_sqrt[u_nodes] * inv_sqrt[i_nodes]
         both = torch.cat([vals, vals])
-        pull = pull_t = None
+        pull = pull_t = seg = seg_t = None
         if self.backend == "bucketed":
             tpl, tpl_t = self._bipartite_templates()
             pull, pull_t = refresh_vals(tpl, both), refresh_vals(tpl_t, both)
+        elif self.backend != "dense":
+            seg, seg_t = self.bipartite_views()
         return DeviceAdj(rows=torch.cat([u_nodes, i_nodes]).int(),
                          cols=torch.cat([i_nodes, u_nodes]).int(), vals=both,
                          n_rows=self.n_nodes, n_cols=self.n_nodes, backend=self.backend,
                          compute_dtype=self.compute_dtype, pull=pull, pull_t=pull_t,
-                         sym_rowspace=pull is not None)
+                         sym_rowspace=pull is not None, seg=seg, seg_t=seg_t)

@@ -28,6 +28,10 @@ class Model:
     optionally epoch_begin and post_step."""
 
     name: str = "model"
+    # parameters that take no gradient (GraphSAGE's fixed features): the
+    # trainer makes them without ``requires_grad`` and the step loop
+    # differentiates only the others, so no optimizer moves them
+    frozen: tuple[str, ...] = ()
 
     def __init__(self, config):
         self.config = config

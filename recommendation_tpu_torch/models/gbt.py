@@ -13,8 +13,9 @@ GBT.total_steps)`` (the reference's CosineAnnealingLR, `gbt.py:512-514`):
 (embedding.size), ``GBT.drop_edge`` (0.25), ``GBT.drop_feat`` (0.25),
 ``GBT.total_steps`` (1000).
 
-Dense backend only, as GRACE (``init`` raises on the bucketed one,
-ROADMAP queue 1, item 10); its products are ``torch.matmul``.
+Its products are GRACE's: ``torch.matmul`` on the dense backend, P1 over
+the segment views of ``norm_adj_selfloops`` on the bucketed and the
+segment ones.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ class GBT(Model):
                                self.total_steps)
 
     def init(self, generator: torch.Generator, graph):
-        graph.norm_adj_selfloops  # built here on the dense backend; raises on the others
+        graph.norm_adj_selfloops  # built here, at the first access
         dev = graph.device
         return flatten_tree({
             "features": self._init_table(generator, graph.n_nodes, self.out_dim, dev),

@@ -14,10 +14,12 @@ takes the whole graph every step, whatever the batch. Config:
 ``GRACE.proj_dim`` (64), ``GRACE.tau`` (0.5), ``GRACE.drop_edge1/2`` (0.3,
 0.4), ``GRACE.drop_feat1/2`` (0.3, 0.4).
 
-Dense backend only: its products are ``torch.matmul`` with the (U+I)²
-matrix (no kernel of the port). The JAX package puts
-``norm_adj_selfloops`` on the segment backend where the graph is bucketed,
-which the port lacks, so ``init`` raises there (ROADMAP queue 1, item 10).
+On the dense backend its products are ``torch.matmul`` with the (U+I)²
+matrix (no kernel of the port). Where the graph is bucketed the JAX
+package puts ``norm_adj_selfloops`` on the segment backend, and so does
+the port: its products are then P1 over the row-sorted view, and over the
+transpose view in the backward (``ops/spmm.py::_segment_matmul``); the
+same on the segment backend.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ class GRACE(Model):
         self.drop_feat2 = float(config.get("GRACE.drop_feat2", 0.4))
 
     def init(self, generator: torch.Generator, graph):
-        graph.norm_adj_selfloops  # built here on the dense backend; raises on the others
+        graph.norm_adj_selfloops  # built here, at the first access
         h, dev = self.hidden, graph.device
         return flatten_tree({
             "features": self._init_table(generator, graph.n_nodes, h, dev),

@@ -1,10 +1,10 @@
 """LightGCN: K-layer normalized propagation + layer-mean readout, BPR/BCE.
 
-Counterpart of ``recommendation_tpu/models/lightgcn.py`` on the dense and
-the bucketed backends: ``lightgcn_propagate``'s bipartite dense branch
+Counterpart of ``recommendation_tpu/models/lightgcn.py`` on every
+backend: ``lightgcn_propagate``'s bipartite dense branch
 (``return_layers=False``) in the f32 and the bf16 regime,
 ``lightgcn_propagate_square`` for its branches over the square adjacency
-(``norm_adj``, dense or bucketed, with ``return_layers``), and
+(``norm_adj``, dense, bucketed or segment, with ``return_layers``), and
 ``LightGCN.init/propagate/loss/eval_embeddings``. Config:
 ``LightGCN.n_layers`` (default 3), ``loss`` in {'bpr', 'bce', 'pointwise'},
 ``n_negs`` (extra negatives per edge, `lightgcn.py:93-104`),
@@ -12,8 +12,11 @@ the bucketed backends: ``lightgcn_propagate``'s bipartite dense branch
 
 On the dense backend the layer chain goes through ``ops.prop.ChainMean``
 (kernels K1 forward, K2 backward); on the bucketed backend through
-``graph.bucketed.BucketedChainMean`` (K7 and P1 both ways). The card runs
-the kernels, the CPU their plain versions.
+``graph.bucketed.BucketedChainMean`` (K7 and P1 both ways); on the segment
+(and pallas) backend, which has no R̂, as in the JAX package, through L
+``adj_matmul`` rounds over ``norm_adj`` (P1 over its row-sorted view, and
+over the transpose view in the backward). The card runs the kernels, the
+CPU their plain versions.
 """
 
 from __future__ import annotations
@@ -74,9 +77,10 @@ def lightgcn_propagate_square(user_emb: torch.Tensor, item_emb: torch.Tensor, no
 
 def lightgcn_encode(user_emb: torch.Tensor, item_emb: torch.Tensor, graph, n_layers: int):
     """LightGCN's encoder on the graph's backend: the dense chain over R̂
-    (``ChainMean``: K1 forward, K2 backward) or, on the bucketed backend,
-    the row-space chain over ``norm_adj`` (K7 and P1 both ways)."""
-    if graph.backend == "bucketed":
+    (``ChainMean``: K1 forward, K2 backward) or, on the other backends,
+    the square path over ``norm_adj``: the bucketed row-space chain (K7 and
+    P1 both ways), L segment matmuls (P1 both ways)."""
+    if graph.backend != "dense":
         return lightgcn_propagate_square(user_emb, item_emb, graph.norm_adj, n_layers)
     return lightgcn_propagate(user_emb, item_emb, graph.propagation_matrix, n_layers)
 

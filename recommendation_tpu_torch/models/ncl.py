@@ -11,14 +11,15 @@ A LightGCN encoder whose loss adds to BPR on the layer mean (`ncl.py:282-422`):
 On the dense backend the forward is ``ops.prop.ChainMeanLayer`` (kernels K3
 forward, K4 backward on the card), which returns the mean and the context
 layer in one chain; with a context index of 0 the context is layer 0 and the
-chain is LightGCN's (``ChainMean``). On the bucketed backend it is the JAX
-package's fallback: L ``adj_matmul`` rounds over ``norm_adj``
-(``lightgcn_propagate_square(return_layers=True)``: each a P1 pull and a K7
-reorder, and the same through the transpose in the backward), the mean of
+chain is LightGCN's (``ChainMean``). On the bucketed and the segment
+backends it is the JAX package's fallback: L ``adj_matmul`` rounds over ``norm_adj``
+(``lightgcn_propagate_square(return_layers=True)``: each a P1 pull, with a
+K7 reorder on the bucketed backend, and the same through the transpose in
+the backward), the mean of
 the L + 1 layers, and the context layer from the list. Both denominators go
 through ``ops.lse.CatalogLSE`` (K5 forward, K6 backward). The E-step runs the
 mean under ``no_grad`` through ``chain_mean`` (K1) on the dense backend, the
-bucketed chain (K7 and P1) on the other, and clusters it with
+square path (``eval_embeddings``) on the others, and clusters it with
 ``ops/kmeans.py``: once every
 ``NCL.e_step_cadence`` epochs (always at epoch 0), or inside every loss with
 ``NCL.e_step_cadence='batch'``, on detached embeddings. Every random draw of
@@ -111,7 +112,7 @@ class NCL(Model):
         index min(2·hyper_layers, L): what ``loss`` consumes."""
         u0, i0 = params["user_emb"], params["item_emb"]
         ctx_idx = min(self.hyper_layers * 2, self.n_layers)
-        if graph.backend == "bucketed":
+        if graph.backend != "dense":
             au, ai, layers = lightgcn_propagate_square(u0, i0, graph.norm_adj, self.n_layers,
                                                        return_layers=True)
             ctx = layers[ctx_idx]
@@ -160,7 +161,7 @@ class NCL(Model):
         if epoch % max(1, self.e_step_cadence) != 0 and epoch > 0:
             return state
         with torch.no_grad():
-            if graph.backend == "bucketed":
+            if graph.backend != "dense":
                 user_all, item_all = self.eval_embeddings(params, state, graph)
             else:
                 user_all, item_all = chain_mean(graph.propagation_matrix,
@@ -214,7 +215,7 @@ class NCL(Model):
 
     def eval_embeddings(self, params, state, graph):
         with torch.no_grad():
-            if graph.backend == "bucketed":
+            if graph.backend != "dense":
                 return lightgcn_propagate_square(params["user_emb"], params["item_emb"],
                                                  graph.norm_adj, self.n_layers)
             return lightgcn_propagate(params["user_emb"], params["item_emb"],

@@ -6,7 +6,7 @@ _REGISTRY: dict[str, type] = {}
 
 # modules of the port that register models; more join as slices land
 _MODEL_MODULES = ("lightgcn", "ncl", "directau", "selfcf", "buir", "ssl4rec", "gcl", "grace",
-                  "gbt", "bgrl")
+                  "gbt", "bgrl", "graphsage", "gat")
 
 
 def register(name: str):

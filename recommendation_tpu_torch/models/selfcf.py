@@ -14,7 +14,8 @@ order gives the same tables. Config: ``SelfCF.tau`` (momentum, 0.05),
 
 The encoder is LightGCN's (``lightgcn_encode``): the dense chain over R̂
 (K1 forward, K2 backward) on the dense backend, the row-space chain over
-``norm_adj`` (K7 and P1, P1 on the separable fold) on the bucketed one.
+``norm_adj`` (K7 and P1, P1 on the separable fold) on the bucketed one, L
+segment matmuls (P1) on the segment one.
 Ranking uses the dual score p(u)·iᵀ + u·p(i)ᵀ (`selfcf.py:581-591`) as one
 product of the width-2d tables [p(u), u] and [i, p(i)].
 ``PlainSelfCF`` swaps the chain's kernels for their plain versions: the
@@ -26,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from recommendation_tpu_torch.graph.bucketed import bucketed_chain_mean_plain
+from recommendation_tpu_torch.ops.spmm import segment_matmul_plain
 from recommendation_tpu_torch.losses import selfcf_loss
 from recommendation_tpu_torch.models.base import Model, linear
 from recommendation_tpu_torch.models.lightgcn import lightgcn_encode
@@ -90,14 +92,21 @@ class SelfCF(Model):
 
 class PlainSelfCF(SelfCF):
     """SelfCF with the plain chains (autograd through torch ops): the dense
-    ``chain_mean_plain`` over R̂ or the bucketed ``bucketed_chain_mean_plain``
-    over ``norm_adj``. Not registered."""
+    ``chain_mean_plain`` over R̂, the bucketed ``bucketed_chain_mean_plain``
+    over ``norm_adj``, or L plain segment matmuls over it. Not registered."""
 
     def propagate(self, params, graph):
         u, i = params["user_emb"], params["item_emb"]
+        adj = graph.norm_adj if graph.backend != "dense" else None
         if graph.backend == "bucketed":
-            adj = graph.norm_adj
             mean = bucketed_chain_mean_plain(self.n_layers, adj.compute_dtype, adj.pull,
                                              torch.cat([u, i]))
+            return mean[:graph.n_users], mean[graph.n_users:]
+        if adj is not None:
+            ego = acc = torch.cat([u, i])
+            for _ in range(self.n_layers):
+                ego = segment_matmul_plain(adj, ego)
+                acc = acc + ego
+            mean = acc / (self.n_layers + 1.0)
             return mean[:graph.n_users], mean[graph.n_users:]
         return chain_mean_plain(graph.propagation_matrix, u, i, self.n_layers)

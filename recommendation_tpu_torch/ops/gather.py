@@ -84,31 +84,25 @@ def gather_sum_plain(src: torch.Tensor, idx: torch.Tensor, row_ptr: torch.Tensor
                      acc: torch.Tensor | None = None, final: torch.Tensor | None = None,
                      keep_y: bool = False):
     """The bucket pull in plain torch, bucket by bucket as the JAX package
-    computes it: rows with the same slot count are one [rows, cap, d]
-    gather, multiplied by the values and summed over cap, then the
-    epilogue as elementwise operations (``gather_sum``). Every slot is
-    summed, ``skip``'s zero row included; ``schedule`` is the kernel's."""
+    computes it: the rows with one slot count (a bucket's rows; any rows,
+    in a segment view) are one [rows, count, d] gather, multiplied by the
+    values and summed over the count, then the epilogue as elementwise
+    operations (``gather_sum``). Every slot is summed, ``skip``'s zero row
+    included; ``schedule`` is the kernel's."""
     del skip, schedule  # the skipped row is zero: summing it changes nothing
     d = src.shape[1]
-    ptr = row_ptr.cpu().numpy()
-    counts = np.diff(ptr)
-    # runs of equal slot counts: the buckets (and the empty zero row)
-    cuts = np.flatnonzero(np.diff(counts)) + 1
-    outs = []
-    for lo, hi in zip(np.r_[0, cuts], np.r_[cuts, len(counts)]):
-        rows, cap = int(hi - lo), int(counts[lo])
-        if cap == 0:
-            outs.append(torch.zeros((rows, d), dtype=torch.float32, device=src.device))
-            continue
-        s0 = int(ptr[lo])
-        ii = idx[s0:s0 + rows * cap].long()
+    counts = torch.diff(row_ptr)
+    out = torch.zeros((len(counts), d), dtype=torch.float32, device=src.device)
+    for cap in torch.unique(counts[counts > 0]).tolist():
+        rows = torch.nonzero(counts == cap).squeeze(1)
+        slots = (row_ptr[rows][:, None] + torch.arange(cap, device=src.device)).reshape(-1)
+        ii = idx[slots].long()
         g = src[ii].float()
         if add is not None:
             g = g + add[ii]
         if val is not None:
-            g = g * val[s0:s0 + rows * cap, None]
-        outs.append(torch.sum(g.view(rows, cap, d), dim=1))
-    out = torch.cat(outs) if outs else src.new_zeros((0, d), dtype=torch.float32)
+            g = g * val[slots, None]
+        out = out.index_copy(0, rows, torch.sum(g.view(len(rows), cap, d), dim=1))
     y = out * post[:, None] if post is not None else out
     if acc is None and final is None:
         return y
@@ -185,6 +179,22 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 gather_rows.launches = 0
 
 
+def check_schedule(name: str, schedule, device) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """``schedule`` = (work, work_start, n_partials) as ``pull_schedule``
+    makes it, on ``device``, or a ValueError: the kernels that walk it (P1,
+    S1) read it through raw pointers."""
+    work, work_start, n_partials = schedule
+    if (not isinstance(work, torch.Tensor) or not isinstance(work_start, torch.Tensor)
+            or work.dtype != torch.int32 or work.dim() != 2 or work.shape[1] != 4
+            or work_start.dtype != torch.int64 or work_start.shape != (work.shape[0] + 1,)
+            or work.device != device or work_start.device != device
+            or not work.is_contiguous() or not work_start.is_contiguous()
+            or int(n_partials) < 0):
+        raise ValueError(f"{name} schedule must be an int32 [W, 4] work list, its int64 "
+                         f"[W + 1] slot starts and a partial count >= 0, on {device}")
+    return work, work_start, int(n_partials)
+
+
 def gather_sum(src: torch.Tensor, idx: torch.Tensor, row_ptr: torch.Tensor,
                val: torch.Tensor | None = None, post: torch.Tensor | None = None,
                add: torch.Tensor | None = None, skip: int = -1,
@@ -234,12 +244,8 @@ def gather_sum(src: torch.Tensor, idx: torch.Tensor, row_ptr: torch.Tensor,
     result = total if y is None else (y if total is None else (y, total))
     if n_out * d == 0:
         return result
-    work, work_start, n_partials = pull_schedule(row_ptr) if schedule is None else schedule
-    if (work.dtype != torch.int32 or work.dim() != 2 or work.shape[1] != 4
-            or work_start.dtype != torch.int64 or work_start.shape != (work.shape[0] + 1,)
-            or work.device != src.device or work_start.device != src.device):
-        raise ValueError("gather_sum schedule must be an int32 [W, 4] work list and its int64 "
-                         "[W + 1] slot starts on the source's device")
+    work, work_start, n_partials = check_schedule(
+        "gather_sum", pull_schedule(row_ptr) if schedule is None else schedule, src.device)
     partial = count = None
     if n_partials:
         partial = torch.empty((n_partials, d), dtype=torch.float32, device=src.device)

@@ -124,11 +124,12 @@ def _where_state(ok: torch.Tensor, new: Any, old: Any) -> Any:
 def run_steps(model, optimizer: torch.optim.Optimizer, graph, params: Dict[str, torch.Tensor],
               state: Any, batches, generator: torch.Generator | None = None):
     """The step loop over one epoch's arrays ``batches`` = (users, items,
-    negs, weights, n_batches). Updates ``params`` in place through
-    ``optimizer``; returns (state, mean loss as a device scalar: the mean
+    negs, weights, n_batches). Differentiates the parameters that require
+    a gradient (every one the loss reaches; a model's ``frozen`` ones do
+    not) and updates them in place through ``optimizer``; returns (state, mean loss as a device scalar: the mean
     of the finite step losses, NaN when no step was finite)."""
     users, items, negs, weights, n_batches = batches
-    tensors = list(params.values())
+    tensors = [p for p in params.values() if p.requires_grad]
     losses = torch.empty(n_batches, dtype=torch.float32, device=graph.device)
     for b in range(n_batches):
         batch = PairwiseBatch(users[b], items[b], negs[b], weights[b])

@@ -93,15 +93,19 @@ class GraphRecommender:
 
     def print_model_info(self):
         u, i, e = self.data.training_size()
+        backend = self.graph.backend
+        if backend == "pallas":  # no kernel of its own: the segment path runs
+            backend = "pallas(->segment fallback)"
         self.log.add(
             f"model={self.model.name} users={u} items={i} interactions={e} "
-            f"backend={self.graph.backend} emb={self.model.emb_size} device={self.graph.device}"
+            f"backend={backend} emb={self.model.emb_size} device={self.graph.device}"
         )
 
     def build(self):
         seed = int(self.config.get("seed", 0))
         params, self.state = self.model.init(torch.Generator().manual_seed(seed), self.graph)
-        self.params = {k: v.detach().requires_grad_() for k, v in params.items()}
+        self.params = {k: v.detach().requires_grad_(k not in self.model.frozen)
+                       for k, v in params.items()}
         self._bold = None
         if self.config.get("adaptive.lr", False):
             # legacy bold-driver schedule (`univariate/diffnet.py:756-763`)

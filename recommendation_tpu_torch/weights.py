@@ -5,7 +5,7 @@ arrays, lists of dicts (GRACE's ``convs``), dicts of dicts (BGRL's
 ``online`` and ``target``) and 0-d arrays (BGRL's ``prelu``). The port
 keeps each as ONE flat ``Dict[str, Tensor]`` whose keys are the dotted
 paths of the tree's leaves, dict keys and list indices alike:
-``convs.0.w``, ``online.convs.1.mlp2.b`` (the port's models build their
+``convs.0.w``, ``online.convs.1.mlp2.b``, ``layers.0.neigh.w`` (the port's models build their
 trees in the order the JAX model's init writes them; loaded parameters
 come in ``PARAM_NAMES``' order). ``flatten_tree`` makes those names and
 ``subtree`` reads a branch back out of them, so the optimizer, the
@@ -58,6 +58,8 @@ PARAM_NAMES = {
     "grace": ("features",) + _linear("convs.*") + _linear("fc1") + _linear("fc2"),
     "gbt": ("features",) + _linear("conv1") + _linear("conv2"),
     "bgrl": ("features",) + _gin_encoder("online") + _linear("predictor"),
+    "graphsage": ("features",) + _linear("layers.*.self") + _linear("layers.*.neigh"),
+    "gat": _TABLES + tuple(f"gat{i}.{k}" for i in (1, 2) for k in ("w", "a_src", "a_dst")),
 }
 # the model state each ported model carries, name pattern -> dtype
 STATE_DTYPES = {
@@ -67,7 +69,7 @@ STATE_DTYPES = {
             "item_centroids": np.float32, "item_2cluster": np.int32},
     "selfcf": {"u_his": np.float32, "i_his": np.float32},
     "buir": {"t_user_emb": np.float32, "t_item_emb": np.float32},
-    "ssl4rec": {}, "gcl": {}, "grace": {}, "gbt": {},
+    "ssl4rec": {}, "gcl": {}, "grace": {}, "gbt": {}, "graphsage": {}, "gat": {},
     "bgrl": {n: np.float32 for n in _gin_encoder("target")},
 }
 # GCL's ``convs`` exist only with GCL.encoder='linear'

@@ -226,9 +226,15 @@ def test_dense_operand_is_rounded_once(tiny_data, compute_dtype):
 
 
 def test_unported_backends_still_raise(tiny_data):
+    """The segment and pallas backends are ported now
+    (tests/test_torch_segment.py): what is not ported still raises, citing
+    the ROADMAP (int8 propagation), and a backend the port does not know
+    is refused."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from_scipy(tiny_data.norm_adj, backend="segment", device="cpu")
+        from_scipy(tiny_data.norm_adj, backend="segment", compute_dtype="int8", device="cpu")
     adj = from_scipy(tiny_data.norm_adj, backend="dense", device="cpu")
     import dataclasses
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        adj_matmul(dataclasses.replace(adj, backend="segment"), torch.zeros(adj.n_cols, 2))
+    with pytest.raises(ValueError, match="backend"):
+        adj_matmul(dataclasses.replace(adj, backend="sparse"), torch.zeros(adj.n_cols, 2))
+    with pytest.raises(ValueError, match="backend"):
+        from_scipy(tiny_data.norm_adj, backend="sparse", device="cpu")

@@ -7,7 +7,7 @@ the CPU against the JAX package's.
 bucketed backend the structure-only templates bit for bit (built at the
 first call, not with the graph), the refreshed values at the f32 bound and
 the row-space chain through them. ``norm_adj_selfloops`` on the dense
-backend, and its ``NotImplementedError`` on the bucketed one.
+backend, and on the segment backend where the graph is bucketed.
 ``edge_keep_mask``, ``dropped_norm_adj``, ``drop_edges`` and
 ``mask_features`` on the same uniform draws as ``jax.random``'s (the
 draws replaced by one numpy stream on both sides). f32 rtol 1e-5 / atol
@@ -132,9 +132,17 @@ def test_norm_adj_selfloops(graphs, sets):
     np.testing.assert_array_equal(adj.rows.numpy(), _np(jgraph.norm_adj_selfloops.rows))
     np.testing.assert_allclose(adj.vals.numpy(), _np(jgraph.norm_adj_selfloops.vals), **TIGHT)
     assert (np.diag(adj.dense.numpy()) > 0).all()
-    _, bucketed = graphs["bucketed"]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        bucketed.norm_adj_selfloops
+    # where the graph is bucketed it lives on the segment backend, as in the
+    # JAX package: the same COO, with its row-sorted views
+    jbucketed, bucketed = graphs["bucketed"]
+    loops = bucketed.norm_adj_selfloops
+    assert loops.backend == _np_backend(jbucketed) == "segment" and loops.seg is not None
+    for name in ("rows", "cols", "vals"):
+        assert torch.equal(getattr(loops, name), getattr(adj, name)), name
+
+
+def _np_backend(jgraph):
+    return jgraph.norm_adj_selfloops.backend
 
 
 class Draws:

@@ -555,16 +555,16 @@ def test_one_cpu_epoch_on_bucketed_is_finite(graphs):
 
 def test_ncl_and_unported_forms_raise_on_bucketed(graphs, port_data):
     """NCL now builds on the bucketed backend (its parity with the JAX NCL
-    there is tests/test_torch_ncl_bucketed.py's); int8 propagation and the
-    segment backend still raise."""
+    there is tests/test_torch_ncl_bucketed.py's); int8 propagation still
+    raises; the segment backend is ported now (tests/test_torch_segment.py)
+    and builds."""
     ours_g = graphs[0]
     params, state = build("ncl", default_config()).init(torch.Generator().manual_seed(0), ours_g)
     assert params["user_emb"].shape[0] == ours_g.n_users
     assert state["item_2cluster"].shape == (ours_g.n_items,)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DeviceGraph(port_data, backend="bucketed", compute_dtype="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from_scipy(port_data.norm_adj, backend="segment", device="cpu")
+    assert from_scipy(port_data.norm_adj, backend="segment", device="cpu").seg is not None
 
 
 def test_cli_trains_on_the_bucketed_backend(port_data, tmp_path):

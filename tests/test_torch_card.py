@@ -13,9 +13,15 @@ against its plain version and against itself; ``BucketedChainMean``'s gradient o
 a bucketed graph; one DirectAU step on a bucketed graph (P1's value path);
 one step of each zoo model that reaches a kernel (SelfCF dense through
 K1/K2 and bucketed through K7/P1; BUIR, GCL and BGRL bucketed, P1's value
-path) against its plain path on the same masks.
+path) against its plain path on the same masks. The segment kernels
+(``csrc/segment.cu``): S1 (the multi-head weighted pull), S2 (the segment
+softmax and its backward) and S3 (the per-slot head dot) against their
+plain versions and bit for bit across two calls, on a segment view with
+split hub rows and on bucket rows; one step of GAT (dense, segment and
+bucketed backends), GraphSAGE, LightGCN on the segment backend and GRACE
+and G-BT on a bucketed graph against their plain paths.
 Calls on two streams at once equal the same calls in turn (the chain's tile
-counters, P1's piece counters, K5's and K6's partials).
+counters, P1's and S1's piece counters, K5's and K6's partials).
 
 These tests need a CUDA device and ``nvcc``; elsewhere they skip. This file
 imports neither JAX nor the JAX package, so it runs where only the port is
@@ -46,11 +52,18 @@ from recommendation_tpu_torch.models import build
 from recommendation_tpu_torch.models.bgrl import PlainBucketedBGRL
 from recommendation_tpu_torch.models.buir import PlainBucketedBUIR
 from recommendation_tpu_torch.models.directau import PlainBucketedDirectAU
+from recommendation_tpu_torch.models.gat import PlainGAT
+from recommendation_tpu_torch.models.graphsage import PlainGraphSAGE
 from recommendation_tpu_torch.models.gcl import PlainBucketedGCL
 from recommendation_tpu_torch.models.selfcf import PlainSelfCF
 from recommendation_tpu_torch.models.lightgcn import LightGCN
 from recommendation_tpu_torch.models.ncl import NCL
-from recommendation_tpu_torch.ops.gather import gather_rows, gather_sum, gather_sum_plain
+from recommendation_tpu_torch.ops.gather import (
+    gather_rows,
+    gather_sum,
+    gather_sum_plain,
+    pull_schedule,
+)
 from recommendation_tpu_torch.ops.lse import (
     CatalogLSE,
     catalog_lse,
@@ -75,6 +88,8 @@ from recommendation_tpu_torch.ops.prop import (
     chain_mean_layer_plain,
     chain_mean_plain,
 )
+from recommendation_tpu_torch.ops import segment as seg_ops
+from recommendation_tpu_torch.ops import spmm
 from recommendation_tpu_torch.sampling import PairwiseBatch, epoch_batches, epoch_words
 from recommendation_tpu_torch.train.loop import make_optimizer, run_steps
 
@@ -701,6 +716,13 @@ def _two_calls(card, kernel):
         return [lambda q=q_, lse=l_: list(catalog_lse_bwd(q, x, 0.1, lse, g))
                 for q_, l_ in zip(q, lse)]
     pairs = make_flat_interactions(2000, 4000, 40_000, seed=1)
+    if kernel == "weighted_pull":
+        view = _segment_view(card)
+        assert view.n_partials > 0  # split rows: the pieces' counters are used
+        w = _random(card, rng, (view.n_slots, 4))[0]
+        xs = _random(card, rng, *[(view.n_cols, 4 * 64)] * 2)
+        return [lambda x=x: [seg_ops.weighted_pull(x, w, view.idx, view.row_ptr, view.schedule)]
+                for x in xs]
     csr = DeviceGraph(ArrayInteraction(pairs, 2000, 4000), backend="bucketed",
                       device=card).norm_adj.pull
     assert csr.n_partials > 0  # split rows: the pieces' counters are used
@@ -709,12 +731,12 @@ def _two_calls(card, kernel):
                                     skip=csr.total_rows, schedule=csr.schedule)] for y in srcs]
 
 
-@pytest.mark.parametrize("kernel", ["chain", "lse", "lse_bwd", "pull"])
+@pytest.mark.parametrize("kernel", ["chain", "lse", "lse_bwd", "pull", "weighted_pull"])
 def test_calls_on_two_streams_equal_calls_in_turn(card, kernel):
     """Two calls launched on two streams at once give what the same calls
     give one after the other on one stream, bit for bit, ten times over:
-    the chain's tile counters, P1's piece counters and K5's and K6's
-    partials are not mixed between streams."""
+    the chain's tile counters, P1's and S1's piece counters and K5's and
+    K6's partials are not mixed between streams."""
     fns = _two_calls(card, kernel)
     want = [fn() for fn in fns]
     torch.cuda.synchronize()
@@ -895,3 +917,199 @@ def test_gather_wrappers_refuse_what_the_kernels_do_not_take(card):
         gather_sum(x, idx.long(), ptr)
     with pytest.raises(ValueError, match="contiguous"):
         gather_sum(x[:, ::2], idx, ptr)
+
+
+# -- the segment kernels: S1 (weighted pull), S2 (segment softmax), S3 (head dot) --
+
+
+def _segment_view(card):
+    """The destination view of a power-law graph's bidirectional edges: its
+    hub rows hold more than one CHUNK of slots, so S1 splits them."""
+    pairs = make_flat_interactions(2000, 4000, 40_000, seed=1)
+    graph = DeviceGraph(ArrayInteraction(pairs, 2000, 4000), backend="segment", device=card)
+    return graph.bipartite_views()[1]
+
+
+def _segment_inputs(card, view, heads, d, seed):
+    rng = np.random.default_rng(seed)
+    x, w, e, g, gy = _random(card, rng, (view.n_cols, heads * d), (view.n_slots, heads),
+                             (view.n_slots, heads), (view.n_slots, heads),
+                             (view.n_rows, heads * d))
+    live = torch.from_numpy(rng.random(view.n_slots) > 0.1).to(card)
+    return x, w, e * 3, g, gy, live
+
+
+def _repeats_and_agrees(name, fn, plain, rtol=1e-5):
+    """Two kernel calls equal bit for bit, and the plain version at rtol
+    and an atol of 1e-5 of the plain result's largest entry (the kernel
+    sums in slot order, the plain version in its own)."""
+    got, again = fn(), fn()
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), name
+    want = plain()
+    assert torch.isfinite(got).all(), name
+    torch.testing.assert_close(got, want, rtol=rtol, atol=1e-5 * want.abs().max().item(),
+                               msg=name)
+
+
+@pytest.mark.parametrize("heads,d", [(1, 64), (4, 64), (4, 5), (2, 3)])
+def test_segment_kernels_match_plain(card, heads, d):
+    view = _segment_view(card)
+    x, w, e, g, gy, live = _segment_inputs(card, view, heads, d, heads * 100 + d)
+    before = (seg_ops.weighted_pull.launches, seg_ops.segment_softmax_rows.launches,
+              seg_ops.segment_softmax_rows_bwd.launches, seg_ops.segment_dot.launches)
+    _repeats_and_agrees("S1", lambda: seg_ops.weighted_pull(x, w, view.idx, view.row_ptr,
+                                                            view.schedule),
+                        lambda: seg_ops.weighted_pull_plain(x, w, view.idx, view.row_ptr))
+    _repeats_and_agrees("S2", lambda: seg_ops.segment_softmax_rows(e, view.row_ptr, live),
+                        lambda: seg_ops.segment_softmax_rows_plain(e, view.row_ptr, live))
+    att = seg_ops.segment_softmax_rows_plain(e, view.row_ptr, live)
+    _repeats_and_agrees("S2 bwd", lambda: seg_ops.segment_softmax_rows_bwd(att, g, view.row_ptr),
+                        lambda: seg_ops.segment_softmax_rows_bwd_plain(att, g, view.row_ptr))
+    rows = view.slot_row
+    _repeats_and_agrees("S3", lambda: seg_ops.segment_dot(gy, rows, x, view.idx, heads),
+                        lambda: seg_ops.segment_dot_plain(gy, rows, x, view.idx, heads))
+    after = (seg_ops.weighted_pull.launches, seg_ops.segment_softmax_rows.launches,
+             seg_ops.segment_softmax_rows_bwd.launches, seg_ops.segment_dot.launches)
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2, 2]
+    # no live slot in a row: its weights are 0
+    none = seg_ops.segment_softmax_rows(e, view.row_ptr, torch.zeros_like(live))
+    assert not none.any()
+
+
+@pytest.mark.parametrize("heads", [1, 4])
+def test_segment_kernels_on_bucket_rows(card, heads):
+    """S1 and S2 over the bucketed tables' flat slots (each bucket row a
+    segment, the zero row empty), dead slots masked."""
+    pairs = make_flat_interactions(2000, 4000, 40_000, seed=1)
+    csr = DeviceGraph(ArrayInteraction(pairs, 2000, 4000), backend="bucketed",
+                      device=card).norm_adj.pull
+    rng = np.random.default_rng(heads)
+    x, e = _random(card, rng, (csr.n_rows, heads * 64), (csr.n_slots, heads))
+    live = (csr.edge >= 0) & (csr.val != 0)
+    att = seg_ops.segment_softmax_rows(e, csr.row_ptr, live)
+    _repeats_and_agrees("S2 bucket rows", lambda: seg_ops.segment_softmax_rows(e, csr.row_ptr,
+                                                                               live),
+                        lambda: seg_ops.segment_softmax_rows_plain(e, csr.row_ptr, live))
+    _repeats_and_agrees("S1 bucket rows", lambda: seg_ops.weighted_pull(
+        x, att, csr.idx, csr.row_ptr, csr.schedule),
+        lambda: seg_ops.weighted_pull_plain(x, att, csr.idx, csr.row_ptr))
+
+
+def test_segment_wrappers_refuse_what_the_kernels_do_not_take(card):
+    ptr = torch.tensor([0, 2, 3], device=card)
+    with pytest.raises(ValueError, match="divides 32"):
+        seg_ops.segment_softmax_rows(torch.zeros(3, 3, device=card), ptr)
+    with pytest.raises(TypeError):
+        seg_ops.segment_softmax_rows(torch.zeros(3, 2, device=card, dtype=torch.float64), ptr)
+    idx = torch.zeros(3, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        seg_ops.weighted_pull(torch.zeros(4, 8, device=card), torch.zeros(3, 2, device=card),
+                              idx.long(), ptr)
+    with pytest.raises(ValueError, match="contiguous"):
+        seg_ops.segment_dot(torch.zeros(4, 16, device=card)[:, ::2], idx,
+                            torch.zeros(4, 8, device=card), idx, 2)
+    # S2 reads row_ptr as 64-bit, S1 its schedule through raw pointers
+    with pytest.raises(TypeError, match="int64 row_ptr"):
+        seg_ops.segment_softmax_rows(torch.zeros(3, 2, device=card), ptr.int())
+    with pytest.raises(TypeError, match="int64 row_ptr"):
+        seg_ops.segment_softmax_rows_bwd(torch.zeros(3, 2, device=card),
+                                         torch.zeros(3, 2, device=card), ptr.int())
+    x, w = torch.zeros(4, 8, device=card), torch.zeros(3, 2, device=card)
+    work, work_start, n_partials = pull_schedule(ptr)
+    for bad in ((work.long(), work_start, n_partials), (work, work_start.int(), n_partials),
+                (work.cpu(), work_start.cpu(), n_partials), (work[:1], work_start, n_partials),
+                (work, work_start, -1)):
+        with pytest.raises(ValueError, match="schedule"):
+            seg_ops.weighted_pull(x, w, idx, ptr, bad)
+
+
+# a step's segment-kernel and P1/K7 launches: GAT's two layers (S2 and S1
+# forward; S3, S2's backward, S1 and two P1 backward; K7 once forward and
+# three times backward a layer on the bucket rows), GraphSAGE's two means
+# (P1; the first takes no backward: the features are fixed), LightGCN's
+# three segment matmuls both ways, GRACE's and G-BT's two views of two
+# segment matmuls both ways
+_S = {"weighted_pull": 4, "segment_softmax_rows": 2, "segment_softmax_rows_bwd": 2,
+      "segment_dot": 2, "gather_sum": 4}
+SEGMENT_CASES = {
+    ("gat", "dense"): (PlainGAT, _S),
+    ("gat", "segment"): (PlainGAT, _S),
+    ("gat", "bucketed"): (PlainGAT, {**_S, "gather_rows": 8}),
+    ("graphsage", "dense"): (PlainGraphSAGE, {"gather_sum": 3}),
+    ("graphsage", "bucketed"): (PlainGraphSAGE, {"gather_sum": 3}),
+    ("lightgcn", "segment"): (None, {"gather_sum": 6}),
+    ("grace", "bucketed"): (None, {"gather_sum": 8}),
+    ("gbt", "bucketed"): (None, {"gather_sum": 8}),
+}
+
+
+@pytest.mark.parametrize("name,backend", list(SEGMENT_CASES),
+                         ids=["-".join(c) for c in SEGMENT_CASES])
+def test_segment_step_kernel_vs_plain(card, monkeypatch, name, backend):
+    """One step through the segment kernels and P1 (and K7) against the
+    plain path (``PlainGAT``, ``PlainGraphSAGE``, or the segment matmul's
+    plain version in place of ``_segment_matmul``) on the same parameters,
+    batch and masks: the launches, the loss, and the gradients, the bound
+    rejecting zeros. G-BT's batch norm: by relative Frobenius error."""
+    plain_cls, want = SEGMENT_CASES[name, backend]
+    pairs = make_flat_interactions(1000, 2000, 20_000, seed=2)
+    graph = DeviceGraph(ArrayInteraction(pairs, 1000, 2000), backend=backend, device=card)
+    config = default_config(**{"batch.size": 1024})
+    model = build(name, config)
+    init, state = model.init(torch.Generator().manual_seed(3), graph)
+    users, items, negs, weights, _ = epoch_batches(
+        epoch_words(torch.Generator().manual_seed(4), graph, 1024), graph, 1024)
+    batch = PairwiseBatch(users[0], items[0], negs[0], weights[0])
+    counters = {f.__name__: f for f in (gather_rows, gather_sum, seg_ops.weighted_pull,
+                                         seg_ops.segment_softmax_rows,
+                                         seg_ops.segment_softmax_rows_bwd, seg_ops.segment_dot)}
+    names = [k for k in init if k not in model.frozen]
+    out = []
+    for plain in (False, True):
+        m = plain_cls(config) if plain and plain_cls is not None else model
+        if plain and plain_cls is None:
+            monkeypatch.setattr(spmm, "_segment_matmul", spmm.segment_matmul_plain)
+        draws = torch.Generator().manual_seed(5)
+        monkeypatch.setattr(augment, "uniform", lambda g, shape, device: torch.rand(
+            tuple(shape), generator=draws).to(device))
+        p = {k: v.detach().clone().requires_grad_(k in names) for k, v in init.items()}
+        before = {k: f.launches for k, f in counters.items()}
+        loss, _ = m.loss(p, state, batch, graph, torch.Generator().manual_seed(6))
+        grads = torch.autograd.grad(loss, [p[k] for k in names])
+        torch.cuda.synchronize()
+        out.append((loss.item(), grads, {k: f.launches - before[k] for k, f in counters.items()
+                                         if f.launches != before[k]}))
+    (loss_k, g_k, n_k), (loss_p, g_p, n_p) = out
+    assert n_k == want and n_p == {}, (n_k, n_p, want)
+    assert np.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-6 + 1e-5 * abs(loss_p)
+    if name == "gbt":
+        largest = max(w.abs().max().item() for w in g_p)
+        for k, g, w in zip(names, g_k, g_p):
+            if k in ("conv1.b", "conv2.b"):  # exact gradient 0 (the batch norm, the standardization)
+                assert max(g.abs().max().item(), w.abs().max().item()) < 1e-3 * largest
+            else:
+                assert torch.isfinite(g).all() and (
+                    torch.linalg.norm(g - w) <= 1e-2 * torch.linalg.norm(w)), k
+        return
+    assert _grads_close(g_k, g_p, torch.float32)
+    assert not _grads_close([torch.zeros_like(g) for g in g_p], g_p, torch.float32)
+
+
+def test_gat_steps_repeat_bit_for_bit(card):
+    """No atomics on GAT's path: two steps on the same draws give the same
+    loss and gradients, bit for bit (segment and bucketed)."""
+    pairs = make_flat_interactions(1000, 2000, 20_000, seed=2)
+    for backend in ("segment", "bucketed"):
+        graph = DeviceGraph(ArrayInteraction(pairs, 1000, 2000), backend=backend, device=card)
+        model = build("gat", default_config(**{"batch.size": 1024}))
+        init, _ = model.init(torch.Generator().manual_seed(3), graph)
+        batch = PairwiseBatch(*(torch.arange(64, device=card) for _ in range(3)),
+                              torch.ones(64, device=card))
+        runs = []
+        for _ in range(2):
+            p = {k: v.detach().clone().requires_grad_() for k, v in init.items()}
+            loss, _ = model.loss(p, {}, batch, graph, torch.Generator().manual_seed(6))
+            runs.append([loss] + list(torch.autograd.grad(loss, list(p.values()))))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*runs)), backend

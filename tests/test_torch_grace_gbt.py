@@ -7,8 +7,9 @@ parameters carried over and the same draws on both sides (the JAX package's
 ``jax.random.bernoulli`` and the port's ``augment.uniform`` replaced by one
 numpy stream: two edge dropouts over ``norm_adj_selfloops``, two feature
 masks): the init names and shapes, one loss and its gradients, the eval
-tables, on the dense backend; both raise on the bucketed backend, citing
-ROADMAP item 10. G-BT's learning rate over the first updates against
+tables, on the dense backend, and on the bucketed backend against the JAX
+package's bucketed graph (both put ``norm_adj_selfloops`` on the segment
+backend there: P1 over its row-sorted views in the port). G-BT's learning rate over the first updates against
 ``optax.cosine_decay_schedule``, its parameters against ``optax.adam`` under
 that schedule, and a run resumed from a checkpoint against a straight one.
 Then two epochs through ``GraphRecommender`` and the CLI. f32 rtol 1e-5 /
@@ -153,6 +154,13 @@ def graphs(sets):
             DeviceGraph(data, backend="dense", device="cpu"))
 
 
+@pytest.fixture(scope="module")
+def bucketed_graphs(sets):
+    jdata, data = sets
+    return (JaxDeviceGraph(jdata, backend="bucketed"),
+            DeviceGraph(data, backend="bucketed", device="cpu"))
+
+
 JAX_MODELS = {"grace": JaxGRACE, "gbt": JaxGBT}
 # G-BT's biases move every row by one constant, which the batch norm after
 # conv1 and Barlow Twins' standardization after conv2 take out again: their
@@ -175,6 +183,20 @@ def _atol(want, want64):
     ("gbt", {}), ("gbt", {"GBT.hidden": 24, "GBT.drop_edge": 0.5}),
 ])
 def test_step_matches_jax(graphs, monkeypatch, name, extra):
+    _step_against_jax(graphs, monkeypatch, name, extra)
+
+
+@pytest.mark.parametrize("name", ["grace", "gbt"])
+def test_step_matches_jax_on_bucketed(bucketed_graphs, monkeypatch, name):
+    """The same step where the graph is bucketed: ``norm_adj_selfloops`` on
+    the segment backend in both packages (the float64 reference runs the
+    JAX package's segment sums in float64)."""
+    jgraph, graph = bucketed_graphs
+    assert graph.norm_adj_selfloops.backend == jgraph.norm_adj_selfloops.backend == "segment"
+    _step_against_jax(bucketed_graphs, monkeypatch, name, {})
+
+
+def _step_against_jax(graphs, monkeypatch, name, extra):
     jgraph, graph = graphs
     cfg = {**SMALL, **extra}
     jm = JAX_MODELS[name](jax_default_config(**cfg))
@@ -229,10 +251,17 @@ def test_step_matches_jax(graphs, monkeypatch, name, extra):
 
 @pytest.mark.parametrize("name", ["grace", "gbt"])
 def test_bucketed_backend_raises_with_the_item(sets, name):
+    """Once these raised on the bucketed backend, citing the segment
+    backend's item; they run there now, with ``norm_adj_selfloops`` built
+    at init on the segment backend. What still raises there cites its item:
+    int8 propagation (item 15)."""
     _, data = sets
     graph = DeviceGraph(data, backend="bucketed", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build(name, default_config(**SMALL)).init(torch.Generator().manual_seed(0), graph)
+    params, _ = build(name, default_config(**SMALL)).init(torch.Generator().manual_seed(0), graph)
+    assert graph._norm_adj_selfloops is not None and graph.norm_adj_selfloops.backend == "segment"
+    assert graph.norm_adj_selfloops.seg is not None and params
+    with pytest.raises(NotImplementedError, match="item 15"):
+        DeviceGraph(data, backend="bucketed", compute_dtype="int8", device="cpu")
 
 
 def test_config_matches_jax():
@@ -335,3 +364,15 @@ def test_cli_trains_and_serves(sets, tmp_path, monkeypatch, capsys, name):
     assert cli.main(["serve", *args]) == 0
     (service,) = served
     assert np.isfinite(service.recommend_ids([0, 1], 5)[0]).all()
+
+
+@pytest.mark.parametrize("name", ["grace", "gbt"])
+def test_cli_trains_on_the_bucketed_backend(sets, tmp_path, capsys, name):
+    _, data = sets
+    write_dataset(str(tmp_path), data.training_data, data.test_data)
+    args = ["train", "--model", name, "--train", str(tmp_path / "train.txt"), "--test",
+            str(tmp_path / "test.txt"), "--set", "batch.size=512", "--set", "embedding.size=16",
+            "--set", "max.epoch=1", "--set", "graph.backend=bucketed", "--device", "cpu"]
+    assert cli.main(args) == 0
+    metrics = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert all(np.isfinite(v) for v in metrics.values())

@@ -1,14 +1,16 @@
-"""Recall@20 by epoch of the dense-path zoo on the hard set, in the port and
-in the JAX package, on the CPU, at ``chip_smoke.py``'s zoo settings (d=64,
-B=2048, Adam 1e-3, f32, each model at its defaults): how
-``chip_smoke.ZOO_EPOCHS`` and ``ZOO_GATES`` were chosen.
+"""Recall@20 by epoch of the dense-path zoo and the neighbour models
+(GraphSAGE, GAT) on the hard set, in the port and in the JAX package, on
+the CPU, at ``chip_smoke.py``'s zoo settings (d=64, B=2048, Adam 1e-3, f32,
+each model at its defaults): how ``chip_smoke.ZOO_EPOCHS``, ``ZOO_GATES``,
+``NEIGHBOR_EPOCHS`` and ``NEIGHBOR_GATES`` were chosen.
 
-    JAX_PLATFORMS=cpu python tools/zoo_gate_calibration.py [--models selfcf,buir]
+    JAX_PLATFORMS=cpu python tools/zoo_gate_calibration.py [--models selfcf,gat] [--epochs N]
 
 Prints one JSON line per model and package: the untrained tables' Recall@20,
 then the reading after each epoch and the epoch losses (the port's), for
-``chip_smoke.ZOO_EPOCHS[model]`` epochs. The two packages draw different
-masks and initial tables, so their readings agree in tier, not in digits.
+the model's epochs in ``chip_smoke.py`` (or ``--epochs``). The two packages
+draw different masks and initial tables, so their readings agree in tier,
+not in digits.
 """
 
 import argparse
@@ -58,22 +60,25 @@ def jax_run(name, epochs, train, test):
 
 
 def main():
-    from chip_smoke import ZOO_EPOCHS, ZOO_GATES, ZOO_MODELS
+    from chip_smoke import NEIGHBOR_EPOCHS, NEIGHBOR_GATES, ZOO_EPOCHS, ZOO_GATES, ZOO_MODELS
     from recommendation_tpu_torch.data.interaction import Interaction
     from recommendation_tpu_torch.data.synthetic import make_hard_dataset
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--models", default=",".join(ZOO_MODELS))
     ap.add_argument("--packages", default="port,jax")
+    ap.add_argument("--epochs", type=int, help="epochs of every run (default: chip_smoke's)")
     args = ap.parse_args()
+    epochs_of, gates = {**ZOO_EPOCHS, **NEIGHBOR_EPOCHS}, {**ZOO_GATES, **NEIGHBOR_GATES}
     train, test = make_hard_dataset()
     data = Interaction(train, test)
     for name in args.models.split(","):
+        epochs = args.epochs or epochs_of[name]
         for package in args.packages.split(","):
-            run = (port_run(name, ZOO_EPOCHS[name], data) if package == "port"
-                   else jax_run(name, ZOO_EPOCHS[name], train, test))
-            print(json.dumps({"model": name, "package": package, "epochs": ZOO_EPOCHS[name],
-                              "gate": ZOO_GATES[name], **run}), flush=True)
+            run = (port_run(name, epochs, data) if package == "port"
+                   else jax_run(name, epochs, train, test))
+            print(json.dumps({"model": name, "package": package, "epochs": epochs,
+                              "gate": gates[name], **run}), flush=True)
 
 
 if __name__ == "__main__":
