@@ -101,12 +101,15 @@ What it does, in order (any failed phase exits non-zero):
      (width 2d for SelfCF and BUIR) against the plain path's;
  12. the neighbour models and the segment backend: the segment kernels S1
      ``weighted_pull``, S2 ``segment_softmax_rows`` and its backward and
-     S3 ``segment_dot`` against their plain versions, twice bit for bit,
-     timed beside their bounds and, where one PyTorch call computes the
-     same function, ``torch.sparse.mm``, ``torch.sparse.softmax`` and its
-     backward (H = 1) and ``torch.sparse.sampled_addmm`` (S3 where the
-     rows are the nodes): at the clustered graph's bucket tables and the
-     hard set's bidirectional edges, H = 4 and 1, d = 64. On the clustered
+     S1 with the head dot ``weighted_pull_dot`` (S3 folded into S1 over
+     the transpose view: its ``dh`` and its dot) against their plain
+     versions, twice bit for bit, timed beside their bounds and, where one
+     PyTorch call computes the same function, ``torch.sparse.mm``,
+     ``torch.sparse.softmax`` and its backward (H = 1) and
+     ``torch.sparse.sampled_addmm`` (S3 where the rows are the nodes); the
+     fused call beside S1 over the transpose alone, the difference S3's
+     cost: at the clustered graph's bucket tables and the hard set's
+     bidirectional edges, H = 4 and 1, d = 64. On the clustered
      graph: GAT (bucketed attention) and GraphSAGE one step against their
      plain paths (``PlainGAT``: the plain S1 and S2 under autograd, in
      float64), then PROFILE_STEPS
@@ -170,8 +173,8 @@ from recommendation_tpu_torch.models import build
 from recommendation_tpu_torch.models.bgrl import PlainBucketedBGRL
 from recommendation_tpu_torch.models.buir import PlainBucketedBUIR
 from recommendation_tpu_torch.models.directau import PlainBucketedDirectAU
-from recommendation_tpu_torch.models.gat import PlainGAT
-from recommendation_tpu_torch.models.graphsage import PlainGraphSAGE, bidirectional_edges
+from recommendation_tpu_torch.models.gat import PlainGAT, attention_structure
+from recommendation_tpu_torch.models.graphsage import PlainGraphSAGE
 from recommendation_tpu_torch.models.gcl import PlainBucketedGCL
 from recommendation_tpu_torch.models.lightgcn import LightGCN
 from recommendation_tpu_torch.models.ncl import NCL
@@ -204,7 +207,6 @@ from recommendation_tpu_torch.ops.prop import (
     chain_mean_plain,
 )
 from recommendation_tpu_torch.ops.segment import (
-    segment_dot,
     segment_dot_plain,
     segment_softmax_rows,
     segment_softmax_rows_bwd,
@@ -212,6 +214,8 @@ from recommendation_tpu_torch.ops.segment import (
     segment_softmax_rows_plain,
     slot_rows,
     weighted_pull,
+    weighted_pull_dot,
+    weighted_pull_dot_plain,
     weighted_pull_plain,
 )
 from recommendation_tpu_torch.ops.topk import topk_agree
@@ -1695,7 +1699,8 @@ def sampler_seconds(graph, reps=3):
 
 # -- the sets a quality gate can fail: the clustered large set, the hard set ------
 
-SEGMENT_COUNTERS = (weighted_pull, segment_softmax_rows, segment_softmax_rows_bwd, segment_dot)
+SEGMENT_COUNTERS = (weighted_pull, weighted_pull_dot, segment_softmax_rows,
+                    segment_softmax_rows_bwd)
 ALL_COUNTERS = COUNTERS + (gather_rows, gather_sum) + SEGMENT_COUNTERS
 
 
@@ -2300,9 +2305,10 @@ def add_zoo_launches(chain_rows, gather_rows_, zoo, bucketed_zoo):
 
 # models whose profiled steps are counted by ``neighbor_launches``
 NEIGHBOR_PROFILED = ("gat", "graphsage", "grace", "gbt")
-# S1-S3 against their plain versions: the kernels sum a row's slots (or a
-# head's columns) in slot order, the plain versions in their own; rtol, and
-# an atol of this share of the plain result's largest entry
+# S1, S2 and S1 with the head dot against their plain versions: the kernels
+# sum a row's slots (or a head's columns) in slot order, the plain versions
+# in their own; rtol, and an atol of this share of the plain result's
+# largest entry
 SEG_TOL = (1e-5, 1e-5)
 # GAT's gradients to a_src and a_dst sum the softmax's backward, whose sum
 # over a destination's edges is exactly 0: ill-conditioned in f32
@@ -2320,17 +2326,18 @@ BACKEND_RECALL_GAP = 0.004
 
 def neighbor_launches(model_name, backend, n_layers):
     """(per training step, per evaluation) launches of the segment kernels,
-    P1 and K7: GAT's two attention layers (forward S2 and S1; backward S3,
-    S2's backward, S1 over the transpose and two P1 per-row sums; on the
-    bucket rows K7 once forward and three times backward a layer);
+    P1 and K7: GAT's two attention layers (forward S2 and S1; backward S1
+    with the head dot over the transpose, S2's backward and two P1 per-row
+    sums; on the bucket rows K7 once forward and three times backward a
+    layer);
     GraphSAGE's L masked means (P1; the first takes no backward, its input
     being the fixed features); LightGCN's, NCL's and the square models' L
     segment matmuls both ways (their evaluation forward only); GRACE's and
     G-BT's two views of two segment matmuls both ways, where the graph is
     bucketed (their evaluation on the segment view once per layer)."""
     if model_name == "gat":
-        step = {"weighted_pull": 4, "segment_softmax_rows": 2, "segment_softmax_rows_bwd": 2,
-                "segment_dot": 2, "gather_sum": 4}
+        step = {"weighted_pull": 2, "weighted_pull_dot": 2, "segment_softmax_rows": 2,
+                "segment_softmax_rows_bwd": 2, "gather_sum": 4}
         per_eval = {"weighted_pull": 2, "segment_softmax_rows": 2}
         if backend == "bucketed":
             step["gather_rows"], per_eval["gather_rows"] = 8, 2
@@ -2359,32 +2366,44 @@ def plain_segment_matmul():
 
 def check_seg(name, fn, plain):
     """A segment kernel twice (bit for bit) and against its plain version at
-    SEG_TOL. Returns the largest absolute difference."""
-    (got,) = same_bits(name, lambda: (fn(),))
-    want = plain()
+    SEG_TOL, each of its outputs (``fn`` returns a tensor or a tuple).
+    Returns the largest absolute difference of each output."""
+    def outputs(f):
+        got = f()
+        return got if isinstance(got, tuple) else (got,)
+
+    got = same_bits(name, lambda: outputs(fn))
+    want = outputs(plain)
     torch.cuda.synchronize()
     rtol, atol = SEG_TOL
-    scale = want.abs().max().item()
-    err = (got - want).abs().max().item()
-    if not (scale > 0 and torch.isfinite(got).all()
-            and torch.allclose(got, want, rtol=rtol, atol=atol * scale)):
-        raise RuntimeError(f"{name}: kernel disagrees with plain (max abs err {err})")
-    return err
+    errs = []
+    for k, (a, b) in enumerate(zip(got, want)):
+        scale = b.abs().max().item()
+        errs.append((a - b).abs().max().item())
+        if not (scale > 0 and torch.isfinite(a).all()
+                and torch.allclose(a, b, rtol=rtol, atol=atol * scale)):
+            raise RuntimeError(f"{name}: output {k} disagrees with plain (max abs err {errs[-1]})")
+    return errs if len(errs) > 1 else errs[0]
 
 
-def segment_kernel_shape(label, row_ptr, idx, dst, live, n_src, schedule, heads):
-    """S1, S2 (forward, backward) and S3 at one structure (a destination
-    view or the bucket rows) and H heads of EMB, on the random logits,
-    weights and cotangents the attention would give them: each against its
-    plain version and itself, timed with its plain version, a library call
-    where one computes the same function (H = 1: ``torch.sparse.mm`` over
-    the weights as a CSR matrix for S1, ``torch.sparse.softmax`` over the
-    live slots for S2 and its backward
+def segment_kernel_shape(label, st, n_src, heads):
+    """S1, S2 (forward, backward) and S1 with the head dot at one GAT
+    structure ``st`` (``models/gat.py::Attention``: a destination view or
+    the bucket rows, with its transpose view) and H heads of EMB, on the
+    random logits, weights and cotangents the attention would give them:
+    each against its plain version and itself, timed with its plain
+    version, a library call where one computes the same function (H = 1:
+    ``torch.sparse.mm`` over the weights as a CSR matrix for S1,
+    ``torch.sparse.softmax`` over the live slots for S2 and its backward
     ``torch._sparse_softmax_backward_data``; where the rows are the
     destination nodes, ``torch.sparse.sampled_addmm`` over the view's
-    pattern, batched over the heads, for S3), and its bound from the bytes it must move, each
-    input read once (the distinct source and destination rows, not one row
-    a slot)."""
+    pattern, batched over the heads, for S3), and its bound from the bytes
+    it must move, each input read once (the distinct source and destination
+    rows, not one row a slot). The fused call is timed beside S1 over the
+    transpose alone (its weights gathered beforehand); the difference is
+    S3's row, whose bound is what the fused call moves beyond S1's: the
+    source rows once and the [S, H] dot written."""
+    row_ptr, idx, dst, live, schedule = st.row_ptr, st.idx, st.dst, st.live, st.schedule
     n_slots, n_rows = idx.numel(), row_ptr.numel() - 1
     rng = np.random.default_rng(heads)
 
@@ -2397,7 +2416,6 @@ def segment_kernel_shape(label, row_ptr, idx, dst, live, n_src, schedule, heads)
     att = segment_softmax_rows_plain(e, row_ptr, live)
     live_idx = idx if live is None else idx[live]
     src_rows = torch.unique(live_idx).numel()
-    dst_rows = torch.unique(dst).numel()
     width = heads * EMB * 4
     out = {}
     lib = None
@@ -2412,6 +2430,8 @@ def segment_kernel_shape(label, row_ptr, idx, dst, live, n_src, schedule, heads)
         "ms": time_ms(lambda: weighted_pull(x, att, idx, row_ptr, schedule)),
         "plain_ms": time_ms(lambda: weighted_pull_plain(x, att, idx, row_ptr)),
         "library_ms": lib,
+        "per_slot_ms": bytes_bound(n_slots * (4 + 4 * heads + width) + (n_rows + 1) * 8
+                                   + n_rows * width)[0],
         "bound": bytes_bound(n_slots * (4 + 4 * heads) + (n_rows + 1) * 8 + src_rows * width
                              + n_rows * width)}
     lib = lib_bwd = None
@@ -2444,6 +2464,43 @@ def segment_kernel_shape(label, row_ptr, idx, dst, live, n_src, schedule, heads)
         "plain_ms": time_ms(lambda: segment_softmax_rows_bwd_plain(att, g, row_ptr)),
         "library_ms": lib_bwd,
         "bound": bytes_bound(n_slots * 12 * heads + (n_rows + 1) * 8)}
+
+    # the backward's pull over the transpose view: alone (weights gathered
+    # beforehand, as the backward did before the fold), then with the dot
+    t_row_ptr, t_idx, fpos, t_node, t_schedule = (st.t_row_ptr, st.t_idx, st.t_fpos, st.t_node,
+                                                  st.t_schedule)
+    t_slots, t_rows = t_idx.numel(), t_row_ptr.numel() - 1
+    t_live = fpos >= 0
+    wt = torch.where(t_live[:, None], att[fpos.long().clamp(min=0)],
+                     torch.zeros((), device="cuda")).contiguous()
+    t_nodes = slot_rows(t_row_ptr)
+    if t_node is not None:
+        t_nodes = t_node.long()[t_nodes]
+    s1t_bytes = (t_slots * (4 + 4 * heads) + (t_rows + 1) * 8
+                 + torch.unique(t_idx[t_live]).numel() * width + t_rows * width)
+    dot_bytes = torch.unique(t_nodes[t_live]).numel() * width + n_slots * heads * 4
+    s1t_ms = time_ms(lambda: weighted_pull(gy, wt, t_idx, t_row_ptr, t_schedule))
+
+    def fused():
+        return weighted_pull_dot(gy, att, t_idx, t_row_ptr, fpos, x, t_node, t_schedule)
+
+    dh_err, dot_err = check_seg(
+        f"S1 with the head dot {label}", fused,
+        lambda: weighted_pull_dot_plain(gy, att, t_idx, t_row_ptr, fpos, x, t_node))
+    reached = torch.zeros(n_slots, dtype=torch.bool, device="cuda")
+    reached[fpos[t_live].long()] = True
+    if int(t_live.sum()) != int(reached.sum()) or fused()[1][~reached].any():
+        raise RuntimeError(f"S1 with the head dot {label}: the live slots do not map one to "
+                           f"one, or a forward slot no live slot reaches is not 0")
+    fused_ms = time_ms(fused)
+    out["weighted_pull_dot"] = {
+        "max_abs_err": max(dh_err, dot_err), "dh_max_abs_err": dh_err,
+        "dot_max_abs_err": dot_err, "ms": fused_ms,
+        "plain_ms": time_ms(lambda: weighted_pull_dot_plain(gy, att, t_idx, t_row_ptr, fpos, x,
+                                                            t_node)),
+        "library_ms": None, "s1_transpose_ms": s1t_ms,
+        "s1_transpose_bound_ms": bytes_bound(s1t_bytes)[0],
+        "bound": bytes_bound(s1t_bytes + dot_bytes)}
     lib = lib_err = None
     if n_rows == n_src and torch.equal(dst.long(), slot_rows(row_ptr)):
         # the rows are the destination nodes: a sampled product over the
@@ -2462,12 +2519,10 @@ def segment_kernel_shape(label, row_ptr, idx, dst, live, n_src, schedule, heads)
         lib_err = (sddmm().values().t() - segment_dot_plain(gy, dst, x, idx, heads)).abs().max()
         lib_err = lib_err.item()
     out["segment_dot"] = {
-        "max_abs_err": check_seg(f"S3 {label}", lambda: segment_dot(gy, dst, x, idx, heads),
-                                 lambda: segment_dot_plain(gy, dst, x, idx, heads)),
-        "ms": time_ms(lambda: segment_dot(gy, dst, x, idx, heads)),
+        "max_abs_err": dot_err, "ms": fused_ms - s1t_ms,
         "plain_ms": time_ms(lambda: segment_dot_plain(gy, dst, x, idx, heads)),
         "library_ms": lib, "library_max_abs_err": lib_err,
-        "bound": bytes_bound(n_slots * (8 + 4 * heads) + (src_rows + dst_rows) * width)}
+        "fused_into": "weighted_pull_dot", "bound": bytes_bound(dot_bytes)}
     for row in out.values():
         row["bound_ms"], row["bound_by"] = row.pop("bound")
         row["shape"] = [n_rows, n_slots, heads, EMB]
@@ -2475,20 +2530,13 @@ def segment_kernel_shape(label, row_ptr, idx, dst, live, n_src, schedule, heads)
 
 
 def segment_kernel_shapes(label, graph):
-    """``segment_kernel_shape`` at H = 4 and 1 on the graph's GAT structure:
-    on the bucketed backend the bucket rows of ``norm_adj.pull`` (dead slots
-    masked), else the destination view of ``bidirectional_edges``."""
-    if graph.backend == "bucketed":
-        pull = graph.norm_adj.pull
-        aux = graph.ensure_gat_aux()
-        args = (pull.row_ptr, pull.idx, aux["slot_node"], (pull.edge >= 0) & (pull.val != 0),
-                graph.n_nodes, pull.schedule)
-    else:
-        _, by_dst = graph.bipartite_views()
-        mask = bidirectional_edges(graph)[2] > 0
-        args = (by_dst.row_ptr, by_dst.idx, by_dst.slot_row, mask[by_dst.perm], graph.n_nodes,
-                by_dst.schedule)
-    return {f"{label}_h{h}": segment_kernel_shape(f"{label} H={h}", *args, h) for h in (4, 1)}
+    """``segment_kernel_shape`` at H = 4 and 1 on the graph's GAT structure
+    (``attention_structure``): on the bucketed backend the bucket rows of
+    ``norm_adj.pull`` and ``pull_t`` (dead slots masked), else the views of
+    ``bidirectional_edges``."""
+    st = attention_structure(graph)
+    return {f"{label}_h{h}": segment_kernel_shape(f"{label} H={h}", st, graph.n_nodes, h)
+            for h in (4, 1)}
 
 
 def segment_view_pull(graph):
@@ -2645,7 +2693,7 @@ def hard_neighbor_phase(data, f32, bucketed):
 
 def clustered_neighbor_phase(data, graph):
     """The clustered graph (bucketed, f32, d=64, B=8192): the segment
-    kernels at its bucket tables; GAT (S1-S3 and P1 over the bucket rows, K7)
+    kernels at its bucket tables; GAT (S1, S2 and P1 over the bucket rows, K7)
     and GraphSAGE (P1 over the graph's cached views) one step against their
     plain paths, then PROFILE_STEPS profiled steps each; then LightGCN on a
     segment graph of the same data (P1 over a 2M-slot view): P1 over its
@@ -2671,38 +2719,46 @@ def clustered_neighbor_phase(data, graph):
 
 SEGMENT_SOURCES = {
     "weighted_pull": "recommendation_tpu/models/gat.py:59 (XLA's segment_sum, not a TPU kernel)",
+    "weighted_pull_dot": "recommendation_tpu/models/gat.py:191 (the custom VJP's transpose pull, "
+                         "XLA, with the gather-dot of :157 folded in; not a TPU kernel)",
     "segment_softmax_rows": "recommendation_tpu/models/gat.py:47 (XLA's segment_max and "
                             "segment_sum, not a TPU kernel)",
     "segment_softmax_rows_bwd": "recommendation_tpu/models/gat.py:162 (the custom VJP's "
                                 "softmax backward, XLA; not a TPU kernel)",
-    "segment_dot": "recommendation_tpu/models/gat.py:158 (the custom VJP's gather-dot, XLA; "
+    "segment_dot": "recommendation_tpu/models/gat.py:157 (the custom VJP's gather-dot, XLA; "
                    "not a TPU kernel)",
 }
 
 
 def segment_kernel_rows(hard, clustered, card):
-    """The kernels line's rows of S1, S2 (forward, backward) and S3: the
-    clustered bucket tables at H = 4 (GAT's first layer there) as the row's
-    figures, every other measured shape beside them; launches from the
-    neighbour models' runs (the hard set's trained GraphSAGE and GAT, the
-    clustered GAT's profiled steps)."""
+    """The kernels line's rows of S1, S1 with the head dot, S2 (forward,
+    backward) and S3: the clustered bucket tables at H = 4 (GAT's first
+    layer there) as the row's figures, every other measured shape beside
+    them; launches from the neighbour models' runs (the hard set's trained
+    GraphSAGE and GAT, the clustered GAT's profiled steps). S3 runs inside
+    S1's transpose pull: its row's time is the fused call's less S1's
+    alone, its launches the fused call's."""
     shapes = {**clustered["kernels"], **hard["kernels"]}
     rows = []
     for name, src in SEGMENT_SOURCES.items():
         main = shapes["clustered_h4"][name]
+        counter = main.get("fused_into", name)
         row = {"name": name, "route": "cuda", "source": "recommendation_tpu_torch/csrc/segment.cu",
                "replaces": src, "timed": "clustered bucket rows, H=4, d=64", "launches": 0,
                **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                        "library_ms", "shape")},
                "shapes": {label: s[name] for label, s in shapes.items()
                           if label != "clustered_h4"}, "card": card}
+        if counter != name:
+            row["fused_into"] = f"{counter} (S1's transpose pull, PR 10)"
+            row["launches_of"] = counter
         row["max_abs_err"] = max(s[name]["max_abs_err"] for s in shapes.values())
         for run in hard["train"]:
-            n = run["launches"][name]
+            n = run["launches"].get(counter, 0)
             if n:
                 row["launches"] += n
                 row[f"launches_hard_{run['model']}"] = n
-        n = clustered["gat"]["profile"]["kernel_launches"][name]
+        n = clustered["gat"]["profile"]["kernel_launches"].get(counter, 0)
         row["launches"] += n
         row["launches_clustered_gat_profile"] = n
         rows.append(row)

@@ -53,7 +53,9 @@
 //     shared memory with cp.async. Blocks are persistent and walk the tiles
 //     with the grid's stride, the next STAGES - 1 tiles' copies in flight
 //     while one sums, so no item waits a round trip to memory for its
-//     indices before its gathers start.
+//     indices before its gathers start. The walk, the row loads and the
+//     split rows' counter are csrc/pull_tiles.cuh's, shared with S1
+//     (csrc/segment.cu).
 //   * A group of lanes per item: as many lanes as a row needs for 16-byte
 //     loads, 16 at d = 64 in f32, so a warp carries two items (neighbours
 //     in a bucket, so of one length) and walks them in step. A group keeps
@@ -72,7 +74,7 @@
 
 #include <type_traits>
 
-#include "cp_async.cuh"
+#include "pull_tiles.cuh"
 
 namespace {
 
@@ -82,21 +84,7 @@ constexpr int UNROLL = 8;  // source rows in flight per item
 constexpr int STAGES = 3;  // tiles in shared memory: the one summed, two in flight
 constexpr int CHUNK = 128; // slots per work item of a split row (ops/gather.py::CHUNK)
 
-// VEC consecutive elements of a gathered row, widened to f32: 16-byte loads
-// where VEC fills them, else one element at a time
-template <int VEC>
-__device__ __forceinline__ void load_row(const float* p, float (&v)[VEC]) {
-    if constexpr (VEC % 4 == 0) {
-#pragma unroll
-        for (int k = 0; k < VEC; k += 4) {
-            const float4 t = __ldg(reinterpret_cast<const float4*>(p + k));
-            v[k] = t.x; v[k + 1] = t.y; v[k + 2] = t.z; v[k + 3] = t.w;
-        }
-    } else {
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) v[k] = __ldg(p + k);
-    }
-}
+using ::load_row;  // the f32 rows' (pull_tiles.cuh), beside the bf16 overload below
 
 // bf16 is carried as its 16 bits; widening is a shift into the high half
 template <int VEC>
@@ -130,33 +118,6 @@ __device__ __forceinline__ void load_stream(const float* p, float (&v)[VEC]) {
     } else {
 #pragma unroll
         for (int k = 0; k < VEC; ++k) v[k] = __ldcs(p + k);
-    }
-}
-
-// VEC f32 partial sums written by other warps: through L2, past L1
-template <int VEC>
-__device__ __forceinline__ void load_partial(const float* p, float (&v)[VEC]) {
-    if constexpr (VEC % 4 == 0) {
-#pragma unroll
-        for (int k = 0; k < VEC; k += 4) {
-            const float4 t = __ldcg(reinterpret_cast<const float4*>(p + k));
-            v[k] = t.x; v[k + 1] = t.y; v[k + 2] = t.z; v[k + 3] = t.w;
-        }
-    } else {
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) v[k] = __ldcg(p + k);
-    }
-}
-
-template <int VEC>
-__device__ __forceinline__ void store_row(float* o, const float (&v)[VEC]) {
-    if constexpr (VEC % 4 == 0) {
-#pragma unroll
-        for (int k = 0; k < VEC; k += 4)
-            *reinterpret_cast<float4*>(o + k) = make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
-    } else {
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) o[k] = v[k];
     }
 }
 
@@ -231,13 +192,6 @@ struct Tile {
     float val[HAS_VAL ? SLOTS : 1];
 };
 
-// Where tile t's copies come from: its slot range [lo, hi) and its rows
-// [r0, r1], read a stage ahead of the copy
-struct TileRange {
-    long long lo = 0, hi = 0;
-    int r0 = 0, r1 = 0;
-};
-
 // Stage a tile into shared memory: its descriptors, its rows' scales and
 // its slots, one 4-byte copy a slot
 template <int LANES, bool HAS_VAL>
@@ -260,8 +214,8 @@ __device__ __forceinline__ void stage_tile(const Sum& a, int t, const TileRange&
 }
 
 // LANES lanes per item (16 or 32). Persistent blocks walk the tiles with
-// the grid's stride; the next STAGES - 1 tiles' copies are in flight while
-// one sums.
+// the grid's stride (pull_tiles.cuh::walk_tiles); the next STAGES - 1
+// tiles' copies are in flight while one sums.
 template <typename T, int VEC, int LANES, bool HAS_VAL, bool HAS_ADD>
 __global__ void __launch_bounds__(WARPS * 32)
 gather_sum_kernel(const Sum a) {
@@ -274,37 +228,10 @@ gather_sum_kernel(const Sum a) {
     const int nvec = a.d / VEC;
     const T* src = static_cast<const T*>(a.src);
     const int n_tiles = (a.n_work + TileT::ITEMS - 1) / TileT::ITEMS;
-    auto range = [&](int t) {
-        TileRange rg;
-        if (t < n_tiles) {
-            const int first = t * TileT::ITEMS, last = min(first + TileT::ITEMS, a.n_work) - 1;
-            rg.lo = a.work_start[first];
-            rg.hi = a.work_start[last + 1];
-            rg.r0 = a.work[first].x;
-            rg.r1 = a.work[last].x;
-        }
-        return rg;
-    };
-
-    int t = blockIdx.x;
-    if (t >= n_tiles) return;
-    const int step = gridDim.x;
-#pragma unroll
-    for (int k = 0; k < STAGES - 1; ++k) {
-        const int tk = t + k * step;
-        if (tk < n_tiles) stage_tile(a, tk, range(tk), bufs[k]);
-        cp_async_commit();
-    }
-    TileRange next = range(t + (STAGES - 1) * step);
-    for (int it = 0; t < n_tiles; t += step, ++it) {
-        const int tn = t + (STAGES - 1) * step;
-        if (tn < n_tiles) stage_tile(a, tn, next, bufs[(it + STAGES - 1) % STAGES]);
-        cp_async_commit();
-        next = range(tn + step);  // read now, staged next round
-        cp_async_wait<STAGES - 1>();
-        __syncthreads();  // tile t is in
-
-        const TileT& buf = bufs[it % STAGES];
+    auto range = [&](int t) { return tile_range(a.work, a.work_start, a.n_work, TileT::ITEMS, t); };
+    auto stage = [&](int t, const TileRange& rg, int b) { stage_tile(a, t, rg, bufs[b]); };
+    auto body = [&](int t, int b) {
+        const TileT& buf = bufs[b];
         const int count = min(TileT::ITEMS, a.n_work - t * TileT::ITEMS);
         for (int k = 0; k < 2; ++k) {
             const int i = g + k * TileT::GROUPS;
@@ -365,36 +292,27 @@ gather_sum_kernel(const Sum a) {
                 }
             }
 
-            if (valid && pieces > 1) {
-                // a split row: the group that finishes its last piece adds
-                // the pieces' partial sums in piece order; every lane's
-                // partial is fenced before the count moves
-                __threadfence();
-                __syncwarp(gmask);
-                int done = 0;
-                if (l == 0) done = atomicAdd(a.count + part, 1);
-                done = __shfl_sync(gmask, done, lane / LANES * LANES);
-                if (done == pieces - 1) {
-                    __threadfence();
-                    for (int c0 = 0; c0 < nvec; c0 += LANES) {
-                        const int cv = c0 + l;
-                        if (cv >= nvec) break;
-                        const size_t col = static_cast<size_t>(cv) * VEC;
-                        float acc[VEC], p[VEC];
-                        load_partial<VEC>(a.partial + static_cast<size_t>(part) * a.d + col, acc);
-                        for (int c = 1; c < pieces; ++c) {
-                            load_partial<VEC>(a.partial + static_cast<size_t>(part + c) * a.d + col, p);
+            // a split row: the group that finishes its last piece adds the
+            // pieces' partial sums in piece order and runs the epilogue
+            if (valid && pieces > 1 && last_piece(a.count, part, pieces, gmask, l, lane / LANES * LANES)) {
+                for (int c0 = 0; c0 < nvec; c0 += LANES) {
+                    const int cv = c0 + l;
+                    if (cv >= nvec) break;
+                    const size_t col = static_cast<size_t>(cv) * VEC;
+                    float acc[VEC], p[VEC];
+                    load_partial<VEC>(a.partial + static_cast<size_t>(part) * a.d + col, acc);
+                    for (int c = 1; c < pieces; ++c) {
+                        load_partial<VEC>(a.partial + static_cast<size_t>(part + c) * a.d + col, p);
 #pragma unroll
-                            for (int q = 0; q < VEC; ++q) acc[q] = __fadd_rn(acc[q], p[q]);
-                        }
-                        finish<VEC>(a, r, col, acc, post, fin);
+                        for (int q = 0; q < VEC; ++q) acc[q] = __fadd_rn(acc[q], p[q]);
                     }
+                    finish<VEC>(a, r, col, acc, post, fin);
                 }
             }
             __syncwarp();  // the groups meet again before the next item's shuffle
         }
-        __syncthreads();  // tile t's stage is read before it is refilled
-    }
+    };
+    walk_tiles<STAGES>(n_tiles, range, stage, body);
 }
 
 bool aligned16(const void* p) { return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }

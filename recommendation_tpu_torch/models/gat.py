@@ -27,11 +27,13 @@ and the map between their slots):
 ``AttentionPull`` is its autograd Function: the logits by gathers, S2 over
 the forward view (the masked softmax), S1 for the aggregation, and a
 backward in which every reverse flow is a gather or an ordered sum, as the
-JAX package's custom VJP (`gat.py:138-211`): ``datt`` by S3 (each slot's
-cotangent row dotted with its source row), S2's backward, ``dα_dst`` the
-per-row sums (P1 over the forward view), ``dh`` S1 over the transpose view
-with the weights gathered by slot, ``dα_src`` P1 over the transpose view.
-No atomics: a step repeats bit for bit. ``attention_plain`` computes the
+JAX package's custom VJP (`gat.py:138-211`): one launch of S1 over the
+transpose view gives ``dh`` (each slot's weight read at its forward slot)
+and ``datt`` (S3 folded in: each gathered cotangent row dotted with the
+row's source row, the same rows the JAX package gathers twice,
+`gat.py:157,191`), then S2's backward, ``dα_dst`` the per-row sums (P1
+over the forward view) and ``dα_src`` P1 over the transpose view. No
+atomics: a step repeats bit for bit. ``attention_plain`` computes the
 same with the plain versions under autograd (the reference), and
 ``gat_layer_bucketed`` with ``bucketed_row_nodes`` keeps the JAX package's
 per-bucket dense softmax as the oracle.
@@ -53,12 +55,12 @@ from recommendation_tpu_torch.models.registry import register
 from recommendation_tpu_torch.ops.gather import gather_rows, gather_sum
 from recommendation_tpu_torch.ops.rows import take_rows
 from recommendation_tpu_torch.ops.segment import (
-    segment_dot,
     segment_softmax_rows,
     segment_softmax_rows_bwd,
     segment_softmax_rows_plain,
     transpose_map,
     weighted_pull,
+    weighted_pull_dot,
     weighted_pull_plain,
 )
 from recommendation_tpu_torch.weights import flatten_tree
@@ -72,9 +74,12 @@ class Attention:
     i32 [S] (0..S−1) and the pull schedule; ``out_pos`` i32 [N] each node's
     row (None where the rows are the nodes). Transpose view: ``t_row_ptr``,
     ``t_idx`` (each slot's destination node, whose cotangent it pulls),
-    ``t2f`` i32 (its forward slot), ``t_live``, ``t_schedule``,
-    ``t_out_pos``. ``edge_perm`` i64 [S]: each forward slot's position in
-    the order the dropout is drawn in (None: slot order)."""
+    ``t2f`` i32 (its forward slot), ``t_live``, ``t_fpos`` (``t2f`` where
+    live, else -1: the live slots of the two views map one to one),
+    ``t_schedule``, ``t_out_pos``, ``t_node`` i32 [rows] each row's
+    source node (None where the rows are the nodes). ``edge_perm`` i64
+    [S]: each forward slot's position in the order the dropout is drawn in
+    (None: slot order)."""
 
     row_ptr: torch.Tensor
     idx: torch.Tensor
@@ -87,8 +92,10 @@ class Attention:
     t_idx: torch.Tensor
     t2f: torch.Tensor
     t_live: torch.Tensor
+    t_fpos: torch.Tensor
     t_schedule: Tuple
     t_out_pos: Optional[torch.Tensor]
+    t_node: Optional[torch.Tensor]
     edge_perm: Optional[torch.Tensor]
     n_draw: int  # rows of the dropout draw
 
@@ -100,12 +107,19 @@ def segment_attention(graph) -> Attention:
     by_src, by_dst = graph.bipartite_views()
     mask = torch.cat([graph.edge_valid, graph.edge_valid]) > 0
     live = mask[by_dst.perm]
+    t2f = transpose_map(by_dst, by_src).to(torch.int32)
+    t_live = mask[by_src.perm]
     return Attention(row_ptr=by_dst.row_ptr, idx=by_dst.idx, dst=by_dst.slot_row, live=live,
                      ident=by_dst.ident, schedule=by_dst.schedule, out_pos=None,
-                     t_row_ptr=by_src.row_ptr, t_idx=by_src.idx,
-                     t2f=transpose_map(by_dst, by_src).to(torch.int32),
-                     t_live=mask[by_src.perm], t_schedule=by_src.schedule, t_out_pos=None,
-                     edge_perm=by_dst.perm, n_draw=int(mask.shape[0]))
+                     t_row_ptr=by_src.row_ptr, t_idx=by_src.idx, t2f=t2f, t_live=t_live,
+                     t_fpos=_live_pos(t2f, t_live), t_schedule=by_src.schedule,
+                     t_out_pos=None, t_node=None, edge_perm=by_dst.perm,
+                     n_draw=int(mask.shape[0]))
+
+
+def _live_pos(t2f: torch.Tensor, t_live: torch.Tensor) -> torch.Tensor:
+    """i32: each transpose slot's forward slot, -1 where it is dead."""
+    return torch.where(t_live, t2f, torch.full_like(t2f, -1)).contiguous()
 
 
 def _real_slots(csr) -> torch.Tensor:
@@ -118,13 +132,18 @@ def _real_slots(csr) -> torch.Tensor:
 def bucketed_attention(csr, csr_t, aux) -> Attention:
     """The bucketed path's structure: the rows of ``csr`` (A's tables) and
     of ``csr_t`` (Aᵀ's), with ``aux`` the slot maps
-    (``DeviceGraph.ensure_gat_aux``)."""
+    (``DeviceGraph.ensure_gat_aux``). A transpose row's source node is
+    ``csr_t.node_of_row`` (``gather_pos``'s inverse, built with the
+    tables). The live slots map one to one through ``tpos`` because the
+    normalized adjacency is symmetric."""
+    t_live = _real_slots(csr_t)
     return Attention(row_ptr=csr.row_ptr, idx=csr.idx, dst=aux["slot_node"],
                      live=_real_slots(csr), ident=torch.arange(csr.n_slots, dtype=torch.int32,
                                                                device=csr.idx.device),
                      schedule=csr.schedule, out_pos=csr.gather_pos, t_row_ptr=csr_t.row_ptr,
-                     t_idx=csr_t.idx, t2f=aux["tpos"], t_live=_real_slots(csr_t),
-                     t_schedule=csr_t.schedule, t_out_pos=csr_t.gather_pos, edge_perm=None,
+                     t_idx=csr_t.idx, t2f=aux["tpos"], t_live=t_live,
+                     t_fpos=_live_pos(aux["tpos"], t_live), t_schedule=csr_t.schedule,
+                     t_out_pos=csr_t.gather_pos, t_node=csr_t.node_of_row, edge_perm=None,
                      n_draw=csr.n_slots)
 
 
@@ -143,7 +162,8 @@ def _to_nodes(y: torch.Tensor, pos: Optional[torch.Tensor]) -> torch.Tensor:
 class AttentionPull(torch.autograd.Function):
     """``out[n] = Σ_s att[s] · keep[s] · h[idx[s]]`` over node n's slots,
     ``att`` the masked softmax of the logits: S2, S1 (and K7 on the
-    bucketed path) forward; S3, S2's backward, S1 and P1 (and K7) backward.
+    bucketed path) forward; S1 with the head dot over the transpose view,
+    S2's backward and P1 (and K7) backward.
     ``keep`` f32 [S, H] carries the dropout scale (None: no dropout); it
     and the structure take no gradient."""
 
@@ -161,9 +181,10 @@ class AttentionPull(torch.autograd.Function):
     def backward(ctx, g):
         h, att, w, z, keep = ctx.saved_tensors
         st, neg_slope = ctx.args
-        heads = h.shape[1]
         g = g.contiguous()
-        datt = segment_dot(g, st.dst, h, st.idx, heads)
+        dh_rows, datt = weighted_pull_dot(g, w, st.t_idx, st.t_row_ptr, st.t_fpos, h,
+                                          st.t_node, st.t_schedule)
+        dh = _to_nodes(dh_rows, st.t_out_pos)
         if keep is not None:
             datt = datt * keep
         de = segment_softmax_rows_bwd(att, datt, st.row_ptr)
@@ -171,9 +192,6 @@ class AttentionPull(torch.autograd.Function):
         dz = torch.where(st.live[:, None], de * slope, torch.zeros_like(de)).contiguous()
         da_dst = _to_nodes(gather_sum(dz, st.ident, st.row_ptr, schedule=st.schedule),
                            st.out_pos)
-        wt = torch.where(st.t_live[:, None], w[st.t2f.long()], torch.zeros((), device=w.device))
-        dh = _to_nodes(weighted_pull(g, wt.contiguous(), st.t_idx, st.t_row_ptr, st.t_schedule),
-                       st.t_out_pos)
         da_src = _to_nodes(gather_sum(dz, st.t2f, st.t_row_ptr, val=st.t_live.float(),
                                       schedule=st.t_schedule), st.t_out_pos)
         return dh, da_src, da_dst, None, None, None

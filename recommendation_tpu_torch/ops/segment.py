@@ -18,19 +18,26 @@ Kernels, ``csrc/segment.cu`` (built for ``sm_90a`` at first use):
 
   * S1 ``weighted_pull(x, w, idx, row_ptr, schedule)``:
     ``y[r, h, :] = Σ_s w[s, h] · x[idx[s], h, :]``, the multi-head pull
-    (GAT's aggregation and its ``dh``);
+    (GAT's aggregation);
+  * S1 with the head dot ``weighted_pull_dot(g, w, idx, row_ptr, fpos,
+    hsrc, node, schedule)``: the same pull over a transpose view with the
+    weights read at each slot's forward slot ``fpos`` (GAT's ``dh``), and
+    S3 folded in: ``dot[fpos[t], h] = g[idx[t], h] · hsrc[node(r), h]``,
+    S1's weight gradient, each gathered row dotted with its row's source
+    row as it arrives;
   * S2 ``segment_softmax_rows`` / ``segment_softmax_rows_bwd``: the
     softmax of each row's live slots per head, and its backward
-    ``att · (g − Σ_row att · g)``;
-  * S3 ``segment_dot(a, ia, b, ib)``: ``out[s, h] = a[ia[s], h] · b[ib[s], h]``,
-    S1's weight gradient, a gather and a dot with no scatter.
+    ``att · (g − Σ_row att · g)``.
+
+``segment_dot(a, ia, b, ib)`` (``out[s, h] = a[ia[s], h] · b[ib[s], h]``)
+stays as the reference of the folded dot: it runs on CPU tensors only.
 
 The single-head sums (the segment matmul, the masked mean, the per-row and
 per-source sums of GAT's logit gradients) are P1 (``ops/gather.py::
 gather_sum``) over a view: it sums a row's slots in slot order too.
 
-For CUDA tensors each wrapper launches its kernel or raises; CPU tensors
-run the plain version. Each counts its launches in ``.launches``.
+For CUDA tensors each kernel's wrapper launches its kernel or raises; CPU
+tensors run the plain version. Each counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -167,6 +174,26 @@ def segment_dot_plain(a: torch.Tensor, ia: torch.Tensor, b: torch.Tensor, ib: to
     return torch.sum(ah[ia.long()] * bh[ib.long()], dim=2)
 
 
+def weighted_pull_dot_plain(g: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
+                            row_ptr: torch.Tensor, fpos: torch.Tensor, hsrc: torch.Tensor,
+                            node: Optional[torch.Tensor] = None, schedule=None):
+    """S1 with the head dot in plain torch: ``weighted_pull_plain`` with the
+    weights gathered at ``fpos`` (0 where it is -1), and ``segment_dot_plain``
+    of each slot's gathered row with its row's node's ``hsrc`` row, written
+    at ``fpos`` where the slot is live (every other forward slot 0)."""
+    del schedule
+    live = fpos >= 0
+    at = fpos.long().clamp(min=0)
+    wt = torch.where(live[:, None], w[at], torch.zeros((), dtype=w.dtype, device=w.device))
+    dh = weighted_pull_plain(g, wt, idx, row_ptr)
+    rows = slot_rows(row_ptr)
+    nodes = rows if node is None else node.long()[rows]
+    d = segment_dot_plain(g, idx, hsrc, nodes, w.shape[1])
+    dot = torch.zeros(w.shape, dtype=d.dtype, device=d.device)
+    dot[at[live]] = d[live]
+    return dh, dot
+
+
 # -- the kernels' wrappers ----------------------------------------------------------
 
 
@@ -176,12 +203,13 @@ def _kernel_lib():
     lib = load("segment")
     if not getattr(lib, "_typed", False):
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.segment_pull.argtypes = [ptr] * 5 + [i32] * 3 + [ptr] * 2 + [i32] + [ptr] * 2
+        pull = [ptr] * 5 + [i32] * 3 + [ptr] * 2 + [i32] + [ptr]
+        lib.segment_pull.argtypes = pull + [ptr]
+        lib.segment_pull_dot.argtypes = pull + [ptr] * 4 + [i64, ptr]
         lib.segment_softmax_fwd.argtypes = [ptr] * 3 + [i64, i32] + [ptr] * 2
         lib.segment_softmax_bwd.argtypes = [ptr] * 3 + [i64, i32] + [ptr] * 2
-        lib.segment_dot.argtypes = [ptr] * 4 + [i64, i32, i32] + [ptr] * 2
-        for fn in (lib.segment_pull, lib.segment_softmax_fwd, lib.segment_softmax_bwd,
-                   lib.segment_dot):
+        for fn in (lib.segment_pull, lib.segment_pull_dot, lib.segment_softmax_fwd,
+                   lib.segment_softmax_bwd):
             fn.restype = i32
         lib.segment_error_string.argtypes = [i32]
         lib.segment_error_string.restype = ctypes.c_char_p
@@ -239,27 +267,98 @@ def weighted_pull(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, row_ptr: 
     if x.device.type == "cpu":
         return weighted_pull_plain(x, w, idx, row_ptr)
     d_head = x[0].numel() // heads if x.shape[0] else 0
-    n_rows = row_ptr.shape[0] - 1
-    out = torch.empty((n_rows, heads, d_head), dtype=torch.float32, device=x.device)
+    out = torch.empty((row_ptr.shape[0] - 1, heads, d_head), dtype=torch.float32,
+                      device=x.device)
     if out.numel() == 0:
         return out
-    work, work_start, n_partials = check_schedule(
-        "weighted_pull", pull_schedule(row_ptr) if schedule is None else schedule, x.device)
-    partial = count = None
-    if n_partials:
-        partial = torch.empty((n_partials, heads * d_head), dtype=torch.float32, device=x.device)
-        count = torch.empty(n_partials, dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        _launch("weighted_pull", "segment_pull", x.data_ptr(), w.data_ptr(), idx.data_ptr(),
-                work.data_ptr(), work_start.data_ptr(), work.shape[0], heads, d_head,
-                None if partial is None else partial.data_ptr(),
-                None if count is None else count.data_ptr(), n_partials, out.data_ptr(),
-                _stream(x))
+    _pull("weighted_pull", "segment_pull", x, w, idx, row_ptr, schedule, out)
     weighted_pull.launches += 1
     return out
 
 
 weighted_pull.launches = 0
+
+
+def _pull(name, fn, x, w, idx, row_ptr, schedule, out, *extra):
+    """One launch of S1 (``fn`` ``segment_pull``, or ``segment_pull_dot``
+    with its ``extra`` arguments) into ``out`` [R, H, D], with the split
+    rows' scratch."""
+    heads, d_head = out.shape[1], out.shape[2]
+    work, work_start, n_partials = check_schedule(
+        name, pull_schedule(row_ptr) if schedule is None else schedule, x.device)
+    partial = count = None
+    if n_partials:
+        partial = torch.empty((n_partials, heads * d_head), dtype=torch.float32, device=x.device)
+        count = torch.empty(n_partials, dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        _launch(name, fn, x.data_ptr(), w.data_ptr(), idx.data_ptr(), work.data_ptr(),
+                work_start.data_ptr(), work.shape[0], heads, d_head,
+                None if partial is None else partial.data_ptr(),
+                None if count is None else count.data_ptr(), n_partials, out.data_ptr(),
+                *extra, _stream(x))
+
+
+# the longest head that one column pass of the fused kernel holds (512 f32
+# in 16-byte units, 128 one f32 at a time)
+MAX_DOT_HEAD = 512
+
+
+def weighted_pull_dot(g: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
+                      row_ptr: torch.Tensor, fpos: torch.Tensor, hsrc: torch.Tensor,
+                      node: Optional[torch.Tensor] = None,
+                      schedule: Optional[Tuple[torch.Tensor, torch.Tensor, int]] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """S1 over a transpose view with S3 folded in: ``(dh, dot)``.
+
+    ``dh`` f32 [R, H, D]: ``dh[r, h] = Σ_{t ∈ row r, fpos[t] >= 0} w[fpos[t], h]
+    · g[idx[t], h]``; ``dot`` f32 [S_f, H]: ``dot[fpos[t], h] = Σ_k g[idx[t], h, k]
+    · hsrc[node[r], h, k]`` for every live slot t of row r, 0 at every
+    forward slot no live slot reaches. The live slots must map one to one
+    onto forward slots (each is written once).
+
+    ``g`` and ``hsrc`` [*, H·D] or [*, H, D] float32; ``w`` [S_f, H]
+    float32, the forward weights; ``idx`` [S] int32; ``row_ptr`` [R + 1]
+    int64 from 0 to S; ``fpos`` [S] int32, each slot's forward slot, -1
+    where it is dead; ``node`` [R] int32, each row's hsrc row (None: the
+    row itself); ``schedule`` as ``weighted_pull``'s. CUDA tensors run
+    kernel S1's fused variant (one launch), CPU tensors
+    ``weighted_pull_dot_plain``."""
+    if (w.dim() != 2 or idx.dim() != 1 or row_ptr.dim() != 1 or fpos.shape != idx.shape
+            or (node is not None and node.shape != (row_ptr.shape[0] - 1,))):
+        raise ValueError(f"weighted_pull_dot wants w [S_f, H], idx and fpos [S], row_ptr "
+                         f"[R + 1], node [R], got {tuple(w.shape)}, {tuple(idx.shape)}, "
+                         f"{tuple(fpos.shape)}, {tuple(row_ptr.shape)}, "
+                         f"{None if node is None else tuple(node.shape)}")
+    heads = w.shape[1]
+    width = g[0].numel() if g.shape[0] else hsrc[0].numel()
+    if width % heads or (g.shape[0] and hsrc.shape[0] and hsrc[0].numel() != width):
+        raise ValueError(f"weighted_pull_dot: g rows of {width} and hsrc rows of "
+                         f"{hsrc[0].numel() if hsrc.shape[0] else 0} in {heads} heads")
+    _check_f32("weighted_pull_dot", g=g, w=w, hsrc=hsrc)
+    if (idx.dtype != torch.int32 or fpos.dtype != torch.int32 or row_ptr.dtype != torch.int64
+            or (node is not None and node.dtype != torch.int32)):
+        raise TypeError("weighted_pull_dot takes int32 idx, fpos and node and int64 row_ptr")
+    _check_device("weighted_pull_dot",
+                  [t for t in (g, w, idx, row_ptr, fpos, hsrc, node) if t is not None])
+    if g.device.type == "cpu":
+        return weighted_pull_dot_plain(g, w, idx, row_ptr, fpos, hsrc, node)
+    d_head = width // heads
+    if d_head > MAX_DOT_HEAD or (d_head % 4 and d_head > MAX_DOT_HEAD // 4):
+        raise ValueError(f"weighted_pull_dot's kernel takes heads of at most {MAX_DOT_HEAD} "
+                         f"f32 ({MAX_DOT_HEAD // 4} where 4 does not divide them), got {d_head}")
+    dh = torch.empty((row_ptr.shape[0] - 1, heads, d_head), dtype=torch.float32,
+                     device=g.device)
+    dot = torch.empty(w.shape, dtype=torch.float32, device=g.device)
+    if dh.numel() == 0 or idx.shape[0] == 0:
+        return dh.zero_(), dot.zero_()
+    _pull("weighted_pull_dot", "segment_pull_dot", g, w, idx, row_ptr, schedule, dh,
+          fpos.data_ptr(), hsrc.data_ptr(), None if node is None else node.data_ptr(),
+          dot.data_ptr(), w.shape[0])
+    weighted_pull_dot.launches += 1
+    return dh, dot
+
+
+weighted_pull_dot.launches = 0
 
 
 def segment_softmax_rows(e: torch.Tensor, row_ptr: torch.Tensor,
@@ -323,10 +422,10 @@ segment_softmax_rows_bwd.launches = 0
 
 def segment_dot(a: torch.Tensor, ia: torch.Tensor, b: torch.Tensor, ib: torch.Tensor,
                 heads: int) -> torch.Tensor:
-    """S3: f32 [S, H], ``out[s, h] = Σ_k a[ia[s], h, k] · b[ib[s], h, k]``
+    """S3's reference: f32 [S, H], ``out[s, h] = Σ_k a[ia[s], h, k] · b[ib[s], h, k]``
     for rows of H·D float32 (``a`` and ``b`` [*, H·D] or [*, H, D]) and
-    int32 indices. CUDA tensors run kernel S3 (one launch), CPU tensors
-    ``segment_dot_plain``."""
+    int32 indices, by ``segment_dot_plain``. CPU tensors only: on the card
+    the dot runs inside S1's transpose pull (``weighted_pull_dot``)."""
     if ia.dim() != 1 or ib.shape != ia.shape or a.shape[1:] != b.shape[1:]:
         raise ValueError(f"segment_dot wants a, b of one row shape and ia, ib [S], got "
                          f"{tuple(a.shape)}, {tuple(b.shape)}, {tuple(ia.shape)}, "
@@ -338,19 +437,10 @@ def segment_dot(a: torch.Tensor, ia: torch.Tensor, b: torch.Tensor, ib: torch.Te
     if ia.dtype != torch.int32 or ib.dtype != torch.int32:
         raise TypeError("segment_dot takes int32 indices")
     _check_device("segment_dot", [a, ia, b, ib])
-    if a.device.type == "cpu":
-        return segment_dot_plain(a, ia, b, ib, heads)
-    out = torch.empty((ia.shape[0], heads), dtype=torch.float32, device=a.device)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(a.device):
-        _launch("segment_dot", "segment_dot", a.data_ptr(), ia.data_ptr(), b.data_ptr(),
-                ib.data_ptr(), ia.shape[0], heads, width // heads, out.data_ptr(), _stream(a))
-    segment_dot.launches += 1
-    return out
-
-
-segment_dot.launches = 0
+    if a.device.type != "cpu":
+        raise ValueError("segment_dot has no kernel: on the card the head dot runs inside "
+                         "S1's transpose pull, weighted_pull_dot")
+    return segment_dot_plain(a, ia, b, ib, heads)
 
 
 # -- autograd over the views ------------------------------------------------------

@@ -14,14 +14,18 @@ a bucketed graph; one DirectAU step on a bucketed graph (P1's value path);
 one step of each zoo model that reaches a kernel (SelfCF dense through
 K1/K2 and bucketed through K7/P1; BUIR, GCL and BGRL bucketed, P1's value
 path) against its plain path on the same masks. The segment kernels
-(``csrc/segment.cu``): S1 (the multi-head weighted pull), S2 (the segment
-softmax and its backward) and S3 (the per-slot head dot) against their
-plain versions and bit for bit across two calls, on a segment view with
-split hub rows and on bucket rows; one step of GAT (dense, segment and
+(``csrc/segment.cu``): S1 (the multi-head weighted pull) and S2 (the
+segment softmax and its backward) against their plain versions and bit
+for bit across two calls, on a segment view with split hub rows and on
+bucket rows; S1 at every group width and head count with a hub row of
+12,000 slots; S1 with the head dot (S3 folded into the transpose pull)
+against its plain version on both GAT structures, the forward slots no
+live slot reaches exactly 0; one step of GAT (dense, segment and
 bucketed backends), GraphSAGE, LightGCN on the segment backend and GRACE
 and G-BT on a bucketed graph against their plain paths.
 Calls on two streams at once equal the same calls in turn (the chain's tile
-counters, P1's and S1's piece counters, K5's and K6's partials).
+counters, P1's and S1's piece counters, K5's and K6's partials, the
+fused pull's dot).
 
 These tests need a CUDA device and ``nvcc``; elsewhere they skip. This file
 imports neither JAX nor the JAX package, so it runs where only the port is
@@ -52,7 +56,7 @@ from recommendation_tpu_torch.models import build
 from recommendation_tpu_torch.models.bgrl import PlainBucketedBGRL
 from recommendation_tpu_torch.models.buir import PlainBucketedBUIR
 from recommendation_tpu_torch.models.directau import PlainBucketedDirectAU
-from recommendation_tpu_torch.models.gat import PlainGAT
+from recommendation_tpu_torch.models.gat import PlainGAT, attention_structure
 from recommendation_tpu_torch.models.graphsage import PlainGraphSAGE
 from recommendation_tpu_torch.models.gcl import PlainBucketedGCL
 from recommendation_tpu_torch.models.selfcf import PlainSelfCF
@@ -716,6 +720,14 @@ def _two_calls(card, kernel):
         return [lambda q=q_, lse=l_: list(catalog_lse_bwd(q, x, 0.1, lse, g))
                 for q_, l_ in zip(q, lse)]
     pairs = make_flat_interactions(2000, 4000, 40_000, seed=1)
+    if kernel == "weighted_pull_dot":
+        st = _attention(card, "bucketed")
+        assert st.t_schedule[2] > 0  # split rows: the pieces' counters are used
+        w = _random(card, rng, (st.idx.numel(), 4))[0]
+        gs = _random(card, rng, *[(st.dst.max().item() + 1, 4 * 64)] * 2)
+        return [lambda g=g: list(seg_ops.weighted_pull_dot(g, w, st.t_idx, st.t_row_ptr,
+                                                           st.t_fpos, g, st.t_node,
+                                                           st.t_schedule)) for g in gs]
     if kernel == "weighted_pull":
         view = _segment_view(card)
         assert view.n_partials > 0  # split rows: the pieces' counters are used
@@ -731,12 +743,14 @@ def _two_calls(card, kernel):
                                     skip=csr.total_rows, schedule=csr.schedule)] for y in srcs]
 
 
-@pytest.mark.parametrize("kernel", ["chain", "lse", "lse_bwd", "pull", "weighted_pull"])
+@pytest.mark.parametrize("kernel", ["chain", "lse", "lse_bwd", "pull", "weighted_pull",
+                                    "weighted_pull_dot"])
 def test_calls_on_two_streams_equal_calls_in_turn(card, kernel):
     """Two calls launched on two streams at once give what the same calls
     give one after the other on one stream, bit for bit, ten times over:
-    the chain's tile counters, P1's and S1's piece counters and K5's and
-    K6's partials are not mixed between streams."""
+    the chain's tile counters, P1's and S1's piece counters, K5's and
+    K6's partials and the fused pull's zeroed dot are not mixed between
+    streams."""
     fns = _two_calls(card, kernel)
     want = [fn() for fn in fns]
     torch.cuda.synchronize()
@@ -919,7 +933,7 @@ def test_gather_wrappers_refuse_what_the_kernels_do_not_take(card):
         gather_sum(x[:, ::2], idx, ptr)
 
 
-# -- the segment kernels: S1 (weighted pull), S2 (segment softmax), S3 (head dot) --
+# -- the segment kernels: S1 (weighted pull, and with the head dot), S2 (segment softmax) --
 
 
 def _segment_view(card):
@@ -930,34 +944,44 @@ def _segment_view(card):
     return graph.bipartite_views()[1]
 
 
+def _attention(card, backend):
+    """GAT's structure (``models/gat.py::attention_structure``) over a
+    power-law graph's edges: the segment views, or the bucket rows."""
+    pairs = make_flat_interactions(2000, 4000, 40_000, seed=1)
+    graph = DeviceGraph(ArrayInteraction(pairs, 2000, 4000), backend=backend, device=card)
+    return attention_structure(graph)
+
+
 def _segment_inputs(card, view, heads, d, seed):
     rng = np.random.default_rng(seed)
-    x, w, e, g, gy = _random(card, rng, (view.n_cols, heads * d), (view.n_slots, heads),
-                             (view.n_slots, heads), (view.n_slots, heads),
-                             (view.n_rows, heads * d))
+    x, w, e, g = _random(card, rng, (view.n_cols, heads * d), (view.n_slots, heads),
+                         (view.n_slots, heads), (view.n_slots, heads))
     live = torch.from_numpy(rng.random(view.n_slots) > 0.1).to(card)
-    return x, w, e * 3, g, gy, live
+    return x, w, e * 3, g, live
 
 
 def _repeats_and_agrees(name, fn, plain, rtol=1e-5):
     """Two kernel calls equal bit for bit, and the plain version at rtol
     and an atol of 1e-5 of the plain result's largest entry (the kernel
-    sums in slot order, the plain version in its own)."""
+    sums in slot order, the plain version in its own); each output where
+    ``fn`` returns a tuple."""
     got, again = fn(), fn()
     torch.cuda.synchronize()
-    assert torch.equal(got, again), name
     want = plain()
-    assert torch.isfinite(got).all(), name
-    torch.testing.assert_close(got, want, rtol=rtol, atol=1e-5 * want.abs().max().item(),
-                               msg=name)
+    if not isinstance(got, tuple):
+        got, again, want = (got,), (again,), (want,)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b), name
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, c, rtol=rtol, atol=1e-5 * c.abs().max().item(), msg=name)
 
 
 @pytest.mark.parametrize("heads,d", [(1, 64), (4, 64), (4, 5), (2, 3)])
 def test_segment_kernels_match_plain(card, heads, d):
     view = _segment_view(card)
-    x, w, e, g, gy, live = _segment_inputs(card, view, heads, d, heads * 100 + d)
+    x, w, e, g, live = _segment_inputs(card, view, heads, d, heads * 100 + d)
     before = (seg_ops.weighted_pull.launches, seg_ops.segment_softmax_rows.launches,
-              seg_ops.segment_softmax_rows_bwd.launches, seg_ops.segment_dot.launches)
+              seg_ops.segment_softmax_rows_bwd.launches)
     _repeats_and_agrees("S1", lambda: seg_ops.weighted_pull(x, w, view.idx, view.row_ptr,
                                                             view.schedule),
                         lambda: seg_ops.weighted_pull_plain(x, w, view.idx, view.row_ptr))
@@ -966,15 +990,89 @@ def test_segment_kernels_match_plain(card, heads, d):
     att = seg_ops.segment_softmax_rows_plain(e, view.row_ptr, live)
     _repeats_and_agrees("S2 bwd", lambda: seg_ops.segment_softmax_rows_bwd(att, g, view.row_ptr),
                         lambda: seg_ops.segment_softmax_rows_bwd_plain(att, g, view.row_ptr))
-    rows = view.slot_row
-    _repeats_and_agrees("S3", lambda: seg_ops.segment_dot(gy, rows, x, view.idx, heads),
-                        lambda: seg_ops.segment_dot_plain(gy, rows, x, view.idx, heads))
     after = (seg_ops.weighted_pull.launches, seg_ops.segment_softmax_rows.launches,
-             seg_ops.segment_softmax_rows_bwd.launches, seg_ops.segment_dot.launches)
-    assert [a - b for a, b in zip(after, before)] == [2, 2, 2, 2]
+             seg_ops.segment_softmax_rows_bwd.launches)
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2]
     # no live slot in a row: its weights are 0
     none = seg_ops.segment_softmax_rows(e, view.row_ptr, torch.zeros_like(live))
     assert not none.any()
+
+
+def _hub_view(card):
+    """A segment view whose row 0 holds 12,000 slots (94 CHUNK pieces),
+    among 300 rows of 0 to 40 slots."""
+    rng = np.random.default_rng(8)
+    rows = np.concatenate([np.zeros(12_000, np.int64), rng.integers(1, 300, 6000)])
+    cols = rng.integers(0, 500, len(rows))
+    return seg_ops.segment_csr(torch.from_numpy(rows).to(card), torch.from_numpy(cols).to(card),
+                               300, 500)
+
+
+# (heads, d): 16 lanes a row (H*D <= 64), a warp with 1, 2 or 4 16-byte
+# units a lane (H*D 128, 256, 320), two column passes (H*D 640), and one f32
+# at a time (d not a multiple of 4)
+S1_WIDTHS = [(1, 64), (2, 32), (4, 16), (1, 128), (4, 64), (2, 160), (4, 160), (1, 7), (4, 9)]
+
+
+@pytest.mark.parametrize("heads,d", S1_WIDTHS)
+def test_weighted_pull_across_pieces(card, heads, d):
+    """S1 and its fused variant at every group width, on a hub row split
+    into 94 pieces: against their plain versions, twice bit for bit; the
+    fused variant's dot written at the live slots' forward slots only."""
+    view = _hub_view(card)
+    assert view.n_partials >= 90
+    rng = np.random.default_rng(heads * 1000 + d)
+    x, w, hsrc = _random(card, rng, (view.n_cols, heads * d), (view.n_slots + 7, heads),
+                         (view.n_rows, heads * d))
+    _repeats_and_agrees("S1", lambda: seg_ops.weighted_pull(x, w[:view.n_slots].contiguous(),
+                                                            view.idx, view.row_ptr,
+                                                            view.schedule),
+                        lambda: seg_ops.weighted_pull_plain(x, w[:view.n_slots], view.idx,
+                                                            view.row_ptr))
+    # each slot's forward slot: a permutation of the forward slots, 10% dead
+    fpos = torch.from_numpy(rng.permutation(view.n_slots + 7)[:view.n_slots].astype(np.int32))
+    fpos[torch.from_numpy(rng.random(view.n_slots) < 0.1)] = -1
+    fpos = fpos.to(card)
+    before = seg_ops.weighted_pull_dot.launches
+    _repeats_and_agrees(
+        "S1 with the head dot",
+        lambda: seg_ops.weighted_pull_dot(x, w, view.idx, view.row_ptr, fpos, hsrc,
+                                          schedule=view.schedule),
+        lambda: seg_ops.weighted_pull_dot_plain(x, w, view.idx, view.row_ptr, fpos, hsrc))
+    assert seg_ops.weighted_pull_dot.launches - before == 2
+    dh, dot = seg_ops.weighted_pull_dot(x, w, view.idx, view.row_ptr, fpos, hsrc,
+                                        schedule=view.schedule)
+    unreached = torch.ones(w.shape[0], dtype=torch.bool, device=card)
+    unreached[fpos[fpos >= 0].long()] = False
+    assert not dot[unreached].any() and dot[~unreached].abs().max() > 0
+
+
+@pytest.mark.parametrize("backend", ["segment", "bucketed"])
+@pytest.mark.parametrize("heads", [1, 4])
+def test_weighted_pull_dot_on_gat_structures(card, backend, heads):
+    """The fused pull over GAT's transpose views (the bidirectional edges'
+    source view, the bucket rows of Aᵀ with their row nodes): dh and the
+    dot against the plain version, twice bit for bit; the dead slots
+    (``tpos`` sends the bucketed padding to one forward slot) write
+    nothing, and every forward slot no live slot reaches is exactly 0."""
+    st = _attention(card, backend)
+    dead = st.t_fpos < 0
+    assert torch.equal(st.t_fpos[~dead], st.t2f[~dead])
+    if backend == "bucketed":  # tpos sends every padding slot to one forward slot
+        assert st.t_node is not None and st.t2f[dead].unique().numel() < int(dead.sum())
+    rng = np.random.default_rng(heads)
+    n = int(st.dst.max().item()) + 1
+    g, hsrc, w = _random(card, rng, (n, heads * 64), (n, heads * 64), (st.idx.numel(), heads))
+    w = torch.where(st.live[:, None], w, torch.zeros((), device=card))
+    _repeats_and_agrees(
+        f"S1 with the head dot, {backend}",
+        lambda: seg_ops.weighted_pull_dot(g, w, st.t_idx, st.t_row_ptr, st.t_fpos, hsrc,
+                                          st.t_node, st.t_schedule),
+        lambda: seg_ops.weighted_pull_dot_plain(g, w, st.t_idx, st.t_row_ptr, st.t_fpos, hsrc,
+                                                st.t_node))
+    _, dot = seg_ops.weighted_pull_dot(g, w, st.t_idx, st.t_row_ptr, st.t_fpos, hsrc, st.t_node,
+                                       st.t_schedule)
+    assert not dot[~st.live].any() and dot[st.live].abs().max() > 0
 
 
 @pytest.mark.parametrize("heads", [1, 4])
@@ -1006,9 +1104,18 @@ def test_segment_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(TypeError):
         seg_ops.weighted_pull(torch.zeros(4, 8, device=card), torch.zeros(3, 2, device=card),
                               idx.long(), ptr)
+    # S3 has no kernel: its dot runs in the fused pull
+    with pytest.raises(ValueError, match="weighted_pull_dot"):
+        seg_ops.segment_dot(torch.zeros(4, 16, device=card), idx,
+                            torch.zeros(4, 16, device=card), idx, 2)
+    g, w = torch.zeros(4, 16, device=card), torch.zeros(3, 2, device=card)
     with pytest.raises(ValueError, match="contiguous"):
-        seg_ops.segment_dot(torch.zeros(4, 16, device=card)[:, ::2], idx,
-                            torch.zeros(4, 8, device=card), idx, 2)
+        seg_ops.weighted_pull_dot(torch.zeros(4, 32, device=card)[:, ::2], w, idx, ptr, idx, g)
+    with pytest.raises(TypeError):
+        seg_ops.weighted_pull_dot(g, w, idx, ptr, idx.long(), g)
+    with pytest.raises(ValueError, match="at most"):
+        wide = torch.zeros(4, 1026, device=card)
+        seg_ops.weighted_pull_dot(wide, w, idx, ptr, idx, wide)
     # S2 reads row_ptr as 64-bit, S1 its schedule through raw pointers
     with pytest.raises(TypeError, match="int64 row_ptr"):
         seg_ops.segment_softmax_rows(torch.zeros(3, 2, device=card), ptr.int())
@@ -1022,16 +1129,18 @@ def test_segment_wrappers_refuse_what_the_kernels_do_not_take(card):
                 (work, work_start, -1)):
         with pytest.raises(ValueError, match="schedule"):
             seg_ops.weighted_pull(x, w, idx, ptr, bad)
+        with pytest.raises(ValueError, match="schedule"):
+            seg_ops.weighted_pull_dot(x, w, idx, ptr, idx, x, schedule=bad)
 
 
 # a step's segment-kernel and P1/K7 launches: GAT's two layers (S2 and S1
-# forward; S3, S2's backward, S1 and two P1 backward; K7 once forward and
+# forward; S1 with the head dot, S2's backward and two P1 backward; K7 once forward and
 # three times backward a layer on the bucket rows), GraphSAGE's two means
 # (P1; the first takes no backward: the features are fixed), LightGCN's
 # three segment matmuls both ways, GRACE's and G-BT's two views of two
 # segment matmuls both ways
-_S = {"weighted_pull": 4, "segment_softmax_rows": 2, "segment_softmax_rows_bwd": 2,
-      "segment_dot": 2, "gather_sum": 4}
+_S = {"weighted_pull": 2, "weighted_pull_dot": 2, "segment_softmax_rows": 2,
+      "segment_softmax_rows_bwd": 2, "gather_sum": 4}
 SEGMENT_CASES = {
     ("gat", "dense"): (PlainGAT, _S),
     ("gat", "segment"): (PlainGAT, _S),
@@ -1062,8 +1171,8 @@ def test_segment_step_kernel_vs_plain(card, monkeypatch, name, backend):
         epoch_words(torch.Generator().manual_seed(4), graph, 1024), graph, 1024)
     batch = PairwiseBatch(users[0], items[0], negs[0], weights[0])
     counters = {f.__name__: f for f in (gather_rows, gather_sum, seg_ops.weighted_pull,
-                                         seg_ops.segment_softmax_rows,
-                                         seg_ops.segment_softmax_rows_bwd, seg_ops.segment_dot)}
+                                         seg_ops.weighted_pull_dot, seg_ops.segment_softmax_rows,
+                                         seg_ops.segment_softmax_rows_bwd)}
     names = [k for k in init if k not in model.frozen]
     out = []
     for plain in (False, True):

@@ -141,6 +141,34 @@ def test_gat_aux_matches_jax(graphs, which):
     assert graph.ensure_gat_aux() is got  # built once, kept on the graph
 
 
+@pytest.mark.parametrize("which", ["tiny", "padded"])
+@pytest.mark.parametrize("path", ["segment", "bucketed"])
+def test_live_transpose_slots_map_one_to_one(graphs, which, path):
+    """The fused backward pull writes ``datt`` at each live transpose slot's
+    forward slot: the live slots of the two views must map one to one
+    through ``t2f``, onto the same edge (its destination is the slot's
+    gathered node, its source the transpose row's node), and the dead ones
+    are -1 in ``t_fpos``."""
+    if which == "tiny":
+        graph = graphs[1]["bucketed" if path == "bucketed" else "segment"]
+    else:
+        graph = DeviceGraph(_padded_data()[1], backend="bucketed" if path == "bucketed"
+                            else "segment", device="cpu")
+    st = gat.attention_structure(graph)
+    live, t_live = st.live.numpy(), st.t_live.numpy()
+    fpos, t2f = st.t_fpos.numpy(), st.t2f.numpy()
+    assert live.sum() == t_live.sum() > 0
+    assert np.array_equal(np.sort(fpos[t_live]), np.nonzero(live)[0])
+    assert np.all(fpos[~t_live] == -1) and np.array_equal(fpos[t_live], t2f[t_live])
+    rows = np.repeat(np.arange(len(st.t_row_ptr) - 1), np.diff(st.t_row_ptr.numpy()))
+    nodes = rows if st.t_node is None else st.t_node.numpy()[rows]
+    assert np.array_equal(st.dst.numpy()[fpos[t_live]], st.t_idx.numpy()[t_live])
+    assert np.array_equal(st.idx.numpy()[fpos[t_live]], nodes[t_live])
+    if path == "bucketed":  # tpos sends every padding slot (edge -1) to edge 0's slot
+        pad = graph.norm_adj.pull_t.edge.numpy() < 0
+        assert pad.sum() > 1 and np.all(t2f[pad] == graph.ensure_gat_aux()["pos_map"][0].item())
+
+
 def _layer_inputs(n, heads, d_in=6, d=5, seed=0):
     rng = np.random.default_rng(seed)
     return (rng.normal(size=(n, d_in)).astype(np.float32),

@@ -5,7 +5,8 @@ bit, ``with_vals``, ``binarized``, ``transpose``, ``normalized_bipartite``
 (its COO bit for bit, its values at the f32 bound), ``adj_matmul`` on ``segment`` and on ``pallas`` with its
 gradient, ``segment_softmax`` and ``segment_mean`` (the JAX package's
 oracles of tests/test_ops.py:40-57, and random inputs with empty segments,
-with gradients); the plain versions of S1, S2 and S3 against loops, S2's
+with gradients); the plain versions of S1, S2 and S3 against loops, S1
+with the head dot against S1's and S3's plain versions, S2's
 autograd Function against autograd through its plain version; LightGCN's
 and NCL's loss and gradients on the segment backend against the JAX
 package's on its segment graph; and training through the CLI with
@@ -336,6 +337,39 @@ def test_segment_dot_plain_matches_numpy():
     np.testing.assert_allclose(got, np.einsum("shd,shd->sh", a[ia], b[ib]), **TIGHT)
 
 
+@pytest.mark.parametrize("heads,with_node", [(1, False), (4, True)])
+def test_weighted_pull_dot_plain_is_the_pull_and_the_dot(heads, with_node):
+    """S1 with the head dot on the CPU: ``dh`` is ``weighted_pull_plain``
+    with the weights gathered at the live slots' forward slots, the dot is
+    ``segment_dot_plain`` of each live slot's row with its row's node's
+    row, written at its forward slot; every other forward slot exactly 0."""
+    rng, view = _csr(50 + heads)
+    d, n_fwd = 3, view.n_slots + 6
+    g = torch.from_numpy(rng.normal(size=(view.n_cols, heads, d)).astype(np.float32))
+    hsrc = torch.from_numpy(rng.normal(size=(40, heads * d)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(n_fwd, heads)).astype(np.float32))
+    fpos = rng.permutation(n_fwd)[:view.n_slots].astype(np.int32)
+    fpos[rng.random(view.n_slots) < 0.25] = -1
+    node = torch.from_numpy(rng.integers(0, 40, view.n_rows).astype(np.int32)) if with_node else None
+    dh, dot = seg_ops.weighted_pull_dot(g, w, view.idx, view.row_ptr, torch.from_numpy(fpos),
+                                        hsrc, node, view.schedule)
+    live = fpos >= 0
+    wt = np.where(live[:, None], w.numpy()[np.maximum(fpos, 0)], 0).astype(np.float32)
+    assert torch.equal(dh, seg_ops.weighted_pull_plain(g, torch.from_numpy(wt), view.idx,
+                                                       view.row_ptr))
+    rows = seg_ops.slot_rows(view.row_ptr)
+    nodes = rows if node is None else node.long()[rows]
+    want = seg_ops.segment_dot_plain(g.reshape(view.n_cols, -1), view.idx, hsrc, nodes, heads)
+    assert torch.equal(dot[torch.from_numpy(fpos[live]).long()], want[torch.from_numpy(live)])
+    unreached = np.ones(n_fwd, bool)
+    unreached[fpos[live]] = False
+    assert unreached.sum() >= 6 and not dot[torch.from_numpy(unreached)].any()
+    np.testing.assert_allclose(  # the dot against numpy's
+        dot[torch.from_numpy(fpos[live]).long()].numpy(),
+        np.einsum("shd,shd->sh", g.numpy()[view.idx.numpy()[live]],
+                  hsrc.numpy().reshape(40, heads, d)[nodes.numpy()[live]]), **TIGHT)
+
+
 def test_wrappers_refuse_what_their_kernels_do_not_take():
     """S2 reads ``row_ptr`` as 64-bit on the card: both its wrappers refuse
     another type on any device. S1's and P1's schedules go to their
@@ -356,15 +390,30 @@ def test_wrappers_refuse_what_their_kernels_do_not_take():
             check_schedule("S1", bad, cpu)
     with pytest.raises(ValueError, match="on cuda"):
         check_schedule("S1", view.schedule, torch.device("cuda"))
+    # the fused pull's shapes and types, on any device
+    g, w = torch.ones(view.n_cols, 4), torch.ones(view.n_slots, 2)
+    with pytest.raises(ValueError, match="fpos"):
+        seg_ops.weighted_pull_dot(g, w, view.idx, view.row_ptr, view.idx[:-1], g)
+    with pytest.raises(ValueError, match="node"):
+        seg_ops.weighted_pull_dot(g, w, view.idx, view.row_ptr, view.idx, g,
+                                  node=torch.zeros(view.n_rows + 1, dtype=torch.int32))
+    with pytest.raises(TypeError, match="int32 idx, fpos"):
+        seg_ops.weighted_pull_dot(g, w, view.idx, view.row_ptr, view.idx.long(), g)
+    with pytest.raises(ValueError, match="heads"):
+        seg_ops.weighted_pull_dot(g, w, view.idx, view.row_ptr, view.idx, torch.ones(3, 6))
 
 
 def test_wrappers_count_no_launch_on_the_cpu():
     _, view = _csr(40)
-    before = (seg_ops.weighted_pull.launches, seg_ops.segment_softmax_rows.launches)
+    counters = (seg_ops.weighted_pull, seg_ops.weighted_pull_dot, seg_ops.segment_softmax_rows)
+    before = [f.launches for f in counters]
     seg_ops.weighted_pull(torch.ones(view.n_cols, 4), torch.ones(view.n_slots, 1), view.idx,
                           view.row_ptr)
+    seg_ops.weighted_pull_dot(torch.ones(view.n_cols, 4), torch.ones(view.n_slots, 1), view.idx,
+                              view.row_ptr, torch.arange(view.n_slots, dtype=torch.int32),
+                              torch.ones(view.n_rows, 4))
     seg_ops.segment_softmax_rows(torch.ones(view.n_slots, 1), view.row_ptr)
-    assert (seg_ops.weighted_pull.launches, seg_ops.segment_softmax_rows.launches) == before
+    assert [f.launches for f in counters] == before
 
 
 # -- models on the segment backend --------------------------------------------------
