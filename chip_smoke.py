@@ -19,12 +19,15 @@ What it does, in order (any failed phase exits non-zero):
      ``catalog_lse_bwd`` at NCL's two step shapes and a ragged one, K5
      against a 100,000-item catalog, and K6 at B = 8192 against it (its
      workspace, read from the caching allocator around one call, held under
-     256 MB; timed against its bound and the library call);
+     256 MB; timed against its bound and the library call); K5 and K6 at
+     d = 1024 and 600 (K6's output columns in two 512-column slabs);
   4. one-step checks: one LightGCN step's loss and gradients through
      ``ChainMean`` (K1 + K2) against autograd through the plain chain; one
      NCL step through K3-K6 against the plain path, for the full loss, the
      layer contrast alone at unit weight and ProtoNCE alone, each bound
-     also rejecting zero gradients; at the bench shape;
+     also rejecting zero gradients; at the bench shape; and one NCL step at
+     embedding.size 1024 (both terms at unit weight) against the plain
+     path by relative Frobenius error;
   5. serve phase: synthetic ML-100K (the ``bench.py`` configuration),
      LightGCN d=64 L=3 with seeded random weights, saved and reloaded
      through ``weights``; ``cli.build_service`` on ``cuda``; 320 requests
@@ -100,16 +103,22 @@ What it does, in order (any failed phase exits non-zero):
      held to its ZOO_GATES gate, launches counted, the served answers
      (width 2d for SelfCF and BUIR) against the plain path's;
  12. the neighbour models and the segment backend: the segment kernels S1
-     ``weighted_pull``, S2 ``segment_softmax_rows`` and its backward and
-     S1 with the head dot ``weighted_pull_dot`` (S3 folded into S1 over
-     the transpose view: its ``dh`` and its dot) against their plain
-     versions, twice bit for bit, timed beside their bounds and, where one
-     PyTorch call computes the same function, ``torch.sparse.mm``,
-     ``torch.sparse.softmax`` and its backward (H = 1) and
-     ``torch.sparse.sampled_addmm`` (S3 where the rows are the nodes); the
-     fused call beside S1 over the transpose alone, the difference S3's
-     cost: at the clustered graph's bucket tables and the hard set's
-     bidirectional edges, H = 4 and 1, d = 64. On the clustered
+     ``weighted_pull``, S2 with GAT's logits fused in
+     (``attention_softmax``, with and without the dropout's scale, and its
+     backward ``attention_softmax_bwd`` with the slope and mask) and on
+     given logits (``segment_softmax_rows`` and its backward), and S1 with
+     the head dot ``weighted_pull_dot`` (S3 folded into S1 over the
+     transpose view: its ``dh`` and its dot) against their plain versions,
+     twice bit for bit, timed beside their bounds and, where one PyTorch
+     call computes the same function, ``torch.sparse.mm`` (H = 1) or
+     ``torch.bmm`` over a batched COO (H > 1), ``torch.sparse.softmax``
+     and its backward over a hybrid COO [R, S, H] (the softmax-only
+     entries) and ``torch.sparse.sampled_addmm`` (S3 where the rows are
+     the nodes); the fused call beside S1 over the transpose alone, the
+     difference S3's cost: at the clustered graph's bucket tables and the
+     hard set's bidirectional edges, H = 4 and 1, d = 64, and S2 at H = 3.
+     On the hard set, GAT one step at 3 heads and at a hidden width of
+     1024 against ``PlainGAT`` in float64. On the clustered
      graph: GAT (bucketed attention) and GraphSAGE one step against their
      plain paths (``PlainGAT``: the plain S1 and S2 under autograd, in
      float64), then PROFILE_STEPS
@@ -207,6 +216,10 @@ from recommendation_tpu_torch.ops.prop import (
     chain_mean_plain,
 )
 from recommendation_tpu_torch.ops.segment import (
+    attention_softmax,
+    attention_softmax_bwd,
+    attention_softmax_bwd_plain,
+    attention_softmax_plain,
     segment_dot_plain,
     segment_softmax_rows,
     segment_softmax_rows_bwd,
@@ -767,6 +780,46 @@ def kernel_phase_lse(n_users, n_items):
     return rows
 
 
+# K5/K6 past K6's first 512-column slab (NCL's tuning grid reaches
+# embedding.size 1024): a width of two slabs and a ragged one
+LSE_WIDE_D = (1024, 600)
+
+
+def kernel_phase_lse_wide(n_items):
+    """K5 and K6 at B = BATCH against the dense set's item catalog at each
+    of LSE_WIDE_D: against their plain versions (LSE_TOL, LSE_GRAD_TOL) and
+    twice bit for bit, timed beside their plain versions and their bounds
+    (the function's own one and three products; K6's second slab repeats
+    the score product, which the bound does not count)."""
+    rng = np.random.default_rng(5)
+    out = {}
+    for d in LSE_WIDE_D:
+        q, x = unit_rows(rng, BATCH, d), unit_rows(rng, n_items, d)
+        g = torch.from_numpy(rng.normal(size=BATCH).astype(np.float32)).cuda()
+        (lse,) = same_bits(f"catalog_lse d={d}", lambda: [catalog_lse(q, x, TAU)])
+        want = catalog_lse_plain(q, x, TAU)
+        err = compare(f"catalog_lse d={d}", [lse], [want], torch.float32,
+                      {torch.float32: LSE_TOL})
+        err_b = compare(f"catalog_lse_bwd d={d}",
+                        same_bits(f"catalog_lse_bwd d={d}",
+                                  lambda: catalog_lse_bwd(q, x, TAU, lse, g)),
+                        catalog_lse_bwd_plain(q, x, TAU, want, g), torch.float32,
+                        {torch.float32: LSE_GRAD_TOL})
+        shape = [(BATCH, n_items, d)]
+        out[f"d{d}"] = {
+            "shape": list(shape[0]), "lse_bwd_slabs": lse_ops._kernel_lib().lse_bwd_slabs(d),
+            "catalog_lse": {"max_abs_err": err, "ms": time_ms(lambda: catalog_lse(q, x, TAU)),
+                            "plain_ms": time_ms(lambda: catalog_lse_plain(q, x, TAU)),
+                            "bound_ms": lse_bound(shape, 1)[0]},
+            "catalog_lse_bwd": {"max_abs_err": err_b,
+                                "ms": time_ms(lambda: catalog_lse_bwd(q, x, TAU, lse, g)),
+                                "plain_ms": time_ms(lambda: catalog_lse_bwd_plain(q, x, TAU, lse,
+                                                                                  g)),
+                                "bound_ms": lse_bound(shape, 3)[0],
+                                "workspace_bytes": check_lse_workspace(q, x, lse, g)}}
+    return out
+
+
 class PlainLightGCN(LightGCN):
     """LightGCN with the plain chain (autograd through torch ops) in place
     of ChainMean: the reference a training step is held against."""
@@ -902,6 +955,32 @@ def ncl_one_step_check(graphs, params):
             }
         out[str(dtype).replace("torch.", "")] = res
     return out
+
+
+# NCL at embedding.size 1024 against its plain path: each score now sums
+# 1024 products (16x NCL's default), so the gradients are held by relative
+# Frobenius error, as GAT's are, at GAT_FRO_TOL's 1e-5
+NCL_WIDE_D = 1024
+
+
+def ncl_wide_one_step(graph):
+    """One NCL step at embedding.size NCL_WIDE_D on the dense f32 graph,
+    the layer contrast and ProtoNCE at unit weight: K3 and K4 a launch a
+    layer, K5 and K6 two calls (K6 in two column slabs), against the plain
+    path on the same batch and clusters."""
+    config = default_config(**{"embedding.size": NCL_WIDE_D, "NCL.ssl_reg": 1.0,
+                               "NCL.proto_reg": 1.0})
+    model, plain = build("ncl", config), PlainNCL(config)
+    params, _ = model.init(torch.Generator().manual_seed(0), graph)
+    state = model.epoch_begin(params, None, graph, torch.Generator().manual_seed(7), 0)
+    batch = first_batch(graph, BATCH)
+    want = {"chain_mean_layer": model.n_layers, "chain_mean_layer_bwd": model.n_layers,
+            "catalog_lse": 2 * catalog_lse.launches_per_call,
+            "catalog_lse_bwd": 2 * catalog_lse_bwd.launches_per_call}
+    return step_against_plain(f"NCL step d={NCL_WIDE_D}",
+                              (lambda p: model.loss(p, state, batch, graph)[0], params),
+                              (lambda p: plain.loss(p, state, batch, graph)[0], params),
+                              torch.float32, want, fro_tol=GAT_FRO_TOL)
 
 
 def check_e_steps(records, k_users, k_items):
@@ -1700,7 +1779,7 @@ def sampler_seconds(graph, reps=3):
 # -- the sets a quality gate can fail: the clustered large set, the hard set ------
 
 SEGMENT_COUNTERS = (weighted_pull, weighted_pull_dot, segment_softmax_rows,
-                    segment_softmax_rows_bwd)
+                    segment_softmax_rows_bwd, attention_softmax, attention_softmax_bwd)
 ALL_COUNTERS = COUNTERS + (gather_rows, gather_sum) + SEGMENT_COUNTERS
 
 
@@ -1767,7 +1846,7 @@ def expected_launches(model_name, graph, n_layers, steps, n_evals, e_steps=0):
     are XLA's)."""
     want = {f.__name__: 0 for f in ALL_COUNTERS}
     if model_name in NEIGHBOR_MODELS or graph.backend == "segment":
-        step, per_eval = neighbor_launches(model_name, graph.backend, n_layers)
+        step, per_eval = neighbor_launches(model_name, graph, n_layers)
         for k in set(step) | set(per_eval):
             want[k] = step.get(k, 0) * steps + per_eval.get(k, 0) * n_evals
         return want
@@ -2232,7 +2311,7 @@ def check_profile_launches(model_name, rec, batch):
     ``bucketed_step_launches`` or ``neighbor_launches`` says."""
     n_steps = 1 + min(PROFILE_STEPS, -(-rec.graph.n_edges // batch))
     n_layers = getattr(rec.model, "n_layers", None)
-    per_step = (neighbor_launches(model_name, rec.graph.backend, n_layers)[0]
+    per_step = (neighbor_launches(model_name, rec.graph, n_layers)[0]
                 if model_name in NEIGHBOR_PROFILED or rec.graph.backend == "segment"
                 else bucketed_step_launches(model_name, n_layers))
     want = {k: v * n_steps for k, v in per_step.items()}
@@ -2324,21 +2403,25 @@ GAT_FRO_TOL = 1e-5
 BACKEND_RECALL_GAP = 0.004
 
 
-def neighbor_launches(model_name, backend, n_layers):
+def neighbor_launches(model_name, graph, n_layers):
     """(per training step, per evaluation) launches of the segment kernels,
-    P1 and K7: GAT's two attention layers (forward S2 and S1; backward S1
-    with the head dot over the transpose, S2's backward and two P1 per-row
-    sums; on the bucket rows K7 once forward and three times backward a
-    layer);
+    P1 and K7 on ``graph``: GAT's two attention layers (forward S2 with the
+    logits, one launch and one more over the split rows' pieces where the
+    graph's attention structure splits a row, and S1; backward S1 with the
+    head dot over the transpose, S2's backward with the slope, launched as
+    the forward, and two P1 per-row sums; on the bucket rows K7 once
+    forward and three times backward a layer);
     GraphSAGE's L masked means (P1; the first takes no backward, its input
     being the fixed features); LightGCN's, NCL's and the square models' L
     segment matmuls both ways (their evaluation forward only); GRACE's and
     G-BT's two views of two segment matmuls both ways, where the graph is
     bucketed (their evaluation on the segment view once per layer)."""
+    backend = graph.backend
     if model_name == "gat":
-        step = {"weighted_pull": 2, "weighted_pull_dot": 2, "segment_softmax_rows": 2,
-                "segment_softmax_rows_bwd": 2, "gather_sum": 4}
-        per_eval = {"weighted_pull": 2, "segment_softmax_rows": 2}
+        s2 = 2 * (1 + (attention_structure(graph).schedule[2] > 0))
+        step = {"weighted_pull": 2, "weighted_pull_dot": 2, "attention_softmax": s2,
+                "attention_softmax_bwd": s2, "gather_sum": 4}
+        per_eval = {"weighted_pull": 2, "attention_softmax": s2}
         if backend == "bucketed":
             step["gather_rows"], per_eval["gather_rows"] = 8, 2
         return step, per_eval
@@ -2386,85 +2469,186 @@ def check_seg(name, fn, plain):
     return errs if len(errs) > 1 else errs[0]
 
 
-def segment_kernel_shape(label, st, n_src, heads):
-    """S1, S2 (forward, backward) and S1 with the head dot at one GAT
-    structure ``st`` (``models/gat.py::Attention``: a destination view or
-    the bucket rows, with its transpose view) and H heads of EMB, on the
-    random logits, weights and cotangents the attention would give them:
-    each against its plain version and itself, timed with its plain
-    version, a library call where one computes the same function (H = 1:
-    ``torch.sparse.mm`` over the weights as a CSR matrix for S1,
-    ``torch.sparse.softmax`` over the live slots for S2 and its backward
-    ``torch._sparse_softmax_backward_data``; where the rows are the
-    destination nodes, ``torch.sparse.sampled_addmm`` over the view's
-    pattern, batched over the heads, for S3), and its bound from the bytes
-    it must move, each input read once (the distinct source and destination
-    rows, not one row a slot). The fused call is timed beside S1 over the
-    transpose alone (its weights gathered beforehand); the difference is
-    S3's row, whose bound is what the fused call moves beyond S1's: the
-    source rows once and the [S, H] dot written."""
+def s2_library(row_ptr, live, n_slots, heads):
+    """The softmax-only S2's library yardstick at any head count: the live
+    slots as a hybrid COO [R, S, H] (each row's slots its sparse entries,
+    the heads a dense dimension), for ``torch.sparse.softmax(t, 1)`` and
+    ``torch._sparse_softmax_backward_data``. Returns a function of the
+    [S, H] values giving the coalesced tensor."""
+    keep = torch.ones(n_slots, dtype=torch.bool, device="cuda") if live is None else live
+    indices = torch.stack([slot_rows(row_ptr)[keep],
+                           torch.arange(n_slots, device="cuda")[keep]])
+    n_rows = row_ptr.numel() - 1
+    return lambda v: torch.sparse_coo_tensor(indices, v[keep], size=(n_rows, n_slots, heads)
+                                             ).coalesce()
+
+
+def library_time(fn):
+    """(``time_ms`` of a library yardstick, None), or (None, the reason)
+    where the call fails on the card."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as err:
+        return None, f"{type(err).__name__}: {str(err).splitlines()[0][:200]}"
+    return time_ms(fn), None
+
+
+def s2_rows(label, st, n_src, heads, rng):
+    """S2's two entries at one GAT structure and H heads: the fused
+    forward (``attention_softmax``: the logits gathered from random
+    [N, H] attention sums, the LeakyReLU, the softmax; with and without
+    the dropout's scale) and backward (``attention_softmax_bwd``: the
+    dropout's scale, the softmax's backward, the slope and the mask), and
+    the same kernels on given logits (``segment_softmax_rows`` and its
+    backward), each against its plain version and itself, timed with its
+    plain version, beside the bytes it must move (each input read once:
+    the work list, the slots' idx, dst and live, the [S, H] operands, and
+    the distinct [N, H] rows of the logit sums; the outputs written once)
+    and, for the softmax-only entries, the library call at this H
+    (``s2_library``). No one PyTorch call computes the fused entries."""
+    row_ptr, idx, dst, live, schedule = st.row_ptr, st.idx, st.dst, st.live, st.schedule
+    n_slots = idx.numel()
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).cuda()
+
+    a_src, a_dst = rand(n_src, heads, scale=2.0), rand(n_src, heads, scale=2.0)
+    e, g, datt = rand(n_slots, heads, scale=2.0), rand(n_slots, heads), rand(n_slots, heads)
+    keep = torch.from_numpy(((rng.random((n_slots, heads)) > 0.2) / 0.8).astype(
+        np.float32)).cuda()
+    args = (a_src, a_dst, idx, dst, row_ptr, live, 0.2)
+    live_idx = idx if live is None else idx[live]
+    live_dst = dst if live is None else dst[live]
+    logit_rows = torch.unique(live_idx).numel() + torch.unique(live_dst).numel()
+    work = schedule[0].numel() * 4 + schedule[1].numel() * 8
+    slot = 8 + (0 if live is None else 1)  # idx, dst, live
+    field = 4 * heads  # one [S, H] operand a slot
+    att_p, _ = attention_softmax_plain(*args)
+    att_e = segment_softmax_rows_plain(e, row_ptr, live)
+    coo = s2_library(row_ptr, live, n_slots, heads)
+    e_coo, g_coo = coo(e), coo(g)
+    lib, lib_why = library_time(lambda: torch.sparse.softmax(e_coo, 1))
+    lib_bwd = lib_bwd_why = lib_err = None
+    if lib is not None:
+        att_coo = torch.sparse.softmax(e_coo, 1)
+        lib_err = (att_coo.values() - (att_e if live is None else att_e[live])).abs().max()
+        lib_err = lib_err.item()
+        lib_bwd, lib_bwd_why = library_time(lambda: torch._sparse_softmax_backward_data(
+            g_coo, att_coo, 1, e_coo))
+    fwd = {
+        "max_abs_err": max(*check_seg(f"S2 fused {label}", lambda: attention_softmax(
+            *args, schedule), lambda: attention_softmax_plain(*args)), *check_seg(
+            f"S2 fused with keep {label}", lambda: attention_softmax(*args, schedule, keep),
+            lambda: attention_softmax_plain(*args, keep=keep))),
+        "ms": time_ms(lambda: attention_softmax(*args, schedule)),
+        "with_keep_ms": time_ms(lambda: attention_softmax(*args, schedule, keep)),
+        "plain_ms": time_ms(lambda: attention_softmax_plain(*args)),
+        "library_ms": None,
+        "bound": bytes_bound(work + n_slots * (slot + field) + logit_rows * field),
+        "with_keep_bound_ms": bytes_bound(work + n_slots * (slot + 3 * field)
+                                          + logit_rows * field)[0],
+        "softmax_only": {
+            "max_abs_err": check_seg(f"S2 {label}", lambda: segment_softmax_rows(
+                e, row_ptr, live, schedule), lambda: segment_softmax_rows_plain(e, row_ptr, live)),
+            "ms": time_ms(lambda: segment_softmax_rows(e, row_ptr, live, schedule)),
+            "plain_ms": time_ms(lambda: segment_softmax_rows_plain(e, row_ptr, live)),
+            "library_ms": lib, "library_failed": lib_why, "library_max_abs_err": lib_err,
+            "bound": bytes_bound(work + n_slots * (slot - 8 + 2 * field))}}
+    bwd = {
+        "max_abs_err": check_seg(f"S2 fused backward {label}", lambda: attention_softmax_bwd(
+            att_p, datt, *args, schedule, keep), lambda: attention_softmax_bwd_plain(
+            att_p, datt, *args, keep=keep)),
+        "ms": time_ms(lambda: attention_softmax_bwd(att_p, datt, *args, schedule, keep)),
+        "without_keep_ms": time_ms(lambda: attention_softmax_bwd(att_p, datt, *args, schedule)),
+        "plain_ms": time_ms(lambda: attention_softmax_bwd_plain(att_p, datt, *args, keep=keep)),
+        "library_ms": None,
+        "bound": bytes_bound(work + n_slots * (slot + 4 * field) + logit_rows * field),
+        "softmax_only": {
+            "max_abs_err": check_seg(f"S2 backward {label}", lambda: segment_softmax_rows_bwd(
+                att_e, g, row_ptr, schedule), lambda: segment_softmax_rows_bwd_plain(
+                att_e, g, row_ptr)),
+            "ms": time_ms(lambda: segment_softmax_rows_bwd(att_e, g, row_ptr, schedule)),
+            "plain_ms": time_ms(lambda: segment_softmax_rows_bwd_plain(att_e, g, row_ptr)),
+            "library_ms": lib_bwd, "library_failed": lib_bwd_why or lib_why,
+            "bound": bytes_bound(work + n_slots * 3 * field)}}
+    for row in (fwd["softmax_only"], bwd["softmax_only"]):
+        row["bound_ms"], row["bound_by"] = row.pop("bound")
+    return {"attention_softmax": fwd, "attention_softmax_bwd": bwd}
+
+
+def segment_kernel_shape(label, st, n_src, heads, s2_only=False):
+    """S1, S2 (``s2_rows``) and S1 with the head dot at one GAT structure
+    ``st`` (``models/gat.py::Attention``: a destination view or the bucket
+    rows, with its transpose view) and H heads of EMB, on the random
+    logits, weights and cotangents the attention would give them: each
+    against its plain version and itself, timed with its plain version, a
+    library call where one computes the same function (S1: at H = 1
+    ``torch.sparse.mm`` over the weights as a CSR matrix, else
+    ``torch.bmm`` over them as a batched COO [H, R, N] against the heads'
+    rows laid out [H, N, D] beforehand; where the rows are the destination
+    nodes, ``torch.sparse.sampled_addmm`` over the view's pattern, batched
+    over the heads, for S3), and its bound from the bytes it must move,
+    each input read once (the distinct source and destination rows, not
+    one row a slot). The fused pull is timed beside S1 over the transpose
+    alone (its weights gathered beforehand); the difference is S3's row,
+    whose bound is what the fused call moves beyond S1's: the source rows
+    once and the [S, H] dot written. ``s2_only``: S2's rows alone."""
     row_ptr, idx, dst, live, schedule = st.row_ptr, st.idx, st.dst, st.live, st.schedule
     n_slots, n_rows = idx.numel(), row_ptr.numel() - 1
     rng = np.random.default_rng(heads)
+    out = s2_rows(label, st, n_src, heads, rng)
+    if not s2_only:
+        out.update(s1_rows(label, st, n_src, heads, rng))
+    for row in out.values():
+        row["bound_ms"], row["bound_by"] = row.pop("bound")
+        row["shape"] = [n_rows, n_slots, heads, EMB]
+    return out
+
+
+def s1_rows(label, st, n_src, heads, rng):
+    """S1, S1 with the head dot and S3's share of it (``segment_kernel_shape``)."""
+    row_ptr, idx, dst, live, schedule = st.row_ptr, st.idx, st.dst, st.live, st.schedule
+    n_slots, n_rows = idx.numel(), row_ptr.numel() - 1
 
     def rand(*shape, scale=1.0):
         return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).cuda()
 
     # gy: a cotangent in node space, gathered by each slot's destination node
     x, gy = rand(n_src, heads * EMB), rand(n_src, heads * EMB)
-    e, g = rand(n_slots, heads, scale=2.0), rand(n_slots, heads)
+    e = rand(n_slots, heads, scale=2.0)
     att = segment_softmax_rows_plain(e, row_ptr, live)
     live_idx = idx if live is None else idx[live]
     src_rows = torch.unique(live_idx).numel()
     width = heads * EMB * 4
     out = {}
-    lib = None
+    lib_err = None
     if heads == 1:
         csr = torch.sparse_csr_tensor(row_ptr, idx.long(), att[:, 0].contiguous(),
                                       size=(n_rows, n_src))
-        lib = time_ms(lambda: torch.sparse.mm(csr, x))
+        lib, lib_why = library_time(lambda: torch.sparse.mm(csr, x))
+    else:
+        hh = torch.arange(heads, device="cuda").repeat_interleave(n_slots)
+        batched = torch.sparse_coo_tensor(
+            torch.stack([hh, slot_rows(row_ptr).repeat(heads), idx.long().repeat(heads)]),
+            att.t().reshape(-1), size=(heads, n_rows, n_src)).coalesce()
+        x_h = x.view(n_src, heads, EMB).transpose(0, 1).contiguous()
+        lib, lib_why = library_time(lambda: torch.bmm(batched, x_h))
+        if lib is not None:
+            lib_err = (torch.bmm(batched, x_h).transpose(0, 1)
+                       - weighted_pull_plain(x, att, idx, row_ptr)).abs().max().item()
+        del batched, x_h
     out["weighted_pull"] = {
         "max_abs_err": check_seg(f"S1 {label}", lambda: weighted_pull(x, att, idx, row_ptr,
                                                                       schedule),
                                  lambda: weighted_pull_plain(x, att, idx, row_ptr)),
         "ms": time_ms(lambda: weighted_pull(x, att, idx, row_ptr, schedule)),
         "plain_ms": time_ms(lambda: weighted_pull_plain(x, att, idx, row_ptr)),
-        "library_ms": lib,
+        "library_ms": lib, "library_failed": lib_why, "library_max_abs_err": lib_err,
         "per_slot_ms": bytes_bound(n_slots * (4 + 4 * heads + width) + (n_rows + 1) * 8
                                    + n_rows * width)[0],
         "bound": bytes_bound(n_slots * (4 + 4 * heads) + (n_rows + 1) * 8 + src_rows * width
                              + n_rows * width)}
-    lib = lib_bwd = None
-    if heads == 1:
-        keep = torch.ones_like(idx, dtype=torch.bool) if live is None else live
-        rows_of = slot_rows(row_ptr)
-        slots = torch.arange(n_slots, device="cuda")
-
-        def coo(v):
-            return torch.sparse_coo_tensor(torch.stack([rows_of[keep], slots[keep]]), v[keep, 0],
-                                           size=(n_rows, n_slots)).coalesce()
-
-        e_coo, g_coo = coo(e), coo(g)
-        att_coo = torch.sparse.softmax(e_coo, 1)
-        lib = time_ms(lambda: torch.sparse.softmax(e_coo, 1))
-        lib_bwd = time_ms(lambda: torch._sparse_softmax_backward_data(g_coo, att_coo, 1, e_coo))
-    out["segment_softmax_rows"] = {
-        "max_abs_err": check_seg(f"S2 {label}", lambda: segment_softmax_rows(e, row_ptr, live),
-                                 lambda: segment_softmax_rows_plain(e, row_ptr, live)),
-        "ms": time_ms(lambda: segment_softmax_rows(e, row_ptr, live)),
-        "plain_ms": time_ms(lambda: segment_softmax_rows_plain(e, row_ptr, live)),
-        "library_ms": lib,
-        "bound": bytes_bound(n_slots * (8 * heads + (0 if live is None else 1))
-                             + (n_rows + 1) * 8)}
-    out["segment_softmax_rows_bwd"] = {
-        "max_abs_err": check_seg(f"S2 backward {label}",
-                                 lambda: segment_softmax_rows_bwd(att, g, row_ptr),
-                                 lambda: segment_softmax_rows_bwd_plain(att, g, row_ptr)),
-        "ms": time_ms(lambda: segment_softmax_rows_bwd(att, g, row_ptr)),
-        "plain_ms": time_ms(lambda: segment_softmax_rows_bwd_plain(att, g, row_ptr)),
-        "library_ms": lib_bwd,
-        "bound": bytes_bound(n_slots * 12 * heads + (n_rows + 1) * 8)}
-
     # the backward's pull over the transpose view: alone (weights gathered
     # beforehand, as the backward did before the fold), then with the dot
     t_row_ptr, t_idx, fpos, t_node, t_schedule = (st.t_row_ptr, st.t_idx, st.t_fpos, st.t_node,
@@ -2523,20 +2707,18 @@ def segment_kernel_shape(label, st, n_src, heads):
         "plain_ms": time_ms(lambda: segment_dot_plain(gy, dst, x, idx, heads)),
         "library_ms": lib, "library_max_abs_err": lib_err,
         "fused_into": "weighted_pull_dot", "bound": bytes_bound(dot_bytes)}
-    for row in out.values():
-        row["bound_ms"], row["bound_by"] = row.pop("bound")
-        row["shape"] = [n_rows, n_slots, heads, EMB]
     return out
 
 
 def segment_kernel_shapes(label, graph):
-    """``segment_kernel_shape`` at H = 4 and 1 on the graph's GAT structure
-    (``attention_structure``): on the bucketed backend the bucket rows of
-    ``norm_adj.pull`` and ``pull_t`` (dead slots masked), else the views of
-    ``bidirectional_edges``."""
+    """``segment_kernel_shape`` at H = 4 and 1, and S2's rows at H = 3, on
+    the graph's GAT structure (``attention_structure``): on the bucketed
+    backend the bucket rows of ``norm_adj.pull`` and ``pull_t`` (dead slots
+    masked), else the views of ``bidirectional_edges``."""
     st = attention_structure(graph)
-    return {f"{label}_h{h}": segment_kernel_shape(f"{label} H={h}", st, graph.n_nodes, h)
-            for h in (4, 1)}
+    return {f"{label}_h{h}": segment_kernel_shape(f"{label} H={h}", st, graph.n_nodes, h,
+                                                  s2_only=h == 3)
+            for h in (4, 3, 1)}
 
 
 def segment_view_pull(graph):
@@ -2584,13 +2766,14 @@ def plain_own_error(plain, params, batch, graph):
                for a, b in zip(*grads))
 
 
-def neighbor_one_step(name, graph, batch_size):
-    """One step of GAT or GraphSAGE at its defaults through the segment
-    kernels, P1 (and K7) against its plain path (``PlainGAT``,
-    ``PlainGraphSAGE``) on the same draws: GraphSAGE's in f32; GAT's in
-    float64, its gradients by relative Frobenius error (GAT_FRO_TOL), with
-    the plain path's own f32 error beside it."""
-    config = default_config(**{"embedding.size": EMB})
+def neighbor_one_step(name, graph, batch_size, overrides=None):
+    """One step of GAT or GraphSAGE at its defaults (but for ``overrides``
+    of the config) through the segment kernels, P1 (and K7) against its
+    plain path (``PlainGAT``, ``PlainGraphSAGE``) on the same draws:
+    GraphSAGE's in f32; GAT's in float64, its gradients by relative
+    Frobenius error (GAT_FRO_TOL), with the plain path's own f32 error
+    beside it."""
+    config = default_config(**{"embedding.size": EMB, **(overrides or {})})
     model, plain = build(name, config), NEIGHBOR_PLAIN[name](config)
     params, _ = model.init(torch.Generator().manual_seed(0), graph)
     batch = first_batch(graph, batch_size)
@@ -2604,9 +2787,15 @@ def neighbor_one_step(name, graph, batch_size):
         f"{name} step {graph.backend}",
         (lambda p: zoo_loss(model, p, {}, batch, graph), params),
         (lambda p: zoo_loss(plain, p, {}, batch, graph), ref_params), torch.float32,
-        neighbor_launches(name, graph.backend, getattr(model, "n_layers", None))[0],
+        neighbor_launches(name, graph, getattr(model, "n_layers", None))[0],
         frozen=model.frozen, **tol)
-    return {**out, **extra}
+    return {**out, **extra, **(overrides or {})}
+
+
+# GAT's shapes past the kernels' old limits, on the hard set: a head count
+# that does not divide 32, and a head of 1024 f32 (past one column pass of
+# the fused pull)
+GAT_WIDE = {"gat_heads3": {"GAT.num_heads": 3}, "gat_hidden1024": {"GAT.hidden": 1024}}
 
 
 def segment_lightgcn_one_step(graph, batch_size):
@@ -2619,7 +2808,7 @@ def segment_lightgcn_one_step(graph, batch_size):
     return step_against_plain(
         "LightGCN step segment", (lambda p: model.loss(p, {}, batch, graph)[0], params),
         (lambda p: plain.loss(p, {}, batch, graph)[0], params), torch.float32,
-        neighbor_launches("lightgcn", "segment", model.n_layers)[0])
+        neighbor_launches("lightgcn", graph, model.n_layers)[0])
 
 
 def selfloop_one_step(name, graph):
@@ -2646,7 +2835,7 @@ def selfloop_one_step(name, graph):
     return step_against_plain(f"{name} step bucketed (segment self-loops)",
                               (lambda p: zoo_loss(model, p, {}, batch, graph), params),
                               (plain_loss, params), torch.float32,
-                              neighbor_launches(name, "bucketed", None)[0], **tol)
+                              neighbor_launches(name, graph, None)[0], **tol)
 
 
 def hard_neighbor_phase(data, f32, bucketed):
@@ -2663,6 +2852,8 @@ def hard_neighbor_phase(data, f32, bucketed):
     pop = {"masked": popularity_recall(data, f32, 20),
            "plain": popularity_recall(data, f32, 20, masked=False)}
     config = default_config(**{"embedding.size": EMB})
+    for key, overrides in GAT_WIDE.items():
+        out["one_step"][key] = neighbor_one_step("gat", f32, BATCH, overrides)
     for name in NEIGHBOR_MODELS:
         out["one_step"][name] = neighbor_one_step(name, f32, BATCH)
         plain = NEIGHBOR_PLAIN[name](config)
@@ -2721,10 +2912,10 @@ SEGMENT_SOURCES = {
     "weighted_pull": "recommendation_tpu/models/gat.py:59 (XLA's segment_sum, not a TPU kernel)",
     "weighted_pull_dot": "recommendation_tpu/models/gat.py:191 (the custom VJP's transpose pull, "
                          "XLA, with the gather-dot of :157 folded in; not a TPU kernel)",
-    "segment_softmax_rows": "recommendation_tpu/models/gat.py:47 (XLA's segment_max and "
-                            "segment_sum, not a TPU kernel)",
-    "segment_softmax_rows_bwd": "recommendation_tpu/models/gat.py:162 (the custom VJP's "
-                                "softmax backward, XLA; not a TPU kernel)",
+    "attention_softmax": "recommendation_tpu/models/gat.py:44-52 (the logits, XLA's segment_max "
+                         "and segment_sum; not a TPU kernel)",
+    "attention_softmax_bwd": "recommendation_tpu/models/gat.py:162-165 (the custom VJP's "
+                             "softmax backward, slope and mask, XLA; not a TPU kernel)",
     "segment_dot": "recommendation_tpu/models/gat.py:157 (the custom VJP's gather-dot, XLA; "
                    "not a TPU kernel)",
 }
@@ -2732,9 +2923,10 @@ SEGMENT_SOURCES = {
 
 def segment_kernel_rows(hard, clustered, card):
     """The kernels line's rows of S1, S1 with the head dot, S2 (forward,
-    backward) and S3: the clustered bucket tables at H = 4 (GAT's first
-    layer there) as the row's figures, every other measured shape beside
-    them; launches from the neighbour models' runs (the hard set's trained
+    backward: the fused entries, with the softmax-only ones beside them)
+    and S3: the clustered bucket tables at H = 4 (GAT's first layer there)
+    as the row's figures, every other measured shape beside them;
+    launches from the neighbour models' runs (the hard set's trained
     GraphSAGE and GAT, the clustered GAT's profiled steps). S3 runs inside
     S1's transpose pull: its row's time is the fused call's less S1's
     alone, its launches the fused call's."""
@@ -2746,13 +2938,15 @@ def segment_kernel_rows(hard, clustered, card):
         row = {"name": name, "route": "cuda", "source": "recommendation_tpu_torch/csrc/segment.cu",
                "replaces": src, "timed": "clustered bucket rows, H=4, d=64", "launches": 0,
                **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                       "library_ms", "shape")},
+                                       "library_ms", "shape") if k in main},
                "shapes": {label: s[name] for label, s in shapes.items()
-                          if label != "clustered_h4"}, "card": card}
+                          if label != "clustered_h4" and name in s}, "card": card}
+        if "softmax_only" in main:
+            row["softmax_only"] = main["softmax_only"]
         if counter != name:
             row["fused_into"] = f"{counter} (S1's transpose pull, PR 10)"
             row["launches_of"] = counter
-        row["max_abs_err"] = max(s[name]["max_abs_err"] for s in shapes.values())
+        row["max_abs_err"] = max(s[name]["max_abs_err"] for s in shapes.values() if name in s)
         for run in hard["train"]:
             n = run["launches"].get(counter, 0)
             if n:
@@ -2819,8 +3013,13 @@ def main() -> int:
     bwd_rows = kernel_phase_bwd(graphs, params)
     layer_rows, layer_bwd_rows = kernel_phase_layer(graphs, params)
     lse_rows = kernel_phase_lse(data.user_num, data.item_num)
+    lse_wide = kernel_phase_lse_wide(data.item_num)
+    for row in lse_rows:
+        for d, wide in lse_wide.items():
+            row[f"wide_{d}"] = {"shape": wide["shape"], **wide[row["name"]]}
     one_step = one_step_check(graphs, params)
     ncl_one_step = ncl_one_step_check(graphs, params)
+    ncl_one_step[f"float32_d{NCL_WIDE_D}"] = ncl_wide_one_step(graphs[torch.float32])
 
     serve = []
     with tempfile.TemporaryDirectory() as tmp:

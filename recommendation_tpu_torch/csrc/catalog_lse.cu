@@ -91,6 +91,14 @@
 //     for the scores, and the walked slices once more for the product.
 //     Shared memory: 5 x 64 x 68 floats and the accumulator, 87,040 bytes
 //     at d <= 64 (two blocks an SM) and up to 219,136 at d = 512.
+//   * Any d: the output columns are cut into slabs of at most SLAB slices
+//     (512 columns), a grid dimension. A slab's block recomputes its tile's
+//     scores over all of d and accumulates its own columns only, so the
+//     accumulator, and the shared memory, stop growing at d = 512; past it
+//     each extra slab repeats the score product (at d = 1024 a call is
+//     4 + 2 = 6 products of 2BNd where d <= 512 takes 4). The plan
+//     (ops/lse.py::lse_bwd_plan) sizes the splits to one wave of all the
+//     slabs' blocks; a partial's columns are written by their slab alone.
 //   * A fixed-order combine: the splits' partials are added in split
 //     order by a second launch spread over the card, then divided by tau.
 //     No float atomics: a call repeats bit for bit. Two launches a call.
@@ -107,6 +115,7 @@ constexpr int BT = 64;          // query rows and item rows of a block's tile
 constexpr int BK = 64;          // columns of d per staged slice
 constexpr int BLD = BK + 4;     // padded row: rows tx .. tx + 7 start 4 banks apart
 constexpr int BTHREADS = 256;   // 16 x 16, a 4 x 4 micro-tile each
+constexpr int SLAB = 8;         // K6: d-slices of output columns a block accumulates
 constexpr float NEG_INF = -1e30f;
 
 // Stage rows row0 .. row0 + BT, columns col0 .. col0 + BK of src [n_rows, d]
@@ -306,13 +315,17 @@ __global__ void __launch_bounds__(BTHREADS) lse_fwd_combine_kernel(const Fwd a) 
 
 // -- K6 -----------------------------------------------------------------------
 
+// K6's column slabs: SLAB d-slices of output columns each
+int bwd_slabs(int d) { return ((d + BK - 1) / BK + SLAB - 1) / SLAB; }
+
 // Shared memory: d <= BK keeps the owned tile, two walked stages, p and the
 // output accumulator ([BT][BLD] each); above, two stages of (owned slice,
-// walked slice), p, and the accumulator [BT][ns BK + 4].
+// walked slice), p, and the slab's accumulator [BT][nso BK + 4], nso <= SLAB
+// its slices.
 size_t bwd_smem_bytes(int d) {
-    const int ns = (d + BK - 1) / BK;
+    const int ns = (d + BK - 1) / BK, nso = ns < SLAB ? ns : SLAB;
     const size_t tiles = ns == 1 ? 4 : 5;
-    return (tiles * BT * BLD + static_cast<size_t>(BT) * (ns == 1 ? BLD : ns * BK + 4)) *
+    return (tiles * BT * BLD + static_cast<size_t>(BT) * (ns == 1 ? BLD : nso * BK + 4)) *
            sizeof(float);
 }
 
@@ -360,11 +373,12 @@ __device__ __forceinline__ void tile_product(const float* p, const float* v, int
 // side's tiles: on the query side it owns query rows and walks item tiles
 // (its partial dq), on the item side the reverse (its partial dx). For each
 // walked tile it forms the 64 x 64 scores, p = exp(s / tau - lse) * g, and
-// adds p . walked into its [64][d] accumulator, which it writes once at the
-// end as its split's partial.
+// adds p . walked into its accumulator of the slab's columns (blockIdx.y),
+// which it writes once at the end into its split's partial.
 __global__ void __launch_bounds__(BTHREADS, 2) lse_bwd_kernel(const Bwd a) {
     extern __shared__ __align__(16) float bwd_smem[];
     const int ns = (a.d + BK - 1) / BK;  // d slices
+    const int s0 = blockIdx.y * SLAB, nso = min(SLAB, ns - s0);  // the slab's output slices
     const int nq = (a.b + BT - 1) / BT, nx = (a.n + BT - 1) / BT;
     int bid = blockIdx.x;
     const bool qside = bid < nq * a.sq;
@@ -386,24 +400,25 @@ __global__ void __launch_bounds__(BTHREADS, 2) lse_bwd_kernel(const Bwd a) {
     auto walks = [&](int buf) { return bwd_smem + (ns == 1 ? 1 + buf : 2 * buf + 1) * BT * BLD; };
     float* ps = bwd_smem + (ns == 1 ? 3 : 4) * BT * BLD;  // p [owned][walked]
     float* out = ps + BT * BLD;                          // the accumulator
-    const int old = ns == 1 ? BLD : ns * BK + 4;
+    const int old = ns == 1 ? BLD : nso * BK + 4;
 
     // a walked tile is one stage at d <= BK (scores and product share it);
-    // above, ns scoring stages (both slices) then ns product stages (the
-    // walked slice again)
-    const int per_tile = ns == 1 ? 1 : 2 * ns;
+    // above, ns scoring stages (both slices) then nso product stages (the
+    // walked slice of the slab's columns again)
+    const int per_tile = ns == 1 ? 1 : ns + nso;
     const int stages = (t1 - t0) * per_tile;
     auto issue = [&](int k) {
         const int t = t0 + k / per_tile, j = k % per_tile, buf = k & 1;
-        const int s = j < ns ? j : j - ns;
+        const int s = j < ns ? j : s0 + j - ns;
         if (ns > 1 ? j < ns : k == 0) stage_rows(owns(buf), own, n_own, own0, s * BK, a.d, vec);
         stage_rows(walks(buf), walk, n_walk, t * BT, s * BK, a.d, vec);
         cp_async_commit();
     };
 
     // this thread's accumulator entries: rows ty + 16 i, columns
-    // s BK + 4 tx .. + 3 of each slice; no other thread touches them
-    for (int s = 0; s < ns; ++s)
+    // s BK + 4 tx .. + 3 of each of the slab's slices; no other thread
+    // touches them
+    for (int s = 0; s < nso; ++s)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
             *reinterpret_cast<float4*>(out + (ty + 16 * i) * old + s * BK + 4 * tx) =
@@ -457,7 +472,7 @@ __global__ void __launch_bounds__(BTHREADS, 2) lse_bwd_kernel(const Bwd a) {
             }
         }
         if (ns == 1 || j >= ns) {
-            const int s = ns == 1 ? 0 : j - ns;
+            const int s = ns == 1 ? 0 : j - ns;  // the slab's slice
             float o[4][4];
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
@@ -474,10 +489,11 @@ __global__ void __launch_bounds__(BTHREADS, 2) lse_bwd_kernel(const Bwd a) {
         __syncthreads();  // stage k's readers (and p's) are done before either is refilled
     }
 
-    // the split's partial: this thread's entries, rows below n_own, columns below d
+    // the split's partial: this thread's entries, rows below n_own, the
+    // slab's columns below d
     float* part = (qside ? a.dq_part : a.dx_part) + (size_t)split * n_own * a.d;
-    for (int s = 0; s < ns; ++s) {
-        const int col = s * BK + 4 * tx;
+    for (int s = 0; s < nso; ++s) {
+        const int col = (s0 + s) * BK + 4 * tx;
         if (col >= a.d) continue;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -543,13 +559,15 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 }  // namespace
 
 // Plain C interface for ctypes. Each call is one launch on the given stream;
-// it returns the CUDA error code (0 on success). Sizes are at least 1 and d
-// at most lse_max_d(); the wrapper checks both.
-extern "C" int lse_max_d() { return 512; }
+// it returns the CUDA error code (0 on success). Sizes are at least 1; the
+// wrapper checks them.
 
 // The tile (BT rows of q and of x): the wrappers size K5's and K6's splits
 // with it.
 extern "C" int lse_tile() { return BT; }
+
+// K6's column slabs at width d: its grid's second dimension.
+extern "C" int lse_bwd_slabs(int d) { return bwd_slabs(d); }
 
 // K5's blocks that one SM holds at once (0 if the runtime cannot say): the
 // wrapper's plan fits one wave of lse_fwd_kernel from it.
@@ -579,7 +597,8 @@ extern "C" int lse_fwd_f32(const float* q, const float* x, int b, int n, int d, 
 }
 
 // K6's blocks that one SM holds at once (0 if the runtime cannot say): the
-// wrapper's plan sizes the splits to one wave from it.
+// wrapper's plan sizes the splits to one wave from it. The shared memory is
+// the slab's, the same at every d past SLAB slices.
 extern "C" int lse_bwd_blocks_per_sm(int d) {
     const size_t smem = bwd_smem_bytes(d);
     int blocks = 0;
@@ -590,10 +609,10 @@ extern "C" int lse_bwd_blocks_per_sm(int d) {
     return blocks;
 }
 
-// K6: dq [B, d] and dx [N, d], two launches: the two sides' split blocks,
-// then the combine. The query side's blocks walk wq item tiles in each of
-// sq splits, the item side's wx query tiles in each of sx splits; dq_part
-// holds sq x B x d floats and dx_part sx x N x d.
+// K6: dq [B, d] and dx [N, d], two launches: the two sides' split blocks
+// (times the column slabs), then the combine. The query side's blocks walk
+// wq item tiles in each of sq splits, the item side's wx query tiles in
+// each of sx splits; dq_part holds sq x B x d floats and dx_part sx x N x d.
 extern "C" int lse_bwd_f32(const float* q, const float* x, const float* lse, const float* g,
                            int b, int n, int d, float tau, int wq, int sq, int wx, int sx,
                            float* dq, float* dx, float* dq_part, float* dx_part, void* stream) {
@@ -605,7 +624,7 @@ extern "C" int lse_bwd_f32(const float* q, const float* x, const float* lse, con
                 vec ? 1 : 0};
     const int nq = (b + BT - 1) / BT, nx = (n + BT - 1) / BT;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    lse_bwd_kernel<<<nq * sq + nx * sx, BTHREADS, smem, s>>>(a);
+    lse_bwd_kernel<<<dim3(nq * sq + nx * sx, bwd_slabs(d)), BTHREADS, smem, s>>>(a);
     if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
     const long long outs = (long long)(b + n) * (vec ? d / 4 : d);
     lse_bwd_combine_kernel<<<static_cast<unsigned>((outs + BTHREADS - 1) / BTHREADS), BTHREADS, 0,

@@ -24,15 +24,17 @@ and the map between their slots):
     (padding, and the COO's zero-valued padding entries: ``val == 0``) are
     no neighbours; K7 reorders the rows into node order.
 
-``AttentionPull`` is its autograd Function: the logits by gathers, S2 over
-the forward view (the masked softmax), S1 for the aggregation, and a
-backward in which every reverse flow is a gather or an ordered sum, as the
-JAX package's custom VJP (`gat.py:138-211`): one launch of S1 over the
-transpose view gives ``dh`` (each slot's weight read at its forward slot)
-and ``datt`` (S3 folded in: each gathered cotangent row dotted with the
-row's source row, the same rows the JAX package gathers twice,
-`gat.py:157,191`), then S2's backward, ``dα_dst`` the per-row sums (P1
-over the forward view) and ``dα_src`` P1 over the transpose view. No
+``AttentionPull`` is its autograd Function: S2 over the forward view (the
+logits gathered and the masked softmax taken in one kernel, the dropout's
+scale applied there too), S1 for the aggregation, and a backward in which
+every reverse flow is a gather or an ordered sum, as the JAX package's
+custom VJP (`gat.py:138-211`): one launch of S1 over the transpose view
+gives ``dh`` (each slot's weight read at its forward slot) and ``datt`` (S3
+folded in: each gathered cotangent row dotted with the row's source row,
+the same rows the JAX package gathers twice, `gat.py:157,191`), then S2's
+backward with the dropout scale, the LeakyReLU's slope and the mask in it
+(``dz``, the logits' cotangent), ``dα_dst`` the per-row sums (P1 over the
+forward view) and ``dα_src`` P1 over the transpose view. No
 atomics: a step repeats bit for bit. ``attention_plain`` computes the
 same with the plain versions under autograd (the reference), and
 ``gat_layer_bucketed`` with ``bucketed_row_nodes`` keeps the JAX package's
@@ -55,8 +57,9 @@ from recommendation_tpu_torch.models.registry import register
 from recommendation_tpu_torch.ops.gather import gather_rows, gather_sum
 from recommendation_tpu_torch.ops.rows import take_rows
 from recommendation_tpu_torch.ops.segment import (
-    segment_softmax_rows,
-    segment_softmax_rows_bwd,
+    attention_softmax,
+    attention_softmax_bwd,
+    logits_plain,
     segment_softmax_rows_plain,
     transpose_map,
     weighted_pull,
@@ -148,8 +151,7 @@ def bucketed_attention(csr, csr_t, aux) -> Attention:
 
 
 def _logits(a_src, a_dst, st: Attention, neg_slope):
-    z = a_src[st.idx.long()] + a_dst[st.dst.long()]
-    return z, F.leaky_relu(z, neg_slope)
+    return logits_plain(a_src, a_dst, st.idx, st.dst, neg_slope)
 
 
 def _to_nodes(y: torch.Tensor, pos: Optional[torch.Tensor]) -> torch.Tensor:
@@ -161,35 +163,33 @@ def _to_nodes(y: torch.Tensor, pos: Optional[torch.Tensor]) -> torch.Tensor:
 
 class AttentionPull(torch.autograd.Function):
     """``out[n] = Σ_s att[s] · keep[s] · h[idx[s]]`` over node n's slots,
-    ``att`` the masked softmax of the logits: S2, S1 (and K7 on the
-    bucketed path) forward; S1 with the head dot over the transpose view,
-    S2's backward and P1 (and K7) backward.
-    ``keep`` f32 [S, H] carries the dropout scale (None: no dropout); it
-    and the structure take no gradient."""
+    ``att`` the masked softmax of the logits: S2 with the logits and the
+    dropout scale fused in, S1 (and K7 on the bucketed path) forward; S1
+    with the head dot over the transpose view, S2's backward with the
+    dropout scale, the LeakyReLU's slope and the mask fused in, and P1 (and
+    K7) backward. ``keep`` f32 [S, H] carries the dropout scale (None: no
+    dropout); it and the structure take no gradient."""
 
     @staticmethod
     def forward(ctx, h, a_src, a_dst, keep, st, neg_slope):
-        z, e = _logits(a_src, a_dst, st, neg_slope)
-        att = segment_softmax_rows(e.contiguous(), st.row_ptr, st.live)
-        w = att if keep is None else att * keep
+        a_src, a_dst = a_src.contiguous(), a_dst.contiguous()
+        att, w = attention_softmax(a_src, a_dst, st.idx, st.dst, st.row_ptr, st.live, neg_slope,
+                                   st.schedule, keep)
         y = weighted_pull(h, w, st.idx, st.row_ptr, st.schedule)
-        ctx.save_for_backward(h, att, w, z, keep)
+        ctx.save_for_backward(h, a_src, a_dst, att, w, keep)
         ctx.args = (st, neg_slope)
         return _to_nodes(y, st.out_pos)
 
     @staticmethod
     def backward(ctx, g):
-        h, att, w, z, keep = ctx.saved_tensors
+        h, a_src, a_dst, att, w, keep = ctx.saved_tensors
         st, neg_slope = ctx.args
         g = g.contiguous()
         dh_rows, datt = weighted_pull_dot(g, w, st.t_idx, st.t_row_ptr, st.t_fpos, h,
                                           st.t_node, st.t_schedule)
         dh = _to_nodes(dh_rows, st.t_out_pos)
-        if keep is not None:
-            datt = datt * keep
-        de = segment_softmax_rows_bwd(att, datt, st.row_ptr)
-        slope = torch.where(z >= 0, torch.ones_like(z), torch.full_like(z, neg_slope))
-        dz = torch.where(st.live[:, None], de * slope, torch.zeros_like(de)).contiguous()
+        dz = attention_softmax_bwd(att, datt, a_src, a_dst, st.idx, st.dst, st.row_ptr, st.live,
+                                   neg_slope, st.schedule, keep)
         da_dst = _to_nodes(gather_sum(dz, st.ident, st.row_ptr, schedule=st.schedule),
                            st.out_pos)
         da_src = _to_nodes(gather_sum(dz, st.t2f, st.t_row_ptr, val=st.t_live.float(),

@@ -180,9 +180,10 @@ def _kernel_lib():
         lib.lse_bwd_f32.restype = i32
         lib.lse_bwd_blocks_per_sm.argtypes = [i32]
         lib.lse_bwd_blocks_per_sm.restype = i32
-        for fn in (lib.lse_max_d, lib.lse_tile):
-            fn.argtypes = []
-            fn.restype = i32
+        lib.lse_tile.argtypes = []
+        lib.lse_tile.restype = i32
+        lib.lse_bwd_slabs.argtypes = [i32]
+        lib.lse_bwd_slabs.restype = i32
         if lib.lse_tile() != TILE:
             raise RuntimeError(f"catalog_lse.cu's tile {lib.lse_tile()} is not {TILE}")
         lib.lse_error_string.argtypes = [i32]
@@ -191,25 +192,23 @@ def _kernel_lib():
     return lib
 
 
-def _launchable(name, lib, q):
-    if q.shape[1] > lib.lse_max_d():
-        raise ValueError(f"{name}'s kernel takes d <= {lib.lse_max_d()}, got {q.shape[1]}")
-
-
 _SLOTS: dict[tuple[str, torch.device, int], int] = {}
 
 
 def _slots(lib, kernel: str, device: torch.device, d: int) -> int:
     """The blocks of K5 (``kernel`` "fwd") or K6 ("bwd") that the card holds
     at once: its SMs times what one SM holds (``lse_<kernel>_blocks_per_sm``;
-    the shared memory grows with d's 64-column slices)."""
+    the shared memory grows with d's 64-column slices, K6's up to one slab
+    of 512 columns). K6's share for each of its column slabs
+    (``lse_bwd_slabs``): the plan then fills one wave with all of them."""
     key = (kernel, device, -(-d // TILE))
     if key not in _SLOTS:
         with torch.cuda.device(device):
             per_sm = getattr(lib, f"lse_{kernel}_blocks_per_sm")(d)
         if per_sm <= 0:
             raise RuntimeError(f"catalog_lse.cu: the runtime gave no occupancy for lse_{kernel}")
-        _SLOTS[key] = per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+        slots = per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+        _SLOTS[key] = max(1, slots // lib.lse_bwd_slabs(d)) if kernel == "bwd" else slots
     return _SLOTS[key]
 
 
@@ -228,7 +227,6 @@ def catalog_lse(q: torch.Tensor, x: torch.Tensor, tau: float) -> torch.Tensor:
     if q.device.type == "cpu":
         return catalog_lse_plain(q, x, tau)
     lib = _kernel_lib()
-    _launchable("catalog_lse", lib, q)
     (b, d), n = q.shape, x.shape[0]
     w, splits = lse_fwd_plan(b, n, _slots(lib, "fwd", q.device, d))
     lse = torch.empty(b, dtype=torch.float32, device=q.device)
@@ -253,13 +251,13 @@ def catalog_lse_bwd(q: torch.Tensor, x: torch.Tensor, tau: float, lse: torch.Ten
 
     CUDA tensors run K6: one launch of both sides' split blocks, each
     recomputing its tiles' scores and writing one partial a split
-    (``lse_bwd_plan``), and a second that adds the partials in split
+    (``lse_bwd_plan``), its output columns cut into slabs of 512 (one block
+    a slab: any d), and a second launch that adds the partials in split
     order. CPU tensors run ``catalog_lse_bwd_plain``."""
     _check("catalog_lse_bwd", q, x, lse, g)
     if q.device.type == "cpu":
         return catalog_lse_bwd_plain(q, x, tau, lse, g)
     lib = _kernel_lib()
-    _launchable("catalog_lse_bwd", lib, q)
     (b, d), n = q.shape, x.shape[0]
     slots = _slots(lib, "bwd", q.device, d)
     wq, sq, wx, sx = lse_bwd_plan(b, n, slots)

@@ -25,9 +25,16 @@ Kernels, ``csrc/segment.cu`` (built for ``sm_90a`` at first use):
     S3 folded in: ``dot[fpos[t], h] = g[idx[t], h] · hsrc[node(r), h]``,
     S1's weight gradient, each gathered row dotted with its row's source
     row as it arrives;
-  * S2 ``segment_softmax_rows`` / ``segment_softmax_rows_bwd``: the
-    softmax of each row's live slots per head, and its backward
-    ``att · (g − Σ_row att · g)``.
+  * S2 ``attention_softmax(a_src, a_dst, idx, dst, row_ptr, live,
+    neg_slope, schedule, keep)``: GAT's logits ``LeakyReLU(a_src[idx] +
+    a_dst[dst])`` and the softmax of each row's live slots per head, with
+    ``att · keep`` beside it; ``attention_softmax_bwd``: its backward,
+    ``att · (datt·keep − Σ_row att · datt·keep)`` times the LeakyReLU's
+    slope, 0 at dead slots. ``segment_softmax_rows`` / ``_bwd`` are the
+    same kernels on given logits (no gather, no slope): the softmax and
+    ``att · (g − Σ_row att · g)``. Each runs on the rows' work list
+    (``pull_schedule``): one launch, and a second over the split rows'
+    pieces where a row is split.
 
 ``segment_dot(a, ia, b, ib)`` (``out[s, h] = a[ia[s], h] · b[ib[s], h]``)
 stays as the reference of the folded dot: it runs on CPU tensors only.
@@ -48,9 +55,11 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from recommendation_tpu_torch.ops.gather import (
     _check_device,
+    _ptr,
     check_schedule,
     gather_sum,
     pull_schedule,
@@ -166,6 +175,47 @@ def segment_softmax_rows_bwd_plain(att: torch.Tensor, g: torch.Tensor,
     return att * (g - dot[rows])
 
 
+def logits_plain(a_src: torch.Tensor, a_dst: torch.Tensor, idx: torch.Tensor,
+                 dst: torch.Tensor, neg_slope: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GAT's per-slot logits in plain torch: ``z = a_src[idx] + a_dst[dst]``
+    and ``e = LeakyReLU(z, neg_slope)``, [S, H] each."""
+    z = a_src[idx.long()] + a_dst[dst.long()]
+    return z, F.leaky_relu(z, neg_slope)
+
+
+def attention_softmax_plain(a_src: torch.Tensor, a_dst: torch.Tensor, idx: torch.Tensor,
+                            dst: torch.Tensor, row_ptr: torch.Tensor,
+                            live: Optional[torch.Tensor], neg_slope: float, schedule=None,
+                            keep: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """S2's fused forward in plain torch: ``logits_plain``, then
+    ``segment_softmax_rows_plain``; ``(att, w)`` with ``w = att · keep``
+    (``att`` itself where ``keep`` is None)."""
+    del schedule
+    _, e = logits_plain(a_src, a_dst, idx, dst, neg_slope)
+    att = segment_softmax_rows_plain(e, row_ptr, live)
+    return att, att if keep is None else att * keep
+
+
+def attention_softmax_bwd_plain(att: torch.Tensor, datt: torch.Tensor, a_src: torch.Tensor,
+                                a_dst: torch.Tensor, idx: torch.Tensor, dst: torch.Tensor,
+                                row_ptr: torch.Tensor, live: Optional[torch.Tensor],
+                                neg_slope: float, schedule=None,
+                                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """S2's fused backward in plain torch: the cotangent of the logits' sum
+    ``z`` given ``att`` and its cotangent ``datt``: ``g = datt · keep``,
+    ``de = att · (g − Σ_row att · g)``, ``dz = live ? de · (z ≥ 0 ? 1 :
+    neg_slope) : 0`` with ``z`` recomputed from ``a_src`` and ``a_dst``."""
+    del schedule
+    g = datt if keep is None else datt * keep
+    de = segment_softmax_rows_bwd_plain(att, g, row_ptr)
+    z, _ = logits_plain(a_src, a_dst, idx, dst, neg_slope)
+    slope = torch.where(z >= 0, torch.ones_like(z), torch.full_like(z, neg_slope))
+    if live is None:
+        return de * slope
+    return torch.where(live.bool()[:, None], de * slope, torch.zeros_like(de))
+
+
 def segment_dot_plain(a: torch.Tensor, ia: torch.Tensor, b: torch.Tensor, ib: torch.Tensor,
                       heads: int) -> torch.Tensor:
     """S3 in plain torch: the [S, H, D] gathers multiplied and summed."""
@@ -206,8 +256,11 @@ def _kernel_lib():
         pull = [ptr] * 5 + [i32] * 3 + [ptr] * 2 + [i32] + [ptr]
         lib.segment_pull.argtypes = pull + [ptr]
         lib.segment_pull_dot.argtypes = pull + [ptr] * 4 + [i64, ptr]
-        lib.segment_softmax_fwd.argtypes = [ptr] * 3 + [i64, i32] + [ptr] * 2
-        lib.segment_softmax_bwd.argtypes = [ptr] * 3 + [i64, i32] + [ptr] * 2
+        f32 = ctypes.c_float
+        lib.segment_softmax_fwd.argtypes = ([ptr] * 2 + [i32] * 2 + [ptr] * 6 + [f32]
+                                            + [ptr] * 6 + [i32, ptr])
+        lib.segment_softmax_bwd.argtypes = ([ptr] * 2 + [i32] * 2 + [ptr] * 8 + [f32]
+                                            + [ptr] * 4 + [i32, ptr])
         for fn in (lib.segment_pull, lib.segment_pull_dot, lib.segment_softmax_fwd,
                    lib.segment_softmax_bwd):
             fn.restype = i32
@@ -237,11 +290,6 @@ def _check_f32(name, **tensors):
 def _check_row_ptr(name, row_ptr):
     if row_ptr.dtype != torch.int64:
         raise TypeError(f"{name} takes an int64 row_ptr, got {row_ptr.dtype}")
-
-
-def _check_heads(name, heads):
-    if heads < 1 or 32 % heads:
-        raise ValueError(f"{name}'s kernel takes a head count that divides 32, got {heads}")
 
 
 def weighted_pull(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, row_ptr: torch.Tensor,
@@ -298,11 +346,6 @@ def _pull(name, fn, x, w, idx, row_ptr, schedule, out, *extra):
                 *extra, _stream(x))
 
 
-# the longest head that one column pass of the fused kernel holds (512 f32
-# in 16-byte units, 128 one f32 at a time)
-MAX_DOT_HEAD = 512
-
-
 def weighted_pull_dot(g: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
                       row_ptr: torch.Tensor, fpos: torch.Tensor, hsrc: torch.Tensor,
                       node: Optional[torch.Tensor] = None,
@@ -343,9 +386,6 @@ def weighted_pull_dot(g: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
     if g.device.type == "cpu":
         return weighted_pull_dot_plain(g, w, idx, row_ptr, fpos, hsrc, node)
     d_head = width // heads
-    if d_head > MAX_DOT_HEAD or (d_head % 4 and d_head > MAX_DOT_HEAD // 4):
-        raise ValueError(f"weighted_pull_dot's kernel takes heads of at most {MAX_DOT_HEAD} "
-                         f"f32 ({MAX_DOT_HEAD // 4} where 4 does not divide them), got {d_head}")
     dh = torch.empty((row_ptr.shape[0] - 1, heads, d_head), dtype=torch.float32,
                      device=g.device)
     dot = torch.empty(w.shape, dtype=torch.float32, device=g.device)
@@ -361,63 +401,182 @@ def weighted_pull_dot(g: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
 weighted_pull_dot.launches = 0
 
 
+def _live_u8(live: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The kernel's view of ``live``: one byte a slot, 0 dead (a bool
+    tensor as it is)."""
+    if live is None:
+        return None
+    return live.view(torch.uint8) if live.dtype == torch.bool else (live != 0).view(torch.uint8)
+
+
+def _softmax(name, fn, row_ptr, schedule, heads, device, *operands):
+    """One call of S2 (``fn`` ``segment_softmax_fwd`` or ``_bwd`` with its
+    ``operands``, pointers and the slope) on the rows' work list, with the
+    split rows' scratch: per piece the statistics (the forward's (max,
+    sum), the backward's sum) and its work item, and the rows' counters.
+    Returns its launches: one, and one more over the split rows' pieces."""
+    work, work_start, n_partials = check_schedule(
+        name, pull_schedule(row_ptr) if schedule is None else schedule, device)
+    stat = count = piece = None
+    if n_partials:
+        stat = torch.empty((n_partials, 2 * heads), dtype=torch.float32, device=device)
+        count = torch.empty(n_partials, dtype=torch.int32, device=device)
+        piece = torch.empty(n_partials, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        _launch(name, fn, work.data_ptr(), work_start.data_ptr(), work.shape[0], heads,
+                *operands, _ptr(stat), _ptr(count), _ptr(piece), n_partials,
+                torch.cuda.current_stream(device).cuda_stream)
+    return 2 if n_partials else 1
+
+
+def _check_rows(name, n_slots, row_ptr, live):
+    if row_ptr.dim() != 1 or (live is not None and live.shape != (n_slots,)):
+        raise ValueError(f"{name} wants row_ptr [R + 1] and live [S] = [{n_slots}], got "
+                         f"{tuple(row_ptr.shape)}, {None if live is None else tuple(live.shape)}")
+    _check_row_ptr(name, row_ptr)
+
+
 def segment_softmax_rows(e: torch.Tensor, row_ptr: torch.Tensor,
-                         live: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """S2's forward: f32 [S, H], the softmax of each row's live slots per
-    head (``live`` bool [S], None for all), dead slots 0. CUDA tensors run
-    kernel S2 (one launch; H must divide 32), CPU tensors
+                         live: Optional[torch.Tensor] = None,
+                         schedule: Optional[Tuple[torch.Tensor, torch.Tensor, int]] = None
+                         ) -> torch.Tensor:
+    """S2's forward on given logits: f32 [S, H], the softmax of each row's
+    live slots per head (``live`` bool [S], None for all), dead slots 0.
+    ``schedule`` is the rows' work list ``pull_schedule(row_ptr)`` (built
+    here, with a host read, when None). CUDA tensors run kernel S2 without
+    its logits (one or two launches), CPU tensors
     ``segment_softmax_rows_plain``."""
-    if e.dim() != 2 or row_ptr.dim() != 1 or (live is not None and live.shape != e.shape[:1]):
-        raise ValueError(f"segment_softmax_rows wants e [S, H], row_ptr [R + 1], live [S], got "
-                         f"{tuple(e.shape)}, {tuple(row_ptr.shape)}")
+    if e.dim() != 2:
+        raise ValueError(f"segment_softmax_rows wants e [S, H], got {tuple(e.shape)}")
+    _check_rows("segment_softmax_rows", e.shape[0], row_ptr, live)
     _check_f32("segment_softmax_rows", e=e)
-    _check_row_ptr("segment_softmax_rows", row_ptr)
     _check_device("segment_softmax_rows", [t for t in (e, row_ptr, live) if t is not None])
     if e.device.type == "cpu":
         return segment_softmax_rows_plain(e, row_ptr, live)
-    _check_heads("segment_softmax_rows", e.shape[1])
     att = torch.empty_like(e)
-    n_rows = row_ptr.shape[0] - 1
-    if e.numel() == 0 or n_rows == 0:
+    if e.numel() == 0 or row_ptr.shape[0] < 2:
         return att.zero_()
-    live_u8 = None if live is None else live.to(torch.uint8).contiguous()
-    with torch.cuda.device(e.device):
-        _launch("segment_softmax_rows", "segment_softmax_fwd", e.data_ptr(),
-                None if live_u8 is None else live_u8.data_ptr(), row_ptr.data_ptr(), n_rows,
-                e.shape[1], att.data_ptr(), _stream(e))
-    segment_softmax_rows.launches += 1
+    segment_softmax_rows.launches += _softmax(
+        "segment_softmax_rows", "segment_softmax_fwd", row_ptr, schedule, e.shape[1], e.device,
+        e.data_ptr(), None, None, None, None, _ptr(_live_u8(live)), 0.0, None, att.data_ptr(),
+        None)
     return att
 
 
 segment_softmax_rows.launches = 0
 
 
-def segment_softmax_rows_bwd(att: torch.Tensor, g: torch.Tensor,
-                             row_ptr: torch.Tensor) -> torch.Tensor:
-    """S2's backward: f32 [S, H], ``att · (g − Σ_row att · g)``. CUDA
-    tensors run kernel S2's backward (one launch), CPU tensors
-    ``segment_softmax_rows_bwd_plain``."""
-    if att.dim() != 2 or g.shape != att.shape or row_ptr.dim() != 1:
+def segment_softmax_rows_bwd(att: torch.Tensor, g: torch.Tensor, row_ptr: torch.Tensor,
+                             schedule: Optional[Tuple[torch.Tensor, torch.Tensor, int]] = None
+                             ) -> torch.Tensor:
+    """S2's backward on given logits: f32 [S, H], ``att · (g − Σ_row att ·
+    g)``. CUDA tensors run kernel S2's backward without the slope and mask
+    (one or two launches), CPU tensors ``segment_softmax_rows_bwd_plain``."""
+    if att.dim() != 2 or g.shape != att.shape:
         raise ValueError(f"segment_softmax_rows_bwd wants att and g [S, H], got "
                          f"{tuple(att.shape)}, {tuple(g.shape)}")
+    _check_rows("segment_softmax_rows_bwd", att.shape[0], row_ptr, None)
     _check_f32("segment_softmax_rows_bwd", att=att, g=g)
-    _check_row_ptr("segment_softmax_rows_bwd", row_ptr)
     _check_device("segment_softmax_rows_bwd", [att, g, row_ptr])
     if att.device.type == "cpu":
         return segment_softmax_rows_bwd_plain(att, g, row_ptr)
-    _check_heads("segment_softmax_rows_bwd", att.shape[1])
     de = torch.empty_like(att)
-    n_rows = row_ptr.shape[0] - 1
-    if att.numel() == 0 or n_rows == 0:
+    if att.numel() == 0 or row_ptr.shape[0] < 2:
         return de.zero_()
-    with torch.cuda.device(att.device):
-        _launch("segment_softmax_rows_bwd", "segment_softmax_bwd", att.data_ptr(), g.data_ptr(),
-                row_ptr.data_ptr(), n_rows, att.shape[1], de.data_ptr(), _stream(att))
-    segment_softmax_rows_bwd.launches += 1
+    segment_softmax_rows_bwd.launches += _softmax(
+        "segment_softmax_rows_bwd", "segment_softmax_bwd", row_ptr, schedule, att.shape[1],
+        att.device, att.data_ptr(), g.data_ptr(), None, None, None, None, None, None, 0.0,
+        de.data_ptr())
     return de
 
 
 segment_softmax_rows_bwd.launches = 0
+
+
+def _check_attention(name, a_src, a_dst, idx, dst, row_ptr, live, keep, *slot_values):
+    """The fused entries' operands: a_src, a_dst [N, H] f32; idx, dst [S]
+    int32; keep and each of ``slot_values`` [S, H] f32; live [S]."""
+    n_slots = idx.shape[0] if idx.dim() == 1 else -1
+    heads = a_src.shape[1] if a_src.dim() == 2 else -1
+    if (a_src.dim() != 2 or a_dst.dim() != 2 or a_dst.shape[1] != heads or idx.dim() != 1
+            or dst.shape != idx.shape
+            or any(t is not None and t.shape != (n_slots, heads) for t in (keep, *slot_values))):
+        raise ValueError(f"{name} wants a_src, a_dst [N, H], idx and dst [S], keep [S, H], got "
+                         f"{tuple(a_src.shape)}, {tuple(a_dst.shape)}, {tuple(idx.shape)}, "
+                         f"{tuple(dst.shape)}, {None if keep is None else tuple(keep.shape)}")
+    _check_rows(name, n_slots, row_ptr, live)
+    _check_f32(name, a_src=a_src, a_dst=a_dst, keep=keep,
+               **{f"input {k}": t for k, t in enumerate(slot_values)})
+    if idx.dtype != torch.int32 or dst.dtype != torch.int32:
+        raise TypeError(f"{name} takes int32 idx and dst, got {idx.dtype}, {dst.dtype}")
+    _check_device(name, [t for t in (a_src, a_dst, idx, dst, row_ptr, live, keep, *slot_values)
+                         if t is not None])
+
+
+def attention_softmax(a_src: torch.Tensor, a_dst: torch.Tensor, idx: torch.Tensor,
+                      dst: torch.Tensor, row_ptr: torch.Tensor, live: Optional[torch.Tensor],
+                      neg_slope: float,
+                      schedule: Optional[Tuple[torch.Tensor, torch.Tensor, int]] = None,
+                      keep: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """S2 with GAT's logits: ``(att, w)``, f32 [S, H] each. ``att`` is the
+    softmax over each row's live slots of ``LeakyReLU(a_src[idx] +
+    a_dst[dst], neg_slope)`` per head, dead slots 0; ``w = att · keep``
+    (``att`` itself where ``keep`` is None).
+
+    ``a_src``, ``a_dst`` [N, H] float32; ``idx``, ``dst`` [S] int32 each
+    slot's source and destination node; ``row_ptr`` [R + 1] int64 from 0 to
+    S; ``live`` bool [S] (None: all live); ``keep`` [S, H] float32, the
+    dropout's scale; ``schedule`` as ``segment_softmax_rows``'. CUDA tensors
+    run kernel S2 with the logits fused in (one or two launches), CPU
+    tensors ``attention_softmax_plain``."""
+    _check_attention("attention_softmax", a_src, a_dst, idx, dst, row_ptr, live, keep)
+    if a_src.device.type == "cpu":
+        return attention_softmax_plain(a_src, a_dst, idx, dst, row_ptr, live, neg_slope,
+                                       keep=keep)
+    att = torch.empty((idx.shape[0], a_src.shape[1]), dtype=torch.float32, device=a_src.device)
+    w = att if keep is None else torch.empty_like(att)
+    if att.numel() == 0 or row_ptr.shape[0] < 2:
+        return att.zero_(), w.zero_()
+    attention_softmax.launches += _softmax(
+        "attention_softmax", "segment_softmax_fwd", row_ptr, schedule, att.shape[1],
+        att.device, None, a_src.data_ptr(), a_dst.data_ptr(), idx.data_ptr(), dst.data_ptr(),
+        _ptr(_live_u8(live)), float(neg_slope), _ptr(keep), att.data_ptr(),
+        None if keep is None else w.data_ptr())
+    return att, w
+
+
+attention_softmax.launches = 0
+
+
+def attention_softmax_bwd(att: torch.Tensor, datt: torch.Tensor, a_src: torch.Tensor,
+                          a_dst: torch.Tensor, idx: torch.Tensor, dst: torch.Tensor,
+                          row_ptr: torch.Tensor, live: Optional[torch.Tensor], neg_slope: float,
+                          schedule: Optional[Tuple[torch.Tensor, torch.Tensor, int]] = None,
+                          keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """S2's backward with the logits': f32 [S, H], the cotangent of ``z =
+    a_src[idx] + a_dst[dst]`` given ``att`` and its cotangent ``datt``:
+    ``de = att · (g − Σ_row att · g)`` with ``g = datt · keep``, times the
+    LeakyReLU's slope at ``z`` (recomputed from ``a_src`` and ``a_dst``), 0
+    at dead slots. Operands as ``attention_softmax``'s. CUDA tensors run
+    kernel S2's backward with the slope and mask fused in (one or two
+    launches), CPU tensors ``attention_softmax_bwd_plain``."""
+    _check_attention("attention_softmax_bwd", a_src, a_dst, idx, dst, row_ptr, live, keep,
+                     att, datt)
+    if att.device.type == "cpu":
+        return attention_softmax_bwd_plain(att, datt, a_src, a_dst, idx, dst, row_ptr, live,
+                                           neg_slope, keep=keep)
+    dz = torch.empty_like(att)
+    if att.numel() == 0 or row_ptr.shape[0] < 2:
+        return dz.zero_()
+    attention_softmax_bwd.launches += _softmax(
+        "attention_softmax_bwd", "segment_softmax_bwd", row_ptr, schedule, att.shape[1],
+        att.device, att.data_ptr(), datt.data_ptr(), _ptr(keep), a_src.data_ptr(),
+        a_dst.data_ptr(), idx.data_ptr(), dst.data_ptr(), _ptr(_live_u8(live)),
+        float(neg_slope), dz.data_ptr())
+    return dz
+
+
+attention_softmax_bwd.launches = 0
 
 
 def segment_dot(a: torch.Tensor, ia: torch.Tensor, b: torch.Tensor, ib: torch.Tensor,
@@ -447,18 +606,21 @@ def segment_dot(a: torch.Tensor, ia: torch.Tensor, b: torch.Tensor, ib: torch.Te
 
 
 class SegmentSoftmax(torch.autograd.Function):
-    """S2 with its backward: ``segment_softmax_rows(e, row_ptr, live)``."""
+    """S2 with its backward: ``segment_softmax_rows(e, row_ptr, live,
+    schedule)``."""
 
     @staticmethod
-    def forward(ctx, e, row_ptr, live):
-        att = segment_softmax_rows(e.contiguous(), row_ptr, live)
+    def forward(ctx, e, row_ptr, live, schedule=None):
+        att = segment_softmax_rows(e.contiguous(), row_ptr, live, schedule)
         ctx.save_for_backward(att, row_ptr)
+        ctx.schedule = schedule
         return att
 
     @staticmethod
     def backward(ctx, g):
         att, row_ptr = ctx.saved_tensors
-        return segment_softmax_rows_bwd(att, g.contiguous(), row_ptr), None, None
+        return (segment_softmax_rows_bwd(att, g.contiguous(), row_ptr, ctx.schedule), None, None,
+                None)
 
 
 class SegmentPull(torch.autograd.Function):

@@ -15,16 +15,20 @@ one step of each zoo model that reaches a kernel (SelfCF dense through
 K1/K2 and bucketed through K7/P1; BUIR, GCL and BGRL bucketed, P1's value
 path) against its plain path on the same masks. The segment kernels
 (``csrc/segment.cu``): S1 (the multi-head weighted pull) and S2 (the
-segment softmax and its backward) against their plain versions and bit
-for bit across two calls, on a segment view with split hub rows and on
-bucket rows; S1 at every group width and head count with a hub row of
-12,000 slots; S1 with the head dot (S3 folded into the transpose pull)
-against its plain version on both GAT structures, the forward slots no
-live slot reaches exactly 0; one step of GAT (dense, segment and
-bucketed backends), GraphSAGE, LightGCN on the segment backend and GRACE
-and G-BT on a bucketed graph against their plain paths.
+segment softmax and its backward, on given logits and with GAT's logits,
+dropout scale, slope and mask fused in) against their plain versions and
+bit for bit across two calls, on a segment view with split hub rows, on
+bucket rows, and at head counts 1 to 12 on rows that are empty, hold no
+live slot, fit one work item or split into many pieces; S1 at every group
+width and head count with a hub row of 12,000 slots; S1 with the head dot
+(S3 folded into the transpose pull) against its plain version on both GAT
+structures and at heads of 130 and 1024 f32, the forward slots no live
+slot reaches exactly 0; K5 and K6 at d = 1024; one step of GAT (dense,
+segment and bucketed backends, and at 3 heads and a hidden width of 1024
+against the plain path in float64), GraphSAGE, LightGCN on the segment
+backend and GRACE and G-BT on a bucketed graph against their plain paths.
 Calls on two streams at once equal the same calls in turn (the chain's tile
-counters, P1's and S1's piece counters, K5's and K6's partials, the
+counters, P1's, S1's and S2's piece counters, K5's and K6's partials, the
 fused pull's dot).
 
 These tests need a CUDA device and ``nvcc``; elsewhere they skip. This file
@@ -319,15 +323,13 @@ LSE_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("b,n,d", [(2048, 943, 64), (2048, 1675, 64), (37, 700, 24),
-                                   (1, 1, 1), (70, 65, 520)])
+                                   (1, 1, 1), (70, 65, 520), (300, 700, 1024), (37, 130, 600)])
 def test_lse_kernels_match_plain(card, b, n, d):
+    """K5 and K6 against their plain versions, past K6's one 512-column
+    slab too (520, 600 and 1024: two slabs)."""
     rng = np.random.default_rng(b + n + d)
     q, x = _unit_rows(card, rng, b, d), _unit_rows(card, rng, n, d)
     (g,) = _random(card, rng, (b,))
-    if d > 512:
-        with pytest.raises(ValueError, match="d <= 512"):
-            catalog_lse(q, x, 0.1)
-        return
     before = catalog_lse.launches, catalog_lse_bwd.launches
     lse = catalog_lse(q, x, 0.1)
     dq, dx = catalog_lse_bwd(q, x, 0.1, lse, g)
@@ -501,14 +503,14 @@ def test_chain_kernels_across_slices(card, dtype, shape, many):
             torch.testing.assert_close(g, w, **tol)
 
 
-@pytest.mark.parametrize("d", [1, 24, 64, 130, 512])
+@pytest.mark.parametrize("d", [1, 24, 64, 130, 512, 1024])
 @pytest.mark.parametrize("b,n", [(70, 130), (1, 700), (200, 40)],
                          ids=["ragged", "one-query", "under-one-item-tile"])
 def test_lse_backward_across_tiles(card, b, n, d):
     """K6 where B and N are not multiples of its 64-row tiles, N is below
-    one tile, B is 1, and d is cut into 64-column slices (130, 512) or
-    below one (1, 24): dq and dx against the plain version, and two calls
-    equal bit for bit."""
+    one tile, B is 1, and d is cut into 64-column slices (130, 512), into
+    two 512-column slabs (1024) or below one slice (1, 24): dq and dx
+    against the plain version, and two calls equal bit for bit."""
     rng = np.random.default_rng(b + n + d)
     q, x = _unit_rows(card, rng, b, d), _unit_rows(card, rng, n, d)
     (g,) = _random(card, rng, (b,))
@@ -525,7 +527,7 @@ def test_lse_backward_across_tiles(card, b, n, d):
 
 
 @pytest.mark.parametrize("b,n,d", [(2048, 943, 64), (2048, 1675, 64), (37, 700, 24),
-                                   (2048, 100_000, 64), (70, 130, 130)])
+                                   (2048, 100_000, 64), (70, 130, 130), (200, 3000, 1024)])
 def test_lse_forward_across_splits(card, b, n, d):
     """K5 at NCL's two step shapes, a ragged one, a 100,000-item catalog (a
     split of 196 item tiles) and d past one 64-column slice: against the
@@ -548,7 +550,7 @@ def test_lse_forward_across_splits(card, b, n, d):
 
 
 @pytest.mark.parametrize("b,n,d", [(2048, 943, 64), (2048, 1675, 64), (8192, 100_000, 64),
-                                   (37, 700, 24), (70, 130, 130)])
+                                   (37, 700, 24), (70, 130, 130), (2048, 1675, 1024)])
 def test_lse_backward_sides_match_their_split_arithmetic(card, b, n, d):
     """K6's two sides (query tiles walking split item tiles for dq, item
     tiles walking split query tiles for dx) at NCL's dense pair, at B = 8192
@@ -720,6 +722,19 @@ def _two_calls(card, kernel):
         return [lambda q=q_, lse=l_: list(catalog_lse_bwd(q, x, 0.1, lse, g))
                 for q_, l_ in zip(q, lse)]
     pairs = make_flat_interactions(2000, 4000, 40_000, seed=1)
+    if kernel == "attention_softmax":
+        st = _attention(card, "bucketed")
+        assert st.schedule[2] > 0  # split rows: the pieces' counters are used
+        n = int(st.dst.max().item()) + 1
+        alphas = [_random(card, rng, (n, 4), (n, 4)) for _ in range(2)]
+        datt = _random(card, rng, (st.idx.numel(), 4))[0]
+
+        def s2(a_src, a_dst):
+            args = (a_src, a_dst, st.idx, st.dst, st.row_ptr, st.live, 0.2, st.schedule)
+            att, _ = seg_ops.attention_softmax(*args)
+            return [att, seg_ops.attention_softmax_bwd(att, datt, *args)]
+
+        return [lambda a=a: s2(*a) for a in alphas]
     if kernel == "weighted_pull_dot":
         st = _attention(card, "bucketed")
         assert st.t_schedule[2] > 0  # split rows: the pieces' counters are used
@@ -744,13 +759,13 @@ def _two_calls(card, kernel):
 
 
 @pytest.mark.parametrize("kernel", ["chain", "lse", "lse_bwd", "pull", "weighted_pull",
-                                    "weighted_pull_dot"])
+                                    "weighted_pull_dot", "attention_softmax"])
 def test_calls_on_two_streams_equal_calls_in_turn(card, kernel):
     """Two calls launched on two streams at once give what the same calls
     give one after the other on one stream, bit for bit, ten times over:
-    the chain's tile counters, P1's and S1's piece counters, K5's and
-    K6's partials and the fused pull's zeroed dot are not mixed between
-    streams."""
+    the chain's tile counters, P1's, S1's and S2's piece counters and S2's
+    piece statistics, K5's and K6's partials and the fused pull's zeroed
+    dot are not mixed between streams."""
     fns = _two_calls(card, kernel)
     want = [fn() for fn in fns]
     torch.cuda.synchronize()
@@ -992,7 +1007,9 @@ def test_segment_kernels_match_plain(card, heads, d):
                         lambda: seg_ops.segment_softmax_rows_bwd_plain(att, g, view.row_ptr))
     after = (seg_ops.weighted_pull.launches, seg_ops.segment_softmax_rows.launches,
              seg_ops.segment_softmax_rows_bwd.launches)
-    assert [a - b for a, b in zip(after, before)] == [2, 2, 2]
+    # S2 without a schedule builds one; a split row adds its pieces' launch
+    s2 = 2 * (1 + (view.n_partials > 0))
+    assert view.n_partials > 0 and [a - b for a, b in zip(after, before)] == [2, s2, s2]
     # no live slot in a row: its weights are 0
     none = seg_ops.segment_softmax_rows(e, view.row_ptr, torch.zeros_like(live))
     assert not none.any()
@@ -1009,9 +1026,12 @@ def _hub_view(card):
 
 
 # (heads, d): 16 lanes a row (H*D <= 64), a warp with 1, 2 or 4 16-byte
-# units a lane (H*D 128, 256, 320), two column passes (H*D 640), and one f32
-# at a time (d not a multiple of 4)
-S1_WIDTHS = [(1, 64), (2, 32), (4, 16), (1, 128), (4, 64), (2, 160), (4, 160), (1, 7), (4, 9)]
+# units a lane (H*D 128, 256, 320), two column passes (H*D 640), one f32
+# at a time (d not a multiple of 4), and heads wider than a column pass
+# (the fused pull's dot over several passes: 1024 f32, and 130 one at a
+# time)
+S1_WIDTHS = [(1, 64), (2, 32), (4, 16), (1, 128), (4, 64), (2, 160), (4, 160), (1, 7), (4, 9),
+             (1, 1024), (2, 1024), (1, 130), (3, 130)]
 
 
 @pytest.mark.parametrize("heads,d", S1_WIDTHS)
@@ -1094,13 +1114,84 @@ def test_segment_kernels_on_bucket_rows(card, heads):
         lambda: seg_ops.weighted_pull_plain(x, att, csr.idx, csr.row_ptr))
 
 
+def _s2_rows(card):
+    """Rows for S2: 400 rows of 0 to 60 slots (one work item each), row 7
+    empty, row 9 with no live slot, and three hub rows split into pieces
+    (300, 1000 and 5000 slots: 3, 8 and 40 pieces of 128), one of them
+    with no live slot in its first pieces; each slot's source and
+    destination node among 900 nodes, 20% dead."""
+    rng = np.random.default_rng(12)
+    counts = rng.integers(0, 61, 400)
+    counts[7] = 0
+    counts[[3, 50, 399]] = (300, 1000, 5000)
+    rows = np.repeat(np.arange(400), counts)
+    view = seg_ops.segment_csr(torch.from_numpy(rows).to(card),
+                               torch.from_numpy(rng.integers(0, 900, len(rows))).to(card), 400, 900)
+    ptr = view.row_ptr.cpu().numpy()
+    live = rng.random(view.n_slots) > 0.2
+    live[ptr[9]:ptr[10]] = False
+    live[ptr[50]:ptr[50] + 400] = False  # the row's first three pieces hold no live slot
+    dst = torch.from_numpy(rng.integers(0, 900, view.n_rows).astype(np.int32)).to(card)
+    return rng, view, torch.from_numpy(live).to(card), dst[view.slot_row.long()].contiguous()
+
+
+@pytest.mark.parametrize("heads", [1, 2, 3, 4, 5, 8, 12])
+def test_segment_softmax_any_heads_across_pieces(card, heads):
+    """S2 on given logits and with GAT's logits fused in, forward and
+    backward, with and without the dropout scale, at any head count, on
+    rows that are empty, hold no live slot, fit one work item or split
+    into pieces: twice bit for bit, against the plain versions, two
+    launches a call (a row is split), dead slots exactly 0."""
+    rng, view, live, dst = _s2_rows(card)
+    assert view.n_partials >= 50
+    n = 900
+    a_src, a_dst, e, g, datt = _random(card, rng, (n, heads), (n, heads), (view.n_slots, heads),
+                                       (view.n_slots, heads), (view.n_slots, heads))
+    a_src, a_dst, e = a_src * 3, a_dst * 3, e * 3
+    keep = torch.from_numpy((rng.random((view.n_slots, heads)) > 0.3) / 0.7).float().to(card)
+    sched = view.schedule
+    args = (a_src, a_dst, view.idx, dst, view.row_ptr, live, 0.2)
+    counters = (seg_ops.segment_softmax_rows, seg_ops.segment_softmax_rows_bwd,
+                seg_ops.attention_softmax, seg_ops.attention_softmax_bwd)
+    before = [f.launches for f in counters]
+    _repeats_and_agrees("S2", lambda: seg_ops.segment_softmax_rows(e, view.row_ptr, live, sched),
+                        lambda: seg_ops.segment_softmax_rows_plain(e, view.row_ptr, live))
+    att = seg_ops.segment_softmax_rows_plain(e, view.row_ptr, live)
+    _repeats_and_agrees("S2 bwd",
+                        lambda: seg_ops.segment_softmax_rows_bwd(att, g, view.row_ptr, sched),
+                        lambda: seg_ops.segment_softmax_rows_bwd_plain(att, g, view.row_ptr))
+    for k in (None, keep):
+        _repeats_and_agrees("S2 with the logits", lambda: seg_ops.attention_softmax(
+            *args, sched, k), lambda: seg_ops.attention_softmax_plain(*args, keep=k))
+        att, _ = seg_ops.attention_softmax_plain(*args, keep=k)
+        _repeats_and_agrees("S2 bwd with the logits", lambda: seg_ops.attention_softmax_bwd(
+            att, datt, *args, sched, k), lambda: seg_ops.attention_softmax_bwd_plain(
+            att, datt, *args, keep=k))
+    assert [f.launches - b for f, b in zip(counters, before)] == [4, 4, 8, 8]
+    att, w = seg_ops.attention_softmax(*args, sched, keep)
+    dz = seg_ops.attention_softmax_bwd(att, datt, *args, sched, keep)
+    assert not att[~live].any() and not w[~live].any() and not dz[~live].any()
+    ptr = view.row_ptr.cpu().numpy()
+    assert not att[ptr[9]:ptr[10]].any() and att[ptr[50]:ptr[51]].abs().max() > 0
+    sums = torch.zeros(view.n_rows, heads, device=card).index_add_(0, view.slot_row.long(), att)
+    has_live = torch.zeros(view.n_rows, dtype=torch.bool, device=card).index_fill_(
+        0, view.slot_row[live].long(), True)
+    torch.testing.assert_close(sums[has_live], torch.ones_like(sums[has_live]), rtol=0, atol=1e-5)
+
+
 def test_segment_wrappers_refuse_what_the_kernels_do_not_take(card):
     ptr = torch.tensor([0, 2, 3], device=card)
-    with pytest.raises(ValueError, match="divides 32"):
-        seg_ops.segment_softmax_rows(torch.zeros(3, 3, device=card), ptr)
     with pytest.raises(TypeError):
         seg_ops.segment_softmax_rows(torch.zeros(3, 2, device=card, dtype=torch.float64), ptr)
+    # the fused S2 reads its logits as f32 rows and its node ids as int32
     idx = torch.zeros(3, dtype=torch.int32, device=card)
+    a = torch.zeros(4, 3, device=card)
+    with pytest.raises(TypeError, match="float32"):
+        seg_ops.attention_softmax(a.double(), a, idx, idx, ptr, None, 0.2)
+    with pytest.raises(TypeError, match="int32 idx and dst"):
+        seg_ops.attention_softmax(a, a, idx.long(), idx, ptr, None, 0.2)
+    with pytest.raises(ValueError, match="keep"):
+        seg_ops.attention_softmax(a, a, idx, idx, ptr, None, 0.2, keep=torch.zeros(3, 2, device=card))
     with pytest.raises(TypeError):
         seg_ops.weighted_pull(torch.zeros(4, 8, device=card), torch.zeros(3, 2, device=card),
                               idx.long(), ptr)
@@ -1113,9 +1204,6 @@ def test_segment_wrappers_refuse_what_the_kernels_do_not_take(card):
         seg_ops.weighted_pull_dot(torch.zeros(4, 32, device=card)[:, ::2], w, idx, ptr, idx, g)
     with pytest.raises(TypeError):
         seg_ops.weighted_pull_dot(g, w, idx, ptr, idx.long(), g)
-    with pytest.raises(ValueError, match="at most"):
-        wide = torch.zeros(4, 1026, device=card)
-        seg_ops.weighted_pull_dot(wide, w, idx, ptr, idx, wide)
     # S2 reads row_ptr as 64-bit, S1 its schedule through raw pointers
     with pytest.raises(TypeError, match="int64 row_ptr"):
         seg_ops.segment_softmax_rows(torch.zeros(3, 2, device=card), ptr.int())
@@ -1131,16 +1219,21 @@ def test_segment_wrappers_refuse_what_the_kernels_do_not_take(card):
             seg_ops.weighted_pull(x, w, idx, ptr, bad)
         with pytest.raises(ValueError, match="schedule"):
             seg_ops.weighted_pull_dot(x, w, idx, ptr, idx, x, schedule=bad)
+        with pytest.raises(ValueError, match="schedule"):
+            seg_ops.segment_softmax_rows(w, ptr, schedule=bad)
+        with pytest.raises(ValueError, match="schedule"):
+            seg_ops.attention_softmax(a, a, idx, idx, ptr, None, 0.2, bad)
 
 
 # a step's segment-kernel and P1/K7 launches: GAT's two layers (S2 and S1
 # forward; S1 with the head dot, S2's backward and two P1 backward; K7 once forward and
-# three times backward a layer on the bucket rows), GraphSAGE's two means
+# three times backward a layer on the bucket rows; S2 twice a call where a row
+# is split), GraphSAGE's two means
 # (P1; the first takes no backward: the features are fixed), LightGCN's
 # three segment matmuls both ways, GRACE's and G-BT's two views of two
 # segment matmuls both ways
-_S = {"weighted_pull": 2, "weighted_pull_dot": 2, "segment_softmax_rows": 2,
-      "segment_softmax_rows_bwd": 2, "gather_sum": 4}
+_S = {"weighted_pull": 2, "weighted_pull_dot": 2, "attention_softmax": 2,
+      "attention_softmax_bwd": 2, "gather_sum": 4}
 SEGMENT_CASES = {
     ("gat", "dense"): (PlainGAT, _S),
     ("gat", "segment"): (PlainGAT, _S),
@@ -1170,9 +1263,13 @@ def test_segment_step_kernel_vs_plain(card, monkeypatch, name, backend):
     users, items, negs, weights, _ = epoch_batches(
         epoch_words(torch.Generator().manual_seed(4), graph, 1024), graph, 1024)
     batch = PairwiseBatch(users[0], items[0], negs[0], weights[0])
+    if name == "gat" and attention_structure(graph).schedule[2] > 0:
+        want = {**want, "attention_softmax": 4, "attention_softmax_bwd": 4}
     counters = {f.__name__: f for f in (gather_rows, gather_sum, seg_ops.weighted_pull,
                                          seg_ops.weighted_pull_dot, seg_ops.segment_softmax_rows,
-                                         seg_ops.segment_softmax_rows_bwd)}
+                                         seg_ops.segment_softmax_rows_bwd,
+                                         seg_ops.attention_softmax,
+                                         seg_ops.attention_softmax_bwd)}
     names = [k for k in init if k not in model.frozen]
     out = []
     for plain in (False, True):
@@ -1222,3 +1319,34 @@ def test_gat_steps_repeat_bit_for_bit(card):
             runs.append([loss] + list(torch.autograd.grad(loss, list(p.values()))))
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(*runs)), backend
+
+
+@pytest.mark.parametrize("heads,hidden", [(3, 64), (4, 1024)])
+def test_gat_step_at_any_width(card, heads, hidden):
+    """GAT's shapes that the JAX package takes and the kernels once refused
+    (a head count that does not divide 32; a head of 1024 f32, past one
+    column pass of the fused pull): one step on the segment and bucketed
+    backends against ``PlainGAT`` in float64 by relative Frobenius error
+    (the attention gradients are ill-conditioned in f32), and twice bit for
+    bit."""
+    pairs = make_flat_interactions(1000, 2000, 20_000, seed=2)
+    for backend in ("segment", "bucketed"):
+        graph = DeviceGraph(ArrayInteraction(pairs, 1000, 2000), backend=backend, device=card)
+        config = default_config(**{"batch.size": 1024, "GAT.num_heads": heads,
+                                   "GAT.hidden": hidden})
+        model, plain = build("gat", config), PlainGAT(config)
+        init, _ = model.init(torch.Generator().manual_seed(3), graph)
+        users, items, negs, weights, _ = epoch_batches(
+            epoch_words(torch.Generator().manual_seed(4), graph, 1024), graph, 1024)
+        batch = PairwiseBatch(users[0], items[0], negs[0], weights[0])
+        runs = []
+        for m, dtype in ((model, torch.float32), (model, torch.float32), (plain, torch.float64)):
+            p = {k: v.detach().to(dtype).requires_grad_() for k, v in init.items()}
+            loss, _ = m.loss(p, {}, batch, graph, torch.Generator().manual_seed(6))
+            runs.append([loss] + list(torch.autograd.grad(loss, list(p.values()))))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1])), backend
+        for got, want in zip(runs[0], runs[2]):
+            assert torch.isfinite(got).all()
+            err = torch.linalg.norm(got.double() - want) / torch.linalg.norm(want)
+            assert err <= 1e-5, (backend, err.item())

@@ -213,7 +213,8 @@ def _check_layer(monkeypatch, jax_fn, port_fn, n, heads, drop, plain=False):
 
 
 @pytest.mark.parametrize("backend", ["dense", "segment"])
-@pytest.mark.parametrize("heads,drop", [(1, 0.0), (4, 0.0), (4, 0.3), (1, 0.5)])
+@pytest.mark.parametrize("heads,drop", [(1, 0.0), (4, 0.0), (4, 0.3), (1, 0.5), (3, 0.0),
+                                        (3, 0.3)])
 @pytest.mark.parametrize("plain", [False, True], ids=["function", "plain"])
 def test_gat_layer_matches_jax(graphs, monkeypatch, backend, heads, drop, plain):
     jgraph, graph = graphs[0]["dense"], graphs[1][backend]

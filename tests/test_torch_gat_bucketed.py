@@ -18,7 +18,7 @@ from recommendation_tpu_torch.models import gat
 from test_torch_gat import _check_layer, _np, graphs, sets  # noqa: F401 (fixtures)
 
 
-@pytest.mark.parametrize("heads,drop", [(1, 0.0), (4, 0.0), (4, 0.3), (1, 0.5)])
+@pytest.mark.parametrize("heads,drop", [(1, 0.0), (4, 0.0), (4, 0.3), (1, 0.5), (3, 0.3)])
 @pytest.mark.parametrize("plain", [False, True], ids=["function", "plain"])
 def test_gat_layer_bucketed_sf_matches_jax(graphs, monkeypatch, heads, drop, plain):
     jgraph, graph = graphs[0]["bucketed"], graphs[1]["bucketed"]

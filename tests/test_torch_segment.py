@@ -7,7 +7,9 @@ gradient, ``segment_softmax`` and ``segment_mean`` (the JAX package's
 oracles of tests/test_ops.py:40-57, and random inputs with empty segments,
 with gradients); the plain versions of S1, S2 and S3 against loops, S1
 with the head dot against S1's and S3's plain versions, S2's
-autograd Function against autograd through its plain version; LightGCN's
+autograd Function against autograd through its plain version, S2's fused
+entries (GAT's logits, dropout scale, slope and mask) against the logits
+and the plain softmax, and against autograd; LightGCN's
 and NCL's loss and gradients on the segment backend against the JAX
 package's on its segment graph; and training through the CLI with
 ``graph.backend=segment`` and ``=pallas``.
@@ -222,7 +224,7 @@ def test_segment_mean_oracle():
     assert np.allclose(out[2], [6.0, 7.0])
 
 
-@pytest.mark.parametrize("heads", [None, 1, 4])
+@pytest.mark.parametrize("heads", [None, 1, 3, 4])
 def test_segment_softmax_matches_jax(heads):
     """Unsorted segments with empty ones, values and gradients."""
     rng = np.random.default_rng(heads or 0)
@@ -287,7 +289,7 @@ def test_weighted_pull_plain_matches_a_loop(heads):
     assert np.all(got[[3, 7]] == 0)
 
 
-@pytest.mark.parametrize("heads", [1, 4])
+@pytest.mark.parametrize("heads", [1, 3, 4])
 def test_softmax_rows_plain_matches_a_loop(heads):
     rng, view = _csr(10 + heads)
     e = (rng.normal(size=(view.n_slots, heads)) * 4).astype(np.float32)
@@ -311,7 +313,7 @@ def test_softmax_rows_plain_matches_a_loop(heads):
     assert np.all(att[~live] == 0) and np.all(att[ptr[0]:ptr[1]] == 0)
 
 
-@pytest.mark.parametrize("heads", [1, 4])
+@pytest.mark.parametrize("heads", [1, 3, 4])
 def test_segment_softmax_function_backward_matches_autograd(heads):
     rng, view = _csr(20 + heads)
     e = (rng.normal(size=(view.n_slots, heads)) * 2).astype(np.float32)
@@ -325,6 +327,67 @@ def test_segment_softmax_function_backward_matches_autograd(heads):
     np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(), **TIGHT)
     np.testing.assert_allclose(ga.numpy(), gb.numpy(), rtol=1e-5,
                                atol=1e-6 * float(gb.abs().max()))
+
+
+def _attention_inputs(seed, heads, keep):
+    """Random logit sums, slots' destinations, live mask, dropout scale and
+    cotangent over ``_csr``'s rows (a row with no live slot)."""
+    rng, view = _csr(seed)
+    a_src, a_dst = (torch.from_numpy((rng.normal(size=(40, heads)) * 2).astype(np.float32))
+                    for _ in range(2))
+    dst = torch.from_numpy(rng.integers(0, 40, view.n_rows).astype(np.int32))[
+        view.slot_row.long()].contiguous()
+    live = torch.from_numpy(rng.random(view.n_slots) > 0.2)
+    ptr = view.row_ptr.numpy()
+    live[ptr[1]:ptr[2]] = False
+    k = None
+    if keep:
+        k = torch.from_numpy(((rng.random((view.n_slots, heads)) > 0.3) / 0.7).astype(np.float32))
+    datt = torch.from_numpy(rng.normal(size=(view.n_slots, heads)).astype(np.float32))
+    return view, (a_src, a_dst, view.idx, dst, view.row_ptr, live, 0.2), k, datt
+
+
+@pytest.mark.parametrize("heads", [1, 3, 4])
+@pytest.mark.parametrize("keep", [False, True], ids=["no_drop", "drop"])
+def test_attention_softmax_plain_is_the_logits_and_the_softmax(heads, keep):
+    """S2's fused forward on the CPU (its plain version): the logits
+    (``models/gat.py::_logits``, a LeakyReLU of the gathered sums), then
+    ``segment_softmax_rows_plain``; ``w`` the product with the dropout's
+    scale."""
+    from recommendation_tpu_torch.models.gat import _logits
+
+    view, args, k, _ = _attention_inputs(60 + heads, heads, keep)
+    a_src, a_dst, idx, dst, row_ptr, live, slope = args
+    att, w = seg_ops.attention_softmax(*args, view.schedule, k)
+    st = type("St", (), {"idx": idx, "dst": dst})
+    z, e = _logits(a_src, a_dst, st, slope)
+    assert torch.equal(z, a_src[idx.long()] + a_dst[dst.long()])
+    want = seg_ops.segment_softmax_rows_plain(e, row_ptr, live)
+    assert torch.equal(att, want) and torch.equal(w, want if k is None else want * k)
+    assert not att[~live].any()
+
+
+@pytest.mark.parametrize("heads", [1, 3, 4])
+@pytest.mark.parametrize("keep", [False, True], ids=["no_drop", "drop"])
+def test_attention_softmax_bwd_plain_is_autograd(heads, keep):
+    """S2's fused backward on the CPU (its plain version: the softmax's
+    backward of ``datt · keep``, the slope at z, the mask) is autograd's
+    gradient of ``Σ w · datt`` to the logit sums' gather, as
+    ``attention_plain`` differentiates it: dα_src and dα_dst are its sums
+    by source and by destination."""
+    view, args, k, datt = _attention_inputs(70 + heads, heads, keep)
+    a_src, a_dst, idx, dst, row_ptr, live, slope = args
+    att, _ = seg_ops.attention_softmax(*args, view.schedule, k)
+    dz = seg_ops.attention_softmax_bwd(att, datt, *args, view.schedule, k)
+    sa, sd = a_src.clone().requires_grad_(), a_dst.clone().requires_grad_()
+    _, w = seg_ops.attention_softmax_plain(sa, sd, idx, dst, row_ptr, live, slope, keep=k)
+    ga, gd = torch.autograd.grad(torch.sum(w * datt), (sa, sd))
+    want_a = torch.zeros_like(a_src).index_add(0, idx.long(), dz)
+    want_d = torch.zeros_like(a_dst).index_add(0, dst.long(), dz)
+    scale = max(ga.abs().max().item(), gd.abs().max().item())
+    np.testing.assert_allclose(want_a.numpy(), ga.numpy(), rtol=1e-5, atol=1e-6 * scale)
+    np.testing.assert_allclose(want_d.numpy(), gd.numpy(), rtol=1e-5, atol=1e-6 * scale)
+    assert not dz[~live].any() and dz.abs().max() > 0
 
 
 def test_segment_dot_plain_matches_numpy():
@@ -405,7 +468,8 @@ def test_wrappers_refuse_what_their_kernels_do_not_take():
 
 def test_wrappers_count_no_launch_on_the_cpu():
     _, view = _csr(40)
-    counters = (seg_ops.weighted_pull, seg_ops.weighted_pull_dot, seg_ops.segment_softmax_rows)
+    counters = (seg_ops.weighted_pull, seg_ops.weighted_pull_dot, seg_ops.segment_softmax_rows,
+                seg_ops.attention_softmax, seg_ops.attention_softmax_bwd)
     before = [f.launches for f in counters]
     seg_ops.weighted_pull(torch.ones(view.n_cols, 4), torch.ones(view.n_slots, 1), view.idx,
                           view.row_ptr)
@@ -413,6 +477,9 @@ def test_wrappers_count_no_launch_on_the_cpu():
                               view.row_ptr, torch.arange(view.n_slots, dtype=torch.int32),
                               torch.ones(view.n_rows, 4))
     seg_ops.segment_softmax_rows(torch.ones(view.n_slots, 1), view.row_ptr)
+    a, ids = torch.ones(view.n_cols, 2), view.idx
+    att, _ = seg_ops.attention_softmax(a, a, ids, ids, view.row_ptr, None, 0.2)
+    seg_ops.attention_softmax_bwd(att, att, a, a, ids, ids, view.row_ptr, None, 0.2)
     assert [f.launches for f in counters] == before
 
 
