@@ -133,10 +133,26 @@ What it does, in order (any failed phase exits non-zero):
      BACKEND_RECALL_GAP of it; GRACE and G-BT on the bucketed graph (their
      self-loop adjacency on the segment backend) one step against the plain
      path, then PROFILE_STEPS profiled steps;
- 13. prints the serving line, the training line, the NCL line, the large
+ 13. the social models on the hard set with its synthesized trust triples
+     (``synthesize_social``; d=64, B=2048, Adam 1e-3, f32): a
+     ``SocialDeviceGraph`` on the dense, bucketed and segment backends (the
+     trust edges, each social matrix's entries and bucket slots, host
+     seconds); one step of DiffNet, SEPT, SEPT-basic, MHCN and ESRF (SEPT
+     past its warm-up, ESRF in its adversarial phase) on the bucketed
+     graph (P1 and K7 both ways) and on the segment graph (P1) against the
+     plain COO product in float64; each trained SOCIAL_EPOCHS epochs on the
+     dense graph and held to its SOCIAL_GATES gate, ESRF through phases 0,
+     1 and 2 and SEPT into its SSL phase, each phase's loss falling, the
+     served answers against the port's on the CPU; DiffNet trained on the
+     bucketed graph too; PROFILE_STEPS profiled steps of each on the
+     bucketed graph, P1's and K7's launches held to ``social_launches``;
+     DiffNet served through ``cli.build_service`` from an ``.npz`` on the
+     bucketed and the dense backend, against the plain path and each other;
+ 14. prints the serving line, the training line, the NCL line, the large
      line, the clustered line, the hard line, the hard_zoo line, the
-     bucketed_zoo line, the neighbors line, the kernels line (every kernel
-     must have launched on a main path) and, last, the device line.
+     bucketed_zoo line, the neighbors line, the social line, the kernels
+     line (every kernel must have launched on a main path) and, last, the
+     device line.
 
 Launch counts are reset just before each main path and read just after it.
 Exits non-zero without printing a result where no CUDA device is present.
@@ -161,6 +177,13 @@ import torch
 from recommendation_tpu_torch.cli import build_service
 from recommendation_tpu_torch.config import default_config
 from recommendation_tpu_torch.data.interaction import Interaction
+from recommendation_tpu_torch.data.social import (
+    Relation,
+    esrf_motif_adjacency,
+    mhcn_hypergraph_channels,
+    sept_social_views,
+    synthesize_social,
+)
 from recommendation_tpu_torch.data.synthetic import (
     ArrayInteraction,
     make_clustered_interactions,
@@ -178,16 +201,19 @@ from recommendation_tpu_torch.graph.bucketed import (
     pull,
 )
 from recommendation_tpu_torch.graph.device import DeviceGraph
+from recommendation_tpu_torch.graph.social_device import SOCIAL_MATRICES, SocialDeviceGraph
 from recommendation_tpu_torch.models import build
 from recommendation_tpu_torch.models.bgrl import PlainBucketedBGRL
 from recommendation_tpu_torch.models.buir import PlainBucketedBUIR
 from recommendation_tpu_torch.models.directau import PlainBucketedDirectAU
+from recommendation_tpu_torch.models.esrf import ESRF
 from recommendation_tpu_torch.models.gat import PlainGAT, attention_structure
 from recommendation_tpu_torch.models.graphsage import PlainGraphSAGE
 from recommendation_tpu_torch.models.gcl import PlainBucketedGCL
 from recommendation_tpu_torch.models.lightgcn import LightGCN
 from recommendation_tpu_torch.models.ncl import NCL
 from recommendation_tpu_torch.models.selfcf import PlainSelfCF
+from recommendation_tpu_torch.models.sept import SEPT
 from recommendation_tpu_torch.ops import build as kernels
 from recommendation_tpu_torch.ops.gather import (
     gather_rows,
@@ -342,6 +368,14 @@ BUCKETED_ZOO = ("selfcf", "buir", "bgrl")
 NEIGHBOR_MODELS = ("graphsage", "gat")
 NEIGHBOR_GATES = {"graphsage": "popularity", "gat": "popularity"}
 NEIGHBOR_EPOCHS = {"graphsage": 3, "gat": 3}
+# the social models on the hard set with its synthesized trust triples
+# (dense backend, f32, each at its defaults) and their gates; epochs and
+# gates from tools/zoo_gate_calibration.py --social (PERF.md §4)
+SOCIAL_MODELS = ("diffnet", "sept", "sept_social", "sept_basic", "mhcn", "esrf")
+SOCIAL_GATES = {"diffnet": "popularity", "sept": "popularity", "sept_social": "popularity",
+                "sept_basic": "popularity", "mhcn": "loss", "esrf": "popularity"}
+SOCIAL_EPOCHS = {"diffnet": 3, "sept": 4, "sept_social": 4, "sept_basic": 3, "mhcn": 3,
+                 "esrf": 6}
 
 
 def card_line() -> str:
@@ -1845,6 +1879,12 @@ def expected_launches(model_name, graph, n_layers, steps, n_evals, e_steps=0):
     port (their square products are ``torch.matmul``, as the JAX package's
     are XLA's)."""
     want = {f.__name__: 0 for f in ALL_COUNTERS}
+    if model_name in SOCIAL_MODELS:
+        if graph.backend != "dense":  # on the dense backend: torch.matmul
+            step, per_eval = social_launches(model_name, graph.backend, n_layers)
+            for k in step:
+                want[k] = step[k] * steps + per_eval[k] * n_evals
+        return want
     if model_name in NEIGHBOR_MODELS or graph.backend == "segment":
         step, per_eval = neighbor_launches(model_name, graph, n_layers)
         for k in set(step) | set(per_eval):
@@ -1871,7 +1911,7 @@ def expected_launches(model_name, graph, n_layers, steps, n_evals, e_steps=0):
     return want
 
 
-def gate_phase(model_name, data, graph, epochs, batch, pop, gate, plain=None):
+def gate_phase(model_name, data, graph, epochs, batch, pop, gate, plain=None, profile=True):
     """One model's training main path on a set whose ranking optimum is not
     the popularity list: the untrained tables' Recall@20, then ``epochs``
     epochs with an evaluation after each, the best epoch's tables kept (the
@@ -1880,7 +1920,8 @@ def gate_phase(model_name, data, graph, epochs, batch, pop, gate, plain=None):
     are counted over the whole run. ``pop`` holds the masked and the plain popularity
     list's Recall@20; ``check_gate`` holds the result to ``gate``. With
     ``plain`` (the trained recommender -> the plain path's eval tables on
-    the card), the served answers must equal the plain path's."""
+    the card), the served answers must equal the plain path's. ``profile``:
+    ``profile_steps`` of the trained recommender in the result."""
     config = default_config(**{
         "embedding.size": EMB, "batch.size": batch, "learning.rate": LR, "optimizer": "adam",
         "max.epoch": epochs, "eval.interval": 1, "item.ranking.topN": [20],
@@ -1937,7 +1978,8 @@ def gate_phase(model_name, data, graph, epochs, batch, pop, gate, plain=None):
         "best_epoch": rec.best_epoch, "recall@20": metrics["Recall@20"],
         "ndcg@20": metrics["NDCG@20"], "gate": gate,
         "masked_popularity_recall@20": pop["masked"], "popularity_recall@20": pop["plain"],
-        "launches": launches, "wall_s": wall_s, "profile": profile_steps(rec, batch),
+        "launches": launches, "wall_s": wall_s,
+        **({"profile": profile_steps(rec, batch)} if profile else {}),
     }
 
 
@@ -1952,7 +1994,18 @@ def check_gate(stats):
     untrained tables' reading, gate "loss" the falling loss alone."""
     name = f"{stats['model']} {stats['backend']} {stats['compute_dtype']}"
     losses = stats["epoch_losses"]
-    if not losses[-1] < losses[0]:
+    if "phases" in stats:
+        # a loss that changes its terms by epoch (SEPT's SSL after its
+        # warm-up, ESRF's three phases) must fall within each phase that
+        # spans epochs, and one phase must
+        runs = {}
+        for phase, loss in zip(stats["phases"], losses):
+            runs.setdefault(phase, []).append(loss)
+        spans = [run for run in runs.values() if len(run) > 1]
+        if not spans or not all(run[-1] < run[0] for run in spans):
+            raise RuntimeError(f"{name}: loss did not fall within its phases: "
+                               f"{list(zip(stats['phases'], losses))}")
+    elif not losses[-1] < losses[0]:
         raise RuntimeError(f"{name}: loss did not fall: {losses}")
     if stats["gate"] == "loss":
         return
@@ -2199,7 +2252,7 @@ def zoo_loss(model, params, state, batch, graph, seed=5):
 
 
 def to_cpu(tree):
-    return {k: v.detach().cpu() for k, v in tree.items()}
+    return {k: v.detach().cpu() if isinstance(v, torch.Tensor) else v for k, v in tree.items()}
 
 
 def zoo_plain(model_name, config, cpu_graph):
@@ -2432,19 +2485,6 @@ def neighbor_launches(model_name, graph, n_layers):
     if model_name == "lightgcn" and backend == "segment":
         return {"gather_sum": 2 * n_layers}, {"gather_sum": n_layers}
     raise ValueError(f"no launch model for {model_name} on {backend}")
-
-
-@contextlib.contextmanager
-def plain_segment_matmul():
-    """The segment matmul's plain version (the [E, d] messages added into
-    their rows, under autograd) in place of P1 both ways: the reference of
-    the square models on the segment backend."""
-    kernel = spmm._segment_matmul
-    spmm._segment_matmul = spmm.segment_matmul_plain
-    try:
-        yield
-    finally:
-        spmm._segment_matmul = kernel
 
 
 def check_seg(name, fn, plain):
@@ -2748,7 +2788,7 @@ class PlainSegmentLightGCN(LightGCN):
     (autograd through torch ops): the reference a step is held against."""
 
     def propagate(self, params, graph):
-        with plain_segment_matmul():
+        with spmm.plain_products():
             return super().propagate(params, graph)
 
 
@@ -2827,7 +2867,7 @@ def selfloop_one_step(name, graph):
     batch = first_batch(graph, BATCH)
 
     def plain_loss(p):
-        with plain_segment_matmul():
+        with spmm.plain_products():
             return zoo_loss(model, p, {}, batch, graph)
 
     tol = {"fro_tol": ZOO_CPU_TOL.get(name, ZOO_CPU_TOL_DEFAULT),
@@ -2980,6 +3020,308 @@ def add_neighbor_launches(k7_row, p1_row, hard, clustered):
                 row[f"launches_{label}"] = n
     p1_row["segment_view"] = clustered["segment_view_pull"]
 
+# -- the social models: DiffNet, SEPT, SEPT-basic, MHCN, ESRF ---------------------------
+
+# the models behind the social names (``sept_social`` is SEPT by another name)
+SOCIAL_TRAINED = ("diffnet", "sept", "sept_basic", "mhcn", "esrf")
+# an epoch past SEPT's warm-up and in ESRF's adversarial third at the
+# default max.epoch 30: the state the steps are checked and profiled in
+LATE_EPOCH = 29
+# parameters whose exact gradient is 0: MHCN's fourth supervised gate's
+# bias, which no channel's MIM loss uses (its L2 norm at 0 has gradient 0)
+SOCIAL_ZERO_GRADS = {"mhcn": ("sgating_b.3",)}
+# the social steps' f32 gradients are ill-conditioned: MHCN's MIM loss sums
+# -log σ over every user of three channels, ESRF's generator a gumbel
+# softmax at temperature 0.2 over [100, K, U]; their gradients moved by up
+# to 3.8e-6 and 1.1e-6 of their largest entry between two f32 summation
+# orders (P1's and the plain COO product's, a CPU rehearsal at 200 users).
+# So every social step is held to the plain path in float64 by relative
+# Frobenius error at GAT_FRO_TOL, as GAT's is
+
+
+def social_launches(model_name, backend, n_layers, n_layers_g=2, phase=2):
+    """(per training step, per evaluation) launches of P1 and K7 of a social
+    model on a bucketed graph (P1 alone on a segment graph, whose products
+    run over the row-sorted views): each ``adj_matmul`` launches them once
+    forward and once more backward where a gradient flows through it.
+    DiffNet: L products over the trust matrix and one over R̂; SEPT: L over
+    each of its four views (rec, edge-dropped, friend, sharing); SEPT-basic:
+    L over the edge-dropped view; MHCN: five a layer (three channels, Rᵀ,
+    R̂) and one a channel in the MIM loss; ESRF: L over ``norm_adj`` in
+    phase 0, the generator's ``n_layers_g`` over the motif matrix in phase
+    1 (under no_grad: forward only) and phase 2 (both ways); its social
+    discriminator's layers are dense products. An evaluation runs the
+    forward of each model's rec view: L products (DiffNet L + 1, MHCN 5L)."""
+    L = n_layers
+    if model_name == "esrf":
+        fwd, bwd = ((L, L), (n_layers_g, 0), (n_layers_g, n_layers_g))[phase]
+        per_eval = L
+    else:
+        fwd, per_eval = {"diffnet": (L + 1, L + 1), "sept": (4 * L, L),
+                         "sept_social": (4 * L, L), "sept_basic": (L, L),
+                         "mhcn": (5 * L + 3, 5 * L)}[model_name]
+        bwd = fwd
+    step, evals = {"gather_sum": fwd + bwd}, {"gather_sum": per_eval}
+    if backend == "bucketed":
+        step["gather_rows"], evals["gather_rows"] = fwd + bwd, per_eval
+    return step, evals
+
+
+def model_launches(model, backend, phase=2):
+    return social_launches(model.name, backend, model.n_layers,
+                           getattr(model, "n_layers_g", 2), phase)
+
+
+def social_build():
+    """The hard set with its synthesized trust triples (``synthesize_social``),
+    a ``SocialDeviceGraph`` on each of the dense, bucketed and segment
+    backends: the trust edges, each social matrix's stored entries and
+    bucket slots, the host seconds of the synthesis, of the motif algebra
+    alone, and of each graph beside the plain ``DeviceGraph``'s."""
+    train, test = make_hard_dataset()
+    data = Interaction(train, test)
+    t0 = time.perf_counter()
+    triples = synthesize_social(data)
+    t1 = time.perf_counter()
+    relation = Relation(triples, data.user)
+    S, Y = relation.get_social_mat(), data.interaction_mat
+    mhcn_hypergraph_channels(S, Y)
+    esrf_motif_adjacency(S, Y)
+    sept_social_views(relation.get_bidirectional_social_mat(), Y)
+    t2 = time.perf_counter()
+    graphs, build_s = {}, {}
+    for backend in ("dense", "bucketed", "segment"):
+        t = time.perf_counter()
+        DeviceGraph(data, backend=backend, device="cuda")
+        torch.cuda.synchronize()
+        t_base = time.perf_counter()
+        graphs[backend] = SocialDeviceGraph(data, triples, backend=backend, device="cuda")
+        torch.cuda.synchronize()
+        build_s[backend] = {"device_graph_s": t_base - t,
+                            "social_device_graph_s": time.perf_counter() - t_base}
+    bucketed = graphs["bucketed"]
+    info = {"users": data.user_num, "items": data.item_num, "train_edges": len(data.edge_users),
+            "trust_edges": len(triples), "relations": relation.size()[1],
+            "synthesize_s": t1 - t0, "motif_host_s": t2 - t1, "build_s": build_s,
+            "nnz": bucketed.social_nnz,
+            "bucket_slots": {name: [getattr(bucketed, name).pull.n_slots,
+                                    getattr(bucketed, name).pull_t.n_slots]
+                             for name in SOCIAL_MATRICES}}
+    print(f"social graph: {json.dumps(info)}")
+    return data, triples, graphs, info
+
+
+def late_state(model, params, state, graph):
+    """The state at LATE_EPOCH: SEPT with SSL on and an edge mask, SEPT-basic
+    with an edge mask, ESRF in phase 2."""
+    return model.epoch_begin(params, state, graph, torch.Generator().manual_seed(9), LATE_EPOCH)
+
+
+def social_one_step(name, graph, batch):
+    """One step of a social model at its defaults in its late state, through
+    P1 and K7 (bucketed) or P1 (segment), against the same step with the
+    plain COO product for every ``adj_matmul`` (``spmm.plain_products``) in
+    float64 on the same batch and draws, by relative Frobenius error
+    (GAT_FRO_TOL), the plain path's own f32 error beside it."""
+    model = build(name, default_config(**{"embedding.size": EMB}))
+    params, state = model.init(torch.Generator().manual_seed(0), graph)
+    state = late_state(model, params, state, graph)
+
+    def plain(p):
+        with spmm.plain_products():
+            return zoo_loss(model, p, state, batch, graph)
+
+    grads = []
+    for dtype in (torch.float32, torch.float64):
+        p = {k: v.detach().to(dtype).requires_grad_() for k, v in params.items()}
+        grads.append(dict(zip(p, torch.autograd.grad(plain(p), list(p.values())))))
+    live = [k for k in grads[1] if grads[1][k].abs().max() > 0]
+    own = max((torch.linalg.norm(grads[0][k].double() - grads[1][k])
+               / torch.linalg.norm(grads[1][k])).item() for k in live)
+    out = step_against_plain(
+        f"{name} step {graph.backend}", (lambda p: zoo_loss(model, p, state, batch, graph), params),
+        (plain, {k: v.double() for k, v in params.items()}), torch.float32,
+        model_launches(model, graph.backend)[0], fro_tol=GAT_FRO_TOL,
+        zero_grads=SOCIAL_ZERO_GRADS.get(name, ()))
+    return {**out, "reference": "plain float64", "plain_f32_rel_err": own}
+
+
+@contextlib.contextmanager
+def record_phases(seen):
+    """Each epoch's phase as the trainer begins it: ESRF's phase, SEPT's SSL
+    flag (one host read an epoch)."""
+    esrf, sept = ESRF.epoch_begin, SEPT.epoch_begin
+
+    def esrf_begin(self, *args):
+        state = esrf(self, *args)
+        seen.append(state["phase"])
+        return state
+
+    def sept_begin(self, *args):
+        state = sept(self, *args)
+        seen.append(int(state["ssl_on"].item()))
+        return state
+
+    ESRF.epoch_begin, SEPT.epoch_begin = esrf_begin, sept_begin
+    try:
+        yield
+    finally:
+        ESRF.epoch_begin, SEPT.epoch_begin = esrf, sept
+
+
+def plain_tables(rec):
+    """A recommender's eval tables through ``adj_matmul``'s plain versions,
+    on its graph."""
+    with spmm.plain_products():
+        return rec.model.eval_embeddings(rec.params, rec.state, rec.graph)
+
+
+def social_train(name, data, graph, pop, plain):
+    """A social model trained SOCIAL_EPOCHS on ``graph`` and held to its
+    SOCIAL_GATES gate; ESRF must walk phases 0, 1 and 2 and SEPT reach its
+    SSL phase, each phase's loss falling."""
+    seen = []
+    with record_phases(seen):
+        # the steps are profiled on the bucketed graph (social_profile)
+        stats = gate_phase(name, data, graph, SOCIAL_EPOCHS[name], BATCH, pop, SOCIAL_GATES[name],
+                           plain=plain, profile=False)
+    if name in ("esrf", "sept"):
+        stats["phases"] = seen
+        want = {0, 1, 2} if name == "esrf" else {0, 1}
+        if set(seen) != want:
+            raise RuntimeError(f"{name} saw phases {seen}, not each of {sorted(want)}")
+    check_gate(stats)
+    return stats
+
+
+def social_profile(name, data, graph):
+    """``profile_steps`` of a social model's untrained recommender on the
+    bucketed graph in its late state, with P1's and K7's launches over the
+    steps held to ``social_launches``."""
+    config = default_config(**{"embedding.size": EMB, "batch.size": BATCH, "learning.rate": LR,
+                               "optimizer": "adam"})
+    rec = GraphRecommender(build(name, config), data, config, graph=graph, log=Log(echo=False),
+                           device="cuda")
+    rec.build()
+    rec.state = late_state(rec.model, rec.params, rec.state, graph)
+    reset_counts()
+    profile = profile_steps(rec, BATCH)
+    n_steps = 1 + min(PROFILE_STEPS, -(-graph.n_edges // BATCH))
+    want = {k: v * n_steps for k, v in model_launches(rec.model, graph.backend)[0].items()}
+    got = all_counts()
+    if {k: got[k] for k in want} != want or any(v for k, v in got.items() if k not in want):
+        raise RuntimeError(f"{name} profile launches {got}, expected {want}")
+    profile["kernel_launches"] = want
+    profile["examples_per_s"] = BATCH * 1e6 / profile["host_us_per_step"]
+    return profile
+
+
+def social_serve(rec, data, triples, train, test):
+    """DiffNet served through ``cli.build_service`` from its trained
+    parameters saved as ``.npz``, on the bucketed backend (the eval tables
+    through P1 and K7: L + 1 launches each) and on the dense one: each
+    service's answers for 64 test users against the plain path's on its
+    graph, and the two services against each other."""
+    uids = data.test_user_ids()[:64].tolist()
+    out, answers = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = f"{tmp}/diffnet.npz"
+        save_params(ckpt, rec.params)
+        for backend in ("bucketed", "dense"):
+            config = default_config(**{"embedding.size": EMB, "graph.backend": backend})
+            reset_counts()
+            service = build_service("diffnet", ckpt, config, train, test, device="cuda",
+                                    social=triples)
+            scores, ids = service.recommend_ids(uids, K)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in all_counts().items() if v}
+            model = build("diffnet", config)
+            want = (model_launches(model, backend)[1] if backend == "bucketed" else {})
+            if launches != want:
+                raise RuntimeError(f"DiffNet served on {backend}: launches {launches}, "
+                                   f"expected {want}")
+            with spmm.plain_products():
+                plain_u, plain_i = model.eval_embeddings(load_params(ckpt, "diffnet", service.graph.device), {},
+                                                         service.graph)
+            tol = score_tolerance(service.user_emb, service.item_emb, plain_u, plain_i)
+            s_plain, i_plain = RecommenderService(plain_u, plain_i, data,
+                                                  service.graph).recommend_ids(uids, K)
+            if not (np.isfinite(scores).all() and topk_agree(scores, ids, s_plain, i_plain, tol)):
+                raise RuntimeError(f"DiffNet served on {backend}: answers differ from the "
+                                   "plain path's")
+            answers[backend] = (scores, ids, service)
+            out[backend] = {"launches": launches, "score_tol": tol, "served_users": len(uids)}
+    (s_b, i_b, sv_b), (s_d, i_d, sv_d) = answers["bucketed"], answers["dense"]
+    tol = score_tolerance(sv_b.user_emb, sv_b.item_emb, sv_d.user_emb, sv_d.item_emb)
+    if not topk_agree(s_b, i_b, s_d, i_d, tol):
+        raise RuntimeError("DiffNet's bucketed and dense services disagree")
+    out["backends_score_tol"] = tol
+    return out
+
+
+def social_phase(card):
+    """The social models on the hard set with its synthesized trust triples
+    (d=64, B=2048, Adam 1e-3, f32): the graphs on three backends; one step
+    of each model on the bucketed and the segment graph against the plain
+    path; each trained on the dense graph to its SOCIAL_GATES gate at
+    SOCIAL_EPOCHS (the served answers against the port's on the CPU), and
+    DiffNet on the bucketed graph too (against the plain path); PROFILE_STEPS
+    profiled steps of each on the bucketed graph; DiffNet served from an
+    ``.npz`` through ``build_service``."""
+    seconds, t = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        torch.cuda.synchronize()
+        seconds[name], t = time.perf_counter() - t, time.perf_counter()
+
+    data, triples, graphs, info = social_build()
+    dense, bucketed, segment = graphs["dense"], graphs["bucketed"], graphs["segment"]
+    cpu = SocialDeviceGraph(data, triples, backend="dense", device="cpu")
+    out = {"build": info, "one_step": {}, "train": [], "profile": {}, "card": card,
+           "seconds": seconds}
+    lap("build")
+    batch = first_batch(dense, BATCH)
+    for name in SOCIAL_TRAINED:
+        for graph in (bucketed, segment):
+            out["one_step"][f"{name}_{graph.backend}"] = social_one_step(name, graph, batch)
+    lap("one_step")
+    pop = {"masked": popularity_recall(data, dense, 20),
+           "plain": popularity_recall(data, dense, 20, masked=False)}
+    config = default_config(**{"embedding.size": EMB})
+    for name in SOCIAL_TRAINED:
+        out["train"].append(social_train(name, data, dense, pop, zoo_plain(name, config, cpu)))
+    stats = social_train("diffnet", data, bucketed, pop, plain_tables)
+    out["train"].append(stats)
+    for run in out["train"]:
+        run["card"] = card
+    lap("train")
+    for name in SOCIAL_TRAINED:
+        out["profile"][name] = social_profile(name, data, bucketed)
+    lap("profile")
+    rec = GraphRecommender(build("diffnet", config), data, config, graph=bucketed,
+                           log=Log(echo=False), device="cuda")
+    rec.build()
+    out["serve"] = social_serve(rec, data, triples, data.training_data, data.test_data)
+    lap("serve")
+    return out
+
+
+def add_social_launches(k7_row, p1_row, social):
+    """P1's and K7's launches on the social phase's main paths into their
+    rows: each model's profiled steps on the bucketed graph, DiffNet's
+    bucketed training run and its bucketed service."""
+    runs = {f"hard_social_{name}": p["kernel_launches"] for name, p in social["profile"].items()}
+    bucketed = [r for r in social["train"] if r["backend"] == "bucketed"][0]
+    runs["hard_social_diffnet_train"] = bucketed["launches"]
+    runs["hard_social_diffnet_serve"] = social["serve"]["bucketed"]["launches"]
+    for row in (k7_row, p1_row):
+        for label, launches in runs.items():
+            n = launches.get(row["name"], 0)
+            if n:
+                row["launches"] += n
+                row[f"launches_{label}"] = n
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3086,6 +3428,8 @@ def main() -> int:
     add_zoo_launches((rows[torch.float32], bwd_rows[torch.float32]), (k7_row, p1_row), zoo,
                      bucketed_zoo)
     add_neighbor_launches(k7_row, p1_row, hard_nb, clustered_nb)
+    social = social_phase(card)
+    add_social_launches(k7_row, p1_row, social)
     dense_lightgcn = hard_nb["lightgcn_backends"]["runs"][0]["launches"]
     for row in (rows[torch.float32], bwd_rows[torch.float32]):
         row["launches"] += dense_lightgcn[row["name"]]
@@ -3108,6 +3452,7 @@ def main() -> int:
     print(json.dumps({"hard_zoo": zoo}))
     print(json.dumps({"bucketed_zoo": bucketed_zoo}))
     print(json.dumps({"neighbors": {"hard": hard_nb, "clustered": clustered_nb}}))
+    print(json.dumps({"social": social}))
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,15 +2,19 @@
 
   python -m recommendation_tpu_torch models
   python -m recommendation_tpu_torch train --model MODEL [--train T --test T] \\
-      [--set key=value ...] [--out RESULT.json] [--device cuda|cpu]
+      [--social S] [--set key=value ...] [--out RESULT.json] [--device cuda|cpu]
   python -m recommendation_tpu_torch serve --model MODEL \\
       [--checkpoint PARAMS.npz | CHECKPOINT_DIR] [--device cuda|cpu] \\
-      [--train T --test T] [--set graph.compute_dtype=bfloat16] [--host H --port P]
+      [--train T --test T] [--social S] [--set graph.compute_dtype=bfloat16] \\
+      [--host H --port P]
+  python -m recommendation_tpu_torch synthesize-social --train T [--out S] \\
+      [--threshold 0.35] [--top-k 10]
 
 ``models`` lists the ported models: ``lightgcn``, ``ncl``, ``directau``,
 ``selfcf``, ``buir``, ``ssl4rec``, ``gcl`` (alias ``grace_rec``),
-``grace``, ``gbt``, ``bgrl`` (alias ``bgrl_g2l``), ``graphsage`` and
-``gat``. Each trains and serves on the dense, the bucketed (``--set
+``grace``, ``gbt``, ``bgrl`` (alias ``bgrl_g2l``), ``graphsage``, ``gat``
+and the social models ``diffnet``, ``sept`` (alias ``sept_social``),
+``sept_basic``, ``mhcn`` and ``esrf``. Each trains and serves on the dense, the bucketed (``--set
 graph.backend=bucketed``, or ``auto`` past the dense threshold) and the
 segment backend (``--set graph.backend=segment``; ``pallas`` runs the
 segment path, as in the JAX package). GRACE and G-BT propagate over their
@@ -26,7 +30,11 @@ while training), or, without ``--checkpoint``, after training first.
 Serving needs the parameters only: no model's eval embeddings read model
 state (NCL's clusters serve training alone). Missing dataset
 paths fall back to the cached synthetic ML-100K-shaped set, as in the JAX
-package's CLI.
+package's CLI. The social models but ``sept_basic`` read their trust
+triples (``trustor trustee [weight]`` lines) from ``--social``, else from
+``social.txt`` beside the train file, else synthesize them
+(``data.social.synthesize_social``, the test.ipynb protocol), and run on a
+``SocialDeviceGraph``; ``synthesize-social`` writes such a file.
 """
 
 from __future__ import annotations
@@ -60,59 +68,96 @@ def _load_sets(args):
     if args.train and os.path.exists(args.train):
         train = load_data(args.train)
         test = load_data(args.test) if args.test else []
-        return train, test
-    return load_or_make_dataset()
+        return train, test, args.train
+    train, test = load_or_make_dataset()
+    return train, test, "dataset/synthetic_ml100k/train.txt"
 
 
-def train_recommender(model_name: str, config, train, test, device="cuda"):
-    """Interaction → DeviceGraph → GraphRecommender, built and trained:
-    the training path."""
+# the models that need trust triples (a SocialDeviceGraph); sept_basic does not
+SOCIAL_MODELS = ("sept", "sept_social", "mhcn", "diffnet", "esrf")
+
+
+def _maybe_social(args, model_name, train, test, train_path):
+    """The trust triples of a social model (None for the others): from
+    ``--social``, else ``social.txt`` beside the train file, else
+    synthesized from the interactions."""
+    if model_name.lower() not in SOCIAL_MODELS:
+        return None
+    from recommendation_tpu_torch.data.io import load_data
+
+    if args.social and os.path.exists(args.social):
+        return load_data(args.social)
+    default = os.path.join(os.path.dirname(train_path), "social.txt")
+    if os.path.exists(default):
+        return load_data(default)
+    from recommendation_tpu_torch.data.interaction import Interaction
+    from recommendation_tpu_torch.data.social import synthesize_social
+
+    print("no social.txt found — synthesizing (test.ipynb protocol)", file=sys.stderr)
+    return synthesize_social(Interaction(train, test))
+
+
+def make_graph(data, config, device="cuda", social=None):
+    """The graph a model trains and serves on: a ``SocialDeviceGraph`` over
+    the trust triples ``social``, else a ``DeviceGraph``, on the configured
+    backend and compute dtype."""
+    kw = dict(backend=config.get("graph.backend", "auto"),
+              compute_dtype=config.get("graph.compute_dtype", "float32"), device=device)
+    if social is None:
+        from recommendation_tpu_torch.graph.device import DeviceGraph
+
+        return DeviceGraph(data, **kw)
+    from recommendation_tpu_torch.graph.social_device import SocialDeviceGraph
+
+    return SocialDeviceGraph(data, social, **kw)
+
+
+def train_recommender(model_name: str, config, train, test, device="cuda", social=None):
+    """Interaction → DeviceGraph (a SocialDeviceGraph with trust triples
+    ``social``) → GraphRecommender, built and trained: the training path."""
     from recommendation_tpu_torch.data.interaction import Interaction
     from recommendation_tpu_torch.models import registry
     from recommendation_tpu_torch.train.recommender import GraphRecommender
 
-    rec = GraphRecommender(registry.build(model_name, config), Interaction(train, test), config,
-                           device=device)
+    data = Interaction(train, test)
+    rec = GraphRecommender(registry.build(model_name, config), data, config,
+                           graph=make_graph(data, config, device, social), device=device)
     rec.print_model_info()
     rec.build()
     rec.train()
     return rec
 
 
-def build_service(model_name: str, checkpoint, config, train, test, device="cuda"):
-    """Interaction → DeviceGraph → parameters → eval embeddings (the layer
-    chain) → RecommenderService: the serving path. The parameters come from
+def build_service(model_name: str, checkpoint, config, train, test, device="cuda",
+                  social=None):
+    """Interaction → DeviceGraph (a SocialDeviceGraph with trust triples
+    ``social``) → parameters → eval embeddings (the layer chain) →
+    RecommenderService: the serving path. The parameters come from
     ``checkpoint``: an ``.npz`` of ``weights.save_params``, a directory of
     ``CheckpointManager`` checkpoints (its newest), or, when it is None,
     training first."""
     from recommendation_tpu_torch.data.interaction import Interaction
-    from recommendation_tpu_torch.graph.device import DeviceGraph
     from recommendation_tpu_torch.models import registry
     from recommendation_tpu_torch.serve.service import RecommenderService
     from recommendation_tpu_torch.weights import load_params
 
     if checkpoint is None:
         return RecommenderService.from_recommender(
-            train_recommender(model_name, config, train, test, device=device))
+            train_recommender(model_name, config, train, test, device=device, social=social))
+    data = Interaction(train, test)
+    graph = make_graph(data, config, device, social)
     if os.path.isdir(checkpoint):
         from recommendation_tpu_torch.train.recommender import GraphRecommender
 
         # restore-only start-up: no training pass
         config = config.with_overrides(**{"checkpoint.dir": checkpoint,
                                           "checkpoint.resume": True, "max.epoch": 0})
-        rec = GraphRecommender(registry.build(model_name, config), Interaction(train, test),
-                               config, device=device)
+        rec = GraphRecommender(registry.build(model_name, config), data, config, graph=graph,
+                               device=device)
         rec.build()
         if rec.start_epoch == 0:
             raise FileNotFoundError(f"no checkpoint found in {checkpoint}")
         return RecommenderService.from_recommender(rec)
-    data = Interaction(train, test)
-    graph = DeviceGraph(
-        data,
-        backend=config.get("graph.backend", "auto"),
-        compute_dtype=config.get("graph.compute_dtype", "float32"),
-        device=device,
-    )
     model = registry.build(model_name, config)
     params = load_params(checkpoint, model_name, device=graph.device)
     user_emb, item_emb = model.eval_embeddings(params, {}, graph)
@@ -129,6 +174,8 @@ def main(argv=None):
         p.add_argument("--model", required=True, help="a name that `models` lists")
         p.add_argument("--train")
         p.add_argument("--test")
+        p.add_argument("--social", help="trust triples `trustor trustee [weight]` (social "
+                                        "models; default: social.txt beside --train)")
         p.add_argument("--set", action="append", help="config override key=value")
         p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     t.add_argument("--out", help="write the config and metrics as JSON here")
@@ -136,6 +183,12 @@ def main(argv=None):
                    help="parameters saved by weights.save_params (.npz) or a checkpoint directory")
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8080)
+    y = sub.add_parser("synthesize-social",
+                       help="build social.txt from train interactions (test.ipynb protocol)")
+    y.add_argument("--train", required=True)
+    y.add_argument("--out", help="default: social.txt next to the train file")
+    y.add_argument("--threshold", type=float, default=0.35)
+    y.add_argument("--top-k", type=int, default=10)
     args = ap.parse_args(argv)
 
     if args.cmd == "models":
@@ -144,13 +197,18 @@ def main(argv=None):
         print("\n".join(registry.available()))
         return 0
 
+    if args.cmd == "synthesize-social":
+        return _synthesize_social(args)
+
     from recommendation_tpu_torch.config import default_config
 
     config = default_config(**_parse_sets(args.set))
-    train, test = _load_sets(args)
+    train, test, train_path = _load_sets(args)
+    social = _maybe_social(args, args.model, train, test, train_path)
 
     if args.cmd == "train":
-        rec = train_recommender(args.model, config, train, test, device=args.device)
+        rec = train_recommender(args.model, config, train, test, device=args.device,
+                                social=social)
         metrics = rec.evaluate()
         print(json.dumps(metrics))
         if args.out:
@@ -166,12 +224,32 @@ def main(argv=None):
 
     try:
         service = build_service(args.model, args.checkpoint, config, train, test,
-                                device=args.device)
+                                device=args.device, social=social)
     except FileNotFoundError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     print(f"serving on http://{args.host}:{args.port}  (GET /recommend?user=<id>&k=10)")
     serve_http(service, host=args.host, port=args.port)
+    return 0
+
+
+def _synthesize_social(args) -> int:
+    """``synthesize-social``: trust triples from the train file's user-user
+    cosine similarity, one ``u v w`` line each (the JAX command's file)."""
+    from recommendation_tpu_torch.data.interaction import Interaction
+    from recommendation_tpu_torch.data.io import load_data
+    from recommendation_tpu_torch.data.social import synthesize_social
+
+    if not os.path.exists(args.train):
+        print(f"error: train file not found: {args.train}", file=sys.stderr)
+        return 2
+    data = Interaction(load_data(args.train), [])
+    triples = synthesize_social(data, threshold=args.threshold, top_k=args.top_k)
+    out = args.out or os.path.join(os.path.dirname(args.train), "social.txt")
+    with open(out, "w") as f:
+        for u, v, w in triples:
+            f.write(f"{u} {v} {w}\n")
+    print(f"wrote {len(triples)} trust edges to {out}")
     return 0
 
 

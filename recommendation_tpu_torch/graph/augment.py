@@ -9,7 +9,9 @@ comes from an explicit ``torch.Generator`` on the tensors' device
 (``device_generator`` seeds one from the trainer's host generator), so
 the masks are made where they are used and nothing crosses to the host.
 The draws differ from ``jax.random``'s; a Bernoulli keep is
-``uniform < 1 - p``, as there.
+``uniform < 1 - p``, as there. Every draw of the port's random models goes
+through ``uniform``, ``permutation`` or ``randint``, so a test or a check
+can give both frameworks the same numbers by replacing those three.
 """
 
 from __future__ import annotations
@@ -32,6 +34,18 @@ def uniform(generator: torch.Generator, shape, device) -> torch.Tensor:
     """f32[shape] uniform in [0, 1) on ``device``: the one draw every mask
     of the port's augmenting models is made from."""
     return torch.rand(tuple(shape), generator=generator, device=device)
+
+
+def permutation(generator: torch.Generator, n: int, device) -> torch.Tensor:
+    """i64[n]: a random permutation of 0..n-1 on ``device`` (MHCN's shuffled
+    negatives): the one permutation draw of the port's models."""
+    return torch.randperm(n, generator=generator, device=device)
+
+
+def randint(generator: torch.Generator, high: int) -> int:
+    """A uniform integer in [0, high) drawn from the host ``generator`` (ESRF's
+    user segment start): a Python int, so no step reads the device."""
+    return int(torch.randint(0, high, (1,), generator=generator))
 
 
 def keep_draw(generator: torch.Generator, shape, keep_prob, device) -> torch.Tensor:

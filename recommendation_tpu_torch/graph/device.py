@@ -182,17 +182,32 @@ class DeviceAdj:
 
     def transpose(self) -> "DeviceAdj":
         """Aᵀ. Without bucketed tables the COO is re-sorted by its new rows
-        (a stable sort, as the JAX package's; its segment views are built
-        anew at their first use); with them it keeps its positions, which
-        their slot→edge maps index."""
+        (a stable sort, as the JAX package's); with them it keeps its
+        positions, which their slot→edge maps index. Segment views swap
+        roles without a host read (MHCN's item convolution transposes its
+        [U, I] matrix every layer of every step): the column view's slots,
+        their COO positions carried through the re-sort, are the new row
+        view's; the new column view keeps the old row view's pointers and
+        work list and takes its slots from a stable sort of the new columns.
+        Both lay their slots out as a fresh build would."""
         if self.pull is not None or self.pull_t is not None:
             order = torch.arange(self.vals.shape[0], device=self.vals.device)
         else:
             order = torch.argsort(self.cols, stable=True)
-        return DeviceAdj(rows=self.cols[order], cols=self.rows[order], vals=self.vals[order],
+        rows, cols = self.cols[order], self.rows[order]
+        seg = seg_t = None
+        if self.seg is not None:
+            at = torch.empty_like(order)
+            at[order] = torch.arange(order.shape[0], device=order.device)
+            seg = dataclasses.replace(self.seg_t, perm=at[self.seg_t.perm])
+            by_cols = torch.argsort(cols.long(), stable=True)
+            seg_t = dataclasses.replace(self.seg, perm=by_cols,
+                                        idx=rows[by_cols].to(torch.int32).contiguous(),
+                                        slot_row=cols[by_cols].to(torch.int32).contiguous())
+        return DeviceAdj(rows=rows, cols=cols, vals=self.vals[order],
                          n_rows=self.n_cols, n_cols=self.n_rows, backend=self.backend,
                          compute_dtype=self.compute_dtype, pull=self.pull_t, pull_t=self.pull,
-                         sym_rowspace=self.sym_rowspace,
+                         sym_rowspace=self.sym_rowspace, seg=seg, seg_t=seg_t,
                          _dense=None if self._dense is None else self._dense.T,
                          _dense_operand=None if self._dense_operand is None
                          else self._dense_operand.T)
@@ -497,8 +512,8 @@ class DeviceGraph:
         if self.backend != "dense":
             raise NotImplementedError(
                 f"the {self.backend} backend has no dense R̂: the dense layer chain (kernels "
-                "K1-K4) reads it; the models on this backend propagate through norm_adj "
-                "(ROADMAP queue 1: the social models, item 11, are still to come to it)")
+                "K1-K4) reads it; the models on this backend propagate through norm_adj, as "
+                "in the JAX package (ROADMAP queue 1: every model runs on every backend)")
         if self.interaction_norm_bf16 is not None:
             return self.interaction_norm_bf16
         return self.interaction_norm_dense

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from recommendation_tpu_torch.graph import augment
+
 
 def _l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     """L2-normalize with a zero-safe gradient: an all-zero row gives value 0
@@ -243,3 +245,29 @@ def bootstrap_g2l_loss(h1_pred, h2_pred, g1_target, g2_target) -> torch.Tensor:
         return torch.mean(2.0 - 2.0 * h @ g)
 
     return (side(h1_pred, g2) + side(h2_pred, g1)) / 2.0
+
+
+def hierarchical_mim_loss(generator: torch.Generator, user_emb: torch.Tensor,
+                          adj_user_emb: torch.Tensor) -> torch.Tensor:
+    """MHCN's hierarchical self-supervision (`univariate/mhcn.py:480-505`):
+    local MIM user↔hyperedge (shuffled negatives) + global MIM against the
+    graph readout. ``adj_user_emb`` = H_c @ user_emb (the hyperedge
+    embeddings). Its three row permutations come from ``generator`` on the
+    tables' device (``graph.augment.permutation``), in the JAX package's
+    order."""
+    n, dev = user_emb.shape[0], user_emb.device
+
+    def score(a, b):
+        return torch.sum(a * b, dim=1)
+
+    shuf1 = user_emb[augment.permutation(generator, n, dev)]
+    shuf2 = adj_user_emb[augment.permutation(generator, n, dev)]
+    pos = score(user_emb, adj_user_emb)
+    neg1 = score(shuf1, adj_user_emb)
+    neg2 = score(shuf2, user_emb)
+    local = torch.sum(-torch.log(torch.sigmoid(pos - neg1) + 1e-12)
+                      - torch.log(torch.sigmoid(neg1 - neg2) + 1e-12))
+    readout = torch.mean(adj_user_emb, dim=0, keepdim=True)
+    gpos = score(adj_user_emb, readout)
+    gneg = score(adj_user_emb[augment.permutation(generator, n, dev)], readout)
+    return local + torch.sum(-torch.log(torch.sigmoid(gpos - gneg) + 1e-12))

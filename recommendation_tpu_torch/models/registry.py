@@ -6,7 +6,7 @@ _REGISTRY: dict[str, type] = {}
 
 # modules of the port that register models; more join as slices land
 _MODEL_MODULES = ("lightgcn", "ncl", "directau", "selfcf", "buir", "ssl4rec", "gcl", "grace",
-                  "gbt", "bgrl", "graphsage", "gat")
+                  "gbt", "bgrl", "graphsage", "gat", "diffnet", "sept", "mhcn", "esrf")
 
 
 def register(name: str):

@@ -13,6 +13,10 @@ the JAX package gathers the [E, d] messages and ``segment_sum``s them. The
 ``pallas`` backend runs the segment branch, with one logged warning a
 process, as the JAX package's ``ops/pallas_spmm.py`` does.
 
+``plain_products()`` makes every ``adj_matmul`` the plain COO product
+(``segment_matmul_plain``) while it is open, on any backend and in f32 or
+float64: the reference a step on the card is held against.
+
 ``segment_softmax`` and ``segment_mean`` take the JAX signatures
 (per-edge values, a segment id per edge in any order): a stable sort per
 call, then S2 or P1 over the sorted slots. The models use their cached
@@ -21,6 +25,7 @@ views instead.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 
 import torch
@@ -31,12 +36,15 @@ from recommendation_tpu_torch.ops.gather import gather_sum
 from recommendation_tpu_torch.ops.segment import SegmentSoftmax, segment_csr, segment_pull
 
 _warned = False
+_plain = False  # set by plain_products()
 
 
 def adj_matmul(adj: DeviceAdj, x: torch.Tensor) -> torch.Tensor:
     """``adj @ x`` (f32 [n_rows, d]) with the adjacency's backend; x is
     [n_cols, d]. The bucketed and segment backwards pull through the
     transpose; the dense one is autograd's."""
+    if _plain:
+        return segment_matmul_plain(adj, x)
     if adj.backend == "bucketed" and adj.pull is not None:
         return bucketed_matmul(adj.pull, adj.pull_t, x, adj.compute_dtype)
     if adj.backend == "dense":
@@ -67,10 +75,27 @@ def _segment_matmul(adj: DeviceAdj, x: torch.Tensor) -> torch.Tensor:
 
 def segment_matmul_plain(adj: DeviceAdj, x: torch.Tensor) -> torch.Tensor:
     """``adj @ x`` in plain torch over the COO (the [E, d] messages added
-    into their rows), on any device; autograd differentiates it."""
-    msgs = x.float()[adj.cols.long()] * adj.vals[:, None]
-    return torch.zeros((adj.n_rows, x.shape[1]), dtype=torch.float32,
+    into their rows), on any device, in f32 (float64 for a float64 ``x``);
+    autograd differentiates it."""
+    dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
+    msgs = x.to(dtype)[adj.cols.long()] * adj.vals.to(dtype)[:, None]
+    return torch.zeros((adj.n_rows, x.shape[1]), dtype=dtype,
                        device=x.device).index_add(0, adj.rows.long(), msgs)
+
+
+@contextlib.contextmanager
+def plain_products():
+    """Every ``adj_matmul`` the plain COO product ``segment_matmul_plain``
+    while open, on any backend, under autograd (whose backward scatters
+    where the kernels pull through the transpose), in float64 for float64
+    inputs: the reference of the tests and ``chip_smoke.py``. A model's
+    step inside it launches no kernel of the port's sparse products."""
+    global _plain
+    saved, _plain = _plain, True
+    try:
+        yield
+    finally:
+        _plain = saved
 
 
 def segment_softmax(scores: torch.Tensor, segments: torch.Tensor,

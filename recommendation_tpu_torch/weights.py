@@ -23,7 +23,8 @@ the port's checkpoint for ``serve`` (the JAX package's orbax checkpoints
 cannot be read without JAX). ``opt_state_from_jax`` carries an optax Adam
 state over into a ``torch.optim.Adam`` ``state_dict``, and ``state_from_jax``
 a model's non-gradient state (NCL's clusters, SelfCF's histories, BUIR's
-and BGRL's targets), integer tables as int32.
+and BGRL's targets, SEPT's edge mask and SSL flag, ESRF's phase), integer
+tables as int32.
 """
 
 from __future__ import annotations
@@ -60,6 +61,11 @@ PARAM_NAMES = {
     "bgrl": ("features",) + _gin_encoder("online") + _linear("predictor"),
     "graphsage": ("features",) + _linear("layers.*.self") + _linear("layers.*.neigh"),
     "gat": _TABLES + tuple(f"gat{i}.{k}" for i in (1, 2) for k in ("w", "a_src", "a_dst")),
+    "diffnet": _TABLES + ("weights.*",),
+    "sept": _TABLES, "sept_basic": _TABLES,
+    "mhcn": _TABLES + ("attention", "attention_mat") + tuple(
+        f"{g}_{k}.*" for g in ("gating", "sgating") for k in ("w", "b")),
+    "esrf": ("d.user_emb", "d.item_emb", "g.relation_emb", "g.c_selector"),
 }
 # the model state each ported model carries, name pattern -> dtype
 STATE_DTYPES = {
@@ -71,10 +77,14 @@ STATE_DTYPES = {
     "buir": {"t_user_emb": np.float32, "t_item_emb": np.float32},
     "ssl4rec": {}, "gcl": {}, "grace": {}, "gbt": {}, "graphsage": {}, "gat": {},
     "bgrl": {n: np.float32 for n in _gin_encoder("target")},
+    "diffnet": {}, "mhcn": {},
+    "sept": {"aug_keep": np.float32, "ssl_on": np.float32},
+    "sept_basic": {"aug_keep": np.float32},
+    "esrf": {"phase": np.int32},
 }
 # GCL's ``convs`` exist only with GCL.encoder='linear'
 OPTIONAL = {"gcl": ("convs.*.w", "convs.*.b")}
-ALIASES = {"grace_rec": "gcl", "bgrl_g2l": "bgrl"}
+ALIASES = {"grace_rec": "gcl", "bgrl_g2l": "bgrl", "sept_social": "sept"}
 
 
 def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, Any]:

@@ -27,6 +27,11 @@ slot reaches exactly 0; K5 and K6 at d = 1024; one step of GAT (dense,
 segment and bucketed backends, and at 3 heads and a hidden width of 1024
 against the plain path in float64), GraphSAGE, LightGCN on the segment
 backend and GRACE and G-BT on a bucketed graph against their plain paths.
+The social models: one step of DiffNet and of MHCN on a bucketed and on a
+segment ``SocialDeviceGraph`` (P1 and K7 over the trust matrix, the motif
+channels and the rectangular [U, I] ``interaction_norm``, both ways)
+against the plain COO product in float64, and the rectangular pull and
+its transpose against their plain versions.
 Calls on two streams at once equal the same calls in turn (the chain's tile
 counters, P1's, S1's and S2's piece counters, K5's and K6's partials, the
 fused pull's dot).
@@ -37,6 +42,8 @@ installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_card.py
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -54,7 +61,9 @@ from recommendation_tpu_torch.graph.bucketed import (
     bucketed_chain_mean_plain,
     packs_bf16,
 )
+from recommendation_tpu_torch.data.social import synthesize_social
 from recommendation_tpu_torch.graph.device import DeviceGraph
+from recommendation_tpu_torch.graph.social_device import SocialDeviceGraph
 from recommendation_tpu_torch.graph import augment
 from recommendation_tpu_torch.models import build
 from recommendation_tpu_torch.models.bgrl import PlainBucketedBGRL
@@ -1350,3 +1359,91 @@ def test_gat_step_at_any_width(card, heads, hidden):
             assert torch.isfinite(got).all()
             err = torch.linalg.norm(got.double() - want) / torch.linalg.norm(want)
             assert err <= 1e-5, (backend, err.item())
+
+
+# -- the social models ---------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def social_set():
+    """A small set with its synthesized trust triples."""
+    train, test = make_synthetic_dataset(n_users=300, n_items=500, n_interactions=12_000, seed=6)
+    data = Interaction(train, test)
+    return data, synthesize_social(data)
+
+
+# one step's P1 (and on the bucketed backend K7) launches at L = 2: DiffNet's
+# L products over the trust matrix and one over R̂, MHCN's five a layer and
+# three in its MIM loss, each both ways
+SOCIAL_CASES = {"diffnet": 2 * 3, "mhcn": 2 * 13}
+
+
+@pytest.mark.parametrize("backend", ["bucketed", "segment"])
+@pytest.mark.parametrize("name", list(SOCIAL_CASES))
+def test_social_step_kernel_vs_plain(card, social_set, name, backend):
+    """One step of a social model through P1 (and K7) against the same
+    step with the plain COO product for every ``adj_matmul`` in float64:
+    the launches, the loss, and each gradient by relative Frobenius error
+    (MHCN's MIM loss sums over every user: f32-ill-conditioned), the bound
+    rejecting zeros; MHCN's unused fourth supervised gate's bias exactly 0."""
+    data, triples = social_set
+    graph = SocialDeviceGraph(data, triples, backend=backend, device=card)
+    model = build(name, default_config())
+    init, state = model.init(torch.Generator().manual_seed(3), graph)
+    users, items, negs, weights, _ = epoch_batches(
+        epoch_words(torch.Generator().manual_seed(4), graph, 1024), graph, 1024)
+    batch = PairwiseBatch(users[0], items[0], negs[0], weights[0])
+    n = SOCIAL_CASES[name]
+    want = {"gather_sum": n, **({"gather_rows": n} if backend == "bucketed" else {})}
+    out = []
+    for dtype in (torch.float32, torch.float64):
+        p = {k: v.detach().clone().to(dtype).requires_grad_() for k, v in init.items()}
+        before = gather_rows.launches, gather_sum.launches
+        with spmm.plain_products() if dtype == torch.float64 else contextlib.nullcontext():
+            loss, _ = model.loss(p, state, batch, graph, torch.Generator().manual_seed(6))
+            grads = torch.autograd.grad(loss, list(p.values()))
+        torch.cuda.synchronize()
+        n_rows, n_sum = gather_rows.launches - before[0], gather_sum.launches - before[1]
+        out.append((loss.item(), dict(zip(p, grads)),
+                    {k: v for k, v in (("gather_rows", n_rows), ("gather_sum", n_sum)) if v}))
+    (loss_k, g_k, n_k), (loss_p, g_p, n_p) = out
+    assert n_k == want and n_p == {}, (n_k, n_p, want)
+    assert np.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-6 + 1e-5 * abs(loss_p)
+    for k, w in g_p.items():
+        g = g_k[k].double()
+        if k == "sgating_b.3":
+            assert not g.abs().max() and not w.abs().max()
+            continue
+        assert torch.isfinite(g).all() and w.abs().max() > 0, k
+        assert torch.linalg.norm(g - w) <= 1e-5 * torch.linalg.norm(w), k
+
+
+@pytest.mark.parametrize("backend", ["bucketed", "segment"])
+def test_rectangular_interaction_pull(card, social_set, backend):
+    """``interaction_norm`` ([U, I], one-sided row-normalized) and its
+    transpose (MHCN's item convolution) through P1 (and K7), forward and
+    backward, against the plain COO product: one P1 (and one K7) a product,
+    rtol 1e-5 with an atol of 1e-5 of the plain result's largest entry;
+    twice, bit for bit."""
+    data, triples = social_set
+    graph = SocialDeviceGraph(data, triples, backend=backend, device=card)
+    rng = np.random.default_rng(7)
+    for adj in (graph.interaction_norm, graph.interaction_norm.transpose()):
+        x = torch.tensor(rng.normal(size=(adj.n_cols, 64)), dtype=torch.float32, device=card)
+        g = torch.tensor(rng.normal(size=(adj.n_rows, 64)), dtype=torch.float32, device=card)
+        got = []
+        for _ in range(2):
+            xk = x.clone().requires_grad_()
+            before = gather_rows.launches, gather_sum.launches
+            y = spmm.adj_matmul(adj, xk)
+            dx, = torch.autograd.grad(y, xk, g)
+            torch.cuda.synchronize()
+            launches = (gather_rows.launches - before[0], gather_sum.launches - before[1])
+            assert launches == ((2, 2) if backend == "bucketed" else (0, 2)), launches
+            got.append((y.detach(), dx))
+        assert all(torch.equal(a, b) for a, b in zip(*got))
+        xp = x.clone().requires_grad_()
+        yp = spmm.segment_matmul_plain(adj, xp)
+        dxp, = torch.autograd.grad(yp, xp, g)
+        for a, b in ((got[0][0], yp.detach()), (got[0][1], dxp)):
+            assert a.shape == b.shape and b.abs().max() > 0
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * b.abs().max().item())

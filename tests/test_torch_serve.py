@@ -176,10 +176,11 @@ def test_checkpoint_round_trip_serves_the_same(pair, tmp_path):
 def test_params_from_jax_rejects_wrong_layout():
     with pytest.raises(ValueError):
         params_from_jax("lightgcn", {"user_emb": np.zeros((2, 2))}, device="cpu")
-    with pytest.raises(KeyError):  # a model the port does not have yet
-        params_from_jax("diffnet", {}, device="cpu")
-    with pytest.raises(ValueError):  # ported since: its layout wants its names
-        params_from_jax("graphsage", {}, device="cpu")
+    with pytest.raises(KeyError):  # a model the port does not have (every JAX one is ported)
+        params_from_jax("no_such_model", {}, device="cpu")
+    for name in ("graphsage", "diffnet"):  # ported since: its layout wants its names
+        with pytest.raises(ValueError):
+            params_from_jax(name, {}, device="cpu")
 
 
 def _cli(*args):

@@ -1,10 +1,16 @@
-"""Recall@20 by epoch of the dense-path zoo and the neighbour models
-(GraphSAGE, GAT) on the hard set, in the port and in the JAX package, on
-the CPU, at ``chip_smoke.py``'s zoo settings (d=64, B=2048, Adam 1e-3, f32,
-each model at its defaults): how ``chip_smoke.ZOO_EPOCHS``, ``ZOO_GATES``,
-``NEIGHBOR_EPOCHS`` and ``NEIGHBOR_GATES`` were chosen.
+"""Recall@20 by epoch of the dense-path zoo, the neighbour models
+(GraphSAGE, GAT) and the social models on the hard set, in the port and in
+the JAX package, on the CPU, at ``chip_smoke.py``'s zoo settings (d=64,
+B=2048, Adam 1e-3, f32, each model at its defaults): how
+``chip_smoke.ZOO_EPOCHS``, ``ZOO_GATES``, ``NEIGHBOR_EPOCHS``,
+``NEIGHBOR_GATES``, ``SOCIAL_EPOCHS`` and ``SOCIAL_GATES`` were chosen.
 
     JAX_PLATFORMS=cpu python tools/zoo_gate_calibration.py [--models selfcf,gat] [--epochs N]
+    JAX_PLATFORMS=cpu python tools/zoo_gate_calibration.py --social [--models diffnet,esrf]
+
+``--social`` runs the social models (default: all six names) on a
+``SocialDeviceGraph`` in each package over the same trust triples
+(``synthesize_social`` of the hard set, the port's copy).
 
 Prints one JSON line per model and package: the untrained tables' Recall@20,
 then the reading after each epoch and the epoch losses (the port's), for
@@ -21,7 +27,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def port_run(name, epochs, data):
+def port_run(name, epochs, data, social=None):
     from recommendation_tpu_torch.config import default_config
     from recommendation_tpu_torch.models import build
     from recommendation_tpu_torch.train.recommender import GraphRecommender
@@ -30,7 +36,13 @@ def port_run(name, epochs, data):
     cfg = default_config(**{"embedding.size": 64, "batch.size": 2048, "learning.rate": 1e-3,
                             "optimizer": "adam", "max.epoch": epochs, "eval.interval": 1,
                             "item.ranking.topN": [20]})
-    rec = GraphRecommender(build(name, cfg), data, cfg, log=Log(echo=False), device="cpu")
+    graph = None
+    if social is not None:
+        from recommendation_tpu_torch.graph.social_device import SocialDeviceGraph
+
+        graph = SocialDeviceGraph(data, social, device="cpu")
+    rec = GraphRecommender(build(name, cfg), data, cfg, graph=graph, log=Log(echo=False),
+                           device="cpu")
     rec.build()
     untrained = rec.test().metrics["Recall@20"]
     rec.train()
@@ -38,7 +50,7 @@ def port_run(name, epochs, data):
             "epoch_losses": [e["loss"] for e in rec.epoch_stats]}
 
 
-def jax_run(name, epochs, train, test):
+def jax_run(name, epochs, train, test, social=None):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -51,8 +63,13 @@ def jax_run(name, epochs, train, test):
     cfg = default_config(**{"embedding.size": 64, "batch.size": 2048, "learning.rate": 1e-3,
                             "optimizer": "adam", "max.epoch": epochs, "eval.interval": 1,
                             "item.ranking.topN": [20]})
-    rec = GraphRecommender(get_model(name, cfg), Interaction(train, test), cfg,
-                           log=Log(echo=False))
+    data = Interaction(train, test)
+    graph = None
+    if social is not None:
+        from recommendation_tpu.graph.social_device import SocialDeviceGraph
+
+        graph = SocialDeviceGraph(data, social)
+    rec = GraphRecommender(get_model(name, cfg), data, cfg, graph=graph, log=Log(echo=False))
     rec.build()
     untrained = rec.test().metrics["Recall@20"]
     rec.train()
@@ -60,23 +77,38 @@ def jax_run(name, epochs, train, test):
 
 
 def main():
-    from chip_smoke import NEIGHBOR_EPOCHS, NEIGHBOR_GATES, ZOO_EPOCHS, ZOO_GATES, ZOO_MODELS
+    from chip_smoke import (
+        NEIGHBOR_EPOCHS,
+        NEIGHBOR_GATES,
+        SOCIAL_EPOCHS,
+        SOCIAL_GATES,
+        SOCIAL_MODELS,
+        ZOO_EPOCHS,
+        ZOO_GATES,
+        ZOO_MODELS,
+    )
     from recommendation_tpu_torch.data.interaction import Interaction
+    from recommendation_tpu_torch.data.social import synthesize_social
     from recommendation_tpu_torch.data.synthetic import make_hard_dataset
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--models", default=",".join(ZOO_MODELS))
+    ap.add_argument("--models")
     ap.add_argument("--packages", default="port,jax")
     ap.add_argument("--epochs", type=int, help="epochs of every run (default: chip_smoke's)")
+    ap.add_argument("--social", action="store_true",
+                    help="the social models, on a SocialDeviceGraph in each package")
     args = ap.parse_args()
-    epochs_of, gates = {**ZOO_EPOCHS, **NEIGHBOR_EPOCHS}, {**ZOO_GATES, **NEIGHBOR_GATES}
+    epochs_of = {**ZOO_EPOCHS, **NEIGHBOR_EPOCHS, **SOCIAL_EPOCHS}
+    gates = {**ZOO_GATES, **NEIGHBOR_GATES, **SOCIAL_GATES}
+    models = args.models or ",".join(SOCIAL_MODELS if args.social else ZOO_MODELS)
     train, test = make_hard_dataset()
     data = Interaction(train, test)
-    for name in args.models.split(","):
+    social = synthesize_social(data) if args.social else None
+    for name in models.split(","):
         epochs = args.epochs or epochs_of[name]
         for package in args.packages.split(","):
-            run = (port_run(name, epochs, data) if package == "port"
-                   else jax_run(name, epochs, train, test))
+            run = (port_run(name, epochs, data, social) if package == "port"
+                   else jax_run(name, epochs, train, test, social))
             print(json.dumps({"model": name, "package": package, "epochs": epochs,
                               "gate": gates[name], **run}), flush=True)
 
