@@ -148,11 +148,30 @@ What it does, in order (any failed phase exits non-zero):
      bucketed graph, P1's and K7's launches held to ``social_launches``;
      DiffNet served through ``cli.build_service`` from an ``.npz`` on the
      bucketed and the dense backend, against the plain path and each other;
- 14. prints the serving line, the training line, the NCL line, the large
+ 14. int8 propagation on the clustered graph (``int8_phase``): Q1
+     ``quantize_rows`` (with and without its pre-scale) bit for bit and P1
+     with an int8 source (the separable row-space pull and the node-space
+     value pull) at P1_TOL against their plain versions at d = 256 and 250,
+     each twice bit for bit; int8 at d = 64 is the f32 path with no Q1
+     launch; Q1 and P1 at d = 256 for f32, bf16 and int8 timed beside their
+     bounds and ``torch.sparse.mm``; one LightGCN step at d = 256 on an int8
+     graph against the plain chain with the same int8 numerics (Q1 L times,
+     none backward); LightGCN at d = 256 trained INT8_EPOCHS epochs in f32
+     and in int8 on the same batches, each held to the masked gate, their
+     Recall@20 gap reported; then the native bucket builder against the
+     numpy one on the clustered adjacency (bit for bit, host seconds) and
+     ``Interaction.from_files`` against ``Interaction(load_data(...))`` on
+     the hard set's files; ``python -m recommendation_tpu_torch tune`` as a
+     subprocess (a 2 x 2 grid with a rate that must fail alone, its CSV,
+     ``--resume`` running nothing, a preset's univariate sweep cut by
+     ``--grid``); ``evaluate_rating`` on the card against the host, the LR
+     and SVM probes on the card, ``profile_trace`` and ``Throughput`` around
+     three steps;
+ 15. prints the serving line, the training line, the NCL line, the large
      line, the clustered line, the hard line, the hard_zoo line, the
-     bucketed_zoo line, the neighbors line, the social line, the kernels
-     line (every kernel must have launched on a main path) and, last, the
-     device line.
+     bucketed_zoo line, the neighbors line, the social line, the int8 line,
+     the kernels line (every kernel must have launched on a main path) and,
+     last, the device line.
 
 Launch counts are reset just before each main path and read just after it.
 Exits non-zero without printing a result where no CUDA device is present.
@@ -161,8 +180,10 @@ Exits non-zero without printing a result where no CUDA device is present.
 from __future__ import annotations
 
 import contextlib
+import csv
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -176,7 +197,9 @@ import torch
 
 from recommendation_tpu_torch.cli import build_service
 from recommendation_tpu_torch.config import default_config
+from recommendation_tpu_torch import native
 from recommendation_tpu_torch.data.interaction import Interaction
+from recommendation_tpu_torch.data.io import load_data
 from recommendation_tpu_torch.data.social import (
     Relation,
     esrf_motif_adjacency,
@@ -190,14 +213,19 @@ from recommendation_tpu_torch.data.synthetic import (
     make_flat_interactions,
     make_hard_dataset,
     make_synthetic_dataset,
+    write_dataset,
 )
 from recommendation_tpu_torch.evalx.metrics import ranking_metrics
+from recommendation_tpu_torch.evalx.probe import LREvaluator, SVMEvaluator, get_split
+from recommendation_tpu_torch.evalx.rating import evaluate_rating
 from recommendation_tpu_torch.evalx.ranking import evaluate_ranking
 from recommendation_tpu_torch.graph import augment
 from recommendation_tpu_torch.graph.bucketed import (
     PLAIN,
+    build_bucketed,
     bucketed_chain_mean,
     bucketed_chain_mean_plain,
+    packer,
     pull,
 )
 from recommendation_tpu_torch.graph.device import DeviceGraph
@@ -220,6 +248,9 @@ from recommendation_tpu_torch.ops.gather import (
     gather_rows_plain,
     gather_sum,
     gather_sum_plain,
+    padded_width,
+    quantize_rows,
+    quantize_rows_plain,
 )
 from recommendation_tpu_torch.ops import lse as lse_ops
 from recommendation_tpu_torch.ops import spmm
@@ -269,6 +300,7 @@ from recommendation_tpu_torch.serve.service import RecommenderService
 from recommendation_tpu_torch.train.loop import run_steps
 from recommendation_tpu_torch.train.recommender import GraphRecommender
 from recommendation_tpu_torch.utils.logging import Log
+from recommendation_tpu_torch.utils.profiling import Throughput, profile_trace
 from recommendation_tpu_torch.weights import load_params, save_params
 
 # H100 SXM data sheet peaks (dense): the least time any kernel could take
@@ -1463,14 +1495,16 @@ def gather_bound(idx, d, itemsize):
     return bytes_bound(n * 4 + (rows + n) * d * itemsize)
 
 
-def pull_bound(csr, d, itemsize, val=False, post=True):
+def pull_bound(csr, d, itemsize, val=False, post=True, row_bytes=None):
     """P1: the slot indices (and values) and row pointers, each distinct
-    source row the live slots pick read once, the row scales, the
-    [R + 1, d] f32 output written once."""
+    source row the live slots pick read once (``row_bytes`` a row, d ·
+    itemsize by default; an int8 row its padded codes and its scale), the
+    row scales, the [R + 1, d] f32 output written once."""
     live = csr.ridx[csr.ridx != csr.total_rows]
     n_out = csr.total_rows + 1
+    row_bytes = d * itemsize if row_bytes is None else row_bytes
     nbytes = (csr.n_slots * 4 * (1 + val) + csr.row_ptr.numel() * 8
-              + torch.unique(live).numel() * d * itemsize + n_out * 4 * post + n_out * d * 4)
+              + torch.unique(live).numel() * row_bytes + n_out * 4 * post + n_out * d * 4)
     return bytes_bound(nbytes)
 
 
@@ -1814,12 +1848,13 @@ def sampler_seconds(graph, reps=3):
 
 SEGMENT_COUNTERS = (weighted_pull, weighted_pull_dot, segment_softmax_rows,
                     segment_softmax_rows_bwd, attention_softmax, attention_softmax_bwd)
-ALL_COUNTERS = COUNTERS + (gather_rows, gather_sum) + SEGMENT_COUNTERS
+ALL_COUNTERS = COUNTERS + (gather_rows, gather_sum, quantize_rows) + SEGMENT_COUNTERS
 
 
 def reset_counts():
     for f in ALL_COUNTERS:
         f.launches = 0
+    gather_sum.launches_int8 = 0
 
 
 def all_counts():
@@ -1868,7 +1903,7 @@ def bucketed_step_launches(model_name, n_layers):
     return {"gather_rows": k7, "gather_sum": p1}
 
 
-def expected_launches(model_name, graph, n_layers, steps, n_evals, e_steps=0):
+def expected_launches(model_name, graph, n_layers, steps, n_evals, e_steps=0, emb=EMB):
     """What one run's steps, E-steps and evaluations launch. On the bucketed
     backend: a step as ``bucketed_step_launches`` says, NCL's L
     ``adj_matmul`` rounds P1 and K7 once each way a round with K5 and K6 two
@@ -1877,7 +1912,8 @@ def expected_launches(model_name, graph, n_layers, steps, n_evals, e_steps=0):
     dense backend SelfCF's chain over R̂ is K1 L times a forward, K2 L times
     a backward; the other zoo models and DirectAU reach no kernel of the
     port (their square products are ``torch.matmul``, as the JAX package's
-    are XLA's)."""
+    are XLA's). Where int8 packs (a bucketed chain at ``emb`` >= 249), each
+    forward chain quantizes its L layers' sources (Q1), the backward none."""
     want = {f.__name__: 0 for f in ALL_COUNTERS}
     if model_name in SOCIAL_MODELS:
         if graph.backend != "dense":  # on the dense backend: torch.matmul
@@ -1908,10 +1944,13 @@ def expected_launches(model_name, graph, n_layers, steps, n_evals, e_steps=0):
                  else (2, n_layers))
         want.update(gather_rows=step["gather_rows"] * steps + evals[0] * chains,
                     gather_sum=step["gather_sum"] * steps + evals[1] * chains)
+        if model_name == "lightgcn" and packer(graph.compute_dtype, emb) == "int8":
+            want.update(quantize_rows=n_layers * (steps + chains))
     return want
 
 
-def gate_phase(model_name, data, graph, epochs, batch, pop, gate, plain=None, profile=True):
+def gate_phase(model_name, data, graph, epochs, batch, pop, gate, plain=None, profile=True,
+               emb=EMB):
     """One model's training main path on a set whose ranking optimum is not
     the popularity list: the untrained tables' Recall@20, then ``epochs``
     epochs with an evaluation after each, the best epoch's tables kept (the
@@ -1921,9 +1960,10 @@ def gate_phase(model_name, data, graph, epochs, batch, pop, gate, plain=None, pr
     list's Recall@20; ``check_gate`` holds the result to ``gate``. With
     ``plain`` (the trained recommender -> the plain path's eval tables on
     the card), the served answers must equal the plain path's. ``profile``:
-    ``profile_steps`` of the trained recommender in the result."""
+    ``profile_steps`` of the trained recommender in the result; ``emb``
+    the embedding size."""
     config = default_config(**{
-        "embedding.size": EMB, "batch.size": batch, "learning.rate": LR, "optimizer": "adam",
+        "embedding.size": emb, "batch.size": batch, "learning.rate": LR, "optimizer": "adam",
         "max.epoch": epochs, "eval.interval": 1, "item.ranking.topN": [20],
         "graph.compute_dtype": graph.compute_dtype,
     })
@@ -1945,7 +1985,8 @@ def gate_phase(model_name, data, graph, epochs, batch, pop, gate, plain=None, pr
     n_evals = len(rec.history) + 3
     e_steps = epochs if model_name == "ncl" else 0
     n_layers = getattr(model, "n_layers", None)
-    want = expected_launches(model_name, graph, n_layers, n_batches * epochs, n_evals, e_steps)
+    want = expected_launches(model_name, graph, n_layers, n_batches * epochs, n_evals, e_steps,
+                             emb)
     if launches != want:
         raise RuntimeError(f"{model_name} on {graph.backend} launches {launches}, expected {want}")
     losses = [e["loss"] for e in rec.epoch_stats]
@@ -1978,7 +2019,8 @@ def gate_phase(model_name, data, graph, epochs, batch, pop, gate, plain=None, pr
         "best_epoch": rec.best_epoch, "recall@20": metrics["Recall@20"],
         "ndcg@20": metrics["NDCG@20"], "gate": gate,
         "masked_popularity_recall@20": pop["masked"], "popularity_recall@20": pop["plain"],
-        "launches": launches, "wall_s": wall_s,
+        "launches": launches, "launches_p1_int8": gather_sum.launches_int8, "wall_s": wall_s,
+        "embedding_size": emb,
         **({"profile": profile_steps(rec, batch)} if profile else {}),
     }
 
@@ -2175,8 +2217,9 @@ def clustered_phase():
     """The clustered large set: the build, one-step checks of NCL and
     DirectAU against their plain paths, then LightGCN-BPR, NCL and DirectAU
     trained on the one graph, each held to the gate, then the bucketed zoo
-    on the same graph (``bucketed_zoo_phase``) and the neighbour models
-    (``clustered_neighbor_phase``)."""
+    on the same graph (``bucketed_zoo_phase``), the neighbour models
+    (``clustered_neighbor_phase``) and int8 propagation with the host
+    modules (``int8_phase``)."""
     data, graph, info = clustered_build()
     pop = {"masked": info["masked_popularity_recall@20"],
            "plain": info["popularity_recall@20"]}
@@ -2193,7 +2236,8 @@ def clustered_phase():
         check_gate(stats)
         runs.append(stats)
     zoo = bucketed_zoo_phase(data, graph)
-    return info, one_step, runs, zoo, clustered_neighbor_phase(data, graph)
+    nb = clustered_neighbor_phase(data, graph)
+    return info, one_step, runs, zoo, nb, int8_phase(data, graph, pop)
 
 
 def hard_phase():
@@ -3323,6 +3367,341 @@ def add_social_launches(k7_row, p1_row, social):
                 row[f"launches_{label}"] = n
 
 
+# -- int8 propagation (Q1, P1's int8 source), the native builder, the tuner,
+# -- the rating, probe and profiling modules --------------------------------------
+
+# int8 packs where the packed row keeps 64 f32 words (d >= 249,
+# graph/bucketed.py::packer): the widths of the tuning presets' grids
+# (tune/presets.py EMBS) where it is live; 250 gives code rows with padding
+INT8_D, INT8_PAD_D, INT8_NARROW_D = 256, 250, 64
+# LightGCN at INT8_D on the clustered set, f32 and int8 on the same batches:
+# the fewest epochs that clear the masked popularity list by a third in
+# both (a 14-epoch run on the H100: Recall@20 0.0289, 0.0318, 0.0371,
+# 0.0435 after epochs 1-4 in f32 and int8 alike, against 0.02847; PERF.md §4)
+INT8_EPOCHS = 4
+# the int8 step against the plain chain with the same int8 numerics: the
+# two round a layer's sums in another order, so a later layer's code that
+# sits at a tie flips by one quantum in one of them (tests/test_torch_int8.py
+# bounds this per element on the CPU); here the gradients are held by their
+# relative Frobenius error, a bound that rejects zeros
+INT8_FRO_TOL = 1e-4
+TUNE_GRID = ("embedding.size=64,128", "learning.rate=1e-3,5e-3")
+TUNE_BAD_RATE = "-1"  # torch.optim.Adam refuses it: those configurations must fail alone
+
+
+def check_quantize(name, x, pre=None):
+    """Q1 against its plain version bit for bit (codes, scales, the padding
+    codes 0), and a second call against the first."""
+    codes, scale = quantize_rows(x, pre)
+    again = quantize_rows(x, pre)
+    want = quantize_rows_plain(x, pre)
+    torch.cuda.synchronize()
+    table = torch.as_strided(codes, (codes.shape[0], codes.stride(0)), (codes.stride(0), 1))
+    if not (torch.equal(codes, want[0]) and torch.equal(scale, want[1])
+            and torch.equal(codes, again[0]) and torch.equal(scale, again[1])
+            and not table[:, x.shape[1]:].any()):
+        raise RuntimeError(f"quantize_rows {name}: differs from its plain version")
+    return codes, scale
+
+
+def q1_bound(n, d, pre=True):
+    """Q1: the rows (and pre) read once, the padded code rows and the
+    scales written once."""
+    return bytes_bound(n * d * 4 + n * 4 * pre + n * padded_width(d) + n * 4)
+
+
+def int8_kernel_phase(data, graph):
+    """Q1 and P1 with an int8 source against their plain versions at the
+    clustered bucket tables (d = 256 and 250), twice bit for bit; int8
+    below d = 249 is f32 (no Q1); Q1 and P1 at d = 256 for f32, bf16 and
+    int8 timed beside their bounds and ``torch.sparse.mm``."""
+    adj = graph.norm_adj
+    fwd = adj.pull
+    r = fwd.total_rows
+    ridx, ptr, sched, post = fwd.ridx, fwd.row_ptr, fwd.schedule, fwd.sep_dst
+    rng = np.random.default_rng(21)
+    variants, inputs = {}, {}
+    for d in (INT8_D, INT8_PAD_D):
+        x = torch.from_numpy(rng.normal(size=(r + 1, d)).astype(np.float32) * 0.05).cuda()
+        x[r] = 0.0
+        xn = torch.from_numpy(rng.normal(size=(fwd.n_cols, d)).astype(np.float32) * 0.05).cuda()
+        codes, scale = check_quantize(f"separable source d={d}", x, fwd.sep_src_row)
+        codes_n, scale_n = check_quantize(f"node rows d={d}", xn)
+        if not torch.all(codes[r] == 0):
+            raise RuntimeError("quantize_rows: the zero row's codes are not 0")
+        variants[f"separable, row space, d={d}"] = check_pull(
+            f"int8 separable d={d}", codes, ridx, ptr, post=post, skip=r, schedule=sched,
+            scale=scale)
+        variants[f"values, node space, d={d}"] = check_pull(
+            f"int8 node d={d}", codes_n, fwd.idx, ptr, val=fwd.val, schedule=sched, scale=scale_n)
+        inputs[d] = (x, xn, codes, scale)
+    # below d = 249 int8 does not pack: the f32 path, bit for bit, and no Q1
+    x64 = torch.from_numpy(rng.normal(size=(fwd.n_cols, INT8_NARROW_D)).astype(np.float32)).cuda()
+    before = quantize_rows.launches
+    narrow_same = (torch.equal(pull(fwd, x64, "int8"), pull(fwd, x64, "float32"))
+                   and torch.equal(bucketed_chain_mean(LAYERS, "int8", fwd, adj.pull_t, x64),
+                                   bucketed_chain_mean(LAYERS, "float32", fwd, adj.pull_t, x64)))
+    torch.cuda.synchronize()
+    if not narrow_same or quantize_rows.launches != before:
+        raise RuntimeError(f"int8 at d={INT8_NARROW_D} is not the f32 path")
+    x, xn, codes, scale = inputs[INT8_D]
+    pre = fwd.sep_src_row
+    a = data.norm_adj.tocsr()
+    a_csr = torch.sparse_csr_tensor(torch.from_numpy(a.indptr.astype(np.int64)),
+                                    torch.from_numpy(a.indices.astype(np.int64)),
+                                    torch.from_numpy(a.data.astype(np.float32)),
+                                    size=a.shape).cuda()
+    library_ms = time_ms(lambda: torch.sparse.mm(a_csr, xn))
+    q1_b = q1_bound(r + 1, INT8_D)
+    q1 = {
+        "name": "quantize_rows", "route": "cuda",
+        "source": "recommendation_tpu_torch/csrc/gather.cu",
+        "replaces": "recommendation_tpu/graph/bucketed.py:507 (XLA's _pack_int8_rows with "
+                    ":591's source scaling; not a TPU kernel)",
+        "shape": [r + 1, INT8_D], "timed": "the int8 chain's separable source, with pre",
+        "launches": 0, "max_abs_err": 0.0,
+        "ms": time_ms(lambda: quantize_rows(x, pre)),
+        "plain_ms": time_ms(lambda: quantize_rows_plain(x, pre)),
+        "bound_ms": q1_b[0], "bound_by": q1_b[1], "library_ms": None,
+        "d250_ms": time_ms(lambda: quantize_rows(inputs[INT8_PAD_D][0], pre)),
+        "d250_bound_ms": q1_bound(r + 1, INT8_PAD_D)[0],
+    }
+    p1_b = pull_bound(fwd, INT8_D, 1, row_bytes=padded_width(INT8_D) + 4)
+    xb = x.bfloat16()
+    p1 = {
+        "name": "gather_sum_int8", "route": "cuda",
+        "source": "recommendation_tpu_torch/csrc/gather.cu",
+        "replaces": "recommendation_tpu/graph/bucketed.py:594 (XLA's int8 bucket pull, "
+                    "pull_rowspace :563-607; not a TPU kernel)",
+        "shape": [r, fwd.n_slots, INT8_D], "timed": "one separable int8 layer of the chain",
+        "launches": 0, "variants": variants,
+        "max_abs_err": max(v["max_abs_err"] for v in variants.values()),
+        "ms": time_ms(lambda: gather_sum(codes, ridx, ptr, post=post, skip=r, schedule=sched,
+                                         scale=scale)),
+        "plain_ms": time_ms(lambda: gather_sum_plain(codes, ridx, ptr, post=post, scale=scale)),
+        "bound_ms": p1_b[0], "bound_by": p1_b[1], "library_ms": library_ms,
+        "library": "torch.sparse.mm, CSR [N, N] x [N, 256] f32",
+    }
+    for name, src, itemsize in (("f32_d256", x, 4), ("bf16_d256", xb, 2)):
+        bound = pull_bound(fwd, INT8_D, itemsize)
+        p1[name] = {
+            "ms": time_ms(lambda src=src: gather_sum(src, ridx, ptr, post=post, skip=r,
+                                                     schedule=sched)),
+            "plain_ms": time_ms(lambda src=src: gather_sum_plain(src, ridx, ptr, post=post)),
+            "bound_ms": bound[0], "library_ms": library_ms,
+        }
+    del inputs, x, xn, xb, codes, scale, a_csr
+    torch.cuda.empty_cache()
+    return q1, p1
+
+
+def int8_one_step(graph8):
+    """One LightGCN step at d = 256 on the int8 graph (Q1, P1's int8 source
+    and K7 forward, the f32 Horner chain backward) against the plain chain
+    with the same int8 numerics (the plain quantizer, autograd through the
+    plain pulls with the kernels' straight-through gradient)."""
+    config = default_config(**{"embedding.size": INT8_D, "LightGCN.n_layers": LAYERS})
+    model, plain = build("lightgcn", config), PlainBucketedLightGCN(config)
+    params, _ = model.init(torch.Generator().manual_seed(0), graph8)
+    batch = first_batch(graph8, LARGE_BATCH)
+    return step_against_plain(
+        f"lightgcn int8 d={INT8_D}", (lambda p: model.loss(p, {}, batch, graph8)[0], params),
+        (lambda p: plain.loss(p, {}, batch, graph8)[0], params), torch.float32,
+        {"gather_rows": 4, "gather_sum": 2 * LAYERS, "quantize_rows": LAYERS},
+        fro_tol=INT8_FRO_TOL)
+
+
+def native_phase(data, train, test, tmp):
+    """The native builder against the numpy builder on the clustered
+    graph's normalized adjacency (every table bit for bit, host seconds of
+    each), and ``Interaction.from_files`` against ``Interaction(load_data)``
+    on the hard set's files in ``tmp``."""
+    coo = data.norm_adj.tocoo()
+    n = coo.shape[0]
+    t0 = time.perf_counter()
+    fast = build_bucketed(coo.row, coo.col, coo.data, n, n, device="cpu")
+    t1 = time.perf_counter()
+    saved = native._LIB, native._LIB_TRIED
+    native._LIB, native._LIB_TRIED = None, True  # hidden: the numpy path runs
+    try:
+        slow = build_bucketed(coo.row, coo.col, coo.data, n, n, device="cpu")
+    finally:
+        native._LIB, native._LIB_TRIED = saved
+    t2 = time.perf_counter()
+    names = ("idx", "val", "edge", "ridx", "row_ptr", "work", "work_start", "gather_pos",
+             "node_of_row", "sep_dst", "sep_src_row")
+    if fast.caps != slow.caps or fast.counts != slow.counts or not all(
+            torch.equal(getattr(fast, k), getattr(slow, k)) for k in names):
+        raise RuntimeError("the native bucket tables differ from the numpy builder's")
+    write_dataset(tmp, train, test)
+    t3 = time.perf_counter()
+    quick = Interaction.from_files(f"{tmp}/train.txt", f"{tmp}/test.txt")
+    t4 = time.perf_counter()
+    ref = Interaction(load_data(f"{tmp}/train.txt"), load_data(f"{tmp}/test.txt"))
+    t5 = time.perf_counter()
+    if not (quick.user == ref.user and quick.item == ref.item and quick.test_set == ref.test_set
+            and quick.training_set_u == ref.training_set_u
+            and np.array_equal(quick.edge_users, ref.edge_users)
+            and (quick.norm_adj != ref.norm_adj).nnz == 0):
+        raise RuntimeError("Interaction.from_files differs from Interaction(load_data(...))")
+    return {"tables": [n, int(fast.n_slots), len(fast.caps)], "native_build_s": t1 - t0,
+            "numpy_build_s": t2 - t1, "from_files_s": t4 - t3, "load_data_s": t5 - t4,
+            "hard_set_edges": int(len(ref.edge_users))}
+
+
+def run_tune(tmp, out, *args):
+    """``python -m recommendation_tpu_torch tune`` on the hard set's files as
+    a subprocess from the checkout; its stdout and results."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    cmd = [sys.executable, "-m", "recommendation_tpu_torch", "tune", "--model", "lightgcn",
+           "--train", f"{tmp}/train.txt", "--test", f"{tmp}/test.txt", "--set", "max.epoch=2",
+           "--out", out, *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"tune {args} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                           f"{proc.stderr[-4000:]}")
+    with open(out) as f:
+        return proc.stdout, json.load(f), time.perf_counter() - t0
+
+
+def tune_phase(tmp):
+    """The tune command: a 2 x 2 grid (each Recall@20) with a rate that
+    must fail in each of its configurations alone, the CSV with one header;
+    the same sweep with ``--resume`` runs nothing; a preset's univariate
+    sweep, its grid cut by ``--grid`` overrides to the preset's defaults."""
+    out, table = f"{tmp}/tune.json", f"{tmp}/tune.csv"
+    grid = ["--grid", TUNE_GRID[0], "--grid", f"{TUNE_GRID[1]},{TUNE_BAD_RATE}", "--csv", table]
+    _, results, grid_s = run_tune(tmp, out, *grid)
+    ok = [r for r in results if "metrics" in r]
+    bad = [r for r in results if "error" in r]
+    if (len(ok) != 4 or len(bad) != 2 or any(r["config"]["learning.rate"] != -1 for r in bad)
+            or not all(0.0 < r["metrics"]["Recall@20"] <= 1.0 for r in ok)):
+        raise RuntimeError(f"tune grid: {results}")
+    with open(table, newline="") as f:
+        rows = list(csv.reader(f))
+    if len(rows) != 7 or "error" not in rows[0] or "Recall@20" not in rows[0] or any(
+            len(row) < len(rows[0]) for row in rows):
+        raise RuntimeError(f"tune CSV: {rows[:2]}")
+    stdout, resumed, resume_s = run_tune(tmp, out, *grid[:-2], "--resume")
+    if resumed != results or "resuming: 6 configurations" not in stdout or "[1/6]" in stdout:
+        raise RuntimeError(f"tune --resume reran recorded configurations:\n{stdout[-2000:]}")
+    # the preset's univariate sweep, every key of its grid cut to its
+    # default by --grid: the defaults' one configuration
+    preset_out = f"{tmp}/preset.json"
+    _, preset, preset_s = run_tune(
+        tmp, preset_out, "--mode", "univariate", "--preset", "--grid", "embedding.size=64",
+        "--grid", "LightGCN.n_layers=3", "--grid", "learning.rate=0.01", "--grid", "loss=bpr",
+        "--grid", "n_negs=1")
+    if len(preset) != 1 or "metrics" not in preset[0]:
+        raise RuntimeError(f"tune --preset: {preset}")
+    return {"grid": {json.dumps(r["config"], sort_keys=True): r["metrics"]["Recall@20"]
+                     for r in ok},
+            "failed": [r["error"] for r in bad], "csv_header": rows[0],
+            "preset": {json.dumps(r["config"], sort_keys=True): r["metrics"]["Recall@20"]
+                       for r in preset},
+            "seconds": {"grid": grid_s, "resume": resume_s, "preset": preset_s}}
+
+
+def extras_phase(train, test, tmp):
+    """``evaluate_rating`` from LightGCN's trained tables on the card against
+    the same report from the tables on the host; the LR and SVM probes on
+    the card on well-separated clusters; ``profile_trace`` around three
+    steps (a trace file) and ``Throughput`` over them."""
+    data = Interaction(train, test)
+    graph = DeviceGraph(data, device="cuda")
+    config = default_config(**{"embedding.size": EMB, "batch.size": BATCH, "learning.rate": LR,
+                               "max.epoch": 2, "item.ranking.topN": [20]})
+    rec = GraphRecommender(build("lightgcn", config), data, config, graph=graph,
+                           log=Log(echo=False), device="cuda")
+    rec.build()
+    rec.train()
+    ue, ie = rec.model.eval_embeddings(rec.params, rec.state, graph)
+    card_rating = evaluate_rating(ue, ie, data)
+    host_rating = evaluate_rating(ue.cpu().numpy(), ie.cpu().numpy(), data)
+    if not all(math.isfinite(card_rating[k]) and abs(card_rating[k] - host_rating[k]) <= 1.01e-5
+               for k in ("MAE", "RMSE")):
+        raise RuntimeError(f"evaluate_rating on the card {card_rating}, on the host {host_rating}")
+    rng = np.random.default_rng(0)
+    centers = rng.normal(size=(4, 32)) * 4.0
+    y = rng.integers(0, 4, 4000)
+    z = (centers[y] + rng.normal(size=(4000, 32))).astype(np.float32)
+    split = get_split(4000, train_ratio=0.1, test_ratio=0.8, seed=1)
+    probes = {"lr": LREvaluator(num_epochs=100, device="cuda")(torch.from_numpy(z).cuda(), y,
+                                                                split),
+              "svm": SVMEvaluator(num_epochs=100, device="cuda")(z, y, split)}
+    if not all(p["micro_f1"] > 0.9 for p in probes.values()):
+        raise RuntimeError(f"the probes do not separate the clusters: {probes}")
+    users, items, negs, weights, _ = epoch_batches(
+        epoch_words(torch.Generator().manual_seed(5), graph, BATCH), graph, BATCH)
+    window = (users[:3], items[:3], negs[:3], weights[:3], 3)
+    meter = Throughput()
+    with profile_trace(f"{tmp}/trace") as prof:
+        _, loss = run_steps(rec.model, rec.optimizer, graph, rec.params, rec.state, window,
+                            torch.Generator().manual_seed(6))
+        float(loss)
+        meter.add(3 * BATCH)
+    rate = meter.examples_per_s
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type.name == "CUDA")
+    if not (os.path.getsize(prof.trace_path) > 0 and device_us > 0 and rate > 0):
+        raise RuntimeError(f"profile_trace wrote {prof.trace_path}, device us {device_us}")
+    return {"rating_card": card_rating, "rating_host": host_rating, "probes": probes,
+            "trace_bytes": os.path.getsize(prof.trace_path), "trace_device_us": device_us,
+            "throughput_examples_per_s": rate}
+
+
+def int8_phase(data, graph, pop):
+    """Q1 and P1's int8 source at the clustered tables, one int8 LightGCN
+    step against the plain chain, LightGCN at d = 256 trained in f32 and in
+    int8 on the same batches (each held to the masked gate), then the
+    native builder, the tune command and the rating, probe and profiling
+    modules. Returns (the phase's line, Q1's row, P1-int8's row)."""
+    t0 = time.perf_counter()
+    q1_row, p1_row = int8_kernel_phase(data, graph)
+    t1 = time.perf_counter()
+    graph8 = DeviceGraph(data, backend="auto", compute_dtype="int8", device="cuda")
+    one_step = int8_one_step(graph8)
+    t2 = time.perf_counter()
+    runs = {}
+    for name, g in (("float32", graph), ("int8", graph8)):
+        stats = gate_phase("lightgcn", data, g, INT8_EPOCHS, LARGE_BATCH, pop, "masked",
+                           emb=INT8_D)
+        check_gate(stats)
+        runs[name] = stats
+    q1_row["launches"] = runs["int8"]["launches"]["quantize_rows"]
+    p1_row["launches"] = runs["int8"]["launches_p1_int8"]
+    n_steps = runs["int8"]["steps_per_epoch"] * INT8_EPOCHS
+    n_chains = len(runs["int8"]["recall@20_by_epoch"]) + 3
+    if p1_row["launches"] != LAYERS * (n_steps + n_chains) or runs["float32"]["launches"][
+            "quantize_rows"] or runs["float32"]["launches_p1_int8"]:
+        raise RuntimeError(f"P1's int8 launches {p1_row['launches']}, expected "
+                           f"{LAYERS * (n_steps + n_chains)}; f32 {runs['float32']['launches']}")
+    del graph8
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    train, test = make_hard_dataset()
+    with tempfile.TemporaryDirectory() as tmp:
+        host = {"native": native_phase(data, train, test, tmp)}
+        t4 = time.perf_counter()
+        host["tune"] = tune_phase(tmp)
+        t5 = time.perf_counter()
+        host["extras"] = extras_phase(train, test, tmp)
+    t6 = time.perf_counter()
+    line = {
+        "one_step": one_step, "train": runs,
+        "recall@20": {k: v["recall@20"] for k, v in runs.items()},
+        "recall@20_gap_f32_minus_int8": runs["float32"]["recall@20"] - runs["int8"]["recall@20"],
+        "host_modules": host,
+        "seconds": {"kernels": t1 - t0, "one_step": t2 - t1, "train": t3 - t2,
+                    "native": t4 - t3, "tune": t5 - t4, "extras": t6 - t5, "all": t6 - t0},
+    }
+    print(f"int8: recall@20 {line['recall@20']}, seconds {line['seconds']}")
+    return line, q1_row, p1_row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs on the card",
@@ -3416,12 +3795,19 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     (clustered_info, clustered_one_step, clustered_runs, bucketed_zoo,
-     clustered_nb) = clustered_phase()
+     clustered_nb, (int8, q1_row, p1_int8_row)) = clustered_phase()
     for run in clustered_runs:
         for row in lse_rows + [k7_row, p1_row]:
             row["launches"] += run["launches"][row["name"]]
             row[f"launches_clustered_{run['model']}"] = run["launches"][row["name"]]
         run["card"] = card
+    for dtype, run in int8["train"].items():
+        for row in (k7_row, p1_row):
+            row["launches"] += run["launches"][row["name"]]
+            row[f"launches_clustered_lightgcn_d{INT8_D}_{dtype}"] = run["launches"][row["name"]]
+        run["card"] = card
+    for row in (q1_row, p1_int8_row):
+        row["card"] = card
     hard, zoo, hard_nb = hard_phase()
     for run in hard["train"] + zoo["train"] + list(bucketed_zoo.values()) + hard_nb["train"]:
         run["card"] = card
@@ -3436,7 +3822,8 @@ def main() -> int:
         row["launches_hard_lightgcn_dense"] = dense_lightgcn[row["name"]]
     seg_rows = segment_kernel_rows(hard_nb, clustered_nb, card)
     kernel_rows = (list(rows.values()) + list(bwd_rows.values()) + list(layer_rows.values())
-                   + list(layer_bwd_rows.values()) + lse_rows + [k7_row, p1_row] + seg_rows)
+                   + list(layer_bwd_rows.values()) + lse_rows + [k7_row, p1_row] + seg_rows
+                   + [q1_row, p1_int8_row])
     idle = [r["name"] for r in kernel_rows if r["launches"] <= 0]
     if idle:
         raise RuntimeError(f"kernels never launched on the main paths: {idle}")
@@ -3453,6 +3840,7 @@ def main() -> int:
     print(json.dumps({"bucketed_zoo": bucketed_zoo}))
     print(json.dumps({"neighbors": {"hard": hard_nb, "clustered": clustered_nb}}))
     print(json.dumps({"social": social}))
+    print(json.dumps({"int8": int8}))
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,9 @@
       [--host H --port P]
   python -m recommendation_tpu_torch synthesize-social --train T [--out S] \\
       [--threshold 0.35] [--top-k 10]
+  python -m recommendation_tpu_torch tune --model MODEL [--mode grid|univariate] \\
+      [--grid key=v1,v2 ...] [--preset] [--resume] [--out R.json] [--csv R.csv] \\
+      [--train T --test T] [--social S] [--set key=value ...] [--device cuda|cpu]
 
 ``models`` lists the ported models: ``lightgcn``, ``ncl``, ``directau``,
 ``selfcf``, ``buir``, ``ssl4rec``, ``gcl`` (alias ``grace_rec``),
@@ -35,6 +38,14 @@ triples (``trustor trustee [weight]`` lines) from ``--social``, else from
 ``social.txt`` beside the train file, else synthesize them
 (``data.social.synthesize_social``, the test.ipynb protocol), and run on a
 ``SocialDeviceGraph``; ``synthesize-social`` writes such a file.
+``tune`` runs a sweep (``tune/tuner.py``): a full grid over ``--grid``
+entries, or one key at a time against defaults (``--mode univariate``);
+``--preset`` takes the model's reference-script sweep (``tune/presets.py``),
+explicit ``--grid`` entries overriding its keys; each configuration trains
+and evaluates on one shared graph, a failing one is recorded with its
+error and the sweep goes on; ``--out`` writes the results JSON, which
+``--resume`` reads back to skip what it recorded; ``--csv`` appends them
+as CSV; the summary (best configuration per metric) closes the output.
 """
 
 from __future__ import annotations
@@ -59,6 +70,14 @@ def _parse_sets(pairs):
         k, _, v = p.partition("=")
         out[k] = _parse_value(v)
     return out
+
+
+def _parse_grid(entries):
+    grid = {}
+    for e in entries or []:
+        k, _, vs = e.partition("=")
+        grid[k] = [_parse_value(v) for v in vs.split(",")]
+    return grid
 
 
 def _load_sets(args):
@@ -183,6 +202,21 @@ def main(argv=None):
                    help="parameters saved by weights.save_params (.npz) or a checkpoint directory")
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8080)
+    u = sub.add_parser("tune", help="a hyperparameter sweep: a grid or one key at a time")
+    u.add_argument("--model", required=True, help="a name that `models` lists")
+    u.add_argument("--train")
+    u.add_argument("--test")
+    u.add_argument("--social", help="trust triples (social models)")
+    u.add_argument("--set", action="append", help="config override key=value")
+    u.add_argument("--out", help="results JSON path")
+    u.add_argument("--mode", choices=["grid", "univariate"], default="grid")
+    u.add_argument("--grid", action="append", help="key=v1,v2,...")
+    u.add_argument("--preset", action="store_true",
+                   help="use the model's reference-script sweep preset")
+    u.add_argument("--resume", action="store_true",
+                   help="skip configurations already recorded in --out")
+    u.add_argument("--csv", help="also append results to CSV")
+    u.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     y = sub.add_parser("synthesize-social",
                        help="build social.txt from train interactions (test.ipynb protocol)")
     y.add_argument("--train", required=True)
@@ -205,6 +239,9 @@ def main(argv=None):
     config = default_config(**_parse_sets(args.set))
     train, test, train_path = _load_sets(args)
     social = _maybe_social(args, args.model, train, test, train_path)
+
+    if args.cmd == "tune":
+        return _tune(args, config, train, test, social)
 
     if args.cmd == "train":
         rec = train_recommender(args.model, config, train, test, device=args.device,
@@ -230,6 +267,34 @@ def main(argv=None):
         return 2
     print(f"serving on http://{args.host}:{args.port}  (GET /recommend?user=<id>&k=10)")
     serve_http(service, host=args.host, port=args.port)
+    return 0
+
+
+def _tune(args, config, train, test, social) -> int:
+    """``tune``: the sweep (``--preset``'s, its grid overridden key by key
+    by ``--grid``), its summary, and the results JSON and CSV."""
+    from recommendation_tpu_torch.tune import GridTuner, UnivariateTuner, print_summary
+
+    grid = _parse_grid(args.grid)
+    mode, defaults = args.mode, {}
+    if args.preset:
+        from recommendation_tpu_torch.tune.presets import get_preset
+
+        preset = get_preset(args.model)
+        mode = preset["mode"]
+        defaults = dict(preset.get("defaults", {}))
+        grid = {**preset["grid"], **grid}  # an explicit --grid overrides the preset
+    kw = dict(base_config=config, social_triples=social, device=args.device)
+    if mode == "grid":
+        tuner = GridTuner(args.model, train, test, grid, **kw)
+    else:
+        tuner = UnivariateTuner(args.model, train, test, grid, defaults=defaults, **kw)
+    tuner.run(resume_path=args.out if args.resume else None)
+    print_summary(tuner.results, Ns=config.get("item.ranking.topN", [10, 20, 30, 50]))
+    if args.out:
+        tuner.save_json(args.out)
+    if args.csv:
+        tuner.save_csv(args.csv)
     return 0
 
 

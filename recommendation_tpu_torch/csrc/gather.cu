@@ -68,6 +68,36 @@
 //     order and runs the epilogue. Every float sum has a fixed order
 //     whichever group finishes last, so a call repeats bit for bit; the
 //     only atomic is the integer counter.
+//
+// P1 also takes an int8 source (the bucketed backend's int8 propagation,
+// recommendation_tpu/graph/bucketed.py:507-527, :545-560): codes int8
+// [N, d] in rows of sd bytes (sd a multiple of 16, the padding codes 0)
+// beside a scale f32 [N], a slot adding (float(q) * scale[s]) * val[s], each
+// product rounded once, as the plain version dequantizes and weighs. A
+// lane loads 16 codes with one 16-byte load and each slot's scale once;
+// the work list, the tiles and the split-row counter are the f32 path's.
+// It is a kernel of its own (gather_sum_i8_kernel) beside the float one,
+// whose code stays as it was: one body for both (a column chunk that may
+// pass d, a source stride apart from d) ran the f32 layer slower on the
+// H100 at the same registers (PERF.md §6, PR 13).
+// What bounds it: bytes, each distinct source row d_pad + 4 bytes once, the
+// slot indices (and values) and the f32 output. The int8 source runs the
+// forward pulls only: no `add`, `acc` or `final` (the backward is f32).
+//
+// Q1 (`quantize_rows`) replaces no TPU kernel either: it is XLA's
+// _pack_int8_rows (graph/bucketed.py:507-519), with the separable pull's
+// source scaling `xp * sep_src_row` (:591) as its optional `pre`: per row,
+//
+//     xs = x * pre
+//     scale = max(max|xs|, 1e-12) * f32(1/127)
+//     q = clip(rint(xs / scale), -127, 127)
+//
+// with the scale a product by the f32 reciprocal (what XLA makes of the
+// division under jit) and each code a true division, rounded half to even,
+// so the codes and scales equal the jitted JAX function's bit for bit. One
+// warp a row: its absmax by a butterfly of fmaxf (exact in any order), then
+// the codes, four to a 32-bit store. What bounds it: bytes (the row read
+// once, d_pad + 4 bytes written).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -152,6 +182,12 @@ struct Sum {  // one P1 call's operands (add, val, post, acc, final, partial, co
     float* total;  // (acc + y) * final
 };
 
+struct Codes {  // an int8 source beside its Sum (whose src holds the codes)
+    const float* scale;  // [N] the rows' scales
+    int sd;              // the code rows' stride (a multiple of 16)
+    int pd;              // the partial sums' row stride in floats (at least sd)
+};
+
 // The epilogue of row r at columns col .. col + VEC: y = post * sum, then
 // total = (acc + y) * final, each rounded once
 template <int VEC>
@@ -174,6 +210,35 @@ __device__ __forceinline__ void finish(const Sum& a, int r, size_t col, const fl
         for (int k = 0; k < VEC; ++k) y[k] = __fmul_rn(y[k], fin);
     }
     store_stream<VEC>(a.total + off, y);
+}
+
+// 16 int8 codes of a gathered row, widened exactly and scaled by the row's
+// scale, each product rounded once
+__device__ __forceinline__ void dequant16(const int4 raw, float s, float (&v)[16]) {
+    const int w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+        v[k] = __fmul_rn(static_cast<float>(static_cast<signed char>(w[k / 4] >> (8 * (k % 4)))), s);
+}
+
+// The int8 source's epilogue, y = post * sum at columns col .. col + 16 of
+// row r: a chunk may pass d (the code rows are padded to 16), so a whole
+// chunk moves by 16-byte stores where WIDE allows them, else the columns
+// below d one at a time
+template <bool WIDE>
+__device__ __forceinline__ void finish_i8(const Sum& a, int r, int col, const float (&sum)[16],
+                                          float post) {
+    const size_t off = static_cast<size_t>(r) * a.d + col;
+    float y[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) y[k] = __fmul_rn(sum[k], post);
+    if (WIDE && col + 16 <= a.d) {
+        store_row<16>(a.out + off, y);
+    } else {
+#pragma unroll
+        for (int k = 0; k < 16; ++k)
+            if (col + k < a.d) a.out[off + k] = y[k];
+    }
 }
 
 // A tile: the work items that one block sums between two barriers, two per
@@ -315,6 +380,106 @@ gather_sum_kernel(const Sum a) {
     walk_tiles<STAGES>(n_tiles, range, stage, body);
 }
 
+// P1 with an int8 source: the float kernel's tiles, items and split rows,
+// each lane summing 16 columns of (float(q) * scale[s]) * val[s] a slot
+// from one 16-byte load of codes and the slot's scale (module comment); no
+// add, acc or final. The float kernel's Sum is kept as it was; the codes'
+// scales and strides come beside it
+template <int LANES, bool HAS_VAL, bool WIDE>
+__global__ void __launch_bounds__(WARPS * 32)
+gather_sum_i8_kernel(const Sum a, const Codes c) {
+    using TileT = Tile<LANES, HAS_VAL>;
+    extern __shared__ __align__(16) unsigned char tile_smem[];
+    TileT* bufs = reinterpret_cast<TileT*>(tile_smem);  // STAGES of them
+    const int lane = threadIdx.x & 31, l = lane % LANES;
+    const int g = threadIdx.x / LANES;  // group of the block
+    const unsigned gmask = LANES == 32 ? FULL : ((1u << LANES) - 1) << (lane / LANES * LANES);
+    const int nvec = c.sd / 16;  // 16-code chunks of a padded row
+    const int8_t* src = static_cast<const int8_t*>(a.src);
+    const int n_tiles = (a.n_work + TileT::ITEMS - 1) / TileT::ITEMS;
+    auto range = [&](int t) { return tile_range(a.work, a.work_start, a.n_work, TileT::ITEMS, t); };
+    auto stage = [&](int t, const TileRange& rg, int b) { stage_tile(a, t, rg, bufs[b]); };
+    auto body = [&](int t, int b) {
+        const TileT& buf = bufs[b];
+        const int count = min(TileT::ITEMS, a.n_work - t * TileT::ITEMS);
+        for (int k = 0; k < 2; ++k) {
+            const int i = g + k * TileT::GROUPS;
+            const bool valid = i < count;
+            const int4 wk = valid ? buf.work[i] : make_int4(0, 0, 0, 1);
+            const int r = wk.x, piece = wk.y, part = wk.z, pieces = wk.w;
+            const int off = valid ? static_cast<int>(buf.start[i] - buf.start[0]) : 0;
+            const int n = valid ? static_cast<int>(buf.start[i + 1] - buf.start[i]) : 0;
+            const int row = r - buf.work[0].x;  // the tile's rows are staged from its first
+            const float post = valid && a.post != nullptr ? buf.post[row] : 1.f;
+            int n_max = n;  // the warp's longest item: its groups walk in step
+#pragma unroll
+            for (int o = LANES; o < 32; o <<= 1) n_max = max(n_max, __shfl_xor_sync(FULL, n_max, o));
+
+            for (int c0 = 0; c0 < nvec; c0 += LANES) {
+                const int cv = c0 + l;
+                const bool col_ok = cv < nvec;
+                const int col = cv * 16;
+                float acc[16];
+#pragma unroll
+                for (int q = 0; q < 16; ++q) acc[q] = 0.f;
+                for (int j = 0; j < n_max; j += UNROLL) {
+                    int4 raw[UNROLL];
+                    float sc[UNROLL], wt[UNROLL];
+                    bool ok[UNROLL];
+#pragma unroll
+                    for (int u = 0; u < UNROLL; ++u) {
+                        const int jj = j + u;
+                        const bool in = jj < n;
+                        const int s = in ? buf.idx[off + jj] : a.skip;
+                        wt[u] = HAS_VAL && in ? buf.val[off + jj] : 1.f;
+                        ok[u] = in && s != a.skip && col_ok;
+                        if (ok[u]) {
+                            raw[u] = __ldg(reinterpret_cast<const int4*>(
+                                src + static_cast<size_t>(s) * c.sd + col));
+                            sc[u] = __ldg(c.scale + s);
+                        }
+                    }
+#pragma unroll
+                    for (int u = 0; u < UNROLL; ++u) {
+                        if (!ok[u]) continue;
+                        float v[16];
+                        dequant16(raw[u], sc[u], v);
+#pragma unroll
+                        for (int q = 0; q < 16; ++q)
+                            acc[q] = __fadd_rn(acc[q], HAS_VAL ? __fmul_rn(wt[u], v[q]) : v[q]);
+                    }
+                }
+                if (valid && col_ok) {
+                    if (pieces == 1)
+                        finish_i8<WIDE>(a, r, col, acc, post);
+                    else
+                        store_row<16>(a.partial + static_cast<size_t>(part + piece) * c.pd + col, acc);
+                }
+            }
+
+            // a split row: the group that finishes its last piece adds the
+            // pieces' partial sums in piece order and runs the epilogue
+            if (valid && pieces > 1 && last_piece(a.count, part, pieces, gmask, l, lane / LANES * LANES)) {
+                for (int c0 = 0; c0 < nvec; c0 += LANES) {
+                    const int cv = c0 + l;
+                    if (cv >= nvec) break;
+                    const int col = cv * 16;
+                    float acc[16], p[16];
+                    load_partial<16>(a.partial + static_cast<size_t>(part) * c.pd + col, acc);
+                    for (int k2 = 1; k2 < pieces; ++k2) {
+                        load_partial<16>(a.partial + static_cast<size_t>(part + k2) * c.pd + col, p);
+#pragma unroll
+                        for (int q = 0; q < 16; ++q) acc[q] = __fadd_rn(acc[q], p[q]);
+                    }
+                    finish_i8<WIDE>(a, r, col, acc, post);
+                }
+            }
+            __syncwarp();  // the groups meet again before the next item's shuffle
+        }
+    };
+    walk_tiles<STAGES>(n_tiles, range, stage, body);
+}
+
 bool aligned16(const void* p) { return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 // Blocks of one instantiation that the card holds at once
@@ -328,11 +493,12 @@ int resident_blocks(Kernel kernel, size_t smem) {
     return per_sm * sms;
 }
 
-template <typename T, int VEC, int LANES, bool HAS_VAL, bool HAS_ADD>
-int launch_sum(const Sum& a, cudaStream_t stream) {
-    auto kernel = gather_sum_kernel<T, VEC, LANES, HAS_VAL, HAS_ADD>;
-    constexpr size_t smem = STAGES * sizeof(Tile<LANES, HAS_VAL>);
-    static int resident[64] = {};  // per device ordinal, 0 until asked
+// One launch of a tile-walking P1 kernel on `args`: persistent blocks, as
+// many as the card holds at once (asked once per device, cached in
+// `resident`), at most one a tile
+template <typename Kernel, typename... Args>
+int launch_walk(Kernel kernel, size_t smem, int items, int (&resident)[64], int n_work,
+                cudaStream_t stream, const Args&... args) {
     int dev = 0;
     if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
     if (resident[dev] == 0) {
@@ -342,9 +508,36 @@ int launch_sum(const Sum& a, cudaStream_t stream) {
         resident[dev] = resident_blocks(kernel, smem);
     }
     if (resident[dev] <= 0) return static_cast<int>(cudaErrorLaunchOutOfResources);
-    const int tiles = (a.n_work + Tile<LANES, HAS_VAL>::ITEMS - 1) / Tile<LANES, HAS_VAL>::ITEMS;
-    kernel<<<tiles < resident[dev] ? tiles : resident[dev], WARPS * 32, smem, stream>>>(a);
+    const int tiles = (n_work + items - 1) / items;
+    kernel<<<tiles < resident[dev] ? tiles : resident[dev], WARPS * 32, smem, stream>>>(args...);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int VEC, int LANES, bool HAS_VAL, bool HAS_ADD>
+int launch_sum(const Sum& a, cudaStream_t stream) {
+    static int resident[64] = {};  // per device ordinal, 0 until asked
+    return launch_walk(gather_sum_kernel<T, VEC, LANES, HAS_VAL, HAS_ADD>,
+                       STAGES * sizeof(Tile<LANES, HAS_VAL>), Tile<LANES, HAS_VAL>::ITEMS,
+                       resident, a.n_work, stream, a);
+}
+
+template <int LANES, bool HAS_VAL, bool WIDE>
+int launch_i8(const Sum& a, const Codes& c, cudaStream_t stream) {
+    static int resident[64] = {};
+    return launch_walk(gather_sum_i8_kernel<LANES, HAS_VAL, WIDE>,
+                       STAGES * sizeof(Tile<LANES, HAS_VAL>), Tile<LANES, HAS_VAL>::ITEMS,
+                       resident, a.n_work, stream, a, c);
+}
+
+// the int8 source: 16 lanes where a padded row is at most 16 chunks of 16
+// codes (d <= 256), else a warp
+template <bool WIDE>
+int dispatch_i8(const Sum& a, const Codes& c, cudaStream_t stream) {
+    if (c.sd / 16 <= 16)
+        return a.val != nullptr ? launch_i8<16, true, WIDE>(a, c, stream)
+                                : launch_i8<16, false, WIDE>(a, c, stream);
+    return a.val != nullptr ? launch_i8<32, true, WIDE>(a, c, stream)
+                            : launch_i8<32, false, WIDE>(a, c, stream);
 }
 
 template <typename T, int VEC, int LANES>
@@ -365,6 +558,58 @@ template <typename T, int VEC>
 int dispatch_sum(const Sum& a, cudaStream_t stream) {
     return a.d / VEC <= 16 ? dispatch_flags<T, VEC, 16>(a, stream)
                            : dispatch_flags<T, VEC, 32>(a, stream);
+}
+
+// Q1: one warp a row (module comment). VEC4: the row's floats by 16-byte
+// loads (d a multiple of 4, x aligned)
+constexpr float kInv127 = 1.0f / 127.0f;  // rounded once, at compile time
+
+template <bool VEC4>
+__device__ __forceinline__ void load4(const float* xr, int c, int d, float (&v)[4]) {
+    if (VEC4 && c + 4 <= d) {
+        const float4 t = __ldg(reinterpret_cast<const float4*>(xr + c));
+        v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = c + k < d ? __ldg(xr + c + k) : 0.f;
+    }
+}
+
+template <bool VEC4>
+__global__ void __launch_bounds__(256)
+quantize_rows_kernel(const float* __restrict__ x, const float* __restrict__ pre, long long n,
+                     int d, int d_pad, signed char* __restrict__ codes, float* __restrict__ scale) {
+    const int lane = threadIdx.x & 31;
+    const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+    const long long n_warps = (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
+    for (long long row = warp; row < n; row += n_warps) {
+        const float* xr = x + row * d;
+        const bool has_pre = pre != nullptr;
+        const float p = has_pre ? __ldg(pre + row) : 1.f;
+        float m = 0.f;
+        for (int c = 4 * lane; c < d; c += 128) {
+            float v[4];
+            load4<VEC4>(xr, c, d, v);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) m = fmaxf(m, fabsf(has_pre ? __fmul_rn(v[k], p) : v[k]));
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
+        const float s = __fmul_rn(fmaxf(m, 1e-12f), kInv127);
+        if (lane == 0) scale[row] = s;
+        for (int c = 4 * lane; c < d_pad; c += 128) {  // past d: zeros, so codes 0
+            float v[4];
+            load4<VEC4>(xr, c, d, v);
+            unsigned word = 0;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                const float xs = has_pre ? __fmul_rn(v[k], p) : v[k];
+                const float q = fminf(fmaxf(rintf(__fdiv_rn(xs, s)), -127.f), 127.f);
+                word |= (static_cast<unsigned>(static_cast<int>(q)) & 0xffu) << (8 * k);
+            }
+            *reinterpret_cast<unsigned*>(codes + row * d_pad + c) = word;
+        }
+    }
 }
 
 // lanes across a row for K7: the smallest power of two that covers its
@@ -423,14 +668,17 @@ extern "C" int gather_rows(const void* x, const int* idx, long long n_idx, long 
 
 // P1: a memset of the row counters, then one launch. work is i32
 // [n_work, 4] and work_start i64 [n_work + 1] (ops/gather.py::pull_schedule);
-// partial is f32 [n_partials, d] scratch and count i32 [n_partials], both
-// null when no row is split (n_partials 0); add (f32 source only), val,
-// post, acc, final, out and total may be null (out or total is not).
-// src_bf16 says the source holds bf16 bits.
-extern "C" int gather_sum(const void* src, int src_bf16, const float* add, const int* idx,
-                          const int* work, const long long* work_start, int n_work,
-                          const float* val, const float* post, const float* acc,
-                          const float* final_, int d, int skip, float* partial, int* count,
+// partial is f32 [n_partials, partial_stride] scratch and count i32
+// [n_partials], both null when no row is split (n_partials 0); add (f32
+// source only), val, post, acc, final, out and total may be null (out or
+// total is not). src_kind says what the source holds: 0 f32, 1 bf16 bits,
+// 2 int8 codes in rows of src_stride bytes (a multiple of 16, 16-byte
+// aligned) with their row scales in `scale` (no add, acc or final).
+extern "C" int gather_sum(const void* src, int src_kind, const float* scale, int src_stride,
+                          const float* add, const int* idx, const int* work,
+                          const long long* work_start, int n_work, const float* val,
+                          const float* post, const float* acc, const float* final_, int d,
+                          int skip, float* partial, int partial_stride, int* count,
                           int n_partials, float* out, float* total, void* stream) {
     const Sum a{src, add, idx, reinterpret_cast<const int4*>(work), work_start, n_work, val, post,
                 acc, final_, d, skip, partial, count, out, total};
@@ -441,10 +689,34 @@ extern "C" int gather_sum(const void* src, int src_bf16, const float* add, const
     }
     const bool rows16 = aligned16(src) && aligned16(add) && aligned16(acc) && aligned16(partial) &&
                         aligned16(out) && aligned16(total);
-    if (src_bf16) {
+    if (src_kind == 2) {
+        if (!aligned16(src) || !aligned16(partial) || src_stride % 16 != 0 ||
+            partial_stride % 16 != 0 || partial_stride < src_stride || add != nullptr ||
+            acc != nullptr || final_ != nullptr)
+            return static_cast<int>(cudaErrorInvalidValue);
+        const Codes c{scale, src_stride, partial_stride};
+        return d % 4 == 0 && aligned16(out) ? dispatch_i8<true>(a, c, s) : dispatch_i8<false>(a, c, s);
+    }
+    if (src_kind == 1) {
         return d % 8 == 0 && rows16 ? dispatch_sum<uint16_t, 8>(a, s) : dispatch_sum<uint16_t, 1>(a, s);
     }
     return d % 4 == 0 && rows16 ? dispatch_sum<float, 4>(a, s) : dispatch_sum<float, 1>(a, s);
+}
+
+// Q1: codes int8 [n, d_pad] (d_pad a multiple of 16, the columns past d
+// written 0) and scale f32 [n] of x f32 [n, d], each row scaled by pre
+// (f32 [n], may be null) first. One launch.
+extern "C" int quantize_rows(const float* x, const float* pre, long long n, int d, int d_pad,
+                             signed char* codes, float* scale, void* stream) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (d_pad % 16 != 0 || d_pad < d || !aligned16(codes)) return static_cast<int>(cudaErrorInvalidValue);
+    long long blocks = (n + 7) / 8;  // 8 warps a block, a warp a row
+    if (blocks > (1LL << 16)) blocks = 1LL << 16;  // the rest by the grid-stride loop
+    if (d % 4 == 0 && aligned16(x))
+        quantize_rows_kernel<true><<<static_cast<unsigned>(blocks), 256, 0, s>>>(x, pre, n, d, d_pad, codes, scale);
+    else
+        quantize_rows_kernel<false><<<static_cast<unsigned>(blocks), 256, 0, s>>>(x, pre, n, d, d_pad, codes, scale);
+    return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* gather_error_string(int code) {

@@ -1,7 +1,7 @@
 """Interaction store (layer L2): id maps, positive sets, CSR matrices.
 
-A copy of ``recommendation_tpu/data/interaction.py`` without ``from_files``
-(its native C++ path): the port loads files with ``data.io.load_data``.
+A copy of ``recommendation_tpu/data/interaction.py``; ``from_files`` runs
+the port's native C++ parser and indexer (``recommendation_tpu_torch.native``).
 
 Built once, replacing the 13 drifting ``Interaction`` copies in the reference
 (fullest copy: `selfcf.py:258-327`; lighter clones `ncl.py:46-88`,
@@ -53,6 +53,62 @@ def normalize_graph_mat(adj: sp.spmatrix) -> sp.csr_matrix:
 
 class Interaction:
     """User-item interaction store with id remapping and graph matrices."""
+
+    @classmethod
+    def from_files(cls, train_path: str, test_path: str | None = None) -> "Interaction":
+        """Construct from files with the native C++ parser and indexer
+        (``recommendation_tpu_torch.native``, built at first use): the id
+        maps and edge arrays come back as arrays instead of through the
+        Python dict loop. Semantics identical to ``Interaction(load_data(train),
+        load_data(test))`` (tested); a missing train file, or a hidden
+        library, takes that Python path."""
+        from recommendation_tpu_torch.data.io import load_data
+        from recommendation_tpu_torch.native import get_lib
+        from recommendation_tpu_torch.native.loader import load_indexed
+
+        lib = get_lib()
+        idx = load_indexed(lib, train_path) if lib is not None else None
+        test_data = load_data(test_path) if test_path else []
+        if idx is None:
+            return cls(load_data(train_path), test_data)
+
+        self = object.__new__(cls)
+        self.user = {u: i for i, u in enumerate(idx.user_ids)}
+        self.item = {it: i for i, it in enumerate(idx.item_ids)}
+        self.id2user = dict(enumerate(idx.user_ids))
+        self.id2item = dict(enumerate(idx.item_ids))
+        self.user_num = len(self.user)
+        self.item_num = len(self.item)
+        self.edge_users = idx.users
+        self.edge_items = idx.items
+        self.edge_weights = idx.weights
+        self.training_data = [
+            [idx.user_ids[u], idx.item_ids[i], float(w)]
+            for u, i, w in zip(idx.users, idx.items, idx.weights)
+        ]
+        self.training_set_u = defaultdict(dict)
+        self.training_set_i = defaultdict(dict)
+        for u, i, w in zip(idx.users, idx.items, idx.weights):
+            uid, iid = idx.user_ids[u], idx.item_ids[i]
+            self.training_set_u[uid][iid] = float(w)
+            self.training_set_i[iid][uid] = float(w)
+        self.test_set = defaultdict(dict)
+        self.test_set_item = set()
+        self.test_data = []
+        for row in test_data:
+            user, item = row[0], row[1]
+            rating = row[2] if len(row) > 2 else 1.0
+            if user in self.user and item in self.item:
+                self.test_set[user][item] = rating
+                self.test_set_item.add(item)
+                self.test_data.append([user, item, rating])
+        self.interaction_mat = sp.csr_matrix(
+            (np.ones(len(self.edge_users), dtype=np.float32), (self.edge_users, self.edge_items)),
+            shape=(self.user_num, self.item_num),
+        )
+        self.ui_adj = self._bipartite_adjacency()
+        self.norm_adj = normalize_graph_mat(self.ui_adj)
+        return self
 
     def __init__(self, training_data: Sequence[Sequence], test_data: Sequence[Sequence] = ()):
         self.training_data = [list(t) for t in training_data]

@@ -31,16 +31,29 @@ Edge values receive no gradient (they are normalization constants).
 
 Kept from the JAX package: the separable fold (when val(dst, src) =
 a[dst]·b[src], the pull is a plain sum between two row scalings), and what
-its bf16 packing computes: under ``compute_dtype="bfloat16"`` the source
-rows are rounded to bf16 exactly where the JAX package packs them
-(``packed_words >= 64``, i.e. d >= 127) and the sum stays f32. At d = 64
-neither dtype packs, so both run the identical f32 chain. Not ported: the
-packing into f32 words itself and the cap schedule's TPU timing rationale
-(TPU forms), ``int8`` propagation (ROADMAP queue 1, item 15), the native
-C++ builder (the numpy path builds the same tables). The JAX package's
-``_bwd_dtype`` differs from the forward's dtype only for int8, so the
-backward here pulls in the forward's. ``slot_maps`` gives the bucketed
-GAT (``models/gat.py``) its static edge↔slot maps.
+its packing computes, decided per width as its ``_effective_packer`` does
+(``packer``: only where the packed row keeps >= 64 f32 words):
+
+  * ``compute_dtype="bfloat16"`` rounds the source rows to bf16 (d >= 127);
+  * ``compute_dtype="int8"`` quantizes each source row to int8 codes with
+    a row scale (d >= 249; kernel Q1, ``ops/gather.py::quantize_rows``),
+    separable sources scaled by ``sep_src_row`` before they are quantized,
+    and P1 sums ``code · scale`` (``sep_dst`` after the sum).
+
+The sums stay f32, and below those widths both run the f32 chain. A packed
+chain does not fold its scalings, and its backward pulls in
+``_bwd_dtype``: bf16 stays bf16, int8 runs f32 (int8 quantizes the
+forward's propagation inputs only, as in the JAX package). Where the JAX
+package packs four codes into an f32 word and the row's scale into word 0
+(a TPU gather trick), the port keeps an int8 table with 16-byte rows (P1
+loads 16 codes at once) beside an f32 scale vector: a separate scale keeps
+every code row aligned, and costs the same 32-byte sector a slot that a
+16-byte head on each row would. Not ported: the packing into f32 words
+and the cap schedule's TPU timing rationale (TPU forms). The host build
+runs the native C++ builder (``native/``, built with g++ at first use)
+where it is built, the numpy path where it is hidden; both give the same
+tables bit for bit. ``slot_maps`` gives the bucketed GAT
+(``models/gat.py``) its static edge↔slot maps.
 """
 
 from __future__ import annotations
@@ -60,6 +73,8 @@ from recommendation_tpu_torch.ops.gather import (
     gather_sum,
     gather_sum_plain,
     pull_schedule,
+    quantize_rows,
+    quantize_rows_plain,
 )
 
 MIN_CAP = 4  # smallest bucket width (bounds tiny-row padding)
@@ -219,24 +234,12 @@ def _flat(parts, dtype) -> np.ndarray:
     return np.concatenate([p.reshape(-1) for p in parts]).astype(dtype)
 
 
-def build_bucketed(rows: np.ndarray, cols: np.ndarray, vals: Optional[np.ndarray],
-                   n_rows: int, n_cols: int, edge_ids: Optional[np.ndarray] = None,
-                   min_cap: int = MIN_CAP, device="cuda") -> BucketedCSR:
-    """Host-side one-shot build from COO arrays (any order; zero-valued
-    padding edges welcome), uploaded once to ``device``.
-
-    ``edge_ids[k]`` is the position edge ``k`` occupies in the COO values
-    vector that ``refresh_vals`` re-gathers from (default ``k``). ``vals``
-    None builds a structure-only template (values zero). Raises if an
-    index is out of range: the kernels do not check indices."""
-    dev = resolve_device(device)
+def _numpy_tables(rows: np.ndarray, cols: np.ndarray, vals: Optional[np.ndarray],
+                  edge_ids: np.ndarray, n_rows: int, min_cap: int):
+    """The bucket tables by the numpy path (the JAX package's): buckets as
+    (cap, idx, val, edge), gather_pos, node_of_row. The plain version of
+    the native builder."""
     e = len(rows)
-    if edge_ids is None:
-        edge_ids = np.arange(e, dtype=np.int32)
-    rows = np.asarray(rows, dtype=np.int64)
-    if e and not (rows.min() >= 0 and rows.max() < n_rows and np.min(cols) >= 0
-                  and np.max(cols) < n_cols):
-        raise ValueError(f"build_bucketed: an edge lies outside the {n_rows} x {n_cols} shape")
     # CSR-derived COO is already row-sorted: the O(E) check skips the argsort
     if e == 0 or np.all(rows[:-1] <= rows[1:]):
         r = rows
@@ -277,22 +280,59 @@ def build_bucketed(rows: np.ndarray, cols: np.ndarray, vals: Optional[np.ndarray
         if v is not None:
             val[dst_row, offs] = v[src]
         edge[dst_row, offs] = eid[src]
-        buckets.append((idx, val, edge, cap))
+        buckets.append((cap, idx, val, edge))
         gather_pos[rows_in] = total_rows + np.arange(nb)
         total_rows += nb
     gather_pos[~nonzero] = total_rows  # the appended zeros row
     node_of_row = np.zeros(total_rows + 1, dtype=np.int64)
     node_of_row[gather_pos] = np.arange(n_rows)
-    sep = _detect_separable(r, c, v, n_rows, n_cols)
+    return buckets, gather_pos, node_of_row
+
+
+def build_bucketed(rows: np.ndarray, cols: np.ndarray, vals: Optional[np.ndarray],
+                   n_rows: int, n_cols: int, edge_ids: Optional[np.ndarray] = None,
+                   min_cap: int = MIN_CAP, device="cuda") -> BucketedCSR:
+    """Host-side one-shot build from COO arrays (any order; zero-valued
+    padding edges welcome), uploaded once to ``device``.
+
+    ``edge_ids[k]`` is the position edge ``k`` occupies in the COO values
+    vector that ``refresh_vals`` re-gathers from (default ``k``). ``vals``
+    None builds a structure-only template (values zero). Raises if an
+    index is out of range: the kernels do not check indices. The tables
+    come from the native C++ builder (one counting sort, one fill pass;
+    ``native/``), or from the numpy path where a caller hides the library:
+    the same tables bit for bit."""
+    from recommendation_tpu_torch import native
+    from recommendation_tpu_torch.native.bucketize import build_tables_native
+
+    dev = resolve_device(device)
+    e = len(rows)
+    if edge_ids is None:
+        edge_ids = np.arange(e, dtype=np.int32)
+    rows = np.asarray(rows, dtype=np.int64)
+    if e and not (rows.min() >= 0 and rows.max() < n_rows and np.min(cols) >= 0
+                  and np.max(cols) < n_cols):
+        raise ValueError(f"build_bucketed: an edge lies outside the {n_rows} x {n_cols} shape")
+    lib = native.get_lib() if e else None
+    if lib is not None:
+        buckets, gather_pos, node_of_row = build_tables_native(lib, rows, cols, vals, edge_ids,
+                                                               n_rows, min_cap)
+    else:
+        buckets, gather_pos, node_of_row = _numpy_tables(rows, cols, vals, edge_ids, n_rows,
+                                                         min_cap)
+    total_rows = sum(b[1].shape[0] for b in buckets)
+    # the edges' order does not change what the detection finds
+    sep = _detect_separable(rows, cols, None if vals is None else np.asarray(vals, np.float32),
+                            n_rows, n_cols)
     sd, ss = _sep_row_vectors(sep, node_of_row, total_rows)
 
     ridx = [
         _host_ridx(gather_pos, idx, total_rows, n_rows, n_cols,
-                   dead=(edge < 0) | (val == 0) if v is not None else (edge < 0))
-        for idx, val, edge, _ in buckets
+                   dead=(edge < 0) | (val == 0) if vals is not None else (edge < 0))
+        for _, idx, val, edge in buckets
     ]
-    caps = tuple(cap for *_, cap in buckets)
-    counts = tuple(b[0].shape[0] for b in buckets)
+    caps = tuple(b[0] for b in buckets)
+    counts = tuple(b[1].shape[0] for b in buckets)
     starts = np.concatenate([[0], np.cumsum([nb * cap for nb, cap in zip(counts, caps)])])
     row_ptr = np.concatenate(
         [s + np.arange(nb, dtype=np.int64) * cap for s, nb, cap in zip(starts, counts, caps)]
@@ -306,9 +346,9 @@ def build_bucketed(rows: np.ndarray, cols: np.ndarray, vals: Optional[np.ndarray
     return BucketedCSR(
         caps=caps,
         counts=counts,
-        idx=put(_flat([b[0] for b in buckets], np.int32)),
-        val=put(_flat([b[1] for b in buckets], np.float32)),
-        edge=put(_flat([b[2] for b in buckets], np.int32)),
+        idx=put(_flat([b[1] for b in buckets], np.int32)),
+        val=put(_flat([b[2] for b in buckets], np.float32)),
+        edge=put(_flat([b[3] for b in buckets], np.int32)),
         ridx=None if n_rows != n_cols else put(_flat(ridx, np.int32)),
         row_ptr=put(row_ptr),
         work=work.to(dev),
@@ -391,41 +431,84 @@ def map_vals(csr: BucketedCSR, fn) -> BucketedCSR:
 
 
 class Ops(NamedTuple):
-    """The two primitives the pulls are built from: the kernels' wrappers,
-    or (``PLAIN``) their plain versions, which autograd can differentiate."""
+    """The primitives the pulls are built from: the kernels' wrappers, or
+    (``PLAIN``) their plain versions, which autograd can differentiate.
+    ``quant`` turns a source into what the pull gathers under int8: the
+    codes and scales (Q1), or in ``PLAIN`` the dequantized f32 rows with
+    the kernels' straight-through gradient (``_PlainInt8``)."""
 
     rows: callable
     gsum: callable
+    quant: callable
 
 
-KERNELS = Ops(gather_rows, gather_sum)
-PLAIN = Ops(gather_rows_plain, gather_sum_plain)
+class _PlainInt8(torch.autograd.Function):
+    """The int8 source in plain torch: the dequantized rows ``code ·
+    scale`` (what P1 sums, bit for bit) forward, the identity backward (the
+    JAX package's custom VJP pulls the cotangent in f32)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        codes, scale = quantize_rows_plain(x)
+        return codes.float() * scale[:, None]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
 
 
-def packs_bf16(compute_dtype: str, d: int) -> bool:
-    """Whether the JAX package packs the gathered rows as bf16 at this
-    width (``_effective_packer``: only where the packed row keeps >= 64
-    f32 words). int8 propagation is not ported."""
-    if compute_dtype == "int8":
-        raise NotImplementedError(
-            "int8 propagation on the bucketed backend is not ported yet "
-            "(ROADMAP queue 1, item 15)")
-    return compute_dtype == "bfloat16" and -(-d // 2) >= 64
+def _plain_quant(x: torch.Tensor, pre: Optional[torch.Tensor] = None):
+    return _PlainInt8.apply(x if pre is None else x * pre[:, None]), None
 
 
-def _source(x: torch.Tensor, compute_dtype: str) -> torch.Tensor:
-    """The rows the pull gathers: rounded to bf16 where the JAX package
-    packs, else f32."""
-    return x.to(torch.bfloat16) if packs_bf16(compute_dtype, x.shape[1]) else x.float()
+KERNELS = Ops(gather_rows, gather_sum, quantize_rows)
+PLAIN = Ops(gather_rows_plain, gather_sum_plain, _plain_quant)
+
+# f32 words a packed row takes (the JAX package's ``packed_words``)
+_WORDS = {"bfloat16": lambda d: -(-d // 2), "int8": lambda d: 1 + -(-d // 4)}
+COMPUTE_DTYPES = ("float32", "bfloat16", "int8")
+
+
+def packer(compute_dtype: str, d: int) -> Optional[str]:
+    """How the pull's source rows are packed at width ``d``: "bfloat16",
+    "int8" or None (f32), as the JAX package's ``_effective_packer``
+    decides: only where the packed row keeps >= 64 f32 words (bf16 from
+    d = 127, int8 from d = 249)."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype!r}")
+    words = _WORDS.get(compute_dtype)
+    return compute_dtype if words is not None and words(d) >= 64 else None
+
+
+def _bwd_dtype(compute_dtype: str) -> str:
+    """The cotangent pulls' dtype: int8 quantizes forward propagation
+    inputs only (it would round the accumulated cotangent each layer), so
+    its backward runs f32; bf16 keeps bf16 (the JAX package's)."""
+    return "float32" if compute_dtype == "int8" else compute_dtype
+
+
+def _source(x: torch.Tensor, compute_dtype: str, pre: Optional[torch.Tensor] = None,
+            ops: Ops = KERNELS):
+    """(src, scale): the rows the pull gathers, ``x`` scaled by ``pre``
+    first where given: int8 codes and their scales where int8 packs, rows
+    rounded to bf16 where bf16 packs, else f32 (scale None)."""
+    packed = packer(compute_dtype, x.shape[1])
+    if packed == "int8":
+        return ops.quant(x.float().contiguous(), pre)
+    if pre is not None:
+        x = x * pre[:, None]
+    return (x.to(torch.bfloat16) if packed else x.float()).contiguous(), None
 
 
 def pull(csr: BucketedCSR, x: torch.Tensor, compute_dtype: str = "float32",
          ops: Ops = KERNELS) -> torch.Tensor:
     """Node-space ``A @ x`` (f32 [n_rows, d]): P1 over the buckets into
     concat rows plus the zero row, then K7 by ``gather_pos`` (``PLAIN``: their
-    plain versions, which autograd can differentiate)."""
-    concat = ops.gsum(_source(x, compute_dtype).contiguous(), csr.idx, csr.row_ptr,
-                      val=csr.val, schedule=csr.schedule)
+    plain versions, which autograd can differentiate); under int8 at d >=
+    249, Q1 first."""
+    src, scale = _source(x, compute_dtype, ops=ops)
+    concat = ops.gsum(src, csr.idx, csr.row_ptr, val=csr.val, schedule=csr.schedule,
+                      scale=scale)
     return ops.rows(concat, csr.gather_pos)
 
 
@@ -434,20 +517,19 @@ def pull_rowspace(csr: BucketedCSR, xp: torch.Tensor, compute_dtype: str = "floa
     """Row-space pull of ``xp + add`` (``add`` optional): input and output
     are [R + 1, d] in concat-row order with the last row zero. Separable
     values become two row scalings around a plain sum (the source scaled
-    by ``sep_src_row``, the sum by ``sep_dst``); otherwise each slot is
-    weighted by its value. ``add`` rides into the kernel unless the sum is
-    scaled or rounded before the gather."""
+    by ``sep_src_row`` before it is rounded or quantized, the sum by
+    ``sep_dst``); otherwise each slot is weighted by its value. ``add``
+    rides into the kernel unless the sum is scaled or packed before the
+    gather."""
     if csr.ridx is None:
         raise ValueError("pull_rowspace needs a square pattern's row-space tables (ridx)")
     sep = csr.sep_dst is not None
-    packed = packs_bf16(compute_dtype, xp.shape[1])
-    if add is not None and (sep or packed):
+    if add is not None and (sep or packer(compute_dtype, xp.shape[1])):
         xp, add = xp + add, None
-    if sep:
-        xp = xp * csr.sep_src_row[:, None]
-    return ops.gsum(_source(xp, compute_dtype).contiguous(), csr.ridx, csr.row_ptr,
-                    val=None if sep else csr.val, post=csr.sep_dst if sep else None, add=add,
-                    skip=csr.total_rows, schedule=csr.schedule)
+    src, scale = _source(xp, compute_dtype, pre=csr.sep_src_row if sep else None, ops=ops)
+    return ops.gsum(src, csr.ridx, csr.row_ptr, val=None if sep else csr.val,
+                    post=csr.sep_dst if sep else None, add=add, skip=csr.total_rows,
+                    schedule=csr.schedule, scale=scale)
 
 
 def _gather_sum_rowspace(csr: BucketedCSR, y: torch.Tensor, post: Optional[torch.Tensor] = None,
@@ -460,7 +542,8 @@ def _gather_sum_rowspace(csr: BucketedCSR, y: torch.Tensor, post: Optional[torch
 
 
 def _folds(csr: BucketedCSR, compute_dtype: str, d: int) -> bool:
-    return csr.sep_dst is not None and not packs_bf16(compute_dtype, d)
+    """A separable chain folds its scalings unless its source is packed."""
+    return csr.sep_dst is not None and packer(compute_dtype, d) is None
 
 
 def _to_rowspace(csr: BucketedCSR, x: torch.Tensor, ops: Ops) -> torch.Tensor:
@@ -501,8 +584,9 @@ def _chain_forward(n_layers: int, compute_dtype: str, fwd: BucketedCSR, x: torch
 def _chain_backward(n_layers: int, compute_dtype: str, fwd: BucketedCSR, bwd: BucketedCSR,
                     g: torch.Tensor) -> torch.Tensor:
     """The cotangent of x: the mirrored Horner chain through ``bwd``,
-    Σ_{l=1..L} (Aᵀ)^l gp = Aᵀ(gp + Aᵀ(gp + ...))."""
+    Σ_{l=1..L} (Aᵀ)^l gp = Aᵀ(gp + Aᵀ(gp + ...)), in ``_bwd_dtype``."""
     gp = _to_rowspace(fwd, g, KERNELS)
+    compute_dtype = _bwd_dtype(compute_dtype)
     if _folds(bwd, compute_dtype, g.shape[1]):
         # Horner in the fold: z_l = ab ⊙ G(z_{l-1} + gp_b), z_0 = 0. Each
         # pull's epilogue writes the next one's source w = gp_b + z (the
@@ -557,7 +641,7 @@ def bucketed_chain_mean_plain(n_layers: int, compute_dtype: str, fwd: BucketedCS
 
 class BucketedMatmul(torch.autograd.Function):
     """``A @ x`` with ``Aᵀ g`` as its backward: ``pull`` through ``fwd``,
-    then through ``bwd``, in the same dtype. Only ``x`` gets a gradient."""
+    then through ``bwd`` in ``_bwd_dtype``. Only ``x`` gets a gradient."""
 
     @staticmethod
     def forward(ctx, x, fwd, bwd, compute_dtype):
@@ -567,7 +651,8 @@ class BucketedMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         bwd, compute_dtype = ctx.args
-        return pull(bwd, g.contiguous(), compute_dtype).to(g.dtype), None, None, None
+        return (pull(bwd, g.contiguous(), _bwd_dtype(compute_dtype)).to(g.dtype),
+                None, None, None)
 
 
 def bucketed_matmul(fwd: BucketedCSR, bwd: BucketedCSR, x: torch.Tensor,

@@ -54,6 +54,7 @@ import torch
 from recommendation_tpu_torch.data.interaction import normalize_graph_mat
 from recommendation_tpu_torch.device import resolve_device
 from recommendation_tpu_torch.graph.bucketed import (
+    COMPUTE_DTYPES,
     BucketedCSR,
     build_bucketed,
     mirrored_transpose,
@@ -79,7 +80,6 @@ R_ROW_ALIGN = 8
 # Padded per-user positives table cap (i32 elements): 64M = 256 MB.
 POS_TABLE_MAX_ELEMENTS = 64 * 1024 * 1024
 
-_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 BACKENDS = ("dense", "bucketed", "segment", "pallas")
 
 
@@ -105,10 +105,12 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _check_compute_dtype(compute_dtype: str) -> None:
-    if compute_dtype == "int8":
-        raise NotImplementedError("int8 propagation is not ported yet (ROADMAP queue 1, item 15)")
-    if compute_dtype not in _COMPUTE_DTYPES:
-        raise ValueError(f"compute_dtype must be one of {sorted(_COMPUTE_DTYPES)}")
+    """float32, bfloat16 or int8 on every backend. As in the JAX package,
+    int8 runs f32 on the dense and segment backends (their products branch
+    on bf16 only), and only the bucketed pull quantizes (at d >= 249,
+    ``graph/bucketed.py::packer``)."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {list(COMPUTE_DTYPES)}")
 
 
 @dataclasses.dataclass

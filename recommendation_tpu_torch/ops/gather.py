@@ -1,5 +1,5 @@
-"""Row gather (kernel K7) and bucket pull (kernel P1) of the bucketed
-backend, with their plain versions.
+"""Row gather (kernel K7), bucket pull (kernel P1) and row quantizer
+(kernel Q1) of the bucketed backend, with their plain versions.
 
 ``gather_rows(x, idx)`` is ``x[idx]`` for a 2-D f32 or bf16 table and i32
 indices: the counterpart of the TPU row-DMA gather
@@ -13,8 +13,9 @@ final)`` is the bucket pull over the flat slot tables of a ``BucketedCSR``
     y[r] = post[r] · Σ_{s ∈ [row_ptr[r], row_ptr[r+1])} val[s] · (src[idx[s]] + add[idx[s]])
 
 in f32 for every row r < len(row_ptr) − 1, with ``val``, ``post`` and
-``add`` optional and ``src`` f32 or bf16 (``add`` only with an f32
-``src``). It stands for the per-bucket ``jnp.sum(x[b.idx] · val, axis=1)``
+``add`` optional and ``src`` f32, bf16 or int8 codes with their row
+``scale`` (``add`` only with an f32 ``src``; an int8 source reads as
+``float(code) · scale[row]``, each product rounded once). It stands for the per-bucket ``jnp.sum(x[b.idx] · val, axis=1)``
 of ``recommendation_tpu/graph/bucketed.py`` (``pull`` :472-486,
 ``pull_rowspace`` :588-607, ``_gather_sum_rowspace`` :610-616), which the
 JAX package leaves to XLA; the variants are the separable fold (no value,
@@ -34,9 +35,22 @@ row's pieces write partial sums that the row's last piece adds in order,
 so the hub rows of a power-law graph do not hold the launch up. A
 ``BucketedCSR`` builds its schedule once.
 
+``quantize_rows(x, pre)`` is the JAX package's ``_pack_int8_rows``
+(``graph/bucketed.py:507-519``) with the separable pull's source scaling
+(``:591``) as its optional ``pre``: each row of ``x · pre`` as int8 codes
+``clip(round(x / scale), -127, 127)`` with ``scale = max(max|x|, 1e-12) ·
+f32(1/127)`` (the reciprocal's product, as XLA computes the jitted
+division; the codes a true division, rounded half to even), so codes and
+scales equal the jitted JAX function's bit for bit. Where JAX packs four
+codes into an f32 word for the TPU's gather, the port keeps them as an
+int8 table whose rows are padded to 16 bytes (the padding codes 0), so P1
+loads 16 codes at once, beside an f32 scale a row: ``codes`` is the [N, d]
+view of that [N, d_pad] table.
+
 For CUDA tensors each wrapper launches its kernel from
 ``csrc/gather.cu`` or raises; CPU tensors run the plain version. Each
-counts its launches in ``.launches``. Indices are not checked per call:
+counts its launches in ``.launches`` (P1's with an int8 source also in
+``gather_sum.launches_int8``). Indices are not checked per call:
 ``build_bucketed`` validates the tables once.
 """
 
@@ -49,6 +63,8 @@ import torch
 
 _DTYPES = (torch.float32, torch.bfloat16)
 CHUNK = 128  # slots per piece of a split row (csrc/gather.cu's CHUNK)
+CODE_ALIGN = 16  # int8 code rows are padded to a multiple of this many codes (16 bytes)
+_INV127 = torch.tensor(1 / 127, dtype=torch.float32)  # XLA's reciprocal of the jitted division
 
 
 def pull_schedule(row_ptr) -> tuple[torch.Tensor, torch.Tensor, int]:
@@ -82,13 +98,14 @@ def gather_sum_plain(src: torch.Tensor, idx: torch.Tensor, row_ptr: torch.Tensor
                      val: torch.Tensor | None = None, post: torch.Tensor | None = None,
                      add: torch.Tensor | None = None, skip: int = -1, schedule=None,
                      acc: torch.Tensor | None = None, final: torch.Tensor | None = None,
-                     keep_y: bool = False):
+                     keep_y: bool = False, scale: torch.Tensor | None = None):
     """The bucket pull in plain torch, bucket by bucket as the JAX package
     computes it: the rows with one slot count (a bucket's rows; any rows,
-    in a segment view) are one [rows, count, d] gather, multiplied by the
-    values and summed over the count, then the epilogue as elementwise
-    operations (``gather_sum``). Every slot is summed, ``skip``'s zero row
-    included; ``schedule`` is the kernel's."""
+    in a segment view) are one [rows, count, d] gather (an int8 source
+    dequantized by its row ``scale``), multiplied by the values and summed
+    over the count, then the epilogue as elementwise operations
+    (``gather_sum``). Every slot is summed, ``skip``'s zero row included;
+    ``schedule`` is the kernel's."""
     del skip, schedule  # the skipped row is zero: summing it changes nothing
     d = src.shape[1]
     counts = torch.diff(row_ptr)
@@ -98,6 +115,8 @@ def gather_sum_plain(src: torch.Tensor, idx: torch.Tensor, row_ptr: torch.Tensor
         slots = (row_ptr[rows][:, None] + torch.arange(cap, device=src.device)).reshape(-1)
         ii = idx[slots].long()
         g = src[ii].float()
+        if scale is not None:
+            g = g * scale[ii][:, None]
         if add is not None:
             g = g + add[ii]
         if val is not None:
@@ -112,6 +131,23 @@ def gather_sum_plain(src: torch.Tensor, idx: torch.Tensor, row_ptr: torch.Tensor
     return (y, total) if keep_y else total
 
 
+def padded_width(d: int) -> int:
+    """The int8 code rows' stored width: d rounded up to 16 codes."""
+    return -(-d // CODE_ALIGN) * CODE_ALIGN
+
+
+def quantize_rows_plain(x: torch.Tensor, pre: torch.Tensor | None = None):
+    """Q1 in plain torch: the JAX package's ``_pack_int8_rows`` on ``x · pre``
+    (module docstring), as (codes int8 [N, d], the view of a [N, d_pad]
+    table, scale f32 [N])."""
+    xs = x.float() if pre is None else x.float() * pre[:, None]
+    scale = torch.clamp(xs.abs().amax(dim=1), min=1e-12) * _INV127.to(xs.device)
+    n, d = xs.shape
+    codes = torch.zeros((n, padded_width(d)), dtype=torch.int8, device=xs.device)[:, :d]
+    codes.copy_(torch.clamp(torch.round(xs / scale[:, None]), -127, 127).to(torch.int8))
+    return codes, scale
+
+
 def _raise_on(lib, code, name):
     if code != 0:
         raise RuntimeError(f"{name} kernel launch failed: {lib.gather_error_string(code).decode()}")
@@ -124,9 +160,10 @@ def _kernel_lib():
     if not getattr(lib, "_typed", False):
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.gather_rows.argtypes = [ptr, ptr, i64, i64, ptr, ptr]
-        lib.gather_sum.argtypes = ([ptr, i32] + [ptr] * 4 + [i32] + [ptr] * 4 + [i32, i32]
-                                  + [ptr] * 2 + [i32] + [ptr] * 3)
-        for fn in (lib.gather_rows, lib.gather_sum):
+        lib.gather_sum.argtypes = ([ptr, i32, ptr, i32] + [ptr] * 4 + [i32] + [ptr] * 4
+                                  + [i32, i32, ptr, i32, ptr, i32] + [ptr] * 3)
+        lib.quantize_rows.argtypes = [ptr, ptr, i64, i32, i32, ptr, ptr, ptr]
+        for fn in (lib.gather_rows, lib.gather_sum, lib.quantize_rows):
             fn.restype = i32
         lib.gather_error_string.argtypes = [i32]
         lib.gather_error_string.restype = ctypes.c_char_p
@@ -134,12 +171,16 @@ def _kernel_lib():
     return lib
 
 
-def _check_device(name, tensors):
+def _check_device(name, tensors, strided=()):
+    """One device (cuda or cpu) for ``tensors`` and ``strided``; on the card
+    every one of ``tensors`` contiguous (``strided`` are checked by the
+    caller)."""
     dev = tensors[0].device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
-    if any(t.device != dev for t in tensors):
-        raise ValueError(f"{name} inputs on different devices: {[str(t.device) for t in tensors]}")
+    if any(t.device != dev for t in (*tensors, *strided)):
+        raise ValueError(f"{name} inputs on different devices: "
+                         f"{[str(t.device) for t in (*tensors, *strided)]}")
     if dev.type == "cuda" and not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}'s kernel takes contiguous tensors")
 
@@ -200,40 +241,56 @@ def gather_sum(src: torch.Tensor, idx: torch.Tensor, row_ptr: torch.Tensor,
                add: torch.Tensor | None = None, skip: int = -1,
                schedule: tuple[torch.Tensor, torch.Tensor, int] | None = None,
                acc: torch.Tensor | None = None, final: torch.Tensor | None = None,
-               keep_y: bool = False):
+               keep_y: bool = False, scale: torch.Tensor | None = None):
     """The bucket pull (module docstring): f32 ``y`` [len(row_ptr) − 1, d];
     with ``acc`` or ``final``, the epilogue's ``(acc + y) · final`` instead
     (either part optional), and ``(y, that)`` with ``keep_y``.
 
-    ``src`` [N, d] float32 or bfloat16; ``idx`` [S] int32 slot indices into
-    ``src``; ``row_ptr`` [n_out + 1] int64, ascending from 0 to S; ``val``
-    [S] float32; ``post`` [n_out] float32; ``add`` [N, d] float32, with a
-    float32 ``src`` only; ``acc`` [n_out, d] and ``final`` [n_out] float32;
-    ``schedule`` the kernel's work list, ``pull_schedule(row_ptr)`` (built
-    here, with a host read, when None). CUDA tensors run kernel P1 (one
-    launch), CPU tensors ``gather_sum_plain``."""
+    ``src`` [N, d] float32 or bfloat16, or int8 codes as ``quantize_rows``
+    gives them (rows of a multiple of 16 codes, the [N, d] view) with their
+    ``scale`` [N] float32 (and then no ``add``, ``acc`` or ``final``);
+    ``idx`` [S] int32 slot indices into ``src``; ``row_ptr`` [n_out + 1]
+    int64, ascending from 0 to S; ``val`` [S] float32; ``post`` [n_out]
+    float32; ``add`` [N, d] float32, with a float32 ``src`` only; ``acc``
+    [n_out, d] and ``final`` [n_out] float32; ``schedule`` the kernel's
+    work list, ``pull_schedule(row_ptr)`` (built here, with a host read,
+    when None). CUDA tensors run kernel P1 (one launch), CPU tensors
+    ``gather_sum_plain``."""
     if src.dim() != 2 or idx.dim() != 1 or row_ptr.dim() != 1 or row_ptr.numel() < 1:
         raise ValueError(f"gather_sum wants src [N, d], idx [S], row_ptr [n_out + 1], got "
                          f"{tuple(src.shape)}, {tuple(idx.shape)}, {tuple(row_ptr.shape)}")
     n_out, d = row_ptr.shape[0] - 1, src.shape[1]
-    if src.dtype not in _DTYPES:
-        raise TypeError(f"gather_sum takes a float32 or bfloat16 source, got {src.dtype}")
+    codes = src.dtype == torch.int8
+    if src.dtype not in _DTYPES and not codes:
+        raise TypeError(f"gather_sum takes a float32, bfloat16 or int8 source, got {src.dtype}")
+    if codes != (scale is not None):
+        raise TypeError("gather_sum takes a row scale with an int8 source, and only then")
     if idx.dtype != torch.int32 or row_ptr.dtype != torch.int64:
         raise TypeError(f"gather_sum takes int32 idx and int64 row_ptr, got {idx.dtype}, "
                         f"{row_ptr.dtype}")
     for name, t, shape in (("val", val, (idx.shape[0],)), ("post", post, (n_out,)),
                            ("add", add, tuple(src.shape)), ("acc", acc, (n_out, d)),
-                           ("final", final, (n_out,))):
+                           ("final", final, (n_out,)), ("scale", scale, (src.shape[0],))):
         if t is not None and (t.dtype != torch.float32 or tuple(t.shape) != shape):
             raise ValueError(f"gather_sum {name} must be float32 {shape}, got {t.dtype} "
                              f"{tuple(t.shape)}")
     if add is not None and src.dtype != torch.float32:
         raise TypeError("gather_sum adds a second source to a float32 source only")
-    tensors = [t for t in (src, idx, row_ptr, val, post, add, acc, final) if t is not None]
-    _check_device("gather_sum", tensors)
+    if codes and (acc is not None or final is not None):
+        raise TypeError("gather_sum's int8 source runs the forward pulls: no acc or final")
+    tensors = [t for t in (idx, row_ptr, val, post, add, acc, final, scale) if t is not None]
+    if codes:
+        _check_device("gather_sum", tensors, strided=(src,))
+        if src.device.type == "cuda" and (
+                src.stride(1) != 1 or src.stride(0) % CODE_ALIGN or src.stride(0) < d
+                or src.data_ptr() % 16):
+            raise ValueError("gather_sum's int8 source must be quantize_rows' codes: rows of a "
+                             "multiple of 16 codes, 16-byte aligned")
+    else:
+        _check_device("gather_sum", [src, *tensors])
     if src.device.type == "cpu":
         return gather_sum_plain(src, idx, row_ptr, val, post, add, skip, acc=acc, final=final,
-                                keep_y=keep_y)
+                                keep_y=keep_y, scale=scale)
 
     def empty():
         return torch.empty((n_out, d), dtype=torch.float32, device=src.device)
@@ -246,21 +303,58 @@ def gather_sum(src: torch.Tensor, idx: torch.Tensor, row_ptr: torch.Tensor,
         return result
     work, work_start, n_partials = check_schedule(
         "gather_sum", pull_schedule(row_ptr) if schedule is None else schedule, src.device)
+    src_stride = src.stride(0)
+    pd = src_stride if codes else d  # an int8 row's partial sums cover its padded codes
     partial = count = None
     if n_partials:
-        partial = torch.empty((n_partials, d), dtype=torch.float32, device=src.device)
+        partial = torch.empty((n_partials, pd), dtype=torch.float32, device=src.device)
         count = torch.empty(n_partials, dtype=torch.int32, device=src.device)
+    kind = 2 if codes else int(src.dtype == torch.bfloat16)
     lib = _kernel_lib()
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
-        code = lib.gather_sum(src.data_ptr(), int(src.dtype == torch.bfloat16), _ptr(add),
+        code = lib.gather_sum(src.data_ptr(), kind, _ptr(scale), src_stride, _ptr(add),
                               idx.data_ptr(), work.data_ptr(), work_start.data_ptr(),
                               work.shape[0], _ptr(val), _ptr(post), _ptr(acc), _ptr(final), d,
-                              skip, _ptr(partial), _ptr(count), n_partials, _ptr(y), _ptr(total),
-                              stream)
+                              skip, _ptr(partial), pd, _ptr(count), n_partials, _ptr(y),
+                              _ptr(total), stream)
     _raise_on(lib, code, "gather_sum")
     gather_sum.launches += 1
+    gather_sum.launches_int8 += codes
     return result
 
 
 gather_sum.launches = 0
+gather_sum.launches_int8 = 0  # the launches with an int8 source, counted in ``launches`` too
+
+
+def quantize_rows(x: torch.Tensor, pre: torch.Tensor | None = None):
+    """Q1: each row of ``x · pre`` (``pre`` [N] float32, optional) as int8
+    codes and a row scale (module docstring): (codes int8 [N, d], the view
+    of a zero-padded [N, padded_width(d)] table, scale float32 [N]). CUDA
+    tensors run kernel Q1 (one launch), CPU tensors
+    ``quantize_rows_plain``."""
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise TypeError(f"quantize_rows takes float32 rows [N, d], got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    if pre is not None and (pre.dtype != torch.float32 or tuple(pre.shape) != (x.shape[0],)):
+        raise ValueError(f"quantize_rows pre must be float32 ({x.shape[0]},)")
+    _check_device("quantize_rows", [t for t in (x, pre) if t is not None])
+    if x.device.type == "cpu":
+        return quantize_rows_plain(x, pre)
+    n, d = x.shape
+    codes = torch.empty((n, padded_width(d)), dtype=torch.int8, device=x.device)
+    scale = torch.empty(n, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return codes[:, :d], scale
+    lib = _kernel_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.quantize_rows(x.data_ptr(), _ptr(pre), n, d, codes.shape[1], codes.data_ptr(),
+                                 scale.data_ptr(), stream)
+    _raise_on(lib, code, "quantize_rows")
+    quantize_rows.launches += 1
+    return codes[:, :d], scale
+
+
+quantize_rows.launches = 0

@@ -227,11 +227,14 @@ def test_dense_operand_is_rounded_once(tiny_data, compute_dtype):
 
 def test_unported_backends_still_raise(tiny_data):
     """The segment and pallas backends are ported now
-    (tests/test_torch_segment.py): what is not ported still raises, citing
-    the ROADMAP (int8 propagation), and a backend the port does not know
-    is refused."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from_scipy(tiny_data.norm_adj, backend="segment", compute_dtype="int8", device="cpu")
+    (tests/test_torch_segment.py), and so is int8 propagation, which once
+    raised here (tests/test_torch_int8.py): it builds on the segment
+    backend; an unknown compute dtype and a backend the port does not know
+    are refused."""
+    assert from_scipy(tiny_data.norm_adj, backend="segment", compute_dtype="int8",
+                      device="cpu").compute_dtype == "int8"
+    with pytest.raises(ValueError, match="compute_dtype"):
+        from_scipy(tiny_data.norm_adj, backend="segment", compute_dtype="int4", device="cpu")
     adj = from_scipy(tiny_data.norm_adj, backend="dense", device="cpu")
     import dataclasses
     with pytest.raises(ValueError, match="backend"):

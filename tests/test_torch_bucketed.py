@@ -275,7 +275,7 @@ def test_chain_mean_value_and_grad_match_jax(tiny_data, which, compute_dtype, d,
     plain = tb.bucketed_chain_mean_plain(n_layers, compute_dtype, ours.pull, xp_)
     (plain * torch.from_numpy(probe)).sum().backward()
     np.testing.assert_allclose(plain.detach().numpy(), _np(want), **TIGHT)
-    packed = tb.packs_bf16(compute_dtype, d)
+    packed = tb.packer(compute_dtype, d) is not None
     g_tol = dict(rtol=3e-2, atol=3e-3 * np.abs(_np(want_g)).max()) if packed else TIGHT
     np.testing.assert_allclose(xp_.grad.numpy(), _np(want_g), **g_tol)
 
@@ -314,7 +314,7 @@ def test_bf16_equals_f32_at_d64(tiny_data):
         outs.append((out.detach(), xt.grad, tb.pull(adj.pull, torch.from_numpy(x), dt)))
     for a, b in zip(*outs):
         assert torch.equal(a, b)
-    assert not tb.packs_bf16("bfloat16", 64) and tb.packs_bf16("bfloat16", 127)
+    assert tb.packer("bfloat16", 64) is None and tb.packer("bfloat16", 127) == "bfloat16"
 
 
 # -- value refreshes ----------------------------------------------------------
@@ -460,8 +460,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         gather_sum(x, idx, ptr, val=torch.zeros(3))
     with pytest.raises(TypeError, match="second source"):
         gather_sum(x.bfloat16(), idx, ptr, add=x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.packs_bf16("int8", 64)
+    with pytest.raises(TypeError, match="row scale"):
+        gather_sum(x.to(torch.int8), idx, ptr)
+    with pytest.raises(TypeError, match="row scale"):
+        gather_sum(x, idx, ptr, scale=torch.ones(4))
+    with pytest.raises(ValueError, match="compute_dtype"):
+        tb.packer("int4", 64)
 
 
 # -- LightGCN and the entry points on a bucketed graph ---------------------------
@@ -555,15 +559,18 @@ def test_one_cpu_epoch_on_bucketed_is_finite(graphs):
 
 def test_ncl_and_unported_forms_raise_on_bucketed(graphs, port_data):
     """NCL now builds on the bucketed backend (its parity with the JAX NCL
-    there is tests/test_torch_ncl_bucketed.py's); int8 propagation still
-    raises; the segment backend is ported now (tests/test_torch_segment.py)
-    and builds."""
+    there is tests/test_torch_ncl_bucketed.py's); int8 propagation, which
+    once raised here, is ported (tests/test_torch_int8.py) and builds, and
+    an unknown compute dtype raises; the segment backend is ported now
+    (tests/test_torch_segment.py) and builds."""
     ours_g = graphs[0]
     params, state = build("ncl", default_config()).init(torch.Generator().manual_seed(0), ours_g)
     assert params["user_emb"].shape[0] == ours_g.n_users
     assert state["item_2cluster"].shape == (ours_g.n_items,)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeviceGraph(port_data, backend="bucketed", compute_dtype="int8", device="cpu")
+    g8 = DeviceGraph(port_data, backend="bucketed", compute_dtype="int8", device="cpu")
+    assert g8.norm_adj.compute_dtype == "int8" and g8.norm_adj.pull is not None
+    with pytest.raises(ValueError, match="compute_dtype"):
+        DeviceGraph(port_data, backend="bucketed", compute_dtype="int4", device="cpu")
     assert from_scipy(port_data.norm_adj, backend="segment", device="cpu").seg is not None
 
 

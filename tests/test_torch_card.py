@@ -32,9 +32,13 @@ segment ``SocialDeviceGraph`` (P1 and K7 over the trust matrix, the motif
 channels and the rectangular [U, I] ``interaction_norm``, both ways)
 against the plain COO product in float64, and the rectangular pull and
 its transpose against their plain versions.
+The int8 path of the bucketed backend: Q1 (the row quantizer) bit for bit
+against its plain version at d = 250, 256 and 1024, with and without its
+pre-scale, and P1 with an int8 source against its plain version (the
+separable and the value path, node and row space, split rows).
 Calls on two streams at once equal the same calls in turn (the chain's tile
 counters, P1's, S1's and S2's piece counters, K5's and K6's partials, the
-fused pull's dot).
+fused pull's dot, P1's int8 source and Q1).
 
 These tests need a CUDA device and ``nvcc``; elsewhere they skip. This file
 imports neither JAX nor the JAX package, so it runs where only the port is
@@ -59,7 +63,7 @@ from recommendation_tpu_torch.data.synthetic import (
 from recommendation_tpu_torch.graph.bucketed import (
     bucketed_chain_mean,
     bucketed_chain_mean_plain,
-    packs_bf16,
+    packer,
 )
 from recommendation_tpu_torch.data.social import synthesize_social
 from recommendation_tpu_torch.graph.device import DeviceGraph
@@ -80,6 +84,8 @@ from recommendation_tpu_torch.ops.gather import (
     gather_sum,
     gather_sum_plain,
     pull_schedule,
+    quantize_rows,
+    quantize_rows_plain,
 )
 from recommendation_tpu_torch.ops.lse import (
     CatalogLSE,
@@ -762,13 +768,22 @@ def _two_calls(card, kernel):
     csr = DeviceGraph(ArrayInteraction(pairs, 2000, 4000), backend="bucketed",
                       device=card).norm_adj.pull
     assert csr.n_partials > 0  # split rows: the pieces' counters are used
+    if kernel in ("pull_int8", "quantize"):
+        srcs = _random(card, rng, *[(csr.total_rows + 1, 256)] * 2)
+        if kernel == "quantize":
+            return [lambda y=y: list(quantize_rows(y, csr.sep_src_row)) for y in srcs]
+        q = [quantize_rows(y, csr.sep_src_row) for y in srcs]
+        return [lambda c=c, s=s: [gather_sum(c, csr.ridx, csr.row_ptr, post=csr.sep_dst,
+                                             skip=csr.total_rows, schedule=csr.schedule,
+                                             scale=s)] for c, s in q]
     srcs = _random(card, rng, *[(csr.total_rows + 1, 64)] * 2)
     return [lambda y=y: [gather_sum(y, csr.ridx, csr.row_ptr, post=csr.sep_dst,
                                     skip=csr.total_rows, schedule=csr.schedule)] for y in srcs]
 
 
 @pytest.mark.parametrize("kernel", ["chain", "lse", "lse_bwd", "pull", "weighted_pull",
-                                    "weighted_pull_dot", "attention_softmax"])
+                                    "weighted_pull_dot", "attention_softmax", "pull_int8",
+                                    "quantize"])
 def test_calls_on_two_streams_equal_calls_in_turn(card, kernel):
     """Two calls launched on two streams at once give what the same calls
     give one after the other on one stream, bit for bit, ten times over:
@@ -875,6 +890,100 @@ def test_bucket_pull_matches_plain(card, bucket_adj, variant, d):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * w.abs().max().item())
 
 
+@pytest.mark.parametrize("pre", [False, True], ids=["plain", "pre"])
+@pytest.mark.parametrize("d", [250, 256, 1024])
+def test_row_quantizer_is_exact(card, d, pre):
+    """Q1 equals its plain version bit for bit (codes, padding codes 0,
+    scales), on normal rows, rows on half quanta (ties, rounded half to
+    even), a zero row and an offset view's unaligned rows; one launch a
+    call."""
+    rng = np.random.default_rng(d)
+    x = rng.normal(size=(3000, d)).astype(np.float32)
+    s = (np.abs(x).max(axis=1) * np.float32(1 / 127)).astype(np.float32)
+    half = ((np.clip(np.round(x / s[:, None]), -126, 126) + np.float32(0.5)) * s[:, None])
+    half[np.arange(3000), np.argmax(np.abs(x), axis=1)] = np.abs(x).max(axis=1)
+    x = torch.from_numpy(np.concatenate([x, half.astype(np.float32)])).to(card)
+    x[7] = 0.0
+    p = torch.from_numpy(rng.random(len(x)).astype(np.float32)).to(card) if pre else None
+    for src, scl in ((x, p), (x[1:], None if p is None else p[1:])):  # x[1:]: d·4-byte offset
+        before = quantize_rows.launches
+        codes, scale = quantize_rows(src, scl)
+        torch.cuda.synchronize()
+        assert quantize_rows.launches == before + 1
+        want_codes, want_scale = quantize_rows_plain(src.cpu(), None if scl is None else scl.cpu())
+        assert codes.stride(0) % 16 == 0 and codes.data_ptr() % 16 == 0
+        table = torch.as_strided(codes, (codes.shape[0], codes.stride(0)), (codes.stride(0), 1))
+        assert torch.equal(codes.cpu(), want_codes) and torch.equal(scale.cpu(), want_scale)
+        assert not table[:, d:].any()
+    assert not codes.cpu()[6].any()  # row 7 of x is zero: its codes are 0
+
+
+@pytest.mark.parametrize("variant", ["separable", "value", "node"])
+@pytest.mark.parametrize("d", [256, 250, 1024])
+def test_int8_pull_matches_plain(card, bucket_adj, variant, d):
+    """P1 with an int8 source (Q1's codes and scales) against its plain
+    version at P1's bound, twice bit for bit, on the separable and the
+    value path in row space and the value path in node space."""
+    csr = bucket_adj.pull
+    r = csr.total_rows
+    rng = np.random.default_rng(d + 1)
+    x = torch.from_numpy(rng.normal(size=(r + 1, d)).astype(np.float32)).to(card)
+    x[r] = 0.0
+    kw = dict(idx=csr.ridx, skip=r)
+    if variant == "separable":
+        codes, scale = quantize_rows(x, csr.sep_src_row)
+        kw["post"] = csr.sep_dst
+    else:
+        kw["val"] = csr.val
+        if variant == "node":
+            x = torch.from_numpy(rng.normal(size=(csr.n_cols, d)).astype(np.float32)).to(card)
+            kw.update(idx=csr.idx, skip=-1)
+        codes, scale = quantize_rows(x)
+    assert packer("int8", d) == "int8"
+    before = gather_sum.launches
+    got = gather_sum(codes, row_ptr=csr.row_ptr, schedule=csr.schedule, scale=scale, **kw)
+    again = gather_sum(codes, row_ptr=csr.row_ptr, schedule=csr.schedule, scale=scale, **kw)
+    torch.cuda.synchronize()
+    assert gather_sum.launches == before + 2
+    want = gather_sum_plain(codes, row_ptr=csr.row_ptr, scale=scale, **kw)
+    assert got.shape == (r + 1, d) and torch.equal(got, again)
+    if variant != "node":
+        assert torch.all(got[r] == 0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+    with pytest.raises(TypeError, match="no acc"):
+        gather_sum(codes, row_ptr=csr.row_ptr, scale=scale, acc=got, **kw)
+
+
+def test_int8_chain_quantizes_each_forward_layer(card, bucket_adj):
+    """The int8 chain at d = 256 on the card: Q1 once a layer forward and
+    never backward, and the f32 chain's gradient bit for bit. Against the
+    plain chain: layer 1 quantizes the same rows, but P1 and the plain pull
+    round a layer's sums in other orders, so a later layer's code at a tie
+    may flip by one quantum; held by relative Frobenius error (1e-4) with
+    under 1e-3 of the elements past P1's bound."""
+    d = 256
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(bucket_adj.n_rows, d)).astype(np.float32)).to(card)
+    probe = torch.from_numpy(rng.normal(size=(bucket_adj.n_rows, d)).astype(np.float32)).to(card)
+    grads, before = [], quantize_rows.launches
+    for dt in ("int8", "float32"):
+        xt = x.clone().requires_grad_()
+        out = bucketed_chain_mean(3, dt, bucket_adj.pull, bucket_adj.pull_t, xt)
+        if dt == "int8":
+            torch.cuda.synchronize()
+            assert quantize_rows.launches == before + 3
+            plain = bucketed_chain_mean_plain(3, dt, bucket_adj.pull, x)
+            diff = (out - plain).abs()
+            past = diff > 1e-5 * plain.abs() + 1e-5 * plain.abs().max()
+            assert torch.isfinite(out).all() and past.float().mean().item() < 1e-3
+            assert (torch.linalg.norm(out - plain) / torch.linalg.norm(plain)).item() < 1e-4
+        (out * probe).sum().backward()
+        grads.append(xt.grad)
+    torch.cuda.synchronize()
+    assert quantize_rows.launches == before + 3
+    assert torch.equal(grads[0], grads[1])
+
+
 @pytest.mark.parametrize("compute_dtype,d", [("float32", 64), ("bfloat16", 128)])
 def test_bucketed_chain_has_a_gradient_on_the_card(card, bucket_adj, compute_dtype, d):
     """``BucketedChainMean`` on the card: its output carries a gradient; the
@@ -897,7 +1006,7 @@ def test_bucketed_chain_has_a_gradient_on_the_card(card, bucket_adj, compute_dty
     plain = bucketed_chain_mean_plain(3, compute_dtype, bucket_adj.pull, x)
     (plain * probe).sum().backward()
     torch.testing.assert_close(out, plain, rtol=1e-5, atol=1e-5 * plain.abs().max().item())
-    dtype = torch.bfloat16 if packs_bf16(compute_dtype, d) else torch.float32
+    dtype = torch.bfloat16 if packer(compute_dtype, d) else torch.float32
     assert _grads_close([got_g], [x.grad], dtype)
     assert not _grads_close([torch.zeros_like(got_g)], [x.grad], dtype)
 

@@ -253,15 +253,15 @@ def _step_against_jax(graphs, monkeypatch, name, extra):
 def test_bucketed_backend_raises_with_the_item(sets, name):
     """Once these raised on the bucketed backend, citing the segment
     backend's item; they run there now, with ``norm_adj_selfloops`` built
-    at init on the segment backend. What still raises there cites its item:
-    int8 propagation (item 15)."""
+    at init on the segment backend. int8 propagation, which once raised
+    there citing item 15, builds now (tests/test_torch_int8.py)."""
     _, data = sets
     graph = DeviceGraph(data, backend="bucketed", device="cpu")
     params, _ = build(name, default_config(**SMALL)).init(torch.Generator().manual_seed(0), graph)
     assert graph._norm_adj_selfloops is not None and graph.norm_adj_selfloops.backend == "segment"
     assert graph.norm_adj_selfloops.seg is not None and params
-    with pytest.raises(NotImplementedError, match="item 15"):
-        DeviceGraph(data, backend="bucketed", compute_dtype="int8", device="cpu")
+    assert DeviceGraph(data, backend="bucketed", compute_dtype="int8",
+                       device="cpu").norm_adj.compute_dtype == "int8"
 
 
 def test_config_matches_jax():

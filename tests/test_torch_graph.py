@@ -103,15 +103,16 @@ def test_choose_backend_agrees(n_rows, n_cols, requested):
 @pytest.mark.parametrize("backend", ["segment", "pallas"])
 def test_unported_backends_raise(backend):
     """The segment and pallas backends are ported now
-    (tests/test_torch_segment.py): the graph builds on them, with no R̂;
-    int8 propagation, not ported, still raises citing the ROADMAP."""
+    (tests/test_torch_segment.py): the graph builds on them, with no R̂
+    (that still raises, citing the ROADMAP); int8 propagation, which once
+    raised here, builds on them now and runs f32 (tests/test_torch_int8.py)."""
     train, test = make_synthetic_dataset(**TINY)
     graph = DeviceGraph(Interaction(train, test), backend=backend, device="cpu")
     assert graph.backend == graph.norm_adj.backend == backend and graph.norm_adj.seg is not None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         graph.propagation_matrix  # noqa: B018
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeviceGraph(Interaction(train, test), backend=backend, compute_dtype="int8", device="cpu")
+    g8 = DeviceGraph(Interaction(train, test), backend=backend, compute_dtype="int8", device="cpu")
+    assert g8.norm_adj.compute_dtype == "int8" and g8.norm_adj.seg is not None
 
 
 def test_bucketed_backend_builds():

@@ -51,6 +51,10 @@ def test_the_scan_sees_imports():
         port / "models" / f"{m}.py"
         for m in ("selfcf", "buir", "ssl4rec", "gcl", "grace", "gbt", "bgrl", "graphsage",
                   "gat")} <= set(PORT_FILES)
+    assert {port / "native" / f"{m}.py" for m in ("__init__", "build", "bucketize", "loader")} | {
+        port / "tune" / f"{m}.py" for m in ("__init__", "tuner", "presets")} | {
+        port / "evalx" / "rating.py", port / "evalx" / "probe.py",
+        port / "utils" / "profiling.py"} <= set(PORT_FILES)
 
 
 def _run_smoke(cwd):
