@@ -152,13 +152,21 @@ What it does, in order (any failed phase exits non-zero):
      ``quantize_rows`` (with and without its pre-scale) bit for bit and P1
      with an int8 source (the separable row-space pull and the node-space
      value pull) at P1_TOL against their plain versions at d = 256 and 250,
-     each twice bit for bit; int8 at d = 64 is the f32 path with no Q1
-     launch; Q1 and P1 at d = 256 for f32, bf16 and int8 timed beside their
-     bounds and ``torch.sparse.mm``; one LightGCN step at d = 256 on an int8
-     graph against the plain chain with the same int8 numerics (Q1 L times,
-     none backward); LightGCN at d = 256 trained INT8_EPOCHS epochs in f32
-     and in int8 on the same batches, each held to the masked gate, their
-     Recall@20 gap reported; then the native bucket builder against the
+     each twice bit for bit; the int8 chain's fused layer (P1's int8
+     epilogue: the running sum and the next layer's codes) bit for bit
+     against P1, Q1 and an add in three launches, first, middle and last
+     layer, at d = 256 and 250, and its running sum against the plain
+     version at P1_TOL; int8 at d = 64 is the f32 path with no Q1 launch;
+     Q1 and P1 at d = 256 for f32, bf16 and int8, and the fused layer
+     beside the three launches, timed beside their bounds and
+     ``torch.sparse.mm``, with the int8 kernels' registers; one LightGCN
+     step at d = 256 on an int8 graph against the plain chain with the
+     same int8 numerics (Q1 once a forward, none backward, every layer a
+     fused launch); LightGCN at d = 256 trained INT8_EPOCHS epochs in f32
+     and in int8 on the same batches, each held to the masked gate and
+     their Recall@20 within INT8_RECALL_GAP, each step's device time and
+     top kernels reported;
+     then the native bucket builder against the
      numpy one on the clustered adjacency (bit for bit, host seconds) and
      ``Interaction.from_files`` against ``Interaction(load_data(...))`` on
      the hard set's files; ``python -m recommendation_tpu_torch tune`` as a
@@ -1508,6 +1516,16 @@ def pull_bound(csr, d, itemsize, val=False, post=True, row_bytes=None):
     return bytes_bound(nbytes)
 
 
+def fused_bound(csr, d, acc, requant):
+    """The int8 chain's fused layer: P1-int8's bytes (``pull_bound``), the
+    running sum read where there is one (``acc``), and with ``requant`` the
+    pre-scale read and the next layer's padded codes and scales written."""
+    n_out = csr.total_rows + 1
+    pull_ms, _ = pull_bound(csr, d, 1, row_bytes=padded_width(d) + 4)
+    extra = n_out * d * 4 * acc + requant * n_out * (4 + padded_width(d) + 4)
+    return pull_ms + bytes_bound(extra)[0], "bytes"
+
+
 def per_slot_ms(csr, d, itemsize):
     """The separable pull's bytes counted per slot, as bench.py:163-175 does
     (a source row per live slot, an index per slot, the output), at 3.35
@@ -1855,6 +1873,7 @@ def reset_counts():
     for f in ALL_COUNTERS:
         f.launches = 0
     gather_sum.launches_int8 = 0
+    gather_sum.launches_fused = 0
 
 
 def all_counts():
@@ -1913,7 +1932,8 @@ def expected_launches(model_name, graph, n_layers, steps, n_evals, e_steps=0, em
     a backward; the other zoo models and DirectAU reach no kernel of the
     port (their square products are ``torch.matmul``, as the JAX package's
     are XLA's). Where int8 packs (a bucketed chain at ``emb`` >= 249), each
-    forward chain quantizes its L layers' sources (Q1), the backward none."""
+    forward chain quantizes layer 0's source (Q1) and its L pulls the rest
+    in their epilogue; the backward quantizes nothing."""
     want = {f.__name__: 0 for f in ALL_COUNTERS}
     if model_name in SOCIAL_MODELS:
         if graph.backend != "dense":  # on the dense backend: torch.matmul
@@ -1945,7 +1965,7 @@ def expected_launches(model_name, graph, n_layers, steps, n_evals, e_steps=0, em
         want.update(gather_rows=step["gather_rows"] * steps + evals[0] * chains,
                     gather_sum=step["gather_sum"] * steps + evals[1] * chains)
         if model_name == "lightgcn" and packer(graph.compute_dtype, emb) == "int8":
-            want.update(quantize_rows=n_layers * (steps + chains))
+            want.update(quantize_rows=steps + chains)
     return want
 
 
@@ -2019,7 +2039,8 @@ def gate_phase(model_name, data, graph, epochs, batch, pop, gate, plain=None, pr
         "best_epoch": rec.best_epoch, "recall@20": metrics["Recall@20"],
         "ndcg@20": metrics["NDCG@20"], "gate": gate,
         "masked_popularity_recall@20": pop["masked"], "popularity_recall@20": pop["plain"],
-        "launches": launches, "launches_p1_int8": gather_sum.launches_int8, "wall_s": wall_s,
+        "launches": launches, "launches_p1_int8": gather_sum.launches_int8,
+        "launches_p1_fused": gather_sum.launches_fused, "wall_s": wall_s,
         "embedding_size": emb,
         **({"profile": profile_steps(rec, batch)} if profile else {}),
     }
@@ -3385,6 +3406,10 @@ INT8_EPOCHS = 4
 # bounds this per element on the CPU); here the gradients are held by their
 # relative Frobenius error, a bound that rejects zeros
 INT8_FRO_TOL = 1e-4
+# int8 propagation's cost in quality: LightGCN's Recall@20 at INT8_D after
+# INT8_EPOCHS within this of f32's on the same batches (0.00021 on the H100,
+# PERF.md §6)
+INT8_RECALL_GAP = 0.002
 TUNE_GRID = ("embedding.size=64,128", "learning.rate=1e-3,5e-3")
 TUNE_BAD_RATE = "-1"  # torch.optim.Adam refuses it: those configurations must fail alone
 
@@ -3404,6 +3429,52 @@ def check_quantize(name, x, pre=None):
     return codes, scale
 
 
+# the int8 chain's fused layer: (running sum read, next codes written)
+FUSED_LAYERS = {"first": (False, True), "middle": (True, True), "last": (True, False)}
+
+
+def check_fused(name, codes, scale, fwd, acc, requant):
+    """The int8 chain's fused layer (P1's int8 epilogue) on the separable
+    row-space tables against P1, Q1 and an add in three launches, bit for
+    bit, twice; its running sum against the plain version at P1_TOL (the
+    codes of the plain sums may flip at a tie, so they are not compared)."""
+    kw = dict(post=fwd.sep_dst, skip=fwd.total_rows, schedule=fwd.schedule, scale=scale,
+              acc=acc)
+    more = dict(requant=True, pre=fwd.sep_src_row) if requant else {}
+    fused = [gather_sum(codes, fwd.ridx, fwd.row_ptr, **kw, **more) for _ in range(2)]
+    y = gather_sum(codes, fwd.ridx, fwd.row_ptr, **{**kw, "acc": None})
+    three = (y if acc is None else acc + y,
+             *(quantize_rows(y, fwd.sep_src_row) if requant else ()))
+    plain = gather_sum_plain(codes, fwd.ridx, fwd.row_ptr, **kw, **more)
+    torch.cuda.synchronize()
+    fused = [(t,) if isinstance(t, torch.Tensor) else t for t in fused]
+    want = plain[0] if requant else plain
+    if not all(len(f) == len(three) and all(torch.equal(a, b) for a, b in zip(f, three))
+               for f in fused):
+        raise RuntimeError(f"fused int8 layer {name}: differs from its three launches")
+    got = fused[0][0]
+    rtol, atol = P1_TOL
+    err = (got - want).abs().max().item()
+    if not (torch.isfinite(got).all() and torch.allclose(
+            got, want, rtol=rtol, atol=atol * want.abs().max().item())):
+        raise RuntimeError(f"fused int8 layer {name}: disagrees with plain (max abs err {err})")
+    return {"max_abs_err": err, "max_abs": want.abs().max().item()}
+
+
+def kernel_registers(source, kernel):
+    """ptxas's registers and spills of each instantiation of ``kernel`` in
+    this run's build of ``csrc/<source>.cu``, by its mangled template
+    arguments (empty where the library was built before)."""
+    out, fn = {}, ""
+    for line in kernels.build_logs.get(source, "").splitlines():
+        if "Compiling entry function" in line:
+            fn = line
+        elif kernel in fn and ("registers" in line or "spill" in line):
+            key = fn.split(kernel, 1)[1].split("EEv", 1)[0].lstrip("I")
+            out[key] = (out.get(key, "") + " " + line.split(":", 1)[-1].strip()).strip()
+    return out
+
+
 def q1_bound(n, d, pre=True):
     """Q1: the rows (and pre) read once, the padded code rows and the
     scales written once."""
@@ -3412,15 +3483,18 @@ def q1_bound(n, d, pre=True):
 
 def int8_kernel_phase(data, graph):
     """Q1 and P1 with an int8 source against their plain versions at the
-    clustered bucket tables (d = 256 and 250), twice bit for bit; int8
-    below d = 249 is f32 (no Q1); Q1 and P1 at d = 256 for f32, bf16 and
-    int8 timed beside their bounds and ``torch.sparse.mm``."""
+    clustered bucket tables (d = 256 and 250), twice bit for bit, and the
+    fused layer against its three launches; int8 below d = 249 is f32 (no
+    Q1); Q1 and P1 at d = 256 for f32, bf16 and int8, and the fused layer
+    (first, middle, last) beside the three launches, timed beside their
+    bounds and ``torch.sparse.mm``. Returns the Q1, P1-int8 and fused
+    rows."""
     adj = graph.norm_adj
     fwd = adj.pull
     r = fwd.total_rows
     ridx, ptr, sched, post = fwd.ridx, fwd.row_ptr, fwd.schedule, fwd.sep_dst
     rng = np.random.default_rng(21)
-    variants, inputs = {}, {}
+    variants, fused_checks, inputs = {}, {}, {}
     for d in (INT8_D, INT8_PAD_D):
         x = torch.from_numpy(rng.normal(size=(r + 1, d)).astype(np.float32) * 0.05).cuda()
         x[r] = 0.0
@@ -3434,7 +3508,11 @@ def int8_kernel_phase(data, graph):
             scale=scale)
         variants[f"values, node space, d={d}"] = check_pull(
             f"int8 node d={d}", codes_n, fwd.idx, ptr, val=fwd.val, schedule=sched, scale=scale_n)
-        inputs[d] = (x, xn, codes, scale)
+        acc = torch.from_numpy(rng.normal(size=(r + 1, d)).astype(np.float32) * 0.05).cuda()
+        for layer, (with_acc, requant) in FUSED_LAYERS.items():
+            fused_checks[f"{layer} layer, d={d}"] = check_fused(
+                f"{layer} d={d}", codes, scale, fwd, acc if with_acc else None, requant)
+        inputs[d] = (x, xn, codes, scale, acc)
     # below d = 249 int8 does not pack: the f32 path, bit for bit, and no Q1
     x64 = torch.from_numpy(rng.normal(size=(fwd.n_cols, INT8_NARROW_D)).astype(np.float32)).cuda()
     before = quantize_rows.launches
@@ -3444,7 +3522,7 @@ def int8_kernel_phase(data, graph):
     torch.cuda.synchronize()
     if not narrow_same or quantize_rows.launches != before:
         raise RuntimeError(f"int8 at d={INT8_NARROW_D} is not the f32 path")
-    x, xn, codes, scale = inputs[INT8_D]
+    x, xn, codes, scale, acc = inputs[INT8_D]
     pre = fwd.sep_src_row
     a = data.norm_adj.tocsr()
     a_csr = torch.sparse_csr_tensor(torch.from_numpy(a.indptr.astype(np.int64)),
@@ -3481,6 +3559,41 @@ def int8_kernel_phase(data, graph):
         "plain_ms": time_ms(lambda: gather_sum_plain(codes, ridx, ptr, post=post, scale=scale)),
         "bound_ms": p1_b[0], "bound_by": p1_b[1], "library_ms": library_ms,
         "library": "torch.sparse.mm, CSR [N, N] x [N, 256] f32",
+        "registers": kernel_registers("gather", "gather_sum_i8_kernel"),
+    }
+
+    def layer(with_acc, requant, fn=gather_sum):
+        return fn(codes, ridx, ptr, post=post, skip=r, schedule=sched, scale=scale,
+                  acc=acc if with_acc else None,
+                  **(dict(requant=True, pre=pre) if requant else {}))
+
+    def three_launches(with_acc, requant):
+        y = layer(False, False)
+        return (y if not with_acc else acc + y), (quantize_rows(y, pre) if requant else None)
+
+    def three_bound(with_acc, requant):  # P1-int8, Q1 on its output, the add's 3 rows
+        return (p1_b[0] + requant * q1_bound(r + 1, INT8_D)[0]
+                + with_acc * bytes_bound(3 * (r + 1) * INT8_D * 4)[0])
+
+    fused_ms = {k: time_ms(lambda a=a, q=q: layer(a, q)) for k, (a, q) in FUSED_LAYERS.items()}
+    fused_b = {k: fused_bound(fwd, INT8_D, a, q)[0] for k, (a, q) in FUSED_LAYERS.items()}
+    fused = {
+        "name": "gather_sum_int8_fused", "route": "cuda",
+        "source": "recommendation_tpu_torch/csrc/gather.cu",
+        "replaces": "recommendation_tpu/graph/bucketed.py:658-661 (the int8 chain's layer: "
+                    "pull_rowspace's pack :591-592 and pull :594-607, then the running sum; "
+                    "not a TPU kernel)",
+        "shape": [r, fwd.n_slots, INT8_D],
+        "timed": "a middle layer of the separable int8 chain (running sum in, next codes out)",
+        "launches": 0, "variants": fused_checks,
+        "max_abs_err": max(v["max_abs_err"] for v in fused_checks.values()),
+        "ms": fused_ms["middle"], "layers_ms": fused_ms,
+        "three_launches_ms": {k: time_ms(lambda a=a, q=q: three_launches(a, q))
+                              for k, (a, q) in FUSED_LAYERS.items()},
+        "plain_ms": time_ms(lambda: layer(True, True, gather_sum_plain)),
+        "bound_ms": fused_b["middle"], "bound_by": "bytes", "layers_bound_ms": fused_b,
+        "three_launches_bound_ms": {k: three_bound(a, q) for k, (a, q) in FUSED_LAYERS.items()},
+        "library_ms": None,
     }
     for name, src, itemsize in (("f32_d256", x, 4), ("bf16_d256", xb, 2)):
         bound = pull_bound(fwd, INT8_D, itemsize)
@@ -3490,14 +3603,14 @@ def int8_kernel_phase(data, graph):
             "plain_ms": time_ms(lambda src=src: gather_sum_plain(src, ridx, ptr, post=post)),
             "bound_ms": bound[0], "library_ms": library_ms,
         }
-    del inputs, x, xn, xb, codes, scale, a_csr
+    del inputs, x, xn, xb, codes, scale, acc, a_csr
     torch.cuda.empty_cache()
-    return q1, p1
+    return q1, p1, fused
 
 
 def int8_one_step(graph8):
-    """One LightGCN step at d = 256 on the int8 graph (Q1, P1's int8 source
-    and K7 forward, the f32 Horner chain backward) against the plain chain
+    """One LightGCN step at d = 256 on the int8 graph (Q1 once, P1's fused
+    int8 layers and K7 forward, the f32 Horner chain backward) against the plain chain
     with the same int8 numerics (the plain quantizer, autograd through the
     plain pulls with the kernels' straight-through gradient)."""
     config = default_config(**{"embedding.size": INT8_D, "LightGCN.n_layers": LAYERS})
@@ -3507,7 +3620,7 @@ def int8_one_step(graph8):
     return step_against_plain(
         f"lightgcn int8 d={INT8_D}", (lambda p: model.loss(p, {}, batch, graph8)[0], params),
         (lambda p: plain.loss(p, {}, batch, graph8)[0], params), torch.float32,
-        {"gather_rows": 4, "gather_sum": 2 * LAYERS, "quantize_rows": LAYERS},
+        {"gather_rows": 4, "gather_sum": 2 * LAYERS, "quantize_rows": 1},
         fro_tol=INT8_FRO_TOL)
 
 
@@ -3658,9 +3771,10 @@ def int8_phase(data, graph, pop):
     step against the plain chain, LightGCN at d = 256 trained in f32 and in
     int8 on the same batches (each held to the masked gate), then the
     native builder, the tune command and the rating, probe and profiling
-    modules. Returns (the phase's line, Q1's row, P1-int8's row)."""
+    modules. Returns (the phase's line, Q1's row, P1-int8's row, the fused
+    layer's row)."""
     t0 = time.perf_counter()
-    q1_row, p1_row = int8_kernel_phase(data, graph)
+    q1_row, p1_row, fused_row = int8_kernel_phase(data, graph)
     t1 = time.perf_counter()
     graph8 = DeviceGraph(data, backend="auto", compute_dtype="int8", device="cuda")
     one_step = int8_one_step(graph8)
@@ -3673,12 +3787,20 @@ def int8_phase(data, graph, pop):
         runs[name] = stats
     q1_row["launches"] = runs["int8"]["launches"]["quantize_rows"]
     p1_row["launches"] = runs["int8"]["launches_p1_int8"]
+    fused_row["launches"] = runs["int8"]["launches_p1_fused"]
     n_steps = runs["int8"]["steps_per_epoch"] * INT8_EPOCHS
     n_chains = len(runs["int8"]["recall@20_by_epoch"]) + 3
-    if p1_row["launches"] != LAYERS * (n_steps + n_chains) or runs["float32"]["launches"][
+    # every forward chain: Q1 once, and each of its L layers a fused P1
+    want = LAYERS * (n_steps + n_chains)
+    if (p1_row["launches"], fused_row["launches"], q1_row["launches"]) != (
+            want, want, n_steps + n_chains) or runs["float32"]["launches"][
             "quantize_rows"] or runs["float32"]["launches_p1_int8"]:
-        raise RuntimeError(f"P1's int8 launches {p1_row['launches']}, expected "
-                           f"{LAYERS * (n_steps + n_chains)}; f32 {runs['float32']['launches']}")
+        raise RuntimeError(f"P1's int8 launches {p1_row['launches']} (fused "
+                           f"{fused_row['launches']}), Q1's {q1_row['launches']}, expected "
+                           f"{want} and {n_steps + n_chains}; f32 {runs['float32']['launches']}")
+    gap = runs["float32"]["recall@20"] - runs["int8"]["recall@20"]
+    if not abs(gap) <= INT8_RECALL_GAP:
+        raise RuntimeError(f"int8 Recall@20 {runs['int8']['recall@20']} is {gap} from f32's")
     del graph8
     torch.cuda.empty_cache()
     t3 = time.perf_counter()
@@ -3693,13 +3815,18 @@ def int8_phase(data, graph, pop):
     line = {
         "one_step": one_step, "train": runs,
         "recall@20": {k: v["recall@20"] for k, v in runs.items()},
-        "recall@20_gap_f32_minus_int8": runs["float32"]["recall@20"] - runs["int8"]["recall@20"],
+        "recall@20_gap_f32_minus_int8": gap,
+        "step": {k: {key: v["profile"].get(key) for key in (
+            "device_us_per_step", "host_us_per_step", "device_idle_share", "launches_per_step",
+            "top_kernels_us_per_step")} for k, v in runs.items()},
         "host_modules": host,
         "seconds": {"kernels": t1 - t0, "one_step": t2 - t1, "train": t3 - t2,
                     "native": t4 - t3, "tune": t5 - t4, "extras": t6 - t5, "all": t6 - t0},
     }
-    print(f"int8: recall@20 {line['recall@20']}, seconds {line['seconds']}")
-    return line, q1_row, p1_row
+    print(f"int8: recall@20 {line['recall@20']}, step device us "
+          f"{ {k: v['device_us_per_step'] for k, v in line['step'].items()} }, "
+          f"seconds {line['seconds']}")
+    return line, q1_row, p1_row, fused_row
 
 
 def main() -> int:
@@ -3795,7 +3922,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     (clustered_info, clustered_one_step, clustered_runs, bucketed_zoo,
-     clustered_nb, (int8, q1_row, p1_int8_row)) = clustered_phase()
+     clustered_nb, (int8, q1_row, p1_int8_row, fused_row)) = clustered_phase()
     for run in clustered_runs:
         for row in lse_rows + [k7_row, p1_row]:
             row["launches"] += run["launches"][row["name"]]
@@ -3806,7 +3933,7 @@ def main() -> int:
             row["launches"] += run["launches"][row["name"]]
             row[f"launches_clustered_lightgcn_d{INT8_D}_{dtype}"] = run["launches"][row["name"]]
         run["card"] = card
-    for row in (q1_row, p1_int8_row):
+    for row in (q1_row, p1_int8_row, fused_row):
         row["card"] = card
     hard, zoo, hard_nb = hard_phase()
     for run in hard["train"] + zoo["train"] + list(bucketed_zoo.values()) + hard_nb["train"]:
@@ -3823,7 +3950,7 @@ def main() -> int:
     seg_rows = segment_kernel_rows(hard_nb, clustered_nb, card)
     kernel_rows = (list(rows.values()) + list(bwd_rows.values()) + list(layer_rows.values())
                    + list(layer_bwd_rows.values()) + lse_rows + [k7_row, p1_row] + seg_rows
-                   + [q1_row, p1_int8_row])
+                   + [q1_row, p1_int8_row, fused_row])
     idle = [r["name"] for r in kernel_rows if r["launches"] <= 0]
     if idle:
         raise RuntimeError(f"kernels never launched on the main paths: {idle}")

@@ -79,10 +79,39 @@
 // It is a kernel of its own (gather_sum_i8_kernel) beside the float one,
 // whose code stays as it was: one body for both (a column chunk that may
 // pass d, a source stride apart from d) ran the f32 layer slower on the
-// H100 at the same registers (PERF.md §6, PR 13).
+// H100 at the same registers (PERF.md §6).
 // What bounds it: bytes, each distinct source row d_pad + 4 bytes once, the
-// slot indices (and values) and the f32 output. The int8 source runs the
-// forward pulls only: no `add`, `acc` or `final` (the backward is f32).
+// slot indices (and values) and the f32 output; the code table (39 MB at
+// the clustered graph, d = 256) fits the 50 MB L2. On the H100 it runs at
+// about a quarter of that bound, and tools/probe_i8_pull.py takes it apart
+// (PERF.md §6): with every gather an L2 hit it is as slow, and leaving out
+// the scale loads, the output stores or the dequantization saves 1, 14 and
+// 16% of it, so no one resource holds it; most rows hold at most 8 slots,
+// and a group waits out a gather's round trip for each of its items
+// between the tile's barriers. A code is widened by a byte permute into
+// the mantissa of 2^23 and one exact subtraction (dequant16), not by I2F,
+// which Hopper issues at a quarter of the FP32 rate (the conversions took
+// 12% of the pull's time), so every sum is the same to the bit. The lane's state takes 128 registers,
+// two blocks an SM: a lower cap spills and runs slower, as do 4 or 16
+// rows in flight and a warp an item with 8-code chunks.
+//
+// The int8 chain's layer is one launch of this kernel (the fused epilogue,
+// recommendation_tpu/graph/bucketed.py:658-661): per row r,
+//
+//     y = post[r] * sum_slots (float(q) * scale[s]) * val[s]
+//     total[r] = acc[r] + y                      (acc absent on layer 1)
+//     codes[r], qscale[r] = Q1(y * pre[r])       (not on the last layer)
+//
+// with y itself not written. total is streamed (evict-first), so the
+// layer's 300 MB of f32 rows do not evict the code table from L2; the
+// codes, which the next layer gathers, are written normally. The row's
+// absmax is a shuffle of fmaxf over the group of lanes that holds it (one
+// 16-code chunk a lane up to d = 512); past that a lane sums several
+// chunks in turn, writes y * pre to a scratch row and reads it back for
+// the codes. The codes and scale are Q1's to the bit (below), and the sums
+// keep the pull's slot order, so a fused layer equals P1, Q1 and an add in
+// three launches bit for bit. The int8 source runs the forward pulls only:
+// no `add` or `final` (the backward is f32).
 //
 // Q1 (`quantize_rows`) replaces no TPU kernel either: it is XLA's
 // _pack_int8_rows (graph/bucketed.py:507-519), with the separable pull's
@@ -97,7 +126,8 @@
 // so the codes and scales equal the jitted JAX function's bit for bit. One
 // warp a row: its absmax by a butterfly of fmaxf (exact in any order), then
 // the codes, four to a 32-bit store. What bounds it: bytes (the row read
-// once, d_pad + 4 bytes written).
+// once, d_pad + 4 bytes written). In the int8 chain it quantizes layer 0's
+// source only; the later layers' codes come from the fused epilogue.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -113,6 +143,8 @@ constexpr int WARPS = 8;   // warps per block
 constexpr int UNROLL = 8;  // source rows in flight per item
 constexpr int STAGES = 3;  // tiles in shared memory: the one summed, two in flight
 constexpr int CHUNK = 128; // slots per work item of a split row (ops/gather.py::CHUNK)
+constexpr int I8_UNROLL = 8;      // source rows in flight per item, int8 source
+constexpr int I8_MIN_BLOCKS = 2;  // int8 blocks an SM holds at once (caps the registers)
 
 using ::load_row;  // the f32 rows' (pull_tiles.cuh), beside the bf16 overload below
 
@@ -182,10 +214,17 @@ struct Sum {  // one P1 call's operands (add, val, post, acc, final, partial, co
     float* total;  // (acc + y) * final
 };
 
-struct Codes {  // an int8 source beside its Sum (whose src holds the codes)
+// An int8 source beside its Sum (whose src holds the codes; out receives y,
+// or total receives acc + y, acc optional), and the fused epilogue's next
+// layer (qcodes null: none)
+struct Codes {
     const float* scale;  // [N] the rows' scales
-    int sd;              // the code rows' stride (a multiple of 16)
-    int pd;              // the partial sums' row stride in floats (at least sd)
+    int sd;              // the code rows' stride in bytes (a multiple of 16); partial's and xs's in floats
+    signed char* qcodes; // [n_out, qsd] the codes of y * pre
+    float* qscale;       // [n_out] their scales
+    const float* pre;    // [n_out] (null: 1)
+    float* xs;           // [n_out, sd] y * pre of rows that take several passes (null where one does)
+    int qsd;             // the new code rows' stride: d rounded up to 16
 };
 
 // The epilogue of row r at columns col .. col + VEC: y = post * sum, then
@@ -212,32 +251,133 @@ __device__ __forceinline__ void finish(const Sum& a, int r, size_t col, const fl
     store_stream<VEC>(a.total + off, y);
 }
 
+// Code j (0..3) of a word of codes whose sign bits were flipped (so byte j
+// holds q + 128), as a float, exactly: that byte under 2^23's exponent is
+// 2^23 + q + 128, and the subtraction is exact. A permute and an add at the
+// full issue rate, where a conversion (I2F) issues at a quarter of it.
+__device__ __forceinline__ float widen_code(unsigned flipped, int j) {
+    return __fsub_rn(__uint_as_float(__byte_perm(flipped, 0x4B000000u, 0x7650u | j)), 8388736.0f);
+}
+
 // 16 int8 codes of a gathered row, widened exactly and scaled by the row's
 // scale, each product rounded once
 __device__ __forceinline__ void dequant16(const int4 raw, float s, float (&v)[16]) {
-    const int w[4] = {raw.x, raw.y, raw.z, raw.w};
+    const unsigned w[4] = {static_cast<unsigned>(raw.x) ^ 0x80808080u, static_cast<unsigned>(raw.y) ^ 0x80808080u,
+                           static_cast<unsigned>(raw.z) ^ 0x80808080u, static_cast<unsigned>(raw.w) ^ 0x80808080u};
 #pragma unroll
-    for (int k = 0; k < 16; ++k)
-        v[k] = __fmul_rn(static_cast<float>(static_cast<signed char>(w[k / 4] >> (8 * (k % 4)))), s);
+    for (int k = 0; k < 16; ++k) v[k] = __fmul_rn(widen_code(w[k / 4], k % 4), s);
 }
 
-// The int8 source's epilogue, y = post * sum at columns col .. col + 16 of
-// row r: a chunk may pass d (the code rows are padded to 16), so a whole
-// chunk moves by 16-byte stores where WIDE allows them, else the columns
-// below d one at a time
+constexpr float kInv127 = 1.0f / 127.0f;  // rounded once, at compile time
+
+// Q1's code of xs at scale s, in the low byte: clip(rint(xs / s), -127,
+// 127) with a true division, rounded half to even. Clipping first changes
+// nothing (the bounds are integers, and fmaxf sends NaN to -127 either
+// way); adding 1.5 * 2^23 rounds to an integer in the same mode and leaves
+// it in the low byte in two's complement, with no conversion.
+__device__ __forceinline__ unsigned code_byte(float xs, float s) {
+    const float q = fminf(fmaxf(__fdiv_rn(xs, s), -127.f), 127.f);
+    return __float_as_uint(__fadd_rn(q, 12582912.0f));
+}
+
+// four code bytes (the low byte of each) in one word, the first lowest
+__device__ __forceinline__ unsigned pack4(unsigned b0, unsigned b1, unsigned b2, unsigned b3) {
+    return __byte_perm(__byte_perm(b0, b1, 0x0040u), __byte_perm(b2, b3, 0x0040u), 0x5410u);
+}
+
+// VEC f32 of the int8 source's epilogue at a chunk's columns below d: by
+// 16-byte accesses where the whole chunk is below d and WIDE allows them,
+// else one at a time; streamed (evict-first) or not
 template <bool WIDE>
-__device__ __forceinline__ void finish_i8(const Sum& a, int r, int col, const float (&sum)[16],
-                                          float post) {
+__device__ __forceinline__ void load_cols(const float* p, int n, float (&v)[16]) {
+    if (WIDE && n >= 16) {
+        load_stream<16>(p, v);
+    } else {
+#pragma unroll
+        for (int k = 0; k < 16; ++k) v[k] = k < n ? __ldcs(p + k) : 0.f;
+    }
+}
+
+template <bool WIDE, bool STREAM>
+__device__ __forceinline__ void store_cols(float* o, int n, const float (&v)[16]) {
+    if (WIDE && n >= 16) {
+        if (STREAM) store_stream<16>(o, v);
+        else store_row<16>(o, v);
+    } else {
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+            if (k >= n) continue;
+            if (STREAM) __stcs(o + k, v[k]);
+            else o[k] = v[k];
+        }
+    }
+}
+
+// The int8 source's epilogue at columns col .. col + 16 of row r (a chunk
+// may pass d: the code rows are padded to 16): y = post * sum, then y to
+// `out`, or acc + y (acc optional) streamed to `total`. With REQUANT, xs
+// takes y * pre (0 past d) and m the largest |xs| so far; `keep` writes
+// xs to the scratch row, for a row that takes several passes.
+template <bool WIDE, bool REQUANT>
+__device__ __forceinline__ void finish_i8(const Sum& a, const Codes& c, int r, int col,
+                                          const float (&sum)[16], float post, float pre,
+                                          float& m, float (&xs)[16], bool keep) {
     const size_t off = static_cast<size_t>(r) * a.d + col;
+    const int n = a.d - col;  // the chunk's columns below d
     float y[16];
 #pragma unroll
     for (int k = 0; k < 16; ++k) y[k] = __fmul_rn(sum[k], post);
-    if (WIDE && col + 16 <= a.d) {
-        store_row<16>(a.out + off, y);
+    if (a.total == nullptr) {
+        store_cols<WIDE, false>(a.out + off, n, y);
     } else {
+        float t[16];
+        if (a.acc != nullptr) {
+            load_cols<WIDE>(a.acc + off, n, t);
 #pragma unroll
-        for (int k = 0; k < 16; ++k)
-            if (col + k < a.d) a.out[off + k] = y[k];
+            for (int k = 0; k < 16; ++k) t[k] = __fadd_rn(t[k], y[k]);
+        } else {
+#pragma unroll
+            for (int k = 0; k < 16; ++k) t[k] = y[k];
+        }
+        store_cols<WIDE, true>(a.total + off, n, t);
+    }
+    if constexpr (REQUANT) {
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+            xs[k] = k < n ? (c.pre != nullptr ? __fmul_rn(y[k], pre) : y[k]) : 0.f;
+            m = fmaxf(m, fabsf(xs[k]));
+        }
+        if (keep) store_row<16>(c.xs + static_cast<size_t>(r) * c.sd + col, xs);
+    }
+}
+
+// The fused epilogue's codes and scale of row r, as Q1 computes them, from
+// the group's largest |xs| (m in each lane): the butterfly of fmaxf, exact
+// in any order, then the lane's chunks of codes, from registers (xs) where
+// the row took one pass, else from the scratch row this lane wrote
+template <int LANES>
+__device__ __forceinline__ void requant_row(const Codes& c, int r, int l, unsigned gmask,
+                                            bool one_pass, float m, const float (&xs)[16]) {
+#pragma unroll
+    for (int o = LANES / 2; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(gmask, m, o));
+    const float s = __fmul_rn(fmaxf(m, 1e-12f), kInv127);
+    if (l == 0) c.qscale[r] = s;
+    for (int cv = l; cv < c.qsd / 16; cv += LANES) {
+        float v[16];
+        if (one_pass) {
+#pragma unroll
+            for (int k = 0; k < 16; ++k) v[k] = xs[k];
+        } else {
+            load_partial<16>(c.xs + static_cast<size_t>(r) * c.sd + cv * 16, v);
+        }
+        unsigned w[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+            w[q] = pack4(code_byte(v[4 * q], s), code_byte(v[4 * q + 1], s),
+                         code_byte(v[4 * q + 2], s), code_byte(v[4 * q + 3], s));
+        *reinterpret_cast<int4*>(c.qcodes + static_cast<size_t>(r) * c.qsd + cv * 16) =
+            make_int4(static_cast<int>(w[0]), static_cast<int>(w[1]), static_cast<int>(w[2]),
+                      static_cast<int>(w[3]));
     }
 }
 
@@ -382,11 +522,13 @@ gather_sum_kernel(const Sum a) {
 
 // P1 with an int8 source: the float kernel's tiles, items and split rows,
 // each lane summing 16 columns of (float(q) * scale[s]) * val[s] a slot
-// from one 16-byte load of codes and the slot's scale (module comment); no
-// add, acc or final. The float kernel's Sum is kept as it was; the codes'
-// scales and strides come beside it
-template <int LANES, bool HAS_VAL, bool WIDE>
-__global__ void __launch_bounds__(WARPS * 32)
+// from one 16-byte load of codes and the slot's scale (module comment),
+// then the epilogue (finish_i8; with REQUANT, the next layer's codes). A
+// row of at most LANES chunks takes one pass: its sums stay in registers
+// to the epilogue, which runs after the row's last piece. The float
+// kernel's Sum is kept as it was; the codes' fields come beside it
+template <int LANES, bool HAS_VAL, bool WIDE, bool REQUANT>
+__global__ void __launch_bounds__(WARPS * 32, I8_MIN_BLOCKS)
 gather_sum_i8_kernel(const Sum a, const Codes c) {
     using TileT = Tile<LANES, HAS_VAL>;
     extern __shared__ __align__(16) unsigned char tile_smem[];
@@ -395,6 +537,7 @@ gather_sum_i8_kernel(const Sum a, const Codes c) {
     const int g = threadIdx.x / LANES;  // group of the block
     const unsigned gmask = LANES == 32 ? FULL : ((1u << LANES) - 1) << (lane / LANES * LANES);
     const int nvec = c.sd / 16;  // 16-code chunks of a padded row
+    const bool one_pass = nvec <= LANES;
     const int8_t* src = static_cast<const int8_t*>(a.src);
     const int n_tiles = (a.n_work + TileT::ITEMS - 1) / TileT::ITEMS;
     auto range = [&](int t) { return tile_range(a.work, a.work_start, a.n_work, TileT::ITEMS, t); };
@@ -411,23 +554,25 @@ gather_sum_i8_kernel(const Sum a, const Codes c) {
             const int n = valid ? static_cast<int>(buf.start[i + 1] - buf.start[i]) : 0;
             const int row = r - buf.work[0].x;  // the tile's rows are staged from its first
             const float post = valid && a.post != nullptr ? buf.post[row] : 1.f;
+            const float pre = REQUANT && valid && c.pre != nullptr ? __ldg(c.pre + r) : 1.f;
             int n_max = n;  // the warp's longest item: its groups walk in step
 #pragma unroll
             for (int o = LANES; o < 32; o <<= 1) n_max = max(n_max, __shfl_xor_sync(FULL, n_max, o));
 
+            float acc[16];  // the pass's sums; a one-pass row's stay here to the epilogue
+            float m = 0.f, xs[16];  // REQUANT: the row's largest |y * pre|, a one-pass chunk of it
             for (int c0 = 0; c0 < nvec; c0 += LANES) {
                 const int cv = c0 + l;
                 const bool col_ok = cv < nvec;
                 const int col = cv * 16;
-                float acc[16];
 #pragma unroll
                 for (int q = 0; q < 16; ++q) acc[q] = 0.f;
-                for (int j = 0; j < n_max; j += UNROLL) {
-                    int4 raw[UNROLL];
-                    float sc[UNROLL], wt[UNROLL];
-                    bool ok[UNROLL];
+                for (int j = 0; j < n_max; j += I8_UNROLL) {
+                    int4 raw[I8_UNROLL];
+                    float sc[I8_UNROLL], wt[I8_UNROLL];
+                    bool ok[I8_UNROLL];
 #pragma unroll
-                    for (int u = 0; u < UNROLL; ++u) {
+                    for (int u = 0; u < I8_UNROLL; ++u) {
                         const int jj = j + u;
                         const bool in = jj < n;
                         const int s = in ? buf.idx[off + jj] : a.skip;
@@ -440,7 +585,7 @@ gather_sum_i8_kernel(const Sum a, const Codes c) {
                         }
                     }
 #pragma unroll
-                    for (int u = 0; u < UNROLL; ++u) {
+                    for (int u = 0; u < I8_UNROLL; ++u) {
                         if (!ok[u]) continue;
                         float v[16];
                         dequant16(raw[u], sc[u], v);
@@ -450,29 +595,36 @@ gather_sum_i8_kernel(const Sum a, const Codes c) {
                     }
                 }
                 if (valid && col_ok) {
-                    if (pieces == 1)
-                        finish_i8<WIDE>(a, r, col, acc, post);
-                    else
-                        store_row<16>(a.partial + static_cast<size_t>(part + piece) * c.pd + col, acc);
+                    if (pieces > 1)
+                        store_row<16>(a.partial + static_cast<size_t>(part + piece) * c.sd + col, acc);
+                    else if (!one_pass)
+                        finish_i8<WIDE, REQUANT>(a, c, r, col, acc, post, pre, m, xs, true);
                 }
             }
 
             // a split row: the group that finishes its last piece adds the
             // pieces' partial sums in piece order and runs the epilogue
+            bool done = valid && pieces == 1;
             if (valid && pieces > 1 && last_piece(a.count, part, pieces, gmask, l, lane / LANES * LANES)) {
+                done = true;
                 for (int c0 = 0; c0 < nvec; c0 += LANES) {
                     const int cv = c0 + l;
                     if (cv >= nvec) break;
                     const int col = cv * 16;
-                    float acc[16], p[16];
-                    load_partial<16>(a.partial + static_cast<size_t>(part) * c.pd + col, acc);
+                    float p[16];
+                    load_partial<16>(a.partial + static_cast<size_t>(part) * c.sd + col, acc);
                     for (int k2 = 1; k2 < pieces; ++k2) {
-                        load_partial<16>(a.partial + static_cast<size_t>(part + k2) * c.pd + col, p);
+                        load_partial<16>(a.partial + static_cast<size_t>(part + k2) * c.sd + col, p);
 #pragma unroll
                         for (int q = 0; q < 16; ++q) acc[q] = __fadd_rn(acc[q], p[q]);
                     }
-                    finish_i8<WIDE>(a, r, col, acc, post);
+                    if (!one_pass) finish_i8<WIDE, REQUANT>(a, c, r, col, acc, post, pre, m, xs, true);
                 }
+            }
+            if (done && one_pass && l < nvec)
+                finish_i8<WIDE, REQUANT>(a, c, r, l * 16, acc, post, pre, m, xs, false);
+            if constexpr (REQUANT) {
+                if (done) requant_row<LANES>(c, r, l, gmask, one_pass, m, xs);
             }
             __syncwarp();  // the groups meet again before the next item's shuffle
         }
@@ -521,23 +673,23 @@ int launch_sum(const Sum& a, cudaStream_t stream) {
                        resident, a.n_work, stream, a);
 }
 
-template <int LANES, bool HAS_VAL, bool WIDE>
+template <int LANES, bool HAS_VAL, bool WIDE, bool REQUANT>
 int launch_i8(const Sum& a, const Codes& c, cudaStream_t stream) {
     static int resident[64] = {};
-    return launch_walk(gather_sum_i8_kernel<LANES, HAS_VAL, WIDE>,
+    return launch_walk(gather_sum_i8_kernel<LANES, HAS_VAL, WIDE, REQUANT>,
                        STAGES * sizeof(Tile<LANES, HAS_VAL>), Tile<LANES, HAS_VAL>::ITEMS,
                        resident, a.n_work, stream, a, c);
 }
 
 // the int8 source: 16 lanes where a padded row is at most 16 chunks of 16
 // codes (d <= 256), else a warp
-template <bool WIDE>
+template <bool WIDE, bool REQUANT>
 int dispatch_i8(const Sum& a, const Codes& c, cudaStream_t stream) {
     if (c.sd / 16 <= 16)
-        return a.val != nullptr ? launch_i8<16, true, WIDE>(a, c, stream)
-                                : launch_i8<16, false, WIDE>(a, c, stream);
-    return a.val != nullptr ? launch_i8<32, true, WIDE>(a, c, stream)
-                            : launch_i8<32, false, WIDE>(a, c, stream);
+        return a.val != nullptr ? launch_i8<16, true, WIDE, REQUANT>(a, c, stream)
+                                : launch_i8<16, false, WIDE, REQUANT>(a, c, stream);
+    return a.val != nullptr ? launch_i8<32, true, WIDE, REQUANT>(a, c, stream)
+                            : launch_i8<32, false, WIDE, REQUANT>(a, c, stream);
 }
 
 template <typename T, int VEC, int LANES>
@@ -562,7 +714,6 @@ int dispatch_sum(const Sum& a, cudaStream_t stream) {
 
 // Q1: one warp a row (module comment). VEC4: the row's floats by 16-byte
 // loads (d a multiple of 4, x aligned)
-constexpr float kInv127 = 1.0f / 127.0f;  // rounded once, at compile time
 
 template <bool VEC4>
 __device__ __forceinline__ void load4(const float* xr, int c, int d, float (&v)[4]) {
@@ -668,17 +819,14 @@ extern "C" int gather_rows(const void* x, const int* idx, long long n_idx, long 
 
 // P1: a memset of the row counters, then one launch. work is i32
 // [n_work, 4] and work_start i64 [n_work + 1] (ops/gather.py::pull_schedule);
-// partial is f32 [n_partials, partial_stride] scratch and count i32
-// [n_partials], both null when no row is split (n_partials 0); add (f32
-// source only), val, post, acc, final, out and total may be null (out or
-// total is not). src_kind says what the source holds: 0 f32, 1 bf16 bits,
-// 2 int8 codes in rows of src_stride bytes (a multiple of 16, 16-byte
-// aligned) with their row scales in `scale` (no add, acc or final).
-extern "C" int gather_sum(const void* src, int src_kind, const float* scale, int src_stride,
-                          const float* add, const int* idx, const int* work,
-                          const long long* work_start, int n_work, const float* val,
-                          const float* post, const float* acc, const float* final_, int d,
-                          int skip, float* partial, int partial_stride, int* count,
+// partial is f32 [n_partials, d] scratch and count i32 [n_partials], both
+// null when no row is split (n_partials 0); add (f32 source only), val,
+// post, acc, final, out and total may be null (out or total is not). bf16:
+// src holds bf16 bits, else f32.
+extern "C" int gather_sum(const void* src, int bf16, const float* add, const int* idx,
+                          const int* work, const long long* work_start, int n_work,
+                          const float* val, const float* post, const float* acc,
+                          const float* final_, int d, int skip, float* partial, int* count,
                           int n_partials, float* out, float* total, void* stream) {
     const Sum a{src, add, idx, reinterpret_cast<const int4*>(work), work_start, n_work, val, post,
                 acc, final_, d, skip, partial, count, out, total};
@@ -689,18 +837,44 @@ extern "C" int gather_sum(const void* src, int src_kind, const float* scale, int
     }
     const bool rows16 = aligned16(src) && aligned16(add) && aligned16(acc) && aligned16(partial) &&
                         aligned16(out) && aligned16(total);
-    if (src_kind == 2) {
-        if (!aligned16(src) || !aligned16(partial) || src_stride % 16 != 0 ||
-            partial_stride % 16 != 0 || partial_stride < src_stride || add != nullptr ||
-            acc != nullptr || final_ != nullptr)
-            return static_cast<int>(cudaErrorInvalidValue);
-        const Codes c{scale, src_stride, partial_stride};
-        return d % 4 == 0 && aligned16(out) ? dispatch_i8<true>(a, c, s) : dispatch_i8<false>(a, c, s);
-    }
-    if (src_kind == 1) {
+    if (bf16) {
         return d % 8 == 0 && rows16 ? dispatch_sum<uint16_t, 8>(a, s) : dispatch_sum<uint16_t, 1>(a, s);
     }
     return d % 4 == 0 && rows16 ? dispatch_sum<float, 4>(a, s) : dispatch_sum<float, 1>(a, s);
+}
+
+// P1 with an int8 source, and the int8 chain's fused layer: a memset of the
+// row counters, then one launch. codes int8 in rows of sd bytes (a multiple
+// of 16, 16-byte aligned) with their row scales `scale`; partial f32
+// [n_partials, sd]; y goes to out, or acc + y (acc may be null) to total
+// (exactly one of them). qcodes (null: none) and qscale receive the codes
+// of y * pre (pre may be null) in rows of d rounded up to 16 bytes
+// (16-byte aligned), with total; xs is f32 [n_out, sd] scratch, needed
+// where a row is more than 32 chunks of 16 codes.
+extern "C" int gather_sum_i8(const void* codes, const float* scale, int sd, const int* idx,
+                             const int* work, const long long* work_start, int n_work,
+                             const float* val, const float* post, const float* acc, int d,
+                             int skip, float* partial, int* count, int n_partials, float* out,
+                             float* total, signed char* qcodes, float* qscale, const float* pre,
+                             float* xs, void* stream) {
+    const Sum a{codes, nullptr, idx, reinterpret_cast<const int4*>(work), work_start, n_work, val,
+                post, acc, nullptr, d, skip, partial, count, out, total};
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (!aligned16(codes) || !aligned16(partial) || sd % 16 != 0 || sd < d ||
+        (out == nullptr) == (total == nullptr) || (acc != nullptr && total == nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (qcodes != nullptr && (total == nullptr || qscale == nullptr || !aligned16(qcodes) ||
+                              (sd / 16 > 32 && (xs == nullptr || !aligned16(xs)))))
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (n_partials > 0) {
+        if (cudaError_t err = cudaMemsetAsync(count, 0, sizeof(int) * n_partials, s))
+            return static_cast<int>(err);
+    }
+    const Codes c{scale, sd, qcodes, qscale, pre, xs, (d + 15) / 16 * 16};
+    const bool wide = d % 4 == 0 && aligned16(out) && aligned16(total) && aligned16(acc);
+    if (qcodes != nullptr)
+        return wide ? dispatch_i8<true, true>(a, c, s) : dispatch_i8<false, true>(a, c, s);
+    return wide ? dispatch_i8<true, false>(a, c, s) : dispatch_i8<false, false>(a, c, s);
 }
 
 // Q1: codes int8 [n, d_pad] (d_pad a multiple of 16, the columns past d

@@ -38,7 +38,10 @@ its packing computes, decided per width as its ``_effective_packer`` does
   * ``compute_dtype="int8"`` quantizes each source row to int8 codes with
     a row scale (d >= 249; kernel Q1, ``ops/gather.py::quantize_rows``),
     separable sources scaled by ``sep_src_row`` before they are quantized,
-    and P1 sums ``code · scale`` (``sep_dst`` after the sum).
+    and P1 sums ``code · scale`` (``sep_dst`` after the sum). In the chain,
+    Q1 quantizes layer 0's source and each P1 launch is a whole layer: its
+    epilogue adds the layer to the running sum and quantizes it for the
+    next (``gather_sum(..., requant=True)``).
 
 The sums stay f32, and below those widths both run the f32 chain. A packed
 chain does not fold its scalings, and its backward pulls in
@@ -435,7 +438,8 @@ class Ops(NamedTuple):
     (``PLAIN``) their plain versions, which autograd can differentiate.
     ``quant`` turns a source into what the pull gathers under int8: the
     codes and scales (Q1), or in ``PLAIN`` the dequantized f32 rows with
-    the kernels' straight-through gradient (``_PlainInt8``)."""
+    the kernels' straight-through gradient (``_PlainInt8``); ``gsum``'s
+    ``requant`` gives the next layer's source in the same form."""
 
     rows: callable
     gsum: callable
@@ -461,8 +465,20 @@ def _plain_quant(x: torch.Tensor, pre: Optional[torch.Tensor] = None):
     return _PlainInt8.apply(x if pre is None else x * pre[:, None]), None
 
 
+def _plain_gsum(src: torch.Tensor, idx: torch.Tensor, row_ptr: torch.Tensor,
+                requant: bool = False, pre: Optional[torch.Tensor] = None, **kw):
+    """``gather_sum_plain``, whose int8 chain layer (``requant``) returns
+    the next source as ``_plain_quant`` makes it: ``(acc + y, the
+    dequantized rows of y · pre, None)``."""
+    if not requant:
+        return gather_sum_plain(src, idx, row_ptr, **kw)
+    out = gather_sum_plain(src, idx, row_ptr, keep_y=True, **kw)
+    y, total = out if isinstance(out, tuple) else (out, out)
+    return (total, *_plain_quant(y, pre))
+
+
 KERNELS = Ops(gather_rows, gather_sum, quantize_rows)
-PLAIN = Ops(gather_rows_plain, gather_sum_plain, _plain_quant)
+PLAIN = Ops(gather_rows_plain, _plain_gsum, _plain_quant)
 
 # f32 words a packed row takes (the JAX package's ``packed_words``)
 _WORDS = {"bfloat16": lambda d: -(-d // 2), "int8": lambda d: 1 + -(-d // 4)}
@@ -570,6 +586,20 @@ def _chain_forward(n_layers: int, compute_dtype: str, fwd: BucketedCSR, x: torch
                                                 keep_y=True)
         acc = (torch.zeros_like(xp) if n_layers == 0 else
                _gather_sum_rowspace(fwd, y, post=ab, ops=ops, acc=acc_y, final=inv_b))
+    elif packer(compute_dtype, x.shape[1]) == "int8" and n_layers:
+        # Q1 once, on layer 0's source; then each pull's epilogue (the
+        # fused layer) writes the running sum and, but on the last layer,
+        # the next layer's codes: one launch a layer
+        sep = fwd.sep_dst is not None
+        pre = fwd.sep_src_row if sep else None
+        src, scale = ops.quant(xp, pre)
+        acc = None  # the first layer's 0 + y_1 is y_1
+        for layer in range(n_layers):
+            more = dict(requant=True, pre=pre) if layer < n_layers - 1 else {}
+            out = ops.gsum(src, fwd.ridx, fwd.row_ptr, val=None if sep else fwd.val,
+                           post=fwd.sep_dst if sep else None, skip=fwd.total_rows,
+                           schedule=fwd.schedule, scale=scale, acc=acc, **more)
+            acc, src, scale = out if more else (out, None, None)
     else:
         acc = torch.zeros_like(xp)
         cur = xp

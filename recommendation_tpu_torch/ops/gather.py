@@ -27,7 +27,11 @@ its pulls (``graph/bucketed.py:654-655,687-688`` in the JAX package): the
 call returns ``(acc + y) · final`` (the running sum, the last layer's
 scaling, or the next Horner step's source) in place of ``y``, or beside it
 with ``keep_y``, each product and sum rounded once as the plain
-elementwise operations round them.
+elementwise operations round them. With an int8 source the epilogue is the
+int8 chain's layer (``graph/bucketed.py:658-661`` in the JAX package):
+``acc + y`` and, with ``requant``, the next layer's codes and scale of ``y
+· pre`` as ``quantize_rows`` computes them, in the one launch, ``y`` not
+written.
 
 The kernel runs a schedule (``pull_schedule``): one item per row and one
 per ``CHUNK``-slot piece of a longer row, with each item's slot range; a
@@ -50,7 +54,8 @@ view of that [N, d_pad] table.
 For CUDA tensors each wrapper launches its kernel from
 ``csrc/gather.cu`` or raises; CPU tensors run the plain version. Each
 counts its launches in ``.launches`` (P1's with an int8 source also in
-``gather_sum.launches_int8``). Indices are not checked per call:
+``gather_sum.launches_int8``, and those with the int8 chain's epilogue in
+``gather_sum.launches_fused``). Indices are not checked per call:
 ``build_bucketed`` validates the tables once.
 """
 
@@ -98,13 +103,15 @@ def gather_sum_plain(src: torch.Tensor, idx: torch.Tensor, row_ptr: torch.Tensor
                      val: torch.Tensor | None = None, post: torch.Tensor | None = None,
                      add: torch.Tensor | None = None, skip: int = -1, schedule=None,
                      acc: torch.Tensor | None = None, final: torch.Tensor | None = None,
-                     keep_y: bool = False, scale: torch.Tensor | None = None):
+                     keep_y: bool = False, scale: torch.Tensor | None = None,
+                     requant: bool = False, pre: torch.Tensor | None = None):
     """The bucket pull in plain torch, bucket by bucket as the JAX package
     computes it: the rows with one slot count (a bucket's rows; any rows,
     in a segment view) are one [rows, count, d] gather (an int8 source
     dequantized by its row ``scale``), multiplied by the values and summed
     over the count, then the epilogue as elementwise operations
-    (``gather_sum``). Every slot is summed, ``skip``'s zero row included;
+    (``gather_sum``): with ``requant``, ``(acc + y, *quantize_rows_plain(y,
+    pre))``. Every slot is summed, ``skip``'s zero row included;
     ``schedule`` is the kernel's."""
     del skip, schedule  # the skipped row is zero: summing it changes nothing
     d = src.shape[1]
@@ -123,6 +130,8 @@ def gather_sum_plain(src: torch.Tensor, idx: torch.Tensor, row_ptr: torch.Tensor
             g = g * val[slots, None]
         out = out.index_copy(0, rows, torch.sum(g.view(len(rows), cap, d), dim=1))
     y = out * post[:, None] if post is not None else out
+    if requant:
+        return (y if acc is None else acc + y, *quantize_rows_plain(y, pre))
     if acc is None and final is None:
         return y
     total = y if acc is None else acc + y
@@ -160,10 +169,12 @@ def _kernel_lib():
     if not getattr(lib, "_typed", False):
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.gather_rows.argtypes = [ptr, ptr, i64, i64, ptr, ptr]
-        lib.gather_sum.argtypes = ([ptr, i32, ptr, i32] + [ptr] * 4 + [i32] + [ptr] * 4
-                                  + [i32, i32, ptr, i32, ptr, i32] + [ptr] * 3)
+        lib.gather_sum.argtypes = ([ptr, i32] + [ptr] * 4 + [i32] + [ptr] * 4
+                                  + [i32, i32, ptr, ptr, i32] + [ptr] * 3)
+        lib.gather_sum_i8.argtypes = ([ptr, ptr, i32] + [ptr] * 3 + [i32] + [ptr] * 3
+                                     + [i32, i32, ptr, ptr, i32] + [ptr] * 7)
         lib.quantize_rows.argtypes = [ptr, ptr, i64, i32, i32, ptr, ptr, ptr]
-        for fn in (lib.gather_rows, lib.gather_sum, lib.quantize_rows):
+        for fn in (lib.gather_rows, lib.gather_sum, lib.gather_sum_i8, lib.quantize_rows):
             fn.restype = i32
         lib.gather_error_string.argtypes = [i32]
         lib.gather_error_string.restype = ctypes.c_char_p
@@ -241,21 +252,28 @@ def gather_sum(src: torch.Tensor, idx: torch.Tensor, row_ptr: torch.Tensor,
                add: torch.Tensor | None = None, skip: int = -1,
                schedule: tuple[torch.Tensor, torch.Tensor, int] | None = None,
                acc: torch.Tensor | None = None, final: torch.Tensor | None = None,
-               keep_y: bool = False, scale: torch.Tensor | None = None):
+               keep_y: bool = False, scale: torch.Tensor | None = None,
+               requant: bool = False, pre: torch.Tensor | None = None):
     """The bucket pull (module docstring): f32 ``y`` [len(row_ptr) − 1, d];
     with ``acc`` or ``final``, the epilogue's ``(acc + y) · final`` instead
     (either part optional), and ``(y, that)`` with ``keep_y``.
 
     ``src`` [N, d] float32 or bfloat16, or int8 codes as ``quantize_rows``
     gives them (rows of a multiple of 16 codes, the [N, d] view) with their
-    ``scale`` [N] float32 (and then no ``add``, ``acc`` or ``final``);
+    ``scale`` [N] float32 (and then no ``add``, ``final`` or ``keep_y``);
     ``idx`` [S] int32 slot indices into ``src``; ``row_ptr`` [n_out + 1]
     int64, ascending from 0 to S; ``val`` [S] float32; ``post`` [n_out]
     float32; ``add`` [N, d] float32, with a float32 ``src`` only; ``acc``
     [n_out, d] and ``final`` [n_out] float32; ``schedule`` the kernel's
     work list, ``pull_schedule(row_ptr)`` (built here, with a host read,
     when None). CUDA tensors run kernel P1 (one launch), CPU tensors
-    ``gather_sum_plain``."""
+    ``gather_sum_plain``.
+
+    ``requant`` (an int8 source only) makes the call the int8 chain's
+    fused layer: it returns ``(acc + y, codes, scale)`` (``acc`` optional),
+    the codes and scale of ``y · pre`` as ``quantize_rows(y, pre)`` gives
+    them (``pre`` [n_out] float32, optional), from the kernel's epilogue,
+    with ``y`` itself not written."""
     if src.dim() != 2 or idx.dim() != 1 or row_ptr.dim() != 1 or row_ptr.numel() < 1:
         raise ValueError(f"gather_sum wants src [N, d], idx [S], row_ptr [n_out + 1], got "
                          f"{tuple(src.shape)}, {tuple(idx.shape)}, {tuple(row_ptr.shape)}")
@@ -270,15 +288,20 @@ def gather_sum(src: torch.Tensor, idx: torch.Tensor, row_ptr: torch.Tensor,
                         f"{row_ptr.dtype}")
     for name, t, shape in (("val", val, (idx.shape[0],)), ("post", post, (n_out,)),
                            ("add", add, tuple(src.shape)), ("acc", acc, (n_out, d)),
-                           ("final", final, (n_out,)), ("scale", scale, (src.shape[0],))):
+                           ("final", final, (n_out,)), ("scale", scale, (src.shape[0],)),
+                           ("pre", pre, (n_out,))):
         if t is not None and (t.dtype != torch.float32 or tuple(t.shape) != shape):
             raise ValueError(f"gather_sum {name} must be float32 {shape}, got {t.dtype} "
                              f"{tuple(t.shape)}")
     if add is not None and src.dtype != torch.float32:
         raise TypeError("gather_sum adds a second source to a float32 source only")
-    if codes and (acc is not None or final is not None):
-        raise TypeError("gather_sum's int8 source runs the forward pulls: no acc or final")
-    tensors = [t for t in (idx, row_ptr, val, post, add, acc, final, scale) if t is not None]
+    if codes and (add is not None or final is not None or keep_y):
+        raise TypeError("gather_sum's int8 source takes no add, final or keep_y")
+    if requant and not codes:
+        raise TypeError("gather_sum requantizes the layer of an int8 source only")
+    if pre is not None and not requant:
+        raise TypeError("gather_sum takes pre with requant only")
+    tensors = [t for t in (idx, row_ptr, val, post, add, acc, final, scale, pre) if t is not None]
     if codes:
         _check_device("gather_sum", tensors, strided=(src,))
         if src.device.type == "cuda" and (
@@ -290,7 +313,10 @@ def gather_sum(src: torch.Tensor, idx: torch.Tensor, row_ptr: torch.Tensor,
         _check_device("gather_sum", [src, *tensors])
     if src.device.type == "cpu":
         return gather_sum_plain(src, idx, row_ptr, val, post, add, skip, acc=acc, final=final,
-                                keep_y=keep_y, scale=scale)
+                                keep_y=keep_y, scale=scale, requant=requant, pre=pre)
+    if codes:
+        return _gather_sum_i8(src, scale, idx, row_ptr, schedule, val, post, acc, skip, requant,
+                              pre)
 
     def empty():
         return torch.empty((n_out, d), dtype=torch.float32, device=src.device)
@@ -303,29 +329,65 @@ def gather_sum(src: torch.Tensor, idx: torch.Tensor, row_ptr: torch.Tensor,
         return result
     work, work_start, n_partials = check_schedule(
         "gather_sum", pull_schedule(row_ptr) if schedule is None else schedule, src.device)
-    src_stride = src.stride(0)
-    pd = src_stride if codes else d  # an int8 row's partial sums cover its padded codes
     partial = count = None
     if n_partials:
-        partial = torch.empty((n_partials, pd), dtype=torch.float32, device=src.device)
+        partial = torch.empty((n_partials, d), dtype=torch.float32, device=src.device)
         count = torch.empty(n_partials, dtype=torch.int32, device=src.device)
-    kind = 2 if codes else int(src.dtype == torch.bfloat16)
     lib = _kernel_lib()
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
-        code = lib.gather_sum(src.data_ptr(), kind, _ptr(scale), src_stride, _ptr(add),
+        code = lib.gather_sum(src.data_ptr(), int(src.dtype == torch.bfloat16), _ptr(add),
                               idx.data_ptr(), work.data_ptr(), work_start.data_ptr(),
                               work.shape[0], _ptr(val), _ptr(post), _ptr(acc), _ptr(final), d,
-                              skip, _ptr(partial), pd, _ptr(count), n_partials, _ptr(y),
+                              skip, _ptr(partial), _ptr(count), n_partials, _ptr(y),
                               _ptr(total), stream)
     _raise_on(lib, code, "gather_sum")
     gather_sum.launches += 1
-    gather_sum.launches_int8 += codes
+    return result
+
+
+def _gather_sum_i8(codes, scale, idx, row_ptr, schedule, val, post, acc, skip, requant, pre):
+    """P1 with an int8 source on the card, ``gather_sum``'s checks done:
+    ``y``, or ``acc + y`` streamed where ``acc`` or ``requant`` is given,
+    and with ``requant`` the next layer's codes and scale beside it (every
+    code of the padded table written by the kernel)."""
+    dev, n_out, d, sd = codes.device, row_ptr.shape[0] - 1, codes.shape[1], codes.stride(0)
+    fused = acc is not None or requant
+    out = torch.empty((n_out, d), dtype=torch.float32, device=dev)
+    q_table = q_scale = xs = None
+    if requant:
+        q_table = torch.empty((n_out, padded_width(d)), dtype=torch.int8, device=dev)
+        q_scale = torch.empty(n_out, dtype=torch.float32, device=dev)
+        if sd > 32 * CODE_ALIGN:  # a row of more than a warp's chunks takes several passes
+            xs = torch.empty((n_out, sd), dtype=torch.float32, device=dev)
+    result = (out, q_table[:, :d], q_scale) if requant else out
+    if n_out * d == 0:
+        return result
+    work, work_start, n_partials = check_schedule(
+        "gather_sum", pull_schedule(row_ptr) if schedule is None else schedule, dev)
+    partial = count = None
+    if n_partials:
+        partial = torch.empty((n_partials, sd), dtype=torch.float32, device=dev)
+        count = torch.empty(n_partials, dtype=torch.int32, device=dev)
+    lib = _kernel_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.gather_sum_i8(codes.data_ptr(), scale.data_ptr(), sd, idx.data_ptr(),
+                                 work.data_ptr(), work_start.data_ptr(), work.shape[0],
+                                 _ptr(val), _ptr(post), _ptr(acc), d, skip, _ptr(partial),
+                                 _ptr(count), n_partials, None if fused else out.data_ptr(),
+                                 out.data_ptr() if fused else None, _ptr(q_table),
+                                 _ptr(q_scale), _ptr(pre), _ptr(xs), stream)
+    _raise_on(lib, code, "gather_sum")
+    gather_sum.launches += 1
+    gather_sum.launches_int8 += 1
+    gather_sum.launches_fused += fused
     return result
 
 
 gather_sum.launches = 0
 gather_sum.launches_int8 = 0  # the launches with an int8 source, counted in ``launches`` too
+gather_sum.launches_fused = 0  # of those, the int8 chain's layers (acc or requant given)
 
 
 def quantize_rows(x: torch.Tensor, pre: torch.Tensor | None = None):

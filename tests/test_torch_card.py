@@ -35,10 +35,13 @@ its transpose against their plain versions.
 The int8 path of the bucketed backend: Q1 (the row quantizer) bit for bit
 against its plain version at d = 250, 256 and 1024, with and without its
 pre-scale, and P1 with an int8 source against its plain version (the
-separable and the value path, node and row space, split rows).
+separable and the value path, node and row space, split rows); the int8
+chain's fused layer (P1's int8 epilogue: the running sum and the next
+layer's codes) bit for bit against P1, Q1 and an add in three launches,
+at the clustered tables and on split rows, d = 250 to 1024.
 Calls on two streams at once equal the same calls in turn (the chain's tile
 counters, P1's, S1's and S2's piece counters, K5's and K6's partials, the
-fused pull's dot, P1's int8 source and Q1).
+fused pull's dot, P1's int8 source, its fused layer and Q1).
 
 These tests need a CUDA device and ``nvcc``; elsewhere they skip. This file
 imports neither JAX nor the JAX package, so it runs where only the port is
@@ -57,6 +60,7 @@ from recommendation_tpu_torch.config import default_config
 from recommendation_tpu_torch.data.interaction import Interaction
 from recommendation_tpu_torch.data.synthetic import (
     ArrayInteraction,
+    make_clustered_interactions,
     make_flat_interactions,
     make_synthetic_dataset,
 )
@@ -768,11 +772,16 @@ def _two_calls(card, kernel):
     csr = DeviceGraph(ArrayInteraction(pairs, 2000, 4000), backend="bucketed",
                       device=card).norm_adj.pull
     assert csr.n_partials > 0  # split rows: the pieces' counters are used
-    if kernel in ("pull_int8", "quantize"):
+    if kernel in ("pull_int8", "quantize", "pull_int8_fused"):
         srcs = _random(card, rng, *[(csr.total_rows + 1, 256)] * 2)
         if kernel == "quantize":
             return [lambda y=y: list(quantize_rows(y, csr.sep_src_row)) for y in srcs]
         q = [quantize_rows(y, csr.sep_src_row) for y in srcs]
+        if kernel == "pull_int8_fused":
+            return [lambda c=c, s=s, a=a: list(gather_sum(
+                c, csr.ridx, csr.row_ptr, post=csr.sep_dst, skip=csr.total_rows,
+                schedule=csr.schedule, scale=s, acc=a, requant=True, pre=csr.sep_src_row))
+                for (c, s), a in zip(q, srcs)]
         return [lambda c=c, s=s: [gather_sum(c, csr.ridx, csr.row_ptr, post=csr.sep_dst,
                                              skip=csr.total_rows, schedule=csr.schedule,
                                              scale=s)] for c, s in q]
@@ -783,7 +792,7 @@ def _two_calls(card, kernel):
 
 @pytest.mark.parametrize("kernel", ["chain", "lse", "lse_bwd", "pull", "weighted_pull",
                                     "weighted_pull_dot", "attention_softmax", "pull_int8",
-                                    "quantize"])
+                                    "quantize", "pull_int8_fused"])
 def test_calls_on_two_streams_equal_calls_in_turn(card, kernel):
     """Two calls launched on two streams at once give what the same calls
     give one after the other on one stream, bit for bit, ten times over:
@@ -950,13 +959,69 @@ def test_int8_pull_matches_plain(card, bucket_adj, variant, d):
     if variant != "node":
         assert torch.all(got[r] == 0)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
-    with pytest.raises(TypeError, match="no acc"):
-        gather_sum(codes, row_ptr=csr.row_ptr, scale=scale, acc=got, **kw)
+    with pytest.raises(TypeError, match="no add, final"):
+        gather_sum(codes, row_ptr=csr.row_ptr, scale=scale, acc=got,
+                   final=torch.ones(r + 1, device=card), **kw)
+
+
+@pytest.fixture(scope="module")
+def clustered_adj():
+    """The clustered large set's normalized adjacency (chip_smoke.py's
+    CLUSTERED_SHAPE) on the bucketed backend: the int8 chain's tables."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    pairs = make_clustered_interactions(50_000, 100_000, 1_000_000, seed=3)
+    return DeviceGraph(ArrayInteraction(pairs, 50_000, 100_000, test_fraction=0.1),
+                       backend="bucketed", device="cuda").norm_adj
+
+
+@pytest.mark.parametrize("d", [250, 256, 512, 1024])
+@pytest.mark.parametrize("graph", ["clustered", "split"])
+def test_int8_fused_layer_is_the_three_launches(card, request, graph, d):
+    """The int8 chain's fused layer (P1's int8 epilogue: the running sum and
+    the next layer's codes and scale) against the three launches it
+    replaces (P1 with an int8 source, Q1 on its output, a torch add), bit
+    for bit, and twice bit for bit: the first layer (no running sum), a
+    middle one and the last (no codes), on the separable path (Q1's
+    pre-scale) and the value path, at the clustered tables and at a graph
+    with split rows; one pass a row up to d = 512, several past it."""
+    adj = request.getfixturevalue("clustered_adj" if graph == "clustered" else "bucket_adj")
+    csr = adj.pull
+    r = csr.total_rows
+    if graph == "split":
+        assert csr.n_partials > 0
+    rng = np.random.default_rng(d)
+    x, acc = (torch.from_numpy(rng.normal(size=(r + 1, d)).astype(np.float32)).to(card)
+              for _ in range(2))
+    x[r] = 0.0
+    for sep in (True, False):
+        pre = csr.sep_src_row if sep else None
+        kw = dict(idx=csr.ridx, row_ptr=csr.row_ptr, skip=r, schedule=csr.schedule,
+                  post=csr.sep_dst if sep else None, val=None if sep else csr.val)
+        codes, scale = quantize_rows(x, pre)
+        y = gather_sum(codes, scale=scale, **kw)
+        want = quantize_rows(y, pre)
+        for a in (None, acc):
+            before = gather_sum.launches_fused
+            got = gather_sum(codes, scale=scale, acc=a, requant=True, pre=pre, **kw)
+            again = gather_sum(codes, scale=scale, acc=a, requant=True, pre=pre, **kw)
+            torch.cuda.synchronize()
+            assert gather_sum.launches_fused == before + 2
+            total = y if a is None else a + y
+            for g, w in zip((got, again), ((total, *want),) * 2):
+                assert all(torch.equal(p, q) for p, q in zip(g, w)), (sep, a is None)
+            table = torch.as_strided(got[1], (r + 1, got[1].stride(0)), (got[1].stride(0), 1))
+            assert not table[:, d:].any() and not got[1][r].any()
+        last = gather_sum(codes, scale=scale, acc=acc, **kw)
+        assert torch.equal(last, acc + y) and torch.equal(last, gather_sum(codes, scale=scale,
+                                                                           acc=acc, **kw))
 
 
 def test_int8_chain_quantizes_each_forward_layer(card, bucket_adj):
-    """The int8 chain at d = 256 on the card: Q1 once a layer forward and
-    never backward, and the f32 chain's gradient bit for bit. Against the
+    """The int8 chain at d = 256 on the card: Q1 once a forward (layer 0's
+    source) and never backward, the later layers' sources quantized in the
+    fused pulls' epilogue (every layer one fused launch), and the f32
+    chain's gradient bit for bit. Against the
     plain chain: layer 1 quantizes the same rows, but P1 and the plain pull
     round a layer's sums in other orders, so a later layer's code at a tie
     may flip by one quantum; held by relative Frobenius error (1e-4) with
@@ -965,13 +1030,14 @@ def test_int8_chain_quantizes_each_forward_layer(card, bucket_adj):
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.normal(size=(bucket_adj.n_rows, d)).astype(np.float32)).to(card)
     probe = torch.from_numpy(rng.normal(size=(bucket_adj.n_rows, d)).astype(np.float32)).to(card)
-    grads, before = [], quantize_rows.launches
+    grads, before, fused = [], quantize_rows.launches, gather_sum.launches_fused
     for dt in ("int8", "float32"):
         xt = x.clone().requires_grad_()
         out = bucketed_chain_mean(3, dt, bucket_adj.pull, bucket_adj.pull_t, xt)
         if dt == "int8":
             torch.cuda.synchronize()
-            assert quantize_rows.launches == before + 3
+            assert quantize_rows.launches == before + 1
+            assert gather_sum.launches_fused == fused + 3
             plain = bucketed_chain_mean_plain(3, dt, bucket_adj.pull, x)
             diff = (out - plain).abs()
             past = diff > 1e-5 * plain.abs() + 1e-5 * plain.abs().max()
@@ -980,7 +1046,7 @@ def test_int8_chain_quantizes_each_forward_layer(card, bucket_adj):
         (out * probe).sum().backward()
         grads.append(xt.grad)
     torch.cuda.synchronize()
-    assert quantize_rows.launches == before + 3
+    assert quantize_rows.launches == before + 1 and gather_sum.launches_fused == fused + 3
     assert torch.equal(grads[0], grads[1])
 
 

@@ -119,7 +119,8 @@ def test_prescaled_codes_equal_jitted_jax(d):
 
 def test_plain_pull_dequantizes_each_slot():
     """The plain P1 with an int8 source is the f32 pull of ``code · scale``,
-    bit for bit (the kernel's arithmetic)."""
+    bit for bit (the kernel's arithmetic). Its epilogue is the int8 chain's
+    running sum and requantization, never the folded chain's ``final``."""
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.normal(size=(40, 250)).astype(np.float32))
     codes, scale = quantize_rows(x)
@@ -129,8 +130,8 @@ def test_plain_pull_dequantizes_each_slot():
     got = gather_sum(codes, idx, ptr, val=val, scale=scale)
     want = gather_sum_plain(codes.float() * scale[:, None], idx, ptr, val=val)
     assert torch.equal(got, want)
-    with pytest.raises(TypeError, match="no acc"):
-        gather_sum(codes, idx, ptr, scale=scale, acc=torch.zeros(4, 250))
+    with pytest.raises(TypeError, match="no add, final"):
+        gather_sum(codes, idx, ptr, scale=scale, acc=torch.zeros(4, 250), final=torch.ones(4))
 
 
 # -- the pulls, the chain and its VJP against the JAX package --------------------
@@ -266,6 +267,94 @@ def test_chain_layers_and_vjp_match_jax(adjs, which):
     assert torch.equal(plain.detach(), got.detach())
     (plain * torch.from_numpy(probe)).sum().backward()
     _close(xq.grad.numpy(), want_g)
+
+
+# -- the fused layer: P1's int8 epilogue (the running sum and the next codes) ------
+
+
+def _layer_args(csr):
+    """The int8 chain layer's pull arguments on ``csr`` and its ``pre``."""
+    sep = csr.sep_dst is not None
+    kw = dict(val=None if sep else csr.val, post=csr.sep_dst if sep else None,
+              skip=csr.total_rows, schedule=csr.schedule)
+    return kw, csr.sep_src_row if sep else None
+
+
+@pytest.mark.parametrize("which", ["separable", "values"])
+@pytest.mark.parametrize("d", [250, 256])
+def test_fused_layer_is_the_three_steps(adjs, which, d):
+    """``gather_sum(codes, ..., acc, requant=True, pre)`` (the plain version
+    the card holds the fused kernel to) equals the three steps it replaces,
+    the pull, the add and Q1 on the layer, bit for bit: the first layer (no
+    acc), a middle one and the last (no codes); the zero row's codes are 0
+    with a zero row's scale."""
+    csr = adjs[which][0].pull
+    r = csr.total_rows
+    kw, pre = _layer_args(csr)
+    xp = torch.from_numpy(_x(r + 1, d=d, seed=d))
+    xp[r] = 0.0
+    acc = torch.from_numpy(_x(r + 1, d=d, seed=d + 1))
+    codes, scale = quantize_rows(xp, pre)
+    y = gather_sum(codes, csr.ridx, csr.row_ptr, scale=scale, **kw)
+    want_codes, want_scale = quantize_rows_plain(y, pre)
+    for a, want_total in ((None, y), (acc, acc + y)):
+        total, got_codes, got_scale = gather_sum(codes, csr.ridx, csr.row_ptr, scale=scale,
+                                                 acc=a, requant=True, pre=pre, **kw)
+        assert torch.equal(total, want_total)
+        assert torch.equal(got_codes, want_codes) and torch.equal(got_scale, want_scale)
+        assert got_codes.stride(0) == padded_width(d) and not _table(got_codes)[:, d:].any()
+        assert not got_codes[r].any() and got_scale[r] == quantize_rows_plain(xp[r:])[1][0]
+    last = gather_sum(codes, csr.ridx, csr.row_ptr, scale=scale, acc=acc, **kw)
+    assert torch.equal(last, acc + y)
+
+
+def test_int8_chain_quantizes_once_and_fuses_its_layers(adjs, monkeypatch):
+    """The int8 chain at L = 3 runs Q1 once, on layer 0's source, and three
+    pulls: the first with the next codes asked, the second with the running
+    sum and the next codes, the last with the running sum alone. Its output
+    equals the three-step chain's (pull, add, Q1 a layer), bit for bit."""
+    ours = adjs["separable"][0]
+    fwd = ours.pull
+    calls = []
+
+    def quant(x, pre=None):
+        calls.append(("quant", pre is not None))
+        return quantize_rows(x, pre)
+
+    def gsum(*args, acc=None, requant=False, **kw):
+        calls.append(("gsum", acc is not None, requant))
+        return gather_sum(*args, acc=acc, requant=requant, **kw)
+
+    monkeypatch.setattr(tb, "KERNELS", tb.Ops(tb.gather_rows, gsum, quant))
+    x = torch.from_numpy(_x(ours.n_rows))
+    got = tb.bucketed_chain_mean(3, "int8", fwd, ours.pull_t, x)
+    assert calls == [("quant", True), ("gsum", False, True), ("gsum", True, True),
+                     ("gsum", True, False)]
+    r = fwd.total_rows
+    cur = torch.cat([x[fwd.node_of_row[:r].long()], torch.zeros((1, D))])
+    acc = torch.zeros_like(cur)
+    for _ in range(3):
+        cur = tb.pull_rowspace(fwd, cur, "int8")
+        acc = acc + cur
+    assert torch.equal(got, (x + acc[fwd.gather_pos.long()]) / 4.0)
+
+
+def test_fused_layer_refuses_what_it_does_not_take(adjs):
+    csr = adjs["separable"][0].pull
+    n_out = csr.total_rows + 1
+    x = torch.zeros(n_out, 256)
+    codes, scale = quantize_rows(x)
+    args = (csr.ridx, csr.row_ptr)
+    with pytest.raises(TypeError, match="int8 source only"):
+        gather_sum(x, *args, requant=True)
+    with pytest.raises(TypeError, match="pre with requant only"):
+        gather_sum(codes, *args, scale=scale, pre=csr.sep_src_row)
+    with pytest.raises(ValueError, match="pre must be float32"):
+        gather_sum(codes, *args, scale=scale, requant=True, pre=csr.sep_src_row[1:])
+    with pytest.raises(ValueError, match="acc must be float32"):
+        gather_sum(codes, *args, scale=scale, acc=x[:, :250], requant=True)
+    with pytest.raises(TypeError, match="no add, final or keep_y"):
+        gather_sum(codes, *args, scale=scale, acc=x, keep_y=True)
 
 
 @pytest.mark.parametrize("which", ["separable", "values"])
