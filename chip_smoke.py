@@ -175,11 +175,36 @@ What it does, in order (any failed phase exits non-zero):
      ``--grid``); ``evaluate_rating`` on the card against the host, the LR
      and SVM probes on the card, ``profile_trace`` and ``Throughput`` around
      three steps;
- 15. prints the serving line, the training line, the NCL line, the large
+ 15. the parallel layer on the clustered graph (``sharded_phase``, after
+     the int8 phase): LightGCN (bucketed, f32, d=64, L=3, B=8192, Adam 1e-3)
+     trained by the single-rank trainer in this process (one epoch, a
+     per-epoch checkpoint), then each layout in a world of ranks started
+     as subprocesses of ``python -m recommendation_tpu_torch.parallel.
+     distributed --worker --jobs fit`` on the card under a hard timeout (a
+     failed or missing worker fails the run): two ranks over gloo train
+     (1, 2) for two epochs, two more (2, 1) for one, and one rank over
+     NCCL trains (1, 1) for one (NCCL refuses two ranks on one device, so
+     the two-rank layouts share the card over gloo). (1, 2) and (1, 1)
+     must equal the single run bit for bit (epoch 0's tables and Adam
+     moments from the per-rank checkpoints, the epoch loss), (2, 1)
+     within SHARDED_DATA_TOL of each part's largest magnitude. A world of
+     this script's own ranks (``python3 chip_smoke.py --sharded-checks``)
+     restores the (1, 2) run from its per-rank checkpoints: its sharded
+     ``test()`` equal to the single evaluator's metrics on its tables, its
+     ``RecommenderService(..., mesh)`` over 20 waves of 16 users, with and
+     without exclusions, in agreement with the single service's
+     (``topk_agree``), and its second epoch resumed from its epoch-0
+     per-rank checkpoint equal to the straight run's; each rank's K7 and
+     P1 launches held to ``expected_launches``. Each world's wall seconds
+     and each layout's seconds and host seconds a step go in the sharded
+     line, with the card's name and power limit: two ranks share one card,
+     so they are no scaling figure;
+ 16. prints the serving line, the training line, the NCL line, the large
      line, the clustered line, the hard line, the hard_zoo line, the
      bucketed_zoo line, the neighbors line, the social line, the int8 line,
-     the kernels line (every kernel must have launched on a main path) and,
-     last, the device line.
+     the sharded line, the kernels line (every kernel must have launched on
+     a main path; K7's and P1's rows carry each sharded layout's launches
+     by rank as ``launches_sharded_<layout>``) and, last, the device line.
 
 Launch counts are reset just before each main path and read just after it.
 Exits non-zero without printing a result where no CUDA device is present.
@@ -192,6 +217,7 @@ import csv
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -297,6 +323,7 @@ from recommendation_tpu_torch.ops.segment import (
     weighted_pull_plain,
 )
 from recommendation_tpu_torch.ops.topk import topk_agree
+from recommendation_tpu_torch.parallel.distributed import WORKER, merged_checkpoint, spawn_world
 from recommendation_tpu_torch.sampling import (
     PairwiseBatch,
     epoch_batches,
@@ -2239,8 +2266,8 @@ def clustered_phase():
     DirectAU against their plain paths, then LightGCN-BPR, NCL and DirectAU
     trained on the one graph, each held to the gate, then the bucketed zoo
     on the same graph (``bucketed_zoo_phase``), the neighbour models
-    (``clustered_neighbor_phase``) and int8 propagation with the host
-    modules (``int8_phase``)."""
+    (``clustered_neighbor_phase``), int8 propagation with the host
+    modules (``int8_phase``) and the parallel layer (``sharded_phase``)."""
     data, graph, info = clustered_build()
     pop = {"masked": info["masked_popularity_recall@20"],
            "plain": info["popularity_recall@20"]}
@@ -2258,7 +2285,8 @@ def clustered_phase():
         runs.append(stats)
     zoo = bucketed_zoo_phase(data, graph)
     nb = clustered_neighbor_phase(data, graph)
-    return info, one_step, runs, zoo, nb, int8_phase(data, graph, pop)
+    int8 = int8_phase(data, graph, pop)
+    return info, one_step, runs, zoo, nb, int8, sharded_phase(data, graph, card_line())
 
 
 def hard_phase():
@@ -2348,7 +2376,7 @@ def hard_zoo_phase(data, graphs, bucketed):
     cpu = DeviceGraph(data, device="cpu")
     config = default_config(**{"embedding.size": EMB})
     batch = first_batch(f32, BATCH)
-    cpu_batch = PairwiseBatch(*(t.cpu() for t in batch))
+    cpu_batch = PairwiseBatch(*(t.cpu() for t in batch[:4]), batch.group)
     out = {"one_step": {}, "train": [],
            "normalized_bipartite": check_normalized_bipartite(f32, cpu)}
     for dtype_name, graph in graphs.items():
@@ -3829,6 +3857,270 @@ def int8_phase(data, graph, pop):
     return line, q1_row, p1_row, fused_row
 
 
+# the parallel layer: LightGCN on the clustered bucketed graph, each layout
+# trained in a world of ranks started as subprocesses of the port's worker
+# (``parallel.distributed``'s ``fit``): (layout, backend, epochs). The
+# layouts with two ranks share the one card over gloo (NCCL refuses two
+# ranks on a device); the one-rank world runs NCCL's collectives. (1, 2)'s
+# second epoch is also resumed, in a world of this script's own ranks
+# (``sharded_checks_worker``), which evaluates and serves its tables too.
+SHARDED_WORLDS = (("1x2", "gloo", 2), ("2x1", "gloo", 1), ("1x1", "nccl", 1))
+# (2, 1) against the single run after one epoch, each part's largest
+# difference over its largest magnitude (the data group's gradient sum in
+# another order, carried through Adam in f32): on an NVIDIA H100 80GB HBM3
+# at 700 W this phase reads 6.2e-7 (tables), 2.4e-7 (exp_avg) and 1.6e-7
+# (exp_avg_sq); the JAX package holds its data axis to 5e-3
+# (tests/test_parallel_trainer.py:61-62)
+SHARDED_DATA_TOL = {"params": 1e-5, "exp_avg": 1e-5, "exp_avg_sq": 1e-5}
+SHARDED_SERVE_WAVES = 20
+SHARDED_WORLD_TIMEOUT_S = 300
+
+
+def table_gap(got, want):
+    """(bit for bit, each part's largest absolute difference over its
+    largest magnitude) of two ``merged_checkpoint`` payloads' tables
+    (``params``), Adam moments and counts."""
+    same, gaps = got["step"] == want["step"], {}
+    for part in ("params", "exp_avg", "exp_avg_sq"):
+        diff = scale = 0.0
+        for k, v in want[part].items():
+            same &= torch.equal(got[part][k], v)
+            diff = max(diff, (got[part][k] - v).abs().max().item())
+            scale = max(scale, v.abs().max().item())
+        gaps[part] = diff / scale if scale > 0 else diff
+    return same, gaps
+
+
+def sharded_world(argv, n_ranks, out):
+    """One world of ``argv`` on the card (its ranks' logs in ``out``):
+    (its wall seconds, each rank's report ``out/<prefix>rank<r>.json``)."""
+    t0 = time.perf_counter()
+    spawn_world(argv, n_ranks, SHARDED_WORLD_TIMEOUT_S, os.path.join(out, "logs"),
+                env={"PYTHONPATH": os.path.dirname(os.path.abspath(__file__))})
+    return time.perf_counter() - t0
+
+
+def rank_reports(out, n_ranks, prefix=""):
+    reports = []
+    for r in range(n_ranks):
+        with open(os.path.join(out, f"{prefix}rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def sharded_phase(data, graph, card):
+    """The sharded trainer, evaluator, service and checkpoints
+    (``parallel/``) on the clustered bucketed graph at full width (f32,
+    d = 64, L = 3, B = 8192, Adam 1e-3): the single-rank trainer in this
+    process (one epoch), then a world of ``python -m
+    recommendation_tpu_torch.parallel.distributed --worker --jobs fit``
+    subprocesses on the card for each layout of SHARDED_WORLDS (K7 and P1
+    in every rank): two ranks over gloo train (1, 2) for two epochs and
+    (2, 1) for one, one rank over NCCL (1, 1) for one. (1, 2) and (1, 1)
+    must equal the single run bit for bit (epoch 0's tables and Adam
+    moments from the per-rank checkpoints, the epoch loss), (2, 1) within
+    SHARDED_DATA_TOL. A world of this script's ranks over gloo then takes
+    the (1, 2) run's checkpoints (``sharded_checks_worker``): its sharded
+    ``test()`` must equal the single evaluator's metrics on its tables,
+    its mesh service (SHARDED_SERVE_WAVES waves of 16 users, with and
+    without exclusions) the single service's (``topk_agree``), and its
+    second epoch, resumed from its epoch-0 per-rank checkpoint, the
+    straight run's bit for bit. Each rank's K7 and P1 launches are held to
+    ``expected_launches``. Two ranks share one card over gloo: the seconds
+    are no scaling figure."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="sharded_")
+    try:
+        pairs_path = os.path.join(tmp, "pairs.npz")
+        np.savez(pairs_path, pairs=np.concatenate([data.test_pairs, data.training_data]),
+                 n_users=graph.n_users, n_items=graph.n_items, test_fraction=0.1)
+        conf = {"embedding.size": EMB, "LightGCN.n_layers": LAYERS, "batch.size": LARGE_BATCH,
+                "learning.rate": LR, "optimizer": "adam", "eval.interval": 1,
+                "item.ranking.topN": [20], "graph.backend": "bucketed", "checkpoint.keep": 3}
+        single_dir = os.path.join(tmp, "single")
+        config = default_config(**conf, **{"max.epoch": 1, "checkpoint.dir": single_dir})
+        t1 = time.perf_counter()
+        rec = GraphRecommender(build("lightgcn", config), data, config, graph=graph,
+                               log=Log(echo=False), device="cuda")
+        rec.build()
+        rec.train()
+        torch.cuda.synchronize()
+        single = merged_checkpoint(single_dir, 0)
+        n_batches = -(-graph.n_edges // LARGE_BATCH)
+        runs = {"single": {"train_s": time.perf_counter() - t1,
+                           "epoch_losses": [e["loss"] for e in rec.epoch_stats],
+                           "epoch_seconds": [e["seconds"] for e in rec.epoch_stats],
+                           "host_s_per_step": [e["seconds"] / n_batches
+                                               for e in rec.epoch_stats]}}
+        single_loss = rec.epoch_stats[0]["loss"]
+        del rec
+        torch.cuda.empty_cache()
+        worlds = []
+        for layout, backend, epochs in SHARDED_WORLDS:
+            out = os.path.join(tmp, layout)
+            n_ranks = int(layout.split("x")[0]) * int(layout.split("x")[1])
+            argv = WORKER + ["--jobs", "fit", "--device", "cuda", "--backend", backend,
+                             "--data", pairs_path, "--mesh", layout, "--out", out,
+                             "--set", f"max.epoch={epochs}"]
+            for k, v in conf.items():
+                argv += ["--set", f"{k}={v}"]
+            wall = sharded_world(argv, n_ranks, out)
+            worlds.append({"job": "fit", "layout": layout, "backend": backend,
+                           "ranks": n_ranks, "wall_s": wall})
+            checks = None
+            if layout == "1x2":
+                argv = [sys.executable, os.path.abspath(__file__), "--sharded-checks", out,
+                        pairs_path, json.dumps({**conf, "max.epoch": epochs})]
+                wall = sharded_world(argv, n_ranks, out)
+                worlds.append({"job": "checks", "layout": layout, "backend": "gloo",
+                               "ranks": n_ranks, "wall_s": wall})
+                checks = rank_reports(out, n_ranks, "checks_")
+            runs[layout] = sharded_checks(layout, backend, epochs, rank_reports(out, n_ranks),
+                                          out, graph, n_batches, single, single_loss, checks)
+            print(f"sharded {layout} ({backend}): train {runs[layout]['train_s']:.1f} s, "
+                  f"host s a step by epoch {runs[layout]['host_s_per_step']}, relative gaps "
+                  f"{runs[layout]['relative_gap']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"card": card, "set": "clustered, bucketed, f32, d=64, L=3, B=8192",
+            "note": "two ranks share one card over gloo (NCCL refuses two ranks on a "
+                    "device): the seconds are no scaling figure",
+            "data_tol": SHARDED_DATA_TOL, "worlds": worlds, "runs": runs,
+            "seconds": time.perf_counter() - t0}
+
+
+def sharded_checks_worker(run_dir, pairs_path, conf_json):
+    """One rank of a (1, 2) world over gloo on the card, on the (1, 2)
+    ``fit`` run in ``run_dir`` (``conf_json``: its configuration): a
+    trainer restored from the run's last per-rank checkpoints gives the
+    sharded ``test()`` beside the single evaluator on the same tables and
+    serves SHARDED_SERVE_WAVES waves of 16 test users with the mesh and
+    without it, with and without exclusions (rank 0 writes
+    ``serve.npz``); a second trainer resumes from a copy of the run's
+    epoch-0 checkpoints in ``run_dir/resumed`` and trains to the run's
+    epoch count. Each rank writes ``checks_rank<r>.json``."""
+    import torch.distributed as dist
+
+    from recommendation_tpu_torch.parallel.distributed import initialize, pairs_data
+    from recommendation_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from recommendation_tpu_torch.parallel.trainer import ShardedGraphRecommender
+    from recommendation_tpu_torch.train.checkpoint import CheckpointManager
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = initialize("gloo", "cuda")
+    rank = dist.get_rank()
+    conf = json.loads(conf_json)
+    data = pairs_data(pairs_path)
+    graph = DeviceGraph(data, backend=conf["graph.backend"], device=device)
+    mesh = make_mesh(MeshSpec(1, 2), "cuda")
+
+    def trainer(ckpt_dir):
+        cfg = default_config(**conf, **{"checkpoint.dir": ckpt_dir})
+        rec = ShardedGraphRecommender(build("lightgcn", cfg), data, cfg, graph=graph,
+                                      mesh=mesh, log=Log(echo=False), device=device)
+        rec.build()
+        return rec
+
+    rec = trainer(os.path.join(run_dir, "ckpt"))
+    user_emb, item_emb = rec.model.eval_embeddings(rec.model_params(), rec.state, graph)
+    report = {"restored_start_epoch": rec.start_epoch, "metrics": rec.test().metrics,
+              "single_metrics": evaluate_ranking(user_emb, item_emb, data, graph,
+                                                 Ns=rec.topN).metrics}
+    rng = np.random.default_rng(11)
+    waves = [rng.choice(data.test_user_ids(), 16, replace=False).tolist()
+             for _ in range(SHARDED_SERVE_WAVES)]
+    answers = {"users": np.asarray(waves)}
+    for tag, mesh_arg in (("mesh", mesh), ("single", None)):
+        service = RecommenderService.from_recommender(rec, mesh=mesh_arg)
+        for exclude, kind in ((True, "seen"), (False, "raw")):
+            got = [service.recommend_ids(u, k=10, exclude_seen=exclude) for u in waves]
+            answers[f"{tag}_scores_{kind}"] = np.stack([s for s, _ in got])
+            answers[f"{tag}_ids_{kind}"] = np.stack([i for _, i in got])
+    if rank == 0:
+        np.savez(os.path.join(run_dir, "serve.npz"), **answers)
+    resumed_dir = os.path.join(run_dir, "resumed")
+    CheckpointManager(resumed_dir, rank=rank).save(
+        0, CheckpointManager(os.path.join(run_dir, "ckpt"), rank=rank).restore(0))
+    resumed = trainer(resumed_dir)
+    report["resumed_from"] = resumed.start_epoch - 1
+    resumed.train()
+    report["resumed_epochs"] = resumed.epoch_stats
+    with open(os.path.join(run_dir, f"checks_rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sharded_checks(layout, backend, epochs, ranks, out, graph, n_batches, single, single_loss,
+                   checks=None):
+    """One layout's ranks against the single run: launches, epoch losses,
+    epoch 0's tables and moments; with ``checks`` (the (1, 2) run's
+    ``sharded_checks_worker`` reports) its evaluator, service and resumed
+    epoch."""
+    exact = layout.startswith("1x")
+    want = expected_launches("lightgcn", graph, LAYERS, n_batches * epochs, epochs)
+    launches = [r["launches"] for r in ranks]
+    if any(got[k] != want[k] for got in launches for k in got):
+        raise RuntimeError(f"sharded {layout}: launches {launches}, expected {want}")
+    losses = [[e["loss"] for e in r["epochs"]] for r in ranks]
+    if any(x != losses[0] for x in losses) or len(losses[0]) != epochs:
+        raise RuntimeError(f"sharded {layout}: the ranks' epoch losses {losses}")
+    same, gaps = table_gap(merged_checkpoint(os.path.join(out, "ckpt"), 0), single)
+    loss_gap = abs(losses[0][0] - single_loss)
+    if (exact and not (same and loss_gap == 0)) or any(
+            gaps[p] > SHARDED_DATA_TOL[p] for p in gaps) or loss_gap > 1e-5 * abs(single_loss):
+        raise RuntimeError(f"sharded {layout}: epoch 0 differs from the single run's: relative "
+                           f"gaps {gaps} (bounds {SHARDED_DATA_TOL}), loss {losses[0][0]} "
+                           f"against {single_loss}")
+    epoch_s = [max(r["epochs"][e]["seconds"] for r in ranks) for e in range(epochs)]
+    run = {"backend": backend, "ranks": len(ranks), "epochs": epochs,
+           "graph_s": max(r["graph_s"] for r in ranks),
+           "build_s": max(r["build_s"] for r in ranks),
+           "train_s": max(r["train_s"] for r in ranks),
+           "host_s_per_step": [t / n_batches for t in epoch_s], "epoch_seconds": epoch_s,
+           "epoch_losses": losses[0], "bit_for_bit": bool(same), "relative_gap": gaps,
+           "loss_gap": loss_gap, "shard_rows": ranks[0]["shard_rows"],
+           "sharded": ranks[0]["sharded"], "launches_by_rank": launches}
+    if checks is None:
+        return run
+    metrics = checks[0]["metrics"]
+    if any(c["metrics"] != metrics or c["single_metrics"] != metrics for c in checks) or any(
+            c["restored_start_epoch"] != epochs for c in checks):
+        raise RuntimeError(f"sharded test() {[c['metrics'] for c in checks]} against the single "
+                           f"evaluator's {[c['single_metrics'] for c in checks]} on the same "
+                           "restored tables")
+    served = np.load(os.path.join(out, "serve.npz"))
+    scores = np.concatenate([served["single_scores_seen"], served["single_scores_raw"]])
+    tol = 1e-6 * float(np.abs(scores).max()) * EMB  # f32 dot products of d terms
+    for w in range(len(served["users"])):
+        for kind in ("seen", "raw"):
+            if not topk_agree(served[f"mesh_scores_{kind}"][w], served[f"mesh_ids_{kind}"][w],
+                              served[f"single_scores_{kind}"][w],
+                              served[f"single_ids_{kind}"][w], tol):
+                raise RuntimeError(f"sharded service wave {w} ({kind}) differs from the "
+                                   "single service's")
+    straight = merged_checkpoint(os.path.join(out, "ckpt"), epochs - 1)
+    same, gaps = table_gap(merged_checkpoint(os.path.join(out, "resumed"), epochs - 1), straight)
+    if not same or any(c["resumed_from"] != 0 for c in checks) or any(
+            [e["loss"] for e in c["resumed_epochs"]] != losses[0][1:] for c in checks):
+        raise RuntimeError(f"the resumed epochs differ from the straight run's by {gaps}")
+    run.update({"metrics": metrics, "metrics_equal_single_evaluator": True,
+                "served_waves": int(len(served["users"])), "served_equal_single": True,
+                "serve_score_tol": tol, "resumed_equal_straight": True})
+    return run
+
+
+def add_sharded_launches(k7_row, p1_row, sharded):
+    """Each layout's ranks' K7 and P1 launches into their kernels rows."""
+    for layout, run in sharded["runs"].items():
+        if layout == "single":
+            continue
+        for row, name in ((k7_row, "gather_rows"), (p1_row, "gather_sum")):
+            counts = [r[name] for r in run["launches_by_rank"]]
+            row[f"launches_sharded_{layout}"] = counts
+            row["launches"] += sum(counts)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs on the card",
@@ -3922,7 +4214,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     (clustered_info, clustered_one_step, clustered_runs, bucketed_zoo,
-     clustered_nb, (int8, q1_row, p1_int8_row, fused_row)) = clustered_phase()
+     clustered_nb, (int8, q1_row, p1_int8_row, fused_row), sharded) = clustered_phase()
     for run in clustered_runs:
         for row in lse_rows + [k7_row, p1_row]:
             row["launches"] += run["launches"][row["name"]]
@@ -3943,6 +4235,7 @@ def main() -> int:
     add_neighbor_launches(k7_row, p1_row, hard_nb, clustered_nb)
     social = social_phase(card)
     add_social_launches(k7_row, p1_row, social)
+    add_sharded_launches(k7_row, p1_row, sharded)
     dense_lightgcn = hard_nb["lightgcn_backends"]["runs"][0]["launches"]
     for row in (rows[torch.float32], bwd_rows[torch.float32]):
         row["launches"] += dense_lightgcn[row["name"]]
@@ -3968,6 +4261,7 @@ def main() -> int:
     print(json.dumps({"neighbors": {"hard": hard_nb, "clustered": clustered_nb}}))
     print(json.dumps({"social": social}))
     print(json.dumps({"int8": int8}))
+    print(json.dumps({"sharded": sharded}))
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3977,4 +4271,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-checks"]:  # one rank of the sharded phase's checks
+        sharded_checks_worker(*sys.argv[2:5])
+        raise SystemExit(0)
     raise SystemExit(main())

@@ -14,6 +14,16 @@ alignment and uniformity are here too, with ``uniformity_streaming``: the
 JAX package's ``lax.scan`` of [N, 1024] blocks (``ops/pallas_losses.py``,
 not a kernel) as a loop of plain torch products, which ``uniformity_loss``
 takes from 4096 rows on so that the [N, N] distances never exist at once.
+
+LightGCN's losses (BPR, BCE, pointwise BCE and the L2 term) take a
+``group``: the data group of a sharded trainer (``parallel/trainer.py``),
+over whose ranks the batch's rows are split (the batch carries it,
+``PairwiseBatch.group``). Then each gives the global batch's value on
+every rank: a mean is the group's sum (``ops/group.py``'s ``reduce_sum``,
+an all-reduce whose backward is the identity) over the global row count, and
+a Frobenius norm the root of the group's sum of squares, so each rank's
+backward is its own rows' share of the global gradient. With no group
+(``None``) the code is the single-device one.
 """
 
 from __future__ import annotations
@@ -21,6 +31,15 @@ from __future__ import annotations
 import torch
 
 from recommendation_tpu_torch.graph import augment
+from recommendation_tpu_torch.ops.group import group_rows, reduce_sum
+
+
+def batch_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of ``x`` over the global batch: ``torch.mean`` with no
+    group, else the group's sum over the global element count."""
+    if group is None:
+        return torch.mean(x)
+    return reduce_sum(torch.sum(x), group) / group_rows(x.numel(), group)
 
 
 def _l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -31,11 +50,12 @@ def _l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.T
     return torch.where(sq > 0, x / torch.clamp(norm, min=eps), torch.zeros_like(x))
 
 
-def bpr_loss(user_emb: torch.Tensor, pos_emb: torch.Tensor, neg_emb: torch.Tensor) -> torch.Tensor:
+def bpr_loss(user_emb: torch.Tensor, pos_emb: torch.Tensor, neg_emb: torch.Tensor,
+             group=None) -> torch.Tensor:
     """-mean log(1e-5 + sigmoid(pos - neg))  (`ncl.py:116-120`)."""
     pos_score = torch.sum(user_emb * pos_emb, dim=1)
     neg_score = torch.sum(user_emb * neg_emb, dim=1)
-    return -torch.mean(torch.log(1e-5 + torch.sigmoid(pos_score - neg_score)))
+    return -batch_mean(torch.log(1e-5 + torch.sigmoid(pos_score - neg_score)), group)
 
 
 def _bce_rows(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -43,35 +63,44 @@ def _bce_rows(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
             + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
-def bce_loss(user_emb: torch.Tensor, pos_emb: torch.Tensor, neg_emb: torch.Tensor) -> torch.Tensor:
+def bce_loss(user_emb: torch.Tensor, pos_emb: torch.Tensor, neg_emb: torch.Tensor,
+             group=None) -> torch.Tensor:
     """Binary cross-entropy over pos/neg scores (`lightgcn.py:109-113`)."""
     pos_score = torch.sum(user_emb * pos_emb, dim=1)
     neg_score = torch.sum(user_emb * neg_emb, dim=1)
     logits = torch.cat([pos_score, neg_score])
     labels = torch.cat([torch.ones_like(pos_score), torch.zeros_like(neg_score)])
-    return torch.mean(_bce_rows(logits, labels))
+    return batch_mean(_bce_rows(logits, labels), group)
 
 
 def pointwise_bce_loss(scores: torch.Tensor, labels: torch.Tensor,
-                       weight: torch.Tensor | None = None) -> torch.Tensor:
+                       weight: torch.Tensor | None = None, group=None) -> torch.Tensor:
     """Weighted BCE over labeled (user, item, y) scores; ``weight`` masks
     padding rows (`univariate/diffnet.py:968-991`)."""
     per_row = _bce_rows(scores, labels)
     if weight is None:
-        return torch.mean(per_row)
-    return torch.sum(per_row * weight) / torch.clamp(torch.sum(weight), min=1.0)
+        return batch_mean(per_row, group)
+    if group is None:
+        return torch.sum(per_row * weight) / torch.clamp(torch.sum(weight), min=1.0)
+    return reduce_sum(torch.sum(per_row * weight), group) / torch.clamp(
+        reduce_sum(torch.sum(weight), group), min=1.0)
 
 
-def safe_frobenius_norm(x: torch.Tensor) -> torch.Tensor:
-    """||x||_F with gradient 0 at x = 0 (torch.norm's subgradient there)."""
+def safe_frobenius_norm(x: torch.Tensor, group=None) -> torch.Tensor:
+    """||x||_F with gradient 0 at x = 0 (torch.norm's subgradient there);
+    with a ``group``, of the rows of every rank's ``x``."""
     sq = torch.sum(x * x)
+    if group is not None:
+        sq = reduce_sum(sq, group)
     return torch.where(sq > 0, torch.sqrt(torch.where(sq > 0, sq, torch.ones_like(sq))),
                        torch.zeros_like(sq))
 
 
-def l2_reg_loss(reg: float, *embs: torch.Tensor) -> torch.Tensor:
-    """reg * Σ ||x||_F / x.shape[0] — NOT squared (`ncl.py:122-123`)."""
-    return reg * sum(safe_frobenius_norm(x) / x.shape[0] for x in embs)
+def l2_reg_loss(reg: float, *embs: torch.Tensor, group=None) -> torch.Tensor:
+    """reg * Σ ||x||_F / x.shape[0] — NOT squared (`ncl.py:122-123`); with a
+    ``group``, over the global batch's rows."""
+    return reg * sum(safe_frobenius_norm(x, group) / group_rows(x.shape[0], group)
+                     for x in embs)
 
 
 def info_nce(view1: torch.Tensor, view2: torch.Tensor, temperature: float,

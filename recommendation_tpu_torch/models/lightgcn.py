@@ -8,7 +8,8 @@ backend: ``lightgcn_propagate``'s bipartite dense branch
 ``LightGCN.init/propagate/loss/eval_embeddings``. Config:
 ``LightGCN.n_layers`` (default 3), ``loss`` in {'bpr', 'bce', 'pointwise'},
 ``n_negs`` (extra negatives per edge, `lightgcn.py:93-104`),
-``Pointwise.n_negs``, ``reg.lambda``.
+``Pointwise.n_negs``, ``reg.lambda``. Its losses are the ones a sharded
+trainer's data axis may split (``PairwiseBatch.group``).
 
 On the dense backend the layer chain goes through ``ops.prop.ChainMean``
 (kernels K1 forward, K2 backward); on the bucketed backend through
@@ -27,6 +28,7 @@ from recommendation_tpu_torch.graph.bucketed import bucketed_chain_mean
 from recommendation_tpu_torch.losses import bce_loss, bpr_loss, l2_reg_loss, pointwise_bce_loss
 from recommendation_tpu_torch.models.base import Model
 from recommendation_tpu_torch.models.registry import register
+from recommendation_tpu_torch.ops.group import group_rows, rank_slice
 from recommendation_tpu_torch.ops.prop import ChainMean
 from recommendation_tpu_torch.ops.rows import take_rows
 from recommendation_tpu_torch.ops.spmm import adj_matmul
@@ -107,19 +109,26 @@ class LightGCN(Model):
 
     def loss(self, params, state, batch, graph, generator=None):
         user_all, item_all = self.propagate(params, graph)
-        b = batch.users.shape[0]
+        # under a sharded trainer's data group the batch is this rank's
+        # slice of the global one: the draws are made for the global batch
+        # and sliced, the losses give the global value (losses.py)
+        grp = batch.group
+        b = group_rows(batch.users.shape[0], grp)
+
+        def words(n_sets):
+            return rank_slice(negative_words(generator, n_sets, b, graph.device),
+                              batch.users.shape[0], grp)
 
         if self.loss_type == "pointwise":
             # 1 positive + k y=0 rows per edge, BCE over the scores
             k = int(self.config.get("Pointwise.n_negs", 4))
-            words = negative_words(generator, k, b, graph.device)
-            pw = sample_pointwise(words, graph, batch.users, batch.pos_items,
+            pw = sample_pointwise(words(k), graph, batch.users, batch.pos_items,
                                   n_negs=k, weight=batch.weight)
             u = take_rows(user_all, pw.users)
             it = take_rows(item_all, pw.items)
             scores = torch.sum(u * it, dim=1)
-            rank = pointwise_bce_loss(scores, pw.labels, pw.weight)
-            return rank + l2_reg_loss(self.reg, u, it) / b, state
+            rank = pointwise_bce_loss(scores, pw.labels, pw.weight, group=grp)
+            return rank + l2_reg_loss(self.reg, u, it, group=grp) / b, state
 
         u = take_rows(user_all, batch.users)
         pos = take_rows(item_all, batch.pos_items)
@@ -128,14 +137,15 @@ class LightGCN(Model):
         if self.n_negs > 1:
             # mean of the rank loss over n_negs fresh negatives
             # (`lightgcn.py:93-104`); the L2 term keeps the batch's negative
-            words = negative_words(generator, self.n_negs, b, graph.device)
+            w = words(self.n_negs)
             rank = torch.mean(torch.stack([
-                fn(u, pos, take_rows(item_all, sample_negatives(words[j], graph, batch.users)))
+                fn(u, pos, take_rows(item_all, sample_negatives(w[j], graph, batch.users)),
+                   group=grp)
                 for j in range(self.n_negs)
             ]))
         else:
-            rank = fn(u, pos, neg)
-        return rank + l2_reg_loss(self.reg, u, pos, neg) / b, state
+            rank = fn(u, pos, neg, group=grp)
+        return rank + l2_reg_loss(self.reg, u, pos, neg, group=grp) / b, state
 
     def eval_embeddings(self, params, state, graph):
         with torch.no_grad():

@@ -47,7 +47,8 @@ All four run one CUDA body (``chain_layer``), one launch per layer, with
 the reduction cut into slices across blocks: ``chain_plan`` picks the
 shortest slice whose blocks the card still holds at once (one wave),
 and a call allocates the slices' partial sums (``_Chain``) and uses one
-counter per output tile (``_counters``, zeroed once); the last slice of a
+counter per output tile (``_counters``, zeroed once for each device and
+stream, so calls on two streams never share one); the last slice of a
 tile to finish adds the partials in slice order and zeroes its counter, so
 a call repeats bit for bit. A call's layers after the first are launched
 so that each may overlap the previous one's tail (programmatic dependent
@@ -257,16 +258,19 @@ def _slots(lib, device: torch.device, bf16: bool) -> int:
     return _SLOTS[key]
 
 
-_COUNTS: dict[torch.device, torch.Tensor] = {}
+_COUNTS: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
-def _counters(device: torch.device, n: int) -> torch.Tensor:
-    """``n`` tile counters on ``device``, zero. Zeroed once and shared by
-    every call: each layer's last blocks set their counters back to zero,
-    so the next launch on the stream finds them so."""
-    count = _COUNTS.get(device)
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """``n`` tile counters on ``device`` for the calls on ``stream`` (its
+    ``cuda_stream`` handle), zero. Zeroed once and shared by every call on
+    that stream: each layer's last blocks set their counters back to zero,
+    so the next launch on the stream finds them so. Another stream gets
+    buffers of its own, so two streams' launches never race on a counter."""
+    key = (device, stream)
+    count = _COUNTS.get(key)
     if count is None or count.numel() < n:
-        count = _COUNTS[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        count = _COUNTS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
     return count
 
 
@@ -279,12 +283,12 @@ class _Chain:
         n_users, n_items = r.shape
         self.plan = chain_plan(n_users, n_items, d,
                                _slots(lib, r.device, r.dtype == torch.bfloat16))
+        self.stream = torch.cuda.current_stream(r.device).cuda_stream
         self.partial = self.count = None
         if self.plan.partial_floats:
             self.partial = torch.empty(self.plan.partial_floats, dtype=torch.float32,
                                        device=r.device)
-            self.count = _counters(r.device, self.plan.tiles)
-        self.stream = torch.cuda.current_stream(r.device).cuda_stream
+            self.count = _counters(r.device, self.stream, self.plan.tiles)
         self.chained = 0  # the first layer follows some other launch
 
     def layer(self, src, dst, acc_in, acc_out=(None, None), inj=(None, None), scale=1.0,

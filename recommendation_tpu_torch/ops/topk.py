@@ -5,6 +5,10 @@ masked to −1e8 (`selfcf.py:419-421` semantics) before ``torch.topk``. The JAX
 package leaves these to XLA, not Pallas, so they stay plain torch here. Its
 power-of-two padding of query blocks only bounds JAX's compile cache and is
 dropped: PyTorch does not compile per shape.
+
+``mask_seen_post_merge`` and ``train_edge_keys`` are copies of the JAX
+package's host helpers for the sharded evaluator and service, which mask
+train positives after the sharded top-k's merge.
 """
 
 from __future__ import annotations
@@ -13,6 +17,39 @@ import numpy as np
 import torch
 
 MASK_VALUE = -1e8
+
+
+def mask_seen_post_merge(scores, ids, uid_arr, train_keys, n_items,
+                         mask_value=MASK_VALUE):
+    """Host-side vectorized train-positive masking for over-fetched top-k
+    candidates after a sharded merge (shared by the sharded evaluator,
+    `parallel/trainer.py::test`, and the serving path).
+
+    ``train_keys`` = int64 ``user * n_items + item`` of every train edge;
+    ``ids >= n_items`` marks row-padding from `pad_rows_to`. Returns a
+    masked COPY of ``scores``. Sorted keys (as the sharded evaluator and
+    service keep them) are searched in place of ``np.isin``'s sort of
+    both arrays a call: the same mask."""
+    uid_arr = np.asarray(uid_arr, dtype=np.int64)
+    ids = np.asarray(ids)
+    valid = ids < n_items
+    query = uid_arr[:, None] * n_items + np.where(valid, ids, 0)
+    train_keys = np.asarray(train_keys)
+    if len(train_keys) and np.all(train_keys[1:] >= train_keys[:-1]):
+        at = np.minimum(np.searchsorted(train_keys, query), len(train_keys) - 1)
+        seen = (train_keys[at] == query) & valid
+    else:
+        seen = np.isin(query, train_keys) & valid
+    out = np.asarray(scores).copy()
+    out[seen | ~valid] = mask_value
+    return out
+
+
+def train_edge_keys(interaction_mat, n_items):
+    """int64 ``user * n_items + item`` keys of every train edge (the
+    immutable structure `mask_seen_post_merge` queries against)."""
+    coo = interaction_mat.tocoo()
+    return coo.row.astype(np.int64) * n_items + coo.col.astype(np.int64)
 
 
 def mask_trained(scores: torch.Tensor, user_positives: torch.Tensor) -> torch.Tensor:

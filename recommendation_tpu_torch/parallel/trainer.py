@@ -1,0 +1,245 @@
+"""Sharded trainer (counterpart of ``recommendation_tpu/parallel/trainer.py``).
+
+``ShardedGraphRecommender`` runs ``GraphRecommender``'s lifecycle in every
+rank of a ``(data, model)`` mesh (``parallel/mesh.py``):
+
+  * **batches**: every rank draws the epoch from the same generator state,
+    so the draw is identical everywhere; each data rank takes its
+    ``B / data`` rows of each batch (B must divide by ``data``);
+  * **tables**: ``user_emb``, ``item_emb`` and the other ``TABLE_KEYS`` are
+    leaf tensors of ``rows / model`` rows where the rows divide by
+    ``model`` (else whole on every rank, as JAX ``trainer.py:71-77``), and
+    the Adam moments live on them. The forward all-gathers the shards over
+    the model group into the full tables (``collectives.gather_rows``); its
+    backward keeps the rank's own rows of the full table's gradient, which
+    every model rank computed alike;
+  * **propagation** runs whole on every rank over the replicated graph,
+    with the port's kernels (K7 and P1 on the bucketed backend, K1 and K2 on
+    the dense one), as ``trainer.py:81-97`` does for the bucketed backend;
+  * **gradients**: each data rank's partial gradients are summed over the
+    data group (one all-reduce a step), replicated parameters' too.
+
+At ``data = 1`` a step is the single-device step bit for bit: the same
+tables, draws and kernels, the gradient only sliced. At ``data > 1`` it
+differs by the order of the data group's sum. Only LightGCN's losses give
+the global batch's value from a slice (each batch carries the data group,
+``PairwiseBatch.group``; ``losses.py``); any other model at ``data > 1``
+raises at build, naming the term that couples the batch's rows (those
+losses are not on the data axis yet). GSPMD's edge sharding of the segment backend's propagation
+(``trainer.py:93-97``) has no counterpart yet: propagation is replicated.
+
+``test()`` is the sharded evaluator where the mesh has a model axis: the
+padded item table row-sharded, ``sharded_topk`` over blocks of test users,
+train positives masked after the merge, then ``ranking_metrics``.
+Checkpoints are one file a rank (``train/checkpoint.py``) holding its
+shards, their Adam moments and the layout; a restore refuses another
+layout.
+
+Every rank runs the same calls in the same order: evaluation is
+replicated (every rank ranks the full tables), and the collectives are
+synchronous.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from recommendation_tpu_torch.config import Config
+from recommendation_tpu_torch.evalx.metrics import ranking_metrics
+from recommendation_tpu_torch.evalx.ranking import RankingResult
+from recommendation_tpu_torch.models.base import Model
+from recommendation_tpu_torch.ops.topk import mask_seen_post_merge, train_edge_keys
+from recommendation_tpu_torch.parallel.collectives import gather_rows, sharded_topk
+from recommendation_tpu_torch.parallel.embedding import pad_rows_to
+from recommendation_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    axis_group,
+    axis_size,
+    batch_rows,
+    make_mesh,
+    mesh_spec,
+    shard_params,
+    table_rows,
+)
+from recommendation_tpu_torch.train.recommender import GraphRecommender
+from recommendation_tpu_torch.utils.logging import Log
+
+# the term of each model's loss that a slice of the batch cannot compute
+# alone (every model but LightGCN): the data axis raises for these
+ROW_COUPLED = {
+    "ncl": "ProtoNCE and the layer contrast (means over the batch's rows with "
+           "full-catalog denominators) and the L2 term's Frobenius norm",
+    "directau": "the uniformity term (all pairs of the batch's rows)",
+    "selfcf": "the cosine bootstrap's batch mean and the history rows it writes",
+    "buir": "the bootstrap loss's batch mean (buir_loss)",
+    "ssl4rec": "the in-batch InfoNCE (batch_softmax_loss, info_nce)",
+    "gcl": "the InfoNCE over all nodes' views",
+    "grace": "the dual-branch InfoNCE over all nodes' views",
+    "gbt": "the batch norm of the Barlow Twins loss",
+    "bgrl": "the batch norms and the bootstrap's graph readout",
+    "graphsage": "the BPR mean and the L2 term's Frobenius norm over the batch's rows",
+    "gat": "the BPR mean and the L2 term's Frobenius norm over the batch's rows",
+    "diffnet": "the summed BPR's L2 term over the batch's rows",
+    "sept": "the tri-view pseudo-labels' top-k over the batch's users",
+    "sept_basic": "the BPR mean over the batch's rows",
+    "mhcn": "the BPR mean and the hierarchical MIM's shuffles",
+    "esrf": "the summed BPR's L2 term over the batch's rows",
+}
+
+
+class _Placement:
+    """What the step loop does for a rank (``train/loop.py``): gather the
+    sharded tables, sum the gradients over the data group, cut each batch
+    to the rank's rows and name the group its rows are a slice over
+    (``loss_group``: None where the data axis is 1, so a loss runs its
+    single-device code)."""
+
+    def __init__(self, mesh, sharded: set, rows: tuple[int, int]):
+        self.model_group = axis_group(mesh, MODEL_AXIS)
+        self.data_group = axis_group(mesh, DATA_AXIS)
+        self.loss_group = self.data_group if axis_size(mesh, DATA_AXIS) > 1 else None
+        self.sharded = sharded
+        self.rows = rows
+
+    def gather(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {k: gather_rows(v, self.model_group) if k in self.sharded else v
+                for k, v in params.items()}
+
+    def reduce_grads(self, grads):
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.data_group)
+        out, at = [], 0
+        for g in grads:
+            out.append(flat[at:at + g.numel()].view_as(g))
+            at += g.numel()
+        return out
+
+    def slice_batches(self, batches):
+        *arrays, n_batches = batches
+        lo, hi = self.rows
+        return tuple(a[:, lo:hi].contiguous() for a in arrays) + (n_batches,)
+
+
+class ShardedGraphRecommender(GraphRecommender):
+    """``GraphRecommender`` in one rank of ``mesh`` (default: ``make_mesh()``
+    over the world, on the graph's device type)."""
+
+    def __init__(
+        self,
+        model: Model,
+        data,
+        config: Optional[Config] = None,
+        graph=None,
+        mesh=None,
+        log: Optional[Log] = None,
+        device="cuda",
+    ):
+        super().__init__(model, data, config, graph=graph, log=log, device=device)
+        self.mesh = mesh if mesh is not None else make_mesh(device_type=self.graph.device.type)
+        self.spec = mesh_spec(self.mesh)
+        self._n_model = self.spec.model
+
+    # -- placement ------------------------------------------------------------
+
+    def build(self):
+        if self.spec.data > 1 and self.model.name != "lightgcn":
+            term = ROW_COUPLED.get(self.model.name, "its loss over the batch")
+            raise ValueError(
+                f"{self.model.name} cannot split its batches over data={self.spec.data}: "
+                f"{term} couples the batch's rows, and only LightGCN's losses give the "
+                f"global batch's value from a slice (use data=1)")
+        rows = batch_rows(self.batch_size, self.mesh)  # raises where B does not divide
+        self._rows = rows
+        super().build()
+
+    def _place(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        out, sharded = shard_params(params, self.mesh)
+        self._placement = _Placement(self.mesh, sharded, self._rows)
+        return out
+
+    @property
+    def sharded_params(self) -> set:
+        """The names of the parameters held as row shards."""
+        return self._placement.sharded
+
+    def model_params(self) -> Dict[str, torch.Tensor]:
+        with torch.no_grad():
+            return self._placement.gather(self.params)
+
+    # -- checkpoints: one file a rank, with the layout --------------------------
+
+    def layout(self) -> Dict[str, int]:
+        return {"data": self.spec.data, "model": self.spec.model, "rank": dist.get_rank()}
+
+    def _checkpoint_manager(self, directory: str, keep: int):
+        from recommendation_tpu_torch.train.checkpoint import CheckpointManager
+
+        return CheckpointManager(directory, keep=keep, rank=dist.get_rank())
+
+    def _payload(self, epoch: int) -> Dict[str, Any]:
+        return {**super()._payload(epoch), "layout": self.layout(),
+                "sharded": sorted(self.sharded_params)}
+
+    def _latest_checkpoint(self) -> Optional[Dict[str, Any]]:
+        """The newest step every rank holds, after checking that every rank
+        holds one and that its layout is this run's."""
+        local = self._ckpt.latest_step()
+        local = -1 if local is None else local
+        ends = torch.tensor([local, -local], dtype=torch.int64, device=self.graph.device)
+        dist.all_reduce(ends, op=dist.ReduceOp.MAX)
+        newest, oldest = int(ends[0]), -int(ends[1])
+        if newest < 0:
+            return None
+        if oldest < 0:
+            raise ValueError(f"checkpoint in {self._ckpt.directory} has no file for some ranks "
+                             f"of the layout {self.layout()}: written by another layout")
+        restored = self._ckpt.restore(oldest)
+        if restored.get("layout") != self.layout():
+            raise ValueError(f"checkpoint layout {restored.get('layout')} does not match this "
+                             f"run's {self.layout()}")
+        return restored
+
+    # -- sharded evaluation ---------------------------------------------------
+
+    def test(self) -> RankingResult:
+        """Ranking evaluation through the sharded top-k where the mesh has a
+        model axis (else the single-device evaluator): the padded item
+        table row-sharded over the model group, each block of test users
+        scored against the rank's rows and merged (``sharded_topk``),
+        over-fetched by the heaviest user's degree plus the padding rows,
+        which score 0 and can displace real candidates; train positives and
+        padding masked after the merge (``mask_seen_post_merge``)."""
+        if self._n_model <= 1:
+            return super().test()
+        user_emb, item_emb = self.model.eval_embeddings(self.model_params(), self.state,
+                                                        self.graph)
+        test_uids = self.data.test_user_ids()
+        max_n = max(self.topN)
+        n_items = self.graph.n_items
+        padded = pad_rows_to(item_emb.float().contiguous(), self._n_model)
+        lo, hi = table_rows(padded.shape[0], self.mesh)
+        local = padded[lo:hi]
+        n_pad = padded.shape[0] - n_items
+        k = min(int(self.graph.max_degree) + max_n + n_pad, padded.shape[0])
+        keys = np.sort(train_edge_keys(self.data.interaction_mat, n_items))
+        block = int(self.config.get("eval.batch.size", 1024))
+        ids_out, scores_out = [], []
+        for start in range(0, len(test_uids), block):
+            uids = test_uids[start:start + block]
+            rows = torch.from_numpy(uids.astype(np.int64)).to(user_emb.device)
+            s, i = sharded_topk(user_emb[rows].float(), local, k, self.mesh)
+            ids = i.cpu().numpy()
+            s = mask_seen_post_merge(s.cpu().numpy(), ids, uids, keys, n_items)
+            order = np.argsort(-s, axis=1, kind="stable")[:, :max_n]
+            ids_out.append(np.take_along_axis(ids, order, axis=1).astype(np.int32))
+            scores_out.append(np.take_along_axis(s, order, axis=1))
+        top_ids = np.concatenate(ids_out) if ids_out else np.zeros((0, max_n), np.int32)
+        top_scores = np.concatenate(scores_out) if scores_out else np.zeros((0, max_n), np.float32)
+        metrics = ranking_metrics(top_ids, self.data.test_items_by_user(), self.topN)
+        return RankingResult(metrics=metrics, top_ids=top_ids, top_scores=top_scores,
+                             test_user_ids=test_uids)

@@ -26,7 +26,7 @@ word; the value is the same.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -40,6 +40,9 @@ class PairwiseBatch(NamedTuple):
     pos_items: torch.Tensor  # i32[B]
     neg_items: torch.Tensor  # i32[B]
     weight: torch.Tensor  # f32[B] 1.0 for real rows, 0.0 for padding
+    # the data group of a sharded trainer whose ranks each hold a slice of
+    # the global batch in rank order (``ops/group.py``); None: the whole batch
+    group: Any = None
 
 
 class PointwiseBatch(NamedTuple):

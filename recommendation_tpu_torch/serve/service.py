@@ -2,14 +2,22 @@
 
 ``RecommenderService`` holds the frozen (user_emb, item_emb) tables on their
 device and answers batch queries with the masked full-catalog top-k, train
-positives excluded exactly as in evaluation. This is the single-device
-service; the JAX package's mesh branch (a row-sharded item table) waits for
-the port of ``parallel/``.
+positives excluded exactly as in evaluation. With a ``mesh``
+(``parallel/mesh.py``) the item table is padded to a multiple of the model
+axis and each model rank holds its rows: a query scores them, merges the
+ranks' candidates (``parallel.collectives.sharded_topk``) and masks the
+train positives and the padding rows after the merge, having over-fetched
+by the wave's heaviest degree plus the padding rows; the train-edge keys it
+masks against are sorted once. Every rank of the mesh must make the same
+queries in the same order (the merge is a collective), so a service over
+several processes answers each wave in all of them; the MicroBatcher and
+HTTP front end are the single process's.
 
 Construction paths:
-  * ``RecommenderService.from_recommender(rec)`` — after training;
-  * ``RecommenderService(user_emb, item_emb, data, graph)`` — with the
-    tables from the model's ``eval_embeddings`` (e.g. restored parameters).
+  * ``RecommenderService.from_recommender(rec, mesh=None)`` — after training;
+  * ``RecommenderService(user_emb, item_emb, data, graph, mesh=None)`` —
+    with the tables from the model's ``eval_embeddings`` (e.g. restored
+    parameters).
 """
 
 from __future__ import annotations
@@ -21,11 +29,17 @@ import torch
 
 from recommendation_tpu_torch.data.interaction import Interaction
 from recommendation_tpu_torch.evalx.ranking import positives_for
-from recommendation_tpu_torch.ops.topk import topk_with_exclusions
+from recommendation_tpu_torch.ops.topk import (
+    MASK_VALUE,
+    mask_seen_post_merge,
+    topk_with_exclusions,
+    train_edge_keys,
+)
 
 
 class RecommenderService:
-    def __init__(self, user_emb: torch.Tensor, item_emb: torch.Tensor, data: Interaction, graph):
+    def __init__(self, user_emb: torch.Tensor, item_emb: torch.Tensor, data: Interaction, graph,
+                 mesh=None):
         if user_emb.device != item_emb.device or user_emb.device != graph.device:
             raise ValueError(
                 f"tables and graph must share a device: {user_emb.device}, "
@@ -35,11 +49,21 @@ class RecommenderService:
         self.item_emb = item_emb.float().contiguous()
         self.data = data
         self.graph = graph
+        self.mesh = mesh
+        if mesh is not None:
+            from recommendation_tpu_torch.parallel.embedding import pad_rows_to
+            from recommendation_tpu_torch.parallel.mesh import MODEL_AXIS, axis_size, table_rows
+
+            padded = pad_rows_to(self.item_emb, axis_size(mesh, MODEL_AXIS))
+            lo, hi = table_rows(padded.shape[0], mesh)
+            self._item_local = padded[lo:hi].contiguous()
+            self._n_padded = padded.shape[0]
+            self._train_keys = np.sort(train_edge_keys(data.interaction_mat, data.item_num))
 
     @classmethod
-    def from_recommender(cls, rec) -> "RecommenderService":
-        user_emb, item_emb = rec.model.eval_embeddings(rec.params, rec.state, rec.graph)
-        return cls(user_emb, item_emb, rec.data, rec.graph)
+    def from_recommender(cls, rec, mesh=None) -> "RecommenderService":
+        user_emb, item_emb = rec.model.eval_embeddings(rec.model_params(), rec.state, rec.graph)
+        return cls(user_emb, item_emb, rec.data, rec.graph, mesh=mesh)
 
     # -- request batching ------------------------------------------------------
 
@@ -87,12 +111,33 @@ class RecommenderService:
         """The device query (what the batcher dispatches)."""
         uids = np.asarray(user_ids, dtype=np.int64)
         u = self.user_emb[torch.from_numpy(uids).to(self.user_emb.device)]
+        if self.mesh is not None:
+            return self._recommend_ids_sharded(uids, u, k, exclude_seen)
         if exclude_seen:
             pos = positives_for(self.data, self.graph, uids)
         else:
             pos = torch.full((len(uids), 1), -1, dtype=torch.int32, device=u.device)
         s, i = topk_with_exclusions(u, self.item_emb, pos, k)
         return s.cpu().numpy(), i.cpu().numpy().astype(np.int32)
+
+    def _recommend_ids_sharded(self, uids: np.ndarray, u: torch.Tensor, k: int,
+                               exclude_seen: bool) -> tuple[np.ndarray, np.ndarray]:
+        """The mesh's query: over-fetch past the wave's heaviest degree (with
+        exclusions) plus the zero-scoring padding rows, merge, then mask."""
+        from recommendation_tpu_torch.parallel.collectives import sharded_topk
+
+        n_items = self.data.item_num
+        over = 0
+        if exclude_seen and len(uids):
+            over = int(np.diff(self.data.interaction_mat.indptr)[uids].max())
+        kk = min(k + over + self._n_padded - n_items, self._n_padded)
+        s, i = sharded_topk(u, self._item_local, kk, self.mesh)
+        s, i = s.cpu().numpy(), i.cpu().numpy()
+        keys = self._train_keys if exclude_seen else self._train_keys[:0]
+        s = mask_seen_post_merge(s, i, uids, keys, n_items, MASK_VALUE)
+        order = np.argsort(-s, axis=1, kind="stable")[:, :k]
+        return (np.take_along_axis(s, order, axis=1),
+                np.take_along_axis(i, order, axis=1).astype(np.int32))
 
     def recommend(
         self, users: Sequence, k: int = 10, exclude_seen: bool = True

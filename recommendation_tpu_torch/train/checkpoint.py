@@ -6,6 +6,11 @@ the parameters, the optimizer's ``state_dict``, the model state, the
 trainer's generator states and the epoch. ``CheckpointManager`` keeps the
 last ``keep`` of them. Saving the generators (which the JAX package's
 checkpoints leave out) makes a resumed run draw what a straight run would.
+
+A sharded trainer (``parallel/trainer.py``) gives each rank a manager of
+its own (``rank``): the rank writes ``step_<epoch>.rank<r>.pt`` with its
+shards, their optimizer moments and the mesh layout, where orbax writes
+each process's shards of one global array.
 """
 
 from __future__ import annotations
@@ -19,13 +24,14 @@ import torch
 class CheckpointManager:
     """Keep-last-N rolling checkpoints of a training run in ``directory``."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, rank: Optional[int] = None):
         self.directory = os.path.abspath(directory)
         self.keep = keep
+        self.suffix = ".pt" if rank is None else f".rank{rank}.pt"
         os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
-        return os.path.join(self.directory, f"step_{step:08d}.pt")
+        return os.path.join(self.directory, f"step_{step:08d}{self.suffix}")
 
     def save(self, step: int, payload: Dict[str, Any]) -> str:
         path = self._path(step)
@@ -40,9 +46,9 @@ class CheckpointManager:
             return []
         steps = []
         for name in os.listdir(self.directory):
-            if name.startswith("step_") and name.endswith(".pt"):
+            if name.startswith("step_") and name.endswith(self.suffix):
                 try:
-                    steps.append(int(name[len("step_"):-len(".pt")]))
+                    steps.append(int(name[len("step_"):-len(self.suffix)]))
                 except ValueError:
                     pass
         return sorted(steps)
@@ -55,8 +61,10 @@ class CheckpointManager:
         """The newest payload, its tensors on the CPU (the trainer copies
         them to its device), or None when there is none."""
         step = self.latest_step()
-        if step is None:
-            return None
+        return None if step is None else self.restore(step)
+
+    def restore(self, step: int) -> Dict[str, Any]:
+        """The payload saved at ``step``, its tensors on the CPU."""
         return torch.load(self._path(step), map_location="cpu", weights_only=True)
 
     def _gc(self):

@@ -17,6 +17,15 @@ hoisting gates work around TPU dispatch time and the TPU watchdog; the port
 has one loop instead. The trainer draws each epoch's words from its
 generator in the same sequence whatever ``eval.interval`` is, so runs that
 evaluate at different intervals train on the same batches by construction.
+
+A sharded trainer passes a ``placement`` (``parallel/trainer.py``): the
+epoch's arrays are cut to the rank's rows of each batch
+(``placement.slice_batches``), each batch carries the data group its
+rows are a slice over (``placement.loss_group``, None at data = 1), the
+loss reads the parameters the placement gathers from the rank's shards
+(``placement.gather``), and the gradients
+are summed over the data group before the NaN guard
+(``placement.reduce_grads``).
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from typing import Any, Dict
 
 import torch
 
+from recommendation_tpu_torch.models.base import Model
 from recommendation_tpu_torch.sampling import PairwiseBatch, epoch_batches, epoch_words
 
 
@@ -121,26 +131,42 @@ def _where_state(ok: torch.Tensor, new: Any, old: Any) -> Any:
     return new
 
 
+def _post_step_params(model, params, placement):
+    """The parameters ``post_step`` reads: the updated full ones where a
+    model has a ``post_step`` and the parameters are sharded."""
+    if placement is None or type(model).post_step is Model.post_step:
+        return params
+    with torch.no_grad():
+        return placement.gather(params)
+
+
 def run_steps(model, optimizer: torch.optim.Optimizer, graph, params: Dict[str, torch.Tensor],
-              state: Any, batches, generator: torch.Generator | None = None):
+              state: Any, batches, generator: torch.Generator | None = None, placement=None):
     """The step loop over one epoch's arrays ``batches`` = (users, items,
     negs, weights, n_batches). Differentiates the parameters that require
     a gradient (every one the loss reaches; a model's ``frozen`` ones do
     not) and updates them in place through ``optimizer``; returns (state, mean loss as a device scalar: the mean
-    of the finite step losses, NaN when no step was finite)."""
+    of the finite step losses, NaN when no step was finite). With a
+    ``placement``, ``params`` are the rank's shards (see the module's
+    docstring)."""
     users, items, negs, weights, n_batches = batches
     tensors = [p for p in params.values() if p.requires_grad]
     losses = torch.empty(n_batches, dtype=torch.float32, device=graph.device)
+    group = None if placement is None else placement.loss_group
     for b in range(n_batches):
-        batch = PairwiseBatch(users[b], items[b], negs[b], weights[b])
-        loss, new_state = model.loss(params, state, batch, graph, generator)
+        batch = PairwiseBatch(users[b], items[b], negs[b], weights[b], group)
+        full = params if placement is None else placement.gather(params)
+        loss, new_state = model.loss(full, state, batch, graph, generator)
         grads = torch.autograd.grad(loss, tensors)
+        if placement is not None:
+            grads = placement.reduce_grads(grads)
         ok = torch.isfinite(loss)
         with torch.no_grad():
             for p, g in zip(tensors, grads):
                 p.grad = torch.where(ok, g, torch.zeros_like(g))
         optimizer.step()
-        state = model.post_step(params, _where_state(ok, new_state, state), batch)
+        state = model.post_step(_post_step_params(model, params, placement),
+                                _where_state(ok, new_state, state), batch)
         losses[b] = loss.detach()
     finite = torch.isfinite(losses)
     mean = torch.where(finite, losses, torch.zeros_like(losses)).sum() / torch.clamp(
@@ -149,10 +175,12 @@ def run_steps(model, optimizer: torch.optim.Optimizer, graph, params: Dict[str, 
 
 
 def train_epoch(model, optimizer, graph, params, state, generator: torch.Generator,
-                batch_size: int, n_redraws: int = 4):
+                batch_size: int, n_redraws: int = 4, placement=None):
     """One epoch: draw its words from ``generator``, build its arrays, run
     the steps (the loss draws any extra negatives from ``generator`` too).
     Returns (state, mean loss as a device scalar)."""
     batches = epoch_batches(epoch_words(generator, graph, batch_size, n_redraws), graph,
                             batch_size, n_redraws)
-    return run_steps(model, optimizer, graph, params, state, batches, generator)
+    if placement is not None:
+        batches = placement.slice_batches(batches)
+    return run_steps(model, optimizer, graph, params, state, batches, generator, placement)

@@ -20,6 +20,11 @@ It runs one epoch per loop turn: no fused or chunked epochs (TPU dispatch
 and watchdog workarounds in the JAX package). Each epoch draws a seed for
 ``epoch_begin`` from the trainer's generator, then its batches, in that
 order whatever ``eval.interval`` is.
+
+A sharded trainer (``parallel/trainer.py``) keeps this lifecycle and
+overrides its placement hooks: ``_place`` (the parameters this process
+holds), ``model_params`` (the dict the model reads), ``_placement`` (what
+the step loop gathers, reduces and slices) and the checkpoint hooks.
 """
 
 from __future__ import annotations
@@ -52,6 +57,8 @@ def _map_tensors(fn, tree: Any) -> Any:
 
 
 class GraphRecommender:
+    _placement = None  # the step loop's gather, reduce and slice (``train.loop``)
+
     def __init__(
         self,
         model: Model,
@@ -105,7 +112,7 @@ class GraphRecommender:
         seed = int(self.config.get("seed", 0))
         params, self.state = self.model.init(torch.Generator().manual_seed(seed), self.graph)
         self.params = {k: v.detach().requires_grad_(k not in self.model.frozen)
-                       for k, v in params.items()}
+                       for k, v in self._place(params).items()}
         self._bold = None
         if self.config.get("adaptive.lr", False):
             # legacy bold-driver schedule (`univariate/diffnet.py:756-763`)
@@ -118,14 +125,31 @@ class GraphRecommender:
         self._ckpt = None
         ckpt_dir = self.config.get("checkpoint.dir")
         if ckpt_dir:
-            from recommendation_tpu_torch.train.checkpoint import CheckpointManager
-
-            self._ckpt = CheckpointManager(ckpt_dir, keep=int(self.config.get("checkpoint.keep", 3)))
+            self._ckpt = self._checkpoint_manager(ckpt_dir,
+                                                  int(self.config.get("checkpoint.keep", 3)))
             if self.config.get("checkpoint.resume", True):
-                restored = self._ckpt.restore_latest()
+                restored = self._latest_checkpoint()
                 if restored is not None:
                     self._restore(restored)
                     self.log.add(f"resumed from checkpoint at epoch {restored['epoch']}")
+
+    # -- placement hooks (a sharded trainer overrides them) -------------------
+
+    def _place(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The parameters this trainer holds, from the model's full ones."""
+        return params
+
+    def model_params(self) -> Dict[str, torch.Tensor]:
+        """The parameter dict the model reads (evaluation, epoch hooks)."""
+        return self.params
+
+    def _checkpoint_manager(self, directory: str, keep: int):
+        from recommendation_tpu_torch.train.checkpoint import CheckpointManager
+
+        return CheckpointManager(directory, keep=keep)
+
+    def _latest_checkpoint(self) -> Optional[Dict[str, Any]]:
+        return self._ckpt.restore_latest()
 
     def _payload(self, epoch: int) -> Dict[str, Any]:
         return {
@@ -155,10 +179,12 @@ class GraphRecommender:
             t0 = time.perf_counter()
             begin_seed = int(torch.randint(0, 2**62, (1,), generator=self._gen))
             self.state = self.model.epoch_begin(
-                self.params, self.state, self.graph, torch.Generator().manual_seed(begin_seed), epoch
+                self.model_params(), self.state, self.graph,
+                torch.Generator().manual_seed(begin_seed), epoch
             )
             self.state, loss_t = train_epoch(self.model, self.optimizer, self.graph, self.params,
-                                             self.state, self._gen, self.batch_size)
+                                             self.state, self._gen, self.batch_size,
+                                             placement=self._placement)
             loss = float(loss_t)  # the epoch's one host read
             dt = time.perf_counter() - t0
             if math.isnan(loss):
@@ -195,7 +221,8 @@ class GraphRecommender:
             self.state = self.best_state
 
     def test(self) -> RankingResult:
-        user_emb, item_emb = self.model.eval_embeddings(self.params, self.state, self.graph)
+        user_emb, item_emb = self.model.eval_embeddings(self.model_params(), self.state,
+                                                        self.graph)
         return evaluate_ranking(
             user_emb, item_emb, self.data, self.graph, Ns=self.topN,
             batch_size=int(self.config.get("eval.batch.size", 1024)),
@@ -210,7 +237,8 @@ class GraphRecommender:
     def predict(self, user) -> np.ndarray:
         """Scores over all items for an external user id (`selfcf.py:581`)."""
         uid = self.data.get_user_id(user)
-        user_emb, item_emb = self.model.eval_embeddings(self.params, self.state, self.graph)
+        user_emb, item_emb = self.model.eval_embeddings(self.model_params(), self.state,
+                                                        self.graph)
         return (user_emb[uid] @ item_emb.T).cpu().numpy()
 
     def execute(self) -> Dict[str, float]:
@@ -235,7 +263,8 @@ class GraphRecommender:
         )
 
     def fast_evaluation(self, epoch: int) -> bool:
-        user_emb, item_emb = self.model.eval_embeddings(self.params, self.state, self.graph)
+        user_emb, item_emb = self.model.eval_embeddings(self.model_params(), self.state,
+                                                        self.graph)
         result = evaluate_ranking(
             user_emb, item_emb, self.data, self.graph, Ns=[self.max_N],
             batch_size=int(self.config.get("eval.batch.size", 1024)),

@@ -798,7 +798,11 @@ def test_calls_on_two_streams_equal_calls_in_turn(card, kernel):
     give one after the other on one stream, bit for bit, ten times over:
     the chain's tile counters, P1's, S1's and S2's piece counters and S2's
     piece statistics, K5's and K6's partials and the fused pull's zeroed
-    dot are not mixed between streams."""
+    dot are not mixed between streams. The chain's calls on the two streams
+    hold tile counter buffers of their own (``prop._COUNTS`` is keyed by
+    device and stream)."""
+    from recommendation_tpu_torch.ops import prop
+
     fns = _two_calls(card, kernel)
     want = [fn() for fn in fns]
     torch.cuda.synchronize()
@@ -811,6 +815,10 @@ def test_calls_on_two_streams_equal_calls_in_turn(card, kernel):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert all(torch.equal(a, b) for a, b in zip(g, w)), kernel
+    if kernel == "chain":
+        bufs = [prop._COUNTS[(torch.device(card), s.cuda_stream)] for s in streams]
+        assert bufs[0].data_ptr() != bufs[1].data_ptr()
+        assert all(int(b.abs().sum()) == 0 for b in bufs)  # every counter back at zero
 
 
 # -- the bucketed backend's kernels: K7 (row gather), P1 (bucket pull) --------
@@ -1622,3 +1630,54 @@ def test_rectangular_interaction_pull(card, social_set, backend):
         for a, b in ((got[0][0], yp.detach()), (got[0][1], dxp)):
             assert a.shape == b.shape and b.abs().max() > 0
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * b.abs().max().item())
+
+
+# -- the parallel layer on the card: two ranks over gloo on one device ----------
+
+
+def test_sharded_gloo_world_on_the_card_is_the_single_step(card, tmp_path):
+    """A (1, 2) world of two processes over gloo on the one card
+    (``parallel.distributed``'s ``fit`` job; NCCL refuses two ranks on a
+    device) trains one epoch of LightGCN on a bucketed graph: its tables,
+    Adam moments and loss equal the single-device trainer's on the card bit
+    for bit, and K7 and P1 launched in both ranks."""
+    import json
+    import pathlib
+
+    from recommendation_tpu_torch.parallel.distributed import (
+        WORKER,
+        merged_checkpoint,
+        spawn_world,
+    )
+    from recommendation_tpu_torch.train.recommender import GraphRecommender
+    from recommendation_tpu_torch.utils.logging import Log
+
+    pairs = make_flat_interactions(2000, 4000, 40_000, seed=1)
+    np.savez(tmp_path / "pairs.npz", pairs=pairs, n_users=2000, n_items=4000, test_fraction=0.1)
+    conf = {"embedding.size": 64, "batch.size": 2048, "max.epoch": 1, "eval.interval": 1,
+            "graph.backend": "bucketed", "item.ranking.topN": [20]}
+    data = ArrayInteraction(pairs, 2000, 4000, test_fraction=0.1)
+    config = default_config(**conf, **{"checkpoint.dir": str(tmp_path / "single")})
+    single = GraphRecommender(LightGCN(config), data, config,
+                              graph=DeviceGraph(data, backend="bucketed", device=card),
+                              log=Log(echo=False), device=card)
+    single.build()
+    single.train()
+    torch.cuda.synchronize()
+    argv = WORKER + ["--jobs", "fit", "--device", "cuda", "--backend", "gloo", "--data",
+                     str(tmp_path / "pairs.npz"), "--mesh", "1x2", "--out", str(tmp_path)]
+    for k, v in conf.items():
+        argv += ["--set", f"{k}={v}"]
+    root = pathlib.Path(__file__).resolve().parent.parent
+    spawn_world(argv, 2, 300, str(tmp_path / "logs"), env={"PYTHONPATH": str(root)})
+    want = merged_checkpoint(str(tmp_path / "single"), 0)
+    got = merged_checkpoint(str(tmp_path / "ckpt"), 0)
+    assert got["layout"] == {"data": 1, "model": 2, "rank": 0} and got["step"] == want["step"]
+    for part in ("params", "exp_avg", "exp_avg_sq"):
+        for k, v in want[part].items():
+            assert got[part][k].shape == v.shape and torch.equal(got[part][k], v), (part, k)
+    for r in range(2):
+        rank = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert [e["loss"] for e in rank["epochs"]] == [e["loss"] for e in single.epoch_stats]
+        assert rank["launches"]["gather_rows"] > 0 and rank["launches"]["gather_sum"] > 0
+        assert rank["shard_rows"] == {"user_emb": 1000, "item_emb": 2000}

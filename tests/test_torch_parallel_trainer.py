@@ -1,0 +1,390 @@
+"""The port's sharded trainer (``parallel/trainer.py``) in a gloo world of
+two CPU processes against its single-device trainer, at the JAX package's
+``tests/test_parallel_trainer.py`` configuration (3 epochs, B = 512,
+d = 16) on its ``tiny_data`` (made in the workers with the port's copy of
+``make_synthetic_dataset``).
+
+One world is spawned for the file (``world``, module scope): each rank runs
+this file as a script, builds a (1, 2) and a (2, 1) mesh over the same two
+processes, and computes every case; rank 0 writes them to an ``.npz``.
+The cases:
+  * on the segment, bucketed and dense backends, the single-device run and
+    the sharded runs' tables, epoch losses and Adam moments: (1, 2) bit for
+    bit (and BUIR's, with its replicated predictor and its EMA targets,
+    which ``post_step`` moves from the updated tables); (2, 1) within
+    DATA_TOL elementwise and DATA_REL_TOL of each part's largest
+    magnitude, the data group's sum in another order
+    (the JAX package holds its data axis to 5e-3, ``test_parallel_trainer.py:
+    61-62``);
+  * the tables and moments held as row shards at (1, 2), whole at (2, 1);
+    an odd row count replicated, not padded;
+  * the sharded ``test()`` at (1, 2) equal to the single evaluator's metrics;
+  * DirectAU at data 2 refused at build, naming its uniformity term;
+  * the per-rank checkpoints: the epoch-1 files hold the live shards and
+    moments; a run resumed from the epoch-0 files equals the straight run's
+    epoch 1 bit for bit; a (2, 1) run refuses the (1, 2) files;
+  * the service's mesh branch at (1, 2) against the single service.
+And ``python -m recommendation_tpu_torch.parallel.distributed --device cpu
+--backend gloo`` exits 0 (its workers against one process, train and
+serve).
+
+Workers run one thread each; the world has a hard timeout that kills its
+processes and fails the fixture.
+"""
+
+import json
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+CONF = {
+    "max.epoch": 3,
+    "batch.size": 512,
+    "embedding.size": 16,
+    "item.ranking.topN": [10],
+    "eval.interval": 3,
+}
+BACKENDS = ("segment", "bucketed", "dense")
+LAYOUTS = {"1x2": (1, 2), "2x1": (2, 1)}
+# (2, 1) against one device after 3 epochs: the data group sums each
+# gradient in another order, carried through Adam (f32; 6e-8 at most on
+# this set): the repo's f32 bound, where the JAX package holds its data
+# axis to 5e-3
+DATA_TOL = dict(rtol=1e-5, atol=1e-6)
+# and each part (tables, exp_avg, exp_avg_sq, losses) by its largest
+# difference over its largest magnitude, since exp_avg_sq sits far under
+# any absolute bound (2.1e-7 at most on this set, 1e-10 of scale)
+DATA_REL_TOL = 1e-5
+SERVE_TOL = 1e-5  # scores of a d = 16 dot product, f32
+WORLD_TIMEOUT_S = 240
+
+
+def _tiny_data():
+    from recommendation_tpu_torch.data.interaction import Interaction
+    from recommendation_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    train, test = make_synthetic_dataset(n_users=60, n_items=100, n_interactions=2500, seed=3)
+    return Interaction(train, test)
+
+
+# -- the worker: one rank of the world ------------------------------------------
+
+
+def _state(rec, name):
+    """A run's tables, epoch losses and Adam moments, full (the moments of a
+    shard gathered over the model group)."""
+    from recommendation_tpu_torch.parallel.collectives import all_gather_cat
+    from recommendation_tpu_torch.parallel.mesh import MODEL_AXIS, axis_group
+
+    out = {f"{name}/loss": np.asarray([e["loss"] for e in rec.epoch_stats])}
+    for k, v in rec.model_params().items():
+        out[f"{name}/{k}"] = v.detach().numpy()
+    sharded = getattr(rec, "sharded_params", set())
+    for k, p in rec.params.items():
+        st = rec.optimizer.state[p]
+        out[f"{name}/shard_rows/{k}"] = np.asarray([p.shape[0], st["exp_avg"].shape[0]])
+        for m in ("exp_avg", "exp_avg_sq"):
+            t = st[m]
+            if k in sharded:
+                t = all_gather_cat(t, axis_group(rec.mesh, MODEL_AXIS))
+            out[f"{name}/{m}/{k}"] = t.numpy()
+        out[f"{name}/step/{k}"] = np.asarray(float(st["step"]))
+    return out
+
+
+def _payload_equal(a, b):
+    """Two checkpoint payloads' shards and Adam moments bit for bit."""
+    same = all(torch.equal(a["params"][k], b["params"][k]) for k in a["params"])
+    for i, st in a["optimizer"]["state"].items():
+        other = b["optimizer"]["state"][i]
+        same &= all(torch.equal(st[m], other[m]) for m in ("exp_avg", "exp_avg_sq", "step"))
+    return same and a["epoch"] == b["epoch"] and a["layout"] == b["layout"]
+
+
+def _worker(out_dir):
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    from recommendation_tpu_torch.config import default_config
+    from recommendation_tpu_torch.data.interaction import Interaction
+    from recommendation_tpu_torch.data.synthetic import make_synthetic_dataset
+    from recommendation_tpu_torch.graph.device import DeviceGraph
+    from recommendation_tpu_torch.models import build
+    from recommendation_tpu_torch.parallel.distributed import initialize
+    from recommendation_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from recommendation_tpu_torch.parallel.trainer import ShardedGraphRecommender
+    from recommendation_tpu_torch.serve.service import RecommenderService
+    from recommendation_tpu_torch.train.checkpoint import CheckpointManager
+    from recommendation_tpu_torch.train.recommender import GraphRecommender
+    from recommendation_tpu_torch.utils.logging import Log
+
+    initialize("gloo", "cpu")
+    rank = dist.get_rank()
+    meshes = {name: make_mesh(MeshSpec(*shape), "cpu") for name, shape in LAYOUTS.items()}
+    data = _tiny_data()
+    out, info = {}, {}
+
+    def trainer(config, graph, layout=None, model="lightgcn", d=data):
+        if layout is None:
+            return GraphRecommender(build(model, config), d, config, graph=graph,
+                                    log=Log(echo=False), device="cpu")
+        return ShardedGraphRecommender(build(model, config), d, config, graph=graph,
+                                       mesh=meshes[layout], log=Log(echo=False), device="cpu")
+
+    graphs = {b: DeviceGraph(data, backend=b, device="cpu") for b in BACKENDS}
+    for backend in BACKENDS:
+        config = default_config(**{**CONF, "graph.backend": backend})
+        runs = {"single": trainer(config, graphs[backend])}
+        runs.update({lay: trainer(config, graphs[backend], lay) for lay in LAYOUTS})
+        for name, rec in runs.items():
+            rec.build()
+            rec.train()
+            out.update(_state(rec, f"{backend}/{name}"))
+        if backend == "segment":
+            info["metrics_single"] = runs["single"].test().metrics
+            info["metrics_sharded"] = runs["1x2"].test().metrics
+            info["sharded_1x2"] = sorted(runs["1x2"].sharded_params)
+            info["sharded_2x1"] = sorted(runs["2x1"].sharded_params)
+            # the service's mesh branch on the (1, 2) run's tables
+            u, i = runs["1x2"].model.eval_embeddings(runs["1x2"].model_params(), {},
+                                                     graphs[backend])
+            single = RecommenderService(u, i, data, graphs[backend])
+            sharded = RecommenderService(u, i, data, graphs[backend], mesh=meshes["1x2"])
+            rng = np.random.default_rng(11)
+            for w in range(3):
+                uids = rng.choice(data.user_num, 16, replace=False).tolist()
+                for exclude in (True, False):
+                    for tag, svc in (("single", single), ("mesh", sharded)):
+                        s, ids = svc.recommend_ids(uids, k=10, exclude_seen=exclude)
+                        out[f"serve/{w}/{exclude}/{tag}/scores"] = s
+                        out[f"serve/{w}/{exclude}/{tag}/ids"] = ids
+                        out[f"serve/{w}/{exclude}/users"] = np.asarray(uids)
+
+    # a model with replicated parameters (the predictor) and a post_step
+    # that reads the updated tables (BUIR's EMA targets), at (1, 2)
+    config = default_config(**{**CONF, "graph.backend": "segment"})
+    for name in ("single", "1x2"):
+        rec = trainer(config, graphs["segment"], None if name == "single" else name, "buir")
+        rec.build()
+        rec.train()
+        out.update(_state(rec, f"buir/{name}"))
+        for k, v in rec.state.items():
+            out[f"buir/{name}/state/{k}"] = v.numpy()
+
+    # an odd row count is replicated: 63 users (odd), 99 items (odd)
+    odd_train, odd_test = make_synthetic_dataset(n_users=63, n_items=99, n_interactions=2500,
+                                                 seed=3)
+    odd = Interaction(odd_train, odd_test)
+    rec = trainer(default_config(**CONF), DeviceGraph(odd, backend="segment", device="cpu"),
+                  "1x2", d=odd)
+    rec.build()
+    info["odd_rows"] = {k: list(v.shape) for k, v in rec.params.items()}
+    info["odd_sharded"] = sorted(rec.sharded_params)
+
+    # DirectAU at data 2: refused at build
+    try:
+        trainer(default_config(**CONF), graphs["segment"], "2x1", model="directau").build()
+        info["directau_2x1"] = None
+    except ValueError as err:
+        info["directau_2x1"] = str(err)
+
+    # per-rank checkpoints: a straight two-epoch run, a run resumed from its
+    # epoch-0 files, and a (2, 1) run on its files
+    straight_dir = os.path.join(out_dir, "ckpt_straight")
+    resumed_dir = os.path.join(out_dir, "ckpt_resumed")
+    ck = {**CONF, "max.epoch": 2, "eval.interval": 1, "checkpoint.keep": 3,
+          "graph.backend": "segment"}
+    straight = trainer(default_config(**ck, **{"checkpoint.dir": straight_dir}),
+                       graphs["segment"], "1x2")
+    straight.build()
+    straight.train()
+    mine = CheckpointManager(straight_dir, rank=rank)
+    saved = mine.restore(1)
+    info["ckpt_roundtrip"] = (
+        all(torch.equal(saved["params"][k], v.detach()) for k, v in straight.params.items())
+        and all(torch.equal(saved["optimizer"]["state"][i]["exp_avg"],
+                            straight.optimizer.state[p]["exp_avg"])
+                for i, p in enumerate(straight.params.values()))
+        and saved["layout"] == {"data": 1, "model": 2, "rank": rank})
+    os.makedirs(resumed_dir, exist_ok=True)
+    shutil.copy(mine._path(0), resumed_dir)
+    resumed = trainer(default_config(**ck, **{"checkpoint.dir": resumed_dir}),
+                      graphs["segment"], "1x2")
+    resumed.build()
+    info["resumed_start_epoch"] = resumed.start_epoch
+    resumed.train()
+    info["resume_equal"] = _payload_equal(
+        CheckpointManager(resumed_dir, rank=rank).restore(1), saved)
+    try:
+        trainer(default_config(**ck, **{"checkpoint.dir": straight_dir}), graphs["segment"],
+                "2x1").build()
+        info["layout_mismatch"] = None
+    except ValueError as err:
+        info["layout_mismatch"] = str(err)
+
+    flags = torch.tensor([int(info["ckpt_roundtrip"]), int(info["resume_equal"])])
+    dist.all_reduce(flags, op=dist.ReduceOp.MIN)  # every rank's checks
+    info["ckpt_roundtrip"], info["resume_equal"] = bool(flags[0]), bool(flags[1])
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "cases.npz"), **out)
+        with open(os.path.join(out_dir, "info.json"), "w") as f:
+            json.dump(info, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+# -- the tests ------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    from recommendation_tpu_torch.parallel.distributed import spawn_world
+
+    out = tmp_path_factory.mktemp("parallel_trainer")
+    spawn_world([sys.executable, __file__, str(out)], 2, WORLD_TIMEOUT_S, str(out / "logs"),
+                env={"PYTHONPATH": str(ROOT)})
+    cases = np.load(out / "cases.npz")
+    with open(out / "info.json") as f:
+        return {k: cases[k] for k in cases.files}, json.load(f)
+
+
+def _run(cases, backend, layout):
+    prefix = f"{backend}/{layout}/"
+    return {k[len(prefix):]: v for k, v in cases.items() if k.startswith(prefix)}
+
+
+def test_workers_train_on_tiny_data(tiny_data):
+    data = _tiny_data()
+    assert (data.user_num, data.item_num) == (tiny_data.user_num, tiny_data.item_num)
+    assert np.array_equal(data.edge_users, tiny_data.edge_users)
+    assert np.array_equal(data.edge_items, tiny_data.edge_items)
+
+
+@pytest.mark.parametrize("backend", BACKENDS + ("buir",))
+def test_model_axis_is_the_single_run_bit_for_bit(world, backend):
+    cases, _ = world
+    single, sharded = _run(cases, backend, "single"), _run(cases, backend, "1x2")
+    keys = [k for k in single if not k.startswith(("shard_rows/", "step/"))]
+    assert {"user_emb", "item_emb", "loss", "exp_avg/user_emb", "exp_avg_sq/item_emb"} <= set(keys)
+    if backend == "buir":  # the predictor replicated, the EMA targets in the state
+        assert {"predictor.w", "state/t_user_emb", "state/t_item_emb"} <= set(keys)
+    for k in keys:
+        assert np.array_equal(single[k], sharded[k]), (backend, k)
+    assert np.all(np.isfinite(single["loss"])) and len(single["loss"]) == CONF["max.epoch"]
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_data_axis_is_the_single_run_within_bound(world, backend):
+    cases, _ = world
+    single, sharded = _run(cases, backend, "single"), _run(cases, backend, "2x1")
+    parts = {}
+    for k in single:
+        if k.startswith("shard_rows/"):
+            continue
+        np.testing.assert_allclose(sharded[k], single[k], **DATA_TOL, err_msg=f"{backend} {k}")
+        part = k.split("/")[0] if "/" in k else "loss" if k == "loss" else "params"
+        diff, scale = parts.get(part, (0.0, 0.0))
+        parts[part] = (max(diff, float(np.abs(sharded[k] - single[k]).max())),
+                       max(scale, float(np.abs(single[k]).max())))
+    assert {"params", "exp_avg", "exp_avg_sq", "loss"} <= set(parts)
+    for part, (diff, scale) in parts.items():
+        assert scale > 0 and diff <= DATA_REL_TOL * scale, (backend, part, diff, scale)
+
+
+def test_tables_and_moments_are_shards(world):
+    cases, info = world
+    assert info["sharded_1x2"] == ["item_emb", "user_emb"]
+    assert info["sharded_2x1"] == ["item_emb", "user_emb"]  # one shard: the whole table
+    for layout, n_model in (("1x2", 2), ("2x1", 1)):
+        rows = _run(cases, "segment", layout)
+        assert list(rows["shard_rows/user_emb"]) == [60 // n_model] * 2
+        assert list(rows["shard_rows/item_emb"]) == [100 // n_model] * 2
+        assert rows["exp_avg/user_emb"].shape == (60, 16)  # gathered back whole
+
+
+def test_odd_row_count_is_replicated_not_padded(world):
+    _, info = world
+    assert info["odd_rows"] == {"user_emb": [63, 16], "item_emb": [99, 16]}
+    assert info["odd_sharded"] == []
+
+
+def test_sharded_evaluator_equals_single_evaluator(world):
+    _, info = world
+    assert info["metrics_sharded"] == info["metrics_single"]
+    assert set(info["metrics_single"]) >= {"Recall@10", "NDCG@10"}
+
+
+def test_directau_at_data_two_names_its_uniformity_term(world):
+    _, info = world
+    assert info["directau_2x1"] is not None
+    assert "directau" in info["directau_2x1"] and "uniformity" in info["directau_2x1"]
+
+
+def test_per_rank_checkpoint_round_trip_and_resume(world):
+    _, info = world
+    assert info["ckpt_roundtrip"]
+    assert info["resumed_start_epoch"] == 1
+    assert info["resume_equal"]
+
+
+def test_restore_refuses_another_layout(world):
+    _, info = world
+    assert info["layout_mismatch"] is not None and "layout" in info["layout_mismatch"]
+
+
+def test_mesh_service_agrees_with_single_service(world):
+    from recommendation_tpu_torch.ops.topk import topk_agree
+
+    cases, _ = world
+    n = 0
+    for w in range(3):
+        for exclude in (True, False):
+            key = f"serve/{w}/{exclude}"
+            a = cases[f"{key}/single/scores"], cases[f"{key}/single/ids"]
+            b = cases[f"{key}/mesh/scores"], cases[f"{key}/mesh/ids"]
+            assert a[1].shape == (16, 10) and np.all(b[1] < 100), key
+            assert topk_agree(*a, *b, SERVE_TOL), key
+            n += 1
+    assert n == 6
+
+
+def test_no_backend_or_device_fallback(monkeypatch):
+    """The caller's backend and device hold: nccl on the CPU, nccl with
+    fewer cards than local ranks and CUDA without a card raise; gloo puts
+    local ranks on the cards in turn (several may share one)."""
+    from recommendation_tpu_torch.parallel.distributed import initialize, rank_device
+
+    with pytest.raises(ValueError, match="nccl"):
+        rank_device("cpu", "nccl", 0, 1)
+    with pytest.raises(ValueError, match="backend"):
+        initialize("mpi", "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rank_device("cuda", "gloo", 0, 1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="a card for each local rank"):
+        rank_device("cuda", "nccl", 0, 2)
+    assert rank_device("cuda", "nccl", 0, 1) == torch.device("cuda", 0)
+    assert rank_device("cuda", "gloo", 1, 2) == torch.device("cuda", 0)
+
+
+def test_distributed_entry_point_runs_on_gloo(tmp_path):
+    """The module's dryrun: two ranks against one process, train and serve."""
+    r = subprocess.run([sys.executable, "-m", "recommendation_tpu_torch.parallel.distributed",
+                        "--device", "cpu", "--backend", "gloo", "--timeout", "200"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=WORLD_TIMEOUT_S,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert "dryrun_multihost ok" in r.stdout and "dryrun_serve_multihost ok" in r.stdout
+
+
+if __name__ == "__main__":
+    _worker(sys.argv[1])
