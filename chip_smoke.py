@@ -182,29 +182,42 @@ What it does, in order (any failed phase exits non-zero):
      as subprocesses of ``python -m recommendation_tpu_torch.parallel.
      distributed --worker --jobs fit`` on the card under a hard timeout (a
      failed or missing worker fails the run): two ranks over gloo train
-     (1, 2) for two epochs, two more (2, 1) for one, and one rank over
-     NCCL trains (1, 1) for one (NCCL refuses two ranks on one device, so
-     the two-rank layouts share the card over gloo). (1, 2) and (1, 1)
-     must equal the single run bit for bit (epoch 0's tables and Adam
-     moments from the per-rank checkpoints, the epoch loss), (2, 1)
-     within SHARDED_DATA_TOL of each part's largest magnitude. A world of
+     (1, 2) for two epochs, and one rank over NCCL trains (1, 1) for one
+     (NCCL refuses two ranks on one device, so the two-rank layouts share
+     the card over gloo); two ranks of this script (``python3
+     chip_smoke.py --sharded-data``) train (2, 1) for one, the same
+     ``fit``. (1, 2) and (1, 1) must equal the single run bit for bit
+     (epoch 0's tables and Adam moments from the per-rank checkpoints, the
+     epoch loss), (2, 1) within SHARDED_DATA_TOL of each part's largest
+     magnitude. The (2, 1) world then takes the data axis for every model:
+     NCL and GAT one epoch each at full width on the same graph (K5/K6,
+     S1/S2, K7 and P1 in both ranks) against this process's single runs:
+     the tables and Adam moments after SHARDED_SNAPSHOT_STEPS steps and
+     the epoch loss within SHARDED_DATA_TOL (NCL's tables within
+     SHARDED_EPOCH_TOL), both ranks' tables and NCL's
+     cluster state one digest each, the epoch's end reported; then one
+     step of each model of SHARDED_ZOO on the hard set (bucketed; the
+     social models on its trust graph) against this process's single
+     step: each rank's loss, the data group's summed gradient within
+     SHARDED_DATA_TOL, each rank's launches the single step's. A world of
      this script's own ranks (``python3 chip_smoke.py --sharded-checks``)
      restores the (1, 2) run from its per-rank checkpoints: its sharded
      ``test()`` equal to the single evaluator's metrics on its tables, its
      ``RecommenderService(..., mesh)`` over 20 waves of 16 users, with and
      without exclusions, in agreement with the single service's
-     (``topk_agree``), and its second epoch resumed from its epoch-0
-     per-rank checkpoint equal to the straight run's; each rank's K7 and
-     P1 launches held to ``expected_launches``. Each world's wall seconds
-     and each layout's seconds and host seconds a step go in the sharded
-     line, with the card's name and power limit: two ranks share one card,
-     so they are no scaling figure;
+     (``topk_agree``), its second epoch resumed from its epoch-0 per-rank
+     checkpoint equal to the straight run's, and NCL's E-step one digest on
+     both ranks; each rank's launches held to ``expected_launches``. Each
+     world's wall seconds and each layout's seconds and host seconds a step
+     go in the sharded line, with the card's name and power limit: two
+     ranks share one card, so they are no scaling figure;
  16. prints the serving line, the training line, the NCL line, the large
      line, the clustered line, the hard line, the hard_zoo line, the
      bucketed_zoo line, the neighbors line, the social line, the int8 line,
      the sharded line, the kernels line (every kernel must have launched on
-     a main path; K7's and P1's rows carry each sharded layout's launches
-     by rank as ``launches_sharded_<layout>``) and, last, the device line.
+     a main path; each f32 row carries each sharded run's launches by rank
+     as ``launches_sharded_<layout>[_<model>|_steps]``) and, last, the
+     device line.
 
 Launch counts are reset just before each main path and read just after it.
 Exits non-zero without printing a result where no CUDA device is present.
@@ -214,6 +227,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import hashlib
 import json
 import math
 import os
@@ -323,7 +337,12 @@ from recommendation_tpu_torch.ops.segment import (
     weighted_pull_plain,
 )
 from recommendation_tpu_torch.ops.topk import topk_agree
-from recommendation_tpu_torch.parallel.distributed import WORKER, merged_checkpoint, spawn_world
+from recommendation_tpu_torch.parallel.distributed import (
+    WORKER,
+    kernel_wrappers,
+    merged_checkpoint,
+    spawn_world,
+)
 from recommendation_tpu_torch.sampling import (
     PairwiseBatch,
     epoch_batches,
@@ -332,7 +351,7 @@ from recommendation_tpu_torch.sampling import (
 )
 from recommendation_tpu_torch.serve.http import serve_http
 from recommendation_tpu_torch.serve.service import RecommenderService
-from recommendation_tpu_torch.train.loop import run_steps
+from recommendation_tpu_torch.train.loop import run_steps, step_grads
 from recommendation_tpu_torch.train.recommender import GraphRecommender
 from recommendation_tpu_torch.utils.logging import Log
 from recommendation_tpu_torch.utils.profiling import Throughput, profile_trace
@@ -365,8 +384,10 @@ LAYER_CASES = ((3, 1), (3, 2), (3, 3), (1, 1))
 LSE_TOL = (1e-5, 1e-5)  # (rtol, atol) on lse
 LSE_GRAD_TOL = (1e-4, 1e-5)  # on dq, dx
 LSE_LARGE_N = 100_000  # the large graph's item catalog, which NCL there would take
-COUNTERS = (chain_mean, chain_mean_bwd, chain_mean_layer, chain_mean_layer_bwd, catalog_lse,
-            catalog_lse_bwd)
+# every kernel's wrapper, each counting its launches: K1-K4, K5/K6, K7, P1,
+# Q1, S1 (and with the head dot), S2 (on given logits and with GAT's fused in)
+ALL_COUNTERS = kernel_wrappers()
+COUNTERS = ALL_COUNTERS[:6]  # K1-K6
 # the large-graph phase: bench.py --large's shape (bench.py:245-271), 10% held out
 LARGE_SHAPE = dict(n_users=50_000, n_items=100_000, n_interactions=1_000_000, seed=3)
 LARGE_BATCH, LARGE_EPOCHS = 8192, 3
@@ -1002,7 +1023,7 @@ def ncl_term(term, model, p, state, batch, graph):
     if term == "ssl":
         _, _, initial, context = model._forward_ctx(p, graph)
         return model._ssl_layer_loss(context, initial, batch.users, batch.pos_items)
-    return model._proto_nce(state, initial, batch.users, batch.pos_items, batch.users.shape[0])
+    return model._proto_nce(state, initial, batch, batch.users.shape[0])
 
 
 def read_counts():
@@ -1891,11 +1912,6 @@ def sampler_seconds(graph, reps=3):
 
 # -- the sets a quality gate can fail: the clustered large set, the hard set ------
 
-SEGMENT_COUNTERS = (weighted_pull, weighted_pull_dot, segment_softmax_rows,
-                    segment_softmax_rows_bwd, attention_softmax, attention_softmax_bwd)
-ALL_COUNTERS = COUNTERS + (gather_rows, gather_sum, quantize_rows) + SEGMENT_COUNTERS
-
-
 def reset_counts():
     for f in ALL_COUNTERS:
         f.launches = 0
@@ -1962,13 +1978,16 @@ def expected_launches(model_name, graph, n_layers, steps, n_evals, e_steps=0, em
     forward chain quantizes layer 0's source (Q1) and its L pulls the rest
     in their epilogue; the backward quantizes nothing."""
     want = {f.__name__: 0 for f in ALL_COUNTERS}
+    if model_name == "ssl4rec":  # no graph in its loss: no kernel on any backend
+        return want
     if model_name in SOCIAL_MODELS:
         if graph.backend != "dense":  # on the dense backend: torch.matmul
             step, per_eval = social_launches(model_name, graph.backend, n_layers)
             for k in step:
                 want[k] = step[k] * steps + per_eval[k] * n_evals
         return want
-    if model_name in NEIGHBOR_MODELS or graph.backend == "segment":
+    if model_name in NEIGHBOR_MODELS or graph.backend == "segment" or (
+            model_name in ("grace", "gbt") and graph.backend == "bucketed"):
         step, per_eval = neighbor_launches(model_name, graph, n_layers)
         for k in set(step) | set(per_eval):
             want[k] = step.get(k, 0) * steps + per_eval.get(k, 0) * n_evals
@@ -3871,9 +3890,42 @@ SHARDED_WORLDS = (("1x2", "gloo", 2), ("2x1", "gloo", 1), ("1x1", "nccl", 1))
 # at 700 W this phase reads 6.2e-7 (tables), 2.4e-7 (exp_avg) and 1.6e-7
 # (exp_avg_sq); the JAX package holds its data axis to 5e-3
 # (tests/test_parallel_trainer.py:61-62)
-SHARDED_DATA_TOL = {"params": 1e-5, "exp_avg": 1e-5, "exp_avg_sq": 1e-5}
+SHARDED_DATA_TOL = {"params": 1e-5, "exp_avg": 1e-5, "exp_avg_sq": 1e-5, "grad": 1e-5,
+                    "loss": 1e-5}
 SHARDED_SERVE_WAVES = 20
-SHARDED_WORLD_TIMEOUT_S = 300
+SHARDED_WORLD_TIMEOUT_S = 420
+# the data axis for every model (the (2, 1) world's own checks): one step of
+# each registered model on the hard set (bucketed; the social models on its
+# trust graph) at LATE_EPOCH's state, each rank against the single step in
+# this process (its loss; the data group's summed gradient as one part,
+# "grad"), NCL's two contrastive terms weighted to matter beside BPR; NCL
+# and GAT one epoch at full width on the clustered set at the gates'
+# configuration (NCL's defaults) against the single run
+SHARDED_ZOO = ("lightgcn", "ncl", "directau", "selfcf", "buir", "ssl4rec", "gcl", "grace", "gbt",
+               "bgrl", "graphsage", "gat", "diffnet", "sept", "sept_basic", "mhcn", "esrf")
+SHARDED_EPOCH_MODELS = ("ncl", "gat")
+SHARDED_STEP_EXTRA = {"ncl": {"NCL.ssl_reg": 1e-3, "NCL.proto_reg": 1e-3}}
+SHARDED_STEP_SEED = 7
+# NCL's and GAT's (2, 1) epochs are held after their first
+# SHARDED_SNAPSHOT_STEPS steps (tables and Adam moments, copied as the next
+# batch is cut: ``StepSnapshot``) and by the epoch loss, to SHARDED_DATA_TOL
+# but where SHARDED_EPOCH_TOL says otherwise. Later in the epoch GAT's gap
+# grows past rounding without a fault (a LeakyReLU kink takes the other
+# slope on a last-bit difference), and the single run with each batch's
+# rows in another order moves as far; the epoch's end is reported
+# (``epoch_end_gap``). ``tools/probe_sharded_epochs.py`` reads the gap step
+# by step beside planted faults. On an NVIDIA H100 80GB HBM3 at 700 W, after
+# 8 steps: GAT 9.8e-8 (tables), 1.2e-6 (exp_avg), 4.3e-7 (exp_avg_sq), 1.8e-5
+# at 16 steps; NCL's moments 3.5e-6 and 2.1e-6
+SHARDED_SNAPSHOT_STEPS = 8
+# NCL's tables: its full-catalog denominators give every row a gradient near
+# Adam's eps (1e-8), where g / (sqrt(v) + eps) turns the gradient's rounding
+# into 1e-4 of the tables' largest magnitude from the first step on. Read
+# over steps 1 to 8 (same card): the (2, 1) run 7.9e-5 to 9.3e-5, the single
+# run with its rows reversed 1.2e-4 to 1.4e-4; the planted faults 1.4e-2 to
+# 0.18 (the summed gradient doubled) and 0.17 to 0.74 (each rank's batch
+# cut to half its rows), every moment of theirs 0.85 to 3.0 away
+SHARDED_EPOCH_TOL = {"ncl": {"params": 1e-3}}
 
 
 def table_gap(got, want):
@@ -3908,6 +3960,317 @@ def rank_reports(out, n_ranks, prefix=""):
     return reports
 
 
+def state_digest(state) -> str:
+    """A digest of a model state's tensors' bits (NCL's centroids and
+    assignments), in key order."""
+    h = hashlib.sha256()
+    for k in sorted(state):
+        if isinstance(state[k], torch.Tensor):
+            h.update(k.encode() + state[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def sharded_zoo_graphs(device):
+    """The hard set and the two bucketed graphs the data axis's one-step
+    checks run on (the trust graph for the social models), as every rank
+    builds them from the seed."""
+    train, test = make_hard_dataset()
+    data = Interaction(train, test)
+    return data, {"plain": DeviceGraph(data, backend="bucketed", device=device),
+                  "social": SocialDeviceGraph(data, synthesize_social(data), backend="bucketed",
+                                              device=device)}
+
+
+def sharded_zoo_config(name):
+    return default_config(**{"embedding.size": EMB, "batch.size": BATCH,
+                             "LightGCN.n_layers": LAYERS, "learning.rate": LR,
+                             "optimizer": "adam", **SHARDED_STEP_EXTRA.get(name, {})})
+
+
+def trainer_step(rec, epoch, seed):
+    """One step of a built trainer with nothing updated: ``epoch_begin``
+    of ``epoch`` (its draws from a generator seeded ``seed``), then the
+    loss on the first batch of an epoch drawn from a generator seeded
+    ``seed + 1``, which also feeds the loss's draws (``step_grads``). A
+    sharded trainer takes its rows of that batch (its placement's
+    ``batch``) and gives the data group's summed gradient. Returns (loss,
+    {name: gradient}, the state the loss read)."""
+    state = rec.model.epoch_begin(rec.model_params(), rec.state, rec.graph,
+                                  torch.Generator().manual_seed(seed), epoch)
+    gen = torch.Generator().manual_seed(seed + 1)
+    arrays = epoch_batches(epoch_words(gen, rec.graph, rec.batch_size), rec.graph,
+                           rec.batch_size)
+    whole = PairwiseBatch(*(a[0] for a in arrays[:4]))
+    place = rec._placement
+    batch = whole if place is None else place.batch(whole)
+    loss, grads, _ = step_grads(rec.model, rec.graph, rec.params, state, batch, gen, place)
+    names = [k for k, p in rec.params.items() if p.requires_grad]
+    return loss.detach(), dict(zip(names, grads)), state
+
+
+def zoo_step(rec):
+    """One step of a built recommender (``trainer_step`` at LATE_EPOCH:
+    ESRF adversarial, SEPT's SSL on, NCL after an E-step) with its
+    launches: (loss, {name: gradient on the host}, launches, the state's
+    digest)."""
+    reset_counts()
+    loss, grads, state = trainer_step(rec, LATE_EPOCH, SHARDED_STEP_SEED)
+    torch.cuda.synchronize()
+    return (float(loss), {k: g.detach().cpu() for k, g in grads.items()}, all_counts(),
+            state_digest(state))
+
+
+def zoo_step_launches(name, graph, model):
+    """What ``zoo_step`` launches: one step and, for NCL, its E-step."""
+    return expected_launches(name, graph, getattr(model, "n_layers", LAYERS), 1, 0,
+                             e_steps=int(name == "ncl"))
+
+
+def sharded_zoo_single():
+    """Every model's single step on the card in this process, its launches
+    held to ``zoo_step_launches``."""
+    data, graphs = sharded_zoo_graphs("cuda")
+    out = {}
+    for name in SHARDED_ZOO:
+        graph = graphs["social" if name in SOCIAL_MODELS else "plain"]
+        config = sharded_zoo_config(name)
+        rec = GraphRecommender(build(name, config), data, config, graph=graph,
+                               log=Log(echo=False), device="cuda")
+        rec.build()
+        out[name] = zoo_step(rec)
+        want = zoo_step_launches(name, graph, rec.model)
+        if out[name][2] != want:
+            raise RuntimeError(f"{name} single step launches {out[name][2]}, expected {want}")
+    del graphs
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_data_worker(run_dir, pairs_path, conf_json):
+    """One rank of the (2, 1) world over gloo on the card: LightGCN's ``fit``
+    in ``run_dir`` (what the (2, 1) world's ``--jobs fit`` ran before this
+    world took the data axis's checks too), then NCL's and GAT's epoch
+    (``snapshot_epoch``, on the same pairs at the same configuration; the
+    checkpoints in ``run_dir/<model>/ckpt``, rank 0's snapshot in
+    ``run_dir/<model>/snapshot.pt``), then one step of every model of
+    SHARDED_ZOO on the hard set (``zoo_step``). Each rank writes
+    ``data_rank<r>.json`` (each epoch's state and snapshot digests,
+    launches and stats; every step's loss, launches and state digest);
+    rank 0 writes the summed gradients to ``zoo_grads.npz``."""
+    import torch.distributed as dist
+
+    from recommendation_tpu_torch.parallel.distributed import fit, initialize
+    from recommendation_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from recommendation_tpu_torch.parallel.trainer import ShardedGraphRecommender
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = initialize("gloo", "cuda")
+    rank = dist.get_rank()
+    conf = json.loads(conf_json)
+    mesh = make_mesh(MeshSpec(2, 1), "cuda")
+    lightgcn = fit(pairs_path, mesh, default_config(**conf), run_dir, device)
+    report = {"epochs": {}, "steps": {}}
+    for name in SHARDED_EPOCH_MODELS:
+        out = os.path.join(run_dir, name)
+        rec, snap, launches = snapshot_epoch(name, lightgcn.data, lightgcn.graph,
+                                             {**conf, "checkpoint.dir": os.path.join(out, "ckpt")},
+                                             mesh)
+        report["epochs"][name] = {"state_digest": state_digest(rec.state),
+                                  "snapshot_digest": payload_digest(snap), "launches": launches,
+                                  "epoch": rec.epoch_stats[0]}
+        if rank == 0:
+            torch.save(snap, os.path.join(out, "snapshot.pt"))
+        del rec, snap
+        torch.cuda.empty_cache()
+    del lightgcn
+    data, graphs = sharded_zoo_graphs(device)
+    grads = {}
+    t0 = time.perf_counter()
+    for name in SHARDED_ZOO:
+        config = sharded_zoo_config(name)
+        rec = ShardedGraphRecommender(build(name, config), data, config,
+                                      graph=graphs["social" if name in SOCIAL_MODELS else "plain"],
+                                      mesh=mesh, log=Log(echo=False), device=device)
+        rec.build()
+        loss, g, launches, digest = zoo_step(rec)
+        report["steps"][name] = {"loss": loss, "launches": launches, "state_digest": digest}
+        grads.update({f"{name}/{k}": v.numpy() for k, v in g.items()})
+    report["zoo_s"] = time.perf_counter() - t0
+    if rank == 0:
+        np.savez(os.path.join(run_dir, "zoo_grads.npz"), **grads)
+    with open(os.path.join(run_dir, f"data_rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+class StepSnapshot:
+    """A built trainer's step-loop placement (``train.loop``; None for a
+    single trainer), wrapped to copy the trainer's tables and Adam moments
+    to the host after its first ``steps`` steps, as the next batch is cut
+    (``payloads[steps]``, in ``merged_checkpoint``'s form). Everything else
+    is the placement's: the step is unchanged."""
+
+    def __init__(self, rec, steps):
+        self.rec, self.steps, self.seen, self.payloads = rec, tuple(steps), 0, {}
+        self.inner = rec._placement
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def gather(self, params):
+        return params if self.inner is None else self.inner.gather(params)
+
+    def reduce_grads(self, grads):
+        return grads if self.inner is None else self.inner.reduce_grads(grads)
+
+    def batch(self, whole):
+        if self.seen in self.steps:
+            self.payloads[self.seen] = tables_and_moments(self.rec)
+        self.seen += 1
+        return whole if self.inner is None else self.inner.batch(whole)
+
+
+def tables_and_moments(rec):
+    """A trainer's whole tables and Adam moments on the host, as
+    ``merged_checkpoint`` gives them (one model rank: every shard whole)."""
+    out = {"params": {}, "exp_avg": {}, "exp_avg_sq": {}, "step": {}}
+    with torch.no_grad():
+        for k, p in rec.params.items():
+            st = rec.optimizer.state.get(p)
+            if not st:  # a frozen parameter
+                continue
+            out["params"][k] = p.detach().cpu().clone()
+            out["exp_avg"][k] = st["exp_avg"].cpu().clone()
+            out["exp_avg_sq"][k] = st["exp_avg_sq"].cpu().clone()
+            out["step"][k] = float(st["step"])
+    return out
+
+
+def payload_digest(payload) -> str:
+    """A digest of ``tables_and_moments``' bits, part by part in key order."""
+    h = hashlib.sha256()
+    for part in ("params", "exp_avg", "exp_avg_sq"):
+        for k in sorted(payload[part]):
+            h.update(f"{part}/{k}".encode() + payload[part][k].numpy().tobytes())
+    return h.hexdigest()
+
+
+def snapshot_epoch(name, data, graph, conf, mesh=None):
+    """One epoch of ``name`` at ``conf`` on the card, by a single trainer
+    or a sharded one over ``mesh``, with its tables and moments copied
+    after SHARDED_SNAPSHOT_STEPS steps (``StepSnapshot``). Returns (the
+    trained recommender, the copy, every kernel's launches over
+    ``train()``)."""
+    config = default_config(**{**conf, "max.epoch": 1})
+    if mesh is None:
+        rec = GraphRecommender(build(name, config), data, config, graph=graph,
+                               log=Log(echo=False), device="cuda")
+    else:
+        from recommendation_tpu_torch.parallel.trainer import ShardedGraphRecommender
+
+        rec = ShardedGraphRecommender(build(name, config), data, config, graph=graph, mesh=mesh,
+                                      log=Log(echo=False), device=graph.device)
+    rec.build()
+    snap = StepSnapshot(rec, (SHARDED_SNAPSHOT_STEPS,))
+    rec._placement = snap
+    reset_counts()
+    rec.train()
+    torch.cuda.synchronize()
+    rec._placement = snap.inner
+    return rec, snap.payloads[SHARDED_SNAPSHOT_STEPS], all_counts()
+
+
+def sharded_epoch_single(data, graph, conf, tmp):
+    """NCL's and GAT's single-rank epoch on the clustered graph at the
+    (2, 1) world's configuration (``snapshot_epoch``): {model: (the copy
+    after SHARDED_SNAPSHOT_STEPS steps, epoch 0's checkpoint merged, the
+    epoch loss, the state digest, the epoch's seconds, the run's seconds
+    with its build)}."""
+    out = {}
+    for name in SHARDED_EPOCH_MODELS:
+        ckpt = os.path.join(tmp, f"single_{name}")
+        t0 = time.perf_counter()
+        rec, snap, _ = snapshot_epoch(name, data, graph, {**conf, "checkpoint.dir": ckpt})
+        out[name] = (snap, merged_checkpoint(ckpt, 0), rec.epoch_stats[0]["loss"],
+                     state_digest(rec.state), rec.epoch_stats[0]["seconds"],
+                     time.perf_counter() - t0)
+        del rec
+        torch.cuda.empty_cache()
+    return out
+
+
+def grad_gap(got, want):
+    """The largest difference of two gradient dicts over the largest
+    magnitude of ``want``, over all of a model's parameters (one part)."""
+    diff = max(float(np.abs(got[k] - w.numpy()).max()) for k, w in want.items())
+    return diff / max(float(w.abs().max()) for w in want.values())
+
+
+def sharded_data_checks(out, graph, n_batches, zoo_single, epoch_single):
+    """The (2, 1) world's data-axis checks against the single runs: NCL's
+    and GAT's epoch (the tables and moments after SHARDED_SNAPSHOT_STEPS
+    steps and the epoch loss within SHARDED_DATA_TOL, or SHARDED_EPOCH_TOL
+    where it names the part, the ranks' launches
+    held to ``expected_launches``, the ranks' tables and NCL's cluster
+    state bit for bit alike; the gap at the epoch's end reported), then
+    every model's step (each rank's
+    loss; the summed gradient within SHARDED_DATA_TOL["grad"]; each rank's
+    launches as the single step's)."""
+    reports = rank_reports(out, 2, "data_")
+    epochs = {}
+    for name in SHARDED_EPOCH_MODELS:
+        single_snap, single, single_loss, single_digest, single_s, _ = epoch_single[name]
+        bounds = {**SHARDED_DATA_TOL, **SHARDED_EPOCH_TOL.get(name, {})}
+        ranks = [r["epochs"][name] for r in reports]
+        want = expected_launches(name, graph, LAYERS, n_batches, 1, e_steps=int(name == "ncl"))
+        launches = [r["launches"] for r in ranks]
+        if any(got[k] != want[k] for got in launches for k in got):
+            raise RuntimeError(f"sharded 2x1 {name}: launches {launches}, expected {want}")
+        losses = [r["epoch"]["loss"] for r in ranks]
+        same, gaps = table_gap(torch.load(os.path.join(out, name, "snapshot.pt")), single_snap)
+        gaps["loss"] = abs(losses[0] - single_loss) / abs(single_loss)
+        digests = [r["state_digest"] for r in ranks]
+        snap_digests = [r["snapshot_digest"] for r in ranks]
+        if (any(x != losses[0] for x in losses) or len(set(digests)) != 1
+                or len(set(snap_digests)) != 1
+                or any(gaps[p] > bounds[p] for p in gaps)):
+            raise RuntimeError(f"sharded 2x1 {name}: relative gaps after "
+                               f"{SHARDED_SNAPSHOT_STEPS} steps and of the epoch loss {gaps} "
+                               f"(bounds {bounds}), losses {losses} against "
+                               f"{single_loss}, state digests {digests}, snapshot digests "
+                               f"{snap_digests}")
+        end_same, end_gaps = table_gap(merged_checkpoint(os.path.join(out, name, "ckpt"), 0),
+                                       single)
+        epochs[name] = {"snapshot_steps": SHARDED_SNAPSHOT_STEPS, "relative_gap": gaps,
+                        "bounds": {p: bounds[p] for p in gaps},
+                        "bit_for_bit": bool(same), "epoch_end_gap": end_gaps,
+                        "epoch_end_bit_for_bit": bool(end_same), "epoch_loss": losses[0],
+                        "host_s_per_step": max(r["epoch"]["seconds"] for r in ranks) / n_batches,
+                        "single_host_s_per_step": single_s / n_batches,
+                        "state_equal_on_ranks": True, "tables_equal_on_ranks": True,
+                        "state_equal_single": digests[0] == single_digest,
+                        "launches_by_rank": launches}
+    grads = np.load(os.path.join(out, "zoo_grads.npz"))
+    steps = {}
+    for name in SHARDED_ZOO:
+        loss, want, launches, digest = zoo_single[name]
+        got = {k: grads[f"{name}/{k}"] for k in want}
+        ranks = [r["steps"][name] for r in reports]
+        gaps = {"grad": grad_gap(got, want),
+                "loss": max(abs(r["loss"] - loss) for r in ranks) / max(abs(loss), 1e-30)}
+        if (any(gaps[p] > SHARDED_DATA_TOL[p] for p in gaps)
+                or any(r["launches"] != launches for r in ranks)
+                or len({r["state_digest"] for r in ranks}) != 1):
+            raise RuntimeError(f"sharded 2x1 {name} step: relative gaps {gaps} (bounds "
+                               f"{SHARDED_DATA_TOL}), launches {[r['launches'] for r in ranks]} "
+                               f"against {launches}, state digests "
+                               f"{[r['state_digest'] for r in ranks]}")
+        steps[name] = {**gaps, "state_equal_single": ranks[0]["state_digest"] == digest,
+                       "launches_by_rank": [r["launches"] for r in ranks]}
+    return {"epochs": epochs, "steps": steps, "zoo_s": max(r["zoo_s"] for r in reports)}
+
+
 def sharded_phase(data, graph, card):
     """The sharded trainer, evaluator, service and checkpoints
     (``parallel/``) on the clustered bucketed graph at full width (f32,
@@ -3925,9 +4288,13 @@ def sharded_phase(data, graph, card):
     its mesh service (SHARDED_SERVE_WAVES waves of 16 users, with and
     without exclusions) the single service's (``topk_agree``), and its
     second epoch, resumed from its epoch-0 per-rank checkpoint, the
-    straight run's bit for bit. Each rank's K7 and P1 launches are held to
-    ``expected_launches``. Two ranks share one card over gloo: the seconds
-    are no scaling figure."""
+    straight run's bit for bit, and NCL's E-step the same on both ranks.
+    The (2, 1) world is this script's own ranks (``sharded_data_worker``):
+    after LightGCN's ``fit`` it takes the data axis's checks
+    (``sharded_data_checks``) against the single runs made here first
+    (``sharded_zoo_single``, ``sharded_epoch_single``). Each rank's
+    launches are held to ``expected_launches``. Two ranks share one card
+    over gloo: the seconds are no scaling figure."""
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="sharded_")
     try:
@@ -3955,15 +4322,27 @@ def sharded_phase(data, graph, card):
         single_loss = rec.epoch_stats[0]["loss"]
         del rec
         torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        zoo_single = sharded_zoo_single()
+        epoch_single = sharded_epoch_single(data, graph, conf, tmp)
+        for name, single_run in epoch_single.items():
+            runs[f"single_{name}"] = {"epoch_loss": single_run[2],
+                                      "host_s_per_step": single_run[4] / n_batches,
+                                      "train_s": single_run[5]}
+        runs["single_zoo_steps_s"] = time.perf_counter() - t1
         worlds = []
         for layout, backend, epochs in SHARDED_WORLDS:
             out = os.path.join(tmp, layout)
             n_ranks = int(layout.split("x")[0]) * int(layout.split("x")[1])
-            argv = WORKER + ["--jobs", "fit", "--device", "cuda", "--backend", backend,
-                             "--data", pairs_path, "--mesh", layout, "--out", out,
-                             "--set", f"max.epoch={epochs}"]
-            for k, v in conf.items():
-                argv += ["--set", f"{k}={v}"]
+            if layout == "2x1":  # LightGCN's fit, then the data axis's checks
+                argv = [sys.executable, os.path.abspath(__file__), "--sharded-data", out,
+                        pairs_path, json.dumps({**conf, "max.epoch": epochs})]
+            else:
+                argv = WORKER + ["--jobs", "fit", "--device", "cuda", "--backend", backend,
+                                 "--data", pairs_path, "--mesh", layout, "--out", out,
+                                 "--set", f"max.epoch={epochs}"]
+                for k, v in conf.items():
+                    argv += ["--set", f"{k}={v}"]
             wall = sharded_world(argv, n_ranks, out)
             worlds.append({"job": "fit", "layout": layout, "backend": backend,
                            "ranks": n_ranks, "wall_s": wall})
@@ -3977,6 +4356,9 @@ def sharded_phase(data, graph, card):
                 checks = rank_reports(out, n_ranks, "checks_")
             runs[layout] = sharded_checks(layout, backend, epochs, rank_reports(out, n_ranks),
                                           out, graph, n_batches, single, single_loss, checks)
+            if layout == "2x1":
+                runs[layout]["data_axis"] = sharded_data_checks(out, graph, n_batches,
+                                                                zoo_single, epoch_single)
             print(f"sharded {layout} ({backend}): train {runs[layout]['train_s']:.1f} s, "
                   f"host s a step by epoch {runs[layout]['host_s_per_step']}, relative gaps "
                   f"{runs[layout]['relative_gap']}")
@@ -4045,6 +4427,12 @@ def sharded_checks_worker(run_dir, pairs_path, conf_json):
     report["resumed_from"] = resumed.start_epoch - 1
     resumed.train()
     report["resumed_epochs"] = resumed.epoch_stats
+    # NCL's E-step at (1, 2): every rank clusters the gathered tables
+    cfg = default_config(**conf)
+    ncl = ShardedGraphRecommender(build("ncl", cfg), data, cfg, graph=graph, mesh=mesh,
+                                  log=Log(echo=False), device=device)
+    ncl.build()
+    report["ncl_state_digest"] = state_digest(trainer_step(ncl, 0, SHARDED_STEP_SEED)[2])
     with open(os.path.join(run_dir, f"checks_rank{rank}.json"), "w") as f:
         json.dump(report, f)
     dist.barrier()
@@ -4084,6 +4472,9 @@ def sharded_checks(layout, backend, epochs, ranks, out, graph, n_batches, single
     if checks is None:
         return run
     metrics = checks[0]["metrics"]
+    if len({c["ncl_state_digest"] for c in checks}) != 1:
+        raise RuntimeError(f"sharded {layout}: NCL's cluster state differs between the ranks: "
+                           f"{[c['ncl_state_digest'] for c in checks]}")
     if any(c["metrics"] != metrics or c["single_metrics"] != metrics for c in checks) or any(
             c["restored_start_epoch"] != epochs for c in checks):
         raise RuntimeError(f"sharded test() {[c['metrics'] for c in checks]} against the single "
@@ -4104,21 +4495,38 @@ def sharded_checks(layout, backend, epochs, ranks, out, graph, n_batches, single
     if not same or any(c["resumed_from"] != 0 for c in checks) or any(
             [e["loss"] for e in c["resumed_epochs"]] != losses[0][1:] for c in checks):
         raise RuntimeError(f"the resumed epochs differ from the straight run's by {gaps}")
-    run.update({"metrics": metrics, "metrics_equal_single_evaluator": True,
+    run.update({"ncl_state_equal_on_ranks": True,
+                "metrics": metrics, "metrics_equal_single_evaluator": True,
                 "served_waves": int(len(served["users"])), "served_equal_single": True,
                 "serve_score_tol": tol, "resumed_equal_straight": True})
     return run
 
 
-def add_sharded_launches(k7_row, p1_row, sharded):
-    """Each layout's ranks' K7 and P1 launches into their kernels rows."""
+def add_sharded_launches(kernel_rows, sharded):
+    """Each layout's ranks' launches into the kernels rows (a fused row's
+    into the kernel it runs in, ``launches_of``): LightGCN's K7 and P1 in
+    every layout; at (2, 1) also NCL's and GAT's epochs and every model's
+    step (``data_axis``). The bf16 rows take none (every sharded run is
+    f32)."""
+    rows = [r for r in kernel_rows if r.get("dtype", "float32") == "float32"]
     for layout, run in sharded["runs"].items():
-        if layout == "single":
+        if not isinstance(run, dict) or "launches_by_rank" not in run:
             continue
-        for row, name in ((k7_row, "gather_rows"), (p1_row, "gather_sum")):
-            counts = [r[name] for r in run["launches_by_rank"]]
-            row[f"launches_sharded_{layout}"] = counts
-            row["launches"] += sum(counts)
+        parts = {"": run["launches_by_rank"]}
+        for name, sub in run.get("data_axis", {}).get("epochs", {}).items():
+            parts[f"_{name}"] = sub["launches_by_rank"]
+        steps = run.get("data_axis", {}).get("steps", {})
+        if steps:
+            parts["_steps"] = [{k: sum(s["launches_by_rank"][r][k] for s in steps.values())
+                                for k in steps[next(iter(steps))]["launches_by_rank"][r]}
+                               for r in range(2)]
+        for row in rows:
+            name = row.get("launches_of", row["name"])
+            for label, by_rank in parts.items():
+                counts = [ranks.get(name, 0) for ranks in by_rank]
+                if any(counts):
+                    row[f"launches_sharded_{layout}{label}"] = counts
+                    row["launches"] += sum(counts)
 
 
 def main() -> int:
@@ -4235,7 +4643,6 @@ def main() -> int:
     add_neighbor_launches(k7_row, p1_row, hard_nb, clustered_nb)
     social = social_phase(card)
     add_social_launches(k7_row, p1_row, social)
-    add_sharded_launches(k7_row, p1_row, sharded)
     dense_lightgcn = hard_nb["lightgcn_backends"]["runs"][0]["launches"]
     for row in (rows[torch.float32], bwd_rows[torch.float32]):
         row["launches"] += dense_lightgcn[row["name"]]
@@ -4244,6 +4651,7 @@ def main() -> int:
     kernel_rows = (list(rows.values()) + list(bwd_rows.values()) + list(layer_rows.values())
                    + list(layer_bwd_rows.values()) + lse_rows + [k7_row, p1_row] + seg_rows
                    + [q1_row, p1_int8_row, fused_row])
+    add_sharded_launches(kernel_rows, sharded)
     idle = [r["name"] for r in kernel_rows if r["launches"] <= 0]
     if idle:
         raise RuntimeError(f"kernels never launched on the main paths: {idle}")
@@ -4273,5 +4681,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-checks"]:  # one rank of the sharded phase's checks
         sharded_checks_worker(*sys.argv[2:5])
+        raise SystemExit(0)
+    if sys.argv[1:2] == ["--sharded-data"]:  # one rank of the (2, 1) world
+        sharded_data_worker(*sys.argv[2:5])
         raise SystemExit(0)
     raise SystemExit(main())

@@ -15,23 +15,32 @@ JAX package's ``lax.scan`` of [N, 1024] blocks (``ops/pallas_losses.py``,
 not a kernel) as a loop of plain torch products, which ``uniformity_loss``
 takes from 4096 rows on so that the [N, N] distances never exist at once.
 
-LightGCN's losses (BPR, BCE, pointwise BCE and the L2 term) take a
-``group``: the data group of a sharded trainer (``parallel/trainer.py``),
-over whose ranks the batch's rows are split (the batch carries it,
-``PairwiseBatch.group``). Then each gives the global batch's value on
-every rank: a mean is the group's sum (``ops/group.py``'s ``reduce_sum``,
-an all-reduce whose backward is the identity) over the global row count, and
-a Frobenius norm the root of the group's sum of squares, so each rank's
-backward is its own rows' share of the global gradient. With no group
-(``None``) the code is the single-device one.
+The losses over a batch take a ``group``: the data group of a sharded
+trainer (``parallel/trainer.py``), over whose ranks the batch's rows are
+split (the batch carries it, ``PairwiseBatch.group``). Then each gives
+the global batch's value on every rank, and each rank's backward is its
+own rows' share of the global gradient:
+  * a mean or a sum over rows (BPR, BCE, alignment, the bootstraps) is
+    the group's sum (``ops/group.py``'s ``reduce_sum``, an all-reduce
+    whose backward is the identity), a mean over the global row count;
+  * a Frobenius norm is the root of the group's sum of squares;
+  * a term whose partners run over the whole batch (``info_nce``,
+    ``batch_softmax_loss``, ``uniformity_loss``) takes the rank's rows as
+    its queries and the global batch's rows as its keys, which the caller
+    reads from its whole tables by the global batch's ids
+    (``ops.group.global_batch``); the rank's queries are the rows
+    ``[offset, offset + n)`` of the global batch.
+With no group (``None``) the group's sum is the rank's own value, the
+offset 0 and the queries every row: the single-device operations.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from recommendation_tpu_torch.graph import augment
-from recommendation_tpu_torch.ops.group import group_rows, reduce_sum
+from recommendation_tpu_torch.ops.group import group_rows, rank_offset, reduce_sum
 
 
 def batch_mean(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -40,6 +49,12 @@ def batch_mean(x: torch.Tensor, group=None) -> torch.Tensor:
     if group is None:
         return torch.mean(x)
     return reduce_sum(torch.sum(x), group) / group_rows(x.numel(), group)
+
+
+def batch_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``x`` over the global batch: ``torch.sum`` with no group,
+    else the group's sum of the rank's sums."""
+    return reduce_sum(torch.sum(x), group)
 
 
 def _l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -80,8 +95,6 @@ def pointwise_bce_loss(scores: torch.Tensor, labels: torch.Tensor,
     per_row = _bce_rows(scores, labels)
     if weight is None:
         return batch_mean(per_row, group)
-    if group is None:
-        return torch.sum(per_row * weight) / torch.clamp(torch.sum(weight), min=1.0)
     return reduce_sum(torch.sum(per_row * weight), group) / torch.clamp(
         reduce_sum(torch.sum(weight), group), min=1.0)
 
@@ -89,9 +102,7 @@ def pointwise_bce_loss(scores: torch.Tensor, labels: torch.Tensor,
 def safe_frobenius_norm(x: torch.Tensor, group=None) -> torch.Tensor:
     """||x||_F with gradient 0 at x = 0 (torch.norm's subgradient there);
     with a ``group``, of the rows of every rank's ``x``."""
-    sq = torch.sum(x * x)
-    if group is not None:
-        sq = reduce_sum(sq, group)
+    sq = reduce_sum(torch.sum(x * x), group)
     return torch.where(sq > 0, torch.sqrt(torch.where(sq > 0, sq, torch.ones_like(sq))),
                        torch.zeros_like(sq))
 
@@ -104,13 +115,17 @@ def l2_reg_loss(reg: float, *embs: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def info_nce(view1: torch.Tensor, view2: torch.Tensor, temperature: float,
-             b_cos: bool = True) -> torch.Tensor:
+             b_cos: bool = True, group=None) -> torch.Tensor:
     """Symmetric-view InfoNCE: -mean diag(log_softmax(v1·v2ᵀ/τ))
-    (`ncl.py:125-130`, `ssl4rec.py:19-23`)."""
+    (`ncl.py:125-130`, `ssl4rec.py:19-23`). With a ``group``, ``view1``
+    holds the rank's rows and ``view2`` the global batch's: each of the
+    rank's rows against every key, its positive the key of its own global
+    row."""
     if b_cos:
         view1, view2 = _l2_normalize(view1), _l2_normalize(view2)
     scores = view1 @ view2.T / temperature
-    return -torch.mean(torch.diagonal(torch.log_softmax(scores, dim=1)))
+    lo = rank_offset(view1.shape[0], group)
+    return -batch_mean(torch.diagonal(torch.log_softmax(scores, dim=1), offset=lo), group)
 
 
 def masked_info_nce(anchor: torch.Tensor, sample: torch.Tensor, pos_mask: torch.Tensor,
@@ -128,62 +143,85 @@ def masked_info_nce(anchor: torch.Tensor, sample: torch.Tensor, pos_mask: torch.
 
 
 def batch_softmax_loss(user_emb: torch.Tensor, item_emb: torch.Tensor,
-                       temperature: float) -> torch.Tensor:
+                       temperature: float, group=None) -> torch.Tensor:
     """In-batch sampled-softmax retrieval loss (`ssl4rec.py:25-30`), with the
-    reference's +1e-6 inside the log."""
+    reference's +1e-6 inside the log. With a ``group``, ``user_emb`` holds
+    the rank's rows and ``item_emb`` the global batch's."""
     user_emb, item_emb = _l2_normalize(user_emb), _l2_normalize(item_emb)
-    pos_score = torch.exp(torch.sum(user_emb * item_emb, dim=-1) / temperature)
+    lo = rank_offset(user_emb.shape[0], group)
+    pos_items = item_emb[lo:lo + user_emb.shape[0]]
+    pos_score = torch.exp(torch.sum(user_emb * pos_items, dim=-1) / temperature)
     ttl_score = torch.sum(torch.exp(user_emb @ item_emb.T / temperature), dim=1)
-    return torch.mean(-torch.log(pos_score / ttl_score + 1e-6))
+    return batch_mean(-torch.log(pos_score / ttl_score + 1e-6), group)
 
 
 # -- DirectAU -----------------------------------------------------------------
 
 
-def alignment_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """mean ||x̂ - ŷ||²  (`directau.py:245-246`)."""
-    return torch.mean(torch.sum((_l2_normalize(x) - _l2_normalize(y)) ** 2, dim=1))
+def alignment_loss(x: torch.Tensor, y: torch.Tensor, group=None) -> torch.Tensor:
+    """mean ||x̂ - ŷ||²  (`directau.py:245-246`), over the global batch's
+    rows with a ``group``."""
+    return batch_mean(torch.sum((_l2_normalize(x) - _l2_normalize(y)) ** 2, dim=1), group)
 
 
 UNIFORMITY_STREAMING_ROWS = 4096  # from here on uniformity_loss streams
 
 
-def uniformity_loss(x: torch.Tensor, t: float = 2.0) -> torch.Tensor:
+def _group_queries(n: int, group) -> tuple[int, int]:
+    """(first row, row count) of a rank's queries among the global batch's
+    ``n`` rows: all of them with no group."""
+    if group is None:
+        return 0, n
+    m = n // dist.get_world_size(group)
+    return rank_offset(m, group), m
+
+
+def uniformity_loss(x: torch.Tensor, t: float = 2.0, group=None) -> torch.Tensor:
     """log(mean exp(-t·||x̂_a - x̂_b||²) + 1e-8) over all unordered pairs
     (`directau.py:248-251`, torch.pdist semantics: a < b, no self-pairs).
     From ``UNIFORMITY_STREAMING_ROWS`` rows on it takes
-    ``uniformity_streaming``."""
+    ``uniformity_streaming``. With a ``group``, ``x`` holds the global
+    batch's rows and the rank sums the pairs (a, b) whose ``a`` is one of
+    its rows, a < b by global index; the group's sum of those sums goes
+    into the log."""
     if x.shape[0] >= UNIFORMITY_STREAMING_ROWS:
-        return uniformity_streaming(x, t=t)
+        return uniformity_streaming(x, t=t, group=group)
     x = _l2_normalize(x)
     n = x.shape[0]
     sq = torch.sum(x * x, dim=1)
-    d2 = torch.clamp(sq[:, None] + sq[None, :] - 2.0 * (x @ x.T), min=0.0)
-    mask = torch.triu(torch.ones((n, n), dtype=torch.bool, device=x.device), diagonal=1)
     n_pairs = n * (n - 1) // 2
-    mean_exp = torch.sum(torch.where(mask, torch.exp(-t * d2), torch.zeros_like(d2)))
-    return torch.log(mean_exp / max(n_pairs, 1) + 1e-8)
+    lo, m = _group_queries(n, group)
+    q = x[lo:lo + m]
+    d2 = torch.clamp(sq[lo:lo + m, None] + sq[None, :] - 2.0 * (q @ x.T), min=0.0)
+    mask = (lo + torch.arange(m, device=x.device))[:, None] < torch.arange(n, device=x.device)
+    mine = torch.sum(torch.where(mask, torch.exp(-t * d2), torch.zeros_like(d2)))
+    return torch.log(reduce_sum(mine, group) / max(n_pairs, 1) + 1e-8)
 
 
-def uniformity_streaming(x: torch.Tensor, t: float = 2.0, block_n: int = 1024) -> torch.Tensor:
+def uniformity_streaming(x: torch.Tensor, t: float = 2.0, block_n: int = 1024,
+                         group=None) -> torch.Tensor:
     """``uniformity_loss`` block by block: the distances of every row to
     ``block_n`` rows at a time, their upper-triangle terms summed in block
     order, so only [N, block_n] exists at once. The JAX package's
     ``uniformity_streaming``, normalization included (a plain division by
-    max(norm, 1e-12), not ``_l2_normalize``'s)."""
+    max(norm, 1e-12), not ``_l2_normalize``'s). With a ``group``, ``x``
+    holds the global batch's rows, the rank's rows are the queries (as in
+    ``uniformity_loss``), and the group's sum goes into the log."""
     xn = x / torch.clamp(torch.linalg.norm(x, dim=1, keepdim=True), min=1e-12)
     n = x.shape[0]
     sq = torch.sum(xn * xn, dim=1)
-    rows = torch.arange(n, device=x.device)[:, None]
+    lo, m = _group_queries(n, group)
+    q, sqq = xn[lo:lo + m], sq[lo:lo + m]
+    rows = lo + torch.arange(m, device=x.device)[:, None]
     total = xn.new_zeros(())
     for start in range(0, n, block_n):
         xb, sqb = xn[start:start + block_n], sq[start:start + block_n]
-        d2 = torch.clamp(sq[:, None] + sqb[None, :] - 2.0 * (xn @ xb.T), min=0.0)
+        d2 = torch.clamp(sqq[:, None] + sqb[None, :] - 2.0 * (q @ xb.T), min=0.0)
         cols = start + torch.arange(xb.shape[0], device=x.device)[None, :]
         total = total + torch.sum(torch.where(rows < cols, torch.exp(-t * d2),
                                               torch.zeros_like(d2)))
     n_pairs = n * (n - 1) // 2
-    return torch.log(total / max(n_pairs, 1) + 1e-8)
+    return torch.log(reduce_sum(total, group) / max(n_pairs, 1) + 1e-8)
 
 
 def direct_au_loss(user_emb: torch.Tensor, item_emb: torch.Tensor, gamma: float) -> torch.Tensor:
@@ -196,26 +234,26 @@ def direct_au_loss(user_emb: torch.Tensor, item_emb: torch.Tensor, gamma: float)
 # -- bootstrap (negative-free) ------------------------------------------------
 
 
-def cosine_bootstrap_loss(p: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+def cosine_bootstrap_loss(p: torch.Tensor, z: torch.Tensor, group=None) -> torch.Tensor:
     """1 - mean cos(p, z), no gradient to ``z``  (`selfcf.py:518-519`)."""
     z = z.detach()
-    return 1.0 - torch.mean(torch.sum(_l2_normalize(p) * _l2_normalize(z), dim=-1))
+    return 1.0 - batch_mean(torch.sum(_l2_normalize(p) * _l2_normalize(z), dim=-1), group)
 
 
-def selfcf_loss(u_online, u_target, i_online, i_target) -> torch.Tensor:
+def selfcf_loss(u_online, u_target, i_online, i_target, group=None) -> torch.Tensor:
     """The cosine bootstrap both ways, halved (`selfcf.py:520-525`)."""
-    return (cosine_bootstrap_loss(u_online, i_target) / 2.0
-            + cosine_bootstrap_loss(i_online, u_target) / 2.0)
+    return (cosine_bootstrap_loss(u_online, i_target, group) / 2.0
+            + cosine_bootstrap_loss(i_online, u_target, group) / 2.0)
 
 
-def buir_loss(u_online, u_target, i_online, i_target) -> torch.Tensor:
+def buir_loss(u_online, u_target, i_online, i_target, group=None) -> torch.Tensor:
     """mean[(2 - 2·cos(u_on, i_tg)) + (2 - 2·cos(i_on, u_tg))], the targets
     detached (`univariate/buir.py:263-277`)."""
     u_online, u_target = _l2_normalize(u_online), _l2_normalize(u_target)
     i_online, i_target = _l2_normalize(i_online), _l2_normalize(i_target)
     loss_ui = 2.0 - 2.0 * torch.sum(u_online * i_target.detach(), dim=-1)
     loss_iu = 2.0 - 2.0 * torch.sum(i_online * u_target.detach(), dim=-1)
-    return torch.mean(loss_ui + loss_iu)
+    return batch_mean(loss_ui + loss_iu, group)
 
 
 # -- decorrelation and graph contrast -----------------------------------------

@@ -36,6 +36,7 @@ from recommendation_tpu_torch.losses import bootstrap_g2l_loss
 from recommendation_tpu_torch.models.base import Model, linear
 from recommendation_tpu_torch.models.gbt import batch_norm
 from recommendation_tpu_torch.models.registry import register
+from recommendation_tpu_torch.ops.group import graph_share
 from recommendation_tpu_torch.ops.spmm import adj_matmul
 from recommendation_tpu_torch.weights import flatten_tree, layer_count, subtree
 
@@ -109,7 +110,8 @@ class BGRL(Model):
             target = subtree(state, "target")
             g1 = torch.sum(self._gin(target, x1, a1)[1], dim=0)  # global_add_pool
             g2 = torch.sum(self._gin(target, x2, a2)[1], dim=0)
-        return bootstrap_g2l_loss(h1, h2, g1, g2), state
+        # over all nodes, whatever the batch (the share of a data group's rank)
+        return graph_share(bootstrap_g2l_loss(h1, h2, g1, g2), batch.group), state
 
     def post_step(self, params, state, batch):
         """The whole target tree's EMA toward the online one, as new tensors."""

@@ -33,6 +33,7 @@ from recommendation_tpu_torch.models.base import Model, linear
 from recommendation_tpu_torch.models.lightgcn import lightgcn_propagate_square
 from recommendation_tpu_torch.models.registry import register
 from recommendation_tpu_torch.models.selfcf import dual_score_tables
+from recommendation_tpu_torch.ops.group import global_batch
 from recommendation_tpu_torch.ops.rows import take_rows
 from recommendation_tpu_torch.weights import flatten_tree
 
@@ -83,17 +84,19 @@ class BUIR(Model):
         loss = buir_loss(linear(params, "predictor", take_rows(u_on, users)),
                          take_rows(u_tg, users),
                          linear(params, "predictor", take_rows(i_on, items)),
-                         take_rows(i_tg, items))
+                         take_rows(i_tg, items), batch.group)
         return loss, state
 
     def post_step(self, params, state, batch):
         """Row-wise EMA of the target tables over the batch's rows, as new
-        tensors."""
+        tensors: over the global batch's ids, in its order, with the data
+        group (the same tables on every rank)."""
         m = self.momentum
+        whole, _ = global_batch(batch)
         with torch.no_grad():
             out = {}
-            for key, table, ids in (("t_user_emb", params["user_emb"], batch.users),
-                                    ("t_item_emb", params["item_emb"], batch.pos_items)):
+            for key, table, ids in (("t_user_emb", params["user_emb"], whole.users),
+                                    ("t_item_emb", params["item_emb"], whole.pos_items)):
                 ids = ids.long()
                 t = state[key]
                 out[key] = t.index_copy(0, ids, t[ids] * m + table[ids] * (1.0 - m))

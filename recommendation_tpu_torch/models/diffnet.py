@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from recommendation_tpu_torch.losses import safe_frobenius_norm
+from recommendation_tpu_torch.losses import batch_sum, safe_frobenius_norm
 from recommendation_tpu_torch.models.base import Model
 from recommendation_tpu_torch.models.registry import register
 from recommendation_tpu_torch.ops.rows import take_rows
@@ -35,13 +35,15 @@ def randn_table(generator: torch.Generator, n: int, d: int, scale: float, device
     return (scale * torch.randn(n, d, generator=generator)).to(device)
 
 
-def summed_bpr(reg: float, u: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
+def summed_bpr(reg: float, u: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor,
+               group=None) -> torch.Tensor:
     """−Σ log(σ(y_ui − y_uj) + 1e-10) + reg · (‖u‖ + ‖pos‖ + ‖neg‖), the
-    norms unsquared (DiffNet's and ESRF's loss)."""
+    norms unsquared (DiffNet's and ESRF's loss); over the global batch's
+    rows with the data ``group``."""
     y = torch.sum(u * pos, dim=1) - torch.sum(u * neg, dim=1)
-    pairwise = -torch.sum(torch.log(torch.sigmoid(y) + 1e-10))
-    return pairwise + reg * (safe_frobenius_norm(u) + safe_frobenius_norm(pos)
-                             + safe_frobenius_norm(neg))
+    pairwise = -batch_sum(torch.log(torch.sigmoid(y) + 1e-10), group)
+    return pairwise + reg * (safe_frobenius_norm(u, group) + safe_frobenius_norm(pos, group)
+                             + safe_frobenius_norm(neg, group))
 
 
 @register("diffnet")
@@ -75,7 +77,7 @@ class DiffNet(Model):
         u = take_rows(user_all, batch.users)
         pos = take_rows(item_all, batch.pos_items)
         neg = take_rows(item_all, batch.neg_items)
-        return summed_bpr(self.reg_u, u, pos, neg), state
+        return summed_bpr(self.reg_u, u, pos, neg, batch.group), state
 
     def eval_embeddings(self, params, state, graph):
         with torch.no_grad():

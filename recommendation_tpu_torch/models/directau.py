@@ -33,6 +33,7 @@ from recommendation_tpu_torch.losses import alignment_loss, l2_reg_loss, uniform
 from recommendation_tpu_torch.models.base import Model
 from recommendation_tpu_torch.models.lightgcn import lightgcn_propagate_square
 from recommendation_tpu_torch.models.registry import register
+from recommendation_tpu_torch.ops.group import global_batch, group_rows
 from recommendation_tpu_torch.ops.rows import take_rows
 
 
@@ -55,9 +56,14 @@ class DirectAU(Model):
         }
         return params, {}
 
-    def _au(self, u, i):
-        align = alignment_loss(u, i)
-        uniform = self.gamma * (uniformity_loss(u) + uniformity_loss(i)) / 2.0
+    def _au(self, u, i, keys_u, keys_i, group=None):
+        """align(u, i) + γ·(uniform + uniform)/2 over the global batch: with
+        the data ``group`` the rank's rows ``u``, ``i`` align, and the
+        uniformity pairs each of them with the global batch's rows
+        ``keys_u``, ``keys_i`` (``u``, ``i`` themselves with no group)."""
+        align = alignment_loss(u, i, group)
+        uniform = self.gamma * (uniformity_loss(keys_u, group=group)
+                                + uniformity_loss(keys_i, group=group)) / 2.0
         return align + uniform
 
     def _adj(self, graph):
@@ -76,10 +82,16 @@ class DirectAU(Model):
         u = take_rows(user_all, batch.users)
         pos = take_rows(item_all, batch.pos_items)
         neg = take_rows(item_all, batch.neg_items)
-        loss = self._au(u, pos)
+        grp = batch.group
+        whole, _ = global_batch(batch)
+        keys = (u, pos, neg) if grp is None else (
+            take_rows(user_all, whole.users), take_rows(item_all, whole.pos_items),
+            take_rows(item_all, whole.neg_items))
+        loss = self._au(u, pos, keys[0], keys[1], grp)
         if self.neg_composition:
-            loss = loss - self._au(u, neg)
-        return loss + l2_reg_loss(self.reg, u, pos, neg) / batch.users.shape[0], state
+            loss = loss - self._au(u, neg, keys[0], keys[2], grp)
+        b = group_rows(batch.users.shape[0], grp)
+        return loss + l2_reg_loss(self.reg, u, pos, neg, group=grp) / b, state
 
     def eval_embeddings(self, params, state, graph):
         with torch.no_grad():

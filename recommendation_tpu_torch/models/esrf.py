@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from recommendation_tpu_torch.graph import augment
-from recommendation_tpu_torch.losses import _l2_normalize
+from recommendation_tpu_torch.losses import _l2_normalize, batch_sum
 from recommendation_tpu_torch.models.base import Model
 from recommendation_tpu_torch.models.diffnet import randn_table, require_social, summed_bpr
 from recommendation_tpu_torch.models.registry import register
@@ -134,6 +134,9 @@ class ESRF(Model):
     def loss(self, params, state, batch, graph, generator=None):
         d_params, g_params = subtree(params, "d"), subtree(params, "g")
         phase = int(state["phase"])
+        # the data group: every term is a sum over the batch's rows, the
+        # generator's segment draw is graph-wide (the same on every rank)
+        grp = batch.group
         if phase < 2:
             # before the adversarial phase the generator's parameters enter at
             # weight 0: they take the zero gradient jax.grad gives them, and
@@ -142,13 +145,15 @@ class ESRF(Model):
             untouched = 0.0 * sum(torch.sum(p) for p in g_params.values())
         if phase == 0:
             return untouched + summed_bpr(
-                self.reg_u, *self._rows(*self._discriminator(d_params, graph), batch)), state
+                self.reg_u, *self._rows(*self._discriminator(d_params, graph), batch),
+                grp), state
         device_gen = augment.device_generator(generator, graph.device)
         if phase == 1:
             with torch.no_grad():
                 alt = self._generator(g_params, graph, generator, device_gen)
             return untouched + summed_bpr(
-                self.reg_u, *self._rows(*self._discriminator(d_params, graph, alt), batch)), state
+                self.reg_u, *self._rows(*self._discriminator(d_params, graph, alt), batch),
+                grp), state
         alt = self._generator(g_params, graph, generator, device_gen)
         alt_stop = alt.detach()
         # D objective: alt frozen
@@ -159,8 +164,8 @@ class ESRF(Model):
         if not self.alternating:
             friends = friends.detach()
         y_vi_d = torch.sum(friends * pos, dim=1)
-        d_loss = summed_bpr(self.reg_u, u, pos, neg) + self.beta * (
-            -torch.sum(torch.log(torch.sigmoid(y_ui - y_vi_d) + 1e-10)))
+        d_loss = summed_bpr(self.reg_u, u, pos, neg, grp) + self.beta * (
+            -batch_sum(torch.log(torch.sigmoid(y_ui - y_vi_d) + 1e-10), grp))
         if self.alternating:
             # the G objective through the whole discriminator forward, the D
             # parameters detached (`esrf.py:1310-1314`)
@@ -174,7 +179,7 @@ class ESRF(Model):
             y_ui_g = y_ui.detach()
             friends_g = (alt[batch.users.long()] @ ue.detach()) / self.K
             y_vi_g = torch.sum(friends_g * pos.detach(), dim=1)
-        g_loss = self.beta * (-torch.sum(torch.log(torch.sigmoid(y_vi_g - y_ui_g) + 1e-10)))
+        g_loss = self.beta * (-batch_sum(torch.log(torch.sigmoid(y_vi_g - y_ui_g) + 1e-10), grp))
         return d_loss + g_loss, state
 
     def eval_embeddings(self, params, state, graph):

@@ -55,6 +55,7 @@ from recommendation_tpu_torch.losses import bpr_loss, l2_reg_loss
 from recommendation_tpu_torch.models.base import Model
 from recommendation_tpu_torch.models.registry import register
 from recommendation_tpu_torch.ops.gather import gather_rows, gather_sum
+from recommendation_tpu_torch.ops.group import group_rows
 from recommendation_tpu_torch.ops.rows import take_rows
 from recommendation_tpu_torch.ops.segment import (
     attention_softmax,
@@ -351,7 +352,9 @@ class GAT(Model):
         u = take_rows(user_all, batch.users)
         pos = take_rows(item_all, batch.pos_items)
         neg = take_rows(item_all, batch.neg_items)
-        loss = bpr_loss(u, pos, neg) + l2_reg_loss(self.reg, u, pos, neg) / batch.users.shape[0]
+        grp = batch.group  # the data group: the global batch's mean and L2 (losses.py)
+        b = group_rows(batch.users.shape[0], grp)
+        loss = bpr_loss(u, pos, neg, group=grp) + l2_reg_loss(self.reg, u, pos, neg, group=grp) / b
         return loss, state
 
     def eval_embeddings(self, params, state, graph):

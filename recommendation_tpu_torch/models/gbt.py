@@ -27,6 +27,7 @@ from recommendation_tpu_torch.losses import barlow_twins_loss
 from recommendation_tpu_torch.models.base import Model
 from recommendation_tpu_torch.models.grace import gcn_layer
 from recommendation_tpu_torch.models.registry import register
+from recommendation_tpu_torch.ops.group import graph_share
 from recommendation_tpu_torch.train.loop import CosineDecayAdam
 from recommendation_tpu_torch.weights import flatten_tree
 
@@ -72,7 +73,9 @@ class GBT(Model):
         adj2 = drop_edges(g, graph.norm_adj_selfloops, self.drop_edge)
         x1 = mask_features(g, params["features"], self.drop_feat)
         x2 = mask_features(g, params["features"], self.drop_feat)
-        return barlow_twins_loss(self._gcn(params, x1, adj1), self._gcn(params, x2, adj2)), state
+        # over all nodes, whatever the batch (the share of a data group's rank)
+        loss = barlow_twins_loss(self._gcn(params, x1, adj1), self._gcn(params, x2, adj2))
+        return graph_share(loss, batch.group), state
 
     def eval_embeddings(self, params, state, graph):
         with torch.no_grad():

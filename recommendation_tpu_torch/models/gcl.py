@@ -27,9 +27,10 @@ import torch.nn.functional as F
 
 from recommendation_tpu_torch.graph.augment import device_generator, dropped_norm_adj
 from recommendation_tpu_torch.graph.bucketed import PLAIN, pull
-from recommendation_tpu_torch.losses import info_nce
+from recommendation_tpu_torch.losses import batch_mean, info_nce
 from recommendation_tpu_torch.models.base import Model, linear
 from recommendation_tpu_torch.models.registry import register
+from recommendation_tpu_torch.ops.group import graph_share, group_rows, reduce_sum
 from recommendation_tpu_torch.ops.rows import take_rows
 from recommendation_tpu_torch.ops.spmm import adj_matmul
 from recommendation_tpu_torch.weights import flatten_tree, layer_count
@@ -92,12 +93,18 @@ class GCL(Model):
         def sym_nce(a, b):  # the mean of both directions (`gcl.py:28-35`)
             return (info_nce(a, b, self.ssl_temp) + info_nce(b, a, self.ssl_temp)) / 2.0
 
-        ssl = sym_nce(u1, u2) + sym_nce(i1, i2)
+        # with the data group: the InfoNCE over all nodes is every rank's
+        # whole (its gradient's share), BPR and the rows' squares the global
+        # batch's
+        grp = batch.group
+        ssl = graph_share(sym_nce(u1, u2) + sym_nce(i1, i2), grp)
         u_e = take_rows(u1, batch.users)
         p_e = take_rows(i1, batch.pos_items)
         n_e = take_rows(i1, batch.neg_items)
-        bpr = -torch.mean(F.logsigmoid(torch.sum(u_e * p_e, dim=1) - torch.sum(u_e * n_e, dim=1)))
-        reg = (torch.sum(u_e ** 2) + torch.sum(p_e ** 2) + torch.sum(n_e ** 2)) / u_e.shape[0]
+        bpr = -batch_mean(F.logsigmoid(torch.sum(u_e * p_e, dim=1) - torch.sum(u_e * n_e, dim=1)),
+                          grp)
+        reg = reduce_sum(torch.sum(u_e ** 2) + torch.sum(p_e ** 2) + torch.sum(n_e ** 2),
+                        grp) / group_rows(u_e.shape[0], grp)
         return ssl + bpr + self.reg_weight * reg, state
 
     def eval_embeddings(self, params, state, graph):

@@ -31,6 +31,7 @@ from recommendation_tpu_torch.graph.augment import device_generator, drop_edges,
 from recommendation_tpu_torch.losses import grace_dual_branch_loss
 from recommendation_tpu_torch.models.base import Model, linear
 from recommendation_tpu_torch.models.registry import register
+from recommendation_tpu_torch.ops.group import graph_share
 from recommendation_tpu_torch.ops.spmm import adj_matmul
 from recommendation_tpu_torch.weights import flatten_tree, layer_count
 
@@ -82,7 +83,9 @@ class GRACE(Model):
         x2 = mask_features(g, params["features"], self.drop_feat2)
         z1 = self._project(params, self._gcn(params, x1, adj1))
         z2 = self._project(params, self._gcn(params, x2, adj2))
-        return grace_dual_branch_loss(z1, z2, self.tau), state
+        # over all nodes, whatever the batch: under a data group each rank
+        # computes it whole and takes its share of the gradient
+        return graph_share(grace_dual_branch_loss(z1, z2, self.tau), batch.group), state
 
     def eval_embeddings(self, params, state, graph):
         with torch.no_grad():

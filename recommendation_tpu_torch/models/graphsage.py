@@ -33,6 +33,7 @@ from recommendation_tpu_torch.graph.augment import device_generator, keep_draw
 from recommendation_tpu_torch.losses import bce_loss, bpr_loss, l2_reg_loss
 from recommendation_tpu_torch.models.base import Model
 from recommendation_tpu_torch.models.registry import register
+from recommendation_tpu_torch.ops.group import group_rows
 from recommendation_tpu_torch.ops.rows import take_rows
 from recommendation_tpu_torch.ops.segment import SegmentCSR, row_counts, segment_pull
 from recommendation_tpu_torch.weights import flatten_tree, layer_count
@@ -122,7 +123,9 @@ class GraphSAGE(Model):
         pos = take_rows(item_all, batch.pos_items)
         neg = take_rows(item_all, batch.neg_items)
         fn = bpr_loss if self.loss_type == "bpr" else bce_loss
-        return fn(u, pos, neg) + l2_reg_loss(self.reg, u, pos, neg) / batch.users.shape[0], state
+        grp = batch.group  # the data group: the global batch's mean and L2 (losses.py)
+        b = group_rows(batch.users.shape[0], grp)
+        return fn(u, pos, neg, group=grp) + l2_reg_loss(self.reg, u, pos, neg, group=grp) / b, state
 
     def eval_embeddings(self, params, state, graph):
         with torch.no_grad():

@@ -23,6 +23,7 @@ from recommendation_tpu_torch.losses import _l2_normalize, bpr_loss, hierarchica
 from recommendation_tpu_torch.models.base import Model
 from recommendation_tpu_torch.models.diffnet import require_social
 from recommendation_tpu_torch.models.registry import register
+from recommendation_tpu_torch.ops.group import graph_share
 from recommendation_tpu_torch.ops.rows import take_rows
 from recommendation_tpu_torch.ops.spmm import adj_matmul
 from recommendation_tpu_torch.weights import flatten_tree
@@ -94,8 +95,12 @@ class MHCN(Model):
 
     def loss(self, params, state, batch, graph, generator=None):
         user_all, item_all = self._forward(params, graph)
+        # with the data group: BPR over the global batch's rows; the L2 and
+        # the MIMs read no batch row (the MIMs shuffle all users), so each
+        # rank computes them whole and takes its share of their gradient
+        grp = batch.group
         rec = bpr_loss(take_rows(user_all, batch.users), take_rows(item_all, batch.pos_items),
-                       take_rows(item_all, batch.neg_items))
+                       take_rows(item_all, batch.neg_items), group=grp)
         # L2 over ALL parameters, unsquared norms (`mhcn.py:522-525`), in the
         # JAX package's leaf order (its tree flattening sorts the dict keys)
         reg = self.reg * sum(torch.sqrt(torch.sum(params[k] ** 2) + 1e-12)
@@ -105,7 +110,7 @@ class MHCN(Model):
         for c, adj in enumerate((graph.mhcn_hs, graph.mhcn_hj, graph.mhcn_hp)):
             gated = self._gate(params, user_all, c, supervised=True)
             ss = ss + hierarchical_mim_loss(g, gated, adj_matmul(adj, gated))
-        return rec + reg + self.ss_rate * ss, state
+        return rec + graph_share(reg, grp) + graph_share(self.ss_rate * ss, grp), state
 
     def eval_embeddings(self, params, state, graph):
         with torch.no_grad():

@@ -37,13 +37,14 @@ from __future__ import annotations
 import torch
 
 from recommendation_tpu_torch.losses import _l2_normalize as _l2n
-from recommendation_tpu_torch.losses import bpr_loss, info_nce, l2_reg_loss
+from recommendation_tpu_torch.losses import batch_sum, bpr_loss, info_nce, l2_reg_loss
 from recommendation_tpu_torch.models.base import Model
 from recommendation_tpu_torch.models.lightgcn import (
     lightgcn_propagate,
     lightgcn_propagate_square,
 )
 from recommendation_tpu_torch.models.registry import register
+from recommendation_tpu_torch.ops.group import global_batch, group_rows
 from recommendation_tpu_torch.ops.kmeans import (
     kmeans,
     kmeans_batches,
@@ -172,25 +173,34 @@ class NCL(Model):
 
     # -- loss -------------------------------------------------------------------
 
-    def _ssl_layer_loss(self, context, initial, users, items):
+    def _ssl_layer_loss(self, context, initial, users, items, group=None):
         """Layer-contrast InfoNCE with full-catalog denominators, summed over
-        the batch (`ncl.py:358-367`)."""
+        the batch (`ncl.py:358-367`): over the global batch's rows with the
+        data ``group`` (a row's denominator is the catalog's, not the
+        batch's)."""
         (cu, ci), (iu, ii) = context, initial
         n_cu, n_iu = _l2n(take_rows(cu, users)), _l2n(take_rows(iu, users))
         n_ci, n_ii = _l2n(take_rows(ci, items)), _l2n(take_rows(ii, items))
         pos_u = torch.sum(n_cu * n_iu, dim=1) / self.ssl_temp
-        loss_u = -torch.sum(pos_u - self._catalog_lse(n_cu, _l2n(iu)))
+        loss_u = -batch_sum(pos_u - self._catalog_lse(n_cu, _l2n(iu)), group)
         pos_i = torch.sum(n_ci * n_ii, dim=1) / self.ssl_temp
-        loss_i = -torch.sum(pos_i - self._catalog_lse(n_ci, _l2n(ii)))
+        loss_i = -batch_sum(pos_i - self._catalog_lse(n_ci, _l2n(ii)), group)
         return self.ssl_reg * (loss_u + self.alpha * loss_i)
 
-    def _proto_nce(self, state, initial, users, items, batch_size):
-        """InfoNCE against the assigned centroids, × B (`ncl.py:369-375`)."""
+    def _proto_nce(self, state, initial, batch, batch_size):
+        """InfoNCE against the assigned centroids, × B (`ncl.py:369-375`):
+        with the data group the rank's rows against the centroids of the
+        global batch's rows, B the global batch's."""
         user_emb, item_emb = initial
-        u2c = take_rows(state["user_centroids"], take_rows(state["user_2cluster"], users))
-        i2c = take_rows(state["item_centroids"], take_rows(state["item_2cluster"], items))
-        loss_u = info_nce(take_rows(user_emb, users), u2c, self.ssl_temp) * batch_size
-        loss_i = info_nce(take_rows(item_emb, items), i2c, self.ssl_temp) * batch_size
+        whole, _ = global_batch(batch)
+        u2c = take_rows(state["user_centroids"], take_rows(state["user_2cluster"], whole.users))
+        i2c = take_rows(state["item_centroids"],
+                        take_rows(state["item_2cluster"], whole.pos_items))
+        grp = batch.group
+        loss_u = info_nce(take_rows(user_emb, batch.users), u2c, self.ssl_temp,
+                          group=grp) * batch_size
+        loss_i = info_nce(take_rows(item_emb, batch.pos_items), i2c, self.ssl_temp,
+                          group=grp) * batch_size
         return self.proto_reg * (loss_u + loss_i)
 
     def loss(self, params, state, batch, graph, generator=None):
@@ -198,8 +208,9 @@ class NCL(Model):
         users, pos, neg = batch.users, batch.pos_items, batch.neg_items
         u = take_rows(user_all, users)
         p, n = take_rows(item_all, pos), take_rows(item_all, neg)
-        rec = bpr_loss(u, p, n)
-        ssl = self._ssl_layer_loss(context, initial, users, pos)
+        grp = batch.group  # the data group: every term the global batch's (losses.py)
+        rec = bpr_loss(u, p, n, group=grp)
+        ssl = self._ssl_layer_loss(context, initial, users, pos, grp)
         if self.e_step_per_batch:
             # re-cluster the current embeddings before ProtoNCE (`ncl.py:324`);
             # the centroids are data, so no gradient reaches them
@@ -208,9 +219,9 @@ class NCL(Model):
                                  "loss's generator; pass one")
             state = self.e_step(user_all.detach(), item_all.detach(),
                                 self.cluster_draws(generator, graph))
-        b = users.shape[0]
-        proto = self._proto_nce(state, initial, users, pos, b)
-        reg = l2_reg_loss(self.reg, u, p, n) / b
+        b = group_rows(users.shape[0], grp)
+        proto = self._proto_nce(state, initial, batch, b)
+        reg = l2_reg_loss(self.reg, u, p, n, group=grp) / b
         return rec + reg + ssl + proto, state
 
     def eval_embeddings(self, params, state, graph):

@@ -32,6 +32,7 @@ from recommendation_tpu_torch.losses import selfcf_loss
 from recommendation_tpu_torch.models.base import Model, linear
 from recommendation_tpu_torch.models.lightgcn import lightgcn_encode
 from recommendation_tpu_torch.models.registry import register
+from recommendation_tpu_torch.ops.group import global_batch
 from recommendation_tpu_torch.ops.prop import chain_mean_plain
 from recommendation_tpu_torch.ops.rows import take_rows
 from recommendation_tpu_torch.weights import flatten_tree
@@ -75,14 +76,24 @@ class SelfCF(Model):
         u_rows = take_rows(u_online, users)
         i_rows = take_rows(i_online, items)
         m = self.momentum
+        grp = batch.group
         with torch.no_grad():
-            # the targets read the histories before this step writes them
+            # the targets read the histories before this step writes them;
+            # with the data group every rank writes the global batch's rows
+            # at its ids, in its order (the same tables on every rank)
             u_target = state["u_his"][users] * m + u_rows * (1.0 - m)
             i_target = state["i_his"][items] * m + i_rows * (1.0 - m)
-            new_state = {"u_his": state["u_his"].index_copy(0, users, u_rows),
-                         "i_his": state["i_his"].index_copy(0, items, i_rows)}
+            if grp is None:
+                ids_u, rows_u, ids_i, rows_i = users, u_rows, items, i_rows
+            else:
+                whole, _ = global_batch(batch)
+                ids_u, ids_i = whole.users.long(), whole.pos_items.long()
+                rows_u, rows_i = take_rows(u_online, ids_u), take_rows(i_online, ids_i)
+            new_state = {"u_his": state["u_his"].index_copy(0, ids_u, rows_u),
+                         "i_his": state["i_his"].index_copy(0, ids_i, rows_i)}
         loss = self.reg_weight * selfcf_loss(linear(params, "predictor", u_rows), u_target,
-                                             linear(params, "predictor", i_rows), i_target)
+                                             linear(params, "predictor", i_rows), i_target,
+                                             grp)
         return loss, new_state
 
     def eval_embeddings(self, params, state, graph):

@@ -29,6 +29,7 @@ from recommendation_tpu_torch.losses import _l2_normalize, bpr_loss
 from recommendation_tpu_torch.models.base import Model
 from recommendation_tpu_torch.models.diffnet import require_social
 from recommendation_tpu_torch.models.registry import register
+from recommendation_tpu_torch.ops.group import global_batch, graph_share, reduce_sum
 from recommendation_tpu_torch.ops.rows import take_rows
 from recommendation_tpu_torch.ops.spmm import adj_matmul
 
@@ -114,25 +115,30 @@ class SEPT(Model):
     def loss(self, params, state, batch, graph, generator=None):
         rec_u, rec_i, aug_u, friend, sharing = self._views(params, state, graph)
         users = batch.users
+        # with the data group: BPR over the global batch's rows, the L2 over
+        # whole tables every rank's whole (its gradient's share), and each of
+        # the rank's users labelled against the global batch's augmented rows
+        grp = batch.group
+        whole, _ = global_batch(batch)
         rec = bpr_loss(take_rows(rec_u, users), take_rows(rec_i, batch.pos_items),
-                       take_rows(rec_i, batch.neg_items))
-        rec = rec + self.reg * (torch.sum(params["user_emb"] ** 2)
-                                + torch.sum(params["item_emb"] ** 2))
+                       take_rows(rec_i, batch.neg_items), group=grp)
+        rec = rec + graph_share(self.reg * (torch.sum(params["user_emb"] ** 2)
+                                            + torch.sum(params["item_emb"] ** 2)), grp)
 
         # tri-view pseudo-label SSL over the batch users
-        aug_b = take_rows(aug_u, users)
+        aug_b = take_rows(aug_u, whole.users)
         f_b, s_b, r_b = (take_rows(t, users) for t in (friend, sharing, rec_u))
         f_prob = self._label_prediction(f_b, aug_b)
         s_prob = self._label_prediction(s_b, aug_b)
         r_prob = self._label_prediction(r_b, aug_b)
-        k = min(self.instance_cnt, users.shape[0])
+        k = min(self.instance_cnt, whole.users.shape[0])
 
         def pseudo(p1, p2):
             return torch.topk((p1 + p2) / 2.0, k, dim=1).indices
 
-        ssl = (self._neighbor_discrimination(pseudo(s_prob, r_prob), f_b, aug_b)
-               + self._neighbor_discrimination(pseudo(f_prob, r_prob), s_b, aug_b)
-               + self._neighbor_discrimination(pseudo(f_prob, s_prob), r_b, aug_b))
+        ssl = reduce_sum(self._neighbor_discrimination(pseudo(s_prob, r_prob), f_b, aug_b)
+                        + self._neighbor_discrimination(pseudo(f_prob, r_prob), s_b, aug_b)
+                        + self._neighbor_discrimination(pseudo(f_prob, s_prob), r_b, aug_b), grp)
         return rec + state["ssl_on"] * self.ss_rate * ssl, state
 
     def eval_embeddings(self, params, state, graph):
@@ -166,9 +172,12 @@ class SEPTBasic(Model):
         u, i = out[:graph.n_users], out[graph.n_users:]
         ue, ie, je = (take_rows(u, batch.users), take_rows(i, batch.pos_items),
                       take_rows(i, batch.neg_items))
-        # the batch rows' squared norms / 2 (`sept.py:242-243`)
-        reg = self.reg * (torch.sum(ue ** 2) + torch.sum(ie ** 2) + torch.sum(je ** 2)) / 2.0
-        return bpr_loss(ue, ie, je) + reg, state
+        # the batch rows' squared norms / 2 (`sept.py:242-243`), over the
+        # global batch's rows with the data group
+        grp = batch.group
+        reg = self.reg * reduce_sum(torch.sum(ue ** 2) + torch.sum(ie ** 2) + torch.sum(je ** 2),
+                                   grp) / 2.0
+        return bpr_loss(ue, ie, je, group=grp) + reg, state
 
     def eval_embeddings(self, params, state, graph):
         with torch.no_grad():

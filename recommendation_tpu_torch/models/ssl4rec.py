@@ -20,6 +20,7 @@ from recommendation_tpu_torch.graph.augment import device_generator, keep_draw
 from recommendation_tpu_torch.losses import batch_softmax_loss, info_nce, l2_reg_loss
 from recommendation_tpu_torch.models.base import Model, linear
 from recommendation_tpu_torch.models.registry import register
+from recommendation_tpu_torch.ops.group import global_batch
 from recommendation_tpu_torch.ops.rows import take_rows
 from recommendation_tpu_torch.weights import flatten_tree, layer_count
 
@@ -80,14 +81,20 @@ class SSL4Rec(Model):
         return u, i
 
     def loss(self, params, state, batch, graph, generator=None):
-        u_emb, i_emb = self.towers(params, batch.users, batch.pos_items)
-        rec = batch_softmax_loss(u_emb, i_emb, self.tau)
+        # with the data group the rank's rows are the queries and the global
+        # batch's items the keys (the dropout drawn at the global shape, as
+        # one device would draw it); with no group both are the batch's
+        grp = batch.group
+        whole, lo = global_batch(batch)
+        n = batch.users.shape[0]
+        u_emb, keys = self.towers(params, batch.users, whole.pos_items)
+        rec = batch_softmax_loss(u_emb, keys, self.tau, group=grp)
         g = device_generator(generator, graph.device)
-        raw = take_rows(params["item_emb"], batch.pos_items)
+        raw = take_rows(params["item_emb"], whole.pos_items)
         v1 = mlp_apply(params, "item_net", feature_dropout(g, raw, self.drop))
         v2 = mlp_apply(params, "item_net", feature_dropout(g, raw, self.drop))
-        cl = self.cl_rate * info_nce(v1, v2, self.tau)
-        return rec + cl + l2_reg_loss(self.reg, u_emb, i_emb), state
+        cl = self.cl_rate * info_nce(v1[lo:lo + n], v2, self.tau, group=grp)
+        return rec + cl + l2_reg_loss(self.reg, u_emb, keys[lo:lo + n], group=grp), state
 
     def eval_embeddings(self, params, state, graph):
         with torch.no_grad():

@@ -3,13 +3,17 @@
 
 Lloyd iterations with distances as ‖x‖² − 2x·cᵀ + ‖c‖² (one product),
 ``argmin`` assignment (the first minimum, as ``jnp.argmin``) and segment
-means through ``index_add_``, an empty cluster keeping its centroid. The
+means, an empty cluster keeping its centroid. The
 random draws are arguments: ``init_idx`` (the k initial rows) and, for the
 mini-batch variant, ``batch_idx`` [n_iters, bsz] (the rows of each
 iteration). ``kmeans_init`` and ``kmeans_batches`` draw them from a
-``torch.Generator``; a test hands both versions the same indices. On the
-card the segment sums use atomic adds, so their low bits may change from
-run to run.
+``torch.Generator``; a test hands both versions the same indices.
+
+The segment sums are deterministic: the rows sorted stably by cluster,
+then each cluster's rows added in row order (``torch.segment_reduce``),
+with no atomic adds. So every run, and every rank of a sharded trainer
+that clusters the same tables, gets the same bits on the card; on the CPU
+the sums are ``index_add_``'s, which adds in index order, bit for bit.
 """
 
 from __future__ import annotations
@@ -35,10 +39,13 @@ def _sq_dist(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
 
 
 def _segment_sums(x: torch.Tensor, assign: torch.Tensor, k: int):
-    sums = torch.zeros(k, x.shape[1], dtype=x.dtype, device=x.device).index_add_(0, assign, x)
-    counts = torch.zeros(k, dtype=x.dtype, device=x.device).index_add_(
-        0, assign, torch.ones(x.shape[0], dtype=x.dtype, device=x.device))
-    return sums, counts
+    """(each cluster's sum of its rows, in row order; its row count) as
+    f32[k, d] and f32[k]: one stable sort of the assignments, then a
+    segment sum over the sorted rows, an empty cluster 0."""
+    order = torch.sort(assign, stable=True).indices
+    lengths = torch.bincount(assign, minlength=k)
+    sums = torch.segment_reduce(x[order], "sum", lengths=lengths, axis=0, unsafe=True)
+    return sums, lengths.to(x.dtype)
 
 
 def kmeans(x: torch.Tensor, init_idx: torch.Tensor, n_iters: int = 10):

@@ -25,9 +25,10 @@ One process a rank and a device, joined by ``torch.distributed``:
     over a model axis that spans every rank, from a per-rank checkpoint);
     ``dryrun_multihost`` / ``dryrun_serve_multihost`` spawn them and hold
     them to the same computation in one process;
-  * ``fit`` (``--jobs fit``): ``ShardedGraphRecommender`` of LightGCN on
-    a pairs file in every rank, over one layout, with its per-rank
-    checkpoints and a report a rank.
+  * ``fit`` (``--jobs fit``): ``ShardedGraphRecommender`` of any
+    registered model (``--model``, LightGCN by default) on a pairs file in
+    every rank, over one layout, with its per-rank checkpoints and a report
+    a rank.
 
 Every entry point runs on the card (the dryruns and the command line over
 NCCL) unless the caller names another device or backend:
@@ -303,15 +304,15 @@ def _worker_train(out_path: Optional[str], ckpt_path: Optional[str] = None, devi
         mesh = make_hybrid_mesh(model=2, device_type=graph.device.type)
         params, sharded = shard_params(params, mesh)
         placement = _Placement(mesh, sharded, batch_rows(bs, mesh))
-        batches = placement.slice_batches(batches)
     leaves = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
     tensors = list(leaves.values())
     optimizer = torch.optim.Adam(tensors, lr=1e-3, eps=1e-8)
     losses = []
     for step in range(n_steps):
         full = leaves if placement is None else placement.gather(leaves)
-        batch = PairwiseBatch(*(a[step] for a in batches[:4]),
-                              None if placement is None else placement.loss_group)
+        batch = PairwiseBatch(*(a[step] for a in batches[:4]))
+        if placement is not None:
+            batch = placement.batch(batch)
         loss, _ = model.loss(full, {}, batch, graph)
         grads = torch.autograd.grad(loss, tensors)
         if placement is not None:
@@ -448,17 +449,43 @@ def pairs_data(path: str):
                             test_fraction=float(z["test_fraction"]))
 
 
-def fit(data_path: str, mesh, config, out: str, device: torch.device):
-    """``ShardedGraphRecommender`` of LightGCN (the model whose losses take
-    the data axis) on the pairs file ``data_path``, trained over ``mesh``
-    with ``config``, its per-rank checkpoints in ``out/ckpt``. Each rank
-    writes ``out/rank<r>.json``: the layout, the shards' rows, the epochs'
-    losses and seconds, the graph's, the build's and ``train()``'s seconds
-    and K7's and P1's launches over ``train()``. Returns the trained
+def kernel_wrappers() -> tuple:
+    """The port's kernel wrappers, each counting its launches in
+    ``.launches``: K1-K4, K5/K6, K7, P1, Q1, S1 (and with the head dot),
+    S2 (on given logits and with GAT's fused in)."""
+    from recommendation_tpu_torch.ops.gather import gather_rows, gather_sum, quantize_rows
+    from recommendation_tpu_torch.ops.lse import catalog_lse, catalog_lse_bwd
+    from recommendation_tpu_torch.ops.prop import (
+        chain_mean,
+        chain_mean_bwd,
+        chain_mean_layer,
+        chain_mean_layer_bwd,
+    )
+    from recommendation_tpu_torch.ops.segment import (
+        attention_softmax,
+        attention_softmax_bwd,
+        segment_softmax_rows,
+        segment_softmax_rows_bwd,
+        weighted_pull,
+        weighted_pull_dot,
+    )
+
+    return (chain_mean, chain_mean_bwd, chain_mean_layer, chain_mean_layer_bwd, catalog_lse,
+            catalog_lse_bwd, gather_rows, gather_sum, quantize_rows, weighted_pull,
+            weighted_pull_dot, segment_softmax_rows, segment_softmax_rows_bwd,
+            attention_softmax, attention_softmax_bwd)
+
+
+def fit(data_path: str, mesh, config, out: str, device: torch.device, model: str = "lightgcn"):
+    """``ShardedGraphRecommender`` of ``model`` on the pairs file
+    ``data_path``, trained over ``mesh`` with ``config``, its per-rank
+    checkpoints in ``out/ckpt``. Each rank writes ``out/rank<r>.json``: the
+    model, the layout, the shards' rows, the epochs' losses and seconds,
+    the graph's, the build's and ``train()``'s seconds and every kernel's
+    launches over ``train()`` (``kernel_wrappers``). Returns the trained
     recommender."""
     from recommendation_tpu_torch.graph.device import DeviceGraph
     from recommendation_tpu_torch.models import build
-    from recommendation_tpu_torch.ops.gather import gather_rows, gather_sum
     from recommendation_tpu_torch.parallel.trainer import ShardedGraphRecommender
     from recommendation_tpu_torch.utils.logging import Log
 
@@ -473,24 +500,27 @@ def fit(data_path: str, mesh, config, out: str, device: torch.device):
     sync()
     t1 = time.perf_counter()
     config = config.with_overrides(**{"checkpoint.dir": os.path.join(out, "ckpt")})
-    rec = ShardedGraphRecommender(build("lightgcn", config), data, config, graph=graph,
+    rec = ShardedGraphRecommender(build(model, config), data, config, graph=graph,
                                   mesh=mesh, log=Log(echo=False), device=device)
     rec.build()
     sync()
     t2 = time.perf_counter()
-    gather_rows.launches = gather_sum.launches = 0
+    kernels = kernel_wrappers()
+    for f in kernels:
+        f.launches = 0
     rec.train()
     sync()
     t3 = time.perf_counter()
     rank = dist.get_rank()
     os.makedirs(out, exist_ok=True)
     report = {
-        "rank": rank, "layout": rec.layout(), "backend": dist.get_backend(),
+        "rank": rank, "model": rec.model.name, "layout": rec.layout(),
+        "backend": dist.get_backend(),
         "device": str(device), "sharded": sorted(rec.sharded_params),
         "shard_rows": {k: int(v.shape[0]) for k, v in rec.params.items()},
         "steps_per_epoch": -(-graph.n_edges // rec.batch_size),
         "epochs": rec.epoch_stats, "graph_s": t1 - t0, "build_s": t2 - t1, "train_s": t3 - t2,
-        "launches": {"gather_rows": gather_rows.launches, "gather_sum": gather_sum.launches},
+        "launches": {f.__name__: f.launches for f in kernels},
     }
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
@@ -511,6 +541,7 @@ def _main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--ckpt", default=None, help="per-rank checkpoint directory of the dryrun")
     ap.add_argument("--data", default=None, help="fit: .npz of pairs, n_users, n_items, test_fraction")
     ap.add_argument("--mesh", default="1x1", help="fit: the layout, DATAxMODEL")
+    ap.add_argument("--model", default="lightgcn", help="fit: a registered model")
     ap.add_argument("--set", action="append", default=[], help="fit: config key=value")
     args = ap.parse_args(argv)
     jobs = [j for j in args.jobs.split(",") if j]
@@ -527,7 +558,7 @@ def _main(argv: Optional[Sequence[str]] = None) -> None:
 
                 n_data, n_model = (int(v) for v in args.mesh.split("x"))
                 fit(args.data, make_mesh(MeshSpec(n_data, n_model), device.type),
-                    default_config(**_parse_sets(args.set)), args.out, device)
+                    default_config(**_parse_sets(args.set)), args.out, device, args.model)
             elif job in ("train", "serve"):
                 out = os.path.join(args.out, f"{job}.npz") if args.out else None
                 ckpt = os.path.join(args.ckpt, job) if args.ckpt else None

@@ -5,7 +5,9 @@ rank of a ``(data, model)`` mesh (``parallel/mesh.py``):
 
   * **batches**: every rank draws the epoch from the same generator state,
     so the draw is identical everywhere; each data rank takes its
-    ``B / data`` rows of each batch (B must divide by ``data``);
+    ``B / data`` rows of each batch (B must divide by ``data``), and at
+    data > 1 the batch also carries the data group and the global batch
+    (``PairwiseBatch.group``, ``.whole``);
   * **tables**: ``user_emb``, ``item_emb`` and the other ``TABLE_KEYS`` are
     leaf tensors of ``rows / model`` rows where the rows divide by
     ``model`` (else whole on every rank, as JAX ``trainer.py:71-77``), and
@@ -15,18 +17,32 @@ rank of a ``(data, model)`` mesh (``parallel/mesh.py``):
     every model rank computed alike;
   * **propagation** runs whole on every rank over the replicated graph,
     with the port's kernels (K7 and P1 on the bucketed backend, K1 and K2 on
-    the dense one), as ``trainer.py:81-97`` does for the bucketed backend;
-  * **gradients**: each data rank's partial gradients are summed over the
-    data group (one all-reduce a step), replicated parameters' too.
+    the dense one, S1 and S2 for GAT, K5 and K6 for NCL's contrast), as
+    ``trainer.py:81-97`` does for the bucketed backend;
+  * **losses**: at data > 1 every model's ``loss`` returns the global
+    batch's value on every rank, and its backward is the rank's share of
+    the global gradient (``ops/group.py``). A term over the batch's rows
+    (a mean, a sum, an L2 norm) is the group's sum of the rank's rows; a
+    term that reads no batch row (a loss over all nodes, an L2 over whole
+    tables) is computed whole and its backward scaled by 1 / data; a term
+    whose partners or denominators run over the whole batch (DirectAU's
+    uniformity, SSL4Rec's in-batch softmax and InfoNCE, NCL's ProtoNCE,
+    SEPT's pseudo-labels) takes the rank's rows as queries against the
+    global batch's rows, which the rank reads from its own whole tables by
+    the global batch's ids. Draws shaped by the batch are made at the
+    global shape and sliced; state written at the batch's ids (SelfCF's
+    histories, BUIR's EMA targets) is written at the global batch's;
+  * **gradients**: each data rank's shares are summed over the data group
+    (one all-reduce a step), replicated parameters' too.
 
 At ``data = 1`` a step is the single-device step bit for bit: the same
 tables, draws and kernels, the gradient only sliced. At ``data > 1`` it
-differs by the order of the data group's sum. Only LightGCN's losses give
-the global batch's value from a slice (each batch carries the data group,
-``PairwiseBatch.group``; ``losses.py``); any other model at ``data > 1``
-raises at build, naming the term that couples the batch's rows (those
-losses are not on the data axis yet). GSPMD's edge sharding of the segment backend's propagation
-(``trainer.py:93-97``) has no counterpart yet: propagation is replicated.
+differs by the order of the data group's sums; every registered model
+takes the data axis. NCL's E-step clusters the same tables alike on every
+rank (``ops/kmeans.py`` sums without atomics), so every rank holds the
+same centroids and assignments. GSPMD's edge sharding of the segment
+backend's propagation (``trainer.py:93-97``) has no counterpart yet:
+propagation is replicated.
 
 ``test()`` is the sharded evaluator where the mesh has a model axis: the
 padded item table row-sharded, ``sharded_topk`` over blocks of test users,
@@ -66,38 +82,16 @@ from recommendation_tpu_torch.parallel.mesh import (
     shard_params,
     table_rows,
 )
+from recommendation_tpu_torch.sampling import PairwiseBatch
 from recommendation_tpu_torch.train.recommender import GraphRecommender
 from recommendation_tpu_torch.utils.logging import Log
 
-# the term of each model's loss that a slice of the batch cannot compute
-# alone (every model but LightGCN): the data axis raises for these
-ROW_COUPLED = {
-    "ncl": "ProtoNCE and the layer contrast (means over the batch's rows with "
-           "full-catalog denominators) and the L2 term's Frobenius norm",
-    "directau": "the uniformity term (all pairs of the batch's rows)",
-    "selfcf": "the cosine bootstrap's batch mean and the history rows it writes",
-    "buir": "the bootstrap loss's batch mean (buir_loss)",
-    "ssl4rec": "the in-batch InfoNCE (batch_softmax_loss, info_nce)",
-    "gcl": "the InfoNCE over all nodes' views",
-    "grace": "the dual-branch InfoNCE over all nodes' views",
-    "gbt": "the batch norm of the Barlow Twins loss",
-    "bgrl": "the batch norms and the bootstrap's graph readout",
-    "graphsage": "the BPR mean and the L2 term's Frobenius norm over the batch's rows",
-    "gat": "the BPR mean and the L2 term's Frobenius norm over the batch's rows",
-    "diffnet": "the summed BPR's L2 term over the batch's rows",
-    "sept": "the tri-view pseudo-labels' top-k over the batch's users",
-    "sept_basic": "the BPR mean over the batch's rows",
-    "mhcn": "the BPR mean and the hierarchical MIM's shuffles",
-    "esrf": "the summed BPR's L2 term over the batch's rows",
-}
-
-
 class _Placement:
     """What the step loop does for a rank (``train/loop.py``): gather the
-    sharded tables, sum the gradients over the data group, cut each batch
-    to the rank's rows and name the group its rows are a slice over
-    (``loss_group``: None where the data axis is 1, so a loss runs its
-    single-device code)."""
+    sharded tables, sum the gradients over the data group, and cut each
+    global batch to the rank's rows, naming the group its rows are a slice
+    over and the global batch (``loss_group``: None where the data axis is
+    1, so a loss runs its single-device code)."""
 
     def __init__(self, mesh, sharded: set, rows: tuple[int, int]):
         self.model_group = axis_group(mesh, MODEL_AXIS)
@@ -119,10 +113,14 @@ class _Placement:
             at += g.numel()
         return out
 
-    def slice_batches(self, batches):
-        *arrays, n_batches = batches
+    def batch(self, whole: PairwiseBatch) -> PairwiseBatch:
+        """This rank's rows of the global batch ``whole``; at data > 1 with
+        the data group and ``whole`` (``ops.group.global_batch``)."""
         lo, hi = self.rows
-        return tuple(a[:, lo:hi].contiguous() for a in arrays) + (n_batches,)
+        rows = (a[lo:hi] for a in whole[:4])
+        if self.loss_group is None:
+            return PairwiseBatch(*rows)
+        return PairwiseBatch(*rows, self.loss_group, whole)
 
 
 class ShardedGraphRecommender(GraphRecommender):
@@ -147,12 +145,6 @@ class ShardedGraphRecommender(GraphRecommender):
     # -- placement ------------------------------------------------------------
 
     def build(self):
-        if self.spec.data > 1 and self.model.name != "lightgcn":
-            term = ROW_COUPLED.get(self.model.name, "its loss over the batch")
-            raise ValueError(
-                f"{self.model.name} cannot split its batches over data={self.spec.data}: "
-                f"{term} couples the batch's rows, and only LightGCN's losses give the "
-                f"global batch's value from a slice (use data=1)")
         rows = batch_rows(self.batch_size, self.mesh)  # raises where B does not divide
         self._rows = rows
         super().build()

@@ -43,6 +43,9 @@ class PairwiseBatch(NamedTuple):
     # the data group of a sharded trainer whose ranks each hold a slice of
     # the global batch in rank order (``ops/group.py``); None: the whole batch
     group: Any = None
+    # with a group, the global batch (a PairwiseBatch with no group) that
+    # this one is a rank's slice of (``ops.group.global_batch``)
+    whole: Any = None
 
 
 class PointwiseBatch(NamedTuple):

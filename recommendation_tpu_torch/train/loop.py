@@ -18,14 +18,13 @@ has one loop instead. The trainer draws each epoch's words from its
 generator in the same sequence whatever ``eval.interval`` is, so runs that
 evaluate at different intervals train on the same batches by construction.
 
-A sharded trainer passes a ``placement`` (``parallel/trainer.py``): the
-epoch's arrays are cut to the rank's rows of each batch
-(``placement.slice_batches``), each batch carries the data group its
-rows are a slice over (``placement.loss_group``, None at data = 1), the
-loss reads the parameters the placement gathers from the rank's shards
-(``placement.gather``), and the gradients
-are summed over the data group before the NaN guard
-(``placement.reduce_grads``).
+A sharded trainer passes a ``placement`` (``parallel/trainer.py``): each
+global batch is cut to the rank's rows (``placement.batch``), which at
+data > 1 carry the data group and the global batch, the loss reads the
+parameters the placement gathers from the rank's shards
+(``placement.gather``), and the gradients are summed over the data group
+before the NaN guard (``placement.reduce_grads``). ``step_grads`` is that
+part of a step, without the update.
 """
 
 from __future__ import annotations
@@ -140,26 +139,40 @@ def _post_step_params(model, params, placement):
         return placement.gather(params)
 
 
+def step_grads(model, graph, params: Dict[str, torch.Tensor], state: Any, batch,
+               generator: torch.Generator | None = None, placement=None):
+    """One step's (loss, gradients of the parameters that require one, in
+    their dict order, new state), nothing updated. With a ``placement``,
+    ``params`` are the rank's shards, ``batch`` the rank's rows
+    (``placement.batch``) and the gradients the data group's sum."""
+    tensors = [p for p in params.values() if p.requires_grad]
+    full = params if placement is None else placement.gather(params)
+    loss, new_state = model.loss(full, state, batch, graph, generator)
+    grads = torch.autograd.grad(loss, tensors)
+    if placement is not None:
+        grads = placement.reduce_grads(grads)
+    return loss, grads, new_state
+
+
 def run_steps(model, optimizer: torch.optim.Optimizer, graph, params: Dict[str, torch.Tensor],
               state: Any, batches, generator: torch.Generator | None = None, placement=None):
     """The step loop over one epoch's arrays ``batches`` = (users, items,
-    negs, weights, n_batches). Differentiates the parameters that require
-    a gradient (every one the loss reaches; a model's ``frozen`` ones do
-    not) and updates them in place through ``optimizer``; returns (state, mean loss as a device scalar: the mean
+    negs, weights, n_batches), the global batches. Differentiates the
+    parameters that require a gradient (every one the loss reaches; a
+    model's ``frozen`` ones do not) and updates them in place through
+    ``optimizer``; returns (state, mean loss as a device scalar: the mean
     of the finite step losses, NaN when no step was finite). With a
     ``placement``, ``params`` are the rank's shards (see the module's
     docstring)."""
     users, items, negs, weights, n_batches = batches
     tensors = [p for p in params.values() if p.requires_grad]
     losses = torch.empty(n_batches, dtype=torch.float32, device=graph.device)
-    group = None if placement is None else placement.loss_group
     for b in range(n_batches):
-        batch = PairwiseBatch(users[b], items[b], negs[b], weights[b], group)
-        full = params if placement is None else placement.gather(params)
-        loss, new_state = model.loss(full, state, batch, graph, generator)
-        grads = torch.autograd.grad(loss, tensors)
+        batch = PairwiseBatch(users[b], items[b], negs[b], weights[b])
         if placement is not None:
-            grads = placement.reduce_grads(grads)
+            batch = placement.batch(batch)
+        loss, grads, new_state = step_grads(model, graph, params, state, batch, generator,
+                                            placement)
         ok = torch.isfinite(loss)
         with torch.no_grad():
             for p, g in zip(tensors, grads):
@@ -181,6 +194,4 @@ def train_epoch(model, optimizer, graph, params, state, generator: torch.Generat
     Returns (state, mean loss as a device scalar)."""
     batches = epoch_batches(epoch_words(generator, graph, batch_size, n_redraws), graph,
                             batch_size, n_redraws)
-    if placement is not None:
-        batches = placement.slice_batches(batches)
     return run_steps(model, optimizer, graph, params, state, batches, generator, placement)

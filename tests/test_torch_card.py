@@ -42,6 +42,8 @@ at the clustered tables and on split rows, d = 250 to 1024.
 Calls on two streams at once equal the same calls in turn (the chain's tile
 counters, P1's, S1's and S2's piece counters, K5's and K6's partials, the
 fused pull's dot, P1's int8 source, its fused layer and Q1).
+NCL's k-means (Lloyd and mini-batch) twice on the same rows gives the same
+bits (the sorted segment sums, no atomics).
 
 These tests need a CUDA device and ``nvcc``; elsewhere they skip. This file
 imports neither JAX nor the JAX package, so it runs where only the port is
@@ -114,6 +116,13 @@ from recommendation_tpu_torch.ops.prop import (
     chain_mean_layer_bwd_plain,
     chain_mean_layer_plain,
     chain_mean_plain,
+)
+from recommendation_tpu_torch.ops.kmeans import (
+    _segment_sums,
+    kmeans,
+    kmeans_batches,
+    kmeans_init,
+    kmeans_minibatch,
 )
 from recommendation_tpu_torch.ops import segment as seg_ops
 from recommendation_tpu_torch.ops import spmm
@@ -1630,6 +1639,39 @@ def test_rectangular_interaction_pull(card, social_set, backend):
         for a, b in ((got[0][0], yp.detach()), (got[0][1], dxp)):
             assert a.shape == b.shape and b.abs().max() > 0
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * b.abs().max().item())
+
+
+# -- NCL's E-step: the same bits every run (every rank of a sharded trainer) ----
+
+
+@pytest.mark.parametrize("minibatch", [False, True], ids=["lloyd", "minibatch"])
+def test_kmeans_repeats_bit_for_bit(card, minibatch):
+    """k-means twice on the same rows of the clustered set's item count
+    gives the same centroids and assignments bit for bit (the segment sums
+    add each cluster's rows in row order, no atomics), and its centroids
+    are the float64 means of their clusters' rows."""
+    g = torch.Generator().manual_seed(3)
+    centers = torch.randn(100, 64, generator=g) * 4
+    x = (centers[torch.randint(0, 100, (100_000,), generator=g)]
+         + torch.randn(100_000, 64, generator=g)).to(card)
+    init = kmeans_init(g, x.shape[0], 100)
+    batches = kmeans_batches(g, x.shape[0], 10, 65_536) if minibatch else None
+
+    def run():
+        if minibatch:
+            return kmeans_minibatch(x, init, batches, 10)
+        return kmeans(x, init, 10)
+
+    (c1, a1), (c2, a2) = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(c1, c2) and torch.equal(a1, a2)
+    assert a1.dtype == torch.int32 and int(a1.min()) >= 0 and int(a1.max()) < 100
+    if not minibatch:  # the last iteration's means (against its assignments' centroids)
+        sums, counts = _segment_sums(x, a1.long(), 100)
+        want = torch.zeros(100, 64, dtype=torch.float64, device=card).index_add_(
+            0, a1.long(), x.double())
+        torch.testing.assert_close(sums.double(), want, rtol=1e-5, atol=1e-3)
+        assert torch.equal(counts, torch.bincount(a1.long(), minlength=100).float())
 
 
 # -- the parallel layer on the card: two ranks over gloo on one device ----------

@@ -2,7 +2,8 @@
 ``kmeans_minibatch`` given the indices the JAX functions draw inside
 (``jax.random.choice(rng, n, (k,), replace=False)`` for the initial rows,
 ``jax.random.randint`` per iteration for the mini-batch rows), and the
-invariants of Lloyd's algorithm.
+invariants of Lloyd's algorithm. The sorted segment sums equal
+``index_add_``'s bit for bit on the CPU.
 
 Tolerances: on well-separated blobs the assignments are equal and the
 centroids within atol 1e-5 (f32 sums in another order). On propagated
@@ -22,6 +23,7 @@ from recommendation_tpu.ops.kmeans import kmeans as jax_kmeans
 from recommendation_tpu.ops.kmeans import kmeans_minibatch as jax_kmeans_minibatch
 from recommendation_tpu.ops.kmeans import ncl_cluster_cap as jax_cap
 from recommendation_tpu_torch.ops.kmeans import (
+    _segment_sums,
     kmeans,
     kmeans_batches,
     kmeans_init,
@@ -158,3 +160,17 @@ def test_draws():
         kmeans_minibatch(torch.zeros(5, 2), init[:2] % 5, batches % 5, 3)
     for n in (1, 38, 39, 943, 1675, 10**6):
         assert ncl_cluster_cap(n) == jax_cap(n)
+
+
+@pytest.mark.parametrize("n,k,d", [(5000, 100, 64), (300, 10, 16), (1, 3, 4)])
+def test_segment_sums_are_index_add_bit_for_bit(n, k, d):
+    """The sorted segment sums equal ``index_add_``'s (sequential in index
+    order on the CPU) bit for bit, clusters left empty included."""
+    rng = np.random.default_rng(n + k)
+    x = torch.from_numpy((rng.normal(size=(n, d)) * 3).astype(np.float32))
+    assign = torch.from_numpy(rng.integers(0, max(1, k - 3), n))
+    sums, counts = _segment_sums(x, assign, k)
+    want = torch.zeros(k, d).index_add_(0, assign, x)
+    want_counts = torch.zeros(k).index_add_(0, assign, torch.ones(n))
+    assert sums.dtype == torch.float32 and torch.equal(sums, want)
+    assert counts.dtype == torch.float32 and torch.equal(counts, want_counts)

@@ -19,7 +19,16 @@ The cases:
   * the tables and moments held as row shards at (1, 2), whole at (2, 1);
     an odd row count replicated, not padded;
   * the sharded ``test()`` at (1, 2) equal to the single evaluator's metrics;
-  * DirectAU at data 2 refused at build, naming its uniformity term;
+  * every registered model on the data axis (the zoo, on the dense
+    backend; the social models on the social graph of ``tiny_data``): one
+    step at (2, 1) against the single step (each rank's loss, the data
+    group's summed gradient; NCL also with its E-step in every loss) and
+    one epoch (the third, where ESRF is adversarial and SEPT's SSL on)
+    against the single run's tables, state, moments and loss, within
+    DATA_TOL and DATA_REL_TOL (EPOCH_REL_TOL where a discrete choice may
+    flip); DirectAU's and NCL's summed gradients also against the JAX
+    package's gradient of the same loss on the same parameters and batch;
+    NCL's cluster state bit for bit across the ranks;
   * the per-rank checkpoints: the epoch-1 files hold the live shards and
     moments; a run resumed from the epoch-0 files equals the straight run's
     epoch 1 bit for bit; a (2, 1) run refuses the (1, 2) files;
@@ -32,6 +41,7 @@ Workers run one thread each; the world has a hard timeout that kills its
 processes and fails the fixture.
 """
 
+import hashlib
 import json
 import os
 import pathlib
@@ -64,6 +74,36 @@ DATA_TOL = dict(rtol=1e-5, atol=1e-6)
 DATA_REL_TOL = 1e-5
 SERVE_TOL = 1e-5  # scores of a d = 16 dot product, f32
 WORLD_TIMEOUT_S = 240
+# every registered model, as the data axis's cases: NCL also with its
+# E-step inside every loss. One step, and one epoch at ZOO_EPOCH of
+# ZOO_EPOCH + 1 (ESRF's adversarial phase, SEPT's SSL on, a late E-step).
+ZOO = ("lightgcn", "ncl", "ncl_batch", "directau", "selfcf", "buir", "ssl4rec", "gcl", "grace",
+       "gbt", "bgrl", "graphsage", "gat", "diffnet", "sept", "sept_basic", "mhcn", "esrf")
+SOCIAL = ("diffnet", "sept", "sept_basic", "mhcn", "esrf")
+ZOO_EPOCH = 2
+ZOO_CONF = {**CONF, "max.epoch": ZOO_EPOCH + 1, "eval.interval": ZOO_EPOCH + 1}
+# narrow widths, and NCL's two contrastive terms weighted to matter beside BPR
+ZOO_EXTRA = {
+    "ncl": {"NCL.ssl_reg": 1e-3, "NCL.proto_reg": 1e-3},
+    "ncl_batch": {"NCL.ssl_reg": 1e-3, "NCL.proto_reg": 1e-3, "NCL.e_step_cadence": "batch"},
+    "gat": {"GAT.hidden": 8, "GAT.num_heads": 2},
+    "ssl4rec": {"SSL4Rec.out_dim": 16},
+    "gcl": {"GCL.proj_dim": 16},
+    "grace": {"GRACE.proj_dim": 16},
+}
+# the epoch's bound where it differs from DATA_REL_TOL. ESRF's gradient
+# spans nine orders of magnitude (a BPR summed over the batch beside the
+# generator's entries through a gumbel softmax at temperature 0.2 over
+# log(clamp(logits))): the data group's other summation order moves a small
+# entry's low bits, and Adam's per-entry normalization carries that into a
+# whole step of that entry (3.6e-5 of the tables' largest magnitude after
+# one epoch; one step stays within DATA_REL_TOL)
+EPOCH_REL_TOL = {"esrf": 1e-4}
+JAX_CHECKED = ("directau", "ncl")
+
+
+def _zoo_model(case):
+    return "ncl" if case == "ncl_batch" else case
 
 
 def _tiny_data():
@@ -89,7 +129,10 @@ def _state(rec, name):
     sharded = getattr(rec, "sharded_params", set())
     for k, p in rec.params.items():
         st = rec.optimizer.state[p]
-        out[f"{name}/shard_rows/{k}"] = np.asarray([p.shape[0], st["exp_avg"].shape[0]])
+        if not st:  # a frozen parameter: no gradient, no moments
+            continue
+        out[f"{name}/shard_rows/{k}"] = np.asarray([p.shape[0] if p.dim() else 1,
+                                                    st["exp_avg"].shape[0] if p.dim() else 1])
         for m in ("exp_avg", "exp_avg_sq"):
             t = st[m]
             if k in sharded:
@@ -97,6 +140,30 @@ def _state(rec, name):
             out[f"{name}/{m}/{k}"] = t.numpy()
         out[f"{name}/step/{k}"] = np.asarray(float(st["step"]))
     return out
+
+
+def _one_step(rec, epoch, seed):
+    """One step of a built trainer with nothing updated: ``epoch_begin``
+    of ``epoch`` (its draws from a generator seeded ``seed``), then the
+    loss on the first batch of an epoch drawn from a generator seeded
+    ``seed + 1``, which also feeds the loss's draws. A sharded trainer
+    takes its rows of that batch (its placement's ``batch``) and gives the
+    data group's summed gradient. Returns (loss, {name: gradient}, the
+    state the loss read, the global batch)."""
+    from recommendation_tpu_torch.sampling import PairwiseBatch, epoch_batches, epoch_words
+    from recommendation_tpu_torch.train.loop import step_grads
+
+    state = rec.model.epoch_begin(rec.model_params(), rec.state, rec.graph,
+                                  torch.Generator().manual_seed(seed), epoch)
+    gen = torch.Generator().manual_seed(seed + 1)
+    arrays = epoch_batches(epoch_words(gen, rec.graph, rec.batch_size), rec.graph,
+                           rec.batch_size)
+    whole = PairwiseBatch(*(a[0] for a in arrays[:4]))
+    place = rec._placement
+    batch = whole if place is None else place.batch(whole)
+    loss, grads, _ = step_grads(rec.model, rec.graph, rec.params, state, batch, gen, place)
+    names = [k for k, p in rec.params.items() if p.requires_grad]
+    return loss.detach(), dict(zip(names, grads)), state, whole
 
 
 def _payload_equal(a, b):
@@ -188,12 +255,51 @@ def _worker(out_dir):
     info["odd_rows"] = {k: list(v.shape) for k, v in rec.params.items()}
     info["odd_sharded"] = sorted(rec.sharded_params)
 
-    # DirectAU at data 2: refused at build
-    try:
-        trainer(default_config(**CONF), graphs["segment"], "2x1", model="directau").build()
-        info["directau_2x1"] = None
-    except ValueError as err:
-        info["directau_2x1"] = str(err)
+    # every registered model at (2, 1) against the single run: one step
+    # (each rank's loss; the summed gradient), then one epoch
+    from recommendation_tpu_torch.data.social import synthesize_social
+    from recommendation_tpu_torch.graph.social_device import SocialDeviceGraph
+    from recommendation_tpu_torch.models import available
+
+    social = SocialDeviceGraph(data, synthesize_social(data, threshold=0.35, top_k=5),
+                               backend="dense", device="cpu")
+    info["zoo_trained_2x1"] = []
+    for case in ZOO:
+        config = default_config(**{**ZOO_CONF, **ZOO_EXTRA.get(case, {})})
+        graph = social if case in SOCIAL else graphs["dense"]
+        for name in ("single", "2x1"):
+            rec = trainer(config, graph, None if name == "single" else name, _zoo_model(case))
+            rec.build()
+            params0 = {k: v.detach().clone() for k, v in rec.model_params().items()}
+            loss, grads, state, whole = _one_step(rec, ZOO_EPOCH, seed=7)
+            prefix = f"zoo/{case}/{name}"
+            losses = [torch.zeros(()) for _ in range(dist.get_world_size())]
+            dist.all_gather(losses, loss)
+            out[f"{prefix}/first/loss"] = np.asarray([float(x) for x in losses])
+            for k, g in grads.items():
+                out[f"{prefix}/first/grad/{k}"] = g.numpy()
+            if case in ("ncl", "ncl_batch"):
+                digest = torch.tensor([int.from_bytes(hashlib.sha256(b"".join(
+                    state[k].numpy().tobytes() for k in sorted(state))).digest()[:7], "big")])
+                seen = [torch.zeros_like(digest) for _ in range(dist.get_world_size())]
+                dist.all_gather(seen, digest)
+                info[f"{case}_{name}_state_equal"] = all(torch.equal(x, seen[0]) for x in seen)
+            if case in JAX_CHECKED and name == "2x1":
+                for k, v in params0.items():
+                    out[f"zoo/{case}/jax/params/{k}"] = v.numpy()
+                for k, v in state.items():
+                    out[f"zoo/{case}/jax/state/{k}"] = v.numpy()
+                for k, v in zip(("users", "pos_items", "neg_items", "weight"), whole):
+                    out[f"zoo/{case}/jax/batch/{k}"] = v.numpy()
+            rec.start_epoch = ZOO_EPOCH  # one epoch: the last
+            rec.train()
+            out.update(_state(rec, prefix))
+            for k, v in rec.state.items():
+                if isinstance(v, torch.Tensor):
+                    out[f"{prefix}/state/{k}"] = v.numpy()
+            if name == "2x1":
+                info["zoo_trained_2x1"].append(rec.model.name)
+    info["registered"] = sorted({build(n, default_config()).name for n in available()})
 
     # per-rank checkpoints: a straight two-epoch run, a run resumed from its
     # epoch-0 files, and a (2, 1) run on its files
@@ -321,10 +427,103 @@ def test_sharded_evaluator_equals_single_evaluator(world):
     assert set(info["metrics_single"]) >= {"Recall@10", "NDCG@10"}
 
 
-def test_directau_at_data_two_names_its_uniformity_term(world):
+def test_no_registered_model_is_refused_at_data_two(world):
     _, info = world
-    assert info["directau_2x1"] is not None
-    assert "directau" in info["directau_2x1"] and "uniformity" in info["directau_2x1"]
+    assert info["registered"] and set(info["registered"]) <= set(info["zoo_trained_2x1"])
+
+
+def _part(k):
+    return k.split("/")[0] if "/" in k else "loss" if k == "loss" else "params"
+
+
+def _parts_within(single, sharded, rel_tol, what):
+    """Each part (the key's first component) by its largest difference over
+    its largest magnitude, within ``rel_tol``; and every entry within
+    DATA_TOL, whose atol is for values of unit scale: a part of larger
+    magnitude (a summed loss's gradients and moments) scales it by that
+    magnitude, and a part held to a wider ``rel_tol`` than DATA_REL_TOL
+    takes ``rel_tol`` of it."""
+    parts = {}
+    for k in single:
+        if not k.startswith("shard_rows/"):
+            diff, scale = parts.get(_part(k), (0.0, 0.0))
+            parts[_part(k)] = (max(diff, float(np.abs(sharded[k] - single[k]).max())),
+                               max(scale, float(np.abs(single[k]).max())))
+    for k in single:
+        if not k.startswith("shard_rows/"):
+            scale = parts[_part(k)][1]
+            atol = max(DATA_TOL["atol"] * max(1.0, scale),
+                       rel_tol * scale if rel_tol > DATA_REL_TOL else 0.0)
+            np.testing.assert_allclose(sharded[k], single[k], rtol=DATA_TOL["rtol"], atol=atol,
+                                       err_msg=f"{what} {k}")
+    for part, (diff, scale) in parts.items():
+        assert scale > 0 and diff <= rel_tol * scale, (what, part, diff, scale)
+    return parts
+
+
+@pytest.mark.parametrize("case", ZOO)
+def test_data_axis_step_is_the_single_step(world, case):
+    """Each rank's loss is the single step's; the data group's sum of the
+    ranks' gradients is the single gradient."""
+    cases, _ = world
+    single = _run(cases, f"zoo/{case}", "single")
+    sharded = _run(cases, f"zoo/{case}", "2x1")
+    want = float(single["first/loss"][0])
+    np.testing.assert_allclose(sharded["first/loss"], [want, want], **DATA_TOL)
+    grads = {k[len("first/"):]: v for k, v in single.items() if k.startswith("first/grad/")}
+    assert grads
+    _parts_within(grads, {k: sharded[f"first/{k}"] for k in grads}, DATA_REL_TOL,
+                  f"{case} step")
+
+
+@pytest.mark.parametrize("case", ZOO)
+def test_data_axis_epoch_is_the_single_run(world, case):
+    cases, _ = world
+    single = _run(cases, f"zoo/{case}", "single")
+    sharded = _run(cases, f"zoo/{case}", "2x1")
+    epoch = {k: v for k, v in single.items() if not k.startswith("first/")}
+    parts = _parts_within(epoch, sharded, EPOCH_REL_TOL.get(case, DATA_REL_TOL), f"{case} epoch")
+    assert {"params", "exp_avg", "exp_avg_sq", "loss"} <= set(parts)
+    assert len(single["loss"]) == 1 and np.isfinite(single["loss"]).all()
+
+
+@pytest.mark.parametrize("case", ["ncl", "ncl_batch"])
+def test_ncl_cluster_state_is_the_same_on_every_rank(world, case):
+    _, info = world
+    assert info[f"{case}_2x1_state_equal"] and info[f"{case}_single_state_equal"]
+
+
+@pytest.mark.parametrize("case", JAX_CHECKED)
+def test_data_axis_gradient_is_the_jax_gradient(world, tiny_data, tiny_graph, case):
+    """The (2, 1) summed gradient against the JAX package's gradient of the
+    same loss on the same parameters, state and global batch (converted
+    through ``weights.py``)."""
+    import jax
+    import jax.numpy as jnp
+
+    import recommendation_tpu.sampling as js
+    from recommendation_tpu.config import default_config as jax_default_config
+    from recommendation_tpu.models import get_model
+    from recommendation_tpu_torch.weights import params_from_jax
+
+    cases, _ = world
+    run = _run(cases, f"zoo/{case}", "jax")
+    params = {k[len("params/"):]: v for k, v in run.items() if k.startswith("params/")}
+    state = {k[len("state/"):]: jnp.asarray(v) for k, v in run.items() if k.startswith("state/")}
+    converted = params_from_jax(case, params, device="cpu")
+    assert all(np.array_equal(converted[k].numpy(), v) for k, v in params.items())
+    jbatch = js.PairwiseBatch(*(jnp.asarray(run[f"batch/{k}"])
+                                for k in ("users", "pos_items", "neg_items", "weight")))
+    jm = get_model(case, jax_default_config(**{**ZOO_CONF, **ZOO_EXTRA.get(case, {})}))
+    want = jax.jit(jax.grad(lambda p: jm.loss(p, state, jbatch, tiny_graph,
+                                              jax.random.PRNGKey(0))[0]))(
+        {k: jnp.asarray(v) for k, v in params.items()})
+    sharded = _run(cases, f"zoo/{case}", "2x1")
+    for k, w in want.items():
+        w = np.asarray(w)
+        assert np.abs(w).max() > 0
+        np.testing.assert_allclose(sharded[f"first/grad/{k}"], w, rtol=1e-5,
+                                   atol=1e-6 * np.abs(w).max(), err_msg=f"{case} {k}")
 
 
 def test_per_rank_checkpoint_round_trip_and_resume(world):
