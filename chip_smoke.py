@@ -199,7 +199,18 @@ What it does, in order (any failed phase exits non-zero):
      step of each model of SHARDED_ZOO on the hard set (bucketed; the
      social models on its trust graph) against this process's single
      step: each rank's loss, the data group's summed gradient within
-     SHARDED_DATA_TOL, each rank's launches the single step's. A world of
+     SHARDED_DATA_TOL, each rank's launches the single step's. Between
+     the two it takes edge-parallel propagation (the segment backend at
+     data > 1: each rank pulls its row range of ``norm_adj`` with P1 and
+     the rows are all-gathered) on the clustered set's segment graph:
+     LightGCN's ``eval_embeddings`` on the initial tables the single
+     forward bit for bit, LightGCN's and NCL's (K5/K6 too) first
+     SHARDED_SNAPSHOT_STEPS steps held as the epochs are, each rank's
+     launches the single run's, each rank's rows, slots (summing to the
+     view's) and P1 device µs a step reported; after the zoo, one step of
+     each EDGE_ZOO model (those whose step reads ``norm_adj`` or a
+     ``with_vals`` copy of it) on the hard set's segment graphs, held as
+     the zoo's steps are. A world of
      this script's own ranks (``python3 chip_smoke.py --sharded-checks``)
      restores the (1, 2) run from its per-rank checkpoints: its sharded
      ``test()`` equal to the single evaluator's metrics on its tables, its
@@ -216,7 +227,8 @@ What it does, in order (any failed phase exits non-zero):
      bucketed_zoo line, the neighbors line, the social line, the int8 line,
      the sharded line, the kernels line (every kernel must have launched on
      a main path; each f32 row carries each sharded run's launches by rank
-     as ``launches_sharded_<layout>[_<model>|_steps]``) and, last, the
+     as ``launches_sharded_<layout>[_<model>|_steps|_edge_<model>|
+     _edge_steps]``) and, last, the
      device line.
 
 Launch counts are reset just before each main path and read just after it.
@@ -3926,6 +3938,24 @@ SHARDED_SNAPSHOT_STEPS = 8
 # 0.18 (the summed gradient doubled) and 0.17 to 0.74 (each rank's batch
 # cut to half its rows), every moment of theirs 0.85 to 3.0 away
 SHARDED_EPOCH_TOL = {"ncl": {"params": 1e-3}}
+# edge-parallel propagation (the segment backend at data > 1: each data rank
+# pulls its row range of norm_adj's row-sorted view and the rows are
+# all-gathered, ``ops/spmm.py``), in the (2, 1) world on the clustered
+# set's segment graph at full width: LightGCN's forward on the initial
+# tables bit for bit, then LightGCN's and NCL's first SHARDED_SNAPSHOT_STEPS
+# steps (NCL after its E-step) held as the epochs above are; each rank's
+# launches the single run's. Then one step of each model whose propagation
+# reads norm_adj or a with_vals copy of it (DirectAU's and BGRL's
+# binarized one, BUIR's dropped edges) on the hard set's segment graphs:
+# GCL and SEPT-basic read it in their evaluation only (their steps
+# propagate over normalized_bipartite), GRACE and G-BT read
+# norm_adj_selfloops, GraphSAGE and GAT the bipartite views, DiffNet and
+# MHCN the social matrices, SSL4Rec no graph
+EDGE_STEP_MODELS = ("lightgcn", "ncl")
+EDGE_ZOO = ("lightgcn", "ncl", "directau", "selfcf", "buir", "bgrl", "sept", "esrf")
+# their steps at LATE_EPOCH, but ESRF's at epoch 0 (its first phase: after
+# it the generator's social links replace each norm_adj layer)
+EDGE_STEP_EPOCH = {"esrf": 0}
 
 
 def table_gap(got, want):
@@ -3970,14 +4000,15 @@ def state_digest(state) -> str:
     return h.hexdigest()
 
 
-def sharded_zoo_graphs(device):
-    """The hard set and the two bucketed graphs the data axis's one-step
-    checks run on (the trust graph for the social models), as every rank
-    builds them from the seed."""
-    train, test = make_hard_dataset()
-    data = Interaction(train, test)
-    return data, {"plain": DeviceGraph(data, backend="bucketed", device=device),
-                  "social": SocialDeviceGraph(data, synthesize_social(data), backend="bucketed",
+def sharded_zoo_graphs(device, backend="bucketed", data=None):
+    """The hard set (``data``, else made here) and the two graphs the data
+    axis's one-step checks run on (the trust graph for the social models),
+    on ``backend``, as every rank builds them from the seed."""
+    if data is None:
+        train, test = make_hard_dataset()
+        data = Interaction(train, test)
+    return data, {"plain": DeviceGraph(data, backend=backend, device=device),
+                  "social": SocialDeviceGraph(data, synthesize_social(data), backend=backend,
                                               device=device)}
 
 
@@ -4008,13 +4039,13 @@ def trainer_step(rec, epoch, seed):
     return loss.detach(), dict(zip(names, grads)), state
 
 
-def zoo_step(rec):
-    """One step of a built recommender (``trainer_step`` at LATE_EPOCH:
-    ESRF adversarial, SEPT's SSL on, NCL after an E-step) with its
-    launches: (loss, {name: gradient on the host}, launches, the state's
-    digest)."""
+def zoo_step(rec, epoch=LATE_EPOCH):
+    """One step of a built recommender (``trainer_step`` at ``epoch``, by
+    default LATE_EPOCH: ESRF adversarial, SEPT's SSL on, NCL after an
+    E-step) with its launches: (loss, {name: gradient on the host},
+    launches, the state's digest)."""
     reset_counts()
-    loss, grads, state = trainer_step(rec, LATE_EPOCH, SHARDED_STEP_SEED)
+    loss, grads, state = trainer_step(rec, epoch, SHARDED_STEP_SEED)
     torch.cuda.synchronize()
     return (float(loss), {k: g.detach().cpu() for k, g in grads.items()}, all_counts(),
             state_digest(state))
@@ -4033,10 +4064,7 @@ def sharded_zoo_single():
     out = {}
     for name in SHARDED_ZOO:
         graph = graphs["social" if name in SOCIAL_MODELS else "plain"]
-        config = sharded_zoo_config(name)
-        rec = GraphRecommender(build(name, config), data, config, graph=graph,
-                               log=Log(echo=False), device="cuda")
-        rec.build()
+        rec = make_trainer(name, data, graph, sharded_zoo_config(name))
         out[name] = zoo_step(rec)
         want = zoo_step_launches(name, graph, rec.model)
         if out[name][2] != want:
@@ -4052,16 +4080,19 @@ def sharded_data_worker(run_dir, pairs_path, conf_json):
     world took the data axis's checks too), then NCL's and GAT's epoch
     (``snapshot_epoch``, on the same pairs at the same configuration; the
     checkpoints in ``run_dir/<model>/ckpt``, rank 0's snapshot in
-    ``run_dir/<model>/snapshot.pt``), then one step of every model of
-    SHARDED_ZOO on the hard set (``zoo_step``). Each rank writes
-    ``data_rank<r>.json`` (each epoch's state and snapshot digests,
-    launches and stats; every step's loss, launches and state digest);
-    rank 0 writes the summed gradients to ``zoo_grads.npz``."""
+    ``run_dir/<model>/snapshot.pt``), then the edge-parallel runs on the
+    clustered set's segment graph (``edge_runs``; rank 0's tables in
+    ``run_dir/edge.pt``), one step of every model of SHARDED_ZOO on the
+    hard set (``zoo_step``) and of every EDGE_ZOO model on its segment
+    graphs (``edge_zoo_steps``). Each rank writes ``data_rank<r>.json``
+    (each epoch's state and snapshot digests, launches and stats; every
+    step's loss, launches and state digest; the edge-parallel reports);
+    rank 0 writes the summed gradients to ``zoo_grads.npz`` and
+    ``edge_zoo_grads.npz``."""
     import torch.distributed as dist
 
     from recommendation_tpu_torch.parallel.distributed import fit, initialize
     from recommendation_tpu_torch.parallel.mesh import MeshSpec, make_mesh
-    from recommendation_tpu_torch.parallel.trainer import ShardedGraphRecommender
 
     torch.backends.cuda.matmul.allow_tf32 = False
     device = initialize("gloo", "cuda")
@@ -4082,26 +4113,156 @@ def sharded_data_worker(run_dir, pairs_path, conf_json):
             torch.save(snap, os.path.join(out, "snapshot.pt"))
         del rec, snap
         torch.cuda.empty_cache()
-    del lightgcn
+    t0 = time.perf_counter()
+    report["edge"], edge_tables = edge_runs(lightgcn.data, conf, device, mesh)
+    if rank == 0:
+        torch.save(edge_tables, os.path.join(run_dir, "edge.pt"))
+    del lightgcn, edge_tables
+    torch.cuda.empty_cache()
+    report["edge_s"] = time.perf_counter() - t0
     data, graphs = sharded_zoo_graphs(device)
     grads = {}
     t0 = time.perf_counter()
     for name in SHARDED_ZOO:
-        config = sharded_zoo_config(name)
-        rec = ShardedGraphRecommender(build(name, config), data, config,
-                                      graph=graphs["social" if name in SOCIAL_MODELS else "plain"],
-                                      mesh=mesh, log=Log(echo=False), device=device)
-        rec.build()
+        rec = make_trainer(name, data, graphs["social" if name in SOCIAL_MODELS else "plain"],
+                           sharded_zoo_config(name), mesh)
         loss, g, launches, digest = zoo_step(rec)
         report["steps"][name] = {"loss": loss, "launches": launches, "state_digest": digest}
         grads.update({f"{name}/{k}": v.numpy() for k, v in g.items()})
     report["zoo_s"] = time.perf_counter() - t0
+    del graphs
+    t0 = time.perf_counter()
+    report["edge_steps"], edge_grads = edge_zoo_steps(device, mesh, data)
+    report["edge_zoo_s"] = time.perf_counter() - t0
     if rank == 0:
         np.savez(os.path.join(run_dir, "zoo_grads.npz"), **grads)
+        np.savez(os.path.join(run_dir, "edge_zoo_grads.npz"), **edge_grads)
     with open(os.path.join(run_dir, f"data_rank{rank}.json"), "w") as f:
         json.dump(report, f)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def make_trainer(name, data, graph, config, mesh=None):
+    """A single trainer of ``name`` on ``graph``'s device, or a sharded one
+    over ``mesh``, built."""
+    if mesh is None:
+        rec = GraphRecommender(build(name, config), data, config, graph=graph,
+                               log=Log(echo=False), device=graph.device)
+    else:
+        from recommendation_tpu_torch.parallel.trainer import ShardedGraphRecommender
+
+        rec = ShardedGraphRecommender(build(name, config), data, config, graph=graph, mesh=mesh,
+                                      log=Log(echo=False), device=graph.device)
+    rec.build()
+    return rec
+
+
+def edge_run(name, data, graph, conf, mesh=None):
+    """``name``'s first SHARDED_SNAPSHOT_STEPS steps on the segment graph
+    ``graph`` at ``conf``, by a single trainer or a sharded one over
+    ``mesh`` (edge-parallel at data > 1): ``epoch_begin`` of epoch 0 (NCL's
+    E-step) and the steps on the batches of generators seeded from
+    SHARDED_STEP_SEED, through the trainer's step loop and placement
+    (``train.loop.run_steps``), under ``torch.profiler``. LightGCN's
+    ``eval_embeddings`` on the initial tables first. Returns (the report:
+    the propagation path with the rank's rows and slots, launches, P1's
+    device µs a step, the steps' host seconds, the last loss; the
+    tables: the forward where it was taken, ``tables_and_moments`` after the
+    steps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    config = default_config(**{**conf, "graph.backend": "segment", "max.epoch": 1})
+    seconds = {}
+    t0 = time.perf_counter()
+    rec = make_trainer(name, data, graph, config, mesh)
+    report = {"propagation": rec.edge_report() if mesh is not None
+              else {"propagation": "replicated"}, "seconds": seconds}
+    torch.cuda.synchronize()
+    seconds["build"] = time.perf_counter() - t0
+    tables = {}
+    if name == "lightgcn":
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            tables["forward"] = tuple(t.cpu() for t in rec.model.eval_embeddings(
+                rec.model_params(), rec.state, rec.graph))
+        report["forward_digest"] = hashlib.sha256(b"".join(
+            t.numpy().tobytes() for t in tables["forward"])).hexdigest()
+        seconds["forward"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state = rec.model.epoch_begin(rec.model_params(), rec.state, rec.graph,
+                                  torch.Generator().manual_seed(SHARDED_STEP_SEED), 0)
+    gen = torch.Generator().manual_seed(SHARDED_STEP_SEED + 1)
+    users, items, negs, weights, _ = epoch_batches(
+        epoch_words(gen, rec.graph, rec.batch_size), rec.graph, rec.batch_size)
+    k = SHARDED_SNAPSHOT_STEPS
+    window = (users[:k], items[:k], negs[:k], weights[:k], k)
+    torch.cuda.synchronize()
+    seconds["epoch_begin"] = time.perf_counter() - t0
+    reset_counts()
+    calls = spmm.edge_parallel_matmul.calls
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events: a quick read
+        t0 = time.perf_counter()
+        rec.state, loss = run_steps(rec.model, rec.optimizer, rec.graph, rec.params, state,
+                                    window, gen, rec._placement)
+        report["loss"] = float(loss)
+        report["host_s"] = time.perf_counter() - t0
+    report["launches"] = all_counts()
+    report["edge_parallel_products"] = spmm.edge_parallel_matmul.calls - calls
+    t0 = time.perf_counter()
+    p1_us = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type.name == "CUDA" and "gather_sum" in e.key)
+    report["p1_device_us_per_step"] = p1_us / k if p1_us > 0 else "not measured"
+    seconds["profile_read"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tables["steps"] = tables_and_moments(rec)
+    report["snapshot_digest"] = payload_digest(tables["steps"])
+    seconds["snapshot"] = time.perf_counter() - t0
+    del rec
+    torch.cuda.empty_cache()
+    return report, tables
+
+
+def edge_runs(data, conf, device, mesh=None):
+    """EDGE_STEP_MODELS' ``edge_run`` on the clustered set's segment graph
+    (built here, as every rank builds it): ({model: report}, {model:
+    tables}), with the whole view's slot count in LightGCN's report."""
+    t0 = time.perf_counter()
+    graph = DeviceGraph(data, backend="segment", compute_dtype="float32", device=device)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    reports, tables = {}, {}
+    for name in EDGE_STEP_MODELS:
+        reports[name], tables[name] = edge_run(name, data, graph, conf, mesh)
+    reports["lightgcn"]["view_slots"] = int(graph.norm_adj.seg.n_slots)
+    reports["lightgcn"]["seconds"]["graph"] = graph_s
+    del graph
+    torch.cuda.empty_cache()
+    return reports, tables
+
+
+def edge_zoo_steps(device, mesh=None, data=None):
+    """One step of each EDGE_ZOO model on the hard set's segment graphs
+    (``sharded_zoo_graphs``; ``data`` the hard set, else made there) by
+    ``zoo_step``, single or sharded over ``mesh``: ({model: loss,
+    launches, state digest, edge-parallel products}, {model/param:
+    gradient})."""
+    data, graphs = sharded_zoo_graphs(device, "segment", data)
+    steps, grads = {}, {}
+    for name in EDGE_ZOO:
+        rec = make_trainer(name, data, graphs["social" if name in SOCIAL_MODELS else "plain"],
+                           sharded_zoo_config(name), mesh)
+        calls = spmm.edge_parallel_matmul.calls
+        loss, g, launches, digest = zoo_step(rec, EDGE_STEP_EPOCH.get(name, LATE_EPOCH))
+        steps[name] = {"loss": loss, "launches": launches, "state_digest": digest,
+                       "edge_parallel_products": spmm.edge_parallel_matmul.calls - calls}
+        if mesh is not None and not steps[name]["edge_parallel_products"]:
+            raise RuntimeError(f"{name}'s step at (2, 1) on the segment graph made no "
+                               "edge-parallel product")
+        grads.update({f"{name}/{k}": v.numpy() for k, v in g.items()})
+    del graphs
+    torch.cuda.empty_cache()
+    return steps, grads
 
 
 class StepSnapshot:
@@ -4162,16 +4323,7 @@ def snapshot_epoch(name, data, graph, conf, mesh=None):
     after SHARDED_SNAPSHOT_STEPS steps (``StepSnapshot``). Returns (the
     trained recommender, the copy, every kernel's launches over
     ``train()``)."""
-    config = default_config(**{**conf, "max.epoch": 1})
-    if mesh is None:
-        rec = GraphRecommender(build(name, config), data, config, graph=graph,
-                               log=Log(echo=False), device="cuda")
-    else:
-        from recommendation_tpu_torch.parallel.trainer import ShardedGraphRecommender
-
-        rec = ShardedGraphRecommender(build(name, config), data, config, graph=graph, mesh=mesh,
-                                      log=Log(echo=False), device=graph.device)
-    rec.build()
+    rec = make_trainer(name, data, graph, default_config(**{**conf, "max.epoch": 1}), mesh)
     snap = StepSnapshot(rec, (SHARDED_SNAPSHOT_STEPS,))
     rec._placement = snap
     reset_counts()
@@ -4271,6 +4423,99 @@ def sharded_data_checks(out, graph, n_batches, zoo_single, epoch_single):
     return {"epochs": epochs, "steps": steps, "zoo_s": max(r["zoo_s"] for r in reports)}
 
 
+def edge_checks(out, single, zoo_single, card):
+    """The (2, 1) world's edge-parallel runs against the single runs made
+    in this process: each rank edge-parallel, its slots summing to the
+    whole view's; LightGCN's forward the single forward bit for bit on
+    every rank; LightGCN's and NCL's tables and Adam moments after
+    SHARDED_SNAPSHOT_STEPS steps within SHARDED_DATA_TOL (or
+    SHARDED_EPOCH_TOL), alike on both ranks, each rank's launches the
+    single run's; each EDGE_ZOO step's summed gradient and each rank's loss
+    within SHARDED_DATA_TOL, each rank's launches the single step's."""
+    reports = rank_reports(out, 2, "data_")
+    (single_reports, single_tables), (single_steps, single_grads) = single, zoo_single
+    tables = torch.load(os.path.join(out, "edge.pt"))
+    ranks = [r["edge"] for r in reports]
+    props = [r["lightgcn"]["propagation"] for r in ranks]
+    view_slots = single_reports["lightgcn"]["view_slots"]
+    if (any(p.get("propagation") != "edge-parallel" for p in props)
+            or [p["part"] for p in props] != [0, 1]
+            or sum(p["slots"] for p in props) != view_slots
+            or any(p["ranges"] != props[0]["ranges"] for p in props)):
+        raise RuntimeError(f"edge-parallel 2x1: the ranks' paths {props}, the view's slots "
+                           f"{view_slots}")
+    want_u, want_i = single_tables["lightgcn"]["forward"]
+    got_u, got_i = tables["lightgcn"]["forward"]
+    forward_gap = max((got_u - want_u).abs().max().item(), (got_i - want_i).abs().max().item())
+    digests = {r["lightgcn"]["forward_digest"] for r in ranks}
+    if not (torch.equal(got_u, want_u) and torch.equal(got_i, want_i)) or digests != {
+            single_reports["lightgcn"]["forward_digest"]}:
+        raise RuntimeError(f"edge-parallel 2x1: LightGCN's forward differs from the single "
+                           f"forward by {forward_gap}, rank digests {digests}")
+    models = {}
+    for name in EDGE_STEP_MODELS:
+        bounds = {**SHARDED_DATA_TOL, **SHARDED_EPOCH_TOL.get(name, {})}
+        same, gaps = table_gap(tables[name]["steps"], single_tables[name]["steps"])
+        launches = [r[name]["launches"] for r in ranks]
+        want = single_reports[name]["launches"]
+        if (any(got != want for got in launches)
+                or len({r[name]["snapshot_digest"] for r in ranks}) != 1
+                or any(gaps[p] > bounds[p] for p in gaps)
+                or any(r[name]["edge_parallel_products"] <= 0 for r in ranks)):
+            raise RuntimeError(f"edge-parallel 2x1 {name}: relative gaps after "
+                               f"{SHARDED_SNAPSHOT_STEPS} steps {gaps} (bounds {bounds}), "
+                               f"launches {launches} against {want}, snapshot digests "
+                               f"{[r[name]['snapshot_digest'] for r in ranks]}")
+        models[name] = {"snapshot_steps": SHARDED_SNAPSHOT_STEPS, "relative_gap": gaps,
+                        "bounds": {p: bounds[p] for p in gaps}, "bit_for_bit": bool(same),
+                        "tables_equal_on_ranks": True, "launches_by_rank": launches,
+                        "edge_parallel_products_by_rank": [r[name]["edge_parallel_products"]
+                                                           for r in ranks],
+                        "p1_device_us_per_step_by_rank": [r[name]["p1_device_us_per_step"]
+                                                          for r in ranks],
+                        "single_p1_device_us_per_step":
+                            single_reports[name]["p1_device_us_per_step"],
+                        "host_s_per_step_by_rank": [r[name]["host_s"] / SHARDED_SNAPSHOT_STEPS
+                                                    for r in ranks],
+                        "single_host_s_per_step":
+                            single_reports[name]["host_s"] / SHARDED_SNAPSHOT_STEPS,
+                        "seconds_by_rank": [r[name]["seconds"] for r in ranks],
+                        "single_seconds": single_reports[name]["seconds"]}
+    grads = np.load(os.path.join(out, "edge_zoo_grads.npz"))
+    steps = {}
+    for name in EDGE_ZOO:
+        want = {k[len(name) + 1:]: torch.from_numpy(v) for k, v in single_grads.items()
+                if k.startswith(f"{name}/")}
+        got = {k: grads[f"{name}/{k}"] for k in want}
+        single = single_steps[name]
+        rank_steps = [r["edge_steps"][name] for r in reports]
+        gaps = {"grad": grad_gap(got, want),
+                "loss": max(abs(r["loss"] - single["loss"]) for r in rank_steps)
+                / max(abs(single["loss"]), 1e-30)}
+        if (any(gaps[p] > SHARDED_DATA_TOL[p] for p in gaps)
+                or any(r["launches"] != single["launches"] for r in rank_steps)
+                or len({r["state_digest"] for r in rank_steps}) != 1):
+            raise RuntimeError(f"edge-parallel 2x1 {name} step: relative gaps {gaps} (bounds "
+                               f"{SHARDED_DATA_TOL}), launches "
+                               f"{[r['launches'] for r in rank_steps]} against "
+                               f"{single['launches']}")
+        steps[name] = {**gaps, "launches_by_rank": [r["launches"] for r in rank_steps],
+                       "edge_parallel_products_by_rank": [r["edge_parallel_products"]
+                                                          for r in rank_steps],
+                       "state_equal_single": rank_steps[0]["state_digest"]
+                       == single["state_digest"]}
+    print(f"edge-parallel 2x1 ({card}): ranges {props[0]['ranges']}, slots "
+          f"{[p['slots'] for p in props]} of {view_slots}, P1 device us a step by rank "
+          f"{ {n: m['p1_device_us_per_step_by_rank'] for n, m in models.items()} }")
+    return {"card": card, "set": "clustered, segment, f32, d=64, L=3, B=8192",
+            "ranges": props[0]["ranges"], "slots_by_rank": [p["slots"] for p in props],
+            "transpose_slots_by_rank": [p["transpose_slots"] for p in props],
+            "view_slots": view_slots, "forward_bit_for_bit": True, "forward_gap": forward_gap,
+            "models": models, "steps": steps,
+            "edge_s": max(r["edge_s"] for r in reports),
+            "edge_zoo_s": max(r["edge_zoo_s"] for r in reports)}
+
+
 def sharded_phase(data, graph, card):
     """The sharded trainer, evaluator, service and checkpoints
     (``parallel/``) on the clustered bucketed graph at full width (f32,
@@ -4291,8 +4536,10 @@ def sharded_phase(data, graph, card):
     straight run's bit for bit, and NCL's E-step the same on both ranks.
     The (2, 1) world is this script's own ranks (``sharded_data_worker``):
     after LightGCN's ``fit`` it takes the data axis's checks
-    (``sharded_data_checks``) against the single runs made here first
-    (``sharded_zoo_single``, ``sharded_epoch_single``). Each rank's
+    (``sharded_data_checks``) and the edge-parallel checks
+    (``edge_checks``) against the single runs made here first
+    (``sharded_zoo_single``, ``sharded_epoch_single``, ``edge_runs``,
+    ``edge_zoo_steps``). Each rank's
     launches are held to ``expected_launches``. Two ranks share one card
     over gloo: the seconds are no scaling figure."""
     t0 = time.perf_counter()
@@ -4330,6 +4577,9 @@ def sharded_phase(data, graph, card):
                                       "host_s_per_step": single_run[4] / n_batches,
                                       "train_s": single_run[5]}
         runs["single_zoo_steps_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        edge_single = (edge_runs(data, conf, "cuda"), edge_zoo_steps("cuda"))
+        runs["single_edge_s"] = time.perf_counter() - t1
         worlds = []
         for layout, backend, epochs in SHARDED_WORLDS:
             out = os.path.join(tmp, layout)
@@ -4359,6 +4609,7 @@ def sharded_phase(data, graph, card):
             if layout == "2x1":
                 runs[layout]["data_axis"] = sharded_data_checks(out, graph, n_batches,
                                                                 zoo_single, epoch_single)
+                runs[layout]["edge_parallel"] = edge_checks(out, *edge_single, card)
             print(f"sharded {layout} ({backend}): train {runs[layout]['train_s']:.1f} s, "
                   f"host s a step by epoch {runs[layout]['host_s_per_step']}, relative gaps "
                   f"{runs[layout]['relative_gap']}")
@@ -4506,8 +4757,9 @@ def add_sharded_launches(kernel_rows, sharded):
     """Each layout's ranks' launches into the kernels rows (a fused row's
     into the kernel it runs in, ``launches_of``): LightGCN's K7 and P1 in
     every layout; at (2, 1) also NCL's and GAT's epochs and every model's
-    step (``data_axis``). The bf16 rows take none (every sharded run is
-    f32)."""
+    step (``data_axis``), and the edge-parallel runs (``edge_parallel``:
+    LightGCN's and NCL's steps, the norm_adj readers' steps). The bf16 rows
+    take none (every sharded run is f32)."""
     rows = [r for r in kernel_rows if r.get("dtype", "float32") == "float32"]
     for layout, run in sharded["runs"].items():
         if not isinstance(run, dict) or "launches_by_rank" not in run:
@@ -4515,11 +4767,15 @@ def add_sharded_launches(kernel_rows, sharded):
         parts = {"": run["launches_by_rank"]}
         for name, sub in run.get("data_axis", {}).get("epochs", {}).items():
             parts[f"_{name}"] = sub["launches_by_rank"]
-        steps = run.get("data_axis", {}).get("steps", {})
-        if steps:
-            parts["_steps"] = [{k: sum(s["launches_by_rank"][r][k] for s in steps.values())
-                                for k in steps[next(iter(steps))]["launches_by_rank"][r]}
-                               for r in range(2)]
+        edge = run.get("edge_parallel", {})
+        for name, sub in edge.get("models", {}).items():
+            parts[f"_edge_{name}"] = sub["launches_by_rank"]
+        for label, steps in (("_steps", run.get("data_axis", {}).get("steps", {})),
+                             ("_edge_steps", edge.get("steps", {}))):
+            if steps:
+                parts[label] = [{k: sum(s["launches_by_rank"][r][k] for s in steps.values())
+                                 for k in steps[next(iter(steps))]["launches_by_rank"][r]}
+                                for r in range(2)]
         for row in rows:
             name = row.get("launches_of", row["name"])
             for label, by_rank in parts.items():

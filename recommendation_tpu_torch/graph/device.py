@@ -44,6 +44,7 @@ are the same).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional
 
@@ -61,7 +62,13 @@ from recommendation_tpu_torch.graph.bucketed import (
     refresh_vals,
     slot_maps,
 )
-from recommendation_tpu_torch.ops.segment import SegmentCSR, segment_csr
+from recommendation_tpu_torch.ops.segment import (
+    SegmentCSR,
+    row_cut,
+    row_range_view,
+    rows_transpose_view,
+    segment_csr,
+)
 
 # Graphs whose dense adjacency is at most this many f32 elements use the
 # dense backend (the JAX package's threshold, kept so both choose alike).
@@ -114,6 +121,47 @@ def _check_compute_dtype(compute_dtype: str) -> None:
 
 
 @dataclasses.dataclass
+class EdgeShard:
+    """One data rank's part of a segment adjacency's edges, for
+    edge-parallel propagation (``ops/spmm.py``): ``ranges``, every rank's
+    row range ``(lo, hi)`` of the row-sorted view in the group's rank order
+    (``ops.segment.row_cut``); ``part``, this rank's index in them;
+    ``fwd``, its rows of ``seg`` (``row_range_view``); ``bwd``, the slots
+    of ``seg_t`` whose forward row is one of them (``rows_transpose_view``);
+    ``group``, the process group the rows are gathered over (None outside
+    a world)."""
+
+    ranges: tuple
+    part: int
+    fwd: SegmentCSR
+    bwd: SegmentCSR
+    group: object = None
+
+    @property
+    def rows(self) -> tuple:
+        return self.ranges[self.part]
+
+    @property
+    def n_slots(self) -> int:
+        return self.fwd.n_slots
+
+
+def shard_rows(adj: "DeviceAdj", parts: int, part: int, group=None) -> "DeviceAdj":
+    """``adj`` (segment backend) with ``shard``: rank ``part`` of
+    ``parts``'s row range of its row-sorted view, cut at row boundaries into
+    ranges of about E_pad / parts slots, and its two views. Raises where
+    the adjacency has no row-sorted view to cut."""
+    if adj.backend != "segment" or adj.seg is None:
+        raise ValueError(f"edge sharding takes a segment adjacency with its views, got the "
+                         f"{adj.backend!r} backend")
+    ranges = row_cut(adj.seg.row_ptr, parts)
+    lo, hi = ranges[part]
+    return dataclasses.replace(adj, shard=EdgeShard(
+        ranges=ranges, part=part, fwd=row_range_view(adj.seg, lo, hi),
+        bwd=rows_transpose_view(adj.seg_t, lo, hi), group=group))
+
+
+@dataclasses.dataclass
 class DeviceAdj:
     """A normalized sparse adjacency on the device. ``rows``/``cols``/``vals``
     are the COO (row-sorted as built) padded to a multiple of ``EDGE_PAD``
@@ -129,7 +177,12 @@ class DeviceAdj:
     pallas) backend ``seg`` and ``seg_t`` are the row-sorted views of the
     COO by its rows and by its columns (``ops/segment.py``), which
     ``with_vals`` keeps (the values are gathered into slot order per
-    product); ``rows_sorted`` says the COO itself is sorted by row."""
+    product); ``rows_sorted`` says the COO itself is sorted by row.
+    ``shard`` (segment backend, set by a sharded trainer's placement,
+    ``shard_rows``) makes ``adj_matmul`` edge-parallel: this rank pulls its
+    row range and the rows are gathered over the data group. ``with_vals``
+    keeps it (its views' ``perm`` put the new values in their slot order);
+    ``transpose`` does not."""
 
     rows: torch.Tensor  # i32[E_pad]
     cols: torch.Tensor  # i32[E_pad]
@@ -144,6 +197,7 @@ class DeviceAdj:
     rows_sorted: bool = False
     seg: Optional[SegmentCSR] = dataclasses.field(default=None, repr=False)
     seg_t: Optional[SegmentCSR] = dataclasses.field(default=None, repr=False)
+    shard: Optional[EdgeShard] = dataclasses.field(default=None, repr=False)
     _dense: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
     _dense_operand: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
 
@@ -282,7 +336,7 @@ def with_vals(adj: DeviceAdj, vals: torch.Tensor) -> DeviceAdj:
     positions): the hook every value-level augmentation goes through. The
     dense matrix is rebuilt from them (at its first access) and the
     bucketed tables are refreshed on the device, which keeps
-    ``sym_rowspace``."""
+    ``sym_rowspace``. The segment views and an edge shard are kept."""
     return dataclasses.replace(
         adj, vals=vals, _dense=None, _dense_operand=None,
         pull=None if adj.pull is None else refresh_vals(adj.pull, vals),
@@ -499,6 +553,14 @@ class DeviceGraph:
         if self._norm_adj is None:
             self._norm_adj = self._upload_norm_adj()
         return self._norm_adj
+
+    def with_norm_adj(self, adj: DeviceAdj) -> "DeviceGraph":
+        """A shallow copy of the graph whose ``norm_adj`` is ``adj``, every
+        other table shared (a sharded trainer's edge-sharded adjacency, kept
+        off the graph its caller passed)."""
+        graph = copy.copy(self)
+        graph._norm_adj = adj
+        return graph
 
     def _upload_norm_adj(self) -> DeviceAdj:
         adj = from_scipy(self._norm_adj_host, backend=self.backend,

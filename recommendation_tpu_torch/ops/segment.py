@@ -54,6 +54,7 @@ import dataclasses
 import functools
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -112,6 +113,77 @@ def segment_csr(rows: torch.Tensor, cols: torch.Tensor, n_rows: int, n_cols: int
                       slot_row=rows[perm].to(torch.int32).contiguous(), perm=perm, work=work,
                       work_start=work_start, n_partials=n_partials, n_rows=n_rows,
                       n_cols=n_cols)
+
+
+def row_cut(row_ptr: torch.Tensor, parts: int) -> Tuple[Tuple[int, int], ...]:
+    """``parts`` contiguous row ranges ``(lo, hi)`` that cover a view's rows
+    in order, each of about S / parts slots: the k-th cut is the row
+    boundary nearest k·S / parts (the lower on a tie, the first of equal
+    boundaries), so a range's slots are within one row's slots of
+    S / parts. Read on the host from ``row_ptr``: every rank computes the
+    same cut."""
+    if parts < 1:
+        raise ValueError(f"row_cut: parts must be at least 1, got {parts}")
+    ptr = row_ptr.cpu().numpy()
+    total = int(ptr[-1])
+    bounds = [0]
+    for k in range(1, parts):
+        j = int(np.searchsorted(ptr * parts, k * total))  # the first boundary at the target or past
+        if j > 0 and k * total - int(ptr[j - 1]) * parts <= int(ptr[j]) * parts - k * total:
+            j = int(np.searchsorted(ptr, ptr[j - 1]))  # the lower one: its first boundary
+        bounds.append(max(j, bounds[-1]))
+    bounds.append(len(ptr) - 1)
+    ranges = tuple(zip(bounds[:-1], bounds[1:]))
+    check_row_cut(ranges, row_ptr)
+    return ranges
+
+
+def check_row_cut(ranges, row_ptr: torch.Tensor) -> None:
+    """Raise unless ``ranges`` cover the rows of ``row_ptr`` exactly once,
+    in order (each range starts where the last ended, the first at row 0,
+    the last ends at the last row), and so every slot exactly once."""
+    n_rows = row_ptr.shape[0] - 1
+    at = 0
+    for part, (lo, hi) in enumerate(ranges):
+        if lo != at or hi < lo:
+            raise ValueError(f"row cut {list(ranges)}: range {part} is [{lo}, {hi}), where rows "
+                             f"from {at} on were due: a row is in no range or in two")
+        at = hi
+    if at != n_rows:
+        raise ValueError(f"row cut {list(ranges)} ends at row {at} of {n_rows}")
+
+
+def row_range_view(view: SegmentCSR, lo: int, hi: int) -> SegmentCSR:
+    """Rows ``[lo, hi)`` of ``view`` as a view of their own (row r − lo of
+    it is row r), their slots in the same order, with its own P1 schedule.
+    P1 sums each of its rows as it sums that row of ``view``: a row's
+    pieces depend on its length and ``CHUNK`` only."""
+    ptr = view.row_ptr.cpu()
+    s0, s1 = int(ptr[lo]), int(ptr[hi])
+    row_ptr = (view.row_ptr[lo:hi + 1] - s0).contiguous()
+    work, work_start, n_partials = pull_schedule(row_ptr)
+    return SegmentCSR(row_ptr=row_ptr, idx=view.idx[s0:s1].clone(),
+                      slot_row=(view.slot_row[s0:s1] - lo).to(torch.int32),
+                      perm=view.perm[s0:s1].clone(), work=work, work_start=work_start,
+                      n_partials=n_partials, n_rows=hi - lo, n_cols=view.n_cols)
+
+
+def rows_transpose_view(view_t: SegmentCSR, lo: int, hi: int) -> SegmentCSR:
+    """The slots of the transpose view ``view_t`` whose forward row (their
+    ``idx``) lies in ``[lo, hi)``, in their order, that index rebased to
+    ``lo``: the transpose of ``row_range_view(view, lo, hi)``, every row of
+    ``view_t`` kept (most of them shorter), with its own P1 schedule. P1
+    over it pulls rows ``[lo, hi)`` of a gradient back to all of
+    ``view_t``'s rows."""
+    keep = (view_t.idx >= lo) & (view_t.idx < hi)
+    rows = view_t.slot_row[keep].long()
+    counts = torch.bincount(rows, minlength=view_t.n_rows)
+    row_ptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    work, work_start, n_partials = pull_schedule(row_ptr)
+    return SegmentCSR(row_ptr=row_ptr, idx=(view_t.idx[keep] - lo).to(torch.int32),
+                      slot_row=rows.to(torch.int32), perm=view_t.perm[keep], work=work,
+                      work_start=work_start, n_partials=n_partials, n_rows=view_t.n_rows,
+                      n_cols=hi - lo)
 
 
 def transpose_map(fwd: SegmentCSR, bwd: SegmentCSR) -> torch.Tensor:

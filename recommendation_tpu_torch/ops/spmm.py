@@ -13,6 +13,18 @@ the JAX package gathers the [E, d] messages and ``segment_sum``s them. The
 ``pallas`` backend runs the segment branch, with one logged warning a
 process, as the JAX package's ``ops/pallas_spmm.py`` does.
 
+A segment adjacency with an edge shard (``DeviceAdj.shard``, placed by a
+sharded trainer where the JAX package shards the COO over its data axis,
+``recommendation_tpu/parallel/trainer.py:93-97``) is edge-parallel: each
+data rank runs P1 over its row range of the row-sorted view and the rows
+are all-gathered over the data group (``parallel.collectives.
+gather_row_blocks``); the backward sums the group's gradient shares, keeps
+the rank's rows and pulls them through the transpose view's slots of those
+rows, which gives the rank's share of ``Aᵀ g``. Each row sums its slots in
+the order the whole view's P1 sums them, so the forward is the replicated
+one bit for bit on the card. Every rank of the group must make each such
+call. ``edge_parallel_matmul.calls`` counts them.
+
 ``plain_products()`` makes every ``adj_matmul`` the plain COO product
 (``segment_matmul_plain``) while it is open, on any backend and in f32 or
 float64: the reference a step on the card is held against.
@@ -34,6 +46,7 @@ from recommendation_tpu_torch.graph.bucketed import bucketed_matmul
 from recommendation_tpu_torch.graph.device import DeviceAdj
 from recommendation_tpu_torch.ops.gather import gather_sum
 from recommendation_tpu_torch.ops.segment import SegmentSoftmax, segment_csr, segment_pull
+from recommendation_tpu_torch.parallel.collectives import gather_row_blocks
 
 _warned = False
 _plain = False  # set by plain_products()
@@ -64,11 +77,27 @@ def adj_matmul(adj: DeviceAdj, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"adj_matmul: unknown backend {adj.backend!r}")
 
 
+def edge_parallel_matmul(adj: DeviceAdj, x: torch.Tensor) -> torch.Tensor:
+    """``adj @ x`` over an edge-sharded segment adjacency: P1 over the
+    rank's row range (``shard.fwd``, the values in its slot order), the
+    transpose view of those rows (``shard.bwd``) as the backward's, and the
+    rows gathered over the data group."""
+    sh = adj.shard
+    edge_parallel_matmul.calls += 1
+    y = segment_pull(x, sh.fwd, sh.bwd, val=adj.vals[sh.fwd.perm], val_t=adj.vals[sh.bwd.perm])
+    return gather_row_blocks(y, sh.ranges, sh.part, sh.group)
+
+
+edge_parallel_matmul.calls = 0
+
+
 def _segment_matmul(adj: DeviceAdj, x: torch.Tensor) -> torch.Tensor:
     """``adj @ x`` over the row-sorted views: P1 with the values in slot
     order, ``Aᵀ g`` through the transpose view as the backward. The edge
     values take no gradient (as on the bucketed backend; ``segment_pull``
-    raises if they require one)."""
+    raises if they require one). With an edge shard, edge-parallel."""
+    if adj.shard is not None:
+        return edge_parallel_matmul(adj, x)
     seg, seg_t = adj.segment_views()
     return segment_pull(x, seg, seg_t, val=adj.vals[seg.perm], val_t=adj.vals[seg_t.perm])
 

@@ -13,9 +13,13 @@
     all-gathered rows (pairs i < j by global index), then an all-reduce SUM.
 
 These three give values (no gradient), as the JAX package's tests use them.
-The trainer's all-gather carries autograd: ``gather_rows``, whose
+The trainer's all-gathers carry autograd: ``gather_rows``, whose
 backward keeps the rank's own rows of the gradient (the ranks that
-gathered computed the same thing, so nothing is summed). The all-reduces
+gathered computed the same thing, so nothing is summed), and
+``gather_row_blocks``, edge-parallel propagation's gather of each data
+rank's row range, whose backward sums the ranks' shares of the gradient
+(each rank's loss reads every rank's rows) and keeps the rank's own
+range. The all-reduces
 (``all_reduce``, and ``reduce_sum`` with the identity as its backward,
 which the losses read) are in ``ops/group.py``.
 
@@ -60,6 +64,34 @@ def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     order), differentiable: the gradient of the full table comes back as
     its rows of this rank, not summed over the group."""
     return _GatherRows.apply(x, group)
+
+
+class _GatherRowBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, ranges, part, group):
+        lo, hi = ranges[part]
+        ctx.args = (lo, hi, group)
+        width = max(b - a for a, b in ranges)
+        if y.shape[0] < width:  # equal blocks for the all-gather, trimmed after it
+            y = torch.cat([y, y.new_zeros((width - y.shape[0],) + tuple(y.shape[1:]))])
+        blocks = all_gather_cat(y, group).split(width)
+        return torch.cat([blk[:b - a] for blk, (a, b) in zip(blocks, ranges)])
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo, hi, group = ctx.args
+        return all_reduce(grad, group)[lo:hi].contiguous(), None, None, None
+
+
+def gather_row_blocks(y: torch.Tensor, ranges, part: int, group) -> torch.Tensor:
+    """The whole table from each rank's block of rows: ``y`` holds rows
+    ``ranges[part]`` (``part`` is this rank's index in ``group``), every
+    rank's block is padded to the widest for one all-gather and trimmed
+    after it. Differentiable: the gradient of the whole table is this
+    rank's share of the global gradient (``ops/group.py``), so the
+    backward sums the group's shares (an all-reduce) and keeps the rank's
+    own rows."""
+    return _GatherRowBlocks.apply(y, tuple(ranges), part, group)
 
 
 def sharded_topk(user_emb: torch.Tensor, local_items: torch.Tensor, k: int, mesh):

@@ -28,7 +28,8 @@ One process a rank and a device, joined by ``torch.distributed``:
   * ``fit`` (``--jobs fit``): ``ShardedGraphRecommender`` of any
     registered model (``--model``, LightGCN by default) on a pairs file in
     every rank, over one layout, with its per-rank checkpoints and a report
-    a rank.
+    a rank (with the propagation path: edge-parallel on the segment backend
+    at data > 1, each rank's rows and slots).
 
 Every entry point runs on the card (the dryruns and the command line over
 NCCL) unless the caller names another device or backend:
@@ -359,6 +360,7 @@ def _worker_serve(out_path: Optional[str], ckpt_path: Optional[str] = None, devi
         params = load_params(init_path, "lightgcn", device=graph.device)
     else:
         params, _ = model.init(torch.Generator().manual_seed(7), graph)
+    # the rank's own replicated graph: this product makes no collective
     user_emb, item_emb = model.eval_embeddings(params, {}, graph)
     mesh = None
     if not single:
@@ -481,9 +483,10 @@ def fit(data_path: str, mesh, config, out: str, device: torch.device, model: str
     ``data_path``, trained over ``mesh`` with ``config``, its per-rank
     checkpoints in ``out/ckpt``. Each rank writes ``out/rank<r>.json``: the
     model, the layout, the shards' rows, the epochs' losses and seconds,
-    the graph's, the build's and ``train()``'s seconds and every kernel's
-    launches over ``train()`` (``kernel_wrappers``). Returns the trained
-    recommender."""
+    the graph's, the build's and ``train()``'s seconds, every kernel's
+    launches over ``train()`` (``kernel_wrappers``) and the propagation
+    path with each rank's rows and slots (``edge_report``). Returns the
+    trained recommender."""
     from recommendation_tpu_torch.graph.device import DeviceGraph
     from recommendation_tpu_torch.models import build
     from recommendation_tpu_torch.parallel.trainer import ShardedGraphRecommender
@@ -521,6 +524,7 @@ def fit(data_path: str, mesh, config, out: str, device: torch.device, model: str
         "steps_per_epoch": -(-graph.n_edges // rec.batch_size),
         "epochs": rec.epoch_stats, "graph_s": t1 - t0, "build_s": t2 - t1, "train_s": t3 - t2,
         "launches": {f.__name__: f.launches for f in kernels},
+        "propagation": rec.edge_report(),
     }
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(report, f)

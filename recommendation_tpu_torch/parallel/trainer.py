@@ -15,10 +15,29 @@ rank of a ``(data, model)`` mesh (``parallel/mesh.py``):
     the model group into the full tables (``collectives.gather_rows``); its
     backward keeps the rank's own rows of the full table's gradient, which
     every model rank computed alike;
-  * **propagation** runs whole on every rank over the replicated graph,
-    with the port's kernels (K7 and P1 on the bucketed backend, K1 and K2 on
-    the dense one, S1 and S2 for GAT, K5 and K6 for NCL's contrast), as
-    ``trainer.py:81-97`` does for the bucketed backend;
+  * **propagation** over ``norm_adj`` is edge-parallel where the JAX
+    package shards its COO over the data axis (``trainer.py:93-97``): the
+    data axis larger than 1, ``norm_adj`` on the segment backend, and its
+    padded edge count dividing by the world size. Each data rank then owns
+    a contiguous row range of the row-sorted view, cut at row boundaries
+    into about E_pad / data slots each (``ops.segment.row_cut``, the same
+    cut on every rank and for every model rank of a data index), runs P1
+    over those rows and all-gathers the rows over the data group
+    (``ops/spmm.py``); the backward pulls the summed gradient of its rows
+    through the transpose view's slots of those rows, the rank's share of
+    ``Aᵀ g``. The shard rides every ``with_vals`` copy of ``norm_adj``
+    (DirectAU's and BGRL's binarized one, BUIR's dropped edges); the other
+    adjacencies (``transpose()``, ``normalized_bipartite``,
+    ``norm_adj_selfloops``, GAT's and GraphSAGE's views) stay whole, as in
+    the JAX package, which builds them from arrays it does not shard. The
+    sharded ``norm_adj`` lives on the trainer's own shallow copy of the
+    graph (``DeviceGraph.with_norm_adj``): a trainer or service built on
+    the caller's graph stays replicated. ``edge_report()`` says which
+    path the trainer took, and each rank's rows and slots.
+    Elsewhere propagation runs whole on every rank over the replicated
+    graph, with the port's kernels (K7 and P1 on the bucketed backend, K1
+    and K2 on the dense one, S1 and S2 for GAT, K5 and K6 for NCL's
+    contrast), as ``trainer.py:81-97`` does for the bucketed backend;
   * **losses**: at data > 1 every model's ``loss`` returns the global
     batch's value on every rank, and its backward is the rank's share of
     the global gradient (``ops/group.py``). A term over the batch's rows
@@ -40,9 +59,9 @@ tables, draws and kernels, the gradient only sliced. At ``data > 1`` it
 differs by the order of the data group's sums; every registered model
 takes the data axis. NCL's E-step clusters the same tables alike on every
 rank (``ops/kmeans.py`` sums without atomics), so every rank holds the
-same centroids and assignments. GSPMD's edge sharding of the segment
-backend's propagation (``trainer.py:93-97``) has no counterpart yet:
-propagation is replicated.
+same centroids and assignments. Edge-parallel propagation keeps each
+row's sum order, so its forward is the replicated one bit for bit on the
+card, and its backward differs by the data group's sum.
 
 ``test()`` is the sharded evaluator where the mesh has a model axis: the
 padded item table row-sharded, ``sharded_topk`` over blocks of test users,
@@ -53,7 +72,11 @@ layout.
 
 Every rank runs the same calls in the same order: evaluation is
 replicated (every rank ranks the full tables), and the collectives are
-synchronous.
+synchronous. So ``test()``, ``predict()``, the epoch's evaluation and
+``RecommenderService.from_recommender`` on a sharded trainer are
+collective, every rank makes them: ``model_params()`` gathers the tables
+over the model group, and an edge-sharded product gathers its rows over
+the data group.
 """
 
 from __future__ import annotations
@@ -71,6 +94,7 @@ from recommendation_tpu_torch.models.base import Model
 from recommendation_tpu_torch.ops.topk import mask_seen_post_merge, train_edge_keys
 from recommendation_tpu_torch.parallel.collectives import gather_rows, sharded_topk
 from recommendation_tpu_torch.parallel.embedding import pad_rows_to
+from recommendation_tpu_torch.graph.device import shard_rows
 from recommendation_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
@@ -141,13 +165,50 @@ class ShardedGraphRecommender(GraphRecommender):
         self.mesh = mesh if mesh is not None else make_mesh(device_type=self.graph.device.type)
         self.spec = mesh_spec(self.mesh)
         self._n_model = self.spec.model
+        self.replicated_graph = self.graph  # the caller's: never given the shard
 
     # -- placement ------------------------------------------------------------
 
     def build(self):
         rows = batch_rows(self.batch_size, self.mesh)  # raises where B does not divide
         self._rows = rows
+        self.graph = self._place_graph(self.replicated_graph)
+        report = self.edge_report()
+        if report["propagation"] == "edge-parallel":
+            self.log.add(f"edge-parallel propagation: data rank {report['part']} of "
+                         f"{self.spec.data} pulls rows {report['rows']} "
+                         f"({report['slots']} of {sum(report['slots_by_rank'])} slots)")
         super().build()
+
+    def _place_graph(self, graph):
+        """The graph this rank trains on: ``graph`` itself, or where the JAX
+        package shards the main adjacency's COO over the data axis
+        (``trainer.py:93-97``: data > 1, ``norm_adj`` on the segment backend,
+        its padded edge count dividing by the world size) a shallow copy
+        whose ``norm_adj`` carries this data rank's edge shard."""
+        if self.spec.data <= 1 or graph.backend != "segment":
+            return graph
+        adj = graph.norm_adj
+        if adj.backend != "segment" or adj.vals.shape[0] % (self.spec.data * self.spec.model):
+            return graph
+        group = axis_group(self.mesh, DATA_AXIS)
+        return graph.with_norm_adj(shard_rows(adj, self.spec.data, dist.get_rank(group), group))
+
+    def edge_report(self) -> Dict[str, Any]:
+        """The propagation path ('edge-parallel' where ``norm_adj`` carries
+        an edge shard, after ``build``; else 'replicated') and, where it is
+        edge-parallel, this rank's part, its row range and slot count, and
+        every rank's ranges and slots (from the host's row pointers: no
+        collective)."""
+        adj = getattr(self.graph, "_norm_adj", None)  # the dense backend uploads it at first use
+        sh = None if adj is None else adj.shard
+        if sh is None:
+            return {"propagation": "replicated"}
+        ptr = adj.seg.row_ptr.cpu()
+        return {"propagation": "edge-parallel", "part": sh.part, "rows": list(sh.rows),
+                "slots": sh.n_slots, "ranges": [list(r) for r in sh.ranges],
+                "slots_by_rank": [int(ptr[hi] - ptr[lo]) for lo, hi in sh.ranges],
+                "transpose_slots": sh.bwd.n_slots}
 
     def _place(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         out, sharded = shard_params(params, self.mesh)

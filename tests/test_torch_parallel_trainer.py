@@ -100,6 +100,13 @@ ZOO_EXTRA = {
 # one epoch; one step stays within DATA_REL_TOL)
 EPOCH_REL_TOL = {"esrf": 1e-4}
 JAX_CHECKED = ("directau", "ncl")
+# edge-parallel propagation (the segment backend at (2, 1)): one step of the
+# models over norm_adj and its with_vals copies (DirectAU's binarized one,
+# BUIR's dropped edges) against the single step; LightGCN's and DirectAU's
+# against the JAX package's gradient on its own edge-sharded placement
+EDGE_CASES = ("lightgcn", "directau", "buir")
+EDGE_JAX_CHECKED = ("lightgcn", "directau")
+EDGE_CONF = {**ZOO_CONF, "graph.backend": "segment"}
 
 
 def _zoo_model(case):
@@ -175,6 +182,105 @@ def _payload_equal(a, b):
     return same and a["epoch"] == b["epoch"] and a["layout"] == b["layout"]
 
 
+def _propagation(rec):
+    """A sharded trainer's propagation path (None for a single trainer)."""
+    return rec.edge_report()["propagation"] if hasattr(rec, "edge_report") else None
+
+
+class _CountCollectives:
+    """Counts ``torch.distributed``'s all-gathers and all-reduces while
+    open."""
+
+    NAMES = ("all_gather", "all_reduce", "all_gather_object")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.n, self.saved = 0, {k: getattr(dist, k) for k in self.NAMES}
+
+        def counted(fn):
+            def call(*args, **kwargs):
+                self.n += 1
+                return fn(*args, **kwargs)
+            return call
+
+        for k, fn in self.saved.items():
+            setattr(dist, k, counted(fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for k, fn in self.saved.items():
+            setattr(dist, k, fn)
+
+
+def _edge_forward(rec, graph, out, info):
+    """The segment (2, 1) run's edge-parallel path: every rank's report,
+    and ``eval_embeddings`` over its sharded graph beside the replicated
+    graph's on the same tables (with the edge-parallel products it made)."""
+    import torch.distributed as dist
+
+    from recommendation_tpu_torch.ops.spmm import edge_parallel_matmul
+
+    reports = [None] * dist.get_world_size()
+    dist.all_gather_object(reports, rec.edge_report())
+    info["edge_reports"] = reports
+    info["edge_e_pad"] = int(graph.norm_adj.vals.shape[0])
+    info["edge_n_rows"] = int(graph.norm_adj.n_rows)
+    params = rec.model_params()
+    calls = edge_parallel_matmul.calls
+    with torch.no_grad():
+        sharded = rec.model.eval_embeddings(params, rec.state, rec.graph)
+        info["edge_forward_calls"] = edge_parallel_matmul.calls - calls
+        whole = rec.model.eval_embeddings(params, rec.state, graph)
+    for tag, tables in (("sharded", sharded), ("replicated", whole)):
+        for name, t in zip(("user", "item"), tables):
+            out[f"edge/forward/{tag}/{name}"] = t.numpy()
+
+
+def _edge_steps(trainer, graph, out, info):
+    """EDGE_CASES' one step on the segment graph, single and (2, 1) (the
+    edge-parallel products each made, the collectives of the single step),
+    LightGCN's and DirectAU's inputs for the JAX package's gradient; then a
+    single trainer on the same graph object, which must make no
+    collective."""
+    from recommendation_tpu_torch.config import default_config
+    from recommendation_tpu_torch.ops.spmm import edge_parallel_matmul
+
+    for case in EDGE_CASES:
+        config = default_config(**EDGE_CONF)
+        for name in ("single", "2x1"):
+            rec = trainer(config, graph, None if name == "single" else name, case)
+            rec.build()
+            params0 = {k: v.detach().clone() for k, v in rec.model_params().items()}
+            calls = edge_parallel_matmul.calls
+            with _CountCollectives() as counted:
+                loss, grads, state, whole = _one_step(rec, ZOO_EPOCH, seed=7)
+            prefix = f"edge/{case}/{name}"
+            info[f"{prefix}/calls"] = edge_parallel_matmul.calls - calls
+            info[f"{prefix}/collectives"] = counted.n
+            info[f"{prefix}/propagation"] = _propagation(rec)
+            out[f"{prefix}/loss"] = np.asarray(float(loss))
+            for k, g in grads.items():
+                out[f"{prefix}/grad/{k}"] = g.numpy()
+            if case in EDGE_JAX_CHECKED and name == "2x1":
+                for k, v in params0.items():
+                    out[f"edge/{case}/jax/params/{k}"] = v.numpy()
+                for k, v in state.items():
+                    out[f"edge/{case}/jax/state/{k}"] = v.numpy()
+                for k, v in zip(("users", "pos_items", "neg_items", "weight"), whole):
+                    out[f"edge/{case}/jax/batch/{k}"] = v.numpy()
+    # the caller's graph after every sharded build: replicated, no collective
+    info["edge_shared_graph_unsharded"] = graph.norm_adj.shard is None
+    rec = trainer(default_config(**EDGE_CONF), graph)
+    rec.build()
+    with _CountCollectives() as counted:
+        _one_step(rec, ZOO_EPOCH, seed=7)
+        rec.test()
+    info["edge_shared_graph_collectives"] = counted.n
+
+
 def _worker(out_dir):
     torch.set_num_threads(1)
     import torch.distributed as dist
@@ -214,7 +320,9 @@ def _worker(out_dir):
             rec.build()
             rec.train()
             out.update(_state(rec, f"{backend}/{name}"))
+            info[f"propagation/{backend}/{name}"] = _propagation(rec)
         if backend == "segment":
+            _edge_forward(runs["2x1"], graphs[backend], out, info)
             info["metrics_single"] = runs["single"].test().metrics
             info["metrics_sharded"] = runs["1x2"].test().metrics
             info["sharded_1x2"] = sorted(runs["1x2"].sharded_params)
@@ -300,6 +408,7 @@ def _worker(out_dir):
             if name == "2x1":
                 info["zoo_trained_2x1"].append(rec.model.name)
     info["registered"] = sorted({build(n, default_config()).name for n in available()})
+    _edge_steps(trainer, graphs["segment"], out, info)
 
     # per-rank checkpoints: a straight two-epoch run, a run resumed from its
     # epoch-0 files, and a (2, 1) run on its files
@@ -524,6 +633,126 @@ def test_data_axis_gradient_is_the_jax_gradient(world, tiny_data, tiny_graph, ca
         assert np.abs(w).max() > 0
         np.testing.assert_allclose(sharded[f"first/grad/{k}"], w, rtol=1e-5,
                                    atol=1e-6 * np.abs(w).max(), err_msg=f"{case} {k}")
+
+
+def test_edge_parallel_path_is_taken_where_it_should_be(world):
+    """The segment (2, 1) run is edge-parallel, every other run replicated
+    (the bucketed and dense backends, as the JAX package's rule has it);
+    the ranks' row ranges cover the rows in order and every slot once."""
+    _, info = world
+    for backend in BACKENDS:
+        for name in ("single", "1x2", "2x1"):
+            want = ("edge-parallel" if (backend, name) == ("segment", "2x1")
+                    else None if name == "single" else "replicated")
+            assert info[f"propagation/{backend}/{name}"] == want, (backend, name)
+    reports = info["edge_reports"]
+    assert [r["part"] for r in reports] == [0, 1]
+    ranges = reports[0]["ranges"]
+    assert all(r["ranges"] == ranges and r["propagation"] == "edge-parallel" for r in reports)
+    assert ranges[0][0] == 0 and ranges[0][1] == ranges[1][0] and ranges[1][1] == info[
+        "edge_n_rows"]
+    assert [r["rows"] for r in reports] == ranges
+    assert [r["slots"] for r in reports] == reports[0]["slots_by_rank"]
+    assert sum(r["slots"] for r in reports) == info["edge_e_pad"]
+    assert sum(r["transpose_slots"] for r in reports) == info["edge_e_pad"]
+    assert all(r["slots"] > 0 for r in reports)
+
+
+def test_edge_parallel_forward_is_the_replicated_forward(world):
+    """``eval_embeddings`` over the (2, 1) run's edge-sharded graph is the
+    replicated graph's on the same tables, bit for bit (the plain P1 sums
+    each row's slots in the same order in a rank's block), through
+    L = 3 edge-parallel products."""
+    cases, info = world
+    assert info["edge_forward_calls"] == 3
+    for name in ("user", "item"):
+        sharded = cases[f"edge/forward/sharded/{name}"]
+        assert np.array_equal(sharded, cases[f"edge/forward/replicated/{name}"]), name
+        assert np.abs(sharded).max() > 0
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_edge_parallel_step_is_the_single_step(world, case):
+    """The models over ``norm_adj`` and its ``with_vals`` copies at (2, 1)
+    on the segment graph: edge-parallel in the step, the summed gradient
+    the single step's within DATA_REL_TOL, the loss within DATA_TOL."""
+    cases, info = world
+    assert info[f"edge/{case}/2x1/propagation"] == "edge-parallel"
+    assert info[f"edge/{case}/2x1/calls"] > 0 and info[f"edge/{case}/single/calls"] == 0
+    assert info[f"edge/{case}/single/collectives"] == 0
+    single = _run(cases, f"edge/{case}", "single")
+    sharded = _run(cases, f"edge/{case}", "2x1")
+    np.testing.assert_allclose(sharded["loss"], single["loss"], **DATA_TOL)
+    grads = {k: v for k, v in single.items() if k.startswith("grad/")}
+    assert grads
+    _parts_within(grads, {k: sharded[k] for k in grads}, DATA_REL_TOL, f"{case} edge step")
+
+
+def test_shared_graph_keeps_the_replicated_path(world):
+    """The sharded trainers keep their shard on their own copy of the
+    graph: a single trainer built on the same graph object afterwards
+    steps and evaluates without a collective."""
+    _, info = world
+    assert info["edge_shared_graph_unsharded"]
+    assert info["edge_shared_graph_collectives"] == 0
+    assert info["edge/lightgcn/2x1/collectives"] > 0  # the counter sees the sharded step's
+
+
+@pytest.fixture(scope="module")
+def jax_edge_grads(world, tiny_data):
+    """EDGE_JAX_CHECKED's gradients from the JAX package on a segment
+    graph placed by its own ``ShardedGraphRecommender`` over a (2, 1) CPU
+    mesh (its COO sharded over ``data``), at the inputs of the port's
+    (2, 1) step; with the placed adjacency's shardings."""
+    import jax
+    import jax.numpy as jnp
+
+    import recommendation_tpu.sampling as js
+    from recommendation_tpu.config import default_config as jax_default_config
+    from recommendation_tpu.graph.device import DeviceGraph as JaxDeviceGraph
+    from recommendation_tpu.models import get_model
+    from recommendation_tpu.parallel.mesh import MeshSpec as JaxMeshSpec
+    from recommendation_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from recommendation_tpu.parallel.trainer import ShardedGraphRecommender as JaxSharded
+    from recommendation_tpu.utils.logging import Log as JaxLog
+
+    cases, _ = world
+    mesh = jax_make_mesh(JaxMeshSpec(data=2, model=1))
+    out = {}
+    for case in EDGE_JAX_CHECKED:
+        config = jax_default_config(**EDGE_CONF)
+        graph = JaxDeviceGraph(tiny_data, backend="segment")
+        jm = get_model(case, config)
+        JaxSharded(jm, tiny_data, config, graph=graph, mesh=mesh, log=JaxLog(echo=False)).build()
+        run = _run(cases, f"edge/{case}", "jax")
+        params = {k[len("params/"):]: jnp.asarray(v) for k, v in run.items()
+                  if k.startswith("params/")}
+        state = {k[len("state/"):]: jnp.asarray(v) for k, v in run.items()
+                 if k.startswith("state/")}
+        batch = js.PairwiseBatch(*(jnp.asarray(run[f"batch/{k}"])
+                                   for k in ("users", "pos_items", "neg_items", "weight")))
+        grad = jax.jit(jax.grad(lambda p, g: jm.loss(p, state, batch, g,
+                                                     jax.random.PRNGKey(0))[0]))(params, graph)
+        adj = graph.norm_adj
+        out[case] = ({k: np.asarray(jax.block_until_ready(v)) for k, v in grad.items()},
+                     {f: tuple(getattr(adj, f).sharding.spec) for f in ("rows", "cols", "vals")})
+    return out
+
+
+@pytest.mark.parametrize("case", EDGE_JAX_CHECKED)
+def test_edge_parallel_gradient_is_the_jax_edge_sharded_gradient(world, jax_edge_grads, case):
+    """The (2, 1) segment step's summed gradient against the JAX package's
+    gradient of the same loss on the same inputs, its adjacency's COO
+    sharded over ``data`` by its own trainer (``trainer.py:93-97``)."""
+    cases, _ = world
+    want, specs = jax_edge_grads[case]
+    assert specs == {f: ("data",) for f in ("rows", "cols", "vals")}, specs
+    sharded = _run(cases, f"edge/{case}", "2x1")
+    for k, w in want.items():
+        assert np.abs(w).max() > 0
+        np.testing.assert_allclose(sharded[f"grad/{k}"], w, rtol=DATA_TOL["rtol"],
+                                   atol=DATA_TOL["atol"] * np.abs(w).max(),
+                                   err_msg=f"{case} {k}")
 
 
 def test_per_rank_checkpoint_round_trip_and_resume(world):
