@@ -41,7 +41,7 @@ What it does, in order (any failed phase exits non-zero):
      The mean loss must fall, Recall@20 must beat the most-popular list
      (and come within 0.005 of it with train positives masked),
      K1 and K2 must launch 3 times a step (plus K1 for each evaluation),
-     and a ``torch.profiler`` window of 20 steps says where the step's time
+     and a ``torch.profiler`` window of PROFILE_STEPS steps says where the step's time
      goes. In bf16 and in f32;
   7. NCL train phase: the same for NCL at its defaults (d=64, L=3, context
      layer 2, tau 0.1, 24 user and 42 item clusters, an E-step per epoch):
@@ -170,7 +170,8 @@ What it does, in order (any failed phase exits non-zero):
      numpy one on the clustered adjacency (bit for bit, host seconds) and
      ``Interaction.from_files`` against ``Interaction(load_data(...))`` on
      the hard set's files; ``python -m recommendation_tpu_torch tune`` as a
-     subprocess (a 2 x 2 grid with a rate that must fail alone, its CSV,
+     subprocess, one epoch a configuration (a 2 x 2 grid with a rate that
+     must fail alone, its CSV; then in this process through ``cli.main``,
      ``--resume`` running nothing, a preset's univariate sweep cut by
      ``--grid``); ``evaluate_rating`` on the card against the host, the LR
      and SVM probes on the card, ``profile_trace`` and ``Throughput`` around
@@ -222,14 +223,33 @@ What it does, in order (any failed phase exits non-zero):
      world's wall seconds and each layout's seconds and host seconds a step
      go in the sharded line, with the card's name and power limit: two
      ranks share one card, so they are no scaling figure;
- 16. prints the serving line, the training line, the NCL line, the large
+ 16. the epoch as CUDA graphs (``graphed_check``, ``train/graphed.py``):
+     the trainers above replay their LightGCN and NCL epochs from the
+     second on, and for each configuration of the slice (LightGCN dense
+     bf16 and f32 and NCL dense f32, after the NCL train phase; LightGCN on
+     the clustered bucketed graph, after its gate runs; NCL on the hard
+     set's bucketed graph, in the hard phase; LightGCN on the clustered
+     segment graph, in the neighbour phase; LightGCN at d = 256 int8, in
+     the int8 phase) the trainer's ``GraphedEpoch`` warms up and captures
+     on one epoch, then GRAPHED_REPEATS times a replayed epoch and an eager
+     one (``train_epoch``) from the same parameters, Adam moments, state
+     and words must agree bit for bit, each epoch's launches
+     ``expected_launches``' (a replay adds its graph's), their host
+     seconds the medians of host µs a step, and one more pair under
+     torch.profiler gives device µs a step and the idle share
+     (``profile_steps``' method), with each capture's seconds and pool
+     bytes; on the clustered bucketed graph the epoch in chunks of
+     GRAPHED_CHUNK steps (a full chunk's graph and the remainder's) too;
+     and a fused block of two epochs against two epochs (dense f32). A
+     ``graphed:`` line a configuration prints as it ends;
+ 17. prints the serving line, the training line, the NCL line, the large
      line, the clustered line, the hard line, the hard_zoo line, the
      bucketed_zoo line, the neighbors line, the social line, the int8 line,
-     the sharded line, the kernels line (every kernel must have launched on
-     a main path; each f32 row carries each sharded run's launches by rank
-     as ``launches_sharded_<layout>[_<model>|_steps|_edge_<model>|
-     _edge_steps]``) and, last, the
-     device line.
+     the sharded line, the graphed line, the kernels line (every kernel
+     must have launched on a main path; each f32 row carries each sharded
+     run's launches by rank as ``launches_sharded_<layout>[_<model>|_steps|
+     _edge_<model>|_edge_steps]``; a row without a library time says why in
+     ``library_note``) and, last, the device line.
 
 Launch counts are reset just before each main path and read just after it.
 Exits non-zero without printing a result where no CUDA device is present.
@@ -240,6 +260,7 @@ from __future__ import annotations
 import contextlib
 import csv
 import hashlib
+import io
 import json
 import math
 import os
@@ -256,6 +277,7 @@ import numpy as np
 import torch
 
 from recommendation_tpu_torch.cli import build_service
+from recommendation_tpu_torch.cli import main as cli_main
 from recommendation_tpu_torch.config import default_config
 from recommendation_tpu_torch import native
 from recommendation_tpu_torch.data.interaction import Interaction
@@ -349,9 +371,9 @@ from recommendation_tpu_torch.ops.segment import (
     weighted_pull_plain,
 )
 from recommendation_tpu_torch.ops.topk import topk_agree
+from recommendation_tpu_torch.ops.counts import kernel_wrappers
 from recommendation_tpu_torch.parallel.distributed import (
     WORKER,
-    kernel_wrappers,
     merged_checkpoint,
     spawn_world,
 )
@@ -363,7 +385,8 @@ from recommendation_tpu_torch.sampling import (
 )
 from recommendation_tpu_torch.serve.http import serve_http
 from recommendation_tpu_torch.serve.service import RecommenderService
-from recommendation_tpu_torch.train.loop import run_steps, step_grads
+from recommendation_tpu_torch.train.graphed import GraphedEpoch
+from recommendation_tpu_torch.train.loop import run_steps, step_grads, train_epoch
 from recommendation_tpu_torch.train.recommender import GraphRecommender
 from recommendation_tpu_torch.utils.logging import Log
 from recommendation_tpu_torch.utils.profiling import Throughput, profile_trace
@@ -385,7 +408,9 @@ GRAD_TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (3e-2, 3e-3)}
 N_CLIENTS, REQS_PER_CLIENT = 16, 20
 # training: bench.py's batch and rate; epochs enough for the loss to fall
 # and Recall@20 to pass the popularity baseline, few enough to stay short
-BATCH, LR, TRAIN_EPOCHS, PROFILE_STEPS = 2048, 1e-3, 5, 20
+# the eager profiles' steps: few, to keep the script within its time
+# (LightGCN's and NCL's epochs are timed whole by graphed_check)
+BATCH, LR, TRAIN_EPOCHS, PROFILE_STEPS = 2048, 1e-3, 5, 5
 # NCL: its defaults; the context layer of hyper_layers 1 is k = 2
 NCL_K, TAU = 2, 0.1
 LAYER_CASES = ((3, 1), (3, 2), (3, 3), (1, 1))
@@ -1391,7 +1416,7 @@ def popularity_recall(data, graph, n=20, masked=True):
 
 def profile_steps(rec, batch=BATCH):
     """Where one training step's time goes: torch.profiler over
-    PROFILE_STEPS steps of the trainer's loop (``train.loop.run_steps``) on the trained
+    PROFILE_STEPS steps of the trainer's eager loop (``train.loop.run_steps``) on the trained
     recommender. Host wall per step, device time per step, the device's idle
     share and the five kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
@@ -1984,8 +2009,9 @@ def expected_launches(model_name, graph, n_layers, steps, n_evals, e_steps=0, em
     calls a step, and the no-grad chain (K7 2, P1 L) for each E-step and
     evaluation, L rounds (K7 and P1 L each) for GCL's and BGRL's. On the
     dense backend SelfCF's chain over R̂ is K1 L times a forward, K2 L times
-    a backward; the other zoo models and DirectAU reach no kernel of the
-    port (their square products are ``torch.matmul``, as the JAX package's
+    a backward; NCL's step K3 and K4 L times and K5 and K6 two calls, its
+    E-steps and evaluations K1 L times; the other zoo models and DirectAU
+    reach no kernel of the port (their square products are ``torch.matmul``, as the JAX package's
     are XLA's). Where int8 packs (a bucketed chain at ``emb`` >= 249), each
     forward chain quantizes layer 0's source (Q1) and its L pulls the rest
     in their epilogue; the backward quantizes nothing."""
@@ -2007,6 +2033,11 @@ def expected_launches(model_name, graph, n_layers, steps, n_evals, e_steps=0, em
     if graph.backend != "bucketed":
         if model_name in ("selfcf", "lightgcn"):
             want.update(chain_mean=n_layers * (steps + n_evals), chain_mean_bwd=n_layers * steps)
+        elif model_name == "ncl":  # K3/K4 a layer, two K5/K6 calls a step; K1 to evaluate
+            want.update(chain_mean=n_layers * (n_evals + e_steps),
+                        chain_mean_layer=n_layers * steps, chain_mean_layer_bwd=n_layers * steps,
+                        catalog_lse=2 * catalog_lse.launches_per_call * steps,
+                        catalog_lse_bwd=2 * catalog_lse_bwd.launches_per_call * steps)
         elif model_name not in DENSE_MATMUL_MODELS:
             raise ValueError(f"no launch model for {model_name} on {graph.backend}")
         return want
@@ -2310,14 +2341,23 @@ def clustered_phase():
     torch.cuda.empty_cache()
     runs = []
     for name in GATE_MODELS:
+        # LightGCN's and NCL's epochs are timed eager and captured by graphed_check
         stats = gate_phase(name, data, graph, CLUSTERED_EPOCHS[name], LARGE_BATCH, pop,
-                           "masked")
+                           "masked", profile=name == "directau")
         check_gate(stats)
         runs.append(stats)
+    graphed_check("lightgcn clustered bucketed float32", "lightgcn", data, graph, LARGE_BATCH,
+                  chunk=GRAPHED_CHUNK)
+    stamp("clustered_gates")
     zoo = bucketed_zoo_phase(data, graph)
+    stamp("bucketed_zoo")
     nb = clustered_neighbor_phase(data, graph)
+    stamp("clustered_neighbors")
     int8 = int8_phase(data, graph, pop)
-    return info, one_step, runs, zoo, nb, int8, sharded_phase(data, graph, card_line())
+    stamp("int8")
+    sharded = sharded_phase(data, graph, card_line())
+    stamp("sharded")
+    return info, one_step, runs, zoo, nb, int8, sharded
 
 
 def hard_phase():
@@ -2346,6 +2386,9 @@ def hard_phase():
         stats = gate_phase("directau", data, graph, HARD_EPOCHS, BATCH, pop, "dense")
         check_gate(stats)
         out["train"].append(stats)
+    # NCL's bucketed epoch at the hard set's (ML-100K-shaped) size: at the
+    # clustered set's its 110 steps are device bound (PERF.md §5)
+    graphed_check("ncl hard bucketed float32", "ncl", data, ref, BATCH)
     return (out, hard_zoo_phase(data, graphs, ref),
             hard_neighbor_phase(data, graphs["float32"], ref))
 
@@ -3067,6 +3110,7 @@ def clustered_neighbor_phase(data, graph):
     out["segment_view_pull"] = segment_view_pull(seg)
     out["lightgcn_segment"] = {"one_step": segment_lightgcn_one_step(seg, LARGE_BATCH),
                                "profile": zoo_profile("lightgcn", data, seg, LARGE_BATCH)}
+    graphed_check("lightgcn clustered segment float32", "lightgcn", data, seg, LARGE_BATCH)
     del seg
     torch.cuda.empty_cache()
     return out
@@ -3721,22 +3765,33 @@ def native_phase(data, train, test, tmp):
             "hard_set_edges": int(len(ref.edge_users))}
 
 
-def run_tune(tmp, out, *args):
+def run_tune(tmp, out, *args, in_process=False):
     """``python -m recommendation_tpu_torch tune`` on the hard set's files as
-    a subprocess from the checkout; its stdout and results."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
-    cmd = [sys.executable, "-m", "recommendation_tpu_torch", "tune", "--model", "lightgcn",
-           "--train", f"{tmp}/train.txt", "--test", f"{tmp}/test.txt", "--set", "max.epoch=2",
-           "--out", out, *args]
+    a subprocess from the checkout (``in_process``: the same command line
+    through ``cli.main`` in this process, which saves a process start);
+    its stdout and results."""
+    argv = ["tune", "--model", "lightgcn", "--train", f"{tmp}/train.txt", "--test",
+            f"{tmp}/test.txt", "--set", "max.epoch=1", "--out", out, *args]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"tune {args} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
-                           f"{proc.stderr[-4000:]}")
+    if in_process:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(argv)
+        if rc != 0:
+            raise RuntimeError(f"tune {args} returned {rc}:\n{buf.getvalue()[-2000:]}")
+        stdout = buf.getvalue()
+    else:
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+        proc = subprocess.run([sys.executable, "-m", "recommendation_tpu_torch", *argv], cwd=root,
+                              env=env, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"tune {args} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                               f"{proc.stderr[-4000:]}")
+        stdout = proc.stdout
     with open(out) as f:
-        return proc.stdout, json.load(f), time.perf_counter() - t0
+        return stdout, json.load(f), time.perf_counter() - t0
 
 
 def tune_phase(tmp):
@@ -3757,7 +3812,7 @@ def tune_phase(tmp):
     if len(rows) != 7 or "error" not in rows[0] or "Recall@20" not in rows[0] or any(
             len(row) < len(rows[0]) for row in rows):
         raise RuntimeError(f"tune CSV: {rows[:2]}")
-    stdout, resumed, resume_s = run_tune(tmp, out, *grid[:-2], "--resume")
+    stdout, resumed, resume_s = run_tune(tmp, out, *grid[:-2], "--resume", in_process=True)
     if resumed != results or "resuming: 6 configurations" not in stdout or "[1/6]" in stdout:
         raise RuntimeError(f"tune --resume reran recorded configurations:\n{stdout[-2000:]}")
     # the preset's univariate sweep, every key of its grid cut to its
@@ -3766,7 +3821,7 @@ def tune_phase(tmp):
     _, preset, preset_s = run_tune(
         tmp, preset_out, "--mode", "univariate", "--preset", "--grid", "embedding.size=64",
         "--grid", "LightGCN.n_layers=3", "--grid", "learning.rate=0.01", "--grid", "loss=bpr",
-        "--grid", "n_negs=1")
+        "--grid", "n_negs=1", in_process=True)
     if len(preset) != 1 or "metrics" not in preset[0]:
         raise RuntimeError(f"tune --preset: {preset}")
     return {"grid": {json.dumps(r["config"], sort_keys=True): r["metrics"]["Recall@20"]
@@ -3860,6 +3915,8 @@ def int8_phase(data, graph, pop):
     gap = runs["float32"]["recall@20"] - runs["int8"]["recall@20"]
     if not abs(gap) <= INT8_RECALL_GAP:
         raise RuntimeError(f"int8 Recall@20 {runs['int8']['recall@20']} is {gap} from f32's")
+    graphed_check(f"lightgcn clustered bucketed d={INT8_D} int8", "lightgcn", data, graph8,
+                  LARGE_BATCH, emb=INT8_D)
     del graph8
     torch.cuda.empty_cache()
     t3 = time.perf_counter()
@@ -4320,12 +4377,13 @@ def payload_digest(payload) -> str:
 def snapshot_epoch(name, data, graph, conf, mesh=None):
     """One epoch of ``name`` at ``conf`` on the card, by a single trainer
     or a sharded one over ``mesh``, with its tables and moments copied
-    after SHARDED_SNAPSHOT_STEPS steps (``StepSnapshot``). Returns (the
-    trained recommender, the copy, every kernel's launches over
-    ``train()``)."""
+    after SHARDED_SNAPSHOT_STEPS steps (``StepSnapshot``), through the
+    eager step loop. Returns (the trained recommender, the copy, every
+    kernel's launches over ``train()``)."""
     rec = make_trainer(name, data, graph, default_config(**{**conf, "max.epoch": 1}), mesh)
     snap = StepSnapshot(rec, (SHARDED_SNAPSHOT_STEPS,))
     rec._placement = snap
+    rec._graphed = None  # the hook runs in the eager loop (a replay equals it bit for bit)
     reset_counts()
     rec.train()
     torch.cuda.synchronize()
@@ -4785,6 +4843,252 @@ def add_sharded_launches(kernel_rows, sharded):
                     row["launches"] += sum(counts)
 
 
+# why a kernel's row has no library time: no one PyTorch call computes the
+# same function on the same inputs
+LIBRARY_NOTES = {
+    "weighted_pull_dot": "two outputs: the transpose pull (torch.bmm over a batched COO, S1's "
+                         "yardstick) and the per-slot head dot (torch.sparse.sampled_addmm, "
+                         "S3's, where the rows are the nodes) are two calls",
+    "attention_softmax": "GAT's logits (a gather-add of the node scores, the slope, the mask) "
+                         "come before the softmax; on given logits torch.sparse.softmax "
+                         "(softmax_only.library_ms)",
+    "attention_softmax_bwd": "the slope and the mask follow the softmax's backward; on given "
+                             "logits torch._sparse_softmax_backward_data "
+                             "(softmax_only.library_ms)",
+    "segment_dot": "on the bucket rows the rows are not the nodes, so no sampled product has "
+                   "the pattern; torch.sparse.sampled_addmm where they are (the hard set's "
+                   "views, the neighbors line)",
+    "quantize_rows": "torch.quantize_per_channel takes the row scales as an input: their row "
+                     "maximum is a second call",
+    "gather_sum_int8_fused": "a pull of int8 codes with a running sum and the next layer's "
+                             "codes: torch.sparse.mm takes no int8 source and writes one output",
+}
+
+
+# -- the epoch as CUDA graphs (train/graphed.py) ------------------------------
+
+# repeats of each timed epoch, eager and captured: host and device µs a
+# step and the idle share are the medians
+GRAPHED_REPEATS = 5
+# the chunked epoch's steps_per_call on the clustered bucketed set: 110
+# batches = 3 x 32 + 14, a full chunk's graph and a remainder's
+GRAPHED_CHUNK = 32
+GRAPHED = []  # one entry a configuration: the graphed line
+
+
+def train_snapshot(params, optimizer, state):
+    """Copies of the parameters, every optimizer state tensor and the
+    model state."""
+    moments = [{k: v.clone() for k, v in optimizer.state[p].items()} for p in params.values()]
+    return ({k: v.detach().clone() for k, v in params.items()}, moments,
+            {k: v.clone() for k, v in state.items()})
+
+
+def put_back(params, optimizer, snap):
+    """The snapshot's parameters and optimizer state, written in place."""
+    with torch.no_grad():
+        for (k, v), moments in zip(params.items(), snap[1]):
+            v.copy_(snap[0][k])
+            for key, t in moments.items():
+                optimizer.state[v][key].copy_(t)
+
+
+def snapshot_diff(got, want, loss_got, loss_want):
+    """The parts of two snapshots that differ in any bit (empty: the same)."""
+    bad = [f"params.{k}" for k in want[0] if not torch.equal(got[0][k], want[0][k])]
+    bad += [f"optimizer.{i}.{k}" for i, (g, w) in enumerate(zip(got[1], want[1]))
+            for k in w if not torch.equal(g[k], w[k])]
+    bad += [f"state.{k}" for k in want[2] if not torch.equal(got[2][k], want[2][k])]
+    if not torch.equal(loss_got, loss_want):
+        bad.append("loss")
+    return bad
+
+
+def busy_us(events):
+    """The µs in which at least one of ``events`` (device events with time
+    ranges) ran: the union of their intervals, where kernels that overlap
+    (a layer launched early by programmatic dependent launch) count once."""
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy
+
+
+def device_profile(fn, n_steps):
+    """``profile_steps``' device reading over one epoch of ``fn`` (returning
+    its loss, read on the host at the end) under torch.profiler, device
+    events only: the kernels' and copies' µs a step (their sum, as
+    ``profile_steps``; and the union of their intervals, ``busy_us``) and
+    the five with the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        float(fn())
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+              and not getattr(e, "is_user_annotation", False)]
+    device_us = sum(e.self_device_time_total for e in events)
+    if device_us <= 0:
+        return {"device_us_per_step": "not measured"}
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    spans = [e for e in prof.events() if e.device_type.name == "CUDA"
+             and not getattr(e, "is_user_annotation", False)]
+    return {"device_us_per_step": device_us / n_steps,
+            "device_busy_us_per_step": busy_us(spans) / n_steps,
+            "top_kernels_us_per_step": {e.key[:100]: e.self_device_time_total / n_steps
+                                        for e in top}}
+
+
+def graphed_check(label, model_name, data, graph, batch, emb=EMB, chunk=None):
+    """One configuration's captured epoch on the card. The trainer's
+    ``GraphedEpoch`` warms up and captures on its first epoch; then
+    GRAPHED_REPEATS times, from the same parameters, Adam moments, state
+    and words, a replayed epoch and an eager one (``train_epoch``) must
+    agree bit for bit, each epoch's launches must be ``expected_launches``'
+    for its steps, and each epoch's host seconds (ending in the loss's host
+    read) are taken; one more pair under torch.profiler gives the device
+    µs a step (``device_profile``). The medians give host µs a step and,
+    with the device's, the idle share (``profile_steps``' method). With
+    ``chunk``, the epoch in chunks of ``chunk`` steps (its warm-up and its
+    replay) must give the replayed epoch's bits."""
+    t0 = time.perf_counter()
+    config = default_config(**{
+        "embedding.size": emb, "batch.size": batch, "learning.rate": LR, "optimizer": "adam",
+        "graph.compute_dtype": graph.compute_dtype, "item.ranking.topN": [20]})
+    rec = GraphRecommender(build(model_name, config), data, config, graph=graph,
+                           log=Log(echo=False), device="cuda")
+    rec.build()
+    runner = rec._graphed
+    if runner is None or not runner.capture or runner.chunks is not None:
+        raise RuntimeError(f"{label}: the trainer does not capture its epochs in one graph")
+    model, params, opt, n = rec.model, rec.params, rec.optimizer, runner.n_batches
+    state = model.epoch_begin(params, rec.state, graph, torch.Generator().manual_seed(1), 0)
+    want = expected_launches(model_name, graph, model.n_layers, n, 0, emb=emb)
+
+    def epoch(name, fn):
+        """``fn``'s (state, loss) after the loss's host read, its host µs a
+        step, its launches held to ``want``."""
+        reset_counts()
+        t = time.perf_counter()
+        st, loss = fn()
+        float(loss)
+        host_us = (time.perf_counter() - t) * 1e6 / n
+        launches = all_counts()
+        if launches != want:
+            raise RuntimeError(f"{label} {name} epoch launches {launches}, expected {want}")
+        return st, loss, host_us
+
+    warm = epoch("warm-up", lambda: runner.run(state, torch.Generator().manual_seed(2)))
+    start = train_snapshot(params, opt, warm[0])
+
+    def from_start(name, fn):
+        put_back(params, opt, start)
+        st, loss, host_us = epoch(name, lambda: fn(dict(start[2])))
+        return train_snapshot(params, opt, st), loss, host_us
+
+    def captured(st):
+        return runner.run(st, torch.Generator().manual_seed(3))
+
+    def eager(st):
+        return train_epoch(model, opt, graph, params, st, torch.Generator().manual_seed(3), batch)
+
+    diff, hosts = {}, {"captured": [], "eager": []}
+    for r in range(GRAPHED_REPEATS):
+        got, loss_c, host_c = from_start("captured", captured)
+        want_snap, loss_e, host_e = from_start("eager", eager)
+        hosts["captured"].append(host_c)
+        hosts["eager"].append(host_e)
+        diff[f"captured_vs_eager_{r}"] = snapshot_diff(got, want_snap, loss_c, loss_e)
+    chunked = None
+    if chunk is not None:
+        chunked = GraphedEpoch(model, opt, graph, params, batch, steps_per_call=chunk)
+        for name in ("chunked_warm_up", "chunked"):
+            snap, loss_k, _ = from_start(name, lambda st: chunked.run(
+                st, torch.Generator().manual_seed(3)))
+            diff[f"{name}_vs_captured"] = snapshot_diff(snap, got, loss_k, loss_c)
+    if any(diff.values()) or not math.isfinite(float(loss_c)):
+        raise RuntimeError(f"{label}: the epochs differ: {diff}, loss {float(loss_c)}")
+    timing = {}
+    for mode, fn in (("eager", eager), ("captured", captured)):
+        put_back(params, opt, start)
+        host = float(np.median(hosts[mode]))
+        prof = device_profile(lambda: fn(dict(start[2]))[1], n)
+        dev = prof["device_us_per_step"]
+        timing[mode] = {"host_us_per_step": host, "host_us_per_step_by_repeat": hosts[mode],
+                        **prof, "device_idle_share": (1.0 - dev / host
+                                                      if isinstance(dev, float) else dev)}
+        if isinstance(dev, float):
+            timing[mode]["device_busy_idle_share"] = 1.0 - prof["device_busy_us_per_step"] / host
+    out = {"config": label, "model": model_name, "backend": graph.backend,
+           "compute_dtype": graph.compute_dtype, "d": emb, "batch": batch,
+           "steps_per_epoch": n, "loss": float(loss_c), "same_bits": sorted(diff),
+           "launches_per_epoch": want, "warm_up_host_us_per_step": warm[2],
+           "captures": runner.captures, "chunks": chunked and chunked.chunks,
+           "chunk_captures": chunked and chunked.captures, **timing,
+           "seconds": time.perf_counter() - t0}
+    GRAPHED.append(out)
+    print(f"graphed: {label}: {len(diff)} comparisons bit for bit; host us/step eager "
+          f"{timing['eager']['host_us_per_step']:.1f} captured "
+          f"{timing['captured']['host_us_per_step']:.1f}; device us/step "
+          f"{timing['eager']['device_us_per_step']} / "
+          f"{timing['captured']['device_us_per_step']} (busy "
+          f"{timing['eager'].get('device_busy_us_per_step')} / "
+          f"{timing['captured'].get('device_busy_us_per_step')}); capture s "
+          f"{[c['seconds'] for c in runner.captures]}, pool bytes "
+          f"{[c['pool_bytes'] for c in runner.captures]}; {out['seconds']:.1f} s")
+    del rec, runner, chunked
+    torch.cuda.empty_cache()
+    return out
+
+
+def graphed_fused_check(data, graph):
+    """A fused block of two epochs (``eval.interval`` 2, its losses read
+    once) against two unfused epochs, both captured: the same tables,
+    moments, losses, evaluations and launches."""
+    runs = {}
+    for fuse in (False, "auto"):
+        config = default_config(**{
+            "embedding.size": EMB, "LightGCN.n_layers": LAYERS, "batch.size": BATCH,
+            "learning.rate": LR, "optimizer": "adam", "max.epoch": 2, "eval.interval": 2,
+            "item.ranking.topN": [20], "graph.compute_dtype": graph.compute_dtype,
+            "train.fuse_epochs": fuse})
+        rec = GraphRecommender(build("lightgcn", config), data, config, graph=graph,
+                               log=Log(echo=False), device="cuda")
+        rec.build()
+        reset_counts()
+        rec.train()
+        torch.cuda.synchronize()
+        runs[fuse] = (rec, all_counts())
+    (fused, fused_launches), (unfused, unfused_launches) = runs["auto"], runs[False]
+    lines = fused.log.contents()
+    snap = {k: train_snapshot(r.params, r.optimizer, r.state) for k, (r, _) in runs.items()}
+    losses = [[e["loss"] for e in r.epoch_stats] for r in (fused, unfused)]
+    diff = snapshot_diff(snap["auto"], snap[False], torch.zeros(()), torch.zeros(()))
+    if (diff or losses[0] != losses[1] or fused.history != unfused.history
+            or fused_launches != unfused_launches or not fused._can_fuse_epochs()
+            or sum("fused x2" in line for line in lines) != 2):
+        raise RuntimeError(f"the fused block differs from two epochs: {diff}, losses {losses}, "
+                           f"launches {fused_launches} / {unfused_launches}")
+    out = {"config": "lightgcn dense float32, eval.interval 2", "fused_epochs": 2,
+           "same_bits": diff, "losses": losses[0], "launches": fused_launches,
+           "captures": fused._graphed.captures}
+    print(f"graphed: fused block of 2 epochs equals 2 epochs: {out['losses']}")
+    return out
+
+
+T_START = time.perf_counter()
+PHASES = {}  # phase -> seconds since the start when it ended
+
+
+def stamp(name):
+    """Record (and print to stderr) when a phase ended: the script's time
+    budget is read from these."""
+    PHASES[name] = time.perf_counter() - T_START
+    print(f"chip_smoke: {name} done at {PHASES[name]:.1f} s", file=sys.stderr, flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs on the card",
@@ -4821,10 +5125,12 @@ def main() -> int:
     for row in lse_rows:
         for d, wide in lse_wide.items():
             row[f"wide_{d}"] = {"shape": wide["shape"], **wide[row["name"]]}
+    stamp("kernels")
     one_step = one_step_check(graphs, params)
     ncl_one_step = ncl_one_step_check(graphs, params)
     ncl_one_step[f"float32_d{NCL_WIDE_D}"] = ncl_wide_one_step(graphs[torch.float32])
 
+    stamp("one_step")
     serve = []
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = f"{tmp}/lightgcn.npz"
@@ -4842,6 +5148,7 @@ def main() -> int:
             if stats["requests"] < 256:
                 raise RuntimeError(f"only {stats['requests']} requests answered")
 
+    stamp("serve")
     training = []
     for dtype, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
         launches, stats = train_phase(name, data)
@@ -4852,6 +5159,7 @@ def main() -> int:
         stats["card"] = card
         training.append(stats)
 
+    stamp("train")
     ncl = []
     for dtype, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
         launches, stats = ncl_train_phase(name, data)
@@ -4865,6 +5173,15 @@ def main() -> int:
         stats["card"] = card
         ncl.append(stats)
 
+    stamp("ncl")
+    t_graphed = time.perf_counter()
+    for dtype, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        graphed_check(f"lightgcn dense {name}", "lightgcn", data, graphs[dtype], BATCH)
+    graphed_check("ncl dense float32", "ncl", data, graphs[torch.float32], BATCH)
+    fused = graphed_fused_check(data, graphs[torch.float32])
+    graphed_dense_s = time.perf_counter() - t_graphed
+
+    stamp("graphed_dense")
     large_data, large_graph, large_info = large_build()
     large_params, _ = model.init(torch.Generator().manual_seed(0), large_graph)
     k7_row, p1_row = large_kernel_phase(large_data, large_graph, large_params)
@@ -4877,6 +5194,7 @@ def main() -> int:
     del large_data, large_graph, large_params
     torch.cuda.empty_cache()
 
+    stamp("large")
     (clustered_info, clustered_one_step, clustered_runs, bucketed_zoo,
      clustered_nb, (int8, q1_row, p1_int8_row, fused_row), sharded) = clustered_phase()
     for run in clustered_runs:
@@ -4892,12 +5210,14 @@ def main() -> int:
     for row in (q1_row, p1_int8_row, fused_row):
         row["card"] = card
     hard, zoo, hard_nb = hard_phase()
+    stamp("hard")
     for run in hard["train"] + zoo["train"] + list(bucketed_zoo.values()) + hard_nb["train"]:
         run["card"] = card
     add_zoo_launches((rows[torch.float32], bwd_rows[torch.float32]), (k7_row, p1_row), zoo,
                      bucketed_zoo)
     add_neighbor_launches(k7_row, p1_row, hard_nb, clustered_nb)
     social = social_phase(card)
+    stamp("social")
     add_social_launches(k7_row, p1_row, social)
     dense_lightgcn = hard_nb["lightgcn_backends"]["runs"][0]["launches"]
     for row in (rows[torch.float32], bwd_rows[torch.float32]):
@@ -4908,6 +5228,9 @@ def main() -> int:
                    + list(layer_bwd_rows.values()) + lse_rows + [k7_row, p1_row] + seg_rows
                    + [q1_row, p1_int8_row, fused_row])
     add_sharded_launches(kernel_rows, sharded)
+    for row in kernel_rows:
+        if row.get("library_ms") is None:
+            row["library_note"] = LIBRARY_NOTES.get(row["name"], "not measured in this run")
     idle = [r["name"] for r in kernel_rows if r["launches"] <= 0]
     if idle:
         raise RuntimeError(f"kernels never launched on the main paths: {idle}")
@@ -4926,6 +5249,10 @@ def main() -> int:
     print(json.dumps({"social": social}))
     print(json.dumps({"int8": int8}))
     print(json.dumps({"sharded": sharded}))
+    print(json.dumps({"graphed": {
+        "card": card, "repeats": GRAPHED_REPEATS, "configs": GRAPHED, "fused": fused,
+        "seconds": graphed_dense_s + sum(c["seconds"] for c in GRAPHED[3:]),
+        "script_seconds": time.perf_counter() - T_START, "phases_at_s": PHASES}}))
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

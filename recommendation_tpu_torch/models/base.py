@@ -32,6 +32,11 @@ class Model:
     # trainer makes them without ``requires_grad`` and the step loop
     # differentiates only the others, so no optimizer moves them
     frozen: tuple[str, ...] = ()
+    # whether the trainer runs the model's epochs as CUDA graphs
+    # (``train/graphed.py``): a step that reads nothing on the host and
+    # draws nothing from the loss's generator (a draw is a copy from host
+    # memory, which a graph cannot hold); on for LightGCN and NCL
+    capturable: bool = False
 
     def __init__(self, config):
         self.config = config

@@ -90,12 +90,15 @@ def lightgcn_encode(user_emb: torch.Tensor, item_emb: torch.Tensor, graph, n_lay
 @register("lightgcn")
 class LightGCN(Model):
     name = "lightgcn"
+    capturable = True
 
     def __init__(self, config):
         super().__init__(config)
         self.n_layers = int(config.get("LightGCN.n_layers", config.get("n_layers", 3)))
         self.loss_type = str(config.get("loss", "bpr"))
         self.n_negs = int(config.get("n_negs", 1))
+        # the pointwise loss and extra negatives draw in every step
+        self.capturable = self.loss_type != "pointwise" and self.n_negs == 1
 
     def init(self, generator: torch.Generator, graph):
         params = {

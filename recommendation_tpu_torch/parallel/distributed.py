@@ -61,6 +61,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from recommendation_tpu_torch.ops.counts import kernel_wrappers
 from recommendation_tpu_torch.parallel.collectives import all_gather_cat
 from recommendation_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -449,33 +450,6 @@ def pairs_data(path: str):
     z = np.load(path)
     return ArrayInteraction(z["pairs"], int(z["n_users"]), int(z["n_items"]),
                             test_fraction=float(z["test_fraction"]))
-
-
-def kernel_wrappers() -> tuple:
-    """The port's kernel wrappers, each counting its launches in
-    ``.launches``: K1-K4, K5/K6, K7, P1, Q1, S1 (and with the head dot),
-    S2 (on given logits and with GAT's fused in)."""
-    from recommendation_tpu_torch.ops.gather import gather_rows, gather_sum, quantize_rows
-    from recommendation_tpu_torch.ops.lse import catalog_lse, catalog_lse_bwd
-    from recommendation_tpu_torch.ops.prop import (
-        chain_mean,
-        chain_mean_bwd,
-        chain_mean_layer,
-        chain_mean_layer_bwd,
-    )
-    from recommendation_tpu_torch.ops.segment import (
-        attention_softmax,
-        attention_softmax_bwd,
-        segment_softmax_rows,
-        segment_softmax_rows_bwd,
-        weighted_pull,
-        weighted_pull_dot,
-    )
-
-    return (chain_mean, chain_mean_bwd, chain_mean_layer, chain_mean_layer_bwd, catalog_lse,
-            catalog_lse_bwd, gather_rows, gather_sum, quantize_rows, weighted_pull,
-            weighted_pull_dot, segment_softmax_rows, segment_softmax_rows_bwd,
-            attention_softmax, attention_softmax_bwd)
 
 
 def fit(data_path: str, mesh, config, out: str, device: torch.device, model: str = "lightgcn"):

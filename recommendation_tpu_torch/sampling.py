@@ -103,15 +103,17 @@ def negative_words(generator: torch.Generator, n_sets: int, batch: int, device,
 
 
 def epoch_words(generator: torch.Generator, graph, batch_size: int,
-                n_redraws: int = 4) -> EpochWords:
-    """All the words ``epoch_batches`` needs for one epoch."""
-    ks, salts = permutation_words(generator, graph.n_edges, graph.device)
+                n_redraws: int = 4, device=None) -> EpochWords:
+    """All the words ``epoch_batches`` needs for one epoch, on ``device``
+    (the graph's by default)."""
+    device = graph.device if device is None else device
+    ks, salts = permutation_words(generator, graph.n_edges, device)
     k = n_redraws + 1
     if graph.has_edge_bitmap_fb:
         shape = (k + 1, graph.edge_ui.shape[0])
     else:
         shape = (k + 1, _n_batches(graph, batch_size), batch_size)
-    return EpochWords(ks, salts, draw_words(generator, shape, graph.device))
+    return EpochWords(ks, salts, draw_words(generator, shape, device))
 
 
 # -- the draws ------------------------------------------------------------------

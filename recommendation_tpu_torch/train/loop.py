@@ -12,11 +12,23 @@ isfinite(loss)`` stays on the device, every gradient becomes
 ``where(ok, g, 0)``, and the optimizer still steps, so Adam's moments and
 step count advance exactly as optax's do under zeroed gradients.
 
-The JAX package's ``make_multi_epoch_fn``, ``steps_per_call`` and the
-hoisting gates work around TPU dispatch time and the TPU watchdog; the port
-has one loop instead. The trainer draws each epoch's words from its
-generator in the same sequence whatever ``eval.interval`` is, so runs that
-evaluate at different intervals train on the same batches by construction.
+The JAX package jits each epoch (``make_epoch_fn``: one ``lax.scan`` over
+its steps, sampling included), cuts long epochs into ``steps_per_call``
+chunks and fuses ``eval.interval`` epochs into one execution
+(``make_multi_epoch_fn``). The port's counterpart is a CUDA graph:
+``train/graphed.py`` captures this loop's step (``train_step``) for a
+whole epoch or a chunk of one and replays it, and the trainer runs its
+epochs that way on the card for the models that declare
+``Model.capturable``. ``run_steps`` stays the eager loop: the CPU's, the
+other models', the sharded trainer's and the reference a captured epoch
+is held to bit for bit. On the card the optimizers are made
+``capturable`` (Adam's step count and bias correction on the device), for
+the eager and the captured loop alike, and the bold driver's rate is a
+device tensor that ``set_learning_rate`` fills, so a replayed graph reads
+the new rate. The trainer draws each epoch's words from its generator in
+the same sequence whatever ``eval.interval`` is, so runs that evaluate at
+different intervals, fused or not, train on the same batches by
+construction.
 
 A sharded trainer passes a ``placement`` (``parallel/trainer.py``): each
 global batch is cut to the rank's rows (``placement.batch``), which at
@@ -46,14 +58,38 @@ def make_optimizer(config, params: Dict[str, torch.Tensor]) -> torch.optim.Optim
     lr = float(config.get("learning.rate", 1e-3))
     name = str(config.get("optimizer", "adam")).lower()
     tensors = list(params.values())
+    # on the card Adam keeps its step count on the device, so that a CUDA
+    # graph can capture its update (train/graphed.py); eager steps use the
+    # same arithmetic, so both give the same bits
+    cuda = tensors[0].is_cuda
     if name == "adam":
-        return torch.optim.Adam(tensors, lr=lr, eps=1e-8)
+        return torch.optim.Adam(tensors, lr=lr, eps=1e-8, capturable=cuda)
     if name == "adamw":
-        return torch.optim.AdamW(tensors, lr=lr, eps=1e-8,
+        return torch.optim.AdamW(tensors, lr=lr, eps=1e-8, capturable=cuda,
                                  weight_decay=float(config.get("weight.decay", 0.01)))
     if name == "sgd":
         return torch.optim.SGD(tensors, lr=lr, momentum=float(config.get("momentum", 0.9)))
     raise ValueError(f"unknown optimizer {name!r}")
+
+
+def adam_plain(param: torch.Tensor, grads, lr: float, b1: float = 0.9, b2: float = 0.999,
+               eps: float = 1e-8):
+    """``optax.adam(lr)``'s arithmetic in float32 over the gradients
+    ``grads`` in turn (``scale_by_adam``: the moments, their bias
+    corrections computed in f32 on the tensors' device, then ``-lr`` times
+    the update): (the parameter, its first moment, its second). The
+    reference that the card's ``capturable`` Adam is held to."""
+    p = param.detach().float().clone()
+    mu, nu = torch.zeros_like(p), torch.zeros_like(p)
+    one = torch.ones((), dtype=torch.float32, device=p.device)
+    for t, g in enumerate(grads, start=1):
+        g = g.float()
+        mu = (1 - b1) * g + b1 * mu
+        nu = (1 - b2) * g * g + b2 * nu
+        mu_hat = mu / (one - (one * b1) ** t)
+        nu_hat = nu / (one - (one * b2) ** t)
+        p = p + (-lr) * (mu_hat / (torch.sqrt(nu_hat) + eps))
+    return p, mu, nu
 
 
 def cosine_decay(lr: float, count: int, decay_steps: int) -> float:
@@ -86,8 +122,13 @@ class CosineDecayAdam(torch.optim.Adam):
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """The rate of every group: filled into a tensor rate in place (a
+    captured graph reads it at its address), else set."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 class BoldDriver:
@@ -114,11 +155,27 @@ class BoldDriver:
 
 def make_bold_driver_optimizer(config, params):
     """SGD (``optimizer: sgd``) or Adam, with a ``BoldDriver`` that sets the
-    rate through ``param_groups`` between epochs."""
+    rate through ``param_groups`` between epochs. On the card Adam's rate is
+    a device tensor, which a captured epoch reads as the driver moves it."""
     name = "sgd" if str(config.get("optimizer", "adam")).lower() == "sgd" else "adam"
     opt = make_optimizer(config.with_overrides(optimizer=name), params)
     lr = float(config.get("learning.rate", 1e-3))
+    if name == "adam" and opt.defaults["capturable"]:
+        device = opt.param_groups[0]["params"][0].device
+        for group in opt.param_groups:
+            group["lr"] = torch.tensor(lr, dtype=torch.float32, device=device)
     return opt, BoldDriver(lr, float(config.get("max.learning.rate", 0.0)))
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state: dict) -> None:
+    """``optimizer.load_state_dict(state)``, a tensor rate kept at its
+    address and on its device (filled with the loaded rate)."""
+    rates = [group["lr"] for group in optimizer.param_groups]
+    optimizer.load_state_dict(state)
+    for group, rate in zip(optimizer.param_groups, rates):
+        if isinstance(rate, torch.Tensor):
+            rate.fill_(float(group["lr"]))
+            group["lr"] = rate
 
 
 def _where_state(ok: torch.Tensor, new: Any, old: Any) -> Any:
@@ -154,6 +211,33 @@ def step_grads(model, graph, params: Dict[str, torch.Tensor], state: Any, batch,
     return loss, grads, new_state
 
 
+def train_step(model, optimizer: torch.optim.Optimizer, graph, params: Dict[str, torch.Tensor],
+               state: Any, batch, generator: torch.Generator | None = None, placement=None):
+    """One step of the loop: the loss and its gradients, the NaN guard, the
+    optimizer's update in place and ``post_step``. Returns (state, loss);
+    nothing is read on the host, so a CUDA graph can capture it
+    (``train/graphed.py``)."""
+    if placement is not None:
+        batch = placement.batch(batch)
+    loss, grads, new_state = step_grads(model, graph, params, state, batch, generator, placement)
+    ok = torch.isfinite(loss)
+    with torch.no_grad():
+        for p, g in zip([p for p in params.values() if p.requires_grad], grads):
+            p.grad = torch.where(ok, g, torch.zeros_like(g))
+    optimizer.step()
+    state = model.post_step(_post_step_params(model, params, placement),
+                            _where_state(ok, new_state, state), batch)
+    return state, loss.detach()
+
+
+def finite_mean(losses: torch.Tensor) -> torch.Tensor:
+    """The mean of the finite entries of ``losses``, NaN when none is."""
+    finite = torch.isfinite(losses)
+    mean = torch.where(finite, losses, torch.zeros_like(losses)).sum() / torch.clamp(
+        finite.sum(), min=1)
+    return torch.where(finite.any(), mean, torch.full_like(mean, float("nan")))
+
+
 def run_steps(model, optimizer: torch.optim.Optimizer, graph, params: Dict[str, torch.Tensor],
               state: Any, batches, generator: torch.Generator | None = None, placement=None):
     """The step loop over one epoch's arrays ``batches`` = (users, items,
@@ -165,26 +249,12 @@ def run_steps(model, optimizer: torch.optim.Optimizer, graph, params: Dict[str, 
     ``placement``, ``params`` are the rank's shards (see the module's
     docstring)."""
     users, items, negs, weights, n_batches = batches
-    tensors = [p for p in params.values() if p.requires_grad]
     losses = torch.empty(n_batches, dtype=torch.float32, device=graph.device)
     for b in range(n_batches):
-        batch = PairwiseBatch(users[b], items[b], negs[b], weights[b])
-        if placement is not None:
-            batch = placement.batch(batch)
-        loss, grads, new_state = step_grads(model, graph, params, state, batch, generator,
-                                            placement)
-        ok = torch.isfinite(loss)
-        with torch.no_grad():
-            for p, g in zip(tensors, grads):
-                p.grad = torch.where(ok, g, torch.zeros_like(g))
-        optimizer.step()
-        state = model.post_step(_post_step_params(model, params, placement),
-                                _where_state(ok, new_state, state), batch)
-        losses[b] = loss.detach()
-    finite = torch.isfinite(losses)
-    mean = torch.where(finite, losses, torch.zeros_like(losses)).sum() / torch.clamp(
-        finite.sum(), min=1)
-    return state, torch.where(finite.any(), mean, torch.full_like(mean, float("nan")))
+        state, losses[b] = train_step(model, optimizer, graph, params, state,
+                                      PairwiseBatch(users[b], items[b], negs[b], weights[b]),
+                                      generator, placement)
+    return state, finite_mean(losses)
 
 
 def train_epoch(model, optimizer, graph, params, state, generator: torch.Generator,

@@ -16,10 +16,21 @@ evaluate / predict / execute / fast_evaluation`` contract
     ``checkpoint.resume``) that hold the generator too, so a resumed run
     trains on the batches a straight run would.
 
-It runs one epoch per loop turn: no fused or chunked epochs (TPU dispatch
-and watchdog workarounds in the JAX package). Each epoch draws a seed for
-``epoch_begin`` from the trainer's generator, then its batches, in that
-order whatever ``eval.interval`` is.
+Its epochs run as the JAX package's do, each one device execution: for a
+model that declares ``Model.capturable``, ``train/graphed.py`` captures
+the epoch's steps as CUDA graphs on the card and replays them (on the CPU
+the same object runs them eagerly). The five ``train.*`` keys of the JAX
+trainer mean what they mean there: ``train.steps_per_call`` and
+``train.max_steps_per_call`` chunk a long epoch (``graphed.steps_per_call``),
+and ``train.fuse_epochs``, ``train.fuse_below_steps`` and
+``train.max_fused_steps`` gate fused blocks (``_can_fuse_epochs``): the
+``eval.interval`` epochs up to the next evaluation replayed back to back,
+their losses read once, a NaN aborting at the block's end. A model that
+cannot capture trains with the eager loop (``train.loop.train_epoch``) and
+refuses ``train.fuse_epochs: true``. Each epoch draws a seed for
+``epoch_begin`` from the trainer's generator, then its words, in that
+order whatever ``eval.interval`` is and whether it is fused or not, so
+the paths give the same bits.
 
 A sharded trainer (``parallel/trainer.py``) keeps this lifecycle and
 overrides its placement hooks: ``_place`` (the parameters this process
@@ -41,13 +52,23 @@ from recommendation_tpu_torch.data.interaction import Interaction
 from recommendation_tpu_torch.evalx.ranking import RankingResult, evaluate_ranking
 from recommendation_tpu_torch.graph.device import DeviceGraph
 from recommendation_tpu_torch.models.base import Model
+from recommendation_tpu_torch.train.graphed import GraphedEpoch, steps_per_call
 from recommendation_tpu_torch.train.loop import (
+    load_optimizer_state,
     make_bold_driver_optimizer,
     make_optimizer,
     set_learning_rate,
     train_epoch,
 )
 from recommendation_tpu_torch.utils.logging import Log
+
+
+def _fuse_mode(config):
+    """``train.fuse_epochs``: False, True or "auto" (the default)."""
+    mode = config.get("train.fuse_epochs", "auto")
+    if isinstance(mode, str) and mode.lower() in ("true", "false"):
+        return mode.lower() == "true"
+    return mode
 
 
 def _map_tensors(fn, tree: Any) -> Any:
@@ -122,6 +143,7 @@ class GraphRecommender:
                               or make_optimizer(self.config, self.params))
         self._gen = torch.Generator().manual_seed(seed + 1)
         self.start_epoch = 0
+        self._graphed = None
         self._ckpt = None
         ckpt_dir = self.config.get("checkpoint.dir")
         if ckpt_dir:
@@ -132,6 +154,23 @@ class GraphRecommender:
                 if restored is not None:
                     self._restore(restored)
                     self.log.add(f"resumed from checkpoint at epoch {restored['epoch']}")
+        self.steps_per_call = steps_per_call(self.graph.n_edges, self.batch_size, self.config)
+        if self._captures():
+            self._graphed = GraphedEpoch(self.model, self.optimizer, self.graph, self.params,
+                                         self.batch_size, steps_per_call=self.steps_per_call)
+        elif _fuse_mode(self.config) is True:
+            raise ValueError(f"train.fuse_epochs: true needs epochs that run as CUDA graphs; "
+                             f"{self.model.name} on this trainer runs its epochs eagerly")
+
+    def _captures(self) -> bool:
+        """Whether the epochs run as ``GraphedEpoch``: a model that declares
+        ``capturable``, the single-device trainer (a sharded one keeps the
+        eager loop), and a rate that a captured update reads as it moves
+        (the bold driver's SGD keeps a float rate on the card)."""
+        float_rate = any(not isinstance(g["lr"], torch.Tensor)
+                         for g in self.optimizer.param_groups)
+        moving = self._bold is not None and self.graph.device.type == "cuda" and float_rate
+        return self.model.capturable and self._placement is None and not moving
 
     # -- placement hooks (a sharded trainer overrides them) -------------------
 
@@ -164,47 +203,115 @@ class GraphRecommender:
         with torch.no_grad():
             for k, v in self.params.items():
                 v.copy_(restored["params"][k])
-        self.optimizer.load_state_dict(restored["optimizer"])  # moves state to the params' device
+        # moves the state to the params' device, in new tensors: a captured
+        # epoch reads the old ones, so its graphs are captured again
+        load_optimizer_state(self.optimizer, restored["optimizer"])
+        if self._graphed is not None:
+            self._graphed.reset()
         self.state = _map_tensors(lambda t: t.to(self.graph.device), restored["state"])
         self._gen.set_state(restored["generator"])
         self.start_epoch = int(restored["epoch"]) + 1
+
+    def _can_fuse_epochs(self) -> bool:
+        """The JAX trainer's gate (``recommendation_tpu/train/recommender.py``):
+        a block of ``eval.interval`` epochs runs as one device execution when
+        no per-epoch host work is active (``epoch_begin`` the base no-op, no
+        bold driver, no convergence check, which must read each epoch's loss
+        before the next runs), one epoch has at most
+        ``train.fuse_below_steps`` batches and the block at most
+        ``train.max_fused_steps`` steps weighted by its millions of edges.
+        The trainer fuses only epochs that run as CUDA graphs."""
+        if _fuse_mode(self.config) is False:
+            return False
+        n_batches = -(-self.graph.n_edges // self.batch_size)
+        fuse_below = int(self.config.get("train.fuse_below_steps", 64))
+        max_steps = int(self.config.get("train.max_fused_steps", 1024))
+        cost_weight = max(1, -(-self.graph.n_edges // 1_000_000))
+        return (
+            self.eval_interval > 1
+            and type(self.model).epoch_begin is Model.epoch_begin
+            and self._bold is None
+            and self.config.get("convergence.eps", None) is None
+            and n_batches <= fuse_below
+            and n_batches * self.eval_interval * cost_weight <= max_steps
+        )
+
+    def _epoch(self):
+        """One epoch's (state, mean loss as a device scalar)."""
+        if self._graphed is not None:
+            return self._graphed.run(self.state, self._gen)
+        return train_epoch(self.model, self.optimizer, self.graph, self.params, self.state,
+                           self._gen, self.batch_size, placement=self._placement)
+
+    def _begin_seed(self) -> int:
+        return int(torch.randint(0, 2**62, (1,), generator=self._gen))
 
     def train(self):
         bad_epochs = 0
         last_loss = None
         conv_eps = self.config.get("convergence.eps", None)
+        fuse = self._graphed is not None and self._can_fuse_epochs()
         examples = -(-self.graph.n_edges // self.batch_size) * self.batch_size
         epoch = self.start_epoch
-        while epoch < self.max_epoch:
-            t0 = time.perf_counter()
-            begin_seed = int(torch.randint(0, 2**62, (1,), generator=self._gen))
-            self.state = self.model.epoch_begin(
-                self.model_params(), self.state, self.graph,
-                torch.Generator().manual_seed(begin_seed), epoch
-            )
-            self.state, loss_t = train_epoch(self.model, self.optimizer, self.graph, self.params,
-                                             self.state, self._gen, self.batch_size,
-                                             placement=self._placement)
-            loss = float(loss_t)  # the epoch's one host read
-            dt = time.perf_counter() - t0
-            if math.isnan(loss):
-                self.log.add(f"epoch {epoch}: loss is NaN — aborting (diffnet.py:782-786 guard)")
-                break
-            self.epoch_stats.append({"epoch": epoch, "loss": loss, "seconds": dt,
-                                     "examples_per_s": examples / dt})
-            self.log.add(f"epoch {epoch}: loss={loss:.5f} ({dt:.2f}s, "
-                         f"{examples / dt:,.0f} examples/s)")
-            # convergence check (`univariate/diffnet.py:782-802`)
-            if last_loss is not None and conv_eps is not None:
-                if abs(last_loss - loss) < float(conv_eps):
-                    self.log.add(f"converged at epoch {epoch} (|Δloss| < {conv_eps})")
-                    self.fast_evaluation(epoch)
+        aborted = False
+        while epoch < self.max_epoch and not aborted:
+            # the epochs up to and including the next evaluation
+            iv = self.eval_interval
+            next_eval = min((epoch // iv) * iv + iv - 1, self.max_epoch - 1)
+            block = next_eval - epoch + 1
+            if fuse and block > 1:
+                t0 = time.perf_counter()
+                losses = []
+                for _ in range(block):
+                    self._begin_seed()  # the unfused loop's draw; epoch_begin is the no-op
+                    self.state, loss_t = self._epoch()
+                    losses.append(loss_t)
+                losses = torch.stack(losses).tolist()  # the block's one host read
+                dt = (time.perf_counter() - t0) / block
+                for k, loss in enumerate(losses):
+                    if math.isnan(loss):
+                        # a block-granular abort: the per-step guard already
+                        # kept non-finite updates out of the tables
+                        self.log.add(f"epoch {epoch + k}: loss is NaN — aborting "
+                                     f"(diffnet.py:782-786 guard)")
+                        aborted = True
+                        break
+                    self.epoch_stats.append({"epoch": epoch + k, "loss": loss, "seconds": dt,
+                                             "examples_per_s": examples / dt})
+                    self.log.add(f"epoch {epoch + k}: loss={loss:.5f} ({dt:.2f}s, "
+                                 f"{examples / dt:,.0f} examples/s, fused x{block})")
+                if aborted:
                     break
-            if self._bold is not None:
-                new_lr = self._bold.update(epoch, loss)
-                set_learning_rate(self.optimizer, new_lr)
-                self.log.add(f"  bold-driver lr -> {new_lr:.6f}")
-            last_loss = loss
+                last_loss = losses[-1]
+                epoch = next_eval
+            else:
+                t0 = time.perf_counter()
+                self.state = self.model.epoch_begin(
+                    self.model_params(), self.state, self.graph,
+                    torch.Generator().manual_seed(self._begin_seed()), epoch
+                )
+                self.state, loss_t = self._epoch()
+                loss = float(loss_t)  # the epoch's one host read
+                dt = time.perf_counter() - t0
+                if math.isnan(loss):
+                    self.log.add(f"epoch {epoch}: loss is NaN — aborting "
+                                 f"(diffnet.py:782-786 guard)")
+                    break
+                self.epoch_stats.append({"epoch": epoch, "loss": loss, "seconds": dt,
+                                         "examples_per_s": examples / dt})
+                self.log.add(f"epoch {epoch}: loss={loss:.5f} ({dt:.2f}s, "
+                             f"{examples / dt:,.0f} examples/s)")
+                # convergence check (`univariate/diffnet.py:782-802`)
+                if last_loss is not None and conv_eps is not None:
+                    if abs(last_loss - loss) < float(conv_eps):
+                        self.log.add(f"converged at epoch {epoch} (|Δloss| < {conv_eps})")
+                        self.fast_evaluation(epoch)
+                        break
+                if self._bold is not None:
+                    new_lr = self._bold.update(epoch, loss)
+                    set_learning_rate(self.optimizer, new_lr)
+                    self.log.add(f"  bold-driver lr -> {new_lr:.6f}")
+                last_loss = loss
             if (epoch + 1) % self.eval_interval == 0 or epoch == self.max_epoch - 1:
                 improved = self.fast_evaluation(epoch)
                 bad_epochs = 0 if improved else bad_epochs + 1

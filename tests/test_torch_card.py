@@ -44,6 +44,13 @@ counters, P1's, S1's and S2's piece counters, K5's and K6's partials, the
 fused pull's dot, P1's int8 source, its fused layer and Q1).
 NCL's k-means (Lloyd and mini-batch) twice on the same rows gives the same
 bits (the sorted segment sums, no atomics).
+The epoch as CUDA graphs (``train/graphed.py``): a replayed epoch (whole
+or chunked) of LightGCN (dense, bucketed, segment) and NCL (dense,
+bucketed) equals the eager epoch bit for bit, its replay adding the
+epoch's launches; a trainer captures again after a checkpoint restore;
+the trainer's captured epochs equal its eager ones with the bold
+driver's rate moving, in fused blocks and in chunks; the card's
+capturable Adam holds optax's arithmetic (``train.loop.adam_plain``).
 
 These tests need a CUDA device and ``nvcc``; elsewhere they skip. This file
 imports neither JAX nor the JAX package, so it runs where only the port is
@@ -1723,3 +1730,171 @@ def test_sharded_gloo_world_on_the_card_is_the_single_step(card, tmp_path):
         assert [e["loss"] for e in rank["epochs"]] == [e["loss"] for e in single.epoch_stats]
         assert rank["launches"]["gather_rows"] > 0 and rank["launches"]["gather_sum"] > 0
         assert rank["shard_rows"] == {"user_emb": 1000, "item_emb": 2000}
+
+
+# -- the epoch as CUDA graphs (train/graphed.py) ------------------------------
+
+
+def _graphed_setup(card, name, backend, seed=5):
+    """A small graph, the model, its parameters on the card, a capturable
+    Adam and the model's first state (NCL's E-step)."""
+    from recommendation_tpu_torch.train.loop import make_optimizer
+
+    train, test = make_synthetic_dataset(n_users=200, n_items=333, n_interactions=8000,
+                                         seed=seed)
+    graph = DeviceGraph(Interaction(train, test), backend=backend, device=card)
+    model = build(name, default_config(**{"embedding.size": 64, "NCL.num_clusters": 8}))
+    params, state = model.init(torch.Generator().manual_seed(0), graph)
+    params = {k: v.requires_grad_() for k, v in params.items()}
+    optimizer = make_optimizer(default_config(), params)
+    state = model.epoch_begin(params, state, graph, torch.Generator().manual_seed(1), 0)
+    return graph, model, params, optimizer, state
+
+
+def _train_state(params, optimizer, state):
+    moments = [{k: v.clone() for k, v in optimizer.state[p].items()} for p in params.values()]
+    return ({k: v.detach().clone() for k, v in params.items()}, moments,
+            {k: v.clone() for k, v in state.items()})
+
+
+def _put_back(params, optimizer, saved):
+    with torch.no_grad():
+        for (k, v), m in zip(params.items(), saved[1]):
+            v.copy_(saved[0][k])
+            for key, t in m.items():
+                optimizer.state[v][key].copy_(t)
+
+
+def _same_train_state(got, want):
+    for k in want[0]:
+        assert torch.equal(got[0][k], want[0][k]), k
+    for g, w in zip(got[1], want[1]):
+        for k in w:
+            assert torch.equal(g[k], w[k]), k
+    for k in want[2]:
+        assert torch.equal(got[2][k], want[2][k]), k
+
+
+@pytest.mark.parametrize("name,backend,spc", [("lightgcn", "dense", None),
+                                              ("lightgcn", "bucketed", None),
+                                              ("lightgcn", "bucketed", 4),
+                                              ("lightgcn", "segment", None),
+                                              ("ncl", "dense", None), ("ncl", "bucketed", None)])
+def test_captured_epoch_is_the_eager_epoch(card, name, backend, spc):
+    """After its warm-up run, a replayed epoch (or chunked epoch) equals
+    ``train_epoch`` from the same parameters, moments, state and words bit
+    for bit, and a replay adds the epoch's launches to the counters."""
+    from recommendation_tpu_torch.ops.counts import count_delta, launch_counts
+    from recommendation_tpu_torch.train.graphed import GraphedEpoch
+    from recommendation_tpu_torch.train.loop import train_epoch
+
+    graph, model, params, optimizer, state = _graphed_setup(card, name, backend)
+    runner = GraphedEpoch(model, optimizer, graph, params, 256, steps_per_call=spc)
+    before = launch_counts()
+    state, _ = runner.run(state, torch.Generator().manual_seed(2))  # warm-up, capture
+    torch.cuda.synchronize()
+    eager_launches = count_delta(launch_counts(), before)
+    assert runner.captures and eager_launches
+    start = _train_state(params, optimizer, state)
+    before = launch_counts()
+    got_state, got_loss = runner.run(state, torch.Generator().manual_seed(3))
+    torch.cuda.synchronize()
+    assert count_delta(launch_counts(), before) == eager_launches
+    got = _train_state(params, optimizer, got_state)
+    _put_back(params, optimizer, start)
+    want_state, want_loss = train_epoch(model, optimizer, graph, params,
+                                        {k: v.clone() for k, v in start[2].items()},
+                                        torch.Generator().manual_seed(3), 256)
+    torch.cuda.synchronize()
+    _same_train_state(got, _train_state(params, optimizer, want_state))
+    assert torch.equal(got_loss, want_loss) and torch.isfinite(got_loss)
+
+
+def _trainer_on_card(card, data, graph, **extra):
+    from recommendation_tpu_torch.train.recommender import GraphRecommender
+    from recommendation_tpu_torch.utils.logging import Log
+
+    config = default_config(**{"embedding.size": 64, "batch.size": 512, "eval.interval": 1,
+                               "item.ranking.topN": [20], **extra})
+    rec = GraphRecommender(LightGCN(config), data, config, graph=graph, log=Log(echo=False),
+                           device=card)
+    rec.build()
+    return rec
+
+
+def test_capture_again_after_a_checkpoint_restore(card, tmp_path):
+    """A trainer whose epochs replay graphs restores a checkpoint
+    (``load_state_dict`` gives the optimizer new moment tensors): it
+    captures again, and its next epochs (a warm-up, then a replay) equal
+    the straight run's."""
+    from recommendation_tpu_torch.train.checkpoint import CheckpointManager
+
+    train, test = make_synthetic_dataset(n_users=200, n_items=333, n_interactions=8000, seed=5)
+    data = Interaction(train, test)
+    graph = DeviceGraph(data, device=card)
+    straight = _trainer_on_card(card, data, graph, **{"max.epoch": 3,
+                                                      "checkpoint.dir": str(tmp_path / "a")})
+    straight.train()
+    rec = _trainer_on_card(card, data, graph, **{"max.epoch": 3})
+    rec.train()
+    assert len(rec._graphed.captures) == 1
+    rec._restore(CheckpointManager(str(tmp_path / "a")).restore(0))
+    assert not rec._graphed._graphs and rec.start_epoch == 1
+    rec.epoch_stats = []
+    rec.train()  # epoch 1 warms up and captures, epoch 2 replays
+    torch.cuda.synchronize()
+    assert len(rec._graphed.captures) == 2
+    assert [e["loss"] for e in rec.epoch_stats] == [e["loss"] for e in straight.epoch_stats[1:]]
+    for p, q in zip(rec.params.values(), straight.params.values()):
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(rec.optimizer.state[p][k], straight.optimizer.state[q][k]), k
+
+
+@pytest.mark.parametrize("extra", [{"adaptive.lr": True}, {"eval.interval": 2},
+                                   {"train.max_steps_per_call": 2, "train.steps_per_call": 4}],
+                         ids=["bold_driver", "fused", "chunked"])
+def test_captured_trainer_is_the_eager_trainer(card, extra):
+    """The trainer's captured epochs, with the bold driver's rate moving
+    between replays (a device tensor), in fused blocks, or chunked, equal
+    the same trainer's eager epochs bit for bit."""
+    train, test = make_synthetic_dataset(n_users=200, n_items=333, n_interactions=8000, seed=5)
+    data = Interaction(train, test)
+    graph = DeviceGraph(data, device=card)
+    runs = []
+    for graphed in (True, False):
+        rec = _trainer_on_card(card, data, graph, **{"max.epoch": 4, **extra})
+        assert rec._graphed is not None
+        if not graphed:
+            rec._graphed = None
+        rec.train()
+        torch.cuda.synchronize()
+        runs.append(rec)
+    assert runs[0]._graphed.captures
+    assert [e["loss"] for e in runs[0].epoch_stats] == [e["loss"] for e in runs[1].epoch_stats]
+    for k in runs[0].params:
+        assert torch.equal(runs[0].params[k], runs[1].params[k]), k
+    if "adaptive.lr" in extra:
+        rate = runs[0].optimizer.param_groups[0]["lr"]
+        assert rate.is_cuda and float(rate) == pytest.approx(runs[0]._bold.lrate, rel=1e-6)
+
+
+def test_capturable_adam_is_optax(card):
+    """The card's Adam (``capturable``: its bias correction on the device)
+    against optax's arithmetic (``adam_plain``) on the same gradients,
+    within the f32 bound."""
+    from recommendation_tpu_torch.train.loop import adam_plain, make_optimizer
+
+    rng = np.random.default_rng(4)
+    p0 = torch.from_numpy(rng.normal(size=(4096, 64)).astype(np.float32)).to(card)
+    grads = [torch.from_numpy(rng.normal(size=(4096, 64)).astype(np.float32)).to(card)
+             for _ in range(5)]
+    leaf = p0.clone().requires_grad_()
+    opt = make_optimizer(default_config(**{"learning.rate": 1e-2}), {"w": leaf})
+    assert opt.defaults["capturable"]
+    for g in grads:
+        leaf.grad = g
+        opt.step()
+    want, mu, nu = adam_plain(p0, grads, 1e-2)
+    torch.testing.assert_close(leaf.detach(), want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(opt.state[leaf]["exp_avg"], mu, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(opt.state[leaf]["exp_avg_sq"], nu, rtol=1e-5, atol=1e-6)

@@ -1,0 +1,375 @@
+"""The epoch as one device execution (``train/graphed.py``) on the CPU,
+where ``GraphedEpoch`` runs its bodies eagerly (capture off): its
+bookkeeping (static words and state, chunks, the carry, the losses) gives
+the eager loop's bits, and the trainer's chunked and fused paths give the
+unchunked and unfused ones. The gates against the JAX package's: the
+fuse gate (``GraphRecommender._can_fuse_epochs``) on the JAX tests'
+configurations, and the chunk rule on a grid. Mirrors
+``tests/test_train_extras.py``'s chunked and fused tests, which hold the
+JAX package to the same bits.
+
+Every comparison here is bit for bit (``torch.equal``): the paths run the
+same operations in the same order on the same draws. Adam's arithmetic
+(``train.loop.adam_plain``, what the card's capturable Adam is held to in
+``tests/test_torch_card.py``) is held to optax's within the f32 bound.
+"""
+
+import copy
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+import recommendation_tpu.train.recommender as jax_recommender
+from recommendation_tpu.config import default_config as jax_default_config
+from recommendation_tpu.models.base import Model as JaxModel
+from recommendation_tpu.models.lightgcn import LightGCN as JaxLightGCN
+from recommendation_tpu.models.ncl import NCL as JaxNCL
+from recommendation_tpu.utils.logging import Log as JaxLog
+from recommendation_tpu_torch.config import default_config
+from recommendation_tpu_torch.data.interaction import Interaction
+from recommendation_tpu_torch.graph.device import DeviceGraph
+from recommendation_tpu_torch.models import build
+from recommendation_tpu_torch.ops import counts
+from recommendation_tpu_torch.ops.gather import gather_rows
+from recommendation_tpu_torch.train.graphed import GraphedEpoch, steps_per_call
+from recommendation_tpu_torch.train.loop import (
+    adam_plain,
+    load_optimizer_state,
+    make_bold_driver_optimizer,
+    make_optimizer,
+    set_learning_rate,
+    train_epoch,
+)
+from recommendation_tpu_torch.train.recommender import GraphRecommender
+from recommendation_tpu_torch.utils.logging import Log
+
+D, B = 8, 256
+TRAINER = {"batch.size": 512, "embedding.size": D, "item.ranking.topN": [10]}
+# the JAX tests' fuse-gate configurations (tests/test_train_extras.py)
+GATES = {"defaults": ("lightgcn", {}), "adaptive_lr": ("lightgcn", {"adaptive.lr": True}),
+         "convergence_eps": ("lightgcn", {"convergence.eps": 1e-9}),
+         "fuse_off": ("lightgcn", {"train.fuse_epochs": False}),
+         "max_fused_steps_1": ("lightgcn", {"train.max_fused_steps": 1}),
+         "ncl": ("ncl", {})}
+CHUNK_EDGES = (1_000, 999_999, 1_000_001, 2_500_000, 4_000_000)
+CHUNK_BATCHES = (512, 2048, 8192)
+CHUNK_MAX_STEPS = (2, 64, 512)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One CPU thread: torch's CPU kernels split some sums over threads by
+    size and thread count, so only one thread repeats them bit for bit."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def data(tiny_data):
+    return Interaction(tiny_data.training_data, tiny_data.test_data)
+
+
+@pytest.fixture(scope="module")
+def graphs(data):
+    return {backend: DeviceGraph(data, backend=backend, device="cpu")
+            for backend in ("dense", "bucketed", "segment")}
+
+
+class _StubGraph:
+    def __init__(self, n_edges):
+        self.n_edges = n_edges
+
+
+class _StubModel(JaxModel):
+    """Enough of a JAX model for ``GraphRecommender.build`` to reach its
+    chunk rule: one parameter, no state."""
+
+    def init(self, rng, graph):
+        return {"w": jnp.zeros(1)}, {}
+
+
+@pytest.fixture(scope="module")
+def jax_reference(tiny_data, tiny_graph):
+    """The JAX trainer's fuse gate on ``GATES`` (on the tiny set, eval
+    every 2 epochs, as the JAX test builds them) and its chunk length on
+    the grid (read off ``make_epoch_fn``'s argument in ``build``)."""
+    gates = {}
+    for case, (name, extra) in GATES.items():
+        config = jax_default_config(**{**TRAINER, "max.epoch": 4, "eval.interval": 2, **extra})
+        model = (JaxLightGCN if name == "lightgcn" else JaxNCL)(config)
+        rec = jax_recommender.GraphRecommender(model, tiny_data, config, graph=tiny_graph,
+                                               log=JaxLog(echo=False))
+        rec.build()
+        gates[case] = rec._can_fuse_epochs()
+    chunks, seen = {}, []
+    made = jax_recommender.make_epoch_fn
+    jax_recommender.make_epoch_fn = lambda *a, steps_per_call=None, **k: seen.append(
+        steps_per_call)
+    try:
+        for n_edges in CHUNK_EDGES:
+            for batch in CHUNK_BATCHES:
+                for max_steps in CHUNK_MAX_STEPS:
+                    config = jax_default_config(**{"batch.size": batch,
+                                                   "train.max_steps_per_call": max_steps})
+                    jax_recommender.GraphRecommender(
+                        _StubModel(config), tiny_data, config, graph=_StubGraph(n_edges),
+                        log=JaxLog(echo=False)).build()
+                    chunks[(n_edges, batch, max_steps)] = seen[-1]
+    finally:
+        jax_recommender.make_epoch_fn = made
+    return {"gates": gates, "chunks": chunks}
+
+
+def _model_and_params(name, graph, seed=0):
+    model = build(name, default_config(**{"embedding.size": D, "NCL.num_clusters": 4}))
+    params, state = model.init(torch.Generator().manual_seed(seed), graph)
+    params = {k: v.requires_grad_() for k, v in params.items()}
+    return model, params, state
+
+
+def _begin(model, params, state, graph, seed, epoch):
+    return model.epoch_begin(params, state, graph, torch.Generator().manual_seed(seed), epoch)
+
+
+def _snapshot(params, optimizer, state, loss):
+    moments = [{k: v.clone() for k, v in optimizer.state[p].items()} for p in params.values()]
+    return ({k: v.detach().clone() for k, v in params.items()}, moments,
+            {k: v.clone() for k, v in state.items()}, loss.clone())
+
+
+def _assert_same(got, want):
+    (gp, gm, gs, gl), (wp, wm, ws, wl) = got, want
+    for k in wp:
+        assert torch.equal(gp[k], wp[k]), k
+    for g, w in zip(gm, wm):
+        assert g.keys() == w.keys()
+        for k in w:
+            assert torch.equal(g[k], w[k]), k
+    assert gs.keys() == ws.keys()
+    for k in ws:
+        assert torch.equal(gs[k], ws[k]), k
+    assert torch.equal(gl, wl) or (gl.isnan() and wl.isnan())
+
+
+def _two_epochs(name, graph, runner_steps=None, graphed=True):
+    """Two epochs from the same start (NCL's E-step before each): through
+    ``GraphedEpoch`` (capture off) or ``train_epoch``. Returns each
+    epoch's snapshot and the runner."""
+    model, params, state = _model_and_params(name, graph)
+    optimizer = make_optimizer(default_config(), params)
+    gen = torch.Generator().manual_seed(9)
+    runner = (GraphedEpoch(model, optimizer, graph, params, B, steps_per_call=runner_steps)
+              if graphed else None)
+    out = []
+    for epoch in range(2):
+        state = _begin(model, params, state, graph, 100 + epoch, epoch)
+        if runner is not None:
+            state, loss = runner.run(state, gen)
+        else:
+            state, loss = train_epoch(model, optimizer, graph, params, state, gen, B)
+        out.append(_snapshot(params, optimizer, state, loss))
+    return out, runner
+
+
+@pytest.mark.parametrize("name,backend", [("lightgcn", "dense"), ("lightgcn", "bucketed"),
+                                          ("lightgcn", "segment"), ("ncl", "dense"),
+                                          ("ncl", "bucketed")])
+def test_graphed_epoch_is_train_epoch(graphs, name, backend):
+    """With capture off the graphed epoch is ``train_epoch`` bit for bit:
+    parameters, Adam's moments and step, the model's state and the loss,
+    over two epochs (the second from the carried state, NCL's E-step
+    between them)."""
+    graph = graphs[backend]
+    got, runner = _two_epochs(name, graph)
+    want, _ = _two_epochs(name, graph, graphed=False)
+    assert not runner.capture and runner.chunks is None and runner.captures == []
+    for g, w in zip(got, want):
+        _assert_same(g, w)
+
+
+def test_chunked_epoch_is_the_single_epoch(graphs):
+    """``steps_per_call`` 3 cuts the tiny set's epoch into 3 + 3 + 2 steps:
+    the same bits as the single epoch (the JAX package's
+    ``test_chunked_epoch_matches_single_scan``, here bit for bit)."""
+    graph = graphs["dense"]
+    got, runner = _two_epochs("lightgcn", graph, runner_steps=3)
+    want, single = _two_epochs("lightgcn", graph)
+    assert single.chunks is None and runner.n_batches == 8
+    assert runner.chunks == [(0, 3), (3, 3), (6, 2)]
+    for g, w in zip(got, want):
+        _assert_same(g, w)
+
+
+def test_the_carry_keeps_the_static_state(graphs):
+    """A state handed in from outside (NCL's E-step) is copied into the
+    static state: the run returns the same tensors every epoch, holding
+    the new values."""
+    graph = graphs["dense"]
+    model, params, state = _model_and_params("ncl", graph)
+    runner = GraphedEpoch(model, make_optimizer(default_config(), params), graph, params, B)
+    gen = torch.Generator().manual_seed(3)
+    first, _ = runner.run(_begin(model, params, state, graph, 1, 0), gen)
+    fresh = _begin(model, params, first, graph, 2, 0)
+    assert all(fresh[k] is not first[k] for k in fresh)
+    second, _ = runner.run(fresh, gen)
+    assert all(second[k] is first[k] for k in first)
+    for k in fresh:
+        assert torch.equal(second[k], fresh[k]), k
+    with pytest.raises(ValueError, match="structure"):
+        runner.run({k: v[:1] for k, v in fresh.items()}, gen)
+
+
+def _trainer(data, graph, name="lightgcn", **extra):
+    config = default_config(**{**TRAINER, **extra})
+    rec = GraphRecommender(build(name, config), data, config, graph=graph, log=Log(echo=False),
+                           device="cpu")
+    rec.build()
+    return rec
+
+
+def _assert_same_runs(a, b):
+    for k in a.params:
+        assert torch.equal(a.params[k], b.params[k]), k
+    assert [e["loss"] for e in a.epoch_stats] == [e["loss"] for e in b.epoch_stats]
+    assert a.history == b.history
+
+
+def test_fused_trainer_is_the_unfused_one(data, graphs):
+    """``eval.interval`` 3 over 5 epochs: blocks of 3 and 2 epochs, each
+    read once, give the unfused trainer's bits, losses and evaluations
+    (``test_fused_trainer_matches_unfused``)."""
+    runs = {}
+    for fuse in (False, "auto"):
+        rec = _trainer(data, graphs["dense"], **{"max.epoch": 5, "eval.interval": 3,
+                                                 "train.fuse_epochs": fuse})
+        assert rec._can_fuse_epochs() == (fuse == "auto")
+        rec.train()
+        runs[fuse] = rec
+    fused, unfused = runs["auto"], runs[False]
+    assert sum("fused x3" in line for line in fused.log.contents()) == 3
+    assert sum("fused x2" in line for line in fused.log.contents()) == 2
+    assert [h["epoch"] for h in fused.history] == [2, 4]
+    _assert_same_runs(fused, unfused)
+
+
+def test_auto_chunking_is_unchunked(data, graphs):
+    """Forcing the chunk rule low (``train.max_steps_per_call`` 2,
+    ``train.steps_per_call`` 3) chunks every epoch and changes no bit
+    (``test_trainer_auto_chunking_matches_unchunked``)."""
+    runs = {}
+    for extra in ({}, {"train.max_steps_per_call": 2, "train.steps_per_call": 3}):
+        rec = _trainer(data, graphs["dense"], **{"max.epoch": 3, "eval.interval": 3, **extra})
+        rec.train()
+        runs[bool(extra)] = rec
+    assert runs[False].steps_per_call is None and runs[False]._graphed.chunks is None
+    assert runs[True].steps_per_call == 3 and runs[True]._graphed.chunks is not None
+    _assert_same_runs(runs[True], runs[False])
+
+
+@pytest.mark.parametrize("case", list(GATES))
+def test_fuse_gate_is_the_jax_trainers(data, graphs, jax_reference, case):
+    name, extra = GATES[case]
+    rec = _trainer(data, graphs["dense"], name, **{"max.epoch": 4, "eval.interval": 2, **extra})
+    assert rec._graphed is not None
+    assert rec._can_fuse_epochs() == jax_reference["gates"][case]
+
+
+def test_chunk_rule_is_the_jax_trainers(jax_reference):
+    """The chunk length (None: one piece) on a grid of edge counts, batch
+    sizes and ``train.max_steps_per_call``, both sides of each cut."""
+    got = {}
+    for n_edges, batch, max_steps in jax_reference["chunks"]:
+        config = default_config(**{"batch.size": batch, "train.max_steps_per_call": max_steps})
+        got[(n_edges, batch, max_steps)] = steps_per_call(n_edges, batch, config)
+    assert got == jax_reference["chunks"]
+    assert None in got.values() and 32 in got.values()
+
+
+@pytest.mark.parametrize("name,extra", [("directau", {}), ("lightgcn", {"loss": "pointwise"}),
+                                        ("lightgcn", {"n_negs": 2}),
+                                        ("ncl", {"NCL.e_step_cadence": "batch"})])
+def test_fuse_epochs_true_refuses_an_eager_model(data, graphs, name, extra):
+    """A model whose step draws or reads on the host trains eagerly, and
+    ``train.fuse_epochs: true`` raises rather than run it unfused; the
+    default gate leaves it unfused."""
+    rec = _trainer(data, graphs["dense"], name, **{"eval.interval": 2, **extra})
+    assert rec._graphed is None and not rec.model.capturable
+    with pytest.raises(ValueError, match="fuse_epochs"):
+        _trainer(data, graphs["dense"], name, **{"eval.interval": 2,
+                                                 "train.fuse_epochs": True, **extra})
+
+
+def test_a_chunk_takes_a_step_and_the_cpu_adam_is_eager(graphs):
+    graph = graphs["dense"]
+    model, params, _ = _model_and_params("lightgcn", graph)
+    with pytest.raises(ValueError, match="steps_per_call"):
+        GraphedEpoch(model, make_optimizer(default_config(), params), graph, params, B,
+                     steps_per_call=0)
+    assert not make_optimizer(default_config(), params).defaults["capturable"]
+
+
+def test_a_tensor_rate_is_filled_in_place(graphs):
+    """The bold driver's rate as a device tensor (the card's form): a new
+    rate and a restored state dict fill it at its address."""
+    graph = graphs["dense"]
+    _, params, _ = _model_and_params("lightgcn", graph)
+    opt, bold = make_bold_driver_optimizer(default_config(**{"adaptive.lr": True}), params)
+    assert opt.param_groups[0]["lr"] == bold.lrate  # a float on the CPU
+    rate = torch.tensor(1e-3)
+    for group in opt.param_groups:
+        group["lr"] = rate
+    set_learning_rate(opt, 0.25)
+    assert opt.param_groups[0]["lr"] is rate and float(rate) == 0.25
+    saved = copy.deepcopy(opt.state_dict())  # as a checkpoint holds it
+    set_learning_rate(opt, 0.5)
+    load_optimizer_state(opt, saved)
+    assert opt.param_groups[0]["lr"] is rate and float(rate) == 0.25
+
+
+def test_counts_snapshot_restore_and_add():
+    """The counters a capture records and a replay adds."""
+    before = counts.launch_counts()
+    assert (gather_rows, "launches") in before
+    assert not any(name == "launches_per_call" for _, name in before)
+    try:
+        gather_rows.launches += 3
+        delta = counts.count_delta(counts.launch_counts(), before)
+        assert delta == {(gather_rows, "launches"): 3}
+        counts.set_counts(before)
+        assert counts.launch_counts() == before
+        counts.add_launches(delta)
+        counts.add_launches(delta)
+        assert gather_rows.launches == before[(gather_rows, "launches")] + 6
+    finally:
+        counts.set_counts(before)
+
+
+def test_adam_plain_is_optax():
+    """``adam_plain``, optax.adam's arithmetic in f32 (what the card's
+    capturable Adam is held to), against optax over five steps, and
+    torch's CPU Adam within the f32 bound."""
+    rng = np.random.default_rng(0)
+    p0 = rng.normal(size=(37, 8)).astype(np.float32)
+    grads = [rng.normal(size=p0.shape).astype(np.float32) for _ in range(5)]
+    opt = optax.adam(1e-2)
+    p, st = jnp.asarray(p0), opt.init(jnp.asarray(p0))
+    for g in grads:
+        upd, st = opt.update(jnp.asarray(g), st, p)
+        p = optax.apply_updates(p, upd)
+    got, mu, nu = adam_plain(torch.from_numpy(p0), [torch.from_numpy(g) for g in grads], 1e-2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax.block_until_ready(p)),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(mu.numpy(), np.asarray(st[0].mu), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(nu.numpy(), np.asarray(st[0].nu), rtol=1e-6, atol=1e-7)
+    leaf = torch.from_numpy(p0.copy()).requires_grad_()
+    adam = torch.optim.Adam([leaf], lr=1e-2, eps=1e-8)
+    for g in grads:
+        leaf.grad = torch.from_numpy(g)
+        adam.step()
+    torch.testing.assert_close(leaf.detach(), got, rtol=1e-5, atol=1e-6)
