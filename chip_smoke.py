@@ -240,16 +240,32 @@ What it does, in order (any failed phase exits non-zero):
      (``profile_steps``' method), with each capture's seconds and pool
      bytes; on the clustered bucketed graph the epoch in chunks of
      GRAPHED_CHUNK steps (a full chunk's graph and the remainder's) too;
-     and a fused block of two epochs against two epochs (dense f32). A
-     ``graphed:`` line a configuration prints as it ends;
+     and a fused block of two epochs against two epochs (dense f32). Every
+     trainer above replays the epochs of every model
+     (``Model.capturable``), so the gate runs of the hard, neighbour and
+     social phases replay theirs; and the fifteen other models
+     (``graphed_zoo_check``:
+     DirectAU and the dense zoo on the hard set's dense f32 graph, after
+     their gate runs; GraphSAGE and GAT on it, where S1, S2 and P1 launch,
+     in the neighbour phase; the social models on its bucketed trust graph,
+     in the social phase) each warm up and capture, then from one start
+     (parameters, moments, the param groups' tensors, state and the
+     trainer's mask generator) GRAPHED_ZOO_EPOCHS consecutive replayed
+     epochs equal as many eager ones bit for bit, the generator's state
+     after them too (ESRF in each of its three phases' graphs), each
+     epoch's launches ``expected_launches``', and one more replayed epoch
+     under torch.profiler gives device µs a step. A ``graphed:`` line a
+     configuration prints as it ends;
  17. prints the serving line, the training line, the NCL line, the large
      line, the clustered line, the hard line, the hard_zoo line, the
      bucketed_zoo line, the neighbors line, the social line, the int8 line,
      the sharded line, the graphed line, the kernels line (every kernel
      must have launched on a main path; each f32 row carries each sharded
      run's launches by rank as ``launches_sharded_<layout>[_<model>|_steps|
-     _edge_<model>|_edge_steps]``; a row without a library time says why in
-     ``library_note``) and, last, the device line.
+     _edge_<model>|_edge_steps]`` and the launches inside each of the
+     fifteen models' replayed graphs as ``launches_graphed_<model>``; a row
+     without a library time says why in ``library_note``) and, last, the
+     device line.
 
 Launch counts are reset just before each main path and read just after it.
 Exits non-zero without printing a result where no CUDA device is present.
@@ -257,6 +273,7 @@ Exits non-zero without printing a result where no CUDA device is present.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import csv
 import hashlib
@@ -386,7 +403,7 @@ from recommendation_tpu_torch.sampling import (
 from recommendation_tpu_torch.serve.http import serve_http
 from recommendation_tpu_torch.serve.service import RecommenderService
 from recommendation_tpu_torch.train.graphed import GraphedEpoch
-from recommendation_tpu_torch.train.loop import run_steps, step_grads, train_epoch
+from recommendation_tpu_torch.train.loop import cosine_decay, run_steps, step_grads, train_epoch
 from recommendation_tpu_torch.train.recommender import GraphRecommender
 from recommendation_tpu_torch.utils.logging import Log
 from recommendation_tpu_torch.utils.profiling import Throughput, profile_trace
@@ -409,7 +426,8 @@ N_CLIENTS, REQS_PER_CLIENT = 16, 20
 # training: bench.py's batch and rate; epochs enough for the loss to fall
 # and Recall@20 to pass the popularity baseline, few enough to stay short
 # the eager profiles' steps: few, to keep the script within its time
-# (LightGCN's and NCL's epochs are timed whole by graphed_check)
+# (every model's epochs are timed whole by graphed_check or
+# graphed_zoo_check)
 BATCH, LR, TRAIN_EPOCHS, PROFILE_STEPS = 2048, 1e-3, 5, 5
 # NCL: its defaults; the context layer of hyper_layers 1 is k = 2
 NCL_K, TAU = 2, 0.1
@@ -2002,7 +2020,8 @@ def bucketed_step_launches(model_name, n_layers):
     return {"gather_rows": k7, "gather_sum": p1}
 
 
-def expected_launches(model_name, graph, n_layers, steps, n_evals, e_steps=0, emb=EMB):
+def expected_launches(model_name, graph, n_layers, steps, n_evals, e_steps=0, emb=EMB,
+                      phase=2):
     """What one run's steps, E-steps and evaluations launch. On the bucketed
     backend: a step as ``bucketed_step_launches`` says, NCL's L
     ``adj_matmul`` rounds P1 and K7 once each way a round with K5 and K6 two
@@ -2014,13 +2033,14 @@ def expected_launches(model_name, graph, n_layers, steps, n_evals, e_steps=0, em
     reach no kernel of the port (their square products are ``torch.matmul``, as the JAX package's
     are XLA's). Where int8 packs (a bucketed chain at ``emb`` >= 249), each
     forward chain quantizes layer 0's source (Q1) and its L pulls the rest
-    in their epilogue; the backward quantizes nothing."""
+    in their epilogue; the backward quantizes nothing. ``phase``: ESRF's
+    (``social_launches``)."""
     want = {f.__name__: 0 for f in ALL_COUNTERS}
     if model_name == "ssl4rec":  # no graph in its loss: no kernel on any backend
         return want
     if model_name in SOCIAL_MODELS:
         if graph.backend != "dense":  # on the dense backend: torch.matmul
-            step, per_eval = social_launches(model_name, graph.backend, n_layers)
+            step, per_eval = social_launches(model_name, graph.backend, n_layers, phase=phase)
             for k in step:
                 want[k] = step[k] * steps + per_eval[k] * n_evals
         return want
@@ -2389,6 +2409,7 @@ def hard_phase():
     # NCL's bucketed epoch at the hard set's (ML-100K-shaped) size: at the
     # clustered set's its 110 steps are device bound (PERF.md §5)
     graphed_check("ncl hard bucketed float32", "ncl", data, ref, BATCH)
+    graphed_zoo_check("directau hard dense float32", "directau", data, graphs["float32"], BATCH)
     return (out, hard_zoo_phase(data, graphs, ref),
             hard_neighbor_phase(data, graphs["float32"], ref))
 
@@ -2495,6 +2516,8 @@ def hard_zoo_phase(data, graphs, bucketed):
         if name in ("selfcf", "buir") and stats["served_width"] != 2 * EMB:
             raise RuntimeError(f"{name} served tables of width {stats['served_width']}")
         out["train"].append(stats)
+    for name in ZOO_MODELS:
+        graphed_zoo_check(f"{name} hard dense float32", name, data, f32, BATCH)
     return out
 
 
@@ -3070,6 +3093,7 @@ def hard_neighbor_phase(data, f32, bucketed):
                                                                        rec.graph))
         check_gate(stats)
         out["train"].append(stats)
+        graphed_zoo_check(f"{name} hard dense float32", name, data, f32, BATCH)
     seg = DeviceGraph(data, backend="segment", device="cuda")
     out["one_step"]["lightgcn_segment"] = segment_lightgcn_one_step(seg, BATCH)
     runs = {}
@@ -3467,6 +3491,9 @@ def social_phase(card):
     for name in SOCIAL_TRAINED:
         out["profile"][name] = social_profile(name, data, bucketed)
     lap("profile")
+    for name in SOCIAL_MODELS:
+        graphed_zoo_check(f"{name} hard bucketed float32", name, data, bucketed, BATCH)
+    lap("graphed")
     rec = GraphRecommender(build("diffnet", config), data, config, graph=bucketed,
                            log=Log(echo=False), device="cuda")
     rec.build()
@@ -4843,6 +4870,20 @@ def add_sharded_launches(kernel_rows, sharded):
                     row["launches"] += sum(counts)
 
 
+def add_graphed_launches(kernel_rows):
+    """The fifteen models' launches inside their replayed graphs
+    (``graphed_zoo_check``, every run f32) into the kernels rows, each as
+    ``launches_graphed_<model>`` and added to the row's ``launches``."""
+    for row in kernel_rows:
+        if row.get("dtype", "float32") != "float32":
+            continue
+        for run in GRAPHED:
+            n = run.get("replayed_launches", {}).get(row.get("launches_of", row["name"]), 0)
+            if n:
+                row[f"launches_graphed_{run['model']}"] = n
+                row["launches"] += n
+
+
 # why a kernel's row has no library time: no one PyTorch call computes the
 # same function on the same inputs
 LIBRARY_NOTES = {
@@ -4874,14 +4915,27 @@ GRAPHED_REPEATS = 5
 # batches = 3 x 32 + 14, a full chunk's graph and a remainder's
 GRAPHED_CHUNK = 32
 GRAPHED = []  # one entry a configuration: the graphed line
+# consecutive epochs each way in graphed_zoo_check (its timed repeats)
+GRAPHED_ZOO_EPOCHS = 2
+# the models whose step draws nothing (ESRF neither in phase 0): their mask
+# generator stays put
+GRAPHED_ZOO_DRAWLESS = ("directau", "selfcf", "diffnet", "sept", "sept_social", "sept_basic")
+
+
+def group_tensors(optimizer):
+    """Each param group's tensors but its parameters (a tensor rate, G-BT's
+    schedule count)."""
+    return [{k: v for k, v in group.items() if k != "params" and isinstance(v, torch.Tensor)}
+            for group in optimizer.param_groups]
 
 
 def train_snapshot(params, optimizer, state):
-    """Copies of the parameters, every optimizer state tensor and the
-    model state."""
+    """Copies of the parameters, every optimizer state tensor, the model
+    state and the param groups' tensors."""
     moments = [{k: v.clone() for k, v in optimizer.state[p].items()} for p in params.values()]
     return ({k: v.detach().clone() for k, v in params.items()}, moments,
-            {k: v.clone() for k, v in state.items()})
+            {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in state.items()},
+            [{k: v.clone() for k, v in group.items()} for group in group_tensors(optimizer)])
 
 
 def put_back(params, optimizer, snap):
@@ -4891,6 +4945,13 @@ def put_back(params, optimizer, snap):
             v.copy_(snap[0][k])
             for key, t in moments.items():
                 optimizer.state[v][key].copy_(t)
+        for group, saved in zip(group_tensors(optimizer), snap[3]):
+            for key, t in saved.items():
+                group[key].copy_(t)
+
+
+def same(a, b):
+    return torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
 
 
 def snapshot_diff(got, want, loss_got, loss_want):
@@ -4898,7 +4959,9 @@ def snapshot_diff(got, want, loss_got, loss_want):
     bad = [f"params.{k}" for k in want[0] if not torch.equal(got[0][k], want[0][k])]
     bad += [f"optimizer.{i}.{k}" for i, (g, w) in enumerate(zip(got[1], want[1]))
             for k in w if not torch.equal(g[k], w[k])]
-    bad += [f"state.{k}" for k in want[2] if not torch.equal(got[2][k], want[2][k])]
+    bad += [f"state.{k}" for k in want[2] if not same(got[2][k], want[2][k])]
+    bad += [f"group.{i}.{k}" for i, (g, w) in enumerate(zip(got[3], want[3]))
+            for k in w if not torch.equal(g[k], w[k])]
     if not torch.equal(loss_got, loss_want):
         bad.append("loss")
     return bad
@@ -5039,6 +5102,152 @@ def graphed_check(label, model_name, data, graph, batch, emb=EMB, chunk=None):
           f"{[c['seconds'] for c in runner.captures]}, pool bytes "
           f"{[c['pool_bytes'] for c in runner.captures]}; {out['seconds']:.1f} s")
     del rec, runner, chunked
+    torch.cuda.empty_cache()
+    return out
+
+
+def graphed_zoo_check(label, model_name, data, graph, batch):
+    """One of the fifteen models' captured epochs at its defaults (d=64,
+    Adam at LR; GraphRecommender's ``GraphedEpoch``, warmed up and
+    captured on its first epoch): from one start (parameters, Adam's
+    moments, the param groups' tensors, the state and the trainer's mask
+    generator), GRAPHED_ZOO_EPOCHS consecutive replayed epochs, with
+    ``epoch_begin`` between them, against as many eager epochs
+    (``train_epoch`` with the trainer's generator), bit for bit epoch by
+    epoch: the second equal only if each replay advanced the generator as
+    the eager epoch did. The generator's state after them must agree, and
+    move where the model draws. Each epoch's launches must be
+    ``expected_launches``'. At LATE_EPOCH (SEPT's SSL on); ESRF in each
+    phase's first epoch, one graph a phase. Then one more replayed epoch
+    under torch.profiler (``device_profile``: the eager epoch runs the same
+    kernels, and profiling its host calls costs seconds a model), whose
+    device µs give both idle shares. G-BT's rate is a group tensor: it
+    must agree after every epoch, and its schedule on the card must be the
+    CPU's (optax's, ``tests/test_torch_graphed_zoo.py``) bit for bit at
+    every update from 0 to T + 3."""
+    t0 = time.perf_counter()
+    config = default_config(**{
+        "embedding.size": EMB, "batch.size": batch, "learning.rate": LR, "optimizer": "adam",
+        "graph.compute_dtype": graph.compute_dtype, "item.ranking.topN": [20]})
+    rec = GraphRecommender(build(model_name, config), data, config, graph=graph,
+                           log=Log(echo=False), device="cuda")
+    rec.build()
+    runner = rec._graphed
+    if runner is None or not runner.capture or runner.chunks is not None:
+        raise RuntimeError(f"{label}: the trainer does not capture its epochs in one graph")
+    model, params, opt, n = rec.model, rec.params, rec.optimizer, runner.n_batches
+    draws = rec._draws
+    n_layers = getattr(model, "n_layers", None)
+    if model_name == "esrf":
+        third = max(1, model.max_epoch // 3)
+        epochs = {model.phase_of(e): e for e in (0, third, 2 * third)}
+    else:
+        epochs = {2: LATE_EPOCH}
+    out = {"config": label, "model": model_name, "backend": graph.backend,
+           "compute_dtype": graph.compute_dtype, "d": EMB, "batch": batch,
+           "steps_per_epoch": n, "phases": {}}
+    replayed = collections.Counter()  # the kernels' launches inside replayed graphs
+    if model_name == "gbt":
+        count = torch.arange(model.total_steps + 4, dtype=torch.int32)
+        rates = cosine_decay(LR, count.cuda(), model.total_steps)
+        if not torch.equal(rates.cpu(), cosine_decay(LR, count, model.total_steps)):
+            raise RuntimeError(f"{label}: the cosine schedule on the card differs from the CPU's")
+        out["schedule_steps_same_as_cpu"] = len(count)
+    for phase, epoch in epochs.items():
+        want = expected_launches(model_name, graph, n_layers, n, 0, phase=phase)
+        state = model.epoch_begin(params, rec.state, graph, torch.Generator().manual_seed(1),
+                                  epoch)
+
+        def counted(fn, name):
+            """``fn``'s (state, loss) after the loss's host read, its host
+            µs a step, its launches held to ``want`` (a replay's added to
+            ``replayed``)."""
+            reset_counts()
+            t = time.perf_counter()
+            st, loss = fn()
+            float(loss)
+            host_us = (time.perf_counter() - t) * 1e6 / n
+            if all_counts() != want:
+                raise RuntimeError(f"{label} {name} epoch launches {all_counts()}, "
+                                   f"expected {want}")
+            if name == "captured":
+                replayed.update(all_counts())
+            return st, loss, host_us
+
+        warm = counted(lambda: runner.run(state, torch.Generator().manual_seed(2), draws),
+                       "warm-up")
+        rec.state = warm[0]
+        start, start_draws = train_snapshot(params, opt, warm[0]), draws.get_state()
+
+        def from_start(name, fn):
+            """GRAPHED_ZOO_EPOCHS consecutive epochs of ``fn(state, words'
+            generator)`` from the start: (snapshot, loss) and host µs a
+            step of each, the mask generator's state after them."""
+            put_back(params, opt, start)
+            draws.set_state(start_draws)
+            st, snaps, hosts = dict(start[2]), [], []
+            for k in range(GRAPHED_ZOO_EPOCHS):
+                if k:
+                    st = model.epoch_begin(params, st, graph,
+                                           torch.Generator().manual_seed(20 + k), epoch)
+                st, loss, host_us = counted(
+                    lambda: fn(st, torch.Generator().manual_seed(3 + k)), name)
+                snaps.append((train_snapshot(params, opt, st), loss.clone()))
+                hosts.append(host_us)
+            return snaps, hosts, draws.get_state()
+
+        def captured(st, words):
+            return runner.run(st, words, draws)
+
+        def eager(st, words):
+            return train_epoch(model, opt, graph, params, st, words, batch, draws=draws)
+
+        got, want_run = from_start("captured", captured), from_start("eager", eager)
+        diff = {f"captured_vs_eager_{k}": snapshot_diff(g[0], w[0], g[1], w[1])
+                for k, (g, w) in enumerate(zip(got[0], want_run[0]))}
+        if not torch.equal(got[2], want_run[2]):
+            diff["mask_generator_state"] = ["differs"]
+        advanced = not torch.equal(got[2], start_draws)
+        draws_masks = model_name not in GRAPHED_ZOO_DRAWLESS and (model_name, phase) != ("esrf", 0)
+        losses = [float(loss) for _, loss in got[0]]
+        if (any(diff.values()) or not all(math.isfinite(x) for x in losses)
+                or advanced != draws_masks):
+            raise RuntimeError(f"{label} phase {phase}: the epochs differ: {diff}, losses "
+                               f"{losses}, mask generator advanced: {advanced}")
+        out["phases"][phase] = {
+            "epoch": epoch, "same_bits": sorted(diff), "losses": losses,
+            "mask_generator_advanced": advanced, "launches_per_epoch": want,
+            "warm_up_host_us_per_step": warm[2],
+            "host_us_per_step": {"eager": want_run[1], "captured": got[1]},
+            "rates": [[float(g["lr"]) for g in snap[3] if "lr" in g] for snap, _ in got[0]]}
+    put_back(params, opt, start)
+    draws.set_state(start_draws)
+    reset_counts()
+    prof = device_profile(lambda: captured(dict(start[2]), torch.Generator().manual_seed(3))[1],
+                          n)
+    replayed.update(all_counts())
+    dev, timing = prof["device_us_per_step"], {}
+    for mode, hosts in (("eager", want_run[1]), ("captured", got[1])):
+        host = float(np.median(hosts))
+        timing[mode] = {"host_us_per_step": host, "device_idle_share": (
+            1.0 - dev / host if isinstance(dev, float) else dev)}
+        if isinstance(dev, float):
+            timing[mode]["device_busy_idle_share"] = 1.0 - prof["device_busy_us_per_step"] / host
+    out.update(timing, device=prof, captures=runner.captures,
+               replayed_launches={k: v for k, v in replayed.items() if v},
+               seconds=time.perf_counter() - t0)
+    GRAPHED.append(out)
+    print(f"graphed: {label}: {sum(len(p['same_bits']) for p in out['phases'].values())} "
+          f"comparisons bit for bit in phases {sorted(out['phases'])}; host us/step eager "
+          f"{timing['eager']['host_us_per_step']:.1f} captured "
+          f"{timing['captured']['host_us_per_step']:.1f}; device us/step {dev} (busy "
+          f"{prof.get('device_busy_us_per_step')}); idle eager "
+          f"{timing['eager']['device_idle_share']} captured "
+          f"{timing['captured']['device_idle_share']}; capture s "
+          f"{[round(c['seconds'], 3) for c in runner.captures]}, pool MB "
+          f"{[round(c['pool_bytes'] / 2**20, 1) for c in runner.captures]}; "
+          f"{out['seconds']:.1f} s")
+    del rec, runner, model, params, opt
     torch.cuda.empty_cache()
     return out
 
@@ -5228,6 +5437,7 @@ def main() -> int:
                    + list(layer_bwd_rows.values()) + lse_rows + [k7_row, p1_row] + seg_rows
                    + [q1_row, p1_int8_row, fused_row])
     add_sharded_launches(kernel_rows, sharded)
+    add_graphed_launches(kernel_rows)
     for row in kernel_rows:
         if row.get("library_ms") is None:
             row["library_note"] = LIBRARY_NOTES.get(row["name"], "not measured in this run")
@@ -5252,6 +5462,7 @@ def main() -> int:
     print(json.dumps({"graphed": {
         "card": card, "repeats": GRAPHED_REPEATS, "configs": GRAPHED, "fused": fused,
         "seconds": graphed_dense_s + sum(c["seconds"] for c in GRAPHED[3:]),
+        "zoo_seconds": sum(c["seconds"] for c in GRAPHED if "phases" in c),
         "script_seconds": time.perf_counter() - T_START, "phases_at_s": PHASES}}))
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {

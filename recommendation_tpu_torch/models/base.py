@@ -34,9 +34,13 @@ class Model:
     frozen: tuple[str, ...] = ()
     # whether the trainer runs the model's epochs as CUDA graphs
     # (``train/graphed.py``): a step that reads nothing on the host and
-    # draws nothing from the loss's generator (a draw is a copy from host
-    # memory, which a graph cannot hold); on for LightGCN and NCL
-    capturable: bool = False
+    # draws only from the loss's generator (the trainer's one generator on
+    # the graph's device, which the graphs register, so every replay draws
+    # anew). Every registered model at its defaults; off for the
+    # configurations that draw their words in the step, not yet captured
+    # (LightGCN's pointwise loss and extra negatives, NCL's per-batch
+    # E-step)
+    capturable: bool = True
 
     def __init__(self, config):
         self.config = config

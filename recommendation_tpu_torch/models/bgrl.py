@@ -29,7 +29,7 @@ import weakref
 
 import torch
 
-from recommendation_tpu_torch.graph.augment import device_generator, drop_edges, mask_features
+from recommendation_tpu_torch.graph.augment import drop_edges, mask_features
 from recommendation_tpu_torch.graph.bucketed import PLAIN, pull
 from recommendation_tpu_torch.graph.device import binarized
 from recommendation_tpu_torch.losses import bootstrap_g2l_loss
@@ -97,12 +97,11 @@ class BGRL(Model):
         return z, torch.where(p >= 0, p, enc["prelu"] * p)
 
     def loss(self, params, state, batch, graph, generator=None):
-        g = device_generator(generator, graph.device)
         ones = self._adj(graph)
-        a1 = drop_edges(g, ones, self.drop_edge)
-        a2 = drop_edges(g, ones, self.drop_edge)
-        x1 = mask_features(g, params["features"], self.drop_feat)
-        x2 = mask_features(g, params["features"], self.drop_feat)
+        a1 = drop_edges(generator, ones, self.drop_edge)
+        a2 = drop_edges(generator, ones, self.drop_edge)
+        x1 = mask_features(generator, params["features"], self.drop_feat)
+        x2 = mask_features(generator, params["features"], self.drop_feat)
         online = subtree(params, "online")
         h1 = linear(params, "predictor", self._gin(online, x1, a1)[1])
         h2 = linear(params, "predictor", self._gin(online, x2, a2)[1])

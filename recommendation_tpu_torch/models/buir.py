@@ -76,10 +76,9 @@ class BUIR(Model):
         return self.propagate(user_emb, item_emb, with_vals(adj, vals))
 
     def loss(self, params, state, batch, graph, generator=None):
-        g = augment.device_generator(generator, graph.device)
-        u_on, i_on = self._encode(params["user_emb"], params["item_emb"], graph, g)
+        u_on, i_on = self._encode(params["user_emb"], params["item_emb"], graph, generator)
         with torch.no_grad():
-            u_tg, i_tg = self._encode(state["t_user_emb"], state["t_item_emb"], graph, g)
+            u_tg, i_tg = self._encode(state["t_user_emb"], state["t_item_emb"], graph, generator)
         users, items = batch.users.long(), batch.pos_items.long()
         loss = buir_loss(linear(params, "predictor", take_rows(u_on, users)),
                          take_rows(u_tg, users),

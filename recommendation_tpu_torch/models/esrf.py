@@ -13,7 +13,9 @@ training with the generator frozen, the adversarial min-max.
 
 The phase rides the model state as a Python int that ``epoch_begin`` sets
 (the JAX package's ``lax.switch`` on a device scalar becomes a branch), so
-no step reads the device; a checkpoint carries it. In phase 2
+no step reads the device; a checkpoint carries it, and the trainer's
+captured epoch (``train/graphed.py``) keeps one graph per phase, keyed by
+the state's host values. In phase 2
 ``ESRF.alternating_updates`` (default True) keeps the reference's
 stop-gradient placement: the D objective flows through the friend
 embeddings, the G objective through the whole discriminator forward with
@@ -21,9 +23,12 @@ the D parameters detached (both gradients taken at the pre-update point,
 as the reference's two optimizer steps take them); False detaches D's
 outputs in the G objective instead. ``make_optimizer`` is one Adam with two
 parameter groups: ``d.*`` at the learning rate, ``g.*`` at five times it
-(the JAX package's ``optax.multi_transform``). Draws: the segment start from
-the trainer's host generator (``augment.randint``), the gumbel noise on the
-device (``augment.uniform``).
+(the JAX package's ``optax.multi_transform``); on the card it is
+``capturable``, its two rates device tensors (``train.loop.tensor_rates``),
+so a captured update reads them. Draws, both from the step's generator: the segment
+start (``augment.randint``, a device scalar: the segment's rows are read
+and written at that offset, the JAX function's ``randint`` and
+``dynamic_slice_in_dim``), then the gumbel noise (``augment.uniform``).
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from recommendation_tpu_torch.models.diffnet import randn_table, require_social,
 from recommendation_tpu_torch.models.registry import register
 from recommendation_tpu_torch.ops.rows import take_rows
 from recommendation_tpu_torch.ops.spmm import adj_matmul
+from recommendation_tpu_torch.train.loop import tensor_rates
 from recommendation_tpu_torch.weights import flatten_tree, subtree
 
 
@@ -68,7 +74,9 @@ class ESRF(Model):
         lr = float(config.get("learning.rate", 1e-3))
         groups = [{"params": [p for k, p in params.items() if k.startswith(f"{part}.")],
                    "lr": rate} for part, rate in (("d", lr), ("g", 5.0 * lr))]
-        return torch.optim.Adam(groups, lr=lr, eps=1e-8)
+        cuda = next(iter(params.values())).is_cuda
+        opt = torch.optim.Adam(groups, lr=lr, eps=1e-8, capturable=cuda)
+        return tensor_rates(opt) if cuda else opt
 
     def init(self, generator: torch.Generator, graph):
         require_social(graph, "esrf_motif", "ESRF")
@@ -89,9 +97,11 @@ class ESRF(Model):
 
     # -- generator ------------------------------------------------------------
 
-    def _generator(self, g_params, graph, host: torch.Generator, device_gen: torch.Generator):
+    def _generator(self, g_params, graph, generator: torch.Generator):
         """The alternative neighbourhood of a random user segment
-        (`esrf.py:1137-1160`): [U, U], zero outside the segment's rows."""
+        (`esrf.py:1137-1160`): [U, U], zero outside the segment's rows. The
+        segment's ``seg`` rows start at a device offset: read and written
+        through their indices, so no step reads the start on the host."""
         emb = g_params["relation_emb"]
         acc = cur = emb
         for _ in range(self.n_layers_g):
@@ -100,12 +110,12 @@ class ESRF(Model):
         user_embeddings = acc / (self.n_layers_g + 1)
         n = graph.n_users
         seg = min(self.segment, n)
-        start = augment.randint(host, max(1, n - seg + 1))
-        feats = user_embeddings[start:start + seg] @ user_embeddings.T  # [seg, n_users]
+        start = augment.randint(generator, max(1, n - seg + 1), emb.device)
+        rows = start + torch.arange(seg, device=emb.device)
+        feats = user_embeddings.index_select(0, rows) @ user_embeddings.T  # [seg, n_users]
         alpha = feats[:, None, :] * g_params["c_selector"][None, :, :]  # [seg, K, n_users]
-        multi_hot = torch.sum(gumbel_softmax(device_gen, alpha), dim=1)  # [seg, n_users]
-        return torch.cat([multi_hot.new_zeros((start, n)), multi_hot,
-                          multi_hot.new_zeros((n - start - seg, n))])
+        multi_hot = torch.sum(gumbel_softmax(generator, alpha), dim=1)  # [seg, n_users]
+        return multi_hot.new_zeros((n, n)).index_copy(0, rows, multi_hot)
 
     # -- discriminator --------------------------------------------------------
 
@@ -147,14 +157,13 @@ class ESRF(Model):
             return untouched + summed_bpr(
                 self.reg_u, *self._rows(*self._discriminator(d_params, graph), batch),
                 grp), state
-        device_gen = augment.device_generator(generator, graph.device)
         if phase == 1:
             with torch.no_grad():
-                alt = self._generator(g_params, graph, generator, device_gen)
+                alt = self._generator(g_params, graph, generator)
             return untouched + summed_bpr(
                 self.reg_u, *self._rows(*self._discriminator(d_params, graph, alt), batch),
                 grp), state
-        alt = self._generator(g_params, graph, generator, device_gen)
+        alt = self._generator(g_params, graph, generator)
         alt_stop = alt.detach()
         # D objective: alt frozen
         ue, ie = self._discriminator(d_params, graph, alt_stop)

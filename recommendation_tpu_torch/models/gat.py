@@ -50,7 +50,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from recommendation_tpu_torch.graph.augment import device_generator, keep_draw
+from recommendation_tpu_torch.graph.augment import keep_draw
 from recommendation_tpu_torch.losses import bpr_loss, l2_reg_loss
 from recommendation_tpu_torch.models.base import Model
 from recommendation_tpu_torch.models.registry import register
@@ -325,20 +325,19 @@ class GAT(Model):
         return flatten_tree(params), {}
 
     def _forward(self, params, graph, generator=None):
-        g = None if generator is None else device_generator(generator, graph.device)
         st = attention_structure(graph)
         n = graph.n_nodes
 
         def maybe_dropout(t):
-            if g is None or self.dropout <= 0:
+            if generator is None or self.dropout <= 0:
                 return t
-            keep = keep_draw(g, t.shape, 1.0 - self.dropout, t.device)
+            keep = keep_draw(generator, t.shape, 1.0 - self.dropout, t.device)
             return torch.where(keep, t / (1.0 - self.dropout), torch.zeros_like(t))
 
         def layer(x, name, heads):
-            drop = self.edge_dropout if g is not None else 0.0
+            drop = self.edge_dropout if generator is not None else 0.0
             w, a_src, a_dst = (params[f"{name}.{k}"] for k in ("w", "a_src", "a_dst"))
-            return gat_layer(x, st, n, w, a_src, a_dst, heads, self.neg_slope, g, drop,
+            return gat_layer(x, st, n, w, a_src, a_dst, heads, self.neg_slope, generator, drop,
                              self.plain)
 
         x = maybe_dropout(torch.cat([params["user_emb"], params["item_emb"]]))

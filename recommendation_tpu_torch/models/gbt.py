@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from recommendation_tpu_torch.graph.augment import device_generator, drop_edges, mask_features
+from recommendation_tpu_torch.graph.augment import drop_edges, mask_features
 from recommendation_tpu_torch.losses import barlow_twins_loss
 from recommendation_tpu_torch.models.base import Model
 from recommendation_tpu_torch.models.grace import gcn_layer
@@ -68,11 +68,10 @@ class GBT(Model):
         return gcn_layer(params, "conv2", z, adj)
 
     def loss(self, params, state, batch, graph, generator=None):
-        g = device_generator(generator, graph.device)
-        adj1 = drop_edges(g, graph.norm_adj_selfloops, self.drop_edge)
-        adj2 = drop_edges(g, graph.norm_adj_selfloops, self.drop_edge)
-        x1 = mask_features(g, params["features"], self.drop_feat)
-        x2 = mask_features(g, params["features"], self.drop_feat)
+        adj1 = drop_edges(generator, graph.norm_adj_selfloops, self.drop_edge)
+        adj2 = drop_edges(generator, graph.norm_adj_selfloops, self.drop_edge)
+        x1 = mask_features(generator, params["features"], self.drop_feat)
+        x2 = mask_features(generator, params["features"], self.drop_feat)
         # over all nodes, whatever the batch (the share of a data group's rank)
         loss = barlow_twins_loss(self._gcn(params, x1, adj1), self._gcn(params, x2, adj2))
         return graph_share(loss, batch.group), state

@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from recommendation_tpu_torch.graph.augment import device_generator, dropped_norm_adj
+from recommendation_tpu_torch.graph.augment import dropped_norm_adj
 from recommendation_tpu_torch.graph.bucketed import PLAIN, pull
 from recommendation_tpu_torch.losses import batch_mean, info_nce
 from recommendation_tpu_torch.models.base import Model, linear
@@ -82,9 +82,8 @@ class GCL(Model):
         return linear(params, "proj2", torch.relu(linear(params, "proj1", x)))
 
     def loss(self, params, state, batch, graph, generator=None):
-        g = device_generator(generator, graph.device)
-        adj1 = dropped_norm_adj(g, graph, self.drop_edge)
-        adj2 = dropped_norm_adj(g, graph, self.drop_edge)
+        adj1 = dropped_norm_adj(generator, graph, self.drop_edge)
+        adj2 = dropped_norm_adj(generator, graph, self.drop_edge)
         z1 = self._project(params, self._encode(params, adj1))
         z2 = self._project(params, self._encode(params, adj2))
         nu = graph.n_users

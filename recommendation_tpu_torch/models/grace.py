@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from recommendation_tpu_torch.graph.augment import device_generator, drop_edges, mask_features
+from recommendation_tpu_torch.graph.augment import drop_edges, mask_features
 from recommendation_tpu_torch.losses import grace_dual_branch_loss
 from recommendation_tpu_torch.models.base import Model, linear
 from recommendation_tpu_torch.models.registry import register
@@ -76,11 +76,10 @@ class GRACE(Model):
         return linear(params, "fc2", F.elu(linear(params, "fc1", z)))
 
     def loss(self, params, state, batch, graph, generator=None):
-        g = device_generator(generator, graph.device)
-        adj1 = drop_edges(g, graph.norm_adj_selfloops, self.drop_edge1)
-        adj2 = drop_edges(g, graph.norm_adj_selfloops, self.drop_edge2)
-        x1 = mask_features(g, params["features"], self.drop_feat1)
-        x2 = mask_features(g, params["features"], self.drop_feat2)
+        adj1 = drop_edges(generator, graph.norm_adj_selfloops, self.drop_edge1)
+        adj2 = drop_edges(generator, graph.norm_adj_selfloops, self.drop_edge2)
+        x1 = mask_features(generator, params["features"], self.drop_feat1)
+        x2 = mask_features(generator, params["features"], self.drop_feat2)
         z1 = self._project(params, self._gcn(params, x1, adj1))
         z2 = self._project(params, self._gcn(params, x2, adj2))
         # over all nodes, whatever the batch: under a data group each rank

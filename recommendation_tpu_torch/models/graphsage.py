@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from recommendation_tpu_torch.graph.augment import device_generator, keep_draw
+from recommendation_tpu_torch.graph.augment import keep_draw
 from recommendation_tpu_torch.losses import bce_loss, bpr_loss, l2_reg_loss
 from recommendation_tpu_torch.models.base import Model
 from recommendation_tpu_torch.models.registry import register
@@ -104,7 +104,6 @@ class GraphSAGE(Model):
         x = params["features"]
         if not self.learned_features:
             x = x.detach()
-        g = None if generator is None else device_generator(generator, graph.device)
         n_layers = layer_count(params, "layers")
         for li in range(n_layers):
             neigh = self._aggregate(x, graph)
@@ -112,8 +111,8 @@ class GraphSAGE(Model):
                  + neigh @ params[f"layers.{li}.neigh.w"] + params[f"layers.{li}.neigh.b"])
             if li < n_layers - 1:
                 x = torch.relu(x)
-                if g is not None and self.dropout > 0:
-                    keep = keep_draw(g, x.shape, 1.0 - self.dropout, x.device)
+                if generator is not None and self.dropout > 0:
+                    keep = keep_draw(generator, x.shape, 1.0 - self.dropout, x.device)
                     x = torch.where(keep, x / (1.0 - self.dropout), torch.zeros_like(x))
         return x[:graph.n_users], x[graph.n_users:]
 

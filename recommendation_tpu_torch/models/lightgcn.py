@@ -90,7 +90,6 @@ def lightgcn_encode(user_emb: torch.Tensor, item_emb: torch.Tensor, graph, n_lay
 @register("lightgcn")
 class LightGCN(Model):
     name = "lightgcn"
-    capturable = True
 
     def __init__(self, config):
         super().__init__(config)

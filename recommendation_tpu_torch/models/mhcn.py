@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import torch
 
-from recommendation_tpu_torch.graph.augment import device_generator
 from recommendation_tpu_torch.losses import _l2_normalize, bpr_loss, hierarchical_mim_loss
 from recommendation_tpu_torch.models.base import Model
 from recommendation_tpu_torch.models.diffnet import require_social
@@ -105,11 +104,10 @@ class MHCN(Model):
         # JAX package's leaf order (its tree flattening sorts the dict keys)
         reg = self.reg * sum(torch.sqrt(torch.sum(params[k] ** 2) + 1e-12)
                              for k in sorted(params))
-        g = device_generator(generator, graph.device)
         ss = 0.0
         for c, adj in enumerate((graph.mhcn_hs, graph.mhcn_hj, graph.mhcn_hp)):
             gated = self._gate(params, user_all, c, supervised=True)
-            ss = ss + hierarchical_mim_loss(g, gated, adj_matmul(adj, gated))
+            ss = ss + hierarchical_mim_loss(generator, gated, adj_matmul(adj, gated))
         return rec + graph_share(reg, grp) + graph_share(self.ss_rate * ss, grp), state
 
     def eval_embeddings(self, params, state, graph):

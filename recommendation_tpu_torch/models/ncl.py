@@ -59,7 +59,6 @@ from recommendation_tpu_torch.ops.rows import take_rows
 @register("ncl")
 class NCL(Model):
     name = "ncl"
-    capturable = True
 
     def __init__(self, config):
         super().__init__(config)

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from recommendation_tpu_torch.graph.augment import device_generator, keep_draw
+from recommendation_tpu_torch.graph.augment import keep_draw
 from recommendation_tpu_torch.losses import batch_softmax_loss, info_nce, l2_reg_loss
 from recommendation_tpu_torch.models.base import Model, linear
 from recommendation_tpu_torch.models.registry import register
@@ -89,10 +89,9 @@ class SSL4Rec(Model):
         n = batch.users.shape[0]
         u_emb, keys = self.towers(params, batch.users, whole.pos_items)
         rec = batch_softmax_loss(u_emb, keys, self.tau, group=grp)
-        g = device_generator(generator, graph.device)
         raw = take_rows(params["item_emb"], whole.pos_items)
-        v1 = mlp_apply(params, "item_net", feature_dropout(g, raw, self.drop))
-        v2 = mlp_apply(params, "item_net", feature_dropout(g, raw, self.drop))
+        v1 = mlp_apply(params, "item_net", feature_dropout(generator, raw, self.drop))
+        v2 = mlp_apply(params, "item_net", feature_dropout(generator, raw, self.drop))
         cl = self.cl_rate * info_nce(v1[lo:lo + n], v2, self.tau, group=grp)
         return rec + cl + l2_reg_loss(self.reg, u_emb, keys[lo:lo + n], group=grp), state
 

@@ -22,15 +22,16 @@ import torch
 
 
 def kmeans_init(generator: torch.Generator, n: int, k: int) -> torch.Tensor:
-    """k distinct row indices in [0, n), int64 on the CPU."""
+    """k distinct row indices in [0, n), int64 on ``generator``'s device."""
     if not 1 <= k <= n:
         raise ValueError(f"k-means needs 1 <= k <= n, got k={k}, n={n}")
-    return torch.randperm(n, generator=generator)[:k]
+    return torch.randperm(n, generator=generator, device=generator.device)[:k]
 
 
 def kmeans_batches(generator: torch.Generator, n: int, n_iters: int, bsz: int) -> torch.Tensor:
-    """[n_iters, bsz] row indices in [0, n), with replacement, int64 on the CPU."""
-    return torch.randint(0, n, (n_iters, bsz), generator=generator)
+    """[n_iters, bsz] row indices in [0, n), with replacement, int64 on
+    ``generator``'s device."""
+    return torch.randint(0, n, (n_iters, bsz), generator=generator, device=generator.device)
 
 
 def _sq_dist(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:

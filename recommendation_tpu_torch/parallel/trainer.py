@@ -48,8 +48,10 @@ rank of a ``(data, model)`` mesh (``parallel/mesh.py``):
     uniformity, SSL4Rec's in-batch softmax and InfoNCE, NCL's ProtoNCE,
     SEPT's pseudo-labels) takes the rank's rows as queries against the
     global batch's rows, which the rank reads from its own whole tables by
-    the global batch's ids. Draws shaped by the batch are made at the
-    global shape and sliced; state written at the batch's ids (SelfCF's
+    the global batch's ids. Every rank seeds the losses' mask generator
+    alike (the trainer's generator on the graph's device, made once from
+    its host generator), so its masks are replicated; draws shaped by the
+    batch are made at the global shape and sliced; state written at the batch's ids (SelfCF's
     histories, BUIR's EMA targets) is written at the global batch's;
   * **gradients**: each data rank's shares are summed over the data group
     (one all-reduce a step), replicated parameters' too.
@@ -67,8 +69,9 @@ card, and its backward differs by the data group's sum.
 padded item table row-sharded, ``sharded_topk`` over blocks of test users,
 train positives masked after the merge, then ``ranking_metrics``.
 Checkpoints are one file a rank (``train/checkpoint.py``) holding its
-shards, their Adam moments and the layout; a restore refuses another
-layout.
+shards, their Adam moments, both generators' states and the layout; a
+restore refuses another layout. The sharded trainer keeps the eager
+step loop (``train.loop.train_epoch``): its epochs are not captured.
 
 Every rank runs the same calls in the same order: evaluation is
 replicated (every rank ranks the full tables), and the collectives are

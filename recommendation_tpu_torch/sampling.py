@@ -72,8 +72,9 @@ class EpochWords(NamedTuple):
 
 
 def draw_words(generator: torch.Generator, shape, device) -> torch.Tensor:
-    """int64 words uniform in [0, 2^32), drawn on the CPU and moved."""
-    return torch.randint(0, WORD, tuple(shape), generator=generator,
+    """int64 words uniform in [0, 2^32), drawn on ``generator``'s device (the
+    trainer's host generator for an epoch's words) and moved."""
+    return torch.randint(0, WORD, tuple(shape), generator=generator, device=generator.device,
                          dtype=torch.int64).to(device)
 
 

@@ -9,13 +9,21 @@ the epoch once with ``torch.cuda.graph`` and replays it; on the CPU the
 same bodies run eagerly (``capture`` off), so the CPU tests cover the
 bookkeeping. The trainer (``train/recommender.py``) runs its epochs so,
 and fuses ``eval.interval`` epochs into a block that reads its losses
-once, for the models that declare ``Model.capturable``.
+once, for the models that declare ``Model.capturable`` (every registered
+model at its defaults).
 
 What a graph holds, as the JAX scan's carry and inputs:
   * **inputs**: the epoch's words (``sampling.EpochWords``) in buffers on
     the card, filled with ``copy_`` before each replay. They are drawn on
     the host from the trainer's generator: a copy from pageable host
     memory cannot be captured, so it stays outside the graph;
+  * **masks**: the losses draw from the trainer's generator on the card
+    (``draws``; ``graph/augment.py``), which every capture registers
+    (``CUDAGraph.register_generator_state``): each replay reads the
+    generator's Philox offset when it starts and advances it by what the
+    captured draws take, as the eager steps do, so consecutive replays
+    draw new masks and an epoch replayed from a generator state equals the
+    eager epoch from that state;
   * **sampling**: ``sampling.epoch_batches`` reads nothing on the host, so
     it runs inside the graph: before the steps in an unchunked epoch's one
     graph; in a chunked epoch in a graph of its own that writes the
@@ -24,8 +32,11 @@ What a graph holds, as the JAX scan's carry and inputs:
   * **carry**: the parameters and the optimizer's state are updated in
     place and keep their addresses; the model's state is functional, so
     the graph copies the last step's state into static tensors at its end.
-    A state handed in from outside (NCL's E-step, run eagerly between
-    replays) is copied into them before the replay;
+    A state handed in from outside (NCL's E-step, SEPT's edge-dropped
+    view, run eagerly between replays) is copied into them before the
+    replay. A state's host values (ESRF's phase, a Python int) are
+    constants of a captured step: the graphs are keyed by them, one graph
+    (or one per chunk length) for each value the epochs meet;
   * **outputs**: each step's loss in a slot of a static buffer, and the
     mean of the finite ones; the trainer's one host read of the epoch
     (or of a fused block) reads that.
@@ -46,11 +57,13 @@ Launch counts: a replay calls no wrapper, so each capture records the
 launches its body's wrappers counted (``ops/counts.py``), puts the
 counters back (a capture launches nothing), and every replay adds them.
 
-A graph reads fixed addresses: the parameters, the optimizer's state and
-a tensor rate (``train.loop.set_learning_rate`` fills it in place). A run
-whose tensors moved (a checkpoint restored through ``load_state_dict``)
-drops its graphs and captures again. A float rate is a constant of the
-captured update: a run whose float rate moved raises. Adam must be made
+A graph reads fixed addresses: the parameters, the optimizer's state, the
+tensors of its param groups (a tensor rate, which
+``train.loop.set_learning_rate`` fills in place; G-BT's schedule count)
+and the generator it registered. A run whose tensors moved (a checkpoint
+restored through ``load_state_dict``) or that draws from another
+generator drops its graphs and captures again. A float rate is a
+constant of the captured update: a run whose float rate moved raises. Adam must be made
 ``capturable`` on the card (``train.loop.make_optimizer`` does): a
 capture of any step that the card cannot capture raises, and nothing
 falls back to the eager loop.
@@ -103,6 +116,31 @@ def _clone(tree: Any) -> Any:
     return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
+def _keys(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _keys(v) for k, v in tree.items()}
+    return None
+
+
+def _host_values(tree: Any) -> tuple:
+    """The leaves of ``tree`` that are not tensors, in order."""
+    if isinstance(tree, dict):
+        return tuple(v for t in tree.values() for v in _host_values(t))
+    return () if isinstance(tree, torch.Tensor) else (tree,)
+
+
+def _refill(static: Any, given: Any) -> Any:
+    """``static`` with ``given``'s tensor values copied in and its host
+    values taken."""
+    if isinstance(given, dict):
+        return {k: _refill(static[k], v) for k, v in given.items()}
+    if isinstance(given, torch.Tensor):
+        if given is not static:
+            static.copy_(given)
+        return static
+    return given
+
+
 class GraphedEpoch:
     """One epoch of ``train_step`` over ``params`` (updated in place) as
     CUDA graphs on a card, eagerly elsewhere (``capture``; module
@@ -136,7 +174,7 @@ class GraphedEpoch:
         self._inputs: Dict[int, List[torch.Tensor]] = {}  # a chunk's static batches
         self._graphs: Dict[Any, tuple] = {}  # key -> (graph, its outputs, its launches)
         self._bound = None  # the addresses and float rates the graphs read
-        self._generator: Optional[torch.Generator] = None
+        self._draws: Optional[torch.Generator] = None  # the losses' generator
         self.captures: List[dict] = []
 
     # -- the bodies: what a graph holds -----------------------------------------
@@ -150,7 +188,7 @@ class GraphedEpoch:
         for b in range(n):
             state, losses[b] = train_step(self.model, self.optimizer, self.graph, self.params,
                                           state, PairwiseBatch(users[b], items[b], negs[b],
-                                                               weights[b]), self._generator)
+                                                               weights[b]), self._draws)
         for static, new in zip(_leaves(self.state), _leaves(state)):
             if new is not static:
                 static.copy_(new)
@@ -179,9 +217,15 @@ class GraphedEpoch:
         for p in tensors:
             tensors += [v for v in self.optimizer.state.get(p, {}).values()
                         if isinstance(v, torch.Tensor)]
-        tensors += [g["lr"] for g in groups if isinstance(g["lr"], torch.Tensor)]
+        tensors += [v for g in groups for k, v in g.items()
+                    if k != "params" and isinstance(v, torch.Tensor)]
         rates = tuple(g["lr"] for g in groups if not isinstance(g["lr"], torch.Tensor))
-        return tuple(t.data_ptr() for t in tensors), rates
+        return tuple(t.data_ptr() for t in tensors) + (id(self._registered()),), rates
+
+    def _registered(self) -> Optional[torch.Generator]:
+        """The generator the graphs register: the losses' on the card."""
+        draws = self._draws
+        return draws if draws is not None and draws.device.type == "cuda" else None
 
     def reset(self) -> None:
         """Drop the graphs: the next run warms up and captures again."""
@@ -195,6 +239,8 @@ class GraphedEpoch:
         before = launch_counts()
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
+        if self._registered() is not None:
+            graph.register_generator_state(self._registered())
         with torch.cuda.graph(graph, stream=self.stream):
             out = body()
         seconds = time.perf_counter() - t0
@@ -225,21 +271,25 @@ class GraphedEpoch:
         return out
 
     def _take_state(self, state: Any) -> None:
+        """``state``'s tensors copied into the static ones, its host values
+        taken as they are."""
         if self.state is None:
             self.state = _clone(state)
             return
         static, given = _leaves(self.state), _leaves(state)
-        if len(static) != len(given) or any(s.shape != g.shape or s.dtype != g.dtype
-                                            for s, g in zip(static, given)):
+        if (_keys(self.state) != _keys(state) or len(static) != len(given)
+                or any(s.shape != g.shape or s.dtype != g.dtype
+                       for s, g in zip(static, given))):
             raise ValueError("the model state changed its structure between epochs")
-        for s, g in zip(static, given):
-            if g is not s:
-                s.copy_(g)
+        self.state = _refill(self.state, state)
 
-    def run(self, state: Any, generator: torch.Generator) -> Tuple[Any, torch.Tensor]:
-        """One epoch from ``state``, its words drawn from ``generator`` as
-        ``train.loop.train_epoch`` draws them. Returns (the static state,
-        the mean loss as a device scalar)."""
+    def run(self, state: Any, generator: torch.Generator,
+            draws: Optional[torch.Generator] = None) -> Tuple[Any, torch.Tensor]:
+        """One epoch from ``state``, its words drawn from ``generator`` and
+        its masks from ``draws`` (the trainer's generator on the graph's
+        device; None: ``generator``), as ``train.loop.train_epoch`` draws
+        them. Returns (the static state, the mean loss as a device
+        scalar)."""
         words = epoch_words(generator, self.graph, self.batch_size, self.n_redraws,
                             device="cpu")
         if self.words is None:
@@ -247,7 +297,7 @@ class GraphedEpoch:
         for static, w in zip(self.words, words):
             static.copy_(w)
         self._take_state(state)
-        self._generator = generator
+        self._draws = generator if draws is None else draws
         if self._graphs:
             bound = self._addresses()
             if bound[1] != self._bound[1]:
@@ -255,8 +305,9 @@ class GraphedEpoch:
                                  "optimizer a tensor rate (train.loop.set_learning_rate)")
             if bound != self._bound:
                 self.reset()  # a restored optimizer's state: capture again
+        host = _host_values(self.state)
         if self.chunks is None:
-            loss = self._launch(("epoch",), self._epoch_body)
+            loss = self._launch(("epoch",) + host, self._epoch_body)
         else:
             if self.losses is None:
                 self.losses = torch.empty(self.n_batches, dtype=torch.float32,
@@ -268,7 +319,8 @@ class GraphedEpoch:
                                                       device=self.device) for t in self.batches]
                 for static, t in zip(self._inputs[size], self.batches):
                     static.copy_(t[start:start + size])
-                out = self._launch(("chunk", size), functools.partial(self._chunk_body, size))
+                out = self._launch(("chunk", size) + host,
+                                   functools.partial(self._chunk_body, size))
                 self.losses[start:start + size].copy_(out)
             loss = finite_mean(self.losses)
         return self.state, loss.clone()

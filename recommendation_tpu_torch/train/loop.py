@@ -20,15 +20,18 @@ chunks and fuses ``eval.interval`` epochs into one execution
 whole epoch or a chunk of one and replays it, and the trainer runs its
 epochs that way on the card for the models that declare
 ``Model.capturable``. ``run_steps`` stays the eager loop: the CPU's, the
-other models', the sharded trainer's and the reference a captured epoch
-is held to bit for bit. On the card the optimizers are made
-``capturable`` (Adam's step count and bias correction on the device), for
-the eager and the captured loop alike, and the bold driver's rate is a
-device tensor that ``set_learning_rate`` fills, so a replayed graph reads
-the new rate. The trainer draws each epoch's words from its generator in
-the same sequence whatever ``eval.interval`` is, so runs that evaluate at
-different intervals, fused or not, train on the same batches by
-construction.
+configurations that draw their words in the step, the sharded trainer's and the
+reference a captured epoch is held to bit for bit. On the card the
+optimizers are made ``capturable`` (Adam's step count and bias correction
+on the device), for the eager and the captured loop alike, and a rate that
+moves is a device tensor: the bold driver's (``set_learning_rate`` fills
+it), ESRF's two (``tensor_rates``) and G-BT's cosine schedule
+(``CosineDecayAdam`` computes it on the device), so a replayed graph reads
+the new rate. The trainer draws each epoch's words from its host
+generator in the same sequence whatever ``eval.interval`` is, so runs that
+evaluate at different intervals, fused or not, train on the same batches
+by construction; the losses' masks come from its second generator, on the
+graph's device (``train_epoch``'s ``draws``).
 
 A sharded trainer passes a ``placement`` (``parallel/trainer.py``): each
 global batch is cut to the rank's rows (``placement.batch``), which at
@@ -42,6 +45,7 @@ part of a step, without the update.
 from __future__ import annotations
 
 import math
+import struct
 from typing import Any, Dict
 
 import torch
@@ -92,33 +96,114 @@ def adam_plain(param: torch.Tensor, grads, lr: float, b1: float = 0.9, b2: float
     return p, mu, nu
 
 
-def cosine_decay(lr: float, count: int, decay_steps: int) -> float:
+# glibc's single-precision sine/cosine constants (``s_sincosf_data.c``):
+# 2^24·2/π, π/2, the cosine's polynomial c0..c4 and the sine's s1..s3
+_SINCOSF = {"hpi_inv": float.fromhex("0x1.45F306DC9C883p+23"),
+            "hpi": float.fromhex("0x1.921FB54442D18p0")}
+_COS_C = [float.fromhex(h) for h in ("0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+                                     "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16")]
+_SIN_S = [float.fromhex(h) for h in ("-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
+                                     "-0x1.994eb3774cf24p-13")]
+
+
+def _top12(x: torch.Tensor) -> torch.Tensor:
+    return (x.view(torch.int32) >> 20) & 0x7FF
+
+
+def _top12_of(value: float) -> int:
+    return (struct.unpack("<i", struct.pack("<f", value))[0] >> 20) & 0x7FF
+
+
+def cosf(y: torch.Tensor) -> torch.Tensor:
+    """The f32 cosine that XLA's CPU backend computes (glibc's ``cosf``: a
+    reduction by π/2 and a polynomial in f64, rounded to f32) for f32 ``y``
+    in [0, π], the schedule's range, in f64 tensor ops one at a time, so
+    every device gives its bits; torch's own f32 cosine differs from it in
+    the last place."""
+    x = y.to(torch.float64)
+    c, s = _COS_C, _SIN_S
+
+    def cos_poly(x2, sign):
+        x4 = x2 * x2
+        c2 = sign * c[3] + x2 * (sign * c[4])
+        c1 = sign * c[0] + x2 * (sign * c[1])
+        return c1 + x4 * (sign * c[2]) + (x4 * x2) * c2
+
+    def sin_poly(x, x2):
+        x3 = x * x2
+        s1 = s[1] + x2 * s[2]
+        return x + x3 * s[0] + (x3 * x2) * s1
+
+    # the quadrant n = round(y·2/π) and the remainder r = y - n·π/2: the
+    # cosine's polynomial for even n (negated in quadrant 2), the sine's at
+    # ±r for odd n (at -r in quadrant 1)
+    n = ((x * _SINCOSF["hpi_inv"]).to(torch.int32) + 0x800000) >> 24
+    r = x - n.to(torch.float64) * _SINCOSF["hpi"]
+    q = n & 3
+    r = torch.where((q == 1) | (q == 2), -r, r)
+    sign = torch.where(q >= 2, -1.0, 1.0).to(torch.float64)
+    far = torch.where((n & 1) == 1, sin_poly(r, r * r), cos_poly(r * r, sign))
+    near = cos_poly(x * x, 1.0)  # below π/4 (by the top 12 bits): no reduction
+    small = _top12(y) < _top12_of(float.fromhex("0x1.921FB6p-1"))
+    tiny = _top12(y) < _top12_of(2.0 ** -12)
+    out = torch.where(small, near, far).to(torch.float32)
+    return torch.where(tiny, torch.ones_like(out), out)
+
+
+def cosine_decay(lr: float, count: torch.Tensor, decay_steps: int) -> torch.Tensor:
     """optax's ``cosine_decay_schedule(lr, decay_steps)`` (alpha 0, exponent
-    1) at update ``count``: lr·½(1 + cos(π·min(count, T)/T))."""
-    t = min(count, decay_steps) / decay_steps
-    return lr * 0.5 * (1.0 + math.cos(math.pi * t))
+    1) at update ``count`` (an integer tensor), in f32 on its device, in
+    optax's order and with its cosine (``cosf``): lr·(½(1 + cos(π·min(count,
+    T)/T)))."""
+    t = torch.clamp(count, max=decay_steps).to(torch.float32)
+    # a tensor divisor (filled on the device: a capture copies nothing from
+    # the host): CUDA divides by a host scalar through its reciprocal, a bit
+    # off optax's (and the CPU's) true division
+    return lr * (0.5 * (1.0 + cosf(math.pi * t / torch.full_like(t, decay_steps))))
 
 
 class CosineDecayAdam(torch.optim.Adam):
     """``optax.adam(optax.cosine_decay_schedule(lr, decay_steps))``: Adam
     whose update ``t`` (counted from 0, the updates before it) takes the
     rate ``cosine_decay(lr, t, decay_steps)``. Every ``step`` counts, the
-    NaN guard's zeroed ones too, as optax's count does. The count lives in
-    each param group (``schedule_count``), so the optimizer's
-    ``state_dict``, and with it a checkpoint, carries the schedule's
-    position."""
+    NaN guard's zeroed ones too, as optax's count does. The count is an
+    int32 tensor in each param group (``schedule_count``), so the
+    optimizer's ``state_dict``, and with it a checkpoint, carries the
+    schedule's position. On the card the count and the rate are device
+    tensors that ``step`` updates in place (Adam ``capturable``): a captured
+    step computes the schedule and reads nothing on the host. On the CPU
+    the rate is the same f32 value, set as a float."""
 
     def __init__(self, params, lr: float, decay_steps: int):
-        super().__init__(params, lr=lr, eps=1e-8)
+        params = list(params)
+        cuda = params[0].is_cuda
+        super().__init__(params, lr=lr, eps=1e-8, capturable=cuda)
         for group in self.param_groups:
-            group.update(base_lr=lr, decay_steps=int(decay_steps), schedule_count=0)
+            group.update(base_lr=lr, decay_steps=int(decay_steps),
+                         schedule_count=torch.zeros((), dtype=torch.int32,
+                                                    device=params[0].device))
+        if cuda:
+            tensor_rates(self)
 
     def step(self, closure=None):
         for group in self.param_groups:
-            group["lr"] = cosine_decay(group["base_lr"], group["schedule_count"],
-                                       group["decay_steps"])
-            group["schedule_count"] += 1
+            rate = cosine_decay(group["base_lr"], group["schedule_count"], group["decay_steps"])
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].copy_(rate)
+            else:
+                group["lr"] = float(rate)
+            group["schedule_count"].add_(1)
         return super().step(closure)
+
+
+def tensor_rates(optimizer: torch.optim.Optimizer) -> torch.optim.Optimizer:
+    """Each group's rate as an f32 tensor on its parameters' device: a
+    captured update reads it at its address (``set_learning_rate`` and
+    ``load_optimizer_state`` fill it in place). Returns ``optimizer``."""
+    for group in optimizer.param_groups:
+        group["lr"] = torch.tensor(float(group["lr"]), dtype=torch.float32,
+                                   device=group["params"][0].device)
+    return optimizer
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
@@ -161,21 +246,21 @@ def make_bold_driver_optimizer(config, params):
     opt = make_optimizer(config.with_overrides(optimizer=name), params)
     lr = float(config.get("learning.rate", 1e-3))
     if name == "adam" and opt.defaults["capturable"]:
-        device = opt.param_groups[0]["params"][0].device
-        for group in opt.param_groups:
-            group["lr"] = torch.tensor(lr, dtype=torch.float32, device=device)
+        tensor_rates(opt)
     return opt, BoldDriver(lr, float(config.get("max.learning.rate", 0.0)))
 
 
 def load_optimizer_state(optimizer: torch.optim.Optimizer, state: dict) -> None:
-    """``optimizer.load_state_dict(state)``, a tensor rate kept at its
-    address and on its device (filled with the loaded rate)."""
-    rates = [group["lr"] for group in optimizer.param_groups]
+    """``optimizer.load_state_dict(state)``, each tensor of a param group (a
+    tensor rate, G-BT's schedule count) kept at its address and on its
+    device, filled with the loaded value."""
+    kept = [{k: v for k, v in group.items() if isinstance(v, torch.Tensor)}
+            for group in optimizer.param_groups]
     optimizer.load_state_dict(state)
-    for group, rate in zip(optimizer.param_groups, rates):
-        if isinstance(rate, torch.Tensor):
-            rate.fill_(float(group["lr"]))
-            group["lr"] = rate
+    for group, tensors in zip(optimizer.param_groups, kept):
+        for key, t in tensors.items():
+            t.copy_(torch.as_tensor(group[key]))
+            group[key] = t
 
 
 def _where_state(ok: torch.Tensor, new: Any, old: Any) -> Any:
@@ -258,10 +343,13 @@ def run_steps(model, optimizer: torch.optim.Optimizer, graph, params: Dict[str, 
 
 
 def train_epoch(model, optimizer, graph, params, state, generator: torch.Generator,
-                batch_size: int, n_redraws: int = 4, placement=None):
+                batch_size: int, n_redraws: int = 4, placement=None,
+                draws: torch.Generator | None = None):
     """One epoch: draw its words from ``generator``, build its arrays, run
-    the steps (the loss draws any extra negatives from ``generator`` too).
-    Returns (state, mean loss as a device scalar)."""
+    the steps, whose losses draw their masks (and any extra negatives) from
+    ``draws`` (the trainer's generator on the graph's device; None:
+    ``generator``). Returns (state, mean loss as a device scalar)."""
     batches = epoch_batches(epoch_words(generator, graph, batch_size, n_redraws), graph,
                             batch_size, n_redraws)
-    return run_steps(model, optimizer, graph, params, state, batches, generator, placement)
+    return run_steps(model, optimizer, graph, params, state, batches,
+                     generator if draws is None else draws, placement)

@@ -13,8 +13,8 @@ evaluate / predict / execute / fast_evaluation`` contract
     kept non-finite updates out of the tables);
   * the bold-driver learning rate (``adaptive.lr``);
   * disk checkpoints (``checkpoint.dir``, ``checkpoint.keep``,
-    ``checkpoint.resume``) that hold the generator too, so a resumed run
-    trains on the batches a straight run would.
+    ``checkpoint.resume``) that hold both generators too, so a resumed run
+    trains on the batches and masks a straight run would.
 
 Its epochs run as the JAX package's do, each one device execution: for a
 model that declares ``Model.capturable``, ``train/graphed.py`` captures
@@ -28,9 +28,12 @@ and ``train.fuse_epochs``, ``train.fuse_below_steps`` and
 their losses read once, a NaN aborting at the block's end. A model that
 cannot capture trains with the eager loop (``train.loop.train_epoch``) and
 refuses ``train.fuse_epochs: true``. Each epoch draws a seed for
-``epoch_begin`` from the trainer's generator, then its words, in that
+``epoch_begin`` from the trainer's host generator, then its words, in that
 order whatever ``eval.interval`` is and whether it is fused or not, so
-the paths give the same bits.
+the paths give the same bits. The losses draw their masks from a second
+generator on the graph's device, made once and seeded from the first
+(``graph.augment.device_generator``): the captured epochs register it, so
+every replay draws what the eager epoch would.
 
 A sharded trainer (``parallel/trainer.py``) keeps this lifecycle and
 overrides its placement hooks: ``_place`` (the parameters this process
@@ -50,6 +53,7 @@ import torch
 from recommendation_tpu_torch.config import Config, apply_legacy_options, default_config
 from recommendation_tpu_torch.data.interaction import Interaction
 from recommendation_tpu_torch.evalx.ranking import RankingResult, evaluate_ranking
+from recommendation_tpu_torch.graph.augment import device_generator
 from recommendation_tpu_torch.graph.device import DeviceGraph
 from recommendation_tpu_torch.models.base import Model
 from recommendation_tpu_torch.train.graphed import GraphedEpoch, steps_per_call
@@ -142,6 +146,9 @@ class GraphRecommender:
             self.optimizer = (self.model.make_optimizer(self.config, self.params)
                               or make_optimizer(self.config, self.params))
         self._gen = torch.Generator().manual_seed(seed + 1)
+        # the losses' masks: on the graph's device, seeded alike on every
+        # rank of a sharded trainer (its masks stay replicated)
+        self._draws = device_generator(self._gen, self.graph.device)
         self.start_epoch = 0
         self._graphed = None
         self._ckpt = None
@@ -196,6 +203,7 @@ class GraphRecommender:
             "optimizer": self.optimizer.state_dict(),
             "state": self.state,
             "generator": self._gen.get_state(),
+            "draws": self._draws.get_state(),
             "epoch": epoch,
         }
 
@@ -210,6 +218,7 @@ class GraphRecommender:
             self._graphed.reset()
         self.state = _map_tensors(lambda t: t.to(self.graph.device), restored["state"])
         self._gen.set_state(restored["generator"])
+        self._draws.set_state(restored["draws"])
         self.start_epoch = int(restored["epoch"]) + 1
 
     def _can_fuse_epochs(self) -> bool:
@@ -239,9 +248,10 @@ class GraphRecommender:
     def _epoch(self):
         """One epoch's (state, mean loss as a device scalar)."""
         if self._graphed is not None:
-            return self._graphed.run(self.state, self._gen)
+            return self._graphed.run(self.state, self._gen, self._draws)
         return train_epoch(self.model, self.optimizer, self.graph, self.params, self.state,
-                           self._gen, self.batch_size, placement=self._placement)
+                           self._gen, self.batch_size, placement=self._placement,
+                           draws=self._draws)
 
     def _begin_seed(self) -> int:
         return int(torch.randint(0, 2**62, (1,), generator=self._gen))

@@ -212,17 +212,32 @@ def test_augment_matches_jax_on_the_same_draws(graphs, monkeypatch, backend):
     assert set(np.unique(got["drop_renorm"].vals.numpy() / np.where(vals > 0, vals, 1))) <= {0, 1}
 
 
-def test_draws_come_from_a_device_generator_seeded_by_the_trainer(graphs):
+def test_draws_come_from_a_device_generator_seeded_by_the_trainer(sets, graphs):
+    """The trainer makes one generator on the graph's device, seeded once
+    from its host generator: two trainers of one seed draw the same masks,
+    and the trainer's generator moves on, so its next mask is a new one."""
+    from recommendation_tpu_torch.config import default_config
+    from recommendation_tpu_torch.models import build
+    from recommendation_tpu_torch.train.recommender import GraphRecommender
+    from recommendation_tpu_torch.utils.logging import Log
+
     _, graph = graphs["dense"]
     masks = []
     for _ in range(2):
-        g = augment.device_generator(torch.Generator().manual_seed(9), graph.device)
+        cfg = default_config(**{"embedding.size": 8, "seed": 9})
+        rec = GraphRecommender(build("grace", cfg), sets[1], cfg, graph=graph,
+                               log=Log(echo=False), device="cpu")
+        rec.build()
+        g = rec._draws
         assert g.device.type == graph.device.type
-        masks.append(augment.edge_keep_mask(g, graph, 0.25))
-    assert torch.equal(masks[0], masks[1])
-    assert abs(masks[0].mean().item() - 0.75) < 0.03
+        masks.append([augment.edge_keep_mask(g, graph, 0.25) for _ in range(2)])
+    assert torch.equal(masks[0][0], masks[1][0]) and torch.equal(masks[0][1], masks[1][1])
+    assert not torch.equal(masks[0][0], masks[0][1])
+    assert abs(masks[0][0].mean().item() - 0.75) < 0.03
     with pytest.raises(ValueError, match="generator"):
         augment.device_generator(None, graph.device)
+    with pytest.raises(ValueError, match="generator"):
+        augment.edge_keep_mask(None, graph, 0.25)
     x = torch.ones(graph.n_nodes, 64)
     cols = augment.mask_features(augment.device_generator(torch.Generator(), "cpu"), x, 0.5)
     assert ((cols == 0).all(dim=0) | (cols == 1).all(dim=0)).all()  # whole columns

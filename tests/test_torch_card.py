@@ -1878,6 +1878,52 @@ def test_captured_trainer_is_the_eager_trainer(card, extra):
         assert rate.is_cuda and float(rate) == pytest.approx(runs[0]._bold.lrate, rel=1e-6)
 
 
+def test_replays_draw_new_masks_and_each_is_the_eager_epoch(card):
+    """GRACE (edge and feature masks in every step) on a trainer whose
+    epochs replay a graph that registers its mask generator: two
+    consecutive replays start from different generator states, so their
+    first masks differ, and each replayed epoch equals ``train_epoch`` from
+    the same parameters, moments, state, words and generator state."""
+    from recommendation_tpu_torch.graph import augment
+    from recommendation_tpu_torch.train.loop import train_epoch
+    from recommendation_tpu_torch.train.recommender import GraphRecommender
+    from recommendation_tpu_torch.utils.logging import Log
+
+    train, test = make_synthetic_dataset(n_users=200, n_items=333, n_interactions=8000, seed=5)
+    data = Interaction(train, test)
+    graph = DeviceGraph(data, device=card)
+    config = default_config(**{"embedding.size": 64, "batch.size": 512})
+    rec = GraphRecommender(build("grace", config), data, config, graph=graph,
+                           log=Log(echo=False), device=card)
+    rec.build()
+    runner, draws = rec._graphed, rec._draws
+    assert runner.capture and draws.device.type == "cuda"
+    params, opt, model = rec.params, rec.optimizer, rec.model
+    state, _ = runner.run(rec.state, torch.Generator().manual_seed(2), draws)  # capture
+    masks = []
+    for k in range(2):
+        start, start_draws = _train_state(params, opt, state), draws.get_state()
+        first = torch.Generator(device=card)
+        first.set_state(start_draws)
+        masks.append(augment.keep_draw(first, graph.norm_adj_selfloops.vals.shape, 0.7, card))
+        got_state, got_loss = runner.run(state, torch.Generator().manual_seed(3 + k), draws)
+        torch.cuda.synchronize()
+        got, got_draws = _train_state(params, opt, got_state), draws.get_state()
+        _put_back(params, opt, start)
+        draws.set_state(start_draws)
+        want_state, want_loss = train_epoch(model, opt, graph, params, dict(start[2]),
+                                            torch.Generator().manual_seed(3 + k), 512,
+                                            draws=draws)
+        torch.cuda.synchronize()
+        _same_train_state(got, _train_state(params, opt, want_state))
+        assert torch.equal(got_loss, want_loss) and torch.isfinite(got_loss)
+        assert torch.equal(got_draws, draws.get_state())
+        assert not torch.equal(got_draws, start_draws)
+        state = want_state
+    assert not torch.equal(masks[0], masks[1])
+    assert len(runner.captures) == 1
+
+
 def test_capturable_adam_is_optax(card):
     """The card's Adam (``capturable``: its bias correction on the device)
     against optax's arithmetic (``adam_plain``) on the same gradients,

@@ -4,7 +4,9 @@ bookkeeping (static words and state, chunks, the carry, the losses) gives
 the eager loop's bits, and the trainer's chunked and fused paths give the
 unchunked and unfused ones. The gates against the JAX package's: the
 fuse gate (``GraphRecommender._can_fuse_epochs``) on the JAX tests'
-configurations, and the chunk rule on a grid. Mirrors
+configurations and on every other model at its defaults, and the chunk
+rule on a grid. The fifteen other models' epochs are in
+``tests/test_torch_graphed_zoo.py``. Mirrors
 ``tests/test_train_extras.py``'s chunked and fused tests, which hold the
 JAX package to the same bits.
 
@@ -26,12 +28,12 @@ import torch
 import recommendation_tpu.train.recommender as jax_recommender
 from recommendation_tpu.config import default_config as jax_default_config
 from recommendation_tpu.models.base import Model as JaxModel
-from recommendation_tpu.models.lightgcn import LightGCN as JaxLightGCN
-from recommendation_tpu.models.ncl import NCL as JaxNCL
+from recommendation_tpu.models import get_model as jax_get_model
 from recommendation_tpu.utils.logging import Log as JaxLog
 from recommendation_tpu_torch.config import default_config
 from recommendation_tpu_torch.data.interaction import Interaction
 from recommendation_tpu_torch.graph.device import DeviceGraph
+from recommendation_tpu_torch.graph.social_device import SocialDeviceGraph
 from recommendation_tpu_torch.models import build
 from recommendation_tpu_torch.ops import counts
 from recommendation_tpu_torch.ops.gather import gather_rows
@@ -55,6 +57,11 @@ GATES = {"defaults": ("lightgcn", {}), "adaptive_lr": ("lightgcn", {"adaptive.lr
          "fuse_off": ("lightgcn", {"train.fuse_epochs": False}),
          "max_fused_steps_1": ("lightgcn", {"train.max_fused_steps": 1}),
          "ncl": ("ncl", {})}
+# the fifteen other models at their defaults (SEPT under both of its names)
+SOCIAL = ("diffnet", "sept", "sept_social", "sept_basic", "mhcn", "esrf")
+ZOO = ("selfcf", "buir", "ssl4rec", "gcl", "grace", "gbt", "bgrl", "directau", "graphsage",
+       "gat") + SOCIAL
+GATES.update({name: (name, {}) for name in ZOO})
 CHUNK_EDGES = (1_000, 999_999, 1_000_001, 2_500_000, 4_000_000)
 CHUNK_BATCHES = (512, 2048, 8192)
 CHUNK_MAX_STEPS = (2, 64, 512)
@@ -95,16 +102,22 @@ class _StubModel(JaxModel):
 
 
 @pytest.fixture(scope="module")
-def jax_reference(tiny_data, tiny_graph):
-    """The JAX trainer's fuse gate on ``GATES`` (on the tiny set, eval
-    every 2 epochs, as the JAX test builds them) and its chunk length on
-    the grid (read off ``make_epoch_fn``'s argument in ``build``)."""
+def social_graph(data, tiny_social):
+    return SocialDeviceGraph(data, tiny_social, backend="dense", device="cpu")
+
+
+@pytest.fixture(scope="module")
+def jax_reference(tiny_data, tiny_graph, tiny_social_graph):
+    """The JAX trainer's fuse gate on ``GATES`` (on the tiny set, the social
+    models on its trust graph, eval every 2 epochs, as the JAX test builds
+    them) and its chunk length on the grid (read off ``make_epoch_fn``'s
+    argument in ``build``)."""
     gates = {}
     for case, (name, extra) in GATES.items():
         config = jax_default_config(**{**TRAINER, "max.epoch": 4, "eval.interval": 2, **extra})
-        model = (JaxLightGCN if name == "lightgcn" else JaxNCL)(config)
-        rec = jax_recommender.GraphRecommender(model, tiny_data, config, graph=tiny_graph,
-                                               log=JaxLog(echo=False))
+        graph = tiny_social_graph if name in SOCIAL else tiny_graph
+        rec = jax_recommender.GraphRecommender(jax_get_model(name, config), tiny_data, config,
+                                               graph=graph, log=JaxLog(echo=False))
         rec.build()
         gates[case] = rec._can_fuse_epochs()
     chunks, seen = {}, []
@@ -273,11 +286,18 @@ def test_auto_chunking_is_unchunked(data, graphs):
 
 
 @pytest.mark.parametrize("case", list(GATES))
-def test_fuse_gate_is_the_jax_trainers(data, graphs, jax_reference, case):
+def test_fuse_gate_is_the_jax_trainers(data, graphs, social_graph, jax_reference, case):
+    """The fuse gate on the JAX tests' configurations and on every other
+    model at its defaults: SEPT, SEPT-basic and ESRF keep ``epoch_begin``
+    and run unfused, the rest fuse; every one runs its epochs as graphs."""
     name, extra = GATES[case]
-    rec = _trainer(data, graphs["dense"], name, **{"max.epoch": 4, "eval.interval": 2, **extra})
+    graph = social_graph if name in SOCIAL else graphs["dense"]
+    rec = _trainer(data, graph, name, **{"max.epoch": 4, "eval.interval": 2, **extra})
     assert rec._graphed is not None
     assert rec._can_fuse_epochs() == jax_reference["gates"][case]
+    if case in ZOO:
+        assert rec._can_fuse_epochs() == (name not in ("sept", "sept_social", "sept_basic",
+                                                       "esrf"))
 
 
 def test_chunk_rule_is_the_jax_trainers(jax_reference):
@@ -291,11 +311,12 @@ def test_chunk_rule_is_the_jax_trainers(jax_reference):
     assert None in got.values() and 32 in got.values()
 
 
-@pytest.mark.parametrize("name,extra", [("directau", {}), ("lightgcn", {"loss": "pointwise"}),
+@pytest.mark.parametrize("name,extra", [("lightgcn", {"loss": "bce", "n_negs": 3}),
+                                        ("lightgcn", {"loss": "pointwise"}),
                                         ("lightgcn", {"n_negs": 2}),
                                         ("ncl", {"NCL.e_step_cadence": "batch"})])
 def test_fuse_epochs_true_refuses_an_eager_model(data, graphs, name, extra):
-    """A model whose step draws or reads on the host trains eagerly, and
+    """A configuration whose step draws its words in the step trains eagerly, and
     ``train.fuse_epochs: true`` raises rather than run it unfused; the
     default gate leaves it unfused."""
     rec = _trainer(data, graphs["dense"], name, **{"eval.interval": 2, **extra})

@@ -261,11 +261,16 @@ def test_duplicate_ids_write_the_same_state(graphs, monkeypatch, name):
             np.testing.assert_allclose(v.numpy(), want[k], **TIGHT, err_msg=k)
 
 
-def test_buir_draws_its_rate_per_encoder(graphs):
+def test_buir_draws_its_rate_per_encoder(sets, graphs):
     """BUIR's two encoders each draw a rate in [0, drop_rate) and a keep
-    mask, from a generator on the graph's device seeded by the trainer's."""
+    mask, from the trainer's generator on the graph's device."""
     _, graph = graphs["dense", "float32"]
-    g = augment.device_generator(torch.Generator().manual_seed(1), graph.device)
+    cfg = default_config(**SMALL)
+    rec = GraphRecommender(build("buir", cfg), sets[1], cfg, graph=graph, log=Log(echo=False),
+                           device="cpu")
+    rec.build()
+    g = rec._draws
+    assert g.device.type == graph.device.type
     from recommendation_tpu_torch.models.buir import edge_dropout_draw
 
     n = graph.norm_adj.vals.shape[0]

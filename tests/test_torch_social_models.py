@@ -112,9 +112,9 @@ class Draws:
             assert len(self.perms[self.pos - 1]) == n
             return torch.from_numpy(self.perms[self.pos - 1]).long().to(device)
 
-        def randint(generator, high):
+        def randint(generator, high, device):
             assert high > START
-            return START
+            return torch.tensor(START, device=device)
 
         mp.setattr(augment, "uniform",
                    lambda generator, shape, device: torch.from_numpy(self.uniform(shape)))
@@ -262,13 +262,22 @@ def test_hierarchical_mim_loss_matches_jax(monkeypatch, n):
         np.testing.assert_allclose(g.numpy(), _np(w), rtol=1e-5, atol=_grad_atol(_np(w)))
 
 
-def test_hierarchical_mim_loss_draws_on_the_device_generator():
-    """Without patched draws the permutations come from the generator: the
-    same seed gives the same loss."""
+def test_hierarchical_mim_loss_draws_on_the_device_generator(graphs, data):
+    """Without patched draws the permutations come from the trainer's
+    generator on the graph's device: two trainers of one seed give the
+    same loss, and the generator moves on, so its next loss differs."""
+    graph, _ = graphs("dense")
     x, y = torch.randn(20, 4), torch.randn(20, 4)
-    a, b = (losses.hierarchical_mim_loss(torch.Generator().manual_seed(4), x, y)
-            for _ in range(2))
-    assert torch.equal(a, b) and torch.isfinite(a)
+    got = []
+    for _ in range(2):
+        cfg = default_config(**{**SMALL, "seed": 4})
+        rec = GraphRecommender(build("mhcn", cfg), data, cfg, graph=graph, log=Log(echo=False),
+                               device="cpu")
+        rec.build()
+        assert rec._draws.device.type == graph.device.type
+        got.append([losses.hierarchical_mim_loss(rec._draws, x, y) for _ in range(2)])
+    assert torch.equal(got[0][0], got[1][0]) and torch.equal(got[0][1], got[1][1])
+    assert not torch.equal(got[0][0], got[0][1]) and torch.isfinite(got[0][0])
 
 
 def test_esrf_phase_walk_matches_jax():
