@@ -34,7 +34,15 @@ What it does, in order (any failed phase exits non-zero):
      from 16 client threads through the MicroBatcher and one ``GET
      /recommend`` over HTTP, each answer held against the plain path's on
      the card. It runs in bf16 (``bench.py``'s default) and in f32 (the
-     CLI's default);
+     CLI's default). Every wave replays a CUDA graph of the service's score
+     block (``ops.topk.ScoreBlock``, one a padded shape; the sizes the
+     clients meet are warmed up and captured before the timed run): each
+     size met, and EXTRA_WAVES (no exclusion, k = 7, 1,100 users), must
+     equal the block run eagerly on the same padded inputs bit for bit
+     (``check_waves``), no wave may run eagerly, and ``profile_waves``
+     profiles a 16-user wave graphed and eager; the clustered LightGCN
+     gate run does the same for ``test()``, the evaluator and its service
+     (``graphed_eval_check``);
   6. train phase: ``GraphRecommender`` on ``cuda`` at the bench shape
      (B=2048, Adam 1e-3) for TRAIN_EPOCHS epochs with an evaluation after
      each, then a few requests from ``RecommenderService.from_recommender``.
@@ -241,14 +249,16 @@ What it does, in order (any failed phase exits non-zero):
      bytes; on the clustered bucketed graph the epoch in chunks of
      GRAPHED_CHUNK steps (a full chunk's graph and the remainder's) too;
      and a fused block of two epochs against two epochs (dense f32). Every
-     trainer above replays the epochs of every model
-     (``Model.capturable``), so the gate runs of the hard, neighbour and
+     trainer above replays the epochs of every model, so the gate runs of the hard, neighbour and
      social phases replay theirs; and the fifteen other models
      (``graphed_zoo_check``:
      DirectAU and the dense zoo on the hard set's dense f32 graph, after
      their gate runs; GraphSAGE and GAT on it, where S1, S2 and P1 launch,
      in the neighbour phase; the social models on its bucketed trust graph,
-     in the social phase) each warm up and capture, then from one start
+     in the social phase) and GRAPHED_ONCE_EAGER's four configurations
+     (LightGCN pointwise and ``n_negs`` 3, NCL's per-batch E-step, the
+     bold driver's SGD with its rate moved; the hard dense f32 graph) each
+     warm up and capture, then from one start
      (parameters, moments, the param groups' tensors, state and the
      trainer's mask generator) GRAPHED_ZOO_EPOCHS consecutive replayed
      epochs equal as many eager ones bit for bit, the generator's state
@@ -317,7 +327,7 @@ from recommendation_tpu_torch.data.synthetic import (
 from recommendation_tpu_torch.evalx.metrics import ranking_metrics
 from recommendation_tpu_torch.evalx.probe import LREvaluator, SVMEvaluator, get_split
 from recommendation_tpu_torch.evalx.rating import evaluate_rating
-from recommendation_tpu_torch.evalx.ranking import evaluate_ranking
+from recommendation_tpu_torch.evalx.ranking import evaluate_ranking, score_block_for
 from recommendation_tpu_torch.graph import augment
 from recommendation_tpu_torch.graph.bucketed import (
     PLAIN,
@@ -387,7 +397,7 @@ from recommendation_tpu_torch.ops.segment import (
     weighted_pull_dot_plain,
     weighted_pull_plain,
 )
-from recommendation_tpu_torch.ops.topk import topk_agree
+from recommendation_tpu_torch.ops.topk import ScoreBlock, topk_agree, wave_rows
 from recommendation_tpu_torch.ops.counts import kernel_wrappers
 from recommendation_tpu_torch.parallel.distributed import (
     WORKER,
@@ -403,7 +413,13 @@ from recommendation_tpu_torch.sampling import (
 from recommendation_tpu_torch.serve.http import serve_http
 from recommendation_tpu_torch.serve.service import RecommenderService
 from recommendation_tpu_torch.train.graphed import GraphedEpoch
-from recommendation_tpu_torch.train.loop import cosine_decay, run_steps, step_grads, train_epoch
+from recommendation_tpu_torch.train.loop import (
+    cosine_decay,
+    run_steps,
+    set_learning_rate,
+    step_grads,
+    train_epoch,
+)
 from recommendation_tpu_torch.train.recommender import GraphRecommender
 from recommendation_tpu_torch.utils.logging import Log
 from recommendation_tpu_torch.utils.profiling import Throughput, profile_trace
@@ -1277,22 +1293,36 @@ def score_tolerance(u_a, i_a, u_b, i_b):
     return du * l1_i + di * l1_u + 1e-6 * l1_u * l1_i + 1e-9
 
 
-def profile_waves(service, wave: int = 16, n_waves: int = 20):
+def profile_waves(service, wave: int = 16, n_waves: int = 20, eager: bool = False):
     """Where one request wave's time goes: torch.profiler over ``n_waves``
     direct device queries of ``wave`` users (the MicroBatcher's typical wave
-    at 16 clients). Returns host wall per wave, device time per wave, the
-    device's idle share and the five kernels with the most device time."""
+    at 16 clients), through the service's graphs or, ``eager``, its block
+    run eagerly (``RecommenderService.eager_block``). Returns host wall per
+    wave (under the profiler, whose CPU activity adds to it, and without
+    it), device time per wave, the device's idle share (against the
+    profiled wall) and the five kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     uids = list(range(wave))
-    service._recommend_ids_device(uids, K)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    graphed = service.block
+    if eager:
+        service.block = service.eager_block()
+    try:
+        service._recommend_ids_device(uids, K)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n_waves):
             service._recommend_ids_device(uids, K)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        unprofiled_us = (time.perf_counter() - t0) * 1e6
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_waves):
+                service._recommend_ids_device(uids, K)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        service.block = graphed
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     device_us = sum(e.self_device_time_total for e in kernels)
     if device_us <= 0:
@@ -1302,10 +1332,43 @@ def profile_waves(service, wave: int = 16, n_waves: int = 20):
     return {
         "wave_users": wave,
         "host_us_per_wave": wall_us / n_waves,
+        "host_us_per_wave_unprofiled": unprofiled_us / n_waves,
         "device_us_per_wave": device_us / n_waves,
         "device_idle_share": 1.0 - device_us / wall_us,
         "top_kernels_us_per_wave": {e.key[:60]: e.self_device_time_total / n_waves for e in top},
     }
+
+
+# the serve phase's extra waves beside the buckets the clients meet: no
+# exclusion, another k, and 1,100 users (a 1,024 block and a 128 tail)
+EXTRA_WAVES = ((16, K, False), (16, 7, True), (1100, K, True))
+
+
+def check_waves(service, label, waves, seed=0):
+    """Each wave (users, k, exclude_seen) of random users through the
+    service's graphs against its block run eagerly on the same padded
+    inputs, bit for bit (scores and ids). Returns each wave's shape."""
+    eager = service.eager_block()
+    rng = np.random.default_rng(seed)
+    out = []
+    for b, k, exclude in waves:
+        uids = rng.integers(0, service.data.user_num, b).tolist()
+        got = service._recommend_ids_device(uids, k, exclude)
+        padded, pos = service.wave_inputs(uids, exclude)
+        want = eager.topk_ids(padded, k, pos)
+        if not all(np.array_equal(g, w[:b]) for g, w in zip(got, want)):
+            raise RuntimeError(f"{label}: the replayed wave of {b} users (k {k}, exclude_seen "
+                               f"{exclude}) differs from the eager padded block")
+        out.append({"users": b, "rows": wave_rows(b), "k": k, "exclude_seen": exclude})
+    return out
+
+
+def block_stats(block):
+    """A ``ScoreBlock``'s graphs: their count and keys, each capture's
+    seconds and the bytes its pool grew by, replays and eager runs."""
+    return {"graphs": len(block.captures), "keys": [c["key"] for c in block.captures],
+            "capture_s": [c["seconds"] for c in block.captures],
+            "pool_bytes": [c["pool_bytes"] for c in block.captures], **block.stats}
 
 
 def serve_phase(compute_dtype, ckpt, train, test):
@@ -1341,10 +1404,16 @@ def serve_phase(compute_dtype, ckpt, train, test):
 
     batcher = service.enable_batching()
     server = serve_http(service, port=0, background=True)
+    first_wave_s = {}
     try:
-        # one untimed request first: the dispatcher thread's first CUDA
-        # calls set up its cuBLAS handle, which is start-up, not serving
-        service.recommend_ids([0], K)
+        # untimed waves first: each size's first wave, on the dispatcher
+        # thread, warms up and captures its graph (the JAX service compiles
+        # a program a size), which is start-up, not serving; the clients
+        # meet these sizes only (at most N_CLIENTS users a wave)
+        for b in (1, 2, 4, 8, 16):
+            t = time.perf_counter()
+            service.recommend_ids(list(range(b)), K)
+            first_wave_s[b] = time.perf_counter() - t
         threads = [threading.Thread(target=client, args=(c,)) for c in range(N_CLIENTS)]
         t0 = time.perf_counter()
         for t in threads:
@@ -1363,6 +1432,15 @@ def serve_phase(compute_dtype, ckpt, train, test):
         server.server_close()
         service.disable_batching()
     launches = chain_mean.launches  # read just after the main path
+    met = service.block.stats["replays"]
+    waves = check_waves(service, f"serve {compute_dtype}",
+                        [(rows, K, True) for rows in sorted({key[1] for key in service.block.keys})]
+                        + list(EXTRA_WAVES))
+    blocks = block_stats(service.block)
+    if blocks["eager"] or met != batcher.stats["device_calls"] or blocks["graphs"] != len(
+            service.block.keys):
+        raise RuntimeError(f"serve {compute_dtype}: waves not all replayed: {blocks}, "
+                           f"{batcher.stats}")
 
     # the plain path on the card: same graph, same weights, plain chain
     params = load_params(ckpt, "lightgcn", device=graph.device)
@@ -1398,8 +1476,11 @@ def serve_phase(compute_dtype, ckpt, train, test):
     lat_ms = sorted(x * 1e3 for x in latencies)
     stats = {
         "profile": profile_waves(service),
+        "profile_eager": profile_waves(service, eager=True),
+        "waves_same_bits": waves, "score_block": blocks, "replays_in_client_run": met,
+        "first_wave_s": first_wave_s,
         "compute_dtype": compute_dtype,
-        "requests": len(latencies) + 1,
+        "requests": len(latencies) + len(first_wave_s),
         "clients": N_CLIENTS,
         "k": K,
         "device_calls": batcher.stats["device_calls"],
@@ -2078,8 +2159,41 @@ def expected_launches(model_name, graph, n_layers, steps, n_evals, e_steps=0, em
     return want
 
 
+def graphed_eval_check(rec, data, graph):
+    """A trained recommender's evaluation and service through the score
+    block's graphs: ``test()`` and the evaluator on the graph's evaluation
+    block against the evaluator with its block run eagerly on the same
+    tables (metrics, ids and scores bit for bit), then the service's waves
+    (``check_waves``) at 16 users and EXTRA_WAVES'."""
+    t0 = time.perf_counter()
+    user_emb, item_emb = rec.model.eval_embeddings(rec.model_params(), rec.state, graph)
+    tested = rec.test()
+    graphed = evaluate_ranking(user_emb, item_emb, data, graph, Ns=rec.topN)
+    eager = evaluate_ranking(user_emb, item_emb, data, graph, Ns=rec.topN,
+                             block=ScoreBlock(item_emb, graphs=False))
+    if not (graphed.metrics == eager.metrics == tested.metrics
+            and np.array_equal(graphed.top_ids, eager.top_ids)
+            and np.array_equal(graphed.top_scores, eager.top_scores)):
+        raise RuntimeError(f"{rec.model.name}: the graphed evaluation differs from the eager one: "
+                           f"{graphed.metrics} / {eager.metrics} / {tested.metrics}")
+    service = RecommenderService.from_recommender(rec)
+    waves = check_waves(service, f"{rec.model.name} {graph.backend} service",
+                        [(16, K, True)] + list(EXTRA_WAVES), seed=1)
+    out = {"metrics": eager.metrics, "metrics_same_bits": True,
+           "test_users": int(len(eager.test_user_ids)),
+           "eval_block": block_stats(score_block_for(graph, item_emb)),
+           "waves_same_bits": waves, "service_block": block_stats(service.block),
+           "seconds": time.perf_counter() - t0}
+    if out["eval_block"]["eager"] or out["service_block"]["eager"]:
+        raise RuntimeError(f"{rec.model.name}: an evaluation or a wave ran eagerly: {out}")
+    print(f"graphed evaluation: {rec.model.name} {graph.backend}: test() and the evaluator "
+          f"equal the eager evaluator bit for bit over {out['test_users']} users; "
+          f"{len(waves)} service waves too; {out['seconds']:.1f} s")
+    return out
+
+
 def gate_phase(model_name, data, graph, epochs, batch, pop, gate, plain=None, profile=True,
-               emb=EMB):
+               emb=EMB, graphed_eval=False):
     """One model's training main path on a set whose ranking optimum is not
     the popularity list: the untrained tables' Recall@20, then ``epochs``
     epochs with an evaluation after each, the best epoch's tables kept (the
@@ -2090,7 +2204,8 @@ def gate_phase(model_name, data, graph, epochs, batch, pop, gate, plain=None, pr
     ``plain`` (the trained recommender -> the plain path's eval tables on
     the card), the served answers must equal the plain path's. ``profile``:
     ``profile_steps`` of the trained recommender in the result; ``emb``
-    the embedding size."""
+    the embedding size. ``graphed_eval``: ``graphed_eval_check`` after
+    the launches are read."""
     config = default_config(**{
         "embedding.size": emb, "batch.size": batch, "learning.rate": LR, "optimizer": "adam",
         "max.epoch": epochs, "eval.interval": 1, "item.ranking.topN": [20],
@@ -2118,6 +2233,8 @@ def gate_phase(model_name, data, graph, epochs, batch, pop, gate, plain=None, pr
                              emb)
     if launches != want:
         raise RuntimeError(f"{model_name} on {graph.backend} launches {launches}, expected {want}")
+    evaluation = ({"graphed_evaluation": graphed_eval_check(rec, data, graph)}
+                  if graphed_eval else {})
     losses = [e["loss"] for e in rec.epoch_stats]
     if len(losses) != epochs or not all(math.isfinite(x) for x in losses):
         raise RuntimeError(f"{model_name} epoch losses malformed: {losses}")
@@ -2150,7 +2267,7 @@ def gate_phase(model_name, data, graph, epochs, batch, pop, gate, plain=None, pr
         "masked_popularity_recall@20": pop["masked"], "popularity_recall@20": pop["plain"],
         "launches": launches, "launches_p1_int8": gather_sum.launches_int8,
         "launches_p1_fused": gather_sum.launches_fused, "wall_s": wall_s,
-        "embedding_size": emb,
+        "embedding_size": emb, **evaluation,
         **({"profile": profile_steps(rec, batch)} if profile else {}),
     }
 
@@ -2363,7 +2480,8 @@ def clustered_phase():
     for name in GATE_MODELS:
         # LightGCN's and NCL's epochs are timed eager and captured by graphed_check
         stats = gate_phase(name, data, graph, CLUSTERED_EPOCHS[name], LARGE_BATCH, pop,
-                           "masked", profile=name == "directau")
+                           "masked", profile=name == "directau",
+                           graphed_eval=name == "lightgcn")
         check_gate(stats)
         runs.append(stats)
     graphed_check("lightgcn clustered bucketed float32", "lightgcn", data, graph, LARGE_BATCH,
@@ -2410,6 +2528,11 @@ def hard_phase():
     # clustered set's its 110 steps are device bound (PERF.md §5)
     graphed_check("ncl hard bucketed float32", "ncl", data, ref, BATCH)
     graphed_zoo_check("directau hard dense float32", "directau", data, graphs["float32"], BATCH)
+    for label, (name, extra) in GRAPHED_ONCE_EAGER.items():
+        bold = "adaptive.lr" in extra  # its BPR step draws nothing; its rate moves
+        graphed_zoo_check(f"{name} {label} hard dense float32", name, data, graphs["float32"],
+                          BATCH, extra=extra, draws_masks=not bold, rate_moves=bold,
+                          variant=label.replace(" ", "_"))
     return (out, hard_zoo_phase(data, graphs, ref),
             hard_neighbor_phase(data, graphs["float32"], ref))
 
@@ -4871,16 +4994,18 @@ def add_sharded_launches(kernel_rows, sharded):
 
 
 def add_graphed_launches(kernel_rows):
-    """The fifteen models' launches inside their replayed graphs
-    (``graphed_zoo_check``, every run f32) into the kernels rows, each as
-    ``launches_graphed_<model>`` and added to the row's ``launches``."""
+    """The launches inside the replayed graphs of ``graphed_zoo_check``
+    (the fifteen models and GRAPHED_ONCE_EAGER's four configurations,
+    every run f32) into the kernels rows, each as
+    ``launches_graphed_<model>`` (``_<variant>`` for the four) and added to
+    the row's ``launches``."""
     for row in kernel_rows:
         if row.get("dtype", "float32") != "float32":
             continue
         for run in GRAPHED:
             n = run.get("replayed_launches", {}).get(row.get("launches_of", row["name"]), 0)
             if n:
-                row[f"launches_graphed_{run['model']}"] = n
+                row[f"launches_graphed_{run.get('launches_key', run['model'])}"] = n
                 row["launches"] += n
 
 
@@ -4910,7 +5035,7 @@ LIBRARY_NOTES = {
 
 # repeats of each timed epoch, eager and captured: host and device µs a
 # step and the idle share are the medians
-GRAPHED_REPEATS = 5
+GRAPHED_REPEATS = 3
 # the chunked epoch's steps_per_call on the clustered bucketed set: 110
 # batches = 3 x 32 + 14, a full chunk's graph and a remainder's
 GRAPHED_CHUNK = 32
@@ -4920,6 +5045,15 @@ GRAPHED_ZOO_EPOCHS = 2
 # the models whose step draws nothing (ESRF neither in phase 0): their mask
 # generator stays put
 GRAPHED_ZOO_DRAWLESS = ("directau", "selfcf", "diffnet", "sept", "sept_social", "sept_basic")
+# the configurations that trained eagerly until they were captured (their
+# steps draw words or produce the state; the bold driver's rate moves),
+# checked as the zoo is on the hard set: label -> (model, config keys)
+GRAPHED_ONCE_EAGER = {
+    "pointwise": ("lightgcn", {"loss": "pointwise"}),
+    "bce n_negs 3": ("lightgcn", {"loss": "bce", "n_negs": 3}),
+    "e_step batch": ("ncl", {"NCL.e_step_cadence": "batch"}),
+    "bold driver sgd": ("lightgcn", {"adaptive.lr": True, "optimizer": "sgd"}),
+}
 
 
 def group_tensors(optimizer):
@@ -5106,7 +5240,8 @@ def graphed_check(label, model_name, data, graph, batch, emb=EMB, chunk=None):
     return out
 
 
-def graphed_zoo_check(label, model_name, data, graph, batch):
+def graphed_zoo_check(label, model_name, data, graph, batch, extra=None, draws_masks=None,
+                      rate_moves=False, variant=None):
     """One of the fifteen models' captured epochs at its defaults (d=64,
     Adam at LR; GraphRecommender's ``GraphedEpoch``, warmed up and
     captured on its first epoch): from one start (parameters, Adam's
@@ -5124,11 +5259,16 @@ def graphed_zoo_check(label, model_name, data, graph, batch):
     device µs give both idle shares. G-BT's rate is a group tensor: it
     must agree after every epoch, and its schedule on the card must be the
     CPU's (optax's, ``tests/test_torch_graphed_zoo.py``) bit for bit at
-    every update from 0 to T + 3."""
+    every update from 0 to T + 3. ``extra``: config keys over the
+    defaults (GRAPHED_ONCE_EAGER's); ``draws_masks``: whether the step
+    draws (None: the model's default); ``rate_moves``: the rate moves by
+    ×1.05 before each later epoch, as the bold driver moves it, into the
+    same tensor on both paths; ``variant``: the configuration's name in
+    the kernels line's ``launches_graphed_<model>_<variant>``."""
     t0 = time.perf_counter()
     config = default_config(**{
         "embedding.size": EMB, "batch.size": batch, "learning.rate": LR, "optimizer": "adam",
-        "graph.compute_dtype": graph.compute_dtype, "item.ranking.topN": [20]})
+        "graph.compute_dtype": graph.compute_dtype, "item.ranking.topN": [20], **(extra or {})})
     rec = GraphRecommender(build(model_name, config), data, config, graph=graph,
                            log=Log(echo=False), device="cuda")
     rec.build()
@@ -5144,8 +5284,9 @@ def graphed_zoo_check(label, model_name, data, graph, batch):
     else:
         epochs = {2: LATE_EPOCH}
     out = {"config": label, "model": model_name, "backend": graph.backend,
-           "compute_dtype": graph.compute_dtype, "d": EMB, "batch": batch,
-           "steps_per_epoch": n, "phases": {}}
+           "compute_dtype": graph.compute_dtype, "d": EMB, "batch": batch, "extra": extra or {},
+           "launches_key": model_name if variant is None else f"{model_name}_{variant}",
+           "optimizer": type(opt).__name__, "steps_per_epoch": n, "phases": {}}
     replayed = collections.Counter()  # the kernels' launches inside replayed graphs
     if model_name == "gbt":
         count = torch.arange(model.total_steps + 4, dtype=torch.int32)
@@ -5190,6 +5331,8 @@ def graphed_zoo_check(label, model_name, data, graph, batch):
                 if k:
                     st = model.epoch_begin(params, st, graph,
                                            torch.Generator().manual_seed(20 + k), epoch)
+                    if rate_moves:
+                        set_learning_rate(opt, float(opt.param_groups[0]["lr"]) * 1.05)
                 st, loss, host_us = counted(
                     lambda: fn(st, torch.Generator().manual_seed(3 + k)), name)
                 snaps.append((train_snapshot(params, opt, st), loss.clone()))
@@ -5208,10 +5351,12 @@ def graphed_zoo_check(label, model_name, data, graph, batch):
         if not torch.equal(got[2], want_run[2]):
             diff["mask_generator_state"] = ["differs"]
         advanced = not torch.equal(got[2], start_draws)
-        draws_masks = model_name not in GRAPHED_ZOO_DRAWLESS and (model_name, phase) != ("esrf", 0)
+        masks = (draws_masks if draws_masks is not None else
+                 model_name not in GRAPHED_ZOO_DRAWLESS and (model_name, phase) != ("esrf", 0))
         losses = [float(loss) for _, loss in got[0]]
+        rates = [[float(g["lr"]) for g in snap[3] if "lr" in g] for snap, _ in got[0]]
         if (any(diff.values()) or not all(math.isfinite(x) for x in losses)
-                or advanced != draws_masks):
+                or advanced != masks or (rate_moves and rates[0] == rates[-1])):
             raise RuntimeError(f"{label} phase {phase}: the epochs differ: {diff}, losses "
                                f"{losses}, mask generator advanced: {advanced}")
         out["phases"][phase] = {
@@ -5219,7 +5364,7 @@ def graphed_zoo_check(label, model_name, data, graph, batch):
             "mask_generator_advanced": advanced, "launches_per_epoch": want,
             "warm_up_host_us_per_step": warm[2],
             "host_us_per_step": {"eager": want_run[1], "captured": got[1]},
-            "rates": [[float(g["lr"]) for g in snap[3] if "lr" in g] for snap, _ in got[0]]}
+            "rates": rates}
     put_back(params, opt, start)
     draws.set_state(start_draws)
     reset_counts()

@@ -32,15 +32,10 @@ class Model:
     # trainer makes them without ``requires_grad`` and the step loop
     # differentiates only the others, so no optimizer moves them
     frozen: tuple[str, ...] = ()
-    # whether the trainer runs the model's epochs as CUDA graphs
-    # (``train/graphed.py``): a step that reads nothing on the host and
-    # draws only from the loss's generator (the trainer's one generator on
-    # the graph's device, which the graphs register, so every replay draws
-    # anew). Every registered model at its defaults; off for the
-    # configurations that draw their words in the step, not yet captured
-    # (LightGCN's pointwise loss and extra negatives, NCL's per-batch
-    # E-step)
-    capturable: bool = True
+    # The single-device trainer runs every model's epochs as CUDA graphs
+    # (``train/graphed.py``), so a step reads nothing on the host and draws
+    # only from the loss's generator (the trainer's one generator on the
+    # graph's device, which the graphs register, so every replay draws anew)
 
     def __init__(self, config):
         self.config = config

@@ -96,8 +96,6 @@ class LightGCN(Model):
         self.n_layers = int(config.get("LightGCN.n_layers", config.get("n_layers", 3)))
         self.loss_type = str(config.get("loss", "bpr"))
         self.n_negs = int(config.get("n_negs", 1))
-        # the pointwise loss and extra negatives draw in every step
-        self.capturable = self.loss_type != "pointwise" and self.n_negs == 1
 
     def init(self, generator: torch.Generator, graph):
         params = {

@@ -75,9 +75,6 @@ class NCL(Model):
         cad = config.get("NCL.e_step_cadence", 1)
         self.e_step_per_batch = str(cad).lower() == "batch"
         self.e_step_cadence = 1 if self.e_step_per_batch else int(cad)
-        # an E-step in the loss draws its rows in every step; one per epoch
-        # runs eagerly between the captured epochs
-        self.capturable = not self.e_step_per_batch
         # tables past this row count cluster with mini-batch k-means; 0
         # forces mini-batch everywhere, -1 full Lloyd everywhere
         self.kmeans_minibatch_above = int(config.get("NCL.kmeans_minibatch_above", 131_072))

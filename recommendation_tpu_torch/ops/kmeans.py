@@ -14,6 +14,11 @@ then each cluster's rows added in row order (``torch.segment_reduce``),
 with no atomic adds. So every run, and every rank of a sharded trainer
 that clusters the same tables, gets the same bits on the card; on the CPU
 the sums are ``index_add_``'s, which adds in index order, bit for bit.
+The clusters' row counts are read off the sorted assignments
+(``searchsorted``), the JAX package's ``segment_sum`` counts: unlike
+``torch.bincount``, which reads its input's maximum on the host on the
+card, nothing is read on the host, so a CUDA graph can capture the
+E-step (NCL's ``e_step_cadence='batch'``, inside every step).
 """
 
 from __future__ import annotations
@@ -39,12 +44,21 @@ def _sq_dist(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
             + torch.sum(centroids * centroids, dim=1)[None, :])
 
 
+def cluster_counts(ordered: torch.Tensor, k: int) -> torch.Tensor:
+    """The number of each cluster's rows, int64[k], from the assignments
+    sorted ascending: the differences of each cluster's first position
+    (``torch.bincount(assign, minlength=k)``'s integers)."""
+    edges = torch.arange(k + 1, dtype=ordered.dtype, device=ordered.device)
+    starts = torch.searchsorted(ordered, edges)
+    return starts[1:] - starts[:-1]
+
+
 def _segment_sums(x: torch.Tensor, assign: torch.Tensor, k: int):
     """(each cluster's sum of its rows, in row order; its row count) as
     f32[k, d] and f32[k]: one stable sort of the assignments, then a
     segment sum over the sorted rows, an empty cluster 0."""
-    order = torch.sort(assign, stable=True).indices
-    lengths = torch.bincount(assign, minlength=k)
+    ordered, order = torch.sort(assign, stable=True)
+    lengths = cluster_counts(ordered, k)
     sums = torch.segment_reduce(x[order], "sum", lengths=lengths, axis=0, unsafe=True)
     return sums, lengths.to(x.dtype)
 

@@ -2,7 +2,21 @@
 
 ``RecommenderService`` holds the frozen (user_emb, item_emb) tables on their
 device and answers batch queries with the masked full-catalog top-k, train
-positives excluded exactly as in evaluation. With a ``mesh``
+positives excluded exactly as in evaluation.
+
+A wave is padded as the JAX service pads it: its users to
+``ops.topk.wave_rows(b)`` with user 0 (a power of two up to 1,024), in
+blocks of 1,024 with the tail padded to a power of two, and, on the
+host-CSR branch (a graph without a positives table), the positives'
+width to a power of two. On the card each padded shape is one CUDA graph
+of the service's ``ScoreBlock`` (``ops/topk.py``) that gathers the user
+rows and the positives rows itself: a wave is one copy of its ids into
+a static buffer, one replay and one copy of the answers out. A shape's
+first wave pays its warm-up and capture (the JAX service pays a compile
+a shape too); the graphs are captured on first use, on the thread that
+serves the wave (the MicroBatcher's dispatcher), in ``thread_local``
+mode, so the HTTP threads may make CUDA calls meanwhile. ``block.stats``
+counts the replays (and the eager waves of the CPU). With a ``mesh``
 (``parallel/mesh.py``) the item table is padded to a multiple of the model
 axis and each model rank holds its rows: a query scores them, merges the
 ranks' candidates (``parallel.collectives.sharded_topk``) and masks the
@@ -28,12 +42,13 @@ import numpy as np
 import torch
 
 from recommendation_tpu_torch.data.interaction import Interaction
-from recommendation_tpu_torch.evalx.ranking import positives_for
+from recommendation_tpu_torch.evalx.ranking import host_positives
 from recommendation_tpu_torch.ops.topk import (
     MASK_VALUE,
+    ScoreBlock,
     mask_seen_post_merge,
-    topk_with_exclusions,
     train_edge_keys,
+    wave_rows,
 )
 
 
@@ -50,7 +65,12 @@ class RecommenderService:
         self.data = data
         self.graph = graph
         self.mesh = mesh
-        if mesh is not None:
+        self.block = None
+        if mesh is None:
+            self.block = ScoreBlock(self.item_emb, user_emb=self.user_emb,
+                                    user_positives=(graph.user_positives if graph.has_pos_table
+                                                    else None))
+        else:
             from recommendation_tpu_torch.parallel.embedding import pad_rows_to
             from recommendation_tpu_torch.parallel.mesh import MODEL_AXIS, axis_size, table_rows
 
@@ -108,17 +128,33 @@ class RecommenderService:
     def _recommend_ids_device(
         self, user_ids: Sequence[int], k: int = 10, exclude_seen: bool = True
     ) -> tuple[np.ndarray, np.ndarray]:
-        """The device query (what the batcher dispatches)."""
+        """The device query (what the batcher dispatches): the wave padded
+        to ``wave_rows(b)`` with user 0, through the service's graphs."""
         uids = np.asarray(user_ids, dtype=np.int64)
-        u = self.user_emb[torch.from_numpy(uids).to(self.user_emb.device)]
         if self.mesh is not None:
+            u = self.user_emb[torch.from_numpy(uids).to(self.user_emb.device)]
             return self._recommend_ids_sharded(uids, u, k, exclude_seen)
+        padded, pos = self.wave_inputs(uids, exclude_seen)
+        s, i = self.block.topk_ids(padded, k, pos)
+        return s[:len(uids)], i[:len(uids)]
+
+    def wave_inputs(self, user_ids: Sequence[int], exclude_seen: bool = True):
+        """A wave's users padded with user 0 to ``wave_rows(b)`` and its
+        positives (``ScoreBlock.topk_ids``' ``positives``): the table's
+        rows, host positives at a power-of-two width, or None."""
+        uids = np.asarray(user_ids, dtype=np.int64)
+        padded = np.concatenate([uids, np.zeros(wave_rows(len(uids)) - len(uids), np.int64)])
+        pos = None
         if exclude_seen:
-            pos = positives_for(self.data, self.graph, uids)
-        else:
-            pos = torch.full((len(uids), 1), -1, dtype=torch.int32, device=u.device)
-        s, i = topk_with_exclusions(u, self.item_emb, pos, k)
-        return s.cpu().numpy(), i.cpu().numpy().astype(np.int32)
+            pos = ("table" if self.graph.has_pos_table
+                   else host_positives(self.data, padded, pow2=True))
+        return padded, pos
+
+    def eager_block(self) -> ScoreBlock:
+        """The service's block with its bodies run eagerly: the reference a
+        replayed wave is held to."""
+        return ScoreBlock(self.item_emb, user_emb=self.user_emb,
+                          user_positives=self.block.user_positives, graphs=False)
 
     def _recommend_ids_sharded(self, uids: np.ndarray, u: torch.Tensor, k: int,
                                exclude_seen: bool) -> tuple[np.ndarray, np.ndarray]:

@@ -9,8 +9,9 @@ the epoch once with ``torch.cuda.graph`` and replays it; on the CPU the
 same bodies run eagerly (``capture`` off), so the CPU tests cover the
 bookkeeping. The trainer (``train/recommender.py``) runs its epochs so,
 and fuses ``eval.interval`` epochs into a block that reads its losses
-once, for the models that declare ``Model.capturable`` (every registered
-model at its defaults).
+once, for every registered model at every configuration (NCL's
+per-batch E-step, whose state every step produces, carried as any state
+is); the sharded trainer keeps the eager loop.
 
 What a graph holds, as the JAX scan's carry and inputs:
   * **inputs**: the epoch's words (``sampling.EpochWords``) in buffers on
@@ -63,10 +64,11 @@ tensors of its param groups (a tensor rate, which
 and the generator it registered. A run whose tensors moved (a checkpoint
 restored through ``load_state_dict``) or that draws from another
 generator drops its graphs and captures again. A float rate is a
-constant of the captured update: a run whose float rate moved raises. Adam must be made
-``capturable`` on the card (``train.loop.make_optimizer`` does): a
-capture of any step that the card cannot capture raises, and nothing
-falls back to the eager loop.
+constant of the captured update: a run whose float rate moved raises (a
+rate that moves is a tensor, ``train.loop.tensor_rates``). Adam
+must be made ``capturable`` on the card (``train.loop.make_optimizer``
+does): a capture of any step that the card cannot capture raises, and
+nothing falls back to the eager loop.
 """
 
 from __future__ import annotations

@@ -18,15 +18,15 @@ chunks and fuses ``eval.interval`` epochs into one execution
 (``make_multi_epoch_fn``). The port's counterpart is a CUDA graph:
 ``train/graphed.py`` captures this loop's step (``train_step``) for a
 whole epoch or a chunk of one and replays it, and the trainer runs its
-epochs that way on the card for the models that declare
-``Model.capturable``. ``run_steps`` stays the eager loop: the CPU's, the
-configurations that draw their words in the step, the sharded trainer's and the
-reference a captured epoch is held to bit for bit. On the card the
+epochs that way on the card (every registered model at every
+configuration). ``run_steps`` stays the eager loop: the CPU's, the sharded trainer's and
+the reference a captured epoch is held to bit for bit. On the card the
 optimizers are made ``capturable`` (Adam's step count and bias correction
 on the device), for the eager and the captured loop alike, and a rate that
-moves is a device tensor: the bold driver's (``set_learning_rate`` fills
-it), ESRF's two (``tensor_rates``) and G-BT's cosine schedule
-(``CosineDecayAdam`` computes it on the device), so a replayed graph reads
+moves is a device tensor: the bold driver's, Adam's or SGD's (torch's
+fused SGD; ``set_learning_rate`` fills it), ESRF's two
+(``tensor_rates``) and G-BT's cosine schedule (``CosineDecayAdam``
+computes it on the device), so a replayed graph reads
 the new rate. The trainer draws each epoch's words from its host
 generator in the same sequence whatever ``eval.interval`` is, so runs that
 evaluate at different intervals, fused or not, train on the same batches
@@ -58,7 +58,9 @@ def make_optimizer(config, params: Dict[str, torch.Tensor]) -> torch.optim.Optim
     """torch counterpart of the JAX package's optax choice over ``params``
     (in their dict order): ``adam`` is optax.adam (eps 1e-8, eps_root 0);
     ``adamw`` decays decoupled by lr × ``weight.decay``; ``sgd`` keeps
-    optax.sgd's momentum trace (``momentum``, dampening 0)."""
+    optax.sgd's momentum trace (``momentum``, dampening 0), fused: one
+    kernel a step, and a tensor rate read on its device (the bold
+    driver's)."""
     lr = float(config.get("learning.rate", 1e-3))
     name = str(config.get("optimizer", "adam")).lower()
     tensors = list(params.values())
@@ -72,7 +74,8 @@ def make_optimizer(config, params: Dict[str, torch.Tensor]) -> torch.optim.Optim
         return torch.optim.AdamW(tensors, lr=lr, eps=1e-8, capturable=cuda,
                                  weight_decay=float(config.get("weight.decay", 0.01)))
     if name == "sgd":
-        return torch.optim.SGD(tensors, lr=lr, momentum=float(config.get("momentum", 0.9)))
+        return torch.optim.SGD(tensors, lr=lr, momentum=float(config.get("momentum", 0.9)),
+                               fused=True)
     raise ValueError(f"unknown optimizer {name!r}")
 
 
@@ -240,12 +243,15 @@ class BoldDriver:
 
 def make_bold_driver_optimizer(config, params):
     """SGD (``optimizer: sgd``) or Adam, with a ``BoldDriver`` that sets the
-    rate through ``param_groups`` between epochs. On the card Adam's rate is
-    a device tensor, which a captured epoch reads as the driver moves it."""
+    rate through ``param_groups`` between epochs. The rate is a tensor on
+    the parameters' device, which a captured epoch reads as the bold driver
+    moves it: SGD's on both devices (torch's fused SGD reads a tensor rate
+    where it lies, and gives the float rate's bits), Adam's where it is
+    ``capturable`` (on the card)."""
     name = "sgd" if str(config.get("optimizer", "adam")).lower() == "sgd" else "adam"
     opt = make_optimizer(config.with_overrides(optimizer=name), params)
     lr = float(config.get("learning.rate", 1e-3))
-    if name == "adam" and opt.defaults["capturable"]:
+    if name == "sgd" or opt.defaults["capturable"]:
         tensor_rates(opt)
     return opt, BoldDriver(lr, float(config.get("max.learning.rate", 0.0)))
 

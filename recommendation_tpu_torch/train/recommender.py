@@ -16,24 +16,27 @@ evaluate / predict / execute / fast_evaluation`` contract
     ``checkpoint.resume``) that hold both generators too, so a resumed run
     trains on the batches and masks a straight run would.
 
-Its epochs run as the JAX package's do, each one device execution: for a
-model that declares ``Model.capturable``, ``train/graphed.py`` captures
-the epoch's steps as CUDA graphs on the card and replays them (on the CPU
-the same object runs them eagerly). The five ``train.*`` keys of the JAX
-trainer mean what they mean there: ``train.steps_per_call`` and
+Its epochs run as the JAX package's do, each one device execution:
+``train/graphed.py`` captures the epoch's steps as CUDA graphs on the card
+and replays them (on the CPU the same object runs them eagerly), for every
+registered model at every configuration the port accepts, the bold
+driver's moving rate included (a device tensor). Evaluation (``fast_evaluation``, ``test``) replays the
+score block's graphs (``evalx/ranking.py``). The five ``train.*`` keys
+of the JAX trainer mean what they mean there: ``train.steps_per_call`` and
 ``train.max_steps_per_call`` chunk a long epoch (``graphed.steps_per_call``),
 and ``train.fuse_epochs``, ``train.fuse_below_steps`` and
 ``train.max_fused_steps`` gate fused blocks (``_can_fuse_epochs``): the
 ``eval.interval`` epochs up to the next evaluation replayed back to back,
-their losses read once, a NaN aborting at the block's end. A model that
-cannot capture trains with the eager loop (``train.loop.train_epoch``) and
-refuses ``train.fuse_epochs: true``. Each epoch draws a seed for
-``epoch_begin`` from the trainer's host generator, then its words, in that
-order whatever ``eval.interval`` is and whether it is fused or not, so
-the paths give the same bits. The losses draw their masks from a second
-generator on the graph's device, made once and seeded from the first
-(``graph.augment.device_generator``): the captured epochs register it, so
-every replay draws what the eager epoch would.
+their losses read once, a NaN aborting at the block's end. The sharded
+trainer is the one that trains with the eager loop
+(``train.loop.train_epoch``), and it refuses ``train.fuse_epochs:
+true``. Each epoch draws a seed for ``epoch_begin`` from the trainer's
+host generator, then its words, in that order whatever ``eval.interval``
+is and whether it is fused or not, so the paths give the same bits. The
+losses draw their masks from a second generator on the graph's device,
+made once and seeded from the first (``graph.augment.device_generator``):
+the captured epochs register it, so every replay draws what the eager
+epoch would.
 
 A sharded trainer (``parallel/trainer.py``) keeps this lifecycle and
 overrides its placement hooks: ``_place`` (the parameters this process
@@ -167,17 +170,13 @@ class GraphRecommender:
                                          self.batch_size, steps_per_call=self.steps_per_call)
         elif _fuse_mode(self.config) is True:
             raise ValueError(f"train.fuse_epochs: true needs epochs that run as CUDA graphs; "
-                             f"{self.model.name} on this trainer runs its epochs eagerly")
+                             f"{self.model.name} on this trainer (sharded) runs its epochs "
+                             f"eagerly")
 
     def _captures(self) -> bool:
-        """Whether the epochs run as ``GraphedEpoch``: a model that declares
-        ``capturable``, the single-device trainer (a sharded one keeps the
-        eager loop), and a rate that a captured update reads as it moves
-        (the bold driver's SGD keeps a float rate on the card)."""
-        float_rate = any(not isinstance(g["lr"], torch.Tensor)
-                         for g in self.optimizer.param_groups)
-        moving = self._bold is not None and self.graph.device.type == "cuda" and float_rate
-        return self.model.capturable and self._placement is None and not moving
+        """Whether the epochs run as ``GraphedEpoch``: every model on the
+        single-device trainer; a sharded one keeps the eager loop."""
+        return self._placement is None
 
     # -- placement hooks (a sharded trainer overrides them) -------------------
 

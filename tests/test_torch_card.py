@@ -60,6 +60,7 @@ installed:
 """
 
 import contextlib
+import threading
 
 import numpy as np
 import pytest
@@ -1944,3 +1945,190 @@ def test_capturable_adam_is_optax(card):
     torch.testing.assert_close(leaf.detach(), want, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(opt.state[leaf]["exp_avg"], mu, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(opt.state[leaf]["exp_avg_sq"], nu, rtol=1e-5, atol=1e-6)
+
+
+# -- the score block as CUDA graphs; the configurations once eager ----------
+
+
+def _card_service(card, has_pos_table=True):
+    """A service on random tables of a small synthetic graph on the card
+    (without the positives table: the host-CSR branch)."""
+    import copy
+
+    from recommendation_tpu_torch.serve.service import RecommenderService
+
+    train, test = make_synthetic_dataset(n_users=1500, n_items=2000, n_interactions=40_000,
+                                         seed=5)
+    data = Interaction(train, test)
+    graph = DeviceGraph(data, device=card)
+    if not has_pos_table:
+        graph = copy.copy(graph)
+        graph.has_pos_table = False
+    rng = np.random.default_rng(2)
+    u = torch.from_numpy(rng.normal(size=(data.user_num, 64)).astype(np.float32)).to(card)
+    i = torch.from_numpy(rng.normal(size=(data.item_num, 64)).astype(np.float32)).to(card)
+    return RecommenderService(u, i, data, graph)
+
+
+@pytest.mark.parametrize("branch", ["table", "host_csr"])
+def test_score_block_graphs_replay_the_eager_block(card, branch):
+    """Every padded wave size (1 to 1,024 rows, and 1,100 users: a 1,024
+    block and a 128 tail), with and without exclusions and at two k: the
+    service's replayed graph gives the eager padded block's bits on the
+    same inputs; every wave is a replay, one capture a shape."""
+    service = _card_service(card, branch == "table")
+    eager = service.eager_block()
+    rng = np.random.default_rng(3)
+    waves = 0
+    for b in [1, 2, 3, 4, 8, 16, 32, 64, 100, 256, 512, 1024, 1100]:
+        for k, exclude in ((10, True), (10, False), (7, True)):
+            uids = rng.integers(0, service.data.user_num, b).tolist()
+            got = service._recommend_ids_device(uids, k, exclude)
+            padded, pos = service.wave_inputs(uids, exclude)
+            want = eager.topk_ids(padded, k, pos)
+            waves += 1
+            for g, w in zip(got, want):
+                assert np.array_equal(g, w[:b]), (b, k, exclude)
+    stats = service.block.stats
+    assert stats["eager"] == 0 and stats["replays"] >= waves
+    assert len(service.block.captures) == len(service.block.keys)
+
+
+def test_one_evaluation_block_serves_two_threads(card):
+    """Two threads evaluate two item tables through one ``ScoreBlock`` (the
+    graph's evaluation block, whose graphs read one static item table): each
+    call's answers are its own table's, bit for bit the eager block's."""
+    from recommendation_tpu_torch.ops.topk import ScoreBlock, topk_with_exclusions
+
+    rng = np.random.default_rng(5)
+    users = torch.from_numpy(rng.normal(size=(300, 64)).astype(np.float32)).to(card)
+    tables = [torch.from_numpy(rng.normal(size=(2000, 64)).astype(np.float32)).to(card)
+              for _ in range(2)]
+    pos = torch.from_numpy(rng.integers(-1, 2000, (300, 8)).astype(np.int32)).to(card)
+    want = [topk_with_exclusions(users, t, pos, 10, batch_size=128) for t in tables]
+    block = ScoreBlock(tables[0])
+    topk_with_exclusions(users, tables[1], pos, 10, batch_size=128, block=block)  # captures
+    errors = []
+
+    def evaluate(t):
+        for _ in range(20):
+            got = topk_with_exclusions(users, tables[t], pos, 10, batch_size=128, block=block)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want[t])):
+                errors.append(t)
+
+    threads = [threading.Thread(target=evaluate, args=(t,)) for t in (0, 1)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert errors == [] and block.stats["eager"] == 0 and len(block.captures) == 2
+
+
+def test_segment_sums_capture_without_a_host_read(card):
+    """k-means' segment sums (the cluster counts read off the sorted
+    assignments) capture in a CUDA graph, whose replay gives the eager
+    call's bits and ``torch.bincount``'s counts."""
+    from recommendation_tpu_torch.ops.kmeans import _segment_sums
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(5000, 64)).astype(np.float32)).to(card)
+    assign = torch.from_numpy(rng.integers(0, 97, 5000)).to(card)
+    want_sums, want_counts = _segment_sums(x, assign, 100)
+    stream = torch.cuda.Stream(card)
+    stream.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(stream):
+        _segment_sums(x, assign, 100)  # warm-up
+    torch.cuda.current_stream(card).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        sums, counts = _segment_sums(x, assign, 100)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(sums, want_sums) and torch.equal(counts, want_counts)
+    assert torch.equal(counts, torch.bincount(assign, minlength=100).float())
+
+
+@pytest.mark.parametrize("case", ["pointwise", "bce_n_negs_3", "ncl_batch_e_step", "bold_sgd"])
+def test_captured_epoch_is_the_eager_epoch_for_the_drawing_steps(card, case):
+    """The configurations that trained eagerly before they were captured
+    (LightGCN's pointwise loss and ``n_negs`` 3, NCL's per-batch E-step,
+    the bold driver's SGD with its tensor rate moved): on the trainer, a
+    replayed epoch equals ``train_epoch`` from the same parameters,
+    optimizer state, model state, words and mask generator state."""
+    from recommendation_tpu_torch.train.loop import set_learning_rate, train_epoch
+    from recommendation_tpu_torch.train.recommender import GraphRecommender
+    from recommendation_tpu_torch.utils.logging import Log
+
+    name, extra = {"pointwise": ("lightgcn", {"loss": "pointwise"}),
+                   "bce_n_negs_3": ("lightgcn", {"loss": "bce", "n_negs": 3}),
+                   "ncl_batch_e_step": ("ncl", {"NCL.e_step_cadence": "batch",
+                                                "NCL.num_clusters": 8}),
+                   "bold_sgd": ("lightgcn", {"adaptive.lr": True, "optimizer": "sgd",
+                                             "learning.rate": 0.05})}[case]
+    train, test = make_synthetic_dataset(n_users=200, n_items=333, n_interactions=8000, seed=5)
+    data = Interaction(train, test)
+    graph = DeviceGraph(data, device=card)
+    config = default_config(**{"embedding.size": 64, "batch.size": 512, **extra})
+    rec = GraphRecommender(build(name, config), data, config, graph=graph, log=Log(echo=False),
+                           device=card)
+    rec.build()
+    runner, draws = rec._graphed, rec._draws
+    assert runner is not None and runner.capture
+    params, opt, model = rec.params, rec.optimizer, rec.model
+    state, _ = runner.run(rec.state, torch.Generator().manual_seed(2), draws)  # capture
+    if case == "bold_sgd":
+        set_learning_rate(opt, 0.0525)  # the bold driver's move, into the tensor rate
+    start, start_draws = _train_state(params, opt, state), draws.get_state()
+    got_state, got_loss = runner.run(state, torch.Generator().manual_seed(3), draws)
+    torch.cuda.synchronize()
+    got, got_draws = _train_state(params, opt, got_state), draws.get_state()
+    _put_back(params, opt, start)
+    draws.set_state(start_draws)
+    want_state, want_loss = train_epoch(model, opt, graph, params, dict(start[2]),
+                                        torch.Generator().manual_seed(3), 512, draws=draws)
+    torch.cuda.synchronize()
+    _same_train_state(got, _train_state(params, opt, want_state))
+    assert torch.equal(got_loss, want_loss) and torch.isfinite(got_loss)
+    assert torch.equal(got_draws, draws.get_state()) and len(runner.captures) == 1
+    assert torch.equal(got_draws, start_draws) == (case == "bold_sgd")
+
+
+def test_tensor_rate_sgd_is_torch_sgd(card):
+    """The bold driver's SGD (``make_bold_driver_optimizer``: torch's fused
+    SGD, its rate a tensor on the card) against ``torch.optim.SGD`` with the
+    float rate: bit for bit over five steps, the rate moved after two; the
+    first step eager, the other four replays of one captured step that
+    reads the rate where ``set_learning_rate`` fills it."""
+    from recommendation_tpu_torch.config import default_config
+    from recommendation_tpu_torch.train.loop import make_bold_driver_optimizer, set_learning_rate
+
+    rng = np.random.default_rng(6)
+    p0 = torch.from_numpy(rng.normal(size=(4096, 64)).astype(np.float32)).to(card)
+    leaves = [p0.clone().requires_grad_() for _ in range(2)]
+    ours, _ = make_bold_driver_optimizer(
+        default_config(**{"optimizer": "sgd", "learning.rate": 0.0137, "momentum": 0.9}),
+        {"w": leaves[0]})
+    ref = torch.optim.SGD([leaves[1]], lr=0.0137, momentum=0.9)
+    assert ours.param_groups[0]["lr"].is_cuda and ours.param_groups[0]["fused"]
+    leaves[0].grad = torch.empty_like(p0)
+    graph = None
+    for step in range(5):
+        g = torch.from_numpy(rng.normal(size=(4096, 64)).astype(np.float32)).to(card)
+        for opt in (ours, ref):
+            set_learning_rate(opt, 0.0137 * (1.05 if step >= 2 else 1.0))
+        leaves[0].grad.copy_(g)
+        leaves[1].grad = g
+        if step == 0:
+            ours.step()
+        else:
+            if graph is None:
+                graph = torch.cuda.CUDAGraph()
+                stream = torch.cuda.Stream(card)
+                stream.wait_stream(torch.cuda.current_stream(card))
+                with torch.cuda.graph(graph, stream=stream):
+                    ours.step()
+            graph.replay()
+        ref.step()
+        torch.cuda.synchronize()
+        assert torch.equal(leaves[0], leaves[1]), step

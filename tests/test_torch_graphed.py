@@ -311,19 +311,128 @@ def test_chunk_rule_is_the_jax_trainers(jax_reference):
     assert None in got.values() and 32 in got.values()
 
 
-@pytest.mark.parametrize("name,extra", [("lightgcn", {"loss": "bce", "n_negs": 3}),
-                                        ("lightgcn", {"loss": "pointwise"}),
-                                        ("lightgcn", {"n_negs": 2}),
-                                        ("ncl", {"NCL.e_step_cadence": "batch"})])
+# the configurations that drew in the step and ran eagerly before they were
+# captured: their fused trainers (the converted refusal cases below) and
+# their epochs (``test_graphed_epoch_is_train_epoch_for_the_drawing_steps``)
+ONCE_EAGER = [("lightgcn", {"loss": "bce", "n_negs": 3}), ("lightgcn", {"loss": "pointwise"}),
+              ("lightgcn", {"n_negs": 2}), ("ncl", {"NCL.e_step_cadence": "batch"})]
+
+
+@pytest.mark.parametrize("name,extra", ONCE_EAGER)
 def test_fuse_epochs_true_refuses_an_eager_model(data, graphs, name, extra):
-    """A configuration whose step draws its words in the step trains eagerly, and
-    ``train.fuse_epochs: true`` raises rather than run it unfused; the
-    default gate leaves it unfused."""
-    rec = _trainer(data, graphs["dense"], name, **{"eval.interval": 2, **extra})
-    assert rec._graphed is None and not rec.model.capturable
-    with pytest.raises(ValueError, match="fuse_epochs"):
-        _trainer(data, graphs["dense"], name, **{"eval.interval": 2,
-                                                 "train.fuse_epochs": True, **extra})
+    """The configurations whose step draws in the step used to train
+    eagerly and refuse ``train.fuse_epochs: true``. Now every one captures
+    its epochs, so no single-device trainer is eager: with the flag on, the
+    trainer gives the unfused trainer's bits, fused where the gate lets it
+    (LightGCN's; NCL keeps ``epoch_begin``). The one eager trainer, the
+    sharded one, still refuses the flag
+    (``tests/test_torch_parallel_trainer.py``)."""
+    runs = {}
+    for fuse in (False, True):
+        rec = _trainer(data, graphs["dense"], name, **{"max.epoch": 4, "eval.interval": 2,
+                                                       "train.fuse_epochs": fuse, **extra})
+        assert rec._graphed is not None
+        rec.train()
+        runs[fuse] = rec
+    fused = runs[True]
+    assert fused._can_fuse_epochs() == (name == "lightgcn")
+    assert sum("fused x2" in line for line in fused.log.contents()) == (
+        4 if name == "lightgcn" else 0)
+    _assert_same_runs(fused, runs[False])
+
+
+def _bold_sgd(params):
+    """The bold driver's SGD: torch's fused SGD, its rate a tensor."""
+    return make_bold_driver_optimizer(
+        default_config(**{"optimizer": "sgd", "learning.rate": 0.05}), params)[0]
+
+
+@pytest.mark.parametrize("case", ["pointwise", "bce_n_negs_3", "ncl_batch_e_step", "bold_sgd"])
+def test_graphed_epoch_is_train_epoch_for_the_drawing_steps(graphs, case):
+    """The configurations that were eager: LightGCN's pointwise loss and
+    ``n_negs`` 3 (the negatives drawn in the step), NCL's per-batch E-step
+    (the state produced in every step) and the bold driver's SGD (its
+    tensor rate moved between the epochs). With capture off, two
+    consecutive ``GraphedEpoch`` epochs equal two ``train_epoch`` epochs bit
+    for bit: parameters, the optimizer's state, the model's state, the
+    losses and both generators (the words' on the host, the draws' of the
+    losses, separate as in the trainer)."""
+    name, extra = {"pointwise": ("lightgcn", {"loss": "pointwise"}),
+                   "bce_n_negs_3": ("lightgcn", {"loss": "bce", "n_negs": 3}),
+                   "ncl_batch_e_step": ("ncl", {"NCL.e_step_cadence": "batch"}),
+                   "bold_sgd": ("lightgcn", {})}[case]
+    graph = graphs["dense"]
+    runs = []
+    for graphed in (True, False):
+        model = build(name, default_config(**{"embedding.size": D, "NCL.num_clusters": 4,
+                                              **extra}))
+        params, state = model.init(torch.Generator().manual_seed(0), graph)
+        params = {k: v.requires_grad_() for k, v in params.items()}
+        optimizer = (_bold_sgd(params) if case == "bold_sgd"
+                     else make_optimizer(default_config(), params))
+        words, draws = torch.Generator().manual_seed(9), torch.Generator().manual_seed(10)
+        runner = GraphedEpoch(model, optimizer, graph, params, B) if graphed else None
+        out = []
+        for epoch in range(2):
+            set_learning_rate(optimizer, [0.05, 0.0525][epoch])
+            if runner is not None:
+                state, loss = runner.run(state, words, draws)
+            else:
+                state, loss = train_epoch(model, optimizer, graph, params, state, words, B,
+                                          draws=draws)
+            out.append((_snapshot(params, optimizer, state, loss), words.get_state(),
+                        draws.get_state()))
+        runs.append(out)
+    for (got, got_words, got_draws), (want, want_words, want_draws) in zip(*runs):
+        _assert_same(got, want)
+        assert torch.equal(got_words, want_words) and torch.equal(got_draws, want_draws)
+    moved = not torch.equal(runs[0][0][2], torch.Generator().manual_seed(10).get_state())
+    assert moved == (case != "bold_sgd")  # the bold driver's BPR step draws nothing
+
+
+def test_tensor_rate_sgd_is_torch_sgd_and_optax_sgd():
+    """The bold driver's SGD (``make_bold_driver_optimizer``: torch's fused
+    SGD with a tensor rate, what a captured step reads) against
+    ``torch.optim.SGD`` with the float rate, bit for bit over five steps
+    with the rate moved after two, and against
+    ``optax.inject_hyperparams(optax.sgd)`` (the JAX package's bold-driver
+    SGD, jitted) within the f32 bound: XLA computes optax's trace in one
+    fused multiply-add and its update in two roundings, torch's SGD the
+    reverse, so the two differ in the last place (the f32 bound, rtol 1e-5 /
+    atol 1e-6)."""
+    rng = np.random.default_rng(0)
+    p0 = rng.normal(size=(37, 64)).astype(np.float32)
+    grads = [rng.normal(size=p0.shape).astype(np.float32) for _ in range(5)]
+    rates = [0.0137, 0.0137, 0.0137 * 1.05, 0.0137 * 1.05, 0.0137 * 0.525]
+    leaves = [torch.from_numpy(p0.copy()).requires_grad_() for _ in range(2)]
+    ours, _ = make_bold_driver_optimizer(
+        default_config(**{"optimizer": "sgd", "learning.rate": rates[0], "momentum": 0.9}),
+        {"w": leaves[0]})
+    torch_sgd = torch.optim.SGD([leaves[1]], lr=rates[0], momentum=0.9)
+    rate = ours.param_groups[0]["lr"]
+    assert isinstance(rate, torch.Tensor) and rate.dtype == torch.float32
+    assert ours.param_groups[0]["fused"] and type(ours) is torch.optim.SGD
+    opt = optax.inject_hyperparams(optax.sgd)(learning_rate=rates[0], momentum=0.9)
+    p, st = jnp.asarray(p0), opt.init(jnp.asarray(p0))
+    update = jax.jit(lambda g, st, p: opt.update(g, st, p))
+    for g, lr in zip(grads, rates):
+        set_learning_rate(ours, lr)
+        set_learning_rate(torch_sgd, lr)
+        st.hyperparams["learning_rate"] = jnp.asarray(lr)
+        for leaf in leaves:
+            leaf.grad = torch.from_numpy(g)
+        ours.step()
+        torch_sgd.step()
+        upd, st = update(jnp.asarray(g), st, p)
+        p = optax.apply_updates(p, upd)
+        assert ours.param_groups[0]["lr"] is rate
+        assert torch.equal(leaves[0], leaves[1])
+        assert torch.equal(ours.state[leaves[0]]["momentum_buffer"],
+                           torch_sgd.state[leaves[1]]["momentum_buffer"])
+    np.testing.assert_allclose(leaves[0].detach().numpy(), np.asarray(jax.block_until_ready(p)),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(ours.state[leaves[0]]["momentum_buffer"].numpy(),
+                               np.asarray(st.inner_state[0].trace), rtol=1e-5, atol=1e-6)
 
 
 def test_a_chunk_takes_a_step_and_the_cpu_adam_is_eager(graphs):

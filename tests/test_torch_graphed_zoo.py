@@ -140,7 +140,7 @@ def test_graphed_epoch_is_train_epoch(graphs, name):
     graph = _graph(graphs, name)
     got, runner = _two_epochs(name, graph, graphed=True)
     want, _ = _two_epochs(name, graph, graphed=False)
-    assert runner.model.capturable and not runner.capture and runner.captures == []
+    assert not runner.capture and runner.captures == []
     for g, w in zip(got, want):
         _assert_same(g, w)
     if name == "esrf":

@@ -24,6 +24,7 @@ from recommendation_tpu.ops.kmeans import kmeans_minibatch as jax_kmeans_minibat
 from recommendation_tpu.ops.kmeans import ncl_cluster_cap as jax_cap
 from recommendation_tpu_torch.ops.kmeans import (
     _segment_sums,
+    cluster_counts,
     kmeans,
     kmeans_batches,
     kmeans_init,
@@ -174,3 +175,25 @@ def test_segment_sums_are_index_add_bit_for_bit(n, k, d):
     want_counts = torch.zeros(k).index_add_(0, assign, torch.ones(n))
     assert sums.dtype == torch.float32 and torch.equal(sums, want)
     assert counts.dtype == torch.float32 and torch.equal(counts, want_counts)
+
+
+@pytest.mark.parametrize("case", ["random", "empty_ends", "one_cluster", "one_row"])
+def test_cluster_counts_are_bincount(case):
+    """The counts read off the sorted assignments (``cluster_counts``, what
+    a CUDA graph can capture) equal ``torch.bincount``'s integers and the
+    JAX package's ``segment_sum`` of ones, empty clusters at either end and
+    in the middle included."""
+    rng = np.random.default_rng(7)
+    n, k = {"random": (5000, 100), "empty_ends": (400, 12), "one_cluster": (50, 6),
+            "one_row": (1, 3)}[case]
+    if case == "empty_ends":
+        assign = rng.choice(np.array([2, 3, 5, 8, 9]), n)
+    elif case == "one_cluster":
+        assign = np.full(n, 4)
+    else:
+        assign = rng.integers(0, k, n)
+    assign = torch.from_numpy(assign.astype(np.int64))
+    got = cluster_counts(torch.sort(assign, stable=True).values, k)
+    assert got.dtype == torch.int64 and torch.equal(got, torch.bincount(assign, minlength=k))
+    want = jax.ops.segment_sum(jnp.ones(n, jnp.int32), jnp.asarray(assign.numpy()), k)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -362,6 +362,15 @@ def _worker(out_dir):
     rec.build()
     info["odd_rows"] = {k: list(v.shape) for k, v in rec.params.items()}
     info["odd_sharded"] = sorted(rec.sharded_params)
+    info["sharded_graphed"] = rec._graphed is not None
+
+    # the one trainer that runs its epochs eagerly refuses fused epochs
+    try:
+        trainer(default_config(**{**CONF, "eval.interval": 2, "train.fuse_epochs": True}),
+                graphs["segment"], "1x2").build()
+        info["fuse_true_refused"] = None
+    except ValueError as err:
+        info["fuse_true_refused"] = str(err)
 
     # every registered model at (2, 1) against the single run: one step
     # (each rank's loss; the summed gradient), then one epoch
@@ -528,6 +537,15 @@ def test_odd_row_count_is_replicated_not_padded(world):
     _, info = world
     assert info["odd_rows"] == {"user_emb": [63, 16], "item_emb": [99, 16]}
     assert info["odd_sharded"] == []
+
+
+def test_the_sharded_trainer_is_eager_and_refuses_fused_epochs(world):
+    """The sharded trainer keeps the eager loop (its collectives are not
+    captured yet) and refuses ``train.fuse_epochs: true``, the one trainer
+    that does since every model captures on the single-device one."""
+    info = world[1]
+    assert info["sharded_graphed"] is False
+    assert info["fuse_true_refused"] is not None and "fuse_epochs" in info["fuse_true_refused"]
 
 
 def test_sharded_evaluator_equals_single_evaluator(world):
