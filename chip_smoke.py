@@ -152,8 +152,8 @@ What it does, in order (any failed phase exits non-zero):
      dense graph and held to its SOCIAL_GATES gate, ESRF through phases 0,
      1 and 2 and SEPT into its SSL phase, each phase's loss falling, the
      served answers against the port's on the CPU; DiffNet trained on the
-     bucketed graph too; PROFILE_STEPS profiled steps of each on the
-     bucketed graph, P1's and K7's launches held to ``social_launches``;
+     bucketed graph too; each model's replayed epochs on the bucketed
+     graph (item 16), P1's and K7's launches held to ``social_launches``;
      DiffNet served through ``cli.build_service`` from an ``.npz`` on the
      bucketed and the dense backend, against the plain path and each other;
  14. int8 propagation on the clustered graph (``int8_phase``): Q1
@@ -186,16 +186,16 @@ What it does, in order (any failed phase exits non-zero):
      three steps;
  15. the parallel layer on the clustered graph (``sharded_phase``, after
      the int8 phase): LightGCN (bucketed, f32, d=64, L=3, B=8192, Adam 1e-3)
-     trained by the single-rank trainer in this process (one epoch, a
-     per-epoch checkpoint), then each layout in a world of ranks started
-     as subprocesses of ``python -m recommendation_tpu_torch.parallel.
-     distributed --worker --jobs fit`` on the card under a hard timeout (a
-     failed or missing worker fails the run): two ranks over gloo train
-     (1, 2) for two epochs, and one rank over NCCL trains (1, 1) for one
-     (NCCL refuses two ranks on one device, so the two-rank layouts share
-     the card over gloo); two ranks of this script (``python3
-     chip_smoke.py --sharded-data``) train (2, 1) for one, the same
-     ``fit``. (1, 2) and (1, 1) must equal the single run bit for bit
+     trained by the single-rank trainer in this process (one epoch
+     replayed, a per-epoch checkpoint), beside each layout in a world of
+     ranks on the card under a hard timeout (a failed or missing worker
+     fails the run; the three worlds run at once): one rank of ``python -m
+     recommendation_tpu_torch.parallel.distributed --worker --jobs fit``
+     over NCCL trains (1, 1) for one epoch (NCCL refuses two ranks on one
+     device, so the two-rank layouts share the card over gloo); two ranks
+     of this script train (1, 2) for two (``--sharded-checks``) and (2, 1)
+     for one (``--sharded-data``), the same ``fit``. Every rank draws the
+     words from its device generator, seeded alike. (1, 2) and (1, 1) must equal the single run bit for bit
      (epoch 0's tables and Adam moments from the per-rank checkpoints, the
      epoch loss), (2, 1) within SHARDED_DATA_TOL of each part's largest
      magnitude. The (2, 1) world then takes the data axis for every model:
@@ -219,9 +219,8 @@ What it does, in order (any failed phase exits non-zero):
      view's) and P1 device µs a step reported; after the zoo, one step of
      each EDGE_ZOO model (those whose step reads ``norm_adj`` or a
      ``with_vals`` copy of it) on the hard set's segment graphs, held as
-     the zoo's steps are. A world of
-     this script's own ranks (``python3 chip_smoke.py --sharded-checks``)
-     restores the (1, 2) run from its per-rank checkpoints: its sharded
+     the zoo's steps are. The (1, 2) world's ranks then restore their run
+     from its per-rank checkpoints: its sharded
      ``test()`` equal to the single evaluator's metrics on its tables, its
      ``RecommenderService(..., mesh)`` over 20 waves of 16 users, with and
      without exclusions, in agreement with the single service's
@@ -239,16 +238,21 @@ What it does, in order (any failed phase exits non-zero):
      set's bucketed graph, in the hard phase; LightGCN on the clustered
      segment graph, in the neighbour phase; LightGCN at d = 256 int8, in
      the int8 phase) the trainer's ``GraphedEpoch`` warms up and captures
-     on one epoch, then GRAPHED_REPEATS times a replayed epoch and an eager
-     one (``train_epoch``) from the same parameters, Adam moments, state
-     and words must agree bit for bit, each epoch's launches
-     ``expected_launches``' (a replay adds its graph's), their host
-     seconds the medians of host µs a step, and one more pair under
-     torch.profiler gives device µs a step and the idle share
-     (``profile_steps``' method), with each capture's seconds and pool
-     bytes; on the clustered bucketed graph the epoch in chunks of
+     on one epoch, then from the same parameters, Adam moments, state and
+     generator state GRAPHED_REPEATS consecutive replayed epochs and as
+     many eager ones (``train_epoch``) must agree bit for bit epoch by
+     epoch, the generator's state too (each epoch draws its words on the
+     card, inside the graph), each epoch's launches ``expected_launches``'
+     (a replay adds its graph's), their host seconds the medians of host
+     µs a step, and one more replay under torch.profiler gives device µs a
+     step, the idle share (``profile_steps``' method) and no host-to-device
+     copy, with each capture's seconds and pool bytes; the first epoch's
+     draw (``check_epoch_draw``) is a permutation of the train edges and
+     no negative is a train positive; on the clustered bucketed graph the
+     epoch in chunks of
      GRAPHED_CHUNK steps (a full chunk's graph and the remainder's) too;
-     and a fused block of two epochs against two epochs (dense f32). Every
+     and a fused block of two epochs against two epochs, captured and
+     eager (dense f32). Every
      trainer above replays the epochs of every model, so the gate runs of the hard, neighbour and
      social phases replay theirs; and the fifteen other models
      (``graphed_zoo_check``:
@@ -260,12 +264,13 @@ What it does, in order (any failed phase exits non-zero):
      bold driver's SGD with its rate moved; the hard dense f32 graph) each
      warm up and capture, then from one start
      (parameters, moments, the param groups' tensors, state and the
-     trainer's mask generator) GRAPHED_ZOO_EPOCHS consecutive replayed
+     trainer's device generator) GRAPHED_REPEATS consecutive replayed
      epochs equal as many eager ones bit for bit, the generator's state
-     after them too (ESRF in each of its three phases' graphs), each
-     epoch's launches ``expected_launches``', and one more replayed epoch
-     under torch.profiler gives device µs a step. A ``graphed:`` line a
-     configuration prints as it ends;
+     after them too, past the words' share where the model draws masks
+     (ESRF in each of its three phases' graphs), each epoch's launches
+     ``expected_launches``', and one more replayed epoch under
+     torch.profiler gives device µs a step, with no host-to-device copy. A
+     ``graphed:`` line a configuration prints as it ends;
  17. prints the serving line, the training line, the NCL line, the large
      line, the clustered line, the hard line, the hard_zoo line, the
      bucketed_zoo line, the neighbors line, the social line, the int8 line,
@@ -285,6 +290,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import concurrent.futures
 import csv
 import hashlib
 import io
@@ -408,6 +414,7 @@ from recommendation_tpu_torch.sampling import (
     PairwiseBatch,
     epoch_batches,
     epoch_words,
+    keyed_permutation,
     popularity_baseline_topk,
 )
 from recommendation_tpu_torch.serve.http import serve_http
@@ -2026,21 +2033,24 @@ def large_train_phase(data, graph):
         "score_tol": tol,
         "wall_s": wall_s,
         "sampler_s_per_epoch": sampler_seconds(graph),
+        "sampler_s_per_epoch_device_generator": sampler_seconds(graph, device=True),
         "profile": profile_steps(rec, LARGE_BATCH),
         "ops_by_shape": profile_ops(rec, LARGE_BATCH),
     }
     return launches, stats
 
 
-def sampler_seconds(graph, reps=3):
+def sampler_seconds(graph, reps=3, device=False):
     """Host-clock seconds of one epoch's draw and batches
-    (``epoch_words`` + ``epoch_batches``), ending in a synchronize."""
+    (``epoch_words`` + ``epoch_batches``), ending in a synchronize: the
+    words drawn on the host and copied in, or with ``device`` drawn on the
+    card from a generator there, as the trainer draws them."""
     times = []
     for seed in range(reps):
+        gen = torch.Generator(device="cuda" if device else "cpu").manual_seed(seed)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        epoch_batches(epoch_words(torch.Generator().manual_seed(seed), graph, LARGE_BATCH),
-                      graph, LARGE_BATCH)
+        epoch_batches(epoch_words(gen, graph, LARGE_BATCH), graph, LARGE_BATCH)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return times
@@ -2521,7 +2531,9 @@ def hard_phase():
         params, _ = build("directau", default_config(**{"embedding.size": EMB})).init(
             torch.Generator().manual_seed(0), graph)
         out["one_step"][dtype] = directau_one_step_check(graph, params, BATCH, ref)
-        stats = gate_phase("directau", data, graph, HARD_EPOCHS, BATCH, pop, "dense")
+        # f32's epoch is profiled replayed and eager by graphed_zoo_check below
+        stats = gate_phase("directau", data, graph, HARD_EPOCHS, BATCH, pop, "dense",
+                           profile=dtype == "bfloat16")
         check_gate(stats)
         out["train"].append(stats)
     # NCL's bucketed epoch at the hard set's (ML-100K-shaped) size: at the
@@ -2632,9 +2644,9 @@ def hard_zoo_phase(data, graphs, bucketed):
     out["gcl_bucketed_profile"] = zoo_profile("gcl", data, bucketed, BATCH)
     pop = {"masked": popularity_recall(data, f32, 20),
            "plain": popularity_recall(data, f32, 20, masked=False)}
-    for name in ZOO_MODELS:
+    for name in ZOO_MODELS:  # each epoch profiled by graphed_zoo_check below
         stats = gate_phase(name, data, f32, ZOO_EPOCHS[name], BATCH, pop, ZOO_GATES[name],
-                           plain=zoo_plain(name, config, cpu))
+                           plain=zoo_plain(name, config, cpu), profile=False)
         check_gate(stats)
         if name in ("selfcf", "buir") and stats["served_width"] != 2 * EMB:
             raise RuntimeError(f"{name} served tables of width {stats['served_width']}")
@@ -3213,7 +3225,8 @@ def hard_neighbor_phase(data, f32, bucketed):
         stats = gate_phase(name, data, f32, NEIGHBOR_EPOCHS[name], BATCH, pop,
                            NEIGHBOR_GATES[name],
                            plain=lambda rec, m=plain: m.eval_embeddings(rec.params, rec.state,
-                                                                       rec.graph))
+                                                                       rec.graph),
+                           profile=False)  # its epoch profiled by graphed_zoo_check below
         check_gate(stats)
         out["train"].append(stats)
         graphed_zoo_check(f"{name} hard dense float32", name, data, f32, BATCH)
@@ -3497,7 +3510,7 @@ def social_train(name, data, graph, pop, plain):
     SSL phase, each phase's loss falling."""
     seen = []
     with record_phases(seen):
-        # the steps are profiled on the bucketed graph (social_profile)
+        # the epochs are profiled replayed on the bucketed graph (graphed_zoo_check)
         stats = gate_phase(name, data, graph, SOCIAL_EPOCHS[name], BATCH, pop, SOCIAL_GATES[name],
                            plain=plain, profile=False)
     if name in ("esrf", "sept"):
@@ -3507,28 +3520,6 @@ def social_train(name, data, graph, pop, plain):
             raise RuntimeError(f"{name} saw phases {seen}, not each of {sorted(want)}")
     check_gate(stats)
     return stats
-
-
-def social_profile(name, data, graph):
-    """``profile_steps`` of a social model's untrained recommender on the
-    bucketed graph in its late state, with P1's and K7's launches over the
-    steps held to ``social_launches``."""
-    config = default_config(**{"embedding.size": EMB, "batch.size": BATCH, "learning.rate": LR,
-                               "optimizer": "adam"})
-    rec = GraphRecommender(build(name, config), data, config, graph=graph, log=Log(echo=False),
-                           device="cuda")
-    rec.build()
-    rec.state = late_state(rec.model, rec.params, rec.state, graph)
-    reset_counts()
-    profile = profile_steps(rec, BATCH)
-    n_steps = 1 + min(PROFILE_STEPS, -(-graph.n_edges // BATCH))
-    want = {k: v * n_steps for k, v in model_launches(rec.model, graph.backend)[0].items()}
-    got = all_counts()
-    if {k: got[k] for k in want} != want or any(v for k, v in got.items() if k not in want):
-        raise RuntimeError(f"{name} profile launches {got}, expected {want}")
-    profile["kernel_launches"] = want
-    profile["examples_per_s"] = BATCH * 1e6 / profile["host_us_per_step"]
-    return profile
 
 
 def social_serve(rec, data, triples, train, test):
@@ -3580,9 +3571,10 @@ def social_phase(card):
     of each model on the bucketed and the segment graph against the plain
     path; each trained on the dense graph to its SOCIAL_GATES gate at
     SOCIAL_EPOCHS (the served answers against the port's on the CPU), and
-    DiffNet on the bucketed graph too (against the plain path); PROFILE_STEPS
-    profiled steps of each on the bucketed graph; DiffNet served from an
-    ``.npz`` through ``build_service``."""
+    DiffNet on the bucketed graph too (against the plain path); the six
+    models' replayed epochs on the bucketed graph (``graphed_zoo_check``:
+    launches, profile); DiffNet served from an ``.npz`` through
+    ``build_service``."""
     seconds, t = {}, time.perf_counter()
 
     def lap(name):
@@ -3593,8 +3585,7 @@ def social_phase(card):
     data, triples, graphs, info = social_build()
     dense, bucketed, segment = graphs["dense"], graphs["bucketed"], graphs["segment"]
     cpu = SocialDeviceGraph(data, triples, backend="dense", device="cpu")
-    out = {"build": info, "one_step": {}, "train": [], "profile": {}, "card": card,
-           "seconds": seconds}
+    out = {"build": info, "one_step": {}, "train": [], "card": card, "seconds": seconds}
     lap("build")
     batch = first_batch(dense, BATCH)
     for name in SOCIAL_TRAINED:
@@ -3611,9 +3602,6 @@ def social_phase(card):
     for run in out["train"]:
         run["card"] = card
     lap("train")
-    for name in SOCIAL_TRAINED:
-        out["profile"][name] = social_profile(name, data, bucketed)
-    lap("profile")
     for name in SOCIAL_MODELS:
         graphed_zoo_check(f"{name} hard bucketed float32", name, data, bucketed, BATCH)
     lap("graphed")
@@ -3627,11 +3615,10 @@ def social_phase(card):
 
 def add_social_launches(k7_row, p1_row, social):
     """P1's and K7's launches on the social phase's main paths into their
-    rows: each model's profiled steps on the bucketed graph, DiffNet's
-    bucketed training run and its bucketed service."""
-    runs = {f"hard_social_{name}": p["kernel_launches"] for name, p in social["profile"].items()}
+    rows: DiffNet's bucketed training run and its bucketed service (the
+    models' replayed epochs on the bucketed graph: ``add_graphed_launches``)."""
     bucketed = [r for r in social["train"] if r["backend"] == "bucketed"][0]
-    runs["hard_social_diffnet_train"] = bucketed["launches"]
+    runs = {"hard_social_diffnet_train": bucketed["launches"]}
     runs["hard_social_diffnet_serve"] = social["serve"]["bucketed"]["launches"]
     for row in (k7_row, p1_row):
         for label, launches in runs.items():
@@ -4099,10 +4086,14 @@ def int8_phase(data, graph, pop):
 # trained in a world of ranks started as subprocesses of the port's worker
 # (``parallel.distributed``'s ``fit``): (layout, backend, epochs). The
 # layouts with two ranks share the one card over gloo (NCCL refuses two
-# ranks on a device); the one-rank world runs NCCL's collectives. (1, 2)'s
-# second epoch is also resumed, in a world of this script's own ranks
-# (``sharded_checks_worker``), which evaluates and serves its tables too.
+# ranks on a device); the one-rank world runs NCCL's collectives through
+# the module's CLI (``--jobs fit``). The two-rank worlds are this script's
+# own ranks (SHARDED_SCRIPT_WORLDS), which call ``fit`` and then take their
+# checks in the same processes: (1, 2)'s evaluates and serves its tables
+# and resumes its second epoch (``sharded_checks_worker``), (2, 1)'s the
+# data axis's and the edge-parallel checks (``sharded_data_worker``).
 SHARDED_WORLDS = (("1x2", "gloo", 2), ("2x1", "gloo", 1), ("1x1", "nccl", 1))
+SHARDED_SCRIPT_WORLDS = {"1x2": "--sharded-checks", "2x1": "--sharded-data"}
 # (2, 1) against the single run after one epoch, each part's largest
 # difference over its largest magnitude (the data group's gradient sum in
 # another order, carried through Adam in f32): on an NVIDIA H100 80GB HBM3
@@ -4749,7 +4740,8 @@ def sharded_phase(data, graph, card):
     (``sharded_zoo_single``, ``sharded_epoch_single``, ``edge_runs``,
     ``edge_zoo_steps``). Each rank's
     launches are held to ``expected_launches``. Two ranks share one card
-    over gloo: the seconds are no scaling figure."""
+    over gloo, and the three worlds run at once, beside the single runs: the
+    seconds are no scaling figure."""
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="sharded_")
     try:
@@ -4759,59 +4751,66 @@ def sharded_phase(data, graph, card):
         conf = {"embedding.size": EMB, "LightGCN.n_layers": LAYERS, "batch.size": LARGE_BATCH,
                 "learning.rate": LR, "optimizer": "adam", "eval.interval": 1,
                 "item.ranking.topN": [20], "graph.backend": "bucketed", "checkpoint.keep": 3}
-        single_dir = os.path.join(tmp, "single")
-        config = default_config(**conf, **{"max.epoch": 1, "checkpoint.dir": single_dir})
-        t1 = time.perf_counter()
-        rec = GraphRecommender(build("lightgcn", config), data, config, graph=graph,
-                               log=Log(echo=False), device="cuda")
-        rec.build()
-        rec.train()
-        torch.cuda.synchronize()
-        single = merged_checkpoint(single_dir, 0)
-        n_batches = -(-graph.n_edges // LARGE_BATCH)
-        runs = {"single": {"train_s": time.perf_counter() - t1,
-                           "epoch_losses": [e["loss"] for e in rec.epoch_stats],
-                           "epoch_seconds": [e["seconds"] for e in rec.epoch_stats],
-                           "host_s_per_step": [e["seconds"] / n_batches
-                                               for e in rec.epoch_stats]}}
-        single_loss = rec.epoch_stats[0]["loss"]
-        del rec
-        torch.cuda.empty_cache()
-        t1 = time.perf_counter()
-        zoo_single = sharded_zoo_single()
-        epoch_single = sharded_epoch_single(data, graph, conf, tmp)
-        for name, single_run in epoch_single.items():
-            runs[f"single_{name}"] = {"epoch_loss": single_run[2],
-                                      "host_s_per_step": single_run[4] / n_batches,
-                                      "train_s": single_run[5]}
-        runs["single_zoo_steps_s"] = time.perf_counter() - t1
-        t1 = time.perf_counter()
-        edge_single = (edge_runs(data, conf, "cuda"), edge_zoo_steps("cuda"))
-        runs["single_edge_s"] = time.perf_counter() - t1
-        worlds = []
+        worlds, argvs = [], []
         for layout, backend, epochs in SHARDED_WORLDS:
             out = os.path.join(tmp, layout)
             n_ranks = int(layout.split("x")[0]) * int(layout.split("x")[1])
-            if layout == "2x1":  # LightGCN's fit, then the data axis's checks
-                argv = [sys.executable, os.path.abspath(__file__), "--sharded-data", out,
-                        pairs_path, json.dumps({**conf, "max.epoch": epochs})]
+            if layout in SHARDED_SCRIPT_WORLDS:  # LightGCN's fit, then the layout's checks
+                argv = [sys.executable, os.path.abspath(__file__), SHARDED_SCRIPT_WORLDS[layout],
+                        out, pairs_path, json.dumps({**conf, "max.epoch": epochs})]
             else:
                 argv = WORKER + ["--jobs", "fit", "--device", "cuda", "--backend", backend,
                                  "--data", pairs_path, "--mesh", layout, "--out", out,
                                  "--set", f"max.epoch={epochs}"]
                 for k, v in conf.items():
                     argv += ["--set", f"{k}={v}"]
-            wall = sharded_world(argv, n_ranks, out)
-            worlds.append({"job": "fit", "layout": layout, "backend": backend,
-                           "ranks": n_ranks, "wall_s": wall})
-            checks = None
-            if layout == "1x2":
-                argv = [sys.executable, os.path.abspath(__file__), "--sharded-checks", out,
-                        pairs_path, json.dumps({**conf, "max.epoch": epochs})]
-                wall = sharded_world(argv, n_ranks, out)
-                worlds.append({"job": "checks", "layout": layout, "backend": "gloo",
-                               "ranks": n_ranks, "wall_s": wall})
-                checks = rank_reports(out, n_ranks, "checks_")
+            argvs.append((argv, n_ranks, out))
+            worlds.append({"job": "fit" if layout not in SHARDED_SCRIPT_WORLDS else
+                           f"fit, then {SHARDED_SCRIPT_WORLDS[layout][2:]}", "layout": layout,
+                           "backend": backend, "ranks": n_ranks})
+        # the worlds at once, each on a thread that waits for its ranks, while
+        # this process makes the single runs they are held to: they share the
+        # card and the host's cores, so their seconds overlap
+        t_worlds = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(argvs)) as pool:
+            walls = [pool.submit(sharded_world, *a) for a in argvs]
+            single_dir = os.path.join(tmp, "single")
+            config = default_config(**conf, **{"max.epoch": 1, "checkpoint.dir": single_dir})
+            t1 = time.perf_counter()
+            rec = GraphRecommender(build("lightgcn", config), data, config, graph=graph,
+                                   log=Log(echo=False), device="cuda")
+            rec.build()
+            rec.train()
+            torch.cuda.synchronize()
+            if rec._graphed is None or not rec._graphed.captures:
+                raise RuntimeError("the single run the worlds are held to did not replay its "
+                                   "epoch")
+            single = merged_checkpoint(single_dir, 0)
+            n_batches = -(-graph.n_edges // LARGE_BATCH)
+            runs = {"single": {"train_s": time.perf_counter() - t1,
+                               "epoch_losses": [e["loss"] for e in rec.epoch_stats],
+                               "epoch_seconds": [e["seconds"] for e in rec.epoch_stats],
+                               "host_s_per_step": [e["seconds"] / n_batches
+                                                   for e in rec.epoch_stats]}}
+            single_loss = rec.epoch_stats[0]["loss"]
+            del rec
+            torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            zoo_single = sharded_zoo_single()
+            epoch_single = sharded_epoch_single(data, graph, conf, tmp)
+            for name, single_run in epoch_single.items():
+                runs[f"single_{name}"] = {"epoch_loss": single_run[2],
+                                          "host_s_per_step": single_run[4] / n_batches,
+                                          "train_s": single_run[5]}
+            runs["single_zoo_steps_s"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            edge_single = (edge_runs(data, conf, "cuda"), edge_zoo_steps("cuda"))
+            runs["single_edge_s"] = time.perf_counter() - t1
+            for world, wall in zip(worlds, walls):
+                world["wall_s"] = wall.result()
+        runs["worlds_wall_s"] = time.perf_counter() - t_worlds
+        for (layout, backend, epochs), (_, n_ranks, out) in zip(SHARDED_WORLDS, argvs):
+            checks = rank_reports(out, n_ranks, "checks_") if layout == "1x2" else None
             runs[layout] = sharded_checks(layout, backend, epochs, rank_reports(out, n_ranks),
                                           out, graph, n_batches, single, single_loss, checks)
             if layout == "2x1":
@@ -4825,15 +4824,17 @@ def sharded_phase(data, graph, card):
         shutil.rmtree(tmp, ignore_errors=True)
     return {"card": card, "set": "clustered, bucketed, f32, d=64, L=3, B=8192",
             "note": "two ranks share one card over gloo (NCCL refuses two ranks on a "
-                    "device): the seconds are no scaling figure",
+                    "device), and the three worlds run at once, beside the single runs: the "
+                    "seconds are no scaling figure",
             "data_tol": SHARDED_DATA_TOL, "worlds": worlds, "runs": runs,
             "seconds": time.perf_counter() - t0}
 
 
 def sharded_checks_worker(run_dir, pairs_path, conf_json):
-    """One rank of a (1, 2) world over gloo on the card, on the (1, 2)
-    ``fit`` run in ``run_dir`` (``conf_json``: its configuration): a
-    trainer restored from the run's last per-rank checkpoints gives the
+    """One rank of the (1, 2) world over gloo on the card: LightGCN's
+    ``fit`` in ``run_dir`` at ``conf_json``'s configuration (the run the
+    layout's checks read), then on that run a trainer restored from its
+    last per-rank checkpoints gives the
     sharded ``test()`` beside the single evaluator on the same tables and
     serves SHARDED_SERVE_WAVES waves of 16 test users with the mesh and
     without it, with and without exclusions (rank 0 writes
@@ -4842,7 +4843,7 @@ def sharded_checks_worker(run_dir, pairs_path, conf_json):
     epoch count. Each rank writes ``checks_rank<r>.json``."""
     import torch.distributed as dist
 
-    from recommendation_tpu_torch.parallel.distributed import initialize, pairs_data
+    from recommendation_tpu_torch.parallel.distributed import fit, initialize
     from recommendation_tpu_torch.parallel.mesh import MeshSpec, make_mesh
     from recommendation_tpu_torch.parallel.trainer import ShardedGraphRecommender
     from recommendation_tpu_torch.train.checkpoint import CheckpointManager
@@ -4851,9 +4852,11 @@ def sharded_checks_worker(run_dir, pairs_path, conf_json):
     device = initialize("gloo", "cuda")
     rank = dist.get_rank()
     conf = json.loads(conf_json)
-    data = pairs_data(pairs_path)
-    graph = DeviceGraph(data, backend=conf["graph.backend"], device=device)
     mesh = make_mesh(MeshSpec(1, 2), "cuda")
+    fitted = fit(pairs_path, mesh, default_config(**conf), run_dir, device)
+    data, graph = fitted.data, fitted.graph
+    del fitted
+    torch.cuda.empty_cache()
 
     def trainer(ckpt_dir):
         cfg = default_config(**conf, **{"checkpoint.dir": ckpt_dir})
@@ -5033,17 +5036,15 @@ LIBRARY_NOTES = {
 
 # -- the epoch as CUDA graphs (train/graphed.py) ------------------------------
 
-# repeats of each timed epoch, eager and captured: host and device µs a
-# step and the idle share are the medians
-GRAPHED_REPEATS = 3
+# consecutive timed epochs each way, eager and captured: each replay held to
+# its eager epoch; host µs a step and the idle share are the medians
+GRAPHED_REPEATS = 2
 # the chunked epoch's steps_per_call on the clustered bucketed set: 110
 # batches = 3 x 32 + 14, a full chunk's graph and a remainder's
 GRAPHED_CHUNK = 32
 GRAPHED = []  # one entry a configuration: the graphed line
-# consecutive epochs each way in graphed_zoo_check (its timed repeats)
-GRAPHED_ZOO_EPOCHS = 2
-# the models whose step draws nothing (ESRF neither in phase 0): their mask
-# generator stays put
+# the models whose step draws nothing (ESRF neither in phase 0): their
+# generator moves by the epoch's words alone
 GRAPHED_ZOO_DRAWLESS = ("directau", "selfcf", "diffnet", "sept", "sept_social", "sept_basic")
 # the configurations that trained eagerly until they were captured (their
 # steps draw words or produce the state; the bold driver's rate moves),
@@ -5117,8 +5118,9 @@ def device_profile(fn, n_steps):
     """``profile_steps``' device reading over one epoch of ``fn`` (returning
     its loss, read on the host at the end) under torch.profiler, device
     events only: the kernels' and copies' µs a step (their sum, as
-    ``profile_steps``; and the union of their intervals, ``busy_us``) and
-    the five with the most time."""
+    ``profile_steps``; and the union of their intervals, ``busy_us``), the
+    five with the most time, and the host-to-device copies (``htod_copies``:
+    a replayed epoch, which draws its words on the card, makes none)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -5128,28 +5130,63 @@ def device_profile(fn, n_steps):
               and not getattr(e, "is_user_annotation", False)]
     device_us = sum(e.self_device_time_total for e in events)
     if device_us <= 0:
-        return {"device_us_per_step": "not measured"}
+        return {"device_us_per_step": "not measured", "htod_copies": "not measured"}
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
     spans = [e for e in prof.events() if e.device_type.name == "CUDA"
              and not getattr(e, "is_user_annotation", False)]
     return {"device_us_per_step": device_us / n_steps,
             "device_busy_us_per_step": busy_us(spans) / n_steps,
+            "htod_copies": sum(e.count for e in events if "HtoD" in e.key),
             "top_kernels_us_per_step": {e.key[:100]: e.self_device_time_total / n_steps
                                         for e in top}}
 
 
+def check_epoch_draw(label, graph, batch, state):
+    """The words an epoch draws on the card from the trainer's generator at
+    ``state``, drawn again from a replica (a replay from that state draws
+    the same bits: the epoch comparisons hold it to the eager epoch bit for
+    bit): the permutation is one of the train edges, the epoch's rows cover
+    every train edge, and no negative is a train positive of its user."""
+    gen = torch.Generator(device=graph.device)
+    gen.set_state(state)
+    words = epoch_words(gen, graph, batch)
+    e, n_items = graph.n_edges, graph.n_items
+    perm = keyed_permutation(words.perm_ks, words.perm_salts, e).long()
+    users, items, negs, _, _ = epoch_batches(words, graph, batch)
+    live = graph.edge_valid > 0
+    train = torch.sort(graph.edge_users[live].long() * n_items
+                       + graph.edge_items[live].long()).values
+    rows = users.flatten()[:e].long() * n_items + items.flatten()[:e].long()
+    out = {"permutation": torch.equal(torch.sort(perm).values,
+                                      torch.arange(e, device=perm.device)),
+           "rows_cover_the_train_edges": torch.equal(torch.sort(rows).values, train),
+           "negatives_that_are_train_positives": int(torch.isin(
+               users.flatten().long() * n_items + negs.flatten().long(), train).sum()),
+           "negatives": int(negs.numel())}
+    if not (out["permutation"] and out["rows_cover_the_train_edges"]) or out[
+            "negatives_that_are_train_positives"]:
+        raise RuntimeError(f"{label}: the epoch's draw on the card is malformed: {out}")
+    return out
+
+
 def graphed_check(label, model_name, data, graph, batch, emb=EMB, chunk=None):
     """One configuration's captured epoch on the card. The trainer's
-    ``GraphedEpoch`` warms up and captures on its first epoch; then
-    GRAPHED_REPEATS times, from the same parameters, Adam moments, state
-    and words, a replayed epoch and an eager one (``train_epoch``) must
-    agree bit for bit, each epoch's launches must be ``expected_launches``'
-    for its steps, and each epoch's host seconds (ending in the loss's host
-    read) are taken; one more pair under torch.profiler gives the device
-    µs a step (``device_profile``). The medians give host µs a step and,
-    with the device's, the idle share (``profile_steps``' method). With
-    ``chunk``, the epoch in chunks of ``chunk`` steps (its warm-up and its
-    replay) must give the replayed epoch's bits."""
+    ``GraphedEpoch`` warms up and captures on its first epoch; then from
+    the same parameters, Adam moments, state and generator state,
+    GRAPHED_REPEATS consecutive replayed epochs and as many eager ones
+    (``train_epoch`` from the trainer's generator) must agree bit for bit
+    epoch by epoch, the generator's state after each too (the words are
+    drawn on the card inside the graph: consecutive replays draw new
+    ones), each epoch's launches must be ``expected_launches``' for its
+    steps, and each epoch's host seconds (ending in the loss's host read)
+    are taken; one more replayed epoch under torch.profiler gives the
+    device µs a step (``device_profile``: the eager epoch runs the same
+    kernels, and profiling its host calls costs seconds a configuration)
+    and the host-to-device copies, none. The medians give host µs a step
+    and, with the device's, both idle shares (``profile_steps``' method). The first
+    epoch's draw is checked (``check_epoch_draw``). With ``chunk``, the
+    epoch in chunks of ``chunk`` steps (its warm-up and its replay) must
+    give the first replayed epoch's bits."""
     t0 = time.perf_counter()
     config = default_config(**{
         "embedding.size": emb, "batch.size": batch, "learning.rate": LR, "optimizer": "adam",
@@ -5157,9 +5194,11 @@ def graphed_check(label, model_name, data, graph, batch, emb=EMB, chunk=None):
     rec = GraphRecommender(build(model_name, config), data, config, graph=graph,
                            log=Log(echo=False), device="cuda")
     rec.build()
-    runner = rec._graphed
+    runner, draws = rec._graphed, rec._draws
     if runner is None or not runner.capture or runner.chunks is not None:
         raise RuntimeError(f"{label}: the trainer does not capture its epochs in one graph")
+    if hasattr(runner, "words") or draws.device.type != "cuda":
+        raise RuntimeError(f"{label}: the epoch's words are not drawn on the card")
     model, params, opt, n = rec.model, rec.params, rec.optimizer, runner.n_batches
     state = model.epoch_begin(params, rec.state, graph, torch.Generator().manual_seed(1), 0)
     want = expected_launches(model_name, graph, model.n_layers, n, 0, emb=emb)
@@ -5177,64 +5216,82 @@ def graphed_check(label, model_name, data, graph, batch, emb=EMB, chunk=None):
             raise RuntimeError(f"{label} {name} epoch launches {launches}, expected {want}")
         return st, loss, host_us
 
-    warm = epoch("warm-up", lambda: runner.run(state, torch.Generator().manual_seed(2)))
-    start = train_snapshot(params, opt, warm[0])
+    warm = epoch("warm-up", lambda: runner.run(state, draws))
+    start, start_draws = train_snapshot(params, opt, warm[0]), draws.get_state()
+    draw = check_epoch_draw(label, graph, batch, start_draws)
 
-    def from_start(name, fn):
+    def from_start(name, fn, epochs):
+        """``epochs`` consecutive epochs of ``fn`` from the start: each
+        one's (snapshot, loss, host µs, the generator's state after it)."""
         put_back(params, opt, start)
-        st, loss, host_us = epoch(name, lambda: fn(dict(start[2])))
-        return train_snapshot(params, opt, st), loss, host_us
+        draws.set_state(start_draws)
+        st, out = dict(start[2]), []
+        for _ in range(epochs):
+            st, loss, host_us = epoch(name, lambda: fn(st))
+            out.append((train_snapshot(params, opt, st), loss.clone(), host_us,
+                        draws.get_state()))
+        return out
 
     def captured(st):
-        return runner.run(st, torch.Generator().manual_seed(3))
+        return runner.run(st, draws)
 
     def eager(st):
-        return train_epoch(model, opt, graph, params, st, torch.Generator().manual_seed(3), batch)
+        return train_epoch(model, opt, graph, params, st, draws, batch)
 
-    diff, hosts = {}, {"captured": [], "eager": []}
-    for r in range(GRAPHED_REPEATS):
-        got, loss_c, host_c = from_start("captured", captured)
-        want_snap, loss_e, host_e = from_start("eager", eager)
-        hosts["captured"].append(host_c)
-        hosts["eager"].append(host_e)
-        diff[f"captured_vs_eager_{r}"] = snapshot_diff(got, want_snap, loss_c, loss_e)
+    runs = {mode: from_start(mode, fn, GRAPHED_REPEATS)
+            for mode, fn in (("captured", captured), ("eager", eager))}
+    diff = {}
+    for r, (got, want_run) in enumerate(zip(runs["captured"], runs["eager"])):
+        diff[f"captured_vs_eager_{r}"] = snapshot_diff(got[0], want_run[0], got[1], want_run[1])
+        if not torch.equal(got[3], want_run[3]):
+            diff[f"captured_vs_eager_{r}"].append("generator_state")
+    first, loss_c = runs["captured"][0][0], runs["captured"][0][1]
     chunked = None
     if chunk is not None:
         chunked = GraphedEpoch(model, opt, graph, params, batch, steps_per_call=chunk)
         for name in ("chunked_warm_up", "chunked"):
-            snap, loss_k, _ = from_start(name, lambda st: chunked.run(
-                st, torch.Generator().manual_seed(3)))
-            diff[f"{name}_vs_captured"] = snapshot_diff(snap, got, loss_k, loss_c)
-    if any(diff.values()) or not math.isfinite(float(loss_c)):
+            (snap, loss_k, _, after), = from_start(name, lambda st: chunked.run(st, draws), 1)
+            diff[f"{name}_vs_captured"] = snapshot_diff(snap, first, loss_k, loss_c)
+            if not torch.equal(after, runs["captured"][0][3]):
+                diff[f"{name}_vs_captured"].append("generator_state")
+    states = [x[3] for x in runs["captured"]]
+    if (any(diff.values()) or not math.isfinite(float(loss_c))
+            or any(torch.equal(a, b) for a, b in zip([start_draws] + states, states))):
         raise RuntimeError(f"{label}: the epochs differ: {diff}, loss {float(loss_c)}")
-    timing = {}
-    for mode, fn in (("eager", eager), ("captured", captured)):
-        put_back(params, opt, start)
-        host = float(np.median(hosts[mode]))
-        prof = device_profile(lambda: fn(dict(start[2]))[1], n)
-        dev = prof["device_us_per_step"]
-        timing[mode] = {"host_us_per_step": host, "host_us_per_step_by_repeat": hosts[mode],
-                        **prof, "device_idle_share": (1.0 - dev / host
-                                                      if isinstance(dev, float) else dev)}
+    put_back(params, opt, start)
+    draws.set_state(start_draws)
+    prof = device_profile(lambda: captured(dict(start[2]))[1], n)
+    if prof["htod_copies"]:
+        raise RuntimeError(f"{label}: a replayed epoch copied from the host: "
+                           f"{prof['htod_copies']} copies")
+    dev, timing = prof["device_us_per_step"], {}
+    for mode in ("eager", "captured"):
+        hosts = [x[2] for x in runs[mode]]
+        host = float(np.median(hosts))
+        timing[mode] = {"host_us_per_step": host, "host_us_per_step_by_repeat": hosts,
+                        "device_idle_share": 1.0 - dev / host if isinstance(dev, float) else dev}
         if isinstance(dev, float):
             timing[mode]["device_busy_idle_share"] = 1.0 - prof["device_busy_us_per_step"] / host
     out = {"config": label, "model": model_name, "backend": graph.backend,
            "compute_dtype": graph.compute_dtype, "d": emb, "batch": batch,
            "steps_per_epoch": n, "loss": float(loss_c), "same_bits": sorted(diff),
-           "launches_per_epoch": want, "warm_up_host_us_per_step": warm[2],
+           "epoch_draw": draw, "launches_per_epoch": want, "warm_up_host_us_per_step": warm[2],
            "captures": runner.captures, "chunks": chunked and chunked.chunks,
-           "chunk_captures": chunked and chunked.captures, **timing,
+           "chunk_captures": chunked and chunked.captures, **timing, "device": prof,
            "seconds": time.perf_counter() - t0}
     GRAPHED.append(out)
     print(f"graphed: {label}: {len(diff)} comparisons bit for bit; host us/step eager "
           f"{timing['eager']['host_us_per_step']:.1f} captured "
-          f"{timing['captured']['host_us_per_step']:.1f}; device us/step "
-          f"{timing['eager']['device_us_per_step']} / "
-          f"{timing['captured']['device_us_per_step']} (busy "
-          f"{timing['eager'].get('device_busy_us_per_step')} / "
-          f"{timing['captured'].get('device_busy_us_per_step')}); capture s "
-          f"{[c['seconds'] for c in runner.captures]}, pool bytes "
-          f"{[c['pool_bytes'] for c in runner.captures]}; {out['seconds']:.1f} s")
+          f"{timing['captured']['host_us_per_step']:.1f}; device us/step {dev} (busy "
+          f"{prof.get('device_busy_us_per_step')}); idle captured "
+          f"{timing['captured']['device_idle_share']} (busy "
+          f"{timing['captured'].get('device_busy_idle_share')}); host-to-device copies in the "
+          f"replay {prof['htod_copies']}; capture s "
+          f"{[round(c['seconds'], 3) for c in runner.captures]}, pool MB "
+          f"{[round(c['pool_bytes'] / 2**20, 1) for c in runner.captures]}"
+          + (f", chunked {[round(c['seconds'], 3) for c in chunked.captures]} s, "
+             f"{[round(c['pool_bytes'] / 2**20, 1) for c in chunked.captures]} MB"
+             if chunked else "") + f"; {out['seconds']:.1f} s")
     del rec, runner, chunked
     torch.cuda.empty_cache()
     return out
@@ -5245,18 +5302,20 @@ def graphed_zoo_check(label, model_name, data, graph, batch, extra=None, draws_m
     """One of the fifteen models' captured epochs at its defaults (d=64,
     Adam at LR; GraphRecommender's ``GraphedEpoch``, warmed up and
     captured on its first epoch): from one start (parameters, Adam's
-    moments, the param groups' tensors, the state and the trainer's mask
-    generator), GRAPHED_ZOO_EPOCHS consecutive replayed epochs, with
+    moments, the param groups' tensors, the state and the trainer's device
+    generator), GRAPHED_REPEATS consecutive replayed epochs, with
     ``epoch_begin`` between them, against as many eager epochs
-    (``train_epoch`` with the trainer's generator), bit for bit epoch by
+    (``train_epoch`` from the trainer's generator), bit for bit epoch by
     epoch: the second equal only if each replay advanced the generator as
-    the eager epoch did. The generator's state after them must agree, and
-    move where the model draws. Each epoch's launches must be
-    ``expected_launches``'. At LATE_EPOCH (SEPT's SSL on); ESRF in each
-    phase's first epoch, one graph a phase. Then one more replayed epoch
-    under torch.profiler (``device_profile``: the eager epoch runs the same
-    kernels, and profiling its host calls costs seconds a model), whose
-    device µs give both idle shares. G-BT's rate is a group tensor: it
+    the eager epoch did, its words drawn on the card. The generator's state
+    after them must agree, and move past the words' share where the model
+    draws masks. Each epoch's launches must be ``expected_launches``', and
+    the phase's first draw well formed (``check_epoch_draw``). At
+    LATE_EPOCH (SEPT's SSL on); ESRF in each phase's first epoch, one graph
+    a phase. Then one more replayed epoch under torch.profiler
+    (``device_profile``: the eager epoch runs the same kernels, and
+    profiling its host calls costs seconds a model), whose device µs give
+    both idle shares, with no host-to-device copy. G-BT's rate is a group tensor: it
     must agree after every epoch, and its schedule on the card must be the
     CPU's (optax's, ``tests/test_torch_graphed_zoo.py``) bit for bit at
     every update from 0 to T + 3. ``extra``: config keys over the
@@ -5272,11 +5331,12 @@ def graphed_zoo_check(label, model_name, data, graph, batch, extra=None, draws_m
     rec = GraphRecommender(build(model_name, config), data, config, graph=graph,
                            log=Log(echo=False), device="cuda")
     rec.build()
-    runner = rec._graphed
+    runner, draws = rec._graphed, rec._draws
     if runner is None or not runner.capture or runner.chunks is not None:
         raise RuntimeError(f"{label}: the trainer does not capture its epochs in one graph")
+    if hasattr(runner, "words") or draws.device.type != "cuda":
+        raise RuntimeError(f"{label}: the epoch's words are not drawn on the card")
     model, params, opt, n = rec.model, rec.params, rec.optimizer, runner.n_batches
-    draws = rec._draws
     n_layers = getattr(model, "n_layers", None)
     if model_name == "esrf":
         third = max(1, model.max_epoch // 3)
@@ -5315,62 +5375,68 @@ def graphed_zoo_check(label, model_name, data, graph, batch, extra=None, draws_m
                 replayed.update(all_counts())
             return st, loss, host_us
 
-        warm = counted(lambda: runner.run(state, torch.Generator().manual_seed(2), draws),
-                       "warm-up")
+        warm = counted(lambda: runner.run(state, draws), "warm-up")
         rec.state = warm[0]
         start, start_draws = train_snapshot(params, opt, warm[0]), draws.get_state()
+        draw = check_epoch_draw(f"{label} phase {phase}", graph, batch, start_draws)
 
         def from_start(name, fn):
-            """GRAPHED_ZOO_EPOCHS consecutive epochs of ``fn(state, words'
-            generator)`` from the start: (snapshot, loss) and host µs a
-            step of each, the mask generator's state after them."""
+            """GRAPHED_REPEATS consecutive epochs of ``fn(state)`` from
+            the start: (snapshot, loss) and host µs a step of each, the
+            generator's state after them."""
             put_back(params, opt, start)
             draws.set_state(start_draws)
             st, snaps, hosts = dict(start[2]), [], []
-            for k in range(GRAPHED_ZOO_EPOCHS):
+            for k in range(GRAPHED_REPEATS):
                 if k:
                     st = model.epoch_begin(params, st, graph,
                                            torch.Generator().manual_seed(20 + k), epoch)
                     if rate_moves:
                         set_learning_rate(opt, float(opt.param_groups[0]["lr"]) * 1.05)
-                st, loss, host_us = counted(
-                    lambda: fn(st, torch.Generator().manual_seed(3 + k)), name)
+                st, loss, host_us = counted(lambda: fn(st), name)
                 snaps.append((train_snapshot(params, opt, st), loss.clone()))
                 hosts.append(host_us)
             return snaps, hosts, draws.get_state()
 
-        def captured(st, words):
-            return runner.run(st, words, draws)
+        def captured(st):
+            return runner.run(st, draws)
 
-        def eager(st, words):
-            return train_epoch(model, opt, graph, params, st, words, batch, draws=draws)
+        def eager(st):
+            return train_epoch(model, opt, graph, params, st, draws, batch)
 
         got, want_run = from_start("captured", captured), from_start("eager", eager)
         diff = {f"captured_vs_eager_{k}": snapshot_diff(g[0], w[0], g[1], w[1])
                 for k, (g, w) in enumerate(zip(got[0], want_run[0]))}
         if not torch.equal(got[2], want_run[2]):
-            diff["mask_generator_state"] = ["differs"]
-        advanced = not torch.equal(got[2], start_draws)
+            diff["generator_state"] = ["differs"]
+        words_only = torch.Generator(device="cuda")
+        words_only.set_state(start_draws)
+        for _ in range(GRAPHED_REPEATS):
+            epoch_words(words_only, graph, batch)
+        past_words = not torch.equal(got[2], words_only.get_state())
         masks = (draws_masks if draws_masks is not None else
                  model_name not in GRAPHED_ZOO_DRAWLESS and (model_name, phase) != ("esrf", 0))
         losses = [float(loss) for _, loss in got[0]]
         rates = [[float(g["lr"]) for g in snap[3] if "lr" in g] for snap, _ in got[0]]
         if (any(diff.values()) or not all(math.isfinite(x) for x in losses)
-                or advanced != masks or (rate_moves and rates[0] == rates[-1])):
+                or torch.equal(got[2], start_draws) or past_words != masks
+                or (rate_moves and rates[0] == rates[-1])):
             raise RuntimeError(f"{label} phase {phase}: the epochs differ: {diff}, losses "
-                               f"{losses}, mask generator advanced: {advanced}")
+                               f"{losses}, the generator moved past the words: {past_words}")
         out["phases"][phase] = {
-            "epoch": epoch, "same_bits": sorted(diff), "losses": losses,
-            "mask_generator_advanced": advanced, "launches_per_epoch": want,
+            "epoch": epoch, "same_bits": sorted(diff), "losses": losses, "epoch_draw": draw,
+            "generator_moved_past_the_words": past_words, "launches_per_epoch": want,
             "warm_up_host_us_per_step": warm[2],
             "host_us_per_step": {"eager": want_run[1], "captured": got[1]},
             "rates": rates}
     put_back(params, opt, start)
     draws.set_state(start_draws)
     reset_counts()
-    prof = device_profile(lambda: captured(dict(start[2]), torch.Generator().manual_seed(3))[1],
-                          n)
+    prof = device_profile(lambda: captured(dict(start[2]))[1], n)
     replayed.update(all_counts())
+    if prof["htod_copies"]:
+        raise RuntimeError(f"{label}: a replayed epoch copied from the host: "
+                           f"{prof['htod_copies']} copies")
     dev, timing = prof["device_us_per_step"], {}
     for mode, hosts in (("eager", want_run[1]), ("captured", got[1])):
         host = float(np.median(hosts))
@@ -5399,36 +5465,45 @@ def graphed_zoo_check(label, model_name, data, graph, batch, extra=None, draws_m
 
 def graphed_fused_check(data, graph):
     """A fused block of two epochs (``eval.interval`` 2, its losses read
-    once) against two unfused epochs, both captured: the same tables,
-    moments, losses, evaluations and launches."""
+    once) against two unfused epochs, both captured, and against the eager
+    trainer (``train_epoch`` from the same device generator): the same
+    tables, moments, losses, evaluations, launches and generator state."""
     runs = {}
-    for fuse in (False, "auto"):
+    for mode in (False, "auto", "eager"):
         config = default_config(**{
             "embedding.size": EMB, "LightGCN.n_layers": LAYERS, "batch.size": BATCH,
             "learning.rate": LR, "optimizer": "adam", "max.epoch": 2, "eval.interval": 2,
             "item.ranking.topN": [20], "graph.compute_dtype": graph.compute_dtype,
-            "train.fuse_epochs": fuse})
+            "train.fuse_epochs": "auto" if mode == "auto" else False})
         rec = GraphRecommender(build("lightgcn", config), data, config, graph=graph,
                                log=Log(echo=False), device="cuda")
         rec.build()
+        if mode == "eager":
+            rec._graphed = None  # the eager loop: the reference
         reset_counts()
         rec.train()
         torch.cuda.synchronize()
-        runs[fuse] = (rec, all_counts())
+        runs[mode] = (rec, all_counts())
     (fused, fused_launches), (unfused, unfused_launches) = runs["auto"], runs[False]
     lines = fused.log.contents()
     snap = {k: train_snapshot(r.params, r.optimizer, r.state) for k, (r, _) in runs.items()}
-    losses = [[e["loss"] for e in r.epoch_stats] for r in (fused, unfused)]
-    diff = snapshot_diff(snap["auto"], snap[False], torch.zeros(()), torch.zeros(()))
-    if (diff or losses[0] != losses[1] or fused.history != unfused.history
-            or fused_launches != unfused_launches or not fused._can_fuse_epochs()
-            or sum("fused x2" in line for line in lines) != 2):
+    losses = [[e["loss"] for e in r.epoch_stats] for r, _ in runs.values()]
+    diff = {other: snapshot_diff(snap["auto"], snap[other], torch.zeros(()), torch.zeros(()))
+            for other in (False, "eager")}
+    recs = [r for r, _ in runs.values()]
+    if (any(diff.values()) or any(x != losses[0] for x in losses)
+            or any(r.history != fused.history for r in recs)
+            or any(not torch.equal(r._draws.get_state(), fused._draws.get_state()) for r in recs)
+            or any(launches != fused_launches for _, launches in runs.values())
+            or not fused._can_fuse_epochs() or sum("fused x2" in line for line in lines) != 2):
         raise RuntimeError(f"the fused block differs from two epochs: {diff}, losses {losses}, "
-                           f"launches {fused_launches} / {unfused_launches}")
+                           f"launches {fused_launches} / {unfused_launches} / "
+                           f"{runs['eager'][1]}")
     out = {"config": "lightgcn dense float32, eval.interval 2", "fused_epochs": 2,
-           "same_bits": diff, "losses": losses[0], "launches": fused_launches,
-           "captures": fused._graphed.captures}
-    print(f"graphed: fused block of 2 epochs equals 2 epochs: {out['losses']}")
+           "same_bits": {str(k): v for k, v in diff.items()}, "losses": losses[0],
+           "launches": fused_launches, "captures": fused._graphed.captures}
+    print(f"graphed: fused block of 2 epochs equals 2 captured and 2 eager epochs: "
+          f"{out['losses']}")
     return out
 
 
@@ -5437,10 +5512,12 @@ PHASES = {}  # phase -> seconds since the start when it ended
 
 
 def stamp(name):
-    """Record (and print to stderr) when a phase ended: the script's time
-    budget is read from these."""
-    PHASES[name] = time.perf_counter() - T_START
-    print(f"chip_smoke: {name} done at {PHASES[name]:.1f} s", file=sys.stderr, flush=True)
+    """Record (and print to stderr) when a phase ended and its seconds: the
+    script's time budget is read from these."""
+    now = time.perf_counter() - T_START
+    took = now - max(PHASES.values(), default=0.0)
+    PHASES[name] = now
+    print(f"chip_smoke: {name} done at {now:.1f} s ({took:.1f} s)", file=sys.stderr, flush=True)
 
 
 def main() -> int:
@@ -5608,7 +5685,8 @@ def main() -> int:
         "card": card, "repeats": GRAPHED_REPEATS, "configs": GRAPHED, "fused": fused,
         "seconds": graphed_dense_s + sum(c["seconds"] for c in GRAPHED[3:]),
         "zoo_seconds": sum(c["seconds"] for c in GRAPHED if "phases" in c),
-        "script_seconds": time.perf_counter() - T_START, "phases_at_s": PHASES}}))
+        "script_seconds": time.perf_counter() - T_START, "phases_at_s": PHASES,
+        "phase_seconds": dict(zip(PHASES, np.diff([0.0] + list(PHASES.values())).tolist()))}}))
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 ``ShardedGraphRecommender`` runs ``GraphRecommender``'s lifecycle in every
 rank of a ``(data, model)`` mesh (``parallel/mesh.py``):
 
-  * **batches**: every rank draws the epoch from the same generator state,
-    so the draw is identical everywhere; each data rank takes its
+  * **batches**: every rank draws the epoch's words on its device from the
+    trainer's device generator, which every rank seeds alike, so the draw
+    is identical everywhere; each data rank takes its
     ``B / data`` rows of each batch (B must divide by ``data``), and at
     data > 1 the batch also carries the data group and the global batch
     (``PairwiseBatch.group``, ``.whole``);
@@ -48,11 +49,11 @@ rank of a ``(data, model)`` mesh (``parallel/mesh.py``):
     uniformity, SSL4Rec's in-batch softmax and InfoNCE, NCL's ProtoNCE,
     SEPT's pseudo-labels) takes the rank's rows as queries against the
     global batch's rows, which the rank reads from its own whole tables by
-    the global batch's ids. Every rank seeds the losses' mask generator
-    alike (the trainer's generator on the graph's device, made once from
-    its host generator), so its masks are replicated; draws shaped by the
-    batch are made at the global shape and sliced; state written at the batch's ids (SelfCF's
-    histories, BUIR's EMA targets) is written at the global batch's;
+    the global batch's ids. The losses' masks come from the same device
+    generator after the epoch's words, so they are replicated too; draws
+    shaped by the batch are made at the global shape and sliced; state
+    written at the batch's ids (SelfCF's histories, BUIR's EMA targets) is
+    written at the global batch's;
   * **gradients**: each data rank's shares are summed over the data group
     (one all-reduce a step), replicated parameters' too.
 

@@ -14,8 +14,13 @@ int64 tensor with values in [0, 2^32), the bits ``jax.random.bits`` would
 give. The functions that draw those words from a ``torch.Generator``
 (``draw_words``, ``uniform_ints``, ``permutation_words``, ``epoch_words``)
 are separate, so a test can hand the port and the JAX package the same
-bits and compare their outputs bit for bit. The generator lives on the
-CPU, so a seed gives the same words on every device.
+bits and compare their outputs bit for bit. They draw on the generator's
+own device: the trainer's generator lies on the graph's device, so an
+epoch's words are drawn there, inside a captured epoch's graph on the card
+(``train/graphed.py``), as the JAX epoch draws them inside its jitted
+program. A seed therefore gives other words on the card (Philox) than on
+the CPU (mt19937); a test that hands both packages the same words draws
+them from a host generator.
 
 The 32-bit arithmetic of the JAX sampler (``uint32`` multiplies and
 shifts) is done in int64 and masked to 32 bits, and ``bits_to_ints`` keeps
@@ -72,8 +77,9 @@ class EpochWords(NamedTuple):
 
 
 def draw_words(generator: torch.Generator, shape, device) -> torch.Tensor:
-    """int64 words uniform in [0, 2^32), drawn on ``generator``'s device (the
-    trainer's host generator for an epoch's words) and moved."""
+    """int64 words uniform in [0, 2^32), drawn on ``generator``'s device and
+    moved to ``device`` (no move for the trainer's generator, which lies on
+    the graph's device)."""
     return torch.randint(0, WORD, tuple(shape), generator=generator, device=generator.device,
                          dtype=torch.int64).to(device)
 

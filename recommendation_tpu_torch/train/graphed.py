@@ -5,7 +5,8 @@ its ``steps_per_call`` chunks, in ``recommendation_tpu/train/loop.py``).
 ``GraphedEpoch.run`` trains one epoch with the step of the eager loop
 (``train.loop.train_step``), in the same order and with the same draws,
 so it gives ``train.loop.train_epoch``'s bits. On the card it captures
-the epoch once with ``torch.cuda.graph`` and replays it; on the CPU the
+the epoch once (``CUDAGraph.capture_begin`` on the runner's own stream)
+and replays it; on the CPU the
 same bodies run eagerly (``capture`` off), so the CPU tests cover the
 bookkeeping. The trainer (``train/recommender.py``) runs its epochs so,
 and fuses ``eval.interval`` epochs into a block that reads its losses
@@ -14,22 +15,24 @@ per-batch E-step, whose state every step produces, carried as any state
 is); the sharded trainer keeps the eager loop.
 
 What a graph holds, as the JAX scan's carry and inputs:
-  * **inputs**: the epoch's words (``sampling.EpochWords``) in buffers on
-    the card, filled with ``copy_`` before each replay. They are drawn on
-    the host from the trainer's generator: a copy from pageable host
-    memory cannot be captured, so it stays outside the graph;
-  * **masks**: the losses draw from the trainer's generator on the card
-    (``draws``; ``graph/augment.py``), which every capture registers
-    (``CUDAGraph.register_generator_state``): each replay reads the
-    generator's Philox offset when it starts and advances it by what the
-    captured draws take, as the eager steps do, so consecutive replays
-    draw new masks and an epoch replayed from a generator state equals the
-    eager epoch from that state;
-  * **sampling**: ``sampling.epoch_batches`` reads nothing on the host, so
-    it runs inside the graph: before the steps in an unchunked epoch's one
-    graph; in a chunked epoch in a graph of its own that writes the
-    epoch's batches into buffers, whose slices each chunk's replay takes
-    as its inputs (copied outside the graphs);
+  * **draws**: the epoch draws on the card from the trainer's generator
+    there (``draws``), as the JAX epoch draws inside its jitted program:
+    first its words (``sampling.epoch_words``: the permutation's round
+    keys and salts, the negatives' words), then the losses' masks
+    (``graph/augment.py``). Every capture registers that generator
+    (``CUDAGraph.register_generator_state``): each replay reads its Philox
+    offset when it starts and advances it by what the captured draws
+    take, as the eager epoch does, so consecutive replays draw new words
+    and masks and an epoch replayed from a generator state equals the
+    eager epoch from that state. No word crosses from the host: a
+    generator that is not on the card cannot be captured, and ``run``
+    refuses it;
+  * **sampling**: ``epoch_words`` and ``sampling.epoch_batches`` read
+    nothing on the host, so they run inside the graph: before the steps
+    in an unchunked epoch's one graph; in a chunked epoch in a graph of
+    its own that writes the epoch's batches into buffers, whose slices
+    each chunk's replay takes as its inputs (copied on the card, outside
+    the graphs);
   * **carry**: the parameters and the optimizer's state are updated in
     place and keep their addresses; the model's state is functional, so
     the graph copies the last step's state into static tensors at its end.
@@ -85,12 +88,7 @@ from recommendation_tpu_torch.ops.counts import (
     launch_counts,
     set_counts,
 )
-from recommendation_tpu_torch.sampling import (
-    EpochWords,
-    PairwiseBatch,
-    epoch_batches,
-    epoch_words,
-)
+from recommendation_tpu_torch.sampling import PairwiseBatch, epoch_batches, epoch_words
 from recommendation_tpu_torch.train.loop import finite_mean, train_step
 
 
@@ -169,14 +167,13 @@ class GraphedEpoch:
             self.chunks = [(s, min(steps_per_call, self.n_batches - s))
                            for s in range(0, self.n_batches, steps_per_call)]
         self.stream = torch.cuda.Stream(self.device) if self.capture else None
-        self.words: Optional[EpochWords] = None  # the static words
         self.state: Any = None  # the static model state (the carry)
         self.batches: Optional[List[torch.Tensor]] = None  # a chunked epoch's batches
         self.losses: Optional[torch.Tensor] = None  # a chunked epoch's step losses
         self._inputs: Dict[int, List[torch.Tensor]] = {}  # a chunk's static batches
         self._graphs: Dict[Any, tuple] = {}  # key -> (graph, its outputs, its launches)
         self._bound = None  # the addresses and float rates the graphs read
-        self._draws: Optional[torch.Generator] = None  # the losses' generator
+        self._draws: Optional[torch.Generator] = None  # the epoch's generator
         self.captures: List[dict] = []
 
     # -- the bodies: what a graph holds -----------------------------------------
@@ -196,13 +193,17 @@ class GraphedEpoch:
                 static.copy_(new)
         return losses
 
+    def _batches(self):
+        """The epoch's words drawn from the registered generator, and its
+        [n, B] batches."""
+        words = epoch_words(self._draws, self.graph, self.batch_size, self.n_redraws)
+        return epoch_batches(words, self.graph, self.batch_size, self.n_redraws)[:4]
+
     def _epoch_body(self) -> torch.Tensor:
-        users, items, negs, weights, _ = epoch_batches(self.words, self.graph, self.batch_size,
-                                                       self.n_redraws)
-        return finite_mean(self._steps(users, items, negs, weights))
+        return finite_mean(self._steps(*self._batches()))
 
     def _sample_body(self) -> None:
-        out = epoch_batches(self.words, self.graph, self.batch_size, self.n_redraws)[:4]
+        out = self._batches()
         if self.batches is None:  # the warm-up runs first, eagerly: never under capture
             self.batches = [torch.empty_like(t) for t in out]
         for static, t in zip(self.batches, out):
@@ -225,9 +226,8 @@ class GraphedEpoch:
         return tuple(t.data_ptr() for t in tensors) + (id(self._registered()),), rates
 
     def _registered(self) -> Optional[torch.Generator]:
-        """The generator the graphs register: the losses' on the card."""
-        draws = self._draws
-        return draws if draws is not None and draws.device.type == "cuda" else None
+        """The generator the graphs register: the epoch's on the card."""
+        return self._draws if self.capture else None
 
     def reset(self) -> None:
         """Drop the graphs: the next run warms up and captures again."""
@@ -235,16 +235,21 @@ class GraphedEpoch:
         self._bound = None
 
     def _capture(self, key, body):
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
+        """``body`` captured on the runner's stream, after its warm-up there:
+        ``capture_begin``, not ``torch.cuda.graph``, so that no synchronize
+        and no ``empty_cache`` of the whole process precede it. The pool
+        bytes are the reserved memory the capture added (a private pool
+        takes new segments)."""
         reserved = torch.cuda.memory_reserved(self.device)
         before = launch_counts()
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        if self._registered() is not None:
-            graph.register_generator_state(self._registered())
-        with torch.cuda.graph(graph, stream=self.stream):
+        graph.register_generator_state(self._registered())
+        graph.capture_begin()
+        try:
             out = body()
+        finally:
+            graph.capture_end()
         seconds = time.perf_counter() - t0
         launches = count_delta(launch_counts(), before)
         set_counts(before)
@@ -267,9 +272,9 @@ class GraphedEpoch:
         current = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
-            out = body()
+            out = body()  # the warm-up
+            self._graphs[key] = self._capture(key, body)
         current.wait_stream(self.stream)
-        self._graphs[key] = self._capture(key, body)
         return out
 
     def _take_state(self, state: Any) -> None:
@@ -285,21 +290,17 @@ class GraphedEpoch:
             raise ValueError("the model state changed its structure between epochs")
         self.state = _refill(self.state, state)
 
-    def run(self, state: Any, generator: torch.Generator,
-            draws: Optional[torch.Generator] = None) -> Tuple[Any, torch.Tensor]:
-        """One epoch from ``state``, its words drawn from ``generator`` and
-        its masks from ``draws`` (the trainer's generator on the graph's
-        device; None: ``generator``), as ``train.loop.train_epoch`` draws
-        them. Returns (the static state, the mean loss as a device
-        scalar)."""
-        words = epoch_words(generator, self.graph, self.batch_size, self.n_redraws,
-                            device="cpu")
-        if self.words is None:
-            self.words = EpochWords(*(torch.empty_like(w, device=self.device) for w in words))
-        for static, w in zip(self.words, words):
-            static.copy_(w)
+    def run(self, state: Any, draws: torch.Generator) -> Tuple[Any, torch.Tensor]:
+        """One epoch from ``state``, its words and then its masks drawn from
+        ``draws`` (the trainer's generator on the graph's device) inside the
+        graphs, as ``train.loop.train_epoch`` draws them. Returns (the
+        static state, the mean loss as a device scalar)."""
+        if draws.device.type != self.device.type:
+            raise ValueError(f"the epoch draws on {self.device.type}: a generator on "
+                             f"{draws.device.type} cannot feed it (the trainer's is on the "
+                             f"graph's device)")
         self._take_state(state)
-        self._draws = generator if draws is None else draws
+        self._draws = draws
         if self._graphs:
             bound = self._addresses()
             if bound[1] != self._bound[1]:

@@ -1,8 +1,8 @@
 """The training step loop (counterpart of ``recommendation_tpu/train/loop.py``).
 
-One epoch: the epoch's words are drawn from the trainer's generator
-(``sampling.epoch_words``), ``sampling.epoch_batches`` turns them into
-[n_batches, B] arrays on the graph's device, and the steps run over them:
+One epoch: the epoch's words are drawn from the trainer's generator on the
+graph's device (``sampling.epoch_words``), ``sampling.epoch_batches`` turns
+them into [n_batches, B] arrays there, and the steps run over them:
 loss → autograd (K1 forward, K2 backward on the card) → NaN guard →
 optimizer step → ``post_step``. The mean of the finite step losses comes
 back as a device scalar; nothing is read on the host inside the loop.
@@ -27,11 +27,12 @@ moves is a device tensor: the bold driver's, Adam's or SGD's (torch's
 fused SGD; ``set_learning_rate`` fills it), ESRF's two
 (``tensor_rates``) and G-BT's cosine schedule (``CosineDecayAdam``
 computes it on the device), so a replayed graph reads
-the new rate. The trainer draws each epoch's words from its host
-generator in the same sequence whatever ``eval.interval`` is, so runs that
-evaluate at different intervals, fused or not, train on the same batches
-by construction; the losses' masks come from its second generator, on the
-graph's device (``train_epoch``'s ``draws``).
+the new rate. An epoch draws from one generator on the graph's device
+(``train_epoch``'s ``generator``, the trainer's): its words first, then
+the steps' masks, as the JAX epoch splits its key inside its jitted
+program. The trainer draws in the same sequence whatever
+``eval.interval`` is, so runs that evaluate at different intervals, fused
+or not, train on the same batches and masks by construction.
 
 A sharded trainer passes a ``placement`` (``parallel/trainer.py``): each
 global batch is cut to the rank's rows (``placement.batch``), which at
@@ -349,13 +350,12 @@ def run_steps(model, optimizer: torch.optim.Optimizer, graph, params: Dict[str, 
 
 
 def train_epoch(model, optimizer, graph, params, state, generator: torch.Generator,
-                batch_size: int, n_redraws: int = 4, placement=None,
-                draws: torch.Generator | None = None):
-    """One epoch: draw its words from ``generator``, build its arrays, run
+                batch_size: int, n_redraws: int = 4, placement=None):
+    """One epoch: draw its words from ``generator`` (the trainer's, on the
+    graph's device: no word crosses from the host), build its arrays, run
     the steps, whose losses draw their masks (and any extra negatives) from
-    ``draws`` (the trainer's generator on the graph's device; None:
-    ``generator``). Returns (state, mean loss as a device scalar)."""
+    the same generator after the words. Returns (state, mean loss as a
+    device scalar)."""
     batches = epoch_batches(epoch_words(generator, graph, batch_size, n_redraws), graph,
                             batch_size, n_redraws)
-    return run_steps(model, optimizer, graph, params, state, batches,
-                     generator if draws is None else draws, placement)
+    return run_steps(model, optimizer, graph, params, state, batches, generator, placement)

@@ -13,8 +13,8 @@ evaluate / predict / execute / fast_evaluation`` contract
     kept non-finite updates out of the tables);
   * the bold-driver learning rate (``adaptive.lr``);
   * disk checkpoints (``checkpoint.dir``, ``checkpoint.keep``,
-    ``checkpoint.resume``) that hold both generators too, so a resumed run
-    trains on the batches and masks a straight run would.
+    ``checkpoint.resume``) that hold both generators' states too, so a
+    resumed run trains on the batches and masks a straight run would.
 
 Its epochs run as the JAX package's do, each one device execution:
 ``train/graphed.py`` captures the epoch's steps as CUDA graphs on the card
@@ -30,13 +30,16 @@ and ``train.fuse_epochs``, ``train.fuse_below_steps`` and
 their losses read once, a NaN aborting at the block's end. The sharded
 trainer is the one that trains with the eager loop
 (``train.loop.train_epoch``), and it refuses ``train.fuse_epochs:
-true``. Each epoch draws a seed for ``epoch_begin`` from the trainer's
-host generator, then its words, in that order whatever ``eval.interval``
-is and whether it is fused or not, so the paths give the same bits. The
-losses draw their masks from a second generator on the graph's device,
-made once and seeded from the first (``graph.augment.device_generator``):
-the captured epochs register it, so every replay draws what the eager
-epoch would.
+true``. The trainer holds two generators. The host one (``_gen``)
+seeds the second once and gives each epoch a seed for ``epoch_begin``
+(the fused block draws it too, for the no-op). The second
+(``_draws``, on the graph's device, ``graph.augment.device_generator``)
+draws each epoch's words and then the losses' masks on the device, as
+the JAX epoch splits its key inside its jitted program: the captured
+epochs register it and draw inside their graphs, so every replay draws
+what the eager epoch would, and no word is copied in from the host. Both
+draw in the same sequence whatever ``eval.interval`` is and whether an
+epoch is fused or not, so the paths give the same bits.
 
 A sharded trainer (``parallel/trainer.py``) keeps this lifecycle and
 overrides its placement hooks: ``_place`` (the parameters this process
@@ -149,8 +152,9 @@ class GraphRecommender:
             self.optimizer = (self.model.make_optimizer(self.config, self.params)
                               or make_optimizer(self.config, self.params))
         self._gen = torch.Generator().manual_seed(seed + 1)
-        # the losses' masks: on the graph's device, seeded alike on every
-        # rank of a sharded trainer (its masks stay replicated)
+        # the epochs' words and the losses' masks: on the graph's device,
+        # seeded alike on every rank of a sharded trainer (its batches and
+        # masks stay replicated)
         self._draws = device_generator(self._gen, self.graph.device)
         self.start_epoch = 0
         self._graphed = None
@@ -247,10 +251,9 @@ class GraphRecommender:
     def _epoch(self):
         """One epoch's (state, mean loss as a device scalar)."""
         if self._graphed is not None:
-            return self._graphed.run(self.state, self._gen, self._draws)
+            return self._graphed.run(self.state, self._draws)
         return train_epoch(self.model, self.optimizer, self.graph, self.params, self.state,
-                           self._gen, self.batch_size, placement=self._placement,
-                           draws=self._draws)
+                           self._draws, self.batch_size, placement=self._placement)
 
     def _begin_seed(self) -> int:
         return int(torch.randint(0, 2**62, (1,), generator=self._gen))

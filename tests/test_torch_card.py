@@ -1782,33 +1782,39 @@ def _same_train_state(got, want):
                                               ("lightgcn", "segment", None),
                                               ("ncl", "dense", None), ("ncl", "bucketed", None)])
 def test_captured_epoch_is_the_eager_epoch(card, name, backend, spc):
-    """After its warm-up run, a replayed epoch (or chunked epoch) equals
-    ``train_epoch`` from the same parameters, moments, state and words bit
-    for bit, and a replay adds the epoch's launches to the counters."""
+    """After its warm-up run, a replayed epoch (or chunked epoch), which
+    draws its words inside its graphs, equals ``train_epoch`` from the same
+    parameters, moments, state and generator state bit for bit, leaves the
+    generator where the eager epoch does, and adds the epoch's launches to
+    the counters. A host generator cannot feed the epoch."""
     from recommendation_tpu_torch.ops.counts import count_delta, launch_counts
     from recommendation_tpu_torch.train.graphed import GraphedEpoch
     from recommendation_tpu_torch.train.loop import train_epoch
 
     graph, model, params, optimizer, state = _graphed_setup(card, name, backend)
     runner = GraphedEpoch(model, optimizer, graph, params, 256, steps_per_call=spc)
+    with pytest.raises(ValueError, match="cannot feed"):
+        runner.run(state, torch.Generator().manual_seed(2))
+    draws = torch.Generator(device=card).manual_seed(2)
     before = launch_counts()
-    state, _ = runner.run(state, torch.Generator().manual_seed(2))  # warm-up, capture
+    state, _ = runner.run(state, draws)  # warm-up, capture
     torch.cuda.synchronize()
     eager_launches = count_delta(launch_counts(), before)
-    assert runner.captures and eager_launches
-    start = _train_state(params, optimizer, state)
+    assert runner.captures and eager_launches and not hasattr(runner, "words")
+    start, start_draws = _train_state(params, optimizer, state), draws.get_state()
     before = launch_counts()
-    got_state, got_loss = runner.run(state, torch.Generator().manual_seed(3))
+    got_state, got_loss = runner.run(state, draws)
     torch.cuda.synchronize()
     assert count_delta(launch_counts(), before) == eager_launches
-    got = _train_state(params, optimizer, got_state)
+    got, got_draws = _train_state(params, optimizer, got_state), draws.get_state()
     _put_back(params, optimizer, start)
+    draws.set_state(start_draws)
     want_state, want_loss = train_epoch(model, optimizer, graph, params,
-                                        {k: v.clone() for k, v in start[2].items()},
-                                        torch.Generator().manual_seed(3), 256)
+                                        {k: v.clone() for k, v in start[2].items()}, draws, 256)
     torch.cuda.synchronize()
     _same_train_state(got, _train_state(params, optimizer, want_state))
     assert torch.equal(got_loss, want_loss) and torch.isfinite(got_loss)
+    assert torch.equal(got_draws, draws.get_state()) and not torch.equal(got_draws, start_draws)
 
 
 def _trainer_on_card(card, data, graph, **extra):
@@ -1881,10 +1887,10 @@ def test_captured_trainer_is_the_eager_trainer(card, extra):
 
 def test_replays_draw_new_masks_and_each_is_the_eager_epoch(card):
     """GRACE (edge and feature masks in every step) on a trainer whose
-    epochs replay a graph that registers its mask generator: two
-    consecutive replays start from different generator states, so their
+    epochs replay a graph that registers its generator: two consecutive
+    replays start from different generator states, so their words and
     first masks differ, and each replayed epoch equals ``train_epoch`` from
-    the same parameters, moments, state, words and generator state."""
+    the same parameters, moments, state and generator state."""
     from recommendation_tpu_torch.graph import augment
     from recommendation_tpu_torch.train.loop import train_epoch
     from recommendation_tpu_torch.train.recommender import GraphRecommender
@@ -1900,21 +1906,21 @@ def test_replays_draw_new_masks_and_each_is_the_eager_epoch(card):
     runner, draws = rec._graphed, rec._draws
     assert runner.capture and draws.device.type == "cuda"
     params, opt, model = rec.params, rec.optimizer, rec.model
-    state, _ = runner.run(rec.state, torch.Generator().manual_seed(2), draws)  # capture
+    state, _ = runner.run(rec.state, draws)  # capture
     masks = []
     for k in range(2):
         start, start_draws = _train_state(params, opt, state), draws.get_state()
         first = torch.Generator(device=card)
         first.set_state(start_draws)
+        epoch_words(first, graph, 512)  # the words come first
         masks.append(augment.keep_draw(first, graph.norm_adj_selfloops.vals.shape, 0.7, card))
-        got_state, got_loss = runner.run(state, torch.Generator().manual_seed(3 + k), draws)
+        got_state, got_loss = runner.run(state, draws)
         torch.cuda.synchronize()
         got, got_draws = _train_state(params, opt, got_state), draws.get_state()
         _put_back(params, opt, start)
         draws.set_state(start_draws)
-        want_state, want_loss = train_epoch(model, opt, graph, params, dict(start[2]),
-                                            torch.Generator().manual_seed(3 + k), 512,
-                                            draws=draws)
+        want_state, want_loss = train_epoch(model, opt, graph, params, dict(start[2]), draws,
+                                            512)
         torch.cuda.synchronize()
         _same_train_state(got, _train_state(params, opt, want_state))
         assert torch.equal(got_loss, want_loss) and torch.isfinite(got_loss)
@@ -2055,7 +2061,8 @@ def test_captured_epoch_is_the_eager_epoch_for_the_drawing_steps(card, case):
     (LightGCN's pointwise loss and ``n_negs`` 3, NCL's per-batch E-step,
     the bold driver's SGD with its tensor rate moved): on the trainer, a
     replayed epoch equals ``train_epoch`` from the same parameters,
-    optimizer state, model state, words and mask generator state."""
+    optimizer state, model state and generator state; the steps that draw
+    move the generator past the words' share, the bold driver's does not."""
     from recommendation_tpu_torch.train.loop import set_learning_rate, train_epoch
     from recommendation_tpu_torch.train.recommender import GraphRecommender
     from recommendation_tpu_torch.utils.logging import Log
@@ -2076,22 +2083,24 @@ def test_captured_epoch_is_the_eager_epoch_for_the_drawing_steps(card, case):
     runner, draws = rec._graphed, rec._draws
     assert runner is not None and runner.capture
     params, opt, model = rec.params, rec.optimizer, rec.model
-    state, _ = runner.run(rec.state, torch.Generator().manual_seed(2), draws)  # capture
+    state, _ = runner.run(rec.state, draws)  # capture
     if case == "bold_sgd":
         set_learning_rate(opt, 0.0525)  # the bold driver's move, into the tensor rate
     start, start_draws = _train_state(params, opt, state), draws.get_state()
-    got_state, got_loss = runner.run(state, torch.Generator().manual_seed(3), draws)
+    got_state, got_loss = runner.run(state, draws)
     torch.cuda.synchronize()
     got, got_draws = _train_state(params, opt, got_state), draws.get_state()
     _put_back(params, opt, start)
     draws.set_state(start_draws)
-    want_state, want_loss = train_epoch(model, opt, graph, params, dict(start[2]),
-                                        torch.Generator().manual_seed(3), 512, draws=draws)
+    want_state, want_loss = train_epoch(model, opt, graph, params, dict(start[2]), draws, 512)
     torch.cuda.synchronize()
     _same_train_state(got, _train_state(params, opt, want_state))
     assert torch.equal(got_loss, want_loss) and torch.isfinite(got_loss)
     assert torch.equal(got_draws, draws.get_state()) and len(runner.captures) == 1
-    assert torch.equal(got_draws, start_draws) == (case == "bold_sgd")
+    words_only = torch.Generator(device=card)
+    words_only.set_state(start_draws)
+    epoch_words(words_only, graph, 512)
+    assert torch.equal(got_draws, words_only.get_state()) == (case == "bold_sgd")
 
 
 def test_tensor_rate_sgd_is_torch_sgd(card):

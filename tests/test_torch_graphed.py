@@ -1,8 +1,10 @@
 """The epoch as one device execution (``train/graphed.py``) on the CPU,
 where ``GraphedEpoch`` runs its bodies eagerly (capture off): its
-bookkeeping (static words and state, chunks, the carry, the losses) gives
-the eager loop's bits, and the trainer's chunked and fused paths give the
-unchunked and unfused ones. The gates against the JAX package's: the
+bookkeeping (the words and masks drawn inside its bodies from one
+generator, the static state, chunks, the carry, the losses) gives the
+eager loop's bits, and the trainer's chunked and fused paths give the
+unchunked and unfused ones, and ``train_epoch``'s from the trainer's
+generator. The gates against the JAX package's: the
 fuse gate (``GraphRecommender._can_fuse_epochs``) on the JAX tests'
 configurations and on every other model at its defaults, and the chunk
 rule on a grid. The fifteen other models' epochs are in
@@ -17,6 +19,7 @@ same operations in the same order on the same draws. Adam's arithmetic
 """
 
 import copy
+import types
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +40,7 @@ from recommendation_tpu_torch.graph.social_device import SocialDeviceGraph
 from recommendation_tpu_torch.models import build
 from recommendation_tpu_torch.ops import counts
 from recommendation_tpu_torch.ops.gather import gather_rows
+from recommendation_tpu_torch.sampling import epoch_batches, epoch_words
 from recommendation_tpu_torch.train.graphed import GraphedEpoch, steps_per_call
 from recommendation_tpu_torch.train.loop import (
     adam_plain,
@@ -172,8 +176,9 @@ def _assert_same(got, want):
 
 def _two_epochs(name, graph, runner_steps=None, graphed=True):
     """Two epochs from the same start (NCL's E-step before each): through
-    ``GraphedEpoch`` (capture off) or ``train_epoch``. Returns each
-    epoch's snapshot and the runner."""
+    ``GraphedEpoch`` (capture off) or ``train_epoch``, from one generator.
+    Returns each epoch's snapshot with the generator's state after it, and
+    the runner."""
     model, params, state = _model_and_params(name, graph)
     optimizer = make_optimizer(default_config(), params)
     gen = torch.Generator().manual_seed(9)
@@ -186,7 +191,7 @@ def _two_epochs(name, graph, runner_steps=None, graphed=True):
             state, loss = runner.run(state, gen)
         else:
             state, loss = train_epoch(model, optimizer, graph, params, state, gen, B)
-        out.append(_snapshot(params, optimizer, state, loss))
+        out.append((_snapshot(params, optimizer, state, loss), gen.get_state()))
     return out, runner
 
 
@@ -202,8 +207,9 @@ def test_graphed_epoch_is_train_epoch(graphs, name, backend):
     got, runner = _two_epochs(name, graph)
     want, _ = _two_epochs(name, graph, graphed=False)
     assert not runner.capture and runner.chunks is None and runner.captures == []
-    for g, w in zip(got, want):
+    for (g, g_gen), (w, w_gen) in zip(got, want):
         _assert_same(g, w)
+        assert torch.equal(g_gen, w_gen)
 
 
 def test_chunked_epoch_is_the_single_epoch(graphs):
@@ -215,8 +221,9 @@ def test_chunked_epoch_is_the_single_epoch(graphs):
     want, single = _two_epochs("lightgcn", graph)
     assert single.chunks is None and runner.n_batches == 8
     assert runner.chunks == [(0, 3), (3, 3), (6, 2)]
-    for g, w in zip(got, want):
+    for (g, g_gen), (w, w_gen) in zip(got, want):
         _assert_same(g, w)
+        assert torch.equal(g_gen, w_gen)
 
 
 def test_the_carry_keeps_the_static_state(graphs):
@@ -236,6 +243,60 @@ def test_the_carry_keeps_the_static_state(graphs):
         assert torch.equal(second[k], fresh[k]), k
     with pytest.raises(ValueError, match="structure"):
         runner.run({k: v[:1] for k, v in fresh.items()}, gen)
+
+
+def test_each_epoch_draws_its_words_inside_the_runner(graphs):
+    """A chunked runner's sample body draws the epoch's words from the
+    generator ``run`` is handed: its batches are ``epoch_batches`` of the
+    words a replica of that generator gives (LightGCN's BPR step draws
+    nothing after them), new words each epoch. The runner holds no word
+    buffer, and refuses a generator on another device than its graph's."""
+    graph = graphs["dense"]
+    model, params, state = _model_and_params("lightgcn", graph)
+    runner = GraphedEpoch(model, make_optimizer(default_config(), params), graph, params, B,
+                          steps_per_call=3)
+    draws, replica = torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)
+    seen = []
+    for _ in range(2):
+        runner.run(state, draws)
+        want = epoch_batches(epoch_words(replica, graph, B), graph, B)[:4]
+        assert all(torch.equal(got, w) for got, w in zip(runner.batches, want))
+        seen.append([t.clone() for t in runner.batches])
+    assert torch.equal(draws.get_state(), replica.get_state())
+    assert not torch.equal(seen[0][0], seen[1][0]) and not torch.equal(seen[0][2], seen[1][2])
+    assert not hasattr(runner, "words")
+    with pytest.raises(ValueError, match="cannot feed"):
+        runner.run(state, types.SimpleNamespace(device=torch.device("cuda")))
+
+
+@pytest.mark.parametrize("mode", ["unchunked", "chunked", "fused"])
+def test_trainer_epochs_are_train_epoch_from_its_generator(data, graphs, mode):
+    """The trainer's epochs (its ``GraphedEpoch``, capture off: one piece,
+    chunks of 3 steps, or fused blocks of 2 epochs) are ``train_epoch``'s
+    from the trainer's device generator (``_draws``) bit for bit: the
+    epoch losses and the generator's state after them. The host generator
+    (``_gen``) gives each epoch its ``epoch_begin`` seed and no word."""
+    extra = {"unchunked": {"train.fuse_epochs": False},
+             "chunked": {"train.fuse_epochs": False, "train.max_steps_per_call": 2,
+                         "train.steps_per_call": 3},
+             "fused": {}}[mode]
+    graph = graphs["dense"]
+    rec = _trainer(data, graph, **{"max.epoch": 4, "eval.interval": 2, **extra})
+    assert rec._can_fuse_epochs() == (mode == "fused")
+    assert (rec._graphed.chunks is not None) == (mode == "chunked")
+    params = {k: v.detach().clone().requires_grad_() for k, v in rec.params.items()}
+    optimizer = make_optimizer(rec.config, params)
+    draws, host = torch.Generator(), torch.Generator()
+    draws.set_state(rec._draws.get_state())
+    host.set_state(rec._gen.get_state())
+    rec.train()
+    want = [float(train_epoch(rec.model, optimizer, graph, params, {}, draws, rec.batch_size)[1])
+            for _ in range(4)]
+    assert [e["loss"] for e in rec.epoch_stats] == want
+    assert torch.equal(rec._draws.get_state(), draws.get_state())
+    for _ in range(4):
+        torch.randint(0, 2**62, (1,), generator=host)
+    assert torch.equal(rec._gen.get_state(), host.get_state())
 
 
 def _trainer(data, graph, name="lightgcn", **extra):
@@ -355,8 +416,9 @@ def test_graphed_epoch_is_train_epoch_for_the_drawing_steps(graphs, case):
     tensor rate moved between the epochs). With capture off, two
     consecutive ``GraphedEpoch`` epochs equal two ``train_epoch`` epochs bit
     for bit: parameters, the optimizer's state, the model's state, the
-    losses and both generators (the words' on the host, the draws' of the
-    losses, separate as in the trainer)."""
+    losses and the generator's state (the words', then the losses' draws,
+    one generator as in the trainer). The steps that draw move it past
+    where the words alone leave it; the bold driver's BPR step does not."""
     name, extra = {"pointwise": ("lightgcn", {"loss": "pointwise"}),
                    "bce_n_negs_3": ("lightgcn", {"loss": "bce", "n_negs": 3}),
                    "ncl_batch_e_step": ("ncl", {"NCL.e_step_cadence": "batch"}),
@@ -370,24 +432,24 @@ def test_graphed_epoch_is_train_epoch_for_the_drawing_steps(graphs, case):
         params = {k: v.requires_grad_() for k, v in params.items()}
         optimizer = (_bold_sgd(params) if case == "bold_sgd"
                      else make_optimizer(default_config(), params))
-        words, draws = torch.Generator().manual_seed(9), torch.Generator().manual_seed(10)
+        draws = torch.Generator().manual_seed(10)
         runner = GraphedEpoch(model, optimizer, graph, params, B) if graphed else None
         out = []
         for epoch in range(2):
             set_learning_rate(optimizer, [0.05, 0.0525][epoch])
             if runner is not None:
-                state, loss = runner.run(state, words, draws)
+                state, loss = runner.run(state, draws)
             else:
-                state, loss = train_epoch(model, optimizer, graph, params, state, words, B,
-                                          draws=draws)
-            out.append((_snapshot(params, optimizer, state, loss), words.get_state(),
-                        draws.get_state()))
+                state, loss = train_epoch(model, optimizer, graph, params, state, draws, B)
+            out.append((_snapshot(params, optimizer, state, loss), draws.get_state()))
         runs.append(out)
-    for (got, got_words, got_draws), (want, want_words, want_draws) in zip(*runs):
+    for (got, got_draws), (want, want_draws) in zip(*runs):
         _assert_same(got, want)
-        assert torch.equal(got_words, want_words) and torch.equal(got_draws, want_draws)
-    moved = not torch.equal(runs[0][0][2], torch.Generator().manual_seed(10).get_state())
-    assert moved == (case != "bold_sgd")  # the bold driver's BPR step draws nothing
+        assert torch.equal(got_draws, want_draws)
+    words_only = torch.Generator().manual_seed(10)
+    epoch_words(words_only, graph, B)
+    past_words = not torch.equal(runs[0][0][1], words_only.get_state())
+    assert past_words == (case != "bold_sgd")
 
 
 def test_tensor_rate_sgd_is_torch_sgd_and_optax_sgd():

@@ -3,9 +3,9 @@
 eagerly (capture off): for each model at its defaults (at d = 8 on the
 tiny set, the social models on its synthesized trust graph) two epochs
 through the runner, with ``epoch_begin`` between them, equal two epochs
-of ``train.loop.train_epoch`` bit for bit, the losses' mask generator
-included; a run resumed from its checkpoint equals the straight run
-(GRACE, ESRF: the mask generator's state rides the checkpoint); G-BT's
+of ``train.loop.train_epoch`` bit for bit, the epoch's generator (its
+words, then the losses' masks) included; a run resumed from its checkpoint equals the straight run
+(GRACE, ESRF: the device generator's state rides the checkpoint); G-BT's
 schedule is optax's ``cosine_decay_schedule`` at every step; ESRF's
 segment, read at a device offset, is the JAX function's
 ``dynamic_slice_in_dim`` at the bounds of its start. The fuse gate over
@@ -80,7 +80,7 @@ def _graph(graphs, name):
 
 def _snapshot(params, optimizer, state, loss, draws):
     """Copies of the parameters, Adam's state, the param groups' tensors,
-    the model state, the loss and the mask generator's state."""
+    the model state, the loss and the generator's state."""
     moments = [{k: v.clone() for k, v in optimizer.state[p].items()}
                for p in params.values() if p.requires_grad]
     groups = [{k: v.clone() for k, v in g.items() if k != "params"
@@ -109,24 +109,24 @@ def _assert_same(got, want):
 def _two_epochs(name, graph, graphed):
     """Two epochs of ``name`` from its init, ``epoch_begin`` before each
     (EPOCHS), through ``GraphedEpoch`` (capture off) or ``train_epoch``;
-    the words from one host generator, the masks from another."""
+    the words and then the masks from one generator, as the trainer
+    draws them."""
     config = default_config(**CONFIG)
     model = build(name, config)
     params, state = model.init(torch.Generator().manual_seed(0), graph)
     params = {k: v.requires_grad_(k not in model.frozen) for k, v in params.items()}
     trained = {k: v for k, v in params.items() if v.requires_grad}
     optimizer = model.make_optimizer(config, trained) or make_optimizer(config, trained)
-    words, draws = torch.Generator().manual_seed(9), torch.Generator().manual_seed(10)
+    draws = torch.Generator().manual_seed(10)
     runner = GraphedEpoch(model, optimizer, graph, params, B) if graphed else None
     out = []
     for k, epoch in enumerate(EPOCHS):
         state = model.epoch_begin(params, state, graph, torch.Generator().manual_seed(100 + k),
                                   epoch)
         if runner is not None:
-            state, loss = runner.run(state, words, draws)
+            state, loss = runner.run(state, draws)
         else:
-            state, loss = train_epoch(model, optimizer, graph, params, state, words, B,
-                                      draws=draws)
+            state, loss = train_epoch(model, optimizer, graph, params, state, draws, B)
         out.append(_snapshot(params, optimizer, state, loss, draws))
     return out, runner
 
@@ -136,7 +136,7 @@ def test_graphed_epoch_is_train_epoch(graphs, name):
     """With capture off the runner's epochs are ``train_epoch``'s bit for
     bit over two epochs with ``epoch_begin`` between them: parameters,
     Adam's moments and step, the param groups' tensors, the model state,
-    the loss and the mask generator's state; the model captures."""
+    the loss and the generator's state; the model captures."""
     graph = _graph(graphs, name)
     got, runner = _two_epochs(name, graph, graphed=True)
     want, _ = _two_epochs(name, graph, graphed=False)

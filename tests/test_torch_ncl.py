@@ -353,18 +353,23 @@ def _recommender(data, graph, **cfg):
 def test_recommender_beats_popularity(data, graphs):
     """The LightGCN trainer's gate (tests/test_torch_train.py): on this dense
     fixture popularity is near-optimal, so NCL must come within 0.005 of the
-    masked most-popular list."""
-    from tests.test_torch_train import _popularity_recall
+    masked most-popular list, as the mean of POPULARITY_SEEDS' runs (one
+    run's Recall@20 moves with its seed by about 0.004); each run keeps its
+    own checks."""
+    from tests.test_torch_train import POPULARITY_SEEDS, _popularity_recall
 
     _, graph = graphs["float32"]
-    rec = _recommender(data, graph, **{"max.epoch": 25, "batch.size": 512,
-                                       "learning.rate": 5e-3, "embedding.size": 32,
-                                       "eval.interval": 5, "seed": 2})
-    metrics = rec.execute()
-    losses = [e["loss"] for e in rec.epoch_stats]
-    assert len(losses) == 25 and losses[-1] < losses[0]
-    assert metrics["Recall@20"] >= _popularity_recall(data, graph) - 0.005
-    assert rec.state["item_centroids"].abs().max() > 0
+    recalls = []
+    for seed in POPULARITY_SEEDS:
+        rec = _recommender(data, graph, **{"max.epoch": 25, "batch.size": 512,
+                                           "learning.rate": 5e-3, "embedding.size": 32,
+                                           "eval.interval": 5, "seed": seed})
+        metrics = rec.execute()
+        losses = [e["loss"] for e in rec.epoch_stats]
+        assert len(losses) == 25 and losses[-1] < losses[0]
+        assert rec.state["item_centroids"].abs().max() > 0
+        recalls.append(metrics["Recall@20"])
+    assert np.mean(recalls) >= _popularity_recall(data, graph) - 0.005, recalls
 
 
 def test_checkpoint_resume_equals_straight_run(data, graphs, tmp_path):

@@ -173,6 +173,17 @@ def _one_step(rec, epoch, seed):
     return loss.detach(), dict(zip(names, grads)), state, whole
 
 
+def _rank_digests(tensors):
+    """A digest of ``tensors``' bits on every rank: [rank 0's, rank 1's]."""
+    import torch.distributed as dist
+
+    digest = torch.tensor([int.from_bytes(hashlib.sha256(b"".join(
+        t.numpy().tobytes() for t in tensors)).digest()[:7], "big")])
+    seen = [torch.zeros_like(digest) for _ in range(dist.get_world_size())]
+    dist.all_gather(seen, digest)
+    return [int(x) for x in seen]
+
+
 def _payload_equal(a, b):
     """Two checkpoint payloads' shards and Adam moments bit for bit."""
     same = all(torch.equal(a["params"][k], b["params"][k]) for k in a["params"])
@@ -293,6 +304,7 @@ def _worker(out_dir):
     from recommendation_tpu_torch.parallel.distributed import initialize
     from recommendation_tpu_torch.parallel.mesh import MeshSpec, make_mesh
     from recommendation_tpu_torch.parallel.trainer import ShardedGraphRecommender
+    from recommendation_tpu_torch.sampling import epoch_words
     from recommendation_tpu_torch.serve.service import RecommenderService
     from recommendation_tpu_torch.train.checkpoint import CheckpointManager
     from recommendation_tpu_torch.train.recommender import GraphRecommender
@@ -318,7 +330,14 @@ def _worker(out_dir):
         runs.update({lay: trainer(config, graphs[backend], lay) for lay in LAYOUTS})
         for name, rec in runs.items():
             rec.build()
+            # the first epoch's words, drawn from a replica of the trainer's
+            # device generator, and the generator's state after training
+            replica = torch.Generator()
+            replica.set_state(rec._draws.get_state())
+            info[f"words/{backend}/{name}"] = _rank_digests(
+                epoch_words(replica, rec.graph, rec.batch_size))
             rec.train()
+            info[f"draws_after/{backend}/{name}"] = _rank_digests([rec._draws.get_state()])
             out.update(_state(rec, f"{backend}/{name}"))
             info[f"propagation/{backend}/{name}"] = _propagation(rec)
         if backend == "segment":
@@ -520,6 +539,20 @@ def test_data_axis_is_the_single_run_within_bound(world, backend):
     assert {"params", "exp_avg", "exp_avg_sq", "loss"} <= set(parts)
     for part, (diff, scale) in parts.items():
         assert scale > 0 and diff <= DATA_REL_TOL * scale, (backend, part, diff, scale)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_every_rank_draws_the_single_runs_words(world, backend):
+    """Every rank at (1, 2) and (2, 1) draws the epoch's words from its
+    device generator, seeded alike: the first epoch's words, and the
+    generator's state after the run, are the same on both ranks and the
+    single trainer's."""
+    info = world[1]
+    single, after = info[f"words/{backend}/single"], info[f"draws_after/{backend}/single"]
+    assert len(set(single)) == 1 and len(set(after)) == 1
+    for layout in LAYOUTS:
+        assert info[f"words/{backend}/{layout}"] == single, layout
+        assert info[f"draws_after/{backend}/{layout}"] == after, layout
 
 
 def test_tables_and_moments_are_shards(world):

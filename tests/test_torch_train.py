@@ -291,21 +291,34 @@ def _popularity_recall(data, graph, k=20):
     return ranking_metrics(np.stack(rows), data.test_items_by_user(), [k])[f"Recall@{k}"]
 
 
+# the runs whose mean Recall@20 the popularity checks (here and in
+# tests/test_torch_ncl.py) hold: one run's moves with its seed by about
+# 0.004 (the standard deviation over seeds 0-11, LightGCN and NCL alike,
+# 0.8860 to 0.8996 around the bar of 0.8867), about the checks' 0.005
+# margin; the JAX test's own comment names the same noise
+POPULARITY_SEEDS = (0, 1, 2, 3)
+
+
 def test_recommender_beats_popularity(data, graph):
     """The JAX package's own check (tests/test_lightgcn.py): on this dense
     fixture popularity is near-optimal, so learned ranking must come within
-    0.005 of it; a broken trainer misses by far more."""
-    rec = _recommender(data, graph, **{"max.epoch": 25, "batch.size": 512,
-                                       "learning.rate": 5e-3, "embedding.size": 32,
-                                       "eval.interval": 5, "seed": 2})
-    metrics = rec.execute()
-    losses = [e["loss"] for e in rec.epoch_stats]
-    assert len(losses) == 25 and losses[-1] < losses[0]
-    assert metrics["Recall@20"] >= _popularity_recall(data, graph) - 0.005
-    assert 0 < metrics["NDCG@20"] <= 1
-    assert rec.best_epoch >= 0 and len(rec.history) == 5
-    scores = rec.predict(data.id2user[0])
-    assert scores.shape == (graph.n_items,) and np.isfinite(scores).all()
+    0.005 of it; a broken trainer misses by far more. The bar holds the mean
+    of POPULARITY_SEEDS' runs (the JAX test's seed 2 among them); each run
+    keeps its own checks."""
+    recalls = []
+    for seed in POPULARITY_SEEDS:
+        rec = _recommender(data, graph, **{"max.epoch": 25, "batch.size": 512,
+                                           "learning.rate": 5e-3, "embedding.size": 32,
+                                           "eval.interval": 5, "seed": seed})
+        metrics = rec.execute()
+        losses = [e["loss"] for e in rec.epoch_stats]
+        assert len(losses) == 25 and losses[-1] < losses[0]
+        assert 0 < metrics["NDCG@20"] <= 1
+        assert rec.best_epoch >= 0 and len(rec.history) == 5
+        scores = rec.predict(data.id2user[0])
+        assert scores.shape == (graph.n_items,) and np.isfinite(scores).all()
+        recalls.append(metrics["Recall@20"])
+    assert np.mean(recalls) >= _popularity_recall(data, graph) - 0.005, recalls
 
 
 def test_checkpoint_resume_equals_straight_run(data, graph, tmp_path):
@@ -330,6 +343,7 @@ def test_checkpoint_resume_equals_straight_run(data, graph, tmp_path):
     for sa, sb in zip(pa["optimizer"]["state"].values(), pb["optimizer"]["state"].values()):
         assert all(torch.equal(sa[n], sb[n]) for n in ("step", "exp_avg", "exp_avg_sq"))
     assert torch.equal(pa["generator"], pb["generator"])
+    assert torch.equal(pa["draws"], pb["draws"])  # the words' and masks' generator
     assert ([e["loss"] for e in straight.epoch_stats[2:]]
             == [e["loss"] for e in resumed.epoch_stats])
 
