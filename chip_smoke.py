@@ -186,19 +186,30 @@ What it does, in order (any failed phase exits non-zero):
      three steps;
  15. the parallel layer on the clustered graph (``sharded_phase``, after
      the int8 phase): LightGCN (bucketed, f32, d=64, L=3, B=8192, Adam 1e-3)
-     trained by the single-rank trainer in this process (one epoch
-     replayed, a per-epoch checkpoint), beside each layout in a world of
-     ranks on the card under a hard timeout (a failed or missing worker
-     fails the run; the three worlds run at once): one rank of ``python -m
-     recommendation_tpu_torch.parallel.distributed --worker --jobs fit``
-     over NCCL trains (1, 1) for one epoch (NCCL refuses two ranks on one
-     device, so the two-rank layouts share the card over gloo); two ranks
-     of this script train (1, 2) for two (``--sharded-checks``) and (2, 1)
-     for one (``--sharded-data``), the same ``fit``. Every rank draws the
-     words from its device generator, seeded alike. (1, 2) and (1, 1) must equal the single run bit for bit
-     (epoch 0's tables and Adam moments from the per-rank checkpoints, the
-     epoch loss), (2, 1) within SHARDED_DATA_TOL of each part's largest
-     magnitude. The (2, 1) world then takes the data axis for every model:
+     trained by the single-rank trainer in this process (two epochs: the
+     graph's warm-up, then a replay; a per-epoch checkpoint), beside each
+     layout in a world of this script's ranks on the card under a hard
+     timeout (a failed or missing worker fails the run; the three worlds
+     run at once), each calling ``parallel.distributed.fit``: one rank
+     over NCCL trains (1, 1) for two epochs, captured
+     (``--sharded-nccl``; NCCL refuses two ranks on one device, so the
+     two-rank layouts share the card over gloo, eagerly); two ranks train
+     (1, 2) for two (``--sharded-checks``) and (2, 1) for one
+     (``--sharded-data``). Every rank draws the words from its device
+     generator, seeded alike. (1, 2) and (1, 1) must equal the single run
+     bit for bit (each epoch's tables, Adam moments and generator state
+     from the per-rank checkpoints, the epoch losses), (2, 1) within
+     SHARDED_DATA_TOL of each part's largest magnitude. The (1, 1) world
+     then times its build in parts, holds a second trainer's replayed
+     epochs to its eager ones and a fused block to the warm-up and a
+     replay (``graphed_check`` with its placement), profiles the eager
+     step, holds the graphed sharded evaluator to the single evaluator and
+     SHARDED_SERVE_WAVES graphed mesh waves to the same padded waves run
+     eagerly (bit for bit) and to the single service (``topk_agree``),
+     and profiles the waves both ways, and holds MHCN's replayed epochs on
+     the hard set's bucketed social graph to its eager ones with the
+     placement (``graphed_zoo_check`` on the mesh; ``sharded_nccl_worker``,
+     ``nccl_checks``). The (2, 1) world then takes the data axis for every model:
      NCL and GAT one epoch each at full width on the same graph (K5/K6,
      S1/S2, K7 and P1 in both ranks) against this process's single runs:
      the tables and Adam moments after SHARDED_SNAPSHOT_STEPS steps and
@@ -277,7 +288,7 @@ What it does, in order (any failed phase exits non-zero):
      the sharded line, the graphed line, the kernels line (every kernel
      must have launched on a main path; each f32 row carries each sharded
      run's launches by rank as ``launches_sharded_<layout>[_<model>|_steps|
-     _edge_<model>|_edge_steps]`` and the launches inside each of the
+     _edge_<model>|_edge_steps|_checks|_mhcn_replays]`` and the launches inside each of the
      fifteen models' replayed graphs as ``launches_graphed_<model>``; a row
      without a library time says why in ``library_note``) and, last, the
      device line.
@@ -307,9 +318,14 @@ import time
 import urllib.request
 
 import numpy as np
-import torch
 
-from recommendation_tpu_torch.cli import build_service
+IMPORTED_AT = [time.perf_counter()]  # this process's imports (the (1, 1) world's build split)
+import torch  # noqa: E402
+
+IMPORTED_AT.append(time.perf_counter())
+DEVICE_MESH_WITH_TORCH = "torch.distributed.device_mesh" in sys.modules
+
+from recommendation_tpu_torch.cli import build_service  # noqa: E402
 from recommendation_tpu_torch.cli import main as cli_main
 from recommendation_tpu_torch.config import default_config
 from recommendation_tpu_torch import native
@@ -431,6 +447,8 @@ from recommendation_tpu_torch.train.recommender import GraphRecommender
 from recommendation_tpu_torch.utils.logging import Log
 from recommendation_tpu_torch.utils.profiling import Throughput, profile_trace
 from recommendation_tpu_torch.weights import load_params, save_params
+
+IMPORTED_AT.append(time.perf_counter())
 
 # H100 SXM data sheet peaks (dense): the least time any kernel could take
 PEAK_BYTES_PER_S = 3.35e12
@@ -1520,10 +1538,11 @@ def popularity_recall(data, graph, n=20, masked=True):
     return ranking_metrics(ids, data.test_items_by_user(), [n])[f"Recall@{n}"]
 
 
-def profile_steps(rec, batch=BATCH):
+def profile_steps(rec, batch=BATCH, placement=None):
     """Where one training step's time goes: torch.profiler over
     PROFILE_STEPS steps of the trainer's eager loop (``train.loop.run_steps``) on the trained
-    recommender. Host wall per step, device time per step, the device's idle
+    recommender (``placement``: a sharded trainer's). Host wall per step, device time per
+    step (the kernels' sum and the union of their intervals), the device's idle
     share and the five kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1533,12 +1552,12 @@ def profile_steps(rec, batch=BATCH):
     window = (users[:n_steps], items[:n_steps], negs[:n_steps], weights[:n_steps], n_steps)
     draws = torch.Generator().manual_seed(12)  # the augmenting models' masks
     run_steps(rec.model, rec.optimizer, rec.graph, rec.params, rec.state,
-              (users[:1], items[:1], negs[:1], weights[:1], 1), draws)
+              (users[:1], items[:1], negs[:1], weights[:1], 1), draws, placement)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _, loss = run_steps(rec.model, rec.optimizer, rec.graph, rec.params, rec.state, window,
-                            draws)
+                            draws, placement)
         float(loss)
         wall_us = (time.perf_counter() - t0) * 1e6
     # device events only; the optimizer's ``Optimizer.step#...`` range is a
@@ -1552,11 +1571,15 @@ def profile_steps(rec, batch=BATCH):
     top = sorted(kernels_, key=lambda e: -e.self_device_time_total)[:5]
     host_ops = [e for e in prof.key_averages() if e.device_type.name == "CPU"]
     host = sorted(host_ops, key=lambda e: -e.self_cpu_time_total)[:8]
+    spans = [e for e in prof.events() if e.device_type.name == "CUDA"
+             and not getattr(e, "is_user_annotation", False)]
     return {
         "steps": n_steps,
         "host_us_per_step": wall_us / n_steps,
         "device_us_per_step": device_us / n_steps,
+        "device_busy_us_per_step": busy_us(spans) / n_steps,
         "device_idle_share": 1.0 - device_us / wall_us,
+        "device_busy_idle_share": 1.0 - busy_us(spans) / wall_us,
         "launches_per_step": sum(e.count for e in host_ops
                                  if e.key.startswith("cudaLaunchKernel")) / n_steps,
         "memsets_per_step": sum(e.count for e in host_ops if e.key == "cudaMemsetAsync") / n_steps,
@@ -4086,14 +4109,20 @@ def int8_phase(data, graph, pop):
 # trained in a world of ranks started as subprocesses of the port's worker
 # (``parallel.distributed``'s ``fit``): (layout, backend, epochs). The
 # layouts with two ranks share the one card over gloo (NCCL refuses two
-# ranks on a device); the one-rank world runs NCCL's collectives through
-# the module's CLI (``--jobs fit``). The two-rank worlds are this script's
-# own ranks (SHARDED_SCRIPT_WORLDS), which call ``fit`` and then take their
-# checks in the same processes: (1, 2)'s evaluates and serves its tables
-# and resumes its second epoch (``sharded_checks_worker``), (2, 1)'s the
-# data axis's and the edge-parallel checks (``sharded_data_worker``).
-SHARDED_WORLDS = (("1x2", "gloo", 2), ("2x1", "gloo", 1), ("1x1", "nccl", 1))
-SHARDED_SCRIPT_WORLDS = {"1x2": "--sharded-checks", "2x1": "--sharded-data"}
+# ranks on a device); the one-rank world runs NCCL's collectives, captured
+# in its epochs' CUDA graphs. Every world is this script's own ranks
+# (SHARDED_SCRIPT_WORLDS), which call ``fit`` and then take their checks in
+# the same processes: (1, 2)'s evaluates and serves its tables and resumes
+# its second epoch (``sharded_checks_worker``), (2, 1)'s the data axis's
+# and the edge-parallel checks (``sharded_data_worker``), (1, 1)'s the
+# captured epoch, the fused block, the graphed evaluator and mesh service
+# and the step's profiles and build seconds (``sharded_nccl_worker``).
+SHARDED_WORLDS = (("1x2", "gloo", 2), ("2x1", "gloo", 1), ("1x1", "nccl", 2))
+SHARDED_SCRIPT_WORLDS = {"1x2": "--sharded-checks", "2x1": "--sharded-data",
+                         "1x1": "--sharded-nccl"}
+# the single run the worlds are held to: its first epoch is the graph's
+# warm-up, its second a replay
+SHARDED_SINGLE_EPOCHS = 2
 # (2, 1) against the single run after one epoch, each part's largest
 # difference over its largest magnitude (the data group's gradient sum in
 # another order, carried through Adam in f32): on an NVIDIA H100 80GB HBM3
@@ -4103,6 +4132,11 @@ SHARDED_SCRIPT_WORLDS = {"1x2": "--sharded-checks", "2x1": "--sharded-data"}
 SHARDED_DATA_TOL = {"params": 1e-5, "exp_avg": 1e-5, "exp_avg_sq": 1e-5, "grad": 1e-5,
                     "loss": 1e-5}
 SHARDED_SERVE_WAVES = 20
+# the sharded runs' configuration (LightGCN at the clustered gates' width);
+# each world adds its epoch count
+SHARDED_CONF = {"embedding.size": EMB, "LightGCN.n_layers": LAYERS, "batch.size": LARGE_BATCH,
+                "learning.rate": LR, "optimizer": "adam", "eval.interval": 1,
+                "item.ranking.topN": [20], "graph.backend": "bucketed", "checkpoint.keep": 3}
 SHARDED_WORLD_TIMEOUT_S = 420
 # the data axis for every model (the (2, 1) world's own checks): one step of
 # each registered model on the hard set (bucketed; the social models on its
@@ -4748,9 +4782,7 @@ def sharded_phase(data, graph, card):
         pairs_path = os.path.join(tmp, "pairs.npz")
         np.savez(pairs_path, pairs=np.concatenate([data.test_pairs, data.training_data]),
                  n_users=graph.n_users, n_items=graph.n_items, test_fraction=0.1)
-        conf = {"embedding.size": EMB, "LightGCN.n_layers": LAYERS, "batch.size": LARGE_BATCH,
-                "learning.rate": LR, "optimizer": "adam", "eval.interval": 1,
-                "item.ranking.topN": [20], "graph.backend": "bucketed", "checkpoint.keep": 3}
+        conf = SHARDED_CONF
         worlds, argvs = [], []
         for layout, backend, epochs in SHARDED_WORLDS:
             out = os.path.join(tmp, layout)
@@ -4775,7 +4807,8 @@ def sharded_phase(data, graph, card):
         with concurrent.futures.ThreadPoolExecutor(len(argvs)) as pool:
             walls = [pool.submit(sharded_world, *a) for a in argvs]
             single_dir = os.path.join(tmp, "single")
-            config = default_config(**conf, **{"max.epoch": 1, "checkpoint.dir": single_dir})
+            config = default_config(**conf, **{"max.epoch": SHARDED_SINGLE_EPOCHS,
+                                               "checkpoint.dir": single_dir})
             t1 = time.perf_counter()
             rec = GraphRecommender(build("lightgcn", config), data, config, graph=graph,
                                    log=Log(echo=False), device="cuda")
@@ -4785,14 +4818,14 @@ def sharded_phase(data, graph, card):
             if rec._graphed is None or not rec._graphed.captures:
                 raise RuntimeError("the single run the worlds are held to did not replay its "
                                    "epoch")
-            single = merged_checkpoint(single_dir, 0)
+            single = [merged_checkpoint(single_dir, e) for e in range(SHARDED_SINGLE_EPOCHS)]
             n_batches = -(-graph.n_edges // LARGE_BATCH)
             runs = {"single": {"train_s": time.perf_counter() - t1,
                                "epoch_losses": [e["loss"] for e in rec.epoch_stats],
                                "epoch_seconds": [e["seconds"] for e in rec.epoch_stats],
                                "host_s_per_step": [e["seconds"] / n_batches
                                                    for e in rec.epoch_stats]}}
-            single_loss = rec.epoch_stats[0]["loss"]
+            single_loss = [e["loss"] for e in rec.epoch_stats]
             del rec
             torch.cuda.empty_cache()
             t1 = time.perf_counter()
@@ -4817,6 +4850,9 @@ def sharded_phase(data, graph, card):
                 runs[layout]["data_axis"] = sharded_data_checks(out, graph, n_batches,
                                                                 zoo_single, epoch_single)
                 runs[layout]["edge_parallel"] = edge_checks(out, *edge_single, card)
+            if layout == "1x1":
+                runs[layout]["captured"] = nccl_checks(out, runs[layout], runs["single"],
+                                                       graph, n_batches)
             print(f"sharded {layout} ({backend}): train {runs[layout]['train_s']:.1f} s, "
                   f"host s a step by epoch {runs[layout]['host_s_per_step']}, relative gaps "
                   f"{runs[layout]['relative_gap']}")
@@ -4825,7 +4861,8 @@ def sharded_phase(data, graph, card):
     return {"card": card, "set": "clustered, bucketed, f32, d=64, L=3, B=8192",
             "note": "two ranks share one card over gloo (NCCL refuses two ranks on a "
                     "device), and the three worlds run at once, beside the single runs: the "
-                    "seconds are no scaling figure",
+                    "seconds are no scaling figure, and the (1, 1) world's timings are taken "
+                    "beside the other worlds' work on the card",
             "data_tol": SHARDED_DATA_TOL, "worlds": worlds, "runs": runs,
             "seconds": time.perf_counter() - t0}
 
@@ -4901,27 +4938,225 @@ def sharded_checks_worker(run_dir, pairs_path, conf_json):
     dist.destroy_process_group()
 
 
+def sharded_nccl_worker(run_dir, pairs_path, conf_json):
+    """The one rank of the (1, 1) world over NCCL on the card. Its build in
+    parts (ROADMAP 13d): the default group's set-up, the mesh, each group's
+    first collective (NCCL makes a communicator there), the import of
+    ``torch._dynamo`` (a process's first ``torch.optim`` optimizer makes
+    it), and the imports of torch and of the port (this process's own,
+    ``IMPORTED_AT``); then LightGCN's ``fit`` in ``run_dir`` (its epochs
+    captured; its build now the graph and placement alone). Then a second
+    trainer of the same configuration: its epochs through ``graphed_check``
+    with its placement (the warm-up, GRAPHED_REPEATS replays against as
+    many eager epochs bit for bit, a profiled replay) and a fused block of
+    two epochs against the warm-up and the first replay; the eager step's
+    profile (``profile_steps`` with the placement, Step 0); the sharded
+    evaluator (``sharded_test``: its blocks' graphs hold NCCL's all-gathers)
+    against the single evaluator's metrics; the mesh service:
+    SHARDED_SERVE_WAVES waves of 16 test users, with and without exclusions, each replay
+    against the same padded wave run eagerly bit for bit and against the
+    single service (``topk_agree``), and its waves profiled both ways; MHCN
+    (the social example's model) on the hard set's bucketed social graph
+    through ``graphed_zoo_check`` on the same mesh (its replays against its
+    eager epochs with the placement, bit for bit). Writes
+    ``nccl_rank0.json`` and rank 0's served answers ``nccl_serve.npz``."""
+    import torch.distributed as dist
+
+    from recommendation_tpu_torch.parallel.distributed import fit, initialize
+    from recommendation_tpu_torch.parallel.mesh import (
+        DATA_AXIS,
+        MODEL_AXIS,
+        MeshSpec,
+        axis_group,
+        make_mesh,
+    )
+    from recommendation_tpu_torch.parallel.trainer import ShardedGraphRecommender
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    split = {"imports": {"torch_s": IMPORTED_AT[1] - IMPORTED_AT[0],
+                         "device_mesh_loaded_by_torch": DEVICE_MESH_WITH_TORCH,
+                         "port_s": IMPORTED_AT[2] - IMPORTED_AT[1],
+                         "dynamo_loaded": "torch._dynamo" in sys.modules}}
+    t = time.perf_counter()
+    device = initialize("nccl", "cuda")
+    split["init_process_group_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    mesh = make_mesh(MeshSpec(1, 1), "cuda")
+    split["mesh_s"] = time.perf_counter() - t
+    split["first_collective_s"] = {}
+    for name, group in (("default", None), ("data", axis_group(mesh, DATA_AXIS)),
+                        ("model", axis_group(mesh, MODEL_AXIS))):
+        t = time.perf_counter()
+        dist.all_reduce(torch.zeros(1, device=device), group=group)
+        torch.cuda.synchronize()
+        split["first_collective_s"][name] = time.perf_counter() - t
+    t = time.perf_counter()
+    from torch import _dynamo  # noqa: F401  (what the first optimizer imports)
+    split["dynamo_import_s"] = time.perf_counter() - t
+    conf = json.loads(conf_json)
+    fitted = fit(pairs_path, mesh, default_config(**conf), run_dir, device)
+    data, graph = fitted.data, fitted.graph
+    del fitted
+    torch.cuda.empty_cache()
+    config = default_config(**{**conf, "max.epoch": 2})
+
+    def trainer(cfg):
+        rec = ShardedGraphRecommender(build("lightgcn", cfg), data, cfg, graph=graph, mesh=mesh,
+                                      log=Log(echo=False), device=device)
+        rec.build()
+        return rec
+
+    t = time.perf_counter()
+    rec = trainer(config)
+    split["second_build_s"] = time.perf_counter() - t
+    if rec.epoch_report()["epochs"] != "captured":
+        raise RuntimeError(f"(1, 1) over NCCL: the epochs are not captured: "
+                           f"{rec.epoch_report()}")
+    fused_config = config.with_overrides(**{
+        "eval.interval": 2, "train.fuse_epochs": True, "train.fuse_below_steps": 128})
+
+    def fused_block():
+        block = trainer(fused_config)
+        if not block._can_fuse_epochs():
+            raise RuntimeError("(1, 1) over NCCL: the fused trainer does not fuse its block")
+        block.train()
+        return block
+
+    report = {"build_split": split, "epoch_path": rec.epoch_report(),
+              "graphed": graphed_check("lightgcn clustered bucketed, sharded (1, 1) nccl",
+                                       "lightgcn", data, graph, LARGE_BATCH, rec=rec,
+                                       fused=fused_block)}
+    report["eager_profile"] = profile_steps(rec, LARGE_BATCH, rec._placement)
+    sharded = rec.sharded_test()
+    report["sharded_test"] = {"metrics": sharded.metrics, "single_metrics": rec.test().metrics,
+                              "block": block_stats(rec._scorer)}
+    if report["sharded_test"]["metrics"] != report["sharded_test"]["single_metrics"] or (
+            not rec._scorer.stats["replays"] or rec._scorer.stats["eager"]):
+        raise RuntimeError(f"(1, 1) over NCCL: the sharded evaluator {report['sharded_test']}")
+    service = RecommenderService.from_recommender(rec, mesh=mesh)
+    single = RecommenderService.from_recommender(rec)
+    eager = service.eager_block()
+    rng = np.random.default_rng(11)
+    waves = [rng.choice(data.test_user_ids(), 16, replace=False).tolist()
+             for _ in range(SHARDED_SERVE_WAVES)]
+    answers = {"users": np.asarray(waves)}
+    for exclude, kind in ((True, "seen"), (False, "raw")):
+        for tag, svc, block in (("mesh", service, None), ("eager", service, eager),
+                                ("single", single, None)):
+            graphed = svc.block
+            svc.block = block or graphed
+            try:
+                got = [svc._recommend_ids_device(u, K, exclude) for u in waves]
+            finally:
+                svc.block = graphed
+            answers[f"{tag}_scores_{kind}"] = np.stack([a for a, _ in got])
+            answers[f"{tag}_ids_{kind}"] = np.stack([b for _, b in got])
+        if not all(np.array_equal(answers[f"mesh_{x}_{kind}"], answers[f"eager_{x}_{kind}"])
+                   for x in ("scores", "ids")):
+            raise RuntimeError(f"(1, 1) over NCCL: a replayed mesh wave ({kind}) differs from "
+                               "the same padded wave run eagerly")
+    stats = block_stats(service.block)
+    if stats["eager"] or stats["replays"] != 2 * SHARDED_SERVE_WAVES:
+        raise RuntimeError(f"(1, 1) over NCCL: the mesh waves did not all replay: {stats}")
+    report["service"] = {"waves": SHARDED_SERVE_WAVES, "block": stats,
+                         "fetch": sorted({service.sharded_fetch(u, K, True) for u in waves}),
+                         "graphed": profile_waves(service),
+                         "eager": profile_waves(service, eager=True)}
+    hard = Interaction(*make_hard_dataset())
+    social = SocialDeviceGraph(hard, synthesize_social(hard), backend="bucketed", device=device)
+    report["mhcn"] = graphed_zoo_check("mhcn hard bucketed float32, sharded (1, 1) nccl", "mhcn",
+                                       hard, social, BATCH, mesh=mesh)
+    # the launches of graphed_check's epochs (each held there to expected_launches)
+    report["launches"] = {k: v * (1 + 2 * GRAPHED_REPEATS)
+                          for k, v in report["graphed"]["launches_per_epoch"].items()}
+    np.savez(os.path.join(run_dir, "nccl_serve.npz"), **answers)
+    with open(os.path.join(run_dir, "nccl_rank0.json"), "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def nccl_checks(out, run, single_run, graph, n_batches):
+    """The (1, 1) world's own checks (``sharded_nccl_worker``'s report):
+    its served waves against the single service (``topk_agree``), its
+    launches (every captured epoch's were held to ``expected_launches`` in
+    the world), the build's split beside ``fit``'s build and the single
+    run's, and the step eager and captured."""
+    with open(os.path.join(out, "nccl_rank0.json")) as f:
+        report = json.load(f)
+    served = np.load(os.path.join(out, "nccl_serve.npz"))
+    scores = np.concatenate([served["single_scores_seen"], served["single_scores_raw"]])
+    tol = 1e-6 * float(np.abs(scores).max()) * EMB  # f32 dot products of d terms
+    for w in range(len(served["users"])):
+        for kind in ("seen", "raw"):
+            if not topk_agree(served[f"mesh_scores_{kind}"][w], served[f"mesh_ids_{kind}"][w],
+                              served[f"single_scores_{kind}"][w],
+                              served[f"single_ids_{kind}"][w], tol):
+                raise RuntimeError(f"(1, 1) mesh wave {w} ({kind}) differs from the single "
+                                   "service's")
+    graphed, eager = report["graphed"], report["eager_profile"]
+    split = report["build_split"]
+    line = {"epoch_path": report["epoch_path"], "build_split": split,
+            "fit_build_s": run["build_s"], "fit_graph_s": run["graph_s"],
+            "device_figures": "the world's device µs and idle shares are taken beside the other "
+                              "worlds' work on the card: not a measurement "
+                              "(tools/probe_nccl_step.py measures the world alone)",
+            "step": {"eager": eager, "captured": {
+                "host_us_per_step": graphed["captured"]["host_us_per_step"],
+                "eager_epoch_host_us_per_step": graphed["eager"]["host_us_per_step"],
+                "captures": graphed["captures"]},
+                     "single_captured_host_us_per_step": [
+                         s / n_batches * 1e6 for s in single_run["epoch_seconds"]]},
+            "graphed": graphed, "sharded_test": report["sharded_test"],
+            "service": report["service"], "mhcn": report["mhcn"], "served_equal_eager": True,
+            "served_agree_single": True, "serve_score_tol": tol,
+            "launches": report["launches"]}
+    print(f"sharded 1x1 (nccl) captured: host us a step eager {eager['host_us_per_step']:.1f}, "
+          f"captured {graphed['captured']['host_us_per_step']:.1f} (beside the other worlds; "
+          f"device figures: tools/probe_nccl_step.py); capture s, pool MB "
+          f"{[(round(c['seconds'], 3), round(c['pool_bytes'] / 2**20, 1)) for c in graphed['captures']]}; "
+          f"build split {split}; mesh wave host us graphed "
+          f"{report['service']['graphed'].get('host_us_per_wave_unprofiled')} eager "
+          f"{report['service']['eager'].get('host_us_per_wave_unprofiled')}; mhcn host us a "
+          f"step eager {report['mhcn']['eager']['host_us_per_step']:.1f} captured "
+          f"{report['mhcn']['captured']['host_us_per_step']:.1f}")
+    return line
+
+
 def sharded_checks(layout, backend, epochs, ranks, out, graph, n_batches, single, single_loss,
                    checks=None):
-    """One layout's ranks against the single run: launches, epoch losses,
-    epoch 0's tables and moments; with ``checks`` (the (1, 2) run's
-    ``sharded_checks_worker`` reports) its evaluator, service and resumed
-    epoch."""
+    """One layout's ranks against the single run: the epochs' path
+    (captured over NCCL, eager over gloo), launches, epoch losses, and each
+    epoch's tables, moments and device generator state that the single run
+    has (SHARDED_SINGLE_EPOCHS: its warm-up, then a replay); with
+    ``checks`` (the (1, 2) run's ``sharded_checks_worker`` reports) its
+    evaluator, service and resumed epoch."""
     exact = layout.startswith("1x")
     want = expected_launches("lightgcn", graph, LAYERS, n_batches * epochs, epochs)
+    paths = {r["epoch_path"]["epochs"] for r in ranks}
+    if paths != {"captured" if backend == "nccl" else "eager"}:
+        raise RuntimeError(f"sharded {layout} ({backend}): the epochs ran {paths}: "
+                           f"{[r['epoch_path'] for r in ranks]}")
     launches = [r["launches"] for r in ranks]
     if any(got[k] != want[k] for got in launches for k in got):
         raise RuntimeError(f"sharded {layout}: launches {launches}, expected {want}")
     losses = [[e["loss"] for e in r["epochs"]] for r in ranks]
     if any(x != losses[0] for x in losses) or len(losses[0]) != epochs:
         raise RuntimeError(f"sharded {layout}: the ranks' epoch losses {losses}")
-    same, gaps = table_gap(merged_checkpoint(os.path.join(out, "ckpt"), 0), single)
-    loss_gap = abs(losses[0][0] - single_loss)
-    if (exact and not (same and loss_gap == 0)) or any(
-            gaps[p] > SHARDED_DATA_TOL[p] for p in gaps) or loss_gap > 1e-5 * abs(single_loss):
-        raise RuntimeError(f"sharded {layout}: epoch 0 differs from the single run's: relative "
-                           f"gaps {gaps} (bounds {SHARDED_DATA_TOL}), loss {losses[0][0]} "
-                           f"against {single_loss}")
+    by_epoch = []
+    for e in range(min(epochs, len(single))):  # the single run's warm-up, then its replay
+        got = merged_checkpoint(os.path.join(out, "ckpt"), e)
+        same, gaps = table_gap(got, single[e])
+        same &= torch.equal(got["draws"], single[e]["draws"])
+        loss_gap = abs(losses[0][e] - single_loss[e])
+        if (exact and not (same and loss_gap == 0)) or any(
+                gaps[p] > SHARDED_DATA_TOL[p] for p in gaps) or (
+                loss_gap > 1e-5 * abs(single_loss[e])):
+            raise RuntimeError(f"sharded {layout}: epoch {e} differs from the single run's: "
+                               f"relative gaps {gaps} (bounds {SHARDED_DATA_TOL}), loss "
+                               f"{losses[0][e]} against {single_loss[e]}")
+        by_epoch.append((bool(same), gaps, loss_gap))
+    same, gaps, loss_gap = by_epoch[0]
     epoch_s = [max(r["epochs"][e]["seconds"] for r in ranks) for e in range(epochs)]
     run = {"backend": backend, "ranks": len(ranks), "epochs": epochs,
            "graph_s": max(r["graph_s"] for r in ranks),
@@ -4929,7 +5164,10 @@ def sharded_checks(layout, backend, epochs, ranks, out, graph, n_batches, single
            "train_s": max(r["train_s"] for r in ranks),
            "host_s_per_step": [t / n_batches for t in epoch_s], "epoch_seconds": epoch_s,
            "epoch_losses": losses[0], "bit_for_bit": bool(same), "relative_gap": gaps,
-           "loss_gap": loss_gap, "shard_rows": ranks[0]["shard_rows"],
+           "loss_gap": loss_gap, "bit_for_bit_by_epoch": [b[0] for b in by_epoch],
+           "relative_gap_by_epoch": [b[1] for b in by_epoch],
+           "epoch_path": ranks[0]["epoch_path"], "captures": ranks[0]["captures"],
+           "shard_rows": ranks[0]["shard_rows"],
            "sharded": ranks[0]["sharded"], "launches_by_rank": launches}
     if checks is None:
         return run
@@ -4969,13 +5207,17 @@ def add_sharded_launches(kernel_rows, sharded):
     into the kernel it runs in, ``launches_of``): LightGCN's K7 and P1 in
     every layout; at (2, 1) also NCL's and GAT's epochs and every model's
     step (``data_axis``), and the edge-parallel runs (``edge_parallel``:
-    LightGCN's and NCL's steps, the norm_adj readers' steps). The bf16 rows
-    take none (every sharded run is f32)."""
+    LightGCN's and NCL's steps, the norm_adj readers' steps); at (1, 1) the
+    epochs of its captured checks (``captured``) and MHCN's replays. The bf16 rows take none
+    (every sharded run is f32)."""
     rows = [r for r in kernel_rows if r.get("dtype", "float32") == "float32"]
     for layout, run in sharded["runs"].items():
         if not isinstance(run, dict) or "launches_by_rank" not in run:
             continue
         parts = {"": run["launches_by_rank"]}
+        if "captured" in run:  # the (1, 1) world's captured and eager epochs, MHCN's replays
+            parts["_checks"] = [run["captured"]["launches"]]
+            parts["_mhcn_replays"] = [run["captured"]["mhcn"]["replayed_launches"]]
         for name, sub in run.get("data_axis", {}).get("epochs", {}).items():
             parts[f"_{name}"] = sub["launches_by_rank"]
         edge = run.get("edge_parallel", {})
@@ -5169,7 +5411,8 @@ def check_epoch_draw(label, graph, batch, state):
     return out
 
 
-def graphed_check(label, model_name, data, graph, batch, emb=EMB, chunk=None):
+def graphed_check(label, model_name, data, graph, batch, emb=EMB, chunk=None, rec=None,
+                  fused=None):
     """One configuration's captured epoch on the card. The trainer's
     ``GraphedEpoch`` warms up and captures on its first epoch; then from
     the same parameters, Adam moments, state and generator state,
@@ -5186,14 +5429,21 @@ def graphed_check(label, model_name, data, graph, batch, emb=EMB, chunk=None):
     and, with the device's, both idle shares (``profile_steps``' method). The first
     epoch's draw is checked (``check_epoch_draw``). With ``chunk``, the
     epoch in chunks of ``chunk`` steps (its warm-up and its replay) must
-    give the first replayed epoch's bits."""
+    give the first replayed epoch's bits. ``rec``: a built trainer to check
+    in place of a new single one (a sharded trainer: its eager epochs take
+    its placement). ``fused``: a function that trains a trainer of the same
+    configuration from the same start through one fused block of two
+    epochs and returns it; its tables, moments, generator state and two
+    losses must be the warm-up's and the first replay's."""
     t0 = time.perf_counter()
-    config = default_config(**{
-        "embedding.size": emb, "batch.size": batch, "learning.rate": LR, "optimizer": "adam",
-        "graph.compute_dtype": graph.compute_dtype, "item.ranking.topN": [20]})
-    rec = GraphRecommender(build(model_name, config), data, config, graph=graph,
-                           log=Log(echo=False), device="cuda")
-    rec.build()
+    if rec is None:
+        config = default_config(**{
+            "embedding.size": emb, "batch.size": batch, "learning.rate": LR,
+            "optimizer": "adam", "graph.compute_dtype": graph.compute_dtype,
+            "item.ranking.topN": [20]})
+        rec = GraphRecommender(build(model_name, config), data, config, graph=graph,
+                               log=Log(echo=False), device="cuda")
+        rec.build()
     runner, draws = rec._graphed, rec._draws
     if runner is None or not runner.capture or runner.chunks is not None:
         raise RuntimeError(f"{label}: the trainer does not capture its epochs in one graph")
@@ -5236,7 +5486,8 @@ def graphed_check(label, model_name, data, graph, batch, emb=EMB, chunk=None):
         return runner.run(st, draws)
 
     def eager(st):
-        return train_epoch(model, opt, graph, params, st, draws, batch)
+        return train_epoch(model, opt, graph, params, st, draws, batch,
+                           placement=rec._placement)
 
     runs = {mode: from_start(mode, fn, GRAPHED_REPEATS)
             for mode, fn in (("captured", captured), ("eager", eager))}
@@ -5254,6 +5505,17 @@ def graphed_check(label, model_name, data, graph, batch, emb=EMB, chunk=None):
             diff[f"{name}_vs_captured"] = snapshot_diff(snap, first, loss_k, loss_c)
             if not torch.equal(after, runs["captured"][0][3]):
                 diff[f"{name}_vs_captured"].append("generator_state")
+    if fused is not None:
+        block = fused()
+        first_run = runs["captured"][0]
+        diff["fused_vs_warm_up_and_replay"] = snapshot_diff(
+            train_snapshot(block.params, block.optimizer, block.state), first_run[0],
+            first_run[1], first_run[1])
+        if [e["loss"] for e in block.epoch_stats] != [float(warm[1]), float(first_run[1])]:
+            diff["fused_vs_warm_up_and_replay"].append("losses")
+        if not torch.equal(block._draws.get_state(), first_run[3]):
+            diff["fused_vs_warm_up_and_replay"].append("generator_state")
+        del block
     states = [x[3] for x in runs["captured"]]
     if (any(diff.values()) or not math.isfinite(float(loss_c))
             or any(torch.equal(a, b) for a, b in zip([start_draws] + states, states))):
@@ -5298,7 +5560,7 @@ def graphed_check(label, model_name, data, graph, batch, emb=EMB, chunk=None):
 
 
 def graphed_zoo_check(label, model_name, data, graph, batch, extra=None, draws_masks=None,
-                      rate_moves=False, variant=None):
+                      rate_moves=False, variant=None, mesh=None):
     """One of the fifteen models' captured epochs at its defaults (d=64,
     Adam at LR; GraphRecommender's ``GraphedEpoch``, warmed up and
     captured on its first epoch): from one start (parameters, Adam's
@@ -5323,13 +5585,21 @@ def graphed_zoo_check(label, model_name, data, graph, batch, extra=None, draws_m
     draws (None: the model's default); ``rate_moves``: the rate moves by
     ×1.05 before each later epoch, as the bold driver moves it, into the
     same tensor on both paths; ``variant``: the configuration's name in
-    the kernels line's ``launches_graphed_<model>_<variant>``."""
+    the kernels line's ``launches_graphed_<model>_<variant>``; ``mesh``:
+    the model trained through ``ShardedGraphRecommender`` on that mesh (its
+    eager epochs take the trainer's placement)."""
     t0 = time.perf_counter()
     config = default_config(**{
         "embedding.size": EMB, "batch.size": batch, "learning.rate": LR, "optimizer": "adam",
         "graph.compute_dtype": graph.compute_dtype, "item.ranking.topN": [20], **(extra or {})})
-    rec = GraphRecommender(build(model_name, config), data, config, graph=graph,
-                           log=Log(echo=False), device="cuda")
+    if mesh is None:
+        rec = GraphRecommender(build(model_name, config), data, config, graph=graph,
+                               log=Log(echo=False), device="cuda")
+    else:
+        from recommendation_tpu_torch.parallel.trainer import ShardedGraphRecommender
+
+        rec = ShardedGraphRecommender(build(model_name, config), data, config, graph=graph,
+                                      mesh=mesh, log=Log(echo=False), device=graph.device)
     rec.build()
     runner, draws = rec._graphed, rec._draws
     if runner is None or not runner.capture or runner.chunks is not None:
@@ -5402,7 +5672,8 @@ def graphed_zoo_check(label, model_name, data, graph, batch, extra=None, draws_m
             return runner.run(st, draws)
 
         def eager(st):
-            return train_epoch(model, opt, graph, params, st, draws, batch)
+            return train_epoch(model, opt, graph, params, st, draws, batch,
+                               placement=rec._placement)
 
         got, want_run = from_start("captured", captured), from_start("eager", eager)
         diff = {f"captured_vs_eager_{k}": snapshot_diff(g[0], w[0], g[1], w[1])
@@ -5701,5 +5972,8 @@ if __name__ == "__main__":
         raise SystemExit(0)
     if sys.argv[1:2] == ["--sharded-data"]:  # one rank of the (2, 1) world
         sharded_data_worker(*sys.argv[2:5])
+        raise SystemExit(0)
+    if sys.argv[1:2] == ["--sharded-nccl"]:  # the rank of the (1, 1) world
+        sharded_nccl_worker(*sys.argv[2:5])
         raise SystemExit(0)
     raise SystemExit(main())

@@ -37,21 +37,21 @@ def mask_seen_post_merge(scores, ids, uid_arr, train_keys, n_items,
     candidates after a sharded merge (shared by the sharded evaluator,
     `parallel/trainer.py::test`, and the serving path).
 
-    ``train_keys`` = int64 ``user * n_items + item`` of every train edge;
+    ``train_keys`` = int64 ``user * n_items + item`` of every train edge,
+    SORTED (the callers sort them once; ``train_edge_keys`` of a canonical
+    CSR matrix is sorted): they are searched, where the JAX package's
+    ``np.isin`` sorts both arrays a call; the same mask.
     ``ids >= n_items`` marks row-padding from `pad_rows_to`. Returns a
-    masked COPY of ``scores``. Sorted keys (as the sharded evaluator and
-    service keep them) are searched in place of ``np.isin``'s sort of
-    both arrays a call: the same mask."""
+    masked COPY of ``scores``."""
     uid_arr = np.asarray(uid_arr, dtype=np.int64)
     ids = np.asarray(ids)
     valid = ids < n_items
     query = uid_arr[:, None] * n_items + np.where(valid, ids, 0)
     train_keys = np.asarray(train_keys)
-    if len(train_keys) and np.all(train_keys[1:] >= train_keys[:-1]):
+    seen = np.zeros(query.shape, dtype=bool)
+    if len(train_keys):
         at = np.minimum(np.searchsorted(train_keys, query), len(train_keys) - 1)
         seen = (train_keys[at] == query) & valid
-    else:
-        seen = np.isin(query, train_keys) & valid
     out = np.asarray(scores).copy()
     out[seen | ~valid] = mask_value
     return out
@@ -115,7 +115,7 @@ class ScoreBlock:
 
     A graph is keyed by (source, rows, positives width, k) and reads static
     buffers: the item table (``items``, a copy of the table it was made
-    with when it captures), and per key the block's inputs. Two sources:
+    with when it captures), and per key the block's inputs. Three sources:
       * ``rows`` (``topk``): the user rows and positives are given as
         device tensors and copied into the key's buffers before a replay;
         evaluation's blocks, whose tables change at every evaluation, so
@@ -124,7 +124,15 @@ class ScoreBlock:
         ids of its users, copied from the host into the key's buffer, and
         the graph gathers the user rows and (``positives="table"``) the
         positives rows itself; host positives (the host-CSR branch) are
-        copied in, no exclusion is a column of −1.
+        copied in, no exclusion is a column of −1;
+      * ``merged`` (``merged_topk``, ``merged_ids``): a row-sharded table's
+        top-k with its merge across the ranks (the sharded evaluator's
+        blocks, the mesh service's waves; a ``parallel.collectives.
+        sharded_topk`` that the caller passes, so the graph holds NCCL's
+        all-gathers), keyed by (rows, k); the train positives are masked on
+        the host after the merge, as the JAX package masks after
+        ``fetch_global``. Every rank makes the same calls, so every rank
+        captures the same keys in the same order.
     A key's first call runs the body once on the block's side stream (its
     warm-up: cuBLAS's handle and workspace for that stream), captures it
     and replays it; every answer on the card is a replay (``stats``). All
@@ -261,6 +269,48 @@ class ScoreBlock:
         out = outs[0] if len(outs) == 1 else np.concatenate(outs)
         return (np.ascontiguousarray(out[:, :k]).view(np.float32),
                 np.ascontiguousarray(out[:, k:]))
+
+
+    def merged_topk(self, user_rows: torch.Tensor, item_emb: torch.Tensor, k: int, merge,
+                    rows: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The sharded evaluator's block: ``merge(user_rows, items, k)`` (a
+        top-k over this rank's rows of a row-sharded item table whose
+        candidates it merges across the ranks, a collective that every rank
+        makes with the same shapes in the same order) on ``user_rows``
+        padded with zero rows to ``rows``, through that shape's graph, the
+        rank's rows ``item_emb`` copied into the static table. Returns
+        (scores, ids) of the unpadded rows on the device."""
+        b = user_rows.shape[0]
+        rows = b if rows is None else rows
+        if rows != b:
+            user_rows = torch.cat([user_rows, user_rows.new_zeros((rows - b,)
+                                                                  + tuple(user_rows.shape[1:]))])
+        with self._lock:
+            self._set_items(item_emb)
+            s, i = self._run(("merged", rows, k), [user_rows],
+                             lambda u: merge(u, self.items, k))
+            return s[:b].clone(), i[:b].clone()
+
+    def merged_ids(self, uids: np.ndarray, k: int, merge) -> Tuple[np.ndarray, np.ndarray]:
+        """The mesh service's wave: ``merge`` (as ``merged_topk``'s) over
+        the rows of ``user_emb`` at the users ``uids`` (padded by the
+        caller), gathered in the graph: the ids copied into the key's
+        buffer, one replay, the scores' bits and the ids in one int32
+        output copied out. Returns (scores f32[B, k'], ids int64[B, k']) on
+        the host, k' = ``merge``'s k."""
+        rows = len(uids)
+
+        def body(ids_t):
+            s, i = merge(self.user_emb[ids_t.to(self.device)], self.items, k)
+            return torch.cat([s.view(torch.int32), i.to(torch.int32)], dim=1)
+
+        with self._lock:
+            out = self._run(("merged_ids", rows, k),
+                            [torch.from_numpy(np.asarray(uids, dtype=np.int64))],
+                            body).cpu().numpy()
+        width = out.shape[1] // 2
+        return (np.ascontiguousarray(out[:, :width]).view(np.float32),
+                out[:, width:].astype(np.int64))
 
 
 def padded_blocks(user_emb: torch.Tensor, user_positives: torch.Tensor, k: int,

@@ -23,9 +23,14 @@ range. The all-reduces
 (``all_reduce``, and ``reduce_sum`` with the identity as its backward,
 which the losses read) are in ``ops/group.py``.
 
-Only ``all_gather`` and ``all_reduce`` (SUM, MAX) are used, so gloo and
-NCCL run one code path; each is synchronous, so a kernel that reads its
-output finds it written.
+Only an all-gather into one tensor and ``all_reduce`` (SUM, MAX) are
+used, so gloo and NCCL run one code path; each is synchronous, so a kernel that reads its
+output finds it written. Under NCCL each is captured as it is in a CUDA
+graph (the sharded trainer's epoch, the mesh service's wave): NCCL's
+stream joins the capture through the events that its process group
+records against the current stream, and nothing here reads a value on
+the host. gloo's run on the host and are never captured
+(``captures`` tells them apart).
 """
 
 from __future__ import annotations
@@ -37,14 +42,35 @@ from recommendation_tpu_torch.ops.group import all_reduce
 from recommendation_tpu_torch.parallel.mesh import MODEL_AXIS, axis_group, axis_rank, axis_size
 
 
+def group_backend(*groups) -> str:
+    """The backend that ``groups`` share ('nccl' or 'gloo')."""
+    names = {str(dist.get_backend(g)) for g in groups}
+    if len(names) != 1:
+        raise ValueError(f"the groups run on several backends: {sorted(names)}")
+    return names.pop()
+
+
+def captures(*groups) -> bool:
+    """Whether a CUDA graph can hold the collectives of ``groups``: NCCL's
+    (on the cards NCCL needs) can; gloo's run on the host and cannot."""
+    return group_backend(*groups) == "nccl"
+
+
 def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """The group's ``x`` (equal shapes) concatenated along ``dim`` in rank
-    order, on every rank. No gradient."""
+    order, on every rank. No gradient. The ranks' rows land in one output
+    (along ``dim`` 0 it is the result; another ``dim`` takes one copy), not
+    in a list of parts then concatenated: two copies of the gathered table
+    fewer."""
     with torch.no_grad():
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, x, group=group)
-        return torch.cat(parts, dim=dim)
+        size = dist.get_world_size(group)
+        out = torch.empty((size * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.all_gather_into_tensor(out, x, group=group)
+        if dim == 0 or size == 1:
+            return out
+        return torch.cat(out.split(x.shape[0]), dim=dim)
 
 
 class _GatherRows(torch.autograd.Function):

@@ -162,7 +162,8 @@ def fetch_global(x: torch.Tensor, mesh, n_rows: Optional[int] = None) -> np.ndar
 def merged_checkpoint(directory: str, step: int) -> dict:
     """A run's checkpoint at ``step`` as full host tables: ``params``,
     ``exp_avg`` and ``exp_avg_sq`` by parameter name, ``step`` (Adam's
-    count), ``epoch`` and ``layout``. From a sharded run's rank files (the
+    count), ``epoch``, ``layout`` and ``draws`` (the device generator's
+    state, rank 0's). From a sharded run's rank files (the
     row shards of data rank 0's model ranks in rank order, the replicated
     parameters from rank 0) or from a single-device run's file."""
     from recommendation_tpu_torch.train.checkpoint import CheckpointManager
@@ -182,7 +183,8 @@ def merged_checkpoint(directory: str, step: int) -> dict:
         return torch.cat(parts) if k in sharded else parts[0]
 
     out = {"params": {k: full(k, [p["params"][k] for p in payloads]) for k in names},
-           "epoch": payloads[0]["epoch"], "layout": payloads[0].get("layout")}
+           "epoch": payloads[0]["epoch"], "layout": payloads[0].get("layout"),
+           "draws": payloads[0].get("draws")}
     for m in ("exp_avg", "exp_avg_sq"):
         out[m] = {k: full(k, [st[i][m] for st in states]) for i, k in enumerate(names)}
     out["step"] = {k: float(states[0][i]["step"]) for i, k in enumerate(names)}
@@ -458,8 +460,10 @@ def fit(data_path: str, mesh, config, out: str, device: torch.device, model: str
     checkpoints in ``out/ckpt``. Each rank writes ``out/rank<r>.json``: the
     model, the layout, the shards' rows, the epochs' losses and seconds,
     the graph's, the build's and ``train()``'s seconds, every kernel's
-    launches over ``train()`` (``kernel_wrappers``) and the propagation
-    path with each rank's rows and slots (``edge_report``). Returns the
+    launches over ``train()`` (``kernel_wrappers``), the propagation
+    path with each rank's rows and slots (``edge_report``), and how the
+    epochs ran (``epoch_report``: captured under NCCL, eager over gloo)
+    with each capture's graph, seconds and pool bytes. Returns the
     trained recommender."""
     from recommendation_tpu_torch.graph.device import DeviceGraph
     from recommendation_tpu_torch.models import build
@@ -498,7 +502,8 @@ def fit(data_path: str, mesh, config, out: str, device: torch.device, model: str
         "steps_per_epoch": -(-graph.n_edges // rec.batch_size),
         "epochs": rec.epoch_stats, "graph_s": t1 - t0, "build_s": t2 - t1, "train_s": t3 - t2,
         "launches": {f.__name__: f.launches for f in kernels},
-        "propagation": rec.edge_report(),
+        "propagation": rec.edge_report(), "epoch_path": rec.epoch_report(),
+        "captures": rec._graphed.captures if rec._graphed is not None else [],
     }
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(report, f)

@@ -67,12 +67,22 @@ row's sum order, so its forward is the replicated one bit for bit on the
 card, and its backward differs by the data group's sum.
 
 ``test()`` is the sharded evaluator where the mesh has a model axis: the
-padded item table row-sharded, ``sharded_topk`` over blocks of test users,
-train positives masked after the merge, then ``ranking_metrics``.
-Checkpoints are one file a rank (``train/checkpoint.py``) holding its
-shards, their Adam moments, both generators' states and the layout; a
-restore refuses another layout. The sharded trainer keeps the eager
-step loop (``train.loop.train_epoch``): its epochs are not captured.
+padded item table row-sharded, ``sharded_topk`` over blocks of test users
+(the tail block padded to a power of two), train positives masked after
+the merge on the host, then ``ranking_metrics``; under NCCL each padded
+block is a CUDA graph of the trainer's ``ScoreBlock`` (``ops/topk.py``),
+the merge's all-gathers inside it. Checkpoints are one file a rank
+(``train/checkpoint.py``) holding its shards, their Adam moments, both
+generators' states and the layout; a restore refuses another layout.
+
+The epochs run as the JAX package's sharded epoch does, one compiled
+program with its collectives inside, where the mesh's collectives are
+NCCL's on a card: ``GraphedEpoch`` with the placement captures each
+epoch (its chunks, fused blocks) with the gathers and the all-reduce in
+its graphs. Over gloo, whose collectives run on the host and cannot be
+captured, the epochs stay eager (``train.loop.train_epoch``) and
+``train.fuse_epochs: true`` is refused. ``epoch_report()`` says which
+path the trainer took and why; nothing falls back from one to the other.
 
 Every rank runs the same calls in the same order: evaluation is
 replicated (every rank ranks the full tables), and the collectives are
@@ -85,6 +95,7 @@ the data group.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -95,8 +106,18 @@ from recommendation_tpu_torch.config import Config
 from recommendation_tpu_torch.evalx.metrics import ranking_metrics
 from recommendation_tpu_torch.evalx.ranking import RankingResult
 from recommendation_tpu_torch.models.base import Model
-from recommendation_tpu_torch.ops.topk import mask_seen_post_merge, train_edge_keys
-from recommendation_tpu_torch.parallel.collectives import gather_rows, sharded_topk
+from recommendation_tpu_torch.ops.topk import (
+    ScoreBlock,
+    mask_seen_post_merge,
+    pow2_bucket,
+    train_edge_keys,
+)
+from recommendation_tpu_torch.parallel.collectives import (
+    captures,
+    gather_rows,
+    group_backend,
+    sharded_topk,
+)
 from recommendation_tpu_torch.parallel.embedding import pad_rows_to
 from recommendation_tpu_torch.graph.device import shard_rows
 from recommendation_tpu_torch.parallel.mesh import (
@@ -127,6 +148,9 @@ class _Placement:
         self.loss_group = self.data_group if axis_size(mesh, DATA_AXIS) > 1 else None
         self.sharded = sharded
         self.rows = rows
+        self.backend = group_backend(self.model_group, self.data_group)
+        # whether a captured step can hold the groups' collectives (NCCL's)
+        self.capturable = captures(self.model_group, self.data_group)
 
     def gather(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         return {k: gather_rows(v, self.model_group) if k in self.sharded else v
@@ -170,6 +194,7 @@ class ShardedGraphRecommender(GraphRecommender):
         self.spec = mesh_spec(self.mesh)
         self._n_model = self.spec.model
         self.replicated_graph = self.graph  # the caller's: never given the shard
+        self._scorer = None  # the sharded evaluator's block (``_eval_block``)
 
     # -- placement ------------------------------------------------------------
 
@@ -219,6 +244,19 @@ class ShardedGraphRecommender(GraphRecommender):
         self._placement = _Placement(self.mesh, sharded, self._rows)
         return out
 
+    def _captures(self) -> bool:
+        """The epochs are captured where the mesh's groups are NCCL's on a
+        card; over gloo they stay eager."""
+        return self.graph.device.type == "cuda" and self._placement.capturable
+
+    def epoch_report(self) -> Dict[str, str]:
+        """How the epochs run ('captured' or 'eager'), why, and the mesh's
+        backend (after ``build``)."""
+        backend, captured = self._placement.backend, self._captures()
+        why = (f"{backend}'s collectives are captured in the epoch's CUDA graphs" if captured
+               else f"{backend}'s collectives run on the host")
+        return {"epochs": "captured" if captured else "eager", "why": why, "backend": backend}
+
     @property
     def sharded_params(self) -> set:
         """The names of the parameters held as row shards."""
@@ -263,6 +301,14 @@ class ShardedGraphRecommender(GraphRecommender):
 
     # -- sharded evaluation ---------------------------------------------------
 
+    def _eval_block(self, local: torch.Tensor) -> ScoreBlock:
+        """The sharded evaluator's block over the rank's rows of the item
+        table: CUDA graphs where the model group is NCCL's, eager over
+        gloo; made at the first evaluation, its table copied in at each."""
+        if self._scorer is None:
+            self._scorer = ScoreBlock(local, graphs=self._placement.capturable)
+        return self._scorer
+
     def test(self) -> RankingResult:
         """Ranking evaluation through the sharded top-k where the mesh has a
         model axis (else the single-device evaluator): the padded item
@@ -273,6 +319,11 @@ class ShardedGraphRecommender(GraphRecommender):
         padding masked after the merge (``mask_seen_post_merge``)."""
         if self._n_model <= 1:
             return super().test()
+        return self.sharded_test()
+
+    def sharded_test(self) -> RankingResult:
+        """``test()``'s sharded evaluator, on any mesh (at model = 1 the
+        rank holds the whole padded table): a collective."""
         user_emb, item_emb = self.model.eval_embeddings(self.model_params(), self.state,
                                                         self.graph)
         test_uids = self.data.test_user_ids()
@@ -285,11 +336,14 @@ class ShardedGraphRecommender(GraphRecommender):
         k = min(int(self.graph.max_degree) + max_n + n_pad, padded.shape[0])
         keys = np.sort(train_edge_keys(self.data.interaction_mat, n_items))
         block = int(self.config.get("eval.batch.size", 1024))
+        scorer = self._eval_block(local)
         ids_out, scores_out = [], []
         for start in range(0, len(test_uids), block):
             uids = test_uids[start:start + block]
             rows = torch.from_numpy(uids.astype(np.int64)).to(user_emb.device)
-            s, i = sharded_topk(user_emb[rows].float(), local, k, self.mesh)
+            s, i = scorer.merged_topk(user_emb[rows].float(), local, k,
+                                      functools.partial(sharded_topk, mesh=self.mesh),
+                                      pow2_bucket(len(uids), block))
             ids = i.cpu().numpy()
             s = mask_seen_post_merge(s.cpu().numpy(), ids, uids, keys, n_items)
             order = np.argsort(-s, axis=1, kind="stable")[:, :max_n]

@@ -18,14 +18,24 @@ serves the wave (the MicroBatcher's dispatcher), in ``thread_local``
 mode, so the HTTP threads may make CUDA calls meanwhile. ``block.stats``
 counts the replays (and the eager waves of the CPU). With a ``mesh``
 (``parallel/mesh.py``) the item table is padded to a multiple of the model
-axis and each model rank holds its rows: a query scores them, merges the
-ranks' candidates (``parallel.collectives.sharded_topk``) and masks the
-train positives and the padding rows after the merge, having over-fetched
-by the wave's heaviest degree plus the padding rows; the train-edge keys it
-masks against are sorted once. Every rank of the mesh must make the same
-queries in the same order (the merge is a collective), so a service over
-several processes answers each wave in all of them; the MicroBatcher and
-HTTP front end are the single process's.
+axis and each model rank holds its rows: a wave, padded to
+``wave_rows(b)`` with user 0 as above, gathers its user rows, scores the
+rank's rows, merges the ranks' candidates
+(``parallel.collectives.sharded_topk``), having over-fetched by the wave's
+heaviest degree plus the padding rows, that count rounded up to a
+multiple of 64 (capped at the padded table's rows) as the JAX service
+rounds it, so that a wave's shape is one of a few; then the train
+positives and the padding rows are masked on the host after the merge,
+as the JAX service masks after ``fetch_global``, against train-edge keys
+sorted once. Where the model group's collectives are NCCL's on a card,
+each padded shape (rows, that count) is one CUDA graph of the service's
+``ScoreBlock`` (``merged_ids``: the gather, the scores, the local top-k,
+the all-gathers and the merge), captured on first use as above; over
+gloo the same padded wave runs eagerly. Every rank of the mesh must make
+the same queries in the same order (the merge is a collective), so a
+service over several processes answers each wave in all of them, and
+every rank captures the same shapes in the same order; the MicroBatcher
+and HTTP front end are the single process's.
 
 Construction paths:
   * ``RecommenderService.from_recommender(rec, mesh=None)`` — after training;
@@ -36,6 +46,7 @@ Construction paths:
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -71,14 +82,22 @@ class RecommenderService:
                                     user_positives=(graph.user_positives if graph.has_pos_table
                                                     else None))
         else:
+            from recommendation_tpu_torch.parallel.collectives import captures
             from recommendation_tpu_torch.parallel.embedding import pad_rows_to
-            from recommendation_tpu_torch.parallel.mesh import MODEL_AXIS, axis_size, table_rows
+            from recommendation_tpu_torch.parallel.mesh import (
+                MODEL_AXIS,
+                axis_group,
+                axis_size,
+                table_rows,
+            )
 
             padded = pad_rows_to(self.item_emb, axis_size(mesh, MODEL_AXIS))
             lo, hi = table_rows(padded.shape[0], mesh)
             self._item_local = padded[lo:hi].contiguous()
             self._n_padded = padded.shape[0]
             self._train_keys = np.sort(train_edge_keys(data.interaction_mat, data.item_num))
+            self.block = ScoreBlock(self._item_local, user_emb=self.user_emb,
+                                    graphs=captures(axis_group(mesh, MODEL_AXIS)))
 
     @classmethod
     def from_recommender(cls, rec, mesh=None) -> "RecommenderService":
@@ -132,8 +151,7 @@ class RecommenderService:
         to ``wave_rows(b)`` with user 0, through the service's graphs."""
         uids = np.asarray(user_ids, dtype=np.int64)
         if self.mesh is not None:
-            u = self.user_emb[torch.from_numpy(uids).to(self.user_emb.device)]
-            return self._recommend_ids_sharded(uids, u, k, exclude_seen)
+            return self._recommend_ids_sharded(uids, k, exclude_seen)
         padded, pos = self.wave_inputs(uids, exclude_seen)
         s, i = self.block.topk_ids(padded, k, pos)
         return s[:len(uids)], i[:len(uids)]
@@ -153,22 +171,33 @@ class RecommenderService:
     def eager_block(self) -> ScoreBlock:
         """The service's block with its bodies run eagerly: the reference a
         replayed wave is held to."""
+        if self.mesh is not None:
+            return ScoreBlock(self._item_local, user_emb=self.user_emb, graphs=False)
         return ScoreBlock(self.item_emb, user_emb=self.user_emb,
                           user_positives=self.block.user_positives, graphs=False)
 
-    def _recommend_ids_sharded(self, uids: np.ndarray, u: torch.Tensor, k: int,
+    def sharded_fetch(self, user_ids: Sequence[int], k: int, exclude_seen: bool = True) -> int:
+        """The mesh query's candidate count for a wave: past its heaviest
+        degree (with exclusions) plus the zero-scoring padding rows, rounded
+        up to a multiple of 64, at most the padded table's rows."""
+        over = 0
+        if exclude_seen and len(user_ids):
+            over = int(np.diff(self.data.interaction_mat.indptr)[np.asarray(user_ids)].max())
+        kk = min(k + over + self._n_padded - self.data.item_num, self._n_padded)
+        return min(-(-kk // 64) * 64, self._n_padded)
+
+    def _recommend_ids_sharded(self, uids: np.ndarray, k: int,
                                exclude_seen: bool) -> tuple[np.ndarray, np.ndarray]:
-        """The mesh's query: over-fetch past the wave's heaviest degree (with
-        exclusions) plus the zero-scoring padding rows, merge, then mask."""
+        """The mesh's query: the wave padded to ``wave_rows(b)`` with user 0,
+        ``sharded_fetch`` candidates merged through the block, the unpadded
+        rows masked on the host."""
         from recommendation_tpu_torch.parallel.collectives import sharded_topk
 
         n_items = self.data.item_num
-        over = 0
-        if exclude_seen and len(uids):
-            over = int(np.diff(self.data.interaction_mat.indptr)[uids].max())
-        kk = min(k + over + self._n_padded - n_items, self._n_padded)
-        s, i = sharded_topk(u, self._item_local, kk, self.mesh)
-        s, i = s.cpu().numpy(), i.cpu().numpy()
+        padded, _ = self.wave_inputs(uids, False)
+        s, i = self.block.merged_ids(padded, self.sharded_fetch(uids, k, exclude_seen),
+                                     functools.partial(sharded_topk, mesh=self.mesh))
+        s, i = s[:len(uids)], i[:len(uids)]
         keys = self._train_keys if exclude_seen else self._train_keys[:0]
         s = mask_seen_post_merge(s, i, uids, keys, n_items, MASK_VALUE)
         order = np.argsort(-s, axis=1, kind="stable")[:, :k]

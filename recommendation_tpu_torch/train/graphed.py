@@ -12,7 +12,15 @@ bookkeeping. The trainer (``train/recommender.py``) runs its epochs so,
 and fuses ``eval.interval`` epochs into a block that reads its losses
 once, for every registered model at every configuration (NCL's
 per-batch E-step, whose state every step produces, carried as any state
-is); the sharded trainer keeps the eager loop.
+is). A sharded trainer (``parallel/trainer.py``) passes its ``placement``,
+as ``train.loop.run_steps`` takes it: each captured step gathers the
+rank's shards, cuts its rows of the global batch and sums the gradients
+over the data group, so the graphs hold NCCL's collectives, as the JAX
+package's sharded epoch is one jitted program with GSPMD's collectives in
+it. Only NCCL's collectives can be captured (they run on a stream that
+joins the capture); gloo's run on the host, so a placement over gloo runs
+the same bodies eagerly (``capture`` off: the CPU) or is refused on a
+card.
 
 What a graph holds, as the JAX scan's carry and inputs:
   * **draws**: the epoch draws on the card from the trainer's generator
@@ -54,8 +62,12 @@ The first run of each graph is its warm-up, as capture requires: an
 eager run on the runner's own stream (a real run of the epoch or chunk,
 its launches counted), which also fills the lazy caches that a capture
 must find filled (the chain's tile counters for the stream, the kernels'
-plans, the optimizer's state). Then the graph is captured, and later runs
-replay it.
+plans, the optimizer's state, and under a placement NCCL's communicator
+of every group the step reads, which each group makes at its first
+collective). Then the graph is captured, and later runs replay it. Every
+rank of a sharded trainer runs the same epochs with the same host values,
+so every rank warms up, captures and replays the same keys in the same
+order, as its collectives require.
 
 Launch counts: a replay calls no wrapper, so each capture records the
 launches its body's wrappers counted (``ops/counts.py``), puts the
@@ -144,16 +156,24 @@ def _refill(static: Any, given: Any) -> Any:
 class GraphedEpoch:
     """One epoch of ``train_step`` over ``params`` (updated in place) as
     CUDA graphs on a card, eagerly elsewhere (``capture``; module
-    docstring); ``steps_per_call`` cuts the epoch into chunks.
-    ``captures`` records each capture's graph, seconds and pool bytes."""
+    docstring); ``steps_per_call`` cuts the epoch into chunks; with a
+    ``placement`` (``parallel/trainer.py``: NCCL's on a card) ``params``
+    are the rank's shards.
+    ``captures`` records each capture's graph, seconds and pool bytes;
+    ``keys`` every graph's key in the order first run (the order in which
+    the ranks of a sharded trainer must capture alike)."""
 
     def __init__(self, model, optimizer: torch.optim.Optimizer, graph,
                  params: Dict[str, torch.Tensor], batch_size: int,
-                 steps_per_call: Optional[int] = None, n_redraws: int = 4):
+                 steps_per_call: Optional[int] = None, n_redraws: int = 4, placement=None):
         self.model, self.optimizer, self.graph, self.params = model, optimizer, graph, params
         self.batch_size, self.n_redraws = batch_size, n_redraws
+        self.placement = placement  # a sharded trainer's (``train.loop``): None alone
         self.device = graph.device
         self.capture = self.device.type == "cuda"
+        if self.capture and placement is not None and not placement.capturable:
+            raise ValueError(f"a placement over {placement.backend} cannot be captured: its "
+                             f"collectives run on the host (NCCL's are captured)")
         if self.capture:
             for group in optimizer.param_groups:
                 if group.get("capturable") is False:
@@ -175,6 +195,7 @@ class GraphedEpoch:
         self._bound = None  # the addresses and float rates the graphs read
         self._draws: Optional[torch.Generator] = None  # the epoch's generator
         self.captures: List[dict] = []
+        self.keys: List[tuple] = []  # every graph's key in the order first run, on any device
 
     # -- the bodies: what a graph holds -----------------------------------------
 
@@ -187,7 +208,8 @@ class GraphedEpoch:
         for b in range(n):
             state, losses[b] = train_step(self.model, self.optimizer, self.graph, self.params,
                                           state, PairwiseBatch(users[b], items[b], negs[b],
-                                                               weights[b]), self._draws)
+                                                               weights[b]), self._draws,
+                                          self.placement)
         for static, new in zip(_leaves(self.state), _leaves(state)):
             if new is not static:
                 static.copy_(new)
@@ -261,6 +283,8 @@ class GraphedEpoch:
     def _launch(self, key, body):
         """``body``'s outputs: eagerly without capture; on the card its
         graph's replay, or at its first run the warm-up and the capture."""
+        if key not in self.keys:
+            self.keys.append(key)
         if not self.capture:
             return body()
         entry = self._graphs.get(key)

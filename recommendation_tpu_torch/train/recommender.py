@@ -27,10 +27,12 @@ of the JAX trainer mean what they mean there: ``train.steps_per_call`` and
 and ``train.fuse_epochs``, ``train.fuse_below_steps`` and
 ``train.max_fused_steps`` gate fused blocks (``_can_fuse_epochs``): the
 ``eval.interval`` epochs up to the next evaluation replayed back to back,
-their losses read once, a NaN aborting at the block's end. The sharded
-trainer is the one that trains with the eager loop
-(``train.loop.train_epoch``), and it refuses ``train.fuse_epochs:
-true``. The trainer holds two generators. The host one (``_gen``)
+their losses read once, a NaN aborting at the block's end. A sharded
+trainer captures its epochs, chunks and fused blocks too where its mesh's
+collectives are NCCL's on a card (the graphs hold them); over gloo, whose
+collectives run on the host, it trains with the eager loop
+(``train.loop.train_epoch``) and refuses ``train.fuse_epochs: true``.
+The trainer holds two generators. The host one (``_gen``)
 seeds the second once and gives each epoch a seed for ``epoch_begin``
 (the fused block draws it too, for the no-op). The second
 (``_draws``, on the graph's device, ``graph.augment.device_generator``)
@@ -171,16 +173,23 @@ class GraphRecommender:
         self.steps_per_call = steps_per_call(self.graph.n_edges, self.batch_size, self.config)
         if self._captures():
             self._graphed = GraphedEpoch(self.model, self.optimizer, self.graph, self.params,
-                                         self.batch_size, steps_per_call=self.steps_per_call)
+                                         self.batch_size, steps_per_call=self.steps_per_call,
+                                         placement=self._placement)
         elif _fuse_mode(self.config) is True:
             raise ValueError(f"train.fuse_epochs: true needs epochs that run as CUDA graphs; "
-                             f"{self.model.name} on this trainer (sharded) runs its epochs "
-                             f"eagerly")
+                             f"{self.model.name} on this trainer runs its epochs eagerly: "
+                             f"{self.epoch_report()['why']}")
 
     def _captures(self) -> bool:
         """Whether the epochs run as ``GraphedEpoch``: every model on the
-        single-device trainer; a sharded one keeps the eager loop."""
-        return self._placement is None
+        single-device trainer (a sharded one decides by its collectives)."""
+        return True
+
+    def epoch_report(self) -> Dict[str, str]:
+        """How the epochs run: 'captured' (``GraphedEpoch``: CUDA graphs on
+        a card, the same bodies eagerly on the CPU) or 'eager'
+        (``train.loop.train_epoch``), and why."""
+        return {"epochs": "captured", "why": f"GraphedEpoch on {self.graph.device.type}"}
 
     # -- placement hooks (a sharded trainer overrides them) -------------------
 

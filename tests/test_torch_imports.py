@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``recommendation_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and ``chip_smoke.py``
+"""The port stands alone: no module of ``recommendation_tpu_torch``, no
+``examples/torch_*.py`` and not ``chip_smoke.py`` imports JAX or the JAX
+package, and ``chip_smoke.py``
 refuses to report a result where there is no card or no repo."""
 
 import ast
@@ -12,7 +13,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "recommendation_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "recommendation_tpu_torch").rglob("*.py"))
+              + sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"])
 
 
 def _imported_modules(path):
@@ -51,6 +53,8 @@ def test_the_scan_sees_imports():
         port / "models" / f"{m}.py"
         for m in ("selfcf", "buir", "ssl4rec", "gcl", "grace", "gbt", "bgrl", "graphsage",
                   "gat")} <= set(PORT_FILES)
+    assert {ROOT / "examples" / f"torch_{m}.py" for m in (
+        "train_lightgcn", "train_social_multichip", "tune_directau")} <= set(PORT_FILES)
     assert {port / "native" / f"{m}.py" for m in ("__init__", "build", "bucketize", "loader")} | {
         port / "tune" / f"{m}.py" for m in ("__init__", "tuner", "presets")} | {
         port / "evalx" / "rating.py", port / "evalx" / "probe.py",

@@ -22,7 +22,9 @@ an ``.npz``. While the world runs, the parent computes the JAX side on
   * the ``_worker_serve`` counterpart (a (1, 4) mesh, from per-rank
     checkpoints of the padded item shards), from the JAX model's
     ``init(PRNGKey(7))``: its ids equal to the JAX service's on a (1, 4)
-    mesh, with and without exclusions.
+    mesh, with and without exclusions; and a wave of PAD_WAVE users, which
+    both services pad to a power of two with user 0 (the candidate count
+    rounded up to 64), the same ids.
 Workers run one thread each; the world has a hard timeout that kills its
 processes and fails the fixture.
 """
@@ -38,6 +40,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TIGHT = dict(rtol=1e-5, atol=1e-6)
 WORLD_TIMEOUT_S = 240
+PAD_WAVE = 13  # a wave the services pad to 16 users
 
 
 def _inputs():
@@ -89,11 +92,41 @@ def _worker(out_dir):
                      "cpu", os.path.join(out_dir, "init_train.npz"))
     pd._worker_serve(os.path.join(out_dir, "serve.npz"), os.path.join(out_dir, "ckpt_serve"),
                      "cpu", os.path.join(out_dir, "init_serve.npz"))
+    _padded_wave(os.path.join(out_dir, "serve_pad.npz"), os.path.join(out_dir, "init_serve.npz"))
     if dist.get_rank() == 0:
         np.savez(os.path.join(out_dir, "cases.npz"),
                  **{k: v.numpy() for k, v in gathered.items()})
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _padded_wave(out_path, init_path):
+    """The serving worker's tables over a (1, 4) mesh, a wave of PAD_WAVE
+    users of ``np.random.default_rng(12)``, with and without exclusions
+    (rank 0 writes the answers)."""
+    import torch.distributed as dist
+
+    from recommendation_tpu_torch.config import default_config
+    from recommendation_tpu_torch.models.lightgcn import LightGCN
+    from recommendation_tpu_torch.parallel import distributed as pd
+    from recommendation_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from recommendation_tpu_torch.serve.service import RecommenderService
+    from recommendation_tpu_torch.weights import load_params
+
+    data, graph = pd._dryrun_graph("cpu")
+    model = LightGCN(default_config(**{"embedding.size": 32}))
+    user_emb, item_emb = model.eval_embeddings(load_params(init_path, "lightgcn", device="cpu"),
+                                               {}, graph)
+    service = RecommenderService(user_emb, item_emb, data, graph,
+                                 mesh=make_mesh(MeshSpec(1, 4), "cpu"))
+    uids = np.random.default_rng(12).integers(0, data.user_num, PAD_WAVE).tolist()
+    out = {}
+    for exclude, tag in ((True, ""), (False, "_raw")):
+        out[f"scores{tag}"], out[f"ids{tag}"] = service.recommend_ids(uids, k=10,
+                                                                      exclude_seen=exclude)
+    out["keys"] = np.asarray(sorted("/".join(map(str, k)) for k in service.block.keys))
+    if dist.get_rank() == 0:
+        np.savez(out_path, **out)
 
 
 # -- the JAX side ---------------------------------------------------------------
@@ -153,6 +186,10 @@ def _jax_side(out_dir):
     ref["serve_scores"], ref["serve_ids"] = service.recommend_ids(uids, k=10, exclude_seen=True)
     ref["serve_scores_raw"], ref["serve_ids_raw"] = service.recommend_ids(uids, k=10,
                                                                           exclude_seen=False)
+    uids = np.random.default_rng(12).integers(0, data.user_num, PAD_WAVE).tolist()
+    ref["pad_scores"], ref["pad_ids"] = service.recommend_ids(uids, k=10, exclude_seen=True)
+    ref["pad_scores_raw"], ref["pad_ids_raw"] = service.recommend_ids(uids, k=10,
+                                                                      exclude_seen=False)
     return ref
 
 
@@ -248,11 +285,12 @@ def test_mask_seen_post_merge_and_train_edge_keys_are_jax_bit_for_bit():
     uids = rng.integers(0, n_users, 25)
     ids = rng.integers(0, n_items + 6, (25, 30))  # ids past n_items: padding rows
     scores = rng.normal(size=(25, 30)).astype(np.float32)
-    got = mask_seen_post_merge(scores, ids, uids, keys, n_items)  # sorted keys: searched
+    got = mask_seen_post_merge(scores, ids, uids, keys, n_items)  # train_edge_keys: sorted
     want = jax_mask(scores, ids, uids, keys, n_items)
     assert got.dtype == want.dtype and np.array_equal(got, want)
-    shuffled = rng.permutation(keys)  # unsorted keys: np.isin, as the JAX package's
-    assert np.array_equal(mask_seen_post_merge(scores, ids, uids, shuffled, n_items), want)
+    shuffled = rng.permutation(keys)  # keys in another order: sorted once by the caller
+    assert np.array_equal(mask_seen_post_merge(scores, ids, uids, np.sort(shuffled), n_items),
+                          jax_mask(scores, ids, uids, shuffled, n_items))
     assert (got == -1e8).sum() > (ids >= n_items).sum()  # positives masked, padding too
 
 
@@ -271,6 +309,21 @@ def test_worker_serve_ids_match_jax_service(world):
     assert np.array_equal(got["ids_raw"], ref["serve_ids_raw"])
     np.testing.assert_allclose(got["scores"], ref["serve_scores"], **TIGHT)
     np.testing.assert_allclose(got["scores_raw"], ref["serve_scores_raw"], **TIGHT)
+
+
+
+def test_padded_mesh_wave_ids_match_jax_service(world):
+    """A wave of PAD_WAVE users, which both services pad to 16 with user 0
+    and over-fetch by a count rounded up to 64: the same ids as the JAX
+    service's, with and without exclusions, through the port's padded
+    shapes."""
+    _, ref, out = world
+    got = np.load(out / "serve_pad.npz")
+    for tag in ("", "_raw"):
+        assert got[f"ids{tag}"].shape == (PAD_WAVE, 10)
+        assert np.array_equal(got[f"ids{tag}"], ref[f"pad_ids{tag}"]), tag
+        np.testing.assert_allclose(got[f"scores{tag}"], ref[f"pad_scores{tag}"], **TIGHT)
+    assert all(k.startswith("merged_ids/16/") for k in got["keys"]) and len(got["keys"])
 
 
 if __name__ == "__main__":

@@ -32,7 +32,14 @@ The cases:
   * the per-rank checkpoints: the epoch-1 files hold the live shards and
     moments; a run resumed from the epoch-0 files equals the straight run's
     epoch 1 bit for bit; a (2, 1) run refuses the (1, 2) files;
-  * the service's mesh branch at (1, 2) against the single service.
+  * the service's mesh branch at (1, 2) against the single service, and its
+    padded waves (users to a power of two, the candidate count rounded up
+    to 64) against the same waves unpadded (``_unpadded_wave``);
+  * ``GraphedEpoch`` with each layout's placement (its bodies run eagerly
+    on the CPU, as on a card without capture) against ``train_epoch`` with
+    it bit for bit: two consecutive epochs (a fused block's form) and a
+    chunked one; both ranks run the same graph keys in the same order; and
+    the trainer over gloo reports its epochs eager and why.
 And ``python -m recommendation_tpu_torch.parallel.distributed --device cpu
 --backend gloo`` exits 0 (its workers against one process, train and
 serve).
@@ -107,6 +114,11 @@ JAX_CHECKED = ("directau", "ncl")
 EDGE_CASES = ("lightgcn", "directau", "buir")
 EDGE_JAX_CHECKED = ("lightgcn", "directau")
 EDGE_CONF = {**ZOO_CONF, "graph.backend": "segment"}
+# the mesh service's padded waves: users a wave (padded to 16, 16, 8)
+PAD_WAVES = (13, 16, 5)
+# GraphedEpoch with a placement: unchunked, and chunks of 2 steps (an epoch
+# of the segment graph's 4 batches: 2 + 2)
+GRAPHED_CHUNKS = (None, 2)
 
 
 def _zoo_model(case):
@@ -191,6 +203,59 @@ def _payload_equal(a, b):
         other = b["optimizer"]["state"][i]
         same &= all(torch.equal(st[m], other[m]) for m in ("exp_avg", "exp_avg_sq", "step"))
     return same and a["epoch"] == b["epoch"] and a["layout"] == b["layout"]
+
+
+def _unpadded_wave(service, uids, k, exclude):
+    """A mesh wave as the service answered it before it padded its waves:
+    the wave's own rows, the candidates past its heaviest degree (with
+    exclusions) and the padding rows, not rounded; merged, then masked."""
+    from recommendation_tpu_torch.ops.topk import MASK_VALUE, mask_seen_post_merge
+    from recommendation_tpu_torch.parallel.collectives import sharded_topk
+
+    uids = np.asarray(uids, dtype=np.int64)
+    n_items = service.data.item_num
+    over = int(np.diff(service.data.interaction_mat.indptr)[uids].max()) if exclude else 0
+    kk = min(k + over + service._n_padded - n_items, service._n_padded)
+    s, i = sharded_topk(service.user_emb[torch.from_numpy(uids)], service._item_local, kk,
+                        service.mesh)
+    s, i = s.numpy(), i.numpy()
+    keys = service._train_keys if exclude else service._train_keys[:0]
+    s = mask_seen_post_merge(s, i, uids, keys, n_items, MASK_VALUE)
+    order = np.argsort(-s, axis=1, kind="stable")[:, :k]
+    return (np.take_along_axis(s, order, axis=1),
+            np.take_along_axis(i, order, axis=1).astype(np.int32))
+
+
+def _graphed_epochs(rec, out, info, name, chunk):
+    """Two consecutive epochs of a built sharded trainer through
+    ``GraphedEpoch`` with its placement (``chunk``: its steps_per_call), or
+    with ``name`` ending in "eager" through ``train_epoch``: the tables,
+    moments, losses and the device generator's state after them, and the
+    graph keys every rank ran."""
+    import torch.distributed as dist
+
+    from recommendation_tpu_torch.train.graphed import GraphedEpoch
+    from recommendation_tpu_torch.train.loop import train_epoch
+
+    runner = GraphedEpoch(rec.model, rec.optimizer, rec.graph, rec.params, rec.batch_size,
+                          steps_per_call=chunk, placement=rec._placement)
+    state, losses = rec.state, []
+    for _ in range(2):
+        if name.endswith("eager"):
+            state, loss = train_epoch(rec.model, rec.optimizer, rec.graph, rec.params, state,
+                                      rec._draws, rec.batch_size, placement=rec._placement)
+        else:
+            state, loss = runner.run(state, rec._draws)
+        losses.append(float(loss))
+    rec.state = state
+    rec.epoch_stats = [{"loss": x} for x in losses]
+    out.update(_state(rec, name))
+    out[f"{name}/draws"] = rec._draws.get_state().numpy()
+    if not name.endswith("eager"):
+        keys = [None] * dist.get_world_size()
+        dist.all_gather_object(keys, [list(k) for k in runner.keys])
+        info[f"{name}/keys"] = keys
+        info[f"{name}/chunks"] = runner.chunks
 
 
 def _propagation(rec):
@@ -360,6 +425,18 @@ def _worker(out_dir):
                         out[f"serve/{w}/{exclude}/{tag}/scores"] = s
                         out[f"serve/{w}/{exclude}/{tag}/ids"] = ids
                         out[f"serve/{w}/{exclude}/users"] = np.asarray(uids)
+            # waves padded to a power of two against the same waves unpadded
+            for w, b in enumerate(PAD_WAVES):
+                uids = rng.choice(data.user_num, b, replace=False).tolist()
+                for exclude in (True, False):
+                    for tag, (s, ids) in (
+                            ("padded", sharded.recommend_ids(uids, k=10, exclude_seen=exclude)),
+                            ("unpadded", _unpadded_wave(sharded, uids, 10, exclude))):
+                        out[f"serve_pad/{w}/{exclude}/{tag}/scores"] = s
+                        out[f"serve_pad/{w}/{exclude}/{tag}/ids"] = ids
+                    info[f"serve_pad/{w}/{exclude}/fetch"] = sharded.sharded_fetch(uids, 10,
+                                                                                    exclude)
+            info["serve_pad_keys"] = sorted("/".join(map(str, k)) for k in sharded.block.keys)
 
     # a model with replicated parameters (the predictor) and a post_step
     # that reads the updated tables (BUIR's EMA targets), at (1, 2)
@@ -382,14 +459,24 @@ def _worker(out_dir):
     info["odd_rows"] = {k: list(v.shape) for k, v in rec.params.items()}
     info["odd_sharded"] = sorted(rec.sharded_params)
     info["sharded_graphed"] = rec._graphed is not None
+    info["epoch_report"] = rec.epoch_report()
 
-    # the one trainer that runs its epochs eagerly refuses fused epochs
+    # over gloo the sharded trainer runs its epochs eagerly and refuses fused epochs
     try:
         trainer(default_config(**{**CONF, "eval.interval": 2, "train.fuse_epochs": True}),
                 graphs["segment"], "1x2").build()
         info["fuse_true_refused"] = None
     except ValueError as err:
         info["fuse_true_refused"] = str(err)
+
+    # GraphedEpoch with each layout's placement against the eager loop with it
+    for layout in LAYOUTS:
+        for chunk in GRAPHED_CHUNKS:
+            for mode in ("graphed", "eager"):
+                rec = trainer(default_config(**{**CONF, "graph.backend": "segment"}),
+                              graphs["segment"], layout)
+                rec.build()
+                _graphed_epochs(rec, out, info, f"graphed/{layout}/{chunk}/{mode}", chunk)
 
     # every registered model at (2, 1) against the single run: one step
     # (each rank's loss; the summed gradient), then one epoch
@@ -573,12 +660,67 @@ def test_odd_row_count_is_replicated_not_padded(world):
 
 
 def test_the_sharded_trainer_is_eager_and_refuses_fused_epochs(world):
-    """The sharded trainer keeps the eager loop (its collectives are not
-    captured yet) and refuses ``train.fuse_epochs: true``, the one trainer
-    that does since every model captures on the single-device one."""
+    """Over gloo, whose collectives run on the host and cannot be captured,
+    the sharded trainer keeps the eager loop, says so, and refuses
+    ``train.fuse_epochs: true`` naming gloo."""
     info = world[1]
     assert info["sharded_graphed"] is False
-    assert info["fuse_true_refused"] is not None and "fuse_epochs" in info["fuse_true_refused"]
+    assert info["epoch_report"] == {"epochs": "eager", "backend": "gloo",
+                                    "why": "gloo's collectives run on the host"}
+    refused = info["fuse_true_refused"]
+    assert refused is not None and "fuse_epochs" in refused and "gloo" in refused
+
+
+def test_the_sharded_trainer_captures_under_nccl_on_a_card():
+    """The capture decision: NCCL's groups on a card are captured, gloo's
+    never (on a card or the CPU); a ``GraphedEpoch`` given a gloo placement
+    on a card refuses it rather than run eagerly."""
+    from types import SimpleNamespace
+
+    from recommendation_tpu_torch.parallel.trainer import ShardedGraphRecommender
+    from recommendation_tpu_torch.train.graphed import GraphedEpoch
+
+    def rec(device, backend):
+        r = object.__new__(ShardedGraphRecommender)
+        r.graph = SimpleNamespace(device=torch.device(device))
+        r._placement = SimpleNamespace(backend=backend, capturable=backend == "nccl")
+        return r
+
+    assert rec("cuda", "nccl")._captures()
+    assert rec("cuda", "nccl").epoch_report() == {
+        "epochs": "captured", "backend": "nccl",
+        "why": "nccl's collectives are captured in the epoch's CUDA graphs"}
+    for device in ("cuda", "cpu"):
+        assert not rec(device, "gloo")._captures()
+        assert rec(device, "gloo").epoch_report()["epochs"] == "eager"
+    card = SimpleNamespace(device=torch.device("cuda"), n_edges=10)
+    with pytest.raises(ValueError, match="gloo"):
+        GraphedEpoch(None, SimpleNamespace(param_groups=[]), card, {}, 4,
+                     placement=SimpleNamespace(backend="gloo", capturable=False))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("chunk", GRAPHED_CHUNKS)
+def test_graphed_epoch_with_a_placement_is_the_eager_epoch(world, layout, chunk):
+    """``GraphedEpoch`` with the layout's placement (its bodies on the CPU)
+    gives ``train_epoch``'s bits over two consecutive epochs: tables,
+    moments, losses and the device generator's state; every rank ran the
+    same graph keys in the same order (the lockstep a capture needs)."""
+    cases, info = world
+    name = f"graphed/{layout}/{chunk}"
+    graphed, eager = _run(cases, name, "graphed"), _run(cases, name, "eager")
+    assert set(graphed) == set(eager) and {"user_emb", "exp_avg/item_emb", "loss",
+                                           "draws"} <= set(graphed)
+    for k in graphed:
+        assert np.array_equal(graphed[k], eager[k]), (name, k)
+    assert len(graphed["loss"]) == 2 and not np.array_equal(*graphed["loss"])
+    keys = info[f"{name}/graphed/keys"]
+    assert keys[0] == keys[1]
+    if chunk is None:
+        assert keys[0] == [["epoch"]] and info[f"{name}/graphed/chunks"] is None
+    else:
+        assert info[f"{name}/graphed/chunks"] == [[0, 2], [2, 2]]
+        assert keys[0] == [["sample"], ["chunk", 2]]
 
 
 def test_sharded_evaluator_equals_single_evaluator(world):
@@ -816,6 +958,24 @@ def test_per_rank_checkpoint_round_trip_and_resume(world):
 def test_restore_refuses_another_layout(world):
     _, info = world
     assert info["layout_mismatch"] is not None and "layout" in info["layout_mismatch"]
+
+
+def test_mesh_service_padded_wave_is_the_unpadded_wave(world):
+    """The mesh service pads a wave's users to a power of two with user 0
+    and rounds its candidate count up to a multiple of 64 (the JAX
+    service's rule, capped at the padded table's rows): its answers are the
+    unpadded wave's, scores and ids bit for bit."""
+    cases, info = world
+    for w, b in enumerate(PAD_WAVES):
+        for exclude in (True, False):
+            key = f"serve_pad/{w}/{exclude}"
+            for part in ("scores", "ids"):
+                got, want = cases[f"{key}/padded/{part}"], cases[f"{key}/unpadded/{part}"]
+                assert got.shape == (b, 10) and np.array_equal(got, want), (key, part)
+            fetch = info[f"{key}/fetch"]
+            assert fetch % 64 == 0 or fetch == 100, fetch  # 100 items: the padded table
+    assert any(k.startswith("merged_ids/16/") for k in info["serve_pad_keys"])
+    assert any(k.startswith("merged_ids/8/") for k in info["serve_pad_keys"])
 
 
 def test_mesh_service_agrees_with_single_service(world):
