@@ -130,9 +130,11 @@ What it does, in order (any failed phase exits non-zero):
      graph: GAT (bucketed attention) and GraphSAGE one step against their
      plain paths (``PlainGAT``: the plain S1 and S2 under autograd, in
      float64), then PROFILE_STEPS
-     profiled steps each; a segment graph of the same data, P1 over its
-     row-sorted view timed beside ``torch.sparse.mm``, one LightGCN step
-     against the plain segment matmul and PROFILE_STEPS profiled steps. On
+     profiled steps each; a segment graph of the same data, P2 over its
+     row-sorted view (``segment_sum``) against its plain version, itself
+     and P1 over the same view (bit for bit), timed beside P1,
+     ``torch.sparse.mm`` and its bound, one LightGCN step against the plain
+     segment matmul and PROFILE_STEPS profiled steps. On
      the hard set: GraphSAGE and GAT (dense backend, whose sums run the
      segment kernels) one step against their plain paths, then
      NEIGHBOR_EPOCHS epochs held to NEIGHBOR_GATES; LightGCN on the segment
@@ -147,7 +149,7 @@ What it does, in order (any failed phase exits non-zero):
      trust edges, each social matrix's entries and bucket slots, host
      seconds); one step of DiffNet, SEPT, SEPT-basic, MHCN and ESRF (SEPT
      past its warm-up, ESRF in its adversarial phase) on the bucketed
-     graph (P1 and K7 both ways) and on the segment graph (P1) against the
+     graph (P1 and K7 both ways) and on the segment graph (P2) against the
      plain COO product in float64; each trained SOCIAL_EPOCHS epochs on the
      dense graph and held to its SOCIAL_GATES gate, ESRF through phases 0,
      1 and 2 and SEPT into its SSL phase, each phase's loss falling, the
@@ -221,13 +223,13 @@ What it does, in order (any failed phase exits non-zero):
      step: each rank's loss, the data group's summed gradient within
      SHARDED_DATA_TOL, each rank's launches the single step's. Between
      the two it takes edge-parallel propagation (the segment backend at
-     data > 1: each rank pulls its row range of ``norm_adj`` with P1 and
+     data > 1: each rank pulls its row range of ``norm_adj`` with P2 and
      the rows are all-gathered) on the clustered set's segment graph:
      LightGCN's ``eval_embeddings`` on the initial tables the single
      forward bit for bit, LightGCN's and NCL's (K5/K6 too) first
      SHARDED_SNAPSHOT_STEPS steps held as the epochs are, each rank's
      launches the single run's, each rank's rows, slots (summing to the
-     view's) and P1 device µs a step reported; after the zoo, one step of
+     view's) and P2 device µs a step reported; after the zoo, one step of
      each EDGE_ZOO model (those whose step reads ``norm_adj`` or a
      ``with_vals`` copy of it) on the hard set's segment graphs, held as
      the zoo's steps are. The (1, 2) world's ranks then restore their run
@@ -268,7 +270,7 @@ What it does, in order (any failed phase exits non-zero):
      social phases replay theirs; and the fifteen other models
      (``graphed_zoo_check``:
      DirectAU and the dense zoo on the hard set's dense f32 graph, after
-     their gate runs; GraphSAGE and GAT on it, where S1, S2 and P1 launch,
+     their gate runs; GraphSAGE and GAT on it, where S1, S2 and P2 launch,
      in the neighbour phase; the social models on its bucketed trust graph,
      in the social phase) and GRAPHED_ONCE_EAGER's four configurations
      (LightGCN pointwise and ``n_negs`` 3, NCL's per-batch E-step, the
@@ -413,6 +415,7 @@ from recommendation_tpu_torch.ops.segment import (
     segment_softmax_rows_bwd,
     segment_softmax_rows_bwd_plain,
     segment_softmax_rows_plain,
+    segment_sum,
     slot_rows,
     weighted_pull,
     weighted_pull_dot,
@@ -2806,32 +2809,35 @@ BACKEND_RECALL_GAP = 0.004
 
 def neighbor_launches(model_name, graph, n_layers):
     """(per training step, per evaluation) launches of the segment kernels,
-    P1 and K7 on ``graph``: GAT's two attention layers (forward S2 with the
-    logits, one launch and one more over the split rows' pieces where the
-    graph's attention structure splits a row, and S1; backward S1 with the
-    head dot over the transpose, S2's backward with the slope, launched as
-    the forward, and two P1 per-row sums; on the bucket rows K7 once
-    forward and three times backward a layer);
-    GraphSAGE's L masked means (P1; the first takes no backward, its input
+    P1, P2 and K7 on ``graph``: GAT's two attention layers (forward S2 with
+    the logits, one launch and one more over the split rows' pieces where
+    the graph's attention structure splits a row, and S1; backward S1 with
+    the head dot over the transpose, S2's backward with the slope, launched
+    as the forward, and two per-row sums: P2 over the views, P1 over the
+    bucket rows with K7 once forward and three times backward a layer);
+    GraphSAGE's L masked means (P2; the first takes no backward, its input
     being the fixed features); LightGCN's, NCL's and the square models' L
-    segment matmuls both ways (their evaluation forward only); GRACE's and
-    G-BT's two views of two segment matmuls both ways, where the graph is
-    bucketed (their evaluation on the segment view once per layer)."""
+    segment matmuls both ways (P2; their evaluation forward only); GRACE's
+    and G-BT's two views of two segment matmuls both ways, where the graph
+    is bucketed (their evaluation on the segment view once per layer)."""
     backend = graph.backend
     if model_name == "gat":
         s2 = 2 * (1 + (attention_structure(graph).schedule[2] > 0))
         step = {"weighted_pull": 2, "weighted_pull_dot": 2, "attention_softmax": s2,
-                "attention_softmax_bwd": s2, "gather_sum": 4}
+                "attention_softmax_bwd": s2}
         per_eval = {"weighted_pull": 2, "attention_softmax": s2}
         if backend == "bucketed":
-            step["gather_rows"], per_eval["gather_rows"] = 8, 2
+            step.update(gather_sum=4, gather_rows=8)
+            per_eval["gather_rows"] = 2
+        else:
+            step["segment_sum"] = 4
         return step, per_eval
     if model_name == "graphsage":
-        return {"gather_sum": 2 * n_layers - 1}, {"gather_sum": n_layers}
+        return {"segment_sum": 2 * n_layers - 1}, {"segment_sum": n_layers}
     if model_name in ("grace", "gbt"):
-        return {"gather_sum": 8}, {"gather_sum": 2}
+        return {"segment_sum": 8}, {"segment_sum": 2}
     if model_name == "lightgcn" and backend == "segment":
-        return {"gather_sum": 2 * n_layers}, {"gather_sum": n_layers}
+        return {"segment_sum": 2 * n_layers}, {"segment_sum": n_layers}
     raise ValueError(f"no launch model for {model_name} on {backend}")
 
 
@@ -3110,22 +3116,38 @@ def segment_kernel_shapes(label, graph):
 
 
 def segment_view_pull(graph):
-    """P1 over the segment backend's row-sorted view of ``norm_adj`` (one
+    """P2 over the segment backend's row-sorted view of ``norm_adj`` (one
     LightGCN layer, d = EMB, the values in slot order) against its plain
-    version and itself, timed, beside one layer of ``torch.sparse.mm``."""
+    version at P1_TOL, itself and P1 over the same view bit for bit; P2,
+    P1, the plain version and one layer of ``torch.sparse.mm`` timed beside
+    the bytes bound."""
     adj = graph.norm_adj
     seg = adj.seg
     x = torch.from_numpy(np.random.default_rng(4).normal(size=(adj.n_cols, EMB)).astype(
         np.float32)).cuda()
     val = adj.vals[seg.perm]
-    got = check_pull("segment view", x, seg.idx, seg.row_ptr, val=val, schedule=seg.schedule)
+    got = segment_sum(x, seg, val)
+    again = segment_sum(x, seg, val)
+    p1 = gather_sum(x, seg.idx, seg.row_ptr, val=val, schedule=seg.schedule)
+    want = gather_sum_plain(x, seg.idx, seg.row_ptr, val=val)
+    torch.cuda.synchronize()
+    rtol, atol = P1_TOL
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    if not (torch.equal(got, again) and torch.equal(got, p1)):
+        raise RuntimeError("segment_sum over the view: two calls differ, or differ from P1's")
+    if not (scale > 0 and torch.isfinite(got).all()
+            and torch.allclose(got, want, rtol=rtol, atol=atol * scale)):
+        raise RuntimeError(f"segment_sum over the view disagrees with plain (max abs err {err})")
     a_csr = torch.sparse_csr_tensor(seg.row_ptr, seg.idx.long(), val, size=adj.shape)
     live = seg.idx[val != 0]
     bound = bytes_bound(seg.n_slots * 8 + seg.row_ptr.numel() * 8
                         + torch.unique(live).numel() * EMB * 4 + adj.n_rows * EMB * 4)
-    return {"shape": [adj.n_rows, seg.n_slots, EMB], **got,
-            "ms": time_ms(lambda: gather_sum(x, seg.idx, seg.row_ptr, val=val,
-                                             schedule=seg.schedule)),
+    return {"shape": [adj.n_rows, seg.n_slots, EMB], "max_abs_err": err, "max_abs": scale,
+            "equals_p1": True, "items": int(seg.sums[0].shape[0]),
+            "ms": time_ms(lambda: segment_sum(x, seg, val)),
+            "p1_ms": time_ms(lambda: gather_sum(x, seg.idx, seg.row_ptr, val=val,
+                                                schedule=seg.schedule)),
             "plain_ms": time_ms(lambda: gather_sum_plain(x, seg.idx, seg.row_ptr, val=val)),
             "library_ms": time_ms(lambda: torch.sparse.mm(a_csr, x)),
             "bound_ms": bound[0], "bound_by": bound[1]}
@@ -3201,7 +3223,7 @@ def segment_lightgcn_one_step(graph, batch_size):
 
 def selfloop_one_step(name, graph):
     """One GRACE or G-BT step where the graph is bucketed (its
-    ``norm_adj_selfloops`` on the segment backend: P1 both ways) against
+    ``norm_adj_selfloops`` on the segment backend: P2 both ways) against
     the plain segment matmul on the same masks; the gradients by relative
     Frobenius error as the zoo's card-against-CPU steps (GRACE's InfoNCE
     over [N, 2N] scores moves a bias's gradient by a few 1e-6 of its
@@ -3275,9 +3297,9 @@ def hard_neighbor_phase(data, f32, bucketed):
 def clustered_neighbor_phase(data, graph):
     """The clustered graph (bucketed, f32, d=64, B=8192): the segment
     kernels at its bucket tables; GAT (S1, S2 and P1 over the bucket rows, K7)
-    and GraphSAGE (P1 over the graph's cached views) one step against their
+    and GraphSAGE (P2 over the graph's cached views) one step against their
     plain paths, then PROFILE_STEPS profiled steps each; then LightGCN on a
-    segment graph of the same data (P1 over a 2M-slot view): P1 over its
+    segment graph of the same data (P2 over a 2M-slot view): P2 over its
     view timed, one step against the plain segment matmul, PROFILE_STEPS
     profiled steps."""
     out = {"kernels": segment_kernel_shapes("clustered", graph)}
@@ -3350,11 +3372,11 @@ def segment_kernel_rows(hard, clustered, card):
     return rows
 
 
-def add_neighbor_launches(k7_row, p1_row, hard, clustered):
-    """P1's and K7's launches on the neighbour phases' main paths into their
-    rows: the hard set's GraphSAGE, GAT and segment LightGCN runs, the
-    profiled GRACE and G-BT steps on the bucketed graph, the clustered GAT,
-    GraphSAGE and segment LightGCN profiles."""
+def add_neighbor_launches(k7_row, p1_row, p2_row, hard, clustered):
+    """P1's, P2's and K7's launches on the neighbour phases' main paths into
+    their rows: the hard set's GraphSAGE, GAT and segment LightGCN runs,
+    the profiled GRACE and G-BT steps on the bucketed graph, the clustered
+    GAT, GraphSAGE and segment LightGCN profiles."""
     runs = {f"hard_{r['model']}": r["launches"] for r in hard["train"]}
     runs["hard_lightgcn_segment"] = hard["lightgcn_backends"]["runs"][1]["launches"]
     for name in ("grace", "gbt"):
@@ -3363,13 +3385,27 @@ def add_neighbor_launches(k7_row, p1_row, hard, clustered):
         runs[f"clustered_{name}"] = clustered[name]["profile"]["kernel_launches"]
     runs["clustered_lightgcn_segment"] = clustered["lightgcn_segment"]["profile"][
         "kernel_launches"]
-    for row in (k7_row, p1_row):
+    for row in (k7_row, p1_row, p2_row):
         for label, launches in runs.items():
             n = launches.get(row["name"], 0)
             if n:
                 row["launches"] += n
                 row[f"launches_{label}"] = n
-    p1_row["segment_view"] = clustered["segment_view_pull"]
+
+
+def segment_sum_row(clustered, card):
+    """The kernels line's row of P2: its check and times over the clustered
+    segment view (``segment_view_pull``), P1's time over the same view
+    beside them; launches added by the phases that run it."""
+    view = dict(clustered["segment_view_pull"])
+    return {"name": "segment_sum", "route": "cuda",
+            "source": "recommendation_tpu_torch/csrc/segment_sum.cu",
+            "replaces": "recommendation_tpu/ops/spmm.py:34-50 (XLA's segment_sum over the "
+                        "row-sorted view, not a TPU kernel)",
+            "timed": "clustered segment view, d=64, with values", "launches": 0,
+            **{k: view.pop(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")},
+            "library": "torch.sparse.mm, CSR [N, N] x [N, 64] f32", "view": view, "card": card}
 
 # -- the social models: DiffNet, SEPT, SEPT-basic, MHCN, ESRF ---------------------------
 
@@ -3392,8 +3428,8 @@ SOCIAL_ZERO_GRADS = {"mhcn": ("sgating_b.3",)}
 
 def social_launches(model_name, backend, n_layers, n_layers_g=2, phase=2):
     """(per training step, per evaluation) launches of P1 and K7 of a social
-    model on a bucketed graph (P1 alone on a segment graph, whose products
-    run over the row-sorted views): each ``adj_matmul`` launches them once
+    model on a bucketed graph (P2 on a segment graph, whose products run
+    over the row-sorted views): each ``adj_matmul`` launches them once
     forward and once more backward where a gradient flows through it.
     DiffNet: L products over the trust matrix and one over R̂; SEPT: L over
     each of its four views (rec, edge-dropped, friend, sharing); SEPT-basic:
@@ -3412,10 +3448,10 @@ def social_launches(model_name, backend, n_layers, n_layers_g=2, phase=2):
                          "sept_social": (4 * L, L), "sept_basic": (L, L),
                          "mhcn": (5 * L + 3, 5 * L)}[model_name]
         bwd = fwd
-    step, evals = {"gather_sum": fwd + bwd}, {"gather_sum": per_eval}
-    if backend == "bucketed":
-        step["gather_rows"], evals["gather_rows"] = fwd + bwd, per_eval
-    return step, evals
+    if backend != "bucketed":
+        return {"segment_sum": fwd + bwd}, {"segment_sum": per_eval}
+    return ({"gather_sum": fwd + bwd, "gather_rows": fwd + bwd},
+            {"gather_sum": per_eval, "gather_rows": per_eval})
 
 
 def model_launches(model, backend, phase=2):
@@ -4398,7 +4434,7 @@ def edge_run(name, data, graph, conf, mesh=None):
     SHARDED_STEP_SEED, through the trainer's step loop and placement
     (``train.loop.run_steps``), under ``torch.profiler``. LightGCN's
     ``eval_embeddings`` on the initial tables first. Returns (the report:
-    the propagation path with the rank's rows and slots, launches, P1's
+    the propagation path with the rank's rows and slots, launches, P2's
     device µs a step, the steps' host seconds, the last loss; the
     tables: the forward where it was taken, ``tables_and_moments`` after the
     steps)."""
@@ -4442,9 +4478,9 @@ def edge_run(name, data, graph, conf, mesh=None):
     report["launches"] = all_counts()
     report["edge_parallel_products"] = spmm.edge_parallel_matmul.calls - calls
     t0 = time.perf_counter()
-    p1_us = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type.name == "CUDA" and "gather_sum" in e.key)
-    report["p1_device_us_per_step"] = p1_us / k if p1_us > 0 else "not measured"
+    p2_us = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type.name == "CUDA" and "segment_sum" in e.key)
+    report["p2_device_us_per_step"] = p2_us / k if p2_us > 0 else "not measured"
     seconds["profile_read"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     tables["steps"] = tables_and_moments(rec)
@@ -4704,10 +4740,10 @@ def edge_checks(out, single, zoo_single, card):
                         "tables_equal_on_ranks": True, "launches_by_rank": launches,
                         "edge_parallel_products_by_rank": [r[name]["edge_parallel_products"]
                                                            for r in ranks],
-                        "p1_device_us_per_step_by_rank": [r[name]["p1_device_us_per_step"]
+                        "p2_device_us_per_step_by_rank": [r[name]["p2_device_us_per_step"]
                                                           for r in ranks],
-                        "single_p1_device_us_per_step":
-                            single_reports[name]["p1_device_us_per_step"],
+                        "single_p2_device_us_per_step":
+                            single_reports[name]["p2_device_us_per_step"],
                         "host_s_per_step_by_rank": [r[name]["host_s"] / SHARDED_SNAPSHOT_STEPS
                                                     for r in ranks],
                         "single_host_s_per_step":
@@ -4738,8 +4774,8 @@ def edge_checks(out, single, zoo_single, card):
                        "state_equal_single": rank_steps[0]["state_digest"]
                        == single["state_digest"]}
     print(f"edge-parallel 2x1 ({card}): ranges {props[0]['ranges']}, slots "
-          f"{[p['slots'] for p in props]} of {view_slots}, P1 device us a step by rank "
-          f"{ {n: m['p1_device_us_per_step_by_rank'] for n, m in models.items()} }")
+          f"{[p['slots'] for p in props]} of {view_slots}, P2 device us a step by rank "
+          f"{ {n: m['p2_device_us_per_step_by_rank'] for n, m in models.items()} }")
     return {"card": card, "set": "clustered, segment, f32, d=64, L=3, B=8192",
             "ranges": props[0]["ranges"], "slots_by_rank": [p["slots"] for p in props],
             "transpose_slots_by_rank": [p["transpose_slots"] for p in props],
@@ -5917,7 +5953,8 @@ def main() -> int:
         run["card"] = card
     add_zoo_launches((rows[torch.float32], bwd_rows[torch.float32]), (k7_row, p1_row), zoo,
                      bucketed_zoo)
-    add_neighbor_launches(k7_row, p1_row, hard_nb, clustered_nb)
+    p2_row = segment_sum_row(clustered_nb, card)
+    add_neighbor_launches(k7_row, p1_row, p2_row, hard_nb, clustered_nb)
     social = social_phase(card)
     stamp("social")
     add_social_launches(k7_row, p1_row, social)
@@ -5927,8 +5964,8 @@ def main() -> int:
         row["launches_hard_lightgcn_dense"] = dense_lightgcn[row["name"]]
     seg_rows = segment_kernel_rows(hard_nb, clustered_nb, card)
     kernel_rows = (list(rows.values()) + list(bwd_rows.values()) + list(layer_rows.values())
-                   + list(layer_bwd_rows.values()) + lse_rows + [k7_row, p1_row] + seg_rows
-                   + [q1_row, p1_int8_row, fused_row])
+                   + list(layer_bwd_rows.values()) + lse_rows + [k7_row, p1_row, p2_row]
+                   + seg_rows + [q1_row, p1_int8_row, fused_row])
     add_sharded_launches(kernel_rows, sharded)
     add_graphed_launches(kernel_rows)
     for row in kernel_rows:

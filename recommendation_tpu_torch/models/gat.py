@@ -33,8 +33,9 @@ gives ``dh`` (each slot's weight read at its forward slot) and ``datt`` (S3
 folded in: each gathered cotangent row dotted with the row's source row,
 the same rows the JAX package gathers twice, `gat.py:157,191`), then S2's
 backward with the dropout scale, the LeakyReLU's slope and the mask in it
-(``dz``, the logits' cotangent), ``dα_dst`` the per-row sums (P1 over the
-forward view) and ``dα_src`` P1 over the transpose view. No
+(``dz``, the logits' cotangent), ``dα_dst`` the per-row sums over the
+forward view and ``dα_src`` those over the transpose view (P2 where the
+rows are a view's, P1 on the bucket rows). No
 atomics: a step repeats bit for bit. ``attention_plain`` computes the
 same with the plain versions under autograd (the reference), and
 ``gat_layer_bucketed`` with ``bucketed_row_nodes`` keeps the JAX package's
@@ -58,9 +59,11 @@ from recommendation_tpu_torch.ops.gather import gather_rows, gather_sum
 from recommendation_tpu_torch.ops.group import group_rows
 from recommendation_tpu_torch.ops.rows import take_rows
 from recommendation_tpu_torch.ops.segment import (
+    SegmentCSR,
     attention_softmax,
     attention_softmax_bwd,
     logits_plain,
+    segment_sum,
     segment_softmax_rows_plain,
     transpose_map,
     weighted_pull,
@@ -83,7 +86,9 @@ class Attention:
     ``t_schedule``, ``t_out_pos``, ``t_node`` i32 [rows] each row's
     source node (None where the rows are the nodes). ``edge_perm`` i64
     [S]: each forward slot's position in the order the dropout is drawn in
-    (None: slot order)."""
+    (None: slot order). ``view`` and ``t_view``: the two views whose rows
+    these are, for P2's sums (None on the bucket rows, whose sums are
+    P1's)."""
 
     row_ptr: torch.Tensor
     idx: torch.Tensor
@@ -102,6 +107,8 @@ class Attention:
     t_node: Optional[torch.Tensor]
     edge_perm: Optional[torch.Tensor]
     n_draw: int  # rows of the dropout draw
+    view: Optional[SegmentCSR] = None
+    t_view: Optional[SegmentCSR] = None
 
 
 def segment_attention(graph) -> Attention:
@@ -118,7 +125,7 @@ def segment_attention(graph) -> Attention:
                      t_row_ptr=by_src.row_ptr, t_idx=by_src.idx, t2f=t2f, t_live=t_live,
                      t_fpos=_live_pos(t2f, t_live), t_schedule=by_src.schedule,
                      t_out_pos=None, t_node=None, edge_perm=by_dst.perm,
-                     n_draw=int(mask.shape[0]))
+                     n_draw=int(mask.shape[0]), view=by_dst, t_view=by_src)
 
 
 def _live_pos(t2f: torch.Tensor, t_live: torch.Tensor) -> torch.Tensor:
@@ -167,9 +174,10 @@ class AttentionPull(torch.autograd.Function):
     ``att`` the masked softmax of the logits: S2 with the logits and the
     dropout scale fused in, S1 (and K7 on the bucketed path) forward; S1
     with the head dot over the transpose view, S2's backward with the
-    dropout scale, the LeakyReLU's slope and the mask fused in, and P1 (and
-    K7) backward. ``keep`` f32 [S, H] carries the dropout scale (None: no
-    dropout); it and the structure take no gradient."""
+    dropout scale, the LeakyReLU's slope and the mask fused in, and P2 (P1
+    and K7 on the bucket rows) backward. ``keep`` f32 [S, H] carries the
+    dropout scale (None: no dropout); it and the structure take no
+    gradient."""
 
     @staticmethod
     def forward(ctx, h, a_src, a_dst, keep, st, neg_slope):
@@ -191,11 +199,21 @@ class AttentionPull(torch.autograd.Function):
         dh = _to_nodes(dh_rows, st.t_out_pos)
         dz = attention_softmax_bwd(att, datt, a_src, a_dst, st.idx, st.dst, st.row_ptr, st.live,
                                    neg_slope, st.schedule, keep)
-        da_dst = _to_nodes(gather_sum(dz, st.ident, st.row_ptr, schedule=st.schedule),
-                           st.out_pos)
-        da_src = _to_nodes(gather_sum(dz, st.t2f, st.t_row_ptr, val=st.t_live.float(),
-                                      schedule=st.t_schedule), st.t_out_pos)
-        return dh, da_src, da_dst, None, None, None
+        return dh, *_logit_sums(dz, st), None, None, None
+
+
+def _logit_sums(dz: torch.Tensor, st: Attention) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dα_src, dα_dst): the logits' cotangent ``dz`` [S, H] summed over
+    each transpose row's live slots (at their forward slots) and over each
+    forward row, in nodes: P2 over the views, P1 and K7 over the bucket
+    rows."""
+    t_live = st.t_live.float()
+    if st.view is not None:
+        return (segment_sum(dz, st.t_view, val=t_live, idx=st.t2f),
+                segment_sum(dz, st.view, idx=st.ident))
+    return (_to_nodes(gather_sum(dz, st.t2f, st.t_row_ptr, val=t_live, schedule=st.t_schedule),
+                      st.t_out_pos),
+            _to_nodes(gather_sum(dz, st.ident, st.row_ptr, schedule=st.schedule), st.out_pos))
 
 
 def attention_plain(h, a_src, a_dst, keep, st: Attention, neg_slope):

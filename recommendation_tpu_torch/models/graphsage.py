@@ -17,10 +17,10 @@ the features exactly as they are (no L2 reaches them either; the forward
 detaches them too).
 
 The aggregation is ``masked_segment_mean`` over both directions of every
-edge (``bidirectional_edges``), on every backend: P1 over the graph's
+edge (``bidirectional_edges``), on every backend: P2 over the graph's
 cached destination view (``DeviceGraph.bipartite_views``) with the edge
 mask in slot order as the values and 1/max(count, 1) as the row scale,
-and P1 over the source view as its backward, where the JAX package
+and P2 over the source view as its backward, where the JAX package
 gathers the [2E, d] messages and ``segment_sum``s them. Dropout masks come
 from ``graph.augment.uniform``, as every mask of the port's models.
 """
@@ -53,7 +53,7 @@ def masked_segment_mean(x: torch.Tensor, dst_view: SegmentCSR, src_view: Segment
     """The JAX package's ``masked_segment_mean(x[src], dst, mask, n)``: per
     destination, the masked sum of its sources' rows over the masked count
     (at least 1). ``dst_view``/``src_view`` are the edges' views by
-    destination and by source, ``mask`` f32 over the edge positions. P1
+    destination and by source, ``mask`` f32 over the edge positions. P2
     over ``dst_view`` forward, over ``src_view`` backward."""
     val = mask[dst_view.perm]
     post = 1.0 / torch.clamp(row_counts(dst_view, val), min=1.0)

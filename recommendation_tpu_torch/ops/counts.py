@@ -18,7 +18,7 @@ Counter = Tuple[Callable, str]
 def kernel_wrappers() -> tuple:
     """The port's kernel wrappers, each counting its launches in
     ``.launches``: K1-K4, K5/K6, K7, P1, Q1, S1 (and with the head dot),
-    S2 (on given logits and with GAT's fused in)."""
+    S2 (on given logits and with GAT's fused in), P2."""
     from recommendation_tpu_torch.ops.gather import gather_rows, gather_sum, quantize_rows
     from recommendation_tpu_torch.ops.lse import catalog_lse, catalog_lse_bwd
     from recommendation_tpu_torch.ops.prop import (
@@ -32,6 +32,7 @@ def kernel_wrappers() -> tuple:
         attention_softmax_bwd,
         segment_softmax_rows,
         segment_softmax_rows_bwd,
+        segment_sum,
         weighted_pull,
         weighted_pull_dot,
     )
@@ -39,7 +40,7 @@ def kernel_wrappers() -> tuple:
     return (chain_mean, chain_mean_bwd, chain_mean_layer, chain_mean_layer_bwd, catalog_lse,
             catalog_lse_bwd, gather_rows, gather_sum, quantize_rows, weighted_pull,
             weighted_pull_dot, segment_softmax_rows, segment_softmax_rows_bwd,
-            attention_softmax, attention_softmax_bwd)
+            attention_softmax, attention_softmax_bwd, segment_sum)
 
 
 def launch_counts() -> Dict[Counter, int]:

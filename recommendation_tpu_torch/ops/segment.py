@@ -39,9 +39,20 @@ Kernels, ``csrc/segment.cu`` (built for ``sm_90a`` at first use):
 ``segment_dot(a, ia, b, ib)`` (``out[s, h] = a[ia[s], h] · b[ib[s], h]``)
 stays as the reference of the folded dot: it runs on CPU tensors only.
 
-The single-head sums (the segment matmul, the masked mean, the per-row and
-per-source sums of GAT's logit gradients) are P1 (``ops/gather.py::
-gather_sum``) over a view: it sums a row's slots in slot order too.
+The single-head sums over a view (the segment matmul, the masked mean, the
+per-row and per-source sums of GAT's logit gradients) are kernel P2,
+``csrc/segment_sum.cu``:
+
+  * P2 ``segment_sum(src, view, val, post, idx)``: ``y[r] = post[r] ·
+    Σ_{s ∈ row r} val[s] · src[idx[s]]``, P1's function (``ops/gather.py::
+    gather_sum``; its plain version ``gather_sum_plain`` is P2's too) over
+    the view's rows, whose lengths mix. It runs on a work list of its own,
+    ``sum_schedule``: runs of consecutive rows of at most ``CHUNK`` slots
+    and ``SUM_ROWS`` rows together, and the ``CHUNK``-slot pieces of longer
+    rows, counted from each row's first slot as P1 counts them, so P2
+    equals P1 over the same view bit for bit, and a row sums alike in a
+    whole view and in its cuts (``row_range_view``, ``rows_transpose_view``).
+    P1 stays the bucket rows' pull.
 
 For CUDA tensors each kernel's wrapper launches its kernel or raises; CPU
 tensors run the plain version. Each counts its launches in ``.launches``.
@@ -59,12 +70,55 @@ import torch
 import torch.nn.functional as F
 
 from recommendation_tpu_torch.ops.gather import (
+    CHUNK,
     _check_device,
     _ptr,
     check_schedule,
-    gather_sum,
+    gather_sum_plain,
     pull_schedule,
 )
+
+SUM_ROWS = 32  # rows a P2 work item holds at most (csrc/segment_sum.cu's MAX_ROWS)
+
+
+def sum_schedule(row_ptr) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """P2's work list for the rows of ``row_ptr`` (int64, on the device the
+    kernel runs on): i32 [W, 4] items and i64 [W + 1] each item's first slot
+    (the items cover the slots in order, so item w ends where w + 1 starts),
+    and the number of partial sums the split rows need. An item is a run of
+    consecutive rows of at most ``CHUNK`` slots and ``SUM_ROWS`` rows
+    together, empty rows included: (its first row, its rows, -1, 0); or one
+    ``CHUNK``-slot piece of a longer row, counted from the row's first slot:
+    (the row, the piece, the row's first partial, the row's pieces), the
+    partials numbered as ``pull_schedule`` numbers them. A run is taken
+    greedily from its first row. Built on the host (it reads ``row_ptr``)."""
+    ptr = row_ptr.cpu().numpy().astype(np.int64)
+    n = len(ptr) - 1
+    lens = np.diff(ptr)
+    split = lens > CHUNK
+    pieces = np.where(split, -(-lens // CHUNK), 0)
+    first = np.cumsum(pieces) - pieces
+    # a run from row r ends at the row that would take it past CHUNK slots
+    # (a split row does), or at row r + SUM_ROWS
+    run_end = np.minimum(np.searchsorted(ptr, ptr[:-1] + CHUNK, side="right") - 1,
+                         np.arange(n) + SUM_ROWS)
+    heads, r = [], 0
+    while r < n:  # one step a run or a split row
+        heads.append(r)
+        r = r + 1 if split[r] else int(run_end[r])
+    heads = np.asarray(heads, dtype=np.int64)
+    is_run = ~split[heads]
+    count = np.where(is_run, 1, pieces[heads])  # items a step gives
+    rows = np.repeat(heads, count)
+    piece = np.arange(int(count.sum())) - np.repeat(np.cumsum(count) - count, count)
+    ends = np.append(heads[1:], n)
+    run = np.repeat(is_run, count)
+    work = np.stack([rows, np.where(run, np.repeat(ends - heads, count), piece),
+                     np.where(run, -1, first[rows]), np.where(run, 0, pieces[rows])], axis=1)
+    starts = np.append(ptr[rows] + np.where(run, 0, piece * CHUNK), ptr[-1]).astype(np.int64)
+    dev = row_ptr.device
+    return (torch.from_numpy(work.astype(np.int32).reshape(-1, 4)).to(dev),
+            torch.from_numpy(starts).to(dev), int(pieces.sum()))
 
 
 @dataclasses.dataclass
@@ -73,8 +127,9 @@ class SegmentCSR:
     their COO order). ``row_ptr`` i64 [n_rows + 1]; ``idx`` i32 [S] the
     column (source) of each slot; ``slot_row`` i32 [S] the row of each
     slot; ``perm`` i64 [S] each slot's COO position; ``work``,
-    ``work_start`` and ``n_partials`` are P1's and S1's schedule over the
-    rows (``ops/gather.py::pull_schedule``)."""
+    ``work_start`` and ``n_partials`` are S1's and S2's schedule over the
+    rows (``ops/gather.py::pull_schedule``); ``sums`` is P2's
+    (``sum_schedule``)."""
 
     row_ptr: torch.Tensor
     idx: torch.Tensor
@@ -83,6 +138,7 @@ class SegmentCSR:
     work: torch.Tensor
     work_start: torch.Tensor
     n_partials: int
+    sums: Tuple[torch.Tensor, torch.Tensor, int]
     n_rows: int
     n_cols: int
 
@@ -96,14 +152,14 @@ class SegmentCSR:
 
     @functools.cached_property
     def ident(self) -> torch.Tensor:
-        """i32 [S] 0, 1, .., S − 1: P1 over these sums per-slot rows by row."""
+        """i32 [S] 0, 1, .., S − 1: P2 over these sums per-slot rows by row."""
         return torch.arange(self.n_slots, dtype=torch.int32, device=self.idx.device)
 
 
 def segment_csr(rows: torch.Tensor, cols: torch.Tensor, n_rows: int, n_cols: int) -> SegmentCSR:
     """The row-sorted view of the COO (rows, cols) on their device: a
     stable sort by row, then the row pointers from the row counts (integer
-    sums) and P1's schedule (a host read of the row pointers)."""
+    sums) and the kernels' schedules (a host read of the row pointers)."""
     rows = rows.long()
     perm = torch.argsort(rows, stable=True)
     counts = torch.bincount(rows, minlength=n_rows)
@@ -111,8 +167,8 @@ def segment_csr(rows: torch.Tensor, cols: torch.Tensor, n_rows: int, n_cols: int
     work, work_start, n_partials = pull_schedule(row_ptr)
     return SegmentCSR(row_ptr=row_ptr, idx=cols[perm].to(torch.int32).contiguous(),
                       slot_row=rows[perm].to(torch.int32).contiguous(), perm=perm, work=work,
-                      work_start=work_start, n_partials=n_partials, n_rows=n_rows,
-                      n_cols=n_cols)
+                      work_start=work_start, n_partials=n_partials,
+                      sums=sum_schedule(row_ptr), n_rows=n_rows, n_cols=n_cols)
 
 
 def row_cut(row_ptr: torch.Tensor, parts: int) -> Tuple[Tuple[int, int], ...]:
@@ -155,8 +211,8 @@ def check_row_cut(ranges, row_ptr: torch.Tensor) -> None:
 
 def row_range_view(view: SegmentCSR, lo: int, hi: int) -> SegmentCSR:
     """Rows ``[lo, hi)`` of ``view`` as a view of their own (row r − lo of
-    it is row r), their slots in the same order, with its own P1 schedule.
-    P1 sums each of its rows as it sums that row of ``view``: a row's
+    it is row r), their slots in the same order, with its own schedules.
+    P2 sums each of its rows as it sums that row of ``view``: a row's
     pieces depend on its length and ``CHUNK`` only."""
     ptr = view.row_ptr.cpu()
     s0, s1 = int(ptr[lo]), int(ptr[hi])
@@ -165,14 +221,15 @@ def row_range_view(view: SegmentCSR, lo: int, hi: int) -> SegmentCSR:
     return SegmentCSR(row_ptr=row_ptr, idx=view.idx[s0:s1].clone(),
                       slot_row=(view.slot_row[s0:s1] - lo).to(torch.int32),
                       perm=view.perm[s0:s1].clone(), work=work, work_start=work_start,
-                      n_partials=n_partials, n_rows=hi - lo, n_cols=view.n_cols)
+                      n_partials=n_partials, sums=sum_schedule(row_ptr), n_rows=hi - lo,
+                      n_cols=view.n_cols)
 
 
 def rows_transpose_view(view_t: SegmentCSR, lo: int, hi: int) -> SegmentCSR:
     """The slots of the transpose view ``view_t`` whose forward row (their
     ``idx``) lies in ``[lo, hi)``, in their order, that index rebased to
     ``lo``: the transpose of ``row_range_view(view, lo, hi)``, every row of
-    ``view_t`` kept (most of them shorter), with its own P1 schedule. P1
+    ``view_t`` kept (most of them shorter), with its own schedules. P2
     over it pulls rows ``[lo, hi)`` of a gradient back to all of
     ``view_t``'s rows."""
     keep = (view_t.idx >= lo) & (view_t.idx < hi)
@@ -182,8 +239,8 @@ def rows_transpose_view(view_t: SegmentCSR, lo: int, hi: int) -> SegmentCSR:
     work, work_start, n_partials = pull_schedule(row_ptr)
     return SegmentCSR(row_ptr=row_ptr, idx=(view_t.idx[keep] - lo).to(torch.int32),
                       slot_row=rows.to(torch.int32), perm=view_t.perm[keep], work=work,
-                      work_start=work_start, n_partials=n_partials, n_rows=view_t.n_rows,
-                      n_cols=hi - lo)
+                      work_start=work_start, n_partials=n_partials, sums=sum_schedule(row_ptr),
+                      n_rows=view_t.n_rows, n_cols=hi - lo)
 
 
 def transpose_map(fwd: SegmentCSR, bwd: SegmentCSR) -> torch.Tensor:
@@ -674,6 +731,74 @@ def segment_dot(a: torch.Tensor, ia: torch.Tensor, b: torch.Tensor, ib: torch.Te
     return segment_dot_plain(a, ia, b, ib, heads)
 
 
+def _sum_lib():
+    from recommendation_tpu_torch.ops.build import load
+
+    lib = load("segment_sum")
+    if not getattr(lib, "_typed", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.segment_sum.argtypes = [ptr] * 5 + [i32] + [ptr] * 2 + [i32] + [ptr] * 2 + [i32] + [ptr] * 2
+        lib.segment_sum.restype = i32
+        lib.segment_sum_error_string.argtypes = [i32]
+        lib.segment_sum_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def segment_sum(src: torch.Tensor, view: SegmentCSR, val: Optional[torch.Tensor] = None,
+                post: Optional[torch.Tensor] = None, idx: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """P2: f32 [R, d], ``y[r] = post[r] · Σ_{s ∈ row r of view} val[s] ·
+    src[idx[s]]``, each row's slots in slot order.
+
+    ``src`` [N, d] float32; ``view`` the rows (its ``row_ptr`` and P2's work
+    list ``sums``); ``idx`` [S] int32, the source row of each of the view's
+    slots (None: ``view.idx``); ``val`` [S] and ``post`` [R] float32. CUDA
+    tensors run kernel P2 (one launch), CPU tensors ``gather_sum_plain``,
+    the same function. P2 takes no other source type and none of P1's
+    epilogues (``add``, ``acc``, ``final``, ``requant``)."""
+    idx = view.idx if idx is None else idx
+    row_ptr = view.row_ptr
+    if src.dim() != 2 or idx.shape != (view.n_slots,):
+        raise ValueError(f"segment_sum wants src [N, d] and idx [{view.n_slots}], got "
+                         f"{tuple(src.shape)}, {tuple(idx.shape)}")
+    if src.dtype != torch.float32:
+        raise TypeError(f"segment_sum takes a float32 source, got {src.dtype}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"segment_sum takes int32 idx, got {idx.dtype}")
+    _check_row_ptr("segment_sum", row_ptr)
+    n_out, d = row_ptr.shape[0] - 1, src.shape[1]
+    for name, t, shape in (("val", val, (view.n_slots,)), ("post", post, (n_out,))):
+        if t is not None and (t.dtype != torch.float32 or tuple(t.shape) != shape):
+            raise ValueError(f"segment_sum {name} must be float32 {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    _check_device("segment_sum", [t for t in (src, idx, row_ptr, val, post) if t is not None])
+    if src.device.type == "cpu":
+        return gather_sum_plain(src, idx, row_ptr, val, post)
+    out = torch.empty((n_out, d), dtype=torch.float32, device=src.device)
+    if out.numel() == 0:
+        return out
+    work, work_start, n_partials = check_schedule("segment_sum", view.sums, src.device)
+    partial = count = None
+    if n_partials:
+        partial = torch.empty((n_partials, d), dtype=torch.float32, device=src.device)
+        count = torch.empty(n_partials, dtype=torch.int32, device=src.device)
+    lib = _sum_lib()
+    with torch.cuda.device(src.device):
+        code = lib.segment_sum(src.data_ptr(), idx.data_ptr(), row_ptr.data_ptr(),
+                               work.data_ptr(), work_start.data_ptr(), work.shape[0], _ptr(val),
+                               _ptr(post), d, _ptr(partial), _ptr(count), n_partials,
+                               out.data_ptr(), _stream(src))
+    if code != 0:
+        raise RuntimeError(f"segment_sum kernel launch failed: "
+                           f"{lib.segment_sum_error_string(code).decode()}")
+    segment_sum.launches += 1
+    return out
+
+
+segment_sum.launches = 0
+
+
 # -- autograd over the views ------------------------------------------------------
 
 
@@ -696,24 +821,22 @@ class SegmentSoftmax(torch.autograd.Function):
 
 
 class SegmentPull(torch.autograd.Function):
-    """``y[r] = post[r] · Σ_{s ∈ row r} val[s] · x[idx[s]]`` over ``fwd`` (P1),
+    """``y[r] = post[r] · Σ_{s ∈ row r} val[s] · x[idx[s]]`` over ``fwd`` (P2),
     with the backward ``dx[n] = Σ_{t ∈ row n of bwd} val_t[t] · post[idx_t[t]]
-    · g[idx_t[t]]`` over the transpose view ``bwd`` (P1 again): no scatter.
+    · g[idx_t[t]]`` over the transpose view ``bwd`` (P2 again): no scatter.
     ``val`` and ``val_t`` are the same per-edge values in the two views'
     slot orders (None: 1); neither takes a gradient, nor does ``post``."""
 
     @staticmethod
     def forward(ctx, x, fwd, bwd, val, val_t, post):
         ctx.args = (bwd, val_t, post)
-        return gather_sum(x.float().contiguous(), fwd.idx, fwd.row_ptr, val=val, post=post,
-                          schedule=fwd.schedule)
+        return segment_sum(x.float().contiguous(), fwd, val=val, post=post)
 
     @staticmethod
     def backward(ctx, g):
         bwd, val_t, post = ctx.args
         g = g.contiguous() if post is None else (g * post[:, None]).contiguous()
-        dx = gather_sum(g, bwd.idx, bwd.row_ptr, val=val_t, schedule=bwd.schedule)
-        return dx, None, None, None, None, None
+        return segment_sum(g, bwd, val=val_t), None, None, None, None, None
 
 
 def segment_pull(x: torch.Tensor, fwd: SegmentCSR, bwd: SegmentCSR,

@@ -7,7 +7,7 @@ dense one, a product with the materialized (U+I)² matrix, which the JAX
 package leaves to XLA and the port to ``torch.matmul``: in the bf16 regime
 both operands are rounded to bf16 and the products are summed in f32, as
 the JAX package's ``preferred_element_type=f32`` does. The segment one,
-``_segment_matmul``: P1 over the adjacency's row-sorted view
+``_segment_matmul``: P2 over the adjacency's row-sorted view
 (``ops/segment.py``) forward and over its transpose view backward, where
 the JAX package gathers the [E, d] messages and ``segment_sum``s them. The
 ``pallas`` backend runs the segment branch, with one logged warning a
@@ -16,12 +16,12 @@ process, as the JAX package's ``ops/pallas_spmm.py`` does.
 A segment adjacency with an edge shard (``DeviceAdj.shard``, placed by a
 sharded trainer where the JAX package shards the COO over its data axis,
 ``recommendation_tpu/parallel/trainer.py:93-97``) is edge-parallel: each
-data rank runs P1 over its row range of the row-sorted view and the rows
+data rank runs P2 over its row range of the row-sorted view and the rows
 are all-gathered over the data group (``parallel.collectives.
 gather_row_blocks``); the backward sums the group's gradient shares, keeps
 the rank's rows and pulls them through the transpose view's slots of those
 rows, which gives the rank's share of ``Aᵀ g``. Each row sums its slots in
-the order the whole view's P1 sums them, so the forward is the replicated
+the order the whole view's P2 sums them, so the forward is the replicated
 one bit for bit on the card. Every rank of the group must make each such
 call. ``edge_parallel_matmul.calls`` counts them.
 
@@ -31,7 +31,7 @@ float64: the reference a step on the card is held against.
 
 ``segment_softmax`` and ``segment_mean`` take the JAX signatures
 (per-edge values, a segment id per edge in any order): a stable sort per
-call, then S2 or P1 over the sorted slots. The models use their cached
+call, then S2 or P2 over the sorted slots. The models use their cached
 views instead.
 """
 
@@ -44,8 +44,12 @@ import torch
 
 from recommendation_tpu_torch.graph.bucketed import bucketed_matmul
 from recommendation_tpu_torch.graph.device import DeviceAdj
-from recommendation_tpu_torch.ops.gather import gather_sum
-from recommendation_tpu_torch.ops.segment import SegmentSoftmax, segment_csr, segment_pull
+from recommendation_tpu_torch.ops.segment import (
+    SegmentSoftmax,
+    segment_csr,
+    segment_pull,
+    segment_sum,
+)
 from recommendation_tpu_torch.parallel.collectives import gather_row_blocks
 
 _warned = False
@@ -78,7 +82,7 @@ def adj_matmul(adj: DeviceAdj, x: torch.Tensor) -> torch.Tensor:
 
 
 def edge_parallel_matmul(adj: DeviceAdj, x: torch.Tensor) -> torch.Tensor:
-    """``adj @ x`` over an edge-sharded segment adjacency: P1 over the
+    """``adj @ x`` over an edge-sharded segment adjacency: P2 over the
     rank's row range (``shard.fwd``, the values in its slot order), the
     transpose view of those rows (``shard.bwd``) as the backward's, and the
     rows gathered over the data group."""
@@ -92,7 +96,7 @@ edge_parallel_matmul.calls = 0
 
 
 def _segment_matmul(adj: DeviceAdj, x: torch.Tensor) -> torch.Tensor:
-    """``adj @ x`` over the row-sorted views: P1 with the values in slot
+    """``adj @ x`` over the row-sorted views: P2 with the values in slot
     order, ``Aᵀ g`` through the transpose view as the backward. The edge
     values take no gradient (as on the bucketed backend; ``segment_pull``
     raises if they require one). With an edge shard, edge-parallel."""
@@ -144,15 +148,15 @@ def segment_softmax(scores: torch.Tensor, segments: torch.Tensor,
 
 
 class _SortedMean(torch.autograd.Function):
-    """P1 over the sorted slots (``idx`` the COO position of each slot,
-    ``post`` 1/max(count, 1)); the backward gathers ``post · g`` back to
-    each edge by its segment."""
+    """P2 over the sorted slots (the source row of each slot its COO
+    position, ``post`` 1/max(count, 1)); the backward gathers ``post · g``
+    back to each edge by its segment."""
 
     @staticmethod
     def forward(ctx, values, view, segments, post):
         ctx.args = (segments, post)
-        return gather_sum(values.float().contiguous(), view.perm.to(torch.int32), view.row_ptr,
-                          post=post, schedule=view.schedule)
+        return segment_sum(values.float().contiguous(), view, post=post,
+                           idx=view.perm.to(torch.int32))
 
     @staticmethod
     def backward(ctx, g):
@@ -163,7 +167,7 @@ class _SortedMean(torch.autograd.Function):
 def segment_mean(values: torch.Tensor, segments: torch.Tensor, num_segments: int) -> torch.Tensor:
     """Per-segment mean of the rows of ``values`` [E, d] (the JAX package's
     ``segment_mean``: the sums over the counts, at least 1). A stable sort
-    of ``segments``, then P1 over the sorted slots."""
+    of ``segments``, then P2 over the sorted slots."""
     view = segment_csr(segments, segments, num_segments, num_segments)
     counts = torch.diff(view.row_ptr).float()
     return _SortedMean.apply(values, view, segments, 1.0 / torch.clamp(counts, min=1.0))

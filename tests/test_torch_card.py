@@ -27,11 +27,16 @@ slot reaches exactly 0; K5 and K6 at d = 1024; one step of GAT (dense,
 segment and bucketed backends, and at 3 heads and a hidden width of 1024
 against the plain path in float64), GraphSAGE, LightGCN on the segment
 backend and GRACE and G-BT on a bucketed graph against their plain paths.
-The social models: one step of DiffNet and of MHCN on a bucketed and on a
-segment ``SocialDeviceGraph`` (P1 and K7 over the trust matrix, the motif
-channels and the rectangular [U, I] ``interaction_norm``, both ways)
-against the plain COO product in float64, and the rectangular pull and
-its transpose against their plain versions.
+P2, the pull over a row-sorted view (``csrc/segment_sum.cu``), bit for bit
+against P1 over the same view and itself and against its plain version, on
+a view with empty rows, rows of 1 to 128 slots and split hub rows, at d = 1
+to 1000, with and without values and row scales, over row cuts and on two
+streams. The social models: one step of DiffNet and of MHCN on a bucketed
+and on a segment ``SocialDeviceGraph`` (P1 and K7, or P2, over the trust
+matrix, the motif channels and the rectangular [U, I]
+``interaction_norm``, both ways) against the plain COO product in
+float64, and the rectangular pull and its transpose against their plain
+versions.
 The int8 path of the bucketed backend: Q1 (the row quantizer) bit for bit
 against its plain version at d = 250, 256 and 1024, with and without its
 pre-scale, and P1 with an int8 source against its plain version (the
@@ -779,6 +784,12 @@ def _two_calls(card, kernel):
         return [lambda g=g: list(seg_ops.weighted_pull_dot(g, w, st.t_idx, st.t_row_ptr,
                                                            st.t_fpos, g, st.t_node,
                                                            st.t_schedule)) for g in gs]
+    if kernel == "segment_sum":
+        view, _ = p2_views_of(card)
+        assert view.sums[2] > 0  # split rows: the pieces' counters are used
+        v = _random(card, rng, (view.n_slots,))[0]
+        xs = _random(card, rng, *[(view.n_cols, 64)] * 2)
+        return [lambda x=x: [seg_ops.segment_sum(x, view, v)] for x in xs]
     if kernel == "weighted_pull":
         view = _segment_view(card)
         assert view.n_partials > 0  # split rows: the pieces' counters are used
@@ -809,12 +820,12 @@ def _two_calls(card, kernel):
 
 @pytest.mark.parametrize("kernel", ["chain", "lse", "lse_bwd", "pull", "weighted_pull",
                                     "weighted_pull_dot", "attention_softmax", "pull_int8",
-                                    "quantize", "pull_int8_fused"])
+                                    "quantize", "pull_int8_fused", "segment_sum"])
 def test_calls_on_two_streams_equal_calls_in_turn(card, kernel):
     """Two calls launched on two streams at once give what the same calls
     give one after the other on one stream, bit for bit, ten times over:
-    the chain's tile counters, P1's, S1's and S2's piece counters and S2's
-    piece statistics, K5's and K6's partials and the fused pull's zeroed
+    the chain's tile counters, P1's, P2's, S1's and S2's piece counters and
+    S2's piece statistics, K5's and K6's partials and the fused pull's zeroed
     dot are not mixed between streams. The chain's calls on the two streams
     hold tile counter buffers of their own (``prop._COUNTS`` is keyed by
     device and stream)."""
@@ -1434,31 +1445,105 @@ def test_segment_wrappers_refuse_what_the_kernels_do_not_take(card):
             seg_ops.attention_softmax(a, a, idx, idx, ptr, None, 0.2, bad)
 
 
-# a step's segment-kernel and P1/K7 launches: GAT's two layers (S2 and S1
-# forward; S1 with the head dot, S2's backward and two P1 backward; K7 once forward and
-# three times backward a layer on the bucket rows; S2 twice a call where a row
-# is split), GraphSAGE's two means
-# (P1; the first takes no backward: the features are fixed), LightGCN's
-# three segment matmuls both ways, GRACE's and G-BT's two views of two
-# segment matmuls both ways
+# -- P2, the pull over a row-sorted view (csrc/segment_sum.cu) -----------------
+
+
+def p2_views_of(device):
+    """A view and its transpose whose rows hold 0, 1, 127, 128, 129, 1,000
+    and 4,840 slots (split into CHUNK pieces past 128), 40 empty rows in a
+    run (past an item's SUM_ROWS), 3,000 rows of 0 to 19 slots and 500 of 0
+    to 8, over 700 columns, the COO in no order."""
+    rng = np.random.default_rng(23)
+    lens = np.concatenate([[0, 1, 127, 128, 129, 1000], np.zeros(40, np.int64),
+                           rng.integers(0, 20, 3000), [4840], rng.integers(0, 9, 500)])
+    rows = np.repeat(np.arange(len(lens)), lens)
+    rng.shuffle(rows)
+    cols = rng.integers(0, 700, len(rows))
+    r, c = torch.from_numpy(rows).to(device), torch.from_numpy(cols).to(device)
+    return (seg_ops.segment_csr(r, c, len(lens), 700),
+            seg_ops.segment_csr(c, r, 700, len(lens)))
+
+
+@pytest.fixture(scope="module")
+def p2_views():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return p2_views_of("cuda")
+
+
+# P2 against P1 and the plain version: the plain version sums a row's slots
+# in another order (P1_TOL in chip_smoke.py); P1 and P2 in the same order
+P2_TOL = dict(rtol=1e-5)
+
+
+@pytest.mark.parametrize("d", [1, 10, 64, 256, 1000])
+@pytest.mark.parametrize("val,post", [(False, False), (True, False), (False, True),
+                                      (True, True)], ids=["sum", "val", "post", "val_post"])
+def test_segment_sum_is_p1_over_the_view(card, p2_views, d, val, post):
+    """P2 over a view with empty rows, rows of one to 128 slots and split
+    hub rows: equal to P1 over the same view (``gather_sum`` on its
+    ``pull_schedule``) bit for bit, to itself over two calls, and to
+    ``gather_sum_plain`` at P2_TOL with an atol of 1e-5 of its largest
+    entry; one launch a call."""
+    view, _ = p2_views
+    rng = np.random.default_rng(d)
+    x, v, p = _random(card, rng, (view.n_cols, d), (view.n_slots,), (view.n_rows,))
+    v, p = (v if val else None), (p if post else None)
+    before = seg_ops.segment_sum.launches
+    got, again = seg_ops.segment_sum(x, view, v, p), seg_ops.segment_sum(x, view, v, p)
+    assert seg_ops.segment_sum.launches == before + 2
+    p1 = gather_sum(x, view.idx, view.row_ptr, val=v, post=p, schedule=view.schedule)
+    want = gather_sum_plain(x, view.idx, view.row_ptr, v, p)
+    torch.cuda.synchronize()
+    assert view.sums[2] > 0 and got.shape == (view.n_rows, d)
+    assert torch.equal(got, again) and torch.equal(got, p1)
+    torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max().item(), **P2_TOL)
+
+
+@pytest.mark.parametrize("parts", [2, 3, 7])
+def test_segment_sum_over_row_cuts(card, p2_views, parts):
+    """P2 over each ``row_range_view`` of a row cut gives the whole view's
+    rows bit for bit (a row's pieces depend on its length alone), and over
+    each ``rows_transpose_view`` equals P1 over the same rows bit for bit."""
+    view, view_t = p2_views
+    rng = np.random.default_rng(parts)
+    x, v, g = _random(card, rng, (view.n_cols, 64), (view.n_slots,), (view.n_rows, 64))
+    whole = seg_ops.segment_sum(x, view, v)
+    for lo, hi in seg_ops.row_cut(view.row_ptr, parts):
+        cut = seg_ops.row_range_view(view, lo, hi)
+        s0, s1 = int(view.row_ptr[lo]), int(view.row_ptr[hi])
+        assert torch.equal(seg_ops.segment_sum(x, cut, v[s0:s1].contiguous()), whole[lo:hi])
+        t = seg_ops.rows_transpose_view(view_t, lo, hi)
+        gt = g[lo:hi].contiguous()
+        assert torch.equal(seg_ops.segment_sum(gt, t),
+                           gather_sum(gt, t.idx, t.row_ptr, schedule=t.schedule))
+
+
+# a step's segment-kernel, P1/K7 and P2 launches: GAT's two layers (S2 and
+# S1 forward; S1 with the head dot, S2's backward and two per-row sums
+# backward: P2 over the views, P1 over the bucket rows with K7 once forward
+# and three times backward a layer; S2 twice a call where a row is split),
+# GraphSAGE's two means (P2; the first takes no backward: the features are
+# fixed), LightGCN's three segment matmuls both ways, GRACE's and G-BT's two
+# views of two segment matmuls both ways (P2)
 _S = {"weighted_pull": 2, "weighted_pull_dot": 2, "attention_softmax": 2,
-      "attention_softmax_bwd": 2, "gather_sum": 4}
+      "attention_softmax_bwd": 2}
 SEGMENT_CASES = {
-    ("gat", "dense"): (PlainGAT, _S),
-    ("gat", "segment"): (PlainGAT, _S),
-    ("gat", "bucketed"): (PlainGAT, {**_S, "gather_rows": 8}),
-    ("graphsage", "dense"): (PlainGraphSAGE, {"gather_sum": 3}),
-    ("graphsage", "bucketed"): (PlainGraphSAGE, {"gather_sum": 3}),
-    ("lightgcn", "segment"): (None, {"gather_sum": 6}),
-    ("grace", "bucketed"): (None, {"gather_sum": 8}),
-    ("gbt", "bucketed"): (None, {"gather_sum": 8}),
+    ("gat", "dense"): (PlainGAT, {**_S, "segment_sum": 4}),
+    ("gat", "segment"): (PlainGAT, {**_S, "segment_sum": 4}),
+    ("gat", "bucketed"): (PlainGAT, {**_S, "gather_sum": 4, "gather_rows": 8}),
+    ("graphsage", "dense"): (PlainGraphSAGE, {"segment_sum": 3}),
+    ("graphsage", "bucketed"): (PlainGraphSAGE, {"segment_sum": 3}),
+    ("lightgcn", "segment"): (None, {"segment_sum": 6}),
+    ("grace", "bucketed"): (None, {"segment_sum": 8}),
+    ("gbt", "bucketed"): (None, {"segment_sum": 8}),
 }
 
 
 @pytest.mark.parametrize("name,backend", list(SEGMENT_CASES),
                          ids=["-".join(c) for c in SEGMENT_CASES])
 def test_segment_step_kernel_vs_plain(card, monkeypatch, name, backend):
-    """One step through the segment kernels and P1 (and K7) against the
+    """One step through the segment kernels and P2 (P1 and K7) against the
     plain path (``PlainGAT``, ``PlainGraphSAGE``, or the segment matmul's
     plain version in place of ``_segment_matmul``) on the same parameters,
     batch and masks: the launches, the loss, and the gradients, the bound
@@ -1478,7 +1563,7 @@ def test_segment_step_kernel_vs_plain(card, monkeypatch, name, backend):
                                          seg_ops.weighted_pull_dot, seg_ops.segment_softmax_rows,
                                          seg_ops.segment_softmax_rows_bwd,
                                          seg_ops.attention_softmax,
-                                         seg_ops.attention_softmax_bwd)}
+                                         seg_ops.attention_softmax_bwd, seg_ops.segment_sum)}
     names = [k for k in init if k not in model.frozen]
     out = []
     for plain in (False, True):
@@ -1580,8 +1665,8 @@ SOCIAL_CASES = {"diffnet": 2 * 3, "mhcn": 2 * 13}
 @pytest.mark.parametrize("backend", ["bucketed", "segment"])
 @pytest.mark.parametrize("name", list(SOCIAL_CASES))
 def test_social_step_kernel_vs_plain(card, social_set, name, backend):
-    """One step of a social model through P1 (and K7) against the same
-    step with the plain COO product for every ``adj_matmul`` in float64:
+    """One step of a social model through P1 and K7 (bucketed) or P2
+    (segment) against the same step with the plain COO product for every ``adj_matmul`` in float64:
     the launches, the loss, and each gradient by relative Frobenius error
     (MHCN's MIM loss sums over every user: f32-ill-conditioned), the bound
     rejecting zeros; MHCN's unused fourth supervised gate's bias exactly 0."""
@@ -1593,18 +1678,20 @@ def test_social_step_kernel_vs_plain(card, social_set, name, backend):
         epoch_words(torch.Generator().manual_seed(4), graph, 1024), graph, 1024)
     batch = PairwiseBatch(users[0], items[0], negs[0], weights[0])
     n = SOCIAL_CASES[name]
-    want = {"gather_sum": n, **({"gather_rows": n} if backend == "bucketed" else {})}
+    want = ({"gather_sum": n, "gather_rows": n} if backend == "bucketed"
+            else {"segment_sum": n})
+    counters = (gather_rows, gather_sum, seg_ops.segment_sum)
     out = []
     for dtype in (torch.float32, torch.float64):
         p = {k: v.detach().clone().to(dtype).requires_grad_() for k, v in init.items()}
-        before = gather_rows.launches, gather_sum.launches
+        before = [f.launches for f in counters]
         with spmm.plain_products() if dtype == torch.float64 else contextlib.nullcontext():
             loss, _ = model.loss(p, state, batch, graph, torch.Generator().manual_seed(6))
             grads = torch.autograd.grad(loss, list(p.values()))
         torch.cuda.synchronize()
-        n_rows, n_sum = gather_rows.launches - before[0], gather_sum.launches - before[1]
         out.append((loss.item(), dict(zip(p, grads)),
-                    {k: v for k, v in (("gather_rows", n_rows), ("gather_sum", n_sum)) if v}))
+                    {f.__name__: f.launches - b for f, b in zip(counters, before)
+                     if f.launches != b}))
     (loss_k, g_k, n_k), (loss_p, g_p, n_p) = out
     assert n_k == want and n_p == {}, (n_k, n_p, want)
     assert np.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-6 + 1e-5 * abs(loss_p)
@@ -1620,8 +1707,9 @@ def test_social_step_kernel_vs_plain(card, social_set, name, backend):
 @pytest.mark.parametrize("backend", ["bucketed", "segment"])
 def test_rectangular_interaction_pull(card, social_set, backend):
     """``interaction_norm`` ([U, I], one-sided row-normalized) and its
-    transpose (MHCN's item convolution) through P1 (and K7), forward and
-    backward, against the plain COO product: one P1 (and one K7) a product,
+    transpose (MHCN's item convolution) through P1 and K7 (bucketed) or P2
+    (segment), forward and backward, against the plain COO product: one P1
+    and one K7, or one P2, a product,
     rtol 1e-5 with an atol of 1e-5 of the plain result's largest entry;
     twice, bit for bit."""
     data, triples = social_set
@@ -1633,12 +1721,13 @@ def test_rectangular_interaction_pull(card, social_set, backend):
         got = []
         for _ in range(2):
             xk = x.clone().requires_grad_()
-            before = gather_rows.launches, gather_sum.launches
+            counters = (gather_rows, gather_sum, seg_ops.segment_sum)
+            before = [f.launches for f in counters]
             y = spmm.adj_matmul(adj, xk)
             dx, = torch.autograd.grad(y, xk, g)
             torch.cuda.synchronize()
-            launches = (gather_rows.launches - before[0], gather_sum.launches - before[1])
-            assert launches == ((2, 2) if backend == "bucketed" else (0, 2)), launches
+            launches = tuple(f.launches - b for f, b in zip(counters, before))
+            assert launches == ((2, 2, 0) if backend == "bucketed" else (0, 0, 2)), launches
             got.append((y.detach(), dx))
         assert all(torch.equal(a, b) for a, b in zip(*got))
         xp = x.clone().requires_grad_()
